@@ -1,0 +1,588 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port's main path on one NVIDIA GPU and check it.
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout, on a machine with a CUDA GPU and the CUDA
+toolkit (``nvcc``). Phases, each fatal on failure (non-zero exit):
+
+1. device and build: print ``nvidia-smi``'s name and power limit, build
+   every CUDA kernel of the path from ``src/repro_torch/csrc`` (one
+   ``nvcc`` per source, all at once);
+2. kernels against their plain PyTorch versions on the card, at the main
+   path's shapes: ``w4a8_matmul`` bitwise at M = slots and M = one prefill
+   batch, for every linear of qwen2.5-3b with and without bias;
+   ``kvq_decode_attn`` within one bf16 ulp on ragged lengths;
+3. serve: ``ServeEngine`` on ``cuda`` with qwen2.5-3b at full width
+   (random weights from a seed), policy A8d-C8-W4, w4a8 weights, dense
+   KV cache; 8 mixed-length requests through 4 slots, both kernels'
+   launch counts > 0, every request finished, tokens in the vocabulary;
+   one decode step's logits against the same engine on the plain
+   versions;
+4. times: each kernel per decode step (CUDA events, L2 flushed by
+   rotating input copies past 100 MB), its plain version, one PyTorch
+   call computing the same function (a yardstick the port never calls)
+   and the least time the card needs for the work; decode tok/s and TTFT.
+
+The line before the last is a JSON object with every kernel's numbers; the
+last line is ``{"ok": true, "device": {...}}``. Details go to
+``chiprun_out/chip_smoke.json``. Imports nothing of JAX.
+"""
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+from dataclasses import replace
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
+INT8_OPS_PER_S = 1979e12       # dense int8 tensor-core peak
+F32_FLOPS_PER_S = 67e12        # float32 outside the tensor cores
+L2_BYTES = 50 * 2 ** 20
+
+SLOTS = 4
+CACHE_LEN = 256
+MAX_NEW = 32
+PREFILL_M = SLOTS * 128        # one admission wave: 4 prompts padded to 128
+KVQ_TOL = (2.0 ** -7, 1e-4)    # rtol (one bf16 ulp), atol
+LOGIT_REL_TOL = 5e-2           # relative L2 error of one decode step
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def check(cond, msg):
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def import_port():
+    """The port's modules this script drives (fails outside a checkout)."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_config
+    from repro_torch.core import qat
+    from repro_torch.core.quantizer import unpack_int4
+    from repro_torch.kernels import build
+    from repro_torch.kernels.kvq_attn import ops as kvq_ops
+    from repro_torch.kernels.kvq_attn.ref import kvq_decode_attn_ref
+    from repro_torch.kernels.w4a8 import ops as w4a8_ops
+    from repro_torch.kernels.w4a8.ref import w4a8_matmul_ref
+    from repro_torch import models
+    from repro_torch.serve.engine import Request, ServeEngine
+    return dict(get_config=get_config, qat=qat, unpack_int4=unpack_int4,
+                build=build, kvq_ops=kvq_ops,
+                kvq_decode_attn_ref=kvq_decode_attn_ref, w4a8_ops=w4a8_ops,
+                w4a8_matmul_ref=w4a8_matmul_ref, models=models,
+                Request=Request, ServeEngine=ServeEngine)
+
+
+# --------------------------------------------------------------------------
+# timing
+# --------------------------------------------------------------------------
+
+def time_ms(torch, fn, arg_sets, min_calls=30):
+    """Device ms per call of ``fn(*args)`` cycling through ``arg_sets``
+    (copies whose total exceeds the L2 cache, so every call reads its
+    inputs from device memory). The calls are captured once in a CUDA
+    graph and the graph is replayed between two events, so the host's
+    per-call launch cost stays out of the number."""
+    n = max(min_calls, len(arg_sets))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):                   # warmup off-capture
+        for args in arg_sets[:2]:
+            fn(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(n):
+            fn(*arg_sets[i % len(arg_sets)])
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(stop) / n
+
+
+def host_issued_ms(torch, fn, arg_sets, min_calls=30):
+    """Wall ms per call when the host issues the calls one by one (what
+    the eager serving loop pays): host launch cost included."""
+    for args in arg_sets[:2]:
+        fn(*args)
+    torch.cuda.synchronize()
+    n = max(min_calls, len(arg_sets))
+    t0 = time.perf_counter()
+    for i in range(n):
+        fn(*arg_sets[i % len(arg_sets)])
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def copies_for(nbytes):
+    return max(1, min(256, math.ceil(2 * L2_BYTES / max(nbytes, 1))))
+
+
+def tensor_bytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+# --------------------------------------------------------------------------
+# phase 2 + 4: w4a8_matmul
+# --------------------------------------------------------------------------
+
+def linear_shapes(cfg):
+    """(name, K, N, launches per decode step) of every served linear."""
+    d, f, qd, kvd = cfg.d_model, cfg.d_ff, cfg.q_dim, cfg.kv_dim
+    L = cfg.n_layers
+    return [("q", d, qd, L), ("k", d, kvd, L), ("v", d, kvd, L),
+            ("o", qd, d, L), ("gate", d, f, L), ("up", d, f, L),
+            ("down", f, d, L), ("head", d, cfg.vocab_size, 1)]
+
+
+def w4a8_activations(torch, gen, M, K, dev):
+    x_q = torch.randint(-127, 128, (M, K), generator=gen, device=dev,
+                        dtype=torch.int8)
+    s_x = torch.rand((M, 1), generator=gen, device=dev) * 0.05 + 1e-3
+    return x_q, s_x
+
+
+def w4a8_weights(torch, gen, K, N, bias, dev):
+    w_p = torch.randint(0, 256, (N, K // 2), generator=gen, device=dev,
+                        dtype=torch.uint8)
+    s_w = torch.rand((N,), generator=gen, device=dev) * 0.05 + 1e-3
+    b = torch.randn((N,), generator=gen, device=dev) if bias else None
+    return w_p, s_w, b
+
+
+def w4a8_inputs(torch, gen, M, K, N, bias, dev):
+    x_q, s_x = w4a8_activations(torch, gen, M, K, dev)
+    w_p, s_w, b = w4a8_weights(torch, gen, K, N, bias, dev)
+    return x_q, w_p, s_x, s_w, b
+
+
+def w4a8_bound_ms(M, K, N, bias):
+    nbytes = M * K + N * K // 2 + 4 * M + 4 * N + (4 * N if bias else 0) \
+        + 2 * M * N
+    ops = 2 * M * N * K
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def check_w4a8(torch, P, cfg, dev, report):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    w4a8_matmul = P["w4a8_ops"].w4a8_matmul
+    ref = P["w4a8_matmul_ref"]
+    n_cmp = 0
+    for name, K, N, _ in linear_shapes(cfg):
+        for M in (SLOTS, PREFILL_M):
+            for bias in (False, True):
+                args = w4a8_inputs(torch, gen, M, K, N, bias, dev)
+                got = w4a8_matmul(*args)
+                want = ref(*args)
+                torch.cuda.synchronize()
+                check(got.dtype == want.dtype == torch.bfloat16
+                      and got.shape == want.shape,
+                      f"w4a8 {name} M={M}: dtype/shape")
+                if not torch.equal(got, want):
+                    diff = (got.float() - want.float()).abs()
+                    raise SmokeFailure(
+                        f"w4a8_matmul {name} M={M} bias={bias} K={K} N={N} "
+                        f"differs from its plain version: "
+                        f"{int((diff > 0).sum())} elements, max "
+                        f"{float(diff.max())}")
+                n_cmp += 1
+                del got, want, args
+    report["w4a8_compared"] = n_cmp
+    print(f"phase 2: w4a8_matmul bitwise equal to its plain version on "
+          f"{n_cmp} cases (M in {{{SLOTS}, {PREFILL_M}}}, 8 linears, "
+          f"with/without bias)", flush=True)
+    return 0.0
+
+
+def time_w4a8(torch, P, cfg, dev, report):
+    """Per-shape times at M = slots, summed over one decode step."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    w4a8_matmul = P["w4a8_ops"].w4a8_matmul
+    ref = P["w4a8_matmul_ref"]
+    unpack = P["unpack_int4"]
+    totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    t_bytes = t_ops = 0.0
+    rows = []
+    for name, K, N, per_step in linear_shapes(cfg):
+        bias = name in ("q", "k", "v")          # qwen2.5's QKV bias
+        M = SLOTS
+        x_q, s_x = w4a8_activations(torch, gen, M, K, dev)
+        nb = N * K // 2 + 4 * N * (2 if bias else 1)
+        sets = []
+        for _ in range(copies_for(nb)):
+            w_p, s_w, b = w4a8_weights(torch, gen, K, N, bias, dev)
+            sets.append((x_q, w_p, s_x, s_w, b))
+        t_k = time_ms(torch, w4a8_matmul, sets)
+        t_host = host_issued_ms(torch, w4a8_matmul, sets)
+        t_p = time_ms(torch, ref, sets[:copies_for(nb * 9)], min_calls=5)
+        x_deq = (x_q.float() * s_x).to(torch.bfloat16)
+        lib_sets = []
+        for s in sets[:copies_for(N * K * 2)]:
+            w_deq = (unpack(s[1]).float() * s[3][:, None]).to(torch.bfloat16)
+            lib_sets.append((x_deq, w_deq.T))
+        t_l = time_ms(torch, torch.matmul, lib_sets)
+        bound, by = w4a8_bound_ms(M, K, N, bias)
+        # the same linear at one admission wave's M (prefill)
+        xp_q, sp_x = w4a8_activations(torch, gen, PREFILL_M, K, dev)
+        t_pre = time_ms(torch, w4a8_matmul,
+                        [(xp_q,) + (s[1], sp_x) + s[3:] for s in sets],
+                        min_calls=10)
+        rows.append({"linear": name, "M": M, "K": K, "N": N,
+                     "prefill_M": PREFILL_M, "prefill_ms": t_pre,
+                     "prefill_bound_ms": w4a8_bound_ms(PREFILL_M, K, N,
+                                                       bias)[0],
+                     "per_decode_step": per_step, "ms": t_k,
+                     "host_issued_ms": t_host, "plain_ms": t_p,
+                     "library_ms": t_l, "bound_ms": bound, "bound_by": by})
+        totals["ms"] += per_step * t_k
+        totals["plain_ms"] += per_step * t_p
+        totals["library_ms"] += per_step * t_l
+        totals["bound_ms"] += per_step * bound
+        nbytes = M * K + N * K // 2 + 8 * M + 4 * N * (2 if bias else 1) \
+            + 2 * M * N
+        t_bytes += per_step * nbytes / HBM_BYTES_PER_S
+        t_ops += per_step * 2 * M * N * K / INT8_OPS_PER_S
+        del sets, lib_sets
+        torch.cuda.empty_cache()
+    report["w4a8_per_shape"] = rows
+    totals["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    return totals
+
+
+# --------------------------------------------------------------------------
+# phase 2 + 4: kvq_decode_attn
+# --------------------------------------------------------------------------
+
+def kvq_inputs(torch, gen, cfg, lengths, dev):
+    B, H, Hkv = SLOTS, cfg.n_heads, cfg.n_kv_heads
+    S, D = CACHE_LEN, cfg.resolved_head_dim
+    q = torch.randn((B, H, D), generator=gen, device=dev).to(torch.bfloat16)
+    k = torch.randint(-127, 128, (B, Hkv, S, D), generator=gen, device=dev,
+                      dtype=torch.int8)
+    v = torch.randint(-127, 128, (B, Hkv, S, D), generator=gen, device=dev,
+                      dtype=torch.int8)
+    s_k = torch.rand((B, Hkv, S), generator=gen, device=dev) * 0.02 + 1e-3
+    s_v = torch.rand((B, Hkv, S), generator=gen, device=dev) * 0.02 + 1e-3
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    return q, k, v, s_k, s_v, lens
+
+
+# ragged decode-time lengths inside cache_len (one full row, one fresh)
+KVQ_LENGTHS = (CACHE_LEN, 1, 97, 160)
+
+
+def check_kvq(torch, P, cfg, dev, report):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    args = kvq_inputs(torch, gen, cfg, KVQ_LENGTHS, dev)
+    got = P["kvq_ops"].kvq_decode_attn(*args).float()
+    want = P["kvq_decode_attn_ref"](*args).float()
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    rtol, atol = KVQ_TOL
+    check(bool(torch.isfinite(got).all()), "kvq_decode_attn: non-finite")
+    check(torch.allclose(got, want, rtol=rtol, atol=atol),
+          f"kvq_decode_attn differs from its plain version: max abs err "
+          f"{err} (rtol {rtol}, atol {atol})")
+    report["kvq_max_abs_err"] = err
+    print(f"phase 2: kvq_decode_attn within rtol {rtol} atol {atol} of its "
+          f"plain version (max abs err {err:.3g}, lengths {KVQ_LENGTHS})",
+          flush=True)
+    return err
+
+
+def time_kvq(torch, P, cfg, dev, report):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    base = kvq_inputs(torch, gen, cfg, KVQ_LENGTHS, dev)
+    nb = tensor_bytes(*base)
+    sets = [base] + [kvq_inputs(torch, gen, cfg, KVQ_LENGTHS, dev)
+                     for _ in range(copies_for(nb) - 1)]
+    kern = P["kvq_ops"].kvq_decode_attn
+    t_k = time_ms(torch, kern, sets)
+    t_host = host_issued_ms(torch, kern, sets)
+    t_p = time_ms(torch, P["kvq_decode_attn_ref"], sets)
+    import torch.nn.functional as F
+    G = cfg.n_heads // cfg.n_kv_heads
+    lib_sets = []
+    for q, k, v, s_k, s_v, lens in sets:
+        kd = (k.float() * s_k[..., None]).to(torch.bfloat16)
+        vd = (v.float() * s_v[..., None]).to(torch.bfloat16)
+        kd = kd.repeat_interleave(G, dim=1)
+        vd = vd.repeat_interleave(G, dim=1)
+        mask = (torch.arange(CACHE_LEN, device=dev)[None, :]
+                < lens[:, None])[:, None, None, :]
+        lib_sets.append((q[:, :, None, :], kd, vd, mask))
+    t_l = time_ms(torch, lambda q, k, v, m: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=m), lib_sets)
+    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    tokens = sum(KVQ_LENGTHS)
+    nbytes = (2 * SLOTS * H * D            # q
+              + tokens * Hkv * (2 * D + 8)  # int8 K/V rows + f32 scales
+              + 4 * SLOTS + 2 * SLOTS * H * D)
+    flops = 4 * tokens * H * D
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    per_step = cfg.n_layers
+    report["kvq_per_launch"] = {"ms": t_k, "host_issued_ms": t_host,
+                                "plain_ms": t_p, "library_ms": t_l,
+                                "bound_ms": max(t_b, t_o) * 1e3,
+                                "lengths": list(KVQ_LENGTHS)}
+    return {"ms": per_step * t_k, "plain_ms": per_step * t_p,
+            "library_ms": per_step * t_l,
+            "bound_ms": per_step * max(t_b, t_o) * 1e3,
+            "bound_by": "bytes" if t_b >= t_o else "operations"}
+
+
+# --------------------------------------------------------------------------
+# phase 3: serve
+# --------------------------------------------------------------------------
+
+def serve(torch, P, cfg, dev, report):
+    import numpy as np
+    qat, models = P["qat"], P["models"]
+    t0 = time.perf_counter()
+    params = models.init_params(cfg, seed=0, device=dev)
+    eng = P["ServeEngine"](cfg, params, policy="A8d-C8-W4", slots=SLOTS,
+                           cache_len=CACHE_LEN, max_new_cap=MAX_NEW,
+                           decode_block=8, weights_layout="w4a8", device=dev)
+    del params
+    # the w4a8 forward never reads the bf16 linear weights
+    eng.params = qat.drop_exported_weights(eng.params)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    report["setup_s"] = time.perf_counter() - t0
+    report["weights_bytes_after_drop"] = sum(
+        t.numel() * t.element_size() for t in _leaves(eng.params))
+
+    rng = np.random.default_rng(0)
+    lens = rng.integers(32, 129, 8)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
+               for n in lens]
+
+    # one decode step: kernels vs the same engine on the plain versions,
+    # from the same post-prefill cache (launches here are not counted)
+    L = int(math.ceil(max(lens[:SLOTS]) / 16) * 16)
+    toks = torch.zeros((SLOTS, L), dtype=torch.int32, device=dev)
+    for i in range(SLOTS):
+        toks[i, :lens[i]] = torch.from_numpy(prompts[i]).to(dev)
+    batch = {"tokens": toks, "lengths": torch.tensor(
+        lens[:SLOTS], dtype=torch.int32, device=dev)}
+    logits0, cache = models.prefill(cfg, eng.params, eng.ctx, batch,
+                                    cache_budget=CACHE_LEN)
+    tok1 = torch.argmax(logits0[:, -1].float(), -1).to(torch.int32)[:, None]
+    lk, _ = models.decode_step(cfg, eng.params, eng.ctx, tok1,
+                               models.clone_cache(cache))
+    plain_ctx = replace(eng.ctx, kernel_backend="ref")
+    lp, _ = models.decode_step(cfg, eng.params, plain_ctx, tok1,
+                               models.clone_cache(cache))
+    lk, lp = lk.float(), lp.float()
+    check(bool(torch.isfinite(lk).all()), "decode logits not finite")
+    rel = float(torch.linalg.vector_norm(lk - lp)
+                / torch.linalg.vector_norm(lp))
+    agree = float((lk.argmax(-1) == lp.argmax(-1)).float().mean())
+    report["decode_logits"] = {"rel_l2_err": rel,
+                               "max_abs_err": float((lk - lp).abs().max()),
+                               "argmax_agreement": agree,
+                               "logit_absmax": float(lp.abs().max())}
+    check(rel <= LOGIT_REL_TOL,
+          f"kernel decode logits differ from the plain versions' by "
+          f"relative L2 {rel} > {LOGIT_REL_TOL}")
+    print(f"phase 3: one decode step's logits, kernels vs plain versions: "
+          f"relative L2 {rel:.3g}, argmax agreement {agree:.2f}", flush=True)
+    del cache, logits0, lk, lp
+
+    reqs = [P["Request"](uid=i, prompt=p, max_new_tokens=MAX_NEW,
+                         temperature=0.8 if i % 4 == 3 else 0.0,
+                         top_k=8 if i % 4 == 3 else 0, seed=i)
+            for i, p in enumerate(prompts)]
+    w4a8_fn = P["w4a8_ops"].w4a8_matmul
+    kvq_fn = P["kvq_ops"].kvq_decode_attn
+    for r in reqs:
+        eng.submit(r)
+    w4a8_fn.launches = 0
+    kvq_fn.launches = 0
+    t0 = time.perf_counter()
+    stats = eng.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"w4a8_matmul": w4a8_fn.launches,
+                "kvq_decode_attn": kvq_fn.launches}
+    check(all(r.done for r in reqs), "not every request finished")
+    check(all(len(r.generated) == MAX_NEW for r in reqs),
+          "a request stopped short of max_new_tokens (no EOS was set)")
+    check(all(0 <= t < cfg.vocab_size for r in reqs for t in r.generated),
+          "a generated token is outside the vocabulary")
+    check(launches["w4a8_matmul"] > 0 and launches["kvq_decode_attn"] > 0,
+          f"a kernel of the path never launched: {launches}")
+    decode_tokens = stats["tokens_out"] - len(reqs)
+    served = {"requests": len(reqs), "tokens_out": stats["tokens_out"],
+              "wall_s": wall, "tokens_per_s": stats["tokens_out"] / wall,
+              "decode_tokens_per_s": decode_tokens / stats["decode_s"],
+              "decode_step_ms": 1e3 * stats["decode_step_s"],
+              "decode_steps": stats["decode_steps"],
+              "ttft_p50_s": stats["ttft_p50_s"],
+              "ttft_p95_s": stats["ttft_p95_s"],
+              "prefill_s": stats["prefill_s"],
+              "launches": launches,
+              "peak_memory_bytes": torch.cuda.max_memory_allocated(dev)}
+    report["serve"] = served
+    print("serve " + json.dumps(served), flush=True)
+    return launches, eng
+
+
+def profile_decode(torch, P, cfg, eng, report):
+    """Device busy time of decode chunks, from the profiler's CUDA
+    kernel records, beside the un-profiled decode step time."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.default_rng(5)
+    reqs = [P["Request"](uid=100 + i, prompt=rng.integers(
+        0, cfg.vocab_size, 64).astype(np.int32), max_new_tokens=MAX_NEW)
+        for i in range(SLOTS)]
+    for r in reqs:
+        eng.submit(r)
+    eng.step()                          # admission + first chunk, unprofiled
+    torch.cuda.synchronize()
+    steps0 = eng.stats()["decode_steps"]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        eng.step()
+        eng.step()
+        torch.cuda.synchronize()
+    steps = eng.stats()["decode_steps"] - steps0
+    eng.run_until_drained()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels or not steps:
+        report["decode_profile"] = "not measured: no device records"
+        return
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    busy_ms = sum(by_name.values()) / 1e3 / steps
+    step_ms = report["serve"]["decode_step_ms"]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    report["decode_profile"] = {
+        "decode_steps": steps, "device_busy_ms_per_step": busy_ms,
+        "decode_step_ms_unprofiled": step_ms,
+        "device_idle_share": max(0.0, 1.0 - busy_ms / step_ms),
+        "kernels_per_step": len(kernels) / steps,
+        "top_kernels_us_per_step": [(n[:90], us / steps) for n, us in top]}
+    print(f"decode profile: device busy {busy_ms:.2f} ms of a "
+          f"{step_ms:.2f} ms step ({len(kernels) / steps:.0f} kernels per "
+          f"step)", flush=True)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+# --------------------------------------------------------------------------
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is visible; this check runs only "
+              "on a GPU", file=sys.stderr)
+        return 1
+    try:
+        P = import_port()
+    except ImportError as e:
+        print(f"chip_smoke: cannot import the port next to this script "
+              f"({e}); run it from a checkout of the repository",
+              file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False   # exact f32 plain matmul
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    report = {}
+    t_start = time.perf_counter()
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
+    card = smi.stdout.strip().splitlines()[0]
+    report["card"] = card
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {torch.cuda.get_device_name(0)}", flush=True)
+
+    t0 = time.perf_counter()
+    libs = P["build"].build_all()
+    report["build_s"] = time.perf_counter() - t0
+    print(f"phase 1: built {sorted(libs)} in {report['build_s']:.1f} s",
+          flush=True)
+
+    cfg = P["get_config"]("qwen2.5-3b")
+    w4a8_err = check_w4a8(torch, P, cfg, dev, report)
+    kvq_err = check_kvq(torch, P, cfg, dev, report)
+    launches, eng = serve(torch, P, cfg, dev, report)
+    profile_decode(torch, P, cfg, eng, report)
+    del eng
+    torch.cuda.empty_cache()
+    w4a8_t = time_w4a8(torch, P, cfg, dev, report)
+    kvq_t = time_kvq(torch, P, cfg, dev, report)
+    report["total_s"] = time.perf_counter() - t_start
+
+    kernels = [
+        {"name": "w4a8_matmul", "route": "cuda",
+         "source": "src/repro_torch/csrc/w4a8_matmul.cu",
+         "replaces": "src/repro/kernels/w4a8/kernel.py:62",
+         "launches": launches["w4a8_matmul"], "max_abs_err": w4a8_err,
+         **w4a8_t,
+         "per": f"one decode step at M={SLOTS}: 36 layers x 7 linears + "
+                "the tied head"},
+        {"name": "kvq_decode_attn", "route": "cuda",
+         "source": "src/repro_torch/csrc/kvq_decode_attn.cu",
+         "replaces": "src/repro/kernels/kvq_attn/kernel.py:338",
+         "launches": launches["kvq_decode_attn"], "max_abs_err": kvq_err,
+         **kvq_t,
+         "per": f"one decode step: 36 launches at B={SLOTS}, H=16, Hkv=2, "
+                f"D=128, S={CACHE_LEN}, lengths {list(KVQ_LENGTHS)}"},
+    ]
+    report["kernels"] = kernels
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
+    print(f"done in {report['total_s']:.1f} s", flush=True)
+    print(card)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        sys.exit(main())
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        sys.exit(1)

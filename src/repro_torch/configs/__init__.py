@@ -1,0 +1,35 @@
+"""Architecture registry: ``--arch <id>`` lookup for full and reduced configs.
+
+The port holds the architectures it can serve; the others arrive with the
+slices that port their blocks.
+"""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.configs.base import ModelConfig
+
+_ARCH_MODULES = {
+    "qwen2.5-3b": "qwen2_5_3b",
+}
+
+ARCH_IDS = tuple(_ARCH_MODULES)
+
+
+def _module(arch: str):
+    try:
+        mod = _ARCH_MODULES[arch]
+    except KeyError:
+        raise KeyError(f"unknown arch {arch!r}; known: {sorted(_ARCH_MODULES)}")
+    return importlib.import_module(f"repro_torch.configs.{mod}")
+
+
+def get_config(arch: str) -> ModelConfig:
+    return _module(arch).CONFIG
+
+
+def get_reduced_config(arch: str) -> ModelConfig:
+    return _module(arch).reduced()
+
+
+__all__ = ["ARCH_IDS", "ModelConfig", "get_config", "get_reduced_config"]

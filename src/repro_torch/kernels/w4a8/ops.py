@@ -1,0 +1,96 @@
+"""Wrapper for the w4a8 matmul kernel: the deployed quantized linear.
+
+``w4a8_matmul`` launches the CUDA kernel (``csrc/w4a8_matmul.cu``) for
+CUDA tensors and runs the plain version (``ref.py``) for CPU tensors.
+``w4a8_linear(x, exported)`` takes bf16 activations, quantizes them per
+token to int8 (token-dynamic A8d deployment) and runs the matmul.
+``exported`` is the dict from ``repro_torch.core.qat.export_linear_w4``.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional
+
+import torch
+
+from repro_torch.core.quantizer import dynamic_quantize_to_int
+from repro_torch.kernels.checks import check_aligned, check_tensor
+from repro_torch.kernels.w4a8.ref import w4a8_matmul_ref
+
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    from repro_torch.kernels.build import load
+    lib = load("w4a8_matmul")
+    fn = lib.w4a8_matmul_launch
+    fn.argtypes = _ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def w4a8_matmul(x_q: torch.Tensor, w_packed: torch.Tensor, s_x: torch.Tensor,
+                s_w: torch.Tensor, bias: Optional[torch.Tensor] = None,
+                out_dtype=torch.bfloat16) -> torch.Tensor:
+    """x_q (M, K) int8, w_packed (N, K/2) uint8, s_x (M, 1) f32,
+    s_w (N,) f32, bias (N,) or None -> (M, N) ``out_dtype``.
+
+    CPU tensors run the plain version. CUDA tensors launch the kernel,
+    which takes f32 scales and bias, bf16 output and K % 32 == 0; anything
+    else raises.
+    """
+    if x_q.device.type == "cpu":
+        return w4a8_matmul_ref(x_q, w_packed, s_x, s_w, bias, out_dtype)
+    if x_q.device.type != "cuda":
+        raise ValueError(f"w4a8_matmul runs on cpu or cuda, got {x_q.device}")
+    M, K = x_q.shape
+    N = w_packed.shape[0]
+    dev = x_q.device
+    if out_dtype != torch.bfloat16:
+        raise TypeError("the w4a8 kernel writes bf16 output only")
+    if K % 32:
+        raise ValueError(f"the w4a8 kernel needs K % 32 == 0, got K={K}")
+    check_tensor("x_q", x_q, torch.int8, (M, K), dev)
+    check_tensor("w_packed", w_packed, torch.uint8, (N, K // 2), dev)
+    check_tensor("s_x", s_x, torch.float32, (M, 1), dev)
+    check_tensor("s_w", s_w, torch.float32, (N,), dev)
+    if bias is not None:
+        check_tensor("bias", bias, torch.float32, (N,), dev)
+    check_aligned("x_q", x_q)
+    check_aligned("w_packed", w_packed)
+    out = torch.empty((M, N), dtype=torch.bfloat16, device=dev)
+    err = _lib()(x_q.data_ptr(), w_packed.data_ptr(), s_x.data_ptr(),
+                 s_w.data_ptr(), None if bias is None else bias.data_ptr(),
+                 out.data_ptr(), M, N, K,
+                 torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"w4a8_matmul kernel launch failed: CUDA error "
+                           f"{err}")
+    w4a8_matmul.launches += 1
+    return out
+
+
+w4a8_matmul.launches = 0
+
+
+def w4a8_linear(x: torch.Tensor, exported: dict, out_dtype=torch.bfloat16,
+                plain: bool = False) -> torch.Tensor:
+    """Deployed quantized linear over arbitrary leading dims.
+
+    ``plain`` runs the plain version whatever the device (the card's
+    reference run in ``chip_smoke.py``); otherwise :func:`w4a8_matmul`
+    picks by device.
+    """
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    x_q, s_x = dynamic_quantize_to_int(x2, 8, axis=-1)
+    s_w = exported["s_w"].reshape(-1)
+    b = exported.get("b")
+    if plain:
+        y = w4a8_matmul_ref(x_q, exported["wq"], s_x, s_w, b, out_dtype)
+    else:
+        y = w4a8_matmul(x_q, exported["wq"], s_x, s_w,
+                        None if b is None else b.float(), out_dtype)
+    return y.reshape(*lead, -1)

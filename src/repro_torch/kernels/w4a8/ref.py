@@ -1,0 +1,44 @@
+"""Plain PyTorch version of the w4a8 integer matmul kernel.
+
+y = (x_q int8 @ w_q int4^T) * s_x * s_w (+ b)
+
+``w_packed``: (N, K/2) uint8, two int4 per byte along K (see
+``repro_torch.core.quantizer.pack_int4``). ``s_x``: (M, 1) per-token fp32.
+``s_w``: (N,) per-output-channel fp32.
+
+The integer accumulator is computed as an fp32 matmul of the integer
+values: every int8 x int4 partial product and its running sum stays under
+2^24 for K < 16512, so fp32 holds the exact integers whatever the
+summation order (the caller keeps TF32 off on the card, PyTorch's
+default for matmul). Scales multiply the completed accumulator in the
+kernel's order, each product rounded on its own, so the result is bitwise
+equal to the CUDA kernel.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.core.quantizer import unpack_int4
+
+
+def w4a8_accumulate_ref(x_q: torch.Tensor, w_packed: torch.Tensor) -> torch.Tensor:
+    """Exact (M, N) integer accumulator, as an int32 tensor."""
+    K = x_q.shape[1]
+    w_i8 = unpack_int4(w_packed)                         # (N, K)
+    if K * 127 * 8 < 2 ** 24:
+        acc = torch.matmul(x_q.float(), w_i8.float().T)
+        return acc.to(torch.int32)
+    return torch.matmul(x_q.long(), w_i8.long().T).to(torch.int32)
+
+
+def w4a8_matmul_ref(x_q: torch.Tensor, w_packed: torch.Tensor,
+                    s_x: torch.Tensor, s_w: torch.Tensor,
+                    bias: Optional[torch.Tensor] = None,
+                    out_dtype=torch.bfloat16) -> torch.Tensor:
+    acc = w4a8_accumulate_ref(x_q, w_packed)
+    y = acc.float() * s_x.float().reshape(-1, 1) * s_w.float().reshape(1, -1)
+    if bias is not None:
+        y = y + bias.float().reshape(1, -1)
+    return y.to(out_dtype)

@@ -1,0 +1,207 @@
+"""The port's dense ServeEngine (CPU, plain kernel versions) against the
+JAX package's ``ServeEngine(..., weights_layout="w4a8",
+w4a8_backend="ref")`` on the dense layout, reduced qwen2.5-3b.
+
+Greedy streams of reduced models are near-constant, so stream equality
+alone is weak evidence; the weights here are calibrated (varied streams)
+and a logit check rides along.
+
+Tolerance: the reference engine run op by op (``jax.disable_jit``) and
+the port agree bitwise — token streams, the first decode step's logits,
+and the step/token counters. The compiled reference engine can flip a
+greedy near-tie (XLA's fused arithmetic moves an ulp that per-token
+dynamic quantization amplifies; one request in six flipped at a later
+token in a larger workload measured when this test was written), so
+against it the test holds only the counters and the first token of
+every request, which come from one prefill.
+
+Sampled streams cannot be held against the reference: the port draws
+from torch generators, the reference from jax's threefry. They are held
+for determinism, vocabulary and the top-k support.
+"""
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_reduced_config
+from repro.core import qat as jqat
+from repro.core.precision import parse_policy
+from repro.models import decode_step as jax_decode_step
+from repro.models import init_params as jax_init_params
+from repro.serve.engine import Request as JRequest
+from repro.serve.engine import ServeEngine as JServeEngine
+from repro_torch import bridge
+from repro_torch.configs import get_reduced_config as t_get_reduced_config
+from repro_torch.models import clone_cache, decode_step
+from repro_torch.serve.engine import Request, ServeEngine
+
+POLICY = "A8d-C8-W4"
+ENGINE = dict(slots=2, cache_len=48, decode_block=4)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def served():
+    cfg = get_reduced_config("qwen2.5-3b")
+    params = jax_init_params(cfg, jax.random.PRNGKey(0))
+    params = jqat.calibrate_weight_scales(params, parse_policy(POLICY))
+    tparams = bridge.params_from_numpy(jax.tree.map(np.asarray, params),
+                                       "cpu")
+    return cfg, params, tparams
+
+
+def _prompts(cfg, lens=(5, 18, 11), seed=1):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+            for n in lens]
+
+
+def _jax_engine(cfg, params):
+    return JServeEngine(cfg, params, weights_layout="w4a8",
+                        w4a8_backend="ref", kv_layout="dense", **ENGINE)
+
+
+def _port_engine(tparams, **kw):
+    return ServeEngine(t_get_reduced_config("qwen2.5-3b"), tparams,
+                       weights_layout="w4a8", device="cpu",
+                       **{**ENGINE, **kw})
+
+
+def _serve(eng, cls, prompts, **req):
+    reqs = [cls(uid=i, prompt=p, **req) for i, p in enumerate(prompts)]
+    for r in reqs:
+        eng.submit(r)
+    stats = eng.run_until_drained()
+    assert all(r.done for r in reqs)
+    return [list(r.generated) for r in reqs], stats
+
+
+COUNTERS = ("tokens_out", "decode_steps", "decode_rounds", "prefill_calls",
+            "prompt_tokens_prefilled", "requests_finished", "max_residents")
+
+
+def test_greedy_streams_and_first_decode_logits(served):
+    cfg, params, tparams = served
+    # one admission wave of two lengths in one prefill bucket: op-by-op
+    # reference runs compile every op per shape, so the shapes stay few
+    prompts = _prompts(cfg, lens=(5, 14))
+    with jax.disable_jit():
+        ref, ref_stats = _serve(_jax_engine(cfg, params), JRequest, prompts,
+                                max_new_tokens=6)
+    got, stats = _serve(_port_engine(tparams), Request, prompts,
+                        max_new_tokens=6)
+    assert got == ref
+    assert len({tuple(s) for s in got}) > 1          # not one constant stream
+    for k in COUNTERS:
+        assert stats[k] == ref_stats[k], k
+    assert stats["packed_weight_bytes"] == ref_stats["packed_weight_bytes"]
+
+    # logit check: admit one wave in both engines, then one decode step
+    # from each engine's own post-admission state
+    jeng, teng = _jax_engine(cfg, params), _port_engine(tparams)
+    for i, p in enumerate(prompts):
+        jeng.submit(JRequest(uid=i, prompt=p, max_new_tokens=5))
+        teng.submit(Request(uid=i, prompt=p, max_new_tokens=5))
+    with jax.disable_jit():
+        jeng._admit()
+        jlogits, _ = jax_decode_step(cfg, jeng.params, jeng.ctx,
+                                     jeng.state["tokens"],
+                                     jeng.state["cache"])
+    teng._admit()
+    tlogits, _ = decode_step(teng.cfg, teng.params, teng.ctx,
+                             teng.state["tokens"],
+                             clone_cache(teng.state["cache"]))
+    np.testing.assert_array_equal(
+        np.asarray(jlogits.astype(np.float32)), tlogits.float().numpy())
+
+
+def test_counters_and_first_tokens_match_compiled_reference(served):
+    cfg, params, tparams = served
+    prompts = _prompts(cfg, lens=(7, 3, 18, 9, 26), seed=2)
+    ref, ref_stats = _serve(_jax_engine(cfg, params), JRequest, prompts,
+                            max_new_tokens=6)
+    got, stats = _serve(_port_engine(tparams), Request, prompts,
+                        max_new_tokens=6)
+    assert [s[0] for s in got] == [s[0] for s in ref]
+    for k in COUNTERS:
+        assert stats[k] == ref_stats[k], k
+
+
+def test_eos_stops_one_slot(served):
+    cfg, _, tparams = served
+    prompts = _prompts(cfg, lens=(6, 9))
+    free, _ = _serve(_port_engine(tparams), Request, prompts,
+                     max_new_tokens=8)
+    stop = free[0][2]                       # the third token of request 0
+    got, stats = _serve(_port_engine(tparams), Request, prompts,
+                        max_new_tokens=8, eos_id=stop)
+    assert got[0] == free[0][:free[0].index(stop) + 1]
+    assert stats["tokens_out"] == sum(len(s) for s in got)
+
+
+def test_sampled_streams_deterministic_and_in_vocab(served):
+    cfg, _, tparams = served
+    prompts = _prompts(cfg, lens=(4, 12, 8))
+    kw = dict(max_new_tokens=6, temperature=0.9, top_k=16)
+    a, _ = _serve(_port_engine(tparams), Request, prompts, seed=3, **kw)
+    b, _ = _serve(_port_engine(tparams), Request, prompts, seed=3, **kw)
+    c, _ = _serve(_port_engine(tparams), Request, prompts, seed=4, **kw)
+    assert a == b
+    assert a != c
+    assert all(0 <= t < cfg.vocab_size for s in a + c for t in s)
+
+
+def test_sample_tokens_rules():
+    """Greedy rows take the argmax; top_k=1 on distinct logits is the
+    argmax; top-k draws stay inside each row's k largest logits."""
+    from repro_torch.serve.sampling import sample_tokens, step_seed
+    rng = np.random.default_rng(0)
+    logits = torch.from_numpy(rng.permutation(64 * 6).reshape(6, 64)
+                              .astype(np.float32) / 50.0)
+    temp = torch.tensor([0.0, 0.7, 0.7, 1.5, 1.5, 1.5])
+    top_k = torch.tensor([0, 1, 4, 4, 0, 64], dtype=torch.int32)
+    seeds = [None] + [step_seed(9, r, 0) for r in range(1, 6)]
+    argmax = logits.argmax(-1)
+    for trial in range(20):
+        seeds_t = [None if s is None else s + trial for s in seeds]
+        got = sample_tokens(logits, temp, top_k, seeds_t)
+        assert got.dtype == torch.int32
+        assert got[0] == argmax[0] and got[1] == argmax[1]
+        top4 = torch.topk(logits[2:4], 4).indices
+        assert all(got[2 + i] in top4[i] for i in range(2))
+    assert torch.equal(sample_tokens(logits, temp, top_k, greedy_only=True),
+                       argmax.to(torch.int32))
+
+
+def test_submit_rejects_infeasible_requests(served):
+    _, _, tparams = served
+    eng = _port_engine(tparams, max_new_cap=8)
+    ok = np.arange(4, dtype=np.int32)
+    with pytest.raises(ValueError, match="max_new_cap"):
+        eng.submit(Request(uid=0, prompt=ok, max_new_tokens=9))
+    with pytest.raises(ValueError, match="cache_len"):
+        eng.submit(Request(uid=0, prompt=np.zeros(45, np.int32),
+                           max_new_tokens=5))
+    with pytest.raises(ValueError, match="vocab|\\["):
+        eng.submit(Request(uid=0, prompt=np.array([1, 999], np.int32),
+                           max_new_tokens=4))
+    with pytest.raises(ValueError, match="TOP_K_CAP"):
+        eng.submit(Request(uid=0, prompt=ok, max_new_tokens=4, top_k=65))
+
+
+@pytest.mark.parametrize("kw", [dict(kv_layout="paged"), dict(spec={"k": 2}),
+                                dict(decode_block="auto"),
+                                dict(slo_shed="reject"), dict(mesh=object()),
+                                dict(sched_policy="sjf")])
+def test_unported_options_raise(served, kw):
+    _, _, tparams = served
+    with pytest.raises(NotImplementedError):
+        _port_engine(tparams, **kw)

@@ -1,0 +1,120 @@
+"""Parity of the port's w4a8 matmul (plain version, CPU) with the JAX
+package's Pallas kernel (interpret mode on CPU) and its XLA reference.
+
+Tolerances: the int32 accumulators are exact (integer math on both
+sides). Without a bias the bf16 outputs are bitwise equal: both packages
+multiply the exact accumulator by s_x, then by s_w, each product rounded
+once in f32. With a bias the reference's XLA graph may contract
+``y * s_w + b`` into one FMA, which moves an isolated element by one bf16
+ulp (the JAX package's own Pallas-vs-ref test bounds it the same way);
+the port rounds every step, as its CUDA kernel does.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.quantizer import pack_int4, unpack_int4
+from repro.kernels.w4a8.ops import w4a8_linear as jax_w4a8_linear
+from repro.kernels.w4a8.ops import w4a8_matmul as jax_w4a8_matmul
+from repro.kernels.w4a8.ref import w4a8_matmul_ref as jax_w4a8_ref
+from repro_torch.kernels.w4a8.ops import w4a8_linear, w4a8_matmul
+from repro_torch.kernels.w4a8.ref import w4a8_accumulate_ref
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _case(m, k, n, bias, seed):
+    rng = np.random.default_rng(seed)
+    x_q = rng.integers(-127, 128, (m, k)).astype(np.int8)
+    w_q = rng.integers(-8, 8, (n, k)).astype(np.int8)
+    s_x = (rng.random((m, 1)) * 0.1 + 1e-3).astype(np.float32)
+    s_w = (rng.random((n,)) * 0.1 + 1e-3).astype(np.float32)
+    b = rng.standard_normal(n).astype(np.float32) if bias else None
+    w_p = np.array(pack_int4(jnp.asarray(w_q)))
+    return x_q, w_q, w_p, s_x, s_w, b
+
+
+def _torch(*arrs):
+    return [None if a is None else torch.from_numpy(np.array(a))
+            for a in arrs]
+
+
+def _f32(bf16_array):
+    return np.asarray(jnp.asarray(bf16_array).astype(jnp.float32))
+
+
+# odd everything, sub-tile, exact TPU tile, one past the tile boundary
+SHAPES = [(1, 2, 1), (3, 130, 5), (7, 66, 33), (256, 512, 256),
+          (257, 514, 259)]
+
+
+@pytest.mark.parametrize("mkn", SHAPES)
+def test_accumulator_exact(mkn):
+    x_q, w_q, w_p, *_ = _case(*mkn, False, sum(mkn))
+    oracle = x_q.astype(np.int64) @ w_q.astype(np.int64).T
+    xt, wt = _torch(x_q, w_p)
+    np.testing.assert_array_equal(w4a8_accumulate_ref(xt, wt).numpy(), oracle)
+    jax_acc = jnp.dot(jnp.asarray(x_q, jnp.int32),
+                      unpack_int4(jnp.asarray(w_p)).T.astype(jnp.int32))
+    np.testing.assert_array_equal(np.asarray(jax_acc), oracle)
+
+
+@pytest.mark.parametrize("mkn", SHAPES)
+@pytest.mark.parametrize("bias", [False, True])
+def test_matches_jax_pallas_and_ref(mkn, bias):
+    x_q, _, w_p, s_x, s_w, b = _case(*mkn, bias, sum(mkn) + 7 * bias)
+    got = w4a8_matmul(*_torch(x_q, w_p, s_x, s_w, b))
+    assert got.dtype == torch.bfloat16 and got.shape == (mkn[0], mkn[2])
+    g32 = got.float().numpy()
+    jargs = [None if a is None else jnp.asarray(a)
+             for a in (x_q, w_p, s_x, s_w, b)]
+    for use_pallas in (True, False):
+        ref = _f32(jax_w4a8_matmul(*jargs, use_pallas=use_pallas))
+        if b is None:
+            np.testing.assert_array_equal(g32, ref)
+        else:
+            # one bf16 ulp of v is at most |v| * 2**-7
+            ulp = 2.0 ** -7 * np.maximum(np.maximum(np.abs(g32), np.abs(ref)),
+                                         2.0 ** -126)
+            assert np.all(np.abs(g32 - ref) <= ulp)
+            assert np.sum(g32 != ref) <= max(1, g32.size // 10_000)
+    # against the JAX XLA reference called directly (bias-free: bitwise)
+    if b is None:
+        np.testing.assert_array_equal(g32, _f32(jax_w4a8_ref(*jargs)))
+
+
+@pytest.mark.parametrize("lead", [(5,), (2, 3)])
+def test_linear_matches_jax(lead):
+    """Dynamic int8 activation quantization + matmul over leading dims."""
+    rng = np.random.default_rng(len(lead))
+    k, n = 64, 24
+    x = np.array(jnp.asarray(rng.standard_normal(lead + (k,)), jnp.bfloat16))
+    _, _, w_p, _, s_w, _ = _case(1, k, n, False, 11)
+    exp_j = {"wq": jnp.asarray(w_p), "s_w": jnp.asarray(s_w[None])}
+    exp_t = {"wq": torch.from_numpy(w_p), "s_w": torch.from_numpy(s_w[None])}
+    ref = _f32(jax_w4a8_linear(jnp.asarray(x), exp_j, use_pallas=False))
+    from repro_torch.bridge import to_torch
+    got = w4a8_linear(to_torch(x, "cpu"), exp_t)
+    assert got.shape == lead + (n,)
+    np.testing.assert_array_equal(got.float().numpy(), ref)
+    np.testing.assert_array_equal(
+        w4a8_linear(to_torch(x, "cpu"), exp_t, plain=True).float().numpy(),
+        ref)
+
+
+def test_non_cpu_non_cuda_tensor_raises():
+    """A tensor that is not on the CPU never takes the plain version: the
+    wrapper launches its kernel (CUDA) or raises."""
+    x = torch.zeros((2, 32), dtype=torch.int8, device="meta")
+    w = torch.zeros((4, 16), dtype=torch.uint8, device="meta")
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        w4a8_matmul(x, w, torch.ones((2, 1), device="meta"),
+                    torch.ones((4,), device="meta"))
+    assert w4a8_matmul.launches == 0
