@@ -13,16 +13,26 @@ toolkit (``nvcc``). Phases, each fatal on failure (non-zero exit):
    path's shapes: ``w4a8_matmul`` bitwise at M = slots and M = one prefill
    batch, for every linear of qwen2.5-3b with and without bias;
    ``kvq_decode_attn`` within one bf16 ulp on ragged lengths;
+   ``kvq_paged_decode_attn`` within one bf16 ulp at block sizes 64 and 16
+   on shuffled tables with sentinels and a parked row;
+   ``gather_dequant_paged_kv`` and ``pool_block_copy`` bitwise;
 3. serve: ``ServeEngine`` on ``cuda`` with qwen2.5-3b at full width
    (random weights from a seed), policy A8d-C8-W4, w4a8 weights, dense
    KV cache; 8 mixed-length requests through 4 slots, both kernels'
    launch counts > 0, every request finished, tokens in the vocabulary;
    one decode step's logits against the same engine on the plain
    versions;
-4. times: each kernel per decode step (CUDA events, L2 flushed by
-   rotating input copies past 100 MB), its plain version, one PyTorch
-   call computing the same function (a yardstick the port never calls)
-   and the least time the card needs for the work; decode tok/s and TTFT.
+3b. paged serve: the same model on the paged pool (4 slots, blocks of
+   64, 32 blocks, prefix cache on); 8 requests sharing a 160-token prefix,
+   so prefix hits, copy-on-write of the split block and tail-waves all
+   happen; the three paged kernels' launch counts > 0 and the dense decode
+   kernel's 0; one decode step's logits paged vs dense and kernels vs
+   plain versions;
+4. times: each kernel per decode step, tail-wave or COW (CUDA events, L2
+   flushed by rotating input copies past 100 MB), its plain version, one
+   PyTorch call computing the same function (a yardstick the port never
+   calls) and the least time the card needs for the work; decode tok/s
+   and TTFT of both serve phases.
 
 The line before the last is a JSON object with every kernel's numbers; the
 last line is ``{"ok": true, "device": {...}}``. Details go to
@@ -70,13 +80,14 @@ def import_port():
     from repro_torch.core.quantizer import unpack_int4
     from repro_torch.kernels import build
     from repro_torch.kernels.kvq_attn import ops as kvq_ops
+    from repro_torch.kernels.kvq_attn import ref as kvq_ref
     from repro_torch.kernels.kvq_attn.ref import kvq_decode_attn_ref
     from repro_torch.kernels.w4a8 import ops as w4a8_ops
     from repro_torch.kernels.w4a8.ref import w4a8_matmul_ref
     from repro_torch import models
     from repro_torch.serve.engine import Request, ServeEngine
     return dict(get_config=get_config, qat=qat, unpack_int4=unpack_int4,
-                build=build, kvq_ops=kvq_ops,
+                build=build, kvq_ops=kvq_ops, kvq_ref=kvq_ref,
                 kvq_decode_attn_ref=kvq_decode_attn_ref, w4a8_ops=w4a8_ops,
                 w4a8_matmul_ref=w4a8_matmul_ref, models=models,
                 Request=Request, ServeEngine=ServeEngine)
@@ -354,6 +365,282 @@ def time_kvq(torch, P, cfg, dev, report):
 
 
 # --------------------------------------------------------------------------
+# phase 2 + 4: the paged kernels (kvq_paged_decode_attn,
+# gather_dequant_paged_kv, pool_block_copy)
+# --------------------------------------------------------------------------
+
+PAGED_TOKENS = 512             # the paged serve phase's per-slot extent
+PAGED_BS = (64, 16)            # the engine's block size and the tests'
+PAGED_LENGTHS = (512, 1, 97, 200)
+GATHER_SHAPE = (4, 8, 64)      # n rows, T table entries, bs
+COPY_LAYERS = 36
+
+
+def paged_pool(torch, gen, cfg, nb, bs, dev):
+    """Random int8 K/V pools and f32 scales of ``nb`` blocks plus the
+    sink block."""
+    Hkv, D = cfg.n_kv_heads, cfg.resolved_head_dim
+    k = torch.randint(-127, 128, (nb + 1, Hkv, bs, D), generator=gen,
+                      device=dev, dtype=torch.int8)
+    v = torch.randint(-127, 128, (nb + 1, Hkv, bs, D), generator=gen,
+                      device=dev, dtype=torch.int8)
+    s_k = torch.rand((nb + 1, Hkv, bs), generator=gen, device=dev) * 0.02 \
+        + 1e-3
+    s_v = torch.rand((nb + 1, Hkv, bs), generator=gen, device=dev) * 0.02 \
+        + 1e-3
+    return k, v, s_k, s_v
+
+
+def shuffled_table(torch, gen, nb, rows, T, lengths, bs, dev):
+    """Distinct non-contiguous blocks per row in a shuffled order, the
+    sentinel ``nb`` past each row's extent (all of a length-0 row)."""
+    perm = torch.randperm(nb, generator=gen, device=dev)[:rows * T]
+    tbl = perm.reshape(rows, T).to(torch.int32)
+    used = torch.tensor([-(-n // bs) for n in lengths], device=dev)
+    col = torch.arange(T, device=dev)[None]
+    return torch.where(col < used[:, None], tbl,
+                       torch.full_like(tbl, nb)).contiguous()
+
+
+def paged_inputs(torch, gen, cfg, bs, lengths, dev):
+    B, T = len(lengths), PAGED_TOKENS // bs
+    nb = B * T + 8                     # spare blocks the tables skip
+    H, D = cfg.n_heads, cfg.resolved_head_dim
+    q = torch.randn((B, H, D), generator=gen, device=dev).to(torch.bfloat16)
+    k, v, s_k, s_v = paged_pool(torch, gen, cfg, nb, bs, dev)
+    tbl = shuffled_table(torch, gen, nb, B, T, lengths, bs, dev)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    return q, k, v, s_k, s_v, tbl, lens
+
+
+def check_paged_decode(torch, P, cfg, dev, report):
+    """The paged decode kernel against its plain version at both block
+    sizes, on ragged lengths and with one parked (all-sentinel, length 0)
+    row in place of the one-token row."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    kern = P["kvq_ops"].kvq_paged_decode_attn
+    ref = P["kvq_ref"].kvq_paged_decode_attn_ref
+    rtol, atol = KVQ_TOL
+    worst = 0.0
+    for bs in PAGED_BS:
+        for lengths in (PAGED_LENGTHS,
+                        (PAGED_LENGTHS[0], 0) + PAGED_LENGTHS[2:]):
+            args = paged_inputs(torch, gen, cfg, bs, lengths, dev)
+            got = kern(*args).float()
+            want = ref(*args).float()
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(got).all()),
+                  f"kvq_paged_decode_attn bs={bs}: non-finite output")
+            err = float((got - want).abs().max())
+            check(torch.allclose(got, want, rtol=rtol, atol=atol),
+                  f"kvq_paged_decode_attn bs={bs} lengths {lengths} differs "
+                  f"from its plain version: max abs err {err} (rtol {rtol}, "
+                  f"atol {atol})")
+            if 0 in lengths:
+                check(bool((got[1] == 0).all()),
+                      "kvq_paged_decode_attn: a parked row is not zero")
+            worst = max(worst, err)
+    report["paged_decode_max_abs_err"] = worst
+    print(f"phase 2: kvq_paged_decode_attn within rtol {rtol} atol {atol} "
+          f"of its plain version at bs {PAGED_BS} (max abs err {worst:.3g}, "
+          f"lengths {PAGED_LENGTHS}, and a parked row)", flush=True)
+    return worst
+
+
+def gather_inputs(torch, gen, cfg, dev):
+    n, T, bs = GATHER_SHAPE
+    nb = n * T + 8
+    k, _, s_k, _ = paged_pool(torch, gen, cfg, nb, bs, dev)
+    lengths = [T * bs, 3 * bs + 5, 1, 5 * bs]
+    tbl = shuffled_table(torch, gen, nb, n, T, lengths, bs, dev)
+    return k, s_k, tbl
+
+
+def check_gather(torch, P, cfg, dev, report):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    args = gather_inputs(torch, gen, cfg, dev)
+    got = P["kvq_ops"].gather_dequant_paged_kv(*args)
+    want = P["kvq_ref"].gather_dequant_paged_kv_ref(*args)
+    torch.cuda.synchronize()
+    check(got.shape == want.shape and got.dtype == want.dtype,
+          "gather_dequant_paged_kv: dtype/shape")
+    if not torch.equal(got, want):
+        diff = (got - want).abs()
+        raise SmokeFailure(
+            f"gather_dequant_paged_kv differs from its plain version: "
+            f"{int((diff > 0).sum())} elements, max {float(diff.max())}")
+    report["gather_bitwise"] = True
+    print(f"phase 2: gather_dequant_paged_kv bitwise equal to its plain "
+          f"version (n, T, bs = {GATHER_SHAPE})", flush=True)
+    return 0.0
+
+
+def copy_leaves(torch, gen, cfg, nb, bs, dev):
+    """A 36-layer stacked pool leaf of each dtype, sink block included."""
+    Hkv, D = cfg.n_kv_heads, cfg.resolved_head_dim
+    payload = torch.randint(-127, 128, (COPY_LAYERS, nb + 1, Hkv, bs, D),
+                            generator=gen, device=dev, dtype=torch.int8)
+    scales = torch.rand((COPY_LAYERS, nb + 1, Hkv, bs), generator=gen,
+                        device=dev)
+    return payload, scales
+
+
+def check_copy(torch, P, cfg, dev, report):
+    """Bitwise COW clone on both leaf dtypes: real pairs copied, padding
+    pairs (dst >= NB) write nothing, every other block untouched."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(8)
+    nb, bs = PAGED_TOKENS * SLOTS // 64, 64
+    src = torch.tensor([3, 17, 0, 0], dtype=torch.int32, device=dev)
+    dst = torch.tensor([20, 5, nb, nb], dtype=torch.int32, device=dev)
+    kern = P["kvq_ops"].copy_pool_blocks
+    ref = P["kvq_ref"].copy_pool_blocks_ref
+    for leaf in copy_leaves(torch, gen, cfg, nb, bs, dev):
+        got, want = leaf.clone(), leaf.clone()
+        kern(got, src, dst)
+        ref(want, src, dst)
+        torch.cuda.synchronize()
+        name = f"pool_block_copy ({leaf.dtype})"
+        check(torch.equal(got[:, :nb], want[:, :nb]),
+              f"{name} differs from its plain version")
+        check(torch.equal(got[:, 20], leaf[:, 3])
+              and torch.equal(got[:, 5], leaf[:, 17]),
+              f"{name}: a destination block does not hold its source")
+        keep = [b for b in range(nb) if b not in (20, 5)]
+        check(torch.equal(got[:, keep], leaf[:, keep]),
+              f"{name}: a block outside dst changed")
+    report["copy_bitwise"] = True
+    print(f"phase 2: pool_block_copy bitwise equal to its plain version on "
+          f"{COPY_LAYERS}-layer int8 and f32 leaves, padding pairs dropped, "
+          f"untouched blocks unchanged", flush=True)
+    return 0.0
+
+
+def time_paged_decode(torch, P, cfg, dev, report):
+    """Per decode step (36 launches) at the paged serve phase's shapes:
+    B = 4 slots, T = 8 table entries of 64 tokens."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    bs = PAGED_BS[0]
+    base = paged_inputs(torch, gen, cfg, bs, PAGED_LENGTHS, dev)
+    sets = [base] + [paged_inputs(torch, gen, cfg, bs, PAGED_LENGTHS, dev)
+                     for _ in range(copies_for(tensor_bytes(*base)) - 1)]
+    kern = P["kvq_ops"].kvq_paged_decode_attn
+    t_k = time_ms(torch, kern, sets)
+    t_host = host_issued_ms(torch, kern, sets)
+    t_p = time_ms(torch, P["kvq_ref"].kvq_paged_decode_attn_ref, sets)
+    import torch.nn.functional as F
+    G = cfg.n_heads // cfg.n_kv_heads
+    gather = P["kvq_ref"].gather_paged_kv
+    lib_sets = []
+    S = PAGED_TOKENS
+    for q, k, v, s_k, s_v, tbl, lens in sets:
+        kd = (gather(k, tbl).float() * gather(s_k, tbl)[..., None])
+        vd = (gather(v, tbl).float() * gather(s_v, tbl)[..., None])
+        kd = kd.to(torch.bfloat16).repeat_interleave(G, dim=1)
+        vd = vd.to(torch.bfloat16).repeat_interleave(G, dim=1)
+        mask = (torch.arange(S, device=dev)[None, :]
+                < lens[:, None])[:, None, None, :]
+        lib_sets.append((q[:, :, None, :], kd, vd, mask))
+    t_l = time_ms(torch, lambda q, k, v, m: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=m), lib_sets)
+    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    B, T = len(PAGED_LENGTHS), PAGED_TOKENS // bs
+    tokens = sum(PAGED_LENGTHS)
+    nbytes = (2 * B * H * D                  # q
+              + tokens * Hkv * (2 * D + 8)   # resident int8 K/V + scales
+              + 4 * B * T + 4 * B            # table + lengths
+              + 2 * B * H * D)               # out
+    flops = 4 * tokens * H * D
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    per_step = cfg.n_layers
+    report["paged_decode_per_launch"] = {
+        "ms": t_k, "host_issued_ms": t_host, "plain_ms": t_p,
+        "library_ms": t_l, "bound_ms": max(t_b, t_o) * 1e3,
+        "lengths": list(PAGED_LENGTHS), "block_size": bs, "T": T}
+    return {"ms": per_step * t_k, "plain_ms": per_step * t_p,
+            "library_ms": per_step * t_l,
+            "bound_ms": per_step * max(t_b, t_o) * 1e3,
+            "bound_by": "bytes" if t_b >= t_o else "operations"}
+
+
+def time_gather(torch, P, cfg, dev, report):
+    """Per tail-wave (2 launches per layer, 72) at the serve phase's
+    largest wave: n = 4 rows, T = 8 entries of 64 tokens."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(10)
+    base = gather_inputs(torch, gen, cfg, dev)
+    n, T, bs = GATHER_SHAPE
+    Hkv, D = cfg.n_kv_heads, cfg.resolved_head_dim
+    out_bytes = 4 * n * Hkv * T * bs * D
+    sets = [base] + [gather_inputs(torch, gen, cfg, dev) for _ in range(
+        copies_for(tensor_bytes(*base) + out_bytes) - 1)]
+    t_k = time_ms(torch, P["kvq_ops"].gather_dequant_paged_kv, sets)
+    t_host = host_issued_ms(torch, P["kvq_ops"].gather_dequant_paged_kv,
+                            sets)
+    t_p = time_ms(torch, P["kvq_ref"].gather_dequant_paged_kv_ref, sets)
+    nb = base[0].shape[0] - 1
+
+    def library(pool, s, tbl):
+        idx = tbl.long().clamp(0, nb - 1)
+        return pool[idx].float() * s[idx][..., None]
+
+    t_l = time_ms(torch, library, sets)
+    rows = n * Hkv * T * bs
+    nbytes = rows * (D + 4) + 4 * n * T + out_bytes
+    t_b = nbytes / HBM_BYTES_PER_S
+    t_o = rows * D / F32_FLOPS_PER_S
+    per_wave = 2 * cfg.n_layers
+    report["gather_per_launch"] = {
+        "ms": t_k, "host_issued_ms": t_host, "plain_ms": t_p,
+        "library_ms": t_l, "bound_ms": max(t_b, t_o) * 1e3,
+        "n_T_bs": list(GATHER_SHAPE)}
+    return {"ms": per_wave * t_k, "plain_ms": per_wave * t_p,
+            "library_ms": per_wave * t_l,
+            "bound_ms": per_wave * max(t_b, t_o) * 1e3,
+            "bound_by": "bytes" if t_b >= t_o else "operations"}
+
+
+def time_copy(torch, P, cfg, dev, report):
+    """Per COW event: one pair, one launch on each of the four pool
+    leaves (two int8 payloads, two f32 scale leaves) of the serve phase's
+    36-layer pool."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    nb, bs = PAGED_TOKENS * SLOTS // 64, 64
+    src = torch.tensor([3], dtype=torch.int32, device=dev)
+    dst = torch.tensor([20], dtype=torch.int32, device=dev)
+    totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
+    nbytes = 0
+    per_leaf = []
+    for which in (0, 1):                    # int8 payload, f32 scales
+        leaf = copy_leaves(torch, gen, cfg, nb, bs, dev)[which]
+        n_copies = copies_for(tensor_bytes(leaf))
+        leaves = [leaf] + [leaf.clone() for _ in range(n_copies - 1)]
+        sets = [(x, src, dst) for x in leaves]
+
+        def library(x, s, d):
+            x[:, d.long()] = x[:, s.long()]
+
+        t = (time_ms(torch, P["kvq_ops"].copy_pool_blocks, sets),
+             time_ms(torch, P["kvq_ref"].copy_pool_blocks_ref, sets),
+             time_ms(torch, library, sets))
+        per_leaf.append({"dtype": str(leaf.dtype), "ms": t[0],
+                         "plain_ms": t[1], "library_ms": t[2]})
+        for key, v in zip(("ms", "plain_ms", "library_ms"), t):
+            totals[key] += 2 * v            # k and v leaves of this dtype
+        nbytes += 2 * 2 * leaf[:, 0].numel() * leaf.element_size()
+        del leaves, sets, leaf
+        torch.cuda.empty_cache()
+    report["copy_per_launch"] = per_leaf
+    totals["bound_ms"] = (nbytes + 4 * 8) / HBM_BYTES_PER_S * 1e3
+    totals["bound_by"] = "bytes"
+    return totals
+
+
+# --------------------------------------------------------------------------
 # phase 3: serve
 # --------------------------------------------------------------------------
 
@@ -450,9 +737,190 @@ def serve(torch, P, cfg, dev, report):
     return launches, eng
 
 
-def profile_decode(torch, P, cfg, eng, report):
+# --------------------------------------------------------------------------
+# phase 3b: paged serve, with prefix sharing, COW and the tail-wave
+# --------------------------------------------------------------------------
+
+PAGED_ENGINE = dict(kv_layout="paged", slots=SLOTS, cache_len=PAGED_TOKENS,
+                    block_size=64, prefill_chunk=64, max_new_cap=MAX_NEW,
+                    decode_block=8)
+SHARED_PREFIX = 160            # 2.5 blocks: the split block is shared
+
+
+def paged_engine(P, cfg, params, dev, **kw):
+    """An engine with the paged phase's settings (``kw`` overrides them;
+    ``kv_layout="dense"`` gives the dense engine of the same geometry)."""
+    return P["ServeEngine"](cfg, params, policy="A8d-C8-W4",
+                            weights_layout="w4a8", device=dev,
+                            **{**PAGED_ENGINE, **kw})
+
+
+def shared_prefix_requests(P, cfg, n, uid0, seed):
+    """n requests sharing a 160-token prefix, each with its own suffix of
+    24 to 72 tokens; every fourth samples (temperature 0.8, top-k 8).
+
+    The first suffix is the shortest, so the first prompt (184 tokens)
+    ends inside the block where the prompts diverge: the prefix index
+    registers that block as a split block with its content, and the
+    followers admitted after it share it and copy it on first write."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    prefix = rng.integers(0, cfg.vocab_size, SHARED_PREFIX)
+    reqs = []
+    for i in range(n):
+        tail = rng.integers(0, cfg.vocab_size, 24 + 48 * i // max(n - 1, 1))
+        sampled = i % 4 == 3
+        reqs.append(P["Request"](
+            uid=uid0 + i, prompt=np.concatenate([prefix, tail]).astype(
+                np.int32), max_new_tokens=MAX_NEW,
+            temperature=0.8 if sampled else 0.0,
+            top_k=8 if sampled else 0, seed=uid0 + i))
+    return reqs
+
+
+def logit_gap(torch, got, want):
+    got, want = got.float(), want.float()
+    rel = float(torch.linalg.vector_norm(got - want)
+                / torch.linalg.vector_norm(want))
+    agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    return rel, agree
+
+
+def check_paged_logits(torch, P, cfg, dev, params, report):
+    """Two one-step logit checks of the paged path, each within the
+    relative L2 bound: (a) paged vs dense engines on the same prompts with
+    the prefix cache off, both on the kernels; (b) on a paged state with
+    prefix hits, COW and tail-waves behind it, the kernels vs the plain
+    versions. No launch here is counted."""
+    import numpy as np
+    models = P["models"]
+    rng = np.random.default_rng(12)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
+               for n in rng.integers(32, 65, SLOTS)]
+    logits = {}
+    for layout, kw in (("dense", dict(kv_layout="dense")),
+                       ("paged", dict(prefix_cache=False))):
+        eng = paged_engine(P, cfg, params, dev, **kw)
+        for i, pr in enumerate(prompts):
+            eng.submit(P["Request"](uid=i, prompt=pr,
+                                    max_new_tokens=MAX_NEW))
+        eng._admit()
+        check(len(eng._slot_req) == SLOTS, f"{layout}: a wave short")
+        if layout == "paged":
+            eng._ensure_decode_blocks()
+        lg, _ = models.decode_step(cfg, eng.params, eng.ctx,
+                                   eng.state["tokens"],
+                                   models.clone_cache(eng.state["cache"]))
+        logits[layout] = lg
+        del eng
+    rel_a, agree_a = logit_gap(torch, logits["paged"], logits["dense"])
+    check(bool(torch.isfinite(logits["paged"]).all()),
+          "paged decode logits not finite")
+    check(rel_a <= LOGIT_REL_TOL,
+          f"paged decode logits differ from dense by relative L2 {rel_a} "
+          f"> {LOGIT_REL_TOL}")
+
+    eng = paged_engine(P, cfg, params, dev)
+    reqs = shared_prefix_requests(P, cfg, 2 * SLOTS, 300, seed=13)
+    for r in reqs:
+        eng.submit(r)
+    for _ in range(64):          # until a full slate decodes after a COW
+        eng.step()
+        if (len(eng._slot_req) == SLOTS and not eng._tail_jobs
+                and eng.stats()["cow_copies"] > 0):
+            break
+    st = eng.stats()
+    check(len(eng._slot_req) == SLOTS and st["cow_copies"] > 0
+          and st["tail_waves"] > 0,
+          f"logit check state lacks residents, COW or tail-waves: {st}")
+    eng._ensure_decode_blocks()
+    tokens = eng.state["tokens"]
+    lk, _ = models.decode_step(cfg, eng.params, eng.ctx, tokens,
+                               models.clone_cache(eng.state["cache"]))
+    plain_ctx = replace(eng.ctx, kernel_backend="ref")
+    lp, _ = models.decode_step(cfg, eng.params, plain_ctx, tokens,
+                               models.clone_cache(eng.state["cache"]))
+    rel_b, agree_b = logit_gap(torch, lk, lp)
+    check(bool(torch.isfinite(lk).all()), "paged kernel logits not finite")
+    check(rel_b <= LOGIT_REL_TOL,
+          f"paged kernel decode logits differ from the plain versions' by "
+          f"relative L2 {rel_b} > {LOGIT_REL_TOL}")
+    eng.run_until_drained()
+    check(all(r.done for r in reqs), "logit-check requests not finished")
+    report["paged_logits"] = {
+        "paged_vs_dense_rel_l2": rel_a, "paged_vs_dense_argmax": agree_a,
+        "kernels_vs_plain_rel_l2": rel_b, "kernels_vs_plain_argmax": agree_b}
+    print(f"phase 3b: one paged decode step's logits: vs dense relative L2 "
+          f"{rel_a:.3g} (argmax agreement {agree_a:.2f}); kernels vs plain "
+          f"versions {rel_b:.3g} ({agree_b:.2f})", flush=True)
+
+
+def serve_paged(torch, P, cfg, dev, params, report):
+    """qwen2.5-3b at full width on the paged pool: 8 requests sharing a
+    160-token prefix through 4 slots, prefix cache on."""
+    ops = P["kvq_ops"]
+    counted = {"kvq_paged_decode_attn": ops.kvq_paged_decode_attn,
+               "gather_dequant_paged_kv": ops.gather_dequant_paged_kv,
+               "pool_block_copy": ops.copy_pool_blocks,
+               "kvq_decode_attn": ops.kvq_decode_attn,
+               "w4a8_matmul": P["w4a8_ops"].w4a8_matmul}
+    eng = paged_engine(P, cfg, params, dev)
+    check(eng.num_blocks == 32 and eng.table_len == 8,
+          f"paged engine geometry: {eng.num_blocks} blocks, table "
+          f"{eng.table_len}")
+    reqs = shared_prefix_requests(P, cfg, 2 * SLOTS, 200, seed=14)
+    for r in reqs:
+        eng.submit(r)
+    for fn in counted.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    stats = eng.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counted.items()}
+    check(all(r.done for r in reqs), "paged: not every request finished")
+    check(all(len(r.generated) == MAX_NEW for r in reqs),
+          "paged: a request stopped short of max_new_tokens")
+    check(all(0 <= t < cfg.vocab_size for r in reqs for t in r.generated),
+          "paged: a generated token is outside the vocabulary")
+    check(stats["prefix_hit_blocks"] > 0 and stats["cow_copies"] > 0
+          and stats["tail_waves"] > 0,
+          f"paged: no prefix hit, COW or tail-wave: {stats}")
+    for name in ("kvq_paged_decode_attn", "gather_dequant_paged_kv",
+                 "pool_block_copy", "w4a8_matmul"):
+        check(launches[name] > 0, f"paged: {name} never launched: "
+                                  f"{launches}")
+    check(launches["kvq_decode_attn"] == 0,
+          f"paged: the dense decode kernel ran: {launches}")
+    check(stats["free_blocks"] == eng.num_blocks,
+          "paged: blocks leaked after the drain")
+    decode_tokens = stats["tokens_out"] - len(reqs)
+    served = {"requests": len(reqs), "tokens_out": stats["tokens_out"],
+              "wall_s": wall, "tokens_per_s": stats["tokens_out"] / wall,
+              "decode_tokens_per_s": decode_tokens / stats["decode_s"],
+              "decode_step_ms": 1e3 * stats["decode_step_s"],
+              "decode_steps": stats["decode_steps"],
+              "ttft_p50_s": stats["ttft_p50_s"],
+              "ttft_p95_s": stats["ttft_p95_s"],
+              "prefill_s": stats["prefill_s"],
+              "tail_waves": stats["tail_waves"],
+              "prefill_chunks": stats["prefill_chunks"],
+              "prefix_hit_tokens": stats["prefix_hit_tokens"],
+              "prefix_hit_blocks": stats["prefix_hit_blocks"],
+              "cow_copies": stats["cow_copies"],
+              "prompt_tokens_prefilled": stats["prompt_tokens_prefilled"],
+              "peak_cache_tokens": stats["peak_cache_tokens"],
+              "launches": launches,
+              "peak_memory_bytes": torch.cuda.max_memory_allocated(dev)}
+    report["serve_paged"] = served
+    print("serve_paged " + json.dumps(served), flush=True)
+    return launches, eng
+
+
+def profile_decode(torch, P, cfg, eng, report, key="serve"):
     """Device busy time of decode chunks, from the profiler's CUDA
-    kernel records, beside the un-profiled decode step time."""
+    kernel records, beside the un-profiled decode step time of the serve
+    phase ``key``."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
     rng = np.random.default_rng(5)
@@ -472,22 +940,23 @@ def profile_decode(torch, P, cfg, eng, report):
     eng.run_until_drained()
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
+    name = "decode_profile" if key == "serve" else f"{key}_decode_profile"
     if not kernels or not steps:
-        report["decode_profile"] = "not measured: no device records"
+        report[name] = "not measured: no device records"
         return
     by_name = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     busy_ms = sum(by_name.values()) / 1e3 / steps
-    step_ms = report["serve"]["decode_step_ms"]
+    step_ms = report[key]["decode_step_ms"]
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
-    report["decode_profile"] = {
+    report[name] = {
         "decode_steps": steps, "device_busy_ms_per_step": busy_ms,
         "decode_step_ms_unprofiled": step_ms,
         "device_idle_share": max(0.0, 1.0 - busy_ms / step_ms),
         "kernels_per_step": len(kernels) / steps,
         "top_kernels_us_per_step": [(n[:90], us / steps) for n, us in top]}
-    print(f"decode profile: device busy {busy_ms:.2f} ms of a "
+    print(f"{key} decode profile: device busy {busy_ms:.2f} ms of a "
           f"{step_ms:.2f} ms step ({len(kernels) / steps:.0f} kernels per "
           f"step)", flush=True)
 
@@ -543,12 +1012,31 @@ def main() -> int:
     cfg = P["get_config"]("qwen2.5-3b")
     w4a8_err = check_w4a8(torch, P, cfg, dev, report)
     kvq_err = check_kvq(torch, P, cfg, dev, report)
+    paged_err = check_paged_decode(torch, P, cfg, dev, report)
+    gather_err = check_gather(torch, P, cfg, dev, report)
+    copy_err = check_copy(torch, P, cfg, dev, report)
     launches, eng = serve(torch, P, cfg, dev, report)
     profile_decode(torch, P, cfg, eng, report)
+    params = eng.params                 # packed exports, bf16 linears gone
     del eng
+    torch.cuda.empty_cache()
+    paged_launches, eng = serve_paged(torch, P, cfg, dev, params, report)
+    profile_decode(torch, P, cfg, eng, report, key="serve_paged")
+    del eng
+    check_paged_logits(torch, P, cfg, dev, params, report)
+    del params
     torch.cuda.empty_cache()
     w4a8_t = time_w4a8(torch, P, cfg, dev, report)
     kvq_t = time_kvq(torch, P, cfg, dev, report)
+    paged_t = time_paged_decode(torch, P, cfg, dev, report)
+    gather_t = time_gather(torch, P, cfg, dev, report)
+    copy_t = time_copy(torch, P, cfg, dev, report)
+    for name, t in (("kvq_paged_decode_attn", paged_t),
+                    ("gather_dequant_paged_kv", gather_t),
+                    ("pool_block_copy", copy_t)):
+        print(f"phase 4: {name}: {t['ms']:.4f} ms (bound {t['bound_ms']:.5f}"
+              f" ms by {t['bound_by']}), plain {t['plain_ms']:.4f} ms, "
+              f"library {t['library_ms']:.4f} ms", flush=True)
     report["total_s"] = time.perf_counter() - t_start
 
     kernels = [
@@ -566,6 +1054,28 @@ def main() -> int:
          **kvq_t,
          "per": f"one decode step: 36 launches at B={SLOTS}, H=16, Hkv=2, "
                 f"D=128, S={CACHE_LEN}, lengths {list(KVQ_LENGTHS)}"},
+        {"name": "kvq_paged_decode_attn", "route": "cuda",
+         "source": "src/repro_torch/csrc/kvq_paged_decode_attn.cu",
+         "replaces": "src/repro/kernels/kvq_attn/kernel.py:109",
+         "launches": paged_launches["kvq_paged_decode_attn"],
+         "max_abs_err": paged_err, **paged_t,
+         "per": f"one paged decode step: 36 launches at B={SLOTS}, H=16, "
+                f"Hkv=2, D=128, block 64, T=8, lengths "
+                f"{list(PAGED_LENGTHS)}"},
+        {"name": "gather_dequant_paged_kv", "route": "cuda",
+         "source": "src/repro_torch/csrc/gather_dequant_paged_kv.cu",
+         "replaces": "src/repro/kernels/kvq_attn/kernel.py:174",
+         "launches": paged_launches["gather_dequant_paged_kv"],
+         "max_abs_err": gather_err, **gather_t,
+         "per": "one tail-wave: 72 launches (K and V of 36 layers) at "
+                "n, T, bs = %s" % (GATHER_SHAPE,)},
+        {"name": "pool_block_copy", "route": "cuda",
+         "source": "src/repro_torch/csrc/pool_block_copy.cu",
+         "replaces": "src/repro/kernels/kvq_attn/kernel.py:308",
+         "launches": paged_launches["pool_block_copy"],
+         "max_abs_err": copy_err, **copy_t,
+         "per": "one COW of one block: 4 launches (k_q, v_q, s_k, s_v "
+                "leaves of 36 layers)"},
     ]
     report["kernels"] = kernels
     out_dir = ROOT / "chiprun_out"

@@ -1,7 +1,11 @@
-"""Wrapper for the quantized-KV flash-decode kernel.
+"""Wrappers for the quantized-KV kernels of the dense and paged caches.
 
-``kvq_decode_attn`` launches the CUDA kernel (``csrc/kvq_decode_attn.cu``)
-for CUDA tensors and runs the plain version (``ref.py``) for CPU tensors.
+``kvq_decode_attn``, ``kvq_paged_decode_attn``, ``gather_dequant_paged_kv``
+and ``copy_pool_blocks`` launch their CUDA kernels (``csrc/<name>.cu``)
+for CUDA tensors and run the plain versions (``ref.py``) for CPU tensors.
+Each checks its inputs and counts its launches in ``.launches``.
+``commit_chunk_kv`` is a plain scatter on every device, as in the
+reference. Paged pool leaves carry a trailing sink block (see ``ref.py``).
 """
 from __future__ import annotations
 
@@ -10,23 +14,46 @@ import functools
 
 import torch
 
-from repro_torch.kernels.kvq_attn.ref import kvq_decode_attn_ref
+from repro_torch.kernels.kvq_attn.ref import (chunk_commit_ids,
+                                              copy_pool_blocks_ref,
+                                              gather_dequant_paged_kv_ref,
+                                              kvq_decode_attn_ref,
+                                              kvq_paged_decode_attn_ref,
+                                              pool_blocks, scatter_chunk_kv)
 from repro_torch.kernels.checks import check_aligned, check_tensor
 
-_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
-             + [ctypes.c_float, ctypes.c_void_p])
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# C signatures of the launchers: pointers and the stream as c_void_p
+_ARGTYPES = {
+    "kvq_decode_attn": (_P,) * 7 + (_I,) * 5 + (ctypes.c_float, _P),
+    "kvq_paged_decode_attn": (_P,) * 8 + (_I,) * 7 + (ctypes.c_float, _P),
+    "gather_dequant_paged_kv": (_P,) * 4 + (_I,) * 6 + (_P,),
+    "pool_block_copy": (_P,) * 3 + (_I,) * 2 + (ctypes.c_longlong,) * 2
+    + (_I, _P),
+}
 MAX_GROUP = 8       # query heads per KV head the kernel holds on chip
 HEAD_DIMS = (64, 128)
 
 
 @functools.lru_cache(maxsize=None)
-def _lib():
+def _fn(name: str):
+    """The C launcher ``<name>_launch`` of ``csrc/<name>.cu`` (built at
+    first use)."""
     from repro_torch.kernels.build import load
-    lib = load("kvq_decode_attn")
-    fn = lib.kvq_decode_attn_launch
-    fn.argtypes = _ARGTYPES
+    fn = getattr(load(name), f"{name}_launch")
+    fn.argtypes = list(_ARGTYPES[name])
     fn.restype = ctypes.c_int
     return fn
+
+
+def _raise_on(err: int, name: str) -> None:
+    if err:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+def _cuda_only(name: str, t: torch.Tensor) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} runs on cpu or cuda, got {t.device}")
 
 
 def kvq_decode_attn(q, k_q, v_q, s_k, s_v, lengths) -> torch.Tensor:
@@ -39,8 +66,7 @@ def kvq_decode_attn(q, k_q, v_q, s_k, s_v, lengths) -> torch.Tensor:
     """
     if q.device.type == "cpu":
         return kvq_decode_attn_ref(q, k_q, v_q, s_k, s_v, lengths)
-    if q.device.type != "cuda":
-        raise ValueError(f"kvq_decode_attn runs on cpu or cuda, got {q.device}")
+    _cuda_only("kvq_decode_attn", q)
     B, H, D = q.shape
     Hkv, S = k_q.shape[1], k_q.shape[2]
     dev = q.device
@@ -58,15 +84,156 @@ def kvq_decode_attn(q, k_q, v_q, s_k, s_v, lengths) -> torch.Tensor:
     check_aligned("k_q", k_q)
     check_aligned("v_q", v_q)
     out = torch.empty((B, H, D), dtype=torch.bfloat16, device=dev)
-    err = _lib()(q.data_ptr(), k_q.data_ptr(), v_q.data_ptr(),
-                 s_k.data_ptr(), s_v.data_ptr(), lengths.data_ptr(),
-                 out.data_ptr(), B, H, Hkv, S, D, D ** -0.5,
-                 torch.cuda.current_stream(dev).cuda_stream)
-    if err:
-        raise RuntimeError(f"kvq_decode_attn kernel launch failed: CUDA "
-                           f"error {err}")
+    err = _fn("kvq_decode_attn")(
+        q.data_ptr(), k_q.data_ptr(), v_q.data_ptr(), s_k.data_ptr(),
+        s_v.data_ptr(), lengths.data_ptr(), out.data_ptr(), B, H, Hkv, S, D,
+        D ** -0.5, torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "kvq_decode_attn")
     kvq_decode_attn.launches += 1
     return out
 
 
 kvq_decode_attn.launches = 0
+
+
+def kvq_paged_decode_attn(q, k_pool, v_pool, s_k, s_v, block_tbl,
+                          lengths) -> torch.Tensor:
+    """Decode attention through a block table over a paged int8 pool.
+
+    q (B,H,D); k_pool/v_pool (NB+1,Hkv,bs,D) int8 with the sink block;
+    s_k/s_v (NB+1,Hkv,bs) fp32; block_tbl (B,T) int32, entries >= NB are
+    sentinels (the kernel clamps them to NB-1 itself); lengths (B,) int32.
+    CPU tensors run the plain version. CUDA tensors launch the kernel,
+    which takes a bf16 q, H % Hkv == 0 with at most 8 query heads per KV
+    head and D of 64 or 128; anything else raises.
+    """
+    if q.device.type == "cpu":
+        return kvq_paged_decode_attn_ref(q, k_pool, v_pool, s_k, s_v,
+                                         block_tbl, lengths)
+    _cuda_only("kvq_paged_decode_attn", q)
+    B, H, D = q.shape
+    NB1, Hkv, bs = k_pool.shape[0], k_pool.shape[1], k_pool.shape[2]
+    T = block_tbl.shape[1]
+    dev = q.device
+    if H % Hkv or H // Hkv > MAX_GROUP:
+        raise ValueError(f"the kernel needs H % Hkv == 0 and H // Hkv <= "
+                         f"{MAX_GROUP}; got H={H}, Hkv={Hkv}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"the kernel needs D in {HEAD_DIMS}; got D={D}")
+    if NB1 < 2 or T < 1:
+        raise ValueError(f"the kernel needs a pool of >= 1 block plus the "
+                         f"sink and a table of >= 1 entry; got "
+                         f"{NB1} blocks, T={T}")
+    check_tensor("q", q, torch.bfloat16, (B, H, D), dev)
+    check_tensor("k_pool", k_pool, torch.int8, (NB1, Hkv, bs, D), dev)
+    check_tensor("v_pool", v_pool, torch.int8, (NB1, Hkv, bs, D), dev)
+    check_tensor("s_k", s_k, torch.float32, (NB1, Hkv, bs), dev)
+    check_tensor("s_v", s_v, torch.float32, (NB1, Hkv, bs), dev)
+    check_tensor("block_tbl", block_tbl, torch.int32, (B, T), dev)
+    check_tensor("lengths", lengths, torch.int32, (B,), dev)
+    check_aligned("k_pool", k_pool)
+    check_aligned("v_pool", v_pool)
+    out = torch.empty((B, H, D), dtype=torch.bfloat16, device=dev)
+    err = _fn("kvq_paged_decode_attn")(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), s_k.data_ptr(),
+        s_v.data_ptr(), block_tbl.data_ptr(), lengths.data_ptr(),
+        out.data_ptr(), B, H, Hkv, NB1 - 1, bs, T, D, D ** -0.5,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "kvq_paged_decode_attn")
+    kvq_paged_decode_attn.launches += 1
+    return out
+
+
+kvq_paged_decode_attn.launches = 0
+
+
+def gather_dequant_paged_kv(pool, s_pool, block_tbl) -> torch.Tensor:
+    """Dequantized history gather for the batched tail-wave.
+
+    pool (NB+1,Hkv,bs,D) int8 with the sink block; s_pool (NB+1,Hkv,bs)
+    fp32; block_tbl (n,T) int32 (sentinels clamped to NB-1). Returns
+    (n,Hkv,T*bs,D) f32, bitwise equal to the plain version. CPU tensors
+    run the plain version; CUDA tensors launch the kernel (D % 16 == 0).
+    """
+    if pool.device.type == "cpu":
+        return gather_dequant_paged_kv_ref(pool, s_pool, block_tbl)
+    _cuda_only("gather_dequant_paged_kv", pool)
+    NB1, Hkv, bs, D = pool.shape
+    n, T = block_tbl.shape
+    dev = pool.device
+    if D % 16 or NB1 < 2 or T < 1:
+        raise ValueError(f"the kernel needs D % 16 == 0, a pool of >= 1 "
+                         f"block plus the sink and T >= 1; got D={D}, "
+                         f"{NB1} blocks, T={T}")
+    check_tensor("pool", pool, torch.int8, (NB1, Hkv, bs, D), dev)
+    check_tensor("s_pool", s_pool, torch.float32, (NB1, Hkv, bs), dev)
+    check_tensor("block_tbl", block_tbl, torch.int32, (n, T), dev)
+    check_aligned("pool", pool)
+    out = torch.empty((n, Hkv, T * bs, D), dtype=torch.float32, device=dev)
+    err = _fn("gather_dequant_paged_kv")(
+        pool.data_ptr(), s_pool.data_ptr(), block_tbl.data_ptr(),
+        out.data_ptr(), n, Hkv, NB1 - 1, bs, T, D,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "gather_dequant_paged_kv")
+    gather_dequant_paged_kv.launches += 1
+    return out
+
+
+gather_dequant_paged_kv.launches = 0
+
+
+def copy_pool_blocks(pool, src, dst) -> torch.Tensor:
+    """Copy-on-write block clone, in place, over a layer-stacked leaf.
+
+    pool (rep, NB+1, ...) int8 payload or fp32 scales with the sink block;
+    src/dst (n,) int32 block-id pairs, ``dst`` entries >= NB are padding
+    and write nothing. Returns ``pool``. CPU tensors run the plain
+    version; CUDA tensors launch the kernel, which copies whole blocks
+    (every dim after the block axis contiguous).
+    """
+    if pool.device.type == "cpu":
+        return copy_pool_blocks_ref(pool, src, dst)
+    _cuda_only("copy_pool_blocks", pool)
+    dev = pool.device
+    rep, nb1 = pool.shape[0], pool.shape[1]
+    (n,) = src.shape
+    if nb1 < 2:
+        raise ValueError("the kernel needs a pool of >= 1 block plus the "
+                         "sink")
+    if not pool[0].is_contiguous() or pool.stride(0) < pool[0].numel():
+        raise ValueError("pool must hold each layer's blocks contiguously")
+    check_tensor("src", src, torch.int32, (n,), dev)
+    check_tensor("dst", dst, torch.int32, (n,), dev)
+    es = pool.element_size()
+    err = _fn("pool_block_copy")(
+        pool.data_ptr(), src.data_ptr(), dst.data_ptr(), n, rep,
+        pool.stride(0) * es, pool[0, 0].numel() * es, nb1 - 1,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "pool_block_copy")
+    copy_pool_blocks.launches += 1
+    return pool
+
+
+copy_pool_blocks.launches = 0
+
+
+def commit_chunk_kv(cache: dict, k_q, v_q, s_k, s_v, block_tbl, offset,
+                    chunk_len) -> None:
+    """Commit a batch of prefill windows into one layer's block pool, in
+    place, with per-row write offsets.
+
+    cache: layer dict with pool leaves k_q/v_q (NB+1,Hkv,bs,D) and s_k/s_v
+    (NB+1,Hkv,bs). k_q/v_q (n,Hkv,C,D) int, s_k/s_v (n,Hkv,C) fp32: the
+    quantized windows of n slots, row i starting at absolute position
+    ``offset[i]`` with ``chunk_len[i]`` real tokens; block_tbl (n,T).
+    Padding rows and positions land in the sink. A plain indexed scatter
+    on every device, as in the reference (its XLA scatter is already
+    memory-bound-optimal; a kernel would move the same bytes).
+    """
+    bs = cache["k_q"].shape[2]
+    blk, off = chunk_commit_ids(block_tbl, offset, chunk_len, k_q.shape[2],
+                                bs, pool_blocks(cache["k_q"]))
+    scatter_chunk_kv(cache["k_q"], k_q.transpose(1, 2), blk, off)
+    scatter_chunk_kv(cache["v_q"], v_q.transpose(1, 2), blk, off)
+    scatter_chunk_kv(cache["s_k"], s_k.transpose(1, 2), blk, off)
+    scatter_chunk_kv(cache["s_v"], s_v.transpose(1, 2), blk, off)

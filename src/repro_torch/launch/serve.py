@@ -6,6 +6,7 @@ front, drains the engine and reports throughput, TTFT and the kernels'
 launch counts::
 
     python -m repro_torch.launch.serve --full --weights w4a8
+    python -m repro_torch.launch.serve --full --weights w4a8 --kv-layout paged
 
 Runs on ``cuda`` by default; ``--device cpu`` runs the plain PyTorch
 versions of the kernels on a reduced model (``--full`` off).
@@ -19,7 +20,7 @@ import time
 import numpy as np
 
 from repro_torch.configs import get_config, get_reduced_config
-from repro_torch.kernels.kvq_attn.ops import kvq_decode_attn
+from repro_torch.kernels.kvq_attn import ops as kvq_ops
 from repro_torch.kernels.w4a8.ops import w4a8_matmul
 from repro_torch.models import init_params
 from repro_torch.serve.engine import Request, ServeEngine
@@ -57,6 +58,28 @@ def main(argv=None):
     ap.add_argument("--cache-len", type=int, default=128)
     ap.add_argument("--decode-block", type=int, default=8,
                     help="decode steps per chunk between host syncs")
+    ap.add_argument("--kv-layout", default="dense",
+                    choices=("dense", "paged"),
+                    help="paged = block-table KV pool with free-block "
+                         "admission, chunked prefill and prefix sharing")
+    ap.add_argument("--block-size", type=int, default=64,
+                    help="tokens per cache block (paged layout)")
+    ap.add_argument("--num-blocks", type=int, default=0,
+                    help="pool size in blocks (0 = match the dense "
+                         "slots*cache_len budget)")
+    ap.add_argument("--max-seq-len", type=int, default=0,
+                    help="per-request token cap / block-table width "
+                         "(paged; 0 = match the dense cache_len)")
+    ap.add_argument("--no-prefix-cache", action="store_true",
+                    help="disable prefix sharing (paged; on by default: "
+                         "prompts extending a cached prefix map the same "
+                         "pool blocks and prefill only their tail)")
+    ap.add_argument("--tail-batch", type=int, default=0,
+                    help="max tail/chunked prefills advanced per batched "
+                         "wave (0 = every slot, 1 = one per step)")
+    ap.add_argument("--no-prefix-affinity", action="store_true",
+                    help="disable chain-grouped scheduling of prefix-hit "
+                         "requests")
     ap.add_argument("--weights", default="bf16", choices=("bf16", "w4a8"),
                     help="serve weight layout: bf16 fake-quant matmuls, or "
                          "w4a8 packed-int4 weights x dynamic-int8 "
@@ -69,19 +92,32 @@ def main(argv=None):
 
     cfg = get_config(args.arch) if args.full else get_reduced_config(args.arch)
     params = init_params(cfg, seed=0, device=args.device)
+    kw = {}
+    if args.kv_layout == "paged":
+        kw = {"kv_layout": "paged", "block_size": args.block_size,
+              "num_blocks": args.num_blocks or None,
+              "max_seq_len": args.max_seq_len or None,
+              "prefix_cache": not args.no_prefix_cache,
+              "tail_batch": args.tail_batch,
+              "prefix_affinity": not args.no_prefix_affinity}
     eng = ServeEngine(cfg, params, policy=args.policy, slots=args.slots,
                       cache_len=args.cache_len,
                       max_new_cap=max(args.max_new, 1),
                       decode_block=args.decode_block,
-                      weights_layout=args.weights, device=args.device)
+                      weights_layout=args.weights, device=args.device, **kw)
     del params
     print(f"arch={cfg.name} layers={cfg.n_layers} d_model={cfg.d_model} "
           f"policy={args.policy} weights={args.weights} "
           f"device={eng.device} slots={args.slots} "
-          f"cache_len={args.cache_len}")
+          f"cache_len={args.cache_len} kv_layout={args.kv_layout}")
     reqs = build_requests(args, cfg)
-    w4a8_matmul.launches = 0
-    kvq_decode_attn.launches = 0
+    counted = {"w4a8_matmul": w4a8_matmul,
+               "kvq_decode_attn": kvq_ops.kvq_decode_attn,
+               "kvq_paged_decode_attn": kvq_ops.kvq_paged_decode_attn,
+               "gather_dequant_paged_kv": kvq_ops.gather_dequant_paged_kv,
+               "pool_block_copy": kvq_ops.copy_pool_blocks}
+    for fn in counted.values():
+        fn.launches = 0
     t0 = time.perf_counter()
     for r in reqs:
         eng.submit(r)
@@ -91,8 +127,8 @@ def main(argv=None):
     stats["tokens_per_s"] = stats["tokens_out"] / wall
     stats["decode_tokens_per_s"] = ((stats["tokens_out"] - len(reqs))
                                     / max(stats["decode_s"], 1e-12))
-    stats["kernel_launches"] = {"w4a8_matmul": w4a8_matmul.launches,
-                                "kvq_decode_attn": kvq_decode_attn.launches}
+    stats["kernel_launches"] = {name: fn.launches
+                                for name, fn in counted.items()}
     print(f"served {len(reqs)} requests, {stats['tokens_out']} tokens in "
           f"{wall:.3f} s: {stats['tokens_per_s']:.1f} tok/s "
           f"(decode {stats['decode_tokens_per_s']:.1f} tok/s), "

@@ -1,6 +1,7 @@
 """Functional model of the dense GQA decoder with SiLQ quantization sites."""
 from repro_torch.models.model import (clone_cache, decode_step, head_logits,
-                                      init_cache, init_params, prefill)
+                                      init_cache, init_params, prefill,
+                                      prefill_tail)
 
 __all__ = ["clone_cache", "decode_step", "head_logits", "init_cache",
-           "init_params", "prefill"]
+           "init_params", "prefill", "prefill_tail"]

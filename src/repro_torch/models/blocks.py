@@ -7,6 +7,13 @@ KV cache and the SwiGLU MLP, with SiLQ quantization sites (paper Fig. 2):
 
 Caches are updated in place: the engine owns one cache per layer for its
 whole life, and a decode step writes its new K/V row into it.
+
+Two cache layouts: the dense ring (``init_attn_cache``, one stripe of
+``cache_len`` rows per slot) and the paged pool (``init_paged_attn_cache``,
+blocks of ``page_size`` tokens shared by every slot through a block table).
+A paged layer's pool leaves are views of layer-stacked tensors with one
+block more than the pool holds: the last block is the write sink for
+sentinel destinations (``kernels/kvq_attn/ref.py``).
 """
 from __future__ import annotations
 
@@ -19,9 +26,13 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.qat import (QuantCtx, cache_quantize, init_linear,
                                   qlinear, quantize_act)
 from repro_torch.core.quantizer import quantize_to_int
+from repro_torch.kernels.kvq_attn.ref import gather_paged_kv, pool_blocks
 from repro_torch.models.common import (apply_rope, blockwise_attention,
                                        decode_attention_intcache,
                                        head_rms_norm, rope_tables)
+
+POOL_KEYS = ("k_q", "v_q", "s_k", "s_v")     # pool-shaped paged leaves
+_NEG = -1e30
 
 
 def _decode_attn(ctx: QuantCtx, q, k_q, v_q, s_k, s_v, lengths) -> torch.Tensor:
@@ -36,6 +47,26 @@ def _decode_attn(ctx: QuantCtx, q, k_q, v_q, s_k, s_v, lengths) -> torch.Tensor:
         from repro_torch.kernels.kvq_attn.ops import kvq_decode_attn
         return kvq_decode_attn(q, k_q, v_q, s_k, s_v, lengths)
     return decode_attention_intcache(q, k_q, v_q, s_k, s_v, lengths)
+
+
+def _decode_attn_paged(ctx: QuantCtx, q, k_pool, v_pool, s_k, s_v,
+                       block_tbl, lengths) -> torch.Tensor:
+    """Decode attention through a block table over the global pool.
+
+    CUDA tensors go through the hand-written paged kernel, which walks
+    each slot's table itself; CPU tensors, and every tensor under
+    ``kernel_backend="ref"``, gather the slot's blocks into a contiguous
+    view and take the dense plain path, so dense and paged decode agree
+    bitwise there, as in the reference.
+    """
+    if q.is_cuda and ctx.kernel_backend != "ref":
+        from repro_torch.kernels.kvq_attn.ops import kvq_paged_decode_attn
+        return kvq_paged_decode_attn(q, k_pool, v_pool, s_k, s_v,
+                                     block_tbl, lengths)
+    return decode_attention_intcache(
+        q, gather_paged_kv(k_pool, block_tbl),
+        gather_paged_kv(v_pool, block_tbl), gather_paged_kv(s_k, block_tbl),
+        gather_paged_kv(s_v, block_tbl), lengths)
 
 
 # ==========================================================================
@@ -143,7 +174,8 @@ def _ring_gather(val: torch.Tensor, lengths: torch.Tensor,
 
 def attn_prefill(cfg: ModelConfig, ctx: QuantCtx, p: Dict, x: torch.Tensor,
                  rope, *, cache_len: int = 0,
-                 lengths: Optional[torch.Tensor] = None):
+                 lengths: Optional[torch.Tensor] = None,
+                 page_size: int = 0):
     """Causal attention over the prompt that also emits the quantized
     dense cache for serving.
 
@@ -152,6 +184,11 @@ def attn_prefill(cfg: ModelConfig, ctx: QuantCtx, p: Dict, x: torch.Tensor,
     holds the true per-row length, so one padded prefill call admits
     prompts of different lengths (causality keeps real-token outputs
     independent of the padding).
+
+    ``page_size`` > 0 emits the cache in *block shape* (B, nb, Hkv,
+    page_size, D) instead: the paged engine scatters those blocks into
+    the global pool through the rows' block ids. The attention is the
+    same either way.
     """
     B, S, _ = x.shape
     q, k, v = _qkv(cfg, ctx, p, x, rope)
@@ -159,9 +196,13 @@ def attn_prefill(cfg: ModelConfig, ctx: QuantCtx, p: Dict, x: torch.Tensor,
                               kv_chunk=1024)
     y = qlinear(ctx, out.reshape(B, S, cfg.q_dim), p["wo"])
     k_q, v_q, s_k, s_v = quantize_kv_for_cache(ctx, p, k, v)
-    Sc = cache_len or S
     if lengths is None:
         lengths = torch.full((B,), S, dtype=torch.int32, device=x.device)
+    if page_size:
+        cache = _paginate_kv(k_q, v_q, s_k, s_v, page_size)
+        cache["length"] = lengths.to(torch.int32, copy=True)
+        return y, cache
+    Sc = cache_len or S
     cache = {"k_q": _ring_gather(k_q, lengths, Sc),
              "v_q": _ring_gather(v_q, lengths, Sc),
              "s_k": _ring_gather(s_k, lengths, Sc),
@@ -169,6 +210,25 @@ def attn_prefill(cfg: ModelConfig, ctx: QuantCtx, p: Dict, x: torch.Tensor,
              # a copy per layer: decode advances each layer's in place
              "length": lengths.to(torch.int32, copy=True)}
     return y, cache
+
+
+def _paginate_kv(k_q, v_q, s_k, s_v, page_size: int) -> Dict:
+    """Cache-layout K/V (B, Hkv, S, D) + scales (B, Hkv, S) -> block shape
+    (B, nb, Hkv, page_size, D) / (B, nb, Hkv, page_size); the trailing
+    partial block is zero-padded (masked by ``length`` at read and
+    overwritten in place by decode)."""
+    B, Hkv, S = k_q.shape[0], k_q.shape[1], k_q.shape[2]
+    nb = -(-S // page_size)
+    pad = nb * page_size - S
+
+    def blk(x):
+        widths = [0, 0] * (x.ndim - 3) + [0, pad]     # F.pad: last dim first
+        xp = F.pad(x, widths) if pad else x
+        xp = xp.reshape((B, Hkv, nb, page_size) + tuple(x.shape[3:]))
+        return xp.movedim(2, 1)                      # (B, nb, Hkv, bs, ...)
+
+    return {"k_q": blk(k_q), "v_q": blk(v_q),
+            "s_k": blk(s_k), "s_v": blk(s_v)}
 
 
 def _blank_attn_cache(B: int, cfg: ModelConfig, S: int, qdtype,
@@ -191,13 +251,53 @@ def init_attn_cache(cfg: ModelConfig, B: int, S: int, *, device,
     return _blank_attn_cache(B, cfg, S, dtype, device)
 
 
-def attn_decode(cfg: ModelConfig, ctx: QuantCtx, p: Dict, x1: torch.Tensor,
-                cache: Dict, positions: torch.Tensor):
-    """One-token decode step on the dense ring cache. x1: (B, 1, d).
+def init_paged_attn_cache(cfg: ModelConfig, B: int, num_blocks: int,
+                          page_size: int, *, layers: int, device,
+                          dtype=torch.int8):
+    """Global block pools of ``layers`` attention layers: ``num_blocks``
+    blocks of ``page_size`` tokens, shared by every slot through the block
+    table, plus the sink block. Each leaf is one layer-stacked tensor
+    (layers, num_blocks + 1, Hkv, page_size[, D]), so one copy launch per
+    leaf clones a block in every layer.
 
-    Writes the new K/V row of every slot into ``cache`` in place (ring row
-    ``length % Sc``), advances ``cache["length"]`` and attends over the
-    first min(length, Sc) rows. Returns (y1, cache).
+    Returns (pool, per-layer caches): the stacked leaves, and one dict per
+    layer holding views of them and the layer's per-slot ``length``.
+    """
+    hd = cfg.resolved_head_dim
+    shape = (layers, num_blocks + 1, cfg.n_kv_heads, page_size)
+    kw = {"device": device}
+    pool = {"k_q": torch.zeros(shape + (hd,), dtype=dtype, **kw),
+            "v_q": torch.zeros(shape + (hd,), dtype=dtype, **kw),
+            "s_k": torch.zeros(shape, dtype=torch.float32, **kw),
+            "s_v": torch.zeros(shape, dtype=torch.float32, **kw)}
+    return pool, paged_layer_views(pool, B)
+
+
+def paged_layer_views(pool: Dict, B: int,
+                      lengths: Optional[list] = None) -> list:
+    """Per-layer cache dicts over the stacked pool leaves: views of each
+    leaf's layer row, and a per-slot ``length`` (zeros, or ``lengths``)."""
+    n = next(iter(pool.values())).shape[0]
+    dev = next(iter(pool.values())).device
+    return [{**{k: pool[k][i] for k in POOL_KEYS},
+             "length": (torch.zeros((B,), dtype=torch.int32, device=dev)
+                        if lengths is None else lengths[i])}
+            for i in range(n)]
+
+
+def attn_decode(cfg: ModelConfig, ctx: QuantCtx, p: Dict, x1: torch.Tensor,
+                cache: Dict, positions: torch.Tensor,
+                block_tbl: Optional[torch.Tensor] = None):
+    """One-token decode step. x1: (B, 1, d). Returns (y1, cache).
+
+    Dense layout: writes the new K/V row of every slot into ``cache`` in
+    place (ring row ``length % Sc``), advances ``cache["length"]`` and
+    attends over the first min(length, Sc) rows.
+
+    ``block_tbl`` (B, T) switches to the paged layout: the commit goes
+    through the slot's table into the pool, and a slot whose entry is the
+    sentinel (a parked slot) writes into the sink block, which nothing
+    reads. Attention walks the table.
     """
     B = x1.shape[0]
     hd = cfg.resolved_head_dim
@@ -206,6 +306,24 @@ def attn_decode(cfg: ModelConfig, ctx: QuantCtx, p: Dict, x1: torch.Tensor,
         rope = rope_tables(positions[:, None], hd, cfg.rope_theta)
     q, k, v = _qkv(cfg, ctx, p, x1, rope)
     k_q1, v_q1, s_k1, s_v1 = quantize_kv_for_cache(ctx, p, k, v)
+    if block_tbl is not None:
+        bs = cache["k_q"].shape[2]
+        T = block_tbl.shape[1]
+        pos = cache["length"].long()                 # tokens written so far
+        blk = torch.gather(block_tbl.long(), 1,
+                           torch.clamp_max(pos // bs, T - 1)[:, None])[:, 0]
+        blk = torch.clamp(blk, 0, pool_blocks(cache["k_q"]))
+        off = pos % bs
+        cache["k_q"][blk, :, off] = k_q1[:, :, 0]
+        cache["v_q"][blk, :, off] = v_q1[:, :, 0]
+        cache["s_k"][blk, :, off] = s_k1[:, :, 0]
+        cache["s_v"][blk, :, off] = s_v1[:, :, 0]
+        cache["length"] += 1
+        out = _decode_attn_paged(ctx, q[:, 0], cache["k_q"], cache["v_q"],
+                                 cache["s_k"], cache["s_v"], block_tbl,
+                                 cache["length"])
+        y = qlinear(ctx, out.reshape(B, cfg.q_dim), p["wo"])
+        return y[:, None], cache
     Sc = cache["k_q"].shape[2]
     slot = torch.remainder(cache["length"], Sc).long()
     bidx = torch.arange(B, device=x1.device)
@@ -219,3 +337,64 @@ def attn_decode(cfg: ModelConfig, ctx: QuantCtx, p: Dict, x1: torch.Tensor,
                        torch.clamp_max(cache["length"], Sc))
     y = qlinear(ctx, out.reshape(B, cfg.q_dim), p["wo"])
     return y[:, None], cache
+
+
+def attn_chunk_prefill(cfg: ModelConfig, ctx: QuantCtx, p: Dict,
+                       x: torch.Tensor, rope, cache: Dict,
+                       tbl: torch.Tensor, slot: torch.Tensor,
+                       offset: torch.Tensor, chunk_len: torch.Tensor):
+    """One window of an incremental (chunked or prefix-hit tail) prefill
+    for a batch of slots with per-row offsets, on the paged pool.
+
+    x (n, C, d): row i is a window of one slot's prompt whose first token
+    sits at absolute position ``offset[i]``; its first ``chunk_len[i]``
+    positions are real, the rest padding. Every row is a real slot
+    (``slot`` holds valid slot ids). Queries attend to the ``offset[i]``
+    tokens already in the pool (gathered through ``tbl[i]`` and
+    dequantized by ``gather_dequant_paged_kv``, as decode reads them)
+    plus the window itself (causal, exact bf16 K/V); that softmax over
+    ``Lh + C`` keys is plain torch, as the reference leaves it to XLA.
+    The window's K/V are then quantized and committed through the table
+    in place (``commit_chunk_kv``), and ``length[slot]`` moves to
+    ``offset + chunk_len``. The engine has grown each table to cover the
+    window and resolved copy-on-write for shared blocks in the write range
+    before the call, so the commit lands only in blocks the row owns.
+    """
+    from repro_torch.kernels.kvq_attn.ops import (commit_chunk_kv,
+                                                  gather_dequant_paged_kv)
+    n, C, _ = x.shape
+    q, k, v = _qkv(cfg, ctx, p, x, rope)
+    bs = cache["k_q"].shape[2]
+    Lh = tbl.shape[1] * bs
+    dev = x.device
+    kh = gather_dequant_paged_kv(cache["k_q"], cache["s_k"], tbl)
+    vh = gather_dequant_paged_kv(cache["v_q"], cache["s_v"], tbl)
+    kall = torch.cat([kh.transpose(1, 2), k.float()], dim=1)
+    vall = torch.cat([vh.transpose(1, 2), v.float()], dim=1)
+    group = cfg.n_heads // cfg.n_kv_heads
+    if group > 1:
+        kall = torch.repeat_interleave(kall, group, dim=2)
+        vall = torch.repeat_interleave(vall, group, dim=2)
+    scale = cfg.resolved_head_dim ** -0.5
+    scores = torch.einsum("bqhd,bkhd->bqhk", q.float() * scale, kall)
+    # key j < Lh is history (valid iff j < offset: allocated but unwritten
+    # positions hold stale data); key j >= Lh is window token j - Lh
+    # (causal, pad keys past chunk_len masked)
+    kj = torch.arange(Lh + C, device=dev)
+    qi = torch.arange(C, device=dev)
+    hist = kj < Lh
+    kpos = torch.where(hist, kj, kj - Lh)[None, None, :]
+    mask = torch.where(hist[None, None, :],
+                       kpos < offset.long()[:, None, None],
+                       (kpos <= qi[None, :, None])
+                       & (kpos < chunk_len.long()[:, None, None]))
+    mask4 = mask[:, :, None, :]
+    scores = torch.where(mask4, scores, torch.full_like(scores, _NEG))
+    pr = torch.softmax(scores, dim=-1)
+    pr = torch.where(mask4, pr, torch.zeros_like(pr))
+    out = torch.einsum("bqhk,bkhd->bqhd", pr, vall)
+    y = qlinear(ctx, out.reshape(n, C, cfg.q_dim).to(x.dtype), p["wo"])
+    k_q1, v_q1, s_k1, s_v1 = quantize_kv_for_cache(ctx, p, k, v)
+    commit_chunk_kv(cache, k_q1, v_q1, s_k1, s_v1, tbl, offset, chunk_len)
+    cache["length"][slot.long()] = (offset + chunk_len).to(torch.int32)
+    return y, cache

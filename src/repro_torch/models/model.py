@@ -5,8 +5,11 @@ an entry of ``params["layers"]`` and the stack is a Python loop over them.
 
 Entry points:
 * ``init_params``  — random weights from a seed, made on the target device
+* ``init_cache``   — a blank dense or paged serving cache
 * ``prefill``      — forward over the prompt + the quantized serving cache
 * ``decode_step``  — one token against the quantized cache (in place)
+* ``prefill_tail`` — one window of a chunked / prefix-hit tail prefill for
+  a batch of slots, against the paged pool (in place)
 """
 from __future__ import annotations
 
@@ -85,13 +88,15 @@ def _ffn_tail(cfg: ModelConfig, ctx: QuantCtx, p: Dict,
 
 
 def prefill(cfg: ModelConfig, params: Dict, ctx: QuantCtx, batch: Dict,
-            cache_budget: int = 0):
+            cache_budget: int = 0, page_size: int = 0):
     """Forward pass that also emits the quantized serving cache.
 
     ``batch["tokens"]`` (B, S); ``batch["lengths"]`` (B,) optionally marks
     the valid prefix of right-padded rows: logits are taken at each row's
     last real token and the cache records true lengths. ``cache_budget``:
-    cache capacity (>= prompt length). Returns (logits (B, 1, V),
+    cache capacity (>= prompt length). ``page_size`` > 0 emits
+    block-shaped caches (B, nb, Hkv, page_size, D) for the paged engine to
+    scatter into its pool. Returns (logits (B, 1, V),
     {"layers": [per-layer cache], "position": (B,)}).
     """
     _check_supported(cfg)
@@ -108,7 +113,8 @@ def prefill(cfg: ModelConfig, params: Dict, ctx: QuantCtx, batch: Dict,
     for p in params["layers"]:
         h = rms_norm(x, p["ln1"], cfg.norm_eps)
         a, c = B.attn_prefill(cfg, ctx, p["attn"], h, rope,
-                              cache_len=cache_budget or S, lengths=lengths)
+                              cache_len=cache_budget or S, lengths=lengths,
+                              page_size=page_size)
         x = _ffn_tail(cfg, ctx, p, x + a)
         caches.append(c)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -129,13 +135,17 @@ def decode_step(cfg: ModelConfig, params: Dict, ctx: QuantCtx,
     """One decode step. tokens1 (B, 1) -> (logits (B, 1, V), cache).
 
     The cache is updated in place (each layer's new K/V row, lengths and
-    ``position``) and returned.
+    ``position``) and returned. A ``block_tbl`` in the cache switches the
+    layers to the paged layout: commits and reads go through the per-slot
+    block table into the pool (see ``init_cache`` with ``num_blocks``).
     """
     positions = cache["position"]
+    block_tbl = cache.get("block_tbl")
     x = params["embed"]["w"][tokens1]
     for p, c in zip(params["layers"], cache["layers"]):
         h = rms_norm(x, p["ln1"], cfg.norm_eps)
-        a, _ = B.attn_decode(cfg, ctx, p["attn"], h, c, positions)
+        a, _ = B.attn_decode(cfg, ctx, p["attn"], h, c, positions,
+                             block_tbl=block_tbl)
         x = _ffn_tail(cfg, ctx, p, x + a)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = head_logits(cfg, params, ctx, x)
@@ -143,20 +153,120 @@ def decode_step(cfg: ModelConfig, params: Dict, ctx: QuantCtx,
     return logits, cache
 
 
+def _tail_prologue(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
+                   cache: Dict, slot: torch.Tensor, offset: torch.Tensor,
+                   hist_blocks: int):
+    """Entry of the batched-window path: embed one window per row at
+    per-row absolute offsets, build per-position RoPE tables, and take each
+    row's block table (its first ``hist_blocks`` entries when > 0)."""
+    if "block_tbl" not in cache:
+        raise ValueError("prefill_tail requires a paged cache "
+                         "(init_cache(..., num_blocks=...))")
+    C = tokens.shape[1]
+    positions = offset.long()[:, None] + torch.arange(
+        C, device=tokens.device)[None]                      # (n, C)
+    x = params["embed"]["w"][tokens]                        # (n, C, d)
+    rope = None
+    if cfg.rope_theta:
+        rope = rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
+    tbl = cache["block_tbl"][slot.long()]                   # (n, T)
+    if hist_blocks:
+        tbl = tbl[:, :hist_blocks]
+    return x, rope, tbl.contiguous()
+
+
+def _tail_stack(cfg: ModelConfig, params: Dict, ctx: QuantCtx,
+                x: torch.Tensor, rope, cache: Dict, tbl: torch.Tensor,
+                slot: torch.Tensor, offset: torch.Tensor,
+                chunk_len: torch.Tensor) -> torch.Tensor:
+    """Run the decoder stack over one batched window, committing every
+    layer's K/V through the block table. Returns the final-norm'd x."""
+    for p, c in zip(params["layers"], cache["layers"]):
+        h = rms_norm(x, p["ln1"], cfg.norm_eps)
+        a, _ = B.attn_chunk_prefill(cfg, ctx, p["attn"], h, rope, c, tbl,
+                                    slot, offset, chunk_len)
+        x = _ffn_tail(cfg, ctx, p, x + a)
+    return rms_norm(x, params["final_norm"], cfg.norm_eps)
+
+
+def prefill_tail(cfg: ModelConfig, params: Dict, ctx: QuantCtx,
+                 tokens: torch.Tensor, cache: Dict, slot: torch.Tensor,
+                 start: torch.Tensor, n_tokens: torch.Tensor,
+                 hist_blocks: int = 0):
+    """Partial prefill from per-row token offsets for a batch of slots.
+
+    Behind both prefix-shared admission (the first ``start[i]`` tokens
+    were found in the prefix cache and their pool blocks are already
+    mapped into ``cache["block_tbl"][slot[i]]``, so only the tail is
+    computed) and chunked prefill (one window of a long prompt per call).
+    ``tokens`` (n, C) holds one window per row, row i's first token at
+    absolute position ``start[i]``, its first ``n_tokens[i]`` real. Every
+    row is a real slot: the port does not pad the wave.
+
+    Queries attend over the ``start[i]`` tokens resident in the pool,
+    read back dequantized as decode reads them, plus the window itself
+    (``blocks.attn_chunk_prefill``); the window's K/V are committed
+    through the table in place. The engine grows each table to cover
+    ``start + n_tokens`` and resolves copy-on-write for shared blocks in
+    that range before calling. ``hist_blocks`` > 0 limits the table walk
+    to each row's first ``hist_blocks`` entries (it must cover every
+    row's ``start + n_tokens``).
+
+    Returns (logits (n, V) at each row's last real token, cache).
+    """
+    offset, chunk_len = start, n_tokens
+    x, rope, tbl = _tail_prologue(cfg, params, tokens, cache, slot, offset,
+                                  hist_blocks)
+    x = _tail_stack(cfg, params, ctx, x, rope, cache, tbl, slot, offset,
+                    chunk_len)
+    n = x.shape[0]
+    idx = torch.clamp_min(chunk_len.long() - 1, 0)
+    x_last = torch.gather(x, 1, idx[:, None, None].expand(n, 1, x.shape[-1]))
+    logits = head_logits(cfg, params, ctx, x_last)[:, 0]
+    cache["position"][slot.long()] = (offset + chunk_len).to(torch.int32)
+    return logits, cache
+
+
 def init_cache(cfg: ModelConfig, ctx: QuantCtx, batch_size: int,
-               cache_len: int, *, device) -> Dict:
-    """Blank dense serving cache with capacity ``cache_len`` per slot."""
+               cache_len: int, *, device, num_blocks: int = 0,
+               page_size: int = 0, table_len: int = 0) -> Dict:
+    """Blank serving cache with capacity ``cache_len`` per slot.
+
+    ``num_blocks`` > 0 switches to the paged layout: one global pool of
+    ``num_blocks`` x ``page_size``-token quantized blocks per layer (plus
+    the sink block), held as layer-stacked leaves under ``"pool"`` with
+    per-layer views under ``"layers"``, and a top-level ``block_tbl``
+    (batch_size, table_len) int32 mapping each slot's logical block i to
+    a pool block, initialised to the ``num_blocks`` sentinel.
+    """
     _check_supported(cfg)
     qdt = cache_dtype(ctx)
+    position = torch.zeros((batch_size,), dtype=torch.int32, device=device)
+    if num_blocks:
+        pool, layers = B.init_paged_attn_cache(
+            cfg, batch_size, num_blocks, page_size, layers=cfg.n_layers,
+            device=device, dtype=qdt)
+        tbl = torch.full((batch_size, table_len or num_blocks), num_blocks,
+                         dtype=torch.int32, device=device)
+        return {"pool": pool, "layers": layers, "position": position,
+                "block_tbl": tbl}
     return {"layers": [B.init_attn_cache(cfg, batch_size, cache_len,
                                          device=device, dtype=qdt)
                        for _ in range(cfg.n_layers)],
-            "position": torch.zeros((batch_size,), dtype=torch.int32,
-                                    device=device)}
+            "position": position}
 
 
 def clone_cache(cache: Dict) -> Dict:
-    """Deep copy of a serving cache (decode_step mutates its argument)."""
+    """Deep copy of a serving cache (decode_step mutates its argument).
+    A paged copy gets its own stacked pool with fresh per-layer views."""
+    if "pool" in cache:
+        pool = {k: v.clone() for k, v in cache["pool"].items()}
+        B_ = cache["position"].shape[0]
+        layers = B.paged_layer_views(
+            pool, B_, [c["length"].clone() for c in cache["layers"]])
+        return {"pool": pool, "layers": layers,
+                "position": cache["position"].clone(),
+                "block_tbl": cache["block_tbl"].clone()}
     return {"layers": [{k: v.clone() for k, v in c.items()}
                        for c in cache["layers"]],
             "position": cache["position"].clone()}

@@ -1,4 +1,4 @@
-"""Continuous-batching serve engine over the quantized dense KV cache.
+"""Continuous-batching serve engine over the quantized KV cache.
 
 Slot engine in the reference's shape, with the host touching the device
 only at admission and harvest:
@@ -7,21 +7,42 @@ only at admission and harvest:
   requests at once; they are right-padded to a length bucket and prefilled
   in one call (per-row ``lengths`` keep the cache and logits exact; see
   ``models.prefill``), and each row's first token is sampled there.
-* **Decode chunks** — sampling (greedy / temperature / top-k), per-slot
-  EOS + max-token tracking and the generated-token buffers live in device
-  tensors; a chunk runs up to ``decode_block`` decode steps. The host
-  never reads the device inside a chunk: it bounds the chunk by the
-  largest remaining token budget it knows from the last harvest, and
-  slots that stop early (EOS) ride along masked. The host syncs once per
-  chunk, at harvest, to retire finished slots.
+* **Decode chunks** — sampling (greedy / temperature / top-k, each slot
+  with its own jax-style PRNG key), per-slot EOS + max-token tracking and
+  the generated-token buffers live in device tensors; a chunk runs up to
+  ``decode_block`` decode steps. The host never reads the device inside a
+  chunk: it bounds the chunk by the largest remaining token budget it
+  knows from the last harvest, and slots that stop early (EOS) ride along
+  masked. The host syncs once per chunk, at harvest, to retire finished
+  slots.
+* **Paged KV cache** (``kv_layout="paged"``) — attention layers share one
+  global pool of fixed-size quantized blocks addressed through a per-slot
+  block table; ``serve.block_alloc`` owns the refcounted pool on the host.
+  Admission asks for enough free blocks instead of a ``cache_len``
+  stripe, blocks are allocated lazily as decode crosses block boundaries,
+  and harvest returns them. Prompts longer than ``prefill_chunk`` are
+  admitted window by window (``models.prefill_tail``).
+* **Prefix sharing** (``prefix_cache=True``, paged only) — full blocks of
+  written tokens are content-addressed in the allocator's rolling-hash
+  index; a request whose prompt extends a cached prefix maps those blocks
+  (refcount++) and prefills only the uncached tail. The *split block*
+  where two prompts diverge is shared too and cloned on the device on
+  first write (copy-on-write, ``kernels.kvq_attn.ops.copy_pool_blocks``).
+* **Batched tail-wave** — up to ``tail_batch`` tail or chunked prefills
+  are in flight at once, and every engine step advances all of them by
+  one window in one ``prefill_tail`` call with per-row ``(c0, tail_len)``
+  offsets. ``prefix_affinity`` orders the queue so requests sharing a
+  cached chain admit back-to-back while the chain is hot in the LRU.
 * **Kernels** — under ``weights_layout="w4a8"`` every linear runs the
-  packed-int4 x int8 matmul, and decode attention runs the int8-cache
-  flash-decode kernel; on CUDA tensors both are the hand-written kernels
-  of ``repro_torch/csrc``, on CPU tensors their plain versions.
+  packed-int4 x int8 matmul; decode attention runs the int8-cache
+  flash-decode kernel (dense) or its block-table walk (paged); the
+  tail-wave's history read runs the fused gather-dequantize kernel, and
+  COW the pool-block copy. On CUDA tensors these are the hand-written
+  kernels of ``repro_torch/csrc``, on CPU tensors their plain versions.
 
-Only the dense cache layout is ported. The paged pool, prefix sharing,
-speculative decoding, SLO shedding, the ``decode_block="auto"`` probe
-and mesh serving arrive with later slices; their arguments raise
+Reserve admission only: optimistic admission with preemption and swap,
+speculative decoding, SLO shedding, the ``decode_block="auto"`` probe and
+mesh serving arrive with later slices; their arguments raise
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -37,12 +58,28 @@ from repro_torch.core.precision import parse_policy
 from repro_torch.core.qat import (attach_w4a8_exports, make_ctx,
                                   w4a8_weight_bytes)
 from repro_torch.device import resolve_device
-from repro_torch.models import decode_step, init_cache, prefill
+from repro_torch.kernels.kvq_attn.ops import copy_pool_blocks
+from repro_torch.models import decode_step, init_cache, prefill, prefill_tail
+from repro_torch.models.blocks import POOL_KEYS
 from repro_torch.obs.trace import NULL_TRACER, Tracer
-from repro_torch.serve.sampling import TOP_K_CAP, sample_tokens, step_seed
+from repro_torch.serve.block_alloc import BlockAllocator, PoolDry
+from repro_torch.serve.sampling import (TOP_K_CAP, fold_step, sample_tokens,
+                                        slot_key)
 from repro_torch.serve.scheduler import Scheduler
 
 _CACHE_KEYS = ("k_q", "v_q", "s_k", "s_v", "length")
+PREEMPT_POLICIES = ("last_admitted", "longest_remaining")
+_LATER = "the next slice of the port (preempt/swap and speculative decoding)"
+
+
+def _pow2_ceil(n: int) -> int:
+    """Smallest power of two >= max(n, 1). The tail-wave's history walk is
+    bucketed with it as in the reference, so both read the same number of
+    table entries and compute the same masked softmax."""
+    p = 1
+    while p < n:
+        p *= 2
+    return p
 
 
 @dataclass(eq=False)                    # identity equality: the ndarray
@@ -75,21 +112,37 @@ class ServeEngine:
                  max_new_cap: int = 256,
                  decode_block: Union[int, str] = 8,
                  sched_policy: str = "fcfs", prefill_bucket: int = 16,
-                 kv_layout: str = "dense",
+                 kv_layout: str = "dense", block_size: int = 64,
+                 num_blocks: Optional[int] = None,
+                 max_seq_len: Optional[int] = None,
+                 prefill_chunk: Optional[int] = None,
+                 table_len: Optional[int] = None,
+                 prefix_cache: bool = True,
+                 admission: str = "reserve",
+                 preempt: str = "last_admitted",
+                 tail_batch: int = 0,
+                 prefix_affinity: bool = True,
                  slo_shed: str = "none",
                  spec=None,
                  mesh=None,
                  weights_layout: str = "bf16",
                  trace: Optional[Tracer] = None,
                  device: Optional[Union[str, torch.device]] = None):
-        if kv_layout == "paged":
-            raise NotImplementedError("kv_layout='paged' is not ported yet")
-        if kv_layout != "dense":
+        if kv_layout not in ("dense", "paged"):
             raise ValueError(f"kv_layout must be 'dense' or 'paged', "
                              f"got {kv_layout!r}")
+        if admission not in ("reserve", "optimistic"):
+            raise ValueError(f"admission must be 'reserve' or 'optimistic', "
+                             f"got {admission!r}")
+        if preempt not in PREEMPT_POLICIES:
+            raise ValueError(f"preempt must be one of {PREEMPT_POLICIES}, "
+                             f"got {preempt!r}")
+        if admission == "optimistic" or preempt != "last_admitted":
+            raise NotImplementedError(
+                f"optimistic admission and preemption arrive with {_LATER}")
         if spec is not None:
-            raise NotImplementedError("speculative decoding is not ported "
-                                      "yet")
+            raise NotImplementedError(
+                f"speculative decoding arrives with {_LATER}")
         if mesh is not None:
             raise NotImplementedError("mesh (tensor-parallel) serving is not "
                                       "ported yet")
@@ -130,6 +183,27 @@ class ServeEngine:
         self.max_new_cap = max_new_cap
         self.prefill_bucket = prefill_bucket
         self.decode_block = int(decode_block)
+        self._paged = kv_layout == "paged"
+        if self._paged:
+            self.block_size = block_size
+            # default pool = the dense engine's total reservation, so the
+            # two layouts are comparable at equal memory
+            self.num_blocks = num_blocks or max(
+                1, slots * cache_len // block_size)
+            # default per-request cap matches the dense stripe: the table
+            # width bounds how many keys each decode step walks
+            self.max_seq_len = max_seq_len or min(
+                cache_len, self.num_blocks * block_size)
+            self.table_len = table_len or -(-self.max_seq_len // block_size)
+            self.prefill_chunk = prefill_chunk or 4 * prefill_bucket
+            # tail_batch caps how many tail/chunked prefills ride one
+            # wave; 0 = every slot, 1 = one tail per step
+            if not 0 <= tail_batch <= slots:
+                raise ValueError(f"tail_batch must be in [0, slots={slots}]"
+                                 f", got {tail_batch}")
+            self.tail_batch = tail_batch or slots
+        self.prefix_cache = prefix_cache and self._paged
+        self.prefix_affinity = prefix_affinity and self.prefix_cache
         self._sched_policy = sched_policy
         self.scheduler = Scheduler(sched_policy, trace=self.trace)
         self.reset()
@@ -141,9 +215,16 @@ class ServeEngine:
     def _blank_state(self) -> Dict:
         slots, dev = self.slots, self.device
         i32 = {"dtype": torch.int32, "device": dev}
+        if self._paged:
+            cache = init_cache(self.cfg, self.ctx, slots, self.cache_len,
+                               device=dev, num_blocks=self.num_blocks,
+                               page_size=self.block_size,
+                               table_len=self.table_len)
+        else:
+            cache = init_cache(self.cfg, self.ctx, slots, self.cache_len,
+                               device=dev)
         return {
-            "cache": init_cache(self.cfg, self.ctx, slots, self.cache_len,
-                                device=dev),
+            "cache": cache,
             "tokens": torch.zeros((slots, 1), **i32),
             "out": torch.zeros((slots, self.max_new_cap), **i32),
             "n_gen": torch.zeros((slots,), **i32),
@@ -152,26 +233,41 @@ class ServeEngine:
             "max_new": torch.ones((slots,), **i32),
             "temp": torch.zeros((slots,), dtype=torch.float32, device=dev),
             "top_k": torch.zeros((slots,), **i32),
+            # each slot's PRNG key: two uint32 words held in int64
+            "keys": torch.zeros((slots, 2), dtype=torch.int64, device=dev),
             "steps": torch.zeros((), **i32),
             "committed": torch.zeros((), **i32),
         }
 
     def reset(self) -> None:
         """Clear all serving state: queued and resident requests, the
-        cache, the scheduler and every stat."""
+        cache, the block allocator, the scheduler and every stat.
+        Requests submitted before the reset must not be resubmitted with
+        their old prefix-lookup memos: an epoch bump invalidates them."""
         self.state = self._blank_state()
+        self._alloc_epoch = getattr(self, "_alloc_epoch", -1) + 1
+        self.alloc = (BlockAllocator(self.num_blocks, self.block_size,
+                                     self.slots, self.table_len,
+                                     prefix_cache=self.prefix_cache)
+                      if self._paged else None)
         self._slot_req: Dict[int, Request] = {}
         self._n_gen: Dict[int, int] = {}     # host mirror, as of harvest
+        self._written: Dict[int, int] = {}   # paged: tokens committed/slot
+        self._tbl_dirty = False              # host table mirror vs device
+        self._tail_jobs: List[Dict] = []     # in-progress tail prefills
         self._max_residents = 0
         self.scheduler = Scheduler(self._sched_policy, trace=self.trace)
         self.trace.clear()
         self._step_idx = 0
         self._host = {"decode_s": 0.0, "decode_rounds": 0,
                       "prefill_s": 0.0, "prefill_calls": 0,
-                      "prefill_tokens": 0, "prompt_tokens": 0}
-        self._cache_bytes = sum(
-            t.numel() * t.element_size()
-            for layer in self.state["cache"]["layers"] for t in layer.values())
+                      "prefill_tokens": 0, "prefill_chunks": 0,
+                      "prompt_tokens": 0, "prefix_hit_tokens": 0,
+                      "cow_copies": 0, "tail_waves": 0}
+        cache = self.state["cache"]
+        leaves = (cache["pool"].values() if self._paged else
+                  [t for layer in cache["layers"] for t in layer.values()])
+        self._cache_bytes = sum(t.numel() * t.element_size() for t in leaves)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -189,7 +285,9 @@ class ServeEngine:
         Raises ValueError if the request can never be admitted on this
         engine: ``max_new_tokens`` above ``max_new_cap``, ``top_k`` above
         ``TOP_K_CAP``, a token outside the vocabulary, or a footprint
-        (``prompt + max_new_tokens - 1``) above ``cache_len``.
+        (``prompt + max_new_tokens - 1``) above ``cache_len`` (dense) or
+        above ``max_seq_len``, the block table or the pool (paged). The
+        message names the computed need and the knob to raise.
         """
         if req.max_new_tokens > self.max_new_cap:
             raise ValueError(
@@ -208,7 +306,29 @@ class ServeEngine:
         # peak cache occupancy is prompt + max_new - 1: the last sampled
         # token is returned but its KV is never written while resident
         need = len(prompt) + req.max_new_tokens - 1
-        if need > self.cache_len:
+        if self._paged:
+            if need > self.max_seq_len:
+                raise ValueError(
+                    f"request needs {need} cache tokens (prompt "
+                    f"{len(prompt)} + max_new_tokens "
+                    f"{req.max_new_tokens} - 1) but max_seq_len="
+                    f"{self.max_seq_len}; raise max_seq_len or shorten "
+                    f"the request")
+            nb = self.alloc.blocks_for_tokens(need)
+            if nb > self.table_len:
+                raise ValueError(
+                    f"request needs {nb} block-table entries ({need} tokens "
+                    f"at block_size={self.block_size}) but the block table "
+                    f"is only table_len={self.table_len} entries wide, so "
+                    f"it can never be admitted; raise table_len or "
+                    f"max_seq_len")
+            if nb > self.num_blocks:
+                raise ValueError(
+                    f"request needs {nb} cache blocks ({need} tokens at "
+                    f"block_size={self.block_size}) but the pool only has "
+                    f"num_blocks={self.num_blocks}, so it can never be "
+                    f"admitted; raise num_blocks")
+        elif need > self.cache_len:
             raise ValueError(
                 f"request needs {need} cache tokens (prompt "
                 f"{len(prompt)} + max_new_tokens {req.max_new_tokens} "
@@ -216,14 +336,23 @@ class ServeEngine:
                 f"shorten the request")
         self.scheduler.submit(req)
 
+    def _note_residency(self) -> None:
+        n = len(self._slot_req) + len(self._tail_jobs)
+        self._max_residents = max(self._max_residents, n)
+
     # ------------------------------------------------------------------
     # Admission
     # ------------------------------------------------------------------
 
     def _free_slots(self) -> List[int]:
-        return [s for s in range(self.slots) if s not in self._slot_req]
+        busy = set(self._slot_req)
+        busy.update(j["slot"] for j in self._tail_jobs)
+        return [s for s in range(self.slots) if s not in busy]
 
     def _admit(self) -> None:
+        if self._paged:
+            self._admit_paged()
+            return
         free = self._free_slots()
         if not free or not self.scheduler.pending:
             return
@@ -231,23 +360,196 @@ class ServeEngine:
         if not reqs:
             return
         self._admit_wave(reqs, free[:len(reqs)])
-        self._max_residents = max(self._max_residents, len(self._slot_req))
+        self._note_residency()
 
-    def _admit_batch(self, tokens, lengths, slot_idx, eos, max_new, temp,
-                     top_k, seeds, greedy_only) -> None:
-        """One batched prefill, then scatter of the n fresh rows into
-        their slots: cache rows, position and sampling/output state."""
+    def _affinity_key(self, req):
+        """Grouping key for prefix-aware scheduling: requests whose
+        prompts extend the same cached chain share its block-id tuple, so
+        the scheduler pulls them back-to-back (a miss returns None). The
+        order is a hint, so a stale key is acceptable: each request pays
+        one real lookup on first sight and then reuses its last known key
+        until a real lookup refreshes it."""
+        ver2 = (id(self), self._alloc_epoch)
+        memo = getattr(req, "_prefix_hit", None)
+        if memo is not None and memo[0] == ver2 + (
+                self.alloc.index_version,):
+            ids = memo[1][0]
+            return tuple(ids) if ids else None
+        hint = getattr(req, "_affinity_memo", None)
+        if hint is not None and hint[0] == ver2:
+            return hint[1]
+        ids = self._lookup(req)[0]
+        return tuple(ids) if ids else None
+
+    def _admit_paged(self) -> None:
+        """Paged admission loop. Each request is first looked up in the
+        prefix cache: a hit maps the cached blocks (refcount++) and admits
+        through the tail path, computing only the uncached tail; prompts
+        longer than ``prefill_chunk`` take the same path window by window.
+        Up to ``tail_batch`` tail admissions ride concurrently, advanced
+        together by the tail-wave. Everything else admits as a batched
+        cold wave under the free-block criterion with head-of-line
+        blocking. With ``prefix_affinity`` the queue is grouped so
+        requests sharing a cached chain admit back-to-back."""
+        gk = self._affinity_key if self.prefix_affinity else None
+        held: set = set()
+        while self.scheduler.pending > len(held):
+            free = self._free_slots()
+            if not free:
+                return
+            # chains with a tail admission in flight stay "hot": their
+            # queued sharers rank ahead so the chain's LRU blocks are
+            # mapped again before anything can evict them
+            hot = ({j["akey"] for j in self._tail_jobs
+                    if j.get("akey") is not None} if gk else ())
+            head = self.scheduler.first(group_key=gk, hot=hot, skip=held)
+            if head is None:
+                return
+            plen = len(head.prompt)
+            hit_ids, cached, partial = self._lookup(head)
+            if self._dedup_hold(head, cached):
+                # cross-wave dedup: this head waits a wave for the
+                # in-flight sharer to register; work behind it still admits
+                held.add(head)
+                continue
+            if cached or plen > self.prefill_chunk:
+                if len(self._tail_jobs) >= self.tail_batch:
+                    return          # wave is full: head waits its turn
+                slot = free[0]
+                eff = self._paged_admit_slot(slot, head, hit_ids, partial,
+                                             cached)
+                if eff is None:
+                    return          # pool exhausted: head waits
+                self.scheduler.take(head)
+                self._host["prefix_hit_tokens"] += eff
+                self._tail_jobs.append({"req": head, "slot": slot,
+                                        "c0": eff,
+                                        "akey": tuple(hit_ids) or None})
+                self._note_residency()
+                continue
+            taken: List[int] = []
+            batch_reqs: List = []
+
+            def ok(r):
+                if len(r.prompt) > self.prefill_chunk:
+                    return False        # long prompt: chunked next round
+                if r is not head and self._lookup(r)[1]:
+                    return False        # cached prefix: tail path next round
+                bs = self.block_size
+                if self.prefix_cache and len(r.prompt) - 1 >= bs and any(
+                        len(q.prompt) >= bs
+                        and np.array_equal(np.asarray(r.prompt[:bs]),
+                                           q.prompt[:bs])
+                        for q in batch_reqs):
+                    # cross-wave dedup: r shares >= one full block with a
+                    # request already in this forming wave; held one wave,
+                    # it prefix-hits the blocks the wave registers
+                    return False
+                if self._paged_admit_slot(free[len(taken)], r, (),
+                                          False, 0) is None:
+                    return False
+                taken.append(free[len(taken)])
+                batch_reqs.append(r)
+                return True
+
+            reqs = self.scheduler.select(len(free), admit_ok=ok,
+                                         group_key=gk, hot=hot, skip=held)
+            if not reqs:
+                return
+            # lazy prefill allocation: just the prompt's blocks for now
+            for s, r in zip(taken, reqs):
+                self._ensure(s, len(r.prompt))
+            self._admit_wave(reqs, taken)
+            self._note_residency()
+
+    def _lookup(self, req):
+        """Prefix-cache lookup memoized per request against the allocator
+        identity and index version, so re-walking the queue every step
+        does not re-hash prompts while nothing changed, and a request
+        resubmitted after ``reset()`` cannot replay dead block ids."""
+        if not self.prefix_cache:
+            return (), 0, False
+        ver = (id(self), self._alloc_epoch, self.alloc.index_version)
+        memo = getattr(req, "_prefix_hit", None)
+        if memo is not None and memo[0] == ver:
+            return memo[1]
+        hit = self.alloc.lookup(req.prompt)
+        req._prefix_hit = (ver, hit)
+        req._affinity_memo = (ver[:2], tuple(hit[0]) or None)
+        return hit
+
+    def _dedup_hold(self, req, cached: int) -> bool:
+        """Cross-wave dedup (tail path): hold ``req`` while an in-flight
+        tail job shares at least one block of prompt beyond what ``req``
+        prefix-hit; a wave later the job's registered blocks turn that
+        overlap into a hit. Only the first ``cached + block_size`` tokens
+        are compared, since that is the whole trigger condition."""
+        if not self.prefix_cache or not self._tail_jobs:
+            return False
+        need = cached + self.block_size
+        if len(req.prompt) - 1 < need:
+            return False
+        head = np.asarray(req.prompt[:need])
+        for job in self._tail_jobs:
+            jp = job["req"].prompt
+            if len(jp) >= need and np.array_equal(head, jp[:need]):
+                return True
+        return False
+
+    def _paged_admit_slot(self, slot: int, req, hit_ids, partial: bool,
+                          cached: int) -> Optional[int]:
+        """Admit one request into ``slot``: map its shared prefix blocks
+        and reserve its worst-case fresh-block count. Returns the
+        effective cached-token count (0 when the prefix ended up unused),
+        or None, leaving no state behind, when the pool cannot take the
+        request now."""
+        need = len(req.prompt) + req.max_new_tokens - 1
+        if not self.alloc.reserve(slot, need, shared=hit_ids,
+                                  partial=partial):
+            # a shared admission transiently needs more obtainable blocks
+            # than an exclusive one (resurrected LRU hits + the split-block
+            # COW can exceed a tiny pool); with nothing resident the pool
+            # will never get freer, so fall back to an unshared reservation
+            idle = not self._slot_req and not self._tail_jobs
+            if not (idle and hit_ids and self.alloc.reserve(slot, need)):
+                return None
+            hit_ids, cached = (), 0
+        if hit_ids:
+            self._tbl_dirty = True
+        return cached
+
+    def _admit_batch(self, tokens, lengths, slot_idx, blk_ids, eos, max_new,
+                     temp, top_k, keys, greedy_only) -> None:
+        """One batched prefill, then scatter of the n fresh rows into their
+        slots: cache rows (dense) or prompt blocks through ``blk_ids``
+        (paged; sentinel entries land in the sink), position, and the
+        sampling / output state."""
+        page = self.block_size if self._paged else 0
         logits, cache_n = prefill(self.cfg, self.params, self.ctx,
                                   {"tokens": tokens, "lengths": lengths},
-                                  cache_budget=self.cache_len)
-        first = sample_tokens(logits[:, 0], temp, top_k, seeds,
-                              greedy_only=greedy_only)
-        st = self.state
-        cache = st["cache"]
+                                  cache_budget=self.cache_len,
+                                  page_size=page)
+        first = sample_tokens(
+            logits[:, 0],
+            None if greedy_only else fold_step(keys,
+                                               torch.zeros_like(lengths)),
+            temp, top_k, greedy_only=greedy_only)
+        cache = self.state["cache"]
         for dst, src in zip(cache["layers"], cache_n["layers"]):
             for key in _CACHE_KEYS:
-                dst[key][slot_idx] = src[key]
+                if page and key != "length":
+                    dst[key][blk_ids] = src[key]
+                else:
+                    dst[key][slot_idx] = src[key]
         cache["position"][slot_idx] = cache_n["position"]
+        self._post_prefill_state(first, slot_idx, eos, max_new, temp, top_k,
+                                 keys)
+
+    def _post_prefill_state(self, first, slot_idx, eos, max_new, temp,
+                            top_k, keys) -> None:
+        """Arm n freshly prefilled slots: first token, output row and
+        sampling state."""
+        st = self.state
         st["out"][slot_idx] = 0
         st["out"][slot_idx, 0] = first
         st["tokens"][slot_idx, 0] = first
@@ -257,6 +559,24 @@ class ServeEngine:
         st["max_new"][slot_idx] = max_new
         st["temp"][slot_idx] = temp
         st["top_k"][slot_idx] = top_k
+        st["keys"][slot_idx] = keys
+
+    def _request_cols(self, reqs):
+        """Per-request eos / max_new / temperature / top_k / PRNG key
+        columns on the device. The key is ``fold_in(PRNGKey(seed), uid)``,
+        computed on the host as the reference does."""
+        dev = self.device
+
+        def col(fn, dtype):
+            return torch.tensor([fn(r) for r in reqs], dtype=dtype,
+                                device=dev)
+
+        return (col(lambda r: r.eos_id, torch.int32),
+                col(lambda r: r.max_new_tokens, torch.int32),
+                col(lambda r: r.temperature, torch.float32),
+                col(lambda r: r.top_k, torch.int32),
+                torch.tensor([slot_key(r.seed, r.uid) for r in reqs],
+                             dtype=torch.int64, device=dev))
 
     def _admit_wave(self, reqs: List[Request], taken: List[int]) -> None:
         """One batched prefill admission of ``reqs`` into slots ``taken``."""
@@ -267,24 +587,25 @@ class ServeEngine:
         toks = np.zeros((n, L), np.int32)
         for i, r in enumerate(reqs):
             toks[i, :lens[i]] = r.prompt
-
-        def col(fn, dtype):
-            return torch.tensor([fn(r) for r in reqs], dtype=dtype,
-                                device=dev)
-
+        blk_ids = None
+        if self._paged:
+            # prefill emits ceil(L / block_size) blocks per row; rows point
+            # their own allocated blocks at the pool, the rest at the sink
+            nb = self.alloc.blocks_for_tokens(L)
+            ids = np.full((n, nb), self.num_blocks, np.int64)
+            for i, (s, r) in enumerate(zip(taken, reqs)):
+                nb_i = self.alloc.blocks_for_tokens(len(r.prompt))
+                ids[i, :nb_i] = self.alloc.tables[s, :nb_i]
+            blk_ids = torch.from_numpy(ids).to(dev)
+            self._push_tables()
         greedy_only = all(r.temperature <= 0.0 for r in reqs)
-        seeds = [step_seed(r.seed, r.uid, 0) if r.temperature > 0 else None
-                 for r in reqs]
         wave_tokens = int(lens.sum())
-        with self.trace.span("prefill_wave", rows=n,
-                             tokens=wave_tokens) as sp:
+        with self.trace.span("prefill_wave", rows=n, tokens=wave_tokens,
+                             paged=self._paged) as sp:
             self._admit_batch(
                 torch.from_numpy(toks).to(dev), torch.from_numpy(lens).to(dev),
-                torch.tensor(taken, dtype=torch.long, device=dev),
-                col(lambda r: r.eos_id, torch.int32),
-                col(lambda r: r.max_new_tokens, torch.int32),
-                col(lambda r: r.temperature, torch.float32),
-                col(lambda r: r.top_k, torch.int32), seeds, greedy_only)
+                torch.tensor(taken, dtype=torch.long, device=dev), blk_ids,
+                *self._request_cols(reqs), greedy_only)
             with self.trace.span("sync"):
                 self._sync()
         self._host["prefill_s"] += sp.dt
@@ -296,6 +617,158 @@ class ServeEngine:
             self.trace.event("first_token", uid=r.uid)
             self._slot_req[s] = r
             self._n_gen[s] = 1
+            if self._paged:
+                self._written[s] = len(r.prompt)
+                # content-address the freshly written prompt blocks so
+                # later requests sharing the prefix skip their prefill
+                self.alloc.register_prefix(s, r.prompt, len(r.prompt))
+
+    # ------------------------------------------------------------------
+    # Paged: tail-wave, block growth, copy-on-write
+    # ------------------------------------------------------------------
+
+    def _advance_tail_jobs(self) -> None:
+        """Advance every in-progress tail or chunked prefill by one window,
+        all jobs in one ``prefill_tail`` call (the tail-wave). ``c0``
+        starts at the cached-prefix length (0 for a plain long prompt), and
+        per-row ``(c0, tail_len)`` offsets let rows at different depths of
+        different prompts share the wave. Rows whose final window completes
+        sample their first token and arm their slots together."""
+        C = self.prefill_chunk
+        with self.trace.span("schedule", kind="tail"):
+            ready: List[Dict] = []
+            lens: List[int] = []
+            for job in self._tail_jobs:
+                slot, c0 = job["slot"], job["c0"]
+                cl = min(C, len(job["req"].prompt) - c0)
+                self._ensure(slot, c0 + cl)
+                self._cow_guard(slot, c0, c0 + cl)
+                ready.append(job)
+                lens.append(cl)
+        if not ready:
+            return
+        n = len(ready)
+        dev = self.device
+        done: List[Dict] = []
+        with self.trace.span("tail_wave", rows=n,
+                             tokens=int(sum(lens))) as sp:
+            self._push_tables()
+            toks = np.zeros((n, C), np.int32)
+            hb_need = 1
+            for i, (job, cl) in enumerate(zip(ready, lens)):
+                c0 = job["c0"]
+                toks[i, :cl] = job["req"].prompt[c0:c0 + cl]
+                # table walk bounded by the tokens the deepest row can
+                # touch, bucketed as in the reference
+                hb_need = max(hb_need, self.alloc.blocks_for_tokens(c0 + C))
+            hb = min(_pow2_ceil(hb_need), self.table_len)
+            slots_t = torch.tensor([j["slot"] for j in ready],
+                                   dtype=torch.int32, device=dev)
+            logits, _ = prefill_tail(
+                self.cfg, self.params, self.ctx,
+                torch.from_numpy(toks).to(dev), self.state["cache"], slots_t,
+                torch.tensor([j["c0"] for j in ready], dtype=torch.int32,
+                             device=dev),
+                torch.tensor(lens, dtype=torch.int32, device=dev),
+                hist_blocks=hb)
+            self._host["tail_waves"] += 1
+            self._host["prefill_chunks"] += n
+            self._host["prompt_tokens"] += int(sum(lens))
+            rows: List[int] = []
+            for i, (job, cl) in enumerate(zip(ready, lens)):
+                job["c0"] += cl
+                self.alloc.register_prefix(job["slot"], job["req"].prompt,
+                                           job["c0"])
+                if job["c0"] >= len(job["req"].prompt):
+                    done.append(job)
+                    rows.append(i)
+            if done:
+                reqs = [j["req"] for j in done]
+                eos, max_new, temp, top_k, keys = self._request_cols(reqs)
+                greedy_only = all(r.temperature <= 0.0 for r in reqs)
+                first = sample_tokens(
+                    logits[torch.tensor(rows, device=dev)],
+                    None if greedy_only else fold_step(
+                        keys, torch.zeros_like(eos)),
+                    temp, top_k, greedy_only=greedy_only)
+                self._post_prefill_state(
+                    first, torch.tensor([j["slot"] for j in done],
+                                        dtype=torch.long, device=dev),
+                    eos, max_new, temp, top_k, keys)
+            with self.trace.span("sync"):
+                self._sync()
+        self._host["prefill_s"] += sp.dt
+        if not done:
+            return
+        self._host["prefill_calls"] += 1
+        self._host["prefill_tokens"] += len(done)
+        self.scheduler.on_admitted(reqs)
+        for j in done:
+            self.trace.event("first_token", uid=j["req"].uid)
+            self._tail_jobs.remove(j)
+            self._slot_req[j["slot"]] = j["req"]
+            self._n_gen[j["slot"]] = 1
+            self._written[j["slot"]] = len(j["req"].prompt)
+
+    def _ensure(self, slot: int, n_tokens: int) -> None:
+        """Grow the slot's block table to cover ``n_tokens``. Under
+        reserve admission the blocks were debited up front, so a dry pool
+        here is an accounting bug."""
+        try:
+            if self.alloc.ensure(slot, n_tokens):
+                self._tbl_dirty = True
+        except PoolDry as e:
+            raise RuntimeError("a reserved slot found the pool dry: "
+                               "accounting bug") from e
+
+    def _cow_guard(self, slot: int, start_tok: int, end_tok: int) -> None:
+        """Resolve copy-on-write for a pending write of token positions
+        ``[start_tok, end_tok)``: shared blocks in the range are replaced
+        by fresh blocks whose int8 payload and scales are cloned on the
+        device before the write executes."""
+        try:
+            pairs = self.alloc.cow_range(slot, start_tok, end_tok)
+        except PoolDry as e:
+            raise RuntimeError("a reserved slot found the pool dry for a "
+                               "copy-on-write: accounting bug") from e
+        if pairs:
+            self._apply_cow(pairs)
+
+    def _apply_cow(self, pairs) -> None:
+        """Device-side block clones for resolved COW pairs: one copy
+        launch per pool leaf clones the pairs in every layer."""
+        dev = self.device
+        src = torch.tensor([p[0] for p in pairs], dtype=torch.int32,
+                           device=dev)
+        dst = torch.tensor([p[1] for p in pairs], dtype=torch.int32,
+                           device=dev)
+        with self.trace.span("cow", blocks=len(pairs)):
+            for key in POOL_KEYS:
+                copy_pool_blocks(self.state["cache"]["pool"][key], src, dst)
+        self._host["cow_copies"] += len(pairs)
+        self._tbl_dirty = True
+
+    def _push_tables(self) -> None:
+        """Push the host block-table mirror to the device iff it changed
+        since the last push (block growth, COW or a harvest-time release,
+        which parks freed rows on the sentinel): one non-blocking
+        host-to-device copy of the whole table."""
+        if self._tbl_dirty:
+            host = torch.from_numpy(self.alloc.tables.astype(np.int32))
+            self.state["cache"]["block_tbl"].copy_(host, non_blocking=True)
+            self._tbl_dirty = False
+
+    def _ensure_decode_blocks(self) -> None:
+        """Grow resident slots' block tables to cover the coming decode
+        chunk (lazy allocation at block-boundary crossings) and resolve
+        copy-on-write for shared blocks in each slot's write range."""
+        for s, r in self._slot_req.items():
+            cap = len(r.prompt) + r.max_new_tokens - 1
+            w = self._written[s]
+            target = min(w + self.decode_block, cap)
+            self._ensure(s, target)
+            self._cow_guard(s, w, target)
+        self._push_tables()
 
     # ------------------------------------------------------------------
     # Decode
@@ -311,21 +784,19 @@ class ServeEngine:
         budget = max(r.max_new_tokens - self._n_gen[s]
                      for s, r in self._slot_req.items())
         n_steps = min(self.decode_block, max(budget, 0))
-        sampled = {s: r for s, r in self._slot_req.items()
-                   if r.temperature > 0.0}
+        greedy_only = all(r.temperature <= 0.0
+                          for r in self._slot_req.values())
         st = self.state
         cap = self.max_new_cap
-        for i in range(n_steps):
+        for _ in range(n_steps):
             logits, _ = decode_step(self.cfg, self.params, self.ctx,
                                     st["tokens"], st["cache"])
-            seeds = None
-            if sampled:
-                seeds = [step_seed(sampled[s].seed, sampled[s].uid,
-                                   self._n_gen[s] + i)
-                         if s in sampled else None
-                         for s in range(self.slots)]
-            toks = sample_tokens(logits[:, -1], st["temp"], st["top_k"],
-                                 seeds, greedy_only=not sampled)
+            # this step's keys fold in the generated-token count; an
+            # all-greedy chunk draws nothing and skips them
+            keys = None if greedy_only else fold_step(st["keys"],
+                                                      st["n_gen"])
+            toks = sample_tokens(logits[:, -1], keys, st["temp"],
+                                 st["top_k"], greedy_only=greedy_only)
             act = st["active"]
             # commit only active slots (explicit mask for the reference's
             # out-of-range drop)
@@ -342,7 +813,10 @@ class ServeEngine:
 
     def _harvest(self) -> None:
         """The chunk's one sync: pull the per-slot (active, n_gen), then
-        the finished slots' token buffers."""
+        the finished slots' token buffers. Paged slots return their blocks
+        to the pool; their decoded content is registered in the prefix
+        index first, so a follow-up prompt extending prompt + completion
+        (a chat turn) reuses those blocks."""
         if not self._slot_req:
             return
         with self.trace.span("harvest"):
@@ -351,8 +825,12 @@ class ServeEngine:
                 act_ngen = torch.stack([st["active"].to(torch.int32),
                                         st["n_gen"]]).cpu().numpy()
             act, n_gen = act_ngen[0].astype(bool), act_ngen[1]
-            for s in self._slot_req:
+            for s, r in self._slot_req.items():
                 self._n_gen[s] = int(n_gen[s])
+                if self._paged and act[s]:
+                    # each decode step writes the KV of the token it
+                    # consumes: prompt + (n_gen - 1) tokens are written
+                    self._written[s] = len(r.prompt) + int(n_gen[s]) - 1
             finished = [s for s in self._slot_req if not act[s]]
             if not finished:
                 return
@@ -365,20 +843,42 @@ class ServeEngine:
                 req.generated = rows[i, :n_gen[s]].tolist()
                 req.done = True
                 self.scheduler.on_finished(req)
+                if self._paged:
+                    self._release(s, req, int(n_gen[s]))
+
+    def _release(self, slot: int, req: Request, n_gen: int) -> None:
+        """Return a finished paged slot's blocks to the pool. [0, true_w)
+        is intact even for an early-EOS slot: its masked post-EOS steps
+        only rewrote positions >= true_w."""
+        if self.prefix_cache and req.generated:
+            true_w = len(req.prompt) + n_gen - 1
+            content = np.concatenate(
+                [np.asarray(req.prompt, np.int32),
+                 np.asarray(req.generated[:-1], np.int32)])
+            self.alloc.register_prefix(slot, content, true_w)
+        self.alloc.release(slot)
+        self._written.pop(slot, None)
+        self._tbl_dirty = True              # row parked on the sentinel
 
     # ------------------------------------------------------------------
     # Drive
     # ------------------------------------------------------------------
 
     def step(self) -> None:
-        """One admission + one decode chunk + harvest."""
+        """One admission + one tail-wave window of the in-progress tail or
+        chunked admissions + one decode chunk + harvest."""
         self._step_idx += 1
         self.trace.step = self._step_idx
         with self.trace.span("step"):
             with self.trace.span("admit"):
                 self._admit()
+            if self._tail_jobs:
+                self._advance_tail_jobs()
             if self._slot_req:
                 with self.trace.span("decode") as sp:
+                    if self._paged:
+                        with self.trace.span("schedule", kind="decode"):
+                            self._ensure_decode_blocks()
                     with self.trace.span("decode_chunk",
                                          rows=len(self._slot_req)):
                         self._decode_chunk()
@@ -399,12 +899,12 @@ class ServeEngine:
             self._slot_req[s].generated = rows[i, :n_gen[s]].tolist()
 
     def run_until_drained(self, max_steps: int = 10_000) -> Dict:
-        """Serve until queue + slots are empty; ``max_steps`` bounds the
-        total decode-step budget (chunk-granular). If the budget aborts the
-        drain, in-flight requests keep their partial ``generated`` output
-        (``done`` stays False)."""
+        """Serve until queue, slots and tail jobs are empty; ``max_steps``
+        bounds the total decode-step budget (chunk-granular). If the
+        budget aborts the drain, in-flight requests keep their partial
+        ``generated`` output (``done`` stays False)."""
         chunks = 0
-        while ((self.scheduler.pending or self._slot_req)
+        while ((self.scheduler.pending or self._slot_req or self._tail_jobs)
                and chunks * self.decode_block < max_steps):
             self.step()
             chunks += 1
@@ -426,13 +926,21 @@ class ServeEngine:
         decode_steps                device decode steps with an active slot
         decode_s / decode_step_s    wall seconds in decode / per device step
         decode_rounds               engine steps that ran a decode chunk
-        prefill_calls               batched prefill admissions
-        prompt_tokens_prefilled     prompt tokens computed
-        prefill_s                   wall seconds in prefill
+        prefill_calls               batched prefill admissions and tail
+                                    waves that finished a prompt
+        prefill_chunks              tail-wave rows advanced (windows)
+        tail_waves                  tail-wave calls
+        prompt_tokens_prefilled     prompt tokens computed (prefix-cache
+                                    hits excluded)
+        prefill_s                   wall seconds in prefill + tail waves
+        prefix_hit_tokens           prompt tokens served from the prefix
+                                    cache instead of being prefilled
+        cow_copies                  copy-on-write block clones
         max_residents               peak concurrently resident requests
+                                    (decode + in-flight tail prefills)
         pending_requests            requests waiting in the scheduler queue
         resident_requests           requests resident in slots
-        cache_tokens_capacity       slots * cache_len
+        cache_tokens_capacity       stripe / pool capacity in tokens
         peak_cache_tokens/_bytes    peak occupancy in tokens / bytes
         cache_bytes                 total cache allocation
         decode_block(_mode)         chunk length and how it was chosen
@@ -442,10 +950,19 @@ class ServeEngine:
         weight_hbm_saved_bytes      bf16 weight bytes per forward the packed
                                     layout no longer reads (0 under bf16)
         device                      the device the engine serves on
+        paged                       True under kv_layout="paged"
+        free_blocks                 free blocks of the pool (paged)
+        pool_occupancy              fraction of pool blocks in use (paged)
+        prefix_lookups/_hit_blocks  prefix-index probes / whole blocks hit
+        prefix_cache_blocks         evictable blocks alive only in the index
+        prefix_evictions            indexed blocks reclaimed by allocation
         requests_finished           requests fully served
         ttft_p50_s/p95_s            submit -> first-token percentiles
         latency_p50_s/p95_s         submit -> finish percentiles
         ==========================  =========================================
+
+        The pool-only keys (``free_blocks`` … ``prefix_evictions``) appear
+        only with ``kv_layout="paged"``.
         """
         counts = torch.stack([self.state["steps"], self.state["committed"]]
                              ).cpu().tolist()
@@ -465,11 +982,23 @@ class ServeEngine:
             self._w4a8_bytes["replaced"] - self._w4a8_bytes["packed"], 0)
         d["device"] = str(self.device)
         d["pending_requests"] = self.scheduler.pending
-        d["resident_requests"] = len(self._slot_req)
-        cap_tokens = self.slots * self.cache_len
+        d["resident_requests"] = len(self._slot_req) + len(self._tail_jobs)
+        d["paged"] = self._paged
+        if self._paged:
+            d["prefix_lookups"] = self.alloc.prefix_lookups
+            d["prefix_hit_blocks"] = self.alloc.prefix_hit_blocks
+            d["prefix_cache_blocks"] = self.alloc.cached_blocks
+            d["prefix_evictions"] = self.alloc.prefix_evictions
+            d["free_blocks"] = self.alloc.free_blocks
+            d["pool_occupancy"] = (1.0 - self.alloc.free_blocks
+                                   / max(self.num_blocks, 1))
+            cap_tokens = self.num_blocks * self.block_size
+            d["peak_cache_tokens"] = self.alloc.peak_blocks * self.block_size
+        else:
+            cap_tokens = self.slots * self.cache_len
+            # a dense stripe is reserved whole for a slot's lifetime
+            d["peak_cache_tokens"] = self._max_residents * self.cache_len
         d["cache_tokens_capacity"] = cap_tokens
-        # a dense stripe is reserved whole for a slot's lifetime
-        d["peak_cache_tokens"] = self._max_residents * self.cache_len
         d["cache_bytes"] = self._cache_bytes
         d["peak_cache_bytes"] = int(
             self._cache_bytes * d["peak_cache_tokens"] / max(cap_tokens, 1))

@@ -1,41 +1,120 @@
 """Token sampling for the serve engine: greedy, temperature and top-k.
 
-Batched over slots and free of host syncs: greedy rows are an argmax, and
-a sampled row draws from its own ``torch.Generator`` on the logits'
-device, seeded from the request's (seed, uid) and the slot's
-generated-token count. The draw is the exponential race
-``argmax(p / E)``, ``E ~ Exp(1)``, which samples the categorical ``p``.
-
-The reference derives its per-step keys with jax's threefry
-(``fold_in``); a torch generator cannot reproduce those bits, so sampled
-streams are deterministic per seed but not equal to the reference's.
-Greedy streams are equal.
+Batched over slots and free of host syncs. Each slot carries a jax-style
+PRNG key (two uint32 words) on the device, set at admission to
+``fold_in(PRNGKey(seed), uid)``; every step folds in the slot's
+generated-token count and draws ``categorical`` as the reference does
+(``argmax(logits + gumbel)``). The bits are jax's own: ``threefry2x32``
+in the partitionable counter layout that jax's default configuration
+uses, written here as 32-bit add / rotate / xor on int64 tensors masked
+to 32 bits (torch has no uint32 arithmetic worth trusting). The random
+bits equal jax's bit for bit; the gumbel noise goes through ``log``
+twice and may differ from XLA's by an ulp, so sampled streams equal the
+reference's except at near-ties.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Tuple
 
 import torch
 
 _NEG = -1e30
 TOP_K_CAP = 64      # static bound on per-request top_k
 
-_MASK64 = (1 << 64) - 1
+_M32 = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_KS_PARITY = 0x1BD11BDA
+_F32_TINY = 1.1754943508222875e-38        # float32 finfo.tiny
 
 
-def _mix(x: int) -> int:
-    """splitmix64 finalizer: a well-spread 64-bit hash of ``x``."""
-    x = (x + 0x9E3779B97F4A7C15) & _MASK64
-    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
-    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _MASK64
-    return x ^ (x >> 31)
+# --------------------------------------------------------------------------
+# threefry2x32 on tensors (int64 holding uint32 values) and on Python ints
+# --------------------------------------------------------------------------
+
+def _rotl(x, d: int):
+    return ((x << d) | (x >> (32 - d))) & _M32
 
 
-def step_seed(seed: int, uid: int, n_gen: int) -> int:
-    """Generator seed of one request's ``n_gen``-th sampled token."""
-    h = _mix(_mix(_mix(seed & _MASK64) ^ (uid & _MASK64)) ^ (n_gen & _MASK64))
-    return h & ((1 << 63) - 1)
+def _threefry2x32(k1, k2, x1, x2):
+    """jax's threefry2x32 hash (prng.py ``_threefry2x32_lowering``) of the
+    count pair (x1, x2) under the key (k1, k2); works on Python ints and
+    on int64 tensors alike (every value a uint32)."""
+    ks = (k1, k2, (k1 ^ k2 ^ _KS_PARITY) & _M32)
+    x = [(x1 + ks[0]) & _M32, (x2 + ks[1]) & _M32]
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x[0] = (x[0] + x[1]) & _M32
+            x[1] = _rotl(x[1], r) ^ x[0]
+        x[0] = (x[0] + ks[(i + 1) % 3]) & _M32
+        x[1] = (x[1] + ks[(i + 2) % 3] + i + 1) & _M32
+    return x[0], x[1]
 
+
+def prng_key(seed: int) -> Tuple[int, int]:
+    """``jax.random.PRNGKey(seed)`` for a uint32 seed, as two ints."""
+    seed &= _M32
+    return 0, seed
+
+
+def fold_in(key: Tuple[int, int], data: int) -> Tuple[int, int]:
+    """``jax.random.fold_in`` on the host: hash (0, data) under ``key``."""
+    return _threefry2x32(key[0], key[1], 0, data & _M32)
+
+
+def slot_key(seed: int, uid: int) -> Tuple[int, int]:
+    """A request's persistent key: ``fold_in(PRNGKey(seed), uid)``."""
+    return fold_in(prng_key(seed), uid)
+
+
+def fold_step(keys: torch.Tensor, counters: torch.Tensor) -> torch.Tensor:
+    """Per-row ``fold_in(keys[i], counters[i])`` on the device.
+
+    keys (B, 2) int64 holding uint32 words; counters (B,) int. Returns
+    (B, 2) int64.
+    """
+    k = keys.long()
+    c = counters.long() & _M32
+    a, b = _threefry2x32(k[:, 0], k[:, 1], torch.zeros_like(c), c)
+    return torch.stack([a, b], dim=1)
+
+
+def random_bits(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """32-bit ``jax.random.bits`` of shape (n,) for each row's key, in the
+    partitionable layout: counter i is the 64-bit pair (0, i) and the
+    word is the xor of the two hash outputs. keys (B, 2) -> (B, n) int64."""
+    k = keys.long()
+    lo = torch.arange(n, dtype=torch.int64, device=keys.device)[None]
+    a, b = _threefry2x32(k[:, :1], k[:, 1:], torch.zeros_like(lo), lo)
+    return a ^ b
+
+
+def uniform(keys: torch.Tensor, n: int,
+            minval: float = _F32_TINY) -> torch.Tensor:
+    """f32 ``jax.random.uniform(key, (n,), minval=minval, maxval=1)`` per
+    row: the top 23 bits as a mantissa in [1, 2), minus 1, scaled, and
+    floored at ``minval``."""
+    bits = random_bits(keys, n)
+    f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    lo = torch.tensor(minval, dtype=torch.float32, device=keys.device)
+    span = torch.tensor(1.0, dtype=torch.float32, device=keys.device) - lo
+    return torch.maximum(lo, f * span + lo)
+
+
+def gumbel(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """f32 gumbel noise as ``jax.random.gumbel`` draws it in its default
+    ("low") mode: ``-log(-log(uniform(minval=tiny)))``."""
+    return -torch.log(-torch.log(uniform(keys, n)))
+
+
+def categorical(keys: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """``jax.random.categorical`` per row: argmax(gumbel + logits)."""
+    g = gumbel(keys, logits.shape[-1])
+    return torch.argmax(g + logits.float(), dim=-1)
+
+
+# --------------------------------------------------------------------------
+# sampling
+# --------------------------------------------------------------------------
 
 def topk_masked(logits: torch.Tensor, top_k: torch.Tensor) -> torch.Tensor:
     """Logits with everything below each row's k-th largest pushed to
@@ -49,29 +128,21 @@ def topk_masked(logits: torch.Tensor, top_k: torch.Tensor) -> torch.Tensor:
     return torch.where(drop, torch.full_like(logits, _NEG), logits)
 
 
-def sample_tokens(logits: torch.Tensor, temperature: torch.Tensor,
-                  top_k: torch.Tensor,
-                  seeds: Optional[Sequence[Optional[int]]] = None,
+def sample_tokens(logits: torch.Tensor, keys: Optional[torch.Tensor],
+                  temperature: torch.Tensor, top_k: torch.Tensor,
                   greedy_only: bool = False) -> torch.Tensor:
     """Batched greedy / temperature / top-k sampling.
 
-    logits (B, V); temperature (B,) f32 (<= 0 means greedy); top_k (B,)
-    int32 (0 disables); ``seeds`` one generator seed per row, None for
-    rows the host knows are greedy. Returns (B,) int32 tokens.
-    ``greedy_only`` skips the draw when no row samples.
+    logits (B, V); keys (B, 2) int64 uint32 words, this step's keys
+    (unused, and may be None, under ``greedy_only``); temperature (B,)
+    f32 (<= 0 means greedy); top_k (B,) int32 (0 disables). Returns (B,)
+    int32 tokens. ``greedy_only`` skips the draw when no row samples.
     """
     logits = logits.float()
     greedy = torch.argmax(logits, dim=-1).to(torch.int32)
-    if greedy_only or seeds is None:
+    if greedy_only:
         return greedy
     masked = topk_masked(logits, top_k)
     temp = torch.clamp_min(temperature, 1e-6)[:, None]
-    probs = torch.softmax(masked / temp, dim=-1)
-    noise = torch.ones_like(probs)
-    for row, seed in enumerate(seeds):
-        if seed is not None:
-            gen = torch.Generator(device=logits.device)
-            gen.manual_seed(seed)
-            noise[row].exponential_(generator=gen)
-    drawn = torch.argmax(probs / noise, dim=-1).to(torch.int32)
+    drawn = categorical(keys, masked / temp).to(torch.int32)
     return torch.where(temperature > 0.0, drawn, greedy)

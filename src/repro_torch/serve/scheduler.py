@@ -2,9 +2,12 @@
 
 The scheduler owns the waiting queue and all per-request timing; the engine
 asks it for the next admission batch whenever slots free up. This port
-holds the ``fcfs`` policy (first-come-first-served, arrival order); the
-reference's ``sjf`` / ``edf`` policies, prefix-affinity grouping, SLO
-shedding and preemption arrive with the slices that need them.
+holds the ``fcfs`` policy (first-come-first-served, arrival order) and
+the paged engine's admission hooks: ``first``/``take`` to peek and remove
+the head, ``select`` with a head-of-line ``admit_ok`` predicate, and
+prefix-affinity grouping (``group_key`` / ``hot`` / ``skip``). The
+reference's ``sjf`` / ``edf`` policies, SLO shedding and preemption
+victims arrive with the slices that need them.
 """
 from __future__ import annotations
 
@@ -15,6 +18,9 @@ from typing import Dict, List, Optional
 from repro_torch.obs.trace import NULL_TRACER
 
 POLICIES = ("fcfs",)
+# how many non-head admissions may jump the policy head via hot-chain
+# affinity before grouping pauses and the head admits (starvation bound)
+HOT_BYPASS_CAP = 16
 
 
 @dataclass
@@ -60,6 +66,8 @@ class Scheduler:
         self._queue: List = []                   # waiting Requests
         self._timings: List[RequestTiming] = []
         self._seq = 0                            # arrival tiebreaker
+        self._bypass_head = None     # policy head being jumped via hot
+        self._bypass_count = 0       # non-head removals while it waits
 
     # ---- queue ----
     def submit(self, req, now: Optional[float] = None) -> None:
@@ -80,13 +88,101 @@ class Scheduler:
     def pending(self) -> int:
         return len(self._queue)
 
-    def select(self, max_n: int) -> List:
-        """Pop up to ``max_n`` requests, in arrival order, for one batched
-        prefill."""
+    def _ordered(self, group_key=None, hot=(), skip=()) -> List:
+        """The queue in policy order, prefix-affinity grouped.
+
+        With ``group_key`` (req -> hashable | None), requests sharing a
+        cached chain (equal non-None key) are pulled back-to-back behind
+        the group's first occurrence, and keys in ``hot`` (chains with an
+        admission in flight) rank ahead of everything. Keyless requests
+        keep their place. Hot jumping is starvation-bounded: after
+        ``HOT_BYPASS_CAP`` admissions have passed the same waiting policy
+        head, grouping pauses until the head itself is taken. ``skip``
+        leaves out requests the engine holds this step.
+        """
+        base = self._queue if not skip else \
+            [r for r in self._queue if r not in skip]
+        base = list(base)
+        if group_key is None:
+            return base
+        if hot and base and self._bypass_head is base[0] \
+                and self._bypass_count >= HOT_BYPASS_CAP:
+            hot = ()
+        first_at: Dict = {}
+        ranked = []
+        for i, r in enumerate(base):
+            k = group_key(r)
+            if k is None:
+                ranked.append(((i, i), r))
+            elif k in hot:
+                ranked.append(((-1, i), r))
+            else:
+                first_at.setdefault(k, i)
+                ranked.append(((first_at[k], i), r))
+        ranked.sort(key=lambda t: t[0])
+        return [r for _, r in ranked]
+
+    def first(self, group_key=None, hot=(), skip=()):
+        """Head of the grouped queue (None when empty or fully skipped);
+        the paged engine peeks it to route prefix-hit and long prompts
+        into tail admission."""
+        ordered = self._ordered(group_key, hot, skip)
+        return ordered[0] if ordered else None
+
+    def _policy_head(self):
+        """Ungrouped policy head (what plain FCFS would admit next)."""
+        return self._queue[0] if self._queue else None
+
+    def _note_removal(self, req, head) -> None:
+        """Track admissions that bypass the waiting policy head (the
+        hot-chain starvation bound)."""
+        if req is head or head is None:
+            self._bypass_head = None
+            self._bypass_count = 0
+        else:
+            if self._bypass_head is not head:
+                self._bypass_head = head
+                self._bypass_count = 0
+            self._bypass_count += 1
+
+    def take(self, req) -> None:
+        """Remove a specific queued request (paired with ``first``)."""
+        head = self._policy_head()
+        self._queue.remove(req)
+        self._note_removal(req, head)
+
+    def select(self, max_n: int, *, equal_length_only: bool = False,
+               admit_ok=None, group_key=None, hot=(), skip=()) -> List:
+        """Pop up to ``max_n`` requests for one batched prefill.
+
+        ``equal_length_only`` restricts the batch to the leader's prompt
+        length. ``admit_ok`` is a per-request admission predicate ("enough
+        free cache blocks"); selection stops at the first request it
+        refuses (head-of-line blocking, so a big request is not starved by
+        smaller ones behind it), and every request it accepted is
+        admitted. ``group_key`` / ``hot`` / ``skip`` apply the
+        prefix-affinity grouping of :meth:`_ordered`.
+        """
         if max_n <= 0 or not self._queue:
             return []
-        batch = self._queue[:max_n]
-        del self._queue[:max_n]
+        ordered = self._ordered(group_key, hot, skip)
+        batch: List = []
+        for r in ordered:
+            if len(batch) >= max_n:
+                break
+            if batch and equal_length_only and \
+                    len(r.prompt) != len(batch[0].prompt):
+                continue
+            if admit_ok is not None and not admit_ok(r):
+                break
+            batch.append(r)
+        head = self._policy_head()
+        for r in batch:
+            self._queue.remove(r)
+        if batch:
+            # one bypass event per batch: the head went (reset), or
+            # everything admitted jumped it (count once)
+            self._note_removal(head if head in batch else batch[0], head)
         return batch
 
     # ---- accounting ----

@@ -15,9 +15,9 @@ token in a larger workload measured when this test was written), so
 against it the test holds only the counters and the first token of
 every request, which come from one prefill.
 
-Sampled streams cannot be held against the reference: the port draws
-from torch generators, the reference from jax's threefry. They are held
-for determinism, vocabulary and the top-k support.
+Sampled streams are held here for determinism, vocabulary and the top-k
+support; ``test_torch_sampling.py`` holds them against the reference's
+(the port draws jax's threefry bits).
 """
 import jax
 import numpy as np
@@ -162,22 +162,23 @@ def test_sampled_streams_deterministic_and_in_vocab(served):
 def test_sample_tokens_rules():
     """Greedy rows take the argmax; top_k=1 on distinct logits is the
     argmax; top-k draws stay inside each row's k largest logits."""
-    from repro_torch.serve.sampling import sample_tokens, step_seed
+    from repro_torch.serve.sampling import fold_step, sample_tokens, slot_key
     rng = np.random.default_rng(0)
     logits = torch.from_numpy(rng.permutation(64 * 6).reshape(6, 64)
                               .astype(np.float32) / 50.0)
     temp = torch.tensor([0.0, 0.7, 0.7, 1.5, 1.5, 1.5])
     top_k = torch.tensor([0, 1, 4, 4, 0, 64], dtype=torch.int32)
-    seeds = [None] + [step_seed(9, r, 0) for r in range(1, 6)]
+    keys = torch.tensor([slot_key(9, r) for r in range(6)])
     argmax = logits.argmax(-1)
     for trial in range(20):
-        seeds_t = [None if s is None else s + trial for s in seeds]
-        got = sample_tokens(logits, temp, top_k, seeds_t)
+        got = sample_tokens(logits, fold_step(keys, torch.full((6,), trial)),
+                            temp, top_k)
         assert got.dtype == torch.int32
         assert got[0] == argmax[0] and got[1] == argmax[1]
         top4 = torch.topk(logits[2:4], 4).indices
         assert all(got[2 + i] in top4[i] for i in range(2))
-    assert torch.equal(sample_tokens(logits, temp, top_k, greedy_only=True),
+    assert torch.equal(sample_tokens(logits, keys, temp, top_k,
+                                     greedy_only=True),
                        argmax.to(torch.int32))
 
 
@@ -197,7 +198,8 @@ def test_submit_rejects_infeasible_requests(served):
         eng.submit(Request(uid=0, prompt=ok, max_new_tokens=4, top_k=65))
 
 
-@pytest.mark.parametrize("kw", [dict(kv_layout="paged"), dict(spec={"k": 2}),
+@pytest.mark.parametrize("kw", [dict(kv_layout="paged", admission="optimistic"),
+                                dict(spec={"k": 2}),
                                 dict(decode_block="auto"),
                                 dict(slo_shed="reject"), dict(mesh=object()),
                                 dict(sched_policy="sjf")])
