@@ -16,6 +16,9 @@ toolkit (``nvcc``). Phases, each fatal on failure (non-zero exit):
    ``kvq_paged_decode_attn`` within one bf16 ulp at block sizes 64 and 16
    on shuffled tables with sentinels and a parked row;
    ``gather_dequant_paged_kv`` and ``pool_block_copy`` bitwise;
+   ``kvq_spec_verify_attn`` within one bf16 ulp at both block sizes, each
+   query bitwise equal to ``kvq_paged_decode_attn`` at its length;
+   ``rms_norm`` bitwise across row counts;
 3. serve: ``ServeEngine`` on ``cuda`` with qwen2.5-3b at full width
    (random weights from a seed), policy A8d-C8-W4, w4a8 weights, dense
    KV cache; 8 mixed-length requests through 4 slots, both kernels'
@@ -28,11 +31,22 @@ toolkit (``nvcc``). Phases, each fatal on failure (non-zero exit):
    happen; the three paged kernels' launch counts > 0 and the dense decode
    kernel's 0; one decode step's logits paged vs dense and kernels vs
    plain versions;
-4. times: each kernel per decode step, tail-wave or COW (CUDA events, L2
-   flushed by rotating input copies past 100 MB), its plain version, one
-   PyTorch call computing the same function (a yardstick the port never
-   calls) and the least time the card needs for the work; decode tok/s
-   and TTFT of both serve phases.
+3c. spec serve: the paged phase's requests with speculative decoding at
+   the CLI's defaults (k = 4, an 18-layer draft, exact mode); the verify
+   kernel and the draft's dense decode kernel launch, the paged decode
+   kernel does not, and every stream equals 3b's;
+3d. self-draft: the target as its own draft; the verify-wave's logits
+   against sequential decode steps' at one wave, and the accept rate;
+   then a tail-wave row alone against the same row beside a deeper one,
+   bitwise;
+3e. optimistic admission on about 60% of the worst-case pool (spec on,
+   prefix cache off): at least one preemption, swap bytes out == in, and
+   every stream equal to reserve admission's;
+4. times: each kernel per decode step, verify-wave, tail-wave or COW
+   (CUDA events, L2 flushed by rotating input copies past 100 MB), its
+   plain version, one PyTorch call computing the same function (a
+   yardstick the port never calls) and the least time the card needs for
+   the work; decode tok/s and TTFT of the serve phases.
 
 The line before the last is a JSON object with every kernel's numbers; the
 last line is ``{"ok": true, "device": {...}}``. Details go to
@@ -85,12 +99,16 @@ def import_port():
     from repro_torch.kernels.w4a8 import ops as w4a8_ops
     from repro_torch.kernels.w4a8.ref import w4a8_matmul_ref
     from repro_torch import models
+    from repro_torch.models.common import rms_norm
+    from repro_torch.obs.trace import Tracer
     from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.serve.spec import SpecConfig
     return dict(get_config=get_config, qat=qat, unpack_int4=unpack_int4,
                 build=build, kvq_ops=kvq_ops, kvq_ref=kvq_ref,
                 kvq_decode_attn_ref=kvq_decode_attn_ref, w4a8_ops=w4a8_ops,
                 w4a8_matmul_ref=w4a8_matmul_ref, models=models,
-                Request=Request, ServeEngine=ServeEngine)
+                rms_norm=rms_norm, Request=Request, ServeEngine=ServeEngine,
+                SpecConfig=SpecConfig, Tracer=Tracer)
 
 
 # --------------------------------------------------------------------------
@@ -641,6 +659,173 @@ def time_copy(torch, P, cfg, dev, report):
 
 
 # --------------------------------------------------------------------------
+# phase 2 + 4: kvq_spec_verify_attn (the verify-wave's attention)
+# --------------------------------------------------------------------------
+
+SPEC_K = 4                     # the CLI's default draft length
+SPEC_C = SPEC_K + 1            # window queries per slot
+SPEC_T = 8                     # table entries per slot
+
+
+def spec_histories(bs):
+    """Committed history per slot before the window: a long row, a parked
+    row (None: every length 0), a window straddling a block boundary and
+    a mid-length row."""
+    return (SPEC_T * bs - SPEC_C, None, bs - 2, 3 * bs + 8)
+
+
+def spec_inputs(torch, gen, cfg, bs, dev):
+    hist = spec_histories(bs)
+    B, C = len(hist), SPEC_C
+    nb = B * SPEC_T + 8
+    H, D = cfg.n_heads, cfg.resolved_head_dim
+    q = torch.randn((B, C, H, D), generator=gen, device=dev).to(
+        torch.bfloat16)
+    k, v, s_k, s_v = paged_pool(torch, gen, cfg, nb, bs, dev)
+    lens = [[0] * C if h is None else [h + 1 + c for c in range(C)]
+            for h in hist]
+    tbl = shuffled_table(torch, gen, nb, B, SPEC_T, [max(x) for x in lens],
+                         bs, dev)
+    return (q, k, v, s_k, s_v, tbl,
+            torch.tensor(lens, dtype=torch.int32, device=dev))
+
+
+def check_spec_verify(torch, P, cfg, dev, report):
+    """The verify kernel against its plain version within one bf16 ulp at
+    both block sizes, a parked row exactly zero, and each query bitwise
+    equal to the paged decode kernel at its own length (the property
+    exact-mode speculative decoding rests on)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(15)
+    ops = P["kvq_ops"]
+    ref = P["kvq_ref"].kvq_spec_verify_attn_ref
+    rtol, atol = KVQ_TOL
+    worst = 0.0
+    for bs in PAGED_BS:
+        q, k, v, s_k, s_v, tbl, lens = spec_inputs(torch, gen, cfg, bs, dev)
+        got = ops.kvq_spec_verify_attn(q, k, v, s_k, s_v, tbl, lens)
+        want = ref(q, k, v, s_k, s_v, tbl, lens)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got.float()).all()),
+              f"kvq_spec_verify_attn bs={bs}: non-finite output")
+        err = float((got.float() - want.float()).abs().max())
+        check(torch.allclose(got.float(), want.float(), rtol=rtol,
+                             atol=atol),
+              f"kvq_spec_verify_attn bs={bs} differs from its plain version:"
+              f" max abs err {err} (rtol {rtol}, atol {atol})")
+        check(bool((got[1] == 0).all()),
+              "kvq_spec_verify_attn: a parked row is not zero")
+        for c in range(SPEC_C):
+            one = ops.kvq_paged_decode_attn(q[:, c].contiguous(), k, v, s_k,
+                                            s_v, tbl,
+                                            lens[:, c].contiguous())
+            check(torch.equal(got[:, c], one),
+                  f"kvq_spec_verify_attn bs={bs} query {c} is not bitwise "
+                  f"equal to kvq_paged_decode_attn at its length")
+        worst = max(worst, err)
+    report["spec_verify_max_abs_err"] = worst
+    report["spec_verify_bitwise_vs_paged_decode"] = True
+    print(f"phase 2: kvq_spec_verify_attn within rtol {rtol} atol {atol} of "
+          f"its plain version at bs {PAGED_BS} (max abs err {worst:.3g}; "
+          f"B=4, C={SPEC_C}, T={SPEC_T}, a boundary-straddling window and a "
+          f"parked row); every query bitwise equal to kvq_paged_decode_attn",
+          flush=True)
+    return worst
+
+
+def check_norm_rows(torch, P, cfg, dev, report):
+    """rms_norm gives each row the same bits in a batch of any row count
+    (a verify-wave runs it at M = slots * C rows, decode at M = slots)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(16)
+    w = {"w": torch.ones(cfg.d_model, device=dev, dtype=torch.bfloat16)}
+    rows = SLOTS * SPEC_C
+    diffs = mean_diffs = n_rows = 0
+
+    def mean_sq(x):                 # one torch.mean, the CPU path's form
+        xf = x.float()
+        return torch.mean(xf * xf, dim=-1, keepdim=True)
+
+    for _ in range(8):
+        x = torch.randn((rows, cfg.d_model), generator=gen, device=dev).to(
+            torch.bfloat16) * 3
+        full = P["rms_norm"](x, w, cfg.norm_eps)
+        full_var = mean_sq(x)
+        for m in (1, SLOTS, 2 * SLOTS):
+            diffs += int((P["rms_norm"](x[:m].contiguous(), w, cfg.norm_eps)
+                          != full[:m]).sum())
+            mean_diffs += int((mean_sq(x[:m].contiguous())
+                               != full_var[:m]).sum())
+            n_rows += m
+        x3 = x.reshape(SLOTS, SPEC_C, cfg.d_model)
+        diffs += int((P["rms_norm"](x3[:, :1].contiguous(), w, cfg.norm_eps)
+                      != P["rms_norm"](x3, w, cfg.norm_eps)[:, :1]).sum())
+    report["rms_norm_row_count_diffs"] = diffs
+    # what the two-stage sum replaced: torch.mean's variance, per row
+    report["torch_mean_row_count_var_diffs"] = mean_diffs
+    check(diffs == 0, f"rms_norm differs across row counts: {diffs} "
+                      f"elements")
+    print(f"phase 2: rms_norm bitwise equal across row counts 1..{rows} "
+          f"(one torch.mean's variance differed in {mean_diffs} of "
+          f"{n_rows} rows)",
+          flush=True)
+
+
+def time_spec_verify(torch, P, cfg, dev, report):
+    """Per verify-wave (36 launches) at bs = 64: B = 4 slots, C = 5, T = 8,
+    the histories of ``spec_histories``."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(17)
+    bs = PAGED_BS[0]
+    base = spec_inputs(torch, gen, cfg, bs, dev)
+    sets = [base] + [spec_inputs(torch, gen, cfg, bs, dev)
+                     for _ in range(copies_for(tensor_bytes(*base)) - 1)]
+    kern = P["kvq_ops"].kvq_spec_verify_attn
+    t_k = time_ms(torch, kern, sets)
+    t_host = host_issued_ms(torch, kern, sets)
+    t_p = time_ms(torch, P["kvq_ref"].kvq_spec_verify_attn_ref, sets)
+    import torch.nn.functional as F
+    G = cfg.n_heads // cfg.n_kv_heads
+    gather = P["kvq_ref"].gather_paged_kv
+    S = SPEC_T * bs
+    lib_sets = []
+    for q, k, v, s_k, s_v, tbl, lens in sets:
+        kd = (gather(k, tbl).float() * gather(s_k, tbl)[..., None])
+        vd = (gather(v, tbl).float() * gather(s_v, tbl)[..., None])
+        kd = kd.to(torch.bfloat16).repeat_interleave(G, dim=1)
+        vd = vd.to(torch.bfloat16).repeat_interleave(G, dim=1)
+        mask = (torch.arange(S, device=dev)[None, None, :]
+                < lens[:, :, None])[:, None]                 # (B, 1, C, S)
+        lib_sets.append((q.transpose(1, 2), kd, vd, mask))
+    t_l = time_ms(torch, lambda q, k, v, m: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=m), lib_sets)
+    q, _, _, _, _, _, lens = base
+    B, C, H, D = q.shape
+    Hkv = cfg.n_kv_heads
+    resident = int(lens.max(dim=1).values.sum())    # each block read once
+    nbytes = (2 * B * C * H * D                     # q
+              + resident * Hkv * (2 * D + 8)        # int8 K/V + f32 scales
+              + 4 * B * SPEC_T + 4 * B * C          # table + lengths
+              + 2 * B * C * H * D)                  # out
+    flops = 4 * int(lens.sum()) * H * D
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    per_wave = cfg.n_layers
+    report["spec_verify_per_launch"] = {
+        "ms": t_k, "host_issued_ms": t_host, "plain_ms": t_p,
+        "library_ms": t_l, "bound_ms": max(t_b, t_o) * 1e3,
+        "byte_bound_ms": t_b * 1e3, "operation_bound_ms": t_o * 1e3,
+        "lengths": lens.tolist(), "block_size": bs, "T": SPEC_T}
+    print(f"phase 4: kvq_spec_verify_attn per launch: {t_k * 1e3:.2f} us "
+          f"(byte bound {t_b * 1e6:.3f} us, operation bound "
+          f"{t_o * 1e6:.3f} us), plain {t_p * 1e3:.1f} us, SDPA "
+          f"{t_l * 1e3:.2f} us", flush=True)
+    return {"ms": per_wave * t_k, "plain_ms": per_wave * t_p,
+            "library_ms": per_wave * t_l,
+            "bound_ms": per_wave * max(t_b, t_o) * 1e3,
+            "bound_by": "bytes" if t_b >= t_o else "operations"}
+
+
+# --------------------------------------------------------------------------
 # phase 3: serve
 # --------------------------------------------------------------------------
 
@@ -914,7 +1099,304 @@ def serve_paged(torch, P, cfg, dev, params, report):
               "peak_memory_bytes": torch.cuda.max_memory_allocated(dev)}
     report["serve_paged"] = served
     print("serve_paged " + json.dumps(served), flush=True)
-    return launches, eng
+    return launches, eng, {r.uid: r.generated for r in reqs}
+
+
+# --------------------------------------------------------------------------
+# phases 3c-3e: speculative decoding and optimistic admission
+# --------------------------------------------------------------------------
+
+def counted_kernels(P):
+    ops = P["kvq_ops"]
+    return {"kvq_spec_verify_attn": ops.kvq_spec_verify_attn,
+            "kvq_decode_attn": ops.kvq_decode_attn,
+            "kvq_paged_decode_attn": ops.kvq_paged_decode_attn,
+            "gather_dequant_paged_kv": ops.gather_dequant_paged_kv,
+            "pool_block_copy": ops.copy_pool_blocks,
+            "w4a8_matmul": P["w4a8_ops"].w4a8_matmul}
+
+
+def drive(torch, P, eng, reqs):
+    """Serve ``reqs`` to the end with every launch count set to 0 just
+    before and read just after. Returns (stats, launches, wall s)."""
+    counted = counted_kernels(P)
+    for r in reqs:
+        eng.submit(r)
+    for fn in counted.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    stats = eng.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return stats, {n: fn.launches for n, fn in counted.items()}, wall
+
+
+def span_ms(tracer, name):
+    durs = [e["dur"] for e in tracer.events()
+            if e["ph"] == "span" and e["name"] == name]
+    return 1e3 * sum(durs) / max(len(durs), 1), len(durs)
+
+
+def spec_summary(stats, reqs, wall, launches, tracer):
+    verify_ms, waves = span_ms(tracer, "spec_verify")
+    draft_ms, _ = span_ms(tracer, "spec_draft")
+    decode_tokens = stats["tokens_out"] - len(reqs)
+    return {"requests": len(reqs), "tokens_out": stats["tokens_out"],
+            "wall_s": wall, "tokens_per_s": stats["tokens_out"] / wall,
+            "decode_tokens_per_s": decode_tokens / stats["decode_s"],
+            "verify_wave_ms": verify_ms, "draft_ms_per_wave": draft_ms,
+            "wave_ms": 1e3 * stats["decode_s"] / max(stats["spec_waves"], 1),
+            "ttft_p50_s": stats["ttft_p50_s"],
+            "ttft_p95_s": stats["ttft_p95_s"],
+            "spec_waves": stats["spec_waves"],
+            "spec_drafted": stats["spec_drafted"],
+            "spec_accepted": stats["spec_accepted"],
+            "spec_rolled_back": stats["spec_rolled_back"],
+            "spec_accept_rate": stats["spec_accept_rate"],
+            "spec_draft_layers": stats["spec_draft_layers"],
+            "tail_waves": stats["tail_waves"],
+            "cow_copies": stats["cow_copies"],
+            "preemptions": stats["preemptions"],
+            "swap_out_bytes": stats["swap_out_bytes"],
+            "swap_in_bytes": stats["swap_in_bytes"],
+            "swap_s": stats["swap_s"],
+            "launches": launches}
+
+
+def check_streams(cfg, reqs, what):
+    check(all(r.done for r in reqs), f"{what}: not every request finished")
+    check(all(len(r.generated) == MAX_NEW for r in reqs),
+          f"{what}: a request stopped short of max_new_tokens")
+    check(all(0 <= t < cfg.vocab_size for r in reqs for t in r.generated),
+          f"{what}: a generated token is outside the vocabulary")
+
+
+def serve_spec(torch, P, cfg, dev, params, report, plain_streams):
+    """The paged phase's 8 shared-prefix requests with speculative decoding
+    at the CLI's defaults (k = 4, a draft of half the layers, exact mode):
+    the verify kernel and the draft's dense decode kernel launch, the
+    paged decode kernel does not, and every stream equals the plain
+    paged phase's stream of the same request."""
+    tracer = P["Tracer"](capacity=1 << 16)
+    eng = paged_engine(P, cfg, params, dev, spec=P["SpecConfig"](k=SPEC_K),
+                       trace=tracer)
+    check(eng.spec.resolved_layers(cfg) == cfg.n_layers // 2,
+          "spec: the default draft is not half the target's layers")
+    reqs = shared_prefix_requests(P, cfg, 2 * SLOTS, 200, seed=14)
+    stats, launches, wall = drive(torch, P, eng, reqs)
+    check_streams(cfg, reqs, "spec")
+    for name in ("kvq_spec_verify_attn", "kvq_decode_attn", "w4a8_matmul"):
+        check(launches[name] > 0, f"spec: {name} never launched: {launches}")
+    check(launches["kvq_paged_decode_attn"] == 0,
+          f"spec: the paged decode kernel ran: {launches}")
+    check(stats["free_blocks"] == eng.num_blocks,
+          "spec: blocks leaked after the drain")
+    differ = [r.uid for r in reqs if r.generated != plain_streams[r.uid]]
+    served = spec_summary(stats, reqs, wall, launches, tracer)
+    served["streams_differing_from_plain"] = differ
+    report["serve_spec"] = served
+    print("serve_spec " + json.dumps(served), flush=True)
+    check(not differ, f"spec: exact-mode streams differ from plain paged "
+                      f"decode for requests {differ}")
+    print(f"phase 3c: spec serve, {served['decode_tokens_per_s']:.2f} decode "
+          f"tok/s, {served['verify_wave_ms']:.1f} ms per verify-wave, "
+          f"TTFT p50 {served['ttft_p50_s']:.3f} s p95 "
+          f"{served['ttft_p95_s']:.3f} s; {served['spec_waves']} waves, "
+          f"{served['spec_drafted']} drafted, {served['spec_accepted']} "
+          f"accepted, {served['spec_rolled_back']} rolled back, accept rate "
+          f"{served['spec_accept_rate']:.3f}; streams equal plain decode",
+          flush=True)
+    return launches
+
+
+def verify_vs_decode(torch, P, cfg, eng):
+    """At one wave of ``eng``'s residents: the logits of ``spec_verify``
+    over a greedy window against C sequential ``decode_step`` calls
+    consuming the same tokens, each on its own copy of the cache."""
+    models = P["models"]
+    C = SPEC_C
+    tails = torch.zeros((eng.slots,), dtype=torch.int32)
+    for s, r in list(eng._slot_req.items()):
+        w = eng._written[s]
+        t = min(C, len(r.prompt) + r.max_new_tokens - 1 - w)
+        check(eng._ensure(s, w + t) and eng._cow_guard(s, w, w + t),
+              "verify-vs-decode: a resident was swapped out")
+        tails[s] = t
+    eng._push_tables()
+    st = eng.state
+    tok = st["tokens"].clone()
+    window, seq = [tok], []
+    cache_a = models.clone_cache(st["cache"])
+    for j in range(C):
+        lg, cache_a = models.decode_step(cfg, eng.params, eng.ctx, tok,
+                                         cache_a)
+        seq.append(lg[:, 0].float())
+        tok = torch.argmax(lg[:, -1].float(), -1).to(torch.int32)[:, None]
+        if j < C - 1:
+            window.append(tok)
+    cache_b = models.clone_cache(st["cache"])
+    vl, _ = models.spec_verify(
+        cfg, eng.params, eng.ctx, torch.cat(window, dim=1), cache_b,
+        torch.arange(eng.slots, dtype=torch.int32, device=tok.device),
+        cache_b["position"].clone(), tails.to(tok.device),
+        hist_blocks=eng.table_len)
+    seq = torch.stack(seq, dim=1)
+    rows = [(s, j) for s in eng._slot_req for j in range(int(tails[s]))]
+    got = torch.stack([vl[s, j].float() for s, j in rows])
+    want = torch.stack([seq[s, j] for s, j in rows])
+    rel, agree = logit_gap(torch, got, want)
+    return bool(torch.equal(got, want)), rel, agree, len(rows)
+
+
+def serve_self_draft(torch, P, cfg, dev, params, report):
+    """Greedy requests with the target as its own draft (36 layers): the
+    verify logits against decode's at one wave, then the accept rate
+    (1.0 when they agree bitwise). Prompts fit one prefill window and the
+    prefix cache is off, so the draft's dense prefill and the target's
+    paged prefill compute the same cache."""
+    import numpy as np
+    rng = np.random.default_rng(18)
+    reqs = [P["Request"](uid=500 + i, prompt=rng.integers(
+        0, cfg.vocab_size, int(n)).astype(np.int32), max_new_tokens=MAX_NEW)
+        for i, n in enumerate(rng.integers(40, 65, SLOTS))]
+    eng = paged_engine(P, cfg, params, dev, prefix_cache=False,
+                       spec=P["SpecConfig"](k=SPEC_K,
+                                            draft_layers=cfg.n_layers))
+    for r in reqs:
+        eng.submit(r)
+    eng._admit()
+    check(len(eng._slot_req) == SLOTS, "self-draft: a wave short")
+    bitwise, rel, agree, n_rows = verify_vs_decode(torch, P, cfg, eng)
+    check(rel <= LOGIT_REL_TOL,
+          f"verify logits differ from decode's by relative L2 {rel} > "
+          f"{LOGIT_REL_TOL}")
+    t0 = time.perf_counter()
+    stats = eng.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check_streams(cfg, reqs, "self-draft")
+    out = {"verify_vs_decode_bitwise": bitwise,
+           "verify_vs_decode_rel_l2": rel,
+           "verify_vs_decode_argmax": agree, "positions": n_rows,
+           "spec_accept_rate": stats["spec_accept_rate"],
+           "spec_waves": stats["spec_waves"],
+           "spec_drafted": stats["spec_drafted"],
+           "spec_accepted": stats["spec_accepted"],
+           "decode_tokens_per_s": (stats["tokens_out"] - len(reqs))
+           / stats["decode_s"],
+           "wave_ms": 1e3 * stats["decode_s"] / max(stats["spec_waves"], 1),
+           "wall_s": wall}
+    report["self_draft"] = out
+    print(f"phase 3d: self-draft ({cfg.n_layers} layers): accept rate "
+          f"{out['spec_accept_rate']:.3f} over {out['spec_waves']} waves; "
+          f"verify logits vs decode at one wave ({n_rows} positions): "
+          f"bitwise {'yes' if bitwise else 'no'}, relative L2 {rel:.3g}, "
+          f"argmax agreement {agree:.3f}", flush=True)
+
+
+def check_tail_rows(torch, P, cfg, dev, params, report):
+    """A tail-wave row gives the same bits alone as in a wave with a
+    deeper row (whose history sets the wave's table walk): one attention
+    layer of qwen2.5-3b, its output and the cache blocks it commits
+    compared bitwise."""
+    import numpy as np
+    from repro_torch.models import blocks
+    from repro_torch.models.common import rope_tables
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(19)
+    bs, NB, C = 64, 24, 64
+    ctx = P["qat"].make_ctx("A8d-C8-W4", weights_layout="w4a8")
+    pool, layers = blocks.init_paged_attn_cache(cfg, 2, NB, bs, layers=1,
+                                                device=dev)
+    for key in ("k_q", "v_q"):
+        pool[key].copy_(torch.randint(-127, 128, pool[key].shape,
+                                      generator=gen, device=dev,
+                                      dtype=torch.int8))
+    for key in ("s_k", "s_v"):
+        pool[key].copy_(torch.rand(pool[key].shape, generator=gen,
+                                   device=dev) * 0.02 + 1e-3)
+    perm = torch.randperm(NB, generator=gen, device=dev).to(torch.int32)
+    tbl = perm[:16].reshape(2, 8).contiguous()
+    offs = [100, 400]
+    x = torch.randn((2, C, cfg.d_model), generator=gen, device=dev).to(
+        torch.bfloat16)
+    p = params["layers"][0]["attn"]
+
+    def run(rows, hb):
+        pl = {k: v.clone() for k, v in pool.items()}
+        layer = {**{k: pl[k][0] for k in pl},
+                 "length": torch.zeros((2,), dtype=torch.int32, device=dev)}
+        off = torch.tensor([offs[i] for i in rows], dtype=torch.int32,
+                           device=dev)
+        pos = off.long()[:, None] + torch.arange(C, device=dev)[None]
+        rope = rope_tables(pos, cfg.resolved_head_dim, cfg.rope_theta)
+        own = [min(int(2 ** np.ceil(np.log2(-(-(offs[i] + C) // bs)))), 8)
+               for i in rows]
+        y, _ = blocks.attn_chunk_prefill(
+            cfg, ctx, p, x[rows], rope, layer, tbl[rows, :hb].contiguous(),
+            torch.tensor(rows, dtype=torch.int32, device=dev), off,
+            torch.full((len(rows),), C, dtype=torch.int32, device=dev),
+            hist_rows=own)
+        return y, pl
+
+    y_wave, pool_wave = run([0, 1], 8)
+    y_alone, pool_alone = run([0], 4)
+    own = tbl[0].long()                 # row 0's blocks (row 1's differ)
+    same = (torch.equal(y_wave[0], y_alone[0])
+            and all(torch.equal(pool_wave[k][:, own], pool_alone[k][:, own])
+                    for k in pool))
+    report["tail_row_invariant"] = same
+    check(same, "a tail-wave row differs alone and inside a deeper wave")
+    print("phase 3b: a tail-wave row is bitwise the same alone and beside "
+          "a deeper row", flush=True)
+
+
+def serve_optimistic(torch, P, cfg, dev, params, report):
+    """The paged phase's requests, prefix cache off, under optimistic
+    admission (speculative decoding at the CLI's defaults) on a pool of
+    about 60% of the reserve worst case: at least one preemption, the
+    bytes swapped out all swapped back in, and every stream equal to the
+    same request's under reserve admission on a full pool. The prefix
+    cache is off on both sides because the admission order decides which
+    prompt tokens a request finds cached, and a cached token is read back
+    quantized where a computed one is not."""
+    def run(**kw):
+        reqs = shared_prefix_requests(P, cfg, 2 * SLOTS, 200, seed=14)
+        tracer = P["Tracer"](capacity=1 << 16)
+        eng = paged_engine(P, cfg, params, dev, prefix_cache=False,
+                           max_seq_len=PAGED_TOKENS, trace=tracer, **kw)
+        stats, launches, wall = drive(torch, P, eng, reqs)
+        check_streams(cfg, reqs, f"optimistic phase {kw}")
+        check(stats["free_blocks"] == eng.num_blocks,
+              f"optimistic phase {kw}: blocks leaked after the drain")
+        return reqs, stats, launches, wall, tracer
+
+    reqs, _, _, _, _ = run()                          # reserve, plain decode
+    reserve_streams = {r.uid: r.generated for r in reqs}
+    need = sorted(-(-(len(r.prompt) + MAX_NEW - 1) // 64) for r in reqs)
+    worst = sum(need[-SLOTS:])
+    nb = max(need[-1], int(0.6 * worst))
+    reqs, stats, launches, wall, tracer = run(
+        num_blocks=nb, admission="optimistic",
+        spec=P["SpecConfig"](k=SPEC_K))
+    served = spec_summary(stats, reqs, wall, launches, tracer)
+    served.update(num_blocks=nb, reserve_worst_case_blocks=worst)
+    differ = [r.uid for r in reqs if r.generated != reserve_streams[r.uid]]
+    served["streams_differing_from_reserve"] = differ
+    report["serve_optimistic"] = served
+    print("serve_optimistic " + json.dumps(served), flush=True)
+    check(stats["preemptions"] >= 1,
+          f"optimistic: no preemption on {nb} blocks")
+    check(stats["swap_out_bytes"] == stats["swap_in_bytes"] > 0,
+          f"optimistic: swap bytes out {stats['swap_out_bytes']} != in "
+          f"{stats['swap_in_bytes']}")
+    check(not differ, f"optimistic: streams differ from reserve admission "
+                      f"for requests {differ}")
+    print(f"phase 3e: optimistic admission on {nb} of {worst} worst-case "
+          f"blocks: {stats['preemptions']} preemptions, "
+          f"{stats['swap_out_bytes']} bytes out and in, swap "
+          f"{1e3 * stats['swap_s']:.1f} ms; streams equal reserve "
+          f"admission's", flush=True)
 
 
 def profile_decode(torch, P, cfg, eng, report, key="serve"):
@@ -1015,15 +1497,23 @@ def main() -> int:
     paged_err = check_paged_decode(torch, P, cfg, dev, report)
     gather_err = check_gather(torch, P, cfg, dev, report)
     copy_err = check_copy(torch, P, cfg, dev, report)
+    spec_err = check_spec_verify(torch, P, cfg, dev, report)
+    check_norm_rows(torch, P, cfg, dev, report)
     launches, eng = serve(torch, P, cfg, dev, report)
     profile_decode(torch, P, cfg, eng, report)
     params = eng.params                 # packed exports, bf16 linears gone
     del eng
     torch.cuda.empty_cache()
-    paged_launches, eng = serve_paged(torch, P, cfg, dev, params, report)
+    paged_launches, eng, plain_streams = serve_paged(torch, P, cfg, dev,
+                                                     params, report)
     profile_decode(torch, P, cfg, eng, report, key="serve_paged")
     del eng
     check_paged_logits(torch, P, cfg, dev, params, report)
+    spec_launches = serve_spec(torch, P, cfg, dev, params, report,
+                               plain_streams)
+    serve_self_draft(torch, P, cfg, dev, params, report)
+    check_tail_rows(torch, P, cfg, dev, params, report)
+    serve_optimistic(torch, P, cfg, dev, params, report)
     del params
     torch.cuda.empty_cache()
     w4a8_t = time_w4a8(torch, P, cfg, dev, report)
@@ -1031,9 +1521,11 @@ def main() -> int:
     paged_t = time_paged_decode(torch, P, cfg, dev, report)
     gather_t = time_gather(torch, P, cfg, dev, report)
     copy_t = time_copy(torch, P, cfg, dev, report)
+    spec_t = time_spec_verify(torch, P, cfg, dev, report)
     for name, t in (("kvq_paged_decode_attn", paged_t),
                     ("gather_dequant_paged_kv", gather_t),
-                    ("pool_block_copy", copy_t)):
+                    ("pool_block_copy", copy_t),
+                    ("kvq_spec_verify_attn", spec_t)):
         print(f"phase 4: {name}: {t['ms']:.4f} ms (bound {t['bound_ms']:.5f}"
               f" ms by {t['bound_by']}), plain {t['plain_ms']:.4f} ms, "
               f"library {t['library_ms']:.4f} ms", flush=True)
@@ -1076,6 +1568,14 @@ def main() -> int:
          "max_abs_err": copy_err, **copy_t,
          "per": "one COW of one block: 4 launches (k_q, v_q, s_k, s_v "
                 "leaves of 36 layers)"},
+        {"name": "kvq_spec_verify_attn", "route": "cuda",
+         "source": "src/repro_torch/csrc/kvq_spec_verify_attn.cu",
+         "replaces": "src/repro/kernels/kvq_attn/kernel.py:255",
+         "launches": spec_launches["kvq_spec_verify_attn"],
+         "max_abs_err": spec_err, **spec_t,
+         "per": f"one verify-wave: 36 launches at B={SLOTS}, C={SPEC_C}, "
+                f"H=16, Hkv=2, D=128, block 64, T={SPEC_T}, histories "
+                f"{list(spec_histories(64))}"},
     ]
     report["kernels"] = kernels
     out_dir = ROOT / "chiprun_out"

@@ -1,7 +1,8 @@
 """Wrappers for the quantized-KV kernels of the dense and paged caches.
 
-``kvq_decode_attn``, ``kvq_paged_decode_attn``, ``gather_dequant_paged_kv``
-and ``copy_pool_blocks`` launch their CUDA kernels (``csrc/<name>.cu``)
+``kvq_decode_attn``, ``kvq_paged_decode_attn``, ``kvq_spec_verify_attn``,
+``gather_dequant_paged_kv`` and ``copy_pool_blocks`` launch their CUDA
+kernels (``csrc/<name>.cu``)
 for CUDA tensors and run the plain versions (``ref.py``) for CPU tensors.
 Each checks its inputs and counts its launches in ``.launches``.
 ``commit_chunk_kv`` is a plain scatter on every device, as in the
@@ -19,6 +20,7 @@ from repro_torch.kernels.kvq_attn.ref import (chunk_commit_ids,
                                               gather_dequant_paged_kv_ref,
                                               kvq_decode_attn_ref,
                                               kvq_paged_decode_attn_ref,
+                                              kvq_spec_verify_attn_ref,
                                               pool_blocks, scatter_chunk_kv)
 from repro_torch.kernels.checks import check_aligned, check_tensor
 
@@ -27,6 +29,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
     "kvq_decode_attn": (_P,) * 7 + (_I,) * 5 + (ctypes.c_float, _P),
     "kvq_paged_decode_attn": (_P,) * 8 + (_I,) * 7 + (ctypes.c_float, _P),
+    "kvq_spec_verify_attn": (_P,) * 8 + (_I,) * 8 + (ctypes.c_float, _P),
     "gather_dequant_paged_kv": (_P,) * 4 + (_I,) * 6 + (_P,),
     "pool_block_copy": (_P,) * 3 + (_I,) * 2 + (ctypes.c_longlong,) * 2
     + (_I, _P),
@@ -145,6 +148,60 @@ def kvq_paged_decode_attn(q, k_pool, v_pool, s_k, s_v, block_tbl,
 
 
 kvq_paged_decode_attn.launches = 0
+
+
+def kvq_spec_verify_attn(q, k_pool, v_pool, s_k, s_v, block_tbl,
+                         lengths) -> torch.Tensor:
+    """The verify-wave's attention: C queries per slot through the block
+    table, each over its own extent.
+
+    q (B,C,H,D); k_pool/v_pool (NB+1,Hkv,bs,D) int8 with the sink block;
+    s_k/s_v (NB+1,Hkv,bs) fp32; block_tbl (B,T) int32, entries >= NB are
+    sentinels (the kernel clamps them to NB-1 itself); lengths (B,C)
+    int32. Query c of slot b equals :func:`kvq_paged_decode_attn` of that
+    query at ``lengths[:, c]``, bitwise on CUDA. CPU tensors run the
+    plain version. CUDA tensors launch the kernel, which takes a bf16 q,
+    H % Hkv == 0 with at most 8 query heads per KV head and D of 64 or
+    128; anything else raises.
+    """
+    if q.device.type == "cpu":
+        return kvq_spec_verify_attn_ref(q, k_pool, v_pool, s_k, s_v,
+                                        block_tbl, lengths)
+    _cuda_only("kvq_spec_verify_attn", q)
+    B, C, H, D = q.shape
+    NB1, Hkv, bs = k_pool.shape[0], k_pool.shape[1], k_pool.shape[2]
+    T = block_tbl.shape[1]
+    dev = q.device
+    if H % Hkv or H // Hkv > MAX_GROUP:
+        raise ValueError(f"the kernel needs H % Hkv == 0 and H // Hkv <= "
+                         f"{MAX_GROUP}; got H={H}, Hkv={Hkv}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"the kernel needs D in {HEAD_DIMS}; got D={D}")
+    if NB1 < 2 or T < 1 or C < 1:
+        raise ValueError(f"the kernel needs a pool of >= 1 block plus the "
+                         f"sink, a table of >= 1 entry and C >= 1; got "
+                         f"{NB1} blocks, T={T}, C={C}")
+    check_tensor("q", q, torch.bfloat16, (B, C, H, D), dev)
+    check_tensor("k_pool", k_pool, torch.int8, (NB1, Hkv, bs, D), dev)
+    check_tensor("v_pool", v_pool, torch.int8, (NB1, Hkv, bs, D), dev)
+    check_tensor("s_k", s_k, torch.float32, (NB1, Hkv, bs), dev)
+    check_tensor("s_v", s_v, torch.float32, (NB1, Hkv, bs), dev)
+    check_tensor("block_tbl", block_tbl, torch.int32, (B, T), dev)
+    check_tensor("lengths", lengths, torch.int32, (B, C), dev)
+    check_aligned("k_pool", k_pool)
+    check_aligned("v_pool", v_pool)
+    out = torch.empty((B, C, H, D), dtype=torch.bfloat16, device=dev)
+    err = _fn("kvq_spec_verify_attn")(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), s_k.data_ptr(),
+        s_v.data_ptr(), block_tbl.data_ptr(), lengths.data_ptr(),
+        out.data_ptr(), B, C, H, Hkv, NB1 - 1, bs, T, D, D ** -0.5,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "kvq_spec_verify_attn")
+    kvq_spec_verify_attn.launches += 1
+    return out
+
+
+kvq_spec_verify_attn.launches = 0
 
 
 def gather_dequant_paged_kv(pool, s_pool, block_tbl) -> torch.Tensor:

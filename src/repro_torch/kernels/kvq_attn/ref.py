@@ -136,3 +136,22 @@ def scatter_chunk_kv(pool: torch.Tensor, vals: torch.Tensor,
     at the sink). The two index tensors bracket the head slice, so the
     indexed shape is (n, C, Hkv, ...) and ``vals`` lines up as is."""
     pool[blk, :, off] = vals.to(pool.dtype)
+
+
+def kvq_spec_verify_attn_ref(q, k_pool, v_pool, s_k, s_v, block_tbl,
+                             lengths):
+    """Multi-query block-table attention for the speculative verify-wave.
+
+    q (B, C, H, D): C window queries per slot, whose K/V are already
+    committed to the pool; k_pool/v_pool (NB+1,Hkv,bs,D) int8; s_k/s_v
+    (NB+1,Hkv,bs) fp32; block_tbl (B,T) int32; lengths (B, C): query c of
+    slot b reads positions ``< lengths[b, c]``. A loop over c of
+    :func:`kvq_paged_decode_attn_ref` at ``lengths[:, c]``, so each query
+    equals the plain paged decode of that query by construction (a
+    batched einsum over C could change torch's GEMM blocking and with it
+    the last bits). Returns (B, C, H, D) in q.dtype.
+    """
+    return torch.stack(
+        [kvq_paged_decode_attn_ref(q[:, c], k_pool, v_pool, s_k, s_v,
+                                   block_tbl, lengths[:, c])
+         for c in range(q.shape[1])], dim=1)

@@ -8,7 +8,10 @@ launch counts::
     python -m repro_torch.launch.serve --full --weights w4a8
     python -m repro_torch.launch.serve --full --weights w4a8 --kv-layout paged
 
-Runs on ``cuda`` by default; ``--device cpu`` runs the plain PyTorch
+The paged layout serves with speculative decoding unless ``--no-spec``
+is given (a draft of half the target's layers proposes ``--spec-k`` = 4
+tokens per slot and wave), as the reference's CLI does. Runs on ``cuda``
+by default; ``--device cpu`` runs the plain PyTorch
 versions of the kernels on a reduced model (``--full`` off).
 """
 from __future__ import annotations
@@ -24,6 +27,8 @@ from repro_torch.kernels.kvq_attn import ops as kvq_ops
 from repro_torch.kernels.w4a8.ops import w4a8_matmul
 from repro_torch.models import init_params
 from repro_torch.serve.engine import Request, ServeEngine
+from repro_torch.serve.scheduler import PREEMPT_POLICIES
+from repro_torch.serve.spec import SpecConfig
 
 
 def build_requests(args, cfg) -> list:
@@ -74,6 +79,32 @@ def main(argv=None):
                     help="disable prefix sharing (paged; on by default: "
                          "prompts extending a cached prefix map the same "
                          "pool blocks and prefill only their tail)")
+    ap.add_argument("--admission", default="reserve",
+                    choices=("reserve", "optimistic"),
+                    help="paged admission: reserve worst-case blocks up "
+                         "front, or admit on prompt footprint and preempt "
+                         "(swap out) a resident when the pool runs dry")
+    ap.add_argument("--preempt", default="last_admitted",
+                    choices=PREEMPT_POLICIES,
+                    help="victim policy for optimistic-admission "
+                         "preemption")
+    ap.add_argument("--no-spec", action="store_true",
+                    help="disable speculative decoding (the paged layout "
+                         "enables it by default: a truncated-layer draft "
+                         "proposes k tokens per slot and the target "
+                         "verifies every resident's drafts in one wave, "
+                         "rolling rejected suffixes back)")
+    ap.add_argument("--spec-k", type=int, default=4,
+                    help="draft tokens proposed per slot per verify-wave")
+    ap.add_argument("--spec-draft", type=int, default=0,
+                    help="draft depth in layers (0 = half the target's "
+                         "layers; equal to n_layers = self-draft)")
+    ap.add_argument("--spec-accept", default="exact",
+                    choices=("exact", "rejection"),
+                    help="acceptance rule: 'exact' commits the target's "
+                         "own samples (output identical to plain decode); "
+                         "'rejection' runs speculative rejection sampling "
+                         "for temperature/top-k requests")
     ap.add_argument("--tail-batch", type=int, default=0,
                     help="max tail/chunked prefills advanced per batched "
                          "wave (0 = every slot, 1 = one per step)")
@@ -98,8 +129,13 @@ def main(argv=None):
               "num_blocks": args.num_blocks or None,
               "max_seq_len": args.max_seq_len or None,
               "prefix_cache": not args.no_prefix_cache,
+              "admission": args.admission, "preempt": args.preempt,
               "tail_batch": args.tail_batch,
               "prefix_affinity": not args.no_prefix_affinity}
+        if not args.no_spec:
+            kw["spec"] = SpecConfig(k=args.spec_k,
+                                    draft_layers=args.spec_draft or None,
+                                    accept_mode=args.spec_accept)
     eng = ServeEngine(cfg, params, policy=args.policy, slots=args.slots,
                       cache_len=args.cache_len,
                       max_new_cap=max(args.max_new, 1),
@@ -114,6 +150,7 @@ def main(argv=None):
     counted = {"w4a8_matmul": w4a8_matmul,
                "kvq_decode_attn": kvq_ops.kvq_decode_attn,
                "kvq_paged_decode_attn": kvq_ops.kvq_paged_decode_attn,
+               "kvq_spec_verify_attn": kvq_ops.kvq_spec_verify_attn,
                "gather_dequant_paged_kv": kvq_ops.gather_dequant_paged_kv,
                "pool_block_copy": kvq_ops.copy_pool_blocks}
     for fn in counted.values():
@@ -134,6 +171,21 @@ def main(argv=None):
           f"(decode {stats['decode_tokens_per_s']:.1f} tok/s), "
           f"TTFT p50 {stats['ttft_p50_s'] * 1e3:.1f} ms "
           f"p95 {stats['ttft_p95_s'] * 1e3:.1f} ms")
+    if args.kv_layout == "paged":
+        print(f"prefix cache: {stats['prefix_hit_tokens']} hit tokens / "
+              f"{stats['prompt_tokens_prefilled']} prefilled, "
+              f"{stats['cow_copies']} COW copies; preemption: "
+              f"{stats['preemptions']} swaps, "
+              f"{stats['swap_out_bytes'] + stats['swap_in_bytes']} bytes "
+              f"moved in {stats['swap_s'] * 1e3:.0f} ms")
+        if "spec_waves" in stats:
+            print(f"speculative: {stats['spec_waves']} waves, "
+                  f"{stats['spec_drafted']} drafted / "
+                  f"{stats['spec_accepted']} accepted / "
+                  f"{stats['spec_rolled_back']} rolled back "
+                  f"(accept rate {stats['spec_accept_rate']:.2f}, "
+                  f"k={stats['spec_k']}, "
+                  f"draft {stats['spec_draft_layers']} layers)")
     print("kernel launches: " + json.dumps(stats["kernel_launches"]))
     print(json.dumps(stats))
     return stats

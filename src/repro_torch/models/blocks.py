@@ -69,6 +69,27 @@ def _decode_attn_paged(ctx: QuantCtx, q, k_pool, v_pool, s_k, s_v,
         gather_paged_kv(s_v, block_tbl), lengths)
 
 
+def _spec_verify_attn(ctx: QuantCtx, q, k_pool, v_pool, s_k, s_v,
+                      block_tbl, lengths) -> torch.Tensor:
+    """The verify-wave's attention: q (n, C, H, D), query c of row i over
+    the first ``lengths[i, c]`` pool tokens of its table.
+
+    CUDA tensors go through the hand-written kernel, one launch for all C
+    queries, each query bitwise equal to the paged decode kernel at its
+    length. CPU tensors, and every tensor under ``kernel_backend="ref"``,
+    run :func:`_decode_attn_paged`'s plain path once per query, so the
+    verified logits equal sequential decode steps there too.
+    """
+    if q.is_cuda and ctx.kernel_backend != "ref":
+        from repro_torch.kernels.kvq_attn.ops import kvq_spec_verify_attn
+        return kvq_spec_verify_attn(q, k_pool, v_pool, s_k, s_v, block_tbl,
+                                    lengths)
+    return torch.stack(
+        [_decode_attn_paged(ctx, q[:, c], k_pool, v_pool, s_k, s_v,
+                            block_tbl, lengths[:, c].contiguous())
+         for c in range(q.shape[1])], dim=1)
+
+
 # ==========================================================================
 # Dense MLP (SwiGLU)
 # ==========================================================================
@@ -342,7 +363,8 @@ def attn_decode(cfg: ModelConfig, ctx: QuantCtx, p: Dict, x1: torch.Tensor,
 def attn_chunk_prefill(cfg: ModelConfig, ctx: QuantCtx, p: Dict,
                        x: torch.Tensor, rope, cache: Dict,
                        tbl: torch.Tensor, slot: torch.Tensor,
-                       offset: torch.Tensor, chunk_len: torch.Tensor):
+                       offset: torch.Tensor, chunk_len: torch.Tensor,
+                       hist_rows: Optional[list] = None):
     """One window of an incremental (chunked or prefix-hit tail) prefill
     for a batch of slots with per-row offsets, on the paged pool.
 
@@ -359,16 +381,49 @@ def attn_chunk_prefill(cfg: ModelConfig, ctx: QuantCtx, p: Dict,
     ``offset + chunk_len``. The engine has grown each table to cover the
     window and resolved copy-on-write for shared blocks in the write range
     before the call, so the commit lands only in blocks the row owns.
+
+    ``hist_rows`` (host ints, one per row) is each row's own history
+    extent in blocks, the one the row would get in a wave of its own. On
+    CUDA it makes each row's result independent of what else rides the
+    wave; elsewhere, and without it, the wave is computed in one batch
+    over ``tbl``'s width, as in the reference.
     """
     from repro_torch.kernels.kvq_attn.ops import (commit_chunk_kv,
                                                   gather_dequant_paged_kv)
     n, C, _ = x.shape
     q, k, v = _qkv(cfg, ctx, p, x, rope)
     bs = cache["k_q"].shape[2]
-    Lh = tbl.shape[1] * bs
-    dev = x.device
     kh = gather_dequant_paged_kv(cache["k_q"], cache["s_k"], tbl)
     vh = gather_dequant_paged_kv(cache["v_q"], cache["s_v"], tbl)
+    if x.is_cuda and hist_rows is not None:
+        # one row at a time over its own history extent: cuBLAS picks a
+        # batched GEMM's kernel from the batch count and the key length,
+        # so a row computed inside a wave (whose extent the deepest row
+        # sets) could differ in the last bits from the same row alone
+        out = torch.cat([_window_attention(
+            cfg, q[i:i + 1], k[i:i + 1], v[i:i + 1],
+            kh[i:i + 1, :, :hist_rows[i] * bs],
+            vh[i:i + 1, :, :hist_rows[i] * bs], offset[i:i + 1],
+            chunk_len[i:i + 1]) for i in range(n)])
+    else:
+        out = _window_attention(cfg, q, k, v, kh, vh, offset, chunk_len)
+    y = qlinear(ctx, out.reshape(n, C, cfg.q_dim).to(x.dtype), p["wo"])
+    k_q1, v_q1, s_k1, s_v1 = quantize_kv_for_cache(ctx, p, k, v)
+    commit_chunk_kv(cache, k_q1, v_q1, s_k1, s_v1, tbl, offset, chunk_len)
+    cache["length"][slot.long()] = (offset + chunk_len).to(torch.int32)
+    return y, cache
+
+
+def _window_attention(cfg: ModelConfig, q, k, v, kh, vh, offset,
+                      chunk_len) -> torch.Tensor:
+    """Softmax attention of a batch of windows q/k/v (n, C, H|Hkv, D) over
+    their dequantized history kh/vh (n, Hkv, Lh, D) plus the window
+    itself. History key j is valid iff j < offset (allocated but unwritten
+    positions hold stale data); window key j is causal and masked past
+    chunk_len. Returns (n, C, H, D) f32."""
+    C = q.shape[1]
+    Lh = kh.shape[2]
+    dev = q.device
     kall = torch.cat([kh.transpose(1, 2), k.float()], dim=1)
     vall = torch.cat([vh.transpose(1, 2), v.float()], dim=1)
     group = cfg.n_heads // cfg.n_kv_heads
@@ -377,9 +432,6 @@ def attn_chunk_prefill(cfg: ModelConfig, ctx: QuantCtx, p: Dict,
         vall = torch.repeat_interleave(vall, group, dim=2)
     scale = cfg.resolved_head_dim ** -0.5
     scores = torch.einsum("bqhd,bkhd->bqhk", q.float() * scale, kall)
-    # key j < Lh is history (valid iff j < offset: allocated but unwritten
-    # positions hold stale data); key j >= Lh is window token j - Lh
-    # (causal, pad keys past chunk_len masked)
     kj = torch.arange(Lh + C, device=dev)
     qi = torch.arange(C, device=dev)
     hist = kj < Lh
@@ -392,9 +444,41 @@ def attn_chunk_prefill(cfg: ModelConfig, ctx: QuantCtx, p: Dict,
     scores = torch.where(mask4, scores, torch.full_like(scores, _NEG))
     pr = torch.softmax(scores, dim=-1)
     pr = torch.where(mask4, pr, torch.zeros_like(pr))
-    out = torch.einsum("bqhk,bkhd->bqhd", pr, vall)
-    y = qlinear(ctx, out.reshape(n, C, cfg.q_dim).to(x.dtype), p["wo"])
+    return torch.einsum("bqhk,bkhd->bqhd", pr, vall)
+
+
+def attn_spec_verify(cfg: ModelConfig, ctx: QuantCtx, p: Dict,
+                     x: torch.Tensor, rope, cache: Dict, tbl: torch.Tensor,
+                     slot: torch.Tensor, offset: torch.Tensor,
+                     chunk_len: torch.Tensor):
+    """One attention layer of the speculative verify-wave.
+
+    The batched-window contract of :func:`attn_chunk_prefill`: x (n, C, d)
+    holds one slot's window ``[last_token, draft_1..draft_k]`` per row,
+    committed through the table at per-row offsets (``commit_chunk_kv``).
+    The numerics are decode's, not prefill's: the window's K/V are
+    quantized and committed to the pool first, and every window position
+    then reads the pool back through the table, as the ``k + 1``
+    sequential decode steps it replaces would. Position j attends to
+    ``offset + j + 1`` tokens; positions at or past ``chunk_len`` commit
+    into the sink and their outputs are discarded by the engine. The
+    caller rolls the rejected suffix back (device counters and
+    ``BlockAllocator.trim``) and has grown the table and resolved
+    copy-on-write for ``[offset, offset + chunk_len)`` before the call.
+
+    Returns (y (n, C, d), cache) with ``length[slot]`` at
+    ``offset + chunk_len``.
+    """
+    from repro_torch.kernels.kvq_attn.ops import commit_chunk_kv
+    n, C, _ = x.shape
+    q, k, v = _qkv(cfg, ctx, p, x, rope)
     k_q1, v_q1, s_k1, s_v1 = quantize_kv_for_cache(ctx, p, k, v)
     commit_chunk_kv(cache, k_q1, v_q1, s_k1, s_v1, tbl, offset, chunk_len)
     cache["length"][slot.long()] = (offset + chunk_len).to(torch.int32)
+    # per-query extent: the history plus the window through the query
+    lens = (offset[:, None] + 1
+            + torch.arange(C, device=x.device)[None]).to(torch.int32)
+    out = _spec_verify_attn(ctx, q, cache["k_q"], cache["v_q"],
+                            cache["s_k"], cache["s_v"], tbl, lens)
+    y = qlinear(ctx, out.reshape(n, C, cfg.q_dim).to(x.dtype), p["wo"])
     return y, cache

@@ -17,9 +17,33 @@ _NEG = -1e30
 # Norms (never quantized, per the paper)
 # --------------------------------------------------------------------------
 
+_NORM_SPLIT = 16         # first-stage partial sums per row (CUDA path)
+
+
+def _mean_sq(xf: torch.Tensor) -> torch.Tensor:
+    """Mean of squares over the last dim, keepdim, f32.
+
+    On the CPU one ``torch.mean``: its per-row order is fixed, and it
+    matches the reference's op by op. torch's CUDA reduction picks its
+    block shape, and so each row's summation order, from the number of
+    rows (a verify-wave runs every norm at M = slots * (k + 1) rows, a
+    decode step at M = slots), which moves the last bit of the variance.
+    There the row is summed in two stages whose shapes do not depend on
+    M: ``_NORM_SPLIT`` partial sums per row over a (rows * split, d /
+    split) view, then the partials, so a row's result is the same in any
+    batch.
+    """
+    d = xf.shape[-1]
+    if not xf.is_cuda or d % _NORM_SPLIT:
+        return torch.mean(xf * xf, dim=-1, keepdim=True)
+    sq = (xf * xf).reshape(-1, d // _NORM_SPLIT)
+    part = sq.sum(dim=-1).reshape(-1, _NORM_SPLIT)
+    return (part.sum(dim=-1) / d).reshape(*xf.shape[:-1], 1)
+
+
 def rms_norm(x: torch.Tensor, p: Dict, eps: float = 1e-6) -> torch.Tensor:
     xf = x.float()
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    var = _mean_sq(xf)
     y = xf * torch.rsqrt(var + eps)
     return (y * p["w"].float()).to(x.dtype)
 
@@ -39,16 +63,28 @@ def head_rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
 # Rotary position embeddings
 # --------------------------------------------------------------------------
 
+def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
+    """The (head_dim/2,) f32 rotary frequencies ``theta ** (-i / half)``,
+    as an f64 power of the f32 exponents rounded to f32: bitwise equal to
+    XLA's f32 power, where torch's f32 ``pow`` misses a few."""
+    half = head_dim // 2
+    exps = -torch.arange(0, half, dtype=torch.float32, device=device) / half
+    return torch.pow(torch.tensor(theta, dtype=torch.float64, device=device),
+                     exps.double()).float()
+
+
 def rope_tables(positions: torch.Tensor, head_dim: int,
                 theta: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """positions (..., S) -> cos/sin tables (..., S, head_dim/2)."""
-    half = head_dim // 2
-    exps = -torch.arange(0, half, dtype=torch.float32,
-                         device=positions.device) / half
-    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                   device=positions.device), exps)
-    ang = positions.float()[..., None] * freqs
-    return torch.cos(ang), torch.sin(ang)
+    """positions (..., S) -> cos/sin tables (..., S, head_dim/2).
+
+    The angles are f32 products as in the reference. Their ``cos`` and
+    ``sin`` are taken in f64 and rounded to f32, which lands nearer XLA's
+    f32 ``cos``/``sin`` than torch's f32 ones; the entries that still
+    differ are counted in ``tests/test_torch_models.py``.
+    """
+    freqs = rope_freqs(head_dim, theta, positions.device)
+    ang = (positions.float()[..., None] * freqs).double()
+    return torch.cos(ang).float(), torch.sin(ang).float()
 
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor,

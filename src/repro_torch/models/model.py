@@ -10,10 +10,13 @@ Entry points:
 * ``decode_step``  — one token against the quantized cache (in place)
 * ``prefill_tail`` — one window of a chunked / prefix-hit tail prefill for
   a batch of slots, against the paged pool (in place)
+* ``spec_verify``  — the speculative verify-wave: logits at every window
+  position of a batch of slots, with decode's numerics (in place)
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Union
+import functools
+from typing import Dict, List, Optional, Union
 
 import torch
 
@@ -160,7 +163,7 @@ def _tail_prologue(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
     per-row absolute offsets, build per-position RoPE tables, and take each
     row's block table (its first ``hist_blocks`` entries when > 0)."""
     if "block_tbl" not in cache:
-        raise ValueError("prefill_tail requires a paged cache "
+        raise ValueError("the batched-window path requires a paged cache "
                          "(init_cache(..., num_blocks=...))")
     C = tokens.shape[1]
     positions = offset.long()[:, None] + torch.arange(
@@ -178,13 +181,18 @@ def _tail_prologue(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
 def _tail_stack(cfg: ModelConfig, params: Dict, ctx: QuantCtx,
                 x: torch.Tensor, rope, cache: Dict, tbl: torch.Tensor,
                 slot: torch.Tensor, offset: torch.Tensor,
-                chunk_len: torch.Tensor) -> torch.Tensor:
+                chunk_len: torch.Tensor, attn_fn) -> torch.Tensor:
     """Run the decoder stack over one batched window, committing every
-    layer's K/V through the block table. Returns the final-norm'd x."""
+    layer's K/V through the block table. ``attn_fn`` is the per-layer
+    attention: ``blocks.attn_chunk_prefill`` for a tail or chunked
+    prefill (exact bf16 window K/V) or ``blocks.attn_spec_verify`` for
+    the verify-wave (decode's quantized reads); both share this loop so
+    the batched-window contract cannot drift apart. Returns the
+    final-norm'd x."""
     for p, c in zip(params["layers"], cache["layers"]):
         h = rms_norm(x, p["ln1"], cfg.norm_eps)
-        a, _ = B.attn_chunk_prefill(cfg, ctx, p["attn"], h, rope, c, tbl,
-                                    slot, offset, chunk_len)
+        a, _ = attn_fn(cfg, ctx, p["attn"], h, rope, c, tbl, slot, offset,
+                       chunk_len)
         x = _ffn_tail(cfg, ctx, p, x + a)
     return rms_norm(x, params["final_norm"], cfg.norm_eps)
 
@@ -192,7 +200,7 @@ def _tail_stack(cfg: ModelConfig, params: Dict, ctx: QuantCtx,
 def prefill_tail(cfg: ModelConfig, params: Dict, ctx: QuantCtx,
                  tokens: torch.Tensor, cache: Dict, slot: torch.Tensor,
                  start: torch.Tensor, n_tokens: torch.Tensor,
-                 hist_blocks: int = 0):
+                 hist_blocks: int = 0, hist_rows: Optional[List[int]] = None):
     """Partial prefill from per-row token offsets for a batch of slots.
 
     Behind both prefix-shared admission (the first ``start[i]`` tokens
@@ -210,7 +218,10 @@ def prefill_tail(cfg: ModelConfig, params: Dict, ctx: QuantCtx,
     ``start + n_tokens`` and resolves copy-on-write for shared blocks in
     that range before calling. ``hist_blocks`` > 0 limits the table walk
     to each row's first ``hist_blocks`` entries (it must cover every
-    row's ``start + n_tokens``).
+    row's ``start + n_tokens``). ``hist_rows`` (host ints) gives each
+    row's own history extent in blocks; on CUDA the attention then runs
+    row by row over it, so a row's result does not depend on the wave
+    (``blocks.attn_chunk_prefill``).
 
     Returns (logits (n, V) at each row's last real token, cache).
     """
@@ -218,11 +229,42 @@ def prefill_tail(cfg: ModelConfig, params: Dict, ctx: QuantCtx,
     x, rope, tbl = _tail_prologue(cfg, params, tokens, cache, slot, offset,
                                   hist_blocks)
     x = _tail_stack(cfg, params, ctx, x, rope, cache, tbl, slot, offset,
-                    chunk_len)
+                    chunk_len, functools.partial(B.attn_chunk_prefill,
+                                                 hist_rows=hist_rows))
     n = x.shape[0]
     idx = torch.clamp_min(chunk_len.long() - 1, 0)
     x_last = torch.gather(x, 1, idx[:, None, None].expand(n, 1, x.shape[-1]))
     logits = head_logits(cfg, params, ctx, x_last)[:, 0]
+    cache["position"][slot.long()] = (offset + chunk_len).to(torch.int32)
+    return logits, cache
+
+
+def spec_verify(cfg: ModelConfig, params: Dict, ctx: QuantCtx,
+                tokens: torch.Tensor, cache: Dict, slot: torch.Tensor,
+                start: torch.Tensor, n_tokens: torch.Tensor,
+                hist_blocks: int = 0):
+    """Speculative-decode verify pass: the target's logits at every window
+    position of a batch of slots, in one call.
+
+    The batched-window contract of :func:`prefill_tail`: ``tokens`` (n, C)
+    holds row i's window ``[last_committed_token, draft_1..draft_k]`` from
+    absolute position ``start[i]``, ``n_tokens[i]`` of it real. Where a
+    tail prefill attends with exact bf16 window K/V, the verify pass
+    commits the window's quantized K/V first and reads them back through
+    the table (``blocks.attn_spec_verify``), so the logits at position j
+    are what ``decode_step`` gives after consuming the window through j.
+    ``hist_blocks`` bounds the table walk as in ``prefill_tail``.
+
+    Returns (logits (n, C, V), cache) with ``length``/``position`` at
+    ``start + n_tokens``; the engine re-clamps them to the accepted
+    extent.
+    """
+    offset, chunk_len = start, n_tokens
+    x, rope, tbl = _tail_prologue(cfg, params, tokens, cache, slot, offset,
+                                  hist_blocks)
+    x = _tail_stack(cfg, params, ctx, x, rope, cache, tbl, slot, offset,
+                    chunk_len, B.attn_spec_verify)
+    logits = head_logits(cfg, params, ctx, x)
     cache["position"][slot.long()] = (offset + chunk_len).to(torch.int32)
     return logits, cache
 

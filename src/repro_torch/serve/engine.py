@@ -33,17 +33,31 @@ only at admission and harvest:
   one window in one ``prefill_tail`` call with per-row ``(c0, tail_len)``
   offsets. ``prefix_affinity`` orders the queue so requests sharing a
   cached chain admit back-to-back while the chain is hot in the LRU.
+* **Preemption / swap** (``admission="optimistic"``, paged only) —
+  admission allocates only the prompt's first window instead of debiting
+  the worst case; when the pool later runs dry the engine picks a victim
+  (``preempt="last_admitted"`` or ``"longest_remaining"``), copies its
+  int8 blocks and scales to host memory, requeues it and restores it
+  exactly once the pool recovers: decode resumes mid-stream with the same
+  tokens.
+* **Speculative decoding** (``spec=SpecConfig(...)``, paged only) — a
+  draft made of the target's first layers proposes ``k`` tokens per slot
+  from its own dense cache, the target verifies every resident's window
+  in one verify-wave (``models.spec_verify``) and commits the accepted
+  prefix plus one token of its own; the rejected suffix rolls back
+  (device counters re-clamped, ``BlockAllocator.trim`` on the host).
+  In ``exact`` mode the streams are plain decode's.
 * **Kernels** — under ``weights_layout="w4a8"`` every linear runs the
   packed-int4 x int8 matmul; decode attention runs the int8-cache
-  flash-decode kernel (dense) or its block-table walk (paged); the
-  tail-wave's history read runs the fused gather-dequantize kernel, and
-  COW the pool-block copy. On CUDA tensors these are the hand-written
-  kernels of ``repro_torch/csrc``, on CPU tensors their plain versions.
+  flash-decode kernel (dense, and the draft's cache) or its block-table
+  walk (paged); the verify-wave's attention runs the multi-query
+  block-table kernel; the tail-wave's history read runs the fused
+  gather-dequantize kernel, and COW the pool-block copy. On CUDA tensors
+  these are the hand-written kernels of ``repro_torch/csrc``, on CPU
+  tensors their plain versions.
 
-Reserve admission only: optimistic admission with preemption and swap,
-speculative decoding, SLO shedding, the ``decode_block="auto"`` probe and
-mesh serving arrive with later slices; their arguments raise
-``NotImplementedError``.
+SLO shedding, the ``decode_block="auto"`` probe and mesh serving arrive
+with later slices; their arguments raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -59,17 +73,18 @@ from repro_torch.core.qat import (attach_w4a8_exports, make_ctx,
                                   w4a8_weight_bytes)
 from repro_torch.device import resolve_device
 from repro_torch.kernels.kvq_attn.ops import copy_pool_blocks
-from repro_torch.models import decode_step, init_cache, prefill, prefill_tail
+from repro_torch.models import (decode_step, init_cache, prefill,
+                                prefill_tail, spec_verify)
 from repro_torch.models.blocks import POOL_KEYS
 from repro_torch.obs.trace import NULL_TRACER, Tracer
 from repro_torch.serve.block_alloc import BlockAllocator, PoolDry
 from repro_torch.serve.sampling import (TOP_K_CAP, fold_step, sample_tokens,
-                                        slot_key)
-from repro_torch.serve.scheduler import Scheduler
+                                        slot_key, token_probs)
+from repro_torch.serve.scheduler import PREEMPT_POLICIES, Scheduler
+from repro_torch.serve.spec import (SpecConfig, accept_exact,
+                                    accept_rejection, make_draft)
 
 _CACHE_KEYS = ("k_q", "v_q", "s_k", "s_v", "length")
-PREEMPT_POLICIES = ("last_admitted", "longest_remaining")
-_LATER = "the next slice of the port (preempt/swap and speculative decoding)"
 
 
 def _pow2_ceil(n: int) -> int:
@@ -94,6 +109,15 @@ class Request:                          # prompt field breaks value __eq__
     generated: List[int] = field(default_factory=list)
     done: bool = False
     _arrival: int = 0                   # set by the scheduler
+
+
+def _clamp_lengths(cache: Dict, lens: torch.Tensor) -> None:
+    """Set every layer's per-slot ``length`` and the cache ``position`` to
+    ``lens``, in place: the device half of speculative rollback (the
+    draft cache before drafting, the target cache after acceptance)."""
+    for layer in cache["layers"]:
+        layer["length"].copy_(lens)
+    cache["position"].copy_(lens)
 
 
 def _same_device(a: torch.device, b: torch.device) -> bool:
@@ -137,12 +161,10 @@ class ServeEngine:
         if preempt not in PREEMPT_POLICIES:
             raise ValueError(f"preempt must be one of {PREEMPT_POLICIES}, "
                              f"got {preempt!r}")
-        if admission == "optimistic" or preempt != "last_admitted":
-            raise NotImplementedError(
-                f"optimistic admission and preemption arrive with {_LATER}")
-        if spec is not None:
-            raise NotImplementedError(
-                f"speculative decoding arrives with {_LATER}")
+        if spec is not None and kv_layout != "paged":
+            raise ValueError("speculative decoding requires "
+                             "kv_layout='paged' (the rollback path is the "
+                             "paged allocator's trim)")
         if mesh is not None:
             raise NotImplementedError("mesh (tensor-parallel) serving is not "
                                       "ported yet")
@@ -204,6 +226,26 @@ class ServeEngine:
             self.tail_batch = tail_batch or slots
         self.prefix_cache = prefix_cache and self._paged
         self.prefix_affinity = prefix_affinity and self.prefix_cache
+        self.admission = admission
+        self.preempt = preempt
+        self._decode_block_mode = "fixed"
+        self.spec = None
+        if spec is not None:
+            self.spec = spec if isinstance(spec, SpecConfig) \
+                else SpecConfig(**spec)
+            # the draft slices the (export-attached) target tree, so under
+            # w4a8 it serves the same packed weights
+            self.draft_cfg, self.draft_params = make_draft(cfg, params,
+                                                           self.spec)
+            self.draft_ctx = make_ctx(self.spec.draft_policy or policy,
+                                      weights_layout=weights_layout)
+            # the draft runs up to k positions past the accepted extent
+            # before rollback; its dense ring must never wrap into history
+            self._draft_cache_len = self.max_seq_len + self.spec.k + 1
+            # one draft + verify wave per engine step commits up to k + 1
+            # tokens per slot
+            self.decode_block = self.spec.k + 1
+            self._decode_block_mode = "spec"
         self._sched_policy = sched_policy
         self.scheduler = Scheduler(sched_policy, trace=self.trace)
         self.reset()
@@ -240,8 +282,9 @@ class ServeEngine:
         }
 
     def reset(self) -> None:
-        """Clear all serving state: queued and resident requests, the
-        cache, the block allocator, the scheduler and every stat.
+        """Clear all serving state: queued, resident and swapped requests,
+        the cache (and the draft's), the block allocator, the scheduler
+        and every stat.
         Requests submitted before the reset must not be resubmitted with
         their old prefix-lookup memos: an epoch bump invalidates them."""
         self.state = self._blank_state()
@@ -255,6 +298,9 @@ class ServeEngine:
         self._written: Dict[int, int] = {}   # paged: tokens committed/slot
         self._tbl_dirty = False              # host table mirror vs device
         self._tail_jobs: List[Dict] = []     # in-progress tail prefills
+        self._swapped: List[Dict] = []       # preempted, awaiting restore
+        self._admit_seq: Dict[int, int] = {}     # slot -> admission order
+        self._seq = 0
         self._max_residents = 0
         self.scheduler = Scheduler(self._sched_policy, trace=self.trace)
         self.trace.clear()
@@ -263,7 +309,17 @@ class ServeEngine:
                       "prefill_s": 0.0, "prefill_calls": 0,
                       "prefill_tokens": 0, "prefill_chunks": 0,
                       "prompt_tokens": 0, "prefix_hit_tokens": 0,
-                      "cow_copies": 0, "tail_waves": 0}
+                      "cow_copies": 0, "tail_waves": 0, "preemptions": 0,
+                      "swap_out_bytes": 0, "swap_in_bytes": 0,
+                      "swap_s": 0.0}
+        if self.spec is not None:
+            self._draft_cache = init_cache(self.draft_cfg, self.draft_ctx,
+                                           self.slots,
+                                           self._draft_cache_len,
+                                           device=self.device)
+            self._host.update({"spec_waves": 0, "spec_drafted": 0,
+                               "spec_accepted": 0, "spec_rolled_back": 0,
+                               "spec_draft_prefill_tokens": 0})
         cache = self.state["cache"]
         leaves = (cache["pool"].values() if self._paged else
                   [t for layer in cache["layers"] for t in layer.values()])
@@ -390,7 +446,13 @@ class ServeEngine:
         together by the tail-wave. Everything else admits as a batched
         cold wave under the free-block criterion with head-of-line
         blocking. With ``prefix_affinity`` the queue is grouped so
-        requests sharing a cached chain admit back-to-back."""
+        requests sharing a cached chain admit back-to-back. Swapped-out
+        (preempted) requests restore ahead of new work (head-of-line, so
+        preemption cannot starve them)."""
+        if self._swapped:
+            self._try_swap_in()
+            if self._swapped:
+                return              # restore before admitting new work
         gk = self._affinity_key if self.prefix_affinity else None
         held: set = set()
         while self.scheduler.pending > len(held):
@@ -499,23 +561,40 @@ class ServeEngine:
     def _paged_admit_slot(self, slot: int, req, hit_ids, partial: bool,
                           cached: int) -> Optional[int]:
         """Admit one request into ``slot``: map its shared prefix blocks
-        and reserve its worst-case fresh-block count. Returns the
-        effective cached-token count (0 when the prefix ended up unused),
-        or None, leaving no state behind, when the pool cannot take the
-        request now."""
-        need = len(req.prompt) + req.max_new_tokens - 1
-        if not self.alloc.reserve(slot, need, shared=hit_ids,
-                                  partial=partial):
-            # a shared admission transiently needs more obtainable blocks
-            # than an exclusive one (resurrected LRU hits + the split-block
-            # COW can exceed a tiny pool); with nothing resident the pool
-            # will never get freer, so fall back to an unshared reservation
-            idle = not self._slot_req and not self._tail_jobs
-            if not (idle and hit_ids and self.alloc.reserve(slot, need)):
+        and commit capacity under the engine's admission discipline.
+        ``reserve`` debits the worst-case fresh-block count up front;
+        ``optimistic`` allocates only the first tail window (the whole
+        prompt for a wave row) and relies on preemption for later growth.
+        Returns the effective cached-token count (0 when the prefix ended
+        up unused), or None, leaving no state behind, when the pool
+        cannot take the request now."""
+        plen = len(req.prompt)
+        need = plen + req.max_new_tokens - 1
+        if self.admission == "reserve":
+            if not self.alloc.reserve(slot, need, shared=hit_ids,
+                                      partial=partial):
+                # a shared admission transiently needs more obtainable
+                # blocks than an exclusive one (resurrected LRU hits + the
+                # split-block COW can exceed a tiny pool); with nothing
+                # resident the pool will never get freer, so fall back to
+                # an unshared reservation
+                idle = (not self._slot_req and not self._tail_jobs
+                        and not self._swapped)
+                if not (idle and hit_ids and self.alloc.reserve(slot, need)):
+                    return None
+                hit_ids, cached = (), 0
+        else:
+            self.alloc.register(slot, shared=hit_ids)
+            try:
+                self.alloc.ensure(slot, min(cached + self.prefill_chunk,
+                                            plen))
+            except PoolDry:
+                self.alloc.release(slot)
                 return None
-            hit_ids, cached = (), 0
-        if hit_ids:
+        if hit_ids or self.admission == "optimistic":
             self._tbl_dirty = True
+        self._admit_seq[slot] = self._seq
+        self._seq += 1
         return cached
 
     def _admit_batch(self, tokens, lengths, slot_idx, blk_ids, eos, max_new,
@@ -622,6 +701,8 @@ class ServeEngine:
                 # content-address the freshly written prompt blocks so
                 # later requests sharing the prefix skip their prefill
                 self.alloc.register_prefix(s, r.prompt, len(r.prompt))
+        self._draft_prefill_rows([(s, r.prompt)
+                                  for s, r in zip(taken, reqs)])
 
     # ------------------------------------------------------------------
     # Paged: tail-wave, block growth, copy-on-write
@@ -638,11 +719,16 @@ class ServeEngine:
         with self.trace.span("schedule", kind="tail"):
             ready: List[Dict] = []
             lens: List[int] = []
-            for job in self._tail_jobs:
+            for job in list(self._tail_jobs):
                 slot, c0 = job["slot"], job["c0"]
                 cl = min(C, len(job["req"].prompt) - c0)
-                self._ensure(slot, c0 + cl)
-                self._cow_guard(slot, c0, c0 + cl)
+                # growth or COW may swap the job itself out on a dry pool
+                # (_preempt_for never picks tail jobs, so jobs of one wave
+                # cannot evict each other)
+                if not self._ensure(slot, c0 + cl):
+                    continue
+                if not self._cow_guard(slot, c0, c0 + cl):
+                    continue
                 ready.append(job)
                 lens.append(cl)
         if not ready:
@@ -662,6 +748,9 @@ class ServeEngine:
                 # touch, bucketed as in the reference
                 hb_need = max(hb_need, self.alloc.blocks_for_tokens(c0 + C))
             hb = min(_pow2_ceil(hb_need), self.table_len)
+            # each row's own bucket: the history a wave of its own walks
+            rows_hb = [min(_pow2_ceil(self.alloc.blocks_for_tokens(
+                j["c0"] + C)), self.table_len) for j in ready]
             slots_t = torch.tensor([j["slot"] for j in ready],
                                    dtype=torch.int32, device=dev)
             logits, _ = prefill_tail(
@@ -670,7 +759,7 @@ class ServeEngine:
                 torch.tensor([j["c0"] for j in ready], dtype=torch.int32,
                              device=dev),
                 torch.tensor(lens, dtype=torch.int32, device=dev),
-                hist_blocks=hb)
+                hist_blocks=hb, hist_rows=rows_hb)
             self._host["tail_waves"] += 1
             self._host["prefill_chunks"] += n
             self._host["prompt_tokens"] += int(sum(lens))
@@ -709,30 +798,46 @@ class ServeEngine:
             self._slot_req[j["slot"]] = j["req"]
             self._n_gen[j["slot"]] = 1
             self._written[j["slot"]] = len(j["req"].prompt)
+        # the tail computed only the uncached suffix, but the draft has no
+        # prefix cache: its rows prefill the whole prompt
+        self._draft_prefill_rows([(j["slot"], j["req"].prompt)
+                                  for j in done])
 
-    def _ensure(self, slot: int, n_tokens: int) -> None:
-        """Grow the slot's block table to cover ``n_tokens``. Under
-        reserve admission the blocks were debited up front, so a dry pool
-        here is an accounting bug."""
-        try:
-            if self.alloc.ensure(slot, n_tokens):
-                self._tbl_dirty = True
-        except PoolDry as e:
-            raise RuntimeError("a reserved slot found the pool dry: "
-                               "accounting bug") from e
+    def _ensure(self, slot: int, n_tokens: int) -> bool:
+        """Grow the slot's block table to cover ``n_tokens``. A dry pool
+        preempts a victim, or swaps out ``slot`` itself when no other
+        resident can go (optimistic admission; under reserve admission
+        the blocks were debited up front and the pool never runs dry).
+        Returns False iff ``slot`` was swapped out: the caller must drop
+        its pending work for the slot."""
+        while True:
+            try:
+                if self.alloc.ensure(slot, n_tokens):
+                    self._tbl_dirty = True
+                return True
+            except PoolDry:
+                if not self._preempt_for(slot):
+                    self._swap_out(slot)
+                    return False
 
-    def _cow_guard(self, slot: int, start_tok: int, end_tok: int) -> None:
+    def _cow_guard(self, slot: int, start_tok: int, end_tok: int) -> bool:
         """Resolve copy-on-write for a pending write of token positions
         ``[start_tok, end_tok)``: shared blocks in the range are replaced
         by fresh blocks whose int8 payload and scales are cloned on the
-        device before the write executes."""
-        try:
-            pairs = self.alloc.cow_range(slot, start_tok, end_tok)
-        except PoolDry as e:
-            raise RuntimeError("a reserved slot found the pool dry for a "
-                               "copy-on-write: accounting bug") from e
+        device before the write executes. A dry pool preempts as in
+        :meth:`_ensure` (``cow_range`` checks its need first, so a raise
+        applies nothing); returns False iff ``slot`` was swapped out."""
+        while True:
+            try:
+                pairs = self.alloc.cow_range(slot, start_tok, end_tok)
+                break
+            except PoolDry:
+                if not self._preempt_for(slot):
+                    self._swap_out(slot)
+                    return False
         if pairs:
             self._apply_cow(pairs)
+        return True
 
     def _apply_cow(self, pairs) -> None:
         """Device-side block clones for resolved COW pairs: one copy
@@ -761,14 +866,203 @@ class ServeEngine:
     def _ensure_decode_blocks(self) -> None:
         """Grow resident slots' block tables to cover the coming decode
         chunk (lazy allocation at block-boundary crossings) and resolve
-        copy-on-write for shared blocks in each slot's write range."""
-        for s, r in self._slot_req.items():
+        copy-on-write for shared blocks in each slot's write range. Under
+        optimistic admission either may preempt a victim, possibly a slot
+        this loop has yet to visit."""
+        for s in list(self._slot_req):
+            if s not in self._slot_req:
+                continue            # preempted by an earlier iteration
+            r = self._slot_req[s]
             cap = len(r.prompt) + r.max_new_tokens - 1
             w = self._written[s]
             target = min(w + self.decode_block, cap)
-            self._ensure(s, target)
-            self._cow_guard(s, w, target)
+            if not self._ensure(s, target):
+                continue            # s itself was swapped out
+            if s in self._slot_req:
+                self._cow_guard(s, w, target)
         self._push_tables()
+
+    # ------------------------------------------------------------------
+    # Preemption: swap-out / swap-in of quantized blocks
+    # ------------------------------------------------------------------
+
+    def _preempt_for(self, slot: int) -> bool:
+        """Swap out one scheduler-chosen victim to free blocks. Candidates
+        are the decode residents other than ``slot`` (tail jobs are never
+        in ``_slot_req``, so they are never picked and jobs of one wave
+        cannot evict each other). False when no other resident can go."""
+        cands = []
+        for s, r in self._slot_req.items():
+            if s == slot:
+                continue
+            remaining = (len(r.prompt) + r.max_new_tokens - 1
+                         - self._written[s])
+            cands.append((s, self._admit_seq.get(s, 0), remaining))
+        victim = self.scheduler.pick_victim(cands, self.preempt)
+        if victim is None:
+            return False
+        self._swap_out(victim)
+        return True
+
+    def _gather_blocks(self, ids: List[int]) -> Dict[str, torch.Tensor]:
+        """Copy the listed pool blocks' int8 payload and scales, every
+        layer at once, to host memory: one ``index_select`` per
+        layer-stacked pool leaf into a pinned host buffer (on CUDA), all
+        copies issued without blocking and joined by the caller's one
+        sync. Returns {leaf: (L, len(ids), ...) host tensor}."""
+        pool = self.state["cache"]["pool"]
+        idx = torch.tensor(ids, dtype=torch.long, device=self.device)
+        pin = self.device.type == "cuda"
+        out = {}
+        for key in POOL_KEYS:
+            blocks = pool[key].index_select(1, idx)
+            host = torch.empty(blocks.shape, dtype=blocks.dtype,
+                               pin_memory=pin)
+            host.copy_(blocks, non_blocking=pin)
+            out[key] = host
+        return out
+
+    def _scatter_blocks(self, slot: int, ids: List[int],
+                        payload: Dict[str, torch.Tensor], w: int) -> None:
+        """Restore a swap payload into the slot's freshly allocated pool
+        blocks ``ids``, one ``index_copy_`` per layer-stacked leaf (no
+        pool-sized temporary), and rebuild the slot's per-layer lengths
+        and position at ``w`` written tokens."""
+        cache = self.state["cache"]
+        idx = torch.tensor(ids, dtype=torch.long, device=self.device)
+        for key in POOL_KEYS:
+            cache["pool"][key].index_copy_(
+                1, idx, payload[key].to(self.device, non_blocking=True))
+        for layer in cache["layers"]:
+            layer["length"][slot] = w
+        cache["position"][slot] = w
+
+    def _swap_out(self, slot: int) -> None:
+        """Preempt ``slot``: copy its written blocks to host memory (int8
+        payloads move 4x cheaper than an f32 cache would), release the
+        blocks to the pool and park the request on the swap queue for a
+        later restore. Works for decode residents and for in-progress
+        tail jobs (which resume from their last finished window). One
+        host sync per swap."""
+        with self.trace.span("swap_out", slot=slot) as sp:
+            job = next((j for j in self._tail_jobs if j["slot"] == slot),
+                       None)
+            w = job["c0"] if job is not None else self._written[slot]
+            # only blocks holding written tokens travel; lazily grown
+            # blocks past ``w`` hold nothing and are re-allocated on restore
+            ids = self.alloc.owned(slot)[:self.alloc.blocks_for_tokens(w)]
+            payload = self._gather_blocks(ids)
+            nbytes = sum(t.numel() * t.element_size()
+                         for t in payload.values())
+            if job is not None:
+                # the affinity key rides along so a restored tail job keeps
+                # its chain "hot" for queued sharers
+                rec = {"req": job["req"], "kind": "prefill", "w": w,
+                       "akey": job.get("akey")}
+                self._tail_jobs.remove(job)
+                self._sync()
+            else:
+                req = self._slot_req.pop(slot)
+                self._written.pop(slot)
+                self._n_gen.pop(slot, None)
+                st = self.state
+                # the live sampling key travels with the record, so the
+                # restore resumes the slot's PRNG state verbatim
+                row = torch.cat([st["n_gen"][slot:slot + 1].long(),
+                                 st["tokens"][slot].long(),
+                                 st["keys"][slot],
+                                 st["out"][slot].long()]).cpu()
+                rec = {"req": req, "kind": "decode", "w": w,
+                       "n_gen": int(row[0]), "last": int(row[1]),
+                       "key": row[2:4].clone(),
+                       "out": row[4:].to(torch.int32)}
+                st["active"][slot] = False
+            rec["payload"] = payload
+            rec["bytes"] = nbytes
+            self.alloc.release(slot)
+            self._admit_seq.pop(slot, None)
+            self._tbl_dirty = True
+            self._swapped.append(rec)
+            self._host["preemptions"] += 1
+            self._host["swap_out_bytes"] += nbytes
+        self._host["swap_s"] += sp.dt
+        self.trace.event("preempted", uid=rec["req"].uid, kind=rec["kind"],
+                         bytes=nbytes)
+
+    def _try_swap_in(self) -> None:
+        """Restore swapped-out requests while slots and blocks allow.
+
+        Strictly FCFS over the swap queue, head-of-line: a later, smaller
+        record never restores ahead of the head, which was already
+        preempted once. The gate is the request's full remaining worst
+        case, so a restore cannot immediately become the next victim and
+        thrash the swap bandwidth."""
+        free = self._free_slots()
+        while self._swapped:
+            rec = self._swapped[0]
+            req = rec["req"]
+            if rec["kind"] == "prefill" \
+                    and len(self._tail_jobs) >= self.tail_batch:
+                return
+            if not free:
+                return
+            need = len(req.prompt) + req.max_new_tokens - 1
+            if self.alloc.blocks_for_tokens(need) > self.alloc.free_blocks:
+                return              # the head does not fit: nobody jumps it
+            self._restore(free.pop(0), rec)
+            self._swapped.pop(0)
+            self._note_residency()
+
+    def _restore(self, slot: int, rec: Dict) -> None:
+        """Swap a preempted request back in: fresh blocks, the payload
+        copied in, and the slot's sampling and output state rebuilt as it
+        was, so greedy and sampled decode resume with the same tokens."""
+        with self.trace.span("swap_in", slot=slot, kind=rec["kind"]) as sp:
+            self._restore_body(slot, rec)
+        self._host["swap_in_bytes"] += rec["bytes"]
+        self._host["swap_s"] += sp.dt
+        self.trace.event("swap_resumed", uid=rec["req"].uid,
+                         kind=rec["kind"], bytes=rec["bytes"])
+
+    def _restore_body(self, slot: int, rec: Dict) -> None:
+        req, w = rec["req"], rec["w"]
+        need = len(req.prompt) + req.max_new_tokens - 1
+        if self.admission == "reserve":
+            # preemption only happens under optimistic admission, but a
+            # reserve-mode restore must re-debit to stay accounted
+            if not self.alloc.reserve(slot, need):
+                raise RuntimeError("swap-in gate admitted an unreservable "
+                                   "request: accounting bug")
+        else:
+            self.alloc.register(slot)
+        self.alloc.ensure(slot, w)
+        self._tbl_dirty = True
+        self._scatter_blocks(slot, self.alloc.owned(slot), rec["payload"], w)
+        self._admit_seq[slot] = self._seq
+        self._seq += 1
+        if rec["kind"] == "prefill":
+            self._tail_jobs.append({"req": req, "slot": slot, "c0": w,
+                                    "akey": rec.get("akey")})
+            return
+        st = self.state
+        dev = self.device
+        st["tokens"][slot, 0] = rec["last"]
+        st["out"][slot] = rec["out"].to(dev)
+        st["n_gen"][slot] = rec["n_gen"]
+        st["active"][slot] = True
+        st["eos"][slot] = req.eos_id
+        st["max_new"][slot] = req.max_new_tokens
+        st["temp"][slot] = req.temperature
+        st["top_k"][slot] = req.top_k
+        st["keys"][slot] = rec["key"].to(dev)
+        self._slot_req[slot] = req
+        self._n_gen[slot] = rec["n_gen"]
+        self._written[slot] = w
+        # the draft cache never travels with a swap record: rebuild it from
+        # the consumed stream (prompt + generated so far but the last)
+        self._draft_prefill_rows([(slot, np.concatenate(
+            [np.asarray(req.prompt, np.int32),
+             rec["out"][:rec["n_gen"] - 1].numpy()]))])
 
     # ------------------------------------------------------------------
     # Decode
@@ -781,6 +1075,8 @@ class ServeEngine:
         a slot that stops earlier (EOS) rides along masked, and ``steps``
         counts only steps that had an active slot, as the reference's
         ``while_loop`` does."""
+        if not self._slot_req:
+            return                  # every resident was just preempted
         budget = max(r.max_new_tokens - self._n_gen[s]
                      for s, r in self._slot_req.items())
         n_steps = min(self.decode_block, max(budget, 0))
@@ -811,20 +1107,21 @@ class ServeEngine:
             st["steps"] += act.any().to(torch.int32)
             st["committed"] += act.sum(dtype=torch.int32)
 
-    def _harvest(self) -> None:
+    def _harvest(self, act=None, n_gen=None) -> None:
         """The chunk's one sync: pull the per-slot (active, n_gen), then
-        the finished slots' token buffers. Paged slots return their blocks
-        to the pool; their decoded content is registered in the prefix
-        index first, so a follow-up prompt extending prompt + completion
-        (a chat turn) reuses those blocks."""
+        the finished slots' token buffers. ``act``/``n_gen`` may come
+        pre-fetched (the spec step reads them for its accounting), which
+        keeps one sync per step. Paged slots return their blocks to the
+        pool; their decoded content is registered in the prefix index
+        first, so a follow-up prompt extending prompt + completion (a chat
+        turn) reuses those blocks."""
         if not self._slot_req:
             return
         with self.trace.span("harvest"):
             st = self.state
-            with self.trace.span("sync"):
-                act_ngen = torch.stack([st["active"].to(torch.int32),
-                                        st["n_gen"]]).cpu().numpy()
-            act, n_gen = act_ngen[0].astype(bool), act_ngen[1]
+            if act is None:
+                with self.trace.span("sync"):
+                    act, n_gen = self._fetch_act_ngen()
             for s, r in self._slot_req.items():
                 self._n_gen[s] = int(n_gen[s])
                 if self._paged and act[s]:
@@ -846,6 +1143,13 @@ class ServeEngine:
                 if self._paged:
                     self._release(s, req, int(n_gen[s]))
 
+    def _fetch_act_ngen(self):
+        """(active, n_gen) of every slot, in one device-to-host copy."""
+        st = self.state
+        act_ngen = torch.stack([st["active"].to(torch.int32),
+                                st["n_gen"]]).cpu().numpy()
+        return act_ngen[0].astype(bool), act_ngen[1]
+
     def _release(self, slot: int, req: Request, n_gen: int) -> None:
         """Return a finished paged slot's blocks to the pool. [0, true_w)
         is intact even for an early-EOS slot: its masked post-EOS steps
@@ -858,7 +1162,229 @@ class ServeEngine:
             self.alloc.register_prefix(slot, content, true_w)
         self.alloc.release(slot)
         self._written.pop(slot, None)
+        self._admit_seq.pop(slot, None)
         self._tbl_dirty = True              # row parked on the sentinel
+
+    # ------------------------------------------------------------------
+    # Speculative decoding
+    # ------------------------------------------------------------------
+
+    def _draft_prefill_rows(self, rows) -> None:
+        """Prefill the draft's dense cache rows of freshly armed decode
+        residents. ``rows``: (slot, consumed tokens) pairs, the prompt at
+        admission or tail completion, or prompt + generated-so-far on a
+        swap-in restore (the draft cache never travels with a swap
+        record: it is rebuilt from tokens, which keeps the swap bytes
+        unchanged and the draft a pure performance hint)."""
+        if self.spec is None or not rows:
+            return
+        dev = self.device
+        lens = np.array([len(t) for _, t in rows], np.int32)
+        L = -(-int(lens.max()) // self.prefill_bucket) * self.prefill_bucket
+        toks = np.zeros((len(rows), L), np.int32)
+        for i, (_, t) in enumerate(rows):
+            toks[i, :len(t)] = t
+        slot_idx = torch.tensor([s for s, _ in rows], dtype=torch.long,
+                                device=dev)
+        _, cache_n = prefill(self.draft_cfg, self.draft_params,
+                             self.draft_ctx,
+                             {"tokens": torch.from_numpy(toks).to(dev),
+                              "lengths": torch.from_numpy(lens).to(dev)},
+                             cache_budget=self._draft_cache_len)
+        dcache = self._draft_cache
+        for dst, src in zip(dcache["layers"], cache_n["layers"]):
+            for key in _CACHE_KEYS:
+                dst[key][slot_idx] = src[key]
+        dcache["position"][slot_idx] = cache_n["position"]
+        self._host["spec_draft_prefill_tokens"] += int(lens.sum())
+
+    def _spec_draft(self, greedy_only: bool):
+        """Draft ``k`` proposals per slot: ``k + 1`` decode steps of the
+        draft on its dense cache.
+
+        The draft cache's counters are first re-clamped to the target's
+        committed extent (the draft-side rollback of what the last wave
+        over-drafted). Step j consumes the previous proposal (step 0 the
+        slot's last committed token) and samples proposal j + 1 with the
+        plain-decode key ``fold_in(key, n_gen + j)``, so a self-draft
+        proposes exactly plain decode's tokens. The last step only
+        commits its input's KV, so the draft cache ends the wave covering
+        every token the target may accept. Under ``rejection`` mode the
+        draft's distributions ride along. Returns (dtoks (S, k), dq
+        (S, k, V) or None)."""
+        st = self.state
+        k = self.spec.k
+        dcache = self._draft_cache
+        _clamp_lengths(dcache, st["cache"]["position"])
+        want_q = self.spec.accept_mode == "rejection" and not greedy_only
+        tok = st["tokens"]
+        dtoks, dqs = [], []
+        for j in range(k + 1):
+            logits, _ = decode_step(self.draft_cfg, self.draft_params,
+                                    self.draft_ctx, tok, dcache)
+            if j == k:
+                break               # the final step only commits its KV
+            keys = None if greedy_only else fold_step(st["keys"],
+                                                      st["n_gen"] + j)
+            nxt = sample_tokens(logits[:, -1], keys, st["temp"],
+                                st["top_k"], greedy_only=greedy_only)
+            dtoks.append(nxt)
+            if want_q:
+                dqs.append(token_probs(logits[:, -1], st["temp"],
+                                       st["top_k"]))
+            tok = nxt[:, None]
+        return (torch.stack(dtoks, dim=1),
+                torch.stack(dqs, dim=1) if want_q else None)
+
+    def _spec_wave(self, dtoks, dq, tail_len: torch.Tensor,
+                   hist_blocks: int, greedy_only: bool) -> None:
+        """Verify every resident's drafted window in one verify-wave and
+        commit the accepted prefix.
+
+        The window ``[last_token, draft_1..draft_k]`` goes through
+        ``models.spec_verify`` (decode's numerics), the target's own
+        samples are drawn with the plain-decode key stream, and acceptance
+        picks how many tokens commit: the leading draft matches plus one
+        target token (the correction at the first mismatch, or the bonus
+        when every draft survives), cut at the first committed EOS and at
+        the row's remaining ``max_new`` budget. The rejected positions
+        roll back here on the device (every layer's ``length`` and
+        ``position`` re-clamp to the accepted extent, so the stale KV past
+        it is never read); the host releases their whole blocks right
+        after (``BlockAllocator.trim``)."""
+        st = self.state
+        S, C = self.slots, self.spec.k + 1
+        dev = self.device
+        cap = self.max_new_cap
+        cache = st["cache"]
+        c0 = cache["position"].clone()
+        window = torch.cat([st["tokens"], dtoks.to(torch.int32)], dim=1)
+        logits, _ = spec_verify(self.cfg, self.params, self.ctx, window,
+                                cache, torch.arange(S, dtype=torch.int32,
+                                                    device=dev),
+                                c0, tail_len, hist_blocks=hist_blocks)
+        n_gen, act = st["n_gen"], st["active"]
+        # one flattened (S * C)-row sampling call: per row exactly what C
+        # sequential decode steps would run
+        V = logits.shape[-1]
+        flat = logits.reshape(S * C, V)
+        jc = torch.arange(C, device=dev)
+        temp_rep = st["temp"].repeat_interleave(C)
+        topk_rep = st["top_k"].repeat_interleave(C)
+        keys = None
+        if not greedy_only:
+            keys = fold_step(st["keys"].repeat_interleave(C, dim=0),
+                             (n_gen[:, None] + jc[None]).reshape(S * C))
+        tt = sample_tokens(flat, keys, temp_rep, topk_rep,
+                           greedy_only=greedy_only).reshape(S, C)
+        n_draft = torch.clamp_min(tail_len - 1, 0)
+        if self.spec.accept_mode == "rejection" and not greedy_only:
+            p = token_probs(flat, temp_rep, topk_rep).reshape(S, C, V)
+            n_acc, committed = accept_rejection(dtoks, dq, p, tt, st["keys"],
+                                                n_gen, n_draft)
+        else:
+            n_acc, committed = accept_exact(dtoks, tt, n_draft), tt
+        m = n_acc + 1
+        is_eos = committed == st["eos"][:, None]
+        first_eos = torch.argmax(is_eos.to(torch.int32), dim=1) + 1
+        m = torch.where(is_eos.any(dim=1), torch.minimum(m, first_eos), m)
+        m = torch.where(act, torch.minimum(m, torch.clamp_min(tail_len, 1)),
+                        torch.zeros_like(m)).to(torch.int32)
+        # commit out[s, n_gen + j] = committed[s, j] for j < m (a masked
+        # write over the whole row stands in for the reference's dropping
+        # scatter)
+        rel = torch.arange(cap, device=dev)[None] - n_gen[:, None].long()
+        keep = (rel >= 0) & (rel < m[:, None])
+        vals = torch.gather(committed, 1, torch.clamp(rel, 0, C - 1))
+        st["out"] = torch.where(keep, vals, st["out"])
+        n_gen2 = n_gen + m
+        lastj = torch.clamp_min(m.long() - 1, 0)[:, None]
+        last = torch.gather(committed, 1, lastj)[:, 0]
+        hit_eos = torch.gather(is_eos, 1, lastj)[:, 0]
+        st["tokens"] = torch.where(act[:, None], last[:, None], st["tokens"])
+        st["n_gen"] = n_gen2
+        st["active"] = act & ~hit_eos & (n_gen2 < st["max_new"])
+        st["steps"] += 1
+        st["committed"] += m.sum(dtype=torch.int32)
+        _clamp_lengths(cache, (c0 + m).to(torch.int32))
+
+    def _spec_step(self) -> None:
+        """One speculative wave over every decode resident: the draft
+        proposes ``k`` tokens per slot, the target verifies all windows in
+        one verify-wave, the accepted prefix plus one target token commit,
+        and the rejected suffix rolls back (the wave re-clamps the device
+        counters; this driver releases the whole blocks past each
+        survivor's accepted extent with ``BlockAllocator.trim``). Capacity
+        and COW for the whole window are secured first, as for a decode
+        chunk, so preemption and prefix-shared blocks compose with the
+        wave unchanged."""
+        C = self.spec.k + 1
+        tail = np.zeros((self.slots,), np.int32)
+        hb_need = 1
+        with self.trace.span("schedule", kind="spec"):
+            for s in list(self._slot_req):
+                if s not in self._slot_req:
+                    continue        # preempted by an earlier iteration
+                r = self._slot_req[s]
+                w = self._written[s]
+                # the window is clamped to the row's remaining budget, so
+                # occupancy never exceeds the admission-time worst case
+                t = min(C, len(r.prompt) + r.max_new_tokens - 1 - w)
+                if not self._ensure(s, w + t):
+                    continue        # s itself was swapped out
+                if s not in self._slot_req \
+                        or not self._cow_guard(s, w, w + t):
+                    continue
+                tail[s] = t
+                hb_need = max(hb_need, self.alloc.blocks_for_tokens(w + t))
+            for s in range(self.slots):
+                # a slot secured and then swapped out by a later
+                # iteration's preemption rides the wave fully masked (its
+                # table row is already parked on the sentinel)
+                if tail[s] and s not in self._slot_req:
+                    tail[s] = 0
+        if not self._slot_req:
+            return
+        if not tail.any():
+            # no slot has budget to draft: every resident finished at
+            # admission (max_new == 1); they still need harvesting
+            self._harvest()
+            return
+        self._push_tables()
+        greedy_only = all(r.temperature <= 0.0
+                          for r in self._slot_req.values())
+        n_gen_before = {s: self._written[s] - len(r.prompt) + 1
+                        for s, r in self._slot_req.items()}
+        with self.trace.span("spec_draft", rows=len(self._slot_req)):
+            dtoks, dq = self._spec_draft(greedy_only)
+        with self.trace.span("spec_verify"):
+            hb = min(_pow2_ceil(hb_need), self.table_len)
+            self._spec_wave(dtoks, dq,
+                            torch.from_numpy(tail).to(self.device), hb,
+                            greedy_only)
+            # one host sync per wave, as for a decode chunk: the
+            # harvest's (active, n_gen) also gives each committed count
+            with self.trace.span("sync"):
+                act, n_gen = self._fetch_act_ngen()
+        drafted = accepted = 0
+        for s, n0 in n_gen_before.items():
+            m_s = int(n_gen[s]) - n0
+            if m_s > 0:
+                # rows committing nothing were inactive the whole wave
+                # (finished at admission): their proposals never counted
+                drafted += max(int(tail[s]) - 1, 0)
+                accepted += m_s - 1
+        self._host["spec_waves"] += 1
+        self._host["spec_drafted"] += drafted
+        self._host["spec_accepted"] += accepted
+        self._host["spec_rolled_back"] += drafted - accepted
+        self._harvest(act, n_gen)
+        # host-side rollback: finished slots were released by the harvest;
+        # survivors drop the whole blocks past their accepted extent
+        # (grown for this wave, so never shared or indexed)
+        for s in list(self._slot_req):
+            if self.alloc.trim(s, self._written[s]):
+                self._tbl_dirty = True
 
     # ------------------------------------------------------------------
     # Drive
@@ -866,7 +1392,8 @@ class ServeEngine:
 
     def step(self) -> None:
         """One admission + one tail-wave window of the in-progress tail or
-        chunked admissions + one decode chunk + harvest."""
+        chunked admissions + one decode round (a draft + verify wave with
+        spec on, else one decode chunk) + harvest."""
         self._step_idx += 1
         self.trace.step = self._step_idx
         with self.trace.span("step"):
@@ -876,19 +1403,26 @@ class ServeEngine:
                 self._advance_tail_jobs()
             if self._slot_req:
                 with self.trace.span("decode") as sp:
-                    if self._paged:
-                        with self.trace.span("schedule", kind="decode"):
-                            self._ensure_decode_blocks()
-                    with self.trace.span("decode_chunk",
-                                         rows=len(self._slot_req)):
-                        self._decode_chunk()
-                    # the harvest's device read doubles as the sync
-                    self._harvest()
+                    if self.spec is not None:
+                        self._spec_step()   # draft, verify, harvest, trim
+                    else:
+                        if self._paged:
+                            with self.trace.span("schedule", kind="decode"):
+                                self._ensure_decode_blocks()
+                        with self.trace.span("decode_chunk",
+                                             rows=len(self._slot_req)):
+                            self._decode_chunk()
+                        # the harvest's device read doubles as the sync
+                        self._harvest()
                 self._host["decode_s"] += sp.dt
                 self._host["decode_rounds"] += 1
 
     def _flush_partial(self) -> None:
-        """Surface still-resident slots' tokens (budget-aborted drain)."""
+        """Surface still-resident slots' tokens (budget-aborted drain);
+        swapped-out requests surface the tokens taken at preemption."""
+        for rec in self._swapped:
+            if rec["kind"] == "decode":
+                rec["req"].generated = rec["out"][:rec["n_gen"]].tolist()
         if not self._slot_req:
             return
         resident = sorted(self._slot_req)
@@ -899,12 +1433,14 @@ class ServeEngine:
             self._slot_req[s].generated = rows[i, :n_gen[s]].tolist()
 
     def run_until_drained(self, max_steps: int = 10_000) -> Dict:
-        """Serve until queue, slots and tail jobs are empty; ``max_steps``
-        bounds the total decode-step budget (chunk-granular). If the
-        budget aborts the drain, in-flight requests keep their partial
-        ``generated`` output (``done`` stays False)."""
+        """Serve until queue, slots, tail jobs and the swap queue are
+        empty; ``max_steps`` bounds the total decode-step budget
+        (chunk-granular). If the budget aborts the drain, in-flight
+        requests keep their partial ``generated`` output (``done`` stays
+        False)."""
         chunks = 0
-        while ((self.scheduler.pending or self._slot_req or self._tail_jobs)
+        while ((self.scheduler.pending or self._slot_req or self._tail_jobs
+                or self._swapped)
                and chunks * self.decode_block < max_steps):
             self.step()
             chunks += 1
@@ -936,14 +1472,19 @@ class ServeEngine:
         prefix_hit_tokens           prompt tokens served from the prefix
                                     cache instead of being prefilled
         cow_copies                  copy-on-write block clones
+        preemptions                 swap-outs (optimistic admission)
+        swap_out_bytes/_in_bytes    quantized bytes moved by swaps
+        swap_s                      wall seconds in swap copy/restore
         max_residents               peak concurrently resident requests
                                     (decode + in-flight tail prefills)
         pending_requests            requests waiting in the scheduler queue
         resident_requests           requests resident in slots
+        swapped_requests            preempted requests awaiting restore
         cache_tokens_capacity       stripe / pool capacity in tokens
         peak_cache_tokens/_bytes    peak occupancy in tokens / bytes
         cache_bytes                 total cache allocation
         decode_block(_mode)         chunk length and how it was chosen
+                                    ("fixed" / "spec")
         weights_layout              serve weight layout ("bf16" / "w4a8")
         packed_weight_bytes         int4-packed weight + scale + bias bytes
                                     the w4a8 forward streams (0 under bf16)
@@ -956,13 +1497,19 @@ class ServeEngine:
         prefix_lookups/_hit_blocks  prefix-index probes / whole blocks hit
         prefix_cache_blocks         evictable blocks alive only in the index
         prefix_evictions            indexed blocks reclaimed by allocation
+        spec_waves/_drafted/        verify-waves run, draft tokens proposed
+        _accepted/_rolled_back      / accepted / rolled back (spec only)
+        spec_draft_prefill_tokens   tokens prefilled into the draft cache
+        spec_accept_rate            accepted / drafted (spec only)
+        spec_k/_draft_layers/       the SpecConfig serving (spec only)
+        _accept_mode
         requests_finished           requests fully served
         ttft_p50_s/p95_s            submit -> first-token percentiles
         latency_p50_s/p95_s         submit -> finish percentiles
         ==========================  =========================================
 
         The pool-only keys (``free_blocks`` … ``prefix_evictions``) appear
-        only with ``kv_layout="paged"``.
+        only with ``kv_layout="paged"``, the spec keys only with ``spec``.
         """
         counts = torch.stack([self.state["steps"], self.state["committed"]]
                              ).cpu().tolist()
@@ -975,7 +1522,7 @@ class ServeEngine:
         d["decode_step_s"] = d["decode_s"] / max(steps, 1)
         d["max_residents"] = self._max_residents
         d["decode_block"] = self.decode_block
-        d["decode_block_mode"] = "fixed"
+        d["decode_block_mode"] = self._decode_block_mode
         d["weights_layout"] = self.weights_layout
         d["packed_weight_bytes"] = self._w4a8_bytes["packed"]
         d["weight_hbm_saved_bytes"] = max(
@@ -983,6 +1530,14 @@ class ServeEngine:
         d["device"] = str(self.device)
         d["pending_requests"] = self.scheduler.pending
         d["resident_requests"] = len(self._slot_req) + len(self._tail_jobs)
+        d["swapped_requests"] = len(self._swapped)
+        if self.spec is not None:
+            drafted = d["spec_drafted"]
+            d["spec_accept_rate"] = (d["spec_accepted"] / drafted
+                                     if drafted else 0.0)
+            d["spec_k"] = self.spec.k
+            d["spec_draft_layers"] = self.spec.resolved_layers(self.cfg)
+            d["spec_accept_mode"] = self.spec.accept_mode
         d["paged"] = self._paged
         if self._paged:
             d["prefix_lookups"] = self.alloc.prefix_lookups

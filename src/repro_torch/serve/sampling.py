@@ -66,16 +66,30 @@ def slot_key(seed: int, uid: int) -> Tuple[int, int]:
     return fold_in(prng_key(seed), uid)
 
 
+def fold_keys(keys: torch.Tensor, data) -> torch.Tensor:
+    """Elementwise ``fold_in(keys[...], data[...])`` on the device.
+
+    keys (..., 2) int64 holding uint32 words; data an int or an int
+    tensor of shape ``keys.shape[:-1]``. Returns (..., 2) int64. This is
+    ``jax.vmap(jax.random.fold_in)`` over any batch of keys, e.g. the
+    (S, k) step keys that rejection sampling folds its tags into.
+    """
+    k = keys.long()
+    if not isinstance(data, torch.Tensor):
+        data = torch.full(k.shape[:-1], data, dtype=torch.int64,
+                          device=k.device)
+    c = data.long() & _M32
+    a, b = _threefry2x32(k[..., 0], k[..., 1], torch.zeros_like(c), c)
+    return torch.stack([a, b], dim=-1)
+
+
 def fold_step(keys: torch.Tensor, counters: torch.Tensor) -> torch.Tensor:
     """Per-row ``fold_in(keys[i], counters[i])`` on the device.
 
     keys (B, 2) int64 holding uint32 words; counters (B,) int. Returns
     (B, 2) int64.
     """
-    k = keys.long()
-    c = counters.long() & _M32
-    a, b = _threefry2x32(k[:, 0], k[:, 1], torch.zeros_like(c), c)
-    return torch.stack([a, b], dim=1)
+    return fold_keys(keys, counters)
 
 
 def random_bits(keys: torch.Tensor, n: int) -> torch.Tensor:
@@ -146,3 +160,22 @@ def sample_tokens(logits: torch.Tensor, keys: Optional[torch.Tensor],
     temp = torch.clamp_min(temperature, 1e-6)[:, None]
     drawn = categorical(keys, masked / temp).to(torch.int32)
     return torch.where(temperature > 0.0, drawn, greedy)
+
+
+def token_probs(logits: torch.Tensor, temperature: torch.Tensor,
+                top_k: torch.Tensor) -> torch.Tensor:
+    """The categorical distribution :func:`sample_tokens` draws from.
+
+    logits (B, V); temperature (B,); top_k (B,). Stochastic rows get the
+    post-temperature, top-k-filtered softmax; greedy rows (temp <= 0) a
+    one-hot at the argmax, so rejection sampling against these
+    probabilities reduces to exact argmax matching for greedy requests.
+    Returns (B, V) f32 rows summing to 1.
+    """
+    logits = logits.float()
+    masked = topk_masked(logits, top_k)
+    temp = torch.clamp_min(temperature, 1e-6)[:, None]
+    p = torch.softmax(masked / temp, dim=-1)
+    one_hot = torch.nn.functional.one_hot(
+        torch.argmax(logits, dim=-1), logits.shape[-1]).float()
+    return torch.where(temperature[:, None] > 0.0, p, one_hot)

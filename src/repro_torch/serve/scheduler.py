@@ -5,9 +5,10 @@ asks it for the next admission batch whenever slots free up. This port
 holds the ``fcfs`` policy (first-come-first-served, arrival order) and
 the paged engine's admission hooks: ``first``/``take`` to peek and remove
 the head, ``select`` with a head-of-line ``admit_ok`` predicate, and
-prefix-affinity grouping (``group_key`` / ``hot`` / ``skip``). The
-reference's ``sjf`` / ``edf`` policies, SLO shedding and preemption
-victims arrive with the slices that need them.
+prefix-affinity grouping (``group_key`` / ``hot`` / ``skip``), and
+``pick_victim``, which chooses whom optimistic admission swaps out. The
+reference's ``sjf`` / ``edf`` policies and SLO shedding arrive with the
+frontend slice.
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ from typing import Dict, List, Optional
 from repro_torch.obs.trace import NULL_TRACER
 
 POLICIES = ("fcfs",)
+PREEMPT_POLICIES = ("last_admitted", "longest_remaining")
 # how many non-head admissions may jump the policy head via hot-chain
 # affinity before grouping pauses and the head admits (starvation bound)
 HOT_BYPASS_CAP = 16
@@ -184,6 +186,28 @@ class Scheduler:
             # everything admitted jumped it (count once)
             self._note_removal(head if head in batch else batch[0], head)
         return batch
+
+    # ---- preemption ----
+    @staticmethod
+    def pick_victim(candidates, mode: str = "last_admitted"):
+        """Choose which resident the engine swaps out when the block pool
+        runs dry under optimistic admission.
+
+        ``candidates``: (slot, admit_seq, remaining_tokens) triples for the
+        preemptible residents. ``last_admitted`` evicts the newest resident
+        (the oldest work keeps its cache); ``longest_remaining`` evicts the
+        resident with the most tokens still to serve (ties newest first).
+        Returns the victim slot, or None when there is nothing to preempt.
+        """
+        if mode not in PREEMPT_POLICIES:
+            raise ValueError(
+                f"unknown preemption policy {mode!r}; known: "
+                f"{PREEMPT_POLICIES}")
+        if not candidates:
+            return None
+        if mode == "longest_remaining":
+            return max(candidates, key=lambda c: (c[2], c[1]))[0]
+        return max(candidates, key=lambda c: c[1])[0]
 
     # ---- accounting ----
     def on_admitted(self, reqs, now: Optional[float] = None) -> None:

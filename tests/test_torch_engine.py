@@ -198,8 +198,8 @@ def test_submit_rejects_infeasible_requests(served):
         eng.submit(Request(uid=0, prompt=ok, max_new_tokens=4, top_k=65))
 
 
-@pytest.mark.parametrize("kw", [dict(kv_layout="paged", admission="optimistic"),
-                                dict(spec={"k": 2}),
+@pytest.mark.parametrize("kw", [dict(kv_layout="paged", slo_shed="downgrade"),
+                                dict(kv_layout="paged", sched_policy="edf"),
                                 dict(decode_block="auto"),
                                 dict(slo_shed="reject"), dict(mesh=object()),
                                 dict(sched_policy="sjf")])

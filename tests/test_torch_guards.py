@@ -34,6 +34,8 @@ for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     names.append(m.name)
 for name in names:
     importlib.import_module(name)
+assert "repro_torch.serve.spec" in names, names
+assert "repro_torch.serve.scheduler" in names, names
 import chip_smoke
 chip_smoke.import_port()
 bad = sorted(m for m in sys.modules
@@ -123,6 +125,43 @@ def test_cpu_serving_takes_plain_versions_only(monkeypatch):
     assert all(r.done and len(r.generated) == 4 for r in reqs)
     assert stats["tokens_out"] == 12 and stats["device"] == "cpu"
     assert (w4a8_matmul.launches, kvq_decode_attn.launches) == before == (0, 0)
+
+
+def test_cpu_spec_and_preemption_take_plain_versions_only(monkeypatch):
+    """The paged engine with speculative decoding and optimistic admission
+    on the CPU: requests preempt, swap and verify through the plain
+    versions, and no kernel is built, loaded or counted."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.kernels import build
+    from repro_torch.kernels.kvq_attn import ops
+    from repro_torch.kernels.w4a8.ops import w4a8_matmul
+    from repro_torch.models import init_params
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.serve.spec import SpecConfig
+
+    def refuse(*a, **k):
+        raise AssertionError("a CPU run tried to build or load a kernel")
+
+    monkeypatch.setattr(build, "load", refuse)
+    monkeypatch.setattr(build, "build_all", refuse)
+    counted = (w4a8_matmul, ops.kvq_decode_attn, ops.kvq_paged_decode_attn,
+               ops.kvq_spec_verify_attn, ops.gather_dequant_paged_kv,
+               ops.copy_pool_blocks)
+    before = [fn.launches for fn in counted]
+    cfg = get_reduced_config("qwen2.5-3b")
+    eng = ServeEngine(cfg, init_params(cfg, seed=1, device="cpu"), slots=3,
+                      cache_len=64, kv_layout="paged", block_size=8,
+                      num_blocks=8, max_seq_len=96, admission="optimistic",
+                      prefix_cache=False, spec=SpecConfig(k=2),
+                      weights_layout="w4a8", device="cpu")
+    reqs = [Request(uid=i, prompt=(np.arange(10, dtype=np.int32) * 7 + i)
+                    % 250, max_new_tokens=30) for i in range(3)]
+    for r in reqs:
+        eng.submit(r)
+    stats = eng.run_until_drained()
+    assert all(r.done and len(r.generated) == 30 for r in reqs)
+    assert stats["preemptions"] >= 1 and stats["spec_waves"] > 0
+    assert [fn.launches for fn in counted] == before == [0] * 6
 
 
 def test_build_targets_are_content_addressed(monkeypatch, tmp_path):

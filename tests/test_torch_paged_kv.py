@@ -11,12 +11,14 @@ differs from the Pallas kernel only in summation order: within 2e-5
 dense decode are bitwise equal inside the port (both take the dense
 plain path on the CPU). Against the JAX paged engine the block tables,
 counters and greedy streams are equal; the decode logits agree within
-5e-2 relative L2 with the same argmax (measured when this test was
-written: 2.8e-2). They are not bitwise: torch's f32 ``cos``/``sin`` round
-the last bit of some RoPE table entries differently from XLA's (at a
-48-token prompt, 160 of 3072 entries), and per-token int8 requantization
-turns those ulps into shifted codes, so the pools differ from the
-prefill on. That is no fault of the paged path: the dense path shares
+5e-2 relative L2 with the same argmax (measured: 2.8e-2, the same before
+and after the RoPE repair below, so the bound stays). They are not
+bitwise: the RoPE frequencies now equal XLA's bitwise, but the f64
+``cos``/``sin`` of the port, rounded to f32, still differ from XLA's f32
+ones in the last bit of a few entries (head_dim 128, theta 1e6: 8 cos
+and 21 sin of 3072 entries at 48 positions; torch's f32 ``cos``/``sin``
+differed in 160 and 63), and per-token int8 requantization turns those
+ulps into shifted codes, so the pools differ from the prefill on. That is no fault of the paged path: the dense path shares
 the prefill. The reference here is the compiled engine; run op by op it
 differs from itself in the same way (one greedy token of the stream
 test, the last of request 1, flips between the two).
