@@ -18,7 +18,12 @@ toolkit (``nvcc``). Phases, each fatal on failure (non-zero exit):
    ``gather_dequant_paged_kv`` and ``pool_block_copy`` bitwise;
    ``kvq_spec_verify_attn`` within one bf16 ulp at both block sizes, each
    query bitwise equal to ``kvq_paged_decode_attn`` at its length;
-   ``rms_norm`` bitwise across row counts;
+   ``rms_norm`` bitwise across row counts; ``fake_quant_fwd`` and the
+   ``dx`` of ``fake_quant_bwd`` bitwise at bits 4 and 8 on every weight
+   shape of qwen2.5-3b (the tied head per vocab row) and two activation
+   shapes per tensor, its ``ds`` within 1e-4 of its sums' mass;
+   ``flash_attn_fwd`` against its plain version and an f64 oracle at the
+   QAT shape, S 1024, a ragged S and a sliding window;
 3. serve: ``ServeEngine`` on ``cuda`` with qwen2.5-3b at full width
    (random weights from a seed), policy A8d-C8-W4, w4a8 weights, dense
    KV cache; 8 mixed-length requests through 4 slots, both kernels'
@@ -42,11 +47,25 @@ toolkit (``nvcc``). Phases, each fatal on failure (non-zero exit):
 3e. optimistic admission on about 60% of the worst-case pool (spec on,
    prefix cache off): at least one preemption, swap bytes out == in, and
    every stream equal to reserve admission's;
-4. times: each kernel per decode step, verify-wave, tail-wave or COW
-   (CUDA events, L2 flushed by rotating input copies past 100 MB), its
-   plain version, one PyTorch call computing the same function (a
-   yardstick the port never calls) and the least time the card needs for
-   the work; decode tok/s and TTFT of the serve phases.
+5. QAT: ``run_qat`` on qwen2.5-3b at full width and depth, A8d-C8-W4,
+   2 teacher steps (autograd attention), MSE weight calibration, 4 steps
+   at B 8, T 128: 253 ``fake_quant_fwd`` and 253 ``fake_quant_bwd``
+   launches and 36 ``flash_attn_fwd`` launches (the teacher) per step,
+   finite KD losses, every ``s_w`` moved, AdamW moments non-zero on every
+   read leaf, no NaN; ms per step split into teacher forward, student
+   forward and backward and optimizer, tokens/s, peak memory, the
+   device's idle share (``torch.profiler``) and the model-FLOPs share;
+   then one loss and backward through the kernels against the plain
+   versions;
+5b. a static policy (A8s-C8-W4) at full width and 4 layers: percentile
+   calibration over 5 batches (``flash_attn_fwd`` in the calibration
+   forward), one step, per-tensor fake-quant launches;
+4. times: each kernel per decode step, verify-wave, tail-wave, COW,
+   student step or teacher forward (CUDA events, L2 flushed by rotating
+   input copies past 100 MB), its plain version, one PyTorch call
+   computing the same function (a yardstick the port never calls) and
+   the least time the card needs for the work; decode tok/s and TTFT of
+   the serve phases.
 
 The line before the last is a JSON object with every kernel's numbers; the
 last line is ``{"ok": true, "device": {...}}``. Details go to
@@ -90,15 +109,23 @@ def import_port():
     """The port's modules this script drives (fails outside a checkout)."""
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
     from repro_torch.core import qat
+    from repro_torch.core.distill import silq_loss
     from repro_torch.core.quantizer import unpack_int4
+    from repro_torch.data import MixtureIterator, SyntheticConfig, to_device
     from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attn import ops as fa_ops
+    from repro_torch.kernels.flash_attn.ref import flash_attn_ref
+    from repro_torch.kernels.quant import ops as fq_ops
+    from repro_torch.kernels.quant import ref as fq_ref
     from repro_torch.kernels.kvq_attn import ops as kvq_ops
     from repro_torch.kernels.kvq_attn import ref as kvq_ref
     from repro_torch.kernels.kvq_attn.ref import kvq_decode_attn_ref
     from repro_torch.kernels.w4a8 import ops as w4a8_ops
     from repro_torch.kernels.w4a8.ref import w4a8_matmul_ref
     from repro_torch import models
+    from repro_torch.launch import steps, train
     from repro_torch.models.common import rms_norm
     from repro_torch.obs.trace import Tracer
     from repro_torch.serve.engine import Request, ServeEngine
@@ -108,7 +135,12 @@ def import_port():
                 kvq_decode_attn_ref=kvq_decode_attn_ref, w4a8_ops=w4a8_ops,
                 w4a8_matmul_ref=w4a8_matmul_ref, models=models,
                 rms_norm=rms_norm, Request=Request, ServeEngine=ServeEngine,
-                SpecConfig=SpecConfig, Tracer=Tracer)
+                SpecConfig=SpecConfig, Tracer=Tracer, TrainConfig=TrainConfig,
+                MixtureIterator=MixtureIterator,
+                SyntheticConfig=SyntheticConfig, to_device=to_device,
+                fa_ops=fa_ops, flash_attn_ref=flash_attn_ref, fq_ops=fq_ops,
+                fq_ref=fq_ref, steps=steps, train=train,
+                silq_loss=silq_loss)
 
 
 # --------------------------------------------------------------------------
@@ -826,6 +858,603 @@ def time_spec_verify(torch, P, cfg, dev, report):
 
 
 # --------------------------------------------------------------------------
+# phase 2 + 4: fake_quant_fwd / fake_quant_bwd (the QAT path's LSQ sites)
+# --------------------------------------------------------------------------
+
+BF16_PEAK_FLOPS = 989e12       # dense bf16 tensor-core peak
+TRAIN_B, TRAIN_T = 8, 128      # the QAT phase's batch and sequence
+TRAIN_STEPS = 4
+FLASH_TOL = (2.0 ** -7, 2.0 ** -7)   # rtol, atol (see check_flash)
+FLASH_ULP_SHARE = 5e-2         # of elements allowed beyond one ulp
+FLASH_ORACLE_RATIO = 1.5       # kernel's f64-oracle error / plain's
+FQ_DS_TOL = 1e-4               # of gscale * sum |g * dq/ds| per scale
+GRAD_REL_TOL = 1e-3            # per-leaf relative L2, fake-quant kernels
+GRAD_REL_TOL_STEP = 1e-1       # the same, whole step (see grads_vs_plain)
+
+
+def fq_shapes(cfg):
+    """(site, R, C, mode, bits, launches per student step): every weight
+    of A8d-C8-W4 (mode 1: per output channel; the tied head in mode 2, per
+    vocab row of embed.w, at head_bits 8) and, per tensor (mode 0), the
+    activation sites a static policy adds at B * T = 1024 tokens: s_in on
+    the linears' inputs, and s_q / s_k / s_v on the (B, T, heads, D)
+    attention operands, which the kernel reads as (B * T * heads, D)."""
+    d, f, qd, kvd, L = (cfg.d_model, cfg.d_ff, cfg.q_dim, cfg.kv_dim,
+                        cfg.n_layers)
+    tok = TRAIN_B * TRAIN_T
+    return [("wq", d, qd, 1, 4, L), ("wk", d, kvd, 1, 4, L),
+            ("wv", d, kvd, 1, 4, L), ("wo", qd, d, 1, 4, L),
+            ("wg", d, f, 1, 4, L), ("wu", d, f, 1, 4, L),
+            ("wd", f, d, 1, 4, L), ("head", cfg.vocab_size, d, 2, 8, 1),
+            ("act_d", tok, d, 0, 8, 0), ("act_ff", tok, f, 0, 8, 0),
+            ("act_q", tok * cfg.n_heads, cfg.resolved_head_dim, 0, 8, 0),
+            ("act_kv", tok * cfg.n_kv_heads, cfg.resolved_head_dim, 0, 8, 0)]
+
+
+def fq_inputs(torch, gen, R, C, mode, bits, dev):
+    """x bf16 (weights ~0.02, activations ~1), s near absmax / qp so some
+    values clip, g bf16 for the backward."""
+    qp = 2 ** (bits - 1) - 1
+    x = torch.randn((R, C), generator=gen, device=dev) * (
+        1.0 if mode == 0 else 0.02)
+    if mode == 0:
+        s = x.abs().amax() / qp * 0.8
+    elif mode == 1:
+        s = x.abs().amax(0, keepdim=True) / qp * (
+            0.5 + 0.5 * torch.rand((1, C), generator=gen, device=dev))
+    else:
+        s = x.abs().amax(1, keepdim=True) / qp * (
+            0.5 + 0.5 * torch.rand((R, 1), generator=gen, device=dev))
+    g = torch.randn((R, C), generator=gen, device=dev) * 1e-3
+    return (x.to(torch.bfloat16), s.float().contiguous(),
+            g.to(torch.bfloat16))
+
+
+def fq_ds_mass(torch, P, x, s, g, bits):
+    """gscale * sum |g * dq/ds| per scale: the scale of the f32 sums'
+    order error."""
+    qn, qp = -(2 ** (bits - 1)), 2 ** (bits - 1) - 1
+    v = x.float() / torch.clamp_min(s, 1e-9)
+    dq = torch.where((v >= qn) & (v <= qp), torch.round(v) - v,
+                     torch.clamp(v, qn, qp))
+    mass = (g.float() * dq).abs()
+    del v, dq
+    dims = {0: None, 1: (0,), 2: (1,)}[P["fq_ops"].scale_mode(x, s)]
+    mass = mass.sum() if dims is None else mass.sum(dim=dims, keepdim=True)
+    return mass.reshape(s.shape) * P["fq_ops"].grad_scale(x, s, bits)
+
+
+def check_fake_quant(torch, P, cfg, dev, report):
+    ops, ref = P["fq_ops"], P["fq_ref"]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(21)
+    worst_ds, n = 0.0, 0
+    for site, R, C, mode, _, _ in fq_shapes(cfg):
+        for bits in (4, 8):
+            x, s, g = fq_inputs(torch, gen, R, C, mode, bits, dev)
+            got = ops.fake_quant_fwd(x, s, bits)
+            want = ref.fake_quant_fwd_ref(x, s, bits)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want),
+                  f"fake_quant_fwd {site} bits {bits} differs from its plain "
+                  f"version in {int((got != want).sum())} elements")
+            del got, want
+            dx, ds = ops.fake_quant_bwd(x, s, g, bits)
+            dx_p, ds_p = ops.fake_quant_bwd(x, s, g, bits, plain=True)
+            torch.cuda.synchronize()
+            check(torch.equal(dx, dx_p),
+                  f"fake_quant_bwd {site} bits {bits}: dx differs from its "
+                  f"plain version in {int((dx != dx_p).sum())} elements")
+            mass = fq_ds_mass(torch, P, x, s, g, bits)
+            rel = float(((ds - ds_p).abs() / mass.clamp_min(1e-30)).max())
+            check(bool(torch.isfinite(ds).all()) and rel <= FQ_DS_TOL,
+                  f"fake_quant_bwd {site} bits {bits}: ds off its plain "
+                  f"version by {rel} of its sums' mass (> {FQ_DS_TOL})")
+            worst_ds = max(worst_ds, rel)
+            n += 1
+            del x, s, g, dx, ds, dx_p, ds_p, mass
+    torch.cuda.empty_cache()
+    report["fake_quant_checked"] = n
+    report["fake_quant_ds_rel_mass_err"] = worst_ds
+    print(f"phase 2: fake_quant_fwd and dx of fake_quant_bwd bitwise equal "
+          f"to their plain versions on {n} cases (every weight shape of "
+          f"qwen2.5-3b per channel, the tied head per row, two linear-input "
+          f"and two attention shapes per tensor; bits 4 and 8); ds within {worst_ds:.3g} of "
+          f"its sums' mass (tolerance {FQ_DS_TOL})", flush=True)
+    return 0.0
+
+
+def time_fake_quant(torch, P, cfg, dev, report):
+    """Per student step: the forward and the backward of every weight site
+    (253 launches each), summed over the shapes' per-step counts."""
+    ops, ref = P["fq_ops"], P["fq_ref"]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(22)
+    fwd = dict(ms=0.0, plain_ms=0.0, library_ms=0.0)
+    bwd = dict(ms=0.0, plain_ms=0.0, library_ms=0.0)
+    fwd_bytes = bwd_bytes = fwd_ops = bwd_ops = 0
+    rows = []
+    for site, R, C, mode, bits, per_step in fq_shapes(cfg):
+        if not per_step:
+            continue
+        nb = R * C * 2
+        sets = [fq_inputs(torch, gen, R, C, mode, bits, dev)
+                for _ in range(copies_for(nb))]
+        qn, qp = -(2 ** (bits - 1)), 2 ** (bits - 1) - 1
+        axis = 1 if mode == 1 else 0
+        row = {"site": site, "R": R, "C": C, "mode": mode, "bits": bits,
+               "per_step": per_step}
+        row["fwd_ms"] = time_ms(torch, lambda x, s, g: ops.fake_quant_fwd(
+            x, s, bits), sets)
+        row["fwd_plain_ms"] = time_ms(
+            torch, lambda x, s, g: ref.fake_quant_fwd_ref(x, s, bits),
+            sets[:1], min_calls=5)
+        row["bwd_ms"] = time_ms(torch, lambda x, s, g: ops.fake_quant_bwd(
+            x, s, g, bits), sets)
+        row["bwd_plain_ms"] = time_ms(
+            torch, lambda x, s, g: ops.fake_quant_bwd(x, s, g, bits,
+                                                      plain=True),
+            sets[:1], min_calls=5)
+        n_s = sets[0][1].numel()
+        zp = torch.zeros(n_s, dtype=torch.int32, device=dev)
+        lib = [(x, s.reshape(-1), g) for x, s, g in sets]
+        # the library op checks its zero points on the host, which a
+        # CUDA graph capture refuses: timed as eager calls
+        row["fwd_library_ms"] = time_eager_ms(
+            torch, lambda x, s, g: torch.fake_quantize_per_channel_affine(
+                x, s, zp, axis, qn, qp), lib)
+        zpf = torch.zeros(n_s, dtype=torch.float32, device=dev)
+
+        def lib_bwd(x, s, g):
+            xr = x.detach().requires_grad_(True)
+            sr = s.detach().requires_grad_(True)
+            y = torch._fake_quantize_learnable_per_channel_affine(
+                xr, sr, zpf, axis, qn, qp, 1.0)
+            return torch.autograd.grad(y, (xr, sr), g)
+
+        row["bwd_library_ms"] = time_eager_ms(torch, lib_bwd, lib)
+        rows.append(row)
+        for d_, k in ((fwd, "fwd"), (bwd, "bwd")):
+            d_["ms"] += per_step * row[f"{k}_ms"]
+            d_["plain_ms"] += per_step * row[f"{k}_plain_ms"]
+            d_["library_ms"] += per_step * row[f"{k}_library_ms"]
+        n_el = R * C
+        fwd_bytes += per_step * (4 * n_el + 4 * n_s)
+        bwd_bytes += per_step * (6 * n_el + 8 * n_s)
+        fwd_ops += per_step * 4 * n_el          # divide, clip, round, scale
+        bwd_ops += per_step * 8 * n_el
+        del sets, lib
+        torch.cuda.empty_cache()
+    report["fake_quant_per_shape"] = rows
+    out = []
+    for d_, nbytes, nops in ((fwd, fwd_bytes, fwd_ops),
+                             (bwd, bwd_bytes, bwd_ops)):
+        t_b, t_o = nbytes / HBM_BYTES_PER_S, nops / F32_FLOPS_PER_S
+        d_["bound_ms"] = max(t_b, t_o) * 1e3
+        d_["bound_by"] = "bytes" if t_b >= t_o else "operations"
+        out.append(d_)
+    return out
+
+
+def time_eager_ms(torch, fn, arg_sets, min_calls=10):
+    """Device ms per call issued eagerly between two events (for a call
+    that runs autograd, which a CUDA graph capture would not take)."""
+    for args in arg_sets[:2]:
+        fn(*args)
+    torch.cuda.synchronize()
+    n = max(min_calls, len(arg_sets))
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(n):
+        fn(*arg_sets[i % len(arg_sets)])
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / n
+
+
+# --------------------------------------------------------------------------
+# phase 2 + 4: flash_attn_fwd (attention without a gradient)
+# --------------------------------------------------------------------------
+
+# (B, S, window): the QAT phase's shape, TrainConfig's default seq_len, a
+# ragged length and a sliding window
+FLASH_CASES = ((TRAIN_B, TRAIN_T, 0), (2, 1024, 0), (3, 333, 0),
+               (2, 200, 64))
+
+
+def flash_inputs(torch, gen, cfg, B, S, dev):
+    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    return tuple(torch.randn(shape, generator=gen, device=dev).to(
+        torch.bfloat16) for shape in ((B, S, H, D), (B, S, Hkv, D),
+                                      (B, S, Hkv, D)))
+
+
+def check_flash(torch, P, cfg, dev, report):
+    """The kernel against its plain version, and both against an f64
+    softmax attention with unrounded probabilities (the oracle).
+
+    P is rounded to bf16 before P.V, as in the reference. Scores summed in
+    another order than cuBLAS's put some probabilities on the neighbouring
+    bf16 value (one in a few thousand), and for a query with few keys
+    (early causal rows) one such flip moves the output by up to about
+    2^-8 of the spread of its V rows, whatever the output's own size
+    (1.05% of the elements beyond one ulp, max 0.0039, read at S 128 on
+    the card). So the kernel is held to ``FLASH_TOL`` (rtol one bf16 ulp,
+    atol 2^-7 for V rows of unit scale) and ``FLASH_ULP_SHARE`` beyond
+    one ulp, and its error against the oracle to at most
+    ``FLASH_ORACLE_RATIO`` times the plain version's."""
+    fa, ref = P["fa_ops"].flash_attn_fwd, P["flash_attn_ref"]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(23)
+    rtol, atol = FLASH_TOL
+    worst, cases = 0.0, []
+    for B, S, window in FLASH_CASES:
+        q, k, v = flash_inputs(torch, gen, cfg, B, S, dev)
+        got = fa(q, k, v, causal=True, window=window).float()
+        want = ref(q, k, v, causal=True, window=window).float()
+        oracle = flash_oracle(torch, q, k, v, window)
+        torch.cuda.synchronize()
+        err = (got - want).abs()
+        beyond_ulp = float((err > KVQ_TOL[1] + KVQ_TOL[0] * want.abs())
+                           .float().mean())
+        e_k = float((got - oracle).abs().max())
+        e_p = float((want - oracle).abs().max())
+        cases.append({"B": B, "S": S, "window": window,
+                      "max_abs_err": float(err.max()),
+                      "share_beyond_one_ulp": beyond_ulp,
+                      "kernel_vs_oracle": e_k, "plain_vs_oracle": e_p})
+        check(bool(torch.isfinite(got).all()),
+              f"flash_attn_fwd B={B} S={S}: non-finite")
+        check(torch.allclose(got, want, rtol=rtol, atol=atol)
+              and beyond_ulp <= FLASH_ULP_SHARE
+              and e_k <= FLASH_ORACLE_RATIO * e_p,
+              f"flash_attn_fwd B={B} S={S} window={window} differs from its "
+              f"plain version: {cases[-1]} (rtol {rtol}, atol {atol}, at "
+              f"most {FLASH_ULP_SHARE} beyond one ulp, oracle error at most "
+              f"{FLASH_ORACLE_RATIO}x the plain version's)")
+        worst = max(worst, float(err.max()))
+        del q, k, v, got, want, oracle, err
+    report["flash_check"] = cases
+    print(f"phase 2: flash_attn_fwd within rtol {rtol} atol {atol} of its "
+          f"plain version at H=16, Hkv=2, D=128: {cases}", flush=True)
+    return worst
+
+
+def flash_oracle(torch, q, k, v, window):
+    """Causal softmax attention in f64 with unrounded probabilities."""
+    B, S, H, D = q.shape
+    g = H // k.shape[2]
+    kr = k.double().repeat_interleave(g, dim=2)
+    vr = v.double().repeat_interleave(g, dim=2)
+    s_ = torch.einsum("bqhd,bkhd->bhqk", q.double(), kr) * D ** -0.5
+    i = torch.arange(S, device=q.device)
+    mask = i[:, None] >= i[None, :]
+    if window:
+        mask &= i[:, None] - i[None, :] < window
+    s_ = s_.masked_fill(~mask, float("-inf"))
+    return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s_, -1), vr).float()
+
+
+def time_flash(torch, P, cfg, dev, report):
+    """Per teacher forward: 36 launches at the QAT phase's shape."""
+    import torch.nn.functional as F
+    fa, ref = P["fa_ops"].flash_attn_fwd, P["flash_attn_ref"]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(24)
+    B, S = TRAIN_B, TRAIN_T
+    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    base = flash_inputs(torch, gen, cfg, B, S, dev)
+    nb = tensor_bytes(*base)
+    sets = [base] + [flash_inputs(torch, gen, cfg, B, S, dev)
+                     for _ in range(copies_for(nb) - 1)]
+    t_k = time_ms(torch, fa, sets)
+    t_p = time_ms(torch, ref, sets[:4], min_calls=10)
+    lib = [tuple(t.transpose(1, 2) for t in s) for s in sets]
+    t_l = time_ms(torch, lambda q, k, v: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True), lib)
+    pairs = S * (S + 1) // 2                    # causal (query, key) pairs
+    flops = 4 * B * H * D * pairs               # QK^T and P.V
+    nbytes = 2 * (2 * B * S * H * D + 2 * B * S * Hkv * D)   # q, o, k, v
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    L = cfg.n_layers
+    report["flash_per_launch"] = {"ms": t_k, "plain_ms": t_p,
+                                  "library_ms": t_l,
+                                  "bound_ms": max(t_b, t_o) * 1e3,
+                                  "flops": flops, "bytes": nbytes}
+    return {"ms": L * t_k, "plain_ms": L * t_p, "library_ms": L * t_l,
+            "bound_ms": L * max(t_b, t_o) * 1e3,
+            "bound_by": "bytes" if t_b >= t_o else "operations"}
+
+
+# --------------------------------------------------------------------------
+# phase 5: QAT at full width; 5b: a static policy
+# --------------------------------------------------------------------------
+
+def _named_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _named_leaves(v, f"{prefix}{k}/")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _named_leaves(v, f"{prefix}{i}/")
+    else:
+        yield prefix[:-1], tree
+
+
+def train_counters(P):
+    return (P["fq_ops"].fake_quant_fwd, P["fq_ops"].fake_quant_bwd,
+            P["fa_ops"].flash_attn_fwd)
+
+
+def train_flops(cfg, B, T):
+    """Model FLOPs of one QAT step: the teacher's forward (2 N per token)
+    and the student's forward and backward (6 N), N the matmul weights
+    (the tied head counted once), plus attention's QK^T and P.V over
+    all (query, key) pairs, three times for the student."""
+    d, f, qd, kvd, L = (cfg.d_model, cfg.d_ff, cfg.q_dim, cfg.kv_dim,
+                        cfg.n_layers)
+    n_mm = L * (2 * d * qd + 2 * d * kvd + 3 * d * f) + d * cfg.vocab_size
+    attn = L * 4 * B * T * T * qd
+    return 8 * n_mm * B * T + 4 * attn
+
+
+def train_full(torch, P, cfg, dev, report):
+    """run_qat on qwen2.5-3b at full width and depth, A8d-C8-W4."""
+    tcfg = P["TrainConfig"](precision="A8d-C8-W4", total_steps=TRAIN_STEPS,
+                            ref_steps=TRAIN_STEPS, batch_size=TRAIN_B,
+                            seq_len=TRAIN_T)
+    fq_fwd, fq_bwd, fa = train_counters(P)
+    steps, state = [], {}
+
+    def on_start(student, opt):
+        state["s_w0"] = {k: t.detach().clone() for k, t in
+                         _named_leaves(student) if k.endswith("s_w")}
+        state["counts"] = (fq_fwd.launches, fq_bwd.launches, fa.launches)
+
+    def on_step(step, metrics, student, opt):
+        counts = (fq_fwd.launches, fq_bwd.launches, fa.launches)
+        steps.append({"step": step, "loss": float(metrics["loss"]),
+                      "ms": metrics["ms"],
+                      "launches": [a - b for a, b in
+                                   zip(counts, state["counts"])]})
+        state["counts"] = counts
+        state["opt"] = opt
+
+    for fn in train_counters(P):
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    teacher, student, _ = P["train"].run_qat(
+        "qwen2.5-3b", tcfg, reduced=False, teacher_steps=2, device=dev,
+        log_every=1, split_times=True, on_start=on_start, on_step=on_step)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"fake_quant_fwd": fq_fwd.launches,
+                "fake_quant_bwd": fq_bwd.launches,
+                "flash_attn_fwd": fa.launches}
+    peak = torch.cuda.max_memory_allocated(dev)
+    n_w = 7 * cfg.n_layers + 1
+    for s in steps:
+        check(s["launches"] == [n_w, n_w, cfg.n_layers],
+              f"QAT step {s['step']}: launches (fake_quant_fwd, "
+              f"fake_quant_bwd, flash_attn_fwd) = {s['launches']}, want "
+              f"({n_w}, {n_w}, {cfg.n_layers})")
+        check(math.isfinite(s["loss"]), f"QAT step {s['step']}: KD loss "
+                                        f"{s['loss']}")
+    check(len(steps) == TRAIN_STEPS, f"{len(steps)} QAT steps ran")
+    opt = state.pop("opt")
+    named = dict(_named_leaves(student))
+    unmoved = [k for k, t0_ in state["s_w0"].items()
+               if torch.equal(named[k], t0_)]
+    check(len(state["s_w0"]) == n_w and not unmoved,
+          f"s_w that did not move: {unmoved[:5]} ({len(unmoved)})")
+    zero_m = sorted({k.split("/")[-1] for k, m in _named_leaves(opt.m)
+                     if not bool(m.any())})
+    check(zero_m == ["s_in", "s_k", "s_q", "s_v"],
+          f"AdamW first moments all zero on {zero_m}: under A8d exactly the "
+          f"unread activation scales may be")
+    check(all(bool(v.any()) for k, v in _named_leaves(opt.v)
+              if k.split("/")[-1] not in zero_m),
+          "a read leaf has all-zero second moments")
+    check(all(bool(torch.isfinite(t).all()) for t in named.values()),
+          "a parameter is not finite after QAT")
+    check(int(opt.step) == TRAIN_STEPS, f"AdamW step {int(opt.step)}")
+
+    # the device's idle share over one more step, under the profiler
+    idle = profile_train_step(torch, P, cfg, tcfg, teacher, student, opt,
+                              steps, dev, report)
+    del opt, state
+    torch.cuda.empty_cache()
+
+    per = {k: sum(s["ms"][k] for s in steps[1:]) / (len(steps) - 1)
+           for k in ("teacher", "student", "optimizer")}
+    step_ms = sum(per.values())
+    flops = train_flops(cfg, TRAIN_B, TRAIN_T)
+    trained = {"steps": TRAIN_STEPS, "batch": TRAIN_B, "seq": TRAIN_T,
+               "losses": [s["loss"] for s in steps],
+               "ms_per_step": step_ms, "ms_split": per,
+               "ms_first_step": sum(steps[0]["ms"].values()),
+               "tokens_per_s": TRAIN_B * TRAIN_T / (step_ms / 1e3),
+               "peak_memory_bytes": peak, "wall_s": wall,
+               "device_idle_share": idle,
+               "model_flops_per_step": flops,
+               "model_flops_share": flops / (step_ms / 1e3) / BF16_PEAK_FLOPS,
+               "launches": launches}
+    report["train"] = trained
+    print("phase 5: " + json.dumps(trained), flush=True)
+    grads_vs_plain(torch, P, cfg, tcfg, teacher, student, dev, report)
+    return launches
+
+
+def profile_train_step(torch, P, cfg, tcfg, teacher, student, opt, steps,
+                       dev, report):
+    from torch.profiler import ProfilerActivity, profile
+    step_fn = P["steps"].make_train_step(cfg, tcfg)
+    it = P["MixtureIterator"](P["SyntheticConfig"](
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_T, batch_size=TRAIN_B),
+        start_step=1 + TRAIN_STEPS)
+    batch = P["to_device"](next(it), dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step_fn(student, teacher, opt, batch, TRAIN_STEPS - 1)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        report["train_profile"] = "not measured: no device records"
+        return None
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    busy_ms = sum(by_name.values()) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    report["train_profile"] = {
+        "step_ms_profiled": wall_ms, "device_busy_ms": busy_ms,
+        "kernels": len(kernels),
+        "top_kernels_us": [(n[:90], us) for n, us in top]}
+    return max(0.0, 1.0 - busy_ms / wall_ms)
+
+
+def _grad_gaps(torch, ga, gb):
+    """Per-leaf relative L2 gaps of two gradient trees: (worst, its leaf,
+    leaves compared, leaves bitwise equal)."""
+    worst, worst_key, n, same = 0.0, "", 0, 0
+    for (k, a), (_, b) in zip(_named_leaves(ga), _named_leaves(gb)):
+        if a is None or b is None:
+            check(a is None and b is None, f"gradient {k} only on one side")
+            continue
+        rel = float(torch.linalg.vector_norm(a.float() - b.float())
+                    / torch.linalg.vector_norm(b.float()).clamp_min(1e-30))
+        n += 1
+        same += int(torch.equal(a, b))
+        if rel > worst:
+            worst, worst_key = rel, k
+    return worst, worst_key, n, same
+
+
+def grads_vs_plain(torch, P, cfg, tcfg, teacher, student, dev, report):
+    """One loss and backward on one batch and the same parameters, through
+    the kernels and through their plain versions (launches not counted).
+
+    Twice: the whole step (teacher forward through ``flash_attn_fwd`` or
+    its plain version), and the student alone against one set of teacher
+    logits, which isolates the fake-quant kernels. The teacher's logits
+    are bf16: a one-ulp move of a logit near 16 (0.125) moves its
+    probability by 13%, and the flash kernel moves some logits so (check
+    on the teacher logits below), so the whole step's gradients are held
+    to ``GRAD_REL_TOL_STEP``; with the teacher's logits shared, the
+    forward is bitwise and the backward differs only in the order of the
+    LSQ step-size sums: ``GRAD_REL_TOL``."""
+    qat, models = P["qat"], P["models"]
+    it = P["MixtureIterator"](P["SyntheticConfig"](
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_T, batch_size=TRAIN_B),
+        start_step=1)
+    batch = P["to_device"](next(it), dev)
+    counts = [fn.launches for fn in train_counters(P)]
+    lk, gk = P["steps"].make_train_step(cfg, tcfg).loss_and_grads(
+        student, teacher, batch)
+    lp, gp = P["steps"].make_train_step(
+        cfg, tcfg, kernel_backend="ref").loss_and_grads(student, teacher,
+                                                        batch)
+    step_gap = _grad_gaps(torch, gk, gp)
+    del gk, gp
+    with torch.no_grad():
+        t_k = models.forward(cfg, teacher, qat.make_ctx(
+            "A16-C16-W16", mode="off"), batch)[0]
+        t_p = models.forward(cfg, teacher, qat.make_ctx(
+            "A16-C16-W16", mode="off", kernel_backend="ref"), batch)[0]
+        t_rel = float(torch.linalg.vector_norm((t_k - t_p).float())
+                      / torch.linalg.vector_norm(t_p.float()))
+        t_flips = float((t_k != t_p).float().mean())
+    del t_p
+    student_only = {}
+    for backend in ("auto", "ref"):
+        ctx = qat.make_ctx(tcfg.precision, kernel_backend=backend)
+        logits, _ = models.forward(cfg, student, ctx, batch)
+        loss = P["silq_loss"](logits, t_k, batch["labels"],
+                              mask=batch["loss_mask"])
+        del logits
+        student_only[backend] = (loss.detach(),
+                                 P["steps"].grads_of(loss, student))
+        del loss
+    (ls_k, gs_k), (ls_p, gs_p) = student_only["auto"], student_only["ref"]
+    fq_gap = _grad_gaps(torch, gs_k, gs_p)
+    del student_only, gs_k, gs_p, t_k
+    for fn, c in zip(train_counters(P), counts):
+        fn.launches = c
+    torch.cuda.empty_cache()
+    loss_rel = abs(float(lk) - float(lp)) / abs(float(lp))
+    out = {"loss_kernels": float(lk), "loss_plain": float(lp),
+           "loss_rel_err": loss_rel, "teacher_logits_rel_l2": t_rel,
+           "teacher_logits_share_differing": t_flips,
+           "step_grad_max_rel_l2": step_gap[0],
+           "step_grad_worst_leaf": step_gap[1], "grad_leaves": step_gap[2],
+           "student_only_loss_equal": bool(float(ls_k) == float(ls_p)),
+           "student_only_grad_max_rel_l2": fq_gap[0],
+           "student_only_grad_worst_leaf": fq_gap[1],
+           "student_only_grad_leaves_bitwise": fq_gap[3]}
+    report["train_vs_plain"] = out
+    check(loss_rel <= 1e-3, f"KD loss through the kernels {float(lk)} vs "
+                            f"plain {float(lp)}: relative {loss_rel}")
+    check(step_gap[0] <= GRAD_REL_TOL_STEP,
+          f"gradient {step_gap[1]} of the whole step through the kernels "
+          f"off the plain versions' by relative L2 {step_gap[0]} > "
+          f"{GRAD_REL_TOL_STEP}")
+    check(float(ls_k) == float(ls_p),
+          f"student loss through the fake-quant kernels {float(ls_k)} vs "
+          f"plain {float(ls_p)} on the same teacher logits")
+    check(fq_gap[0] <= GRAD_REL_TOL,
+          f"gradient {fq_gap[1]} through the fake-quant kernels off the "
+          f"plain versions' by relative L2 {fq_gap[0]} > {GRAD_REL_TOL}")
+    print("phase 5: one loss and backward, kernels vs plain versions: "
+          + json.dumps(out), flush=True)
+
+
+def train_static(torch, P, cfg, dev, report):
+    """A8s-C8-W4 at full width, 4 layers: percentile calibration over 5
+    batches (the calibration forward runs flash_attn_fwd), then one step."""
+    L = 4
+    tcfg = P["TrainConfig"](precision="A8s-C8-W4", total_steps=1,
+                            ref_steps=1, batch_size=TRAIN_B, seq_len=TRAIN_T)
+    fq_fwd, fq_bwd, fa = train_counters(P)
+    seen = {}
+
+    def on_start(student, opt):
+        seen["calib"] = [fn.launches for fn in train_counters(P)]
+        s_in = student["layers"][0]["attn"]["wq"]["s_in"]
+        seen["s_in"] = float(s_in.detach())
+
+    def on_step(step, metrics, student, opt):
+        seen["loss"] = float(metrics["loss"])
+
+    for fn in train_counters(P):
+        fn.launches = 0
+    P["train"].run_qat("qwen2.5-3b", tcfg, reduced=False, teacher_steps=1,
+                       device=dev, n_layers=L, log_every=1,
+                       on_start=on_start, on_step=on_step)
+    torch.cuda.synchronize()
+    calib = seen["calib"]
+    step = [fn.launches - c for fn, c in zip(train_counters(P), calib)]
+    n_w = 7 * L + 1
+    per_tensor = step[0] - n_w
+    out = {"layers": L, "calib_launches": calib, "step_launches": step,
+           "per_tensor_fwd_launches": per_tensor, "loss": seen["loss"],
+           "calibrated_s_in": seen["s_in"]}
+    report["train_static"] = out
+    check(calib[2] == 5 * L, f"calibration launched flash_attn_fwd "
+                             f"{calib[2]} times, want {5 * L}")
+    check(per_tensor == 10 * L + 1 and step[1] == step[0],
+          f"A8s step launches {step}: want {n_w} weight + {10 * L + 1} "
+          f"per-tensor forward and as many backward launches")
+    check(math.isfinite(seen["loss"]) and seen["s_in"] != 1.0,
+          f"A8s: loss {seen['loss']}, calibrated s_in {seen['s_in']}")
+    print("phase 5b: " + json.dumps(out), flush=True)
+
+
+# --------------------------------------------------------------------------
 # phase 3: serve
 # --------------------------------------------------------------------------
 
@@ -1499,6 +2128,8 @@ def main() -> int:
     copy_err = check_copy(torch, P, cfg, dev, report)
     spec_err = check_spec_verify(torch, P, cfg, dev, report)
     check_norm_rows(torch, P, cfg, dev, report)
+    fq_err = check_fake_quant(torch, P, cfg, dev, report)
+    flash_err = check_flash(torch, P, cfg, dev, report)
     launches, eng = serve(torch, P, cfg, dev, report)
     profile_decode(torch, P, cfg, eng, report)
     params = eng.params                 # packed exports, bf16 linears gone
@@ -1516,16 +2147,25 @@ def main() -> int:
     serve_optimistic(torch, P, cfg, dev, params, report)
     del params
     torch.cuda.empty_cache()
+    train_launches = train_full(torch, P, cfg, dev, report)
+    torch.cuda.empty_cache()
+    train_static(torch, P, cfg, dev, report)
+    torch.cuda.empty_cache()
     w4a8_t = time_w4a8(torch, P, cfg, dev, report)
     kvq_t = time_kvq(torch, P, cfg, dev, report)
     paged_t = time_paged_decode(torch, P, cfg, dev, report)
     gather_t = time_gather(torch, P, cfg, dev, report)
     copy_t = time_copy(torch, P, cfg, dev, report)
     spec_t = time_spec_verify(torch, P, cfg, dev, report)
+    fq_fwd_t, fq_bwd_t = time_fake_quant(torch, P, cfg, dev, report)
+    flash_t = time_flash(torch, P, cfg, dev, report)
     for name, t in (("kvq_paged_decode_attn", paged_t),
                     ("gather_dequant_paged_kv", gather_t),
                     ("pool_block_copy", copy_t),
-                    ("kvq_spec_verify_attn", spec_t)):
+                    ("kvq_spec_verify_attn", spec_t),
+                    ("fake_quant_fwd", fq_fwd_t),
+                    ("fake_quant_bwd", fq_bwd_t),
+                    ("flash_attn_fwd", flash_t)):
         print(f"phase 4: {name}: {t['ms']:.4f} ms (bound {t['bound_ms']:.5f}"
               f" ms by {t['bound_by']}), plain {t['plain_ms']:.4f} ms, "
               f"library {t['library_ms']:.4f} ms", flush=True)
@@ -1576,6 +2216,28 @@ def main() -> int:
          "per": f"one verify-wave: 36 launches at B={SLOTS}, C={SPEC_C}, "
                 f"H=16, Hkv=2, D=128, block 64, T={SPEC_T}, histories "
                 f"{list(spec_histories(64))}"},
+        {"name": "fake_quant_fwd", "route": "cuda",
+         "source": "src/repro_torch/csrc/fake_quant.cu",
+         "replaces": "src/repro/kernels/quant/kernel.py:55",
+         "launches": train_launches["fake_quant_fwd"],
+         "max_abs_err": fq_err, **fq_fwd_t,
+         "per": "one QAT student step: 253 launches (36 layers x 7 "
+                "weights per output channel at 4 bits + the tied head per "
+                "vocab row at 8 bits)"},
+        {"name": "fake_quant_bwd", "route": "cuda",
+         "source": "src/repro_torch/csrc/fake_quant.cu",
+         "replaces": "src/repro/kernels/quant/kernel.py:74",
+         "launches": train_launches["fake_quant_bwd"],
+         "max_abs_err": fq_err, **fq_bwd_t,
+         "per": "one QAT student backward: 253 launches, the forward's "
+                "sites"},
+        {"name": "flash_attn_fwd", "route": "cuda",
+         "source": "src/repro_torch/csrc/flash_attn_fwd.cu",
+         "replaces": "src/repro/kernels/flash_attn/kernel.py:74",
+         "launches": train_launches["flash_attn_fwd"],
+         "max_abs_err": flash_err, **flash_t,
+         "per": f"one teacher forward: 36 launches at B={TRAIN_B}, "
+                f"S={TRAIN_T}, H=16, Hkv=2, D=128, causal"},
     ]
     report["kernels"] = kernels
     out_dir = ROOT / "chiprun_out"

@@ -1,5 +1,5 @@
-"""QAT integration, serving half: quantization context, site helpers and
-the w4a8 deployment export.
+"""QAT integration: quantization context, site helpers, calibration flow
+and the w4a8 deployment export.
 
 Quantizer step sizes live inside the parameter dicts, under keys beginning
 with ``s_`` next to the tensors they quantize::
@@ -9,9 +9,16 @@ with ``s_`` next to the tensors they quantize::
                "s_in": ()}                 # per-tensor activation scale
     attn    = {... , "s_q": (), "s_k": (), "s_v": ()}   # query + cache sites
 
-Modes: ``train`` (fake-quant active; the forward the serving path runs
-under ``weights_layout="bf16"``) and ``off`` (no quantization). The
-calibration mode and the training half arrive with the QAT slice.
+so the optimizer's parameter groups (no weight decay on scales; 50x LR on
+*activation* scales, paper §3.1) and checkpointing are tree operations.
+
+Modes:
+
+* ``train`` — fake-quant active (LSQ for static scales, STE everywhere);
+  also the forward the serving path runs under ``weights_layout="bf16"``
+* ``calib`` — activation quantization observed, not applied: each site
+  writes its |x| statistic into a collector dict mirroring the params
+* ``off``   — no quantization (the fp16 teacher / baseline)
 """
 from __future__ import annotations
 
@@ -20,12 +27,16 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from repro_torch.core import calibration as calib
 from repro_torch.core.precision import PrecisionPolicy, parse_policy
 from repro_torch.core.quantizer import (dynamic_fake_quant,
-                                        dynamic_quantize_to_int,
-                                        lsq_fake_quant, pack_int4, qbounds,
-                                        quantize_to_int)
+                                        dynamic_quantize_to_int, pack_int4,
+                                        qbounds, quantize_to_int)
+from repro_torch.kernels.quant.ops import lsq_fake_quant
 
+# Param-dict keys holding quantizer step sizes
+SCALE_KEYS = ("s_w", "s_in", "s_q", "s_k", "s_v", "s_state")
+ACT_SCALE_KEYS = ("s_in", "s_q", "s_k", "s_v", "s_state")  # 50x LR boost set
 _SITE_BITS = {
     "s_in": "act", "s_q": "query", "s_k": "cache", "s_v": "cache",
     "s_state": "cache", "s_w": "weight",
@@ -36,14 +47,16 @@ KERNEL_BACKENDS = ("auto", "ref")
 @dataclass(frozen=True)
 class QuantCtx:
     policy: PrecisionPolicy
-    mode: str = "train"                  # train | off
+    mode: str = "train"                  # train | calib | off
+    act_calib_method: str = "quantile"   # quantile | max
     # Serving weight layout: "bf16" keeps fake-quant matmuls on bf16
     # params; "w4a8" routes every qlinear through the packed-int4 x int8
     # matmul (requires attach_w4a8_exports on the served tree — strict).
     weights_layout: str = "bf16"
     # "auto": CUDA tensors go through the hand-written kernels, CPU tensors
     # through their plain versions; "ref": the plain versions everywhere
-    # (what chip_smoke.py holds the kernels' serving path against)
+    # (what chip_smoke.py holds the kernels' serving and training paths
+    # against)
     kernel_backend: str = "auto"
 
     @property
@@ -60,14 +73,18 @@ class QuantCtx:
         return replace(self, mode=mode)
 
 
-def make_ctx(policy, mode: str = "train", weights_layout: str = "bf16",
+def make_ctx(policy, mode: str = "train",
+             act_calib_method: str = "quantile",
+             weights_layout: str = "bf16",
              kernel_backend: str = "auto") -> QuantCtx:
     if isinstance(policy, str):
         policy = parse_policy(policy)
     if kernel_backend not in KERNEL_BACKENDS:
         raise ValueError(f"kernel_backend must be one of {KERNEL_BACKENDS}, "
                          f"got {kernel_backend!r}")
-    return QuantCtx(policy=policy, mode=mode, weights_layout=weights_layout,
+    return QuantCtx(policy=policy, mode=mode,
+                    act_calib_method=act_calib_method,
+                    weights_layout=weights_layout,
                     kernel_backend=kernel_backend)
 
 
@@ -75,49 +92,85 @@ def make_ctx(policy, mode: str = "train", weights_layout: str = "bf16",
 # Site helpers (called from model code)
 # --------------------------------------------------------------------------
 
+def subcol(col: Optional[Dict], key: str) -> Optional[Dict]:
+    """Child collector dict mirroring the params structure (or None)."""
+    if col is None:
+        return None
+    return col.setdefault(key, {})
+
+
+def _stat(ctx: QuantCtx, x: torch.Tensor, bits: int) -> torch.Tensor:
+    if ctx.act_calib_method == "max":
+        return calib.act_max_stat(x, bits)
+    if ctx.act_calib_method == "chan_max":
+        # per-channel |x| maxima (SmoothQuant calibration)
+        xf = torch.abs(x.float())
+        return torch.amax(xf.reshape(-1, x.shape[-1]), dim=0)
+    return calib.act_percentile_stat(x, bits)
+
+
 def quantize_act(ctx: QuantCtx, x: torch.Tensor, p: Dict[str, Any], site: str,
+                 col: Optional[Dict[str, Any]] = None,
                  bits: Optional[int] = None) -> torch.Tensor:
     """Quantize an activation-class site (``s_in``/``s_q``/``s_k``/``s_v``).
 
     ``p`` is the owning param dict (provides the learned scale in static
-    mode).
+    mode); ``col`` is the calibration collector.
     """
     if ctx.off:
         return x
     bits = bits if bits is not None else ctx.bits_for(site)
     if bits >= 16 and site == "s_in":
         return x  # 16-bit body activations: disabled policy artifact
+    if ctx.mode == "calib":
+        if col is not None:
+            col[site] = _stat(ctx, x, bits)
+        return x
     if ctx.policy.act_dynamic:
         return dynamic_fake_quant(x, bits, axis=-1)
-    return lsq_fake_quant(x, p[site], bits)
+    return lsq_fake_quant(x, p[site], bits,
+                          plain=ctx.kernel_backend == "ref")
 
 
 def quantize_weight_p(ctx: QuantCtx, p: Dict[str, Any],
                       bits: Optional[int] = None,
                       key: str = "w") -> torch.Tensor:
-    """Fake-quant a weight from its param dict (LSQ per-output-channel)."""
+    """Fake-quant a weight from its param dict (LSQ per-output-channel).
+
+    The tied head's weight is ``embed.w.T``, a transposed view of the
+    (vocab, d) table. It is quantized as the table itself, one scale per
+    row (per vocab entry, the head's output channel), and the result is
+    transposed back: no copy of the table is made, and the gradient
+    reaches ``embed.w`` in its own layout.
+    """
     w = p[key]
     if ctx.off:
         return w
     bits = bits if bits is not None else ctx.policy.weight_bits
     if bits >= 16:
         return w
-    return lsq_fake_quant(w, p["s_w"], bits)
+    plain = ctx.kernel_backend == "ref"
+    if w.dim() == 2 and not w.is_contiguous() and w.t().is_contiguous():
+        return lsq_fake_quant(w.t(), p["s_w"].reshape(-1, 1), bits,
+                              plain=plain).t()
+    return lsq_fake_quant(w, p["s_w"], bits, plain=plain)
 
 
 def qlinear(ctx: QuantCtx, x: torch.Tensor, p: Dict[str, Any],
+            col: Optional[Dict[str, Any]] = None,
             act_bits: Optional[int] = None,
             weight_bits: Optional[int] = None) -> torch.Tensor:
     """Quantized linear: fake-quant input + weight, then matmul (+ bias).
 
     ``act_bits``/``weight_bits`` override the body policy for special sites
-    (head: 8/8). Under ``weights_layout="w4a8"`` the matmul instead
+    (head: 8/8); ``col`` is the linear's calibration collector. Under
+    ``weights_layout="w4a8"`` (outside calibration) the matmul instead
     consumes the packed int4 export attached next to this linear (see
     :func:`attach_w4a8_exports`) with per-token dynamic int8 activations.
     A missing export raises: a silent bf16 fallback would defeat the
     layout (weight-HBM streaming).
     """
-    if ctx.weights_layout == "w4a8" and not ctx.off:
+    if ctx.weights_layout == "w4a8" and ctx.mode != "calib" and not ctx.off:
         exp = p.get("w4a8")
         if exp is None:
             raise ValueError(
@@ -125,7 +178,7 @@ def qlinear(ctx: QuantCtx, x: torch.Tensor, p: Dict[str, Any],
                 "export; run qat.attach_w4a8_exports(params, policy) on the "
                 "served tree (keys present: %s)" % sorted(p.keys()))
         return w4a8_qlinear(ctx, x, exp)
-    xq = quantize_act(ctx, x, p, "s_in", bits=act_bits)
+    xq = quantize_act(ctx, x, p, "s_in", col, bits=act_bits)
     wq = quantize_weight_p(ctx, p, bits=weight_bits)
     y = torch.matmul(xq, wq)
     if "b" in p:
@@ -158,6 +211,130 @@ def cache_quantize(ctx: QuantCtx, x: torch.Tensor, axis: int = -1):
         return x.to(torch.bfloat16), torch.ones(s_shape, dtype=torch.float32,
                                                 device=x.device)
     return dynamic_quantize_to_int(x, ctx.policy.cache_bits, axis=axis)
+
+
+# --------------------------------------------------------------------------
+# Parameter-tree plumbing
+# --------------------------------------------------------------------------
+
+def is_scale_key(k) -> bool:
+    return isinstance(k, str) and k.startswith("s_") and k in SCALE_KEYS
+
+
+def scale_mask(params) -> Any:
+    """Tree of bools: True on quantizer-scale leaves (no weight decay)."""
+    return _mask_by_key(params, is_scale_key)
+
+
+def act_scale_mask(params) -> Any:
+    """True only on activation/cache/query scale leaves (50x LR boost)."""
+    return _mask_by_key(params, lambda k: k in ACT_SCALE_KEYS)
+
+
+def _all(tree, value):
+    if isinstance(tree, dict):
+        return {k: _all(v, value) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_all(v, value) for v in tree)
+    return value
+
+
+def _mask_by_key(tree, pred):
+    if isinstance(tree, dict):
+        return {k: (_all(v, True) if pred(k) else _mask_by_key(v, pred))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_mask_by_key(v, pred) for v in tree)
+    return False
+
+
+# --------------------------------------------------------------------------
+# Calibration passes
+# --------------------------------------------------------------------------
+
+def calibrate_weight_scales(params, policy: PrecisionPolicy,
+                            method: str = "mse"):
+    """Recompute every ``s_w`` from its sibling ``w`` (Eq. 2 by default).
+
+    Returns a new tree (tensors other than the new scales shared). The
+    head is quantized at ``head_bits``; when embeddings are tied it has no
+    ``w`` and its scale comes from the transposed embedding table.
+    """
+    if not policy.enabled:
+        return params
+
+    def walk(tree):
+        if isinstance(tree, dict):
+            out = dict(tree)
+            if "w" in tree and "s_w" in tree:
+                out["s_w"] = calib.weight_scale(tree["w"], policy.weight_bits,
+                                                method=method)
+            for k, v in tree.items():
+                if isinstance(v, (dict, list, tuple)) and k != "w":
+                    out[k] = walk(v)
+            return out
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(walk(v) for v in tree)
+        return tree
+
+    with torch.no_grad():
+        out = walk(params)
+        if isinstance(out, dict) and "head" in out and "s_w" in out["head"]:
+            head = dict(out["head"])
+            w_head = head["w"] if "w" in head else out["embed"]["w"].T
+            head["s_w"] = calib.weight_scale(w_head, policy.head_bits,
+                                             method=method)
+            out["head"] = head
+    return out
+
+
+def _mean_stats(batches):
+    first = batches[0]
+    if isinstance(first, dict):
+        return {k: _mean_stats([b[k] for b in batches]) for k in first}
+    if isinstance(first, (list, tuple)):
+        return type(first)(_mean_stats([b[i] for b in batches])
+                           for i in range(len(first)))
+    total = first
+    for b in batches[1:]:
+        total = total + b
+    return total / len(batches)
+
+
+def merge_act_scales(params, stats_batches, policy: PrecisionPolicy):
+    """Average per-batch calibration stats and write activation scales.
+
+    ``stats_batches``: list of collector trees (same structure), each leaf
+    a percentile landmark of |x|. Scale = landmark / b_u for the site's
+    bits. Returns a new tree.
+    """
+    if not stats_batches:
+        return params
+    mean_stats = _mean_stats(stats_batches)
+
+    def walk(p, s):
+        if isinstance(p, dict):
+            out = dict(p)
+            for k, v in p.items():
+                if isinstance(s, dict) and k in s:
+                    if k in ACT_SCALE_KEYS:
+                        out[k] = calib.act_scale_from_stat(
+                            s[k].float(), _bits_of(policy, k)).to(v.dtype)
+                    elif isinstance(v, (dict, list, tuple)):
+                        out[k] = walk(v, s[k])
+            return out
+        if isinstance(p, (list, tuple)) and isinstance(s, (list, tuple)):
+            return type(p)(walk(a, b) for a, b in zip(p, s))
+        return p
+
+    with torch.no_grad():
+        return walk(params, mean_stats)
+
+
+def _bits_of(policy: PrecisionPolicy, key: str) -> int:
+    kind = _SITE_BITS[key]
+    return {"act": policy.act_bits, "query": policy.query_bits,
+            "cache": policy.cache_bits, "weight": policy.weight_bits}[kind]
 
 
 # --------------------------------------------------------------------------

@@ -1,12 +1,15 @@
-"""SiLQ quantizers, serving half: fake-quant forwards and integer codes.
+"""SiLQ quantizers: STE fake-quantization, LSQ learned step sizes and
+integer codes.
 
 Paper Eq. 1, ``x_hat = round(clip(x / s, b_l, b_u)) * s``, with symmetric
 signed integers ``b_l = -2^{p-1}``, ``b_u = 2^{p-1} - 1``. All quantization
 math runs in fp32 and rounds half to even (``torch.round``, as the
 reference's ``jnp.round``); results are cast back to the input dtype.
 
-Serving runs forward only, so the straight-through and LSQ gradients of
-the training path are not part of this module.
+The round op takes the straight-through estimator. The LSQ site with its
+learned step size and gradient (Esser et al., 2019) is
+``kernels/quant/ops.py:lsq_fake_quant``, an autograd function whose CUDA
+path is the fake-quant kernel pair.
 """
 from __future__ import annotations
 
@@ -22,22 +25,42 @@ def qbounds(bits: int) -> Tuple[int, int]:
     return -(2 ** (bits - 1)), 2 ** (bits - 1) - 1
 
 
-def lsq_fake_quant(x: torch.Tensor, s: torch.Tensor, bits: int) -> torch.Tensor:
-    """Quant-dequant with a learned step size (forward of the LSQ site)."""
-    qn, qp = qbounds(bits)
-    sf = torch.clamp_min(s.float(), _EPS)
-    q = torch.round(torch.clamp(x.float() / sf, qn, qp))
-    return (q * sf).to(x.dtype)
+def round_ste(x: torch.Tensor) -> torch.Tensor:
+    """Round-to-nearest with a straight-through gradient."""
+    return x + (torch.round(x) - x).detach()
+
+
+def _reduce_to_shape(t: torch.Tensor, shape: Tuple[int, ...]) -> torch.Tensor:
+    """Sum-reduce ``t`` down to ``shape`` (inverse of broadcasting)."""
+    if tuple(t.shape) == tuple(shape):
+        return t
+    lead = tuple(range(t.dim() - len(shape)))
+    if lead:
+        t = torch.sum(t, dim=lead)
+    axes = tuple(i for i, d in enumerate(shape) if d == 1 and t.shape[i] != 1)
+    if axes:
+        t = torch.sum(t, dim=axes, keepdim=True)
+    return t.reshape(shape)
 
 
 def dynamic_fake_quant(x: torch.Tensor, bits: int, axis: int = -1) -> torch.Tensor:
-    """Token-wise dynamic symmetric quantization (absmax over ``axis``)."""
+    """Token-wise dynamic symmetric quantization (absmax over ``axis``).
+
+    The scale is data-derived and carries no gradient; the round (and the
+    defensive clip: absmax maps to exactly ``b_u``) are straight-through.
+    The straight-through form is built only when x needs a gradient: its
+    values are the same bits (``v + (r - v) == r`` exactly for ``|v| <=
+    b_u``), and the serving path is spared its three extra ops per site.
+    """
     qn, qp = qbounds(bits)
     xf = x.float()
     absmax = torch.amax(torch.abs(xf), dim=axis, keepdim=True)
-    s = torch.clamp_min(absmax / qp, _EPS)
-    v = torch.clamp(xf / s, qn, qp)
-    return (torch.round(v) * s).to(x.dtype)
+    s = torch.clamp_min(absmax / qp, _EPS).detach()
+    v = xf / s
+    if not x.requires_grad:
+        return (torch.round(torch.clamp(v, qn, qp)) * s).to(x.dtype)
+    v = v + (torch.clamp(v, qn, qp) - v).detach()
+    return (round_ste(v) * s).to(x.dtype)
 
 
 def quantize_to_int(x: torch.Tensor, s: torch.Tensor, bits: int,

@@ -24,7 +24,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.qat import (QuantCtx, cache_quantize, init_linear,
-                                  qlinear, quantize_act)
+                                  qlinear, quantize_act, subcol)
 from repro_torch.core.quantizer import quantize_to_int
 from repro_torch.kernels.kvq_attn.ref import gather_paged_kv, pool_blocks
 from repro_torch.models.common import (apply_rope, blockwise_attention,
@@ -104,12 +104,12 @@ def init_mlp(cfg: ModelConfig, gen: torch.Generator,
             "wd": init_linear(gen, f, d, dtype=dtype)}
 
 
-def mlp_fwd(cfg: ModelConfig, ctx: QuantCtx, p: Dict,
-            x: torch.Tensor) -> torch.Tensor:
-    g = qlinear(ctx, x, p["wg"])
-    u = qlinear(ctx, x, p["wu"])
+def mlp_fwd(cfg: ModelConfig, ctx: QuantCtx, p: Dict, x: torch.Tensor,
+            col: Optional[Dict] = None) -> torch.Tensor:
+    g = qlinear(ctx, x, p["wg"], subcol(col, "wg"))
+    u = qlinear(ctx, x, p["wu"], subcol(col, "wu"))
     h = F.silu(g.float()).to(x.dtype) * u
-    return qlinear(ctx, h, p["wd"])
+    return qlinear(ctx, h, p["wd"], subcol(col, "wd"))
 
 
 # ==========================================================================
@@ -133,12 +133,16 @@ def init_attention(cfg: ModelConfig, gen: torch.Generator,
     return p
 
 
-def _qkv(cfg: ModelConfig, ctx: QuantCtx, p: Dict, x: torch.Tensor, rope):
+def _qkv(cfg: ModelConfig, ctx: QuantCtx, p: Dict, x: torch.Tensor, rope,
+         col: Optional[Dict] = None):
     hd = cfg.resolved_head_dim
     B, S = x.shape[0], x.shape[1]
-    q = qlinear(ctx, x, p["wq"]).reshape(B, S, cfg.n_heads, hd)
-    k = qlinear(ctx, x, p["wk"]).reshape(B, S, cfg.n_kv_heads, hd)
-    v = qlinear(ctx, x, p["wv"]).reshape(B, S, cfg.n_kv_heads, hd)
+    q = qlinear(ctx, x, p["wq"], subcol(col, "wq")).reshape(
+        B, S, cfg.n_heads, hd)
+    k = qlinear(ctx, x, p["wk"], subcol(col, "wk")).reshape(
+        B, S, cfg.n_kv_heads, hd)
+    v = qlinear(ctx, x, p["wv"], subcol(col, "wv")).reshape(
+        B, S, cfg.n_kv_heads, hd)
     if "q_norm" in p:
         q = head_rms_norm(q, p["q_norm"]["w"], cfg.norm_eps)
         k = head_rms_norm(k, p["k_norm"]["w"], cfg.norm_eps)
@@ -147,10 +151,37 @@ def _qkv(cfg: ModelConfig, ctx: QuantCtx, p: Dict, x: torch.Tensor, rope):
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
     # paper sites: query INT16, cache C-bits
-    q = quantize_act(ctx, q, p, "s_q")
-    k = quantize_act(ctx, k, p, "s_k")
-    v = quantize_act(ctx, v, p, "s_v")
+    q = quantize_act(ctx, q, p, "s_q", col)
+    k = quantize_act(ctx, k, p, "s_k", col)
+    v = quantize_act(ctx, v, p, "s_v", col)
     return q, k, v
+
+
+def attn_fwd(cfg: ModelConfig, ctx: QuantCtx, p: Dict, x: torch.Tensor,
+             rope, col: Optional[Dict] = None, *,
+             window: int = 0) -> torch.Tensor:
+    """Causal self-attention, training / teacher / calibration path.
+
+    The rule for the attention itself is written here once: a forward
+    that needs no gradient (the teacher in each QAT step, calibration,
+    evaluation: ``torch.is_grad_enabled()`` is False) runs the
+    flash-attention kernel for CUDA tensors (``kernel_backend="ref"``: its
+    plain version) and its plain version for CPU tensors; a forward under
+    autograd (the student, the teacher's pretraining) runs
+    :func:`blockwise_attention`, which autograd differentiates, as XLA
+    differentiates the same function in the reference.
+    """
+    B, S, _ = x.shape
+    q, k, v = _qkv(cfg, ctx, p, x, rope, col)
+    if torch.is_grad_enabled():
+        out = blockwise_attention(q, k, v, causal=True, window=window,
+                                  q_chunk=1024, kv_chunk=1024)
+    else:
+        from repro_torch.kernels.flash_attn.ops import flash_attn_fwd
+        out = flash_attn_fwd(q, k, v, causal=True, window=window,
+                             plain=ctx.kernel_backend == "ref")
+    return qlinear(ctx, out.reshape(B, S, cfg.q_dim), p["wo"],
+                   subcol(col, "wo"))
 
 
 def quantize_kv_for_cache(ctx: QuantCtx, p: Dict, k: torch.Tensor,
@@ -308,7 +339,7 @@ def paged_layer_views(pool: Dict, B: int,
 
 def attn_decode(cfg: ModelConfig, ctx: QuantCtx, p: Dict, x1: torch.Tensor,
                 cache: Dict, positions: torch.Tensor,
-                block_tbl: Optional[torch.Tensor] = None):
+                block_tbl: Optional[torch.Tensor] = None, rope=None):
     """One-token decode step. x1: (B, 1, d). Returns (y1, cache).
 
     Dense layout: writes the new K/V row of every slot into ``cache`` in
@@ -319,11 +350,13 @@ def attn_decode(cfg: ModelConfig, ctx: QuantCtx, p: Dict, x1: torch.Tensor,
     through the slot's table into the pool, and a slot whose entry is the
     sentinel (a parked slot) writes into the sink block, which nothing
     reads. Attention walks the table.
+
+    ``rope``: the step's (cos, sin) tables at ``positions``, computed once
+    per step by the caller; made here when not given.
     """
     B = x1.shape[0]
     hd = cfg.resolved_head_dim
-    rope = None
-    if cfg.rope_theta:
+    if rope is None and cfg.rope_theta:
         rope = rope_tables(positions[:, None], hd, cfg.rope_theta)
     q, k, v = _qkv(cfg, ctx, p, x1, rope)
     k_q1, v_q1, s_k1, s_v1 = quantize_kv_for_cache(ctx, p, k, v)

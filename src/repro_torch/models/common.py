@@ -73,18 +73,91 @@ def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
                      exps.double()).float()
 
 
+# The f32 sin/cos that XLA:CPU computes (the reference's tables) are
+# glibc's sinf/cosf (ARM's optimized-routines algorithm): the argument
+# reduced by pi/2 in f64 (Payne-Hanek on the bits of 2/pi from 120 up),
+# then a short f64 polynomial, rounded to f32. They are not the correctly
+# rounded values (0.56 ulp at worst), so an f64 cos rounded to f32 misses
+# some. Here the same f64 and 64-bit integer arithmetic, op by op.
+_HPI_INV = float.fromhex("0x1.45f306dc9c883p+23")     # 2/pi * 2^24
+_HPI = float.fromhex("0x1.921fb54442d18p+0")          # pi/2
+_PI63 = float.fromhex("0x1.921fb54442d18p-62")        # pi/2 * 2^-62
+_COS = tuple(map(float.fromhex, (
+    "0x1p+0", "-0x1.ffffffd0c621cp-2", "0x1.55553e1068f19p-5",
+    "-0x1.6c087e89a359dp-10", "0x1.99343027bf8c3p-16")))
+_SIN = tuple(map(float.fromhex, (
+    "-0x1.555545995a603p-3", "0x1.1107605230bc4p-7",
+    "-0x1.994eb3774cf24p-13")))
+# 2/pi's bits in 32-bit windows stepping by 8 bits
+_INV_PIO4 = (0xa2, 0xa2f9, 0xa2f983, 0xa2f9836e, 0xf9836e4e, 0x836e4e44,
+             0x6e4e4415, 0x4e441529, 0x441529fc, 0x1529fc27, 0x29fc2757,
+             0xfc2757d1, 0x2757d1f5, 0x57d1f534, 0xd1f534dd, 0xf534ddc0,
+             0x34ddc0db, 0xddc0db62, 0xc0db6295, 0xdb629599, 0x6295993c,
+             0x95993c43, 0x993c4390, 0x3c439041)
+_TOP_PIO4, _TOP_TINY, _TOP_120 = 0x3f4, 0x398, 0x42f   # |y|'s top 12 bits
+
+
+def _poly(x: torch.Tensor, x2: torch.Tensor, cos: torch.Tensor,
+          neg: torch.Tensor) -> torch.Tensor:
+    """sin (``cos`` False) or cos polynomial of the reduced f64 argument;
+    ``neg`` flips the cos coefficients (quadrants 2 and 3)."""
+    x3 = x * x2
+    sin_v = (x + x3 * _SIN[0]) + (x3 * x2) * (_SIN[1] + x2 * _SIN[2])
+    sg = torch.where(neg, -1.0, 1.0).double()
+    x4 = x2 * x2
+    c = (sg * _COS[0] + x2 * (sg * _COS[1])) + x4 * (sg * _COS[2])
+    cos_v = c + (x4 * x2) * (sg * _COS[3] + x2 * (sg * _COS[4]))
+    return torch.where(cos, cos_v, sin_v)
+
+
+def sincosf(y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(sin(y), cos(y)) of an f32 tensor, bitwise as glibc's sinf/cosf
+    (and so XLA:CPU's ``jnp.sin``/``jnp.cos``) for finite y."""
+    x = y.double()
+    bits = y.view(torch.int32).long() & 0xFFFFFFFF
+    top = (bits >> 20) & 0x7FF
+    # |y| < 120: n = round(y * 2/pi) via a 2^24-scaled truncation
+    n_f = (torch.trunc(x * _HPI_INV).long() + 0x800000) >> 24
+    x_f = x - n_f.double() * _HPI
+    # |y| >= 120: the mantissa times 96 bits of 2/pi, in 64-bit integers
+    # (int64 wraps as glibc's uint64_t does; only the bit pattern counts)
+    tbl = torch.tensor(_INV_PIO4, dtype=torch.int64, device=y.device)
+    idx = (bits >> 26) & 15
+    m = ((bits & 0xFFFFFF) | 0x800000) << ((bits >> 23) & 7)
+    res0 = (m * tbl[idx]) & 0xFFFFFFFF
+    res2 = m * tbl[idx + 8]
+    res0 = ((res2 >> 32) | (res0 << 32)) + m * tbl[idx + 4]
+    n_l = ((res0 + (1 << 61)) >> 62) & 3
+    x_l = (res0 - (n_l << 62)).double() * _PI63
+    fast = top < _TOP_120
+    n = torch.where(fast, n_f, n_l)
+    q = torch.where(fast, n_f, n_l + (bits >> 31)) & 3   # sign quadrant
+    xr = torch.where(fast, x_f, x_l)
+    xs = xr * torch.where((q == 1) | (q == 2), -1.0, 1.0).double()
+    x2 = xr * xr
+    odd, neg = (n & 1) == 1, (q & 2) == 2
+    sin_v = _poly(xs, x2, odd, neg)
+    cos_v = _poly(xs, x2, ~odd, neg)
+    small = top < _TOP_PIO4
+    fals = torch.zeros_like(odd)
+    sin_v = torch.where(small, _poly(x, x * x, fals, fals), sin_v)
+    cos_v = torch.where(small, _poly(x, x * x, ~fals, fals), cos_v)
+    tiny = top < _TOP_TINY
+    return (torch.where(tiny, x, sin_v).float(),
+            torch.where(tiny, torch.ones_like(x), cos_v).float())
+
+
 def rope_tables(positions: torch.Tensor, head_dim: int,
                 theta: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """positions (..., S) -> cos/sin tables (..., S, head_dim/2).
 
-    The angles are f32 products as in the reference. Their ``cos`` and
-    ``sin`` are taken in f64 and rounded to f32, which lands nearer XLA's
-    f32 ``cos``/``sin`` than torch's f32 ones; the entries that still
-    differ are counted in ``tests/test_torch_models.py``.
+    The angles are f32 products as in the reference, and their cos and
+    sin are glibc's f32 values (:func:`sincosf`), bitwise equal to the
+    reference's tables.
     """
     freqs = rope_freqs(head_dim, theta, positions.device)
-    ang = (positions.float()[..., None] * freqs).double()
-    return torch.cos(ang).float(), torch.sin(ang).float()
+    sin, cos = sincosf(positions.float()[..., None] * freqs)
+    return cos, sin
 
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor,

@@ -5,6 +5,8 @@ an entry of ``params["layers"]`` and the stack is a Python loop over them.
 
 Entry points:
 * ``init_params``  — random weights from a seed, made on the target device
+* ``forward``      — training / teacher / calibration path (logits, and
+  the calibration statistics on request)
 * ``init_cache``   — a blank dense or paged serving cache
 * ``prefill``      — forward over the prompt + the quantized serving cache
 * ``decode_step``  — one token against the quantized cache (in place)
@@ -19,9 +21,10 @@ import functools
 from typing import Dict, List, Optional, Union
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import BLOCK_ATTN, ModelConfig
-from repro_torch.core.qat import QuantCtx, cache_dtype, qlinear
+from repro_torch.core.qat import QuantCtx, cache_dtype, qlinear, subcol
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks as B
 from repro_torch.models.common import init_norm, rms_norm, rope_tables
@@ -71,7 +74,7 @@ def init_params(cfg: ModelConfig, seed: int = 0,
 
 
 def head_logits(cfg: ModelConfig, params: Dict, ctx: QuantCtx,
-                x: torch.Tensor) -> torch.Tensor:
+                x: torch.Tensor, col: Optional[Dict] = None) -> torch.Tensor:
     hb = ctx.policy.head_bits
     if cfg.tie_embeddings:
         p = {"w": params["embed"]["w"].T, "s_w": params["head"]["s_w"],
@@ -81,13 +84,62 @@ def head_logits(cfg: ModelConfig, params: Dict, ctx: QuantCtx,
             p["w4a8"] = params["head"]["w4a8"]
     else:
         p = params["head"]
-    return qlinear(ctx, x, p, act_bits=hb, weight_bits=hb)
+    return qlinear(ctx, x, p, subcol(col, "head"), act_bits=hb,
+                   weight_bits=hb)
 
 
-def _ffn_tail(cfg: ModelConfig, ctx: QuantCtx, p: Dict,
-              x: torch.Tensor) -> torch.Tensor:
+def _ffn_tail(cfg: ModelConfig, ctx: QuantCtx, p: Dict, x: torch.Tensor,
+              col: Optional[Dict] = None) -> torch.Tensor:
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + B.mlp_fwd(cfg, ctx, p["mlp"], h)
+    return x + B.mlp_fwd(cfg, ctx, p["mlp"], h, subcol(col, "mlp"))
+
+
+def _layer_fwd(cfg: ModelConfig, ctx: QuantCtx, p: Dict, x: torch.Tensor,
+               rope, col: Optional[Dict]) -> torch.Tensor:
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    x = x + B.attn_fwd(cfg, ctx, p["attn"], h, rope, subcol(col, "attn"),
+                       window=cfg.sliding_window)
+    return _ffn_tail(cfg, ctx, p, x, col)
+
+
+def forward(cfg: ModelConfig, params: Dict, ctx: QuantCtx, batch: Dict,
+            collect_stats: bool = False,
+            remat: Union[bool, str] = False):
+    """Training / teacher / calibration forward over ``batch["tokens"]``
+    (B, S). Returns (logits (B, S, V), {"moe_aux", ["qstats"]}).
+
+    ``collect_stats`` (with ``ctx.mode == "calib"``) returns each
+    activation site's |x| statistic under ``aux["qstats"]``, a tree that
+    mirrors the params (``{"layers": [...], "head": ...}``).
+    ``remat`` (True or ``"block"``) recomputes each layer in the backward
+    instead of keeping its activations (``torch.utils.checkpoint``, the
+    reference's ``jax.checkpoint`` around the scanned layer body).
+    """
+    _check_supported(cfg)
+    tokens = batch["tokens"]
+    x = params["embed"]["w"][tokens]
+    S = tokens.shape[1]
+    rope = None
+    if cfg.rope_theta:
+        rope = rope_tables(torch.arange(S, device=x.device),
+                           cfg.resolved_head_dim, cfg.rope_theta)
+    col: Optional[Dict] = {} if collect_stats else None
+    layer_cols: List[Optional[Dict]] = []
+    for p in params["layers"]:
+        c = {} if collect_stats else None
+        if remat and torch.is_grad_enabled():
+            x = torch.utils.checkpoint.checkpoint(
+                _layer_fwd, cfg, ctx, p, x, rope, c, use_reentrant=False)
+        else:
+            x = _layer_fwd(cfg, ctx, p, x, rope, c)
+        layer_cols.append(c)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = head_logits(cfg, params, ctx, x, col)
+    aux = {"moe_aux": torch.zeros((), dtype=torch.float32, device=x.device)}
+    if collect_stats:
+        col["layers"] = layer_cols
+        aux["qstats"] = col
+    return logits, aux
 
 
 def prefill(cfg: ModelConfig, params: Dict, ctx: QuantCtx, batch: Dict,
@@ -145,10 +197,14 @@ def decode_step(cfg: ModelConfig, params: Dict, ctx: QuantCtx,
     positions = cache["position"]
     block_tbl = cache.get("block_tbl")
     x = params["embed"]["w"][tokens1]
+    rope = None
+    if cfg.rope_theta:        # once per step, shared by every layer
+        rope = rope_tables(positions[:, None], cfg.resolved_head_dim,
+                           cfg.rope_theta)
     for p, c in zip(params["layers"], cache["layers"]):
         h = rms_norm(x, p["ln1"], cfg.norm_eps)
         a, _ = B.attn_decode(cfg, ctx, p["attn"], h, c, positions,
-                             block_tbl=block_tbl)
+                             block_tbl=block_tbl, rope=rope)
         x = _ffn_tail(cfg, ctx, p, x + a)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = head_logits(cfg, params, ctx, x)

@@ -36,6 +36,11 @@ for name in names:
     importlib.import_module(name)
 assert "repro_torch.serve.spec" in names, names
 assert "repro_torch.serve.scheduler" in names, names
+for new in ("kernels.quant.ops", "kernels.flash_attn.ops", "core.calibration",
+            "core.distill", "optim.adamw", "optim.schedules",
+            "data.synthetic", "data.loader", "launch.steps", "launch.train",
+            "checkpoint.checkpointer", "runtime.fault", "tree"):
+    assert "repro_torch." + new in names, new
 import chip_smoke
 chip_smoke.import_port()
 bad = sorted(m for m in sys.modules

@@ -157,11 +157,11 @@ def test_first_layer_cache_codes_against_compiled_reference(models, layout):
     assert tlogits.shape == jlogits.shape
 
 
-# f64 cos/sin of the f32 angles, rounded, still differ from XLA's f32
-# cos/sin in a few entries (head_dim 128, theta 1e6: measured 8 cos and
-# 21 sin of 3072 entries at 48 positions, 192 and 306 of 32768 at 512;
-# torch's f32 cos/sin differed in 160/63 and 1932/821)
-ROPE_MISMATCH_BOUND = {48: (8, 21), 512: (192, 306)}
+# the cos/sin tables are glibc's f32 sinf/cosf, which XLA:CPU computes:
+# bitwise equal (an f64 cos/sin rounded to f32 differed in 8 cos and 21
+# sin of 3072 entries at 48 positions, 192 and 306 of 32768 at 512;
+# torch's f32 cos/sin in 160/63 and 1932/821)
+ROPE_MISMATCH_BOUND = {48: (0, 0), 512: (0, 0)}
 
 
 @pytest.mark.parametrize("n_pos", sorted(ROPE_MISMATCH_BOUND))
@@ -169,7 +169,7 @@ def test_rope_frequencies_and_angles_bitwise_tables_counted(n_pos):
     """The port's RoPE frequencies and angles are bitwise equal to the
     reference's (``repro.models.common.rope_tables``, whose frequency
     expression is repeated here to read them); the cos/sin tables differ
-    in at most the counted entries, each by one f32 ulp."""
+    in at most the counted entries (none), each by one f32 ulp."""
     from repro.models.common import rope_tables as jax_rope_tables
     from repro_torch.models.common import rope_freqs, rope_tables
     hd, theta = 128, 1e6
