@@ -23,13 +23,17 @@ toolkit (``nvcc``). Phases, each fatal on failure (non-zero exit):
    shape of qwen2.5-3b (the tied head per vocab row) and two activation
    shapes per tensor, its ``ds`` within 1e-4 of its sums' mass;
    ``flash_attn_fwd`` against its plain version and an f64 oracle at the
-   QAT shape, S 1024, a ragged S and a sliding window;
+   QAT shape, S 1024, a ragged S and a sliding window; ``slstm_scan``
+   against its plain version and an f64 oracle at xlstm-125m's width
+   (B 8, T 128 and a ragged B 3, T 100);
 3. serve: ``ServeEngine`` on ``cuda`` with qwen2.5-3b at full width
    (random weights from a seed), policy A8d-C8-W4, w4a8 weights, dense
    KV cache; 8 mixed-length requests through 4 slots, both kernels'
    launch counts > 0, every request finished, tokens in the vocabulary;
    one decode step's logits against the same engine on the plain
-   versions;
+   versions; then one prompt prefilled alone and in a wave of 4: its
+   cache and first-token logits bitwise the same (cold-prefill batch
+   invariance);
 3b. paged serve: the same model on the paged pool (4 slots, blocks of
    64, 32 blocks, prefix cache on); 8 requests sharing a 160-token prefix,
    so prefix hits, copy-on-write of the split block and tail-waves all
@@ -60,12 +64,26 @@ toolkit (``nvcc``). Phases, each fatal on failure (non-zero exit):
 5b. a static policy (A8s-C8-W4) at full width and 4 layers: percentile
    calibration over 5 batches (``flash_attn_fwd`` in the calibration
    forward), one step, per-tensor fake-quant launches;
+3f. xlstm-125m at full width (12 layers, 5 mLSTM : 1 sLSTM, random
+   weights), A8d-C8-W4, w4a8 weights, dense cache: 8 requests in two
+   exact-length admission groups through 4 slots; ``w4a8_matmul``
+   launches, no attention kernel and no ``slstm_scan`` does (serving runs
+   the quantized per-step cell); one decode step's logits against the
+   plain versions; decode tok/s and the device's idle share;
+6. QAT of xlstm-125m at full width via ``run_qat`` (2 teacher steps, 2
+   steps at B 8, T 128): per step 2 ``slstm_scan`` calls (the teacher's
+   sLSTM layers) and one ``fake_quant_fwd`` / ``_bwd`` per student weight
+   site (69: ``r_h`` once per forward, not once per step), no
+   ``flash_attn_fwd``; every ``s_w`` moved; the teacher's logits and one
+   loss and backward through the kernels against the plain versions;
+   step ms, tokens/s, peak memory, idle share;
 4. times: each kernel per decode step, verify-wave, tail-wave, COW,
    student step or teacher forward (CUDA events, L2 flushed by rotating
    input copies past 100 MB), its plain version, one PyTorch call
    computing the same function (a yardstick the port never calls) and
-   the least time the card needs for the work; decode tok/s and TTFT of
-   the serve phases.
+   the least time the card needs for the work (``slstm_scan``: per
+   teacher forward, against a per-step ``torch.addmm`` loop); decode
+   tok/s and TTFT of the serve phases.
 
 The line before the last is a JSON object with every kernel's numbers; the
 last line is ``{"ok": true, "device": {...}}``. Details go to
@@ -119,6 +137,8 @@ def import_port():
     from repro_torch.kernels.flash_attn.ref import flash_attn_ref
     from repro_torch.kernels.quant import ops as fq_ops
     from repro_torch.kernels.quant import ref as fq_ref
+    from repro_torch.kernels.slstm_scan import ops as slstm_ops
+    from repro_torch.kernels.slstm_scan.ref import slstm_scan_ref
     from repro_torch.kernels.kvq_attn import ops as kvq_ops
     from repro_torch.kernels.kvq_attn import ref as kvq_ref
     from repro_torch.kernels.kvq_attn.ref import kvq_decode_attn_ref
@@ -126,6 +146,7 @@ def import_port():
     from repro_torch.kernels.w4a8.ref import w4a8_matmul_ref
     from repro_torch import models
     from repro_torch.launch import steps, train
+    from repro_torch.models import blocks
     from repro_torch.models.common import rms_norm
     from repro_torch.obs.trace import Tracer
     from repro_torch.serve.engine import Request, ServeEngine
@@ -140,7 +161,8 @@ def import_port():
                 SyntheticConfig=SyntheticConfig, to_device=to_device,
                 fa_ops=fa_ops, flash_attn_ref=flash_attn_ref, fq_ops=fq_ops,
                 fq_ref=fq_ref, steps=steps, train=train,
-                silq_loss=silq_loss)
+                silq_loss=silq_loss, slstm_ops=slstm_ops,
+                slstm_scan_ref=slstm_scan_ref, blocks=blocks)
 
 
 # --------------------------------------------------------------------------
@@ -1184,7 +1206,7 @@ def _named_leaves(tree, prefix=""):
 
 def train_counters(P):
     return (P["fq_ops"].fake_quant_fwd, P["fq_ops"].fake_quant_bwd,
-            P["fa_ops"].flash_attn_fwd)
+            P["fa_ops"].flash_attn_fwd, P["slstm_ops"].slstm_scan)
 
 
 def train_flops(cfg, B, T):
@@ -1204,16 +1226,16 @@ def train_full(torch, P, cfg, dev, report):
     tcfg = P["TrainConfig"](precision="A8d-C8-W4", total_steps=TRAIN_STEPS,
                             ref_steps=TRAIN_STEPS, batch_size=TRAIN_B,
                             seq_len=TRAIN_T)
-    fq_fwd, fq_bwd, fa = train_counters(P)
+    fq_fwd, fq_bwd, fa, _ = train_counters(P)
     steps, state = [], {}
 
     def on_start(student, opt):
         state["s_w0"] = {k: t.detach().clone() for k, t in
                          _named_leaves(student) if k.endswith("s_w")}
-        state["counts"] = (fq_fwd.launches, fq_bwd.launches, fa.launches)
+        state["counts"] = tuple(fn.launches for fn in train_counters(P))
 
     def on_step(step, metrics, student, opt):
-        counts = (fq_fwd.launches, fq_bwd.launches, fa.launches)
+        counts = tuple(fn.launches for fn in train_counters(P))
         steps.append({"step": step, "loss": float(metrics["loss"]),
                       "ms": metrics["ms"],
                       "launches": [a - b for a, b in
@@ -1236,10 +1258,10 @@ def train_full(torch, P, cfg, dev, report):
     peak = torch.cuda.max_memory_allocated(dev)
     n_w = 7 * cfg.n_layers + 1
     for s in steps:
-        check(s["launches"] == [n_w, n_w, cfg.n_layers],
+        check(s["launches"] == [n_w, n_w, cfg.n_layers, 0],
               f"QAT step {s['step']}: launches (fake_quant_fwd, "
-              f"fake_quant_bwd, flash_attn_fwd) = {s['launches']}, want "
-              f"({n_w}, {n_w}, {cfg.n_layers})")
+              f"fake_quant_bwd, flash_attn_fwd, slstm_scan) = "
+              f"{s['launches']}, want ({n_w}, {n_w}, {cfg.n_layers}, 0)")
         check(math.isfinite(s["loss"]), f"QAT step {s['step']}: KD loss "
                                         f"{s['loss']}")
     check(len(steps) == TRAIN_STEPS, f"{len(steps)} QAT steps ran")
@@ -1288,7 +1310,7 @@ def train_full(torch, P, cfg, dev, report):
 
 
 def profile_train_step(torch, P, cfg, tcfg, teacher, student, opt, steps,
-                       dev, report):
+                       dev, report, key="train_profile"):
     from torch.profiler import ProfilerActivity, profile
     step_fn = P["steps"].make_train_step(cfg, tcfg)
     it = P["MixtureIterator"](P["SyntheticConfig"](
@@ -1304,14 +1326,14 @@ def profile_train_step(torch, P, cfg, tcfg, teacher, student, opt, steps,
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
-        report["train_profile"] = "not measured: no device records"
+        report[key] = "not measured: no device records"
         return None
     by_name = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     busy_ms = sum(by_name.values()) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-    report["train_profile"] = {
+    report[key] = {
         "step_ms_profiled": wall_ms, "device_busy_ms": busy_ms,
         "kernels": len(kernels),
         "top_kernels_us": [(n[:90], us) for n, us in top]}
@@ -1335,16 +1357,18 @@ def _grad_gaps(torch, ga, gb):
     return worst, worst_key, n, same
 
 
-def grads_vs_plain(torch, P, cfg, tcfg, teacher, student, dev, report):
+def grads_vs_plain(torch, P, cfg, tcfg, teacher, student, dev, report,
+                   key="train_vs_plain", phase="phase 5"):
     """One loss and backward on one batch and the same parameters, through
     the kernels and through their plain versions (launches not counted).
 
     Twice: the whole step (teacher forward through ``flash_attn_fwd`` or
-    its plain version), and the student alone against one set of teacher
-    logits, which isolates the fake-quant kernels. The teacher's logits
-    are bf16: a one-ulp move of a logit near 16 (0.125) moves its
-    probability by 13%, and the flash kernel moves some logits so (check
-    on the teacher logits below), so the whole step's gradients are held
+    ``slstm_scan``, or their plain versions), and the student alone
+    against one set of teacher logits, which isolates the fake-quant
+    kernels. The teacher's logits are bf16: a one-ulp move of a logit
+    near 16 (0.125) moves its probability by 13%, and the teacher's
+    kernels move some logits so (check on the teacher logits below), so
+    the whole step's gradients are held
     to ``GRAD_REL_TOL_STEP``; with the teacher's logits shared, the
     forward is bitwise and the backward differs only in the order of the
     LSQ step-size sums: ``GRAD_REL_TOL``."""
@@ -1396,7 +1420,7 @@ def grads_vs_plain(torch, P, cfg, tcfg, teacher, student, dev, report):
            "student_only_grad_max_rel_l2": fq_gap[0],
            "student_only_grad_worst_leaf": fq_gap[1],
            "student_only_grad_leaves_bitwise": fq_gap[3]}
-    report["train_vs_plain"] = out
+    report[key] = out
     check(loss_rel <= 1e-3, f"KD loss through the kernels {float(lk)} vs "
                             f"plain {float(lp)}: relative {loss_rel}")
     check(step_gap[0] <= GRAD_REL_TOL_STEP,
@@ -1409,7 +1433,7 @@ def grads_vs_plain(torch, P, cfg, tcfg, teacher, student, dev, report):
     check(fq_gap[0] <= GRAD_REL_TOL,
           f"gradient {fq_gap[1]} through the fake-quant kernels off the "
           f"plain versions' by relative L2 {fq_gap[0]} > {GRAD_REL_TOL}")
-    print("phase 5: one loss and backward, kernels vs plain versions: "
+    print(f"{phase}: one loss and backward, kernels vs plain versions: "
           + json.dumps(out), flush=True)
 
 
@@ -1419,7 +1443,6 @@ def train_static(torch, P, cfg, dev, report):
     L = 4
     tcfg = P["TrainConfig"](precision="A8s-C8-W4", total_steps=1,
                             ref_steps=1, batch_size=TRAIN_B, seq_len=TRAIN_T)
-    fq_fwd, fq_bwd, fa = train_counters(P)
     seen = {}
 
     def on_start(student, opt):
@@ -2072,6 +2095,404 @@ def profile_decode(torch, P, cfg, eng, report, key="serve"):
           f"step)", flush=True)
 
 
+# --------------------------------------------------------------------------
+# phase 2 + 4: slstm_scan (the sLSTM recurrence of the QAT teacher)
+# --------------------------------------------------------------------------
+
+XLSTM = "xlstm-125m"
+# (B, T): the QAT phase's shape and a ragged one
+SLSTM_CASES = ((TRAIN_B, TRAIN_T), (3, 100))
+SLSTM_STATE_ATOL = 1e-4        # hT, cT (f32) against the plain version
+SLSTM_ORACLE_RATIO = 4.0       # kernel's f64-oracle error / plain's
+SLSTM_ORACLE_FLOOR = 1e-6
+
+
+def slstm_inputs(torch, gen, B, T, d, dev):
+    """The teacher's operands: bf16 gx and r_h, f32 h0 and c0 (non-zero
+    here; the model starts from zeros)."""
+    return ((torch.randn((B, T, 4 * d), generator=gen, device=dev) * 0.5
+             ).to(torch.bfloat16),
+            (torch.randn((d, 4 * d), generator=gen, device=dev) * d ** -0.5
+             ).to(torch.bfloat16),
+            torch.randn((B, d), generator=gen, device=dev) * 0.1,
+            torch.randn((B, d), generator=gen, device=dev) * 0.1)
+
+
+def check_slstm(torch, P, xcfg, dev, report):
+    """The kernel against its plain version (torch's f32 GEMM per step)
+    and both against an f64 run of the plain version (the oracle).
+
+    Both compute each step's h . r_h in f32 over d = 768 products in
+    different orders, and the state carries those ulps through up to 128
+    steps: hT and cT are held to ``SLSTM_STATE_ATOL``, hs (bf16) to one
+    bf16 ulp (``KVQ_TOL``), and the kernel's error against the oracle to
+    at most ``SLSTM_ORACLE_RATIO`` times the plain version's (plus
+    ``SLSTM_ORACLE_FLOOR``)."""
+    scan, ref = P["slstm_ops"].slstm_scan, P["slstm_scan_ref"]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(41)
+    d = xcfg.d_model
+    rtol, atol = KVQ_TOL
+    cases, worst = [], 0.0
+    for B, T in SLSTM_CASES:
+        args = slstm_inputs(torch, gen, B, T, d, dev)
+        got = scan(*args)
+        want = ref(*args)
+        oracle = slstm_oracle(torch, *args)
+        torch.cuda.synchronize()
+        case = {"B": B, "T": T, "d": d}
+        for name, g, w, o in zip(("hs", "hT", "cT"), got, want, oracle):
+            g, w = g.double(), w.double()
+            case[name] = {"max_abs_err": float((g - w).abs().max()),
+                          "kernel_vs_oracle": float((g - o).abs().max()),
+                          "plain_vs_oracle": float((w - o).abs().max())}
+            check(bool(torch.isfinite(g).all()),
+                  f"slstm_scan B={B} T={T}: {name} not finite")
+        cases.append(case)
+        ok = (torch.allclose(got[0].float(), want[0].float(), rtol=rtol,
+                             atol=atol)
+              and case["hT"]["max_abs_err"] <= SLSTM_STATE_ATOL
+              and case["cT"]["max_abs_err"] <= SLSTM_STATE_ATOL
+              and all(case[n]["kernel_vs_oracle"] <= SLSTM_ORACLE_RATIO
+                      * case[n]["plain_vs_oracle"] + SLSTM_ORACLE_FLOOR
+                      for n in ("hs", "hT", "cT")))
+        check(ok, f"slstm_scan B={B} T={T} d={d} differs from its plain "
+                  f"version: {case} (hs within rtol {rtol} atol {atol}, "
+                  f"hT/cT within {SLSTM_STATE_ATOL}, oracle error at most "
+                  f"{SLSTM_ORACLE_RATIO}x the plain version's)")
+        worst = max(worst, *(case[n]["max_abs_err"]
+                             for n in ("hs", "hT", "cT")))
+        del args, got, want, oracle
+    report["slstm_check"] = cases
+    print(f"phase 2: slstm_scan against its plain version and an f64 "
+          f"oracle: {cases}", flush=True)
+    return worst
+
+
+def slstm_oracle(torch, gx, r_h, h0, c0):
+    """The recurrence in f64 throughout (hs not rounded to gx's dtype)."""
+    d = h0.shape[-1]
+    g_x, rf, h, c = gx.double(), r_h.double(), h0.double(), c0.double()
+    hs = []
+    for t in range(gx.shape[1]):
+        i, f, z, o = (g_x[:, t] + h @ rf).split(d, dim=-1)
+        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(z)
+        h = torch.sigmoid(o) * torch.tanh(c)
+        hs.append(h)
+    return torch.stack(hs, dim=1), h, c
+
+
+def slstm_library(torch, gx, r_h, h0, c0):
+    """The same recurrence as one torch.addmm per step plus torch's
+    elementwise gates (a yardstick; the port never calls it)."""
+    d = h0.shape[-1]
+    gxf, rf = gx.float(), r_h.float()
+    h, c = h0, c0
+    hs = torch.empty(gx.shape[:2] + (d,), dtype=gx.dtype, device=gx.device)
+    for t in range(gx.shape[1]):
+        i, f, z, o = torch.addmm(gxf[:, t], h, rf).split(d, dim=-1)
+        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(z)
+        h = torch.sigmoid(o) * torch.tanh(c)
+        hs[:, t] = h
+    return hs, h, c
+
+
+def time_slstm(torch, P, xcfg, dev, report):
+    """Per teacher forward: 2 calls (the two sLSTM layers) at the QAT
+    phase's shape."""
+    scan, ref = P["slstm_ops"].slstm_scan, P["slstm_scan_ref"]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(42)
+    B, T, d = TRAIN_B, TRAIN_T, xcfg.d_model
+    base = slstm_inputs(torch, gen, B, T, d, dev)
+    base = base[:2] + (torch.zeros_like(base[2]), torch.zeros_like(base[3]))
+    nb = tensor_bytes(*base)
+    sets = [base] + [slstm_inputs(torch, gen, B, T, d, dev)
+                     for _ in range(copies_for(nb) - 1)]
+    t_k = time_ms(torch, scan, sets, min_calls=10)
+    t_p = time_ms(torch, ref, sets[:4], min_calls=4)
+    t_l = time_ms(torch, lambda *a: slstm_library(torch, *a), sets[:4],
+                  min_calls=4)
+    t_host = host_issued_ms(torch, scan, sets, min_calls=10)
+    flops = 2 * B * T * d * 4 * d               # h . r_h, every step
+    # gx and r_h read once (bf16), h0 and c0 read, hs (bf16), hT, cT out
+    nbytes = 2 * B * T * 4 * d + 2 * d * 4 * d + 2 * B * T * d \
+        + 4 * 4 * B * d
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    n = sum(k == "slstm" for k in xcfg.layer_kinds())
+    report["slstm_per_call"] = {
+        "ms": t_k, "plain_ms": t_p, "library_ms": t_l,
+        "host_issued_ms": t_host, "bound_ms": max(t_b, t_o) * 1e3,
+        "flops": flops, "bytes": nbytes, "steps": T,
+        "ms_per_step": t_k / T}
+    return {"ms": n * t_k, "plain_ms": n * t_p, "library_ms": n * t_l,
+            "bound_ms": n * max(t_b, t_o) * 1e3,
+            "bound_by": "bytes" if t_b >= t_o else "operations"}
+
+
+# --------------------------------------------------------------------------
+# cold-prefill batch invariance (qwen2.5-3b, w4a8, dense)
+# --------------------------------------------------------------------------
+
+PREFILL_ROW_LENS = (37, 128, 90, 61)     # the prompt under test first
+
+
+def prefill_rows(torch, P, cfg, dev, params, report):
+    """One prompt prefilled alone and in a wave of 4 beside longer and
+    shorter prompts (so the wave's padded length and row count differ):
+    its cache codes and scales and its first-token logits must be
+    bitwise the same. Measured first with the wave's attention batched
+    (the reference's form, patched in for this run), then with the
+    port's row-by-row attention on CUDA
+    (``blocks._prefill_attention_rows``), which must hold."""
+    import numpy as np
+    models, blocks = P["models"], P["blocks"]
+    ctx = P["qat"].make_ctx("A8d-C8-W4", weights_layout="w4a8")
+    rng = np.random.default_rng(31)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in PREFILL_ROW_LENS]
+
+    def wave(rows):
+        lens = [len(prompts[i]) for i in rows]
+        L = int(math.ceil(max(lens) / 16) * 16)
+        toks = torch.zeros((len(rows), L), dtype=torch.int32, device=dev)
+        for j, i in enumerate(rows):
+            toks[j, :lens[j]] = torch.from_numpy(prompts[i]).to(dev)
+        logits, cache = models.prefill(
+            cfg, params, ctx, {"tokens": toks, "lengths": torch.tensor(
+                lens, dtype=torch.int32, device=dev)},
+            cache_budget=CACHE_LEN)
+        return logits[0], [{k: v[0] for k, v in c.items()}
+                           for c in cache["layers"]]
+
+    def compare():
+        la, ca = wave([0])
+        lw, cw = wave(range(len(prompts)))
+        torch.cuda.synchronize()
+        differ = sum(int((a[k] != b[k]).sum()) for a, b in zip(ca, cw)
+                     for k in ("k_q", "v_q", "s_k", "s_v"))
+        return {"logits_bitwise": bool(torch.equal(la, lw)),
+                "logits_max_abs_diff": float((la.float() - lw.float())
+                                             .abs().max()),
+                "cache_values_differing": differ}
+
+    def batched(q, k, v, lengths):      # the wave's attention in one call
+        return blocks.blockwise_attention(q, k, v, causal=True)
+
+    out = {"lens": list(PREFILL_ROW_LENS)}
+    rows = blocks._prefill_attention_rows
+    try:
+        blocks._prefill_attention_rows = batched
+        out["batched_attention"] = compare()
+    finally:
+        blocks._prefill_attention_rows = rows
+    out["row_attention"] = compare()
+    report["prefill_row_invariance"] = out
+    row = out["row_attention"]
+    check(row["logits_bitwise"] and row["cache_values_differing"] == 0,
+          f"cold prefill: a prompt's cache or logits differ alone and in a "
+          f"wave of 4: {out}")
+    print(f"phase 3: cold prefill batch invariance (one prompt alone vs in "
+          f"a wave of 4): {out}", flush=True)
+
+
+# --------------------------------------------------------------------------
+# phase 3f: dense w4a8 serving of xlstm-125m
+# --------------------------------------------------------------------------
+
+XLSTM_LENS = (64, 96)          # two exact-length admission groups
+ATTENTION_KERNELS = ("kvq_decode_attn", "kvq_paged_decode_attn",
+                     "kvq_spec_verify_attn", "gather_dequant_paged_kv",
+                     "pool_block_copy", "flash_attn_fwd")
+
+
+def serve_xlstm(torch, P, xcfg, dev, report):
+    """xlstm-125m at full width (12 layers, random weights from a seed),
+    A8d-C8-W4, w4a8 weights, dense: 8 requests in two exact-length groups
+    through 4 slots. w4a8_matmul launches, no attention kernel does, and
+    neither does slstm_scan (serving runs the quantized per-step cell);
+    one decode step's logits through the kernels against the plain
+    versions."""
+    import numpy as np
+    qat, models = P["qat"], P["models"]
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = models.init_params(xcfg, seed=0, device=dev)
+    eng = P["ServeEngine"](xcfg, params, policy="A8d-C8-W4", slots=SLOTS,
+                           cache_len=CACHE_LEN, max_new_cap=MAX_NEW,
+                           decode_block=8, weights_layout="w4a8", device=dev)
+    del params
+    eng.params = qat.drop_exported_weights(eng.params)
+    torch.cuda.synchronize()
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, xcfg.vocab_size, XLSTM_LENS[i // SLOTS])
+               .astype(np.int32) for i in range(2 * SLOTS)]
+
+    toks = torch.from_numpy(np.stack(prompts[:SLOTS])).to(dev)
+    logits0, cache = models.prefill(xcfg, eng.params, eng.ctx,
+                                    {"tokens": toks}, cache_budget=CACHE_LEN)
+    tok1 = torch.argmax(logits0[:, -1].float(), -1).to(torch.int32)[:, None]
+    lk, _ = models.decode_step(xcfg, eng.params, eng.ctx, tok1,
+                               models.clone_cache(cache))
+    lp, _ = models.decode_step(xcfg, eng.params,
+                               replace(eng.ctx, kernel_backend="ref"), tok1,
+                               models.clone_cache(cache))
+    lk, lp = lk.float(), lp.float()
+    check(bool(torch.isfinite(lk).all()), "xlstm decode logits not finite")
+    rel = float(torch.linalg.vector_norm(lk - lp)
+                / torch.linalg.vector_norm(lp))
+    agree = float((lk.argmax(-1) == lp.argmax(-1)).float().mean())
+    check(rel <= LOGIT_REL_TOL,
+          f"xlstm: kernel decode logits differ from the plain versions' by "
+          f"relative L2 {rel} > {LOGIT_REL_TOL}")
+    del cache, logits0, lk, lp
+
+    reqs = [P["Request"](uid=i, prompt=p, max_new_tokens=MAX_NEW,
+                         temperature=0.8 if i % 4 == 3 else 0.0,
+                         top_k=8 if i % 4 == 3 else 0, seed=i)
+            for i, p in enumerate(prompts)]
+    counted = {**counted_kernels(P),
+               "flash_attn_fwd": P["fa_ops"].flash_attn_fwd,
+               "slstm_scan": P["slstm_ops"].slstm_scan}
+    for r in reqs:
+        eng.submit(r)
+    for fn in counted.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    stats = eng.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {n: fn.launches for n, fn in counted.items()}
+    check_streams(xcfg, reqs, "xlstm serve")
+    check(launches["w4a8_matmul"] > 0,
+          f"xlstm serve: w4a8_matmul never launched: {launches}")
+    check(all(launches[n] == 0 for n in ATTENTION_KERNELS + ("slstm_scan",)),
+          f"xlstm serve: an attention kernel or the scan ran: {launches}")
+    check(stats["prefill_calls"] == 2,
+          f"xlstm serve: {stats['prefill_calls']} prefill waves, want 2 "
+          f"exact-length groups")
+    decode_tokens = stats["tokens_out"] - len(reqs)
+    served = {"requests": len(reqs), "prompt_lens": list(XLSTM_LENS),
+              "tokens_out": stats["tokens_out"], "wall_s": wall,
+              "tokens_per_s": stats["tokens_out"] / wall,
+              "decode_tokens_per_s": decode_tokens / stats["decode_s"],
+              "decode_step_ms": 1e3 * stats["decode_step_s"],
+              "decode_steps": stats["decode_steps"],
+              "ttft_p50_s": stats["ttft_p50_s"],
+              "ttft_p95_s": stats["ttft_p95_s"],
+              "prefill_s": stats["prefill_s"],
+              "prefill_calls": stats["prefill_calls"],
+              "decode_logits_rel_l2_kernels_vs_plain": rel,
+              "decode_logits_argmax_agreement": agree,
+              "launches": launches,
+              "peak_memory_bytes": torch.cuda.max_memory_allocated(dev)}
+    report["serve_xlstm"] = served
+    print("serve_xlstm " + json.dumps(served), flush=True)
+    profile_decode(torch, P, xcfg, eng, report, key="serve_xlstm")
+    print(f"phase 3f: xlstm-125m dense w4a8 serve, "
+          f"{served['decode_tokens_per_s']:.2f} decode tok/s, "
+          f"{served['decode_step_ms']:.2f} ms per decode step; one decode "
+          f"step's logits kernels vs plain relative L2 {rel:.3g}",
+          flush=True)
+    del eng
+    torch.cuda.empty_cache()
+    return launches
+
+
+# --------------------------------------------------------------------------
+# phase 6: QAT of xlstm-125m at full width
+# --------------------------------------------------------------------------
+
+XLSTM_TRAIN_STEPS = 2
+
+
+def xlstm_weight_sites(xcfg):
+    """Fake-quantized weights of one student forward: 6 per mLSTM layer,
+    4 per sLSTM layer (r_h once, not once per step) and the head."""
+    kinds = xcfg.layer_kinds()
+    return 6 * kinds.count("mlstm") + 4 * kinds.count("slstm") + 1
+
+
+def train_xlstm(torch, P, xcfg, dev, report):
+    """run_qat on xlstm-125m at full width (12 layers), A8d-C8-W4, B 8,
+    T 128: 2 teacher steps, 2 steps. Per step slstm_scan launches once
+    per sLSTM layer (the teacher forward), fake_quant_fwd / _bwd once per
+    weight site (no T-fold multiplication from the sLSTM loop),
+    flash_attn_fwd never; every s_w moves; then the teacher's logits and
+    one loss and backward, kernels against the plain versions."""
+    tcfg = P["TrainConfig"](precision="A8d-C8-W4",
+                            total_steps=XLSTM_TRAIN_STEPS,
+                            ref_steps=XLSTM_TRAIN_STEPS, batch_size=TRAIN_B,
+                            seq_len=TRAIN_T)
+    steps, state = [], {}
+
+    def on_start(student, opt):
+        state["s_w0"] = {k: t.detach().clone() for k, t in
+                         _named_leaves(student) if k.endswith("s_w")}
+        state["counts"] = tuple(fn.launches for fn in train_counters(P))
+
+    def on_step(step, metrics, student, opt):
+        counts = tuple(fn.launches for fn in train_counters(P))
+        steps.append({"step": step, "loss": float(metrics["loss"]),
+                      "ms": metrics["ms"],
+                      "launches": [a - b for a, b in
+                                   zip(counts, state["counts"])]})
+        state["counts"] = counts
+        state["opt"] = opt
+
+    for fn in train_counters(P):
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    teacher, student, _ = P["train"].run_qat(
+        XLSTM, tcfg, reduced=False, teacher_steps=2, device=dev,
+        log_every=1, split_times=True, on_start=on_start, on_step=on_step)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    names = ("fake_quant_fwd", "fake_quant_bwd", "flash_attn_fwd",
+             "slstm_scan")
+    launches = dict(zip(names, (fn.launches for fn in train_counters(P))))
+    peak = torch.cuda.max_memory_allocated(dev)
+    n_w = xlstm_weight_sites(xcfg)
+    n_s = xcfg.layer_kinds().count("slstm")
+    for s in steps:
+        got = dict(zip(names, s["launches"]))
+        check(s["launches"] == [n_w, n_w, 0, n_s],
+              f"xlstm QAT step {s['step']}: launches {got}, want "
+              f"({n_w}, {n_w}, 0, {n_s})")
+        check(math.isfinite(s["loss"]),
+              f"xlstm QAT step {s['step']}: KD loss {s['loss']}")
+    check(len(steps) == XLSTM_TRAIN_STEPS, f"{len(steps)} xlstm QAT steps")
+    opt = state.pop("opt")
+    named = dict(_named_leaves(student))
+    unmoved = [k for k, t0_ in state["s_w0"].items()
+               if torch.equal(named[k], t0_)]
+    check(len(state["s_w0"]) == n_w and not unmoved,
+          f"xlstm: s_w that did not move: {unmoved[:5]} ({len(unmoved)})")
+    check(all(bool(torch.isfinite(t).all()) for t in named.values()),
+          "xlstm: a parameter is not finite after QAT")
+    idle = profile_train_step(torch, P, xcfg, tcfg, teacher, student, opt,
+                              steps, dev, report, key="train_xlstm_profile")
+    del opt, state
+    torch.cuda.empty_cache()
+    per = {k: sum(s["ms"][k] for s in steps[1:]) / (len(steps) - 1)
+           for k in ("teacher", "student", "optimizer")}
+    step_ms = sum(per.values())
+    trained = {"arch": XLSTM, "steps": XLSTM_TRAIN_STEPS, "batch": TRAIN_B,
+               "seq": TRAIN_T, "losses": [s["loss"] for s in steps],
+               "ms_per_step": step_ms, "ms_split": per,
+               "ms_first_step": sum(steps[0]["ms"].values()),
+               "tokens_per_s": TRAIN_B * TRAIN_T / (step_ms / 1e3),
+               "peak_memory_bytes": peak, "wall_s": wall,
+               "device_idle_share": idle,
+               "launches_per_step": dict(zip(names, steps[-1]["launches"])),
+               "weight_sites": n_w, "launches": launches}
+    report["train_xlstm"] = trained
+    print("phase 6: " + json.dumps(trained), flush=True)
+    grads_vs_plain(torch, P, xcfg, tcfg, teacher, student, dev, report,
+                   key="train_xlstm_vs_plain", phase="phase 6")
+    return launches
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2121,6 +2542,7 @@ def main() -> int:
           flush=True)
 
     cfg = P["get_config"]("qwen2.5-3b")
+    xcfg = P["get_config"](XLSTM)
     w4a8_err = check_w4a8(torch, P, cfg, dev, report)
     kvq_err = check_kvq(torch, P, cfg, dev, report)
     paged_err = check_paged_decode(torch, P, cfg, dev, report)
@@ -2130,11 +2552,13 @@ def main() -> int:
     check_norm_rows(torch, P, cfg, dev, report)
     fq_err = check_fake_quant(torch, P, cfg, dev, report)
     flash_err = check_flash(torch, P, cfg, dev, report)
+    slstm_err = check_slstm(torch, P, xcfg, dev, report)
     launches, eng = serve(torch, P, cfg, dev, report)
     profile_decode(torch, P, cfg, eng, report)
     params = eng.params                 # packed exports, bf16 linears gone
     del eng
     torch.cuda.empty_cache()
+    prefill_rows(torch, P, cfg, dev, params, report)
     paged_launches, eng, plain_streams = serve_paged(torch, P, cfg, dev,
                                                      params, report)
     profile_decode(torch, P, cfg, eng, report, key="serve_paged")
@@ -2151,6 +2575,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_static(torch, P, cfg, dev, report)
     torch.cuda.empty_cache()
+    serve_xlstm(torch, P, xcfg, dev, report)
+    xlstm_train_launches = train_xlstm(torch, P, xcfg, dev, report)
+    torch.cuda.empty_cache()
     w4a8_t = time_w4a8(torch, P, cfg, dev, report)
     kvq_t = time_kvq(torch, P, cfg, dev, report)
     paged_t = time_paged_decode(torch, P, cfg, dev, report)
@@ -2159,13 +2586,15 @@ def main() -> int:
     spec_t = time_spec_verify(torch, P, cfg, dev, report)
     fq_fwd_t, fq_bwd_t = time_fake_quant(torch, P, cfg, dev, report)
     flash_t = time_flash(torch, P, cfg, dev, report)
+    slstm_t = time_slstm(torch, P, xcfg, dev, report)
     for name, t in (("kvq_paged_decode_attn", paged_t),
                     ("gather_dequant_paged_kv", gather_t),
                     ("pool_block_copy", copy_t),
                     ("kvq_spec_verify_attn", spec_t),
                     ("fake_quant_fwd", fq_fwd_t),
                     ("fake_quant_bwd", fq_bwd_t),
-                    ("flash_attn_fwd", flash_t)):
+                    ("flash_attn_fwd", flash_t),
+                    ("slstm_scan", slstm_t)):
         print(f"phase 4: {name}: {t['ms']:.4f} ms (bound {t['bound_ms']:.5f}"
               f" ms by {t['bound_by']}), plain {t['plain_ms']:.4f} ms, "
               f"library {t['library_ms']:.4f} ms", flush=True)
@@ -2238,6 +2667,14 @@ def main() -> int:
          "max_abs_err": flash_err, **flash_t,
          "per": f"one teacher forward: 36 launches at B={TRAIN_B}, "
                 f"S={TRAIN_T}, H=16, Hkv=2, D=128, causal"},
+        {"name": "slstm_scan", "route": "cuda",
+         "source": "src/repro_torch/csrc/slstm_scan.cu",
+         "replaces": "src/repro/kernels/slstm_scan/kernel.py:67",
+         "launches": xlstm_train_launches["slstm_scan"],
+         "max_abs_err": slstm_err, **slstm_t,
+         "per": f"one xlstm-125m teacher forward: 2 calls (the sLSTM "
+                f"layers) at B={TRAIN_B}, T={TRAIN_T}, d=768, bf16 gx and "
+                f"r_h, each {TRAIN_T} step launches"},
     ]
     report["kernels"] = kernels
     out_dir = ROOT / "chiprun_out"

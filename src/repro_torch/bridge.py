@@ -17,8 +17,10 @@ returns the port's tree:
   stacked tensor), so it can take ``requires_grad_`` and an in-place
   optimizer update.
 
-``params_to_numpy(params)`` is the inverse: the port's tree back to the
-reference's stacked layout, one numpy array per leaf.
+``params_to_numpy(params, period=...)`` is the inverse: the port's tree
+back to the reference's stacked layout, one numpy array per leaf, with
+``period`` the length of the config's block pattern
+(:func:`segment_index`).
 """
 from __future__ import annotations
 
@@ -88,6 +90,34 @@ def params_from_numpy(tree, device) -> Dict:
     return out
 
 
+def segment_index(n_layers: int, period: int = 1
+                  ) -> List[Tuple[str, int]]:
+    """The reference's address of each layer: (``segments/<i>/<j>``,
+    repeat r). Its segment plan stacks ``n_layers // period`` repeats of
+    the whole block pattern in segment 0, and one repeat of the remaining
+    ``n_layers % period`` kinds in the next segment."""
+    n_full, rem = divmod(n_layers, period)
+    out = [(f"segments/0/{i % period}", i // period)
+           for i in range(n_full * period)]
+    seg = 1 if n_full else 0
+    out += [(f"segments/{seg}/{j}", 0) for j in range(rem)]
+    return out
+
+
+def stacked_layers(layers: List, period: int = 1
+                   ) -> List[Tuple[str, List[Any]]]:
+    """(reference path, [leaf of each repeat]) for every leaf of a
+    ``layers`` list, the repeats in stacking order."""
+    groups: Dict[str, List[Any]] = {}
+    for layer, (seg, _) in zip(layers, segment_index(len(layers), period)):
+        groups.setdefault(seg, []).append(layer)
+    out = []
+    for seg, reps in groups.items():
+        for path, _ in flatten(reps[0]):
+            out.append((f"{seg}/{path}", [get_path(p, path) for p in reps]))
+    return out
+
+
 def get_path(tree, path: str):
     for k in path.split("/"):
         tree = tree[int(k)] if isinstance(tree, (list, tuple)) else tree[k]
@@ -106,10 +136,11 @@ def to_numpy(t: torch.Tensor, bfloat16=None) -> np.ndarray:
     return t.numpy().copy()
 
 
-def params_to_numpy(params: Dict, bfloat16=None) -> Dict:
+def params_to_numpy(params: Dict, bfloat16=None, period: int = 1) -> Dict:
     """The port's params in the reference's layout: ``layers`` stacked
-    back into ``segments/0/0/...`` (the dense decoder's one segment of one
-    block kind), every other entry as it is, leaves as numpy arrays."""
+    back into ``segments/<i>/<j>/...`` (``period``: the length of the
+    block pattern; 1 for the dense decoder's one kind), every other entry
+    as it is, leaves as numpy arrays."""
     def walk(tree):
         if isinstance(tree, dict):
             return {k: walk(v) for k, v in tree.items() if k != "layers"}
@@ -118,10 +149,10 @@ def params_to_numpy(params: Dict, bfloat16=None) -> Dict:
         return to_numpy(tree, bfloat16)
 
     out = walk(params)
-    layers = params["layers"]
     stacked: Dict = {}
-    for path, _ in flatten(layers[0]):
-        _set(stacked, path.split("/"), np.stack(
-            [to_numpy(get_path(p, path), bfloat16) for p in layers]))
-    out["segments"] = [{"0": stacked}]
+    for path, leaves in stacked_layers(params["layers"], period):
+        _set(stacked, path.split("/"),
+             np.stack([to_numpy(t, bfloat16) for t in leaves]))
+    segs = stacked["segments"]
+    out["segments"] = [segs[str(i)] for i in range(len(segs))]
     return out

@@ -8,8 +8,9 @@ package restores in the other:
 * keys are the reference's ``/``-joined tree paths: tuple and list
   positions, dict keys, ``.field`` for a named tuple's field (the
   optimizer state: ``1/.step``, ``1/.m/...``), and a dict's ``layers``
-  list written as the reference's stacked ``segments/0/0/...`` arrays with
-  the layer index as the leading axis;
+  list written as the reference's stacked ``segments/<i>/<j>/...`` arrays
+  with the repeat index as the leading axis (``period``: the length of
+  the model's block pattern, ``bridge.segment_index``);
 * bf16 leaves are stored as ``u2`` views with ``"bfloat16"`` recorded
   under ``dtypes``;
 * writes are atomic (``step_XXXX.tmp/`` then ``os.replace``), so a
@@ -31,27 +32,27 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.bridge import flatten, get_path
+from repro_torch.bridge import stacked_layers
 
 _MANIFEST = "manifest.json"
 
 
-def _entries(tree, prefix: str = "") -> Iterator[Tuple[str, Any]]:
-    """(reference key, leaf or [leaf of every layer]) pairs."""
+def _entries(tree, prefix: str = "",
+             period: int = 1) -> Iterator[Tuple[str, Any]]:
+    """(reference key, leaf or [leaf of every repeat]) pairs."""
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
         for f in tree._fields:
-            yield from _entries(getattr(tree, f), f"{prefix}.{f}/")
+            yield from _entries(getattr(tree, f), f"{prefix}.{f}/", period)
     elif isinstance(tree, dict):
         for k, v in tree.items():
             if k == "layers" and isinstance(v, list) and v:
-                for path, _ in flatten(v[0]):
-                    yield (f"{prefix}segments/0/0/{path}",
-                           [get_path(layer, path) for layer in v])
+                for path, leaves in stacked_layers(v, period):
+                    yield f"{prefix}{path}", leaves
             else:
-                yield from _entries(v, f"{prefix}{k}/")
+                yield from _entries(v, f"{prefix}{k}/", period)
     elif isinstance(tree, (list, tuple)):
         for i, v in enumerate(tree):
-            yield from _entries(v, f"{prefix}{i}/")
+            yield from _entries(v, f"{prefix}{i}/", period)
     else:
         yield prefix[:-1], tree
 
@@ -65,9 +66,10 @@ def _host(t: torch.Tensor) -> Tuple[np.ndarray, Optional[str]]:
     return t.numpy(), None
 
 
-def _to_host(tree) -> List[Tuple[str, np.ndarray, Optional[str]]]:
+def _to_host(tree, period: int) -> List[Tuple[str, np.ndarray,
+                                             Optional[str]]]:
     out = []
-    for key, leaf in _entries(tree):
+    for key, leaf in _entries(tree, period=period):
         if isinstance(leaf, list):
             parts = [_host(t) for t in leaf]
             out.append((key, np.stack([a for a, _ in parts]), parts[0][1]))
@@ -77,21 +79,22 @@ def _to_host(tree) -> List[Tuple[str, np.ndarray, Optional[str]]]:
 
 
 class Checkpointer:
-    def __init__(self, directory: str, keep: int = 3):
+    def __init__(self, directory: str, keep: int = 3, period: int = 1):
         self.dir = directory
         self.keep = keep
+        self.period = period
         os.makedirs(directory, exist_ok=True)
         self._thread: Optional[threading.Thread] = None
 
     # ---- write ----------------------------------------------------------
     def save(self, step: int, tree, extra: Optional[Dict] = None) -> None:
-        self._write(step, _to_host(tree), extra or {})
+        self._write(step, _to_host(tree, self.period), extra or {})
 
     def save_async(self, step: int, tree,
                    extra: Optional[Dict] = None) -> None:
         """Copy to the host now; write to disk on a thread."""
         self.wait()
-        arrays = _to_host(tree)
+        arrays = _to_host(tree, self.period)
         self._thread = threading.Thread(
             target=self._write, args=(step, arrays, extra or {}), daemon=True)
         self._thread.start()
@@ -148,7 +151,7 @@ class Checkpointer:
             manifest = json.load(f)
         data = np.load(os.path.join(d, "tensors.npz"))
         dtypes = manifest.get("dtypes", {})
-        entries = list(_entries(template))
+        entries = list(_entries(template, period=self.period))
         missing = [k for k, _ in entries if k not in data]
         if missing:
             raise KeyError(f"checkpoint missing keys: {missing[:5]}...")

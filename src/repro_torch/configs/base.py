@@ -2,7 +2,7 @@
 and ``TrainConfig``).
 
 Only the model fields the ported paths read are kept; architectures
-beyond the dense GQA decoder arrive with later slices.
+beyond the dense GQA decoder and xLSTM arrive with later slices.
 """
 from __future__ import annotations
 
@@ -10,13 +10,21 @@ import dataclasses
 from dataclasses import dataclass
 from typing import Tuple
 
+# Block kinds understood by models/model.py
 BLOCK_ATTN = "attn"            # global causal attention
+BLOCK_LOCAL_ATTN = "local_attn"  # sliding-window causal attention
+BLOCK_RGLRU = "rglru"          # RecurrentGemma RG-LRU recurrent block
+BLOCK_MLSTM = "mlstm"          # xLSTM matrix-memory block
+BLOCK_SLSTM = "slstm"          # xLSTM scalar-memory block
+
+ATTENTION_BLOCKS = (BLOCK_ATTN, BLOCK_LOCAL_ATTN)
+RECURRENT_BLOCKS = (BLOCK_RGLRU, BLOCK_MLSTM, BLOCK_SLSTM)
 
 
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                     # dense
+    family: str                     # dense | ssm
     n_layers: int
     d_model: int
     n_heads: int
@@ -28,7 +36,10 @@ class ModelConfig:
     qk_norm: bool = False
     rope_theta: float = 10_000.0
     sliding_window: int = 0         # 0 -> no SWA
+    # repeating pattern of block kinds, tiled / truncated to n_layers
     block_pattern: Tuple[str, ...] = (BLOCK_ATTN,)
+    mlstm_proj_factor: float = 2.0
+    slstm_proj_factor: float = 4.0 / 3.0
     tie_embeddings: bool = False
     norm_eps: float = 1e-6
     norm_type: str = "rms"
@@ -45,6 +56,21 @@ class ModelConfig:
     @property
     def kv_dim(self) -> int:
         return self.n_kv_heads * self.resolved_head_dim
+
+    def layer_kinds(self) -> Tuple[str, ...]:
+        """Block kind for every decoder layer (pattern tiled to n_layers)."""
+        pat = self.block_pattern
+        reps = (self.n_layers + len(pat) - 1) // len(pat)
+        return tuple((pat * reps)[: self.n_layers])
+
+    @property
+    def supports_long_context(self) -> bool:
+        """True if decode memory is sub-linear in context (bounded cache)."""
+        kinds = set(self.layer_kinds())
+        if kinds & set(RECURRENT_BLOCKS):
+            return True
+        # pure attention: only if every attention layer is window-bounded
+        return not (BLOCK_ATTN in kinds and self.sliding_window == 0)
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)

@@ -71,6 +71,11 @@ def quantize_to_int(x: torch.Tensor, s: torch.Tensor, bits: int,
     return torch.round(torch.clamp(v, qn, qp)).to(dtype)
 
 
+def dequantize_int(q: torch.Tensor, s: torch.Tensor,
+                   dtype=torch.bfloat16) -> torch.Tensor:
+    return (q.float() * s.float()).to(dtype)
+
+
 def dynamic_quantize_to_int(x: torch.Tensor, bits: int, axis: int = -1,
                             dtype=torch.int8):
     """Per-token integer quantization; returns (q, scale)."""

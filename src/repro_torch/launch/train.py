@@ -141,7 +141,8 @@ def run_qat(arch: str, tcfg: TrainConfig, *, reduced: bool = True,
     it = MixtureIterator(data_cfg, start_step=1)
     start_step = 0
 
-    ckpt = Checkpointer(ckpt_dir) if ckpt_dir else None
+    ckpt = (Checkpointer(ckpt_dir, period=len(cfg.block_pattern))
+            if ckpt_dir else None)
     if ckpt and resume and ckpt.latest_step() is not None:
         (student, opt), extra = ckpt.restore((student, opt))
         it.load_state_dict(extra["data"])

@@ -1,4 +1,5 @@
-"""Functional model of the dense GQA decoder with SiLQ quantization sites."""
+"""Functional models of the dense GQA decoder and the xLSTM family, with
+SiLQ quantization sites."""
 from repro_torch.models.model import (clone_cache, decode_step, forward,
                                       head_logits, init_cache, init_params,
                                       prefill, prefill_tail, spec_verify)

@@ -227,7 +227,7 @@ def _ring_gather(val: torch.Tensor, lengths: torch.Tensor,
 def attn_prefill(cfg: ModelConfig, ctx: QuantCtx, p: Dict, x: torch.Tensor,
                  rope, *, cache_len: int = 0,
                  lengths: Optional[torch.Tensor] = None,
-                 page_size: int = 0):
+                 page_size: int = 0, row_lengths: Optional[list] = None):
     """Causal attention over the prompt that also emits the quantized
     dense cache for serving.
 
@@ -235,7 +235,10 @@ def attn_prefill(cfg: ModelConfig, ctx: QuantCtx, p: Dict, x: torch.Tensor,
     pad-position K/V are dropped from the cache and ``cache["length"]``
     holds the true per-row length, so one padded prefill call admits
     prompts of different lengths (causality keeps real-token outputs
-    independent of the padding).
+    independent of the padding). On CUDA the attention then runs row by
+    row over ``row_lengths`` (the same lengths as host ints;
+    :func:`_prefill_attention_rows`), so a row's result does not depend
+    on the wave it rides in.
 
     ``page_size`` > 0 emits the cache in *block shape* (B, nb, Hkv,
     page_size, D) instead: the paged engine scatters those blocks into
@@ -244,8 +247,12 @@ def attn_prefill(cfg: ModelConfig, ctx: QuantCtx, p: Dict, x: torch.Tensor,
     """
     B, S, _ = x.shape
     q, k, v = _qkv(cfg, ctx, p, x, rope)
-    out = blockwise_attention(q, k, v, causal=True, q_chunk=1024,
-                              kv_chunk=1024)
+    if x.is_cuda and lengths is not None:
+        out = _prefill_attention_rows(
+            q, k, v, row_lengths or lengths.tolist())
+    else:
+        out = blockwise_attention(q, k, v, causal=True, q_chunk=1024,
+                                  kv_chunk=1024)
     y = qlinear(ctx, out.reshape(B, S, cfg.q_dim), p["wo"])
     k_q, v_q, s_k, s_v = quantize_kv_for_cache(ctx, p, k, v)
     if lengths is None:
@@ -262,6 +269,25 @@ def attn_prefill(cfg: ModelConfig, ctx: QuantCtx, p: Dict, x: torch.Tensor,
              # a copy per layer: decode advances each layer's in place
              "length": lengths.to(torch.int32, copy=True)}
     return y, cache
+
+
+def _prefill_attention_rows(q, k, v, lengths: list) -> torch.Tensor:
+    """Causal attention of a right-padded prefill wave, each row over its
+    own ``lengths[b]`` real tokens and nothing else; pad positions stay
+    zero (causality keeps them out of every real token, and their K/V are
+    dropped from the cache). Batched, the wave's score and probability
+    GEMMs and the softmax sums take their shapes, and so cuBLAS's kernel
+    and the reductions' summation order, from the whole wave (its row
+    count and padded length); row by row a prompt's cache and first-token
+    logits are the same whichever prompts it is admitted with.
+    ``lengths``: host ints."""
+    out = torch.zeros_like(q)
+    for b, n in enumerate(lengths):
+        if n:
+            out[b, :n] = blockwise_attention(
+                q[b:b + 1, :n], k[b:b + 1, :n], v[b:b + 1, :n], causal=True,
+                q_chunk=1024, kv_chunk=1024)[0]
+    return out
 
 
 def _paginate_kv(k_q, v_q, s_k, s_v, page_size: int) -> Dict:

@@ -18,33 +18,79 @@ _NEG = -1e30
 # --------------------------------------------------------------------------
 
 _NORM_SPLIT = 16         # first-stage partial sums per row (CUDA path)
+_XLA_WINDOW = 32         # XLA:CPU's tree-reduction window
+
+
+def _xla_cpu_row_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last dim in XLA:CPU's order, f32, bitwise.
+
+    XLA's CPU compiler rewrites a reduction over more than 32 elements
+    into a reduce-window of size and stride 32 followed by a reduction of
+    the window sums, recursively: the row is zero-padded to a multiple of
+    32 (``pad // 2`` zeros in front, the rest behind), each window is
+    summed element by element in order from 0, and the window sums are
+    reduced the same way. Here the same adds in the same order, one
+    elementwise add per window position.
+    """
+    n = x.shape[-1]
+    while n > _XLA_WINDOW:
+        pad = -n % _XLA_WINDOW
+        if pad:
+            x = torch.nn.functional.pad(x, (pad // 2, pad - pad // 2))
+        x = x.reshape(*x.shape[:-1], -1, _XLA_WINDOW)
+        n = x.shape[-2]
+        s = x[..., 0]
+        for i in range(1, _XLA_WINDOW):
+            s = s + x[..., i]
+        x = s
+    s = x[..., 0]
+    for i in range(1, n):
+        s = s + x[..., i]
+    return s
 
 
 def _mean_sq(xf: torch.Tensor) -> torch.Tensor:
     """Mean of squares over the last dim, keepdim, f32.
 
-    On the CPU one ``torch.mean``: its per-row order is fixed, and it
-    matches the reference's op by op. torch's CUDA reduction picks its
-    block shape, and so each row's summation order, from the number of
-    rows (a verify-wave runs every norm at M = slots * (k + 1) rows, a
-    decode step at M = slots), which moves the last bit of the variance.
-    There the row is summed in two stages whose shapes do not depend on
-    M: ``_NORM_SPLIT`` partial sums per row over a (rows * split, d /
-    split) view, then the partials, so a row's result is the same in any
-    batch.
+    On the CPU the row is summed in XLA:CPU's order
+    (:func:`_xla_cpu_row_sum`), so the variance is bitwise the
+    reference's run op by op at every width (``torch.mean`` sums with 4
+    accumulators of 8 lanes, which disagrees with it on about half of
+    random rows). torch's CUDA reduction picks its block shape, and so
+    each row's summation order, from the number of rows (a verify-wave
+    runs every norm at M = slots * (k + 1) rows, a decode step at M =
+    slots), which moves the last bit of the variance. There the row is
+    summed in two stages whose shapes do not depend on M:
+    ``_NORM_SPLIT`` partial sums per row over a (rows * split, d / split)
+    view, then the partials, so a row's result is the same in any batch.
     """
     d = xf.shape[-1]
-    if not xf.is_cuda or d % _NORM_SPLIT:
-        return torch.mean(xf * xf, dim=-1, keepdim=True)
-    sq = (xf * xf).reshape(-1, d // _NORM_SPLIT)
-    part = sq.sum(dim=-1).reshape(-1, _NORM_SPLIT)
-    return (part.sum(dim=-1) / d).reshape(*xf.shape[:-1], 1)
+    sq = xf * xf
+    if not xf.is_cuda:
+        return (_xla_cpu_row_sum(sq) / d)[..., None]
+    if d % _NORM_SPLIT:
+        return torch.mean(sq, dim=-1, keepdim=True)
+    part = sq.reshape(-1, d // _NORM_SPLIT).sum(dim=-1)
+    return (part.reshape(-1, _NORM_SPLIT).sum(dim=-1) / d).reshape(
+        *xf.shape[:-1], 1)
+
+
+def _rsqrt(v: torch.Tensor) -> torch.Tensor:
+    """f32 1/sqrt(v). On the CPU the correctly rounded value (an f64
+    rsqrt rounded to f32): XLA:CPU lowers ``rsqrt`` to the x86 estimate
+    refined by a Newton step, whose bits are the processor's, so no
+    portable op sequence reproduces it; it lies within one ulp of the
+    correctly rounded value and equals it on 86% of random inputs, where
+    ``torch.rsqrt`` (a rounded 1/sqrt) equals it on 64%."""
+    if v.is_cuda:
+        return torch.rsqrt(v)
+    return torch.rsqrt(v.double()).float()
 
 
 def rms_norm(x: torch.Tensor, p: Dict, eps: float = 1e-6) -> torch.Tensor:
     xf = x.float()
     var = _mean_sq(xf)
-    y = xf * torch.rsqrt(var + eps)
+    y = xf * _rsqrt(var + eps)
     return (y * p["w"].float()).to(x.dtype)
 
 
@@ -53,10 +99,11 @@ def init_norm(d: int, device, dtype=torch.bfloat16) -> Dict:
 
 
 def head_rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
-    """qk_norm: RMS over head_dim (x: (..., H, D))."""
+    """qk_norm: RMS over head_dim (x: (..., H, D)), the variance summed as
+    :func:`rms_norm`'s."""
     xf = x.float()
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
-    return (xf * torch.rsqrt(var + eps) * w.float()).to(x.dtype)
+    var = _mean_sq(xf)
+    return (xf * _rsqrt(var + eps) * w.float()).to(x.dtype)
 
 
 # --------------------------------------------------------------------------

@@ -1,7 +1,10 @@
-"""Model stack of the dense GQA decoder (the qwen2.5 family).
+"""Model stack of the dense GQA decoder (the qwen2.5 family) and the
+xLSTM family (mLSTM and sLSTM blocks).
 
 The reference scans stacked layers with ``lax.scan``; here each layer is
-an entry of ``params["layers"]`` and the stack is a Python loop over them.
+an entry of ``params["layers"]`` and the stack is a Python loop over them,
+layer i of kind ``cfg.layer_kinds()[i]``: an attention layer holds
+``{"ln1", "attn", "ln2", "mlp"}``, a recurrent one ``{"ln1", "cell"}``.
 
 Entry points:
 * ``init_params``  — random weights from a seed, made on the target device
@@ -23,19 +26,50 @@ from typing import Dict, List, Optional, Union
 import torch
 import torch.utils.checkpoint
 
-from repro_torch.configs.base import BLOCK_ATTN, ModelConfig
+from repro_torch.configs.base import (ATTENTION_BLOCKS, BLOCK_ATTN,
+                                      BLOCK_MLSTM, BLOCK_SLSTM, ModelConfig)
 from repro_torch.core.qat import QuantCtx, cache_dtype, qlinear, subcol
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks as B
+from repro_torch.models import recurrent as R
 from repro_torch.models.common import init_norm, rms_norm, rope_tables
+
+_PORTED_KINDS = (BLOCK_ATTN, BLOCK_MLSTM, BLOCK_SLSTM)
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if (any(k != BLOCK_ATTN for k in cfg.block_pattern) or cfg.sliding_window
-            or cfg.norm_type != "rms" or cfg.mlp_type != "swiglu"):
+    if (any(k not in _PORTED_KINDS for k in cfg.block_pattern)
+            or cfg.sliding_window or cfg.norm_type != "rms"
+            or cfg.mlp_type != "swiglu"):
         raise NotImplementedError(
-            f"{cfg.name!r}: the port serves dense full-attention RMS-norm "
-            "SwiGLU decoders only")
+            f"{cfg.name!r}: the port runs full-attention RMS-norm SwiGLU "
+            "decoders and mLSTM / sLSTM blocks only")
+
+
+def _attention_only(cfg: ModelConfig) -> bool:
+    return all(k in ATTENTION_BLOCKS for k in cfg.block_pattern)
+
+
+def _init_layer(cfg: ModelConfig, kind: str, gen: torch.Generator, dev,
+                dtype) -> Dict:
+    p = {"ln1": init_norm(cfg.d_model, dev, dtype)}
+    if kind == BLOCK_ATTN:
+        p.update(attn=B.init_attention(cfg, gen, dtype),
+                 ln2=init_norm(cfg.d_model, dev, dtype),
+                 mlp=B.init_mlp(cfg, gen, dtype))
+    elif kind == BLOCK_MLSTM:
+        p["cell"] = R.init_mlstm(cfg, gen, dtype)
+    else:
+        p["cell"] = R.init_slstm(cfg, gen, dtype)
+    return p
+
+
+def _rope(cfg: ModelConfig, positions: torch.Tensor):
+    """RoPE tables at ``positions`` when some layer attends, else None."""
+    if not cfg.rope_theta or not any(k in ATTENTION_BLOCKS
+                                     for k in cfg.block_pattern):
+        return None
+    return rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
 
 
 def init_params(cfg: ModelConfig, seed: int = 0,
@@ -53,11 +87,8 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     params: Dict = {
         "embed": {"w": embed.to(dtype)},
         "final_norm": init_norm(cfg.d_model, dev, dtype),
-        "layers": [{"ln1": init_norm(cfg.d_model, dev, dtype),
-                    "attn": B.init_attention(cfg, gen, dtype),
-                    "ln2": init_norm(cfg.d_model, dev, dtype),
-                    "mlp": B.init_mlp(cfg, gen, dtype)}
-                   for _ in range(cfg.n_layers)],
+        "layers": [_init_layer(cfg, kind, gen, dev, dtype)
+                   for kind in cfg.layer_kinds()],
     }
     del embed
     if cfg.tie_embeddings:
@@ -94,12 +125,42 @@ def _ffn_tail(cfg: ModelConfig, ctx: QuantCtx, p: Dict, x: torch.Tensor,
     return x + B.mlp_fwd(cfg, ctx, p["mlp"], h, subcol(col, "mlp"))
 
 
-def _layer_fwd(cfg: ModelConfig, ctx: QuantCtx, p: Dict, x: torch.Tensor,
-               rope, col: Optional[Dict]) -> torch.Tensor:
+def _block_fwd(cfg: ModelConfig, ctx: QuantCtx, kind: str, p: Dict,
+               x: torch.Tensor, rope, col: Optional[Dict]) -> torch.Tensor:
+    """One layer of the training / teacher / calibration forward."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    x = x + B.attn_fwd(cfg, ctx, p["attn"], h, rope, subcol(col, "attn"),
-                       window=cfg.sliding_window)
-    return _ffn_tail(cfg, ctx, p, x, col)
+    if kind == BLOCK_ATTN:
+        x = x + B.attn_fwd(cfg, ctx, p["attn"], h, rope, subcol(col, "attn"),
+                           window=cfg.sliding_window)
+        return _ffn_tail(cfg, ctx, p, x, col)
+    fwd = R.mlstm_fwd if kind == BLOCK_MLSTM else R.slstm_fwd
+    return x + fwd(cfg, ctx, p["cell"], h, subcol(col, "cell"))
+
+
+def _block_prefill(cfg: ModelConfig, ctx: QuantCtx, kind: str, p: Dict,
+                   x: torch.Tensor, rope, **attn_kw):
+    """One layer of the prefill: (x, the layer's serving cache)."""
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    if kind == BLOCK_ATTN:
+        a, c = B.attn_prefill(cfg, ctx, p["attn"], h, rope, **attn_kw)
+        return _ffn_tail(cfg, ctx, p, x + a), c
+    mod = R.mlstm_prefill if kind == BLOCK_MLSTM else R.slstm_prefill
+    y, c = mod(cfg, ctx, p["cell"], h)
+    return x + y, c
+
+
+def _block_decode(cfg: ModelConfig, ctx: QuantCtx, kind: str, p: Dict,
+                  x1: torch.Tensor, cache: Dict, positions: torch.Tensor,
+                  block_tbl, rope) -> torch.Tensor:
+    """One layer of a decode step; the layer's cache is updated in place."""
+    h = rms_norm(x1, p["ln1"], cfg.norm_eps)
+    if kind == BLOCK_ATTN:
+        a, _ = B.attn_decode(cfg, ctx, p["attn"], h, cache, positions,
+                             block_tbl=block_tbl, rope=rope)
+        return _ffn_tail(cfg, ctx, p, x1 + a)
+    dec = R.mlstm_decode if kind == BLOCK_MLSTM else R.slstm_decode
+    y, _ = dec(cfg, ctx, p["cell"], h, cache)
+    return x1 + y
 
 
 def forward(cfg: ModelConfig, params: Dict, ctx: QuantCtx, batch: Dict,
@@ -119,19 +180,17 @@ def forward(cfg: ModelConfig, params: Dict, ctx: QuantCtx, batch: Dict,
     tokens = batch["tokens"]
     x = params["embed"]["w"][tokens]
     S = tokens.shape[1]
-    rope = None
-    if cfg.rope_theta:
-        rope = rope_tables(torch.arange(S, device=x.device),
-                           cfg.resolved_head_dim, cfg.rope_theta)
+    rope = _rope(cfg, torch.arange(S, device=x.device))
     col: Optional[Dict] = {} if collect_stats else None
     layer_cols: List[Optional[Dict]] = []
-    for p in params["layers"]:
+    for kind, p in zip(cfg.layer_kinds(), params["layers"]):
         c = {} if collect_stats else None
         if remat and torch.is_grad_enabled():
             x = torch.utils.checkpoint.checkpoint(
-                _layer_fwd, cfg, ctx, p, x, rope, c, use_reentrant=False)
+                _block_fwd, cfg, ctx, kind, p, x, rope, c,
+                use_reentrant=False)
         else:
-            x = _layer_fwd(cfg, ctx, p, x, rope, c)
+            x = _block_fwd(cfg, ctx, kind, p, x, rope, c)
         layer_cols.append(c)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = head_logits(cfg, params, ctx, x, col)
@@ -151,26 +210,29 @@ def prefill(cfg: ModelConfig, params: Dict, ctx: QuantCtx, batch: Dict,
     last real token and the cache records true lengths. ``cache_budget``:
     cache capacity (>= prompt length). ``page_size`` > 0 emits
     block-shaped caches (B, nb, Hkv, page_size, D) for the paged engine to
-    scatter into its pool. Returns (logits (B, 1, V),
+    scatter into its pool. ``lengths`` and ``page_size`` need an
+    attention-only decoder: a recurrent scan would fold the padding into
+    its state. Returns (logits (B, 1, V),
     {"layers": [per-layer cache], "position": (B,)}).
     """
     _check_supported(cfg)
     tokens = batch["tokens"]
     lengths = batch.get("lengths")
+    if (lengths is not None or page_size) and not _attention_only(cfg):
+        raise ValueError(
+            "batch['lengths'] (right-padded prefill) and page_size (paged "
+            "cache) require an attention-only decoder; "
+            f"{cfg.name!r} has block pattern {cfg.block_pattern}")
     x = params["embed"]["w"][tokens]
     Bn, S = tokens.shape
-    hd = cfg.resolved_head_dim
-    rope = None
-    if cfg.rope_theta:
-        rope = rope_tables(torch.arange(S, device=x.device), hd,
-                           cfg.rope_theta)
+    rope = _rope(cfg, torch.arange(S, device=x.device))
+    # CUDA attends row by row over the true lengths: read them once
+    rows = lengths.tolist() if lengths is not None and x.is_cuda else None
     caches = []
-    for p in params["layers"]:
-        h = rms_norm(x, p["ln1"], cfg.norm_eps)
-        a, c = B.attn_prefill(cfg, ctx, p["attn"], h, rope,
+    for kind, p in zip(cfg.layer_kinds(), params["layers"]):
+        x, c = _block_prefill(cfg, ctx, kind, p, x, rope,
                               cache_len=cache_budget or S, lengths=lengths,
-                              page_size=page_size)
-        x = _ffn_tail(cfg, ctx, p, x + a)
+                              page_size=page_size, row_lengths=rows)
         caches.append(c)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     if lengths is None:
@@ -189,23 +251,19 @@ def decode_step(cfg: ModelConfig, params: Dict, ctx: QuantCtx,
                 tokens1: torch.Tensor, cache: Dict):
     """One decode step. tokens1 (B, 1) -> (logits (B, 1, V), cache).
 
-    The cache is updated in place (each layer's new K/V row, lengths and
-    ``position``) and returned. A ``block_tbl`` in the cache switches the
+    The cache is updated in place (each attention layer's new K/V row and
+    length, each recurrent layer's state, and ``position``) and returned. A ``block_tbl`` in the cache switches the
     layers to the paged layout: commits and reads go through the per-slot
     block table into the pool (see ``init_cache`` with ``num_blocks``).
     """
     positions = cache["position"]
     block_tbl = cache.get("block_tbl")
     x = params["embed"]["w"][tokens1]
-    rope = None
-    if cfg.rope_theta:        # once per step, shared by every layer
-        rope = rope_tables(positions[:, None], cfg.resolved_head_dim,
-                           cfg.rope_theta)
-    for p, c in zip(params["layers"], cache["layers"]):
-        h = rms_norm(x, p["ln1"], cfg.norm_eps)
-        a, _ = B.attn_decode(cfg, ctx, p["attn"], h, c, positions,
-                             block_tbl=block_tbl, rope=rope)
-        x = _ffn_tail(cfg, ctx, p, x + a)
+    rope = _rope(cfg, positions[:, None])   # once per step, for every layer
+    for kind, p, c in zip(cfg.layer_kinds(), params["layers"],
+                          cache["layers"]):
+        x = _block_decode(cfg, ctx, kind, p, x, c, positions, block_tbl,
+                          rope)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = head_logits(cfg, params, ctx, x)
     cache["position"] += 1
@@ -330,14 +388,25 @@ def init_cache(cfg: ModelConfig, ctx: QuantCtx, batch_size: int,
                page_size: int = 0, table_len: int = 0) -> Dict:
     """Blank serving cache with capacity ``cache_len`` per slot.
 
+    Attention layers hold a dense K/V ring, mLSTM layers their quantized
+    matrix state (``state_q``, ``s_state``), sLSTM layers their quantized
+    h (``state_q``, ``s_state``) and f32 ``c``.
+
     ``num_blocks`` > 0 switches to the paged layout: one global pool of
     ``num_blocks`` x ``page_size``-token quantized blocks per layer (plus
     the sink block), held as layer-stacked leaves under ``"pool"`` with
     per-layer views under ``"layers"``, and a top-level ``block_tbl``
     (batch_size, table_len) int32 mapping each slot's logical block i to
-    a pool block, initialised to the ``num_blocks`` sentinel.
+    a pool block, initialised to the ``num_blocks`` sentinel. It needs a
+    full-attention decoder.
     """
     _check_supported(cfg)
+    if num_blocks and (cfg.sliding_window or any(
+            k != BLOCK_ATTN for k in cfg.block_pattern)):
+        raise ValueError(
+            "paged KV cache requires a full-attention decoder (no sliding "
+            f"window, no recurrence); {cfg.name!r} has block pattern "
+            f"{cfg.block_pattern}")
     qdt = cache_dtype(ctx)
     position = torch.zeros((batch_size,), dtype=torch.int32, device=device)
     if num_blocks:
@@ -348,9 +417,16 @@ def init_cache(cfg: ModelConfig, ctx: QuantCtx, batch_size: int,
                          dtype=torch.int32, device=device)
         return {"pool": pool, "layers": layers, "position": position,
                 "block_tbl": tbl}
-    return {"layers": [B.init_attn_cache(cfg, batch_size, cache_len,
-                                         device=device, dtype=qdt)
-                       for _ in range(cfg.n_layers)],
+
+    def layer_cache(kind):
+        if kind == BLOCK_ATTN:
+            return B.init_attn_cache(cfg, batch_size, cache_len,
+                                     device=device, dtype=qdt)
+        init = (R.init_mlstm_cache if kind == BLOCK_MLSTM
+                else R.init_slstm_cache)
+        return init(cfg, batch_size, device=device, dtype=qdt)
+
+    return {"layers": [layer_cache(kind) for kind in cfg.layer_kinds()],
             "position": position}
 
 

@@ -6,7 +6,11 @@ only at admission and harvest:
 * **Batched prefill** — the scheduler hands over up to ``slots`` queued
   requests at once; they are right-padded to a length bucket and prefilled
   in one call (per-row ``lengths`` keep the cache and logits exact; see
-  ``models.prefill``), and each row's first token is sampled there.
+  ``models.prefill``), and each row's first token is sampled there. A
+  recurrent arch (xLSTM) would fold the padding into its state, so it
+  admits groups of equal prompt length, unpadded, and its state does not
+  bound the context (no ``cache_len`` check); the paged layout needs an
+  attention-only decoder and is refused for it.
 * **Decode chunks** — sampling (greedy / temperature / top-k, each slot
   with its own jax-style PRNG key), per-slot EOS + max-token tracking and
   the generated-token buffers live in device tensors; a chunk runs up to
@@ -67,7 +71,8 @@ from typing import Dict, List, Optional, Union
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import (ATTENTION_BLOCKS, BLOCK_ATTN,
+                                      ModelConfig)
 from repro_torch.core.precision import parse_policy
 from repro_torch.core.qat import (attach_w4a8_exports, make_ctx,
                                   w4a8_weight_bytes)
@@ -83,8 +88,6 @@ from repro_torch.serve.sampling import (TOP_K_CAP, fold_step, sample_tokens,
 from repro_torch.serve.scheduler import PREEMPT_POLICIES, Scheduler
 from repro_torch.serve.spec import (SpecConfig, accept_exact,
                                     accept_rejection, make_draft)
-
-_CACHE_KEYS = ("k_q", "v_q", "s_k", "s_v", "length")
 
 
 def _pow2_ceil(n: int) -> int:
@@ -176,6 +179,12 @@ class ServeEngine:
         if weights_layout not in ("bf16", "w4a8"):
             raise ValueError(f"weights_layout must be 'bf16' or 'w4a8', "
                              f"got {weights_layout!r}")
+        if kv_layout == "paged" and (cfg.sliding_window or any(
+                k != BLOCK_ATTN for k in cfg.block_pattern)):
+            raise ValueError(
+                "kv_layout='paged' requires a full-attention decoder (no "
+                f"sliding window / recurrence); {cfg.name!r} has block "
+                f"pattern {cfg.block_pattern}")
         self.device = resolve_device(device)
         if not _same_device(params["embed"]["w"].device, self.device):
             raise ValueError(
@@ -183,6 +192,15 @@ class ServeEngine:
                 f"engine serves on {self.device}; build them there "
                 f"(init_params(..., device=...))")
         self.cfg = cfg
+        # right-padded batched prefill is exact only when every block is
+        # attention (causality isolates real tokens from padding);
+        # recurrent scans absorb pad steps into their state, so those
+        # admit exact-length groups instead
+        self._pad_ok = all(k in ATTENTION_BLOCKS for k in cfg.block_pattern)
+        # full (non-sliding) attention caches are a hard capacity bound;
+        # recurrent state is not
+        self._cache_bound = (BLOCK_ATTN in cfg.block_pattern
+                             and not cfg.sliding_window)
         self.trace = trace if trace is not None else NULL_TRACER
         self.weights_layout = weights_layout
         self._w4a8_bytes = {"packed": 0, "replaced": 0}
@@ -384,7 +402,7 @@ class ServeEngine:
                     f"block_size={self.block_size}) but the pool only has "
                     f"num_blocks={self.num_blocks}, so it can never be "
                     f"admitted; raise num_blocks")
-        elif need > self.cache_len:
+        elif self._cache_bound and need > self.cache_len:
             raise ValueError(
                 f"request needs {need} cache tokens (prompt "
                 f"{len(prompt)} + max_new_tokens {req.max_new_tokens} "
@@ -412,7 +430,8 @@ class ServeEngine:
         free = self._free_slots()
         if not free or not self.scheduler.pending:
             return
-        reqs = self.scheduler.select(len(free))
+        reqs = self.scheduler.select(len(free),
+                                     equal_length_only=not self._pad_ok)
         if not reqs:
             return
         self._admit_wave(reqs, free[:len(reqs)])
@@ -600,12 +619,15 @@ class ServeEngine:
     def _admit_batch(self, tokens, lengths, slot_idx, blk_ids, eos, max_new,
                      temp, top_k, keys, greedy_only) -> None:
         """One batched prefill, then scatter of the n fresh rows into their
-        slots: cache rows (dense) or prompt blocks through ``blk_ids``
-        (paged; sentinel entries land in the sink), position, and the
-        sampling / output state."""
+        slots: each layer's own cache leaves (dense rows, recurrent state)
+        or prompt blocks through ``blk_ids`` (paged; sentinel entries land
+        in the sink), position, and the sampling / output state. Recurrent
+        archs prefill an exact-length group, without ``lengths``."""
         page = self.block_size if self._paged else 0
-        logits, cache_n = prefill(self.cfg, self.params, self.ctx,
-                                  {"tokens": tokens, "lengths": lengths},
+        batch = {"tokens": tokens}
+        if self._pad_ok:
+            batch["lengths"] = lengths
+        logits, cache_n = prefill(self.cfg, self.params, self.ctx, batch,
                                   cache_budget=self.cache_len,
                                   page_size=page)
         first = sample_tokens(
@@ -615,7 +637,7 @@ class ServeEngine:
             temp, top_k, greedy_only=greedy_only)
         cache = self.state["cache"]
         for dst, src in zip(cache["layers"], cache_n["layers"]):
-            for key in _CACHE_KEYS:
+            for key in src:
                 if page and key != "length":
                     dst[key][blk_ids] = src[key]
                 else:
@@ -662,7 +684,11 @@ class ServeEngine:
         n = len(reqs)
         dev = self.device
         lens = np.array([len(r.prompt) for r in reqs], np.int32)
-        L = -(-int(lens.max()) // self.prefill_bucket) * self.prefill_bucket
+        if self._pad_ok:
+            L = -(-int(lens.max()) // self.prefill_bucket) \
+                * self.prefill_bucket
+        else:                       # an exact-length group
+            L = int(lens[0])
         toks = np.zeros((n, L), np.int32)
         for i, r in enumerate(reqs):
             toks[i, :lens[i]] = r.prompt
@@ -1193,7 +1219,7 @@ class ServeEngine:
                              cache_budget=self._draft_cache_len)
         dcache = self._draft_cache
         for dst, src in zip(dcache["layers"], cache_n["layers"]):
-            for key in _CACHE_KEYS:
+            for key in src:
                 dst[key][slot_idx] = src[key]
         dcache["position"][slot_idx] = cache_n["position"]
         self._host["spec_draft_prefill_tokens"] += int(lens.sum())

@@ -39,7 +39,9 @@ assert "repro_torch.serve.scheduler" in names, names
 for new in ("kernels.quant.ops", "kernels.flash_attn.ops", "core.calibration",
             "core.distill", "optim.adamw", "optim.schedules",
             "data.synthetic", "data.loader", "launch.steps", "launch.train",
-            "checkpoint.checkpointer", "runtime.fault", "tree"):
+            "checkpoint.checkpointer", "runtime.fault", "tree",
+            "kernels.slstm_scan.ops", "kernels.slstm_scan.ref",
+            "models.recurrent", "configs.xlstm_125m"):
     assert "repro_torch." + new in names, new
 import chip_smoke
 chip_smoke.import_port()

@@ -192,3 +192,49 @@ def test_rope_frequencies_and_angles_bitwise_tables_counted(n_pos):
         n_diff = int(np.sum(j != t))
         assert n_diff <= bound, f"{name}: {n_diff} entries differ > {bound}"
         np.testing.assert_array_max_ulp(j, t, maxulp=1)
+
+
+# widths of the reduced configs, of xlstm-125m and qwen2.5-3b, of a head
+# and of an MLP, and ragged ones (a partial 32-element window)
+NORM_WIDTHS = (16, 48, 64, 85, 128, 768, 1536, 2048, 11008)
+
+
+@pytest.mark.parametrize("d", NORM_WIDTHS)
+def test_rms_norm_variance_bitwise_with_op_by_op_reference(d):
+    """The CPU variance of ``rms_norm`` and ``head_rms_norm`` is bitwise
+    the reference's op by op at every width (XLA:CPU's windowed order,
+    ``models/common.py:_xla_cpu_row_sum``), on random rows of which
+    ``torch.mean`` gets about half wrong. The f32 rsqrt that follows is
+    XLA's x86 estimate and a Newton step, not reproduced bit for bit: the
+    port's correctly rounded one is within one ulp, so each normalized
+    value is bitwise where the two rsqrt agree and within one bf16 ulp
+    elsewhere."""
+    from repro.models.common import head_rms_norm as jhead
+    from repro.models.common import rms_norm as jrms
+    from repro_torch.models.common import _mean_sq, head_rms_norm, rms_norm
+    rng = np.random.default_rng(d)
+    x = (rng.standard_normal((256, d)) * 3).astype(np.float32)
+    w = (rng.standard_normal(d) * 0.1 + 1).astype(np.float32)
+    xb, wb = jnp.asarray(x).astype(jnp.bfloat16), jnp.asarray(w).astype(
+        jnp.bfloat16)
+    with jax.disable_jit():
+        xf = xb.astype(jnp.float32)
+        jvar = np.asarray(jnp.mean(xf * xf, axis=-1, keepdims=True))
+        jr = np.asarray(jax.lax.rsqrt(jnp.asarray(jvar) + 1e-6))
+        jy = _f32(jrms(xb, {"w": wb}))
+        jh = _f32(jhead(xb, wb, 1e-6))
+    tx = torch.from_numpy(np.asarray(xf)).to(torch.bfloat16)
+    tw = torch.from_numpy(w).to(torch.bfloat16)
+    txf = tx.float()
+    tvar = _mean_sq(txf).numpy()
+    np.testing.assert_array_equal(tvar, jvar)
+    old = torch.mean(txf * txf, dim=-1, keepdim=True).numpy()
+    if d > 32:      # rows the previous torch.mean summed apart
+        assert np.mean(old != jvar) >= 0.2
+    tr = torch.rsqrt((torch.from_numpy(tvar) + 1e-6).double()).float().numpy()
+    np.testing.assert_array_max_ulp(tr, jr, maxulp=1)
+    same = (tr == jr)[:, 0]
+    for got, want in ((_f32(rms_norm(tx, {"w": tw})), jy),
+                      (_f32(head_rms_norm(tx, tw, 1e-6)), jh)):
+        np.testing.assert_array_equal(got[same], want[same])
+        np.testing.assert_allclose(got, want, rtol=2.0 ** -7, atol=0)

@@ -234,10 +234,17 @@ class TestPrefixSharingEngine:
         return eng.run_until_drained()
 
     def test_token_parity_prefix_sharing_on_vs_off(self, served):
-        """Greedy outputs of a shared-prefix batch are identical with
-        sharing on vs off, including the followers that COW the split
-        block (the 40-token prefix ends 8 tokens into a block); the hit
-        and COW counts equal the JAX engine's on the same requests."""
+        """Greedy outputs of a shared-prefix batch with sharing on and
+        with it off, including the followers that COW the split block
+        (the 40-token prefix ends 8 tokens into a block), each equal to
+        the JAX engine's in the same mode run op by op; the hit and COW
+        counts equal the reference's too.
+
+        A prefix hit reads the cached tokens back quantized where a cold
+        prefill computes them, so the two modes need not give the same
+        tokens: here the last token of request 1 differs between them,
+        in the reference (op by op: 35 on, 216 off; compiled: 216 on, 35
+        off) as in the port, and everything else agrees."""
         reqs_on = self._shared_reqs()
         reqs_off = self._shared_reqs()
         on = self._run_staged(self._engine(served, prefix_cache=True),
@@ -245,18 +252,26 @@ class TestPrefixSharingEngine:
         off = self._run_staged(self._engine(served, prefix_cache=False),
                                reqs_off)
         assert all(r.done for r in reqs_on + reqs_off)
-        assert [r.generated for r in reqs_on] == \
-            [r.generated for r in reqs_off]
         assert on["prefix_hit_tokens"] >= 64
         assert on["cow_copies"] >= 2          # split block cloned per fork
         assert off["prefix_hit_tokens"] == 0 and off["cow_copies"] == 0
         assert on["prompt_tokens_prefilled"] < \
             off["prompt_tokens_prefilled"] - 2 * self.BS
-        ref = self._run_staged(self._jax_engine(served, prefix_cache=True),
-                               self._shared_reqs(JRequest))
-        for k in ("prefix_hit_tokens", "prefix_hit_blocks", "cow_copies",
-                  "prompt_tokens_prefilled", "prefix_lookups"):
-            assert on[k] == ref[k], k
+        for mode, reqs, stats in ((True, reqs_on, on),
+                                  (False, reqs_off, off)):
+            jreqs = self._shared_reqs(JRequest)
+            with jax.disable_jit():
+                ref = self._run_staged(
+                    self._jax_engine(served, prefix_cache=mode), jreqs)
+            assert [r.generated for r in reqs] == \
+                [r.generated for r in jreqs], mode
+            for k in ("prefix_hit_tokens", "prefix_hit_blocks",
+                      "cow_copies", "prompt_tokens_prefilled",
+                      "prefix_lookups"):
+                assert stats[k] == ref[k], (mode, k)
+        flat_on = [t for r in reqs_on for t in r.generated]
+        flat_off = [t for r in reqs_off for t in r.generated]
+        assert sum(a != b for a, b in zip(flat_on, flat_off)) <= 1
 
     def test_cow_protects_original_for_reissued_prompt(self, served):
         """After divergent followers wrote their copies of the split
