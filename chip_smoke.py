@@ -14,9 +14,12 @@ toolkit (``nvcc``). Phases, each fatal on failure (non-zero exit):
    batch, for every linear of qwen2.5-3b with and without bias;
    ``kvq_decode_attn`` within one bf16 ulp on ragged lengths;
    ``kvq_paged_decode_attn`` within one bf16 ulp at block sizes 64 and 16
-   on shuffled tables with sentinels and a parked row;
+   on shuffled tables with sentinels and a parked row, on lengths around
+   its split and group boundaries and at a long cache (32768, 20000,
+   8192, 1), each row bitwise equal alone and in a batch of 4;
    ``gather_dequant_paged_kv`` and ``pool_block_copy`` bitwise;
-   ``kvq_spec_verify_attn`` within one bf16 ulp at both block sizes, each
+   ``kvq_spec_verify_attn`` within one bf16 ulp at both block sizes, on
+   windows across split boundaries and ending at the long cache, each
    query bitwise equal to ``kvq_paged_decode_attn`` at its length;
    ``rms_norm`` bitwise across row counts; ``fake_quant_fwd`` and the
    ``dx`` of ``fake_quant_bwd`` bitwise at bits 4 and 8 on every weight
@@ -33,7 +36,8 @@ toolkit (``nvcc``). Phases, each fatal on failure (non-zero exit):
    one decode step's logits against the same engine on the plain
    versions; then one prompt prefilled alone and in a wave of 4: its
    cache and first-token logits bitwise the same (cold-prefill batch
-   invariance);
+   invariance), under the w4a8 layout and under bf16 (the serve CLI's
+   default; fresh bf16 weights);
 3b. paged serve: the same model on the paged pool (4 slots, blocks of
    64, 32 blocks, prefix cache on); 8 requests sharing a 160-token prefix,
    so prefix hits, copy-on-write of the split block and tail-waves all
@@ -82,8 +86,9 @@ toolkit (``nvcc``). Phases, each fatal on failure (non-zero exit):
    input copies past 100 MB), its plain version, one PyTorch call
    computing the same function (a yardstick the port never calls) and
    the least time the card needs for the work (``slstm_scan``: per
-   teacher forward, against a per-step ``torch.addmm`` loop); decode
-   tok/s and TTFT of the serve phases.
+   teacher forward, against a per-step ``torch.addmm`` loop); the paged
+   decode and verify kernels also per launch at a long cache (32768,
+   20000, 8192, 1 tokens); decode tok/s and TTFT of the serve phases.
 
 The line before the last is a JSON object with every kernel's numbers; the
 last line is ``{"ok": true, "device": {...}}``. Details go to
@@ -444,6 +449,19 @@ def time_kvq(torch, P, cfg, dev, report):
 PAGED_TOKENS = 512             # the paged serve phase's per-slot extent
 PAGED_BS = (64, 16)            # the engine's block size and the tests'
 PAGED_LENGTHS = (512, 1, 97, 200)
+PAGED_LONG = (32768, 20000, 8192, 1)   # qwen2.5-3b's context, ragged
+
+
+MERGE_GROUP = 16   # splits a first-level merger of the paged kernels
+#                    takes (NG in csrc/kvq_paged_split.cuh)
+
+
+def split_lengths(P):
+    """Lengths on and around the paged kernels' split boundaries (SPLIT
+    tokens a CTA) and their group boundary (MERGE_GROUP splits, where the
+    second merge level starts), with a parked row."""
+    S, NG = P["kvq_ops"].SPLIT, MERGE_GROUP
+    return (0, 1, S - 1, S, S + 1, 3 * S, NG * S, NG * S + 1)
 GATHER_SHAPE = (4, 8, 64)      # n rows, T table entries, bs
 COPY_LAYERS = 36
 
@@ -475,7 +493,7 @@ def shuffled_table(torch, gen, nb, rows, T, lengths, bs, dev):
 
 
 def paged_inputs(torch, gen, cfg, bs, lengths, dev):
-    B, T = len(lengths), PAGED_TOKENS // bs
+    B, T = len(lengths), -(-max(PAGED_TOKENS, *lengths) // bs)
     nb = B * T + 8                     # spare blocks the tables skip
     H, D = cfg.n_heads, cfg.resolved_head_dim
     q = torch.randn((B, H, D), generator=gen, device=dev).to(torch.bfloat16)
@@ -487,17 +505,20 @@ def paged_inputs(torch, gen, cfg, bs, lengths, dev):
 
 def check_paged_decode(torch, P, cfg, dev, report):
     """The paged decode kernel against its plain version at both block
-    sizes, on ragged lengths and with one parked (all-sentinel, length 0)
-    row in place of the one-token row."""
+    sizes, on ragged lengths, with one parked (all-sentinel, length 0)
+    row in place of the one-token row, on the lengths around the split
+    and group boundaries, and at a long cache."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(6)
     kern = P["kvq_ops"].kvq_paged_decode_attn
     ref = P["kvq_ref"].kvq_paged_decode_attn_ref
     rtol, atol = KVQ_TOL
     worst = 0.0
+    cases = (PAGED_LENGTHS, (PAGED_LENGTHS[0], 0) + PAGED_LENGTHS[2:],
+             split_lengths(P), PAGED_LONG)
+    errs = []
     for bs in PAGED_BS:
-        for lengths in (PAGED_LENGTHS,
-                        (PAGED_LENGTHS[0], 0) + PAGED_LENGTHS[2:]):
+        for lengths in cases:
             args = paged_inputs(torch, gen, cfg, bs, lengths, dev)
             got = kern(*args).float()
             want = ref(*args).float()
@@ -509,15 +530,84 @@ def check_paged_decode(torch, P, cfg, dev, report):
                   f"kvq_paged_decode_attn bs={bs} lengths {lengths} differs "
                   f"from its plain version: max abs err {err} (rtol {rtol}, "
                   f"atol {atol})")
-            if 0 in lengths:
-                check(bool((got[1] == 0).all()),
-                      "kvq_paged_decode_attn: a parked row is not zero")
+            for i, n in enumerate(lengths):
+                if n == 0:
+                    check(bool((got[i] == 0).all()),
+                          "kvq_paged_decode_attn: a parked row is not zero")
             worst = max(worst, err)
+            errs.append({"bs": bs, "lengths": list(lengths),
+                         "max_abs_err": err})
+            del args, got, want
     report["paged_decode_max_abs_err"] = worst
+    report["paged_decode_cases"] = errs
     print(f"phase 2: kvq_paged_decode_attn within rtol {rtol} atol {atol} "
           f"of its plain version at bs {PAGED_BS} (max abs err {worst:.3g}, "
-          f"lengths {PAGED_LENGTHS}, and a parked row)", flush=True)
+          f"lengths {PAGED_LENGTHS}, a parked row, split boundaries "
+          f"{split_lengths(P)}, long cache {PAGED_LONG})", flush=True)
     return worst
+
+
+def check_paged_scratch(torch, P, cfg, dev):
+    """Both split-KV launchers refuse (cudaErrorInvalidValue, 1) a
+    workspace or ticket buffer one element shorter than the source's
+    ``kvq_paged_split_scratch`` asks for, and write nothing. Calls the C
+    launchers directly: nothing launches, no count moves."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(19)
+    ops = P["kvq_ops"]
+    bs = PAGED_BS[0]
+    for name, args in (
+            ("kvq_paged_decode_attn",
+             paged_inputs(torch, gen, cfg, bs, PAGED_LENGTHS, dev)),
+            ("kvq_spec_verify_attn", spec_inputs(torch, gen, cfg, bs, dev))):
+        q, k, v, s_k, s_v, tbl, lens = args
+        B, H, D = q.shape[0], q.shape[-2], q.shape[-1]
+        C = q.shape[1] if q.dim() == 4 else 1
+        Hkv, bs_, T = k.shape[1], k.shape[2], tbl.shape[1]
+        ws_n, tk_n = ops._scratch_need(B, C, H, Hkv, D, T, bs_)
+        ws = torch.empty(ws_n, dtype=torch.float32, device=dev)
+        tk = torch.zeros(tk_n, dtype=torch.int32, device=dev)
+        out = torch.zeros_like(q)
+        shape = (B, H, Hkv) if q.dim() == 3 else (B, C, H, Hkv)
+        for ws_len, tk_len in ((ws_n - 1, tk_n), (ws_n, tk_n - 1)):
+            err = ops._fn(name)(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), s_k.data_ptr(),
+                s_v.data_ptr(), tbl.data_ptr(), lens.data_ptr(),
+                out.data_ptr(), ws.data_ptr(), ws_len, tk.data_ptr(),
+                tk_len, *shape, k.shape[0] - 1, bs_, T, D, D ** -0.5,
+                torch.cuda.current_stream(dev).cuda_stream)
+            torch.cuda.synchronize()
+            check(err == 1 and not bool(out.any()),
+                  f"{name} took {ws_len} of {ws_n} workspace and {tk_len} "
+                  f"of {tk_n} tickets: error {err}")
+    print(f"phase 2: the paged launchers refuse scratch one element short "
+          f"of kvq_paged_split_scratch's", flush=True)
+
+
+def check_paged_rows(torch, P, cfg, dev, report):
+    """Batch invariance of paged decode: each row of a 4-slot call is
+    bitwise equal to the same row run alone (B = 1), at both block sizes,
+    at the serve phase's lengths and at a long cache."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(18)
+    kern = P["kvq_ops"].kvq_paged_decode_attn
+    for bs in PAGED_BS:
+        for lengths in (PAGED_LENGTHS, PAGED_LONG):
+            q, k, v, s_k, s_v, tbl, lens = paged_inputs(torch, gen, cfg, bs,
+                                                        lengths, dev)
+            full = kern(q, k, v, s_k, s_v, tbl, lens)
+            for i in range(len(lengths)):
+                one = kern(q[i:i + 1], k, v, s_k, s_v, tbl[i:i + 1],
+                           lens[i:i + 1])
+                check(torch.equal(full[i:i + 1], one),
+                      f"kvq_paged_decode_attn bs={bs}: row {i} (length "
+                      f"{lengths[i]}) differs alone and in a batch of "
+                      f"{len(lengths)}")
+            del k, v, s_k, s_v
+    report["paged_decode_batch_invariant"] = True
+    print(f"phase 2: kvq_paged_decode_attn rows bitwise equal alone and in a "
+          f"batch of 4 at bs {PAGED_BS} (lengths {PAGED_LENGTHS} and "
+          f"{PAGED_LONG})", flush=True)
 
 
 def gather_inputs(torch, gen, cfg, dev):
@@ -590,52 +680,115 @@ def check_copy(torch, P, cfg, dev, report):
     return 0.0
 
 
-def time_paged_decode(torch, P, cfg, dev, report):
-    """Per decode step (36 launches) at the paged serve phase's shapes:
-    B = 4 slots, T = 8 table entries of 64 tokens."""
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(9)
-    bs = PAGED_BS[0]
-    base = paged_inputs(torch, gen, cfg, bs, PAGED_LENGTHS, dev)
-    sets = [base] + [paged_inputs(torch, gen, cfg, bs, PAGED_LENGTHS, dev)
-                     for _ in range(copies_for(tensor_bytes(*base)) - 1)]
-    kern = P["kvq_ops"].kvq_paged_decode_attn
-    t_k = time_ms(torch, kern, sets)
-    t_host = host_issued_ms(torch, kern, sets)
-    t_p = time_ms(torch, P["kvq_ref"].kvq_paged_decode_attn_ref, sets)
-    import torch.nn.functional as F
+def sdpa_paged_sets(torch, P, cfg, sets, lens_of, gqa):
+    """SDPA's inputs for each paged arg set: the table's K/V gathered and
+    dequantized to bf16 (expanded to every query head, or kept per KV head
+    for ``enable_gqa``) and a boolean length mask; ``lens_of(lens)`` is
+    the mask's (B, 1 | C, S) form."""
     G = cfg.n_heads // cfg.n_kv_heads
     gather = P["kvq_ref"].gather_paged_kv
-    lib_sets = []
-    S = PAGED_TOKENS
+    out = []
     for q, k, v, s_k, s_v, tbl, lens in sets:
         kd = (gather(k, tbl).float() * gather(s_k, tbl)[..., None])
         vd = (gather(v, tbl).float() * gather(s_v, tbl)[..., None])
-        kd = kd.to(torch.bfloat16).repeat_interleave(G, dim=1)
-        vd = vd.to(torch.bfloat16).repeat_interleave(G, dim=1)
-        mask = (torch.arange(S, device=dev)[None, :]
-                < lens[:, None])[:, None, None, :]
-        lib_sets.append((q[:, :, None, :], kd, vd, mask))
-    t_l = time_ms(torch, lambda q, k, v, m: F.scaled_dot_product_attention(
-        q, k, v, attn_mask=m), lib_sets)
+        kd, vd = kd.to(torch.bfloat16), vd.to(torch.bfloat16)
+        if not gqa:
+            kd = kd.repeat_interleave(G, dim=1)
+            vd = vd.repeat_interleave(G, dim=1)
+        S = kd.shape[2]
+        mask = lens_of(torch.arange(S, device=q.device), lens)[:, None]
+        qq = q[:, :, None, :] if q.dim() == 3 else q.transpose(1, 2)
+        out.append((qq, kd, vd, mask))
+    return out
+
+
+def time_paged_launch(torch, P, cfg, name, base, make):
+    """One launch of the paged decode (``name`` "paged_decode") or verify
+    kernel on ``base`` and rotated copies from ``make()``: device ms
+    (graph replay), host-issued ms, the plain version, SDPA (K/V expanded
+    to every head, and with ``enable_gqa``) and the bound."""
+    import torch.nn.functional as F
+    sets = [base] + [make() for _ in range(copies_for(tensor_bytes(*base))
+                                           - 1)]
+    ops, ref = P["kvq_ops"], P["kvq_ref"]
+    verify = name == "spec_verify"
+    kern = ops.kvq_spec_verify_attn if verify else ops.kvq_paged_decode_attn
+    plain = (ref.kvq_spec_verify_attn_ref if verify
+             else ref.kvq_paged_decode_attn_ref)
+    t_k = time_ms(torch, kern, sets)
+    t_host = host_issued_ms(torch, kern, sets)
+    t_p = time_ms(torch, plain, sets, min_calls=10)
+    if verify:
+        def lens_of(pos, lens):                          # (B, C, S)
+            return pos[None, None, :] < lens[:, :, None]
+    else:
+        def lens_of(pos, lens):                          # (B, 1, S)
+            return (pos[None, :] < lens[:, None])[:, None, :]
+    lib = {}
+    for gqa in (False, True):
+        lib_sets = sdpa_paged_sets(torch, P, cfg, sets, lens_of, gqa)
+        lib[gqa] = time_ms(torch, lambda q, k, v, m: (
+            F.scaled_dot_product_attention(q, k, v, attn_mask=m,
+                                           enable_gqa=gqa)), lib_sets)
+        del lib_sets
+        torch.cuda.empty_cache()
+    q, _, _, _, _, tbl, lens = base
     H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    B, T = len(PAGED_LENGTHS), PAGED_TOKENS // bs
-    tokens = sum(PAGED_LENGTHS)
-    nbytes = (2 * B * H * D                  # q
-              + tokens * Hkv * (2 * D + 8)   # resident int8 K/V + scales
-              + 4 * B * T + 4 * B            # table + lengths
-              + 2 * B * H * D)               # out
-    flops = 4 * tokens * H * D
+    B, T = tbl.shape
+    l2 = lens if verify else lens[:, None]
+    resident = int(l2.max(dim=1).values.sum())      # each token read once
+    nq = q.numel() // (H * D)                       # (slot, query) rows
+    nbytes = (2 * q.numel()                          # q
+              + resident * Hkv * (2 * D + 8)         # int8 K/V + f32 scales
+              + 4 * B * T + 4 * l2.numel()           # table + lengths
+              + 2 * q.numel())                       # out
+    flops = 4 * int(l2.sum()) * H * D
     t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
-    per_step = cfg.n_layers
-    report["paged_decode_per_launch"] = {
-        "ms": t_k, "host_issued_ms": t_host, "plain_ms": t_p,
-        "library_ms": t_l, "bound_ms": max(t_b, t_o) * 1e3,
-        "lengths": list(PAGED_LENGTHS), "block_size": bs, "T": T}
-    return {"ms": per_step * t_k, "plain_ms": per_step * t_p,
-            "library_ms": per_step * t_l,
-            "bound_ms": per_step * max(t_b, t_o) * 1e3,
-            "bound_by": "bytes" if t_b >= t_o else "operations"}
+    del sets
+    torch.cuda.empty_cache()
+    return {"ms": t_k, "host_issued_ms": t_host, "plain_ms": t_p,
+            "library_ms": lib[False], "library_gqa_ms": lib[True],
+            "bound_ms": max(t_b, t_o) * 1e3, "byte_bound_ms": t_b * 1e3,
+            "operation_bound_ms": t_o * 1e3,
+            "bound_by": "bytes" if t_b >= t_o else "operations",
+            "bound_share": max(t_b, t_o) * 1e3 / t_k,
+            "byte_bound_share": t_b * 1e3 / t_k,
+            "lengths": lens.tolist(), "block_size": base[1].shape[2],
+            "T": T, "rows": nq}
+
+
+def per_step(t, n):
+    """A per-launch timing as ``n`` launches (a decode step or a
+    verify-wave of every layer)."""
+    return {"ms": n * t["ms"], "plain_ms": n * t["plain_ms"],
+            "library_ms": n * t["library_ms"],
+            "bound_ms": n * t["bound_ms"], "bound_by": t["bound_by"]}
+
+
+def time_paged_decode(torch, P, cfg, dev, report):
+    """Per decode step (36 launches) at the paged serve phase's shapes:
+    B = 4 slots, T = 8 table entries of 64 tokens; and one launch at the
+    long cache (PAGED_LONG, bs 64)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    bs = PAGED_BS[0]
+    out = {}
+    for key, lengths in (("paged_decode_per_launch", PAGED_LENGTHS),
+                         ("paged_decode_long", PAGED_LONG)):
+        def make():
+            return paged_inputs(torch, gen, cfg, bs, lengths, dev)
+        out[key] = time_paged_launch(torch, P, cfg, "paged_decode",
+                                     make(), make)
+        report[key] = out[key]
+    t, lt = out["paged_decode_per_launch"], out["paged_decode_long"]
+    print(f"phase 4: kvq_paged_decode_attn per launch: {t['ms'] * 1e3:.2f} "
+          f"us (host-issued {t['host_issued_ms'] * 1e3:.2f} us), SDPA "
+          f"{t['library_ms'] * 1e3:.2f} us; long cache {PAGED_LONG}: "
+          f"{lt['ms'] * 1e3:.2f} us, byte bound "
+          f"{lt['byte_bound_ms'] * 1e3:.2f} us (share "
+          f"{lt['byte_bound_share']:.3f}), SDPA {lt['library_ms'] * 1e3:.1f}"
+          f" us, SDPA gqa {lt['library_gqa_ms'] * 1e3:.1f} us", flush=True)
+    return per_step(t, cfg.n_layers)
 
 
 def time_gather(torch, P, cfg, dev, report):
@@ -728,17 +881,33 @@ def spec_histories(bs):
     return (SPEC_T * bs - SPEC_C, None, bs - 2, 3 * bs + 8)
 
 
-def spec_inputs(torch, gen, cfg, bs, dev):
-    hist = spec_histories(bs)
-    B, C = len(hist), SPEC_C
-    nb = B * SPEC_T + 8
+def spec_lengths(hist):
+    """Per-query extents of verify windows after the histories ``hist``
+    (None: a parked row, every length 0)."""
+    return [[0] * SPEC_C if h is None else [h + 1 + c for c in range(SPEC_C)]
+            for h in hist]
+
+
+def window_lengths(ends):
+    """Per-query extents of windows whose last query reads ``ends[b]``
+    tokens (clamped at 0)."""
+    return [[max(0, n - SPEC_C + 1 + c) for c in range(SPEC_C)]
+            for n in ends]
+
+
+def spec_inputs(torch, gen, cfg, bs, dev, lens=None):
+    """Verify inputs for per-query extents ``lens`` (B lists of C), by
+    default the windows after ``spec_histories``; the table spans SPEC_T
+    entries or the longest extent."""
+    lens = spec_lengths(spec_histories(bs)) if lens is None else lens
+    B, C = len(lens), SPEC_C
+    T = max(SPEC_T, -(-max(max(x) for x in lens) // bs))
+    nb = B * T + 8
     H, D = cfg.n_heads, cfg.resolved_head_dim
     q = torch.randn((B, C, H, D), generator=gen, device=dev).to(
         torch.bfloat16)
     k, v, s_k, s_v = paged_pool(torch, gen, cfg, nb, bs, dev)
-    lens = [[0] * C if h is None else [h + 1 + c for c in range(C)]
-            for h in hist]
-    tbl = shuffled_table(torch, gen, nb, B, SPEC_T, [max(x) for x in lens],
+    tbl = shuffled_table(torch, gen, nb, B, T, [max(x) for x in lens],
                          bs, dev)
     return (q, k, v, s_k, s_v, tbl,
             torch.tensor(lens, dtype=torch.int32, device=dev))
@@ -754,36 +923,55 @@ def check_spec_verify(torch, P, cfg, dev, report):
     ops = P["kvq_ops"]
     ref = P["kvq_ref"].kvq_spec_verify_attn_ref
     rtol, atol = KVQ_TOL
+    S, NG = ops.SPLIT, MERGE_GROUP
     worst = 0.0
+    errs = []
     for bs in PAGED_BS:
-        q, k, v, s_k, s_v, tbl, lens = spec_inputs(torch, gen, cfg, bs, dev)
-        got = ops.kvq_spec_verify_attn(q, k, v, s_k, s_v, tbl, lens)
-        want = ref(q, k, v, s_k, s_v, tbl, lens)
-        torch.cuda.synchronize()
-        check(bool(torch.isfinite(got.float()).all()),
-              f"kvq_spec_verify_attn bs={bs}: non-finite output")
-        err = float((got.float() - want.float()).abs().max())
-        check(torch.allclose(got.float(), want.float(), rtol=rtol,
-                             atol=atol),
-              f"kvq_spec_verify_attn bs={bs} differs from its plain version:"
-              f" max abs err {err} (rtol {rtol}, atol {atol})")
-        check(bool((got[1] == 0).all()),
-              "kvq_spec_verify_attn: a parked row is not zero")
-        for c in range(SPEC_C):
-            one = ops.kvq_paged_decode_attn(q[:, c].contiguous(), k, v, s_k,
-                                            s_v, tbl,
-                                            lens[:, c].contiguous())
-            check(torch.equal(got[:, c], one),
-                  f"kvq_spec_verify_attn bs={bs} query {c} is not bitwise "
-                  f"equal to kvq_paged_decode_attn at its length")
-        worst = max(worst, err)
+        # the serve phase's histories; windows straddling a split and the
+        # group boundary beside a parked row and one ending on a split;
+        # windows ending at the long cache's lengths
+        for lens in (None, spec_lengths((S - 3, None, NG * S - 3, 2 * S - 5)),
+                     window_lengths(PAGED_LONG)):
+            q, k, v, s_k, s_v, tbl, lens = spec_inputs(torch, gen, cfg, bs,
+                                                       dev, lens)
+            got = ops.kvq_spec_verify_attn(q, k, v, s_k, s_v, tbl, lens)
+            want = ref(q, k, v, s_k, s_v, tbl, lens)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(got.float()).all()),
+                  f"kvq_spec_verify_attn bs={bs}: non-finite output")
+            err = float((got.float() - want.float()).abs().max())
+            check(torch.allclose(got.float(), want.float(), rtol=rtol,
+                                 atol=atol),
+                  f"kvq_spec_verify_attn bs={bs} lengths {lens.tolist()} "
+                  f"differs from its plain version: max abs err {err} "
+                  f"(rtol {rtol}, atol {atol})")
+            for b in range(lens.shape[0]):
+                for c in range(SPEC_C):
+                    if int(lens[b, c]) == 0:
+                        check(bool((got[b, c] == 0).all()),
+                              "kvq_spec_verify_attn: a parked row is not "
+                              "zero")
+            for c in range(SPEC_C):
+                one = ops.kvq_paged_decode_attn(q[:, c].contiguous(), k, v,
+                                                s_k, s_v, tbl,
+                                                lens[:, c].contiguous())
+                check(torch.equal(got[:, c], one),
+                      f"kvq_spec_verify_attn bs={bs} query {c} is not "
+                      f"bitwise equal to kvq_paged_decode_attn at its "
+                      f"length (lengths {lens[:, c].tolist()})")
+            worst = max(worst, err)
+            errs.append({"bs": bs, "lengths": lens.tolist(),
+                         "max_abs_err": err})
+            del q, k, v, s_k, s_v, got, want
     report["spec_verify_max_abs_err"] = worst
+    report["spec_verify_cases"] = errs
     report["spec_verify_bitwise_vs_paged_decode"] = True
     print(f"phase 2: kvq_spec_verify_attn within rtol {rtol} atol {atol} of "
           f"its plain version at bs {PAGED_BS} (max abs err {worst:.3g}; "
           f"B=4, C={SPEC_C}, T={SPEC_T}, a boundary-straddling window and a "
-          f"parked row); every query bitwise equal to kvq_paged_decode_attn",
-          flush=True)
+          f"parked row; windows across split {S} and group {NG * S} "
+          f"boundaries; windows ending at {PAGED_LONG}); every query "
+          f"bitwise equal to kvq_paged_decode_attn", flush=True)
     return worst
 
 
@@ -827,56 +1015,29 @@ def check_norm_rows(torch, P, cfg, dev, report):
 
 def time_spec_verify(torch, P, cfg, dev, report):
     """Per verify-wave (36 launches) at bs = 64: B = 4 slots, C = 5, T = 8,
-    the histories of ``spec_histories``."""
+    the histories of ``spec_histories``; and one launch of windows ending
+    at the long cache's lengths."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(17)
     bs = PAGED_BS[0]
-    base = spec_inputs(torch, gen, cfg, bs, dev)
-    sets = [base] + [spec_inputs(torch, gen, cfg, bs, dev)
-                     for _ in range(copies_for(tensor_bytes(*base)) - 1)]
-    kern = P["kvq_ops"].kvq_spec_verify_attn
-    t_k = time_ms(torch, kern, sets)
-    t_host = host_issued_ms(torch, kern, sets)
-    t_p = time_ms(torch, P["kvq_ref"].kvq_spec_verify_attn_ref, sets)
-    import torch.nn.functional as F
-    G = cfg.n_heads // cfg.n_kv_heads
-    gather = P["kvq_ref"].gather_paged_kv
-    S = SPEC_T * bs
-    lib_sets = []
-    for q, k, v, s_k, s_v, tbl, lens in sets:
-        kd = (gather(k, tbl).float() * gather(s_k, tbl)[..., None])
-        vd = (gather(v, tbl).float() * gather(s_v, tbl)[..., None])
-        kd = kd.to(torch.bfloat16).repeat_interleave(G, dim=1)
-        vd = vd.to(torch.bfloat16).repeat_interleave(G, dim=1)
-        mask = (torch.arange(S, device=dev)[None, None, :]
-                < lens[:, :, None])[:, None]                 # (B, 1, C, S)
-        lib_sets.append((q.transpose(1, 2), kd, vd, mask))
-    t_l = time_ms(torch, lambda q, k, v, m: F.scaled_dot_product_attention(
-        q, k, v, attn_mask=m), lib_sets)
-    q, _, _, _, _, _, lens = base
-    B, C, H, D = q.shape
-    Hkv = cfg.n_kv_heads
-    resident = int(lens.max(dim=1).values.sum())    # each block read once
-    nbytes = (2 * B * C * H * D                     # q
-              + resident * Hkv * (2 * D + 8)        # int8 K/V + f32 scales
-              + 4 * B * SPEC_T + 4 * B * C          # table + lengths
-              + 2 * B * C * H * D)                  # out
-    flops = 4 * int(lens.sum()) * H * D
-    t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
-    per_wave = cfg.n_layers
-    report["spec_verify_per_launch"] = {
-        "ms": t_k, "host_issued_ms": t_host, "plain_ms": t_p,
-        "library_ms": t_l, "bound_ms": max(t_b, t_o) * 1e3,
-        "byte_bound_ms": t_b * 1e3, "operation_bound_ms": t_o * 1e3,
-        "lengths": lens.tolist(), "block_size": bs, "T": SPEC_T}
-    print(f"phase 4: kvq_spec_verify_attn per launch: {t_k * 1e3:.2f} us "
-          f"(byte bound {t_b * 1e6:.3f} us, operation bound "
-          f"{t_o * 1e6:.3f} us), plain {t_p * 1e3:.1f} us, SDPA "
-          f"{t_l * 1e3:.2f} us", flush=True)
-    return {"ms": per_wave * t_k, "plain_ms": per_wave * t_p,
-            "library_ms": per_wave * t_l,
-            "bound_ms": per_wave * max(t_b, t_o) * 1e3,
-            "bound_by": "bytes" if t_b >= t_o else "operations"}
+    out = {}
+    for key, lens in (("spec_verify_per_launch", None),
+                      ("spec_verify_long", window_lengths(PAGED_LONG))):
+        def make():
+            return spec_inputs(torch, gen, cfg, bs, dev, lens)
+        out[key] = time_paged_launch(torch, P, cfg, "spec_verify",
+                                     make(), make)
+        report[key] = out[key]
+    t, lt = out["spec_verify_per_launch"], out["spec_verify_long"]
+    print(f"phase 4: kvq_spec_verify_attn per launch: {t['ms'] * 1e3:.2f} us "
+          f"(byte bound {t['byte_bound_ms'] * 1e3:.3f} us, operation bound "
+          f"{t['operation_bound_ms'] * 1e3:.3f} us), plain "
+          f"{t['plain_ms'] * 1e3:.1f} us, SDPA {t['library_ms'] * 1e3:.2f} "
+          f"us; windows ending at {PAGED_LONG}: {lt['ms'] * 1e3:.2f} us, "
+          f"bound {lt['bound_ms'] * 1e3:.2f} us ({lt['bound_by']}), SDPA "
+          f"{lt['library_ms'] * 1e3:.1f} us, SDPA gqa "
+          f"{lt['library_gqa_ms'] * 1e3:.1f} us", flush=True)
+    return per_step(t, cfg.n_layers)
 
 
 # --------------------------------------------------------------------------
@@ -2231,7 +2392,7 @@ def time_slstm(torch, P, xcfg, dev, report):
 
 
 # --------------------------------------------------------------------------
-# cold-prefill batch invariance (qwen2.5-3b, w4a8, dense)
+# cold-prefill batch invariance (qwen2.5-3b, w4a8 and bf16 layouts, dense)
 # --------------------------------------------------------------------------
 
 PREFILL_ROW_LENS = (37, 128, 90, 61)     # the prompt under test first
@@ -2241,57 +2402,72 @@ def prefill_rows(torch, P, cfg, dev, params, report):
     """One prompt prefilled alone and in a wave of 4 beside longer and
     shorter prompts (so the wave's padded length and row count differ):
     its cache codes and scales and its first-token logits must be
-    bitwise the same. Measured first with the wave's attention batched
-    (the reference's form, patched in for this run), then with the
-    port's row-by-row attention on CUDA
-    (``blocks._prefill_attention_rows``), which must hold."""
+    bitwise the same. Under the w4a8 layout, measured first with the
+    wave's attention batched (the reference's form, patched in for this
+    run), then with the port's row-by-row attention on CUDA
+    (``blocks._prefill_attention_rows``), which must hold. Under the bf16
+    layout (the serve CLI's default; fresh bf16 weights from the same
+    seed), whose linears are cuBLAS GEMMs over the whole wave, it must
+    hold as well. The wave's prefill ms beside each."""
     import numpy as np
-    models, blocks = P["models"], P["blocks"]
-    ctx = P["qat"].make_ctx("A8d-C8-W4", weights_layout="w4a8")
+    models, blocks, qat = P["models"], P["blocks"], P["qat"]
     rng = np.random.default_rng(31)
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
                for n in PREFILL_ROW_LENS]
 
-    def wave(rows):
+    def wave(rows, prm, ctx):
         lens = [len(prompts[i]) for i in rows]
         L = int(math.ceil(max(lens) / 16) * 16)
         toks = torch.zeros((len(rows), L), dtype=torch.int32, device=dev)
         for j, i in enumerate(rows):
             toks[j, :lens[j]] = torch.from_numpy(prompts[i]).to(dev)
         logits, cache = models.prefill(
-            cfg, params, ctx, {"tokens": toks, "lengths": torch.tensor(
+            cfg, prm, ctx, {"tokens": toks, "lengths": torch.tensor(
                 lens, dtype=torch.int32, device=dev)},
             cache_budget=CACHE_LEN)
         return logits[0], [{k: v[0] for k, v in c.items()}
                            for c in cache["layers"]]
 
-    def compare():
-        la, ca = wave([0])
-        lw, cw = wave(range(len(prompts)))
+    def compare(prm, ctx):
+        la, ca = wave([0], prm, ctx)
+        lw, cw = wave(range(len(prompts)), prm, ctx)
         torch.cuda.synchronize()
         differ = sum(int((a[k] != b[k]).sum()) for a, b in zip(ca, cw)
                      for k in ("k_q", "v_q", "s_k", "s_v"))
+        reps = 3
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            wave(range(len(prompts)), prm, ctx)
+        torch.cuda.synchronize()
         return {"logits_bitwise": bool(torch.equal(la, lw)),
                 "logits_max_abs_diff": float((la.float() - lw.float())
                                              .abs().max()),
-                "cache_values_differing": differ}
+                "cache_values_differing": differ,
+                "wave_ms": (time.perf_counter() - t0) * 1e3 / reps}
 
     def batched(q, k, v, lengths):      # the wave's attention in one call
         return blocks.blockwise_attention(q, k, v, causal=True)
 
     out = {"lens": list(PREFILL_ROW_LENS)}
+    ctx = qat.make_ctx("A8d-C8-W4", weights_layout="w4a8")
     rows = blocks._prefill_attention_rows
     try:
         blocks._prefill_attention_rows = batched
-        out["batched_attention"] = compare()
+        out["batched_attention"] = compare(params, ctx)
     finally:
         blocks._prefill_attention_rows = rows
-    out["row_attention"] = compare()
+    out["row_attention"] = compare(params, ctx)
+    bf16 = models.init_params(cfg, seed=0, device=dev)
+    out["bf16"] = compare(bf16, qat.make_ctx("A8d-C8-W4",
+                                             weights_layout="bf16"))
+    del bf16
+    torch.cuda.empty_cache()
     report["prefill_row_invariance"] = out
-    row = out["row_attention"]
-    check(row["logits_bitwise"] and row["cache_values_differing"] == 0,
-          f"cold prefill: a prompt's cache or logits differ alone and in a "
-          f"wave of 4: {out}")
+    for key in ("row_attention", "bf16"):
+        row = out[key]
+        check(row["logits_bitwise"] and row["cache_values_differing"] == 0,
+              f"cold prefill ({key}): a prompt's cache or logits differ "
+              f"alone and in a wave of 4: {out}")
     print(f"phase 3: cold prefill batch invariance (one prompt alone vs in "
           f"a wave of 4): {out}", flush=True)
 
@@ -2546,6 +2722,8 @@ def main() -> int:
     w4a8_err = check_w4a8(torch, P, cfg, dev, report)
     kvq_err = check_kvq(torch, P, cfg, dev, report)
     paged_err = check_paged_decode(torch, P, cfg, dev, report)
+    check_paged_rows(torch, P, cfg, dev, report)
+    check_paged_scratch(torch, P, cfg, dev)
     gather_err = check_gather(torch, P, cfg, dev, report)
     copy_err = check_copy(torch, P, cfg, dev, report)
     spec_err = check_spec_verify(torch, P, cfg, dev, report)

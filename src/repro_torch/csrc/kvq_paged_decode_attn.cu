@@ -15,202 +15,34 @@
 // unallocated sentinels; lengths (B) int32 tokens resident per slot;
 // out (B, H, D) bf16; G = H / Hkv.
 //
-// What bounds it on the H100: bytes. Each resident token is read once as
-// 2 * D int8 values plus two f32 scales and feeds 4 * D * G flops, far
-// below the card's flop-to-byte ratio. At serving sizes (a few slots, a
-// few hundred resident tokens) the read is small and latency decides, so
-// every warp works on its own tokens with no synchronisation in the loop.
+// What bounds it on the H100: bytes at a long cache (264 bytes a resident
+// token at D 128 against 4 * D * G f32 flops), latency at serving sizes.
 //
-// Design: the dense kernel's structure (kvq_decode_attn.cu) walked through
-// the table. One block owns one (slot, KV head) and serves the whole GQA
-// group, so each int8 row leaves device memory once; the TPU's padding of
-// the group to 8 sublanes and its bs >= 32 tile rule do not apply here.
-// The slot's table row is staged in shared memory (TBL_CHUNK entries at a
-// time) and every entry is clamped to [0, NB - 1] there, before any
-// address is formed, so a sentinel or a parked slot's all-sentinel row
-// reads a real block whose tokens the length mask then drops. The length
-// is clamped to T * bs. Warp w takes tokens p = w, w + WARPS, ...; each
-// lane owns D / 32 head dimensions, dequantizes on chip and keeps the G
-// pre-scaled queries and its own online-softmax state in registers (f32).
-// The warps merge once through shared memory at the end; the denominator
-// is clamped at 1e-20 as in the reference, so a row with no resident
-// token (length 0) returns zeros, never NaN. bs is a runtime argument.
+// Design: the split-KV kernel of kvq_paged_split.cuh at one query a slot
+// (C = 1): one CTA per (slot, SPLIT-token split, KV head) serving the
+// whole GQA group, the split's int8 rows staged by cp.async, scores and
+// P.V a tile at a time, the splits merged in a fixed order by the last
+// CTA of the slot (atomic tickets), all in one launch. kvq_spec_verify_attn
+// runs the same compiled kernel at C = k + 1, which is why each of its
+// queries equals this kernel at that query's length, bit for bit (see the
+// header). A row's result depends only on its own length: the split is a
+// constant, so decode is batch-invariant.
 //
-// Requirements (checked by the Python wrapper): D == 64 or D == 128,
-// G <= 8, bs >= 1, every tensor contiguous.
+// ws / tickets: ws_len f32 of workspace and tk_len int32 counters, at
+// least what kvq_paged_split_scratch returns for the shapes (a launch
+// with less returns cudaErrorInvalidValue); the tickets zero before the
+// first launch and left zero by every launch. Requirements (checked by the Python wrapper): D == 64 or
+// D == 128, G <= 8, bs >= 1, every tensor contiguous.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-namespace {
-
-constexpr int WARPS = 8;
-constexpr int THREADS = WARPS * 32;
-constexpr int GM = 8;                    // largest GQA group held on chip
-constexpr int TBL_CHUNK = 512;           // table entries staged at a time
-constexpr float NEG = -1e30f;
-
-template <int DL>
-__device__ __forceinline__ void load_row(const int8_t* p, float (&x)[DL]) {
-  if constexpr (DL == 4) {
-    const int w = *reinterpret_cast<const int*>(p);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) x[i] = (float)(int8_t)(w >> (8 * i));
-  } else {
-    const short w = *reinterpret_cast<const short*>(p);
-#pragma unroll
-    for (int i = 0; i < 2; ++i) x[i] = (float)(int8_t)(w >> (8 * i));
-  }
-}
-
-// DL: head dimensions per lane (D / 32)
-template <int DL>
-__global__ void __launch_bounds__(THREADS)
-kvq_paged_decode_attn_kernel(const __nv_bfloat16* __restrict__ q,
-                             const int8_t* __restrict__ k,
-                             const int8_t* __restrict__ v,
-                             const float* __restrict__ sk,
-                             const float* __restrict__ sv,
-                             const int* __restrict__ tbl,
-                             const int* __restrict__ lengths,
-                             __nv_bfloat16* __restrict__ out,
-                             int H, int Hkv, int NB, int bs, int T,
-                             float scale) {
-  constexpr int D = 32 * DL;
-  __shared__ int tbl_s[TBL_CHUNK];
-  __shared__ float m_s[WARPS][GM];
-  __shared__ float l_s[WARPS][GM];
-  __shared__ float acc_s[WARPS][GM][D];
-
-  const int b = blockIdx.x;
-  const int kh = blockIdx.y;
-  const int G = H / Hkv;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const size_t qrow = (size_t)b * H + (size_t)kh * G;      // first q head
-  const long long cap = (long long)T * bs;
-  const int len = (int)max(0LL, min((long long)lengths[b], cap));
-
-  float qv[GM][DL], m[GM], l[GM], acc[GM][DL];
-#pragma unroll
-  for (int g = 0; g < GM; ++g) {
-    m[g] = NEG;
-    l[g] = 0.f;
-#pragma unroll
-    for (int i = 0; i < DL; ++i) {
-      acc[g][i] = 0.f;
-      qv[g][i] = g < G ? __bfloat162float(
-                             q[(qrow + g) * D + lane * DL + i]) * scale
-                       : 0.f;
-    }
-  }
-
-  const int n_tbl = (len + bs - 1) / bs;          // table entries in use
-  for (int t0 = 0; t0 < n_tbl; t0 += TBL_CHUNK) {
-    const int nt = min(TBL_CHUNK, n_tbl - t0);
-    __syncthreads();                              // previous chunk consumed
-    for (int i = threadIdx.x; i < nt; i += THREADS) {
-      const int e = tbl[(size_t)b * T + t0 + i];
-      tbl_s[i] = min(max(e, 0), NB - 1);          // sentinel -> NB - 1
-    }
-    __syncthreads();
-    const int p_lo = t0 * bs;
-    const int p_hi = min(len, (t0 + nt) * bs);
-#pragma unroll 2
-    for (int p = p_lo + warp; p < p_hi; p += WARPS) {
-      const int blk = tbl_s[p / bs - t0];
-      const size_t tok = ((size_t)blk * Hkv + kh) * bs + (p % bs);
-      float kx[DL], vx[DL];
-      load_row<DL>(k + tok * D + lane * DL, kx);
-      load_row<DL>(v + tok * D + lane * DL, vx);
-      const float ks = sk[tok];
-      const float vs = sv[tok];
-#pragma unroll
-      for (int g = 0; g < GM; ++g) {
-        if (g < G) {
-          float sc = 0.f;
-#pragma unroll
-          for (int i = 0; i < DL; ++i) sc = fmaf(qv[g][i], kx[i], sc);
-#pragma unroll
-          for (int off = 16; off > 0; off >>= 1)
-            sc += __shfl_xor_sync(0xFFFFFFFFu, sc, off);
-          sc *= ks;
-          const float m_new = fmaxf(m[g], sc);
-          const float corr = expf(m[g] - m_new);
-          const float pr = expf(sc - m_new);
-          m[g] = m_new;
-          l[g] = l[g] * corr + pr;
-          const float pv = pr * vs;
-#pragma unroll
-          for (int i = 0; i < DL; ++i)
-            acc[g][i] = fmaf(pv, vx[i], acc[g][i] * corr);
-        }
-      }
-    }
-  }
-
-  // merge the warps' online-softmax states
-#pragma unroll
-  for (int g = 0; g < GM; ++g) {
-    if (lane == 0) {
-      m_s[warp][g] = m[g];
-      l_s[warp][g] = l[g];
-    }
-#pragma unroll
-    for (int i = 0; i < DL; ++i) acc_s[warp][g][lane * DL + i] = acc[g][i];
-  }
-  __syncthreads();
-  for (int e = threadIdx.x; e < G * D; e += THREADS) {
-    const int g = e / D;
-    const int d = e % D;
-    float mx = NEG;
-#pragma unroll
-    for (int w = 0; w < WARPS; ++w) mx = fmaxf(mx, m_s[w][g]);
-    float den = 0.f, num = 0.f;
-#pragma unroll
-    for (int w = 0; w < WARPS; ++w) {
-      const float c = expf(m_s[w][g] - mx);
-      den = fmaf(l_s[w][g], c, den);
-      num = fmaf(acc_s[w][g][d], c, num);
-    }
-    out[(qrow + g) * D + d] = __float2bfloat16_rn(num / fmaxf(den, 1e-20f));
-  }
-}
-
-template <int DL>
-void launch(const dim3& grid, cudaStream_t stream, const void* q,
-            const void* k, const void* v, const void* sk, const void* sv,
-            const void* tbl, const void* lengths, void* out, int H, int Hkv,
-            int NB, int bs, int T, float scale) {
-  kvq_paged_decode_attn_kernel<DL><<<grid, THREADS, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const int8_t*>(k),
-      static_cast<const int8_t*>(v), static_cast<const float*>(sk),
-      static_cast<const float*>(sv), static_cast<const int*>(tbl),
-      static_cast<const int*>(lengths), static_cast<__nv_bfloat16*>(out), H,
-      Hkv, NB, bs, T, scale);
-}
-
-}  // namespace
+#include "kvq_paged_split.cuh"
 
 extern "C" int kvq_paged_decode_attn_launch(
     const void* q, const void* k, const void* v, const void* sk,
-    const void* sv, const void* tbl, const void* lengths, void* out, int B,
+    const void* sv, const void* tbl, const void* lengths, void* out,
+    void* ws, long long ws_len, void* tickets, long long tk_len, int B,
     int H, int Hkv, int NB, int bs, int T, int D, float scale,
     void* stream) {
-  const int G = Hkv > 0 ? H / Hkv : 0;
-  if (G < 1 || G > GM || (D != 64 && D != 128) || NB < 1 || bs < 1 ||
-      T < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (B > 0) {
-    const dim3 grid(B, Hkv);
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (D == 128)
-      launch<4>(grid, st, q, k, v, sk, sv, tbl, lengths, out, H, Hkv, NB, bs,
-                T, scale);
-    else
-      launch<2>(grid, st, q, k, v, sk, sv, tbl, lengths, out, H, Hkv, NB, bs,
-                T, scale);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return kvq_split::launch(q, k, v, sk, sv, tbl, lengths, out, ws, ws_len,
+                           tickets, tk_len, B, 1, H, Hkv, NB, bs, T, D,
+                           scale, stream);
 }

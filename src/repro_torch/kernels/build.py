@@ -7,15 +7,18 @@ repository root (a git-ignored directory), at first use::
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -o build/kernels/<name>-<hash>.so csrc/<name>.cu
 
-The hash covers the source text and the flags, so an edited source builds
-anew. :func:`build_all` starts one ``nvcc`` per source at once and waits
-for all of them. A failed build raises; nothing falls back.
+The hash covers the flags, the source text and the text of every
+``csrc/*.cuh`` header the source includes (``#include "..."``, followed
+through headers), so an edited source or shared header builds anew.
+:func:`build_all` starts one ``nvcc`` per source at once and waits for
+all of them. A failed build raises; nothing falls back.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -51,10 +54,30 @@ def nvcc_path() -> str:
                        "the port's CUDA kernels are built from source")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def local_includes(path: Path) -> tuple:
+    """The headers of ``csrc/`` that ``path`` includes with ``#include
+    "..."``, directly or through another such header, in first-seen
+    order (system headers in ``<...>`` are not followed)."""
+    seen, todo = [], [path]
+    while todo:
+        cur = todo.pop(0)
+        for inc in _INCLUDE.findall(cur.read_bytes()):
+            hdr = cur.parent / inc.decode()
+            if hdr.is_file() and hdr not in seen:
+                seen.append(hdr)
+                todo.append(hdr)
+    return tuple(seen)
+
+
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    src = CSRC / f"{name}.cu"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in (src,) + local_includes(src):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str, out: Path) -> subprocess.Popen:

@@ -7,6 +7,17 @@ for CUDA tensors and run the plain versions (``ref.py``) for CPU tensors.
 Each checks its inputs and counts its launches in ``.launches``.
 ``commit_chunk_kv`` is a plain scatter on every device, as in the
 reference. Paged pool leaves carry a trailing sink block (see ``ref.py``).
+
+The paged decode and verify kernels share one split-KV design
+(``csrc/kvq_paged_split.cuh``): a CTA per (slot, split of ``SPLIT`` token
+positions, KV head, chunk of query rows), the splits merged inside the
+launch through an f32 workspace and atomic tickets. The source sizes
+that scratch (``kvq_paged_split_scratch``) and its launchers refuse a
+shorter one. Workspace and tickets are kept per device (tickets zeroed
+once; every launch leaves them zero), so a call allocates nothing beyond
+its output and can be captured in a CUDA graph; launches of these two
+kernels on one device must therefore not run concurrently on two
+streams.
 """
 from __future__ import annotations
 
@@ -24,18 +35,23 @@ from repro_torch.kernels.kvq_attn.ref import (chunk_commit_ids,
                                               pool_blocks, scatter_chunk_kv)
 from repro_torch.kernels.checks import check_aligned, check_tensor
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# the paged launchers' pointers and scratch: q .. out, ws, ws_len,
+# tickets, tk_len
+_PAGED = (_P,) * 9 + (_L, _P, _L)
 # C signatures of the launchers: pointers and the stream as c_void_p
 _ARGTYPES = {
     "kvq_decode_attn": (_P,) * 7 + (_I,) * 5 + (ctypes.c_float, _P),
-    "kvq_paged_decode_attn": (_P,) * 8 + (_I,) * 7 + (ctypes.c_float, _P),
-    "kvq_spec_verify_attn": (_P,) * 8 + (_I,) * 8 + (ctypes.c_float, _P),
+    "kvq_paged_decode_attn": _PAGED + (_I,) * 7 + (ctypes.c_float, _P),
+    "kvq_spec_verify_attn": _PAGED + (_I,) * 8 + (ctypes.c_float, _P),
     "gather_dequant_paged_kv": (_P,) * 4 + (_I,) * 6 + (_P,),
     "pool_block_copy": (_P,) * 3 + (_I,) * 2 + (ctypes.c_longlong,) * 2
     + (_I, _P),
 }
 MAX_GROUP = 8       # query heads per KV head the kernel holds on chip
 HEAD_DIMS = (64, 128)
+SPLIT = 64          # token positions a CTA of the paged kernels owns
+#                     (csrc/kvq_paged_split.cuh; checked at load)
 
 
 @functools.lru_cache(maxsize=None)
@@ -43,10 +59,80 @@ def _fn(name: str):
     """The C launcher ``<name>_launch`` of ``csrc/<name>.cu`` (built at
     first use)."""
     from repro_torch.kernels.build import load
-    fn = getattr(load(name), f"{name}_launch")
+    lib = load(name)
+    if name in _PAGED_SPLIT and lib.kvq_paged_split_tokens() != SPLIT:
+        raise RuntimeError(f"{name} was built with a split of "
+                           f"{lib.kvq_paged_split_tokens()} tokens, "
+                           f"SPLIT here is {SPLIT}")
+    fn = getattr(lib, f"{name}_launch")
     fn.argtypes = list(_ARGTYPES[name])
     fn.restype = ctypes.c_int
     return fn
+
+
+_PAGED_SPLIT = ("kvq_paged_decode_attn", "kvq_spec_verify_attn")
+_SCRATCH = {}       # device index -> (f32 workspace, zeroed int32 tickets)
+_RETIRED = []       # outgrown scratch, held for the life of the process:
+#                     a CUDA graph captured before it was outgrown may
+#                     still replay into it
+
+
+@functools.lru_cache(maxsize=256)
+def _scratch_need(B: int, C: int, H: int, Hkv: int, D: int, T: int,
+                  bs: int):
+    """(f32 workspace, int32 tickets) that a split-KV launch of these
+    shapes needs, as the kernel source computes them
+    (``kvq_paged_split_scratch``; both launchers compile the same
+    header, so the decode launcher's library answers for both)."""
+    from repro_torch.kernels.build import load
+    _fn("kvq_paged_decode_attn")        # built, loaded, its split checked
+    get = load("kvq_paged_decode_attn").kvq_paged_split_scratch
+    get.argtypes = [_I] * 7 + [ctypes.POINTER(_L)] * 2
+    get.restype = _I
+    ws, tk = _L(), _L()
+    _raise_on(get(B, C, H, Hkv, D, T, bs, ctypes.byref(ws),
+                  ctypes.byref(tk)), "kvq_paged_split_scratch")
+    return ws.value, tk.value
+
+
+def _scratch(dev: torch.device, ws_n: int, tk_n: int):
+    """Workspace and tickets on ``dev`` of at least ``ws_n`` and ``tk_n``
+    elements; grown (outside any stream capture) the first time a call
+    needs more."""
+    cur = _SCRATCH.get(dev.index)
+    if cur is None or cur[0].numel() < ws_n or cur[1].numel() < tk_n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("the paged attention kernels need more "
+                               "scratch than a call before the capture "
+                               "allocated; run the call once uncaptured")
+        old_ws, old_tk = cur if cur is not None else (None, None)
+        ws_n = max(ws_n, 0 if old_ws is None else 2 * old_ws.numel())
+        tk_n = max(tk_n, 1024, 0 if old_tk is None else 2 * old_tk.numel())
+        if cur is not None:
+            _RETIRED.append(cur)
+        cur = (torch.empty(ws_n, dtype=torch.float32, device=dev),
+               torch.zeros(tk_n, dtype=torch.int32, device=dev))
+        _SCRATCH[dev.index] = cur
+    return cur
+
+
+def _paged_split_call(name, q, k_pool, v_pool, s_k, s_v, block_tbl,
+                      lengths, C, dims) -> torch.Tensor:
+    """Launch one of the two split-KV kernels on checked inputs (C None:
+    the decode launcher, one query a slot)."""
+    B, H, Hkv, NB1, bs, T, D = dims
+    dev = q.device
+    ws, tk = _scratch(dev, *_scratch_need(B, C or 1, H, Hkv, D, T, bs))
+    out = torch.empty(q.shape, dtype=torch.bfloat16, device=dev)
+    shape = (B, H, Hkv) if C is None else (B, C, H, Hkv)
+    err = _fn(name)(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), s_k.data_ptr(),
+        s_v.data_ptr(), block_tbl.data_ptr(), lengths.data_ptr(),
+        out.data_ptr(), ws.data_ptr(), ws.numel(), tk.data_ptr(),
+        tk.numel(), *shape, NB1 - 1, bs, T, D, D ** -0.5,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, name)
+    return out
 
 
 def _raise_on(err: int, name: str) -> None:
@@ -136,13 +222,9 @@ def kvq_paged_decode_attn(q, k_pool, v_pool, s_k, s_v, block_tbl,
     check_tensor("lengths", lengths, torch.int32, (B,), dev)
     check_aligned("k_pool", k_pool)
     check_aligned("v_pool", v_pool)
-    out = torch.empty((B, H, D), dtype=torch.bfloat16, device=dev)
-    err = _fn("kvq_paged_decode_attn")(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), s_k.data_ptr(),
-        s_v.data_ptr(), block_tbl.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), B, H, Hkv, NB1 - 1, bs, T, D, D ** -0.5,
-        torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, "kvq_paged_decode_attn")
+    out = _paged_split_call("kvq_paged_decode_attn", q, k_pool, v_pool, s_k,
+                            s_v, block_tbl, lengths, None,
+                            (B, H, Hkv, NB1, bs, T, D))
     kvq_paged_decode_attn.launches += 1
     return out
 
@@ -190,13 +272,9 @@ def kvq_spec_verify_attn(q, k_pool, v_pool, s_k, s_v, block_tbl,
     check_tensor("lengths", lengths, torch.int32, (B, C), dev)
     check_aligned("k_pool", k_pool)
     check_aligned("v_pool", v_pool)
-    out = torch.empty((B, C, H, D), dtype=torch.bfloat16, device=dev)
-    err = _fn("kvq_spec_verify_attn")(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), s_k.data_ptr(),
-        s_v.data_ptr(), block_tbl.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), B, C, H, Hkv, NB1 - 1, bs, T, D, D ** -0.5,
-        torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, "kvq_spec_verify_attn")
+    out = _paged_split_call("kvq_spec_verify_attn", q, k_pool, v_pool, s_k,
+                            s_v, block_tbl, lengths, C,
+                            (B, H, Hkv, NB1, bs, T, D))
     kvq_spec_verify_attn.launches += 1
     return out
 

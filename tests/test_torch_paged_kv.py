@@ -204,6 +204,59 @@ class TestPagedKernelParity:
 
 
 # --------------------------------------------------------------------------
+# the plain paged decode around the CUDA kernel's split boundaries
+# --------------------------------------------------------------------------
+
+S = ops.SPLIT
+NG = 16         # splits a first-level merger takes (csrc/kvq_paged_split.cuh)
+
+
+class TestPagedPlainAtSplitBoundaries:
+    """The plain paged decode against the reference (its XLA version and
+    its Pallas kernel in interpret mode) at lengths on and around the
+    split boundaries, block sizes dividing SPLIT, equal to it, above it
+    and not dividing it; the group boundary (NG splits, where the CUDA
+    kernel's second merge level starts) and one-token blocks against the
+    XLA version. Same tolerance as ``TestPagedKernelParity`` (2e-5)."""
+
+    @pytest.mark.parametrize("bs,lens,pallas", [
+        (16, (0, 1, S - 1, S, S + 1, 3 * S), True),
+        (48, (S + 1, 0, S, 1, 3 * S, S - 1), True),
+        (16, (NG * S, NG * S + 1, 2 * S, 0), False),
+        (64, (S, 2 * S, 2 * S + 1, 0), True),
+        (128, (S - 1, S + 1, 4 * S, 0), True),
+        (24, (3 * S, S - 1, 0, S + 1), True),
+        (16, (NG * S - 1, 0, 1, (NG + 1) * S), False),
+        (1, (0, 1, S - 1, S, S + 1, 2 * S), False),
+    ])
+    def test_plain_matches_reference_at_split_boundaries(self, bs, lens,
+                                                         pallas):
+        B, H, Hkv, D = len(lens), 4, 2, 16
+        T = -(-max(lens) // bs)
+        NB = B * T + 3
+        k, v, sk, sv = _rand_pool(bs + len(lens), NB, Hkv, bs, D)
+        rng = np.random.default_rng(bs)
+        q = rng.standard_normal((B, H, D)).astype(np.float32)
+        tbl = rng.permutation(NB)[:B * T].reshape(B, T).astype(np.int32)
+        used = -(-np.asarray(lens) // bs)
+        tbl = np.where(np.arange(T)[None] < used[:, None], tbl, NB)
+        lens = np.asarray(lens, np.int32)
+        jargs = [jnp.asarray(a) for a in (q, k, v, sk, sv, tbl, lens)]
+        got = ops.kvq_paged_decode_attn(
+            torch.from_numpy(q), _with_sink(k), _with_sink(v),
+            _with_sink(sk), _with_sink(sv), torch.from_numpy(tbl),
+            torch.from_numpy(lens)).numpy()
+        assert np.isfinite(got).all() and not got[lens == 0].any()
+        np.testing.assert_allclose(
+            got, np.asarray(jref.kvq_paged_decode_attn_ref(*jargs)),
+            rtol=2e-5, atol=2e-5)
+        if pallas:
+            np.testing.assert_allclose(
+                got, np.asarray(jops.kvq_paged_decode_attn(*jargs)),
+                rtol=2e-5, atol=2e-5)
+
+
+# --------------------------------------------------------------------------
 # the port's copy of the block allocator
 # --------------------------------------------------------------------------
 

@@ -342,6 +342,47 @@ class TestVerifyWave:
         np.testing.assert_allclose(got, want_pallas, rtol=2 ** -7,
                                    atol=1e-4)
 
+    @pytest.mark.parametrize("bs", [16, 48, 64, 24])
+    def test_plain_version_at_split_boundaries(self, bs):
+        """The plain verify attention against the reference's XLA version
+        and its Pallas kernel (interpret mode) on windows around the CUDA
+        kernels' split boundary (``ops.SPLIT``): one straddling it, one
+        ending on a multiple of it, one starting right after it, and a
+        parked row; one bf16 ulp as above."""
+        from repro_torch.kernels.kvq_attn.ops import SPLIT as S
+        B, C, H, Hkv, D = 4, 5, 4, 2, 16
+        hist = [S - 3, 2 * S - 5, None, S]
+        lens = np.array([[0] * C if h is None else [h + 1 + c
+                                                     for c in range(C)]
+                         for h in hist], np.int32)
+        T = -(-int(lens.max()) // bs)
+        NB = B * T + 3
+        rng = np.random.default_rng(bs + 1)
+        k = rng.integers(-127, 128, (NB, Hkv, bs, D)).astype(np.int8)
+        v = rng.integers(-127, 128, (NB, Hkv, bs, D)).astype(np.int8)
+        sk = rng.uniform(0.01, 0.2, (NB, Hkv, bs)).astype(np.float32)
+        sv = rng.uniform(0.01, 0.2, (NB, Hkv, bs)).astype(np.float32)
+        tbl = rng.permutation(NB)[:B * T].reshape(B, T).astype(np.int32)
+        used = -(-lens.max(axis=1) // bs)
+        tbl = np.where(np.arange(T)[None] < used[:, None], tbl, NB)
+        q = jnp.asarray(rng.standard_normal((B, C, H, D)), jnp.bfloat16)
+        jargs = [q] + [jnp.asarray(a) for a in (k, v, sk, sv, tbl, lens)]
+
+        def sink(a):
+            return torch.from_numpy(np.concatenate(
+                [a, np.zeros((1,) + a.shape[1:], a.dtype)]))
+
+        tq = torch.from_numpy(np.array(q.astype(jnp.float32))).to(
+            torch.bfloat16)
+        got = kvq_spec_verify_attn_ref(
+            tq, sink(k), sink(v), sink(sk), sink(sv), torch.from_numpy(tbl),
+            torch.from_numpy(lens)).float().numpy()
+        assert np.isfinite(got).all() and not got[2].any()
+        for want in (jref.kvq_spec_verify_attn_ref(*jargs),
+                     jops.kvq_spec_verify_attn(*jargs, use_pallas=True)):
+            np.testing.assert_allclose(got, np.asarray(want, np.float32),
+                                       rtol=2 ** -7, atol=1e-4)
+
 
 class TestRejectionSampling:
     def test_self_draft_rejection_reproduces_plain_decode(self, served):
