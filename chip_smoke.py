@@ -12,7 +12,12 @@ toolkit (``nvcc``). Phases, each fatal on failure (non-zero exit):
 2. kernels against their plain PyTorch versions on the card, at the main
    path's shapes: ``w4a8_matmul`` bitwise at M = slots and M = one prefill
    batch, for every linear of qwen2.5-3b with and without bias;
-   ``kvq_decode_attn`` within one bf16 ulp on ragged lengths;
+   ``kvq_decode_attn`` within one bf16 ulp on ragged lengths, on lengths
+   around the split-KV kernel's split and group boundaries (with an empty
+   row, exactly zero) and at a long cache (32768, 20000, 8192, 1), bitwise
+   equal there to ``kvq_paged_decode_attn`` on the same K/V scattered
+   into a pool (bs 64, shuffled table), each row bitwise equal alone and
+   in a batch of 4;
    ``kvq_paged_decode_attn`` within one bf16 ulp at block sizes 64 and 16
    on shuffled tables with sentinels and a parked row, on lengths around
    its split and group boundaries and at a long cache (32768, 20000,
@@ -20,13 +25,15 @@ toolkit (``nvcc``). Phases, each fatal on failure (non-zero exit):
    ``gather_dequant_paged_kv`` and ``pool_block_copy`` bitwise;
    ``kvq_spec_verify_attn`` within one bf16 ulp at both block sizes, on
    windows across split boundaries and ending at the long cache, each
-   query bitwise equal to ``kvq_paged_decode_attn`` at its length;
+   query bitwise equal to ``kvq_paged_decode_attn`` at its length; the
+   three split-KV launchers refuse scratch one element short;
    ``rms_norm`` bitwise across row counts; ``fake_quant_fwd`` and the
    ``dx`` of ``fake_quant_bwd`` bitwise at bits 4 and 8 on every weight
    shape of qwen2.5-3b (the tied head per vocab row) and two activation
    shapes per tensor, its ``ds`` within 1e-4 of its sums' mass;
    ``flash_attn_fwd`` against its plain version and an f64 oracle at the
-   QAT shape, S 1024, a ragged S and a sliding window; ``slstm_scan``
+   QAT shape, S 1024, a ragged S and a sliding window (and at head dim
+   64: the QAT shape, the ragged S, the window); ``slstm_scan``
    against its plain version and an f64 oracle at xlstm-125m's width
    (B 8, T 128 and a ragged B 3, T 100);
 3. serve: ``ServeEngine`` on ``cuda`` with qwen2.5-3b at full width
@@ -87,8 +94,11 @@ toolkit (``nvcc``). Phases, each fatal on failure (non-zero exit):
    computing the same function (a yardstick the port never calls) and
    the least time the card needs for the work (``slstm_scan``: per
    teacher forward, against a per-step ``torch.addmm`` loop); the paged
-   decode and verify kernels also per launch at a long cache (32768,
-   20000, 8192, 1 tokens); decode tok/s and TTFT of the serve phases.
+   decode, verify and dense decode kernels also per launch at a long
+   cache (32768, 20000, 8192, 1 tokens; the dense one beside SDPA with
+   ``enable_gqa``), ``flash_attn_fwd`` also at (B 8, S 1024) beside SDPA
+   (its bound: bytes or the causal products at the bf16 tensor-core
+   rate); decode tok/s and TTFT of the serve phases.
 
 The line before the last is a JSON object with every kernel's numbers; the
 last line is ``{"ok": true, "device": {...}}``. Details go to
@@ -361,9 +371,10 @@ def time_w4a8(torch, P, cfg, dev, report):
 # phase 2 + 4: kvq_decode_attn
 # --------------------------------------------------------------------------
 
-def kvq_inputs(torch, gen, cfg, lengths, dev):
-    B, H, Hkv = SLOTS, cfg.n_heads, cfg.n_kv_heads
-    S, D = CACHE_LEN, cfg.resolved_head_dim
+def kvq_inputs(torch, gen, cfg, lengths, dev, S=CACHE_LEN):
+    """A dense int8 cache of ``S`` tokens a slot, one slot a length."""
+    B, H, Hkv = len(lengths), cfg.n_heads, cfg.n_kv_heads
+    D = cfg.resolved_head_dim
     q = torch.randn((B, H, D), generator=gen, device=dev).to(torch.bfloat16)
     k = torch.randint(-127, 128, (B, Hkv, S, D), generator=gen, device=dev,
                       dtype=torch.int8)
@@ -379,66 +390,173 @@ def kvq_inputs(torch, gen, cfg, lengths, dev):
 KVQ_LENGTHS = (CACHE_LEN, 1, 97, 160)
 
 
+def kvq_cases(P):
+    """(lengths, S) of the dense decode checks: the dense serve phase's
+    lengths in its cache, the split-KV kernel's split and group boundaries
+    (with an empty row) in a cache just long enough, and the long cache."""
+    return ((KVQ_LENGTHS, CACHE_LEN), (split_lengths(P),
+                                       max(split_lengths(P))),
+            (PAGED_LONG, max(PAGED_LONG)))
+
+
 def check_kvq(torch, P, cfg, dev, report):
+    """The dense decode kernel against its plain version within one bf16
+    ulp on every case of ``kvq_cases``; an empty row exactly zero."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(3)
-    args = kvq_inputs(torch, gen, cfg, KVQ_LENGTHS, dev)
-    got = P["kvq_ops"].kvq_decode_attn(*args).float()
-    want = P["kvq_decode_attn_ref"](*args).float()
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
     rtol, atol = KVQ_TOL
-    check(bool(torch.isfinite(got).all()), "kvq_decode_attn: non-finite")
-    check(torch.allclose(got, want, rtol=rtol, atol=atol),
-          f"kvq_decode_attn differs from its plain version: max abs err "
-          f"{err} (rtol {rtol}, atol {atol})")
-    report["kvq_max_abs_err"] = err
+    worst, errs = 0.0, []
+    for lengths, S in kvq_cases(P):
+        args = kvq_inputs(torch, gen, cfg, lengths, dev, S)
+        got = P["kvq_ops"].kvq_decode_attn(*args).float()
+        want = P["kvq_decode_attn_ref"](*args).float()
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        check(bool(torch.isfinite(got).all()), "kvq_decode_attn: non-finite")
+        check(torch.allclose(got, want, rtol=rtol, atol=atol),
+              f"kvq_decode_attn lengths {lengths} (S {S}) differs from its "
+              f"plain version: max abs err {err} (rtol {rtol}, atol {atol})")
+        for i, n in enumerate(lengths):
+            if n == 0:
+                check(bool((got[i] == 0).all()),
+                      "kvq_decode_attn: an empty row is not zero")
+        worst = max(worst, err)
+        errs.append({"lengths": list(lengths), "S": S, "max_abs_err": err})
+        del args, got, want
+    report["kvq_max_abs_err"] = worst
+    report["kvq_cases"] = errs
     print(f"phase 2: kvq_decode_attn within rtol {rtol} atol {atol} of its "
-          f"plain version (max abs err {err:.3g}, lengths {KVQ_LENGTHS})",
+          f"plain version (max abs err {worst:.3g}; lengths {KVQ_LENGTHS}, "
+          f"split boundaries {split_lengths(P)}, long cache {PAGED_LONG})",
           flush=True)
-    return err
+    return worst
 
 
-def time_kvq(torch, P, cfg, dev, report):
+def dense_to_pool(torch, gen, args, bs):
+    """Paged decode's arguments for the same K/V as the dense ``args``:
+    each slot's tokens scattered into a pool of ``bs``-token blocks
+    through a shuffled table (sentinels past each slot's extent; their
+    rows land in the sink block, which is never read)."""
+    q, k, v, s_k, s_v, lens = args
+    B, Hkv, S, D = k.shape
+    T = -(-S // bs)
+    nb = B * T + 8
+    tbl = shuffled_table(torch, gen, nb, B, T, lens.tolist(), bs, q.device)
+    idx = tbl.long()
+
+    def scatter(x):
+        pad = T * bs - S
+        x = torch.nn.functional.pad(x, (0, 0) * (x.dim() - 3) + (0, pad))
+        x = x.reshape((B, Hkv, T, bs) + x.shape[3:]).transpose(1, 2)
+        pool = torch.zeros((nb + 1, Hkv, bs) + x.shape[4:], dtype=x.dtype,
+                           device=x.device)
+        pool[idx] = x
+        return pool
+
+    return (q, scatter(k), scatter(v), scatter(s_k), scatter(s_v), tbl,
+            lens)
+
+
+def check_kvq_bitwise(torch, P, cfg, dev, report):
+    """Dense decode on every case of ``kvq_cases`` bitwise equal to the
+    paged decode kernel on the same K/V scattered into a pool (bs 64, a
+    shuffled table): the same arithmetic, only the address differs; and
+    at the serve phase's lengths and the long cache each row bitwise equal
+    alone and in the batch of 4."""
     gen = torch.Generator(device=dev)
-    gen.manual_seed(4)
-    base = kvq_inputs(torch, gen, cfg, KVQ_LENGTHS, dev)
-    nb = tensor_bytes(*base)
-    sets = [base] + [kvq_inputs(torch, gen, cfg, KVQ_LENGTHS, dev)
-                     for _ in range(copies_for(nb) - 1)]
+    gen.manual_seed(20)
+    ops = P["kvq_ops"]
+    for lengths, S in kvq_cases(P):
+        args = kvq_inputs(torch, gen, cfg, lengths, dev, S)
+        full = ops.kvq_decode_attn(*args)
+        paged = ops.kvq_paged_decode_attn(*dense_to_pool(torch, gen, args,
+                                                         PAGED_BS[0]))
+        check(torch.equal(full, paged),
+              f"kvq_decode_attn lengths {lengths} (S {S}) is not bitwise "
+              f"equal to kvq_paged_decode_attn on the same K/V")
+        if len(lengths) == SLOTS:
+            for i in range(SLOTS):
+                one = ops.kvq_decode_attn(*(a[i:i + 1] for a in args))
+                check(torch.equal(full[i:i + 1], one),
+                      f"kvq_decode_attn: row {i} (length {lengths[i]}) "
+                      f"differs alone and in a batch of {SLOTS}")
+        del args, full, paged
+    report["kvq_bitwise_vs_paged_decode"] = True
+    report["kvq_batch_invariant"] = True
+    print(f"phase 2: kvq_decode_attn bitwise equal to kvq_paged_decode_attn "
+          f"on the same K/V (bs {PAGED_BS[0]}, shuffled table) at lengths "
+          f"{KVQ_LENGTHS}, {split_lengths(P)} and {PAGED_LONG}; rows bitwise "
+          f"alone and in a batch of {SLOTS} at {KVQ_LENGTHS} and "
+          f"{PAGED_LONG}", flush=True)
+
+
+def time_dense_launch(torch, P, cfg, dev, gen, lengths, S, expanded):
+    """One dense decode launch on rotated inputs: device ms (graph
+    replay), host-issued ms, the plain version, SDPA with ``enable_gqa``
+    (and, if ``expanded``, on K/V expanded to every query head) over the
+    dequantized bf16 cache with a length mask, and the bound."""
+    import torch.nn.functional as F
+    base = kvq_inputs(torch, gen, cfg, lengths, dev, S)
+    sets = [base] + [kvq_inputs(torch, gen, cfg, lengths, dev, S)
+                     for _ in range(copies_for(tensor_bytes(*base)) - 1)]
     kern = P["kvq_ops"].kvq_decode_attn
     t_k = time_ms(torch, kern, sets)
     t_host = host_issued_ms(torch, kern, sets)
-    t_p = time_ms(torch, P["kvq_decode_attn_ref"], sets)
-    import torch.nn.functional as F
+    t_p = time_ms(torch, P["kvq_decode_attn_ref"], sets, min_calls=10)
     G = cfg.n_heads // cfg.n_kv_heads
-    lib_sets = []
-    for q, k, v, s_k, s_v, lens in sets:
-        kd = (k.float() * s_k[..., None]).to(torch.bfloat16)
-        vd = (v.float() * s_v[..., None]).to(torch.bfloat16)
-        kd = kd.repeat_interleave(G, dim=1)
-        vd = vd.repeat_interleave(G, dim=1)
-        mask = (torch.arange(CACHE_LEN, device=dev)[None, :]
-                < lens[:, None])[:, None, None, :]
-        lib_sets.append((q[:, :, None, :], kd, vd, mask))
-    t_l = time_ms(torch, lambda q, k, v, m: F.scaled_dot_product_attention(
-        q, k, v, attn_mask=m), lib_sets)
+    lib = {}
+    for gqa in (True, False) if expanded else (True,):
+        lib_sets = []
+        for q, k, v, s_k, s_v, lens in sets:
+            kd = (k.float() * s_k[..., None]).to(torch.bfloat16)
+            vd = (v.float() * s_v[..., None]).to(torch.bfloat16)
+            if not gqa:
+                kd = kd.repeat_interleave(G, dim=1)
+                vd = vd.repeat_interleave(G, dim=1)
+            mask = (torch.arange(S, device=dev)[None, :]
+                    < lens[:, None])[:, None, None, :]
+            lib_sets.append((q[:, :, None, :], kd, vd, mask))
+        lib[gqa] = time_ms(torch, lambda q, k, v, m, gqa=gqa: (
+            F.scaled_dot_product_attention(q, k, v, attn_mask=m,
+                                           enable_gqa=gqa)), lib_sets)
+        del lib_sets
     H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    tokens = sum(KVQ_LENGTHS)
-    nbytes = (2 * SLOTS * H * D            # q
+    B, tokens = len(lengths), sum(lengths)
+    nbytes = (2 * B * H * D                 # q
               + tokens * Hkv * (2 * D + 8)  # int8 K/V rows + f32 scales
-              + 4 * SLOTS + 2 * SLOTS * H * D)
+              + 4 * B + 2 * B * H * D)      # lengths, out
     flops = 4 * tokens * H * D
     t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
-    per_step = cfg.n_layers
-    report["kvq_per_launch"] = {"ms": t_k, "host_issued_ms": t_host,
-                                "plain_ms": t_p, "library_ms": t_l,
-                                "bound_ms": max(t_b, t_o) * 1e3,
-                                "lengths": list(KVQ_LENGTHS)}
-    return {"ms": per_step * t_k, "plain_ms": per_step * t_p,
-            "library_ms": per_step * t_l,
-            "bound_ms": per_step * max(t_b, t_o) * 1e3,
-            "bound_by": "bytes" if t_b >= t_o else "operations"}
+    del sets
+    torch.cuda.empty_cache()
+    return {"ms": t_k, "host_issued_ms": t_host, "plain_ms": t_p,
+            "library_ms": lib[not expanded], "library_gqa_ms": lib[True],
+            "bound_ms": max(t_b, t_o) * 1e3, "byte_bound_ms": t_b * 1e3,
+            "bound_by": "bytes" if t_b >= t_o else "operations",
+            "byte_bound_share": t_b * 1e3 / t_k, "lengths": list(lengths),
+            "S": S}
+
+
+def time_kvq(torch, P, cfg, dev, report):
+    """Per dense decode step (36 launches) at the serve phase's shapes,
+    and one launch at the long cache (PAGED_LONG in a 32768-token
+    cache)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    t = time_dense_launch(torch, P, cfg, dev, gen, KVQ_LENGTHS, CACHE_LEN,
+                          True)
+    lt = time_dense_launch(torch, P, cfg, dev, gen, PAGED_LONG,
+                           max(PAGED_LONG), False)
+    report["kvq_per_launch"], report["kvq_long"] = t, lt
+    print(f"phase 4: kvq_decode_attn per launch: {t['ms'] * 1e3:.2f} us "
+          f"(host-issued {t['host_issued_ms'] * 1e3:.2f} us), SDPA "
+          f"{t['library_ms'] * 1e3:.2f} us, SDPA gqa "
+          f"{t['library_gqa_ms'] * 1e3:.2f} us; long cache {PAGED_LONG}: "
+          f"{lt['ms'] * 1e3:.2f} us, byte bound "
+          f"{lt['byte_bound_ms'] * 1e3:.2f} us (share "
+          f"{lt['byte_bound_share']:.3f}), SDPA gqa "
+          f"{lt['library_gqa_ms'] * 1e3:.1f} us", flush=True)
+    return per_step(t, cfg.n_layers)
 
 
 # --------------------------------------------------------------------------
@@ -548,7 +666,7 @@ def check_paged_decode(torch, P, cfg, dev, report):
 
 
 def check_paged_scratch(torch, P, cfg, dev):
-    """Both split-KV launchers refuse (cudaErrorInvalidValue, 1) a
+    """The three split-KV launchers refuse (cudaErrorInvalidValue, 1) a
     workspace or ticket buffer one element shorter than the source's
     ``kvq_paged_split_scratch`` asks for, and write nothing. Calls the C
     launchers directly: nothing launches, no count moves."""
@@ -556,32 +674,39 @@ def check_paged_scratch(torch, P, cfg, dev):
     gen.manual_seed(19)
     ops = P["kvq_ops"]
     bs = PAGED_BS[0]
+    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    cases = []
+    q, k, v, s_k, s_v, lens = kvq_inputs(torch, gen, cfg, KVQ_LENGTHS, dev)
+    B, S = q.shape[0], k.shape[2]
+    cases.append(("kvq_decode_attn", (q, k, v, s_k, s_v, lens),
+                  (B, 1, H, Hkv, D, 1, S), (B, H, Hkv, S, D)))
     for name, args in (
             ("kvq_paged_decode_attn",
              paged_inputs(torch, gen, cfg, bs, PAGED_LENGTHS, dev)),
             ("kvq_spec_verify_attn", spec_inputs(torch, gen, cfg, bs, dev))):
-        q, k, v, s_k, s_v, tbl, lens = args
-        B, H, D = q.shape[0], q.shape[-2], q.shape[-1]
+        q, k, tbl = args[0], args[1], args[5]
+        B, T = tbl.shape
         C = q.shape[1] if q.dim() == 4 else 1
-        Hkv, bs_, T = k.shape[1], k.shape[2], tbl.shape[1]
-        ws_n, tk_n = ops._scratch_need(B, C, H, Hkv, D, T, bs_)
+        shape = (B, H, Hkv) if q.dim() == 3 else (B, C, H, Hkv)
+        cases.append((name, args, (B, C, H, Hkv, D, T, bs),
+                      shape + (k.shape[0] - 1, bs, T, D)))
+    for name, args, need, shape in cases:
+        ws_n, tk_n = ops._scratch_need(*need)
         ws = torch.empty(ws_n, dtype=torch.float32, device=dev)
         tk = torch.zeros(tk_n, dtype=torch.int32, device=dev)
-        out = torch.zeros_like(q)
-        shape = (B, H, Hkv) if q.dim() == 3 else (B, C, H, Hkv)
+        out = torch.zeros_like(args[0])
         for ws_len, tk_len in ((ws_n - 1, tk_n), (ws_n, tk_n - 1)):
             err = ops._fn(name)(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), s_k.data_ptr(),
-                s_v.data_ptr(), tbl.data_ptr(), lens.data_ptr(),
-                out.data_ptr(), ws.data_ptr(), ws_len, tk.data_ptr(),
-                tk_len, *shape, k.shape[0] - 1, bs_, T, D, D ** -0.5,
-                torch.cuda.current_stream(dev).cuda_stream)
+                *(a.data_ptr() for a in args), out.data_ptr(),
+                ws.data_ptr(), ws_len, tk.data_ptr(), tk_len, *shape,
+                D ** -0.5, torch.cuda.current_stream(dev).cuda_stream)
             torch.cuda.synchronize()
             check(err == 1 and not bool(out.any()),
                   f"{name} took {ws_len} of {ws_n} workspace and {tk_len} "
                   f"of {tk_n} tickets: error {err}")
-    print(f"phase 2: the paged launchers refuse scratch one element short "
-          f"of kvq_paged_split_scratch's", flush=True)
+    print(f"phase 2: the split-KV launchers (dense decode, paged decode, "
+          f"verify) refuse scratch one element short of "
+          f"kvq_paged_split_scratch's", flush=True)
 
 
 def check_paged_rows(torch, P, cfg, dev, report):
@@ -1244,10 +1369,14 @@ def time_eager_ms(torch, fn, arg_sets, min_calls=10):
 # ragged length and a sliding window
 FLASH_CASES = ((TRAIN_B, TRAIN_T, 0), (2, 1024, 0), (3, 333, 0),
                (2, 200, 64))
+# the same checks at the kernel's other head dim, 64 (qwen's heads are 128)
+FLASH_D64_CASES = ((TRAIN_B, TRAIN_T, 0), (3, 333, 0), (2, 200, 64))
+FLASH_LONG = (TRAIN_B, 1024)   # the paper's sequence length, timed
 
 
-def flash_inputs(torch, gen, cfg, B, S, dev):
-    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+def flash_inputs(torch, gen, cfg, B, S, dev, D=None):
+    H, Hkv = cfg.n_heads, cfg.n_kv_heads
+    D = D or cfg.resolved_head_dim
     return tuple(torch.randn(shape, generator=gen, device=dev).to(
         torch.bfloat16) for shape in ((B, S, H, D), (B, S, Hkv, D),
                                       (B, S, Hkv, D)))
@@ -1272,8 +1401,10 @@ def check_flash(torch, P, cfg, dev, report):
     gen.manual_seed(23)
     rtol, atol = FLASH_TOL
     worst, cases = 0.0, []
-    for B, S, window in FLASH_CASES:
-        q, k, v = flash_inputs(torch, gen, cfg, B, S, dev)
+    D0 = cfg.resolved_head_dim
+    for B, S, window, D in ([c + (D0,) for c in FLASH_CASES]
+                            + [c + (64,) for c in FLASH_D64_CASES]):
+        q, k, v = flash_inputs(torch, gen, cfg, B, S, dev, D)
         got = fa(q, k, v, causal=True, window=window).float()
         want = ref(q, k, v, causal=True, window=window).float()
         oracle = flash_oracle(torch, q, k, v, window)
@@ -1283,7 +1414,7 @@ def check_flash(torch, P, cfg, dev, report):
                            .float().mean())
         e_k = float((got - oracle).abs().max())
         e_p = float((want - oracle).abs().max())
-        cases.append({"B": B, "S": S, "window": window,
+        cases.append({"B": B, "S": S, "window": window, "D": D,
                       "max_abs_err": float(err.max()),
                       "share_beyond_one_ulp": beyond_ulp,
                       "kernel_vs_oracle": e_k, "plain_vs_oracle": e_p})
@@ -1292,7 +1423,8 @@ def check_flash(torch, P, cfg, dev, report):
         check(torch.allclose(got, want, rtol=rtol, atol=atol)
               and beyond_ulp <= FLASH_ULP_SHARE
               and e_k <= FLASH_ORACLE_RATIO * e_p,
-              f"flash_attn_fwd B={B} S={S} window={window} differs from its "
+              f"flash_attn_fwd B={B} S={S} window={window} D={D} differs "
+              f"from its "
               f"plain version: {cases[-1]} (rtol {rtol}, atol {atol}, at "
               f"most {FLASH_ULP_SHARE} beyond one ulp, oracle error at most "
               f"{FLASH_ORACLE_RATIO}x the plain version's)")
@@ -1300,7 +1432,8 @@ def check_flash(torch, P, cfg, dev, report):
         del q, k, v, got, want, oracle, err
     report["flash_check"] = cases
     print(f"phase 2: flash_attn_fwd within rtol {rtol} atol {atol} of its "
-          f"plain version at H=16, Hkv=2, D=128: {cases}", flush=True)
+          f"plain version at H={cfg.n_heads}, Hkv={cfg.n_kv_heads}, "
+          f"D={D0} and 64: {cases}", flush=True)
     return worst
 
 
@@ -1319,35 +1452,52 @@ def flash_oracle(torch, q, k, v, window):
     return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s_, -1), vr).float()
 
 
-def time_flash(torch, P, cfg, dev, report):
-    """Per teacher forward: 36 launches at the QAT phase's shape."""
+def time_flash_launch(torch, P, cfg, dev, gen, B, S, plain_calls):
+    """One flash launch at (B, S), causal, on rotated inputs: device ms,
+    the plain version (``plain_calls`` calls on two sets), SDPA with
+    ``enable_gqa`` and the bound: the bytes (q, k, v read once, out
+    written once) or the causal QK^T and P.V at the bf16 tensor-core
+    rate, the larger."""
     import torch.nn.functional as F
     fa, ref = P["fa_ops"].flash_attn_fwd, P["flash_attn_ref"]
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(24)
-    B, S = TRAIN_B, TRAIN_T
     H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     base = flash_inputs(torch, gen, cfg, B, S, dev)
-    nb = tensor_bytes(*base)
     sets = [base] + [flash_inputs(torch, gen, cfg, B, S, dev)
-                     for _ in range(copies_for(nb) - 1)]
+                     for _ in range(copies_for(tensor_bytes(*base)) - 1)]
     t_k = time_ms(torch, fa, sets)
-    t_p = time_ms(torch, ref, sets[:4], min_calls=10)
+    t_p = time_ms(torch, ref, sets[:2], min_calls=plain_calls)
     lib = [tuple(t.transpose(1, 2) for t in s) for s in sets]
     t_l = time_ms(torch, lambda q, k, v: F.scaled_dot_product_attention(
         q, k, v, is_causal=True, enable_gqa=True), lib)
     pairs = S * (S + 1) // 2                    # causal (query, key) pairs
     flops = 4 * B * H * D * pairs               # QK^T and P.V
     nbytes = 2 * (2 * B * S * H * D + 2 * B * S * Hkv * D)   # q, o, k, v
-    t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
-    L = cfg.n_layers
-    report["flash_per_launch"] = {"ms": t_k, "plain_ms": t_p,
-                                  "library_ms": t_l,
-                                  "bound_ms": max(t_b, t_o) * 1e3,
-                                  "flops": flops, "bytes": nbytes}
-    return {"ms": L * t_k, "plain_ms": L * t_p, "library_ms": L * t_l,
-            "bound_ms": L * max(t_b, t_o) * 1e3,
-            "bound_by": "bytes" if t_b >= t_o else "operations"}
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / BF16_PEAK_FLOPS
+    del sets, lib
+    torch.cuda.empty_cache()
+    return {"ms": t_k, "plain_ms": t_p, "library_ms": t_l,
+            "bound_ms": max(t_b, t_o) * 1e3, "byte_bound_ms": t_b * 1e3,
+            "operation_bound_ms": t_o * 1e3,
+            "bound_by": "bytes" if t_b >= t_o else "operations",
+            "flops": flops, "bytes": nbytes, "B": B, "S": S}
+
+
+def time_flash(torch, P, cfg, dev, report):
+    """Per teacher forward: 36 launches at the QAT phase's shape; and one
+    launch at FLASH_LONG (S 1024)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(24)
+    t = time_flash_launch(torch, P, cfg, dev, gen, TRAIN_B, TRAIN_T, 10)
+    lt = time_flash_launch(torch, P, cfg, dev, gen, *FLASH_LONG, 4)
+    report["flash_per_launch"], report["flash_long"] = t, lt
+    print(f"phase 4: flash_attn_fwd per launch at (B, S) = "
+          f"({TRAIN_B}, {TRAIN_T}): {t['ms'] * 1e3:.2f} us (bound "
+          f"{t['bound_ms'] * 1e3:.2f} us by {t['bound_by']}), SDPA "
+          f"{t['library_ms'] * 1e3:.2f} us; at {FLASH_LONG}: "
+          f"{lt['ms'] * 1e3:.2f} us (bound {lt['bound_ms'] * 1e3:.2f} us by "
+          f"{lt['bound_by']}), SDPA {lt['library_ms'] * 1e3:.2f} us",
+          flush=True)
+    return per_step(t, cfg.n_layers)
 
 
 # --------------------------------------------------------------------------
@@ -2721,6 +2871,7 @@ def main() -> int:
     xcfg = P["get_config"](XLSTM)
     w4a8_err = check_w4a8(torch, P, cfg, dev, report)
     kvq_err = check_kvq(torch, P, cfg, dev, report)
+    check_kvq_bitwise(torch, P, cfg, dev, report)
     paged_err = check_paged_decode(torch, P, cfg, dev, report)
     check_paged_rows(torch, P, cfg, dev, report)
     check_paged_scratch(torch, P, cfg, dev)

@@ -42,7 +42,7 @@ extern "C" int kvq_paged_decode_attn_launch(
     void* ws, long long ws_len, void* tickets, long long tk_len, int B,
     int H, int Hkv, int NB, int bs, int T, int D, float scale,
     void* stream) {
-  return kvq_split::launch(q, k, v, sk, sv, tbl, lengths, out, ws, ws_len,
-                           tickets, tk_len, B, 1, H, Hkv, NB, bs, T, D,
-                           scale, stream);
+  return kvq_split::launch<false>(q, k, v, sk, sv, tbl, lengths, out, ws,
+                                  ws_len, tickets, tk_len, B, 1, H, Hkv, NB,
+                                  bs, T, D, scale, stream);
 }

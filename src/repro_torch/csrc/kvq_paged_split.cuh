@@ -2,7 +2,15 @@
 // int8 KV pool, for Hopper (sm_90a). One kernel serves both the decode
 // launcher (kvq_paged_decode_attn.cu, one query a slot) and the verify
 // launcher (kvq_spec_verify_attn.cu, C queries a slot): C is a runtime
-// argument, so both run the same compiled code.
+// argument, so both run the same compiled code. The dense decode launcher
+// (kvq_decode_attn.cu) runs it with the token address as a compile-time
+// policy, kDense: a dense cache (B, Hkv, S, D) is the pool of B blocks of
+// bs = S tokens with the table b -> b (T = 1), so token p of slot b and
+// KV head kh is row (b * Hkv + kh) * S + p, and no table is read. Only
+// that address changes; every load, score, softmax, P.V, ticket and merge
+// is the same code, so dense decode equals paged decode of the same K/V
+// bit for bit, and the paged instantiations (kDense false) are what they
+// were.
 //
 //   blk(b, p) = tbl[b, p / bs] clamped to [0, NB - 1],  row(p) = p % bs
 //   out[b, c, h] = softmax_p( q[b, c, h] . (k[blk, h/G, row] *
@@ -280,7 +288,7 @@ __device__ __forceinline__ bool last_of(int* tk, int cnt, int* flag_s) {
   return last;
 }
 
-template <int D>
+template <int D, bool kDense>
 __global__ void __launch_bounds__(THREADS, 2)
 kvq_paged_split_kernel(const __nv_bfloat16* __restrict__ q,
                        const int8_t* __restrict__ k,
@@ -320,12 +328,15 @@ kvq_paged_split_kernel(const __nv_bfloat16* __restrict__ q,
   const int cap = T * bs;
   const int p0 = s * SPLIT;
 
-  // the table entry of this thread's token, loaded beside the lengths
-  // (the index is clamped in range; the entry before any address)
+  // the block of this thread's token: its table entry, loaded beside the
+  // lengths (the index is clamped in range; the entry before any
+  // address), or under kDense the slot itself (no table)
   const int jl = tid / TPT;                   // token of the split
   const int cs = tid % TPT;                   // chunk slot
-  const int ent =
-      min(max(tbl[(size_t)b * T + min(p0 + jl, cap - 1) / bs], 0), NB - 1);
+  int ent = b;
+  if constexpr (!kDense)
+    ent = min(max(tbl[(size_t)b * T + min(p0 + jl, cap - 1) / bs], 0),
+              NB - 1);
   auto qlen = [&](int c) {
     return max(0, min(lengths[(size_t)b * C + c], cap));
   };
@@ -348,7 +359,9 @@ kvq_paged_split_kernel(const __nv_bfloat16* __restrict__ q,
   // ---- put the whole split in flight
   const int n_tok = min(SPLIT, maxlen - p0);
   if (jl < n_tok) {
-    const size_t tok = ((size_t)ent * Hkv + kh) * bs + ((p0 + jl) % bs);
+    // dense: row (b * Hkv + kh) * S + p, p < cap = S
+    const size_t tok = ((size_t)ent * Hkv + kh) * bs +
+                       (kDense ? p0 + jl : (p0 + jl) % bs);
 #pragma unroll
     for (int u = 0; u < 2 * CH / TPT; ++u) {
       const int c = cs + TPT * u;                  // 0 .. 2 CH - 1
@@ -660,7 +673,10 @@ void scratch(int B, int C, int H, int Hkv, int D, int T, int bs,
 
 // Launch for q / out of (B, C, H, D); ws_len f32 of workspace and tk_len
 // int32 tickets, at least what scratch() asks for (tickets zero before
-// the first launch; every launch leaves them zero).
+// the first launch; every launch leaves them zero). kDense: k / v / s_k /
+// s_v are a dense cache (B, Hkv, S, D), passed as T = 1, bs = S, NB = B,
+// and tbl is not read.
+template <bool kDense>
 int launch(const void* q, const void* k, const void* v, const void* sk,
            const void* sv, const void* tbl, const void* lengths, void* out,
            void* ws, long long ws_len, void* tickets, long long tk_len,
@@ -689,16 +705,16 @@ int launch(const void* q, const void* k, const void* v, const void* sk,
   if (smem > set) {
     const cudaError_t e =
         D == 128 ? cudaFuncSetAttribute(
-                       kvq_paged_split_kernel<128>,
+                       kvq_paged_split_kernel<128, kDense>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem)
                  : cudaFuncSetAttribute(
-                       kvq_paged_split_kernel<64>,
+                       kvq_paged_split_kernel<64, kDense>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
     set = smem;
   }
   if (D == 128) {
-    kvq_paged_split_kernel<128><<<grid, THREADS, smem, st>>>(
+    kvq_paged_split_kernel<128, kDense><<<grid, THREADS, smem, st>>>(
         static_cast<const __nv_bfloat16*>(q), static_cast<const int8_t*>(k),
         static_cast<const int8_t*>(v), static_cast<const float*>(sk),
         static_cast<const float*>(sv), static_cast<const int*>(tbl),
@@ -706,7 +722,7 @@ int launch(const void* q, const void* k, const void* v, const void* sk,
         static_cast<float*>(ws), static_cast<int*>(tickets), C, H, Hkv, NB,
         bs, T, scale);
   } else {
-    kvq_paged_split_kernel<64><<<grid, THREADS, smem, st>>>(
+    kvq_paged_split_kernel<64, kDense><<<grid, THREADS, smem, st>>>(
         static_cast<const __nv_bfloat16*>(q), static_cast<const int8_t*>(k),
         static_cast<const int8_t*>(v), static_cast<const float*>(sk),
         static_cast<const float*>(sv), static_cast<const int*>(tbl),

@@ -46,7 +46,7 @@ extern "C" int kvq_spec_verify_attn_launch(
     void* ws, long long ws_len, void* tickets, long long tk_len, int B,
     int C, int H, int Hkv, int NB, int bs, int T, int D, float scale,
     void* stream) {
-  return kvq_split::launch(q, k, v, sk, sv, tbl, lengths, out, ws, ws_len,
-                           tickets, tk_len, B, C, H, Hkv, NB, bs, T, D,
-                           scale, stream);
+  return kvq_split::launch<false>(q, k, v, sk, sv, tbl, lengths, out, ws,
+                                  ws_len, tickets, tk_len, B, C, H, Hkv, NB,
+                                  bs, T, D, scale, stream);
 }

@@ -8,16 +8,19 @@ Each checks its inputs and counts its launches in ``.launches``.
 ``commit_chunk_kv`` is a plain scatter on every device, as in the
 reference. Paged pool leaves carry a trailing sink block (see ``ref.py``).
 
-The paged decode and verify kernels share one split-KV design
-(``csrc/kvq_paged_split.cuh``): a CTA per (slot, split of ``SPLIT`` token
-positions, KV head, chunk of query rows), the splits merged inside the
-launch through an f32 workspace and atomic tickets. The source sizes
-that scratch (``kvq_paged_split_scratch``) and its launchers refuse a
-shorter one. Workspace and tickets are kept per device (tickets zeroed
-once; every launch leaves them zero), so a call allocates nothing beyond
-its output and can be captured in a CUDA graph; launches of these two
-kernels on one device must therefore not run concurrently on two
-streams.
+The dense decode, paged decode and verify kernels share one split-KV
+design (``csrc/kvq_paged_split.cuh``): a CTA per (slot, split of
+``SPLIT`` token positions, KV head, chunk of query rows), the splits
+merged inside the launch through an f32 workspace and atomic tickets.
+The dense launcher runs it with the table taken away (the cache is the
+pool of B blocks of S tokens, table b -> b), so dense decode is bitwise
+paged decode of the same K/V. The source sizes that scratch
+(``kvq_paged_split_scratch``) and its three launchers refuse a shorter
+one. Workspace and tickets are kept per device and shared by the three
+launchers (tickets zeroed once; every launch leaves them zero), so a
+call allocates nothing beyond its output and can be captured in a CUDA
+graph; launches of these three kernels on one device must therefore not
+run concurrently on two streams.
 """
 from __future__ import annotations
 
@@ -36,12 +39,13 @@ from repro_torch.kernels.kvq_attn.ref import (chunk_commit_ids,
 from repro_torch.kernels.checks import check_aligned, check_tensor
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# the paged launchers' pointers and scratch: q .. out, ws, ws_len,
-# tickets, tk_len
-_PAGED = (_P,) * 9 + (_L, _P, _L)
+# the split-KV launchers' scratch: ws, ws_len, tickets, tk_len
+_SCR = (_P, _L, _P, _L)
+# the paged launchers' pointers and scratch: q .. out, then _SCR
+_PAGED = (_P,) * 8 + _SCR
 # C signatures of the launchers: pointers and the stream as c_void_p
 _ARGTYPES = {
-    "kvq_decode_attn": (_P,) * 7 + (_I,) * 5 + (ctypes.c_float, _P),
+    "kvq_decode_attn": (_P,) * 7 + _SCR + (_I,) * 5 + (ctypes.c_float, _P),
     "kvq_paged_decode_attn": _PAGED + (_I,) * 7 + (ctypes.c_float, _P),
     "kvq_spec_verify_attn": _PAGED + (_I,) * 8 + (ctypes.c_float, _P),
     "gather_dequant_paged_kv": (_P,) * 4 + (_I,) * 6 + (_P,),
@@ -50,7 +54,7 @@ _ARGTYPES = {
 }
 MAX_GROUP = 8       # query heads per KV head the kernel holds on chip
 HEAD_DIMS = (64, 128)
-SPLIT = 64          # token positions a CTA of the paged kernels owns
+SPLIT = 64          # token positions a CTA of the split-KV kernels owns
 #                     (csrc/kvq_paged_split.cuh; checked at load)
 
 
@@ -70,7 +74,8 @@ def _fn(name: str):
     return fn
 
 
-_PAGED_SPLIT = ("kvq_paged_decode_attn", "kvq_spec_verify_attn")
+_PAGED_SPLIT = ("kvq_decode_attn", "kvq_paged_decode_attn",
+                "kvq_spec_verify_attn")
 _SCRATCH = {}       # device index -> (f32 workspace, zeroed int32 tickets)
 _RETIRED = []       # outgrown scratch, held for the life of the process:
 #                     a CUDA graph captured before it was outgrown may
@@ -82,8 +87,9 @@ def _scratch_need(B: int, C: int, H: int, Hkv: int, D: int, T: int,
                   bs: int):
     """(f32 workspace, int32 tickets) that a split-KV launch of these
     shapes needs, as the kernel source computes them
-    (``kvq_paged_split_scratch``; both launchers compile the same
-    header, so the decode launcher's library answers for both)."""
+    (``kvq_paged_split_scratch``; the three launchers compile the same
+    header, so the paged decode launcher's library answers for all; the
+    dense launcher asks at T = 1, bs = S)."""
     from repro_torch.kernels.build import load
     _fn("kvq_paged_decode_attn")        # built, loaded, its split checked
     get = load("kvq_paged_decode_attn").kvq_paged_split_scratch
@@ -102,7 +108,7 @@ def _scratch(dev: torch.device, ws_n: int, tk_n: int):
     cur = _SCRATCH.get(dev.index)
     if cur is None or cur[0].numel() < ws_n or cur[1].numel() < tk_n:
         if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError("the paged attention kernels need more "
+            raise RuntimeError("the split-KV attention kernels need more "
                                "scratch than a call before the capture "
                                "allocated; run the call once uncaptured")
         old_ws, old_tk = cur if cur is not None else (None, None)
@@ -152,6 +158,8 @@ def kvq_decode_attn(q, k_q, v_q, s_k, s_v, lengths) -> torch.Tensor:
     lengths (B,) int32. CPU tensors run the plain version. CUDA tensors
     launch the kernel, which takes a bf16 q, H % Hkv == 0 with at most
     8 query heads per KV head, and D of 64 or 128; anything else raises.
+    On CUDA a slot's output is bitwise :func:`kvq_paged_decode_attn` of
+    the same K/V in a pool, and depends only on its own length.
     """
     if q.device.type == "cpu":
         return kvq_decode_attn_ref(q, k_q, v_q, s_k, s_v, lengths)
@@ -172,11 +180,13 @@ def kvq_decode_attn(q, k_q, v_q, s_k, s_v, lengths) -> torch.Tensor:
     check_tensor("lengths", lengths, torch.int32, (B,), dev)
     check_aligned("k_q", k_q)
     check_aligned("v_q", v_q)
+    ws, tk = _scratch(dev, *_scratch_need(B, 1, H, Hkv, D, 1, S))
     out = torch.empty((B, H, D), dtype=torch.bfloat16, device=dev)
     err = _fn("kvq_decode_attn")(
         q.data_ptr(), k_q.data_ptr(), v_q.data_ptr(), s_k.data_ptr(),
-        s_v.data_ptr(), lengths.data_ptr(), out.data_ptr(), B, H, Hkv, S, D,
-        D ** -0.5, torch.cuda.current_stream(dev).cuda_stream)
+        s_v.data_ptr(), lengths.data_ptr(), out.data_ptr(), ws.data_ptr(),
+        ws.numel(), tk.data_ptr(), tk.numel(), B, H, Hkv, S, D, D ** -0.5,
+        torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "kvq_decode_attn")
     kvq_decode_attn.launches += 1
     return out

@@ -38,8 +38,9 @@ _NEG = -1e30
 def _decode_attn(ctx: QuantCtx, q, k_q, v_q, s_k, s_v, lengths) -> torch.Tensor:
     """Decode attention over the int cache for a full slot batch.
 
-    CUDA tensors go through the hand-written flash-decode kernel (int8
-    rows dequantized on chip, one block per slot and KV head); CPU
+    CUDA tensors go through the hand-written split-KV decode kernel (int8
+    rows dequantized on chip, a CTA per 64-token split of a slot and KV
+    head, the paged kernel's code with the table taken away); CPU
     tensors, and every tensor under ``kernel_backend="ref"``, through the
     plain path. Both take the same batched (B, ...) operands.
     """

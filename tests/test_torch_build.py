@@ -8,9 +8,17 @@ headers it includes (directly or through another header), and the
 flags. Otherwise editing a shared header (``kvq_paged_split.cuh``, which
 both paged attention launchers include) would leave stale libraries.
 """
+import ctypes
+import re
+
 import pytest
 
 from repro_torch.kernels import build
+from repro_torch.kernels.flash_attn import ops as fa_ops
+from repro_torch.kernels.kvq_attn import ops as kvq_ops
+from repro_torch.kernels.quant import ops as fq_ops
+from repro_torch.kernels.slstm_scan import ops as slstm_ops
+from repro_torch.kernels.w4a8 import ops as w4a8_ops
 
 
 @pytest.fixture
@@ -54,10 +62,71 @@ def test_local_includes_follows_quoted_headers_only(csrc):
 
 
 @pytest.mark.parametrize("name", ["kvq_paged_decode_attn",
-                                  "kvq_spec_verify_attn"])
+                                  "kvq_spec_verify_attn", "kvq_decode_attn"])
 def test_paged_launchers_share_the_split_header(name):
-    """Both paged attention launchers compile the one split-KV header, so
-    an edit to it rebuilds both."""
+    """The dense decode, paged decode and verify launchers compile the one
+    split-KV header, so an edit to it rebuilds all three."""
     hdrs = build.local_includes(build.CSRC / f"{name}.cu")
     assert [p.name for p in hdrs] == ["kvq_paged_split.cuh"]
     assert name in build.SOURCES
+
+
+# --------------------------------------------------------------------------
+# the ctypes signatures against the C launchers' parameter lists
+# --------------------------------------------------------------------------
+
+_EXTERN = re.compile(r'extern "C"\s+(?:int|long long)\s+(\w+)\s*\(([^)]*)\)')
+_SCALAR = {"int": ctypes.c_int, "long long": ctypes.c_longlong,
+           "float": ctypes.c_float}
+
+
+def _c_params(source: str, fn: str) -> list:
+    """The ctypes class each parameter of ``fn`` in ``csrc/<source>.cu``
+    takes: c_void_p for a pointer, else its scalar type."""
+    text = (build.CSRC / f"{source}.cu").read_text()
+    found = dict(_EXTERN.findall(text))
+    assert fn in found, f"{source}.cu has no extern \"C\" {fn}"
+    kinds = []
+    for param in found[fn].split(","):
+        param = " ".join(param.replace("const", " ").split())
+        if "*" in param:
+            kinds.append(ctypes.c_void_p)
+        else:
+            kinds.append(_SCALAR[param.rsplit(" ", 1)[0]])
+    return kinds
+
+
+# (source, C function, the wrapper's argtypes)
+LAUNCHERS = [
+    ("flash_attn_fwd", "flash_attn_fwd_launch", fa_ops._ARGTYPES),
+    *[(name, f"{name}_launch", kvq_ops._ARGTYPES[name])
+      for name in kvq_ops._ARGTYPES],
+    *[("fake_quant", name, fq_ops._ARGTYPES[name][0])
+      for name in fq_ops._ARGTYPES],
+    ("slstm_scan", "slstm_scan_launch", slstm_ops._ARGTYPES),
+    ("w4a8_matmul", "w4a8_matmul_launch", w4a8_ops._ARGTYPES),
+]
+
+
+@pytest.mark.parametrize("source,fn,argtypes", LAUNCHERS,
+                         ids=[f for _, f, _ in LAUNCHERS])
+def test_launcher_signature_matches_argtypes(source, fn, argtypes):
+    """A C launcher whose parameter list drifts from the wrapper's ctypes
+    argtypes still passes every CPU test and only fails (or corrupts
+    memory) on the card, so the two are read side by side here: the same
+    count, a pointer (c_void_p) exactly where the C side takes one, and
+    the same scalar type elsewhere (a 64-bit ``long long`` is not an
+    ``int``)."""
+    assert source in build.SOURCES
+    assert list(argtypes) == _c_params(source, fn)
+
+
+def test_every_launcher_has_argtypes():
+    """No ``*_launch`` entry point of ``csrc/`` is missing from the table
+    above, so a new launcher is held to its wrapper too."""
+    launchers = {fn for src in build.SOURCES
+                 for fn, _ in _EXTERN.findall(
+                     (build.CSRC / f"{src}.cu").read_text())
+                 if fn.endswith("_launch")}
+    assert launchers == {fn for _, fn, _ in LAUNCHERS
+                         if fn.endswith("_launch")}

@@ -256,6 +256,50 @@ class TestPagedPlainAtSplitBoundaries:
                 rtol=2e-5, atol=2e-5)
 
 
+@pytest.mark.parametrize("bs,S", [(64, 1088), (16, 1088), (48, 720)])
+def test_paged_plain_on_a_scattered_dense_cache_equals_dense_plain(bs, S):
+    """The plain paged decode on a pool built from a dense cache (each
+    slot's tokens scattered into blocks through a shuffled table,
+    sentinels past its extent) equals the plain dense decode bitwise, at
+    lengths on and around the split-KV kernels' 64-token split boundaries
+    and an empty row. On the card the dense kernel runs the paged
+    kernel's code with the table taken away and must equal it bit for
+    bit (``chip_smoke.py``); this is that statement for the plain
+    versions: the gather changes no value and no order. The plain
+    versions sum over the whole cache extent, masked or not, so the
+    cache here is a whole number of blocks: a pool padded past S (S 1025
+    in blocks of 64, say) sums over 1088 positions and can move the last
+    bit; the kernels walk only a row's own tokens and are held to
+    equality at S 1025 on the card."""
+    lens = np.array([0, 1, S - 1, 64, 65, 192, 63, S], np.int32)
+    B, H, Hkv, D = len(lens), 4, 2, 16
+    rng = np.random.default_rng(S + bs)
+    q = torch.from_numpy(rng.standard_normal((B, H, D)).astype(np.float32))
+    k = rng.integers(-127, 128, (B, Hkv, S, D)).astype(np.int8)
+    v = rng.integers(-127, 128, (B, Hkv, S, D)).astype(np.int8)
+    sk = rng.uniform(0.01, 0.2, (B, Hkv, S)).astype(np.float32)
+    sv = rng.uniform(0.01, 0.2, (B, Hkv, S)).astype(np.float32)
+    T = S // bs
+    NB = B * T + 5
+    tbl = rng.permutation(NB)[:B * T].reshape(B, T).astype(np.int32)
+    tbl = np.where(np.arange(T)[None] < -(-lens // bs)[:, None], tbl, NB)
+
+    def pool(x):                        # (B, Hkv, S, ...) -> (NB + 1, ...)
+        x = x.reshape((B, Hkv, T, bs) + x.shape[3:]).swapaxes(1, 2)
+        out = np.zeros((NB + 1, Hkv, bs) + x.shape[4:], x.dtype)
+        out[tbl] = x                    # sentinel rows land in the sink
+        return torch.from_numpy(out)
+
+    lengths = torch.from_numpy(lens)
+    dense = ref.kvq_decode_attn_ref(q, *map(torch.from_numpy, (k, v, sk, sv)),
+                                    lengths)
+    paged = ref.kvq_paged_decode_attn_ref(q, pool(k), pool(v), pool(sk),
+                                          pool(sv), torch.from_numpy(tbl),
+                                          lengths)
+    assert not dense[0].any()
+    assert torch.equal(paged, dense)
+
+
 # --------------------------------------------------------------------------
 # the port's copy of the block allocator
 # --------------------------------------------------------------------------
