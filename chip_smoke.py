@@ -10,8 +10,12 @@ toolkit (``nvcc``). Phases, each fatal on failure (non-zero exit):
    every CUDA kernel of the path from ``src/repro_torch/csrc`` (one
    ``nvcc`` per source, all at once);
 2. kernels against their plain PyTorch versions on the card, at the main
-   path's shapes: ``w4a8_matmul`` bitwise at M = slots and M = one prefill
-   batch, for every linear of qwen2.5-3b with and without bias;
+   path's shapes: ``w4a8_matmul`` bitwise at M in {1, slots, 8, 20, the
+   route threshold - 1 and itself, 37, 128, one prefill batch (512), 513}
+   for every linear of qwen2.5-3b with and without bias and every linear
+   of xlstm-125m (K 768, 1024, 1536; N down to 8), by the launcher's own
+   route and by each route (decode, tensor cores) forced, and rows alone
+   bitwise equal to the same rows inside M = 512;
    ``kvq_decode_attn`` within one bf16 ulp on ragged lengths, on lengths
    around the split-KV kernel's split and group boundaries (with an empty
    row, exactly zero) and at a long cache (32768, 20000, 8192, 1), bitwise
@@ -29,8 +33,11 @@ toolkit (``nvcc``). Phases, each fatal on failure (non-zero exit):
    three split-KV launchers refuse scratch one element short;
    ``rms_norm`` bitwise across row counts; ``fake_quant_fwd`` and the
    ``dx`` of ``fake_quant_bwd`` bitwise at bits 4 and 8 on every weight
-   shape of qwen2.5-3b (the tied head per vocab row) and two activation
-   shapes per tensor, its ``ds`` within 1e-4 of its sums' mass;
+   shape of qwen2.5-3b (the tied head per vocab row), two activation
+   shapes per tensor and shapes ragged against the backward's tiling (R
+   one past a row band, C not a multiple of 8, an x not 16-byte
+   aligned), its ``ds`` within 1e-4 of its sums' mass and bitwise equal
+   from call to call, a workspace one element short refused;
    ``flash_attn_fwd`` against its plain version and an f64 oracle at the
    QAT shape, S 1024, a ragged S and a sliding window (and at head dim
    64: the QAT shape, the ragged S, the window); ``slstm_scan``
@@ -93,7 +100,9 @@ toolkit (``nvcc``). Phases, each fatal on failure (non-zero exit):
    input copies past 100 MB), its plain version, one PyTorch call
    computing the same function (a yardstick the port never calls) and
    the least time the card needs for the work (``slstm_scan``: per
-   teacher forward, against a per-step ``torch.addmm`` loop); the paged
+   teacher forward, against a per-step ``torch.addmm`` loop;
+   ``w4a8_matmul`` also per prefill wave, 36 x 7 linears at M = 512,
+   beside bf16 ``torch.matmul``, bound by bytes or int8 operations); the paged
    decode, verify and dense decode kernels also per launch at a long
    cache (32768, 20000, 8192, 1 tokens; the dense one beside SDPA with
    ``enable_gqa``), ``flash_attn_fwd`` also at (B 8, S 1024) beside SDPA
@@ -264,12 +273,6 @@ def w4a8_weights(torch, gen, K, N, bias, dev):
     return w_p, s_w, b
 
 
-def w4a8_inputs(torch, gen, M, K, N, bias, dev):
-    x_q, s_x = w4a8_activations(torch, gen, M, K, dev)
-    w_p, s_w, b = w4a8_weights(torch, gen, K, N, bias, dev)
-    return x_q, w_p, s_x, s_w, b
-
-
 def w4a8_bound_ms(M, K, N, bias):
     nbytes = M * K + N * K // 2 + 4 * M + 4 * N + (4 * N if bias else 0) \
         + 2 * M * N
@@ -279,91 +282,173 @@ def w4a8_bound_ms(M, K, N, bias):
                                        else "operations")
 
 
-def check_w4a8(torch, P, cfg, dev, report):
+def xlstm_linear_shapes(xcfg):
+    """(name, K, N, bias) of every served linear of xlstm-125m: the mLSTM
+    block's up, q / k / v, gates (N = 8) and down, the sLSTM block's
+    w_x, r_h, up and down, and the untied head."""
+    d = xcfg.d_model
+    m = int(xcfg.mlstm_proj_factor * d)
+    s_in = int(xcfg.slstm_proj_factor * d)
+    return [("m_up", d, 2 * m, False), ("m_qkv", m, m, False),
+            ("m_gates", m, 2 * xcfg.n_heads, True), ("m_down", m, d, False),
+            ("s_x", d, 4 * d, True), ("s_r_h", d, 4 * d, False),
+            ("s_up", d, s_in, False), ("s_down", s_in, d, False),
+            ("head", d, xcfg.vocab_size, False)]
+
+
+def w4a8_check_ms(P):
+    """The M the bitwise checks take: decode slots, the spec verify wave
+    (20), both sides of the route threshold, ragged and full admission
+    waves and one past."""
+    t = P["w4a8_ops"].prefill_min_m()
+    return sorted({1, SLOTS, 8, 20, t - 1, t, 37, 128, PREFILL_M,
+                   PREFILL_M + 1})
+
+
+W4A8_ROUTES = ("decode", "mma")
+W4A8_ALONE_ROWS = (0, 1, 255, PREFILL_M - 1)
+
+
+def check_w4a8(torch, P, cfg, xcfg, dev, report):
+    """w4a8_matmul bitwise equal to its plain version on every served
+    linear of qwen2.5-3b (with and without bias) and of xlstm-125m, at
+    every M of ``w4a8_check_ms``, through the launcher's own pick of route
+    and through each route forced; then rows alone (the decode route)
+    bitwise equal to the same rows inside M = 512 (the tensor cores)."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
-    w4a8_matmul = P["w4a8_ops"].w4a8_matmul
+    ops = P["w4a8_ops"]
     ref = P["w4a8_matmul_ref"]
-    n_cmp = 0
-    for name, K, N, _ in linear_shapes(cfg):
-        for M in (SLOTS, PREFILL_M):
-            for bias in (False, True):
-                args = w4a8_inputs(torch, gen, M, K, N, bias, dev)
-                got = w4a8_matmul(*args)
-                want = ref(*args)
+    ms = w4a8_check_ms(P)
+    shapes = [(f"qwen {n}", K, N, b) for n, K, N, _ in linear_shapes(cfg)
+              for b in (False, True)]
+    shapes += [(f"xlstm {n}", K, N, b)
+               for n, K, N, b in xlstm_linear_shapes(xcfg)]
+
+    def same(got, want, what):
+        check(got.dtype == want.dtype == torch.bfloat16
+              and got.shape == want.shape, f"w4a8 {what}: dtype/shape")
+        if not torch.equal(got, want):
+            diff = (got.float() - want.float()).abs()
+            raise SmokeFailure(
+                f"w4a8_matmul {what} differs from its plain version: "
+                f"{int((diff > 0).sum())} elements, max {float(diff.max())}")
+
+    n_cmp = n_rows = 0
+    for name, K, N, bias in shapes:
+        w_p, s_w, b = w4a8_weights(torch, gen, K, N, bias, dev)
+        for M in ms:
+            x_q, s_x = w4a8_activations(torch, gen, M, K, dev)
+            want = ref(x_q, w_p, s_x, s_w, b)
+            what = f"{name} M={M} bias={bias} K={K} N={N}"
+            same(ops.w4a8_matmul(x_q, w_p, s_x, s_w, b), want, what)
+            for route in W4A8_ROUTES:
+                same(ops.w4a8_matmul_route(x_q, w_p, s_x, s_w, b,
+                                           route=route), want,
+                     f"{what} route={route}")
+            n_cmp += 1
+            del want, x_q, s_x
+        if name.startswith("qwen") and bias:
+            # one row alone against the same row inside an admission wave
+            x_q, s_x = w4a8_activations(torch, gen, PREFILL_M, K, dev)
+            wave = ops.w4a8_matmul(x_q, w_p, s_x, s_w, b)
+            for i in W4A8_ALONE_ROWS:
+                alone = ops.w4a8_matmul(x_q[i:i + 1], w_p, s_x[i:i + 1],
+                                        s_w, b)
                 torch.cuda.synchronize()
-                check(got.dtype == want.dtype == torch.bfloat16
-                      and got.shape == want.shape,
-                      f"w4a8 {name} M={M}: dtype/shape")
-                if not torch.equal(got, want):
-                    diff = (got.float() - want.float()).abs()
-                    raise SmokeFailure(
-                        f"w4a8_matmul {name} M={M} bias={bias} K={K} N={N} "
-                        f"differs from its plain version: "
-                        f"{int((diff > 0).sum())} elements, max "
-                        f"{float(diff.max())}")
-                n_cmp += 1
-                del got, want, args
+                check(torch.equal(alone, wave[i:i + 1]),
+                      f"w4a8_matmul {name}: row {i} alone differs from the "
+                      f"same row inside M={PREFILL_M}")
+                n_rows += 1
+            del wave, x_q, s_x
+        del w_p, s_w, b
+        torch.cuda.empty_cache()
     report["w4a8_compared"] = n_cmp
+    report["w4a8_check_ms"] = ms
+    report["w4a8_rows_alone"] = n_rows
     print(f"phase 2: w4a8_matmul bitwise equal to its plain version on "
-          f"{n_cmp} cases (M in {{{SLOTS}, {PREFILL_M}}}, 8 linears, "
-          f"with/without bias)", flush=True)
+          f"{n_cmp} cases (M in {ms}; 8 linears of qwen2.5-3b with and "
+          f"without bias, 9 of xlstm-125m), each by the launcher's route "
+          f"and by both routes forced (tensor cores from M = "
+          f"{ops.prefill_min_m()}); {n_rows} rows alone bitwise equal to "
+          f"the same rows inside M = {PREFILL_M}", flush=True)
     return 0.0
 
 
 def time_w4a8(torch, P, cfg, dev, report):
-    """Per-shape times at M = slots, summed over one decode step."""
+    """Per-shape times at M = slots, summed over one decode step (the 252
+    linears and the tied head), and at M = one admission wave, summed over
+    one prefill wave (the 252 linears: the engine runs the head on the
+    last tokens only); beside each, the plain version, bf16
+    ``torch.matmul`` on dequantized weights and the bound."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(2)
     w4a8_matmul = P["w4a8_ops"].w4a8_matmul
     ref = P["w4a8_matmul_ref"]
     unpack = P["unpack_int4"]
-    totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
-    t_bytes = t_ops = 0.0
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms")
+    totals = dict.fromkeys(keys, 0.0)
+    wave = dict.fromkeys(keys, 0.0)
+    t_bytes = t_ops = w_bytes = w_ops = 0.0
     rows = []
     for name, K, N, per_step in linear_shapes(cfg):
         bias = name in ("q", "k", "v")          # qwen2.5's QKV bias
-        M = SLOTS
-        x_q, s_x = w4a8_activations(torch, gen, M, K, dev)
+        per_wave = 0 if name == "head" else per_step
+        row = {"linear": name, "K": K, "N": N, "per_decode_step": per_step,
+               "per_prefill_wave": per_wave}
         nb = N * K // 2 + 4 * N * (2 if bias else 1)
         sets = []
         for _ in range(copies_for(nb)):
             w_p, s_w, b = w4a8_weights(torch, gen, K, N, bias, dev)
-            sets.append((x_q, w_p, s_x, s_w, b))
-        t_k = time_ms(torch, w4a8_matmul, sets)
-        t_host = host_issued_ms(torch, w4a8_matmul, sets)
-        t_p = time_ms(torch, ref, sets[:copies_for(nb * 9)], min_calls=5)
-        x_deq = (x_q.float() * s_x).to(torch.bfloat16)
-        lib_sets = []
-        for s in sets[:copies_for(N * K * 2)]:
-            w_deq = (unpack(s[1]).float() * s[3][:, None]).to(torch.bfloat16)
-            lib_sets.append((x_deq, w_deq.T))
-        t_l = time_ms(torch, torch.matmul, lib_sets)
-        bound, by = w4a8_bound_ms(M, K, N, bias)
-        # the same linear at one admission wave's M (prefill)
-        xp_q, sp_x = w4a8_activations(torch, gen, PREFILL_M, K, dev)
-        t_pre = time_ms(torch, w4a8_matmul,
-                        [(xp_q,) + (s[1], sp_x) + s[3:] for s in sets],
-                        min_calls=10)
-        rows.append({"linear": name, "M": M, "K": K, "N": N,
-                     "prefill_M": PREFILL_M, "prefill_ms": t_pre,
-                     "prefill_bound_ms": w4a8_bound_ms(PREFILL_M, K, N,
-                                                       bias)[0],
-                     "per_decode_step": per_step, "ms": t_k,
-                     "host_issued_ms": t_host, "plain_ms": t_p,
-                     "library_ms": t_l, "bound_ms": bound, "bound_by": by})
-        totals["ms"] += per_step * t_k
-        totals["plain_ms"] += per_step * t_p
-        totals["library_ms"] += per_step * t_l
-        totals["bound_ms"] += per_step * bound
-        nbytes = M * K + N * K // 2 + 8 * M + 4 * N * (2 if bias else 1) \
-            + 2 * M * N
-        t_bytes += per_step * nbytes / HBM_BYTES_PER_S
-        t_ops += per_step * 2 * M * N * K / INT8_OPS_PER_S
-        del sets, lib_sets
+            sets.append((w_p, s_w, b))
+        lib_w = [(unpack(w_p).float() * s_w[:, None]).to(torch.bfloat16).T
+                 for w_p, s_w, _ in sets[:copies_for(N * K * 2)]]
+        for M, key, n in ((SLOTS, "", per_step), (PREFILL_M, "prefill_",
+                                                  per_wave)):
+            if not n:
+                continue
+            x_q, s_x = w4a8_activations(torch, gen, M, K, dev)
+            args = [(x_q, w_p, s_x, s_w, b) for w_p, s_w, b in sets]
+            t_k = time_ms(torch, w4a8_matmul, args,
+                          min_calls=30 if M == SLOTS else 10)
+            if M == SLOTS:
+                row["host_issued_ms"] = host_issued_ms(torch, w4a8_matmul,
+                                                       args)
+            t_p = time_ms(torch, ref, args[:copies_for(nb * 9)],
+                          min_calls=5)
+            x_deq = (x_q.float() * s_x).to(torch.bfloat16)
+            t_l = time_ms(torch, torch.matmul, [(x_deq, w) for w in lib_w])
+            bound, by = w4a8_bound_ms(M, K, N, bias)
+            row.update({f"{key}M": M, f"{key}ms": t_k, f"{key}plain_ms": t_p,
+                        f"{key}library_ms": t_l, f"{key}bound_ms": bound,
+                        f"{key}bound_by": by})
+            acc = totals if M == SLOTS else wave
+            for k_, v_ in zip(keys, (t_k, t_p, t_l, bound)):
+                acc[k_] += n * v_
+            nbytes = M * K + N * K // 2 + 8 * M + 4 * N * (
+                2 if bias else 1) + 2 * M * N
+            if M == SLOTS:
+                t_bytes += n * nbytes / HBM_BYTES_PER_S
+                t_ops += n * 2 * M * N * K / INT8_OPS_PER_S
+            else:
+                w_bytes += n * nbytes / HBM_BYTES_PER_S
+                w_ops += n * 2 * M * N * K / INT8_OPS_PER_S
+            del args, x_q, s_x, x_deq
+        rows.append(row)
+        del sets, lib_w
         torch.cuda.empty_cache()
     report["w4a8_per_shape"] = rows
     totals["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    wave["bound_by"] = "bytes" if w_bytes >= w_ops else "operations"
+    wave["M"] = PREFILL_M
+    wave["per"] = (f"one prefill wave at M={PREFILL_M}: 36 layers x 7 "
+                   f"linears")
+    report["w4a8_prefill_wave"] = wave
+    print(f"phase 4: w4a8_matmul per prefill wave (M={PREFILL_M}): "
+          f"{wave['ms']:.4f} ms (bound {wave['bound_ms']:.4f} ms by "
+          f"{wave['bound_by']}), plain {wave['plain_ms']:.4f} ms, bf16 "
+          f"matmul {wave['library_ms']:.4f} ms", flush=True)
+    totals["prefill_wave"] = wave
     return totals
 
 
@@ -1232,14 +1317,45 @@ def fq_ds_mass(torch, P, x, s, g, bits):
     return mass.reshape(s.shape) * P["fq_ops"].grad_scale(x, s, bits)
 
 
+def fq_ragged_shapes(cfg):
+    """(case, R, C, mode, bits, offset) ragged against the backward's
+    per-column tiling (bands of rows in multiples of 32, strips of 256
+    bf16 columns, 16-byte packs): R one past a band (33 rows at C 256:
+    bands of 32; 2049 at C 2048: bands of 64), C not a multiple of 8 (the
+    one-element path) in each mode, and an x that starts one element into
+    its buffer (``offset``: not 16-byte aligned, the one-element path)."""
+    d, kvd = cfg.d_model, cfg.kv_dim
+    return [("R one past a band", 33, kvd, 1, 4, 0),
+            ("R one past a band", d + 1, d, 1, 4, 0),
+            ("C not a multiple of 8", 300, 1001, 1, 8, 0),
+            ("C not a multiple of 8", 77, 1001, 2, 8, 0),
+            ("C not a multiple of 8", 129, 1001, 0, 8, 0),
+            ("x not 16-byte aligned", 257, d, 1, 4, 1),
+            ("x not 16-byte aligned", 100, d, 0, 8, 1)]
+
+
 def check_fake_quant(torch, P, cfg, dev, report):
+    """fake_quant_fwd and the dx of fake_quant_bwd bitwise equal to their
+    plain versions, ds within FQ_DS_TOL of its sums' mass and bitwise
+    equal from one call to the next, on every weight shape of qwen2.5-3b,
+    the activation shapes of a static policy and the ragged cases; then
+    the backward's launcher refuses a workspace one element short."""
     ops, ref = P["fq_ops"], P["fq_ref"]
     gen = torch.Generator(device=dev)
     gen.manual_seed(21)
     worst_ds, n = 0.0, 0
-    for site, R, C, mode, _, _ in fq_shapes(cfg):
+    cases = [(site, R, C, mode, 0) for site, R, C, mode, _, _ in
+             fq_shapes(cfg)]
+    cases += [(f"{what} ({R} x {C}, mode {mode})", R, C, mode, off)
+              for what, R, C, mode, _, off in fq_ragged_shapes(cfg)]
+    for site, R, C, mode, off in cases:
         for bits in (4, 8):
             x, s, g = fq_inputs(torch, gen, R, C, mode, bits, dev)
+            if off:
+                buf = torch.empty(R * C + off, dtype=x.dtype, device=dev)
+                buf[off:] = x.reshape(-1)
+                x = buf[off:].view(R, C)
+                check(x.data_ptr() % 16 != 0, f"{site}: x is aligned")
             got = ops.fake_quant_fwd(x, s, bits)
             want = ref.fake_quant_fwd_ref(x, s, bits)
             torch.cuda.synchronize()
@@ -1248,11 +1364,15 @@ def check_fake_quant(torch, P, cfg, dev, report):
                   f"version in {int((got != want).sum())} elements")
             del got, want
             dx, ds = ops.fake_quant_bwd(x, s, g, bits)
+            _, ds2 = ops.fake_quant_bwd(x, s, g, bits)
             dx_p, ds_p = ops.fake_quant_bwd(x, s, g, bits, plain=True)
             torch.cuda.synchronize()
             check(torch.equal(dx, dx_p),
                   f"fake_quant_bwd {site} bits {bits}: dx differs from its "
                   f"plain version in {int((dx != dx_p).sum())} elements")
+            check(torch.equal(ds, ds2),
+                  f"fake_quant_bwd {site} bits {bits}: ds differs between "
+                  f"two calls in {int((ds != ds2).sum())} scales")
             mass = fq_ds_mass(torch, P, x, s, g, bits)
             rel = float(((ds - ds_p).abs() / mass.clamp_min(1e-30)).max())
             check(bool(torch.isfinite(ds).all()) and rel <= FQ_DS_TOL,
@@ -1260,16 +1380,49 @@ def check_fake_quant(torch, P, cfg, dev, report):
                   f"version by {rel} of its sums' mass (> {FQ_DS_TOL})")
             worst_ds = max(worst_ds, rel)
             n += 1
-            del x, s, g, dx, ds, dx_p, ds_p, mass
+            del x, s, g, dx, ds, ds2, dx_p, ds_p, mass
     torch.cuda.empty_cache()
+    check_fq_workspace(torch, P, cfg, dev)
     report["fake_quant_checked"] = n
     report["fake_quant_ds_rel_mass_err"] = worst_ds
     print(f"phase 2: fake_quant_fwd and dx of fake_quant_bwd bitwise equal "
           f"to their plain versions on {n} cases (every weight shape of "
           f"qwen2.5-3b per channel, the tied head per row, two linear-input "
-          f"and two attention shapes per tensor; bits 4 and 8); ds within {worst_ds:.3g} of "
-          f"its sums' mass (tolerance {FQ_DS_TOL})", flush=True)
+          f"and two attention shapes per tensor, {len(fq_ragged_shapes(cfg))}"
+          f" ragged or misaligned shapes; bits 4 and 8); ds within "
+          f"{worst_ds:.3g} of its sums' mass (tolerance {FQ_DS_TOL}) and "
+          f"bitwise equal from call to call; the backward refuses a "
+          f"workspace one element short", flush=True)
     return 0.0
+
+
+def check_fq_workspace(torch, P, cfg, dev):
+    """fake_quant_bwd's launcher refuses (cudaErrorInvalidValue, 1) a
+    workspace one element shorter than ``fake_quant_bwd_workspace`` asks
+    for, per column and per tensor, and writes nothing. Calls the C
+    launcher directly: nothing launches, no count moves."""
+    ops = P["fq_ops"]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(23)
+    d = cfg.d_model
+    for R, C, mode in ((d, d, 1), (d + 1, cfg.kv_dim, 1), (d, d, 0)):
+        x, s, g = fq_inputs(torch, gen, R, C, mode, 4, dev)
+        need = ops._fn("fake_quant_bwd_workspace")(R, C, mode)
+        check(need > 0, f"fake_quant_bwd_workspace({R}, {C}, {mode}) = "
+                        f"{need}")
+        work = torch.zeros(need, dtype=torch.float32, device=dev)
+        dx = torch.zeros_like(x)
+        ds = torch.zeros(s.shape, dtype=torch.float32, device=dev)
+        err = ops._fn("fake_quant_bwd_launch")(
+            x.data_ptr(), s.data_ptr(), g.data_ptr(), dx.data_ptr(),
+            work.data_ptr(), ds.data_ptr(), R, C, mode, 1, 4,
+            ops.grad_scale(x, s, 4), need - 1,
+            torch.cuda.current_stream(dev).cuda_stream)
+        torch.cuda.synchronize()
+        check(err == 1 and not bool(dx.any()) and not bool(ds.any())
+              and not bool(work.any()),
+              f"fake_quant_bwd took {need - 1} of {need} workspace at "
+              f"({R}, {C}, mode {mode}): error {err}")
 
 
 def time_fake_quant(torch, P, cfg, dev, report):
@@ -2869,7 +3022,7 @@ def main() -> int:
 
     cfg = P["get_config"]("qwen2.5-3b")
     xcfg = P["get_config"](XLSTM)
-    w4a8_err = check_w4a8(torch, P, cfg, dev, report)
+    w4a8_err = check_w4a8(torch, P, cfg, xcfg, dev, report)
     kvq_err = check_kvq(torch, P, cfg, dev, report)
     check_kvq_bitwise(torch, P, cfg, dev, report)
     paged_err = check_paged_decode(torch, P, cfg, dev, report)

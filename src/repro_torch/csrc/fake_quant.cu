@@ -34,11 +34,17 @@
 // operations per byte. Design: one pass over the data with 16-byte loads
 // and stores (8 bf16 or 4 f32 per thread) wherever the shape and the
 // pointers allow, else one element per thread. The TPU kernel's (256, 512)
-// VMEM tiles become: mode 1, blocks of 64 rows by 128 * VEC columns, one
-// thread per VEC columns walking the rows (a warp reads 512 contiguous
-// bytes per row), partials per 64-row tile; mode 2, one warp per row with
-// a shuffle reduction; mode 0, a fixed grid of grid-stride blocks, one
-// partial per block.
+// VMEM tiles become: mode 1, a block (8 warps) per strip of 32 packs
+// (256 bf16 columns: a warp reads 512 contiguous bytes of a row) and band
+// of rows, its warps on different rows, each thread staging its own packs
+// of x and g COL_STAGES groups of COL_UNROLL rows ahead by cp.async (12
+// rows in flight with no register holding them); the bands are sized so
+// that the grid holds ~2 blocks an SM (one wave) at every weight shape
+// (2048 x 256 to 11008 x 2048). The warps' column sums meet in shared
+// memory in warp order, one partial per band and column; a second pass
+// sums the bands in a fixed order, 8 threads a column. Mode 2, one warp
+// per row with a shuffle reduction; mode 0, a fixed grid of grid-stride
+// blocks, one partial per block.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -49,8 +55,15 @@
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int COL_THREADS = 128;      // mode 1: threads per block
-constexpr int ROW_TILE = 64;          // mode 1: rows summed into one partial
+constexpr int COL_WARPS = 8;          // mode 1: warps of a block, rows apart
+constexpr int COL_UNROLL = 4;         // mode 1: rows of a thread's group
+constexpr int COL_STAGES = 3;         // mode 1: groups in flight (cp.async)
+constexpr int COL_BAND = COL_WARPS * COL_UNROLL;  // bands are multiples
+constexpr int COL_STRIP = 32 * 8;     // mode 1: a strip's columns in bf16
+//                                       packs (sizes the bands, any pack)
+constexpr int COL_TARGET_BLOCKS = 264; // mode 1: at most one wave at 2
+//                                       blocks an SM (the registers allow 2)
+constexpr int FIN_GROUPS = 8;         // mode 1, second pass: threads a column
 constexpr int TENSOR_BLOCKS = 1024;   // mode 0: most blocks, one partial each
 constexpr float EPS = 1e-9f;
 
@@ -61,6 +74,22 @@ __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
 __device__ __forceinline__ void from_f(float v, float* o) { *o = v; }
 __device__ __forceinline__ void from_f(float v, __nv_bfloat16* o) {
   *o = __float2bfloat16_rn(v);
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // clip that lets NaN through, as jnp.clip and torch.clamp do
@@ -127,48 +156,143 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// mode 1: block (COL_THREADS) covers COL_THREADS * V columns of ROW_TILE
-// rows; partial[tile, c] is the tile's column sum
+// mode 1: block (COL_WARPS warps) covers the strip of 32 * V columns
+// starting at blockIdx.x * 32 * V and rows [blockIdx.y * band,
+// + band); warp w takes rows w, w + COL_WARPS, ... of the band in groups
+// of COL_UNROLL, and each thread sums its columns in row order;
+// partial[blockIdx.y, c] is the band's column sum, the warps' sums added
+// in warp order. With 16-byte packs a thread stages its own packs of x
+// and g COL_STAGES groups ahead in shared memory by cp.async (no other
+// thread reads them: no barrier), else it loads a group into registers.
 template <typename T, int V>
-__global__ void __launch_bounds__(COL_THREADS)
+__global__ void __launch_bounds__(COL_WARPS * 32, 2)
 fq_bwd_col_kernel(const T* __restrict__ x, const float* __restrict__ s,
                   const T* __restrict__ g, T* __restrict__ dx,
                   float* __restrict__ partial, long long R, long long C,
-                  float qn, float qp) {
-  const long long c0 =
-      ((long long)blockIdx.x * COL_THREADS + threadIdx.x) * V;
-  if (c0 >= C) return;
-  const long long r0 = (long long)blockIdx.y * ROW_TILE;
-  const long long r1 = r0 + ROW_TILE < R ? r0 + ROW_TILE : R;
-  float sf[V], acc[V];
+                  long long band, float qn, float qp) {
+  using P = Pack<T, V>;
+  extern __shared__ __align__(16) unsigned char col_smem[];
+  __shared__ float red[COL_WARPS][32 * V];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long c0 = ((long long)blockIdx.x * 32 + lane) * V;
+  const long long r0 = (long long)blockIdx.y * band + warp;
+  const long long r1 = (long long)blockIdx.y * band + band < R
+                           ? (long long)blockIdx.y * band + band
+                           : R;
+  const P* xp = reinterpret_cast<const P*>(x);
+  const P* gp = reinterpret_cast<const P*>(g);
+  P* dp = reinterpret_cast<P*>(dx);
+  float acc[V];
 #pragma unroll
-  for (int j = 0; j < V; ++j) {
-    sf[j] = clamp_scale(s[c0 + j]);
-    acc[j] = 0.0f;
+  for (int j = 0; j < V; ++j) acc[j] = 0.0f;
+  if (c0 < C) {
+    float sf[V];
+#pragma unroll
+    for (int j = 0; j < V; ++j) sf[j] = clamp_scale(s[c0 + j]);
+    // row u of group q of this warp
+    auto row = [&](long long q, int u) {
+      return r0 + q * COL_BAND + (long long)u * COL_WARPS;
+    };
+    auto sum_row = [&](const P& xv, const P& gv, long long rr) {
+      P dv;
+#pragma unroll
+      for (int j = 0; j < V; ++j)
+        acc[j] += fq_bwd_elem(xv.v[j], gv.v[j], sf[j], qn, qp, &dv.v[j]);
+      dp[(rr * C + c0) / V] = dv;
+    };
+    const long long groups = r0 < r1 ? (r1 - r0 + COL_BAND - 1) / COL_BAND : 0;
+    if constexpr (sizeof(P) == 16) {
+      // this thread's slots: st[((stage * COL_UNROLL + u) * 2 + k) * 32]
+      P* st = reinterpret_cast<P*>(col_smem) +
+              (size_t)warp * COL_STAGES * COL_UNROLL * 2 * 32 + lane;
+      auto stage = [&](long long q, int b) {
+#pragma unroll
+        for (int u = 0; u < COL_UNROLL; ++u) {
+          const long long rr = row(q, u);
+          if (rr < r1) {
+            cp_async16(st + ((b * COL_UNROLL + u) * 2) * 32,
+                       xp + (rr * C + c0) / V);
+            cp_async16(st + ((b * COL_UNROLL + u) * 2 + 1) * 32,
+                       gp + (rr * C + c0) / V);
+          }
+        }
+      };
+#pragma unroll
+      for (int b = 0; b < COL_STAGES - 1; ++b) {
+        if (b < groups) stage(b, b);
+        cp_async_commit();
+      }
+      for (long long q = 0; q < groups; ++q) {
+        const long long nq = q + COL_STAGES - 1;
+        if (nq < groups) stage(nq, (int)(nq % COL_STAGES));
+        cp_async_commit();
+        cp_async_wait<COL_STAGES - 1>();  // group q landed
+        const int b = (int)(q % COL_STAGES);
+#pragma unroll
+        for (int u = 0; u < COL_UNROLL; ++u) {
+          const long long rr = row(q, u);
+          if (rr < r1)
+            sum_row(st[((b * COL_UNROLL + u) * 2) * 32],
+                    st[((b * COL_UNROLL + u) * 2 + 1) * 32], rr);
+        }
+      }
+    } else {
+      for (long long q = 0; q < groups; ++q) {
+        P xv[COL_UNROLL], gv[COL_UNROLL];
+#pragma unroll
+        for (int u = 0; u < COL_UNROLL; ++u) {
+          const long long rr = row(q, u);
+          if (rr < r1) {
+            xv[u] = xp[(rr * C + c0) / V];
+            gv[u] = gp[(rr * C + c0) / V];
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < COL_UNROLL; ++u) {
+          const long long rr = row(q, u);
+          if (rr < r1) sum_row(xv[u], gv[u], rr);
+        }
+      }
+    }
   }
-  for (long long r = r0; r < r1; ++r) {
-    const long long p = (r * C + c0) / V;
-    const Pack<T, V> xv = reinterpret_cast<const Pack<T, V>*>(x)[p];
-    const Pack<T, V> gv = reinterpret_cast<const Pack<T, V>*>(g)[p];
-    Pack<T, V> dv;
 #pragma unroll
-    for (int j = 0; j < V; ++j)
-      acc[j] += fq_bwd_elem(xv.v[j], gv.v[j], sf[j], qn, qp, &dv.v[j]);
-    reinterpret_cast<Pack<T, V>*>(dx)[p] = dv;
+  for (int j = 0; j < V; ++j) red[warp][lane * V + j] = acc[j];
+  __syncthreads();
+  for (int i = threadIdx.x; i < 32 * V; i += blockDim.x) {
+    const long long c = (long long)blockIdx.x * 32 * V + i;
+    if (c < C) {
+      float t = 0.0f;
+#pragma unroll
+      for (int w = 0; w < COL_WARPS; ++w) t += red[w][i];
+      partial[(long long)blockIdx.y * C + c] = t;
+    }
   }
-#pragma unroll
-  for (int j = 0; j < V; ++j) partial[blockIdx.y * C + c0 + j] = acc[j];
 }
 
-// mode 1, second pass: ds[c] = gscale * sum over tiles, in tile order
-__global__ void __launch_bounds__(THREADS)
+// the staging ring of a mode-1 block with 16-byte packs, in bytes
+constexpr int COL_SMEM = COL_WARPS * COL_STAGES * COL_UNROLL * 2 * 32 * 16;
+
+// mode 1, second pass: ds[c] = gscale * the sum over bands; thread group
+// q of a column sums bands q, q + FIN_GROUPS, ... in order, then the
+// groups' sums are added in group order
+__global__ void __launch_bounds__(32 * FIN_GROUPS)
 fq_bwd_col_finish(const float* __restrict__ partial, float* __restrict__ ds,
-                  long long C, int n_tiles, float gscale) {
-  const long long c = (long long)blockIdx.x * THREADS + threadIdx.x;
-  if (c >= C) return;
+                  long long C, int bands, float gscale) {
+  __shared__ float red[FIN_GROUPS][32];
+  const int cl = threadIdx.x & 31, q = threadIdx.x >> 5;
+  const long long c = (long long)blockIdx.x * 32 + cl;
   float acc = 0.0f;
-  for (int t = 0; t < n_tiles; ++t) acc += partial[(long long)t * C + c];
-  ds[c] = __fmul_rn(acc, gscale);
+  if (c < C)
+    for (int b = q; b < bands; b += FIN_GROUPS)
+      acc += partial[(long long)b * C + c];
+  red[q][cl] = acc;
+  __syncthreads();
+  if (q == 0 && c < C) {
+    float t = 0.0f;
+#pragma unroll
+    for (int i = 0; i < FIN_GROUPS; ++i) t += red[i][cl];
+    ds[c] = __fmul_rn(t, gscale);
+  }
 }
 
 // mode 2: one warp per row; ds[r] = gscale * the row's sum
@@ -266,9 +390,26 @@ long long tensor_blocks(long long n) {
   return want < 1 ? 1 : (want > TENSOR_BLOCKS ? TENSOR_BLOCKS : want);
 }
 
+// mode 1's rows a band (a multiple of COL_BAND): as many bands as keep
+// the bf16 strips' blocks within COL_TARGET_BLOCKS (one wave), at least
+// COL_BAND rows each. A function of R and C only, so the workspace is too.
+long long col_band(long long R, long long C) {
+  const long long strips = (C + COL_STRIP - 1) / COL_STRIP;
+  long long bands = COL_TARGET_BLOCKS / strips;
+  const long long most = (R + COL_BAND - 1) / COL_BAND;
+  bands = bands < most ? bands : most;
+  if (bands < 1) bands = 1;
+  const long long rows = (R + bands - 1) / bands;
+  return (rows + COL_BAND - 1) / COL_BAND * COL_BAND;
+}
+
+long long col_bands(long long R, long long C) {
+  return R > 0 ? (R + col_band(R, C) - 1) / col_band(R, C) : 0;
+}
+
 // f32 partials the backward writes before its second pass
 long long bwd_workspace(long long R, long long C, int mode) {
-  if (mode == 1) return (R + ROW_TILE - 1) / ROW_TILE * C;
+  if (mode == 1) return col_bands(R, C) * C;
   if (mode == 0) return tensor_blocks(R * C);
   return 0;
 }
@@ -296,13 +437,25 @@ void bwd(const void* x, const void* s, const void* g, void* dx,
   const float* sp = static_cast<const float*>(s);
   T* dp = static_cast<T*>(dx);
   if (mode == 1) {
-    const int tiles = (int)((R + ROW_TILE - 1) / ROW_TILE);
-    const long long cols = (long long)COL_THREADS * V;
-    dim3 grid((unsigned)((C + cols - 1) / cols), (unsigned)tiles);
-    fq_bwd_col_kernel<T, V><<<grid, COL_THREADS, 0, st>>>(
-        xp, sp, gp, dp, partial, R, C, qn, qp);
-    fq_bwd_col_finish<<<(unsigned)((C + THREADS - 1) / THREADS), THREADS, 0,
-                        st>>>(partial, ds, C, tiles, gscale);
+    const long long band = col_band(R, C);
+    const int bands = (int)col_bands(R, C);
+    const long long cols = 32LL * V;
+    dim3 grid((unsigned)((C + cols - 1) / cols), (unsigned)bands);
+    const int smem = sizeof(Pack<T, V>) == 16 ? COL_SMEM : 0;
+    if (smem > 48 * 1024) {
+      static bool smem_set = false;       // once per instantiation
+      if (!smem_set) {
+        if (cudaFuncSetAttribute(fq_bwd_col_kernel<T, V>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 smem) != cudaSuccess)
+          return;                         // the launcher reports the error
+        smem_set = true;
+      }
+    }
+    fq_bwd_col_kernel<T, V><<<grid, COL_WARPS * 32, smem, st>>>(
+        xp, sp, gp, dp, partial, R, C, band, qn, qp);
+    fq_bwd_col_finish<<<(unsigned)((C + 31) / 32), 32 * FIN_GROUPS, 0, st>>>(
+        partial, ds, C, bands, gscale);
   } else if (mode == 2) {
     const long long rows_per_block = THREADS / 32;
     fq_bwd_row_kernel<T, V><<<(unsigned)((R + rows_per_block - 1) /

@@ -1,7 +1,11 @@
 """Wrapper for the w4a8 matmul kernel: the deployed quantized linear.
 
 ``w4a8_matmul`` launches the CUDA kernel (``csrc/w4a8_matmul.cu``) for
-CUDA tensors and runs the plain version (``ref.py``) for CPU tensors.
+CUDA tensors and runs the plain version (``ref.py``) for CPU tensors. The
+kernel's C launcher picks its route by M (weight streaming below
+``prefill_min_m()``, the int8 tensor cores from there); both give the
+same bits. ``w4a8_matmul_route`` forces one route, for the checks and
+timings that hold the two against each other.
 ``w4a8_linear(x, exported)`` takes bf16 activations, quantizes them per
 token to int8 (token-dynamic A8d deployment) and runs the matmul.
 ``exported`` is the dict from ``repro_torch.core.qat.export_linear_w4``.
@@ -18,7 +22,9 @@ from repro_torch.core.quantizer import dynamic_quantize_to_int
 from repro_torch.kernels.checks import check_aligned, check_tensor
 from repro_torch.kernels.w4a8.ref import w4a8_matmul_ref
 
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+# the launcher's route argument: by M (the serving path), or one forced
+ROUTES = {"auto": 0, "decode": 1, "mma": 2}
 
 
 @functools.lru_cache(maxsize=None)
@@ -31,6 +37,17 @@ def _lib():
     return fn
 
 
+@functools.lru_cache(maxsize=None)
+def prefill_min_m() -> int:
+    """The least M the kernel runs on the tensor cores (as its source
+    states it; below it the decode route streams the weights)."""
+    from repro_torch.kernels.build import load
+    fn = load("w4a8_matmul").w4a8_matmul_prefill_min_m
+    fn.argtypes = []
+    fn.restype = ctypes.c_int
+    return fn()
+
+
 def w4a8_matmul(x_q: torch.Tensor, w_packed: torch.Tensor, s_x: torch.Tensor,
                 s_w: torch.Tensor, bias: Optional[torch.Tensor] = None,
                 out_dtype=torch.bfloat16) -> torch.Tensor:
@@ -38,11 +55,23 @@ def w4a8_matmul(x_q: torch.Tensor, w_packed: torch.Tensor, s_x: torch.Tensor,
     s_w (N,) f32, bias (N,) or None -> (M, N) ``out_dtype``.
 
     CPU tensors run the plain version. CUDA tensors launch the kernel,
-    which takes f32 scales and bias, bf16 output and K % 32 == 0; anything
-    else raises.
+    which takes f32 scales and bias, bf16 output, K % 32 == 0 and K up to
+    65536 (the launcher refuses more); anything else raises.
     """
     if x_q.device.type == "cpu":
         return w4a8_matmul_ref(x_q, w_packed, s_x, s_w, bias, out_dtype)
+    return w4a8_matmul_route(x_q, w_packed, s_x, s_w, bias, out_dtype,
+                             "auto")
+
+
+def w4a8_matmul_route(x_q, w_packed, s_x, s_w, bias=None,
+                      out_dtype=torch.bfloat16, route="auto"):
+    """:func:`w4a8_matmul` on CUDA tensors through one route of the
+    kernel: ``"auto"`` (by M, what :func:`w4a8_matmul` launches),
+    ``"decode"`` or ``"mma"`` at any M. Counts in ``w4a8_matmul.launches``
+    like every launch of the kernel."""
+    if route not in ROUTES:
+        raise ValueError(f"route is one of {sorted(ROUTES)}, got {route!r}")
     if x_q.device.type != "cuda":
         raise ValueError(f"w4a8_matmul runs on cpu or cuda, got {x_q.device}")
     M, K = x_q.shape
@@ -63,7 +92,7 @@ def w4a8_matmul(x_q: torch.Tensor, w_packed: torch.Tensor, s_x: torch.Tensor,
     out = torch.empty((M, N), dtype=torch.bfloat16, device=dev)
     err = _lib()(x_q.data_ptr(), w_packed.data_ptr(), s_x.data_ptr(),
                  s_w.data_ptr(), None if bias is None else bias.data_ptr(),
-                 out.data_ptr(), M, N, K,
+                 out.data_ptr(), M, N, K, ROUTES[route],
                  torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"w4a8_matmul kernel launch failed: CUDA error "

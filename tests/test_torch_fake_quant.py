@@ -36,6 +36,12 @@ DS_RTOL = 1e-5
 # (x shape, scale shape): per tensor on an activation, per output channel
 # on a weight (ragged against the Pallas kernel's (256, 512) tiles)
 CASES = [((3, 17, 40), ()), ((96, 80), (1, 80)), ((130, 24), (1, 24))]
+# per output channel, ragged against the CUDA backward's per-column
+# tiling (bands of rows in multiples of 32, strips of 256 bf16 columns,
+# 16-byte packs): R one past a band, C one pack past a strip, C not a
+# multiple of 8
+RAGGED = [((33, 256), (1, 256)), ((65, 264), (1, 264)),
+          ((40, 1001), (1, 1001))]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -123,6 +129,20 @@ def test_lsq_matches_pallas_kernel(xshape, sshape, bits):
     """The TPU kernel run in interpret mode: padded to its tiles, partial
     sums per row tile; the same forward and dx bits, ds to order."""
     jx, js, jg, tx, ts, tg = _inputs(xshape, sshape, bits, "bfloat16", 1)
+    jout, jdx, jds = _jax_fwd_bwd(pallas_lsq_fake_quant, jx, js, jg, bits)
+    out, dx, ds = _torch_fwd_bwd(tx, ts, tg, bits)
+    np.testing.assert_array_equal(_np(out), _np(jout))
+    np.testing.assert_array_equal(_np(dx), _np(jdx))
+    _assert_ds(ds, jds, _ds_mass(tx, ts, tg, bits))
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("xshape,sshape", RAGGED)
+def test_lsq_matches_pallas_kernel_on_ragged_tiles(xshape, sshape, bits):
+    """The plain version against the TPU kernel (interpret mode) on shapes
+    ragged against the CUDA backward's tiling: forward and dx bitwise, ds
+    to order."""
+    jx, js, jg, tx, ts, tg = _inputs(xshape, sshape, bits, "bfloat16", 7)
     jout, jdx, jds = _jax_fwd_bwd(pallas_lsq_fake_quant, jx, js, jg, bits)
     out, dx, ds = _torch_fwd_bwd(tx, ts, tg, bits)
     np.testing.assert_array_equal(_np(out), _np(jout))

@@ -18,6 +18,7 @@ from repro.core.quantizer import pack_int4, unpack_int4
 from repro.kernels.w4a8.ops import w4a8_linear as jax_w4a8_linear
 from repro.kernels.w4a8.ops import w4a8_matmul as jax_w4a8_matmul
 from repro.kernels.w4a8.ref import w4a8_matmul_ref as jax_w4a8_ref
+from repro_torch.kernels.w4a8 import ops as w4a8_ops
 from repro_torch.kernels.w4a8.ops import w4a8_linear, w4a8_matmul
 from repro_torch.kernels.w4a8.ref import w4a8_accumulate_ref
 
@@ -117,4 +118,39 @@ def test_non_cpu_non_cuda_tensor_raises():
     with pytest.raises(ValueError, match="cpu or cuda"):
         w4a8_matmul(x, w, torch.ones((2, 1), device="meta"),
                     torch.ones((4,), device="meta"))
+    assert w4a8_matmul.launches == 0
+
+
+# the serving path's K (qwen2.5-3b's d_model and d_ff) at the decode slots,
+# the spec verify wave and one admission wave, on a narrow N and on
+# xLSTM's gate projection (N = 8): both routes of the CUDA kernel cover
+# these M, and both are bitwise this plain version on the card
+MAIN_PATH = [(m, k, n) for k in (2048, 11008) for m in (4, 20, 512)
+             for n in (16, 8)]
+
+
+@pytest.mark.parametrize("mkn", MAIN_PATH, ids=lambda t: "x".join(map(str, t)))
+def test_main_path_shapes_bitwise_with_jax_pallas_and_ref(mkn):
+    """Without a bias the port's plain version, the Pallas kernel
+    (interpret mode) and the XLA reference give the same bf16 bits."""
+    x_q, _, w_p, s_x, s_w, _ = _case(*mkn, False, sum(mkn) + 3)
+    got = w4a8_matmul(*_torch(x_q, w_p, s_x, s_w)).float().numpy()
+    jargs = [jnp.asarray(a) for a in (x_q, w_p, s_x, s_w)]
+    np.testing.assert_array_equal(
+        got, _f32(jax_w4a8_matmul(*jargs, use_pallas=True)))
+    np.testing.assert_array_equal(got, _f32(jax_w4a8_ref(*jargs)))
+
+
+def test_route_is_checked_before_the_device():
+    """``w4a8_matmul_route`` names the kernel's routes; an unknown one is
+    refused, and a tensor off the card never reaches the launcher."""
+    x = torch.zeros((2, 32), dtype=torch.int8)
+    w = torch.zeros((4, 16), dtype=torch.uint8)
+    args = (x, w, torch.ones((2, 1)), torch.ones((4,)))
+    assert set(w4a8_ops.ROUTES) == {"auto", "decode", "mma"}
+    with pytest.raises(ValueError, match="route"):
+        w4a8_ops.w4a8_matmul_route(*args, route="dp4a")
+    for route in w4a8_ops.ROUTES:
+        with pytest.raises(ValueError, match="cpu or cuda"):
+            w4a8_ops.w4a8_matmul_route(*args, route=route)
     assert w4a8_matmul.launches == 0
