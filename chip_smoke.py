@@ -26,7 +26,12 @@ toolkit (``nvcc``). Phases, each fatal on failure (non-zero exit):
    on shuffled tables with sentinels and a parked row, on lengths around
    its split and group boundaries and at a long cache (32768, 20000,
    8192, 1), each row bitwise equal alone and in a batch of 4;
-   ``gather_dequant_paged_kv`` and ``pool_block_copy`` bitwise;
+   ``gather_dequant_paged_kv`` bitwise, one leaf a launch and K and V
+   in one launch (as the tail-wave calls it), at the tail-wave's shape
+   and at shapes ragged against its tiling (one entry of 16 tokens,
+   sentinel entries and an all-sentinel row, a 512-entry table of 32k
+   tokens);
+   ``pool_block_copy`` bitwise;
    ``kvq_spec_verify_attn`` within one bf16 ulp at both block sizes, on
    windows across split boundaries and ending at the long cache, each
    query bitwise equal to ``kvq_paged_decode_attn`` at its length; the
@@ -41,8 +46,13 @@ toolkit (``nvcc``). Phases, each fatal on failure (non-zero exit):
    ``flash_attn_fwd`` against its plain version and an f64 oracle at the
    QAT shape, S 1024, a ragged S and a sliding window (and at head dim
    64: the QAT shape, the ragged S, the window); ``slstm_scan``
-   against its plain version and an f64 oracle at xlstm-125m's width
-   (B 8, T 128 and a ragged B 3, T 100);
+   against its plain version and an f64 oracle on each route forced
+   (resident, step) at xlstm-125m's width (B 8, T 128; a ragged B 3,
+   T 100; B 11, T 37: two batch tiles) and at d 200 and 202, bitwise
+   from call to call and for a row alone against the same row in the
+   batch, the launcher's own route equal to the resident one, one
+   kernel a call on the resident route (``torch.profiler``), a barrier
+   scratch too short refused;
 3. serve: ``ServeEngine`` on ``cuda`` with qwen2.5-3b at full width
    (random weights from a seed), policy A8d-C8-W4, w4a8 weights, dense
    KV cache; 8 mixed-length requests through 4 slots, both kernels'
@@ -820,32 +830,57 @@ def check_paged_rows(torch, P, cfg, dev, report):
           f"{PAGED_LONG})", flush=True)
 
 
-def gather_inputs(torch, gen, cfg, dev):
-    n, T, bs = GATHER_SHAPE
+# (n, T, bs, per-row lengths): the tail-wave's shape, then shapes ragged
+# against the kernel's tiling (16-row parts of a tile at D 128): one entry
+# of a 16-token block; sentinel entries past each row's extent and an
+# all-sentinel row; a 512-entry table (32k tokens a row)
+GATHER_CASES = ((*GATHER_SHAPE, (8 * 64, 3 * 64 + 5, 1, 5 * 64)),
+                (1, 1, 16, (16,)),
+                (3, 5, 64, (5 * 64, 2 * 64 + 3, 0)),
+                (4, 512, 64, (512 * 64,) * 4))
+
+
+def gather_inputs(torch, gen, cfg, dev, case=GATHER_CASES[0]):
+    """(k pool, s_k, v pool, s_v, table) of one gather case."""
+    n, T, bs, lengths = case
     nb = n * T + 8
-    k, _, s_k, _ = paged_pool(torch, gen, cfg, nb, bs, dev)
-    lengths = [T * bs, 3 * bs + 5, 1, 5 * bs]
+    k, v, s_k, s_v = paged_pool(torch, gen, cfg, nb, bs, dev)
     tbl = shuffled_table(torch, gen, nb, n, T, lengths, bs, dev)
-    return k, s_k, tbl
+    return k, s_k, v, s_v, tbl
 
 
 def check_gather(torch, P, cfg, dev, report):
     gen = torch.Generator(device=dev)
     gen.manual_seed(7)
-    args = gather_inputs(torch, gen, cfg, dev)
-    got = P["kvq_ops"].gather_dequant_paged_kv(*args)
-    want = P["kvq_ref"].gather_dequant_paged_kv_ref(*args)
-    torch.cuda.synchronize()
-    check(got.shape == want.shape and got.dtype == want.dtype,
-          "gather_dequant_paged_kv: dtype/shape")
-    if not torch.equal(got, want):
-        diff = (got - want).abs()
-        raise SmokeFailure(
-            f"gather_dequant_paged_kv differs from its plain version: "
-            f"{int((diff > 0).sum())} elements, max {float(diff.max())}")
-    report["gather_bitwise"] = True
+    ops, ref = P["kvq_ops"], P["kvq_ref"].gather_dequant_paged_kv_ref
+    for case in GATHER_CASES:
+        k, s_k, v, s_v, tbl = gather_inputs(torch, gen, cfg, dev, case)
+        check(bool((tbl >= k.shape[0] - 1).any())
+              == (min(case[3]) < case[1] * case[2]),
+              f"gather case {case[:3]}: sentinel entries as planned")
+        want = (ref(k, s_k, tbl), ref(v, s_v, tbl))
+        for how, got in (
+                ("one leaf", (ops.gather_dequant_paged_kv(k, s_k, tbl),
+                              ops.gather_dequant_paged_kv(v, s_v, tbl))),
+                ("K and V in one launch",
+                 ops.gather_dequant_paged_kv_pair(k, s_k, v, s_v, tbl))):
+            torch.cuda.synchronize()
+            for leaf, g, w in zip("KV", got, want):
+                check(g.shape == w.shape and g.dtype == w.dtype,
+                      f"gather_dequant_paged_kv {case[:3]} {how}: "
+                      f"dtype/shape")
+                if not torch.equal(g, w):
+                    diff = (g - w).abs()
+                    raise SmokeFailure(
+                        f"gather_dequant_paged_kv ({how}, {leaf}) differs "
+                        f"from its plain version at (n, T, bs) = "
+                        f"{case[:3]}: {int((diff > 0).sum())} elements, "
+                        f"max {float(diff.max())}")
+        del k, s_k, v, s_v, tbl, got, want
+    report["gather_bitwise"] = [list(c[:3]) for c in GATHER_CASES]
     print(f"phase 2: gather_dequant_paged_kv bitwise equal to its plain "
-          f"version (n, T, bs = {GATHER_SHAPE})", flush=True)
+          f"version, one leaf a launch and K and V in one, at (n, T, bs) = "
+          f"{[c[:3] for c in GATHER_CASES]}", flush=True)
     return 0.0
 
 
@@ -1002,36 +1037,42 @@ def time_paged_decode(torch, P, cfg, dev, report):
 
 
 def time_gather(torch, P, cfg, dev, report):
-    """Per tail-wave (2 launches per layer, 72) at the serve phase's
-    largest wave: n = 4 rows, T = 8 entries of 64 tokens."""
+    """Per tail-wave (one launch per layer, K and V together: 36) at the
+    serve phase's largest wave: n = 4 rows, T = 8 entries of 64 tokens;
+    a one-leaf launch beside it."""
+    ops, ref = P["kvq_ops"], P["kvq_ref"].gather_dequant_paged_kv_ref
     gen = torch.Generator(device=dev)
     gen.manual_seed(10)
     base = gather_inputs(torch, gen, cfg, dev)
     n, T, bs = GATHER_SHAPE
     Hkv, D = cfg.n_kv_heads, cfg.resolved_head_dim
-    out_bytes = 4 * n * Hkv * T * bs * D
+    out_bytes = 2 * 4 * n * Hkv * T * bs * D
     sets = [base] + [gather_inputs(torch, gen, cfg, dev) for _ in range(
         copies_for(tensor_bytes(*base) + out_bytes) - 1)]
-    t_k = time_ms(torch, P["kvq_ops"].gather_dequant_paged_kv, sets)
-    t_host = host_issued_ms(torch, P["kvq_ops"].gather_dequant_paged_kv,
-                            sets)
-    t_p = time_ms(torch, P["kvq_ref"].gather_dequant_paged_kv_ref, sets)
+    t_k = time_ms(torch, ops.gather_dequant_paged_kv_pair, sets)
+    t_one = time_ms(torch, lambda k, s_k, v, s_v, tbl:
+                    ops.gather_dequant_paged_kv(k, s_k, tbl), sets)
+    t_host = host_issued_ms(torch, ops.gather_dequant_paged_kv_pair, sets)
+    t_p = time_ms(torch, lambda k, s_k, v, s_v, tbl:
+                  (ref(k, s_k, tbl), ref(v, s_v, tbl)), sets)
     nb = base[0].shape[0] - 1
 
-    def library(pool, s, tbl):
+    def library(k, s_k, v, s_v, tbl):
         idx = tbl.long().clamp(0, nb - 1)
-        return pool[idx].float() * s[idx][..., None]
+        return (k[idx].float() * s_k[idx][..., None],
+                v[idx].float() * s_v[idx][..., None])
 
     t_l = time_ms(torch, library, sets)
     rows = n * Hkv * T * bs
-    nbytes = rows * (D + 4) + 4 * n * T + out_bytes
+    nbytes = 2 * rows * (D + 4) + 4 * n * T + out_bytes
     t_b = nbytes / HBM_BYTES_PER_S
-    t_o = rows * D / F32_FLOPS_PER_S
-    per_wave = 2 * cfg.n_layers
+    t_o = 2 * rows * D / F32_FLOPS_PER_S
+    per_wave = cfg.n_layers
     report["gather_per_launch"] = {
-        "ms": t_k, "host_issued_ms": t_host, "plain_ms": t_p,
-        "library_ms": t_l, "bound_ms": max(t_b, t_o) * 1e3,
-        "n_T_bs": list(GATHER_SHAPE)}
+        "ms": t_k, "us": t_k * 1e3, "one_leaf_us": t_one * 1e3,
+        "host_issued_ms": t_host, "plain_ms": t_p, "library_ms": t_l,
+        "bound_ms": max(t_b, t_o) * 1e3, "n_T_bs": list(GATHER_SHAPE),
+        "leaves": 2}
     return {"ms": per_wave * t_k, "plain_ms": per_wave * t_p,
             "library_ms": per_wave * t_l,
             "bound_ms": per_wave * max(t_b, t_o) * 1e3,
@@ -2564,8 +2605,13 @@ def profile_decode(torch, P, cfg, eng, report, key="serve"):
 # --------------------------------------------------------------------------
 
 XLSTM = "xlstm-125m"
-# (B, T): the QAT phase's shape and a ragged one
-SLSTM_CASES = ((TRAIN_B, TRAIN_T), (3, 100))
+# (B, T, d): the QAT phase's shape, a ragged one, two batch tiles (the
+# kernel loops over tiles of 8 rows) at xlstm-125m's width, and narrow
+# widths (2 hidden indices a CTA, fewer than the 8 it works at once; 202
+# is not a multiple of 4, so h is read into shared memory by floats)
+SLSTM_CASES = ((TRAIN_B, TRAIN_T, 0), (3, 100, 0), (11, 37, 0), (5, 64, 200),
+               (2, 16, 202))
+SLSTM_ROUTES = ("resident", "step")
 SLSTM_STATE_ATOL = 1e-4        # hT, cT (f32) against the plain version
 SLSTM_ORACLE_RATIO = 4.0       # kernel's f64-oracle error / plain's
 SLSTM_ORACLE_FLOOR = 1e-6
@@ -2582,55 +2628,141 @@ def slstm_inputs(torch, gen, B, T, d, dev):
             torch.randn((B, d), generator=gen, device=dev) * 0.1)
 
 
+def same(torch, a, b):
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
 def check_slstm(torch, P, xcfg, dev, report):
     """The kernel against its plain version (torch's f32 GEMM per step)
-    and both against an f64 run of the plain version (the oracle).
+    and both against an f64 run of the plain version (the oracle), on
+    each route forced.
 
-    Both compute each step's h . r_h in f32 over d = 768 products in
-    different orders, and the state carries those ulps through up to 128
-    steps: hT and cT are held to ``SLSTM_STATE_ATOL``, hs (bf16) to one
-    bf16 ulp (``KVQ_TOL``), and the kernel's error against the oracle to
-    at most ``SLSTM_ORACLE_RATIO`` times the plain version's (plus
-    ``SLSTM_ORACLE_FLOOR``)."""
-    scan, ref = P["slstm_ops"].slstm_scan, P["slstm_scan_ref"]
+    Both compute each step's h . r_h in f32 over d products in different
+    orders, and the state carries those ulps through up to 128 steps: hT
+    and cT are held to ``SLSTM_STATE_ATOL``, hs (bf16) to one bf16 ulp
+    (``KVQ_TOL``), and the kernel's error against the oracle to at most
+    ``SLSTM_ORACLE_RATIO`` times the plain version's (plus
+    ``SLSTM_ORACLE_FLOOR``). Each route's sum order depends on nothing
+    but the route, so a second call and a row run alone must be bitwise
+    the same; the launcher's own choice (the main path) must be the
+    resident route at these widths, bitwise."""
+    ops, ref = P["slstm_ops"], P["slstm_scan_ref"]
+    scan = ops.slstm_scan
     gen = torch.Generator(device=dev)
     gen.manual_seed(41)
-    d = xcfg.d_model
     rtol, atol = KVQ_TOL
     cases, worst = [], 0.0
-    for B, T in SLSTM_CASES:
+    for B, T, d in SLSTM_CASES:
+        d = d or xcfg.d_model
+        check(ops.route_for(d) == "resident",
+              f"slstm_scan at d {d} takes the {ops.route_for(d)} route")
         args = slstm_inputs(torch, gen, B, T, d, dev)
-        got = scan(*args)
         want = ref(*args)
         oracle = slstm_oracle(torch, *args)
-        torch.cuda.synchronize()
-        case = {"B": B, "T": T, "d": d}
-        for name, g, w, o in zip(("hs", "hT", "cT"), got, want, oracle):
-            g, w = g.double(), w.double()
-            case[name] = {"max_abs_err": float((g - w).abs().max()),
-                          "kernel_vs_oracle": float((g - o).abs().max()),
-                          "plain_vs_oracle": float((w - o).abs().max())}
-            check(bool(torch.isfinite(g).all()),
-                  f"slstm_scan B={B} T={T}: {name} not finite")
-        cases.append(case)
-        ok = (torch.allclose(got[0].float(), want[0].float(), rtol=rtol,
-                             atol=atol)
-              and case["hT"]["max_abs_err"] <= SLSTM_STATE_ATOL
-              and case["cT"]["max_abs_err"] <= SLSTM_STATE_ATOL
-              and all(case[n]["kernel_vs_oracle"] <= SLSTM_ORACLE_RATIO
-                      * case[n]["plain_vs_oracle"] + SLSTM_ORACLE_FLOOR
-                      for n in ("hs", "hT", "cT")))
-        check(ok, f"slstm_scan B={B} T={T} d={d} differs from its plain "
-                  f"version: {case} (hs within rtol {rtol} atol {atol}, "
-                  f"hT/cT within {SLSTM_STATE_ATOL}, oracle error at most "
-                  f"{SLSTM_ORACLE_RATIO}x the plain version's)")
-        worst = max(worst, *(case[n]["max_abs_err"]
-                             for n in ("hs", "hT", "cT")))
-        del args, got, want, oracle
+        auto = scan(*args)
+        b = B // 2
+        for route in SLSTM_ROUTES:
+            got = scan(*args, route=route)
+            again = scan(*args, route=route)
+            gx, r_h, h0, c0 = args
+            alone = scan(gx[b:b + 1], r_h, h0[b:b + 1], c0[b:b + 1],
+                         route=route)
+            torch.cuda.synchronize()
+            case = {"B": B, "T": T, "d": d, "route": route}
+            for name, g, w, o in zip(("hs", "hT", "cT"), got, want, oracle):
+                g, w = g.double(), w.double()
+                case[name] = {"max_abs_err": float((g - w).abs().max()),
+                              "kernel_vs_oracle": float((g - o).abs().max()),
+                              "plain_vs_oracle": float((w - o).abs().max())}
+                check(bool(torch.isfinite(g).all()),
+                      f"slstm_scan {case}: {name} not finite")
+            cases.append(case)
+            ok = (torch.allclose(got[0].float(), want[0].float(), rtol=rtol,
+                                 atol=atol)
+                  and case["hT"]["max_abs_err"] <= SLSTM_STATE_ATOL
+                  and case["cT"]["max_abs_err"] <= SLSTM_STATE_ATOL
+                  and all(case[n]["kernel_vs_oracle"] <= SLSTM_ORACLE_RATIO
+                          * case[n]["plain_vs_oracle"] + SLSTM_ORACLE_FLOOR
+                          for n in ("hs", "hT", "cT")))
+            check(ok, f"slstm_scan B={B} T={T} d={d} ({route}) differs "
+                      f"from its plain version: {case} (hs within rtol "
+                      f"{rtol} atol {atol}, hT/cT within "
+                      f"{SLSTM_STATE_ATOL}, oracle error at most "
+                      f"{SLSTM_ORACLE_RATIO}x the plain version's)")
+            check(same(torch, got, again),
+                  f"slstm_scan {route} B={B} T={T} d={d}: two calls differ")
+            check(same(torch, (got[0][b:b + 1], got[1][b:b + 1],
+                               got[2][b:b + 1]), alone),
+                  f"slstm_scan {route} B={B} T={T} d={d}: row {b} alone "
+                  f"differs from the same row in the batch")
+            if route == "resident":
+                check(same(torch, got, auto),
+                      f"slstm_scan B={B} T={T} d={d}: the launcher's own "
+                      f"route differs from the resident route")
+            worst = max(worst, *(case[n]["max_abs_err"]
+                                 for n in ("hs", "hT", "cT")))
+            del got, again, alone
+        del args, want, oracle, auto
     report["slstm_check"] = cases
     print(f"phase 2: slstm_scan against its plain version and an f64 "
-          f"oracle: {cases}", flush=True)
+          f"oracle, each route, bitwise call to call and row alone vs "
+          f"batch: {cases}", flush=True)
+    report["slstm_kernels_per_call"] = slstm_kernels_per_call(
+        torch, P, xcfg, dev)
+    check_slstm_scratch(torch, P, xcfg, dev)
     return worst
+
+
+def slstm_kernels_per_call(torch, P, xcfg, dev):
+    """Kernels named ``slstm_*`` that one call launches on each route at
+    the QAT shape, from ``torch.profiler``'s device records: 1 resident,
+    T step."""
+    from torch.profiler import ProfilerActivity, profile
+    scan = P["slstm_ops"].slstm_scan
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(43)
+    args = slstm_inputs(torch, gen, TRAIN_B, TRAIN_T, xcfg.d_model, dev)
+    out = {}
+    for route, want in (("resident", 1), ("step", TRAIN_T)):
+        scan(*args, route=route)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            scan(*args, route=route)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        out[route] = sum("slstm_" in n for n in names)
+        check(out[route] == want,
+              f"slstm_scan {route}: {out[route]} slstm kernels in one call "
+              f"(want {want}; device records: {sorted(set(names))[:8]})")
+    print(f"phase 2: slstm_scan kernels a call at B {TRAIN_B}, T "
+          f"{TRAIN_T}: {out}", flush=True)
+    return out
+
+
+def check_slstm_scratch(torch, P, xcfg, dev):
+    """The launcher refuses (cudaErrorInvalidValue, 1) a barrier scratch
+    shorter than ``BAR_INTS`` and writes nothing. Calls the C launcher
+    directly: nothing launches, no count moves."""
+    ops = P["slstm_ops"]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(44)
+    B, T, d = 3, 4, xcfg.d_model
+    gx, r_h, h0, c0 = slstm_inputs(torch, gen, B, T, d, dev)
+    hbuf = torch.zeros((2, B, d), dtype=torch.float32, device=dev)
+    c = torch.zeros((B, d), dtype=torch.float32, device=dev)
+    hs = torch.zeros((B, T, d), dtype=gx.dtype, device=dev)
+    bar = torch.zeros(ops.BAR_INTS, dtype=torch.int32, device=dev)
+    for route in (0, 1, 2):
+        err = ops._fn()(gx.data_ptr(), r_h.data_ptr(), hbuf.data_ptr(),
+                        c.data_ptr(), hs.data_ptr(), bar.data_ptr(),
+                        ops.BAR_INTS - 1, B, T, d, 1, 1, route,
+                        torch.cuda.current_stream(dev).cuda_stream)
+        torch.cuda.synchronize()
+        check(err == 1 and not bool(hs.any()) and not bool(hbuf.any())
+              and not bool(c.any()),
+              f"slstm_scan took {ops.BAR_INTS - 1} of {ops.BAR_INTS} "
+              f"barrier ints on route {route}: error {err}")
 
 
 def slstm_oracle(torch, gx, r_h, h0, c0):
@@ -2688,7 +2820,8 @@ def time_slstm(torch, P, xcfg, dev, report):
         "ms": t_k, "plain_ms": t_p, "library_ms": t_l,
         "host_issued_ms": t_host, "bound_ms": max(t_b, t_o) * 1e3,
         "flops": flops, "bytes": nbytes, "steps": T,
-        "ms_per_step": t_k / T}
+        "ms_per_step": t_k / T, "route": P["slstm_ops"].route_for(d),
+        "launches_per_call": report["slstm_kernels_per_call"]["resident"]}
     return {"ms": n * t_k, "plain_ms": n * t_p, "library_ms": n * t_l,
             "bound_ms": n * max(t_b, t_o) * 1e3,
             "bound_by": "bytes" if t_b >= t_o else "operations"}
@@ -3110,8 +3243,8 @@ def main() -> int:
          "replaces": "src/repro/kernels/kvq_attn/kernel.py:174",
          "launches": paged_launches["gather_dequant_paged_kv"],
          "max_abs_err": gather_err, **gather_t,
-         "per": "one tail-wave: 72 launches (K and V of 36 layers) at "
-                "n, T, bs = %s" % (GATHER_SHAPE,)},
+         "per": "one tail-wave: 36 launches (K and V of a layer in one) "
+                "at n, T, bs = %s" % (GATHER_SHAPE,)},
         {"name": "pool_block_copy", "route": "cuda",
          "source": "src/repro_torch/csrc/pool_block_copy.cu",
          "replaces": "src/repro/kernels/kvq_attn/kernel.py:308",
@@ -3156,7 +3289,7 @@ def main() -> int:
          "max_abs_err": slstm_err, **slstm_t,
          "per": f"one xlstm-125m teacher forward: 2 calls (the sLSTM "
                 f"layers) at B={TRAIN_B}, T={TRAIN_T}, d=768, bf16 gx and "
-                f"r_h, each {TRAIN_T} step launches"},
+                f"r_h, one resident launch each"},
     ]
     report["kernels"] = kernels
     out_dir = ROOT / "chiprun_out"

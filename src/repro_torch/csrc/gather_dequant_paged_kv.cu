@@ -18,11 +18,22 @@
 // worth counting; the f32 write is 4x the int8 read and decides the time.
 //
 // Design: the TPU kernel runs one grid step per (row, head, table entry)
-// and DMAs a whole (bs, D) tile. Here the grid runs over the output's
-// (n, Hkv, T * bs) rows with D / 16 threads per row: each thread makes one
-// 16-byte load of 16 int8 values, clamps its table entry before forming
-// the address, and writes four float4, so neighbouring threads touch
-// neighbouring addresses on both sides. No int8 intermediate is written.
+// and DMAs a whole (bs, D) tile. Here a CTA of 128 threads owns a part of
+// such a tile: `rows` = 128 / (D / 16) token rows (16 at D 128), so the
+// serve phase's tail-wave (n 4, T 8, bs 64, Hkv 2: 64 tiles) runs 256 CTAs,
+// about two a SM. The block index gives (r, h, t, part) by 32-bit
+// division once per CTA; one thread loads and clamps the table entry and
+// hands it over in shared memory; then each thread makes 16-byte loads of
+// 16 int8 values and a scale per token row and writes four float4, with
+// neighbouring threads on neighbouring addresses on both sides. No 64-bit
+// division or modulo is left and no int8 intermediate is written. Plain
+// stores: the output is read next by the layer's window attention, so it
+// is left in L2 (streaming stores read no faster at the tail-wave once the
+// output is read after, tools/scan_times.py --ablate). A launch of the
+// tail-wave's size is mostly fixed cost (without its pool and scale loads
+// it keeps 3.5 of its 4.1 us, ibid.), and K and V share the table, so a
+// second launcher gathers both leaves in one launch (blockIdx.y picks the
+// leaf).
 //
 // Requirements (checked by the Python wrapper): D % 16 == 0, the pool
 // 16-byte aligned, every tensor contiguous.
@@ -32,63 +43,96 @@
 
 namespace {
 
-constexpr int THREADS = 256;
+constexpr int THREADS = 128;
 
 __device__ __forceinline__ float byte_at(int w, int i) {
   return (float)(int8_t)(w >> (8 * i));
 }
 
+struct Leaf {
+  const int8_t* pool;
+  const float* s;
+  float* out;
+};
+
 __global__ void __launch_bounds__(THREADS)
-gather_dequant_paged_kv_kernel(const int8_t* __restrict__ pool,
-                               const float* __restrict__ s,
-                               const int* __restrict__ tbl,
-                               float* __restrict__ out, long long n_chunks,
-                               int Hkv, int NB, int bs, int T, int D) {
-  const int per_row = D / 16;
-  for (long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
-       i < n_chunks; i += (long long)gridDim.x * THREADS) {
-    const long long row = i / per_row;            // (r, h, t, p) flattened
-    const int c = (int)(i % per_row);
-    const int p = (int)(row % bs);
-    const long long rt = row / bs;
-    const int t = (int)(rt % T);
-    const long long rh = rt / T;
-    const int h = (int)(rh % Hkv);
-    const long long r = rh / Hkv;
-    const int blk = min(max(tbl[r * T + t], 0), NB - 1);
-    const size_t tok = ((size_t)blk * Hkv + h) * bs + p;
-    const int4 w = *reinterpret_cast<const int4*>(pool + tok * D + c * 16);
-    const float sc = s[tok];
+gather_dequant_paged_kv_kernel(Leaf a, Leaf b, const int* __restrict__ tbl,
+                               int Hkv, int NB, int bs, int T, int D,
+                               int parts, int rows) {
+  __shared__ int blk_sh;
+  const Leaf leaf = blockIdx.y ? b : a;
+  const int8_t* __restrict__ pool = leaf.pool;
+  const float* __restrict__ s = leaf.s;
+  float* __restrict__ out = leaf.out;
+  const int part = blockIdx.x % parts;
+  const int tile = blockIdx.x / parts;
+  const int t = tile % T;
+  const int rh = tile / T;                       // r * Hkv + h
+  const int h = rh % Hkv;
+  if (threadIdx.x == 0)
+    blk_sh = min(max(__ldg(tbl + (size_t)(rh / Hkv) * T + t), 0), NB - 1);
+  __syncthreads();
+  const int per_row = D >> 4;                    // 16-byte chunks a row
+  const int p0 = part * rows;
+  const int n = min(rows, bs - p0) * per_row;
+  const size_t src = ((size_t)blk_sh * Hkv + h) * bs + p0;
+  const size_t dst = ((size_t)rh * T + t) * bs + p0;
+  for (int i = threadIdx.x; i < n; i += THREADS) {
+    const int p = i / per_row, c = i - p * per_row;
+    const int4 w =
+        __ldg(reinterpret_cast<const int4*>(pool + (src + p) * D) + c);
+    const float sc = __ldg(s + src + p);
     const int words[4] = {w.x, w.y, w.z, w.w};
-    float4* dst = reinterpret_cast<float4*>(out + row * D + c * 16);
+    float4* o = reinterpret_cast<float4*>(out + (dst + p) * D) + 4 * c;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      dst[j] = make_float4(__fmul_rn(byte_at(words[j], 0), sc),
-                           __fmul_rn(byte_at(words[j], 1), sc),
-                           __fmul_rn(byte_at(words[j], 2), sc),
-                           __fmul_rn(byte_at(words[j], 3), sc));
+      const float4 v = make_float4(__fmul_rn(byte_at(words[j], 0), sc),
+                                   __fmul_rn(byte_at(words[j], 1), sc),
+                                   __fmul_rn(byte_at(words[j], 2), sc),
+                                   __fmul_rn(byte_at(words[j], 3), sc));
+      o[j] = v;
     }
   }
 }
 
+int launch(Leaf a, Leaf b, int leaves, const void* tbl, int n, int Hkv,
+           int NB, int bs, int T, int D, void* stream) {
+  if (D % 16 || D < 16 || NB < 1 || bs < 1 || T < 1 || Hkv < 1 || n < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int rows = max(1, THREADS / (D / 16));
+  const int parts = (bs + rows - 1) / rows;
+  const long long grid = (long long)n * Hkv * T * parts;
+  if (grid > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  if (grid > 0)
+    gather_dequant_paged_kv_kernel<<<dim3((unsigned)grid, leaves), THREADS,
+                                     0, static_cast<cudaStream_t>(stream)>>>(
+        a, b, static_cast<const int*>(tbl), Hkv, NB, bs, T, D, parts, rows);
+  return static_cast<int>(cudaGetLastError());
+}
+
+Leaf leaf(const void* pool, const void* s, void* out) {
+  return {static_cast<const int8_t*>(pool), static_cast<const float*>(s),
+          static_cast<float*>(out)};
+}
+
 }  // namespace
 
+// One leaf: pool, s and out as at the top.
 extern "C" int gather_dequant_paged_kv_launch(const void* pool,
                                               const void* s,
                                               const void* tbl, void* out,
                                               int n, int Hkv, int NB, int bs,
                                               int T, int D, void* stream) {
-  if (D % 16 || D < 16 || NB < 1 || bs < 1 || T < 1 || Hkv < 1 || n < 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const long long n_chunks = (long long)n * Hkv * T * bs * (D / 16);
-  if (n_chunks > 0) {
-    const long long want = (n_chunks + THREADS - 1) / THREADS;
-    const int grid = (int)(want < 65535LL * 16 ? want : 65535LL * 16);
-    gather_dequant_paged_kv_kernel<<<grid, THREADS, 0,
-                                     static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int8_t*>(pool), static_cast<const float*>(s),
-        static_cast<const int*>(tbl), static_cast<float*>(out), n_chunks,
-        Hkv, NB, bs, T, D);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const Leaf a = leaf(pool, s, out);
+  return launch(a, a, 1, tbl, n, Hkv, NB, bs, T, D, stream);
+}
+
+// K and V of one layer through the same table in one launch: both pools
+// (NB + 1, Hkv, bs, D), both outputs (n, Hkv, T * bs, D).
+extern "C" int gather_dequant_paged_kv2_launch(
+    const void* k_pool, const void* s_k, const void* v_pool, const void* s_v,
+    const void* tbl, void* k_out, void* v_out, int n, int Hkv, int NB, int bs,
+    int T, int D, void* stream) {
+  return launch(leaf(k_pool, s_k, k_out), leaf(v_pool, s_v, v_out), 2, tbl,
+                n, Hkv, NB, bs, T, D, stream);
 }

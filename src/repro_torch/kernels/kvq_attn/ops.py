@@ -4,6 +4,8 @@
 ``gather_dequant_paged_kv`` and ``copy_pool_blocks`` launch their CUDA
 kernels (``csrc/<name>.cu``)
 for CUDA tensors and run the plain versions (``ref.py``) for CPU tensors.
+``gather_dequant_paged_kv_pair`` gathers a layer's K and V through one
+table in one launch of the gather kernel (counted as its launch).
 Each checks its inputs and counts its launches in ``.launches``.
 ``commit_chunk_kv`` is a plain scatter on every device, as in the
 reference. Paged pool leaves carry a trailing sink block (see ``ref.py``).
@@ -49,6 +51,7 @@ _ARGTYPES = {
     "kvq_paged_decode_attn": _PAGED + (_I,) * 7 + (ctypes.c_float, _P),
     "kvq_spec_verify_attn": _PAGED + (_I,) * 8 + (ctypes.c_float, _P),
     "gather_dequant_paged_kv": (_P,) * 4 + (_I,) * 6 + (_P,),
+    "gather_dequant_paged_kv2": (_P,) * 7 + (_I,) * 6 + (_P,),
     "pool_block_copy": (_P,) * 3 + (_I,) * 2 + (ctypes.c_longlong,) * 2
     + (_I, _P),
 }
@@ -58,12 +61,16 @@ SPLIT = 64          # token positions a CTA of the split-KV kernels owns
 #                     (csrc/kvq_paged_split.cuh; checked at load)
 
 
+# launchers that live in another launcher's source
+_SOURCE = {"gather_dequant_paged_kv2": "gather_dequant_paged_kv"}
+
+
 @functools.lru_cache(maxsize=None)
 def _fn(name: str):
-    """The C launcher ``<name>_launch`` of ``csrc/<name>.cu`` (built at
+    """The C launcher ``<name>_launch`` of its ``csrc/`` source (built at
     first use)."""
     from repro_torch.kernels.build import load
-    lib = load(name)
+    lib = load(_SOURCE.get(name, name))
     if name in _PAGED_SPLIT and lib.kvq_paged_split_tokens() != SPLIT:
         raise RuntimeError(f"{name} was built with a split of "
                            f"{lib.kvq_paged_split_tokens()} tokens, "
@@ -302,6 +309,47 @@ def gather_dequant_paged_kv(pool, s_pool, block_tbl) -> torch.Tensor:
     """
     if pool.device.type == "cpu":
         return gather_dequant_paged_kv_ref(pool, s_pool, block_tbl)
+    out = _gather_out(pool, s_pool, block_tbl)
+    err = _fn("gather_dequant_paged_kv")(
+        pool.data_ptr(), s_pool.data_ptr(), block_tbl.data_ptr(),
+        out.data_ptr(), *_gather_dims(pool, block_tbl),
+        torch.cuda.current_stream(pool.device).cuda_stream)
+    _raise_on(err, "gather_dequant_paged_kv")
+    gather_dequant_paged_kv.launches += 1
+    return out
+
+
+def gather_dequant_paged_kv_pair(k_pool, s_k, v_pool, s_v, block_tbl):
+    """:func:`gather_dequant_paged_kv` of a layer's K and V leaves through
+    one table: (kh, vh), each bitwise what the one-leaf call returns. CUDA
+    tensors run one launch of the gather kernel for both."""
+    if k_pool.device.type == "cpu":
+        return (gather_dequant_paged_kv_ref(k_pool, s_k, block_tbl),
+                gather_dequant_paged_kv_ref(v_pool, s_v, block_tbl))
+    if v_pool.shape != k_pool.shape:
+        raise ValueError(f"K and V pools differ in shape: "
+                         f"{tuple(k_pool.shape)} and {tuple(v_pool.shape)}")
+    kh = _gather_out(k_pool, s_k, block_tbl)
+    vh = _gather_out(v_pool, s_v, block_tbl)
+    err = _fn("gather_dequant_paged_kv2")(
+        k_pool.data_ptr(), s_k.data_ptr(), v_pool.data_ptr(),
+        s_v.data_ptr(), block_tbl.data_ptr(), kh.data_ptr(), vh.data_ptr(),
+        *_gather_dims(k_pool, block_tbl),
+        torch.cuda.current_stream(k_pool.device).cuda_stream)
+    _raise_on(err, "gather_dequant_paged_kv")
+    gather_dequant_paged_kv.launches += 1
+    return kh, vh
+
+
+def _gather_dims(pool, block_tbl):
+    """The gather launchers' (n, Hkv, NB, bs, T, D)."""
+    NB1, Hkv, bs, D = pool.shape
+    n, T = block_tbl.shape
+    return n, Hkv, NB1 - 1, bs, T, D
+
+
+def _gather_out(pool, s_pool, block_tbl) -> torch.Tensor:
+    """Check one leaf's gather inputs; its (n,Hkv,T*bs,D) f32 output."""
     _cuda_only("gather_dequant_paged_kv", pool)
     NB1, Hkv, bs, D = pool.shape
     n, T = block_tbl.shape
@@ -314,14 +362,7 @@ def gather_dequant_paged_kv(pool, s_pool, block_tbl) -> torch.Tensor:
     check_tensor("s_pool", s_pool, torch.float32, (NB1, Hkv, bs), dev)
     check_tensor("block_tbl", block_tbl, torch.int32, (n, T), dev)
     check_aligned("pool", pool)
-    out = torch.empty((n, Hkv, T * bs, D), dtype=torch.float32, device=dev)
-    err = _fn("gather_dequant_paged_kv")(
-        pool.data_ptr(), s_pool.data_ptr(), block_tbl.data_ptr(),
-        out.data_ptr(), n, Hkv, NB1 - 1, bs, T, D,
-        torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, "gather_dequant_paged_kv")
-    gather_dequant_paged_kv.launches += 1
-    return out
+    return torch.empty((n, Hkv, T * bs, D), dtype=torch.float32, device=dev)
 
 
 gather_dequant_paged_kv.launches = 0

@@ -448,13 +448,13 @@ def attn_chunk_prefill(cfg: ModelConfig, ctx: QuantCtx, p: Dict,
     wave; elsewhere, and without it, the wave is computed in one batch
     over ``tbl``'s width, as in the reference.
     """
-    from repro_torch.kernels.kvq_attn.ops import (commit_chunk_kv,
-                                                  gather_dequant_paged_kv)
+    from repro_torch.kernels.kvq_attn.ops import (
+        commit_chunk_kv, gather_dequant_paged_kv_pair)
     n, C, _ = x.shape
     q, k, v = _qkv(cfg, ctx, p, x, rope)
     bs = cache["k_q"].shape[2]
-    kh = gather_dequant_paged_kv(cache["k_q"], cache["s_k"], tbl)
-    vh = gather_dequant_paged_kv(cache["v_q"], cache["s_v"], tbl)
+    kh, vh = gather_dequant_paged_kv_pair(cache["k_q"], cache["s_k"],
+                                          cache["v_q"], cache["s_v"], tbl)
     if x.is_cuda and hist_rows is not None:
         # one row at a time over its own history extent: cuBLAS picks a
         # batched GEMM's kernel from the batch count and the key length,

@@ -99,11 +99,12 @@ def _c_params(source: str, fn: str) -> list:
 # (source, C function, the wrapper's argtypes)
 LAUNCHERS = [
     ("flash_attn_fwd", "flash_attn_fwd_launch", fa_ops._ARGTYPES),
-    *[(name, f"{name}_launch", kvq_ops._ARGTYPES[name])
-      for name in kvq_ops._ARGTYPES],
+    *[(kvq_ops._SOURCE.get(name, name), f"{name}_launch",
+       kvq_ops._ARGTYPES[name]) for name in kvq_ops._ARGTYPES],
     *[("fake_quant", name, fq_ops._ARGTYPES[name][0])
       for name in fq_ops._ARGTYPES],
     ("slstm_scan", "slstm_scan_launch", slstm_ops._ARGTYPES),
+    ("slstm_scan", "slstm_scan_route", slstm_ops._ROUTE_ARGTYPES),
     ("w4a8_matmul", "w4a8_matmul_launch", w4a8_ops._ARGTYPES),
 ]
 

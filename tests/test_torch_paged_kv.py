@@ -154,6 +154,47 @@ class TestPagedKernelParity:
             ref.gather_paged_kv(_with_sink(sk), torch.from_numpy(tbl))
             [1, :, 2 * bs:3 * bs].numpy(), sk[NB - 1])   # sentinel clamps
 
+    # (n, T, bs, table): shapes ragged against the CUDA kernel's tiling
+    # (16-row parts of a (bs, D) tile), as the card's check runs them: one
+    # entry of a 16-token block; sentinel entries (>= NB) past each row's
+    # extent and a row of sentinels only
+    RAGGED = [(1, 1, 16, [[6]]),
+              (3, 5, 64, [[5, 1, 3, 0, 8], [8, 7, 9, 9, 12],
+                          [9, 9, 9, 9, 9]])]
+
+    @pytest.mark.parametrize("n,T,bs,tbl", RAGGED)
+    def test_gather_dequant_bitwise_on_ragged_tables(self, n, T, bs, tbl):
+        """The plain gather (one leaf, and K and V through one table as
+        the tail-wave calls it) bitwise against the reference's XLA
+        gather and its Pallas kernel (interpret mode), which is given the
+        table clamped as its wrapper clamps sentinels."""
+        NB, Hkv, D = 9, 2, 32
+        k, v, sk, sv = _rand_pool(n * T + bs, NB, Hkv, bs, D)
+        tbl = np.array(tbl, np.int32)
+        assert tbl.shape == (n, T)
+        want = [np.asarray(jops.gather_dequant_paged_kv(
+            jnp.asarray(p), jnp.asarray(s), jnp.asarray(tbl),
+            use_pallas=pallas)) for p, s in ((k, sk), (v, sv))
+            for pallas in (False, True)]
+        ttbl = torch.from_numpy(tbl)
+        one = [ops.gather_dequant_paged_kv(_with_sink(p), _with_sink(s),
+                                           ttbl).numpy()
+               for p, s in ((k, sk), (v, sv))]
+        pair = ops.gather_dequant_paged_kv_pair(
+            _with_sink(k), _with_sink(sk), _with_sink(v), _with_sink(sv),
+            ttbl)
+        for i, (o, pr) in enumerate(zip(one, pair)):
+            assert o.shape == (n, Hkv, T * bs, D) and o.dtype == np.float32
+            np.testing.assert_array_equal(o, want[2 * i])
+            np.testing.assert_array_equal(o, want[2 * i + 1])
+            np.testing.assert_array_equal(pr.numpy(), o)
+        # a sentinel entry reads the last real block, clamped
+        if (tbl >= NB).any():
+            r, t = map(int, np.argwhere(tbl >= NB)[0])
+            np.testing.assert_array_equal(
+                one[0][r, :, t * bs:(t + 1) * bs],
+                k[NB - 1].astype(np.float32) * sk[NB - 1][..., None])
+
     def test_pool_block_copy_bitwise(self):
         """The COW clone against the reference's Pallas kernel
         (interpret mode) and XLA scatter: pad pairs (dst >= NB) are

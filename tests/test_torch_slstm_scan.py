@@ -11,9 +11,15 @@ differs, and the state carries those ulps through the T steps. The
 ragged case (T 100) is padded to the Pallas kernel's 128-step tiles by
 its wrapper: padded steps must not move hT and cT.
 
+The shapes include those the card's check adds for the CUDA kernel's
+two routes: B 11 (two batch tiles of 8 rows) and d 200 (fewer hidden
+indices than warps in a resident CTA).
+
 The wrapper's own rules are checked too: CPU tensors take the plain
-version without building or counting a kernel, and a device the kernel
-does not run on raises.
+version without building or counting a kernel, a device the kernel does
+not run on raises, and the launch path refuses a grid-barrier scratch
+shorter than ``BAR_INTS`` and a route it does not know before it builds
+or calls anything.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -26,7 +32,8 @@ from repro_torch.kernels.slstm_scan import ops
 from repro_torch.kernels.slstm_scan.ref import slstm_scan_ref
 
 ATOL = 3e-5
-DIMS = [(8, 256, 128), (3, 100, 128), (8, 128, 256)]
+DIMS = [(8, 256, 128), (3, 100, 128), (8, 128, 256), (11, 37, 128),
+        (5, 64, 200)]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -101,3 +108,33 @@ def test_wrapper_takes_plain_version_on_cpu(monkeypatch):
     assert ops.slstm_scan.launches == before
     with pytest.raises(ValueError, match="cpu or cuda"):
         ops.slstm_scan(*(a.to("meta") for a in arrs))
+
+
+def test_launch_refuses_short_barrier_scratch_and_unknown_route(
+        monkeypatch):
+    """What the wrapper hands the C launcher is checked first: a barrier
+    scratch of fewer than ``BAR_INTS`` int32 (or of another dtype) and a
+    route number the launcher does not know raise ValueError, and an
+    unknown route name raises on every device; nothing is built."""
+    from repro_torch.kernels import build
+
+    def refuse(*a, **k):
+        raise AssertionError("a refused call tried to build or load a "
+                             "kernel")
+
+    monkeypatch.setattr(build, "load", refuse)
+    gx, r_h, h0, c0 = (torch.from_numpy(a) for a in _inputs(3, 4, 32, 2))
+    B, T, d = 3, 4, 32
+    state = (torch.zeros((2, B, d)), torch.zeros((B, d)),
+             torch.zeros((B, T, d)))
+    ok_bar = torch.zeros(ops.BAR_INTS, dtype=torch.int32)
+    for bar in (torch.zeros(ops.BAR_INTS - 1, dtype=torch.int32),
+                torch.zeros(ops.BAR_INTS, dtype=torch.int64)):
+        with pytest.raises(ValueError, match="grid barrier"):
+            ops._launch(gx, r_h, *state, bar, ops.ROUTES["resident"])
+    for route in (-1, 3):
+        with pytest.raises(ValueError, match="route"):
+            ops._launch(gx, r_h, *state, ok_bar, route)
+    with pytest.raises(ValueError, match="route"):
+        ops.slstm_scan(gx, r_h, h0, c0, route="fast")
+    assert sorted(ops.ROUTES.values()) == [0, 1, 2]
