@@ -31,7 +31,9 @@ toolkit (``nvcc``). Phases, each fatal on failure (non-zero exit):
    and at shapes ragged against its tiling (one entry of 16 tokens,
    sentinel entries and an all-sentinel row, a 512-entry table of 32k
    tokens);
-   ``pool_block_copy`` bitwise;
+   ``pool_block_copy`` bitwise, one leaf a launch and the four pool
+   leaves of the paged phase in one launch (as the engine's COW calls
+   it) at 1, 2 and 7 pairs, with padding pairs and clamped sources;
    ``kvq_spec_verify_attn`` within one bf16 ulp at both block sizes, on
    windows across split boundaries and ending at the long cache, each
    query bitwise equal to ``kvq_paged_decode_attn`` at its length; the
@@ -52,7 +54,11 @@ toolkit (``nvcc``). Phases, each fatal on failure (non-zero exit):
    from call to call and for a row alone against the same row in the
    batch, the launcher's own route equal to the resident one, one
    kernel a call on the resident route (``torch.profiler``), a barrier
-   scratch too short refused;
+   scratch too short refused; and in ``carry="gx"`` (the reference's
+   cell, which the QAT teacher runs) on each route at the same shapes,
+   within 2x the plain version's own gap when its dot is summed in f64
+   or in halves (share of hs differing, bf16 steps, cT), hs within one
+   bf16 step at T <= 16, bitwise call to call and row alone vs batch;
 3. serve: ``ServeEngine`` on ``cuda`` with qwen2.5-3b at full width
    (random weights from a seed), policy A8d-C8-W4, w4a8 weights, dense
    KV cache; 8 mixed-length requests through 4 slots, both kernels'
@@ -66,8 +72,9 @@ toolkit (``nvcc``). Phases, each fatal on failure (non-zero exit):
    64, 32 blocks, prefix cache on); 8 requests sharing a 160-token prefix,
    so prefix hits, copy-on-write of the split block and tail-waves all
    happen; the three paged kernels' launch counts > 0 and the dense decode
-   kernel's 0; one decode step's logits paged vs dense and kernels vs
-   plain versions;
+   kernel's 0, one multi-leaf copy launch per COW event and no one-leaf
+   copy; one decode step's logits paged vs dense and kernels vs plain
+   versions;
 3c. spec serve: the paged phase's requests with speculative decoding at
    the CLI's defaults (k = 4, an 18-layer draft, exact mode); the verify
    kernel and the draft's dense decode kernel launch, the paged decode
@@ -110,7 +117,9 @@ toolkit (``nvcc``). Phases, each fatal on failure (non-zero exit):
    input copies past 100 MB), its plain version, one PyTorch call
    computing the same function (a yardstick the port never calls) and
    the least time the card needs for the work (``slstm_scan``: per
-   teacher forward, against a per-step ``torch.addmm`` loop;
+   teacher forward in both carries, against a per-step GEMM loop;
+   ``pool_block_copy`` per COW through one launch beside the four
+   one-leaf launches it replaced;
    ``w4a8_matmul`` also per prefill wave, 36 x 7 linears at M = 512,
    beside bf16 ``torch.matmul``, bound by bytes or int8 operations); the paged
    decode, verify and dense decode kernels also per launch at a long
@@ -922,7 +931,62 @@ def check_copy(torch, P, cfg, dev, report):
     print(f"phase 2: pool_block_copy bitwise equal to its plain version on "
           f"{COPY_LAYERS}-layer int8 and f32 leaves, padding pairs dropped, "
           f"untouched blocks unchanged", flush=True)
+    check_copy_multi(torch, P, cfg, dev, report)
     return 0.0
+
+
+def pool_leaves(torch, gen, cfg, nb, bs, dev):
+    """The paged serve phase's four pool leaves (k_q, v_q, s_k, s_v: the
+    engine's ``POOL_KEYS`` order) at qwen2.5-3b's width and depth."""
+    (k, sk), (v, sv) = (copy_leaves(torch, gen, cfg, nb, bs, dev)
+                        for _ in range(2))
+    return [k, v, sk, sv]
+
+
+def copy_pairs(nb):
+    """(src, dst) lists the multi-leaf copy is checked on: 1 pair, 2
+    pairs, and 7 pairs of which 2 are padding (dst >= NB) and 2 take a
+    src clamped into [0, NB - 1] (NB + 5 and -2). No src is a dst."""
+    return (([3], [20]), ([3, 17], [20, 5]),
+            ([3, 17, nb + 5, -2, 9, 0, 0], [20, 5, 11, 12, 14, nb, nb + 7]))
+
+
+def check_copy_multi(torch, P, cfg, dev, report):
+    """The COW of every pool leaf in one launch (the engine's call),
+    bitwise equal to the plain version leaf by leaf: real pairs copied,
+    clamped sources read, padding pairs dropped, other blocks
+    untouched."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    nb, bs = PAGED_TOKENS * SLOTS // 64, 64
+    leaves = pool_leaves(torch, gen, cfg, nb, bs, dev)
+    kern = P["kvq_ops"].copy_pool_blocks_multi
+    ref = P["kvq_ref"].copy_pool_blocks_multi_ref
+    for src, dst in copy_pairs(nb):
+        pairs = torch.tensor([src, dst], dtype=torch.int32, device=dev)
+        got = [x.clone() for x in leaves]
+        want = [x.clone() for x in leaves]
+        kern(got, pairs)
+        ref(want, pairs)
+        torch.cuda.synchronize()
+        real = [(min(max(s_, 0), nb - 1), d_) for s_, d_ in zip(src, dst)
+                if d_ < nb]
+        for key, leaf, g, w in zip(("k_q", "v_q", "s_k", "s_v"), leaves,
+                                   got, want):
+            name = f"pool_block_copy_multi ({key}, {len(src)} pairs)"
+            check(torch.equal(g[:, :nb], w[:, :nb]),
+                  f"{name} differs from its plain version")
+            check(all(torch.equal(g[:, d_], leaf[:, s_]) for s_, d_ in real),
+                  f"{name}: a destination block does not hold its source")
+            keep = [b for b in range(nb) if b not in {d_ for _, d_ in real}]
+            check(torch.equal(g[:, keep], leaf[:, keep]),
+                  f"{name}: a block outside dst changed")
+        del got, want
+    report["copy_multi_bitwise"] = [len(src) for src, _ in copy_pairs(nb)]
+    print(f"phase 2: pool_block_copy_multi (k_q, v_q, s_k, s_v of "
+          f"{COPY_LAYERS} layers in one launch) bitwise equal to its plain "
+          f"version at 1, 2 and 7 pairs (padding pairs dropped, clamped "
+          f"sources read)", flush=True)
 
 
 def sdpa_paged_sets(torch, P, cfg, sets, lens_of, gqa):
@@ -1080,40 +1144,47 @@ def time_gather(torch, P, cfg, dev, report):
 
 
 def time_copy(torch, P, cfg, dev, report):
-    """Per COW event: one pair, one launch on each of the four pool
-    leaves (two int8 payloads, two f32 scale leaves) of the serve phase's
-    36-layer pool."""
+    """Per COW event: one pair cloned in the four pool leaves (two int8
+    payloads, two f32 scale leaves) of the serve phase's 36-layer pool,
+    through one multi-leaf launch (the engine's call); beside it the four
+    one-leaf launches it replaced, the plain version and ``x[:, dst] =
+    x[:, src]`` on each leaf."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(11)
     nb, bs = PAGED_TOKENS * SLOTS // 64, 64
     src = torch.tensor([3], dtype=torch.int32, device=dev)
     dst = torch.tensor([20], dtype=torch.int32, device=dev)
-    totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
-    nbytes = 0
-    per_leaf = []
-    for which in (0, 1):                    # int8 payload, f32 scales
-        leaf = copy_leaves(torch, gen, cfg, nb, bs, dev)[which]
-        n_copies = copies_for(tensor_bytes(leaf))
-        leaves = [leaf] + [leaf.clone() for _ in range(n_copies - 1)]
-        sets = [(x, src, dst) for x in leaves]
+    pairs = torch.stack([src, dst])
+    base = pool_leaves(torch, gen, cfg, nb, bs, dev)
+    n_copies = copies_for(tensor_bytes(*base))
+    sets = [(base,)] + [([x.clone() for x in base],)
+                        for _ in range(n_copies - 1)]
+    ops, ref = P["kvq_ops"], P["kvq_ref"]
 
-        def library(x, s, d):
-            x[:, d.long()] = x[:, s.long()]
+    def one_leaf(leaves):
+        for x in leaves:
+            ops.copy_pool_blocks(x, src, dst)
 
-        t = (time_ms(torch, P["kvq_ops"].copy_pool_blocks, sets),
-             time_ms(torch, P["kvq_ref"].copy_pool_blocks_ref, sets),
-             time_ms(torch, library, sets))
-        per_leaf.append({"dtype": str(leaf.dtype), "ms": t[0],
-                         "plain_ms": t[1], "library_ms": t[2]})
-        for key, v in zip(("ms", "plain_ms", "library_ms"), t):
-            totals[key] += 2 * v            # k and v leaves of this dtype
-        nbytes += 2 * 2 * leaf[:, 0].numel() * leaf.element_size()
-        del leaves, sets, leaf
-        torch.cuda.empty_cache()
-    report["copy_per_launch"] = per_leaf
-    totals["bound_ms"] = (nbytes + 4 * 8) / HBM_BYTES_PER_S * 1e3
-    totals["bound_by"] = "bytes"
-    return totals
+    def library(leaves):
+        for x in leaves:
+            x[:, dst.long()] = x[:, src.long()]
+
+    out = {"ms": time_ms(torch, lambda lv: ops.copy_pool_blocks_multi(
+               lv, pairs), sets),
+           "one_leaf_ms": time_ms(torch, one_leaf, sets),
+           "plain_ms": time_ms(
+               torch, lambda lv: ref.copy_pool_blocks_multi_ref(lv, pairs),
+               sets),
+           "library_ms": time_ms(torch, library, sets)}
+    # each leaf's block read once and written once in every layer, and
+    # the pair's two ids
+    nbytes = sum(2 * x[:, 0].numel() * x.element_size() for x in base) + 8
+    out["bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+    out["bound_by"] = "bytes"
+    report["copy_per_cow"] = {**out, "bytes": nbytes, "copies": n_copies}
+    del sets, base
+    torch.cuda.empty_cache()
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -2203,13 +2274,22 @@ def serve_paged(torch, P, cfg, dev, params, report):
     ops = P["kvq_ops"]
     counted = {"kvq_paged_decode_attn": ops.kvq_paged_decode_attn,
                "gather_dequant_paged_kv": ops.gather_dequant_paged_kv,
-               "pool_block_copy": ops.copy_pool_blocks,
+               "pool_block_copy": ops.copy_pool_blocks_multi,
+               "pool_block_copy_one_leaf": ops.copy_pool_blocks,
                "kvq_decode_attn": ops.kvq_decode_attn,
                "w4a8_matmul": P["w4a8_ops"].w4a8_matmul}
     eng = paged_engine(P, cfg, params, dev)
     check(eng.num_blocks == 32 and eng.table_len == 8,
           f"paged engine geometry: {eng.num_blocks} blocks, table "
           f"{eng.table_len}")
+    cow_events = []                      # pairs of each resolved COW
+    apply_cow = eng._apply_cow
+
+    def counted_cow(pairs):
+        cow_events.append(len(pairs))
+        return apply_cow(pairs)
+
+    eng._apply_cow = counted_cow
     reqs = shared_prefix_requests(P, cfg, 2 * SLOTS, 200, seed=14)
     for r in reqs:
         eng.submit(r)
@@ -2234,6 +2314,13 @@ def serve_paged(torch, P, cfg, dev, params, report):
                                   f"{launches}")
     check(launches["kvq_decode_attn"] == 0,
           f"paged: the dense decode kernel ran: {launches}")
+    check(launches["pool_block_copy"] == len(cow_events)
+          and launches["pool_block_copy_one_leaf"] == 0
+          and sum(cow_events) == stats["cow_copies"],
+          f"paged: want one multi-leaf copy launch per COW event and no "
+          f"one-leaf copy: {len(cow_events)} events of {cow_events} pairs, "
+          f"{stats['cow_copies']} COW copies, launches {launches}")
+    del eng._apply_cow
     check(stats["free_blocks"] == eng.num_blocks,
           "paged: blocks leaked after the drain")
     decode_tokens = stats["tokens_out"] - len(reqs)
@@ -2250,6 +2337,7 @@ def serve_paged(torch, P, cfg, dev, params, report):
               "prefix_hit_tokens": stats["prefix_hit_tokens"],
               "prefix_hit_blocks": stats["prefix_hit_blocks"],
               "cow_copies": stats["cow_copies"],
+              "cow_events": len(cow_events),
               "prompt_tokens_prefilled": stats["prompt_tokens_prefilled"],
               "peak_cache_tokens": stats["peak_cache_tokens"],
               "launches": launches,
@@ -2269,7 +2357,7 @@ def counted_kernels(P):
             "kvq_decode_attn": ops.kvq_decode_attn,
             "kvq_paged_decode_attn": ops.kvq_paged_decode_attn,
             "gather_dequant_paged_kv": ops.gather_dequant_paged_kv,
-            "pool_block_copy": ops.copy_pool_blocks,
+            "pool_block_copy": ops.copy_pool_blocks_multi,
             "w4a8_matmul": P["w4a8_ops"].w4a8_matmul}
 
 
@@ -2615,6 +2703,10 @@ SLSTM_ROUTES = ("resident", "step")
 SLSTM_STATE_ATOL = 1e-4        # hT, cT (f32) against the plain version
 SLSTM_ORACLE_RATIO = 4.0       # kernel's f64-oracle error / plain's
 SLSTM_ORACLE_FLOOR = 1e-6
+# carry="gx": a cell step of the kernel against plain, at most this times
+# the floor (see check_slstm_gx)
+SLSTM_GX_RATIO = 2.0
+SLSTM_GX_SHORT_T = 16          # at T <= 16, hs within one bf16 ulp
 
 
 def slstm_inputs(torch, gen, B, T, d, dev):
@@ -2710,31 +2802,238 @@ def check_slstm(torch, P, xcfg, dev, report):
     report["slstm_kernels_per_call"] = slstm_kernels_per_call(
         torch, P, xcfg, dev)
     check_slstm_scratch(torch, P, xcfg, dev)
+    return max(worst, check_slstm_gx(torch, P, xcfg, dev, report))
+
+
+def bf16_steps(torch, a, b):
+    """|a - b| in bf16 steps of the larger magnitude (2^(e - 7) for a
+    magnitude in [2^e, 2^(e + 1)); normal range)."""
+    a, b = a.double(), b.double()
+    m = torch.maximum(a.abs(), b.abs()).clamp_min(2.0 ** -126)
+    return (a - b).abs() / torch.exp2(torch.floor(torch.log2(m)) - 7)
+
+
+def gx_gaps(torch, h, c, h_ref, c_ref):
+    """The gx carry's three metrics between two runs: the share of h
+    values that differ, their largest difference in bf16 steps, and c's
+    largest absolute difference."""
+    return {"hs_share": float((h != h_ref).double().mean()),
+            "hs_steps": float(bf16_steps(torch, h, h_ref).max()),
+            "cT": float((c.double() - c_ref.double()).abs().max())}
+
+
+def gx_dot(torch, h, rf, how):
+    """h . r_h in f32 for the gx carry: "plain" (one GEMM, as the plain
+    version), "f64" (in f64, then to f32) or "halves" (over each half of
+    h's entries, then added, as the resident route splits them)."""
+    if how == "f64":
+        return (h.double() @ rf.double()).float()
+    if how == "halves":
+        m = h.shape[-1] // 2
+        return h[:, :m] @ rf[:m] + h[:, m:] @ rf[m:]
+    return h @ rf
+
+
+def gx_cell(torch, g, c_prev, dtype):
+    """The cell's gates from g (f32 holding gx's dtype): (h in dtype, c)."""
+    i, f, z, o = g.split(g.shape[-1] // 4, dim=-1)
+    c = torch.sigmoid(f) * c_prev + torch.sigmoid(i) * torch.tanh(z)
+    return (torch.sigmoid(o) * torch.tanh(c)).to(dtype), c
+
+
+def gx_step(torch, gx_t, h_prev, c_prev, rf, how="plain"):
+    """One step of the plain version's gx carry, its dot summed ``how``."""
+    s = gx_dot(torch, h_prev.float(), rf, how).to(gx_t.dtype)
+    g = (gx_t.float() + s.float()).to(gx_t.dtype).float()
+    return gx_cell(torch, g, c_prev, gx_t.dtype)
+
+
+def gx_trajectory(torch, gx, r_h, h0, c0, how="plain"):
+    """The plain version's gx carry over gx's T steps, its dot summed
+    ``how``; with "plain" the same operations as ``slstm_scan_ref(...,
+    carry="gx")``. Returns (hs, cs): every step's h and c."""
+    rf = r_h.float()
+    h, c = h0.to(gx.dtype), c0.float()
+    hs, cs = [], []
+    for t in range(gx.shape[1]):
+        h, c = gx_step(torch, gx[:, t], h, c, rf, how)
+        hs.append(h)
+        cs.append(c)
+    return torch.stack(hs, dim=1), torch.stack(cs, dim=1)
+
+
+def gx_one_flip(torch, gx, h_prev, c_prev, rf):
+    """The largest change of one cell step (h in bf16 steps, c absolute)
+    when one gate pre-activation moves by one bf16 step: what a single
+    rounding of h . r_h or of its sum with gx that lands on the other
+    side of a bf16 boundary does."""
+    s = gx_dot(torch, h_prev.float(), rf, "plain").to(gx.dtype)
+    g = (gx.float() + s.float()).to(gx.dtype).float()
+    h0, c0 = gx_cell(torch, g, c_prev, gx.dtype)
+    d = g.shape[-1] // 4
+    ulp = torch.exp2(torch.floor(torch.log2(g.abs().clamp_min(2.0 ** -126)))
+                     - 7)
+    out = {"hs_steps": 0.0, "cT": 0.0}
+    for k in range(4):
+        for sign in (-1.0, 1.0):
+            g2 = g.clone()
+            g2[:, k * d:(k + 1) * d] += sign * ulp[:, k * d:(k + 1) * d]
+            h2, c2 = gx_cell(torch, g2, c_prev, gx.dtype)
+            out["hs_steps"] = max(out["hs_steps"], float(
+                bf16_steps(torch, h2, h0).max()))
+            out["cT"] = max(out["cT"], float((c2 - c0).abs().max()))
+    return out
+
+
+def check_slstm_gx(torch, P, xcfg, dev, report):
+    """``carry="gx"`` (the reference model's cell, the QAT teacher's
+    mode) on each route forced, against its plain version.
+
+    Both round h . r_h and its sum with gx to bf16 and carry h in bf16,
+    so a sum that lands near a bf16 rounding boundary can round one way
+    in the kernel's f32 order and the other in cuBLAS's. Over a sequence
+    the recurrence carries such a flip on and amplifies it, so whole
+    trajectories from two sum orders differ by amounts that vary several
+    fold from one order to the next (the plain version re-summed in f64
+    and in halves gave 1.3% of hs apart at (11, 37) on the card where
+    the kernel gave 3.2%, with the same steps and cT). The gate is
+    therefore taken on the cell: every step is rerun from the plain
+    trajectory's own (h, c) before it, in one kernel call with the B x T
+    steps as rows of T = 1 (a row's sums do not depend on the batch), and
+    its three gaps to the plain trajectory (``gx_gaps``: the share of h
+    that differs, the largest difference in bf16 steps, c's largest
+    absolute difference) may be at most ``SLSTM_GX_RATIO`` times the
+    floor: the larger of the plain cell's own gaps with its dot summed
+    in f64 or in halves, what one bf16 step of one gate pre-activation
+    moves (``gx_one_flip``), and 16 values of h. The whole trajectory's
+    gaps are reported beside the same two re-summed trajectories' (the
+    noise floor of a rounding-defined recurrence); at T <= 16 its hs
+    must be within one bf16 ulp of plain's (``KVQ_TOL``, as the f32
+    carry's). As for the f32 carry: two calls are bitwise equal, a row
+    alone is bitwise the same row in the batch, and the launcher's own
+    route is the resident one, bitwise. Returns the largest cell c gap.
+    """
+    ops, ref = P["slstm_ops"], P["slstm_scan_ref"]
+    scan = ops.slstm_scan
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(45)
+    rtol, atol = KVQ_TOL
+    cases, worst = [], 0.0
+    for B, T, d in SLSTM_CASES:
+        d = d or xcfg.d_model
+        check(ops.route_for(d, carry="gx") == "resident",
+              f"slstm_scan carry gx at d {d} takes the "
+              f"{ops.route_for(d, carry='gx')} route")
+        args = slstm_inputs(torch, gen, B, T, d, dev)
+        gx, r_h, h0, c0 = args
+        rf = r_h.float()
+        want = ref(*args, carry="gx")
+        hs, cs = gx_trajectory(torch, *args)
+        check(same(torch, (hs, hs[:, -1], cs[:, -1]), want),
+              f"slstm_scan carry gx B={B} T={T} d={d}: the stepwise plain "
+              f"trajectory differs from the plain version")
+        # the cell, every step from the plain trajectory's state before it
+        h_prev = torch.cat([h0.to(gx.dtype)[:, None], hs[:, :-1]], dim=1)
+        c_prev = torch.cat([c0[:, None], cs[:, :-1]], dim=1)
+        rows = (gx.reshape(B * T, 1, 4 * d), h_prev.reshape(B * T, d),
+                c_prev.reshape(B * T, d))
+        h_cell, c_cell = hs.reshape(B * T, d), cs.reshape(B * T, d)
+        traj_floor, cell_floor = {}, {}
+        for how in ("f64", "halves"):
+            h2, c2 = gx_trajectory(torch, *args, how)
+            traj_floor[how] = gx_gaps(torch, h2, c2[:, -1], hs, cs[:, -1])
+            h2, c2 = gx_step(torch, rows[0][:, 0], rows[1], rows[2], rf, how)
+            cell_floor[how] = gx_gaps(torch, h2, c2, h_cell, c_cell)
+        flip = gx_one_flip(torch, rows[0][:, 0], rows[1], rows[2], rf)
+        floor = {"hs_share": max(16 / h_cell.numel(), *(
+                     f["hs_share"] for f in cell_floor.values())),
+                 "hs_steps": max(flip["hs_steps"], *(
+                     f["hs_steps"] for f in cell_floor.values())),
+                 "cT": max(flip["cT"], *(f["cT"] for f in
+                                         cell_floor.values()))}
+        auto = scan(*args, carry="gx")
+        b = B // 2
+        for route in SLSTM_ROUTES:
+            got = scan(*args, carry="gx", route=route)
+            again = scan(*args, carry="gx", route=route)
+            alone = scan(gx[b:b + 1], r_h, h0[b:b + 1], c0[b:b + 1],
+                         carry="gx", route=route)
+            cell = scan(rows[0], r_h, rows[1].float(), rows[2],
+                        carry="gx", route=route)
+            torch.cuda.synchronize()
+            cell_gaps = gx_gaps(torch, cell[0][:, 0], cell[2], h_cell,
+                                c_cell)
+            case = {"B": B, "T": T, "d": d, "route": route,
+                    "cell": cell_gaps, "cell_floor": floor,
+                    "cell_floors": {**cell_floor, "one_flip": flip},
+                    "trajectory": gx_gaps(torch, got[0], got[2], want[0],
+                                          want[2]),
+                    "trajectory_floors": traj_floor}
+            cases.append(case)
+            check(all(bool(torch.isfinite(t.float()).all())
+                      for t in got + cell)
+                  and got[0].dtype == got[1].dtype == gx.dtype,
+                  f"slstm_scan carry gx {case}: not finite, or hs / hT "
+                  f"not in gx's dtype")
+            check(all(cell_gaps[k] <= SLSTM_GX_RATIO * floor[k]
+                      for k in floor),
+                  f"slstm_scan carry gx B={B} T={T} d={d} ({route}): a "
+                  f"cell step differs from its plain version beyond "
+                  f"{SLSTM_GX_RATIO}x the floor: {case}")
+            check(T > SLSTM_GX_SHORT_T or torch.allclose(
+                      got[0].float(), want[0].float(), rtol=rtol, atol=atol),
+                  f"slstm_scan carry gx B={B} T={T} d={d} ({route}): hs "
+                  f"beyond one bf16 ulp of plain at T <= "
+                  f"{SLSTM_GX_SHORT_T}: {case}")
+            check(same(torch, got, again),
+                  f"slstm_scan carry gx {route} B={B} T={T} d={d}: two "
+                  f"calls differ")
+            check(same(torch, (got[0][b:b + 1], got[1][b:b + 1],
+                               got[2][b:b + 1]), alone),
+                  f"slstm_scan carry gx {route} B={B} T={T} d={d}: row {b} "
+                  f"alone differs from the same row in the batch")
+            if route == "resident":
+                check(same(torch, got, auto),
+                      f"slstm_scan carry gx B={B} T={T} d={d}: the "
+                      f"launcher's own route differs from the resident one")
+            worst = max(worst, cell_gaps["cT"])
+            del got, again, alone, cell
+        del args, want, auto, hs, cs, rows
+    report["slstm_gx_check"] = cases
+    print("phase 2: slstm_scan carry gx against its plain version, each "
+          "route: " + json.dumps([
+              {k: c[k] for k in ("B", "T", "d", "route", "cell",
+                                 "cell_floor", "trajectory")}
+              for c in cases]), flush=True)
     return worst
 
 
 def slstm_kernels_per_call(torch, P, xcfg, dev):
-    """Kernels named ``slstm_*`` that one call launches on each route at
-    the QAT shape, from ``torch.profiler``'s device records: 1 resident,
-    T step."""
+    """Kernels named ``slstm_*`` that one call launches on each route and
+    carry at the QAT shape, from ``torch.profiler``'s device records: 1
+    resident, T step."""
     from torch.profiler import ProfilerActivity, profile
     scan = P["slstm_ops"].slstm_scan
     gen = torch.Generator(device=dev)
     gen.manual_seed(43)
     args = slstm_inputs(torch, gen, TRAIN_B, TRAIN_T, xcfg.d_model, dev)
     out = {}
-    for route, want in (("resident", 1), ("step", TRAIN_T)):
-        scan(*args, route=route)
+    for carry, route, want in (("f32", "resident", 1),
+                               ("f32", "step", TRAIN_T),
+                               ("gx", "resident", 1), ("gx", "step", TRAIN_T)):
+        key = route if carry == "f32" else f"{route}_gx"
+        scan(*args, carry=carry, route=route)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            scan(*args, route=route)
+            scan(*args, carry=carry, route=route)
             torch.cuda.synchronize()
         names = [e.name for e in prof.events()
                  if e.device_type == torch.autograd.DeviceType.CUDA]
-        out[route] = sum("slstm_" in n for n in names)
-        check(out[route] == want,
-              f"slstm_scan {route}: {out[route]} slstm kernels in one call "
-              f"(want {want}; device records: {sorted(set(names))[:8]})")
+        out[key] = sum("slstm_" in n for n in names)
+        check(out[key] == want,
+              f"slstm_scan {route} carry {carry}: {out[key]} slstm kernels "
+              f"in one call (want {want}; device records: "
+              f"{sorted(set(names))[:8]})")
     print(f"phase 2: slstm_scan kernels a call at B {TRAIN_B}, T "
           f"{TRAIN_T}: {out}", flush=True)
     return out
@@ -2753,16 +3052,18 @@ def check_slstm_scratch(torch, P, xcfg, dev):
     c = torch.zeros((B, d), dtype=torch.float32, device=dev)
     hs = torch.zeros((B, T, d), dtype=gx.dtype, device=dev)
     bar = torch.zeros(ops.BAR_INTS, dtype=torch.int32, device=dev)
-    for route in (0, 1, 2):
-        err = ops._fn()(gx.data_ptr(), r_h.data_ptr(), hbuf.data_ptr(),
-                        c.data_ptr(), hs.data_ptr(), bar.data_ptr(),
-                        ops.BAR_INTS - 1, B, T, d, 1, 1, route,
-                        torch.cuda.current_stream(dev).cuda_stream)
-        torch.cuda.synchronize()
-        check(err == 1 and not bool(hs.any()) and not bool(hbuf.any())
-              and not bool(c.any()),
-              f"slstm_scan took {ops.BAR_INTS - 1} of {ops.BAR_INTS} "
-              f"barrier ints on route {route}: error {err}")
+    for carry in (0, 1):
+        for route in (0, 1, 2):
+            err = ops._fn()(gx.data_ptr(), r_h.data_ptr(), hbuf.data_ptr(),
+                            c.data_ptr(), hs.data_ptr(), bar.data_ptr(),
+                            ops.BAR_INTS - 1, B, T, d, 1, 1, carry, route,
+                            torch.cuda.current_stream(dev).cuda_stream)
+            torch.cuda.synchronize()
+            check(err == 1 and not bool(hs.any()) and not bool(hbuf.any())
+                  and not bool(c.any()),
+                  f"slstm_scan took {ops.BAR_INTS - 1} of {ops.BAR_INTS} "
+                  f"barrier ints on route {route}, carry {carry}: error "
+                  f"{err}")
 
 
 def slstm_oracle(torch, gx, r_h, h0, c0):
@@ -2778,24 +3079,34 @@ def slstm_oracle(torch, gx, r_h, h0, c0):
     return torch.stack(hs, dim=1), h, c
 
 
-def slstm_library(torch, gx, r_h, h0, c0):
-    """The same recurrence as one torch.addmm per step plus torch's
-    elementwise gates (a yardstick; the port never calls it)."""
+def slstm_library(torch, gx, r_h, h0, c0, carry="f32"):
+    """The same recurrence as one torch GEMM per step plus torch's
+    elementwise gates (a yardstick; the port never calls it): f32
+    ``torch.addmm``, or under ``carry="gx"`` ``torch.mm`` on the bf16 h
+    with the roundings of the reference's cell."""
     d = h0.shape[-1]
     gxf, rf = gx.float(), r_h.float()
-    h, c = h0, c0
+    h, c = (h0.to(gx.dtype) if carry == "gx" else h0), c0
     hs = torch.empty(gx.shape[:2] + (d,), dtype=gx.dtype, device=gx.device)
     for t in range(gx.shape[1]):
-        i, f, z, o = torch.addmm(gxf[:, t], h, rf).split(d, dim=-1)
+        if carry == "gx":
+            s = torch.mm(h.float(), rf).to(gx.dtype)
+            g = (gxf[:, t] + s.float()).to(gx.dtype).float()
+        else:
+            g = torch.addmm(gxf[:, t], h, rf)
+        i, f, z, o = g.split(d, dim=-1)
         c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(z)
         h = torch.sigmoid(o) * torch.tanh(c)
+        if carry == "gx":
+            h = h.to(gx.dtype)
         hs[:, t] = h
     return hs, h, c
 
 
 def time_slstm(torch, P, xcfg, dev, report):
     """Per teacher forward: 2 calls (the two sLSTM layers) at the QAT
-    phase's shape."""
+    phase's shape, in the teacher's mode (``carry="gx"``); the f32
+    carry's times beside it (``f32_carry_*``)."""
     scan, ref = P["slstm_ops"].slstm_scan, P["slstm_scan_ref"]
     gen = torch.Generator(device=dev)
     gen.manual_seed(42)
@@ -2805,26 +3116,39 @@ def time_slstm(torch, P, xcfg, dev, report):
     nb = tensor_bytes(*base)
     sets = [base] + [slstm_inputs(torch, gen, B, T, d, dev)
                      for _ in range(copies_for(nb) - 1)]
-    t_k = time_ms(torch, scan, sets, min_calls=10)
-    t_p = time_ms(torch, ref, sets[:4], min_calls=4)
-    t_l = time_ms(torch, lambda *a: slstm_library(torch, *a), sets[:4],
-                  min_calls=4)
-    t_host = host_issued_ms(torch, scan, sets, min_calls=10)
     flops = 2 * B * T * d * 4 * d               # h . r_h, every step
     # gx and r_h read once (bf16), h0 and c0 read, hs (bf16), hT, cT out
     nbytes = 2 * B * T * 4 * d + 2 * d * 4 * d + 2 * B * T * d \
         + 4 * 4 * B * d
     t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
     n = sum(k == "slstm" for k in xcfg.layer_kinds())
-    report["slstm_per_call"] = {
-        "ms": t_k, "plain_ms": t_p, "library_ms": t_l,
-        "host_issued_ms": t_host, "bound_ms": max(t_b, t_o) * 1e3,
-        "flops": flops, "bytes": nbytes, "steps": T,
-        "ms_per_step": t_k / T, "route": P["slstm_ops"].route_for(d),
-        "launches_per_call": report["slstm_kernels_per_call"]["resident"]}
-    return {"ms": n * t_k, "plain_ms": n * t_p, "library_ms": n * t_l,
+    per_call = {}
+    for carry in ("gx", "f32"):
+        t_k = time_ms(torch, lambda *a: scan(*a, carry=carry), sets,
+                      min_calls=10)
+        t_p = time_ms(torch, lambda *a: ref(*a, carry=carry), sets[:4],
+                      min_calls=4)
+        t_l = time_ms(torch, lambda *a: slstm_library(torch, *a, carry),
+                      sets[:4], min_calls=4)
+        t_host = host_issued_ms(torch, lambda *a: scan(*a, carry=carry),
+                                sets, min_calls=10)
+        per_call[carry] = {
+            "ms": t_k, "plain_ms": t_p, "library_ms": t_l,
+            "host_issued_ms": t_host, "bound_ms": max(t_b, t_o) * 1e3,
+            "flops": flops, "bytes": nbytes, "steps": T,
+            "ms_per_step": t_k / T,
+            "route": P["slstm_ops"].route_for(d, carry=carry),
+            "launches_per_call": report["slstm_kernels_per_call"][
+                "resident" if carry == "f32" else "resident_gx"]}
+    report["slstm_per_call"] = per_call
+    gx, f32 = per_call["gx"], per_call["f32"]
+    return {"ms": n * gx["ms"], "plain_ms": n * gx["plain_ms"],
+            "library_ms": n * gx["library_ms"],
             "bound_ms": n * max(t_b, t_o) * 1e3,
-            "bound_by": "bytes" if t_b >= t_o else "operations"}
+            "bound_by": "bytes" if t_b >= t_o else "operations",
+            "f32_carry_ms": n * f32["ms"],
+            "f32_carry_plain_ms": n * f32["plain_ms"],
+            "f32_carry_library_ms": n * f32["library_ms"]}
 
 
 # --------------------------------------------------------------------------
@@ -3250,8 +3574,9 @@ def main() -> int:
          "replaces": "src/repro/kernels/kvq_attn/kernel.py:308",
          "launches": paged_launches["pool_block_copy"],
          "max_abs_err": copy_err, **copy_t,
-         "per": "one COW of one block: 4 launches (k_q, v_q, s_k, s_v "
-                "leaves of 36 layers)"},
+         "per": "one COW of one block: 1 launch cloning the k_q, v_q, s_k "
+                "and s_v leaves of 36 layers (one_leaf_ms: the 4 one-leaf "
+                "launches it replaced)"},
         {"name": "kvq_spec_verify_attn", "route": "cuda",
          "source": "src/repro_torch/csrc/kvq_spec_verify_attn.cu",
          "replaces": "src/repro/kernels/kvq_attn/kernel.py:255",
@@ -3289,7 +3614,8 @@ def main() -> int:
          "max_abs_err": slstm_err, **slstm_t,
          "per": f"one xlstm-125m teacher forward: 2 calls (the sLSTM "
                 f"layers) at B={TRAIN_B}, T={TRAIN_T}, d=768, bf16 gx and "
-                f"r_h, one resident launch each"},
+                f"r_h, carry gx (the reference's cell), one resident "
+                f"launch each (f32_carry_*: the f32 carry)"},
     ]
     report["kernels"] = kernels
     out_dir = ROOT / "chiprun_out"

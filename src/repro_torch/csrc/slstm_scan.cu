@@ -13,6 +13,20 @@
 // The h . r_h product is computed here, in f32 FMAs; it differs from the
 // plain version (torch's matmul) only in the order of its f32 sums.
 //
+// Two carries, a template constant (kGx) of both routes, so the f32 code
+// is unchanged by the other:
+//   f32 (kGx false): the math above, h carried in f32 (the TPU kernel's);
+//   gx  (kGx true):  the reference model's cell (src/repro/models/
+//       recurrent.py:_slstm_cell), h carried in gx's dtype:
+//         rh  = rnd(h_{t-1} . r_h)     the f32 sum rounded once
+//         g_t = rnd(gx_t + rh)         added in f32, rounded again
+//         c_t, h_t in f32 as above, then h_t = rnd(h_t)
+//       with rnd round-to-nearest-even to gx's dtype (__float2bfloat16_rn).
+//       The carried h goes through the same f32 buffer (hbuf) as in the
+//       f32 carry, holding bf16 values: exact, and the h exchange code is
+//       the same for both. With f32 gx rnd is the identity and the launcher
+//       runs the f32 carry, the same function.
+//
 // What bounds it on the H100: at B 8, d 768 a step is 8 x 768 x 3072
 // multiply-adds (about 19 M, 0.56 us at 67 TF/s f32) against r_h (4.7 MB
 // in bf16). The T steps are sequential, so what the bound does not count
@@ -82,6 +96,22 @@ __device__ __forceinline__ void store(float v, __nv_bfloat16* p) {
   *p = __float2bfloat16_rn(v);
 }
 
+// x rounded to T and back to f32 (the identity for f32)
+template <typename T>
+__device__ __forceinline__ float rnd(float x);
+template <>
+__device__ __forceinline__ float rnd<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ float rnd<__nv_bfloat16>(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// A gate's pre-activation from gx_t and the complete h . r_h sum s
+template <bool kGx, typename TG>
+__device__ __forceinline__ float preact(float gx, float s) {
+  return kGx ? rnd<TG>(__fadd_rn(gx, rnd<TG>(s))) : __fadd_rn(gx, s);
+}
+
 __device__ __forceinline__ float sigmoid(float x) {
   return __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-x)));
 }
@@ -95,7 +125,7 @@ __device__ __forceinline__ void cell(float gi, float gf, float gz, float go,
 
 // ---------------------------------------------------------------- step route
 
-template <typename TG, typename TR>
+template <typename TG, typename TR, bool kGx>
 __global__ void __launch_bounds__(THREADS)
     slstm_step_kernel(const TG* __restrict__ gx, const TR* __restrict__ rh,
                       const float* __restrict__ h_in,
@@ -152,11 +182,12 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
     for (int w = 0; w < WARPS; ++w)
       s = __fadd_rn(s, part[((w * 4 + k) * BB + b) * JT + lane]);
-    g[k] = __fadd_rn(to_f32(gx[row_bt * d4 + (size_t)k * d + j]), s);
+    g[k] = preact<kGx, TG>(to_f32(gx[row_bt * d4 + (size_t)k * d + j]), s);
   }
   const size_t o = (size_t)(b0 + b) * d + j;
   float cn = c[o], hn;
   cell(g[0], g[1], g[2], g[3], cn, hn);
+  if (kGx) hn = rnd<TG>(hn);
   c[o] = cn;
   h_out[o] = hn;
   store(hn, hs + row_bt * d + j);
@@ -260,7 +291,7 @@ __device__ __forceinline__ float reduce_scatter32(float (&v)[32], int lane) {
   return v[0];
 }
 
-template <typename TG, typename TR>
+template <typename TG, typename TR, bool kGx>
 __global__ void __launch_bounds__(RTHREADS, 1)
     slstm_resident_kernel(const TG* __restrict__ gx,
                           const TR* __restrict__ rh, float* hbuf,
@@ -354,7 +385,7 @@ __global__ void __launch_bounds__(RTHREADS, 1)
         }
         __syncthreads();             // half 1's sums in part[k & 1]
         if (jl < nj && hf == 0) {
-          const float g = __fadd_rn(gxv, __fadd_rn(s, pk[lane]));
+          const float g = preact<kGx, TG>(gxv, __fadd_rn(s, pk[lane]));
           const float gi = __shfl_sync(FULL, g, bl);
           const float gf = __shfl_sync(FULL, g, 8 + bl);
           const float gz = __shfl_sync(FULL, g, 16 + bl);
@@ -363,6 +394,7 @@ __global__ void __launch_bounds__(RTHREADS, 1)
             const size_t o = (size_t)(b0 + lane) * d + j;
             float hn;
             cell(gi, gf, gz, go, cn, hn);
+            if (kGx) hn = rnd<TG>(hn);
             c[o] = cn;
             h_out[o] = hn;
             store(hn, hs + ((size_t)(b0 + lane) * T + t) * d + j);
@@ -384,7 +416,7 @@ struct Plan {
 // The resident route's grid and shared memory for d, or 0 if it does not
 // fit this device (see the sizing rule at the top); sets the kernel's
 // shared-memory limit to the device's opt-in maximum once.
-template <typename TG, typename TR>
+template <typename TG, typename TR, bool kGx>
 int plan_resident(int d, Plan* p) {
   static int smem_set = 0;
   int dev, sms, max_smem;
@@ -395,7 +427,7 @@ int plan_resident(int d, Plan* p) {
     e = cudaDeviceGetAttribute(&max_smem,
                                cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (e == cudaSuccess && max_smem > smem_set) {
-    e = cudaFuncSetAttribute(slstm_resident_kernel<TG, TR>,
+    e = cudaFuncSetAttribute(slstm_resident_kernel<TG, TR, kGx>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              max_smem);
     if (e == cudaSuccess) smem_set = max_smem;
@@ -409,16 +441,16 @@ int plan_resident(int d, Plan* p) {
   p->smem = static_cast<int>(smem);
   int occ = 0;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &occ, slstm_resident_kernel<TG, TR>, RTHREADS, p->smem);
+      &occ, slstm_resident_kernel<TG, TR, kGx>, RTHREADS, p->smem);
   if (e != cudaSuccess) return -static_cast<int>(e);
   return occ * sms >= p->grid ? 1 : 0;
 }
 
-template <typename TG, typename TR>
+template <typename TG, typename TR, bool kGx>
 int run_resident(const void* gx, const void* rh, float* hbuf, float* c,
                  void* hs, int* bar, int B, int T, int d, cudaStream_t st) {
   Plan p;
-  const int fits = plan_resident<TG, TR>(d, &p);
+  const int fits = plan_resident<TG, TR, kGx>(d, &p);
   if (fits < 0) return -fits;
   if (!fits) return static_cast<int>(cudaErrorInvalidValue);
   const TG* gx_ = static_cast<const TG*>(gx);
@@ -426,13 +458,13 @@ int run_resident(const void* gx, const void* rh, float* hbuf, float* c,
   TG* hs_ = static_cast<TG*>(hs);
   void* args[] = {&gx_, &rh_, &hbuf, &c, &hs_, &bar, &B, &T, &d, &p.per};
   const cudaError_t e = cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(slstm_resident_kernel<TG, TR>),
+      reinterpret_cast<const void*>(slstm_resident_kernel<TG, TR, kGx>),
       dim3(p.grid), dim3(RTHREADS), args, p.smem, st);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename TG, typename TR>
+template <typename TG, typename TR, bool kGx>
 int run_steps(const void* gx, const void* rh, float* hbuf, float* c,
               void* hs, int B, int T, int d, cudaStream_t st) {
   // the shared-memory limit is raised once, to the largest size taken
@@ -441,7 +473,7 @@ int run_steps(const void* gx, const void* rh, float* hbuf, float* c,
   const int smem = (int)((BB * d + WARPS * 4 * BB * JT) * sizeof(float));
   cudaError_t e;
   if (smem > smem_set) {
-    e = cudaFuncSetAttribute(slstm_step_kernel<TG, TR>,
+    e = cudaFuncSetAttribute(slstm_step_kernel<TG, TR, kGx>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem);
     if (e != cudaSuccess) return static_cast<int>(e);
@@ -450,7 +482,7 @@ int run_steps(const void* gx, const void* rh, float* hbuf, float* c,
   const dim3 grid((unsigned)((d + JT - 1) / JT), (unsigned)((B + BB - 1) / BB));
   const size_t stride = (size_t)B * d;
   for (int t = 0; t < T; ++t) {
-    slstm_step_kernel<TG, TR><<<grid, THREADS, smem, st>>>(
+    slstm_step_kernel<TG, TR, kGx><<<grid, THREADS, smem, st>>>(
         static_cast<const TG*>(gx), static_cast<const TR*>(rh),
         hbuf + (t & 1) * stride, hbuf + ((t + 1) & 1) * stride, c,
         static_cast<TG*>(hs), B, T, d, t);
@@ -460,40 +492,52 @@ int run_steps(const void* gx, const void* rh, float* hbuf, float* c,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename TG, typename TR>
+template <typename TG, typename TR, bool kGx>
 int route_for(int d) {
   Plan p;
-  const int fits = plan_resident<TG, TR>(d, &p);
+  const int fits = plan_resident<TG, TR, kGx>(d, &p);
   return fits < 0 ? fits : (fits ? 1 : 2);
 }
 
-template <typename TG, typename TR>
+template <typename TG, typename TR, bool kGx>
 int run(const void* gx, const void* rh, float* hbuf, float* c, void* hs,
         int* bar, int B, int T, int d, int route, cudaStream_t st) {
   if (route == 0) {
-    route = route_for<TG, TR>(d);
+    route = route_for<TG, TR, kGx>(d);
     if (route < 0) return -route;
   }
   if (route == 1)
-    return run_resident<TG, TR>(gx, rh, hbuf, c, hs, bar, B, T, d, st);
-  return run_steps<TG, TR>(gx, rh, hbuf, c, hs, B, T, d, st);
+    return run_resident<TG, TR, kGx>(gx, rh, hbuf, c, hs, bar, B, T, d, st);
+  return run_steps<TG, TR, kGx>(gx, rh, hbuf, c, hs, B, T, d, st);
 }
+
+using bf16 = __nv_bfloat16;
 
 }  // namespace
 
 // The route the launcher takes for d when asked for none: 1 resident,
 // 2 step, or a negated CUDA error. Depends on the current device.
-extern "C" int slstm_scan_route(int d, int gx_bf16, int rh_bf16) {
-  if (d < 1 || d > MAX_D) return -static_cast<int>(cudaErrorInvalidValue);
-  if (gx_bf16 && rh_bf16) return route_for<__nv_bfloat16, __nv_bfloat16>(d);
-  if (gx_bf16) return route_for<__nv_bfloat16, float>(d);
-  if (rh_bf16) return route_for<float, __nv_bfloat16>(d);
-  return route_for<float, float>(d);
+// carry_gx as for the launcher.
+extern "C" int slstm_scan_route(int d, int gx_bf16, int rh_bf16,
+                                int carry_gx) {
+  if (d < 1 || d > MAX_D || carry_gx < 0 || carry_gx > 1)
+    return -static_cast<int>(cudaErrorInvalidValue);
+  const bool gxc = carry_gx && gx_bf16;
+  if (gx_bf16 && rh_bf16)
+    return gxc ? route_for<bf16, bf16, true>(d)
+               : route_for<bf16, bf16, false>(d);
+  if (gx_bf16)
+    return gxc ? route_for<bf16, float, true>(d)
+               : route_for<bf16, float, false>(d);
+  if (rh_bf16) return route_for<float, bf16, false>(d);
+  return route_for<float, float, false>(d);
 }
 
 // hbuf: (2, B, d) f32 with h0 in its first half; c: (B, d) f32 holding c0.
 // After T steps h_T is in hbuf's half T % 2 and c_T in c. gx_bf16 / rh_bf16
-// select bf16 (1) or f32 (0) operands; hs has gx's dtype. bar: bar_len
+// select bf16 (1) or f32 (0) operands; hs has gx's dtype. carry_gx: 1
+// the gx carry (hbuf then holds values of gx's dtype: pass h0 rounded to
+// it), 0 the f32 carry. bar: bar_len
 // int32, zeroed on the stream before the call (the resident route's grid
 // barrier counts in bar[0]); a shorter one is refused. route: 0 the rule
 // above, 1 resident (refused where it does not fit), 2 step. Requires
@@ -502,23 +546,29 @@ extern "C" int slstm_scan_route(int d, int gx_bf16, int rh_bf16) {
 extern "C" int slstm_scan_launch(const void* gx, const void* rh, void* hbuf,
                                  void* c, void* hs, void* bar, int bar_len,
                                  int B, int T, int d, int gx_bf16,
-                                 int rh_bf16, int route, void* stream) {
+                                 int rh_bf16, int carry_gx, int route,
+                                 void* stream) {
   if (B < 0 || T < 0 || d < 1 || d > MAX_D || bar_len < BAR_INTS ||
-      route < 0 || route > 2)
+      carry_gx < 0 || carry_gx > 1 || route < 0 || route > 2)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || T == 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* h = static_cast<float*>(hbuf);
   float* cc = static_cast<float*>(c);
   int* b = static_cast<int*>(bar);
+  const bool gxc = carry_gx && gx_bf16;
   if (gx_bf16 && rh_bf16)
-    return run<__nv_bfloat16, __nv_bfloat16>(gx, rh, h, cc, hs, b, B, T, d,
-                                             route, st);
+    return gxc ? run<bf16, bf16, true>(gx, rh, h, cc, hs, b, B, T, d, route,
+                                       st)
+               : run<bf16, bf16, false>(gx, rh, h, cc, hs, b, B, T, d,
+                                        route, st);
   if (gx_bf16)
-    return run<__nv_bfloat16, float>(gx, rh, h, cc, hs, b, B, T, d, route,
-                                     st);
+    return gxc ? run<bf16, float, true>(gx, rh, h, cc, hs, b, B, T, d,
+                                        route, st)
+               : run<bf16, float, false>(gx, rh, h, cc, hs, b, B, T, d,
+                                         route, st);
   if (rh_bf16)
-    return run<float, __nv_bfloat16>(gx, rh, h, cc, hs, b, B, T, d, route,
-                                     st);
-  return run<float, float>(gx, rh, h, cc, hs, b, B, T, d, route, st);
+    return run<float, bf16, false>(gx, rh, h, cc, hs, b, B, T, d, route,
+                                   st);
+  return run<float, float, false>(gx, rh, h, cc, hs, b, B, T, d, route, st);
 }

@@ -6,6 +6,9 @@ kernels (``csrc/<name>.cu``)
 for CUDA tensors and run the plain versions (``ref.py``) for CPU tensors.
 ``gather_dequant_paged_kv_pair`` gathers a layer's K and V through one
 table in one launch of the gather kernel (counted as its launch).
+``copy_pool_blocks_multi`` clones COW pairs in up to ``MAX_COPY_LEAVES``
+leaves in one launch of the copy source's second launcher (the engine's
+COW: all four pool leaves at once), with its own count.
 Each checks its inputs and counts its launches in ``.launches``.
 ``commit_chunk_kv`` is a plain scatter on every device, as in the
 reference. Paged pool leaves carry a trailing sink block (see ``ref.py``).
@@ -32,6 +35,7 @@ import functools
 import torch
 
 from repro_torch.kernels.kvq_attn.ref import (chunk_commit_ids,
+                                              copy_pool_blocks_multi_ref,
                                               copy_pool_blocks_ref,
                                               gather_dequant_paged_kv_ref,
                                               kvq_decode_attn_ref,
@@ -54,7 +58,12 @@ _ARGTYPES = {
     "gather_dequant_paged_kv2": (_P,) * 7 + (_I,) * 6 + (_P,),
     "pool_block_copy": (_P,) * 3 + (_I,) * 2 + (ctypes.c_longlong,) * 2
     + (_I, _P),
+    # four (base, layer stride, block bytes) leaves, n_leaves, pairs, n,
+    # rep, NB, stream
+    "pool_block_copy_multi": (_P, _L, _L) * 4 + (_I, _P) + (_I,) * 3
+    + (_P,),
 }
+MAX_COPY_LEAVES = 4
 MAX_GROUP = 8       # query heads per KV head the kernel holds on chip
 HEAD_DIMS = (64, 128)
 SPLIT = 64          # token positions a CTA of the split-KV kernels owns
@@ -62,7 +71,8 @@ SPLIT = 64          # token positions a CTA of the split-KV kernels owns
 
 
 # launchers that live in another launcher's source
-_SOURCE = {"gather_dequant_paged_kv2": "gather_dequant_paged_kv"}
+_SOURCE = {"gather_dequant_paged_kv2": "gather_dequant_paged_kv",
+           "pool_block_copy_multi": "pool_block_copy"}
 
 
 @functools.lru_cache(maxsize=None)
@@ -381,19 +391,14 @@ def copy_pool_blocks(pool, src, dst) -> torch.Tensor:
         return copy_pool_blocks_ref(pool, src, dst)
     _cuda_only("copy_pool_blocks", pool)
     dev = pool.device
-    rep, nb1 = pool.shape[0], pool.shape[1]
     (n,) = src.shape
-    if nb1 < 2:
-        raise ValueError("the kernel needs a pool of >= 1 block plus the "
-                         "sink")
-    if not pool[0].is_contiguous() or pool.stride(0) < pool[0].numel():
-        raise ValueError("pool must hold each layer's blocks contiguously")
+    dims = _copy_leaf_dims(pool)
     check_tensor("src", src, torch.int32, (n,), dev)
     check_tensor("dst", dst, torch.int32, (n,), dev)
-    es = pool.element_size()
+    rep, nb1 = pool.shape[0], pool.shape[1]
     err = _fn("pool_block_copy")(
-        pool.data_ptr(), src.data_ptr(), dst.data_ptr(), n, rep,
-        pool.stride(0) * es, pool[0, 0].numel() * es, nb1 - 1,
+        pool.data_ptr(), src.data_ptr(), dst.data_ptr(), n, rep, *dims,
+        nb1 - 1,
         torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "pool_block_copy")
     copy_pool_blocks.launches += 1
@@ -401,6 +406,64 @@ def copy_pool_blocks(pool, src, dst) -> torch.Tensor:
 
 
 copy_pool_blocks.launches = 0
+
+
+def _copy_leaf_dims(pool) -> tuple:
+    """Check one layer-stacked leaf for the copy kernel; its (layer
+    stride, block) in bytes."""
+    if pool.shape[1] < 2:
+        raise ValueError("the kernel needs a pool of >= 1 block plus the "
+                         "sink")
+    if not pool[0].is_contiguous() or pool.stride(0) < pool[0].numel():
+        raise ValueError("pool must hold each layer's blocks contiguously")
+    es = pool.element_size()
+    return pool.stride(0) * es, pool[0, 0].numel() * es
+
+
+def copy_pool_blocks_multi(leaves, pairs) -> list:
+    """Copy-on-write block clone, in place, over up to
+    ``MAX_COPY_LEAVES`` layer-stacked leaves at once (the engine passes
+    its four pool leaves): ``leaf[:, dst[i]] = leaf[:, src[i]]`` in every
+    leaf.
+
+    leaves: int8 payloads or fp32 scales (rep, NB+1, ...) with the sink
+    block, all with the same rep and NB + 1; pairs (2, n) int32, the src
+    ids then the dst ids, ``dst`` entries >= NB padding. Returns the
+    leaves as a list. CPU tensors run the plain version; CUDA tensors
+    launch the kernel once, with each leaf checked as
+    :func:`copy_pool_blocks` checks its one.
+    """
+    leaves = list(leaves)
+    if not 1 <= len(leaves) <= MAX_COPY_LEAVES:
+        raise ValueError(f"the kernel takes 1 to {MAX_COPY_LEAVES} leaves, "
+                         f"got {len(leaves)}")
+    if pairs.device.type == "cpu" and all(
+            leaf.device.type == "cpu" for leaf in leaves):
+        return copy_pool_blocks_multi_ref(leaves, pairs)
+    _cuda_only("copy_pool_blocks_multi", leaves[0])
+    dev = leaves[0].device
+    rep, nb1 = leaves[0].shape[:2]
+    descs = []
+    for j, leaf in enumerate(leaves):
+        if leaf.device != dev:
+            raise ValueError(f"leaf {j} is on {leaf.device}, expected {dev}")
+        if tuple(leaf.shape[:2]) != (rep, nb1):
+            raise ValueError(f"every leaf needs {rep} layers of {nb1} "
+                             f"blocks; leaf {j} has shape "
+                             f"{tuple(leaf.shape)}")
+        descs += [leaf.data_ptr(), *_copy_leaf_dims(leaf)]
+    descs += [None, 0, 0] * (MAX_COPY_LEAVES - len(leaves))
+    n = pairs.shape[-1]
+    check_tensor("pairs", pairs, torch.int32, (2, n), dev)
+    err = _fn("pool_block_copy_multi")(
+        *descs, len(leaves), pairs.data_ptr(), n, rep, nb1 - 1,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "pool_block_copy_multi")
+    copy_pool_blocks_multi.launches += 1
+    return leaves
+
+
+copy_pool_blocks_multi.launches = 0
 
 
 def commit_chunk_kv(cache: dict, k_q, v_q, s_k, s_v, block_tbl, offset,

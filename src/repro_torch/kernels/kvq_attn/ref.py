@@ -104,6 +104,15 @@ def copy_pool_blocks_ref(pool: torch.Tensor, src: torch.Tensor,
     return pool
 
 
+def copy_pool_blocks_multi_ref(leaves, pairs: torch.Tensor) -> list:
+    """:func:`copy_pool_blocks_ref` on each leaf of ``leaves`` (the COW of
+    every pool leaf at once), in place. pairs (2, n) int32: the src ids,
+    then the dst ids. Returns ``leaves`` as a list."""
+    for leaf in leaves:
+        copy_pool_blocks_ref(leaf, pairs[0], pairs[1])
+    return list(leaves)
+
+
 def chunk_commit_ids(block_tbl: torch.Tensor, offset: torch.Tensor,
                      chunk_len: torch.Tensor, window: int, page_size: int,
                      num_blocks: int):

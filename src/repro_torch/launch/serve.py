@@ -152,7 +152,7 @@ def main(argv=None):
                "kvq_paged_decode_attn": kvq_ops.kvq_paged_decode_attn,
                "kvq_spec_verify_attn": kvq_ops.kvq_spec_verify_attn,
                "gather_dequant_paged_kv": kvq_ops.gather_dequant_paged_kv,
-               "pool_block_copy": kvq_ops.copy_pool_blocks}
+               "pool_block_copy": kvq_ops.copy_pool_blocks_multi}
     for fn in counted.values():
         fn.launches = 0
     t0 = time.perf_counter()

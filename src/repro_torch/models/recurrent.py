@@ -11,8 +11,10 @@ hidden state (``s_state``).
 The mLSTM input gate is a sigmoid, as the reference documents (its chunked
 algebra is exact for the gates used). sLSTM routes its recurrence in one
 place, :func:`slstm_fwd`: a forward with quantization off and no gradient
-(the QAT teacher, evaluation) runs the ``slstm_scan`` kernel, every other
-forward the per-step cell.
+(the QAT teacher, evaluation) runs the ``slstm_scan`` kernel in its
+``carry="gx"`` mode, every other forward the per-step cell. Both compute
+the reference's cell: h carried in gx's dtype, ``h . r_h`` rounded to it
+and added to gx in it, the gates and c in f32.
 
 Serving caches are updated in place by the decode functions, as the
 attention caches are.
@@ -306,11 +308,14 @@ def slstm_fwd(cfg: ModelConfig, ctx: QuantCtx, p: Dict, x: torch.Tensor,
     quantization off and no gradient (``ctx.off`` and
     ``torch.is_grad_enabled()`` False: the QAT teacher, evaluation) runs
     the ``slstm_scan`` kernel for CUDA tensors (its plain version under
-    ``kernel_backend="ref"`` and for CPU tensors): h and c in f32
-    throughout. Every other forward runs the reference's per-step cell,
-    which carries h in gx's dtype (bf16) and, quantized, requantizes h
-    every step: the student under autograd (the kernel has no backward;
-    the reference has none either), calibration, serving.
+    ``kernel_backend="ref"`` and for CPU tensors) with ``carry="gx"``:
+    the reference's cell (``src/repro/models/recurrent.py:_slstm_cell``),
+    h carried in gx's dtype (bf16), ``h . r_h`` summed in f32 and rounded
+    to it, added to gx in it, the gates and c in f32; ``hT`` in gx's
+    dtype. Every other forward runs the per-step cell below, the same
+    cell with the linear quantized (h requantized every step): the
+    student under autograd (the kernel has no backward; the reference
+    has none either), calibration, serving.
     """
     B, S, d = x.shape
     gx = qlinear(ctx, x, p["w_x"], subcol(col, "w_x"))     # (B,S,4d)
@@ -318,7 +323,7 @@ def slstm_fwd(cfg: ModelConfig, ctx: QuantCtx, p: Dict, x: torch.Tensor,
     c0 = torch.zeros((B, d), dtype=torch.float32, device=x.device)
     if ctx.off and not torch.is_grad_enabled():
         from repro_torch.kernels.slstm_scan.ops import slstm_scan
-        h, hT, cT = slstm_scan(gx, p["r_h"]["w"], h0, c0,
+        h, hT, cT = slstm_scan(gx, p["r_h"]["w"], h0, c0, carry="gx",
                                plain=ctx.kernel_backend == "ref")
     else:
         rh = _recurrent_linear(ctx, p["r_h"])

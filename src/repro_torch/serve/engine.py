@@ -31,7 +31,8 @@ only at admission and harvest:
   index; a request whose prompt extends a cached prefix maps those blocks
   (refcount++) and prefills only the uncached tail. The *split block*
   where two prompts diverge is shared too and cloned on the device on
-  first write (copy-on-write, ``kernels.kvq_attn.ops.copy_pool_blocks``).
+  first write (copy-on-write: every pool leaf in one launch of
+  ``kernels.kvq_attn.ops.copy_pool_blocks_multi``).
 * **Batched tail-wave** — up to ``tail_batch`` tail or chunked prefills
   are in flight at once, and every engine step advances all of them by
   one window in one ``prefill_tail`` call with per-row ``(c0, tail_len)``
@@ -77,7 +78,7 @@ from repro_torch.core.precision import parse_policy
 from repro_torch.core.qat import (attach_w4a8_exports, make_ctx,
                                   w4a8_weight_bytes)
 from repro_torch.device import resolve_device
-from repro_torch.kernels.kvq_attn.ops import copy_pool_blocks
+from repro_torch.kernels.kvq_attn.ops import copy_pool_blocks_multi
 from repro_torch.models import (decode_step, init_cache, prefill,
                                 prefill_tail, spec_verify)
 from repro_torch.models.blocks import POOL_KEYS
@@ -867,15 +868,14 @@ class ServeEngine:
 
     def _apply_cow(self, pairs) -> None:
         """Device-side block clones for resolved COW pairs: one copy
-        launch per pool leaf clones the pairs in every layer."""
-        dev = self.device
-        src = torch.tensor([p[0] for p in pairs], dtype=torch.int32,
-                           device=dev)
-        dst = torch.tensor([p[1] for p in pairs], dtype=torch.int32,
-                           device=dev)
+        launch clones the pairs in every layer of every pool leaf; the
+        (src, dst) ids travel as one (2, n) int32 tensor, one host-to-device
+        copy."""
+        ids = torch.tensor([[p[0] for p in pairs], [p[1] for p in pairs]],
+                           dtype=torch.int32, device=self.device)
+        pool = self.state["cache"]["pool"]
         with self.trace.span("cow", blocks=len(pairs)):
-            for key in POOL_KEYS:
-                copy_pool_blocks(self.state["cache"]["pool"][key], src, dst)
+            copy_pool_blocks_multi([pool[key] for key in POOL_KEYS], ids)
         self._host["cow_copies"] += len(pairs)
         self._tbl_dirty = True
 

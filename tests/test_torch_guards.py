@@ -153,7 +153,7 @@ def test_cpu_spec_and_preemption_take_plain_versions_only(monkeypatch):
     monkeypatch.setattr(build, "build_all", refuse)
     counted = (w4a8_matmul, ops.kvq_decode_attn, ops.kvq_paged_decode_attn,
                ops.kvq_spec_verify_attn, ops.gather_dequant_paged_kv,
-               ops.copy_pool_blocks)
+               ops.copy_pool_blocks, ops.copy_pool_blocks_multi)
     before = [fn.launches for fn in counted]
     cfg = get_reduced_config("qwen2.5-3b")
     eng = ServeEngine(cfg, init_params(cfg, seed=1, device="cpu"), slots=3,
@@ -168,7 +168,7 @@ def test_cpu_spec_and_preemption_take_plain_versions_only(monkeypatch):
     stats = eng.run_until_drained()
     assert all(r.done and len(r.generated) == 30 for r in reqs)
     assert stats["preemptions"] >= 1 and stats["spec_waves"] > 0
-    assert [fn.launches for fn in counted] == before == [0] * 6
+    assert [fn.launches for fn in counted] == before == [0] * 7
 
 
 def test_build_targets_are_content_addressed(monkeypatch, tmp_path):

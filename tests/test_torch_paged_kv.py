@@ -219,6 +219,43 @@ class TestPagedKernelParity:
             assert out is leaf                      # in place
             np.testing.assert_array_equal(leaf[:, :NB].numpy(), want)
 
+    @pytest.mark.parametrize("pallas", [True, False])
+    def test_pool_block_copy_multi_bitwise(self, pallas):
+        """The multi-leaf COW clone's plain version on a four-leaf pool
+        (int8 k_q/v_q, f32 s_k/s_v) against the JAX ``copy_pool_blocks``
+        applied leaf by leaf: the Pallas kernel (interpret mode) on
+        in-range pairs with a padding pair, the XLA reference also with a
+        src past the pool (clamped to NB - 1); bitwise."""
+        rep, NB, Hkv, bs, D = 2, 7, 2, 4, 8
+        rng = np.random.default_rng(9)
+        pools = [rng.integers(-127, 128, (rep, NB, Hkv, bs, D)).astype(
+                     np.int8) for _ in range(2)]
+        pools += [rng.random((rep, NB, Hkv, bs)).astype(np.float32)
+                  for _ in range(2)]
+        if pallas:
+            pairs = np.array([[4, 0, 0], [1, 5, NB]], np.int32)
+        else:
+            pairs = np.array([[4, 0, NB + 3, 0], [1, 5, 2, NB]], np.int32)
+        want = [np.asarray(jops.copy_pool_blocks(
+            jnp.asarray(pool), jnp.asarray(pairs[0]), jnp.asarray(pairs[1]),
+            use_pallas=pallas)) for pool in pools]
+        leaves = [_with_sink(pool, axis=1) for pool in pools]
+        out = ops.copy_pool_blocks_multi(leaves, torch.from_numpy(pairs))
+        assert len(out) == 4 and all(o is x for o, x in zip(out, leaves))
+        for leaf, w, pool in zip(leaves, want, pools):
+            np.testing.assert_array_equal(leaf[:, :NB].numpy(), w)
+            assert not np.array_equal(w, pool)      # the clone happened
+
+    def test_pool_block_copy_multi_refuses_bad_leaf_counts(self):
+        """One to ``MAX_COPY_LEAVES`` leaves, on every device."""
+        pairs = torch.zeros((2, 1), dtype=torch.int32)
+        leaf = torch.zeros((2, 3, 4), dtype=torch.int8)
+        for leaves in ([], [leaf] * (ops.MAX_COPY_LEAVES + 1)):
+            with pytest.raises(ValueError, match="leaves"):
+                ops.copy_pool_blocks_multi(leaves, pairs)
+        with pytest.raises(ValueError, match="cpu or cuda"):
+            ops.copy_pool_blocks_multi([leaf.to("meta")], pairs.to("meta"))
+
     def test_commit_chunk_kv_matches_reference(self):
         """The tail-wave's plain scatter commit: per-row offsets, a
         padding position past chunk_len, writes into the sink only."""
@@ -638,3 +675,52 @@ def test_paged_engine_matches_reference(served):
     want = np.asarray(jlogits.astype(np.float32))[live]
     got = tlogits.float().numpy()[live]
     np.testing.assert_array_equal(got, want)
+
+
+def test_cow_clones_every_pool_leaf_in_one_copy_call(served, monkeypatch):
+    """The engine's COW calls the multi-leaf copy once per resolved COW,
+    with the four pool leaves themselves (``POOL_KEYS`` order) and the
+    pairs as one (2, n) int32 tensor, and never the one-leaf copy; the
+    streams equal those of an engine whose COW copies leaf by leaf."""
+    from repro_torch.serve import engine as engine_mod
+    _, _, tparams = served
+    tcfg = t_get_reduced_config("qwen2.5-3b")
+    calls = []
+    real = ops.copy_pool_blocks_multi
+
+    def record(leaves, pairs):
+        calls.append((list(leaves), pairs.clone()))
+        return real(leaves, pairs)
+
+    def refuse(*a, **k):
+        raise AssertionError("the engine called the one-leaf copy")
+
+    def run(copy):
+        monkeypatch.setattr(engine_mod, "copy_pool_blocks_multi", copy)
+        monkeypatch.setattr(ops, "copy_pool_blocks", refuse)
+        eng = ServeEngine(tcfg, tparams, weights_layout="w4a8",
+                          device="cpu", **PAGED)
+        reqs = _shared(Request)
+        eng.submit(reqs[0])
+        eng.run_until_drained()
+        for r in reqs[1:]:
+            eng.submit(r)
+        return eng, reqs, eng.run_until_drained()
+
+    eng, reqs, stats = run(record)
+    pool = eng.state["cache"]["pool"]
+    assert stats["cow_copies"] >= 2
+    assert len(calls) >= 1
+    assert sum(pairs.shape[1] for _, pairs in calls) == stats["cow_copies"]
+    for leaves, pairs in calls:
+        assert len(leaves) == len(POOL_KEYS) == 4
+        assert all(x is pool[k] for x, k in zip(leaves, POOL_KEYS))
+        assert pairs.dtype == torch.int32 and pairs.shape[0] == 2
+
+    def leaf_by_leaf(leaves, pairs):
+        for leaf in leaves:
+            ref.copy_pool_blocks_ref(leaf, pairs[0], pairs[1])
+        return leaves
+
+    _, reqs_b, _ = run(leaf_by_leaf)
+    assert [r.generated for r in reqs] == [r.generated for r in reqs_b]

@@ -11,7 +11,8 @@ Run from the root of a checkout on a machine with a CUDA GPU and ``nvcc``.
 parent commit; its kernels are built there at first use). Cases:
 ``slstm_scan`` per call and per step at the xLSTM QAT teacher's shape (B 8,
 T 128, d 768, bf16) through the wrapper's own route (and each route
-forced, where the port has routes); ``gather_dequant_paged_kv`` per launch
+forced, where the port has routes; in each carry, f32 and gx, where the
+port has carries); ``gather_dequant_paged_kv`` per launch
 (one leaf, and K and V in one launch where the port has it) at the
 tail-wave's shape (n 4, T 8, bs 64) and at a 512-entry table (32k tokens
 a row). Each goes through ``chip_smoke``'s timing: CUDA-graph
@@ -19,7 +20,8 @@ replays between events with inputs rotated past the L2 cache, beside the
 bound (f32 operations over 67 TF/s, or bytes over 3.35 TB/s).
 
 ``--ablate`` builds variants of ``csrc/slstm_scan.cu`` (the resident
-route with a quarter of its FMAs, every load kept; without the grid
+route in the gx carry, the teacher's, with a quarter of its FMAs, every
+load kept; without the grid
 barrier; without the read of h; with r_h read from global memory, L2,
 instead of shared memory) and of ``csrc/gather_dequant_paged_kv.cu``
 (streaming stores; no table read; no pool or scale loads), each the
@@ -124,17 +126,22 @@ def port_cases(cs, torch, P, cfg, dev):
     ops = P["slstm_ops"]
     sets = scan_sets(cs, torch, dev)
     B, T, d = SCAN_SHAPE
-    routes = [None]
-    if "route" in inspect.signature(ops.slstm_scan).parameters:
-        routes += ["resident", "step"]
-    for route in routes:
-        def fn(*a, route=route):
-            return ops.slstm_scan(*a) if route is None else \
-                ops.slstm_scan(*a, route=route)
-        ms = cs.time_ms(torch, fn, sets, min_calls=10)
-        yield "slstm_scan", f"B={B} T={T} d={d} {route or 'own route'}", {
-            "ms": ms, "ms_per_step": ms / T, "us_per_step": ms / T * 1e3,
-            "bound_ms": scan_bound_ms(cs, B, T, d), "route": route or "auto"}
+    params = inspect.signature(ops.slstm_scan).parameters
+    routes = [None] + (["resident", "step"] if "route" in params else [])
+    carries = ["f32", "gx"] if "carry" in params else [None]
+    for carry in carries:
+        for route in routes:
+            kw = {k: v for k, v in (("route", route), ("carry", carry))
+                  if v is not None}
+
+            def fn(*a, kw=kw):
+                return ops.slstm_scan(*a, **kw)
+            ms = cs.time_ms(torch, fn, sets, min_calls=10)
+            yield "slstm_scan", (f"B={B} T={T} d={d} {route or 'own route'}"
+                                 + (f" carry {carry}" if carry else "")), {
+                "ms": ms, "ms_per_step": ms / T, "us_per_step": ms / T * 1e3,
+                "bound_ms": scan_bound_ms(cs, B, T, d),
+                "route": route or "auto", "carry": carry or "f32"}
     del sets
     kops = P["kvq_ops"]
     fns = [("one leaf", 1, lambda k, s_k, v, s_v, tbl:
@@ -193,13 +200,14 @@ def ablate_cases(cs, torch, P, cfg, dev, tmp: Path):
 
         def scan(gx, r_h, h0, c0, fn_c=fn_c, what=what):
             hbuf = torch.empty((2, B, d), dtype=torch.float32, device=dev)
-            hbuf[0].copy_(h0)
+            hbuf[0].copy_(h0.to(gx.dtype))
             c = c0.clone()
             hs = torch.empty((B, T, d), dtype=gx.dtype, device=dev)
             bar = torch.zeros(sops.BAR_INTS, dtype=torch.int32, device=dev)
             err = fn_c(gx.data_ptr(), r_h.data_ptr(), hbuf.data_ptr(),
                        c.data_ptr(), hs.data_ptr(), bar.data_ptr(),
-                       sops.BAR_INTS, B, T, d, 1, 1, sops.ROUTES["resident"],
+                       sops.BAR_INTS, B, T, d, 1, 1, 1,
+                       sops.ROUTES["resident"],
                        torch.cuda.current_stream(dev).cuda_stream)
             if err:
                 raise RuntimeError(f"scan variant {what!r}: CUDA error {err}")
