@@ -46,7 +46,8 @@ toolkit (``nvcc``). Phases, each fatal on failure (non-zero exit):
    aligned), its ``ds`` within 1e-4 of its sums' mass and bitwise equal
    from call to call, a workspace one element short refused;
    ``flash_attn_fwd`` against its plain version and an f64 oracle at the
-   QAT shape, S 1024, a ragged S and a sliding window (and at head dim
+   QAT shape, the PTQ phase's (B 8, S 64), S 1024, a ragged S and a
+   sliding window (and at head dim
    64: the QAT shape, the ragged S, the window); ``slstm_scan``
    against its plain version and an f64 oracle on each route forced
    (resident, step) at xlstm-125m's width (B 8, T 128; a ragged B 3,
@@ -96,6 +97,25 @@ toolkit (``nvcc``). Phases, each fatal on failure (non-zero exit):
    device's idle share (``torch.profiler``) and the model-FLOPs share;
    then one loss and backward through the kernels against the plain
    versions;
+7. ptq, on phase 5's teacher and student: ``rtn_quantize`` and
+   ``smoothquant_quantize`` under A8d-C8-W4 and A8s-C8-W4;
+   ``eval_quality`` (2 held-out batches of 8 x 64) of the teacher (fp16),
+   of each PTQ tree and of the student, every metric finite; one student
+   eval batch launches 253 ``fake_quant_fwd`` and 72 ``flash_attn_fwd``
+   (the student's and the teacher's forward), and one student forward
+   records 253 ``fq_fwd_kernel`` and 36 ``flash_attn_fwd_kernel`` on the
+   device (``torch.profiler``); one eval batch through the kernels
+   against the plain versions; ``fold_smoothing`` (alpha 0.4) of the
+   teacher and ``rotate_residual`` of a fresh ``init_params`` tree (its
+   final norm uniform, so the tied-head rotation is exact) keep the
+   logits within twice the tree's own bf16 round-off (its forward with
+   f32 params); on the teacher's first 4 layers ``rotation_report`` of
+   its rotation has a rotational share above 0.8, and of the teacher
+   perturbed by 0.05 std the share that isotropic noise has at these
+   shapes (``isotropic_share``, 0.625 at d_ff / d = 5.4); a pure rotation
+   of a full-width ``wg`` is rotational to 1e-4, and the Procrustes
+   reduction equals the 11008-square product on a full-width ``wd`` to
+   1e-9; seconds of each pass;
 5b. a static policy (A8s-C8-W4) at full width and 4 layers: percentile
    calibration over 5 batches (``flash_attn_fwd`` in the calibration
    forward), one step, per-tensor fake-quant launches;
@@ -189,6 +209,12 @@ def import_port():
     from repro_torch.kernels.w4a8.ref import w4a8_matmul_ref
     from repro_torch import models
     from repro_torch.launch import steps, train
+    from repro_torch.benchmarks import common as bench
+    from repro_torch.core.analysis import rotation
+    from repro_torch.core.precision import parse_policy
+    from repro_torch.core.ptq import rtn, smoothquant
+    from repro_torch.data import calibration_batches
+    from repro_torch.tree import tree_map
     from repro_torch.models import blocks
     from repro_torch.models.common import rms_norm
     from repro_torch.obs.trace import Tracer
@@ -205,7 +231,10 @@ def import_port():
                 fa_ops=fa_ops, flash_attn_ref=flash_attn_ref, fq_ops=fq_ops,
                 fq_ref=fq_ref, steps=steps, train=train,
                 silq_loss=silq_loss, slstm_ops=slstm_ops,
-                slstm_scan_ref=slstm_scan_ref, blocks=blocks)
+                slstm_scan_ref=slstm_scan_ref, blocks=blocks, bench=bench,
+                rotation=rotation, parse_policy=parse_policy, rtn=rtn,
+                smoothquant=smoothquant,
+                calibration_batches=calibration_batches, tree_map=tree_map)
 
 
 # --------------------------------------------------------------------------
@@ -1630,10 +1659,11 @@ def time_eager_ms(torch, fn, arg_sets, min_calls=10):
 # phase 2 + 4: flash_attn_fwd (attention without a gradient)
 # --------------------------------------------------------------------------
 
-# (B, S, window): the QAT phase's shape, TrainConfig's default seq_len, a
-# ragged length and a sliding window
-FLASH_CASES = ((TRAIN_B, TRAIN_T, 0), (2, 1024, 0), (3, 333, 0),
-               (2, 200, 64))
+# (B, S, window): the QAT phase's shape, the PTQ phase's evaluation shape
+# (the tables' batch 8 x 64), TrainConfig's default seq_len, a ragged
+# length and a sliding window
+FLASH_CASES = ((TRAIN_B, TRAIN_T, 0), (8, 64, 0), (2, 1024, 0),
+               (3, 333, 0), (2, 200, 64))
 # the same checks at the kernel's other head dim, 64 (qwen's heads are 128)
 FLASH_D64_CASES = ((TRAIN_B, TRAIN_T, 0), (3, 333, 0), (2, 200, 64))
 FLASH_LONG = (TRAIN_B, 1024)   # the paper's sequence length, timed
@@ -1882,7 +1912,7 @@ def train_full(torch, P, cfg, dev, report):
     report["train"] = trained
     print("phase 5: " + json.dumps(trained), flush=True)
     grads_vs_plain(torch, P, cfg, tcfg, teacher, student, dev, report)
-    return launches
+    return launches, teacher, student
 
 
 def profile_train_step(torch, P, cfg, tcfg, teacher, student, opt, steps,
@@ -3429,6 +3459,304 @@ def train_xlstm(torch, P, xcfg, dev, report):
     return launches
 
 
+# --------------------------------------------------------------------------
+# phase 7: the PTQ baselines, the residual rotation and Procrustes
+# --------------------------------------------------------------------------
+
+PTQ_POLICIES = ("A8d-C8-W4", "A8s-C8-W4")   # Table 1's first two configs
+PTQ_EVAL_BATCHES = 2
+PTQ_CALIB_BATCHES = 5                       # as ptq_baselines calibrates
+FOLD_ALPHA = 0.4                            # SiLQ App. D
+ROT_SEED = 11
+# The folded / rotated tree's logits (B 8, T 64, mode off) against the
+# original's, relative L2, within ROUNDOFF_MULT times the original's own
+# bf16 round-off at 36 layers: its bf16 forward against the same forward
+# with f32 params (plain versions). Two bf16 forwards that round apart
+# independently part by sqrt(2) of it.
+ROUNDOFF_MULT = 2.0
+# The rotational shares are read on the first SHARE_LAYERS layers: every
+# layer of a type has the same shape and the same init, so its share is
+# the same up to the spread between layers.
+SHARE_LAYERS = 4
+# The perturbed share against isotropic_share(cfg). A bound of 0.5 cannot
+# hold at full width, where noise of one relative size is 0.625
+# rotational by the shapes alone (it holds at the reduced shapes, 0.454,
+# which the CPU test asserts).
+ISO_SHARE_TOL = 2e-2
+SHARE_MARGIN = 0.15          # rotated share over perturbed (fig3's margin)
+PURE_ROT_TOL = 1e-4          # non-rotational part of R @ W (f32 product)
+NUC_REL_TOL = 1e-9           # the m x m reduction against the n x n product
+# One eval_quality batch through the kernels against the plain versions.
+# The fake-quant kernels are bitwise; flash rounds P in another order and
+# moves about half the logits by a bf16 ulp, which per-token
+# dynamic fake-quant carries on. Phase 5's 2-step teacher is near uniform
+# over 151936 entries, so its top-1 sits at near ties: the agreement
+# moved by 0.6% and 1.5% of the batch's scored tokens in two runs.
+EVAL_LOSS_RTOL = 1e-3
+EVAL_KL_RTOL = 5e-2
+EVAL_AGREE_ATOL = 5e-2       # share of the batch's scored tokens
+
+
+def ptq_counters(P):
+    return (P["fq_ops"].fake_quant_fwd, P["fa_ops"].flash_attn_fwd)
+
+
+def _timed(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _logits_gap(torch, a, b):
+    return float(torch.linalg.vector_norm((a - b).float())
+                 / torch.linalg.vector_norm(b.float()))
+
+
+def ptq_eval_vs_plain(torch, P, cfg, teacher, student, report):
+    """One eval_quality batch of the student through the kernels and
+    through their plain versions (launches not counted), and the launches
+    of one student forward read from the device records."""
+    from torch.profiler import ProfilerActivity, profile
+    C = P["bench"]
+    counts = [fn.launches for fn in ptq_counters(P)]
+    pol = PTQ_POLICIES[0]
+    kern = C.eval_quality(cfg, student, teacher, pol, n_batches=1)
+    plain = C.eval_quality(cfg, student, teacher, pol, n_batches=1,
+                           kernel_backend="ref")
+    it = P["MixtureIterator"](C.data_cfg(cfg, seed=777),
+                              start_step=50_000_000)
+    batch = P["to_device"](next(it), teacher["embed"]["w"].device)
+    ctx = P["qat"].make_ctx(pol)
+    with torch.no_grad():
+        P["models"].forward(cfg, student, ctx, batch)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            P["models"].forward(cfg, student, ctx, batch)
+            torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    for fn, c in zip(ptq_counters(P), counts):
+        fn.launches = c
+    recorded = {"fq_fwd_kernel": sum("fq_fwd_kernel" in n for n in names),
+                "flash_attn_fwd_kernel": sum("flash_attn_fwd_kernel" in n
+                                             for n in names)}
+    out = {"kernels": kern, "plain": plain,
+           "loss_rel_err": abs(kern["ntp_loss"] - plain["ntp_loss"])
+           / abs(plain["ntp_loss"]),
+           "kl_rel_err": abs(kern["teacher_kl"] - plain["teacher_kl"])
+           / abs(plain["teacher_kl"]),
+           "agree_err": abs(kern["teacher_agreement"]
+                            - plain["teacher_agreement"]),
+           "student_forward_device_records": recorded}
+    report["ptq_eval_vs_plain"] = out
+    n_w = 7 * cfg.n_layers + 1
+    check(recorded == {"fq_fwd_kernel": n_w,
+                       "flash_attn_fwd_kernel": cfg.n_layers},
+          f"one student forward recorded {recorded} kernels, want "
+          f"{n_w} fq_fwd_kernel and {cfg.n_layers} flash_attn_fwd_kernel")
+    check(out["loss_rel_err"] <= EVAL_LOSS_RTOL
+          and out["kl_rel_err"] <= EVAL_KL_RTOL
+          and out["agree_err"] <= EVAL_AGREE_ATOL,
+          f"an eval_quality batch through the kernels vs plain: {out}")
+    print("phase 7: one eval_quality batch, kernels vs plain versions: "
+          + json.dumps(out), flush=True)
+
+
+def isotropic_share(cfg):
+    """A check helper, the prediction phase 7 holds a perturbed tree's
+    rotational share to: the share (rotational over total, summed over
+    ``rotation_report``'s layer types) of a small isotropic perturbation
+    of every weight by one relative size, from the shapes alone.
+
+    A rotation on the m side of an (m, n) weight reaches the tangent
+    directions ``K A`` (K skew): a share ``(m - 1) / 2n`` of a random
+    perturbation's energy where m <= n, ``1 - (n + 1) / 2m`` where m > n.
+    The better side leaves ``sqrt(1 - f)`` of its norm non-rotational, so
+    a layer type's share is ``1 - sqrt(1 - f)``. A wide weight absorbs most
+    of such noise on its long side: the share grows with d_ff / d_model
+    (0.625 at qwen2.5-3b's full width, where it is 5.4)."""
+    def reach(m, n):
+        return (m - 1) / (2 * n) if m <= n else 1 - (n + 1) / (2 * m)
+
+    d = cfg.d_model
+    shapes = ((d, cfg.q_dim), (d, cfg.kv_dim), (d, cfg.d_ff), (d, cfg.d_ff),
+              (cfg.d_ff, d))                # wq, wk, wg, wu, wd
+    shares = [1 - (1 - max(reach(m, n), reach(n, m))) ** 0.5
+              for m, n in shapes]
+    return sum(shares) / len(shares)
+
+
+def first_layers(cfg, tree, n):
+    """The config and tree of a model's first ``n`` layers (the tensors
+    are shared)."""
+    return cfg.replace(n_layers=n), {**tree, "layers": tree["layers"][:n]}
+
+
+def ptq_function_checks(torch, P, cfg, teacher, report, times):
+    """The fold (on the teacher) and the residual rotation (on a fresh
+    init_params tree: its final norm is uniform, so the tied-head rotation
+    is exact) keep the function at 36 layers, mode off; the Fig. 3
+    mechanism on the teacher's first ``SHARE_LAYERS`` layers and the
+    Procrustes reduction on full-width weights."""
+    C, rot, sq = P["bench"], P["rotation"], P["smoothquant"]
+    dev = teacher["embed"]["w"].device
+    off = P["qat"].make_ctx("A16-C16-W16", mode="off")
+    it = P["MixtureIterator"](C.data_cfg(cfg, seed=777),
+                              start_step=50_000_000)
+    batch = P["to_device"]({"tokens": next(it)["tokens"]}, dev)
+    cb = P["calibration_batches"](C.data_cfg(cfg), PTQ_CALIB_BATCHES)
+    f32_ref = P["qat"].make_ctx("A16-C16-W16", mode="off",
+                                kernel_backend="ref")
+
+    def roundoff(tree, l0):
+        t32 = P["tree_map"](lambda t: t.float(), tree)
+        l32 = P["models"].forward(cfg, t32, f32_ref, batch)[0]
+        del t32
+        torch.cuda.empty_cache()
+        return _logits_gap(torch, l0, l32)
+
+    out = {}
+    gen = torch.Generator(device=dev).manual_seed(ROT_SEED)
+    with torch.no_grad():
+        l0 = P["models"].forward(cfg, teacher, off, batch)[0]
+        out["teacher_bf16_roundoff"] = roundoff(teacher, l0)
+        folded, times["fold_smoothing_s"] = _timed(
+            torch, lambda: sq.fold_smoothing(cfg, teacher, FOLD_ALPHA, cb))
+        l1 = P["models"].forward(cfg, folded, off, batch)[0]
+        out["fold_logits_rel_l2"] = _logits_gap(torch, l1, l0)
+        del folded, l0, l1
+        torch.cuda.empty_cache()
+        fresh = P["models"].init_params(cfg, seed=1, device=dev)
+        l0 = P["models"].forward(cfg, fresh, off, batch)[0]
+        out["fresh_bf16_roundoff"] = roundoff(fresh, l0)
+        rotated, times["rotate_residual_s"] = _timed(
+            torch, lambda: rot.rotate_residual(cfg, fresh, gen))
+        l1 = P["models"].forward(cfg, rotated, off, batch)[0]
+        out["rotation_logits_rel_l2"] = _logits_gap(torch, l1, l0)
+        del fresh, rotated, l0, l1
+        torch.cuda.empty_cache()
+    # the shares: the teacher against its rotation and against itself
+    # perturbed by 0.05 std, on its first layers
+    scfg, steacher = first_layers(cfg, teacher, SHARE_LAYERS)
+    with torch.no_grad():
+        srot = rot.rotate_residual(scfg, steacher, gen)
+    report_rot, times["rotation_report_s"] = _timed(
+        torch, lambda: rot.rotation_report(scfg, steacher, srot))
+    del srot
+    noise = torch.Generator(device=dev).manual_seed(ROT_SEED + 1)
+    with torch.no_grad():
+        perturbed = {"layers": P["tree_map"](
+            lambda x: (x + 0.05 * torch.std(x.float()) * torch.randn(
+                x.shape, generator=noise, device=dev)).to(x.dtype)
+            if x.dim() >= 2 else x, steacher["layers"])}
+    report_pert, times["rotation_report_perturbed_s"] = _timed(
+        torch, lambda: rot.rotation_report(scfg, steacher, perturbed))
+    out["share_layers"] = SHARE_LAYERS
+    out["rotated_share"] = rot.rotational_share(report_rot)
+    out["perturbed_share"] = rot.rotational_share(report_pert)
+    out["isotropic_share"] = isotropic_share(cfg)
+    out["rotated_report"] = report_rot
+    out["perturbed_report"] = report_pert
+    # a pure rotation of one full-width wg, and the m x m reduction
+    # against the n x n product on one full-width wd
+    w = teacher["layers"][0]["mlp"]["wg"]["w"].float()          # (d, d_ff)
+    R = rot.random_rotation(cfg.d_model, gen)
+    pure = rot.procrustes_distances(w, R @ w)
+    out["pure_rotation"] = pure
+    A = teacher["layers"][0]["mlp"]["wd"]["w"].double()         # (d_ff, d)
+    B = perturbed["layers"][0]["mlp"]["wd"]["w"].double()
+    (reduced, direct), times["procrustes_wd_direct_s"] = _timed(
+        torch, lambda: (rot._nuclear_of_product(B, A),
+                        torch.linalg.svdvals(
+                            B @ A.T, driver="gesvd" if B.is_cuda else None
+                        ).sum()))
+    out["wd_nuclear_reduced"] = float(reduced)
+    out["wd_nuclear_direct"] = float(direct)
+    out["wd_nuclear_rel_err"] = abs(float(reduced) - float(direct)) / abs(
+        float(direct))
+    del perturbed, w, R, A, B
+    torch.cuda.empty_cache()
+    report["ptq_function"] = out
+    fold_tol = ROUNDOFF_MULT * out["teacher_bf16_roundoff"]
+    rot_tol = ROUNDOFF_MULT * out["fresh_bf16_roundoff"]
+    check(out["fold_logits_rel_l2"] <= fold_tol,
+          f"fold_smoothing moved the logits by relative L2 "
+          f"{out['fold_logits_rel_l2']} > {fold_tol}")
+    check(out["rotation_logits_rel_l2"] <= rot_tol,
+          f"rotate_residual moved the logits by relative L2 "
+          f"{out['rotation_logits_rel_l2']} > {rot_tol}")
+    check(out["rotated_share"] > 0.8
+          and out["rotated_share"] - out["perturbed_share"] > SHARE_MARGIN
+          and abs(out["perturbed_share"] - out["isotropic_share"])
+          <= ISO_SHARE_TOL,
+          f"rotational share {out['rotated_share']} rotated (want > 0.8), "
+          f"{out['perturbed_share']} perturbed (want within "
+          f"{ISO_SHARE_TOL} of the isotropic {out['isotropic_share']} and "
+          f"{SHARE_MARGIN} below the rotated)")
+    check(pure["non_rotational"] < PURE_ROT_TOL and pure["rotational"] > 0.1,
+          f"a pure rotation of wg: {pure}")
+    check(out["wd_nuclear_rel_err"] <= NUC_REL_TOL,
+          f"Procrustes on wd: m x m reduction {float(reduced)} vs n x n "
+          f"{float(direct)}")
+    print("phase 7: fold, rotation and Procrustes at full width: "
+          + json.dumps(out), flush=True)
+
+
+def ptq_full(torch, P, cfg, dev, teacher, student, report):
+    """RTN and SmoothQuant of the QAT phase's teacher under A8d-C8-W4 and
+    A8s-C8-W4, eval_quality of the teacher, of each PTQ tree and of the
+    QAT phase's student on held-out batches; then the eval batch against
+    the plain versions and the function checks."""
+    C, rtn, sq = P["bench"], P["rtn"], P["smoothquant"]
+    cb = P["calibration_batches"](C.data_cfg(cfg), PTQ_CALIB_BATCHES)
+    times, evals = {}, {}
+    for fn in ptq_counters(P):
+        fn.launches = 0
+    evals["fp16"] = C.eval_quality(cfg, teacher, teacher, "A16-C16-W16",
+                                   n_batches=PTQ_EVAL_BATCHES)
+    for pol in PTQ_POLICIES:
+        policy = P["parse_policy"](pol)
+        for name, fn in (("RTN", lambda: rtn.rtn_quantize(
+                              cfg, teacher, policy, cb)),
+                         ("SmoothQuant", lambda: sq.smoothquant_quantize(
+                              cfg, teacher, policy, cb, alpha=FOLD_ALPHA))):
+            q, times[f"{name}-{pol}_s"] = _timed(torch, fn)
+            evals[f"{name}-{pol}"] = C.eval_quality(
+                cfg, q, teacher, pol, n_batches=PTQ_EVAL_BATCHES)
+            del q
+            torch.cuda.empty_cache()
+    before = [fn.launches for fn in ptq_counters(P)]
+    evals["SiLQ-A8d-C8-W4"], dt = _timed(torch, lambda: C.eval_quality(
+        cfg, student, teacher, "A8d-C8-W4", n_batches=PTQ_EVAL_BATCHES))
+    times["eval_quality_batch_s"] = dt / PTQ_EVAL_BATCHES
+    per_batch = [(fn.launches - b) / PTQ_EVAL_BATCHES
+                 for fn, b in zip(ptq_counters(P), before)]
+    launches = {"fake_quant_fwd": ptq_counters(P)[0].launches,
+                "flash_attn_fwd": ptq_counters(P)[1].launches}
+    n_w = 7 * cfg.n_layers + 1
+    bad = {k: v for k, e in evals.items() for k, v in
+           ((f"{k}/{m}", x) for m, x in e.items()) if not math.isfinite(v)}
+    out = {"policies": PTQ_POLICIES, "eval_batches": PTQ_EVAL_BATCHES,
+           "calib_batches": PTQ_CALIB_BATCHES, "evals": evals,
+           "times": times, "launches": launches,
+           "student_eval_batch_launches": per_batch}
+    report["ptq"] = out
+    check(not bad, f"eval_quality metrics not finite: {bad}")
+    check(per_batch == [n_w, 2 * cfg.n_layers],
+          f"one student eval_quality batch launched (fake_quant_fwd, "
+          f"flash_attn_fwd) {per_batch}, want ({n_w}, {2 * cfg.n_layers}: "
+          f"the student's and the teacher's forward)")
+    check(all(v > 0 for v in launches.values()),
+          f"phase 7 launches {launches}")
+    print("phase 7: " + json.dumps(out), flush=True)
+    ptq_eval_vs_plain(torch, P, cfg, teacher, student, report)
+    ptq_function_checks(torch, P, cfg, teacher, report, times)
+    print(f"phase 7: seconds: {json.dumps(times)}", flush=True)
+    return launches
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3510,7 +3838,10 @@ def main() -> int:
     serve_optimistic(torch, P, cfg, dev, params, report)
     del params
     torch.cuda.empty_cache()
-    train_launches = train_full(torch, P, cfg, dev, report)
+    train_launches, teacher, student = train_full(torch, P, cfg, dev, report)
+    torch.cuda.empty_cache()
+    ptq_launches = ptq_full(torch, P, cfg, dev, teacher, student, report)
+    del teacher, student
     torch.cuda.empty_cache()
     train_static(torch, P, cfg, dev, report)
     torch.cuda.empty_cache()
@@ -3589,6 +3920,7 @@ def main() -> int:
          "source": "src/repro_torch/csrc/fake_quant.cu",
          "replaces": "src/repro/kernels/quant/kernel.py:55",
          "launches": train_launches["fake_quant_fwd"],
+         "ptq_launches": ptq_launches["fake_quant_fwd"],
          "max_abs_err": fq_err, **fq_fwd_t,
          "per": "one QAT student step: 253 launches (36 layers x 7 "
                 "weights per output channel at 4 bits + the tied head per "
@@ -3604,6 +3936,7 @@ def main() -> int:
          "source": "src/repro_torch/csrc/flash_attn_fwd.cu",
          "replaces": "src/repro/kernels/flash_attn/kernel.py:74",
          "launches": train_launches["flash_attn_fwd"],
+         "ptq_launches": ptq_launches["flash_attn_fwd"],
          "max_abs_err": flash_err, **flash_t,
          "per": f"one teacher forward: 36 launches at B={TRAIN_B}, "
                 f"S={TRAIN_T}, H=16, Hkv=2, D=128, causal"},

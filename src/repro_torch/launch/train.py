@@ -19,15 +19,13 @@ import argparse
 import time
 from typing import Callable, Optional
 
-import torch
-
 from repro_torch.checkpoint import Checkpointer
 from repro_torch.configs import get_config, get_reduced_config
 from repro_torch.configs.base import TrainConfig
 from repro_torch.core.distill import next_token_loss
 from repro_torch.core.precision import parse_policy
-from repro_torch.core.qat import (calibrate_weight_scales, make_ctx,
-                                  merge_act_scales)
+from repro_torch.core.ptq.rtn import rtn_quantize
+from repro_torch.core.qat import make_ctx
 from repro_torch.data import (MixtureIterator, SyntheticConfig,
                               calibration_batches, to_device)
 from repro_torch.device import resolve_device
@@ -86,23 +84,15 @@ def pretrain_teacher(cfg, data_cfg: SyntheticConfig, steps: int, seed: int,
 
 def calibrate(cfg, params, tcfg: TrainConfig, data_cfg: SyntheticConfig):
     """Paper §3.1: weight scales via convex-MSE; activation scales via
-    percentile over calibration batches (static policies only). The
-    calibration forward needs no gradient, so its attention runs the
-    flash kernel on CUDA."""
+    percentile over calibration batches (static policies only): the RTN
+    baseline's calibration. Its forward needs no gradient, so its
+    attention runs the flash kernel on CUDA."""
     policy = parse_policy(tcfg.precision)
-    params = calibrate_weight_scales(params, policy, tcfg.wgt_calib_method)
-    if policy.enabled and policy.acts_static:
-        ctx = make_ctx(policy, mode="calib",
-                       act_calib_method=tcfg.act_calib_method)
-        dev = tree_leaves(params)[0].device
-        stats = []
-        with torch.no_grad():
-            for batch in calibration_batches(data_cfg, tcfg.calib_batches):
-                b = to_device({"tokens": batch["tokens"]}, dev)
-                stats.append(forward(cfg, params, ctx, b,
-                                     collect_stats=True)[1]["qstats"])
-        params = merge_act_scales(params, stats, policy)
-    return params
+    batches = (calibration_batches(data_cfg, tcfg.calib_batches)
+               if policy.enabled and policy.acts_static else [])
+    return rtn_quantize(cfg, params, policy, batches,
+                        wgt_method=tcfg.wgt_calib_method,
+                        act_method=tcfg.act_calib_method)
 
 
 def run_qat(arch: str, tcfg: TrainConfig, *, reduced: bool = True,

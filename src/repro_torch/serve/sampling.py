@@ -66,6 +66,50 @@ def slot_key(seed: int, uid: int) -> Tuple[int, int]:
     return fold_in(prng_key(seed), uid)
 
 
+def split(key: Tuple[int, int]):
+    """``jax.random.split(key)`` on the host: in the partitionable layout
+    key i of the two is the hash of the count pair (0, i), the same as
+    ``fold_in(key, i)``."""
+    return [fold_in(key, 0), fold_in(key, 1)]
+
+
+def key_uniform(key: Tuple[int, int], shape, dtype,
+                device=None) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, dtype, minval=tiny, maxval=1)``
+    with one key for the whole array, float32 or bfloat16: counter i (the
+    flat index) hashes to the xor of its two words, the dtype's top
+    mantissa bits of it (bfloat16, with 7 mantissa bits, draws 8: the
+    word's low byte) make a float in [1, 2), minus 1, scaled and floored
+    at tiny, each step rounded in ``dtype``. Drawn on ``device``."""
+    n = 1
+    for d in shape:
+        n *= d
+    lo = torch.arange(n, dtype=torch.int64, device=device)
+    a, b = _threefry2x32(key[0], key[1], torch.zeros_like(lo), lo)
+    bits = a ^ b
+    if dtype == torch.float32:
+        f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
+    elif dtype == torch.bfloat16:
+        f = (((bits & 0xFF) >> 1) | 0x3F80).to(torch.int16).view(
+            torch.bfloat16)
+    else:
+        raise ValueError(f"key_uniform draws float32 or bfloat16, not {dtype}")
+    one = torch.tensor(1.0, dtype=dtype, device=device)
+    lo_v = torch.tensor(_F32_TINY, dtype=dtype, device=device)
+    u = torch.maximum(lo_v, (f - one) * (one - lo_v) + lo_v)
+    return u.reshape(shape)
+
+
+def key_categorical(key: Tuple[int, int],
+                    logits: torch.Tensor) -> torch.Tensor:
+    """``jax.random.categorical(key, logits)`` over the last axis with one
+    key for the whole (..., V) array: argmax(gumbel + logits), the gumbel
+    noise drawn and added in the logits' dtype."""
+    u = key_uniform(key, tuple(logits.shape), logits.dtype, logits.device)
+    g = -torch.log(-torch.log(u))
+    return torch.argmax(g + logits, dim=-1)
+
+
 def fold_keys(keys: torch.Tensor, data) -> torch.Tensor:
     """Elementwise ``fold_in(keys[...], data[...])`` on the device.
 
