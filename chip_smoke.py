@@ -60,6 +60,17 @@ toolkit (``nvcc``). Phases, each fatal on failure (non-zero exit):
    within 2x the plain version's own gap when its dot is summed in f64
    or in halves (share of hs differing, bf16 steps, cT), hs within one
    bf16 step at T <= 16, bitwise call to call and row alone vs batch;
+   at recurrentgemma-2b's shapes (D 256, 10 query heads on 1 KV head)
+   and the reduced configs' D 16, on int8 and on bf16 (C16) caches (and
+   bf16 at qwen's D 128, G 8): ``kvq_decode_attn`` within one bf16 ulp
+   over a full 2048-token ring, an empty row (zero) and ragged lengths,
+   and around the split boundaries, bitwise equal to
+   ``kvq_paged_decode_attn`` on the same K/V in a pool and for each row
+   alone; ``kvq_spec_verify_attn``'s 5 queries within one ulp and each
+   bitwise paged decode at its length; the gather bitwise;
+   ``flash_attn_fwd`` at D 256, H 10, Hkv 1 (the QAT shape under the
+   2048 window, a ragged S, S 4096 under the window) and at D 16 (qwen's
+   and recurrentgemma's reduced heads) against plain and the oracle;
 3. serve: ``ServeEngine`` on ``cuda`` with qwen2.5-3b at full width
    (random weights from a seed), policy A8d-C8-W4, w4a8 weights, dense
    KV cache; 8 mixed-length requests through 4 slots, both kernels'
@@ -119,6 +130,10 @@ toolkit (``nvcc``). Phases, each fatal on failure (non-zero exit):
 5b. a static policy (A8s-C8-W4) at full width and 4 layers: percentile
    calibration over 5 batches (``flash_attn_fwd`` in the calibration
    forward), one step, per-tensor fake-quant launches;
+3h. a C16 decode, on phase 5's teacher: one qwen2.5-3b dense decode
+   step under A16-C16-W16 (a bf16 cache) through ``kvq_decode_attn`` (36
+   launches) against the plain versions; Table 2's ``selfgen_corpus``
+   for one batch of 8 x 16 tokens on the card;
 3f. xlstm-125m at full width (12 layers, 5 mLSTM : 1 sLSTM, random
    weights), A8d-C8-W4, w4a8 weights, dense cache: 8 requests in two
    exact-length admission groups through 4 slots; ``w4a8_matmul``
@@ -132,6 +147,20 @@ toolkit (``nvcc``). Phases, each fatal on failure (non-zero exit):
    ``flash_attn_fwd``; every ``s_w`` moved; the teacher's logits and one
    loss and backward through the kernels against the plain versions;
    step ms, tokens/s, peak memory, idle share;
+3g. recurrentgemma-2b at full width and depth (26 layers: 18 RG-LRU,
+   8 local attention with a 2048-token window; random weights),
+   A8d-C8-W4, w4a8 weights, dense layout, 4 slots, cache_len 4096 (rings
+   of 2048): one decode step's logits after the rings wrapped (2040-token
+   prompts, 24 steps), kernels vs plain; 8 requests of three lengths in
+   exact-length waves, two of 2030 tokens whose rings wrap while they
+   decode: ``kvq_decode_attn`` 8 launches a decode step, ``w4a8_matmul``
+   launches, no other kernel; decode tok/s, TTFT, the idle share;
+6b. QAT of recurrentgemma-2b at full width and depth via ``run_qat`` (2
+   teacher steps, MSE calibration, 2 steps at B 8, T 128): per step 201
+   ``fake_quant_fwd`` and 201 ``_bwd`` (8 a RG-LRU layer, 7 a local
+   layer, the tied head) and 8 ``flash_attn_fwd`` (the teacher's local
+   layers); every ``s_w`` moved, no NaN; step ms split, tokens/s, peak
+   memory, idle share; one loss and backward kernels vs plain;
 4. times: each kernel per decode step, verify-wave, tail-wave, COW,
    student step or teacher forward (CUDA events, L2 flushed by rotating
    input copies past 100 MB), its plain version, one PyTorch call
@@ -146,7 +175,11 @@ toolkit (``nvcc``). Phases, each fatal on failure (non-zero exit):
    cache (32768, 20000, 8192, 1 tokens; the dense one beside SDPA with
    ``enable_gqa``), ``flash_attn_fwd`` also at (B 8, S 1024) beside SDPA
    (its bound: bytes or the causal products at the bf16 tensor-core
-   rate); decode tok/s and TTFT of the serve phases.
+   rate); decode tok/s and TTFT of the serve phases; at recurrentgemma's
+   shapes a decode step's 8 dense decode launches (B 4, full 2048-token
+   rings) in int8 and in bf16 and a teacher forward's 8 flash launches
+   (B 8, T 128), and one windowed flash launch (S 4096, window 2048)
+   beside SDPA with the mask.
 
 The line before the last is a JSON object with every kernel's numbers; the
 last line is ``{"ok": true, "device": {...}}``. Details go to
@@ -189,7 +222,7 @@ def check(cond, msg):
 def import_port():
     """The port's modules this script drives (fails outside a checkout)."""
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.configs import get_config
+    from repro_torch.configs import get_config, get_reduced_config
     from repro_torch.configs.base import TrainConfig
     from repro_torch.core import qat
     from repro_torch.core.distill import silq_loss
@@ -220,7 +253,8 @@ def import_port():
     from repro_torch.obs.trace import Tracer
     from repro_torch.serve.engine import Request, ServeEngine
     from repro_torch.serve.spec import SpecConfig
-    return dict(get_config=get_config, qat=qat, unpack_int4=unpack_int4,
+    return dict(get_config=get_config, get_reduced_config=get_reduced_config,
+                qat=qat, unpack_int4=unpack_int4,
                 build=build, kvq_ops=kvq_ops, kvq_ref=kvq_ref,
                 kvq_decode_attn_ref=kvq_decode_attn_ref, w4a8_ops=w4a8_ops,
                 w4a8_matmul_ref=w4a8_matmul_ref, models=models,
@@ -623,14 +657,21 @@ def check_kvq_bitwise(torch, P, cfg, dev, report):
           f"{PAGED_LONG}", flush=True)
 
 
-def time_dense_launch(torch, P, cfg, dev, gen, lengths, S, expanded):
+def time_dense_launch(torch, P, cfg, dev, gen, lengths, S, expanded,
+                      c16=False):
     """One dense decode launch on rotated inputs: device ms (graph
     replay), host-issued ms, the plain version, SDPA with ``enable_gqa``
     (and, if ``expanded``, on K/V expanded to every query head) over the
-    dequantized bf16 cache with a length mask, and the bound."""
+    dequantized bf16 cache with a length mask, and the bound. ``c16``: a
+    bf16 cache with unit scales (a C16 policy's) instead of int8."""
     import torch.nn.functional as F
-    base = kvq_inputs(torch, gen, cfg, lengths, dev, S)
-    sets = [base] + [kvq_inputs(torch, gen, cfg, lengths, dev, S)
+
+    def make():
+        args = kvq_inputs(torch, gen, cfg, lengths, dev, S)
+        return to_c16(torch, args) if c16 else args
+
+    base = make()
+    sets = [base] + [make()
                      for _ in range(copies_for(tensor_bytes(*base)) - 1)]
     kern = P["kvq_ops"].kvq_decode_attn
     t_k = time_ms(torch, kern, sets)
@@ -655,8 +696,9 @@ def time_dense_launch(torch, P, cfg, dev, gen, lengths, S, expanded):
         del lib_sets
     H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     B, tokens = len(lengths), sum(lengths)
+    es = base[1].element_size()
     nbytes = (2 * B * H * D                 # q
-              + tokens * Hkv * (2 * D + 8)  # int8 K/V rows + f32 scales
+              + tokens * Hkv * (2 * D * es + 8)  # K/V rows + f32 scales
               + 4 * B + 2 * B * H * D)      # lengths, out
     flops = 4 * tokens * H * D
     t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
@@ -832,7 +874,8 @@ def check_paged_scratch(torch, P, cfg, dev):
             err = ops._fn(name)(
                 *(a.data_ptr() for a in args), out.data_ptr(),
                 ws.data_ptr(), ws_len, tk.data_ptr(), tk_len, *shape,
-                D ** -0.5, torch.cuda.current_stream(dev).cuda_stream)
+                ops.KV_DTYPES[args[1].dtype], D ** -0.5,
+                torch.cuda.current_stream(dev).cuda_stream)
             torch.cuda.synchronize()
             check(err == 1 and not bool(out.any()),
                   f"{name} took {ws_len} of {ws_n} workspace and {tk_len} "
@@ -1076,8 +1119,9 @@ def time_paged_launch(torch, P, cfg, name, base, make):
     l2 = lens if verify else lens[:, None]
     resident = int(l2.max(dim=1).values.sum())      # each token read once
     nq = q.numel() // (H * D)                       # (slot, query) rows
+    es = base[1].element_size()                     # int8 1, bf16 2
     nbytes = (2 * q.numel()                          # q
-              + resident * Hkv * (2 * D + 8)         # int8 K/V + f32 scales
+              + resident * Hkv * (2 * D * es + 8)    # K/V + f32 scales
               + 4 * B * T + 4 * l2.numel()           # table + lengths
               + 2 * q.numel())                       # out
     flops = 4 * int(l2.sum()) * H * D
@@ -3235,8 +3279,9 @@ def prefill_rows(torch, P, cfg, dev, params, report):
                 "cache_values_differing": differ,
                 "wave_ms": (time.perf_counter() - t0) * 1e3 / reps}
 
-    def batched(q, k, v, lengths):      # the wave's attention in one call
-        return blocks.blockwise_attention(q, k, v, causal=True)
+    def batched(q, k, v, lengths, window=0):   # the wave's in one call
+        return blocks.blockwise_attention(q, k, v, causal=True,
+                                          window=window)
 
     out = {"lens": list(PREFILL_ROW_LENS)}
     ctx = qat.make_ctx("A8d-C8-W4", weights_layout="w4a8")
@@ -3769,6 +3814,596 @@ def _leaves(tree):
 
 
 # --------------------------------------------------------------------------
+# recurrentgemma-2b: the widened kernels (phase 2), serve (3g), a C16
+# decode (3h), QAT (6b) and times (phase 4)
+# --------------------------------------------------------------------------
+
+RG = "recurrentgemma-2b"
+RG_WINDOW = 2048               # the local layers' window, the ring's rows
+RG_LENGTHS = (RG_WINDOW, 0, 1, 1500)     # a full ring, an empty row, ragged
+RG_CACHE_LEN = 4096            # the serve phase's cache_len: rings of 2048
+RG_WRAP_PROMPT = 2030          # + 32 new tokens: the ring wraps in decode
+RG_SERVE_LENS = (RG_WRAP_PROMPT, RG_WRAP_PROMPT, 700, 700, 700, 700, 256,
+                 256)          # three lengths: exact-length admission waves
+RG_WRAP_STEPS = 24             # decode steps before the wrapped logit check
+RG_FLASH_CASES = ((TRAIN_B, TRAIN_T, RG_WINDOW), (3, 333, 0),
+                  (1, 2 * RG_WINDOW, RG_WINDOW))
+RG_TRAIN_STEPS = 2
+
+
+def d16_cfg(P, arch):
+    """``arch``'s reduced attention shape (head dim 16) at full depth and
+    width otherwise: the shape the reduced configs give the kernels."""
+    r = P["get_reduced_config"](arch)
+    return replace(P["get_config"](arch), n_heads=r.n_heads,
+                   n_kv_heads=r.n_kv_heads, head_dim=r.head_dim,
+                   d_model=r.d_model)
+
+
+def to_c16(torch, args):
+    """Dense decode arguments with the int8 K/V dequantized to a bf16
+    cache and unit scales: what a C16 policy stores."""
+    q, k, v, s_k, s_v, lens = args
+    kb = (k.float() * s_k[..., None]).to(torch.bfloat16)
+    vb = (v.float() * s_v[..., None]).to(torch.bfloat16)
+    return q, kb, vb, torch.ones_like(s_k), torch.ones_like(s_v), lens
+
+
+def check_decode_case(torch, P, gen, cfg, dev, lengths, S, c16, what):
+    """The dense decode kernel within one bf16 ulp of its plain version,
+    an empty row exactly zero, bitwise equal to the paged decode kernel on
+    the same K/V scattered into a pool, each row bitwise alone; verify's
+    queries (C 5) within one ulp of plain and each bitwise equal to paged
+    decode at its length; the gather bitwise. Returns the worst errors
+    {kernel: max abs err}."""
+    ops, ref = P["kvq_ops"], P["kvq_ref"]
+    rtol, atol = KVQ_TOL
+    args = kvq_inputs(torch, gen, cfg, lengths, dev, S)
+    if c16:
+        args = to_c16(torch, args)
+    got = ops.kvq_decode_attn(*args)
+    want = P["kvq_decode_attn_ref"](*args)
+    err = float((got.float() - want.float()).abs().max())
+    check(bool(torch.isfinite(got.float()).all())
+          and torch.allclose(got.float(), want.float(), rtol=rtol,
+                             atol=atol),
+          f"{what}: kvq_decode_attn differs from its plain version by "
+          f"{err} (rtol {rtol}, atol {atol})")
+    for i, n in enumerate(lengths):
+        if n == 0:
+            check(bool((got[i] == 0).all()), f"{what}: an empty row")
+    pa = dense_to_pool(torch, gen, args, PAGED_BS[0])
+    paged = ops.kvq_paged_decode_attn(*pa)
+    check(torch.equal(got, paged), f"{what}: kvq_decode_attn is not bitwise "
+                                   f"kvq_paged_decode_attn on the same K/V")
+    for i in range(len(lengths)):
+        one = ops.kvq_decode_attn(*(a[i:i + 1] for a in args))
+        check(torch.equal(got[i:i + 1], one),
+              f"{what}: row {i} differs alone and in the batch")
+    q, kp, vp, skp, svp, tbl, lens = pa
+    C = SPEC_C
+    qv = torch.randn((len(lengths), C) + tuple(q.shape[1:]), generator=gen,
+                     device=dev).to(torch.bfloat16)
+    lv = torch.clamp_min(lens[:, None] - torch.arange(
+        C - 1, -1, -1, device=dev)[None], 0).to(torch.int32).contiguous()
+    ver = ops.kvq_spec_verify_attn(qv, kp, vp, skp, svp, tbl, lv)
+    vref = ref.kvq_spec_verify_attn_ref(qv, kp, vp, skp, svp, tbl, lv)
+    v_err = float((ver.float() - vref.float()).abs().max())
+    check(torch.allclose(ver.float(), vref.float(), rtol=rtol, atol=atol),
+          f"{what}: kvq_spec_verify_attn differs from its plain version by "
+          f"{v_err}")
+    for c in range(C):
+        one = ops.kvq_paged_decode_attn(qv[:, c].contiguous(), kp, vp, skp,
+                                        svp, tbl, lv[:, c].contiguous())
+        check(torch.equal(ver[:, c], one),
+              f"{what}: verify query {c} is not bitwise paged decode")
+    g = ops.gather_dequant_paged_kv(kp, skp, tbl)
+    gk, gv = ops.gather_dequant_paged_kv_pair(kp, skp, vp, svp, tbl)
+    check(torch.equal(g, ref.gather_dequant_paged_kv_ref(kp, skp, tbl))
+          and torch.equal(gk, g)
+          and torch.equal(gv, ref.gather_dequant_paged_kv_ref(vp, svp, tbl)),
+          f"{what}: gather_dequant_paged_kv is not bitwise its plain "
+          f"version")
+    torch.cuda.synchronize()
+    return {"kvq_decode_attn": err, "kvq_paged_decode_attn": err,
+            "kvq_spec_verify_attn": v_err, "gather_dequant_paged_kv": 0.0}
+
+
+def check_flash_case(torch, P, gen, cfg, dev, B, S, window):
+    """flash_attn_fwd against its plain version and the f64 oracle, held
+    as ``check_flash`` holds it."""
+    fa, ref = P["fa_ops"].flash_attn_fwd, P["flash_attn_ref"]
+    rtol, atol = FLASH_TOL
+    q, k, v = flash_inputs(torch, gen, cfg, B, S, dev)
+    got = fa(q, k, v, causal=True, window=window).float()
+    want = ref(q, k, v, causal=True, window=window).float()
+    oracle = flash_oracle(torch, q, k, v, window)
+    err = (got - want).abs()
+    beyond = float((err > KVQ_TOL[1] + KVQ_TOL[0] * want.abs()).float()
+                   .mean())
+    e_k = float((got - oracle).abs().max())
+    e_p = float((want - oracle).abs().max())
+    case = {"B": B, "S": S, "window": window,
+            "D": cfg.resolved_head_dim, "H": cfg.n_heads,
+            "Hkv": cfg.n_kv_heads, "max_abs_err": float(err.max()),
+            "share_beyond_one_ulp": beyond, "kernel_vs_oracle": e_k,
+            "plain_vs_oracle": e_p}
+    check(bool(torch.isfinite(got).all())
+          and torch.allclose(got, want, rtol=rtol, atol=atol)
+          and beyond <= FLASH_ULP_SHARE and e_k <= FLASH_ORACLE_RATIO * e_p,
+          f"flash_attn_fwd differs from its plain version: {case}")
+    return case
+
+
+def check_rg_kernels(torch, P, cfg, rcfg, dev, report):
+    """Phase 2 at the new shapes: the split-KV kernels at recurrentgemma's
+    D 256, G 10 (a full 2048-token ring, an empty row, ragged) and at the
+    reduced configs' D 16, in int8 and bf16 (C16) caches; the same in bf16
+    at qwen2.5-3b's D 128, G 8; flash at D 256, H 10, Hkv 1 (the QAT
+    shape with the 2048 window, a ragged S, 4096 tokens under the window)
+    and at D 16. Returns the worst error per kernel."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(31)
+    worst = {}
+    cases = []
+    d16 = d16_cfg(P, RG)
+    for shape_cfg, lengths, S, name in (
+            (rcfg, RG_LENGTHS, RG_WINDOW, "D256 G10"),
+            (rcfg, split_lengths(P), max(split_lengths(P)), "D256 G10 "
+             "split boundaries"),
+            (d16, RG_LENGTHS, RG_WINDOW, "D16 G4"),
+            (cfg, KVQ_LENGTHS, CACHE_LEN, "D128 G8")):
+        for c16 in (False, True):
+            if shape_cfg is cfg and not c16:
+                continue            # qwen's int8 cases: phase 2 above
+            what = f"{name} {'bf16' if c16 else 'int8'}"
+            errs = check_decode_case(torch, P, gen, shape_cfg, dev, lengths,
+                                     S, c16, what)
+            cases.append({"case": what, "lengths": list(lengths), "S": S,
+                          **errs})
+            for k, e in errs.items():
+                worst[k] = max(worst.get(k, 0.0), e)
+            torch.cuda.empty_cache()
+    flash = []
+    for B, S, window in RG_FLASH_CASES:
+        flash.append(check_flash_case(torch, P, gen, rcfg, dev, B, S,
+                                      window))
+        torch.cuda.empty_cache()
+    for arch in ("qwen2.5-3b", RG):
+        shape = d16_cfg(P, arch)
+        for B, S, window in ((TRAIN_B, TRAIN_T, 0), (3, 333, 16)):
+            flash.append(check_flash_case(torch, P, gen, shape, dev, B, S,
+                                          window))
+    worst["flash_attn_fwd"] = max(c["max_abs_err"] for c in flash)
+    report["rg_kernel_cases"] = cases
+    report["rg_flash_cases"] = flash
+    print(f"phase 2: at D 256 G 10, D 16 and on bf16 caches (and bf16 at "
+          f"D 128 G 8): kvq_decode_attn within one bf16 ulp of plain and "
+          f"bitwise kvq_paged_decode_attn, verify queries bitwise paged "
+          f"decode, the gather bitwise: {cases}; flash: {flash}",
+          flush=True)
+    return worst
+
+
+def serve_rg(torch, P, rcfg, dev, report):
+    """Phase 3g: recurrentgemma-2b at full width and depth (26 layers,
+    random weights from a seed) on ``ServeEngine``: A8d-C8-W4, w4a8
+    weights, dense layout, 4 slots, cache_len 4096 (the local layers'
+    rings hold the 2048-token window). First one decode step's logits
+    after the rings wrapped, kernels against plain; then 8 requests of
+    three lengths in exact-length waves, two of 2030 tokens whose rings
+    wrap while they
+    decode. kvq_decode_attn launches 8 times a decode step (one a local
+    layer), w4a8_matmul launches, no other attention kernel does."""
+    import numpy as np
+    qat, models = P["qat"], P["models"]
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = models.init_params(rcfg, seed=0, device=dev)
+    eng = P["ServeEngine"](rcfg, params, policy="A8d-C8-W4", slots=SLOTS,
+                           cache_len=RG_CACHE_LEN, max_new_cap=MAX_NEW,
+                           decode_block=8, weights_layout="w4a8", device=dev)
+    del params
+    eng.params = qat.drop_exported_weights(eng.params)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    n_local = rcfg.layer_kinds().count("local_attn")
+    ring = [c["k_q"].shape[2] for c, k in zip(
+        eng.state["cache"]["layers"], rcfg.layer_kinds())
+        if k == "local_attn"]
+    check(ring == [RG_WINDOW] * n_local,
+          f"recurrentgemma: local rings of {ring} rows, want {RG_WINDOW}")
+
+    # the wrapped ring: 2 prompts of 2040 tokens, 24 decode steps through
+    # the kernels, then one step kernels vs plain from the same cache
+    rng = np.random.default_rng(8)
+    toks = torch.from_numpy(rng.integers(
+        0, rcfg.vocab_size, (2, RG_WINDOW - 8)).astype(np.int32)).to(dev)
+    logits, cache = models.prefill(rcfg, eng.params, eng.ctx,
+                                   {"tokens": toks},
+                                   cache_budget=RG_CACHE_LEN)
+    tok = torch.argmax(logits[:, -1].float(), -1).to(torch.int32)[:, None]
+    for _ in range(RG_WRAP_STEPS):
+        logits, cache = models.decode_step(rcfg, eng.params, eng.ctx, tok,
+                                           cache)
+        tok = torch.argmax(logits[:, -1].float(), -1).to(torch.int32)[:, None]
+    length = int(cache["layers"][2]["length"][0])
+    check(length > RG_WINDOW, f"the ring did not wrap: length {length}")
+    lk, _ = models.decode_step(rcfg, eng.params, eng.ctx, tok,
+                               models.clone_cache(cache))
+    lp, _ = models.decode_step(rcfg, eng.params,
+                               replace(eng.ctx, kernel_backend="ref"), tok,
+                               models.clone_cache(cache))
+    lk, lp = lk.float(), lp.float()
+    check(bool(torch.isfinite(lk).all()), "recurrentgemma logits not finite")
+    rel = float(torch.linalg.vector_norm(lk - lp)
+                / torch.linalg.vector_norm(lp))
+    agree = float((lk.argmax(-1) == lp.argmax(-1)).float().mean())
+    check(rel <= LOGIT_REL_TOL,
+          f"recurrentgemma: decode logits after the wrap, kernels vs plain, "
+          f"relative L2 {rel} > {LOGIT_REL_TOL}")
+    del cache, logits, lk, lp
+    torch.cuda.empty_cache()
+
+    prompts = [rng.integers(0, rcfg.vocab_size, n).astype(np.int32)
+               for n in RG_SERVE_LENS]
+    reqs = [P["Request"](uid=i, prompt=p, max_new_tokens=MAX_NEW,
+                         temperature=0.8 if i % 4 == 3 else 0.0,
+                         top_k=8 if i % 4 == 3 else 0, seed=i)
+            for i, p in enumerate(prompts)]
+    counted = {**counted_kernels(P),
+               "flash_attn_fwd": P["fa_ops"].flash_attn_fwd,
+               "slstm_scan": P["slstm_ops"].slstm_scan}
+    for r in reqs:
+        eng.submit(r)
+    for fn in counted.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    stats = eng.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {n: fn.launches for n, fn in counted.items()}
+    check_streams(rcfg, reqs, "recurrentgemma serve")
+    check(launches["w4a8_matmul"] > 0,
+          f"recurrentgemma serve: w4a8_matmul never launched: {launches}")
+    check(launches["kvq_decode_attn"] == n_local * stats["decode_steps"],
+          f"recurrentgemma serve: {launches['kvq_decode_attn']} "
+          f"kvq_decode_attn launches over {stats['decode_steps']} decode "
+          f"steps, want {n_local} a step")
+    others = [n for n in counted if n not in ("w4a8_matmul",
+                                              "kvq_decode_attn")]
+    check(all(launches[n] == 0 for n in others),
+          f"recurrentgemma serve: another kernel ran: {launches}")
+    check(stats["prefill_calls"] >= len(set(RG_SERVE_LENS)),
+          f"recurrentgemma serve: {stats['prefill_calls']} prefill waves "
+          f"for {len(set(RG_SERVE_LENS))} prompt lengths: a wave mixed "
+          f"lengths")
+    decode_tokens = stats["tokens_out"] - len(reqs)
+    served = {"requests": len(reqs), "prompt_lens": list(RG_SERVE_LENS),
+              "setup_s": setup_s, "tokens_out": stats["tokens_out"],
+              "wall_s": wall, "tokens_per_s": stats["tokens_out"] / wall,
+              "decode_tokens_per_s": decode_tokens / stats["decode_s"],
+              "decode_step_ms": 1e3 * stats["decode_step_s"],
+              "decode_steps": stats["decode_steps"],
+              "ttft_p50_s": stats["ttft_p50_s"],
+              "ttft_p95_s": stats["ttft_p95_s"],
+              "prefill_s": stats["prefill_s"],
+              "prefill_calls": stats["prefill_calls"],
+              "wrapped_length": length,
+              "decode_logits_rel_l2_kernels_vs_plain": rel,
+              "decode_logits_argmax_agreement": agree,
+              "launches": launches,
+              "peak_memory_bytes": torch.cuda.max_memory_allocated(dev)}
+    report["serve_rg"] = served
+    print("serve_rg " + json.dumps(served), flush=True)
+    profile_decode(torch, P, rcfg, eng, report, key="serve_rg")
+    print(f"phase 3g: recurrentgemma-2b dense w4a8 serve, "
+          f"{served['decode_tokens_per_s']:.2f} decode tok/s, "
+          f"{served['decode_step_ms']:.2f} ms a decode step, TTFT p50 "
+          f"{served['ttft_p50_s']:.3f} s; logits after the wrap kernels vs "
+          f"plain relative L2 {rel:.3g}", flush=True)
+    del eng
+    torch.cuda.empty_cache()
+    return launches
+
+
+def c16_decode(torch, P, cfg, dev, teacher, report):
+    """Phase 3h: one qwen2.5-3b dense decode step under A16-C16-W16 with
+    quantization off (a bf16 cache) through kvq_decode_attn against the
+    plain version; then Table 2's self-generation (``selfgen_corpus``)
+    for one short batch on the card."""
+    import numpy as np
+    from repro_torch.benchmarks import table2_time_to_quality as t2
+    qat, models = P["qat"], P["models"]
+    ctx = qat.make_ctx("A16-C16-W16", mode="off")
+    rng = np.random.default_rng(12)
+    lens = (97, 128, 40, 128)
+    toks = torch.zeros((SLOTS, 128), dtype=torch.int32, device=dev)
+    for i, n in enumerate(lens):
+        toks[i, :n] = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, n).astype(np.int32)).to(dev)
+    kvq = P["kvq_ops"].kvq_decode_attn
+    base = kvq.launches
+    with torch.no_grad():
+        logits, cache = models.prefill(cfg, teacher, ctx, {
+            "tokens": toks, "lengths": torch.tensor(
+                lens, dtype=torch.int32, device=dev)},
+            cache_budget=CACHE_LEN)
+        check(cache["layers"][0]["k_q"].dtype == torch.bfloat16,
+              f"A16-C16-W16: cache dtype {cache['layers'][0]['k_q'].dtype}")
+        tok = torch.argmax(logits[:, -1].float(), -1).to(torch.int32)[:, None]
+        n0 = kvq.launches
+        lk, _ = models.decode_step(cfg, teacher, ctx, tok,
+                                   models.clone_cache(cache))
+        n_step = kvq.launches - n0
+        lp, _ = models.decode_step(cfg, teacher,
+                                   replace(ctx, kernel_backend="ref"), tok,
+                                   models.clone_cache(cache))
+    lk, lp = lk.float(), lp.float()
+    rel = float(torch.linalg.vector_norm(lk - lp)
+                / torch.linalg.vector_norm(lp))
+    check(n_step == cfg.n_layers,
+          f"C16 decode step: {n_step} kvq_decode_attn launches, want "
+          f"{cfg.n_layers}")
+    check(bool(torch.isfinite(lk).all()) and rel <= LOGIT_REL_TOL,
+          f"C16 decode step: kernels vs plain relative L2 {rel}")
+    del cache, logits, lk, lp
+    n0 = kvq.launches
+    length = 16
+    corpus, secs = t2.selfgen_corpus(cfg, teacher, 8, length)
+    n_gen = kvq.launches - n0
+    check(tuple(corpus.shape) == (8, length)
+          and int(corpus.min()) >= 0 and int(corpus.max()) < cfg.vocab_size,
+          f"selfgen_corpus on the card: shape {tuple(corpus.shape)}")
+    check(n_gen == cfg.n_layers * (length - 1),
+          f"selfgen_corpus: {n_gen} kvq_decode_attn launches, want "
+          f"{cfg.n_layers * (length - 1)}")
+    kvq.launches = base              # not the main path's launches
+    out = {"decode_logits_rel_l2_kernels_vs_plain": rel,
+           "kvq_decode_attn_per_step": n_step,
+           "selfgen_batch_s": secs, "selfgen_tokens": 8 * length,
+           "selfgen_kvq_launches": n_gen}
+    report["c16_decode"] = out
+    print("phase 3h: " + json.dumps(out), flush=True)
+
+
+def rg_weight_sites(rcfg):
+    """Fake-quantized weights of one student forward: 8 per RG-LRU layer
+    (w_in, w_gate, w_ig, w_rg, w_out and the MLP's 3), 7 per local
+    attention layer (wq, wk, wv, wo and the MLP's 3) and the tied head."""
+    kinds = rcfg.layer_kinds()
+    return 8 * kinds.count("rglru") + 7 * kinds.count("local_attn") + 1
+
+
+def train_rg(torch, P, rcfg, dev, report):
+    """Phase 6b: run_qat on recurrentgemma-2b at full width and depth,
+    A8d-C8-W4, 2 teacher steps, MSE weight calibration, 2 steps at B 8,
+    T 128. Per step one fake_quant_fwd and one _bwd per student weight
+    site (201) and one flash_attn_fwd per local layer (8, the teacher's);
+    losses finite, every s_w moved, no NaN; then one loss and backward
+    through the kernels against the plain versions."""
+    tcfg = P["TrainConfig"](precision="A8d-C8-W4", total_steps=RG_TRAIN_STEPS,
+                            ref_steps=RG_TRAIN_STEPS, batch_size=TRAIN_B,
+                            seq_len=TRAIN_T)
+    steps, state = [], {}
+
+    def on_start(student, opt):
+        state["s_w0"] = {k: t.detach().clone() for k, t in
+                         _named_leaves(student) if k.endswith("s_w")}
+        state["counts"] = tuple(fn.launches for fn in train_counters(P))
+
+    def on_step(step, metrics, student, opt):
+        counts = tuple(fn.launches for fn in train_counters(P))
+        steps.append({"step": step, "loss": float(metrics["loss"]),
+                      "ms": metrics["ms"],
+                      "launches": [a - b for a, b in
+                                   zip(counts, state["counts"])]})
+        state["counts"] = counts
+        state["opt"] = opt
+
+    for fn in train_counters(P):
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    teacher, student, _ = P["train"].run_qat(
+        RG, tcfg, reduced=False, teacher_steps=2, device=dev, log_every=1,
+        split_times=True, on_start=on_start, on_step=on_step)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    names = ("fake_quant_fwd", "fake_quant_bwd", "flash_attn_fwd",
+             "slstm_scan")
+    launches = dict(zip(names, (fn.launches for fn in train_counters(P))))
+    peak = torch.cuda.max_memory_allocated(dev)
+    n_w = rg_weight_sites(rcfg)
+    n_l = rcfg.layer_kinds().count("local_attn")
+    for s in steps:
+        got = dict(zip(names, s["launches"]))
+        check(s["launches"] == [n_w, n_w, n_l, 0],
+              f"recurrentgemma QAT step {s['step']}: launches {got}, want "
+              f"({n_w}, {n_w}, {n_l}, 0)")
+        check(math.isfinite(s["loss"]),
+              f"recurrentgemma QAT step {s['step']}: KD loss {s['loss']}")
+    check(len(steps) == RG_TRAIN_STEPS,
+          f"{len(steps)} recurrentgemma QAT steps")
+    opt = state.pop("opt")
+    named = dict(_named_leaves(student))
+    unmoved = [k for k, t0_ in state["s_w0"].items()
+               if torch.equal(named[k], t0_)]
+    check(len(state["s_w0"]) == n_w and not unmoved,
+          f"recurrentgemma: s_w that did not move: {unmoved[:5]} "
+          f"({len(unmoved)} of {len(state['s_w0'])})")
+    check(all(bool(torch.isfinite(t).all()) for t in named.values()),
+          "recurrentgemma: a parameter is not finite after QAT")
+    idle = profile_train_step(torch, P, rcfg, tcfg, teacher, student, opt,
+                              steps, dev, report, key="train_rg_profile")
+    del opt, state
+    torch.cuda.empty_cache()
+    per = {k: sum(s["ms"][k] for s in steps[1:]) / (len(steps) - 1)
+           for k in ("teacher", "student", "optimizer")}
+    step_ms = sum(per.values())
+    trained = {"arch": RG, "steps": RG_TRAIN_STEPS, "batch": TRAIN_B,
+               "seq": TRAIN_T, "losses": [s["loss"] for s in steps],
+               "ms_per_step": step_ms, "ms_split": per,
+               "ms_first_step": sum(steps[0]["ms"].values()),
+               "tokens_per_s": TRAIN_B * TRAIN_T / (step_ms / 1e3),
+               "peak_memory_bytes": peak, "wall_s": wall,
+               "device_idle_share": idle,
+               "launches_per_step": dict(zip(names, steps[-1]["launches"])),
+               "weight_sites": n_w, "launches": launches}
+    report["train_rg"] = trained
+    print("phase 6b: " + json.dumps(trained), flush=True)
+    grads_vs_plain(torch, P, rcfg, tcfg, teacher, student, dev, report,
+                   key="train_rg_vs_plain", phase="phase 6b")
+    del teacher, student
+    torch.cuda.empty_cache()
+    return launches
+
+
+def time_flash_window(torch, P, cfg, dev, gen, B, S, window, plain_calls):
+    """One windowed flash launch beside SDPA with an explicit
+    causal-and-window mask (``enable_gqa``), its plain version and the
+    bound (the window's (query, key) pairs at the bf16 tensor-core rate,
+    or the bytes)."""
+    import torch.nn.functional as F
+    fa, ref = P["fa_ops"].flash_attn_fwd, P["flash_attn_ref"]
+    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    base = flash_inputs(torch, gen, cfg, B, S, dev)
+    sets = [base] + [flash_inputs(torch, gen, cfg, B, S, dev)
+                     for _ in range(copies_for(tensor_bytes(*base)) - 1)]
+    t_k = time_ms(torch, lambda q, k, v: fa(q, k, v, causal=True,
+                                            window=window), sets)
+    t_p = time_ms(torch, lambda q, k, v: ref(q, k, v, causal=True,
+                                             window=window), sets[:2],
+                  min_calls=plain_calls)
+    i = torch.arange(S, device=dev)
+    mask = (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :] < window)
+    lib = [tuple(t.transpose(1, 2) for t in s) for s in sets]
+    t_l = time_ms(torch, lambda q, k, v: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, enable_gqa=True), lib)
+    pairs = int(mask.sum())
+    flops = 4 * B * H * D * pairs
+    nbytes = 2 * (2 * B * S * H * D + 2 * B * S * Hkv * D)
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / BF16_PEAK_FLOPS
+    del sets, lib
+    torch.cuda.empty_cache()
+    return {"ms": t_k, "plain_ms": t_p, "library_ms": t_l,
+            "bound_ms": max(t_b, t_o) * 1e3,
+            "bound_by": "bytes" if t_b >= t_o else "operations",
+            "B": B, "S": S, "window": window}
+
+
+def rg_pool_inputs(torch, gen, rcfg, dev, c16, C=0):
+    """recurrentgemma's 4 full 2048-token rings in a paged pool (bs 64, a
+    shuffled table), int8 or bf16 (``c16``); with ``C`` the verify-wave's
+    C queries a slot, windows ending at the full ring."""
+    args = kvq_inputs(torch, gen, rcfg, (RG_WINDOW,) * SLOTS, dev,
+                      RG_WINDOW)
+    if c16:
+        args = to_c16(torch, args)
+    q, k, v, s_k, s_v, tbl, lens = dense_to_pool(torch, gen, args,
+                                                 PAGED_BS[0])
+    if C:
+        q = torch.randn((SLOTS, C) + tuple(q.shape[1:]), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        lens = (lens[:, None] - torch.arange(C - 1, -1, -1, device=dev)
+                [None]).to(torch.int32).contiguous()
+    return q, k, v, s_k, s_v, tbl, lens
+
+
+def time_rg_gather(torch, P, gen, rcfg, dev, c16):
+    """One K+V gather launch of the 4 rings' 32 table entries at D 256,
+    beside its plain version, indexing and the bound (bytes)."""
+    ops, ref = P["kvq_ops"], P["kvq_ref"].gather_dequant_paged_kv_ref
+
+    def make():
+        q, k, v, s_k, s_v, tbl, lens = rg_pool_inputs(torch, gen, rcfg, dev,
+                                                      c16)
+        return k, s_k, v, s_v, tbl
+
+    base = make()
+    n, T = base[4].shape
+    bs, D = base[0].shape[2], base[0].shape[3]
+    rows = n * rcfg.n_kv_heads * T * bs
+    out_bytes = 2 * 4 * rows * D
+    sets = [base] + [make() for _ in range(
+        copies_for(tensor_bytes(*base) + out_bytes) - 1)]
+    t_k = time_ms(torch, ops.gather_dequant_paged_kv_pair, sets)
+    t_p = time_ms(torch, lambda k, s_k, v, s_v, tbl:
+                  (ref(k, s_k, tbl), ref(v, s_v, tbl)), sets)
+    nb = base[0].shape[0] - 1
+
+    def library(k, s_k, v, s_v, tbl):
+        idx = tbl.long().clamp(0, nb - 1)
+        return (k[idx].float() * s_k[idx][..., None],
+                v[idx].float() * s_v[idx][..., None])
+
+    t_l = time_ms(torch, library, sets)
+    es = base[0].element_size()
+    nbytes = 2 * rows * (D * es + 4) + 4 * n * T + out_bytes
+    del sets
+    torch.cuda.empty_cache()
+    return {"ms": t_k, "plain_ms": t_p, "library_ms": t_l,
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "n_T_bs": [n, T, bs]}
+
+
+def time_rg(torch, P, rcfg, dev, report):
+    """Phase 4 at recurrentgemma's shapes: a decode step's 8 dense decode
+    launches at B 4 over full 2048-token rings (D 256, H 10, Hkv 1) in
+    int8 and in bf16, beside plain, SDPA (``enable_gqa``, the same cache
+    dequantized to bf16) and the bound; a teacher forward's 8 flash
+    launches at (B 8, T 128) beside SDPA, and one windowed launch (B 1,
+    S 4096, window 2048) beside SDPA with the mask."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(33)
+    n_local = rcfg.layer_kinds().count("local_attn")
+    lengths = (RG_WINDOW,) * SLOTS
+    dec = time_dense_launch(torch, P, rcfg, dev, gen, lengths, RG_WINDOW,
+                            False)
+    dec16 = time_dense_launch(torch, P, rcfg, dev, gen, lengths, RG_WINDOW,
+                              False, c16=True)
+    fl = time_flash_launch(torch, P, rcfg, dev, gen, TRAIN_B, TRAIN_T, 10)
+    flw = time_flash_window(torch, P, rcfg, dev, gen, 1, 2 * RG_WINDOW,
+                            RG_WINDOW, 4)
+    out = {"decode_step": per_step(dec, n_local), "decode_launch": dec,
+           "decode_step_bf16": per_step(dec16, n_local),
+           "decode_launch_bf16": dec16,
+           "flash_teacher_forward": per_step(fl, n_local),
+           "flash_launch": fl, "flash_window_launch": flw}
+    # the paged launchers and the gather at the same shapes (served
+    # recurrentgemma stays dense: these time the kernels' new D, G, dtype)
+    for c16 in (False, True):
+        tag = "_bf16" if c16 else ""
+        for name, C in (("paged_decode", 0), ("spec_verify", SPEC_C)):
+            def make(c16=c16, C=C):
+                return rg_pool_inputs(torch, gen, rcfg, dev, c16, C)
+            out[f"{name}_launch{tag}"] = time_paged_launch(
+                torch, P, rcfg, name, make(), make)
+        out[f"gather_launch{tag}"] = time_rg_gather(torch, P, gen, rcfg,
+                                                    dev, c16)
+    report["rg_times"] = out
+    print(f"phase 4: recurrentgemma kvq_decode_attn per launch (B 4, Sc "
+          f"2048, D 256, G 10): int8 {dec['ms'] * 1e3:.2f} us, bf16 "
+          f"{dec16['ms'] * 1e3:.2f} us, plain {dec['plain_ms'] * 1e3:.2f} "
+          f"us, SDPA {dec['library_ms'] * 1e3:.2f} us, bound "
+          f"{dec['bound_ms'] * 1e3:.2f} us; flash per launch at (8, 128): "
+          f"{fl['ms'] * 1e3:.2f} us (SDPA {fl['library_ms'] * 1e3:.2f}, "
+          f"bound {fl['bound_ms'] * 1e3:.2f}); windowed (1, 4096, 2048): "
+          f"{flw['ms'] * 1e3:.2f} us (SDPA with the mask "
+          f"{flw['library_ms'] * 1e3:.2f}, bound "
+          f"{flw['bound_ms'] * 1e3:.2f})", flush=True)
+    for key in ("paged_decode_launch", "spec_verify_launch",
+                "gather_launch"):
+        a, b = out[key], out[key + "_bf16"]
+        print(f"phase 4: recurrentgemma {key}: int8 {a['ms'] * 1e3:.2f} us "
+              f"(plain {a['plain_ms'] * 1e3:.2f}, library "
+              f"{a['library_ms'] * 1e3:.2f}, bound "
+              f"{a['bound_ms'] * 1e3:.3f}), bf16 {b['ms'] * 1e3:.2f} us "
+              f"(bound {b['bound_ms'] * 1e3:.3f})", flush=True)
+    return out
+
+
+# --------------------------------------------------------------------------
 
 def main() -> int:
     import torch
@@ -3819,6 +4454,8 @@ def main() -> int:
     check_norm_rows(torch, P, cfg, dev, report)
     fq_err = check_fake_quant(torch, P, cfg, dev, report)
     flash_err = check_flash(torch, P, cfg, dev, report)
+    rcfg = P["get_config"](RG)
+    rg_err = check_rg_kernels(torch, P, cfg, rcfg, dev, report)
     slstm_err = check_slstm(torch, P, xcfg, dev, report)
     launches, eng = serve(torch, P, cfg, dev, report)
     profile_decode(torch, P, cfg, eng, report)
@@ -3841,12 +4478,18 @@ def main() -> int:
     train_launches, teacher, student = train_full(torch, P, cfg, dev, report)
     torch.cuda.empty_cache()
     ptq_launches = ptq_full(torch, P, cfg, dev, teacher, student, report)
-    del teacher, student
+    del student
+    torch.cuda.empty_cache()
+    c16_decode(torch, P, cfg, dev, teacher, report)
+    del teacher
     torch.cuda.empty_cache()
     train_static(torch, P, cfg, dev, report)
     torch.cuda.empty_cache()
     serve_xlstm(torch, P, xcfg, dev, report)
     xlstm_train_launches = train_xlstm(torch, P, xcfg, dev, report)
+    torch.cuda.empty_cache()
+    rg_launches = serve_rg(torch, P, rcfg, dev, report)
+    rg_train_launches = train_rg(torch, P, rcfg, dev, report)
     torch.cuda.empty_cache()
     w4a8_t = time_w4a8(torch, P, cfg, dev, report)
     kvq_t = time_kvq(torch, P, cfg, dev, report)
@@ -3857,6 +4500,7 @@ def main() -> int:
     fq_fwd_t, fq_bwd_t = time_fake_quant(torch, P, cfg, dev, report)
     flash_t = time_flash(torch, P, cfg, dev, report)
     slstm_t = time_slstm(torch, P, xcfg, dev, report)
+    rg_t = time_rg(torch, P, rcfg, dev, report)
     for name, t in (("kvq_paged_decode_attn", paged_t),
                     ("gather_dequant_paged_kv", gather_t),
                     ("pool_block_copy", copy_t),
@@ -3875,21 +4519,32 @@ def main() -> int:
          "source": "src/repro_torch/csrc/w4a8_matmul.cu",
          "replaces": "src/repro/kernels/w4a8/kernel.py:62",
          "launches": launches["w4a8_matmul"], "max_abs_err": w4a8_err,
-         **w4a8_t,
+         **w4a8_t, "rg_launches": rg_launches["w4a8_matmul"],
          "per": f"one decode step at M={SLOTS}: 36 layers x 7 linears + "
                 "the tied head"},
         {"name": "kvq_decode_attn", "route": "cuda",
          "source": "src/repro_torch/csrc/kvq_decode_attn.cu",
          "replaces": "src/repro/kernels/kvq_attn/kernel.py:338",
-         "launches": launches["kvq_decode_attn"], "max_abs_err": kvq_err,
-         **kvq_t,
+         "launches": launches["kvq_decode_attn"],
+         "max_abs_err": max(kvq_err, rg_err["kvq_decode_attn"]), **kvq_t,
+         "rg_launches": rg_launches["kvq_decode_attn"],
+         "recurrentgemma": {
+             "per": f"one decode step: 8 launches at B={SLOTS}, H=10, "
+                    f"Hkv=1, D=256, Sc={RG_WINDOW} (full rings)",
+             "int8": rg_t["decode_step"], "bf16": rg_t["decode_step_bf16"]},
          "per": f"one decode step: 36 launches at B={SLOTS}, H=16, Hkv=2, "
                 f"D=128, S={CACHE_LEN}, lengths {list(KVQ_LENGTHS)}"},
         {"name": "kvq_paged_decode_attn", "route": "cuda",
          "source": "src/repro_torch/csrc/kvq_paged_decode_attn.cu",
          "replaces": "src/repro/kernels/kvq_attn/kernel.py:109",
          "launches": paged_launches["kvq_paged_decode_attn"],
-         "max_abs_err": paged_err, **paged_t,
+         "max_abs_err": max(paged_err, rg_err["kvq_paged_decode_attn"]),
+         **paged_t,
+         "recurrentgemma": {
+             "per": "one launch at B=4, H=10, Hkv=1, D=256, 2048 tokens a "
+                    "slot in blocks of 64",
+             "int8": rg_t["paged_decode_launch"],
+             "bf16": rg_t["paged_decode_launch_bf16"]},
          "per": f"one paged decode step: 36 launches at B={SLOTS}, H=16, "
                 f"Hkv=2, D=128, block 64, T=8, lengths "
                 f"{list(PAGED_LENGTHS)}"},
@@ -3897,7 +4552,13 @@ def main() -> int:
          "source": "src/repro_torch/csrc/gather_dequant_paged_kv.cu",
          "replaces": "src/repro/kernels/kvq_attn/kernel.py:174",
          "launches": paged_launches["gather_dequant_paged_kv"],
-         "max_abs_err": gather_err, **gather_t,
+         "max_abs_err": max(gather_err, rg_err["gather_dequant_paged_kv"]),
+         **gather_t,
+         "recurrentgemma": {
+             "per": "one K+V launch: 4 rows of 32 entries of 64 tokens, "
+                    "Hkv=1, D=256",
+             "int8": rg_t["gather_launch"],
+             "bf16": rg_t["gather_launch_bf16"]},
          "per": "one tail-wave: 36 launches (K and V of a layer in one) "
                 "at n, T, bs = %s" % (GATHER_SHAPE,)},
         {"name": "pool_block_copy", "route": "cuda",
@@ -3912,7 +4573,13 @@ def main() -> int:
          "source": "src/repro_torch/csrc/kvq_spec_verify_attn.cu",
          "replaces": "src/repro/kernels/kvq_attn/kernel.py:255",
          "launches": spec_launches["kvq_spec_verify_attn"],
-         "max_abs_err": spec_err, **spec_t,
+         "max_abs_err": max(spec_err, rg_err["kvq_spec_verify_attn"]),
+         **spec_t,
+         "recurrentgemma": {
+             "per": f"one launch at B=4, C={SPEC_C}, H=10, Hkv=1, D=256, "
+                    f"windows ending at 2048 tokens",
+             "int8": rg_t["spec_verify_launch"],
+             "bf16": rg_t["spec_verify_launch_bf16"]},
          "per": f"one verify-wave: 36 launches at B={SLOTS}, C={SPEC_C}, "
                 f"H=16, Hkv=2, D=128, block 64, T={SPEC_T}, histories "
                 f"{list(spec_histories(64))}"},
@@ -3922,6 +4589,7 @@ def main() -> int:
          "launches": train_launches["fake_quant_fwd"],
          "ptq_launches": ptq_launches["fake_quant_fwd"],
          "max_abs_err": fq_err, **fq_fwd_t,
+         "rg_launches": rg_train_launches["fake_quant_fwd"],
          "per": "one QAT student step: 253 launches (36 layers x 7 "
                 "weights per output channel at 4 bits + the tied head per "
                 "vocab row at 8 bits)"},
@@ -3930,6 +4598,7 @@ def main() -> int:
          "replaces": "src/repro/kernels/quant/kernel.py:74",
          "launches": train_launches["fake_quant_bwd"],
          "max_abs_err": fq_err, **fq_bwd_t,
+         "rg_launches": rg_train_launches["fake_quant_bwd"],
          "per": "one QAT student backward: 253 launches, the forward's "
                 "sites"},
         {"name": "flash_attn_fwd", "route": "cuda",
@@ -3937,7 +4606,13 @@ def main() -> int:
          "replaces": "src/repro/kernels/flash_attn/kernel.py:74",
          "launches": train_launches["flash_attn_fwd"],
          "ptq_launches": ptq_launches["flash_attn_fwd"],
-         "max_abs_err": flash_err, **flash_t,
+         "max_abs_err": max(flash_err, rg_err["flash_attn_fwd"]),
+         **flash_t, "rg_launches": rg_train_launches["flash_attn_fwd"],
+         "recurrentgemma": {
+             "per": f"one teacher forward: 8 launches at B={TRAIN_B}, "
+                    f"S={TRAIN_T}, H=10, Hkv=1, D=256, window {RG_WINDOW}",
+             **rg_t["flash_teacher_forward"],
+             "window_launch": rg_t["flash_window_launch"]},
          "per": f"one teacher forward: 36 launches at B={TRAIN_B}, "
                 f"S={TRAIN_T}, H=16, Hkv=2, D=128, causal"},
         {"name": "slstm_scan", "route": "cuda",

@@ -36,7 +36,6 @@ from repro_torch.core.qat import make_ctx
 from repro_torch.data import (MixtureIterator, SyntheticConfig,
                               calibration_batches, to_device)
 from repro_torch.device import resolve_device
-from repro_torch.kernels.flash_attn.ops import HEAD_DIMS
 from repro_torch.launch.steps import make_train_step
 from repro_torch.launch.train import calibrate, pretrain_teacher
 from repro_torch.models import forward, init_params
@@ -94,11 +93,6 @@ def get_teacher(arch: str = BENCH_ARCH, steps: int = TEACHER_STEPS, *,
     """Pretrained fp16 'original model' (cached). Returns (cfg, params)."""
     cfg = get_config(arch) if full else get_reduced_config(arch)
     dev = resolve_device(device)
-    if dev.type == "cuda" and cfg.resolved_head_dim not in HEAD_DIMS:
-        raise ValueError(
-            f"{cfg.name}: head_dim {cfg.resolved_head_dim}, and on CUDA the "
-            f"evaluation's flash_attn_fwd takes {HEAD_DIMS}; run the "
-            "reduced config with device='cpu' or the published widths")
     ck = Checkpointer(os.path.join(cache_dir, f"teacher_{cfg.name}_{steps}"),
                       period=len(cfg.block_pattern))
     if ck.latest_step() is not None:

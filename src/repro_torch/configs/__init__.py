@@ -12,6 +12,7 @@ from repro_torch.configs.base import ModelConfig
 _ARCH_MODULES = {
     "qwen2.5-3b": "qwen2_5_3b",
     "xlstm-125m": "xlstm_125m",
+    "recurrentgemma-2b": "recurrentgemma_2b",
 }
 
 ARCH_IDS = tuple(_ARCH_MODULES)

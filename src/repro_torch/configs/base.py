@@ -2,7 +2,8 @@
 and ``TrainConfig``).
 
 Only the model fields the ported paths read are kept; architectures
-beyond the dense GQA decoder and xLSTM arrive with later slices.
+beyond the dense GQA decoder, xLSTM and the hybrid RG-LRU / local
+attention stack arrive with later slices.
 """
 from __future__ import annotations
 
@@ -24,7 +25,7 @@ RECURRENT_BLOCKS = (BLOCK_RGLRU, BLOCK_MLSTM, BLOCK_SLSTM)
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                     # dense | ssm
+    family: str                     # dense | hybrid | ssm
     n_layers: int
     d_model: int
     n_heads: int
@@ -36,10 +37,13 @@ class ModelConfig:
     qk_norm: bool = False
     rope_theta: float = 10_000.0
     sliding_window: int = 0         # 0 -> no SWA
+    local_window: int = 2048        # window for BLOCK_LOCAL_ATTN layers
     # repeating pattern of block kinds, tiled / truncated to n_layers
     block_pattern: Tuple[str, ...] = (BLOCK_ATTN,)
     mlstm_proj_factor: float = 2.0
     slstm_proj_factor: float = 4.0 / 3.0
+    lru_width: int = 0              # RG-LRU width (0 -> d_model)
+    conv1d_width: int = 4           # temporal conv width in RG-LRU block
     tie_embeddings: bool = False
     norm_eps: float = 1e-6
     norm_type: str = "rms"
@@ -56,6 +60,10 @@ class ModelConfig:
     @property
     def kv_dim(self) -> int:
         return self.n_kv_heads * self.resolved_head_dim
+
+    @property
+    def resolved_lru_width(self) -> int:
+        return self.lru_width or self.d_model
 
     def layer_kinds(self) -> Tuple[str, ...]:
         """Block kind for every decoder layer (pattern tiled to n_layers)."""

@@ -20,8 +20,8 @@ from typing import Dict, List, Optional
 
 import torch
 
-from repro_torch.configs.base import (BLOCK_ATTN, BLOCK_MLSTM, BLOCK_SLSTM,
-                                      ModelConfig)
+from repro_torch.configs.base import (ATTENTION_BLOCKS, BLOCK_MLSTM,
+                                      BLOCK_RGLRU, BLOCK_SLSTM, ModelConfig)
 from repro_torch.core.precision import PrecisionPolicy
 from repro_torch.core.ptq.rtn import rtn_quantize
 from repro_torch.core.qat import make_ctx
@@ -61,8 +61,11 @@ def collect_chan_maxima(cfg: ModelConfig, params: Dict,
 
 # (norm key, linear keys smoothing-folded against it) per block kind
 def _pairs_for(kind: str):
-    if kind == BLOCK_ATTN:
+    if kind in ATTENTION_BLOCKS:
         return [("ln1", ["attn/wq", "attn/wk", "attn/wv"]),
+                ("ln2", ["mlp/wg", "mlp/wu"])]
+    if kind == BLOCK_RGLRU:
+        return [("ln1", ["rglru/w_in", "rglru/w_gate"]),
                 ("ln2", ["mlp/wg", "mlp/wu"])]
     if kind == BLOCK_MLSTM:
         return [("ln1", ["cell/w_up"])]

@@ -48,7 +48,8 @@
 // library kernels do.
 //
 // Design: one CTA of 4 warps per (128-query tile, head, batch row), the
-// tiles with the most causal keys first. The TPU kernel's sequential kv
+// tiles with the most causal keys first (at D 256 a 64-query tile: see
+// below). The TPU kernel's sequential kv
 // grid axis becomes a loop inside the CTA. Q and each 32-key K and V tile
 // sit in shared memory as bf16, rows padded by 16 bytes so the 8 rows an
 // ldmatrix phase reads fall in 8 distinct 4-bank groups; K/V tiles are
@@ -68,6 +69,12 @@
 // skipped (they would add exactly nothing), and the mask is evaluated only
 // on tiles it cuts. The output goes through the warp's own rows of the Q
 // tile to 16-byte stores.
+//
+// Head dims. D 16 (the reduced configs) is one k-step of QK^T and two
+// n-tiles of P.V, with the same loop. D 256 (recurrentgemma-2b) cannot
+// keep 32 rows a warp: the O accumulator alone would be 256 f32 registers
+// a thread. There a warp owns one m16 tile (MT 1, a 64-query CTA): O is
+// 128 registers, Q and the K/V ring take 101 KB a CTA, two CTAs an SM.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -75,12 +82,16 @@
 
 namespace {
 
-constexpr int BQ = 128;                // query rows a CTA
 constexpr int BK = 32;                 // keys a tile
-constexpr int MT = 2;                  // 16-row MMA tiles a warp
 constexpr int STAGES = 2;              // K/V tiles in the cp.async ring
-constexpr int WARPS = BQ / (16 * MT);
+constexpr int WARPS = 4;
 constexpr int THREADS = WARPS * 32;
+
+// 16-row MMA tiles a warp, and the query rows a CTA, at head dim D
+template <int D>
+__host__ __device__ constexpr int mt_of() { return D >= 256 ? 1 : 2; }
+template <int D>
+__host__ __device__ constexpr int bq_of() { return 16 * mt_of<D>() * WARPS; }
 constexpr int NJ = BK / 8;             // 8-key n-tiles of a score tile
 constexpr float NEG = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
@@ -93,7 +104,9 @@ __host__ __device__ constexpr int ld() { return D + 8; }
 
 // Q, then STAGES K and STAGES V tiles
 template <int D>
-constexpr int smem_bytes() { return (BQ + 2 * STAGES * BK) * ld<D>() * 2; }
+constexpr int smem_bytes() {
+  return (bq_of<D>() + 2 * STAGES * BK) * ld<D>() * 2;
+}
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -164,10 +177,12 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
                                           const __nv_bfloat16* src,
                                           size_t stride, int n) {
   constexpr int CH = D / 8;                 // 16-byte chunks a row
-  static_assert(R * CH % THREADS == 0, "whole chunks a thread");
+  static_assert(R * CH % THREADS == 0 || R * CH < THREADS,
+                "whole chunks a thread");
 #pragma unroll
-  for (int u = 0; u < R * CH / THREADS; ++u) {
+  for (int u = 0; u < (R * CH + THREADS - 1) / THREADS; ++u) {
     const int c = threadIdx.x + THREADS * u;
+    if (R * CH < THREADS && c >= R * CH) break;
     const int r = c / CH, cc = c % CH;
     const bool ok = r < n;
     cp_async16(dst + r * ld<D>() + 8 * cc,
@@ -184,6 +199,8 @@ flash_attn_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                       int Hkv, int s_q, int s_kv, int causal, int window,
                       float scale) {
   constexpr int LD = ld<D>();
+  constexpr int MT = mt_of<D>();
+  constexpr int BQ = bq_of<D>();
   constexpr int KS = D / 16;                // k-steps of QK^T
   constexpr int NT = D / 8;                 // n-tiles of the output
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -427,6 +444,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
     if (e != cudaSuccess) return static_cast<int>(e);
     smem_set = true;
   }
+  constexpr int BQ = bq_of<D>();
   dim3 grid((unsigned)((s_q + BQ - 1) / BQ), (unsigned)H, (unsigned)B);
   flash_attn_fwd_kernel<D><<<grid, THREADS, smem, st>>>(
       static_cast<const __nv_bfloat16*>(q),
@@ -439,8 +457,9 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 }  // namespace
 
 // s_q / s_kv: the true lengths (<= Sq / Skv); rows past s_q are not
-// written. Requires D of 64 or 128, H % Hkv == 0 and 16-byte aligned
-// pointers (checked by the Python wrapper). Returns cudaGetLastError().
+// written. Requires D of 16, 64, 128 or 256, H % Hkv == 0 and 16-byte
+// aligned pointers (checked by the Python wrapper). Returns
+// cudaGetLastError().
 extern "C" int flash_attn_fwd_launch(const void* q, const void* k,
                                      const void* v, void* out, int B, int Sq,
                                      int Skv, int H, int Hkv, int D, int s_q,
@@ -456,6 +475,12 @@ extern "C" int flash_attn_fwd_launch(const void* q, const void* k,
                        window, scale, st);
   if (D == 64)
     return launch<64>(q, k, v, out, B, Sq, Skv, H, Hkv, s_q, s_kv, causal,
+                      window, scale, st);
+  if (D == 256)
+    return launch<256>(q, k, v, out, B, Sq, Skv, H, Hkv, s_q, s_kv, causal,
+                       window, scale, st);
+  if (D == 16)
+    return launch<16>(q, k, v, out, B, Sq, Skv, H, Hkv, s_q, s_kv, causal,
                       window, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,4 +1,5 @@
-// One-query decode attention over a dense int8 KV cache, for Hopper (sm_90a).
+// One-query decode attention over a dense int8 or bf16 KV cache, for
+// Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/kvq_attn/kernel.py
 // (kvq_decode_attn / _kernel):
@@ -7,7 +8,8 @@
 //                          / sqrt(D), s < len[b] )
 //               . (v_q[b, h/G, s] * s_v[b, h/G, s])
 //
-// q (B, H, D) bf16; k_q / v_q (B, Hkv, S, D) int8; s_k / s_v (B, Hkv, S)
+// q (B, H, D) bf16; k_q / v_q (B, Hkv, S, D) int8 or bf16; s_k / s_v
+// (B, Hkv, S)
 // f32 per-token scales; lengths (B) int32, clamped to [0, S]; out
 // (B, H, D) bf16; G = H / Hkv.
 //
@@ -28,11 +30,14 @@
 // it depends only on the slot's own length (batch-invariant), and an
 // empty slot returns zeros.
 //
+// kv_bytes: 1 for int8 K/V, 2 for bf16 (a C16 cache, unit scales).
+//
 // ws / tickets: ws_len f32 of workspace and tk_len int32 counters, at
 // least what kvq_paged_split_scratch(B, 1, H, Hkv, D, 1, S) returns (a
 // launch with less returns cudaErrorInvalidValue); the tickets zero
 // before the first launch and left zero by every launch. Requirements
-// (checked by the Python wrapper): D == 64 or D == 128, G <= 8, S >= 1,
+// (checked by the Python wrapper): D of 16, 64, 128 or 256, G <= 10,
+// S >= 1,
 // every tensor contiguous.
 
 #include "kvq_paged_split.cuh"
@@ -43,8 +48,10 @@ extern "C" int kvq_decode_attn_launch(const void* q, const void* k,
                                       void* out, void* ws, long long ws_len,
                                       void* tickets, long long tk_len, int B,
                                       int H, int Hkv, int S, int D,
-                                      float scale, void* stream) {
+                                      int kv_bytes, float scale,
+                                      void* stream) {
   return kvq_split::launch<true>(q, k, v, sk, sv, nullptr, lengths, out, ws,
                                  ws_len, tickets, tk_len, B, 1, H, Hkv,
-                                 B > 0 ? B : 1, S, 1, D, scale, stream);
+                                 B > 0 ? B : 1, S, 1, D, kv_bytes, scale,
+                                 stream);
 }

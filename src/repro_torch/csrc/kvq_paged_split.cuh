@@ -1,6 +1,6 @@
 // Split-KV (flash-decoding) attention through a block table over a paged
-// int8 KV pool, for Hopper (sm_90a). One kernel serves both the decode
-// launcher (kvq_paged_decode_attn.cu, one query a slot) and the verify
+// int8 or bf16 KV pool, for Hopper (sm_90a). One kernel serves both the
+// decode launcher (kvq_paged_decode_attn.cu, one query a slot) and the verify
 // launcher (kvq_spec_verify_attn.cu, C queries a slot): C is a runtime
 // argument, so both run the same compiled code. The dense decode launcher
 // (kvq_decode_attn.cu) runs it with the token address as a compile-time
@@ -17,10 +17,20 @@
 //                  s_k[blk, h/G, row]) / sqrt(D), p < len[b, c] )
 //                  . (v[blk, h/G, row] * s_v[blk, h/G, row])
 //
-// q (B, C, H, D) bf16; k / v pools (NB + 1, Hkv, bs, D) int8, the last
-// block a write sink that is never read; s_k / s_v (NB + 1, Hkv, bs) f32;
+// q (B, C, H, D) bf16; k / v pools (NB + 1, Hkv, bs, D) int8 (a C8
+// cache) or bf16 (C16, unit scales), the last block a write sink that is
+// never read; s_k / s_v (NB + 1, Hkv, bs) f32;
 // tbl (B, T) int32, entries >= NB unallocated sentinels; lengths (B, C)
-// int32, clamped to [0, T * bs]; out (B, C, H, D) bf16; G = H / Hkv.
+// int32, clamped to [0, T * bs]; out (B, C, H, D) bf16; G = H / Hkv, up
+// to GMAX (10: recurrentgemma's MQA); D of 16, 64, 128 or 256.
+//
+// The element type is a template parameter (KV): only the staging (16-byte
+// chunks of 16 int8 or 8 bf16 values) and the conversion to f32 differ,
+// and both are exact, so a bf16 cache runs the int8 cache's arithmetic on
+// its values. The dims a lane owns follow D: DV consecutive dims (4 from
+// D 64, D / 16 below) in DG groups for the scores, D / 32 (at least 1,
+// lanes past D idle) for P.V; at D 64 and 128 that is the layout the int8
+// kernel always had, so those results did not move.
 //
 // Design.
 // - Grid: one CTA per (slot, split, KV head, query chunk). A split is
@@ -37,12 +47,13 @@
 //   rows and 4-byte copies of its scales into shared memory. The whole
 //   split is put in flight at once, as one commit group; the two CTAs
 //   resident on an SM overlap each other's loads (two double-buffered
-//   sub-tiles a split measured slower on the H100).
+//   sub-tiles a split measured slower on the H100). At D 256 one CTA fits
+//   an SM (its rows and staging take 137-227 KB).
 // - Scores: S[r, j] = (q_r . k_j) * s_k[j], q pre-scaled by 1 / sqrt(D).
 //   A half-warp takes a token: each lane holds 8 query rows of its D / 16
-//   dims in registers (row i ^ rho in slot i, rho the row the lane ends
-//   with), dequantizes its k bytes once, runs one fmaf chain a row, and
-//   the 16 lanes' partials are added by a transpose-reduce: 4 shuffle
+//   dims (DV x DG) in registers (row i ^ rho in slot i, rho the row the
+//   lane ends with), dequantizes its k bytes once, runs one fmaf chain a
+//   row, and the 16 lanes' partials are added by a transpose-reduce: 4 shuffle
 //   levels, each keeping the lower half of the slots and sending the
 //   upper, a fixed balanced tree over the 16 dim slices.
 // - Softmax, once per split: one warp a query row (a warp's rows
@@ -113,8 +124,9 @@ constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int TPT = THREADS / SPLIT;  // loads: threads a token
 constexpr int HW = THREADS / 16;      // scores: half-warps
-constexpr int RMAX = 40;           // query rows a CTA holds (C 5 x G 8)
-constexpr int GMAX = 8;            // largest GQA group
+constexpr int RMAX = 40;           // query rows a CTA holds (C 5 x G 8,
+                                   // C 4 x G 10)
+constexpr int GMAX = 10;           // largest GQA group
 constexpr int PART = 4;            // f32 a partial row holds beyond acc[D]:
                                    // m, l and 2 of padding
 constexpr float NEG = -1e30f;
@@ -123,10 +135,11 @@ static_assert(THREADS % SPLIT == 0 && SPLIT % HW == 0 && SPLIT % 32 == 0,
               "SPLIT: whole threads a token, tokens a half-warp and a lane");
 static_assert(RMAX % 8 == 0 && RMAX >= GMAX, "RMAX: whole row chunks");
 
-// shared-memory layout of one CTA, in bytes, for D dims and RP rows
-template <int D>
+// shared-memory layout of one CTA, in bytes, for D dims of ES-byte K/V
+// elements and RP rows
+template <int D, int ES>
 struct Layout {
-  static constexpr int KROW = D + 16;          // int8 row, padded
+  static constexpr int KROW = D * ES + 16;     // K/V row, padded (bytes)
   static constexpr int PS = D + PART;          // partial row: acc, m, l
   int rp;                                      // rows, a multiple of 8
   __host__ __device__ explicit Layout(int rp_) : rp(rp_) {}
@@ -170,6 +183,62 @@ __device__ __forceinline__ void cp_async_wait_all() {
 __device__ __forceinline__ float i8f(unsigned w, int i) {
   const unsigned x = __byte_perm(w ^ 0x80808080u, 0x4B000000u, 0x7650 | i);
   return __fsub_rn(__uint_as_float(x), 8388736.0f);
+}
+
+// bf16 half i (0 low, 1 high) of w as an exact f32
+__device__ __forceinline__ float bff(unsigned w, int i) {
+  return __uint_as_float(i ? w & 0xFFFF0000u : w << 16);
+}
+
+// N consecutive K/V elements at shared address p (N * sizeof(KV) bytes,
+// aligned to that) as exact f32
+template <typename KV, int N>
+__device__ __forceinline__ void load_kv(const unsigned char* p,
+                                        float (&f)[N]) {
+  if constexpr (std::is_same_v<KV, int8_t>) {
+    if constexpr (N == 1) {
+      f[0] = static_cast<float>(*reinterpret_cast<const int8_t*>(p));
+    } else if constexpr (N == 2) {
+      const unsigned w = *reinterpret_cast<const unsigned short*>(p);
+      f[0] = i8f(w, 0);
+      f[1] = i8f(w, 1);
+    } else {
+      static_assert(N % 4 == 0, "int8: 1, 2 or whole words");
+#pragma unroll
+      for (int q = 0; q < N / 4; ++q) {
+        const unsigned w = reinterpret_cast<const unsigned*>(p)[q];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) f[4 * q + i] = i8f(w, i);
+      }
+    }
+  } else {
+    if constexpr (N == 1) {
+      f[0] = __uint_as_float(
+          static_cast<unsigned>(*reinterpret_cast<const unsigned short*>(p))
+          << 16);
+    } else {
+      static_assert(N % 2 == 0, "bf16: 1 or whole words");
+      if constexpr (N % 8 == 0) {
+#pragma unroll
+        for (int q = 0; q < N / 8; ++q) {
+          const uint4 w = reinterpret_cast<const uint4*>(p)[q];
+          const unsigned ws[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+          for (int i = 0; i < 8; ++i) f[8 * q + i] = bff(ws[i / 2], i & 1);
+        }
+      } else if constexpr (N == 4) {
+        const uint2 w = *reinterpret_cast<const uint2*>(p);
+        f[0] = bff(w.x, 0);
+        f[1] = bff(w.x, 1);
+        f[2] = bff(w.y, 0);
+        f[3] = bff(w.y, 1);
+      } else {
+        const unsigned w = *reinterpret_cast<const unsigned*>(p);
+        f[0] = bff(w, 0);
+        f[1] = bff(w, 1);
+      }
+    }
+  }
 }
 
 template <bool kGlobal>
@@ -288,11 +357,11 @@ __device__ __forceinline__ bool last_of(int* tk, int cnt, int* flag_s) {
   return last;
 }
 
-template <int D, bool kDense>
-__global__ void __launch_bounds__(THREADS, 2)
+template <int D, typename KV, bool kDense>
+__global__ void __launch_bounds__(THREADS, D >= 256 ? 1 : 2)
 kvq_paged_split_kernel(const __nv_bfloat16* __restrict__ q,
-                       const int8_t* __restrict__ k,
-                       const int8_t* __restrict__ v,
+                       const KV* __restrict__ k,
+                       const KV* __restrict__ v,
                        const float* __restrict__ sk,
                        const float* __restrict__ sv,
                        const int* __restrict__ tbl,
@@ -301,11 +370,16 @@ kvq_paged_split_kernel(const __nv_bfloat16* __restrict__ q,
                        float* __restrict__ ws, int* __restrict__ tickets,
                        int C, int H, int Hkv, int NB, int bs, int T,
                        float scale) {
-  using L = Layout<D>;
+  constexpr int ES = sizeof(KV);
+  using L = Layout<D, ES>;
   constexpr int KROW = L::KROW, PS = L::PS;
-  constexpr int CH = D / 16;          // 16-byte chunks a row
-  constexpr int DG = D / 64;          // scores: 4-dim groups a lane owns
-  constexpr int DPV = D / 32;         // P.V: dims a lane owns
+  constexpr int CH = D * ES / 16;     // 16-byte chunks a row
+  constexpr int DV = D >= 64 ? 4 : D / 16;  // scores: dims a lane's group
+  constexpr int DG = D / (16 * DV);   // scores: groups a lane owns
+  constexpr int DPV = D >= 32 ? D / 32 : 1;  // P.V: dims a lane owns
+  static_assert(D % 16 == 0 && DG >= 1, "D: a multiple of 16");
+  const unsigned char* kb = reinterpret_cast<const unsigned char*>(k);
+  const unsigned char* vb = reinterpret_cast<const unsigned char*>(v);
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int flag_s;
 
@@ -346,7 +420,7 @@ kvq_paged_split_kernel(const __nv_bfloat16* __restrict__ q,
   if (s >= nact) return;
 
   const L lay(RP);
-  int8_t* kv_s = reinterpret_cast<int8_t*>(smem + lay.kv());
+  unsigned char* kv_s = smem + lay.kv();
   float* sc_s = reinterpret_cast<float*>(smem + lay.sc());
   float* q_s = reinterpret_cast<float*>(smem + lay.q());
   float* s_s = reinterpret_cast<float*>(smem + lay.s());
@@ -363,13 +437,13 @@ kvq_paged_split_kernel(const __nv_bfloat16* __restrict__ q,
     const size_t tok = ((size_t)ent * Hkv + kh) * bs +
                        (kDense ? p0 + jl : (p0 + jl) % bs);
 #pragma unroll
-    for (int u = 0; u < 2 * CH / TPT; ++u) {
+    for (int u = 0; u < (2 * CH + TPT - 1) / TPT; ++u) {
       const int c = cs + TPT * u;                  // 0 .. 2 CH - 1
       if (c < CH)
-        cp_async16(kv_s + jl * KROW + 16 * c, k + tok * D + 16 * c);
-      else
+        cp_async16(kv_s + jl * KROW + 16 * c, kb + tok * D * ES + 16 * c);
+      else if (c < 2 * CH)
         cp_async16(kv_s + (SPLIT + jl) * KROW + 16 * (c - CH),
-                   v + tok * D + 16 * (c - CH));
+                   vb + tok * D * ES + 16 * (c - CH));
     }
     if (cs == 0) cp_async4(sc_s + jl, sk + tok);
     if (cs == 1) cp_async4(sc_s + SPLIT + jl, sv + tok);
@@ -400,7 +474,8 @@ kvq_paged_split_kernel(const __nv_bfloat16* __restrict__ q,
     rlen_s[r] = r < R ? qlen(c0 + r / G) : 0;
 
   // ---- scores: half-warp hw takes tokens hw, hw + HW, ...; lane hl owns
-  // dims 64 g + 4 hl .. + 3 (g < DG) and holds row rc + (i ^ rho) of the
+  // dims 16 DV g + DV hl .. + DV - 1 (g < DG; 64 g + 4 hl .. + 3 from D
+  // 64) and holds row rc + (i ^ rho) of the
   // chunk in slot i, so that each level of the transpose-reduce keeps its
   // lower slots and sends the upper ones
   {
@@ -410,35 +485,41 @@ kvq_paged_split_kernel(const __nv_bfloat16* __restrict__ q,
     cp_async_wait_all();
     __syncthreads();                          // the split landed
     for (int rc = 0; rc < RP; rc += 8) {
-      float qf[8][4 * DG];
+      float qf[8][DV * DG];
 #pragma unroll
       for (int r = 0; r < 8; ++r)
 #pragma unroll
         for (int g = 0; g < DG; ++g) {
-          const float4 x = *reinterpret_cast<const float4*>(
-              q_s + (rc + (r ^ rho)) * D + 64 * g + 4 * hl);
-          qf[r][4 * g] = x.x;
-          qf[r][4 * g + 1] = x.y;
-          qf[r][4 * g + 2] = x.z;
-          qf[r][4 * g + 3] = x.w;
+          const float* src = q_s + (rc + (r ^ rho)) * D + 16 * DV * g +
+                             DV * hl;
+          if constexpr (DV == 4) {
+            const float4 x = *reinterpret_cast<const float4*>(src);
+            qf[r][4 * g] = x.x;
+            qf[r][4 * g + 1] = x.y;
+            qf[r][4 * g + 2] = x.z;
+            qf[r][4 * g + 3] = x.w;
+          } else {
+#pragma unroll
+            for (int i = 0; i < DV; ++i) qf[r][DV * g + i] = src[i];
+          }
         }
 #pragma unroll
       for (int u = 0; u < SPLIT / HW; ++u) {
         const int j = hw + HW * u;
-        float kf[4 * DG];
+        float kf[DV * DG];
 #pragma unroll
         for (int g = 0; g < DG; ++g) {
-          const unsigned w = *reinterpret_cast<const unsigned*>(
-              kv_s + j * KROW + 64 * g + 4 * hl);
+          float f[DV];
+          load_kv<KV, DV>(kv_s + j * KROW + (16 * DV * g + DV * hl) * ES, f);
 #pragma unroll
-          for (int i = 0; i < 4; ++i) kf[4 * g + i] = i8f(w, i);
+          for (int i = 0; i < DV; ++i) kf[DV * g + i] = f[i];
         }
         float P[8];
 #pragma unroll
         for (int r = 0; r < 8; ++r) {
           P[r] = 0.f;
 #pragma unroll
-          for (int i = 0; i < 4 * DG; ++i)
+          for (int i = 0; i < DV * DG; ++i)
             P[r] = fmaf(qf[r][i], kf[i], P[r]);
         }
         // transpose-reduce over the half-warp's 16 dim slices: slot i
@@ -519,9 +600,11 @@ kvq_paged_split_kernel(const __nv_bfloat16* __restrict__ q,
   }
   __syncthreads();
 
-  // ---- P.V: lane owns dims lane * DPV ..; warp w sums tokens w, w + 8,
-  // ...; the warps' sums are added in warp order. The CTA's partial goes
-  // to the workspace, or to the scores' region when it is the only split.
+  // ---- P.V: lane owns dims lane * DPV .. (lanes at or past D / DPV idle
+  // at D 16); warp w sums tokens w, w + 8, ...; the warps' sums are added
+  // in warp order. The CTA's partial goes to the workspace, or to the
+  // scores' region when it is the only split.
+  const bool pv_lane = lane * DPV < D;
   const int CG = C * G;
   const size_t slot0 = (size_t)(b * Hkv + kh) * (NS + NGRP);
   float* wsb = ws + slot0 * CG * PS + (size_t)c0 * G * PS;  // slot 0, row 0
@@ -533,22 +616,13 @@ kvq_paged_split_kernel(const __nv_bfloat16* __restrict__ q,
     for (int r = 0; r < 8; ++r)
 #pragma unroll
       for (int i = 0; i < DPV; ++i) acc[r][i] = 0.f;
-    for (int j = warp; j < n_tok; j += WARPS) {
+    for (int j = warp; j < (pv_lane ? n_tok : 0); j += WARPS) {
       const float4 pa = *reinterpret_cast<const float4*>(pv_s + j * RP + rc);
       const float4 pb =
           *reinterpret_cast<const float4*>(pv_s + j * RP + rc + 4);
       const float pr[8] = {pa.x, pa.y, pa.z, pa.w, pb.x, pb.y, pb.z, pb.w};
-      const int8_t* vp = kv_s + (SPLIT + j) * KROW + lane * DPV;
       float vf[DPV];
-      if constexpr (DPV == 4) {
-        const unsigned w = *reinterpret_cast<const unsigned*>(vp);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) vf[i] = i8f(w, i);
-      } else {
-        const unsigned w = *reinterpret_cast<const unsigned short*>(vp);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) vf[i] = i8f(w, i);
-      }
+      load_kv<KV, DPV>(kv_s + (SPLIT + j) * KROW + lane * DPV * ES, vf);
 #pragma unroll
       for (int r = 0; r < 8; ++r)
 #pragma unroll
@@ -558,11 +632,17 @@ kvq_paged_split_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int r = 0; r < 8; ++r) {
       float* dst = red_s + (warp * 8 + r) * D + lane * DPV;
-      if constexpr (DPV == 4)
-        *reinterpret_cast<float4*>(dst) =
-            make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
-      else
+      if (!pv_lane) continue;
+      if constexpr (DPV % 4 == 0) {
+#pragma unroll
+        for (int i = 0; i < DPV; i += 4)
+          *reinterpret_cast<float4*>(dst + i) = make_float4(
+              acc[r][i], acc[r][i + 1], acc[r][i + 2], acc[r][i + 3]);
+      } else if constexpr (DPV == 2) {
         *reinterpret_cast<float2*>(dst) = make_float2(acc[r][0], acc[r][1]);
+      } else {
+        dst[0] = acc[r][0];
+      }
     }
     __syncthreads();
     for (int e = tid; e < 8 * (D / 4); e += THREADS) {
@@ -644,12 +724,13 @@ kvq_paged_split_kernel(const __nv_bfloat16* __restrict__ q,
       });
 }
 
-// Shapes the kernel takes (D 64 or 128, G <= 8, bs >= 1, 32-bit pool
-// and table indices, a grid in range).
+// Shapes the kernel takes (D 16, 64, 128 or 256, G <= GMAX, bs >= 1,
+// 32-bit pool and table indices, a grid in range).
 bool valid(int B, int C, int H, int Hkv, int D, int T, int bs, int NB) {
   const int G = Hkv > 0 ? H / Hkv : 0;
-  if (B < 0 || G < 1 || G > GMAX || (D != 64 && D != 128) || NB < 1 ||
-      bs < 1 || T < 1 || C < 1)
+  if (B < 0 || G < 1 || G > GMAX || G * Hkv != H ||
+      (D != 16 && D != 64 && D != 128 && D != 256) || NB < 1 || bs < 1 ||
+      T < 1 || C < 1)
     return false;
   const long long nqc = (C + RMAX / G - 1) / (RMAX / G);
   const long long NS = ((long long)T * bs + SPLIT - 1) / SPLIT;
@@ -671,18 +752,60 @@ void scratch(int B, int C, int H, int Hkv, int D, int T, int bs,
   *tickets = (long long)B * Hkv * nqc * (NGRP + 1);
 }
 
+// One instantiation of the kernel: raise its shared-memory attribute to
+// smem (once to the largest size asked for, so a call inside a stream
+// capture sets nothing after the first eager one) and launch it.
+template <int D, typename KV, bool kDense>
+int launch_one(dim3 grid, int smem, cudaStream_t st, const void* q,
+               const void* k, const void* v, const void* sk, const void* sv,
+               const void* tbl, const void* lengths, void* out, void* ws,
+               void* tickets, int C, int H, int Hkv, int NB, int bs, int T,
+               float scale) {
+  static int set = 0;
+  if (smem > set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kvq_paged_split_kernel<D, KV, kDense>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    set = smem;
+  }
+  kvq_paged_split_kernel<D, KV, kDense><<<grid, THREADS, smem, st>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const KV*>(k),
+      static_cast<const KV*>(v), static_cast<const float*>(sk),
+      static_cast<const float*>(sv), static_cast<const int*>(tbl),
+      static_cast<const int*>(lengths), static_cast<__nv_bfloat16*>(out),
+      static_cast<float*>(ws), static_cast<int*>(tickets), C, H, Hkv, NB,
+      bs, T, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D, bool kDense>
+int launch_d(int es, dim3 grid, int rp, cudaStream_t st, const void* q,
+             const void* k, const void* v, const void* sk, const void* sv,
+             const void* tbl, const void* lengths, void* out, void* ws,
+             void* tickets, int C, int H, int Hkv, int NB, int bs, int T,
+             float scale) {
+  if (es == 1)
+    return launch_one<D, int8_t, kDense>(
+        grid, Layout<D, 1>(rp).bytes(), st, q, k, v, sk, sv, tbl, lengths,
+        out, ws, tickets, C, H, Hkv, NB, bs, T, scale);
+  return launch_one<D, __nv_bfloat16, kDense>(
+      grid, Layout<D, 2>(rp).bytes(), st, q, k, v, sk, sv, tbl, lengths, out,
+      ws, tickets, C, H, Hkv, NB, bs, T, scale);
+}
+
 // Launch for q / out of (B, C, H, D); ws_len f32 of workspace and tk_len
 // int32 tickets, at least what scratch() asks for (tickets zero before
-// the first launch; every launch leaves them zero). kDense: k / v / s_k /
-// s_v are a dense cache (B, Hkv, S, D), passed as T = 1, bs = S, NB = B,
-// and tbl is not read.
+// the first launch; every launch leaves them zero). kv_bytes: 1 for int8
+// K/V pools, 2 for bf16. kDense: k / v / s_k / s_v are a dense cache (B,
+// Hkv, S, D), passed as T = 1, bs = S, NB = B, and tbl is not read.
 template <bool kDense>
 int launch(const void* q, const void* k, const void* v, const void* sk,
            const void* sv, const void* tbl, const void* lengths, void* out,
            void* ws, long long ws_len, void* tickets, long long tk_len,
            int B, int C, int H, int Hkv, int NB, int bs, int T, int D,
-           float scale, void* stream) {
-  if (!valid(B, C, H, Hkv, D, T, bs, NB))
+           int kv_bytes, float scale, void* stream) {
+  if (!valid(B, C, H, Hkv, D, T, bs, NB) || (kv_bytes != 1 && kv_bytes != 2))
     return static_cast<int>(cudaErrorInvalidValue);
   long long ws_need, tk_need;
   scratch(B, C, H, Hkv, D, T, bs, &ws_need, &tk_need);
@@ -693,44 +816,19 @@ int launch(const void* q, const void* k, const void* v, const void* sk,
   const int QC = RMAX / G;
   const long long nqc = (C + QC - 1) / QC;
   const long long NS = ((long long)T * bs + SPLIT - 1) / SPLIT;
-  const int R = (C < QC ? C : QC) * G;
-  const int smem = (D == 128 ? Layout<128>((R + 7) & ~7).bytes()
-                             : Layout<64>((R + 7) & ~7).bytes());
+  const int rp = ((C < QC ? C : QC) * G + 7) & ~7;
   const dim3 grid((unsigned)(NS * B), (unsigned)(nqc * Hkv));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  // the attribute is raised once to the largest size asked for, so a
-  // call inside a stream capture sets nothing after the first eager one
-  static int smem_set[2] = {0, 0};
-  int& set = smem_set[D == 128];
-  if (smem > set) {
-    const cudaError_t e =
-        D == 128 ? cudaFuncSetAttribute(
-                       kvq_paged_split_kernel<128, kDense>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem)
-                 : cudaFuncSetAttribute(
-                       kvq_paged_split_kernel<64, kDense>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    set = smem;
+#define KVQ_ARGS                                                           \
+  kv_bytes, grid, rp, st, q, k, v, sk, sv, tbl, lengths, out, ws, tickets, \
+      C, H, Hkv, NB, bs, T, scale
+  switch (D) {
+    case 16: return launch_d<16, kDense>(KVQ_ARGS);
+    case 64: return launch_d<64, kDense>(KVQ_ARGS);
+    case 128: return launch_d<128, kDense>(KVQ_ARGS);
+    default: return launch_d<256, kDense>(KVQ_ARGS);
   }
-  if (D == 128) {
-    kvq_paged_split_kernel<128, kDense><<<grid, THREADS, smem, st>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const int8_t*>(k),
-        static_cast<const int8_t*>(v), static_cast<const float*>(sk),
-        static_cast<const float*>(sv), static_cast<const int*>(tbl),
-        static_cast<const int*>(lengths), static_cast<__nv_bfloat16*>(out),
-        static_cast<float*>(ws), static_cast<int*>(tickets), C, H, Hkv, NB,
-        bs, T, scale);
-  } else {
-    kvq_paged_split_kernel<64, kDense><<<grid, THREADS, smem, st>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const int8_t*>(k),
-        static_cast<const int8_t*>(v), static_cast<const float*>(sk),
-        static_cast<const float*>(sv), static_cast<const int*>(tbl),
-        static_cast<const int*>(lengths), static_cast<__nv_bfloat16*>(out),
-        static_cast<float*>(ws), static_cast<int*>(tickets), C, H, Hkv, NB,
-        bs, T, scale);
-  }
-  return static_cast<int>(cudaGetLastError());
+#undef KVQ_ARGS
 }
 
 }  // namespace

@@ -1,4 +1,5 @@
-// Multi-query attention through a block table over a paged int8 KV pool,
+// Multi-query attention through a block table over a paged int8 or bf16 KV
+// pool,
 // for the speculative verify-wave, for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/kvq_attn/kernel.py
@@ -11,7 +12,7 @@
 //
 // q (B, C, H, D) bf16: the C = k + 1 window queries of each slot, whose
 // K/V the verify-wave has already committed to the pool; k / v pools
-// (NB + 1, Hkv, bs, D) int8, the last block a write sink that is never
+// (NB + 1, Hkv, bs, D) int8 or bf16, the last block a write sink that is never
 // read; s_k / s_v (NB + 1, Hkv, bs) f32 per-token scales; tbl (B, T) int32
 // block ids, entries >= NB are unallocated sentinels; lengths (B, C) int32
 // per-query extents (history + the window through the query itself);
@@ -34,9 +35,9 @@
 // row is computed by the same IEEE operations whatever the other rows of
 // its CTA are (the header states why).
 //
-// ws / tickets as in kvq_paged_decode_attn.cu. Requirements (checked by
-// the Python wrapper): D == 64 or D == 128, G <= 8, bs >= 1, every tensor
-// contiguous.
+// kv_bytes: 1 for int8 K/V, 2 for bf16. ws / tickets as in
+// kvq_paged_decode_attn.cu. Requirements (checked by the Python wrapper):
+// D of 16, 64, 128 or 256, G <= 10, bs >= 1, every tensor contiguous.
 
 #include "kvq_paged_split.cuh"
 
@@ -44,9 +45,9 @@ extern "C" int kvq_spec_verify_attn_launch(
     const void* q, const void* k, const void* v, const void* sk,
     const void* sv, const void* tbl, const void* lengths, void* out,
     void* ws, long long ws_len, void* tickets, long long tk_len, int B,
-    int C, int H, int Hkv, int NB, int bs, int T, int D, float scale,
-    void* stream) {
+    int C, int H, int Hkv, int NB, int bs, int T, int D, int kv_bytes,
+    float scale, void* stream) {
   return kvq_split::launch<false>(q, k, v, sk, sv, tbl, lengths, out, ws,
                                   ws_len, tickets, tk_len, B, C, H, Hkv, NB,
-                                  bs, T, D, scale, stream);
+                                  bs, T, D, kv_bytes, scale, stream);
 }

@@ -18,7 +18,7 @@ from repro_torch.kernels.flash_attn.ref import flash_attn_ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = (_P,) * 4 + (_I,) * 10 + (ctypes.c_float, _P)
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (16, 64, 128, 256)
 
 
 @functools.lru_cache(maxsize=None)
@@ -37,7 +37,8 @@ def flash_attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     CPU tensors, and every tensor when ``plain``, run the plain version.
     CUDA tensors launch the kernel, which takes contiguous 16-byte aligned
-    bf16 operands, H % Hkv == 0 and D of 64 or 128; anything else raises.
+    bf16 operands, H % Hkv == 0 and D of 16, 64, 128 or 256; anything
+    else raises.
     """
     if q.device.type == "cpu" or plain:
         return flash_attn_ref(q, k, v, causal=causal, window=window)

@@ -51,11 +51,11 @@ _SCR = (_P, _L, _P, _L)
 _PAGED = (_P,) * 8 + _SCR
 # C signatures of the launchers: pointers and the stream as c_void_p
 _ARGTYPES = {
-    "kvq_decode_attn": (_P,) * 7 + _SCR + (_I,) * 5 + (ctypes.c_float, _P),
-    "kvq_paged_decode_attn": _PAGED + (_I,) * 7 + (ctypes.c_float, _P),
-    "kvq_spec_verify_attn": _PAGED + (_I,) * 8 + (ctypes.c_float, _P),
-    "gather_dequant_paged_kv": (_P,) * 4 + (_I,) * 6 + (_P,),
-    "gather_dequant_paged_kv2": (_P,) * 7 + (_I,) * 6 + (_P,),
+    "kvq_decode_attn": (_P,) * 7 + _SCR + (_I,) * 6 + (ctypes.c_float, _P),
+    "kvq_paged_decode_attn": _PAGED + (_I,) * 8 + (ctypes.c_float, _P),
+    "kvq_spec_verify_attn": _PAGED + (_I,) * 9 + (ctypes.c_float, _P),
+    "gather_dequant_paged_kv": (_P,) * 4 + (_I,) * 7 + (_P,),
+    "gather_dequant_paged_kv2": (_P,) * 7 + (_I,) * 7 + (_P,),
     "pool_block_copy": (_P,) * 3 + (_I,) * 2 + (ctypes.c_longlong,) * 2
     + (_I, _P),
     # four (base, layer stride, block bytes) leaves, n_leaves, pairs, n,
@@ -64,8 +64,11 @@ _ARGTYPES = {
     + (_P,),
 }
 MAX_COPY_LEAVES = 4
-MAX_GROUP = 8       # query heads per KV head the kernel holds on chip
-HEAD_DIMS = (64, 128)
+MAX_GROUP = 10      # query heads per KV head the kernel holds on chip
+HEAD_DIMS = (16, 64, 128, 256)
+# K/V element types the kernels read (int8: a C8 cache; bf16: C16), and
+# their element bytes, the launchers' kv_bytes
+KV_DTYPES = {torch.int8: 1, torch.bfloat16: 2}
 SPLIT = 64          # token positions a CTA of the split-KV kernels owns
 #                     (csrc/kvq_paged_split.cuh; checked at load)
 
@@ -139,6 +142,23 @@ def _scratch(dev: torch.device, ws_n: int, tk_n: int):
     return cur
 
 
+def _kv_dtype(name: str, k, v) -> int:
+    """The launchers' kv_bytes for K/V of one supported dtype, else
+    raise."""
+    if k.dtype not in KV_DTYPES or v.dtype != k.dtype:
+        raise ValueError(f"{name} takes int8 or bf16 K/V of one dtype; got "
+                         f"{k.dtype} and {v.dtype}")
+    return KV_DTYPES[k.dtype]
+
+
+def _check_heads(H: int, Hkv: int, D: int) -> None:
+    if H % Hkv or H // Hkv > MAX_GROUP:
+        raise ValueError(f"the kernel needs H % Hkv == 0 and H // Hkv <= "
+                         f"{MAX_GROUP}; got H={H}, Hkv={Hkv}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"the kernel needs D in {HEAD_DIMS}; got D={D}")
+
+
 def _paged_split_call(name, q, k_pool, v_pool, s_k, s_v, block_tbl,
                       lengths, C, dims) -> torch.Tensor:
     """Launch one of the two split-KV kernels on checked inputs (C None:
@@ -152,8 +172,8 @@ def _paged_split_call(name, q, k_pool, v_pool, s_k, s_v, block_tbl,
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), s_k.data_ptr(),
         s_v.data_ptr(), block_tbl.data_ptr(), lengths.data_ptr(),
         out.data_ptr(), ws.data_ptr(), ws.numel(), tk.data_ptr(),
-        tk.numel(), *shape, NB1 - 1, bs, T, D, D ** -0.5,
-        torch.cuda.current_stream(dev).cuda_stream)
+        tk.numel(), *shape, NB1 - 1, bs, T, D, KV_DTYPES[k_pool.dtype],
+        D ** -0.5, torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, name)
     return out
 
@@ -169,12 +189,13 @@ def _cuda_only(name: str, t: torch.Tensor) -> None:
 
 
 def kvq_decode_attn(q, k_q, v_q, s_k, s_v, lengths) -> torch.Tensor:
-    """Decode attention over an int8 cache.
+    """Decode attention over a quantized (int8) or bf16 cache.
 
-    q (B,H,D); k_q/v_q (B,Hkv,S,D) int8; s_k/s_v (B,Hkv,S) fp32;
+    q (B,H,D); k_q/v_q (B,Hkv,S,D) int8 or bf16; s_k/s_v (B,Hkv,S) fp32;
     lengths (B,) int32. CPU tensors run the plain version. CUDA tensors
     launch the kernel, which takes a bf16 q, H % Hkv == 0 with at most
-    8 query heads per KV head, and D of 64 or 128; anything else raises.
+    10 query heads per KV head, and D of 16, 64, 128 or 256; anything
+    else raises.
     On CUDA a slot's output is bitwise :func:`kvq_paged_decode_attn` of
     the same K/V in a pool, and depends only on its own length.
     """
@@ -184,14 +205,11 @@ def kvq_decode_attn(q, k_q, v_q, s_k, s_v, lengths) -> torch.Tensor:
     B, H, D = q.shape
     Hkv, S = k_q.shape[1], k_q.shape[2]
     dev = q.device
-    if H % Hkv or H // Hkv > MAX_GROUP:
-        raise ValueError(f"the kernel needs H % Hkv == 0 and H // Hkv <= "
-                         f"{MAX_GROUP}; got H={H}, Hkv={Hkv}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"the kernel needs D in {HEAD_DIMS}; got D={D}")
+    _check_heads(H, Hkv, D)
+    kv_bytes = _kv_dtype("kvq_decode_attn", k_q, v_q)
     check_tensor("q", q, torch.bfloat16, (B, H, D), dev)
-    check_tensor("k_q", k_q, torch.int8, (B, Hkv, S, D), dev)
-    check_tensor("v_q", v_q, torch.int8, (B, Hkv, S, D), dev)
+    check_tensor("k_q", k_q, k_q.dtype, (B, Hkv, S, D), dev)
+    check_tensor("v_q", v_q, k_q.dtype, (B, Hkv, S, D), dev)
     check_tensor("s_k", s_k, torch.float32, (B, Hkv, S), dev)
     check_tensor("s_v", s_v, torch.float32, (B, Hkv, S), dev)
     check_tensor("lengths", lengths, torch.int32, (B,), dev)
@@ -202,8 +220,8 @@ def kvq_decode_attn(q, k_q, v_q, s_k, s_v, lengths) -> torch.Tensor:
     err = _fn("kvq_decode_attn")(
         q.data_ptr(), k_q.data_ptr(), v_q.data_ptr(), s_k.data_ptr(),
         s_v.data_ptr(), lengths.data_ptr(), out.data_ptr(), ws.data_ptr(),
-        ws.numel(), tk.data_ptr(), tk.numel(), B, H, Hkv, S, D, D ** -0.5,
-        torch.cuda.current_stream(dev).cuda_stream)
+        ws.numel(), tk.data_ptr(), tk.numel(), B, H, Hkv, S, D, kv_bytes,
+        D ** -0.5, torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "kvq_decode_attn")
     kvq_decode_attn.launches += 1
     return out
@@ -214,14 +232,15 @@ kvq_decode_attn.launches = 0
 
 def kvq_paged_decode_attn(q, k_pool, v_pool, s_k, s_v, block_tbl,
                           lengths) -> torch.Tensor:
-    """Decode attention through a block table over a paged int8 pool.
+    """Decode attention through a block table over a paged pool.
 
-    q (B,H,D); k_pool/v_pool (NB+1,Hkv,bs,D) int8 with the sink block;
+    q (B,H,D); k_pool/v_pool (NB+1,Hkv,bs,D) int8 or bf16 with the sink
+    block;
     s_k/s_v (NB+1,Hkv,bs) fp32; block_tbl (B,T) int32, entries >= NB are
     sentinels (the kernel clamps them to NB-1 itself); lengths (B,) int32.
     CPU tensors run the plain version. CUDA tensors launch the kernel,
-    which takes a bf16 q, H % Hkv == 0 with at most 8 query heads per KV
-    head and D of 64 or 128; anything else raises.
+    which takes a bf16 q, H % Hkv == 0 with at most 10 query heads per KV
+    head and D of 16, 64, 128 or 256; anything else raises.
     """
     if q.device.type == "cpu":
         return kvq_paged_decode_attn_ref(q, k_pool, v_pool, s_k, s_v,
@@ -231,18 +250,15 @@ def kvq_paged_decode_attn(q, k_pool, v_pool, s_k, s_v, block_tbl,
     NB1, Hkv, bs = k_pool.shape[0], k_pool.shape[1], k_pool.shape[2]
     T = block_tbl.shape[1]
     dev = q.device
-    if H % Hkv or H // Hkv > MAX_GROUP:
-        raise ValueError(f"the kernel needs H % Hkv == 0 and H // Hkv <= "
-                         f"{MAX_GROUP}; got H={H}, Hkv={Hkv}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"the kernel needs D in {HEAD_DIMS}; got D={D}")
+    _check_heads(H, Hkv, D)
     if NB1 < 2 or T < 1:
         raise ValueError(f"the kernel needs a pool of >= 1 block plus the "
                          f"sink and a table of >= 1 entry; got "
                          f"{NB1} blocks, T={T}")
     check_tensor("q", q, torch.bfloat16, (B, H, D), dev)
-    check_tensor("k_pool", k_pool, torch.int8, (NB1, Hkv, bs, D), dev)
-    check_tensor("v_pool", v_pool, torch.int8, (NB1, Hkv, bs, D), dev)
+    _kv_dtype("kvq_paged_decode_attn", k_pool, v_pool)
+    check_tensor("k_pool", k_pool, k_pool.dtype, (NB1, Hkv, bs, D), dev)
+    check_tensor("v_pool", v_pool, k_pool.dtype, (NB1, Hkv, bs, D), dev)
     check_tensor("s_k", s_k, torch.float32, (NB1, Hkv, bs), dev)
     check_tensor("s_v", s_v, torch.float32, (NB1, Hkv, bs), dev)
     check_tensor("block_tbl", block_tbl, torch.int32, (B, T), dev)
@@ -264,14 +280,15 @@ def kvq_spec_verify_attn(q, k_pool, v_pool, s_k, s_v, block_tbl,
     """The verify-wave's attention: C queries per slot through the block
     table, each over its own extent.
 
-    q (B,C,H,D); k_pool/v_pool (NB+1,Hkv,bs,D) int8 with the sink block;
+    q (B,C,H,D); k_pool/v_pool (NB+1,Hkv,bs,D) int8 or bf16 with the
+    sink block;
     s_k/s_v (NB+1,Hkv,bs) fp32; block_tbl (B,T) int32, entries >= NB are
     sentinels (the kernel clamps them to NB-1 itself); lengths (B,C)
     int32. Query c of slot b equals :func:`kvq_paged_decode_attn` of that
     query at ``lengths[:, c]``, bitwise on CUDA. CPU tensors run the
     plain version. CUDA tensors launch the kernel, which takes a bf16 q,
-    H % Hkv == 0 with at most 8 query heads per KV head and D of 64 or
-    128; anything else raises.
+    H % Hkv == 0 with at most 10 query heads per KV head and D of 16, 64,
+    128 or 256; anything else raises.
     """
     if q.device.type == "cpu":
         return kvq_spec_verify_attn_ref(q, k_pool, v_pool, s_k, s_v,
@@ -281,18 +298,15 @@ def kvq_spec_verify_attn(q, k_pool, v_pool, s_k, s_v, block_tbl,
     NB1, Hkv, bs = k_pool.shape[0], k_pool.shape[1], k_pool.shape[2]
     T = block_tbl.shape[1]
     dev = q.device
-    if H % Hkv or H // Hkv > MAX_GROUP:
-        raise ValueError(f"the kernel needs H % Hkv == 0 and H // Hkv <= "
-                         f"{MAX_GROUP}; got H={H}, Hkv={Hkv}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"the kernel needs D in {HEAD_DIMS}; got D={D}")
+    _check_heads(H, Hkv, D)
     if NB1 < 2 or T < 1 or C < 1:
         raise ValueError(f"the kernel needs a pool of >= 1 block plus the "
                          f"sink, a table of >= 1 entry and C >= 1; got "
                          f"{NB1} blocks, T={T}, C={C}")
     check_tensor("q", q, torch.bfloat16, (B, C, H, D), dev)
-    check_tensor("k_pool", k_pool, torch.int8, (NB1, Hkv, bs, D), dev)
-    check_tensor("v_pool", v_pool, torch.int8, (NB1, Hkv, bs, D), dev)
+    _kv_dtype("kvq_spec_verify_attn", k_pool, v_pool)
+    check_tensor("k_pool", k_pool, k_pool.dtype, (NB1, Hkv, bs, D), dev)
+    check_tensor("v_pool", v_pool, k_pool.dtype, (NB1, Hkv, bs, D), dev)
     check_tensor("s_k", s_k, torch.float32, (NB1, Hkv, bs), dev)
     check_tensor("s_v", s_v, torch.float32, (NB1, Hkv, bs), dev)
     check_tensor("block_tbl", block_tbl, torch.int32, (B, T), dev)
@@ -312,10 +326,11 @@ kvq_spec_verify_attn.launches = 0
 def gather_dequant_paged_kv(pool, s_pool, block_tbl) -> torch.Tensor:
     """Dequantized history gather for the batched tail-wave.
 
-    pool (NB+1,Hkv,bs,D) int8 with the sink block; s_pool (NB+1,Hkv,bs)
-    fp32; block_tbl (n,T) int32 (sentinels clamped to NB-1). Returns
-    (n,Hkv,T*bs,D) f32, bitwise equal to the plain version. CPU tensors
-    run the plain version; CUDA tensors launch the kernel (D % 16 == 0).
+    pool (NB+1,Hkv,bs,D) int8 or bf16 with the sink block; s_pool
+    (NB+1,Hkv,bs) fp32; block_tbl (n,T) int32 (sentinels clamped to
+    NB-1). Returns (n,Hkv,T*bs,D) f32, bitwise equal to the plain
+    version. CPU tensors run the plain version; CUDA tensors launch the
+    kernel (D % 16 == 0).
     """
     if pool.device.type == "cpu":
         return gather_dequant_paged_kv_ref(pool, s_pool, block_tbl)
@@ -352,10 +367,10 @@ def gather_dequant_paged_kv_pair(k_pool, s_k, v_pool, s_v, block_tbl):
 
 
 def _gather_dims(pool, block_tbl):
-    """The gather launchers' (n, Hkv, NB, bs, T, D)."""
+    """The gather launchers' (n, Hkv, NB, bs, T, D, kv_bytes)."""
     NB1, Hkv, bs, D = pool.shape
     n, T = block_tbl.shape
-    return n, Hkv, NB1 - 1, bs, T, D
+    return n, Hkv, NB1 - 1, bs, T, D, KV_DTYPES[pool.dtype]
 
 
 def _gather_out(pool, s_pool, block_tbl) -> torch.Tensor:
@@ -368,7 +383,10 @@ def _gather_out(pool, s_pool, block_tbl) -> torch.Tensor:
         raise ValueError(f"the kernel needs D % 16 == 0, a pool of >= 1 "
                          f"block plus the sink and T >= 1; got D={D}, "
                          f"{NB1} blocks, T={T}")
-    check_tensor("pool", pool, torch.int8, (NB1, Hkv, bs, D), dev)
+    if pool.dtype not in KV_DTYPES:
+        raise ValueError(f"the kernel takes int8 or bf16 pools; got "
+                         f"{pool.dtype}")
+    check_tensor("pool", pool, pool.dtype, (NB1, Hkv, bs, D), dev)
     check_tensor("s_pool", s_pool, torch.float32, (NB1, Hkv, bs), dev)
     check_tensor("block_tbl", block_tbl, torch.int32, (n, T), dev)
     check_aligned("pool", pool)

@@ -9,7 +9,8 @@ Caches are updated in place: the engine owns one cache per layer for its
 whole life, and a decode step writes its new K/V row into it.
 
 Two cache layouts: the dense ring (``init_attn_cache``, one stripe of
-``cache_len`` rows per slot) and the paged pool (``init_paged_attn_cache``,
+``cache_len`` rows per slot, or of ``min(cache_len, window)`` rows for a
+sliding-window layer, whose ring eviction enforces the window) and the paged pool (``init_paged_attn_cache``,
 blocks of ``page_size`` tokens shared by every slot through a block table).
 A paged layer's pool leaves are views of layer-stacked tensors with one
 block more than the pool holds: the last block is the write sink for
@@ -226,11 +227,15 @@ def _ring_gather(val: torch.Tensor, lengths: torch.Tensor,
 
 
 def attn_prefill(cfg: ModelConfig, ctx: QuantCtx, p: Dict, x: torch.Tensor,
-                 rope, *, cache_len: int = 0,
+                 rope, *, window: int = 0, cache_len: int = 0,
                  lengths: Optional[torch.Tensor] = None,
                  page_size: int = 0, row_lengths: Optional[list] = None):
     """Causal attention over the prompt that also emits the quantized
     dense cache for serving.
+
+    ``window`` > 0 (a local-attention layer) attends over the last
+    ``window`` positions and keeps a ring of ``min(cache_len, window)``
+    rows: the token at position j lives at row j % Sc.
 
     ``lengths`` (B,) marks the valid (right-padded) prefix of each row:
     pad-position K/V are dropped from the cache and ``cache["length"]``
@@ -244,16 +249,20 @@ def attn_prefill(cfg: ModelConfig, ctx: QuantCtx, p: Dict, x: torch.Tensor,
     ``page_size`` > 0 emits the cache in *block shape* (B, nb, Hkv,
     page_size, D) instead: the paged engine scatters those blocks into
     the global pool through the rows' block ids. The attention is the
-    same either way.
+    same either way; it needs ``window`` 0 (paged layers are full
+    attention).
     """
     B, S, _ = x.shape
+    if page_size and window:
+        raise ValueError("paged cache layout requires full attention "
+                         "(window == 0)")
     q, k, v = _qkv(cfg, ctx, p, x, rope)
     if x.is_cuda and lengths is not None:
         out = _prefill_attention_rows(
-            q, k, v, row_lengths or lengths.tolist())
+            q, k, v, row_lengths or lengths.tolist(), window)
     else:
-        out = blockwise_attention(q, k, v, causal=True, q_chunk=1024,
-                                  kv_chunk=1024)
+        out = blockwise_attention(q, k, v, causal=True, window=window,
+                                  q_chunk=1024, kv_chunk=1024)
     y = qlinear(ctx, out.reshape(B, S, cfg.q_dim), p["wo"])
     k_q, v_q, s_k, s_v = quantize_kv_for_cache(ctx, p, k, v)
     if lengths is None:
@@ -263,6 +272,8 @@ def attn_prefill(cfg: ModelConfig, ctx: QuantCtx, p: Dict, x: torch.Tensor,
         cache["length"] = lengths.to(torch.int32, copy=True)
         return y, cache
     Sc = cache_len or S
+    if window:
+        Sc = min(Sc, window)   # ring eviction enforces the sliding window
     cache = {"k_q": _ring_gather(k_q, lengths, Sc),
              "v_q": _ring_gather(v_q, lengths, Sc),
              "s_k": _ring_gather(s_k, lengths, Sc),
@@ -272,7 +283,8 @@ def attn_prefill(cfg: ModelConfig, ctx: QuantCtx, p: Dict, x: torch.Tensor,
     return y, cache
 
 
-def _prefill_attention_rows(q, k, v, lengths: list) -> torch.Tensor:
+def _prefill_attention_rows(q, k, v, lengths: list,
+                            window: int = 0) -> torch.Tensor:
     """Causal attention of a right-padded prefill wave, each row over its
     own ``lengths[b]`` real tokens and nothing else; pad positions stay
     zero (causality keeps them out of every real token, and their K/V are
@@ -281,13 +293,13 @@ def _prefill_attention_rows(q, k, v, lengths: list) -> torch.Tensor:
     and the reductions' summation order, from the whole wave (its row
     count and padded length); row by row a prompt's cache and first-token
     logits are the same whichever prompts it is admitted with.
-    ``lengths``: host ints."""
+    ``lengths``: host ints; ``window`` as in :func:`attn_prefill`."""
     out = torch.zeros_like(q)
     for b, n in enumerate(lengths):
         if n:
             out[b, :n] = blockwise_attention(
                 q[b:b + 1, :n], k[b:b + 1, :n], v[b:b + 1, :n], causal=True,
-                q_chunk=1024, kv_chunk=1024)[0]
+                window=window, q_chunk=1024, kv_chunk=1024)[0]
     return out
 
 
@@ -324,10 +336,11 @@ def _blank_attn_cache(B: int, cfg: ModelConfig, S: int, qdtype,
 
 
 def init_attn_cache(cfg: ModelConfig, B: int, S: int, *, device,
-                    dtype=torch.int8) -> Dict:
-    if cfg.sliding_window:
-        raise NotImplementedError("sliding-window ring caches are not ported")
-    return _blank_attn_cache(B, cfg, S, dtype, device)
+                    window: int = 0, dtype=torch.int8) -> Dict:
+    """window > 0 -> a ring bounded at the window (sliding-window
+    decode)."""
+    Sc = min(S, window) if window else S
+    return _blank_attn_cache(B, cfg, Sc, dtype, device)
 
 
 def init_paged_attn_cache(cfg: ModelConfig, B: int, num_blocks: int,
@@ -371,7 +384,9 @@ def attn_decode(cfg: ModelConfig, ctx: QuantCtx, p: Dict, x1: torch.Tensor,
 
     Dense layout: writes the new K/V row of every slot into ``cache`` in
     place (ring row ``length % Sc``), advances ``cache["length"]`` and
-    attends over the first min(length, Sc) rows.
+    attends over the first min(length, Sc) rows. A sliding-window layer's
+    ring holds ``min(cache_len, window)`` rows, so once it wraps the
+    oldest token is overwritten and the window is kept by the ring itself.
 
     ``block_tbl`` (B, T) switches to the paged layout: the commit goes
     through the slot's table into the pool, and a slot whose entry is the

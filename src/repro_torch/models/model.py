@@ -1,10 +1,14 @@
-"""Model stack of the dense GQA decoder (the qwen2.5 family) and the
-xLSTM family (mLSTM and sLSTM blocks).
+"""Model stack of the dense GQA decoder (the qwen2.5 family), the hybrid
+RG-LRU and local-attention stack (recurrentgemma) and the xLSTM family
+(mLSTM and sLSTM blocks).
 
 The reference scans stacked layers with ``lax.scan``; here each layer is
 an entry of ``params["layers"]`` and the stack is a Python loop over them,
-layer i of kind ``cfg.layer_kinds()[i]``: an attention layer holds
-``{"ln1", "attn", "ln2", "mlp"}``, a recurrent one ``{"ln1", "cell"}``.
+layer i of kind ``cfg.layer_kinds()[i]``: an attention layer (global or
+local) holds ``{"ln1", "attn", "ln2", "mlp"}``, an RG-LRU layer
+``{"ln1", "rglru", "ln2", "mlp"}``, an xLSTM one ``{"ln1", "cell"}``. A
+local-attention layer attends over the last ``cfg.local_window``
+positions and serves from a ring of that many rows.
 
 Entry points:
 * ``init_params``  — random weights from a seed, made on the target device
@@ -27,14 +31,16 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.configs.base import (ATTENTION_BLOCKS, BLOCK_ATTN,
-                                      BLOCK_MLSTM, BLOCK_SLSTM, ModelConfig)
+                                      BLOCK_LOCAL_ATTN, BLOCK_MLSTM,
+                                      BLOCK_RGLRU, BLOCK_SLSTM, ModelConfig)
 from repro_torch.core.qat import QuantCtx, cache_dtype, qlinear, subcol
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks as B
 from repro_torch.models import recurrent as R
 from repro_torch.models.common import init_norm, rms_norm, rope_tables
 
-_PORTED_KINDS = (BLOCK_ATTN, BLOCK_MLSTM, BLOCK_SLSTM)
+_PORTED_KINDS = (BLOCK_ATTN, BLOCK_LOCAL_ATTN, BLOCK_RGLRU, BLOCK_MLSTM,
+                 BLOCK_SLSTM)
 
 
 def _check_supported(cfg: ModelConfig) -> None:
@@ -42,8 +48,15 @@ def _check_supported(cfg: ModelConfig) -> None:
             or cfg.sliding_window or cfg.norm_type != "rms"
             or cfg.mlp_type != "swiglu"):
         raise NotImplementedError(
-            f"{cfg.name!r}: the port runs full-attention RMS-norm SwiGLU "
-            "decoders and mLSTM / sLSTM blocks only")
+            f"{cfg.name!r}: the port runs RMS-norm SwiGLU decoders of "
+            "full and local attention, RG-LRU, mLSTM and sLSTM blocks "
+            "only")
+
+
+def _window(cfg: ModelConfig, kind: str) -> int:
+    """The attention window of a layer of ``kind`` (0: full)."""
+    return cfg.local_window if kind == BLOCK_LOCAL_ATTN else \
+        cfg.sliding_window
 
 
 def _attention_only(cfg: ModelConfig) -> bool:
@@ -53,8 +66,12 @@ def _attention_only(cfg: ModelConfig) -> bool:
 def _init_layer(cfg: ModelConfig, kind: str, gen: torch.Generator, dev,
                 dtype) -> Dict:
     p = {"ln1": init_norm(cfg.d_model, dev, dtype)}
-    if kind == BLOCK_ATTN:
+    if kind in ATTENTION_BLOCKS:
         p.update(attn=B.init_attention(cfg, gen, dtype),
+                 ln2=init_norm(cfg.d_model, dev, dtype),
+                 mlp=B.init_mlp(cfg, gen, dtype))
+    elif kind == BLOCK_RGLRU:
+        p.update(rglru=R.init_rglru(cfg, gen, dtype),
                  ln2=init_norm(cfg.d_model, dev, dtype),
                  mlp=B.init_mlp(cfg, gen, dtype))
     elif kind == BLOCK_MLSTM:
@@ -129,9 +146,12 @@ def _block_fwd(cfg: ModelConfig, ctx: QuantCtx, kind: str, p: Dict,
                x: torch.Tensor, rope, col: Optional[Dict]) -> torch.Tensor:
     """One layer of the training / teacher / calibration forward."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    if kind == BLOCK_ATTN:
+    if kind in ATTENTION_BLOCKS:
         x = x + B.attn_fwd(cfg, ctx, p["attn"], h, rope, subcol(col, "attn"),
-                           window=cfg.sliding_window)
+                           window=_window(cfg, kind))
+        return _ffn_tail(cfg, ctx, p, x, col)
+    if kind == BLOCK_RGLRU:
+        x = x + R.rglru_fwd(cfg, ctx, p["rglru"], h, subcol(col, "rglru"))
         return _ffn_tail(cfg, ctx, p, x, col)
     fwd = R.mlstm_fwd if kind == BLOCK_MLSTM else R.slstm_fwd
     return x + fwd(cfg, ctx, p["cell"], h, subcol(col, "cell"))
@@ -141,9 +161,13 @@ def _block_prefill(cfg: ModelConfig, ctx: QuantCtx, kind: str, p: Dict,
                    x: torch.Tensor, rope, **attn_kw):
     """One layer of the prefill: (x, the layer's serving cache)."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    if kind == BLOCK_ATTN:
-        a, c = B.attn_prefill(cfg, ctx, p["attn"], h, rope, **attn_kw)
+    if kind in ATTENTION_BLOCKS:
+        a, c = B.attn_prefill(cfg, ctx, p["attn"], h, rope,
+                              window=_window(cfg, kind), **attn_kw)
         return _ffn_tail(cfg, ctx, p, x + a), c
+    if kind == BLOCK_RGLRU:
+        y, c = R.rglru_prefill(cfg, ctx, p["rglru"], h)
+        return _ffn_tail(cfg, ctx, p, x + y), c
     mod = R.mlstm_prefill if kind == BLOCK_MLSTM else R.slstm_prefill
     y, c = mod(cfg, ctx, p["cell"], h)
     return x + y, c
@@ -154,10 +178,15 @@ def _block_decode(cfg: ModelConfig, ctx: QuantCtx, kind: str, p: Dict,
                   block_tbl, rope) -> torch.Tensor:
     """One layer of a decode step; the layer's cache is updated in place."""
     h = rms_norm(x1, p["ln1"], cfg.norm_eps)
-    if kind == BLOCK_ATTN:
+    if kind in ATTENTION_BLOCKS:
+        # a local layer's ring (min(cache_len, window) rows) keeps its
+        # window: attn_decode attends over the ring's min(length, Sc) rows
         a, _ = B.attn_decode(cfg, ctx, p["attn"], h, cache, positions,
                              block_tbl=block_tbl, rope=rope)
         return _ffn_tail(cfg, ctx, p, x1 + a)
+    if kind == BLOCK_RGLRU:
+        y, _ = R.rglru_decode(cfg, ctx, p["rglru"], h, cache)
+        return _ffn_tail(cfg, ctx, p, x1 + y)
     dec = R.mlstm_decode if kind == BLOCK_MLSTM else R.slstm_decode
     y, _ = dec(cfg, ctx, p["cell"], h, cache)
     return x1 + y
@@ -388,9 +417,12 @@ def init_cache(cfg: ModelConfig, ctx: QuantCtx, batch_size: int,
                page_size: int = 0, table_len: int = 0) -> Dict:
     """Blank serving cache with capacity ``cache_len`` per slot.
 
-    Attention layers hold a dense K/V ring, mLSTM layers their quantized
-    matrix state (``state_q``, ``s_state``), sLSTM layers their quantized
-    h (``state_q``, ``s_state``) and f32 ``c``.
+    Attention layers hold a dense K/V ring (a local-attention layer one
+    of ``min(cache_len, cfg.local_window)`` rows), RG-LRU layers their
+    quantized h (``state_q``, ``s_state``) and the conv's bf16 history
+    (``conv_buf``), mLSTM layers their quantized matrix state
+    (``state_q``, ``s_state``), sLSTM layers their quantized h
+    (``state_q``, ``s_state``) and f32 ``c``.
 
     ``num_blocks`` > 0 switches to the paged layout: one global pool of
     ``num_blocks`` x ``page_size``-token quantized blocks per layer (plus
@@ -419,11 +451,13 @@ def init_cache(cfg: ModelConfig, ctx: QuantCtx, batch_size: int,
                 "block_tbl": tbl}
 
     def layer_cache(kind):
-        if kind == BLOCK_ATTN:
+        if kind in ATTENTION_BLOCKS:
             return B.init_attn_cache(cfg, batch_size, cache_len,
-                                     device=device, dtype=qdt)
-        init = (R.init_mlstm_cache if kind == BLOCK_MLSTM
-                else R.init_slstm_cache)
+                                     device=device,
+                                     window=_window(cfg, kind), dtype=qdt)
+        init = {BLOCK_RGLRU: R.init_rglru_cache,
+                BLOCK_MLSTM: R.init_mlstm_cache,
+                BLOCK_SLSTM: R.init_slstm_cache}[kind]
         return init(cfg, batch_size, device=device, dtype=qdt)
 
     return {"layers": [layer_cache(kind) for kind in cfg.layer_kinds()],

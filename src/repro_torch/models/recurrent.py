@@ -1,5 +1,12 @@
-"""Recurrent blocks of the xLSTM family: mLSTM (matrix memory, chunked
-parallel form) and sLSTM (scalar memory, sequential scan).
+"""Recurrent blocks: the RG-LRU (RecurrentGemma / Griffin), and the xLSTM
+family's mLSTM (matrix memory, chunked parallel form) and sLSTM (scalar
+memory, sequential scan).
+
+The RG-LRU is a diagonal linear recurrence. As in the reference it runs
+as an associative scan (:func:`associative_scan`, the recursion of
+``jax.lax.associative_scan``): log-depth elementwise ops, with the same
+combination tree and so the same f32 sums. It has no kernel in either
+package.
 
 SiLQ sites as in the reference: every projection / gate linear carries
 A-bit input and W4 per-channel weight quantizers, the recurrences run in
@@ -50,11 +57,163 @@ _SQRT_2_OVER_PI = float(torch.tensor((2 / torch.pi) ** 0.5,
                                      dtype=torch.float32))
 
 
-def _gelu(x: torch.Tensor) -> torch.Tensor:
+def _gelu(x: torch.Tensor, tanh: Callable = torch.tanh) -> torch.Tensor:
     """``jax.nn.gelu`` (tanh approximation) in its op order, f32."""
     x3 = x * (x * x)
-    cdf = 0.5 * (1.0 + torch.tanh(_SQRT_2_OVER_PI * (x + 0.044715 * x3)))
+    cdf = 0.5 * (1.0 + tanh(_SQRT_2_OVER_PI * (x + 0.044715 * x3)))
     return x * cdf
+
+
+# --------------------------------------------------------------------------
+# The reference's f32 transcendentals on the CPU. XLA:CPU evaluates exp,
+# tanh, log and log1p with its own polynomials (Eigen's and Cephes'), FMA
+# contracted, and its sqrt is correctly rounded; torch's CPU functions
+# round up to a few ulps apart, and in
+# the RG-LRU's gates such an ulp reaches a bf16 output now and then and is
+# carried down the recurrence. So CPU tensors take the polynomials below
+# (an FMA is the f64 product and sum rounded to f32: the product is exact
+# in f64), and CUDA tensors torch's own functions. Measured against
+# XLA:CPU on 1.2e5 random f32 inputs: exp, tanh, logistic and log1p's
+# small branch bitwise; log (log1p's branch above sqrt(2) - 1) 3.5e-4 of
+# values one ulp apart.
+# --------------------------------------------------------------------------
+
+def _c(*vals):
+    """Constants rounded to f32, as the reference's f32 code holds them."""
+    out = tuple(float(torch.tensor(v, dtype=torch.float32)) for v in vals)
+    return out if len(out) > 1 else out[0]
+
+
+def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
+    """f32 a * b + c rounded once (b, c: f32 tensors or f32 constants)."""
+    b = b.double() if isinstance(b, torch.Tensor) else b
+    c = c.double() if isinstance(c, torch.Tensor) else c
+    return (a.double() * b + c).float()
+
+
+_EXP_P = _c(1.9875691500e-4, 1.3981999507e-3, 8.3334519073e-3,
+            4.1665795894e-2, 1.6666665459e-1, 5.0000001201e-1)
+_EXP_K = _c(88.3762626647949, 88.3762626647950, 1.44269504088896341,
+            0.693359375, 2.12194440e-4)
+
+
+def _exp(x: torch.Tensor) -> torch.Tensor:
+    """f32 exp; on the CPU XLA:CPU's (Cephes' polynomial)."""
+    if x.is_cuda:
+        return torch.exp(x)
+    lo, hi, log2e, c1, c2 = _EXP_K
+    x = torch.clamp(x, -lo, hi)
+    fx = torch.floor(_fma(x, log2e, 0.5))
+    r = _fma(fx, -c1, x)
+    r = _fma(fx, c2, r)
+    z = r * r
+    y = _fma(torch.full_like(r, _EXP_P[0]), r, _EXP_P[1])
+    for c in _EXP_P[2:]:
+        y = _fma(y, r, c)
+    y = _fma(y, z, r) + 1.0
+    return (y.double() * torch.exp2(fx.double())).float()
+
+
+_TANH_NUM = _c(-2.76076847742355e-16, 2.00018790482477e-13,
+               -8.60467152213735e-11, 5.12229709037114e-08,
+               1.48572235717979e-05, 6.37261928875436e-04,
+               4.89352455891786e-03)
+_TANH_DEN = _c(1.19825839466702e-06, 1.18534705686654e-04,
+               2.26843463243900e-03, 4.89352518554385e-03)
+_TANH_CLAMP, _TANH_SMALL = _c(7.99881172180175781, 0.0004)
+
+
+def _tanh(x: torch.Tensor) -> torch.Tensor:
+    """f32 tanh; on the CPU XLA:CPU's rational approximation."""
+    if x.is_cuda:
+        return torch.tanh(x)
+    xc = torch.clamp(x, -_TANH_CLAMP, _TANH_CLAMP)
+    x2 = xc * xc
+    num = torch.full_like(x2, _TANH_NUM[0])
+    for c in _TANH_NUM[1:]:
+        num = _fma(x2, num, c)
+    num = xc * num
+    den = torch.full_like(x2, _TANH_DEN[0])
+    for c in _TANH_DEN[1:]:
+        den = _fma(x2, den, c)
+    return torch.where(torch.abs(x) < _TANH_SMALL, x, num / den)
+
+
+def _sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.sigmoid`` (XLA's logistic: 1 / (1 + exp(-x)))."""
+    if x.is_cuda:
+        return torch.sigmoid(x)
+    return 1.0 / (1.0 + _exp(-x))
+
+
+_LOG_P = _c(7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1,
+            -1.2420140846e-1, 1.4249322787e-1, -1.6668057665e-1,
+            2.0000714765e-1, -2.4999993993e-1, 3.3333331174e-1)
+_LOG_K = _c(0.707106781186547524, 2.12194440e-4, 0.693359375)
+
+
+def _log(x: torch.Tensor) -> torch.Tensor:
+    """f32 log of positive normal x, Eigen's Cephes polynomial."""
+    m, e = torch.frexp(x)
+    e = e.float()
+    sqrt_half, q1, q2 = _LOG_K
+    small = m < sqrt_half
+    e = e - small.float()
+    m = (m - 1.0) + torch.where(small, m, torch.zeros_like(m))
+    x2 = m * m
+    x3 = x2 * m
+    y = _fma(torch.full_like(m, _LOG_P[0]), m, _LOG_P[1])
+    y1 = _fma(torch.full_like(m, _LOG_P[3]), m, _LOG_P[4])
+    y2 = _fma(torch.full_like(m, _LOG_P[6]), m, _LOG_P[7])
+    y = _fma(y, m, _LOG_P[2])
+    y1 = _fma(y1, m, _LOG_P[5])
+    y2 = _fma(y2, m, _LOG_P[8])
+    y = _fma(y, x3, y1)
+    y = _fma(y, x3, y2) * x3
+    y = _fma(e, -q1, y)
+    r = _fma(x2, -0.5, m) + y
+    return _fma(e, q2, r)
+
+
+_LOG1P_NUM = _c(4.5270000862445199635215e-5, 4.9854102823193375972212e-1,
+                6.5787325942061044846969e0, 2.9911919328553073277375e1,
+                6.0949667980987787057556e1, 5.7112963590585538103336e1,
+                2.0039553499201281259648e1)
+_LOG1P_DEN = _c(1.0, 1.5062909083469192043167e1, 8.3047565967967209469434e1,
+                2.2176239823732856465394e2, 3.0909872225312059774938e2,
+                2.1642788614495947685003e2, 6.0118660497603843919306e1)
+_LOG1P_SMALL = _c(0.41421356237309504880)
+
+
+def _log1p(x: torch.Tensor) -> torch.Tensor:
+    """f32 log1p; on the CPU XLA's: a Cephes rational function below
+    sqrt(2) - 1, log(1 + x) above."""
+    if x.is_cuda:
+        return torch.log1p(x)
+    num = torch.zeros_like(x)
+    for c in _LOG1P_NUM:
+        num = _fma(num, x, c)
+    den = torch.zeros_like(x)
+    for c in _LOG1P_DEN:
+        den = _fma(den, x, c)
+    x2 = x * x
+    small = (x * x2) * (num / den)
+    small = x + _fma(x2, -0.5, small)
+    large = _log(x + 1.0)
+    return torch.where(torch.abs(x) < _LOG1P_SMALL, small, large)
+
+
+def _sqrt(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded f32 sqrt, as XLA:CPU's (torch's CPU f32 sqrt
+    is not, on 0.2% of the RG-LRU's 1 - a^2)."""
+    if x.is_cuda:
+        return torch.sqrt(x)
+    return torch.sqrt(x.double()).float()
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``'s op sequence: logaddexp(x, 0)."""
+    return torch.clamp_min(x, 0.0) + _log1p(_exp(-torch.abs(x)))
 
 
 _SCAN_BASE = 16          # XLA:CPU's block length for cumulative sums
@@ -92,6 +251,182 @@ def _xla_cumsum(x: torch.Tensor) -> torch.Tensor:
         torch.zeros_like(tot)
     out = pre + excl[:, :, None]
     return out.reshape(x.shape[0], nb * _SCAN_BASE, *x.shape[2:])[:, :n]
+
+
+# ==========================================================================
+# RG-LRU block (Griffin / RecurrentGemma temporal-mixing block)
+# ==========================================================================
+
+def _every(x: torch.Tensor, dim: int, start: int, stop=None,
+           step: int = 1) -> torch.Tensor:
+    idx = [slice(None)] * x.ndim
+    idx[dim] = slice(start, stop, step)
+    return x[tuple(idx)]
+
+
+def _interleave(a: torch.Tensor, b: torch.Tensor, dim: int) -> torch.Tensor:
+    """a[0], b[0], a[1], b[1], ... along ``dim`` (len(a) is len(b) or one
+    more)."""
+    nb = b.shape[dim]
+    pairs = torch.stack([_every(a, dim, 0, nb), b], dim=dim + 1)
+    out = pairs.flatten(dim, dim + 1)
+    if a.shape[dim] > nb:
+        out = torch.cat([out, _every(a, dim, nb)], dim=dim)
+    return out
+
+
+def associative_scan(combine: Callable, elems, dim: int):
+    """Inclusive scan of the tuple ``elems`` along ``dim`` under the
+    associative ``combine``, in ``jax.lax.associative_scan``'s recursion:
+    combine the pairs [0:-1:2] and [1::2], scan that by recursion (the
+    odd results), combine them with [2::2] (the even ones), put element 0
+    in front and interleave. Every output is the same tree of
+    ``combine`` calls as the reference's, so elementwise f32 ops give the
+    same bits."""
+    elems = tuple(elems)
+    n = elems[0].shape[dim]
+    if n < 2:
+        return elems
+    reduced = combine(tuple(_every(e, dim, 0, -1, 2) for e in elems),
+                      tuple(_every(e, dim, 1, None, 2) for e in elems))
+    odd = associative_scan(combine, reduced, dim)
+    rest = tuple(_every(e, dim, 2, None, 2) for e in elems)
+    if n % 2 == 0:
+        even = combine(tuple(_every(o, dim, 0, -1) for o in odd), rest)
+    else:
+        even = combine(odd, rest)
+    even = tuple(torch.cat([_every(e, dim, 0, 1), r], dim=dim)
+                 for e, r in zip(elems, even))
+    return tuple(_interleave(e, o, dim) for e, o in zip(even, odd))
+
+
+def _lru_combine(c1, c2):
+    a1, b1 = c1
+    a2, b2 = c2
+    return a1 * a2, a2 * b1 + b2
+
+
+def init_rglru(cfg: ModelConfig, gen: torch.Generator,
+               dtype=torch.bfloat16) -> Dict:
+    d, w = cfg.d_model, cfg.resolved_lru_width
+    dev = gen.device
+    # Lambda so that a = exp(-8 softplus(L) r) spreads over (0.9, 0.999)
+    lam = torch.rand((w,), generator=gen, dtype=torch.float32,
+                     device=dev) * 0.09 + 0.01
+    conv_w = torch.randn((cfg.conv1d_width, w), generator=gen,
+                         dtype=torch.float32, device=dev) * 0.1
+    return {
+        "w_in": init_linear(gen, d, w, dtype=dtype),
+        "w_gate": init_linear(gen, d, w, dtype=dtype),
+        "conv_w": conv_w.to(dtype),
+        "conv_b": torch.zeros((w,), dtype=dtype, device=dev),
+        "w_ig": init_linear(gen, w, w, dtype=dtype),     # input gate
+        "w_rg": init_linear(gen, w, w, dtype=dtype),     # recurrence gate
+        "lam": lam,
+        "w_out": init_linear(gen, w, d, dtype=dtype),
+        "s_state": _scalar(dev),
+    }
+
+
+def _causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                   buf: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Depthwise causal conv of width K. x (B,S,W); buf (B,K-1,W) the
+    history (zeros when None). Summed in f32 tap by tap, as the
+    reference does."""
+    K = w.shape[0]
+    if buf is None:
+        xp = F.pad(x, (0, 0, K - 1, 0))
+    else:
+        xp = torch.cat([buf.to(x.dtype), x], dim=1)
+    S = x.shape[1]
+    y = b.float()
+    for j in range(K):
+        y = y + w[j].float() * xp[:, j:j + S].float()
+    return y.to(x.dtype)
+
+
+def _rglru_coeffs(cfg: ModelConfig, ctx: QuantCtx, p: Dict, u: torch.Tensor,
+                  col: Optional[Dict]):
+    """The gates of the recurrence from the conv output u (B,S,W): the
+    decay a and the gated input, both f32."""
+    i = _sigmoid(qlinear(ctx, u, p["w_ig"], subcol(col, "w_ig")).float())
+    r = _sigmoid(qlinear(ctx, u, p["w_rg"], subcol(col, "w_rg")).float())
+    log_a = -8.0 * _softplus(p["lam"]) * r                 # (B,S,W)
+    a = _exp(log_a)
+    gated = _sqrt(torch.clamp_min(1.0 - a * a, 1e-12)) * i * u.float()
+    return a, gated
+
+
+def _rglru_scan(cfg: ModelConfig, ctx: QuantCtx, p: Dict, x: torch.Tensor,
+                col: Optional[Dict]):
+    """(gate, pre-conv u, h): the block up to its recurrence's f32 h."""
+    gate = _gelu(qlinear(ctx, x, p["w_gate"], subcol(col, "w_gate")).float(),
+                 _tanh)
+    u = qlinear(ctx, x, p["w_in"], subcol(col, "w_in"))
+    uc = _causal_conv1d(u, p["conv_w"], p["conv_b"])
+    a, gated = _rglru_coeffs(cfg, ctx, p, uc, col)
+    _, h = associative_scan(_lru_combine, (a, gated), dim=1)
+    return gate, u, h
+
+
+def _rglru_out(ctx: QuantCtx, p: Dict, h: torch.Tensor, gate: torch.Tensor,
+               dtype, col: Optional[Dict]) -> torch.Tensor:
+    hq = quantize_act(ctx, h.to(dtype), p, "s_state", col)
+    y = (hq.float() * gate).to(dtype)
+    return qlinear(ctx, y, p["w_out"], subcol(col, "w_out"))
+
+
+def rglru_fwd(cfg: ModelConfig, ctx: QuantCtx, p: Dict, x: torch.Tensor,
+              col: Optional[Dict] = None) -> torch.Tensor:
+    """Training / teacher / calibration path: the associative scan over
+    the diagonal recurrence h_t = a_t h_{t-1} + gated_t."""
+    gate, _, h = _rglru_scan(cfg, ctx, p, x, col)
+    return _rglru_out(ctx, p, h, gate, x.dtype, col)
+
+
+def init_rglru_cache(cfg: ModelConfig, B: int, *, device,
+                     dtype=torch.int8) -> Dict:
+    w = cfg.resolved_lru_width
+    return {"state_q": torch.zeros((B, w), dtype=dtype, device=device),
+            "s_state": torch.zeros((B, 1), dtype=torch.float32,
+                                   device=device),
+            "conv_buf": torch.zeros((B, cfg.conv1d_width - 1, w),
+                                    dtype=torch.bfloat16, device=device)}
+
+
+def rglru_prefill(cfg: ModelConfig, ctx: QuantCtx, p: Dict, x: torch.Tensor,
+                  col: Optional[Dict] = None):
+    """The parallel scan over the prompt, and the serving cache: the last
+    h quantized (``state_q``, ``s_state``) and the conv's history, the
+    last K - 1 pre-conv inputs."""
+    gate, u, h = _rglru_scan(cfg, ctx, p, x, col)
+    y = _rglru_out(ctx, p, h, gate, x.dtype, col)
+    state_q, s_state = cache_quantize(ctx, h[:, -1].to(torch.bfloat16))
+    K = cfg.conv1d_width
+    return y, {"state_q": state_q, "s_state": s_state,
+               "conv_buf": u[:, -(K - 1):].to(torch.bfloat16)}
+
+
+def rglru_decode(cfg: ModelConfig, ctx: QuantCtx, p: Dict, x1: torch.Tensor,
+                 cache: Dict) -> Tuple[torch.Tensor, Dict]:
+    """One token (B, 1, d) against the quantized state; the cache is
+    updated in place and returned."""
+    gate = _gelu(qlinear(ctx, x1, p["w_gate"]).float(), _tanh)
+    u = qlinear(ctx, x1, p["w_in"])                       # (B,1,W)
+    uc = _causal_conv1d(u, p["conv_w"], p["conv_b"], buf=cache["conv_buf"])
+    a, gated = _rglru_coeffs(cfg, ctx, p, uc, None)       # (B,1,W)
+    h_prev = dequantize_int(cache["state_q"], cache["s_state"],
+                            torch.float32)                # (B,W)
+    h = a[:, 0] * h_prev + gated[:, 0]
+    state_q, s_state = cache_quantize(ctx, h.to(torch.bfloat16))
+    y = (h[:, None] * gate).to(x1.dtype)
+    y = qlinear(ctx, y, p["w_out"])
+    new_buf = torch.cat([cache["conv_buf"][:, 1:], u.to(torch.bfloat16)],
+                        dim=1)
+    cache["state_q"].copy_(state_q)
+    cache["s_state"].copy_(s_state)
+    cache["conv_buf"].copy_(new_buf)
+    return y, cache
 
 
 # ==========================================================================

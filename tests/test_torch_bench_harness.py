@@ -385,20 +385,25 @@ def test_suite_runs(suite, cache_dir, capsys):
 
 
 def test_cuda_limits_are_refused_up_front(setup, monkeypatch, tmp_path):
-    """On CUDA the reduced config's head_dim 16 is refused before any
-    teacher is made (flash takes 64 or 128), and Table 2's
-    self-generation before it decodes a C16 cache (the decode kernel
-    takes int8 only)."""
+    """Nothing of the harness is refused up front on CUDA any more: flash
+    takes the reduced config's head_dim 16 and the decode kernel a C16
+    (bf16) cache. On a device patched to CUDA (this build has none) the
+    teacher's pretraining and Table 2's self-generation both get past
+    where they used to refuse, and stop only where this CPU-only torch
+    touches the device."""
     from repro_torch.benchmarks import table2_time_to_quality as t2
     cuda = torch.device("cuda")
     monkeypatch.setattr(tbench, "resolve_device", lambda d: cuda)
-    with pytest.raises(ValueError, match="head_dim 16"):
-        tbench.get_teacher(steps=2, cache_dir=str(tmp_path))
-    assert not any(tmp_path.iterdir())
-    _, tcfg, teacher, _ = setup
-    monkeypatch.setattr(t2, "device_of", lambda p: cuda)
-    with pytest.raises(NotImplementedError, match="int8"):
-        selfgen_corpus(tcfg, _port(teacher), 8, 4)
+    for call in (lambda: tbench.get_teacher(steps=2,
+                                            cache_dir=str(tmp_path)),
+                 lambda: selfgen_corpus(tcfg, _port(teacher), 8, 4)):
+        _, tcfg, teacher, _ = setup
+        monkeypatch.setattr(t2, "device_of", lambda p: cuda)
+        with pytest.raises(Exception) as info:
+            call()
+        assert not isinstance(info.value, (ValueError, NotImplementedError))
+        assert "head_dim" not in str(info.value)
+        assert "int8" not in str(info.value)
 
 
 def test_run_rejects_unknown_suite():

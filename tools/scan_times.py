@@ -74,13 +74,21 @@ SCAN_VARIANTS = (
 )
 GATHER_VARIANTS = (
     ("as committed", ()),
-    ("streaming stores", (("      o[j] = v;", "      __stcs(o + j, v);"),)),
+    ("streaming stores", ((
+        "        o[j] = make_float4(__fmul_rn(byte_at(words[j], 0), sc),\n"
+        "                           __fmul_rn(byte_at(words[j], 1), sc),\n"
+        "                           __fmul_rn(byte_at(words[j], 2), sc),\n"
+        "                           __fmul_rn(byte_at(words[j], 3), sc));",
+        "        __stcs(o + j, make_float4(__fmul_rn(byte_at(words[j], 0), "
+        "sc),\n __fmul_rn(byte_at(words[j], 1), sc),\n"
+        " __fmul_rn(byte_at(words[j], 2), sc),\n"
+        " __fmul_rn(byte_at(words[j], 3), sc)));"),)),
     ("no table read", ((
         "min(max(__ldg(tbl + (size_t)(rh / Hkv) * T + t), 0), NB - 1)",
         "t % NB"),)),
     ("no pool or scale loads", ((
         "    const int4 w =\n        __ldg(reinterpret_cast<const int4*>"
-        "(pool + (src + p) * D) + c);\n    const float sc = "
+        "(pool + (src + p) * D * ES) + c);\n    const float sc = "
         "__ldg(s + src + p);",
         "    const int4 w = make_int4(i, i, i, i);\n"
         "    const float sc = 1.0f;"),)),
@@ -232,6 +240,7 @@ def ablate_cases(cs, torch, P, cfg, dev, tmp: Path):
                                   device=dev)
                 err = fn_c(pool.data_ptr(), s.data_ptr(), tbl.data_ptr(),
                            out.data_ptr(), n, Hkv, NB1 - 1, bs, T_, D,
+                           kops.KV_DTYPES[pool.dtype],
                            torch.cuda.current_stream(dev).cuda_stream)
                 if err:
                     raise RuntimeError(f"gather variant {what!r}: error "
