@@ -71,6 +71,19 @@ toolkit (``nvcc``). Phases, each fatal on failure (non-zero exit):
    ``flash_attn_fwd`` at D 256, H 10, Hkv 1 (the QAT shape under the
    2048 window, a ragged S, S 4096 under the window) and at D 16 (qwen's
    and recurrentgemma's reduced heads) against plain and the oracle;
+   at mixtral-8x7b's shapes: ``fake_quant_fwd`` and the ``dx`` of
+   ``fake_quant_bwd`` in mode 3 (an expert bank (e, d_in, d_out) with
+   (e, 1, d_out) scales, one launch a bank) bitwise at bits 4 and 8 on
+   the banks (8, 4096, 14336) and (8, 14336, 4096) and on ragged banks
+   ((3, 100, 70), (2, 33, 8), (3, 65, 264), an x not 16-byte aligned),
+   ``ds`` within 1e-4 of its sums' mass and bitwise call to call, a
+   mode-3 workspace one short refused; ``w4a8_matmul`` bitwise on its
+   linears (K 4096 into N 4096, 1024, 8 and 32000) at M 1, 4, 23, 24 and
+   512 by each route; ``kvq_decode_attn`` at D 128, G 4 over a full
+   4096-row ring, an empty row and ragged lengths (as for D 256 above);
+   ``flash_attn_fwd`` at H 32, Hkv 8, D 128 at the QAT shape under the
+   4096 window and at S 8192 under it (the first and last 1024 query
+   rows held to plain and the oracle on the keys they see);
 3. serve: ``ServeEngine`` on ``cuda`` with qwen2.5-3b at full width
    (random weights from a seed), policy A8d-C8-W4, w4a8 weights, dense
    KV cache; 8 mixed-length requests through 4 slots, both kernels'
@@ -161,6 +174,31 @@ toolkit (``nvcc``). Phases, each fatal on failure (non-zero exit):
    layer, the tied head) and 8 ``flash_attn_fwd`` (the teacher's local
    layers); every ``s_w`` moved, no NaN; step ms split, tokens/s, peak
    memory, idle share; one loss and backward kernels vs plain;
+3i. mixtral-8x7b at full width and 16 of its 32 layers (46.7 B
+   parameters are ~93 GB in bf16 and the expert banks are never packed;
+   random weights, bank scales LSQ-initialised), A8d-C8-W4, w4a8 weights
+   (attention, router and head packed; the banks bf16, fake-quantized on
+   every forward), dense layout, 4 slots, cache_len 8192 (rings of the
+   4096 window): one decode step's logits after the rings wrapped (4
+   prompts of 4090 tokens, 12 steps) kernels vs plain, on every row
+   routed alike in every layer (a row routed to another set of experts
+   must owe it to a near tie its router logits' difference crossed); 8
+   requests of three lengths, two of 4080 tokens wrapping while they
+   decode: ``kvq_decode_attn`` 16 launches a decode step,
+   ``fake_quant_fwd`` 48 a forward (3 banks a layer), ``w4a8_matmul``
+   launches, no other kernel; a prompt alone and in a wave of 4 padded to
+   the same 1024 tokens (one MoE chunk) bitwise, the expert GEMMs batched
+   over the wave; each expert's share of the wave's routed pairs and the
+   share dropped at capacity; decode tok/s, TTFT, the idle share, peak
+   memory;
+6c. QAT of mixtral-8x7b at full width and 2 layers via ``run_qat`` (2
+   teacher steps, MSE calibration, 2 steps at B 8, T 128): per step 17
+   ``fake_quant_fwd`` and 17 ``_bwd`` (q, k, v, o, router and three banks
+   a layer, the head) and 2 ``flash_attn_fwd``; every ``s_w`` moved (the
+   banks' (8, 1, d_out) included), ``moe_aux`` finite and > 0, no NaN;
+   step ms split, tokens/s, peak memory, idle share, the model-FLOPs
+   share over the active experts; one loss (with the aux) and backward
+   kernels vs plain;
 4. times: each kernel per decode step, verify-wave, tail-wave, COW,
    student step or teacher forward (CUDA events, L2 flushed by rotating
    input copies past 100 MB), its plain version, one PyTorch call
@@ -179,7 +217,13 @@ toolkit (``nvcc``). Phases, each fatal on failure (non-zero exit):
    shapes a decode step's 8 dense decode launches (B 4, full 2048-token
    rings) in int8 and in bf16 and a teacher forward's 8 flash launches
    (B 8, T 128), and one windowed flash launch (S 4096, window 2048)
-   beside SDPA with the mask.
+   beside SDPA with the mask; at mixtral's shapes ``fake_quant_fwd`` and
+   ``_bwd`` per bank and per decode step (48 forward launches) beside
+   the plain versions, one PyTorch call on the bank permuted to (d_in, e
+   d_out) and mode 1 on the same bytes, a decode step's MoE layer by
+   parts (router, dispatch, fake-quant, expert GEMMs, combine), its 16
+   dense decode launches over full 4096-row rings beside SDPA, flash at
+   (8, 128) and ``w4a8_matmul`` per decode step.
 
 The line before the last is a JSON object with every kernel's numbers; the
 last line is ``{"ok": true, "device": {...}}``. Details go to
@@ -1497,7 +1541,8 @@ def fq_ds_mass(torch, P, x, s, g, bits):
                      torch.clamp(v, qn, qp))
     mass = (g.float() * dq).abs()
     del v, dq
-    dims = {0: None, 1: (0,), 2: (1,)}[P["fq_ops"].scale_mode(x, s)]
+    dims = {0: None, 1: (0,), 2: (1,), 3: (1,)}[
+        P["fq_ops"].scale_mode(x, s)]
     mass = mass.sum() if dims is None else mass.sum(dim=dims, keepdim=True)
     return mass.reshape(s.shape) * P["fq_ops"].grad_scale(x, s, bits)
 
@@ -1586,28 +1631,12 @@ def check_fq_workspace(torch, P, cfg, dev):
     workspace one element shorter than ``fake_quant_bwd_workspace`` asks
     for, per column and per tensor, and writes nothing. Calls the C
     launcher directly: nothing launches, no count moves."""
-    ops = P["fq_ops"]
     gen = torch.Generator(device=dev)
     gen.manual_seed(23)
     d = cfg.d_model
     for R, C, mode in ((d, d, 1), (d + 1, cfg.kv_dim, 1), (d, d, 0)):
         x, s, g = fq_inputs(torch, gen, R, C, mode, 4, dev)
-        need = ops._fn("fake_quant_bwd_workspace")(R, C, mode)
-        check(need > 0, f"fake_quant_bwd_workspace({R}, {C}, {mode}) = "
-                        f"{need}")
-        work = torch.zeros(need, dtype=torch.float32, device=dev)
-        dx = torch.zeros_like(x)
-        ds = torch.zeros(s.shape, dtype=torch.float32, device=dev)
-        err = ops._fn("fake_quant_bwd_launch")(
-            x.data_ptr(), s.data_ptr(), g.data_ptr(), dx.data_ptr(),
-            work.data_ptr(), ds.data_ptr(), R, C, mode, 1, 4,
-            ops.grad_scale(x, s, 4), need - 1,
-            torch.cuda.current_stream(dev).cuda_stream)
-        torch.cuda.synchronize()
-        check(err == 1 and not bool(dx.any()) and not bool(ds.any())
-              and not bool(work.any()),
-              f"fake_quant_bwd took {need - 1} of {need} workspace at "
-              f"({R}, {C}, mode {mode}): error {err}")
+        workspace_refused(torch, P, x, s, g, (1, R, C), mode, dev)
 
 
 def time_fake_quant(torch, P, cfg, dev, report):
@@ -1861,12 +1890,16 @@ def train_counters(P):
 
 def train_flops(cfg, B, T):
     """Model FLOPs of one QAT step: the teacher's forward (2 N per token)
-    and the student's forward and backward (6 N), N the matmul weights
-    (the tied head counted once), plus attention's QK^T and P.V over
-    all (query, key) pairs, three times for the student."""
+    and the student's forward and backward (6 N), N the matmul weights a
+    token meets (the tied head counted once; an MoE layer's active
+    experts and its router, as ``param_counts``' active count), plus
+    attention's QK^T and P.V over all (query, key) pairs, three times for
+    the student."""
     d, f, qd, kvd, L = (cfg.d_model, cfg.d_ff, cfg.q_dim, cfg.kv_dim,
                         cfg.n_layers)
-    n_mm = L * (2 * d * qd + 2 * d * kvd + 3 * d * f) + d * cfg.vocab_size
+    ffn = (cfg.n_experts_active * 3 * d * f + d * cfg.n_experts
+           if cfg.is_moe else 3 * d * f)
+    n_mm = L * (2 * d * qd + 2 * d * kvd + ffn) + d * cfg.vocab_size
     attn = L * 4 * B * T * T * qd
     return 8 * n_mm * B * T + 4 * attn
 
@@ -2047,9 +2080,11 @@ def grads_vs_plain(torch, P, cfg, tcfg, teacher, student, dev, report,
     student_only = {}
     for backend in ("auto", "ref"):
         ctx = qat.make_ctx(tcfg.precision, kernel_backend=backend)
-        logits, _ = models.forward(cfg, student, ctx, batch)
+        logits, aux = models.forward(cfg, student, ctx, batch)
         loss = P["silq_loss"](logits, t_k, batch["labels"],
                               mask=batch["loss_mask"])
+        if cfg.is_moe:
+            loss = loss + P["steps"].MOE_AUX_COEF * aux["moe_aux"]
         del logits
         student_only[backend] = (loss.detach(),
                                  P["steps"].grads_of(loss, student))
@@ -4402,6 +4437,854 @@ def time_rg(torch, P, rcfg, dev, report):
               f"(bound {b['bound_ms'] * 1e3:.3f})", flush=True)
     return out
 
+# --------------------------------------------------------------------------
+# mixtral-8x7b: phase 2 at its shapes, 3i serve, 6c QAT, 4 times
+# --------------------------------------------------------------------------
+
+MX = "mixtral-8x7b"
+# depth cuts (full width): the 32 layers hold 46.7 B parameters, ~93 GB in
+# bf16, and neither package packs the expert banks (2.82 GB a layer), so
+# serving keeps 16 layers (~47 GB of weights, 54.8 GB peak on the H100);
+# QAT holds ~17 B a parameter (weights, teacher, AdamW, gradients: 53.9 GB
+# peak for the 3.16 B of 2 layers with the embedding and head), so 3
+# layers (4.6 B) would not fit the card's 80 GB
+MX_SERVE_LAYERS = 16
+MX_TRAIN_LAYERS = 2
+MX_WINDOW = 4096               # sliding_window: the global layers' rings
+MX_CACHE_LEN = 2 * MX_WINDOW   # the serve phase's cache_len: rings of 4096
+MX_WRAP_PROMPT = 4090          # + 12 decode steps: the rings wrap
+MX_WRAP_ROWS = 4
+MX_WRAP_STEPS = 12
+MX_SERVE_LENS = (4080, 4080, 1500, 1500, 1500, 1500, 300, 300)
+MX_ROW_LENS = (601, 1024, 880, 197)   # the prompt under test first; the
+#                                        wave fills one MoE chunk (1024)
+MX_LENGTHS = (MX_WINDOW, 0, 1, 3000)  # a full ring, an empty row, ragged
+MX_W4A8_MS = (1, SLOTS, 23, 24, PREFILL_M)
+MX_BANKS = ((8, 4096, 14336), (8, 14336, 4096))   # wg / wu, wd
+# (e, R, C, offset): ragged against the backward's bands of rows and
+# strips of 256 bf16 columns, C not a multiple of 8, and an x one element
+# into its buffer (not 16-byte aligned: the one-element path)
+MX_FQ_RAGGED = ((3, 100, 70, 0), (2, 33, 8, 0), (3, 65, 264, 0),
+                (2, 40, 256, 1))
+MX_FLASH_LONG = (1, 2 * MX_WINDOW)    # S 8192 under the 4096 window
+MX_FLASH_ROWS = 1024                  # query rows held to plain at S 8192
+MX_TRAIN_STEPS = 2
+
+
+def mx_cfg(P, n_layers=MX_SERVE_LAYERS):
+    return P["get_config"](MX).replace(n_layers=n_layers)
+
+
+def mx_linear_shapes(mcfg):
+    """(name, K, N, launches per decode step) of mixtral's packed linears:
+    attention, the router (N 8) and the untied head."""
+    d, qd, kvd, L = mcfg.d_model, mcfg.q_dim, mcfg.kv_dim, mcfg.n_layers
+    return [("q", d, qd, L), ("k", d, kvd, L), ("v", d, kvd, L),
+            ("o", qd, d, L), ("router", d, mcfg.n_experts, L),
+            ("head", d, mcfg.vocab_size, 1)]
+
+
+def bank_inputs(torch, gen, e, R, C, bits, dev, offset=0):
+    """An expert bank x (e, R, C) bf16 (~0.02, a weight's scale), its
+    scales (e, 1, C) near each column's absmax / qp (some values clip),
+    g bf16; ``offset`` starts x that many elements into its buffer."""
+    qp = 2 ** (bits - 1) - 1
+    x = torch.randn((e, R, C), generator=gen, device=dev).mul_(0.02)
+    s = (x.abs().amax(1, keepdim=True) / qp * (
+        0.5 + 0.5 * torch.rand((e, 1, C), generator=gen, device=dev)))
+    x = x.to(torch.bfloat16)
+    if offset:
+        buf = torch.empty(x.numel() + offset, dtype=x.dtype, device=dev)
+        buf[offset:] = x.reshape(-1)
+        x = buf[offset:].view(e, R, C)
+    g = (torch.randn((e, R, C), generator=gen, device=dev) * 1e-3).to(
+        torch.bfloat16)
+    return x, s.contiguous(), g
+
+
+def check_mx_fake_quant(torch, P, dev):
+    """Mode 3 (an expert bank per (expert, column)): fake_quant_fwd and
+    the dx of fake_quant_bwd bitwise equal to the plain versions at bits 4
+    and 8 on mixtral's banks and the ragged ones, ds within FQ_DS_TOL of
+    its sums' mass and bitwise from call to call; the backward's launcher
+    refuses a mode-3 workspace one element short. Returns (cases, worst
+    ds error)."""
+    ops, ref = P["fq_ops"], P["fq_ref"]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(41)
+    worst, n = 0.0, 0
+    for e, R, C, off in [b + (0,) for b in MX_BANKS] + list(MX_FQ_RAGGED):
+        for bits in (4, 8):
+            x, s, g = bank_inputs(torch, gen, e, R, C, bits, dev, off)
+            what = f"bank ({e}, {R}, {C}) offset {off} bits {bits}"
+            check(ops.scale_mode(x, s) == 3, f"{what}: not mode 3")
+            got = ops.fake_quant_fwd(x, s, bits)
+            want = ref.fake_quant_fwd_ref(x, s, bits)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want),
+                  f"fake_quant_fwd {what} differs from its plain version in "
+                  f"{int((got != want).sum())} elements")
+            del got, want
+            dx, ds = ops.fake_quant_bwd(x, s, g, bits)
+            _, ds2 = ops.fake_quant_bwd(x, s, g, bits)
+            dx_p, ds_p = ops.fake_quant_bwd(x, s, g, bits, plain=True)
+            torch.cuda.synchronize()
+            check(torch.equal(dx, dx_p),
+                  f"fake_quant_bwd {what}: dx differs from its plain "
+                  f"version in {int((dx != dx_p).sum())} elements")
+            check(torch.equal(ds, ds2),
+                  f"fake_quant_bwd {what}: ds differs between two calls")
+            mass = fq_ds_mass(torch, P, x, s, g, bits)
+            rel = float(((ds - ds_p).abs() / mass.clamp_min(1e-30)).max())
+            check(bool(torch.isfinite(ds).all()) and rel <= FQ_DS_TOL,
+                  f"fake_quant_bwd {what}: ds off its plain version by "
+                  f"{rel} of its sums' mass (> {FQ_DS_TOL})")
+            worst = max(worst, rel)
+            n += 1
+            del x, s, g, dx, ds, ds2, dx_p, ds_p, mass
+            torch.cuda.empty_cache()
+    for e, R, C in ((3, 100, 70), MX_BANKS[1]):
+        x, s, g = bank_inputs(torch, gen, e, R, C, 4, dev)
+        workspace_refused(torch, P, x, s, g, (e, R, C), 3, dev)
+        del x, s, g
+    torch.cuda.empty_cache()
+    return n, worst
+
+
+def workspace_refused(torch, P, x, s, g, shape, mode, dev):
+    """fake_quant_bwd's launcher refuses (cudaErrorInvalidValue, 1) a
+    workspace one element shorter than ``fake_quant_bwd_workspace`` asks
+    for and writes nothing. Calls the C launcher: no count moves."""
+    ops = P["fq_ops"]
+    E, R, C = shape
+    need = ops._fn("fake_quant_bwd_workspace")(E, R, C, mode)
+    check(need > 0, f"fake_quant_bwd_workspace({E}, {R}, {C}, {mode}) = "
+                    f"{need}")
+    work = torch.zeros(need, dtype=torch.float32, device=dev)
+    dx = torch.zeros_like(x)
+    ds = torch.zeros(s.shape, dtype=torch.float32, device=dev)
+    err = ops._fn("fake_quant_bwd_launch")(
+        x.data_ptr(), s.data_ptr(), g.data_ptr(), dx.data_ptr(),
+        work.data_ptr(), ds.data_ptr(), E, R, C, mode, 1, 4,
+        ops.grad_scale(x, s, 4), need - 1,
+        torch.cuda.current_stream(dev).cuda_stream)
+    torch.cuda.synchronize()
+    check(err == 1 and not bool(dx.any()) and not bool(ds.any())
+          and not bool(work.any()),
+          f"fake_quant_bwd took {need - 1} of {need} workspace at "
+          f"({E}, {R}, {C}, mode {mode}): error {err}")
+
+
+def check_mx_w4a8(torch, P, mcfg, dev):
+    """w4a8_matmul bitwise equal to its plain version on mixtral's packed
+    linears (K 4096 into N 4096, 1024, 8 and 32000; o from q_dim 4096) at
+    M 1, 4, 23, 24 and 512, by the launcher's route and each route
+    forced. Returns the cases compared."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(42)
+    ops, ref = P["w4a8_ops"], P["w4a8_matmul_ref"]
+    n = 0
+    for name, K, N, _ in mx_linear_shapes(mcfg):
+        w_p, s_w, b = w4a8_weights(torch, gen, K, N, False, dev)
+        for M in MX_W4A8_MS:
+            x_q, s_x = w4a8_activations(torch, gen, M, K, dev)
+            want = ref(x_q, w_p, s_x, s_w, b)
+            got = [ops.w4a8_matmul(x_q, w_p, s_x, s_w, b)] + [
+                ops.w4a8_matmul_route(x_q, w_p, s_x, s_w, b, route=r)
+                for r in W4A8_ROUTES]
+            torch.cuda.synchronize()
+            for r, out in zip(("launcher",) + W4A8_ROUTES, got):
+                check(torch.equal(out, want),
+                      f"w4a8_matmul mixtral {name} M={M} K={K} N={N} "
+                      f"route={r} differs from its plain version")
+            n += 1
+        del w_p, s_w, b
+    torch.cuda.empty_cache()
+    return n
+
+
+def attn_rows_case(torch, P, mcfg, dev, gen, S, window, rows):
+    """flash_attn_fwd at (1, S) under ``window`` against its plain version
+    and the f64 oracle on query rows [S - rows, S) and [0, rows): each
+    held to the rows' own keys (a query attends to at most ``window``
+    keys, so the plain version and the oracle run on the slice of keys
+    the rows see, their first rows discarded), as ``check_flash_case``
+    holds the whole output."""
+    fa, ref = P["fa_ops"].flash_attn_fwd, P["flash_attn_ref"]
+    rtol, atol = FLASH_TOL
+    q, k, v = flash_inputs(torch, gen, mcfg, 1, S, dev)
+    got = fa(q, k, v, causal=True, window=window).float()
+    out = []
+    for a in (S - rows, 0):
+        b = a + rows
+        lo = max(0, a - window + 1)
+        sl = (q[:, lo:b], k[:, lo:b], v[:, lo:b])
+        want = ref(*sl, causal=True, window=window).float()[:, a - lo:]
+        oracle = flash_oracle(torch, *sl, window)[:, a - lo:]
+        g = got[:, a:b]
+        err = (g - want).abs()
+        beyond = float((err > KVQ_TOL[1] + KVQ_TOL[0] * want.abs()).float()
+                       .mean())
+        case = {"B": 1, "S": S, "window": window, "rows": [a, b],
+                "D": mcfg.resolved_head_dim, "H": mcfg.n_heads,
+                "Hkv": mcfg.n_kv_heads, "max_abs_err": float(err.max()),
+                "share_beyond_one_ulp": beyond,
+                "kernel_vs_oracle": float((g - oracle).abs().max()),
+                "plain_vs_oracle": float((want - oracle).abs().max())}
+        check(bool(torch.isfinite(g).all())
+              and torch.allclose(g, want, rtol=rtol, atol=atol)
+              and beyond <= FLASH_ULP_SHARE
+              and case["kernel_vs_oracle"]
+              <= FLASH_ORACLE_RATIO * case["plain_vs_oracle"],
+              f"flash_attn_fwd differs from its plain version: {case}")
+        out.append(case)
+        del want, oracle, err
+        torch.cuda.empty_cache()
+    return out
+
+
+def check_mx_kernels(torch, P, dev, report):
+    """Phase 2 at mixtral-8x7b's shapes: the fake-quant kernels in mode 3
+    on its expert banks; w4a8_matmul on its linears; kvq_decode_attn at
+    D 128, G 4 over a full 4096-row ring, an empty row and ragged lengths
+    (bitwise paged decode on the same K/V, each row alone, verify and the
+    gather as ``check_decode_case`` holds them); flash_attn_fwd at H 32,
+    Hkv 8, D 128 at the QAT shape under the 4096 window and at S 8192
+    under it. Returns the worst error per kernel."""
+    mcfg = mx_cfg(P)
+    n_fq, fq_ds = check_mx_fake_quant(torch, P, dev)
+    n_w4 = check_mx_w4a8(torch, P, mcfg, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(43)
+    dec = check_decode_case(torch, P, gen, mcfg, dev, MX_LENGTHS, MX_WINDOW,
+                            False, "mixtral D128 G4")
+    torch.cuda.empty_cache()
+    flash = [check_flash_case(torch, P, gen, mcfg, dev, TRAIN_B, TRAIN_T,
+                              MX_WINDOW)]
+    torch.cuda.empty_cache()
+    flash += attn_rows_case(torch, P, mcfg, dev, gen, MX_FLASH_LONG[1],
+                            MX_WINDOW, MX_FLASH_ROWS)
+    out = {"fake_quant_mode3_cases": n_fq, "fake_quant_mode3_ds_rel_mass_err":
+           fq_ds, "w4a8_cases": n_w4, "decode": dec, "flash": flash}
+    report["mx_kernel_cases"] = out
+    print(f"phase 2: mixtral-8x7b shapes: fake_quant_fwd and dx bitwise in "
+          f"mode 3 on {n_fq} bank cases (ds within {fq_ds:.3g} of its mass, "
+          f"a short workspace refused), w4a8_matmul bitwise on {n_w4} "
+          f"cases, kvq_decode_attn within one ulp and bitwise paged decode "
+          f"({dec}), flash: {flash}", flush=True)
+    return {"kvq_decode_attn": dec["kvq_decode_attn"],
+            "flash_attn_fwd": max(c["max_abs_err"] for c in flash)}
+
+
+class RouteLog:
+    """Records every ``blocks.moe_route`` call (the router's f32 logits,
+    the top-k experts and ``keep``) while the block is active."""
+
+    def __init__(self, blocks):
+        self.blocks, self.real, self.calls = blocks, blocks.moe_route, []
+
+    def __enter__(self):
+        def record(logits, k, cap):
+            out = self.real(logits, k, cap)
+            self.calls.append((logits.detach().clone(), out[0], out[3]))
+            return out
+        self.blocks.moe_route = record
+        return self
+
+    def __exit__(self, *exc):
+        self.blocks.moe_route = self.real
+
+
+def route_flips(torch, kern, plain, k):
+    """Rows whose routing differs between two decode steps' RouteLogs, at
+    the first layer where it does: {row: {layer, gap, moved, rms,
+    explained}}. Routing is the set of a token's k experts: their order
+    (the top two swapped at a near tie) gives the same output, a sum of
+    k exact products. ``gap`` is the plain step's margin between the row's
+    k-th and (k+1)-th router logits, ``moved`` the largest difference of
+    the row's router logits between the two steps, ``rms`` their size.
+    The order of two logits can swap only if they moved by ``gap``
+    together, so a flip is explained when ``gap <= 2 moved`` and the
+    logits moved by at most LOGIT_REL_TOL of their size: the routing then
+    amplified a difference the gate allows, at a near tie."""
+    flips = {}
+    for layer, ((lk, ik, _), (lp, ip, _)) in enumerate(zip(kern.calls,
+                                                           plain.calls)):
+        for row in range(ik.shape[0]):
+            if row in flips or torch.equal(ik[row].sort(-1).values,
+                                           ip[row].sort(-1).values):
+                continue
+            a, b = lk[row].reshape(-1), lp[row].reshape(-1)
+            top = torch.sort(b, descending=True).values
+            gap = float(top[k - 1] - top[k])
+            moved = float((a - b).abs().max())
+            rms = float(b.pow(2).mean().sqrt())
+            flips[row] = {"layer": layer, "gap": gap, "moved": moved,
+                          "rms": rms,
+                          "explained": gap <= 2 * moved
+                          and moved <= LOGIT_REL_TOL * rms}
+    return flips
+
+
+def mx_wrapped_logits(torch, P, mcfg, eng, dev):
+    """(a): 4 prompts of 4090 tokens prefilled, 12 decode steps through
+    the kernels (the 4096-row rings wrap), then one step from the same
+    cache through the kernels and through their plain versions. Held to
+    LOGIT_REL_TOL on every row whose routing matched in every layer; a
+    row whose routing differs must owe it to a near tie that its router
+    logits' allowed difference crossed (``route_flips``)."""
+    import numpy as np
+    models, blocks = P["models"], P["blocks"]
+    rng = np.random.default_rng(8)
+    toks = torch.from_numpy(rng.integers(
+        0, mcfg.vocab_size, (MX_WRAP_ROWS, MX_WRAP_PROMPT)).astype(
+            np.int32)).to(dev)
+    logits, cache = models.prefill(mcfg, eng.params, eng.ctx,
+                                   {"tokens": toks},
+                                   cache_budget=MX_CACHE_LEN)
+    tok = torch.argmax(logits[:, -1].float(), -1).to(torch.int32)[:, None]
+    for _ in range(MX_WRAP_STEPS):
+        logits, cache = models.decode_step(mcfg, eng.params, eng.ctx, tok,
+                                           cache)
+        tok = torch.argmax(logits[:, -1].float(), -1).to(torch.int32)[:, None]
+    length = int(cache["layers"][0]["length"][0])
+    check(length > MX_WINDOW, f"mixtral: the ring did not wrap: {length}")
+    with RouteLog(blocks) as rk:
+        lk, _ = models.decode_step(mcfg, eng.params, eng.ctx, tok,
+                                   models.clone_cache(cache))
+    with RouteLog(blocks) as rp:
+        lp, _ = models.decode_step(mcfg, eng.params,
+                                   replace(eng.ctx, kernel_backend="ref"),
+                                   tok, models.clone_cache(cache))
+    lk, lp = lk.float()[:, 0], lp.float()[:, 0]
+    check(bool(torch.isfinite(lk).all()), "mixtral logits not finite")
+    flips = route_flips(torch, rk, rp, mcfg.n_experts_active)
+    same = [r for r in range(lk.shape[0]) if r not in flips]
+    rel = {r: float(torch.linalg.vector_norm(lk[r] - lp[r])
+                    / torch.linalg.vector_norm(lp[r])) for r in range(
+                        lk.shape[0])}
+    check(all(rel[r] <= LOGIT_REL_TOL for r in same),
+          f"mixtral: decode logits after the wrap, kernels vs plain, "
+          f"relative L2 per row {rel} > {LOGIT_REL_TOL} on rows routed "
+          f"alike {same}")
+    check(all(f["explained"] for f in flips.values()),
+          f"mixtral: routing differs between kernels and plain away from a "
+          f"near tie: {flips}")
+    all_rel = float(torch.linalg.vector_norm(lk - lp)
+                    / torch.linalg.vector_norm(lp))
+    del cache, logits
+    torch.cuda.empty_cache()
+    return {"wrapped_length": length, "rows": MX_WRAP_ROWS,
+            "rel_l2_per_row": rel, "rel_l2_all_rows": all_rel,
+            "rows_routed_differently": {str(r): f
+                                        for r, f in flips.items()},
+            "argmax_agreement": float((lk.argmax(-1) == lp.argmax(-1))
+                                      .float().mean())}
+
+
+def mx_prefill_rows(torch, P, mcfg, params, dev, report):
+    """(c): one prompt prefilled alone and in a wave of 4, both padded to
+    the wave's 1024 tokens (one MoE chunk; the capacity, 320 slots an
+    expert and row, follows the padded length): its cache and first-token
+    logits must be bitwise the same, attention row by row and the expert
+    GEMMs batched over the wave (M 320 alone, 1280 in the wave). Also
+    each expert's share of the wave's routed (token, slot) pairs and the
+    share dropped at capacity (real tokens)."""
+    import numpy as np
+    models, blocks, qat = P["models"], P["blocks"], P["qat"]
+    rng = np.random.default_rng(32)
+    prompts = [rng.integers(0, mcfg.vocab_size, n).astype(np.int32)
+               for n in MX_ROW_LENS]
+    L = max(MX_ROW_LENS)
+    ctx = qat.make_ctx("A8d-C8-W4", weights_layout="w4a8")
+
+    def wave(rows):
+        lens = [len(prompts[i]) for i in rows]
+        toks = torch.zeros((len(rows), L), dtype=torch.int32, device=dev)
+        for j, i in enumerate(rows):
+            toks[j, :lens[j]] = torch.from_numpy(prompts[i]).to(dev)
+        logits, cache = models.prefill(
+            mcfg, params, ctx, {"tokens": toks, "lengths": torch.tensor(
+                lens, dtype=torch.int32, device=dev)},
+            cache_budget=MX_CACHE_LEN)
+        return logits[0], [{k: v[0] for k, v in c.items()}
+                           for c in cache["layers"]]
+
+    def compare():
+        la, ca = wave([0])
+        lw, cw = wave(range(len(prompts)))
+        torch.cuda.synchronize()
+        differ = sum(int((a[k] != b[k]).sum()) for a, b in zip(ca, cw)
+                     for k in ("k_q", "v_q", "s_k", "s_v"))
+        t0 = time.perf_counter()
+        wave(range(len(prompts)))
+        torch.cuda.synchronize()
+        return {"logits_bitwise": bool(torch.equal(la, lw)),
+                "logits_max_abs_diff": float((la.float() - lw.float())
+                                             .abs().max()),
+                "cache_values_differing": differ,
+                "wave_ms": (time.perf_counter() - t0) * 1e3}
+
+    out = {"lens": list(MX_ROW_LENS), "padded_to": L}
+    with RouteLog(blocks) as log:
+        out.update(compare())
+    check(out["logits_bitwise"] and out["cache_values_differing"] == 0,
+          f"mixtral cold prefill: a prompt's cache or logits differ alone "
+          f"and in a wave of 4: {out}")
+    # routing of the wave (the last wave of 4 logged: its 16 layers)
+    e, k = mcfg.n_experts, mcfg.n_experts_active
+    wave_calls = [c for c in log.calls if c[1].shape[0] == len(prompts)]
+    wave_calls = wave_calls[-mcfg.n_layers:]
+    lens = torch.tensor(MX_ROW_LENS, device=dev)
+    counts = torch.zeros(e, device=dev)
+    kept = total = 0
+    for _, idx, keep in wave_calls:
+        real_tok = (torch.arange(idx.shape[1], device=dev)[None]
+                    < lens[:, None])[..., None].expand_as(idx)
+        sel = idx[real_tok & keep]
+        counts += torch.bincount(sel, minlength=e).float()
+        kept += int((real_tok & keep).sum())
+        total += int(real_tok.sum())
+    out["expert_share"] = (counts / counts.sum()).tolist()
+    out["dropped_share"] = 1.0 - kept / max(total, 1)
+    out["routed_pairs"] = total
+    check(total == sum(MX_ROW_LENS) * k * mcfg.n_layers,
+          f"mixtral: {total} routed pairs logged, want "
+          f"{sum(MX_ROW_LENS) * k * mcfg.n_layers}")
+    report["mx_prefill_rows"] = out
+    print(f"phase 3i: cold prefill batch invariance (a prompt alone vs in "
+          f"a wave of 4, padded to {L}) and routing: {out}", flush=True)
+    return out
+
+
+def serve_mx(torch, P, dev, report):
+    """Phase 3i: mixtral-8x7b at full width and 16 layers (random weights
+    from a seed, bank scales LSQ-initialised) on ``ServeEngine``:
+    A8d-C8-W4, w4a8 weights (attention, router and head packed; the banks
+    bf16, fake-quantized on every forward), dense layout, 4 slots,
+    cache_len 8192 (rings of 4096). (a) the wrapped rings' logits,
+    kernels vs plain; (b) 8 requests of three lengths, two of 4080 tokens
+    wrapping while they decode: kvq_decode_attn 16 launches a decode step,
+    fake_quant_fwd 48 a forward (decode step or prefill wave: 3 banks a
+    layer), w4a8_matmul launches, no other kernel; (c) cold-prefill batch
+    invariance and the routing shares; decode tok/s, TTFT, idle share,
+    peak memory."""
+    import numpy as np
+    qat, models = P["qat"], P["models"]
+    mcfg = mx_cfg(P)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = models.init_params(mcfg, seed=0, device=dev)
+    policy = P["parse_policy"]("A8d-C8-W4")
+    # a served tree carries calibrated scales; the banks' placeholder
+    # all-ones s_w would round every 4-bit expert weight to zero. LSQ's
+    # init (2 mean|w| / sqrt(qp)) is one pass over each bank.
+    params = qat.calibrate_weight_scales(params, policy, method="lsq")
+    eng = P["ServeEngine"](mcfg, params, policy="A8d-C8-W4", slots=SLOTS,
+                           cache_len=MX_CACHE_LEN, max_new_cap=MAX_NEW,
+                           decode_block=8, weights_layout="w4a8", device=dev)
+    del params
+    eng.params = qat.drop_exported_weights(eng.params)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    ring = [c["k_q"].shape[2] for c in eng.state["cache"]["layers"]]
+    check(ring == [MX_WINDOW] * mcfg.n_layers,
+          f"mixtral: rings of {ring} rows, want {MX_WINDOW}")
+    check(all("w" in lay["moe"][b] and "w4a8" not in lay["moe"][b]
+              and "w4a8" in lay["moe"]["router"]
+              for lay in eng.params["layers"] for b in ("wg", "wu", "wd")),
+          "mixtral: the served tree's banks are packed or gone")
+    wrapped = mx_wrapped_logits(torch, P, mcfg, eng, dev)
+
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(0, mcfg.vocab_size, n).astype(np.int32)
+               for n in MX_SERVE_LENS]
+    reqs = [P["Request"](uid=i, prompt=p, max_new_tokens=MAX_NEW,
+                         temperature=0.8 if i % 4 == 3 else 0.0,
+                         top_k=8 if i % 4 == 3 else 0, seed=i)
+            for i, p in enumerate(prompts)]
+    counted = {**counted_kernels(P),
+               "flash_attn_fwd": P["fa_ops"].flash_attn_fwd,
+               "slstm_scan": P["slstm_ops"].slstm_scan,
+               "fake_quant_fwd": P["fq_ops"].fake_quant_fwd,
+               "fake_quant_bwd": P["fq_ops"].fake_quant_bwd}
+    for r in reqs:
+        eng.submit(r)
+    for fn in counted.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    stats = eng.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {n: fn.launches for n, fn in counted.items()}
+    check_streams(mcfg, reqs, "mixtral serve")
+    L = mcfg.n_layers
+    forwards = stats["decode_steps"] + stats["prefill_calls"]
+    check(launches["w4a8_matmul"] > 0,
+          f"mixtral serve: w4a8_matmul never launched: {launches}")
+    check(launches["kvq_decode_attn"] == L * stats["decode_steps"],
+          f"mixtral serve: {launches['kvq_decode_attn']} kvq_decode_attn "
+          f"launches over {stats['decode_steps']} decode steps, want {L} a "
+          f"step")
+    check(launches["fake_quant_fwd"] == 3 * L * forwards,
+          f"mixtral serve: {launches['fake_quant_fwd']} fake_quant_fwd "
+          f"launches over {stats['decode_steps']} decode steps and "
+          f"{stats['prefill_calls']} prefill waves, want {3 * L} a forward")
+    others = [n for n in counted if n not in ("w4a8_matmul",
+                                              "kvq_decode_attn",
+                                              "fake_quant_fwd")]
+    check(all(launches[n] == 0 for n in others),
+          f"mixtral serve: another kernel ran: {launches}")
+    decode_tokens = stats["tokens_out"] - len(reqs)
+    served = {"arch": MX, "layers": L, "requests": len(reqs),
+              "prompt_lens": list(MX_SERVE_LENS), "setup_s": setup_s,
+              "tokens_out": stats["tokens_out"], "wall_s": wall,
+              "tokens_per_s": stats["tokens_out"] / wall,
+              "decode_tokens_per_s": decode_tokens / stats["decode_s"],
+              "decode_step_ms": 1e3 * stats["decode_step_s"],
+              "decode_steps": stats["decode_steps"],
+              "ttft_p50_s": stats["ttft_p50_s"],
+              "ttft_p95_s": stats["ttft_p95_s"],
+              "prefill_s": stats["prefill_s"],
+              "prefill_calls": stats["prefill_calls"],
+              "wrapped_logits": wrapped, "launches": launches,
+              "launches_per_decode_step": {
+                  "kvq_decode_attn": L, "fake_quant_fwd": 3 * L},
+              "peak_memory_bytes": torch.cuda.max_memory_allocated(dev)}
+    report["serve_mx"] = served
+    print("serve_mx " + json.dumps(served), flush=True)
+    profile_decode(torch, P, mcfg, eng, report, key="serve_mx")
+    params = eng.params
+    del eng
+    torch.cuda.empty_cache()
+    mx_prefill_rows(torch, P, mcfg, params, dev, report)
+    print(f"phase 3i: mixtral-8x7b ({L} layers) dense w4a8 serve, "
+          f"{served['decode_tokens_per_s']:.2f} decode tok/s, "
+          f"{served['decode_step_ms']:.2f} ms a decode step, TTFT p50 "
+          f"{served['ttft_p50_s']:.3f} s; logits after the wrap kernels vs "
+          f"plain {wrapped['rel_l2_per_row']}", flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def mx_weight_sites(mcfg):
+    """Fake-quantized weights of one student forward: q, k, v, o, the
+    router and the three banks a layer, and the untied head."""
+    return 8 * mcfg.n_layers + 1
+
+
+def train_mx(torch, P, dev, report):
+    """Phase 6c: run_qat on mixtral-8x7b at full width and 2 layers,
+    A8d-C8-W4, 2 teacher steps, MSE weight calibration, 2 steps at B 8,
+    T 128. Per step 17 fake_quant_fwd and 17 _bwd (q, k, v, o, router and
+    three banks a layer, then the head) and 2 flash_attn_fwd (the
+    teacher's layers); losses finite, every s_w moved (the banks' (8, 1,
+    d_out) and the router's included), moe_aux finite and > 0, no NaN;
+    step ms split, tokens/s, peak memory, idle share, model-FLOPs share
+    over the active experts; then one loss and backward through the
+    kernels against the plain versions."""
+    mcfg = mx_cfg(P, MX_TRAIN_LAYERS)
+    tcfg = P["TrainConfig"](precision="A8d-C8-W4", total_steps=MX_TRAIN_STEPS,
+                            ref_steps=MX_TRAIN_STEPS, batch_size=TRAIN_B,
+                            seq_len=TRAIN_T)
+    steps, state = [], {}
+
+    def on_start(student, opt):
+        state["s_w0"] = {k: t.detach().clone() for k, t in
+                         _named_leaves(student) if k.endswith("s_w")}
+        state["counts"] = tuple(fn.launches for fn in train_counters(P))
+
+    def on_step(step, metrics, student, opt):
+        counts = tuple(fn.launches for fn in train_counters(P))
+        steps.append({"step": step, "loss": float(metrics["loss"]),
+                      "ms": metrics["ms"],
+                      "launches": [a - b for a, b in
+                                   zip(counts, state["counts"])]})
+        state["counts"] = counts
+        state["opt"] = opt
+
+    for fn in train_counters(P):
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    teacher, student, _ = P["train"].run_qat(
+        MX, tcfg, reduced=False, teacher_steps=2, device=dev, log_every=1,
+        n_layers=MX_TRAIN_LAYERS, split_times=True, on_start=on_start,
+        on_step=on_step)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    names = ("fake_quant_fwd", "fake_quant_bwd", "flash_attn_fwd",
+             "slstm_scan")
+    launches = dict(zip(names, (fn.launches for fn in train_counters(P))))
+    peak = torch.cuda.max_memory_allocated(dev)
+    n_w = mx_weight_sites(mcfg)
+    L = mcfg.n_layers
+    for s in steps:
+        check(s["launches"] == [n_w, n_w, L, 0],
+              f"mixtral QAT step {s['step']}: launches "
+              f"{dict(zip(names, s['launches']))}, want ({n_w}, {n_w}, {L}, "
+              f"0)")
+        check(math.isfinite(s["loss"]),
+              f"mixtral QAT step {s['step']}: loss {s['loss']}")
+    check(len(steps) == MX_TRAIN_STEPS, f"{len(steps)} mixtral QAT steps")
+    opt = state.pop("opt")
+    named = dict(_named_leaves(student))
+    unmoved = [k for k, t0_ in state["s_w0"].items()
+               if torch.equal(named[k], t0_)]
+    banks = [k for k in state["s_w0"] if "/moe/w" in k]
+    check(len(state["s_w0"]) == n_w and not unmoved and len(banks) == 3 * L
+          and all(tuple(named[k].shape) == (mcfg.n_experts, 1,
+                                            named[k].shape[-1])
+                  for k in banks),
+          f"mixtral: s_w that did not move: {unmoved[:5]} ({len(unmoved)} "
+          f"of {len(state['s_w0'])}; banks {banks})")
+    check(all(bool(torch.isfinite(t).all()) for t in named.values()),
+          "mixtral: a parameter is not finite after QAT")
+    it = P["MixtureIterator"](P["SyntheticConfig"](
+        vocab_size=mcfg.vocab_size, seq_len=TRAIN_T, batch_size=TRAIN_B),
+        start_step=1)
+    batch = P["to_device"](next(it), dev)
+    with torch.no_grad():
+        aux = float(P["models"].forward(
+            mcfg, student, P["qat"].make_ctx(tcfg.precision),
+            batch)[1]["moe_aux"])
+    check(math.isfinite(aux) and aux > 0.0, f"mixtral: moe_aux {aux}")
+    idle = profile_train_step(torch, P, mcfg, tcfg, teacher, student, opt,
+                              steps, dev, report, key="train_mx_profile")
+    del opt, state
+    torch.cuda.empty_cache()
+    per = {k: sum(s["ms"][k] for s in steps[1:]) / (len(steps) - 1)
+           for k in ("teacher", "student", "optimizer")}
+    step_ms = sum(per.values())
+    flops = train_flops(mcfg, TRAIN_B, TRAIN_T)
+    trained = {"arch": MX, "layers": L, "steps": MX_TRAIN_STEPS,
+               "batch": TRAIN_B, "seq": TRAIN_T,
+               "params_total": mcfg.param_counts()["total"],
+               "params_active": mcfg.param_counts()["active"],
+               "losses": [s["loss"] for s in steps], "moe_aux": aux,
+               "ms_per_step": step_ms, "ms_split": per,
+               "ms_first_step": sum(steps[0]["ms"].values()),
+               "tokens_per_s": TRAIN_B * TRAIN_T / (step_ms / 1e3),
+               "peak_memory_bytes": peak, "wall_s": wall,
+               "device_idle_share": idle,
+               "model_flops_per_step": flops,
+               "model_flops_share": flops / (step_ms / 1e3) / BF16_PEAK_FLOPS,
+               "launches_per_step": dict(zip(names, steps[-1]["launches"])),
+               "weight_sites": n_w, "launches": launches}
+    report["train_mx"] = trained
+    print("phase 6c: " + json.dumps(trained), flush=True)
+    grads_vs_plain(torch, P, mcfg, tcfg, teacher, student, dev, report,
+                   key="train_mx_vs_plain", phase="phase 6c")
+    del teacher, student
+    torch.cuda.empty_cache()
+    return launches
+
+
+def time_bank(torch, P, e, R, C, bits, dev, gen):
+    """One bank (e, R, C) in mode 3: fake_quant_fwd and _bwd per launch
+    beside the plain versions, one PyTorch call on the bank permuted to
+    (R, e * C) (the permute outside the timed call:
+    ``fake_quantize_per_channel_affine`` forward, the learnable op's
+    forward and backward), the same kernels in mode 1 on the same bytes
+    ((e * R, C), one scale a column), and the bounds (bytes)."""
+    ops, ref = P["fq_ops"], P["fq_ref"]
+    qn, qp = -(2 ** (bits - 1)), 2 ** (bits - 1) - 1
+    x, s, g = bank_inputs(torch, gen, e, R, C, bits, dev)
+    sets = [(x, s, g)]
+    out = {"shape": [e, R, C], "bits": bits}
+    out["fwd_ms"] = time_ms(torch, lambda x, s, g: ops.fake_quant_fwd(
+        x, s, bits), sets, min_calls=20)
+    out["bwd_ms"] = time_ms(torch, lambda x, s, g: ops.fake_quant_bwd(
+        x, s, g, bits), sets, min_calls=20)
+    out["fwd_plain_ms"] = time_eager_ms(
+        torch, lambda x, s, g: ref.fake_quant_fwd_ref(x, s, bits), sets,
+        min_calls=3)
+    out["bwd_plain_ms"] = time_eager_ms(
+        torch, lambda x, s, g: ops.fake_quant_bwd(x, s, g, bits,
+                                                  plain=True), sets,
+        min_calls=3)
+    x1, g1 = x.view(e * R, C), g.view(e * R, C)
+    s1 = s[:1].contiguous()
+    m1 = [(x1, s1, g1)]
+    out["mode1_fwd_ms"] = time_ms(torch, lambda x, s, g: ops.fake_quant_fwd(
+        x, s, bits), m1, min_calls=20)
+    out["mode1_bwd_ms"] = time_ms(torch, lambda x, s, g: ops.fake_quant_bwd(
+        x, s, g, bits), m1, min_calls=20)
+    xp = x.permute(1, 0, 2).reshape(R, e * C).contiguous()
+    gp = g.permute(1, 0, 2).reshape(R, e * C).contiguous()
+    sp = s.reshape(-1).contiguous()
+    del m1, x1, g1
+    zp = torch.zeros(e * C, dtype=torch.int32, device=dev)
+    zpf = torch.zeros(e * C, dtype=torch.float32, device=dev)
+    lib = [(xp, sp, gp)]
+    out["fwd_library_ms"] = time_eager_ms(
+        torch, lambda x, s, g: torch.fake_quantize_per_channel_affine(
+            x, s, zp, 1, qn, qp), lib, min_calls=5)
+
+    def lib_bwd(x, s, g):
+        xr = x.detach().requires_grad_(True)
+        sr = s.detach().requires_grad_(True)
+        y = torch._fake_quantize_learnable_per_channel_affine(
+            xr, sr, zpf, 1, qn, qp, 1.0)
+        return torch.autograd.grad(y, (xr, sr), g)
+
+    out["bwd_library_ms"] = time_eager_ms(torch, lib_bwd, lib, min_calls=3)
+    n, n_s = e * R * C, e * C
+    out["fwd_bound_ms"] = (4 * n + 4 * n_s) / HBM_BYTES_PER_S * 1e3
+    out["bwd_bound_ms"] = (6 * n + 8 * n_s) / HBM_BYTES_PER_S * 1e3
+    del sets, lib, xp, gp, x, s, g
+    torch.cuda.empty_cache()
+    return out
+
+
+def mx_moe_split(torch, P, mcfg, dev):
+    """One MoE layer of a decode step (B 4, one token a slot) timed by
+    parts, each part issued eagerly between two CUDA events (what the
+    eager decode loop pays, host launches included): the router (its
+    w4a8 linear and the top-2, gates and positions), the dispatch (slot
+    table and gather), the three banks' fake-quant, the expert GEMMs
+    (activation quantization, three bmm, SwiGLU) and the combine; and
+    the whole ``moe_fwd`` the same way and by CUDA-graph replay (device
+    time)."""
+    qat, blocks = P["qat"], P["blocks"]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(44)
+    p = blocks.init_moe(mcfg, gen)
+    p = qat.calibrate_weight_scales({"moe": p}, P["parse_policy"](
+        "A8d-C8-W4"), method="lsq")
+    p = qat.attach_w4a8_exports(p, P["parse_policy"]("A8d-C8-W4"))["moe"]
+    ctx = qat.make_ctx("A8d-C8-W4", weights_layout="w4a8")
+    Bn, e, k, d = SLOTS, mcfg.n_experts, mcfg.n_experts_active, \
+        mcfg.d_model
+    x = torch.randn((Bn, 1, d), generator=gen, device=dev).to(torch.bfloat16)
+    cap = blocks.moe_capacity(mcfg, 1)
+    bidx = torch.arange(Bn, device=dev)
+    tok = torch.zeros((Bn, 1, k), dtype=torch.long, device=dev)
+
+    def router():
+        logits = qat.qlinear(ctx, x, p["router"], act_bits=8,
+                             weight_bits=8).float()
+        return blocks.moe_route(logits, k, cap)
+
+    idx, gates, pos, keep = router()
+
+    def dispatch():
+        slot = torch.where(keep, idx * cap + pos, e * cap)
+        table = torch.full((Bn, e * cap + 1), 1, dtype=torch.long,
+                           device=dev)
+        table.scatter_(1, slot.reshape(Bn, -1), tok.reshape(Bn, -1))
+        table = table[:, :e * cap].reshape(Bn, e, cap).transpose(0, 1)
+        xz = torch.cat([x, x.new_zeros((Bn, 1, d))], dim=1)
+        return xz[bidx[None, :, None], table]
+
+    xe = dispatch()
+
+    def fake_quant():
+        return {n: qat.quantize_weight_p(ctx, p[n]) for n in
+                ("wg", "wu", "wd")}
+
+    wq = fake_quant()
+
+    def experts():
+        g = blocks._expert_linear(ctx, xe, p["wg"], None, wq["wg"])
+        u = blocks._expert_linear(ctx, xe, p["wu"], None, wq["wu"])
+        h = torch.nn.functional.silu(g.float()).to(x.dtype) * u
+        return blocks._expert_linear(ctx, h, p["wd"], None, wq["wd"])
+
+    ye = experts()
+
+    def combine():
+        ysel = ye[idx, bidx[:, None, None], torch.clamp_max(pos, cap - 1)]
+        gk = torch.where(keep, gates.to(torch.bfloat16).float(),
+                         torch.zeros_like(gates))
+        return torch.sum(ysel.float() * gk[..., None], dim=2).to(x.dtype)
+
+    def whole():
+        return blocks.moe_fwd(mcfg, ctx, p, x, with_aux=False)[0]
+
+    one = [()]
+    out = {name: time_eager_ms(torch, fn, one, min_calls=20)
+           for name, fn in (("router", router), ("dispatch", dispatch),
+                            ("fake_quant", fake_quant),
+                            ("expert_gemms", experts),
+                            ("combine", combine), ("moe_fwd", whole))}
+    out["moe_fwd_device_ms"] = time_ms(torch, whole, one, min_calls=10)
+    ref = whole()
+    check(torch.equal(combine(), ref), "mixtral: the timed MoE parts do "
+                                       "not compose to moe_fwd")
+    del p, wq, xe, ye
+    torch.cuda.empty_cache()
+    return out
+
+
+def time_mx(torch, P, dev, report):
+    """Phase 4 at mixtral-8x7b's shapes: fake_quant_fwd and _bwd per bank
+    in mode 3 (and the 48 forward launches of a decode step) beside the
+    plain versions, one PyTorch call and mode 1 on the same bytes; a
+    decode step's MoE by parts; its 16 dense decode launches at B 4 over
+    full 4096-row rings (D 128, H 32, Hkv 8) beside SDPA
+    (``enable_gqa``); a 2-layer teacher forward's flash launches at (B 8,
+    T 128); w4a8_matmul per decode step (M 4) over its packed linears."""
+    mcfg = mx_cfg(P)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(45)
+    banks = [time_bank(torch, P, *shape, 4, dev, gen) for shape in MX_BANKS]
+    L = mcfg.n_layers
+    step = {k: 2 * L * banks[0][f"fwd_{k}"] + L * banks[1][f"fwd_{k}"]
+            for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    step["mode1_ms"] = 2 * L * banks[0]["mode1_fwd_ms"] + \
+        L * banks[1]["mode1_fwd_ms"]
+    step["bound_by"] = "bytes"
+    split = mx_moe_split(torch, P, mcfg, dev)
+    dec = time_dense_launch(torch, P, mcfg, dev, gen, (MX_WINDOW,) * SLOTS,
+                            MX_WINDOW, False)
+    fl = time_flash_launch(torch, P, mcfg, dev, gen, TRAIN_B, TRAIN_T, 10)
+    w4 = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+    ref, w4a8 = P["w4a8_matmul_ref"], P["w4a8_ops"].w4a8_matmul
+    def w4a8_set(K, N):
+        x_q, s_x = w4a8_activations(torch, gen, SLOTS, K, dev)
+        w_p, s_w, _ = w4a8_weights(torch, gen, K, N, False, dev)
+        return x_q, w_p, s_x, s_w
+
+    for name, K, N, per in mx_linear_shapes(mcfg):
+        base = w4a8_set(K, N)
+        sets = [base] + [w4a8_set(K, N)
+                         for _ in range(copies_for(N * K // 2) - 1)]
+        x_q, w_p, s_x, s_w = base
+        wf = (P["unpack_int4"](w_p).float().T * s_w[None]).to(torch.bfloat16)
+        xf = (x_q.float() * s_x).to(torch.bfloat16)
+        w4["ms"] += per * time_ms(torch, w4a8, sets)
+        w4["plain_ms"] += per * time_ms(torch, ref, sets[:1], min_calls=5)
+        w4["library_ms"] += per * time_ms(torch, torch.matmul, [(xf, wf)])
+        w4["bound_ms"] += per * w4a8_bound_ms(SLOTS, K, N, False)[0]
+        del sets, base, wf, xf
+    w4["bound_by"] = "bytes"
+    torch.cuda.empty_cache()
+    out = {"banks": banks, "fake_quant_fwd_decode_step": step,
+           "moe_decode_layer_split_ms": split,
+           "decode_attn_launch": dec, "decode_attn_step": per_step(dec, L),
+           "flash_launch": fl,
+           "flash_teacher_forward": per_step(fl, MX_TRAIN_LAYERS),
+           "w4a8_decode_step": w4}
+    report["mx_times"] = out
+    for b in banks:
+        print(f"phase 4: mixtral bank {b['shape']}: fake_quant_fwd "
+              f"{b['fwd_ms']:.4f} ms (mode 1 on the same bytes "
+              f"{b['mode1_fwd_ms']:.4f}, bound {b['fwd_bound_ms']:.4f}, "
+              f"plain {b['fwd_plain_ms']:.3f}, library "
+              f"{b['fwd_library_ms']:.3f}); fake_quant_bwd "
+              f"{b['bwd_ms']:.4f} ms (mode 1 {b['mode1_bwd_ms']:.4f}, bound "
+              f"{b['bwd_bound_ms']:.4f}, plain {b['bwd_plain_ms']:.3f}, "
+              f"library {b['bwd_library_ms']:.3f})", flush=True)
+    print(f"phase 4: mixtral decode step: fake_quant_fwd {step}; MoE layer "
+          f"by parts {split}; kvq_decode_attn per launch "
+          f"{dec['ms'] * 1e3:.2f} us (SDPA gqa {dec['library_ms'] * 1e3:.2f}"
+          f" us, bound {dec['bound_ms'] * 1e3:.2f} us); flash per launch "
+          f"{fl['ms'] * 1e3:.2f} us (SDPA {fl['library_ms'] * 1e3:.2f} us); "
+          f"w4a8 per decode step {w4}", flush=True)
+    return out
+
 
 # --------------------------------------------------------------------------
 
@@ -4456,6 +5339,8 @@ def main() -> int:
     flash_err = check_flash(torch, P, cfg, dev, report)
     rcfg = P["get_config"](RG)
     rg_err = check_rg_kernels(torch, P, cfg, rcfg, dev, report)
+    mx_err = check_mx_kernels(torch, P, dev, report)
+    torch.cuda.empty_cache()
     slstm_err = check_slstm(torch, P, xcfg, dev, report)
     launches, eng = serve(torch, P, cfg, dev, report)
     profile_decode(torch, P, cfg, eng, report)
@@ -4491,6 +5376,10 @@ def main() -> int:
     rg_launches = serve_rg(torch, P, rcfg, dev, report)
     rg_train_launches = train_rg(torch, P, rcfg, dev, report)
     torch.cuda.empty_cache()
+    mx_launches = serve_mx(torch, P, dev, report)
+    torch.cuda.empty_cache()
+    mx_train_launches = train_mx(torch, P, dev, report)
+    torch.cuda.empty_cache()
     w4a8_t = time_w4a8(torch, P, cfg, dev, report)
     kvq_t = time_kvq(torch, P, cfg, dev, report)
     paged_t = time_paged_decode(torch, P, cfg, dev, report)
@@ -4501,6 +5390,7 @@ def main() -> int:
     flash_t = time_flash(torch, P, cfg, dev, report)
     slstm_t = time_slstm(torch, P, xcfg, dev, report)
     rg_t = time_rg(torch, P, rcfg, dev, report)
+    mx_t = time_mx(torch, P, dev, report)
     for name, t in (("kvq_paged_decode_attn", paged_t),
                     ("gather_dequant_paged_kv", gather_t),
                     ("pool_block_copy", copy_t),
@@ -4520,14 +5410,25 @@ def main() -> int:
          "replaces": "src/repro/kernels/w4a8/kernel.py:62",
          "launches": launches["w4a8_matmul"], "max_abs_err": w4a8_err,
          **w4a8_t, "rg_launches": rg_launches["w4a8_matmul"],
+         "mx_launches": mx_launches["w4a8_matmul"],
+         "mixtral": {"per": f"one decode step at M={SLOTS}: "
+                            f"{MX_SERVE_LAYERS} layers x (q, k, v, o, "
+                            f"router) + the untied head",
+                     **mx_t["w4a8_decode_step"]},
          "per": f"one decode step at M={SLOTS}: 36 layers x 7 linears + "
                 "the tied head"},
         {"name": "kvq_decode_attn", "route": "cuda",
          "source": "src/repro_torch/csrc/kvq_decode_attn.cu",
          "replaces": "src/repro/kernels/kvq_attn/kernel.py:338",
          "launches": launches["kvq_decode_attn"],
-         "max_abs_err": max(kvq_err, rg_err["kvq_decode_attn"]), **kvq_t,
+         "max_abs_err": max(kvq_err, rg_err["kvq_decode_attn"],
+                            mx_err["kvq_decode_attn"]), **kvq_t,
          "rg_launches": rg_launches["kvq_decode_attn"],
+         "mx_launches": mx_launches["kvq_decode_attn"],
+         "mixtral": {
+             "per": f"one decode step: {MX_SERVE_LAYERS} launches at "
+                    f"B={SLOTS}, H=32, Hkv=8, D=128, Sc={MX_WINDOW} (full "
+                    f"rings)", **mx_t["decode_attn_step"]},
          "recurrentgemma": {
              "per": f"one decode step: 8 launches at B={SLOTS}, H=10, "
                     f"Hkv=1, D=256, Sc={RG_WINDOW} (full rings)",
@@ -4590,6 +5491,19 @@ def main() -> int:
          "ptq_launches": ptq_launches["fake_quant_fwd"],
          "max_abs_err": fq_err, **fq_fwd_t,
          "rg_launches": rg_train_launches["fake_quant_fwd"],
+         "mx_launches": mx_launches["fake_quant_fwd"],
+         "mx_train_launches": mx_train_launches["fake_quant_fwd"],
+         "mixtral": {
+             "per": f"one mixtral decode step: {3 * MX_SERVE_LAYERS} mode-3 "
+                    f"launches, one an expert bank (8, 4096, 14336) or "
+                    f"(8, 14336, 4096) at 4 bits",
+             **mx_t["fake_quant_fwd_decode_step"],
+             "per_bank": [{k: b[k] for k in ("shape", "fwd_ms",
+                                              "fwd_plain_ms",
+                                              "fwd_library_ms",
+                                              "fwd_bound_ms",
+                                              "mode1_fwd_ms")}
+                          for b in mx_t["banks"]]},
          "per": "one QAT student step: 253 launches (36 layers x 7 "
                 "weights per output channel at 4 bits + the tied head per "
                 "vocab row at 8 bits)"},
@@ -4599,6 +5513,15 @@ def main() -> int:
          "launches": train_launches["fake_quant_bwd"],
          "max_abs_err": fq_err, **fq_bwd_t,
          "rg_launches": rg_train_launches["fake_quant_bwd"],
+         "mx_train_launches": mx_train_launches["fake_quant_bwd"],
+         "mixtral": {
+             "per": "one mode-3 launch on an expert bank at 4 bits",
+             "per_bank": [{k: b[k] for k in ("shape", "bwd_ms",
+                                              "bwd_plain_ms",
+                                              "bwd_library_ms",
+                                              "bwd_bound_ms",
+                                              "mode1_bwd_ms")}
+                          for b in mx_t["banks"]]},
          "per": "one QAT student backward: 253 launches, the forward's "
                 "sites"},
         {"name": "flash_attn_fwd", "route": "cuda",
@@ -4606,8 +5529,14 @@ def main() -> int:
          "replaces": "src/repro/kernels/flash_attn/kernel.py:74",
          "launches": train_launches["flash_attn_fwd"],
          "ptq_launches": ptq_launches["flash_attn_fwd"],
-         "max_abs_err": max(flash_err, rg_err["flash_attn_fwd"]),
+         "max_abs_err": max(flash_err, rg_err["flash_attn_fwd"],
+                            mx_err["flash_attn_fwd"]),
          **flash_t, "rg_launches": rg_train_launches["flash_attn_fwd"],
+         "mx_train_launches": mx_train_launches["flash_attn_fwd"],
+         "mixtral": {
+             "per": f"one 2-layer teacher forward: 2 launches at "
+                    f"B={TRAIN_B}, S={TRAIN_T}, H=32, Hkv=8, D=128",
+             **mx_t["flash_teacher_forward"]},
          "recurrentgemma": {
              "per": f"one teacher forward: 8 launches at B={TRAIN_B}, "
                     f"S={TRAIN_T}, H=10, Hkv=1, D=256, window {RG_WINDOW}",

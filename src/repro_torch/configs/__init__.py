@@ -13,6 +13,7 @@ _ARCH_MODULES = {
     "qwen2.5-3b": "qwen2_5_3b",
     "xlstm-125m": "xlstm_125m",
     "recurrentgemma-2b": "recurrentgemma_2b",
+    "mixtral-8x7b": "mixtral_8x7b",
 }
 
 ARCH_IDS = tuple(_ARCH_MODULES)

@@ -2,8 +2,8 @@
 and ``TrainConfig``).
 
 Only the model fields the ported paths read are kept; architectures
-beyond the dense GQA decoder, xLSTM and the hybrid RG-LRU / local
-attention stack arrive with later slices.
+beyond the dense and MoE GQA decoders, xLSTM and the hybrid RG-LRU /
+local attention stack arrive with later slices.
 """
 from __future__ import annotations
 
@@ -25,7 +25,7 @@ RECURRENT_BLOCKS = (BLOCK_RGLRU, BLOCK_MLSTM, BLOCK_SLSTM)
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                     # dense | hybrid | ssm
+    family: str                     # dense | moe | hybrid | ssm
     n_layers: int
     d_model: int
     n_heads: int
@@ -40,6 +40,9 @@ class ModelConfig:
     local_window: int = 2048        # window for BLOCK_LOCAL_ATTN layers
     # repeating pattern of block kinds, tiled / truncated to n_layers
     block_pattern: Tuple[str, ...] = (BLOCK_ATTN,)
+    # MoE: experts of an attention layer's SwiGLU, and the top-k routed to
+    n_experts: int = 0
+    n_experts_active: int = 0
     mlstm_proj_factor: float = 2.0
     slstm_proj_factor: float = 4.0 / 3.0
     lru_width: int = 0              # RG-LRU width (0 -> d_model)
@@ -72,6 +75,10 @@ class ModelConfig:
         return tuple((pat * reps)[: self.n_layers])
 
     @property
+    def is_moe(self) -> bool:
+        return self.n_experts > 0
+
+    @property
     def supports_long_context(self) -> bool:
         """True if decode memory is sub-linear in context (bounded cache)."""
         kinds = set(self.layer_kinds())
@@ -82,6 +89,46 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+    def param_counts(self) -> dict:
+        """Analytic parameter counts, total and active (an MoE layer's
+        active count holds its ``n_experts_active`` experts and the
+        router), for the model-FLOPs share."""
+        d = self.d_model
+        qd, kvd = self.q_dim, self.kv_dim
+        attn = d * qd + 2 * d * kvd + qd * d            # q, k, v, o
+        if self.qkv_bias:
+            attn += qd + 2 * kvd
+        dense_mlp = 3 * d * self.d_ff                   # SwiGLU gate/up/down
+        moe_mlp = self.n_experts * 3 * d * self.d_ff + d * self.n_experts
+        active_moe_mlp = (self.n_experts_active * 3 * d * self.d_ff
+                          + d * self.n_experts)
+        lru = self.resolved_lru_width
+        rglru_blk = (2 * d * lru + lru * d
+                     + self.conv1d_width * lru + 2 * lru * lru)
+        m_in = int(self.mlstm_proj_factor * d)
+        mlstm_blk = 2 * d * m_in + m_in * d + 3 * m_in * m_in + 2 * m_in
+        s_in = int(self.slstm_proj_factor * d)
+        slstm_blk = 8 * d * d + 2 * d * s_in
+        total = active = 0
+        for kind in self.layer_kinds():
+            if kind in ATTENTION_BLOCKS:
+                t = attn + (moe_mlp if self.is_moe else dense_mlp)
+                a = attn + (active_moe_mlp if self.is_moe else dense_mlp)
+            elif kind == BLOCK_RGLRU:
+                t = a = rglru_blk + dense_mlp
+            elif kind == BLOCK_MLSTM:
+                t = a = mlstm_blk + (dense_mlp if self.d_ff else 0)
+            elif kind == BLOCK_SLSTM:
+                t = a = slstm_blk + (dense_mlp if self.d_ff else 0)
+            else:
+                raise ValueError(kind)
+            total += t
+            active += a
+        emb = self.vocab_size * d
+        head = 0 if self.tie_embeddings else self.vocab_size * d
+        return {"total": total + emb + head, "active": active + emb + head,
+                "body_total": total, "body_active": active}
 
 
 @dataclass(frozen=True)

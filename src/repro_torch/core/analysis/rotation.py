@@ -27,7 +27,10 @@ into the adjacent linears (RMSNorm is then rotation-equivariant), then
 rotate the residual stream basis with a random orthogonal R. Under a
 tied head the final norm stays unfolded (folding it would break the
 tie), as in the reference: the rotation then preserves the function
-only while the final norm's weight is uniform.
+only while the final norm's weight is uniform. In an MoE layer ln2 is
+folded into the router alone, as in the reference, and the expert banks
+(``(e, d_in, d_out)``) are rotated only: their normed input is then
+unscaled once ln2's weight is not uniform.
 """
 from __future__ import annotations
 
@@ -105,12 +108,14 @@ def _fold_norm_into(norm_p: Dict, linears) -> None:
 
 
 def _rot_in(lin: Dict, R: torch.Tensor) -> None:
-    """Reading the rotated residual: W' = R^T W (input side)."""
+    """Reading the rotated residual: W' = R^T W (input side; a bank
+    (e, d, o) expert by expert)."""
     lin["w"] = (R.T @ lin["w"].float()).to(lin["w"].dtype)
 
 
 def _rot_out(lin: Dict, R: torch.Tensor) -> None:
-    """Writing to the rotated residual: W' = W R (output side)."""
+    """Writing to the rotated residual: W' = W R (output side; a bank
+    (e, o, d) expert by expert)."""
     lin["w"] = (lin["w"].float() @ R).to(lin["w"].dtype)
 
 
@@ -132,12 +137,20 @@ def _rotate_with(cfg: ModelConfig, params: Dict, R: torch.Tensor) -> Dict:
         # a tied head reads embed^T: folding the final norm would break the
         # tie, so it stays (exact only while its weight is uniform)
         for blk in params["layers"]:
-            attn, mlp = blk["attn"], blk["mlp"]
+            attn = blk["attn"]
             _fold_norm_into(blk["ln1"], [attn["wq"], attn["wk"], attn["wv"]])
             for k in ("wq", "wk", "wv"):
                 _rot_in(attn[k], R)
             _rot_out(attn["wo"], R)
-            _fold_norm_into(blk["ln2"], [mlp["wg"], mlp["wu"]])
+            if "moe" in blk:
+                mlp = blk["moe"]
+                # ln2 folds into the router only; the experts share the
+                # normed input and get the rotation alone (the reference)
+                _fold_norm_into(blk["ln2"], [mlp["router"]])
+                _rot_in(mlp["router"], R)
+            else:
+                mlp = blk["mlp"]
+                _fold_norm_into(blk["ln2"], [mlp["wg"], mlp["wu"]])
             _rot_in(mlp["wg"], R)
             _rot_in(mlp["wu"], R)
             _rot_out(mlp["wd"], R)
@@ -162,12 +175,14 @@ _LAYER_TYPES = ("wq", "wk", "wg", "wu", "wd")   # v/o omitted (paper §3.4)
 def rotation_report(cfg: ModelConfig, params_before: Dict,
                     params_after: Dict) -> Dict[str, Dict[str, float]]:
     """Average rotational / non-rotational distance by layer type, over
-    the attention layers (the Procrustes SVDs batched over layers)."""
+    the attention layers and, for an MoE's banks, over their experts (the
+    Procrustes SVDs batched over layers and experts)."""
     layers = [i for i, k in enumerate(cfg.layer_kinds())
               if k in ATTENTION_BLOCKS]
     report = {}
     for name in _LAYER_TYPES:
-        group = "attn" if name in ("wq", "wk") else "mlp"
+        group = ("attn" if name in ("wq", "wk")
+                 else "moe" if cfg.is_moe else "mlp")
         w0 = [params_before["layers"][i][group][name]["w"] for i in layers]
         w1 = [params_after["layers"][i][group][name]["w"] for i in layers]
         if not w0:

@@ -59,11 +59,15 @@ def collect_chan_maxima(cfg: ModelConfig, params: Dict,
     return agg
 
 
-# (norm key, linear keys smoothing-folded against it) per block kind
-def _pairs_for(kind: str):
+# (norm key, linear keys smoothing-folded against it) per block kind; an
+# MoE block's ln2 has no pair (the reference folds nothing into its
+# router or experts)
+def _pairs_for(kind: str, blk: Dict):
     if kind in ATTENTION_BLOCKS:
-        return [("ln1", ["attn/wq", "attn/wk", "attn/wv"]),
-                ("ln2", ["mlp/wg", "mlp/wu"])]
+        pairs = [("ln1", ["attn/wq", "attn/wk", "attn/wv"])]
+        if "mlp" in blk:
+            pairs.append(("ln2", ["mlp/wg", "mlp/wu"]))
+        return pairs
     if kind == BLOCK_RGLRU:
         return [("ln1", ["rglru/w_in", "rglru/w_gate"]),
                 ("ln2", ["mlp/wg", "mlp/wu"])]
@@ -85,7 +89,7 @@ def _fold_with(cfg: ModelConfig, params: Dict, alpha: float,
         for i, kind in enumerate(cfg.layer_kinds()):
             blk = params["layers"][i]
             blk_stats = stats["layers"][i] if stats else None
-            for norm_key, lin_keys in _pairs_for(kind):
+            for norm_key, lin_keys in _pairs_for(kind, blk):
                 if norm_key not in blk:
                     continue
                 lins = [(k, _get(blk, k)) for k in lin_keys]

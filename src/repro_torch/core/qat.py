@@ -135,7 +135,9 @@ def quantize_act(ctx: QuantCtx, x: torch.Tensor, p: Dict[str, Any], site: str,
 def quantize_weight_p(ctx: QuantCtx, p: Dict[str, Any],
                       bits: Optional[int] = None,
                       key: str = "w") -> torch.Tensor:
-    """Fake-quant a weight from its param dict (LSQ per-output-channel).
+    """Fake-quant a weight from its param dict (LSQ per-output-channel;
+    an MoE expert bank ``(e, d_in, d_out)`` per output channel of each
+    expert, its ``s_w`` ``(e, 1, d_out)``: one launch for the bank).
 
     The tied head's weight is ``embed.w.T``, a transposed view of the
     (vocab, d) table. It is quantized as the table itself, one scale per
@@ -378,9 +380,14 @@ def attach_w4a8_exports(params, policy: PrecisionPolicy):
 
     Returns a new tree (input dicts untouched; tensors shared). Every dict
     with ``w``/``s_w`` siblings is a linear and packs at
-    ``policy.weight_bits``' lattice (re-gridded to int4). The head packs at
-    ``policy.head_bits``; when embeddings are tied it has no ``w`` and
-    exports from the transposed embedding table.
+    ``policy.weight_bits``' lattice (re-gridded to int4), the MoE router
+    included (QAT trains it at 8 bits; the reference serves it from this
+    4-bit export all the same). MoE expert banks (``wg``/``wu``/``wd``
+    next to a ``router``) are skipped: ``blocks._expert_linear`` batches
+    over the expert axis with its own GEMM and has no packed kernel, so
+    the banks stay bf16 and are fake-quantized on every forward. The head
+    packs at ``policy.head_bits``; when embeddings are tied it has no
+    ``w`` and exports from the transposed embedding table.
     """
     if not policy.enabled:
         raise ValueError("w4a8 export needs a quantized policy "
@@ -388,9 +395,12 @@ def attach_w4a8_exports(params, policy: PrecisionPolicy):
 
     def walk(tree):
         if isinstance(tree, dict):
+            moe = "router" in tree
             out = {}
             for k, v in tree.items():
-                if _is_linear(v):
+                if _is_linear(v) and moe and k in ("wg", "wu", "wd"):
+                    out[k] = v
+                elif _is_linear(v):
                     nv = dict(v)
                     nv["w4a8"] = export_linear_w4(v, policy.weight_bits)
                     out[k] = nv
@@ -420,7 +430,8 @@ def drop_exported_weights(params):
 
     The w4a8 forward never reads them, so a full-width server can free
     them once the exports exist (the tied embedding stays: the embedding
-    lookup reads it). Returns a new tree; the input dicts are untouched.
+    lookup reads it, and so do MoE expert banks, which have no export).
+    Returns a new tree; the input dicts are untouched.
     """
     def walk(tree):
         if isinstance(tree, dict):

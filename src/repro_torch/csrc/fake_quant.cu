@@ -9,12 +9,14 @@
 //             ds = gscale * sum(g * (within ? rint(v) - v : clip(v, qn, qp)))
 //
 // all in f32 and cast back to the input's type (bf16 or f32). x is a
-// contiguous (R, C) view; the scale is one of
+// contiguous (E, R, C) view, E = 1 but in mode 3; the scale is one of
 //   mode 0: per tensor, s[0];
 //   mode 1: per column, s[c] (a weight's output channel, the last axis);
 //   mode 2: per row, s[r] (the tied head: embed.w is (vocab, d) and its
 //           transpose is what the head multiplies, quantized per vocab
-//           entry, so the channel is the row of the stored tensor).
+//           entry, so the channel is the row of the stored tensor);
+//   mode 3: per column of each leading slice, s[e * C + c] (an MoE expert
+//           bank (E, d_in, d_out) with its (E, 1, d_out) scales).
 // ds sums over what shares one scale and is multiplied by
 // gscale = 1 / sqrt(f32(n * qp)), n = numel / number of scales, which the
 // caller computes (quant/ops.py:_fq_bwd on the TPU side).
@@ -33,16 +35,23 @@
 // in the backward (x and g in, dx out), far below the card's ~20 f32
 // operations per byte. Design: one pass over the data with 16-byte loads
 // and stores (8 bf16 or 4 f32 per thread) wherever the shape and the
-// pointers allow, else one element per thread. The TPU kernel's (256, 512)
-// VMEM tiles become: mode 1, a block (8 warps) per strip of 32 packs
+// pointers allow, else one element per thread; the forward's scale index
+// in 32-bit arithmetic wherever a slice has fewer than 2^32 elements, and
+// in mode 3 a grid row of blocks per slice (no division by the slice's
+// size).
+// The TPU kernel's (256, 512) VMEM tiles become: modes 1 and 3, a block
+// (8 warps) per strip of 32 packs
 // (256 bf16 columns: a warp reads 512 contiguous bytes of a row) and band
 // of rows, its warps on different rows, each thread staging its own packs
 // of x and g COL_STAGES groups of COL_UNROLL rows ahead by cp.async (12
 // rows in flight with no register holding them); the bands are sized so
 // that the grid holds ~2 blocks an SM (one wave) at every weight shape
-// (2048 x 256 to 11008 x 2048). The warps' column sums meet in shared
-// memory in warp order, one partial per band and column; a second pass
-// sums the bands in a fixed order, 8 threads a column. Mode 2, one warp
+// (2048 x 256 to 11008 x 2048). Mode 3 is mode 1 with the bands cut
+// inside each slice (a band never crosses one; the slices share the
+// wave's blocks), and mode 1 is mode 3 at E = 1. The warps' column sums
+// meet in shared memory in warp order, one partial per band and column; a
+// second pass sums each slice's bands in a fixed order, 8 threads a
+// column. Mode 2, one warp
 // per row with a shuffle reduction; mode 0, a fixed grid of grid-stride
 // blocks, one partial per block.
 
@@ -106,29 +115,40 @@ struct alignas(sizeof(T) * V) Pack {
   T v[V];
 };
 
-__device__ __forceinline__ long long scale_index(long long i, long long C,
-                                                 int mode) {
-  return mode == 0 ? 0 : (mode == 1 ? i % C : i / C);
+// the scale of element i of x (of the block's slice in mode 3)
+template <typename I>
+__device__ __forceinline__ I scale_index(I i, I C, int mode) {
+  return mode == 0 ? 0 : (mode == 2 ? i / C : i % C);
 }
 
 // ---------------------------------------------------------------- forward
 
-template <typename T, int V>
+// n_packs packs of x (of each slice in mode 3, whose grid row
+// blockIdx.y is slice e: x, out and s start at the slice's own, and the
+// slice is then a mode-1 tensor). I: the index type of the scale lookup
+// (unsigned 32-bit when a slice has fewer than 2^32 elements: a 64-bit
+// division costs several times more)
+template <typename T, int V, typename I>
 __global__ void __launch_bounds__(THREADS)
 fq_fwd_kernel(const T* __restrict__ x, const float* __restrict__ s,
-              T* __restrict__ out, long long n_packs, long long C, int mode,
+              T* __restrict__ out, long long n_packs, I C, int mode,
               float qn, float qp) {
+  const long long base = (long long)blockIdx.y * n_packs;
+  x += base * V;
+  out += base * V;
+  s += (long long)blockIdx.y * C;
   for (long long p = (long long)blockIdx.x * THREADS + threadIdx.x;
        p < n_packs; p += (long long)gridDim.x * THREADS) {
-    const long long i0 = p * V;
+    const I i0 = (I)(p * V);
     const Pack<T, V> xv = reinterpret_cast<const Pack<T, V>*>(x)[p];
     Pack<T, V> ov;
     // with C % V == 0 the V elements share one row: one scale index per
-    // pack in modes 0 and 2, consecutive ones in mode 1
-    const long long si = scale_index(i0, C, mode);
+    // pack in modes 0 and 2, consecutive ones in modes 1 and 3
+    const I si = scale_index<I>(i0, C, mode);
+    const bool per_col = mode == 1 || mode == 3;
 #pragma unroll
     for (int j = 0; j < V; ++j) {
-      const float sf = clamp_scale(s[mode == 1 ? si + j : si]);
+      const float sf = clamp_scale(s[per_col ? si + j : si]);
       const float q = rintf(clipf(__fdiv_rn(to_f(xv.v[j]), sf), qn, qp));
       from_f(__fmul_rn(q, sf), &ov.v[j]);
     }
@@ -156,32 +176,36 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// mode 1: block (COL_WARPS warps) covers the strip of 32 * V columns
-// starting at blockIdx.x * 32 * V and rows [blockIdx.y * band,
-// + band); warp w takes rows w, w + COL_WARPS, ... of the band in groups
-// of COL_UNROLL, and each thread sums its columns in row order;
-// partial[blockIdx.y, c] is the band's column sum, the warps' sums added
-// in warp order. With 16-byte packs a thread stages its own packs of x
-// and g COL_STAGES groups ahead in shared memory by cp.async (no other
-// thread reads them: no barrier), else it loads a group into registers.
+// modes 1 and 3: x is E slices of (R, C), cut into `bands` bands of
+// `band` rows each; blockIdx.y = e * bands + b is band b of slice e. The
+// block (COL_WARPS warps) covers the strip of 32 * V columns starting at
+// blockIdx.x * 32 * V and the slice's rows [b * band, + band); warp w
+// takes rows w, w + COL_WARPS, ... of the band in groups of COL_UNROLL,
+// and each thread sums its columns in row order; partial[blockIdx.y, c]
+// is the band's column sum, the warps' sums added in warp order. With
+// 16-byte packs a thread stages its own packs of x and g COL_STAGES groups
+// ahead in shared memory by cp.async (no other thread reads them: no
+// barrier), else it loads a group into registers.
 template <typename T, int V>
 __global__ void __launch_bounds__(COL_WARPS * 32, 2)
 fq_bwd_col_kernel(const T* __restrict__ x, const float* __restrict__ s,
                   const T* __restrict__ g, T* __restrict__ dx,
                   float* __restrict__ partial, long long R, long long C,
-                  long long band, float qn, float qp) {
+                  long long band, int bands, float qn, float qp) {
   using P = Pack<T, V>;
   extern __shared__ __align__(16) unsigned char col_smem[];
   __shared__ float red[COL_WARPS][32 * V];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long e = blockIdx.y / bands, b = blockIdx.y % bands;
   const long long c0 = ((long long)blockIdx.x * 32 + lane) * V;
-  const long long r0 = (long long)blockIdx.y * band + warp;
-  const long long r1 = (long long)blockIdx.y * band + band < R
-                           ? (long long)blockIdx.y * band + band
-                           : R;
-  const P* xp = reinterpret_cast<const P*>(x);
-  const P* gp = reinterpret_cast<const P*>(g);
-  P* dp = reinterpret_cast<P*>(dx);
+  const long long r0 = b * band + warp;
+  const long long r1 = b * band + band < R ? b * band + band : R;
+  // the slice's own rows and scales (R * C is a multiple of V: packs stay
+  // aligned)
+  const P* xp = reinterpret_cast<const P*>(x + e * R * C);
+  const P* gp = reinterpret_cast<const P*>(g + e * R * C);
+  P* dp = reinterpret_cast<P*>(dx + e * R * C);
+  s += e * C;
   float acc[V];
 #pragma unroll
   for (int j = 0; j < V; ++j) acc[j] = 0.0f;
@@ -272,15 +296,18 @@ fq_bwd_col_kernel(const T* __restrict__ x, const float* __restrict__ s,
 // the staging ring of a mode-1 block with 16-byte packs, in bytes
 constexpr int COL_SMEM = COL_WARPS * COL_STAGES * COL_UNROLL * 2 * 32 * 16;
 
-// mode 1, second pass: ds[c] = gscale * the sum over bands; thread group
-// q of a column sums bands q, q + FIN_GROUPS, ... in order, then the
-// groups' sums are added in group order
+// modes 1 and 3, second pass: ds[e, c] = gscale * the sum over slice
+// e's bands (blockIdx.y = e); thread group q of a column sums bands q,
+// q + FIN_GROUPS, ... in order, then the groups' sums are added in group
+// order
 __global__ void __launch_bounds__(32 * FIN_GROUPS)
 fq_bwd_col_finish(const float* __restrict__ partial, float* __restrict__ ds,
                   long long C, int bands, float gscale) {
   __shared__ float red[FIN_GROUPS][32];
   const int cl = threadIdx.x & 31, q = threadIdx.x >> 5;
   const long long c = (long long)blockIdx.x * 32 + cl;
+  partial += (long long)blockIdx.y * bands * C;
+  ds += (long long)blockIdx.y * C;
   float acc = 0.0f;
   if (c < C)
     for (int b = q; b < bands; b += FIN_GROUPS)
@@ -390,12 +417,14 @@ long long tensor_blocks(long long n) {
   return want < 1 ? 1 : (want > TENSOR_BLOCKS ? TENSOR_BLOCKS : want);
 }
 
-// mode 1's rows a band (a multiple of COL_BAND): as many bands as keep
-// the bf16 strips' blocks within COL_TARGET_BLOCKS (one wave), at least
-// COL_BAND rows each. A function of R and C only, so the workspace is too.
-long long col_band(long long R, long long C) {
+// the rows of a band of a slice in modes 1 and 3 (a multiple of
+// COL_BAND): as many bands a slice as keep the E slices' bf16 strips'
+// blocks within COL_TARGET_BLOCKS (one wave), at least one a slice and
+// COL_BAND rows each. A function of E, R and C only, so the workspace is
+// too.
+long long col_band(long long E, long long R, long long C) {
   const long long strips = (C + COL_STRIP - 1) / COL_STRIP;
-  long long bands = COL_TARGET_BLOCKS / strips;
+  long long bands = COL_TARGET_BLOCKS / (strips * E);
   const long long most = (R + COL_BAND - 1) / COL_BAND;
   bands = bands < most ? bands : most;
   if (bands < 1) bands = 1;
@@ -403,13 +432,14 @@ long long col_band(long long R, long long C) {
   return (rows + COL_BAND - 1) / COL_BAND * COL_BAND;
 }
 
-long long col_bands(long long R, long long C) {
-  return R > 0 ? (R + col_band(R, C) - 1) / col_band(R, C) : 0;
+// bands a slice
+long long col_bands(long long E, long long R, long long C) {
+  return R > 0 ? (R + col_band(E, R, C) - 1) / col_band(E, R, C) : 0;
 }
 
 // f32 partials the backward writes before its second pass
-long long bwd_workspace(long long R, long long C, int mode) {
-  if (mode == 1) return col_bands(R, C) * C;
+long long bwd_workspace(long long E, long long R, long long C, int mode) {
+  if (mode == 1 || mode == 3) return E * col_bands(E, R, C) * C;
   if (mode == 0) return tensor_blocks(R * C);
   return 0;
 }
@@ -419,28 +449,41 @@ int grid_for(long long work) {
   return (int)(want < 132LL * 64 ? (want > 0 ? want : 1) : 132LL * 64);
 }
 
+// mode 3: a grid row of blocks per slice, the whole grid no larger than
+// one slice-less launch over the same elements
 template <typename T, int V>
-void fwd(const void* x, const void* s, void* out, long long n, long long C,
-         int mode, float qn, float qp, cudaStream_t st) {
-  const long long packs = n / V;
-  fq_fwd_kernel<T, V><<<grid_for(packs), THREADS, 0, st>>>(
-      static_cast<const T*>(x), static_cast<const float*>(s),
-      static_cast<T*>(out), packs, C, mode, qn, qp);
+void fwd(const void* x, const void* s, void* out, long long E, long long R,
+         long long C, int mode, float qn, float qp, cudaStream_t st) {
+  const long long slice = R * C / V;            // packs a grid row covers
+  const int rows = mode == 3 ? (int)E : 1;
+  const long long packs = mode == 3 ? slice : E * slice;
+  int per_row = grid_for(E * slice) / rows;
+  if (per_row < 1) per_row = 1;
+  const dim3 grid((unsigned)per_row, (unsigned)rows);
+  const T* xp = static_cast<const T*>(x);
+  const float* sp = static_cast<const float*>(s);
+  T* op = static_cast<T*>(out);
+  if (packs * V <= 0xffffffffLL)
+    fq_fwd_kernel<T, V, unsigned><<<grid, THREADS, 0, st>>>(
+        xp, sp, op, packs, (unsigned)C, mode, qn, qp);
+  else
+    fq_fwd_kernel<T, V, long long><<<grid, THREADS, 0, st>>>(
+        xp, sp, op, packs, C, mode, qn, qp);
 }
 
 template <typename T, int V>
 void bwd(const void* x, const void* s, const void* g, void* dx,
-         float* partial, float* ds, long long R, long long C, int mode,
-         float qn, float qp, float gscale, cudaStream_t st) {
+         float* partial, float* ds, long long E, long long R, long long C,
+         int mode, float qn, float qp, float gscale, cudaStream_t st) {
   const T* xp = static_cast<const T*>(x);
   const T* gp = static_cast<const T*>(g);
   const float* sp = static_cast<const float*>(s);
   T* dp = static_cast<T*>(dx);
-  if (mode == 1) {
-    const long long band = col_band(R, C);
-    const int bands = (int)col_bands(R, C);
+  if (mode == 1 || mode == 3) {
+    const long long band = col_band(E, R, C);
+    const int bands = (int)col_bands(E, R, C);
     const long long cols = 32LL * V;
-    dim3 grid((unsigned)((C + cols - 1) / cols), (unsigned)bands);
+    dim3 grid((unsigned)((C + cols - 1) / cols), (unsigned)(E * bands));
     const int smem = sizeof(Pack<T, V>) == 16 ? COL_SMEM : 0;
     if (smem > 48 * 1024) {
       static bool smem_set = false;       // once per instantiation
@@ -453,9 +496,10 @@ void bwd(const void* x, const void* s, const void* g, void* dx,
       }
     }
     fq_bwd_col_kernel<T, V><<<grid, COL_WARPS * 32, smem, st>>>(
-        xp, sp, gp, dp, partial, R, C, band, qn, qp);
-    fq_bwd_col_finish<<<(unsigned)((C + 31) / 32), 32 * FIN_GROUPS, 0, st>>>(
-        partial, ds, C, bands, gscale);
+        xp, sp, gp, dp, partial, R, C, band, bands, qn, qp);
+    fq_bwd_col_finish<<<dim3((unsigned)((C + 31) / 32), (unsigned)E),
+                        32 * FIN_GROUPS, 0, st>>>(partial, ds, C, bands,
+                                                  gscale);
   } else if (mode == 2) {
     const long long rows_per_block = THREADS / 32;
     fq_bwd_row_kernel<T, V><<<(unsigned)((R + rows_per_block - 1) /
@@ -473,48 +517,62 @@ void bwd(const void* x, const void* s, const void* g, void* dx,
 
 }  // namespace
 
-// dtype: 0 = f32, 1 = bf16. mode as above. Returns cudaGetLastError().
+namespace {
+
+// the shapes and modes a launcher takes: E slices of (R, C), E = 1 but in
+// mode 3 (whose grid holds E rows of blocks a band, at most 65535 in all)
+bool valid_shape(long long E, long long R, long long C, int mode, int dtype,
+                 int bits) {
+  return E >= 1 && E <= 4096 && R >= 0 && C >= 1 && mode >= 0 &&
+         mode <= 3 && (mode == 3 || E == 1) && bits >= 2 && bits <= 16 &&
+         (dtype == 0 || dtype == 1);
+}
+
+}  // namespace
+
+// x: E slices of (R, C) rows (E = 1 but in mode 3). dtype: 0 = f32,
+// 1 = bf16. mode as above. Returns cudaGetLastError().
 extern "C" int fake_quant_fwd_launch(const void* x, const void* s, void* out,
-                                     long long R, long long C, int mode,
-                                     int dtype, int bits, void* stream) {
-  if (R < 0 || C < 1 || mode < 0 || mode > 2 || bits < 2 || bits > 16 ||
-      (dtype != 0 && dtype != 1))
+                                     long long E, long long R, long long C,
+                                     int mode, int dtype, int bits,
+                                     void* stream) {
+  if (!valid_shape(E, R, C, mode, dtype, bits))
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long n = R * C;
+  const long long n = E * R * C;
   if (n == 0) return static_cast<int>(cudaGetLastError());
   const float qn = -(float)(1 << (bits - 1));
   const float qp = (float)((1 << (bits - 1)) - 1);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
     if (pack_width(2, C, {x, out}) == 8)
-      fwd<__nv_bfloat16, 8>(x, s, out, n, C, mode, qn, qp, st);
+      fwd<__nv_bfloat16, 8>(x, s, out, E, R, C, mode, qn, qp, st);
     else
-      fwd<__nv_bfloat16, 1>(x, s, out, n, C, mode, qn, qp, st);
+      fwd<__nv_bfloat16, 1>(x, s, out, E, R, C, mode, qn, qp, st);
   } else {
     if (pack_width(4, C, {x, out}) == 4)
-      fwd<float, 4>(x, s, out, n, C, mode, qn, qp, st);
+      fwd<float, 4>(x, s, out, E, R, C, mode, qn, qp, st);
     else
-      fwd<float, 1>(x, s, out, n, C, mode, qn, qp, st);
+      fwd<float, 1>(x, s, out, E, R, C, mode, qn, qp, st);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 // The backward's workspace, in f32 elements (0 in mode 2).
-extern "C" long long fake_quant_bwd_workspace(long long R, long long C,
-                                              int mode) {
-  return bwd_workspace(R, C, mode);
+extern "C" long long fake_quant_bwd_workspace(long long E, long long R,
+                                              long long C, int mode) {
+  return bwd_workspace(E, R, C, mode);
 }
 
 // partial: partial_len f32, at least fake_quant_bwd_workspace(R, C, mode),
 // else cudaErrorInvalidValue. ds: the scales' count of f32, gscale applied.
 extern "C" int fake_quant_bwd_launch(const void* x, const void* s,
                                      const void* g, void* dx, void* partial,
-                                     void* ds, long long R, long long C,
-                                     int mode, int dtype, int bits,
-                                     float gscale, long long partial_len,
-                                     void* stream) {
-  if (R < 0 || C < 1 || mode < 0 || mode > 2 || bits < 2 || bits > 16 ||
-      (dtype != 0 && dtype != 1) || partial_len < bwd_workspace(R, C, mode))
+                                     void* ds, long long E, long long R,
+                                     long long C, int mode, int dtype,
+                                     int bits, float gscale,
+                                     long long partial_len, void* stream) {
+  if (!valid_shape(E, R, C, mode, dtype, bits) ||
+      partial_len < bwd_workspace(E, R, C, mode))
     return static_cast<int>(cudaErrorInvalidValue);
   if (R == 0) return static_cast<int>(cudaGetLastError());
   const float qn = -(float)(1 << (bits - 1));
@@ -524,18 +582,16 @@ extern "C" int fake_quant_bwd_launch(const void* x, const void* s,
   float* dsp = static_cast<float*>(ds);
   if (dtype == 1) {
     if (pack_width(2, C, {x, g, dx}) == 8)
-      bwd<__nv_bfloat16, 8>(x, s, g, dx, pp, dsp, R, C, mode, qn, qp, gscale,
-                            st);
+      bwd<__nv_bfloat16, 8>(x, s, g, dx, pp, dsp, E, R, C, mode, qn, qp,
+                            gscale, st);
     else
-      bwd<__nv_bfloat16, 1>(x, s, g, dx, pp, dsp, R, C, mode, qn, qp, gscale,
-                            st);
+      bwd<__nv_bfloat16, 1>(x, s, g, dx, pp, dsp, E, R, C, mode, qn, qp,
+                            gscale, st);
   } else {
     if (pack_width(4, C, {x, g, dx}) == 4)
-      bwd<float, 4>(x, s, g, dx, pp, dsp, R, C, mode, qn, qp, gscale,
-                    st);
+      bwd<float, 4>(x, s, g, dx, pp, dsp, E, R, C, mode, qn, qp, gscale, st);
     else
-      bwd<float, 1>(x, s, g, dx, pp, dsp, R, C, mode, qn, qp, gscale,
-                    st);
+      bwd<float, 1>(x, s, g, dx, pp, dsp, E, R, C, mode, qn, qp, gscale, st);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -8,9 +8,11 @@ non-contiguous operand included: nothing is copied behind the caller's
 back) and counts its launches in ``.launches``.
 
 The scale's layout picks the kernel's mode: one element (per tensor),
-``(..., C)`` matching x's last axis (per column), or ``(R, 1)`` against a
+``(..., C)`` matching x's last axis (per column), ``(R, 1)`` against a
 2-D x (per row: the tied head quantizes ``embed.w``, whose transpose the
-head multiplies, once per vocab entry; see ``core.qat.quantize_weight_p``).
+head multiplies, once per vocab entry; see ``core.qat.quantize_weight_p``),
+or ``(E, 1, C)`` against a 3-D x of E slices (per column of each slice:
+an MoE expert bank ``(E, d_in, d_out)``, one launch for the whole bank).
 """
 from __future__ import annotations
 
@@ -27,10 +29,10 @@ from repro_torch.kernels.quant.ref import (fake_quant_bwd_ref,
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = {
-    "fake_quant_fwd_launch": ((_P,) * 3 + (_L,) * 2 + (_I,) * 3 + (_P,), _I),
-    "fake_quant_bwd_launch": ((_P,) * 6 + (_L,) * 2 + (_I,) * 3
+    "fake_quant_fwd_launch": ((_P,) * 3 + (_L,) * 3 + (_I,) * 3 + (_P,), _I),
+    "fake_quant_bwd_launch": ((_P,) * 6 + (_L,) * 3 + (_I,) * 3
                               + (ctypes.c_float, _L, _P), _I),
-    "fake_quant_bwd_workspace": ((_L, _L, _I), _L),
+    "fake_quant_bwd_workspace": ((_L, _L, _L, _I), _L),
 }
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -47,7 +49,8 @@ def _fn(name: str):
 
 def scale_mode(x: torch.Tensor, s: torch.Tensor) -> int:
     """0: one scale; 1: one per column (x's last axis); 2: one per row of
-    a 2-D x. Anything else raises."""
+    a 2-D x; 3: one per column of each leading slice of a 3-D x (s of
+    shape (E, 1, C)). Anything else raises."""
     if s.numel() == 1:
         return 0
     C = x.shape[-1] if x.dim() else 1
@@ -55,8 +58,11 @@ def scale_mode(x: torch.Tensor, s: torch.Tensor) -> int:
         return 1
     if x.dim() == 2 and s.numel() == x.shape[0] and s.shape[-1] == 1:
         return 2
+    if x.dim() == 3 and tuple(s.shape) == (x.shape[0], 1, C):
+        return 3
     raise ValueError(f"scale of shape {tuple(s.shape)} is neither per "
-                     f"tensor, per column nor per row of x {tuple(x.shape)}")
+                     f"tensor, per column, per row nor per column of each "
+                     f"slice of x {tuple(x.shape)}")
 
 
 def grad_scale(x: torch.Tensor, s: torch.Tensor, bits: int) -> float:
@@ -67,14 +73,17 @@ def grad_scale(x: torch.Tensor, s: torch.Tensor, bits: int) -> float:
     return float(np.float32(1.0) / np.sqrt(np.float32(n * qp)))
 
 
-def _check(x, s, dev):
+def _check(x, s, dev, mode):
+    """(E, R, C): x as E slices of R rows of C (E = 1 but in mode 3)."""
     if x.dtype not in _DTYPES:
         raise TypeError(f"the fake-quant kernels take bf16 or f32, got "
                         f"{x.dtype}")
     check_tensor("x", x, x.dtype, x.shape, dev)
     check_tensor("s", s, torch.float32, s.shape, dev)
+    if mode == 3:
+        return tuple(x.shape)
     C = x.shape[-1] if x.dim() else 1
-    return x.numel() // C, C
+    return 1, x.numel() // C, C
 
 
 def _cuda_only(name: str, t: torch.Tensor) -> None:
@@ -94,11 +103,11 @@ def fake_quant_fwd(x: torch.Tensor, s: torch.Tensor, bits: int,
         return fake_quant_fwd_ref(x, s, bits)
     _cuda_only("fake_quant_fwd", x)
     mode = scale_mode(x, s)
-    R, C = _check(x, s, x.device)
+    E, R, C = _check(x, s, x.device, mode)
     out = torch.empty_like(x)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = _fn("fake_quant_fwd_launch")(
-        x.data_ptr(), s.data_ptr(), out.data_ptr(), R, C, mode,
+        x.data_ptr(), s.data_ptr(), out.data_ptr(), E, R, C, mode,
         _DTYPES[x.dtype], bits, stream)
     if err:
         raise RuntimeError(f"fake_quant_fwd kernel launch failed: CUDA error "
@@ -126,16 +135,16 @@ def fake_quant_bwd(x: torch.Tensor, s: torch.Tensor, g: torch.Tensor,
     _cuda_only("fake_quant_bwd", x)
     mode = scale_mode(x, s)
     dev = x.device
-    R, C = _check(x, s, dev)
+    E, R, C = _check(x, s, dev, mode)
     check_tensor("g", g, x.dtype, x.shape, dev)
     dx = torch.empty_like(x)
     ds = torch.empty(s.shape, dtype=torch.float32, device=dev)
     # the source sizes its own workspace, and checks the length it is given
-    work = _fn("fake_quant_bwd_workspace")(R, C, mode)
+    work = _fn("fake_quant_bwd_workspace")(E, R, C, mode)
     partial = torch.empty((max(work, 1),), dtype=torch.float32, device=dev)
     err = _fn("fake_quant_bwd_launch")(
         x.data_ptr(), s.data_ptr(), g.data_ptr(), dx.data_ptr(),
-        partial.data_ptr(), ds.data_ptr(), R, C, mode, _DTYPES[x.dtype],
+        partial.data_ptr(), ds.data_ptr(), E, R, C, mode, _DTYPES[x.dtype],
         bits, gs, work, torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"fake_quant_bwd kernel launch failed: CUDA error "

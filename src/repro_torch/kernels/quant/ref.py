@@ -4,7 +4,8 @@ The same math as ``csrc/fake_quant.cu`` and the reference's
 ``kernels/quant/ref.py``, in f32 and cast back to the input's type. ``s``
 broadcasts against ``x``: a 0-d or one-element scale per tensor, ``(1, C)``
 per column (a weight's output channel), ``(R, 1)`` per row (the tied
-head's ``embed.w``, quantized per vocab entry).
+head's ``embed.w``, quantized per vocab entry), ``(E, 1, C)`` per column of
+each slice of an ``(E, R, C)`` x (an MoE expert bank's output channels).
 """
 from __future__ import annotations
 

@@ -18,6 +18,8 @@ from repro_torch.optim import adamw_update, clip_by_global_norm, \
     cosine_schedule
 from repro_torch.tree import tree_leaves, tree_map
 
+MOE_AUX_COEF = 0.01     # weight of the MoE load-balance aux in the loss
+
 
 def grads_of(loss: torch.Tensor, params):
     """d loss / d params as a tree mirroring ``params``; ``None`` where no
@@ -36,7 +38,8 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
                     split_times: bool = False) -> Callable:
     """QAT train step, paper-faithful: teacher forward (unquantized, no
     grad), student forward with fake-quant, pure-KD loss (default), AdamW
-    with LSQ scale updates (50x LR on activation scales), in place.
+    with LSQ scale updates (50x LR on activation scales), in place. An MoE
+    config adds ``MOE_AUX_COEF`` times the load-balance aux to the loss.
 
     ``kernel_backend="ref"`` runs the kernels' plain versions on any
     device. ``split_times`` synchronises the device between the three
@@ -61,11 +64,13 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
             t_logits, _ = forward(cfg, teacher_params, tctx, batch)
         if mark:
             mark()
-        logits, _ = forward(cfg, params, ctx, batch, remat=remat)
+        logits, aux = forward(cfg, params, ctx, batch, remat=remat)
         loss = silq_loss(logits, t_logits,
                          batch["labels"], kd_ratio=tcfg.kd_ratio,
                          kd_temperature=tcfg.kd_temperature,
                          mask=batch.get("loss_mask"))
+        if cfg.is_moe:
+            loss = loss + MOE_AUX_COEF * aux["moe_aux"]
         del logits, t_logits
         return loss.detach(), grads_of(loss, params)
 

@@ -1,9 +1,12 @@
-"""Transformer blocks of the dense GQA decoder: attention with a quantized
-KV cache and the SwiGLU MLP, with SiLQ quantization sites (paper Fig. 2):
+"""Transformer blocks of the dense and MoE GQA decoders: attention with a
+quantized KV cache, the SwiGLU MLP and the GShard-style top-k MoE, with
+SiLQ quantization sites (paper Fig. 2):
 
 * every linear: input A-bits (``s_in``), weight W-bits per-out-channel (``s_w``)
 * query into QK^T: 16-bit (``s_q``)
 * K/V written to cache: C-bits (``s_k``/``s_v``)
+* MoE router: 8-bit weight and activation; expert banks ``(e, d_in,
+  d_out)`` per output channel of each expert (``s_w`` ``(e, 1, d_out)``)
 
 Caches are updated in place: the engine owns one cache per layer for its
 whole life, and a decode step writes its new K/V row into it.
@@ -18,19 +21,24 @@ sentinel destinations (``kernels/kvq_attn/ref.py``).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.qat import (QuantCtx, cache_quantize, init_linear,
-                                  qlinear, quantize_act, subcol)
+                                  qlinear, quantize_act, quantize_weight_p,
+                                  subcol)
 from repro_torch.core.quantizer import quantize_to_int
 from repro_torch.kernels.kvq_attn.ref import gather_paged_kv, pool_blocks
 from repro_torch.models.common import (apply_rope, blockwise_attention,
                                        decode_attention_intcache,
                                        head_rms_norm, rope_tables)
+from repro_torch.models.recurrent import _exp
+
+MOE_CAPACITY_FACTOR = 1.25
+MOE_CHUNK_S = 1024      # sequence chunk bounding the dispatch working set
 
 POOL_KEYS = ("k_q", "v_q", "s_k", "s_v")     # pool-shaped paged leaves
 _NEG = -1e30
@@ -112,6 +120,153 @@ def mlp_fwd(cfg: ModelConfig, ctx: QuantCtx, p: Dict, x: torch.Tensor,
     u = qlinear(ctx, x, p["wu"], subcol(col, "wu"))
     h = F.silu(g.float()).to(x.dtype) * u
     return qlinear(ctx, h, p["wd"], subcol(col, "wd"))
+
+
+# ==========================================================================
+# Mixture of Experts (GShard capacity dispatch, chunked over tokens)
+# ==========================================================================
+
+def init_moe(cfg: ModelConfig, gen: torch.Generator,
+             dtype=torch.bfloat16) -> Dict:
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    dev = gen.device
+
+    def expert_w(din, dout):
+        w = torch.randn((e, din, dout), generator=gen, dtype=torch.float32,
+                        device=dev).mul_(din ** -0.5).to(dtype)
+        return {"w": w,
+                "s_w": torch.ones((e, 1, dout), dtype=torch.float32,
+                                  device=dev),
+                "s_in": torch.tensor(1.0, dtype=torch.float32, device=dev)}
+
+    return {"router": init_linear(gen, d, e, dtype=dtype),
+            "wg": expert_w(d, f), "wu": expert_w(d, f), "wd": expert_w(f, d)}
+
+
+def _expert_linear(ctx: QuantCtx, x: torch.Tensor, p: Dict,
+                   col: Optional[Dict], wq: torch.Tensor) -> torch.Tensor:
+    """x (e, B, C, d_in) -> (e, B, C, d_out): the quantized activations of
+    each expert's C slots times the expert's fake-quantized weights ``wq``
+    (e, d_in, d_out), one batched GEMM over the experts (the reference's
+    ``einsum("becd,edf->becf")``)."""
+    e, Bn, C, _ = x.shape
+    xq = quantize_act(ctx, x, p, "s_in", col)
+    return torch.bmm(xq.reshape(e, Bn * C, -1), wq).reshape(e, Bn, C, -1)
+
+
+def _softmax(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softmax`` over the last axis in its op order: exp(x - max)
+    over its sum, the exp XLA:CPU's on the CPU (``recurrent._exp``)."""
+    u = _exp(x - torch.amax(x, dim=-1, keepdim=True))
+    return u / torch.sum(u, dim=-1, keepdim=True)
+
+
+def _top_k(x: torch.Tensor, k: int):
+    """``jax.lax.top_k`` over the last axis: the k largest, in descending
+    order, ties to the lower index (a stable sort keeps equal values in
+    index order; ``torch.topk`` fixes no order for ties)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def moe_capacity(cfg: ModelConfig, sc: int) -> int:
+    """Slots per expert and batch row for a chunk of ``sc`` tokens: the
+    reference's ``round(sc * k / e * MOE_CAPACITY_FACTOR)``, at least 1,
+    rounded up to a multiple of 4 from 4 on, at most ``sc * k``."""
+    e, k = cfg.n_experts, cfg.n_experts_active
+    cap = max(1, int(round(sc * k / e * MOE_CAPACITY_FACTOR)))
+    return min(cap + (-cap) % 4 if cap >= 4 else cap, sc * k)
+
+
+def moe_route(logits: torch.Tensor, k: int, cap: int):
+    """Routing of one chunk (logits (B, sc, e) f32): the top-k experts of
+    each token (``idx``), its softmax gates over them, each (token, slot)'s
+    position within its expert counted along the flattened (s, k) order
+    within its row (``pos``), and ``keep = pos < cap``. Positions are
+    integers, so the reference's f32 cumulative sum over one-hots gives
+    the same values."""
+    Bn, sc, e = logits.shape
+    vals, idx = _top_k(logits, k)                        # (B, sc, k)
+    gates = _softmax(vals)
+    flat = F.one_hot(idx, e).reshape(Bn, sc * k, e)
+    before = (torch.cumsum(flat, dim=1) - flat).reshape(Bn, sc, k, e)
+    pos = torch.gather(before, -1, idx[..., None])[..., 0]
+    return idx, gates, pos, pos < cap
+
+
+def moe_fwd(cfg: ModelConfig, ctx: QuantCtx, p: Dict, x: torch.Tensor,
+            col: Optional[Dict] = None, *,
+            with_aux: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Token-choice top-k MoE with per-batch-row capacity dispatch (the
+    reference's ``moe_fwd``), chunked over the sequence at ``MOE_CHUNK_S``
+    (S padded to a multiple of the chunk). Returns (y, the Switch
+    load-balance aux averaged over chunks; zero when not ``with_aux``).
+
+    The reference dispatches and combines with one-hot einsums; here the
+    same sums are index gathers. A slot of expert e takes exactly one
+    token's row (or stays zero), and a token's output is the sum of at
+    most k products of a bf16 gate and a bf16 expert output, exact in f32:
+    with k = 2 any order of summation gives the same bits. Each bank is
+    fake-quantized once per call, not once per chunk (the same values).
+    The expert GEMMs run over the whole wave: on the H100 a prompt's
+    prefill gave the same bits alone and in a padded wave of 4 (the
+    chip_smoke check), so they need no row-by-row form as attention
+    does."""
+    e, k = cfg.n_experts, cfg.n_experts_active
+    Bn, S, d = x.shape
+    sc = min(MOE_CHUNK_S, S)
+    nchunk = -(-S // sc)
+    pad = nchunk * sc - S
+    xs = F.pad(x, (0, 0, 0, pad)) if pad else x
+    cap = moe_capacity(cfg, sc)
+    wq = {n: quantize_weight_p(ctx, p[n]) for n in ("wg", "wu", "wd")}
+    dev = x.device
+    bidx = torch.arange(Bn, device=dev)
+    tok = torch.arange(sc, device=dev).view(1, sc, 1).expand(Bn, sc, k)
+    ys, auxs = [], []
+    for i in range(nchunk):
+        xc = xs[:, i * sc:(i + 1) * sc]
+        logits = qlinear(ctx, xc, p["router"], subcol(col, "router"),
+                         act_bits=8, weight_bits=8).float()
+        idx, gates, pos, keep = moe_route(logits, k, cap)
+        # dispatch: the token each (expert, slot) holds, sc for none (the
+        # zero row appended to the chunk); dropped pairs land in a sink
+        slot = torch.where(keep, idx * cap + pos, e * cap)
+        table = torch.full((Bn, e * cap + 1), sc, dtype=torch.long,
+                           device=dev)
+        table.scatter_(1, slot.reshape(Bn, -1), tok.reshape(Bn, -1))
+        table = table[:, :e * cap].reshape(Bn, e, cap).transpose(0, 1)
+        # the reference dispatches x in bf16 and casts back to x's type
+        xz = torch.cat([xc, xc.new_zeros((Bn, 1, d))], dim=1).to(
+            torch.bfloat16).to(x.dtype)
+        xe = xz[bidx[None, :, None], table]              # (e, B, cap, d)
+        g = _expert_linear(ctx, xe, p["wg"], subcol(col, "wg"), wq["wg"])
+        u = _expert_linear(ctx, xe, p["wu"], subcol(col, "wu"), wq["wu"])
+        h = F.silu(g.float()).to(x.dtype) * u
+        ye = _expert_linear(ctx, h, p["wd"], subcol(col, "wd"),
+                            wq["wd"])                    # (e, B, cap, d)
+        # combine: each token's k slots, gate (bf16) times output (bf16)
+        # in f32, dropped pairs weighted zero
+        ysel = ye[idx, bidx[:, None, None], torch.clamp_max(pos, cap - 1)]
+        gk = torch.where(keep, gates.to(torch.bfloat16).float(),
+                         torch.zeros_like(gates))
+        yc = torch.sum(ysel.to(torch.bfloat16).float() * gk[..., None],
+                       dim=2)
+        ys.append(yc.to(x.dtype))
+        if with_aux:
+            # load-balance aux (Switch): e * sum_e(frac_tokens * frac_prob);
+            # frac_tokens is the reference's bf16 mean of a bf16 one-hot
+            # sum: an f32 mean rounded to bf16
+            probs = _softmax(logits)
+            counts = F.one_hot(idx, e).sum(dim=2).float()
+            frac_tok = (counts.sum(dim=(0, 1)) / float(Bn * sc)).to(
+                torch.bfloat16)
+            frac_prob = probs.mean(dim=(0, 1))
+            auxs.append(e * torch.sum(frac_tok.float() * frac_prob))
+    y = ys[0] if nchunk == 1 else torch.cat(ys, dim=1)
+    aux = (torch.stack(auxs).mean() if with_aux else
+           torch.zeros((), dtype=torch.float32, device=dev))
+    return y[:, :S], aux
 
 
 # ==========================================================================

@@ -1,14 +1,16 @@
-"""Model stack of the dense GQA decoder (the qwen2.5 family), the hybrid
-RG-LRU and local-attention stack (recurrentgemma) and the xLSTM family
-(mLSTM and sLSTM blocks).
+"""Model stack of the dense and MoE GQA decoders (the qwen2.5 family,
+mixtral), the hybrid RG-LRU and local-attention stack (recurrentgemma) and
+the xLSTM family (mLSTM and sLSTM blocks).
 
 The reference scans stacked layers with ``lax.scan``; here each layer is
 an entry of ``params["layers"]`` and the stack is a Python loop over them,
 layer i of kind ``cfg.layer_kinds()[i]``: an attention layer (global or
-local) holds ``{"ln1", "attn", "ln2", "mlp"}``, an RG-LRU layer
-``{"ln1", "rglru", "ln2", "mlp"}``, an xLSTM one ``{"ln1", "cell"}``. A
-local-attention layer attends over the last ``cfg.local_window``
-positions and serves from a ring of that many rows.
+local) holds ``{"ln1", "attn", "ln2", "mlp"}`` (``"moe"`` in place of
+``"mlp"`` in an MoE config), an RG-LRU layer ``{"ln1", "rglru", "ln2",
+"mlp"}``, an xLSTM one ``{"ln1", "cell"}``. A local-attention layer
+attends over the last ``cfg.local_window`` positions and serves from a
+ring of that many rows; a global one over the last ``cfg.sliding_window``
+when that is set (mixtral), with a ring of as many rows.
 
 Entry points:
 * ``init_params``  — random weights from a seed, made on the target device
@@ -45,12 +47,11 @@ _PORTED_KINDS = (BLOCK_ATTN, BLOCK_LOCAL_ATTN, BLOCK_RGLRU, BLOCK_MLSTM,
 
 def _check_supported(cfg: ModelConfig) -> None:
     if (any(k not in _PORTED_KINDS for k in cfg.block_pattern)
-            or cfg.sliding_window or cfg.norm_type != "rms"
-            or cfg.mlp_type != "swiglu"):
+            or cfg.norm_type != "rms" or cfg.mlp_type != "swiglu"):
         raise NotImplementedError(
-            f"{cfg.name!r}: the port runs RMS-norm SwiGLU decoders of "
-            "full and local attention, RG-LRU, mLSTM and sLSTM blocks "
-            "only")
+            f"{cfg.name!r}: the port runs RMS-norm SwiGLU (dense or MoE) "
+            "decoders of global, sliding-window and local attention, "
+            "RG-LRU, mLSTM and sLSTM blocks only")
 
 
 def _window(cfg: ModelConfig, kind: str) -> int:
@@ -68,8 +69,11 @@ def _init_layer(cfg: ModelConfig, kind: str, gen: torch.Generator, dev,
     p = {"ln1": init_norm(cfg.d_model, dev, dtype)}
     if kind in ATTENTION_BLOCKS:
         p.update(attn=B.init_attention(cfg, gen, dtype),
-                 ln2=init_norm(cfg.d_model, dev, dtype),
-                 mlp=B.init_mlp(cfg, gen, dtype))
+                 ln2=init_norm(cfg.d_model, dev, dtype))
+        if cfg.is_moe:
+            p["moe"] = B.init_moe(cfg, gen, dtype)
+        else:
+            p["mlp"] = B.init_mlp(cfg, gen, dtype)
     elif kind == BLOCK_RGLRU:
         p.update(rglru=R.init_rglru(cfg, gen, dtype),
                  ln2=init_norm(cfg.d_model, dev, dtype),
@@ -137,24 +141,33 @@ def head_logits(cfg: ModelConfig, params: Dict, ctx: QuantCtx,
 
 
 def _ffn_tail(cfg: ModelConfig, ctx: QuantCtx, p: Dict, x: torch.Tensor,
-              col: Optional[Dict] = None) -> torch.Tensor:
+              col: Optional[Dict] = None, *, with_aux: bool = False):
+    """ln2 + MoE or MLP + residual: the post-mixer half of a layer, shared
+    by the forward, prefill, decode and batched-window paths. Returns (x,
+    the MoE's load-balance aux; None for a dense MLP, zero unless
+    ``with_aux``)."""
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + B.mlp_fwd(cfg, ctx, p["mlp"], h, subcol(col, "mlp"))
+    if "moe" in p:
+        y, aux = B.moe_fwd(cfg, ctx, p["moe"], h, subcol(col, "moe"),
+                           with_aux=with_aux)
+        return x + y, aux
+    return x + B.mlp_fwd(cfg, ctx, p["mlp"], h, subcol(col, "mlp")), None
 
 
 def _block_fwd(cfg: ModelConfig, ctx: QuantCtx, kind: str, p: Dict,
-               x: torch.Tensor, rope, col: Optional[Dict]) -> torch.Tensor:
-    """One layer of the training / teacher / calibration forward."""
+               x: torch.Tensor, rope, col: Optional[Dict]):
+    """One layer of the training / teacher / calibration forward: (x, the
+    layer's MoE aux or None)."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     if kind in ATTENTION_BLOCKS:
         x = x + B.attn_fwd(cfg, ctx, p["attn"], h, rope, subcol(col, "attn"),
                            window=_window(cfg, kind))
-        return _ffn_tail(cfg, ctx, p, x, col)
+        return _ffn_tail(cfg, ctx, p, x, col, with_aux=True)
     if kind == BLOCK_RGLRU:
         x = x + R.rglru_fwd(cfg, ctx, p["rglru"], h, subcol(col, "rglru"))
         return _ffn_tail(cfg, ctx, p, x, col)
     fwd = R.mlstm_fwd if kind == BLOCK_MLSTM else R.slstm_fwd
-    return x + fwd(cfg, ctx, p["cell"], h, subcol(col, "cell"))
+    return x + fwd(cfg, ctx, p["cell"], h, subcol(col, "cell")), None
 
 
 def _block_prefill(cfg: ModelConfig, ctx: QuantCtx, kind: str, p: Dict,
@@ -164,10 +177,10 @@ def _block_prefill(cfg: ModelConfig, ctx: QuantCtx, kind: str, p: Dict,
     if kind in ATTENTION_BLOCKS:
         a, c = B.attn_prefill(cfg, ctx, p["attn"], h, rope,
                               window=_window(cfg, kind), **attn_kw)
-        return _ffn_tail(cfg, ctx, p, x + a), c
+        return _ffn_tail(cfg, ctx, p, x + a)[0], c
     if kind == BLOCK_RGLRU:
         y, c = R.rglru_prefill(cfg, ctx, p["rglru"], h)
-        return _ffn_tail(cfg, ctx, p, x + y), c
+        return _ffn_tail(cfg, ctx, p, x + y)[0], c
     mod = R.mlstm_prefill if kind == BLOCK_MLSTM else R.slstm_prefill
     y, c = mod(cfg, ctx, p["cell"], h)
     return x + y, c
@@ -183,10 +196,10 @@ def _block_decode(cfg: ModelConfig, ctx: QuantCtx, kind: str, p: Dict,
         # window: attn_decode attends over the ring's min(length, Sc) rows
         a, _ = B.attn_decode(cfg, ctx, p["attn"], h, cache, positions,
                              block_tbl=block_tbl, rope=rope)
-        return _ffn_tail(cfg, ctx, p, x1 + a)
+        return _ffn_tail(cfg, ctx, p, x1 + a)[0]
     if kind == BLOCK_RGLRU:
         y, _ = R.rglru_decode(cfg, ctx, p["rglru"], h, cache)
-        return _ffn_tail(cfg, ctx, p, x1 + y)
+        return _ffn_tail(cfg, ctx, p, x1 + y)[0]
     dec = R.mlstm_decode if kind == BLOCK_MLSTM else R.slstm_decode
     y, _ = dec(cfg, ctx, p["cell"], h, cache)
     return x1 + y
@@ -196,7 +209,9 @@ def forward(cfg: ModelConfig, params: Dict, ctx: QuantCtx, batch: Dict,
             collect_stats: bool = False,
             remat: Union[bool, str] = False):
     """Training / teacher / calibration forward over ``batch["tokens"]``
-    (B, S). Returns (logits (B, S, V), {"moe_aux", ["qstats"]}).
+    (B, S). Returns (logits (B, S, V), {"moe_aux", ["qstats"]}):
+    ``moe_aux`` is the MoE layers' load-balance aux summed over layers
+    (zero without experts).
 
     ``collect_stats`` (with ``ctx.mode == "calib"``) returns each
     activation site's |x| statistic under ``aux["qstats"]``, a tree that
@@ -212,18 +227,21 @@ def forward(cfg: ModelConfig, params: Dict, ctx: QuantCtx, batch: Dict,
     rope = _rope(cfg, torch.arange(S, device=x.device))
     col: Optional[Dict] = {} if collect_stats else None
     layer_cols: List[Optional[Dict]] = []
+    moe_aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for kind, p in zip(cfg.layer_kinds(), params["layers"]):
         c = {} if collect_stats else None
         if remat and torch.is_grad_enabled():
-            x = torch.utils.checkpoint.checkpoint(
+            x, a = torch.utils.checkpoint.checkpoint(
                 _block_fwd, cfg, ctx, kind, p, x, rope, c,
                 use_reentrant=False)
         else:
-            x = _block_fwd(cfg, ctx, kind, p, x, rope, c)
+            x, a = _block_fwd(cfg, ctx, kind, p, x, rope, c)
+        if a is not None:
+            moe_aux = moe_aux + a
         layer_cols.append(c)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = head_logits(cfg, params, ctx, x, col)
-    aux = {"moe_aux": torch.zeros((), dtype=torch.float32, device=x.device)}
+    aux = {"moe_aux": moe_aux}
     if collect_stats:
         col["layers"] = layer_cols
         aux["qstats"] = col
@@ -336,7 +354,7 @@ def _tail_stack(cfg: ModelConfig, params: Dict, ctx: QuantCtx,
         h = rms_norm(x, p["ln1"], cfg.norm_eps)
         a, _ = attn_fn(cfg, ctx, p["attn"], h, rope, c, tbl, slot, offset,
                        chunk_len)
-        x = _ffn_tail(cfg, ctx, p, x + a)
+        x = _ffn_tail(cfg, ctx, p, x + a)[0]
     return rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 
@@ -418,7 +436,9 @@ def init_cache(cfg: ModelConfig, ctx: QuantCtx, batch_size: int,
     """Blank serving cache with capacity ``cache_len`` per slot.
 
     Attention layers hold a dense K/V ring (a local-attention layer one
-    of ``min(cache_len, cfg.local_window)`` rows), RG-LRU layers their
+    of ``min(cache_len, cfg.local_window)`` rows, a global one under a
+    ``cfg.sliding_window`` one of ``min(cache_len, cfg.sliding_window)``
+    rows), RG-LRU layers their
     quantized h (``state_q``, ``s_state``) and the conv's bf16 history
     (``conv_buf``), mLSTM layers their quantized matrix state
     (``state_q``, ``s_state``), sLSTM layers their quantized h

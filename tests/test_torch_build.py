@@ -131,3 +131,18 @@ def test_every_launcher_has_argtypes():
                  if fn.endswith("_launch")}
     assert launchers == {fn for _, fn, _ in LAUNCHERS
                          if fn.endswith("_launch")}
+
+
+@pytest.mark.parametrize("fn,first", [("fake_quant_fwd_launch", 3),
+                                      ("fake_quant_bwd_launch", 6),
+                                      ("fake_quant_bwd_workspace", 0)])
+def test_fake_quant_launchers_take_slices(fn, first):
+    """The fake-quant launchers and the workspace size take x as E slices
+    of (R, C) (mode 3: an MoE bank per expert), E first, three 64-bit
+    integers in a row, and the wrapper's argtypes say so."""
+    text = (build.CSRC / "fake_quant.cu").read_text()
+    params = [p.split()[-1].lstrip("*")
+              for p in dict(_EXTERN.findall(text))[fn].split(",")]
+    assert params[first:first + 4] == ["E", "R", "C", "mode"]
+    args = fq_ops._ARGTYPES[fn][0]
+    assert list(args[first:first + 3]) == [ctypes.c_longlong] * 3

@@ -42,6 +42,11 @@ CASES = [((3, 17, 40), ()), ((96, 80), (1, 80)), ((130, 24), (1, 24))]
 # multiple of 8
 RAGGED = [((33, 256), (1, 256)), ((65, 264), (1, 264)),
           ((40, 1001), (1, 1001))]
+# MoE expert banks (e, d_in, d_out), per output channel of each expert
+# (mode 3): R not a multiple of the backward's 32-row bands, C below and
+# past a 256-column strip and not a multiple of 8
+BANKS = [((4, 24, 40), (4, 1, 40)), ((3, 100, 70), (3, 1, 70)),
+         ((2, 33, 8), (2, 1, 8)), ((2, 40, 264), (2, 1, 264))]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -276,3 +281,51 @@ def test_scale_layouts_are_recognised():
     assert fq_ops.scale_mode(x, torch.zeros((6, 1))) == 2
     with pytest.raises(ValueError):
         fq_ops.scale_mode(x, torch.zeros((3,)))
+
+
+@pytest.mark.parametrize("sshape,mode", [
+    ((3, 1, 4), 3),            # an expert bank's per-(expert, column) scales
+    ((1, 1, 4), 1),            # one scale a column shared by the slices
+    ((), 0),
+    ((3, 4), None), ((3, 1, 5), None), ((1, 5, 4), None), ((3, 5, 1), None),
+    ((2, 1, 4), None)])
+def test_bank_scale_layout_is_mode_3(sshape, mode):
+    """(e, 1, C) against an (e, R, C) x is mode 3; any other shape that is
+    none of the four layouts still raises."""
+    x = torch.zeros((3, 5, 4))
+    if mode is None:
+        with pytest.raises(ValueError):
+            fq_ops.scale_mode(x, torch.zeros(sshape))
+    else:
+        assert fq_ops.scale_mode(x, torch.zeros(sshape)) == mode
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("xshape,sshape", BANKS)
+def test_bank_mode_matches_reference(xshape, sshape, bits, dtype):
+    """The plain mode-3 version behind ``lsq_fake_quant`` on an (e, R, C)
+    bank with (e, 1, C) scales, against the reference's ``lsq_fake_quant``
+    custom VJP: the forward and dx bitwise, ds (summed over each expert's
+    R rows, gscale with n = R) within its sums' mass."""
+    jx, js, jg, tx, ts, tg = _inputs(xshape, sshape, bits, dtype, 11)
+    jout, jdx, jds = _jax_fwd_bwd(jax_lsq, jx, js, jg, bits)
+    out, dx, ds = _torch_fwd_bwd(tx, ts, tg, bits)
+    assert fq_ops.scale_mode(tx, ts) == 3
+    assert fq_ops.grad_scale(tx, ts, bits) == float(
+        1.0 / jnp.sqrt(jnp.float32(xshape[1] * (2 ** (bits - 1) - 1))))
+    np.testing.assert_array_equal(_np(out), _np(jout))
+    np.testing.assert_array_equal(_np(dx), _np(jdx))
+    _assert_ds(ds, jds, _ds_mass(tx, ts, tg, bits))
+
+
+def test_bank_weight_site_quantizes_each_expert_per_column():
+    """``quantize_weight_p`` on a bank quantizes expert i exactly as a
+    2-D weight with expert i's scales (one call for the bank)."""
+    jx, js, _, tx, ts, _ = _inputs((3, 20, 16), (3, 1, 16), 4, "bfloat16",
+                                   12)
+    ctx = tqat.make_ctx(parse_policy("A8d-C8-W4"))
+    wq = tqat.quantize_weight_p(ctx, {"w": tx, "s_w": ts})
+    for i in range(3):
+        one = tqat.quantize_weight_p(ctx, {"w": tx[i], "s_w": ts[i]})
+        assert torch.equal(wq[i], one)

@@ -3,7 +3,8 @@
 checkout against this one, in turns on one GPU.
 
     python3 tools/paired_phases.py --other local/parent [--rounds 3] \
-        [--label parent] [--out chiprun_out/paired_phases.json]
+        [--label parent] [--out chiprun_out/paired_phases.json] \
+        [--phases serve,qwen_qat,xlstm_qat]
 
 Unpack the other tree first (``git archive <commit> | tar -x -C
 local/parent``; ``local/`` is git-ignored). Each round runs both trees,
@@ -19,7 +20,8 @@ gradient comparisons are left out (a check, not a step). It reads the
 dense and paged decode step (ms), the paged phase's ``prefill_s``, the
 two QAT steps (ms) and a digest of the paged streams, which must agree
 across trees and rounds (the paged kernels are bitwise their plain
-versions).
+versions). ``--phases`` keeps a subset: ``serve`` (the two serve
+phases), ``qwen_qat``, ``xlstm_qat``.
 
 Prints one JSON line per run, then the median and the min-max spread of
 each reading per tree, with the card's name and power limit. Needs one
@@ -39,8 +41,11 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-READINGS = ("dense_decode_step_ms", "paged_decode_step_ms", "paged_prefill_s",
-            "qwen_qat_step_ms", "xlstm_qat_step_ms")
+PHASES = {"serve": ("dense_decode_step_ms", "paged_decode_step_ms",
+                    "paged_prefill_s"),
+          "qwen_qat": ("qwen_qat_step_ms",),
+          "xlstm_qat": ("xlstm_qat_step_ms",)}
+READINGS = tuple(k for keys in PHASES.values() for k in keys)
 MARK = "PAIRED_RUN "
 
 
@@ -54,9 +59,9 @@ def _load_smoke(root: Path):
     return cs
 
 
-def run_phases(root: Path) -> dict:
-    """One run of the four step phases of ``root``'s tree (in this
-    process, which must have ``root/src`` on its path)."""
+def run_phases(root: Path, phases=tuple(PHASES)) -> dict:
+    """One run of ``phases`` of ``root``'s tree (in this process, which
+    must have ``root/src`` on its path)."""
     import torch
     cs = _load_smoke(root)
     P = cs.import_port()
@@ -69,34 +74,39 @@ def run_phases(root: Path) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     cs.grads_vs_plain = lambda *a, **k: None
     dev = torch.device("cuda", 0)
+    torch.zeros(1, device=dev)          # the context, before memory stats
     t0 = time.perf_counter()
     P["build"].build_all()
     out = {"build_s": time.perf_counter() - t0}
     cfg = P["get_config"]("qwen2.5-3b")
     report = {}
-    _, eng = cs.serve(torch, P, cfg, dev, report)
-    params = eng.params
-    del eng
-    torch.cuda.empty_cache()
-    _, eng, streams = cs.serve_paged(torch, P, cfg, dev, params, report)
-    del eng, params
-    torch.cuda.empty_cache()
-    digest = hashlib.sha256(json.dumps(
-        {str(k): [int(t) for t in v] for k, v in sorted(streams.items())}
-    ).encode()).hexdigest()[:16]
-    cs.train_full(torch, P, cfg, dev, report)
-    torch.cuda.empty_cache()
-    cs.train_xlstm(torch, P, P["get_config"]("xlstm-125m"), dev, report)
-    out.update({
-        "dense_decode_step_ms": report["serve"]["decode_step_ms"],
-        "paged_decode_step_ms": report["serve_paged"]["decode_step_ms"],
-        "paged_prefill_s": report["serve_paged"]["prefill_s"],
-        "qwen_qat_step_ms": report["train"]["ms_per_step"],
-        "xlstm_qat_step_ms": report["train_xlstm"]["ms_per_step"],
-        "qwen_qat_split_ms": report["train"]["ms_split"],
-        "xlstm_qat_split_ms": report["train_xlstm"]["ms_split"],
-        "paged_launches": report["serve_paged"]["launches"],
-        "paged_streams": digest})
+    if "serve" in phases:
+        _, eng = cs.serve(torch, P, cfg, dev, report)
+        params = eng.params
+        del eng
+        torch.cuda.empty_cache()
+        _, eng, streams = cs.serve_paged(torch, P, cfg, dev, params, report)
+        del eng, params
+        torch.cuda.empty_cache()
+        out.update({
+            "dense_decode_step_ms": report["serve"]["decode_step_ms"],
+            "paged_decode_step_ms": report["serve_paged"]["decode_step_ms"],
+            "paged_prefill_s": report["serve_paged"]["prefill_s"],
+            "paged_launches": report["serve_paged"]["launches"],
+            "paged_streams": hashlib.sha256(json.dumps(
+                {str(k): [int(t) for t in v]
+                 for k, v in sorted(streams.items())}).encode()
+            ).hexdigest()[:16]})
+    if "qwen_qat" in phases:
+        cs.train_full(torch, P, cfg, dev, report)
+        torch.cuda.empty_cache()
+        out.update({"qwen_qat_step_ms": report["train"]["ms_per_step"],
+                    "qwen_qat_split_ms": report["train"]["ms_split"]})
+    if "xlstm_qat" in phases:
+        cs.train_xlstm(torch, P, P["get_config"]("xlstm-125m"), dev,
+                       report)
+        out.update({"xlstm_qat_step_ms": report["train_xlstm"]["ms_per_step"],
+                    "xlstm_qat_split_ms": report["train_xlstm"]["ms_split"]})
     return out
 
 
@@ -109,13 +119,13 @@ def card() -> str:
     return smi.stdout.strip().splitlines()[0]
 
 
-def spawn(root: Path, timeout: float) -> dict:
+def spawn(root: Path, timeout: float, phases) -> dict:
     """One run in a subprocess on ``root``'s own PYTHONPATH."""
     env = {**os.environ, "PYTHONPATH": str(root / "src")}
     proc = subprocess.run(
         [sys.executable, str(Path(__file__).resolve()), "--worker",
-         str(root)], env=env, cwd=root, capture_output=True, text=True,
-        timeout=timeout)
+         str(root), "--phases", ",".join(phases)], env=env, cwd=root,
+        capture_output=True, text=True, timeout=timeout)
     lines = [ln for ln in proc.stdout.splitlines() if ln.startswith(MARK)]
     if proc.returncode or not lines:
         raise RuntimeError(f"the run of {root} failed (exit "
@@ -132,7 +142,7 @@ def summarize(runs: list) -> dict:
         out[label] = {k: {"median": statistics.median(r[k] for r in mine),
                           "min": min(r[k] for r in mine),
                           "max": max(r[k] for r in mine),
-                          "n": len(mine)} for k in READINGS}
+                          "n": len(mine)} for k in READINGS if k in mine[0]}
     return out
 
 
@@ -147,10 +157,15 @@ def main(argv=None) -> int:
                     help="seconds one run may take")
     ap.add_argument("--out", type=Path,
                     default=ROOT / "chiprun_out" / "paired_phases.json")
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated subset of " + ", ".join(PHASES))
     ap.add_argument("--worker", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    phases = tuple(p for p in args.phases.split(",") if p)
+    if not phases or any(p not in PHASES for p in phases):
+        ap.error(f"--phases takes a subset of {', '.join(PHASES)}")
     if args.worker:
-        print(MARK + json.dumps(run_phases(args.worker)), flush=True)
+        print(MARK + json.dumps(run_phases(args.worker, phases)), flush=True)
         return 0
     if args.other is None or not (args.other / "chip_smoke.py").is_file():
         ap.error("--other must be the root of a checkout with chip_smoke.py")
@@ -161,10 +176,11 @@ def main(argv=None) -> int:
     runs = []
     for r in range(args.rounds):
         for label, root in (trees if r % 2 == 0 else trees[::-1]):
-            run = {"round": r, "label": label, **spawn(root, args.timeout)}
+            run = {"round": r, "label": label,
+                   **spawn(root, args.timeout, phases)}
             runs.append(run)
             print(json.dumps(run), flush=True)
-    digests = {r["paged_streams"] for r in runs}
+    digests = {r.get("paged_streams") for r in runs}
     summary = {"card": the_card, "rounds": args.rounds,
                "paged_streams_equal": len(digests) == 1,
                "summary": summarize(runs)}
