@@ -84,6 +84,18 @@ toolkit (``nvcc``). Phases, each fatal on failure (non-zero exit):
    ``flash_attn_fwd`` at H 32, Hkv 8, D 128 at the QAT shape under the
    4096 window and at S 8192 under it (the first and last 1024 query
    rows held to plain and the oracle on the keys they see);
+   at moonshot-v1-16b-a3b's, qwen3-14b's, qwen3-32b's and qwen2-7b's
+   shapes: ``w4a8_matmul`` bitwise on every distinct packed linear (K
+   5120 into N 8192 and back, K 3584 into N 512 with a bias, the MLPs'
+   17408, 18944 and 25600 and back, the router at N 64, the heads at N
+   151936, 152064 and 163840) at M 1, 4, 23, 24 and 512 by each route;
+   at D 128 and GQA groups 1 (16 KV heads), 5, 7 and 8 the dense and
+   paged decode, verify and gather checks above, on ragged lengths and
+   around the split and group boundaries; the gather and the four-leaf
+   COW at moonshot's pool (16 KV heads, 48 layers); ``flash_attn_fwd``
+   at G 1 (H 16) and G 5 (H 40, Hkv 8) at (8, 128) against plain and the
+   oracle; fake-quant mode 3 bitwise on the 64-expert banks (64, 2048,
+   1408) and (64, 1408, 2048) at bits 4 and 8, ds within 1e-4;
 3. serve: ``ServeEngine`` on ``cuda`` with qwen2.5-3b at full width
    (random weights from a seed), policy A8d-C8-W4, w4a8 weights, dense
    KV cache; 8 mixed-length requests through 4 slots, both kernels'
@@ -199,6 +211,37 @@ toolkit (``nvcc``). Phases, each fatal on failure (non-zero exit):
    step ms split, tokens/s, peak memory, idle share, the model-FLOPs
    share over the active experts; one loss (with the aux) and backward
    kernels vs plain;
+3j. moonshot-v1-16b-a3b at full width and depth (48 layers, 64 experts
+   top 6; random weights, scales LSQ-initialised), A8d-C8-W4, w4a8
+   weights (attention, router, head packed; banks bf16), on the paged
+   pool (4 slots, blocks of 64, prefix cache on): 8 requests sharing a
+   160-token prefix (hits, COW, tail-waves): ``kvq_paged_decode_attn``
+   48 launches a decode step, ``fake_quant_fwd`` 3 a ``moe_fwd`` call,
+   a copy launch a COW, gather and w4a8 launched, no other kernel; one
+   decode step's launches (48, 144, 0 dense) and logits kernels vs plain
+   on rows routed alike; a tail-wave row bitwise alone and beside a
+   deeper row through attention and the MoE; spec decoding at the CLI's
+   defaults (k 4, a 24-layer draft) on 4 of the requests: verify
+   launched, paged decode not, the accept rate and the verify-wave pairs
+   dropped at capacity; expert shares, decode tok/s, TTFT, the idle
+   share, peak memory;
+6d. QAT of moonshot at full width and 4 layers via ``run_qat``: 33
+   ``fake_quant_fwd`` and 33 ``_bwd`` a step (q, k, v, o, router, three
+   64-expert banks a layer, the head) and 4 ``flash_attn_fwd``; every
+   ``s_w`` moved, ``moe_aux`` > 0; step splits, tokens/s, peak, idle,
+   model-FLOPs share; kernels vs plain;
+3k. qwen3-32b at full width and 48 of 64 layers (the 64 layers and their
+   packed planes pass 80 GB at the export), w4a8: one decode step's
+   logits kernels vs plain; 8 requests of three lengths on the dense
+   layout (48 ``kvq_decode_attn`` a step) and on the paged pool (48
+   ``kvq_paged_decode_attn`` a step, cold prefill, prefix cache off),
+   the paged streams equal to the dense ones; tok/s, TTFT, idle, peak;
+3l. qwen2-7b at full width and depth, dense w4a8: the same (28
+   ``kvq_decode_attn`` a step; the untied head at N 152064, G 7);
+6e. QAT of qwen3-14b at full width and 4 layers: 29 ``fake_quant_fwd``
+   and 29 ``_bwd`` a step, 4 ``flash_attn_fwd`` at G 5; every ``s_w``
+   moved, the qk-norm weights' gradients finite and non-zero; kernels vs
+   plain;
 4. times: each kernel per decode step, verify-wave, tail-wave, COW,
    student step or teacher forward (CUDA events, L2 flushed by rotating
    input copies past 100 MB), its plain version, one PyTorch call
@@ -223,7 +266,12 @@ toolkit (``nvcc``). Phases, each fatal on failure (non-zero exit):
    d_out) and mode 1 on the same bytes, a decode step's MoE layer by
    parts (router, dispatch, fake-quant, expert GEMMs, combine), its 16
    dense decode launches over full 4096-row rings beside SDPA, flash at
-   (8, 128) and ``w4a8_matmul`` per decode step.
+   (8, 128) and ``w4a8_matmul`` per decode step; at moonshot's shapes
+   the same per 64-expert bank and per decode step (144 launches), its
+   MoE layer by parts, the paged decode launch at G 1 beside SDPA; the
+   dense decode launch at qwen3-32b's G 8, flash at G 1 and G 5 beside
+   SDPA, and ``w4a8_matmul`` per qwen3-32b decode step (48 layers)
+   beside bf16 ``torch.matmul``.
 
 The line before the last is a JSON object with every kernel's numbers; the
 last line is ``{"ok": true, "device": {...}}``. Details go to
@@ -974,7 +1022,7 @@ def gather_inputs(torch, gen, cfg, dev, case=GATHER_CASES[0]):
     return k, s_k, v, s_v, tbl
 
 
-def check_gather(torch, P, cfg, dev, report):
+def check_gather(torch, P, cfg, dev, report, report_key="gather_bitwise"):
     gen = torch.Generator(device=dev)
     gen.manual_seed(7)
     ops, ref = P["kvq_ops"], P["kvq_ref"].gather_dequant_paged_kv_ref
@@ -1002,19 +1050,21 @@ def check_gather(torch, P, cfg, dev, report):
                         f"{case[:3]}: {int((diff > 0).sum())} elements, "
                         f"max {float(diff.max())}")
         del k, s_k, v, s_v, tbl, got, want
-    report["gather_bitwise"] = [list(c[:3]) for c in GATHER_CASES]
+    report[report_key] = [list(c[:3]) for c in GATHER_CASES]
     print(f"phase 2: gather_dequant_paged_kv bitwise equal to its plain "
           f"version, one leaf a launch and K and V in one, at (n, T, bs) = "
-          f"{[c[:3] for c in GATHER_CASES]}", flush=True)
+          f"{[c[:3] for c in GATHER_CASES]}, {cfg.n_kv_heads} KV heads",
+          flush=True)
     return 0.0
 
 
-def copy_leaves(torch, gen, cfg, nb, bs, dev):
-    """A 36-layer stacked pool leaf of each dtype, sink block included."""
+def copy_leaves(torch, gen, cfg, nb, bs, dev, layers=COPY_LAYERS):
+    """A stacked pool leaf of each dtype (36 layers unless told),
+    sink block included."""
     Hkv, D = cfg.n_kv_heads, cfg.resolved_head_dim
-    payload = torch.randint(-127, 128, (COPY_LAYERS, nb + 1, Hkv, bs, D),
+    payload = torch.randint(-127, 128, (layers, nb + 1, Hkv, bs, D),
                             generator=gen, device=dev, dtype=torch.int8)
-    scales = torch.rand((COPY_LAYERS, nb + 1, Hkv, bs), generator=gen,
+    scales = torch.rand((layers, nb + 1, Hkv, bs), generator=gen,
                         device=dev)
     return payload, scales
 
@@ -1051,10 +1101,10 @@ def check_copy(torch, P, cfg, dev, report):
     return 0.0
 
 
-def pool_leaves(torch, gen, cfg, nb, bs, dev):
+def pool_leaves(torch, gen, cfg, nb, bs, dev, layers=COPY_LAYERS):
     """The paged serve phase's four pool leaves (k_q, v_q, s_k, s_v: the
-    engine's ``POOL_KEYS`` order) at qwen2.5-3b's width and depth."""
-    (k, sk), (v, sv) = (copy_leaves(torch, gen, cfg, nb, bs, dev)
+    engine's ``POOL_KEYS`` order) at ``cfg``'s width and ``layers``."""
+    (k, sk), (v, sv) = (copy_leaves(torch, gen, cfg, nb, bs, dev, layers)
                         for _ in range(2))
     return [k, v, sk, sv]
 
@@ -1067,7 +1117,8 @@ def copy_pairs(nb):
             ([3, 17, nb + 5, -2, 9, 0, 0], [20, 5, 11, 12, 14, nb, nb + 7]))
 
 
-def check_copy_multi(torch, P, cfg, dev, report):
+def check_copy_multi(torch, P, cfg, dev, report, layers=COPY_LAYERS,
+                     report_key="copy_multi_bitwise"):
     """The COW of every pool leaf in one launch (the engine's call),
     bitwise equal to the plain version leaf by leaf: real pairs copied,
     clamped sources read, padding pairs dropped, other blocks
@@ -1075,7 +1126,7 @@ def check_copy_multi(torch, P, cfg, dev, report):
     gen = torch.Generator(device=dev)
     gen.manual_seed(9)
     nb, bs = PAGED_TOKENS * SLOTS // 64, 64
-    leaves = pool_leaves(torch, gen, cfg, nb, bs, dev)
+    leaves = pool_leaves(torch, gen, cfg, nb, bs, dev, layers)
     kern = P["kvq_ops"].copy_pool_blocks_multi
     ref = P["kvq_ref"].copy_pool_blocks_multi_ref
     for src, dst in copy_pairs(nb):
@@ -1098,9 +1149,10 @@ def check_copy_multi(torch, P, cfg, dev, report):
             check(torch.equal(g[:, keep], leaf[:, keep]),
                   f"{name}: a block outside dst changed")
         del got, want
-    report["copy_multi_bitwise"] = [len(src) for src, _ in copy_pairs(nb)]
+    report[report_key] = [len(src) for src, _ in copy_pairs(nb)]
     print(f"phase 2: pool_block_copy_multi (k_q, v_q, s_k, s_v of "
-          f"{COPY_LAYERS} layers in one launch) bitwise equal to its plain "
+          f"{layers} layers, {cfg.n_kv_heads} KV heads, in one launch) "
+          f"bitwise equal to its plain "
           f"version at 1, 2 and 7 pairs (padding pairs dropped, clamped "
           f"sources read)", flush=True)
 
@@ -2648,14 +2700,17 @@ def serve_self_draft(torch, P, cfg, dev, params, report):
           f"argmax agreement {agree:.3f}", flush=True)
 
 
-def check_tail_rows(torch, P, cfg, dev, params, report):
+def check_tail_rows(torch, P, cfg, dev, params, report, ffn=False,
+                    report_key="tail_row_invariant", phase="phase 3b"):
     """A tail-wave row gives the same bits alone as in a wave with a
     deeper row (whose history sets the wave's table walk): one attention
-    layer of qwen2.5-3b, its output and the cache blocks it commits
-    compared bitwise."""
+    layer of ``cfg`` (with ``ffn``, then the layer's ln2 and MLP or MoE:
+    the expert GEMMs run over the wave's rows), its output and the cache
+    blocks it commits compared bitwise."""
     import numpy as np
     from repro_torch.models import blocks
     from repro_torch.models.common import rope_tables
+    from repro_torch.models.model import _ffn_tail
     gen = torch.Generator(device=dev)
     gen.manual_seed(19)
     bs, NB, C = 64, 24, 64
@@ -2691,6 +2746,8 @@ def check_tail_rows(torch, P, cfg, dev, params, report):
             torch.tensor(rows, dtype=torch.int32, device=dev), off,
             torch.full((len(rows),), C, dtype=torch.int32, device=dev),
             hist_rows=own)
+        if ffn:
+            y = _ffn_tail(cfg, ctx, params["layers"][0], x[rows] + y)[0]
         return y, pl
 
     y_wave, pool_wave = run([0, 1], 8)
@@ -2699,10 +2756,12 @@ def check_tail_rows(torch, P, cfg, dev, params, report):
     same = (torch.equal(y_wave[0], y_alone[0])
             and all(torch.equal(pool_wave[k][:, own], pool_alone[k][:, own])
                     for k in pool))
-    report["tail_row_invariant"] = same
-    check(same, "a tail-wave row differs alone and inside a deeper wave")
-    print("phase 3b: a tail-wave row is bitwise the same alone and beside "
-          "a deeper row", flush=True)
+    report[report_key] = same
+    check(same, f"{cfg.name}: a tail-wave row differs alone and inside a "
+                f"deeper wave (ffn {ffn})")
+    print(f"{phase}: a tail-wave row is bitwise the same alone and beside "
+          f"a deeper row ({cfg.name}, {'with' if ffn else 'without'} the "
+          f"layer's FFN half)", flush=True)
 
 
 def serve_optimistic(torch, P, cfg, dev, params, report):
@@ -4503,17 +4562,31 @@ def bank_inputs(torch, gen, e, R, C, bits, dev, offset=0):
 
 
 def check_mx_fake_quant(torch, P, dev):
+    """Mode 3 on mixtral's banks and the ragged ones (``check_banks``);
+    the backward's launcher refuses a mode-3 workspace one element short.
+    Returns (cases, worst ds error)."""
+    n, worst = check_banks(torch, P, dev, MX_BANKS, MX_FQ_RAGGED, 41)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(46)
+    for e, R, C in ((3, 100, 70), MX_BANKS[1]):
+        x, s, g = bank_inputs(torch, gen, e, R, C, 4, dev)
+        workspace_refused(torch, P, x, s, g, (e, R, C), 3, dev)
+        del x, s, g
+    torch.cuda.empty_cache()
+    return n, worst
+
+
+def check_banks(torch, P, dev, banks, ragged, seed):
     """Mode 3 (an expert bank per (expert, column)): fake_quant_fwd and
     the dx of fake_quant_bwd bitwise equal to the plain versions at bits 4
-    and 8 on mixtral's banks and the ragged ones, ds within FQ_DS_TOL of
-    its sums' mass and bitwise from call to call; the backward's launcher
-    refuses a mode-3 workspace one element short. Returns (cases, worst
-    ds error)."""
+    and 8 on ``banks`` (e, R, C) and ``ragged`` (e, R, C, offset), ds
+    within FQ_DS_TOL of its sums' mass and bitwise from call to call.
+    Returns (cases, worst ds error)."""
     ops, ref = P["fq_ops"], P["fq_ref"]
     gen = torch.Generator(device=dev)
-    gen.manual_seed(41)
+    gen.manual_seed(seed)
     worst, n = 0.0, 0
-    for e, R, C, off in [b + (0,) for b in MX_BANKS] + list(MX_FQ_RAGGED):
+    for e, R, C, off in [b + (0,) for b in banks] + list(ragged):
         for bits in (4, 8):
             x, s, g = bank_inputs(torch, gen, e, R, C, bits, dev, off)
             what = f"bank ({e}, {R}, {C}) offset {off} bits {bits}"
@@ -4543,11 +4616,6 @@ def check_mx_fake_quant(torch, P, dev):
             n += 1
             del x, s, g, dx, ds, ds2, dx_p, ds_p, mass
             torch.cuda.empty_cache()
-    for e, R, C in ((3, 100, 70), MX_BANKS[1]):
-        x, s, g = bank_inputs(torch, gen, e, R, C, 4, dev)
-        workspace_refused(torch, P, x, s, g, (e, R, C), 3, dev)
-        del x, s, g
-    torch.cuda.empty_cache()
     return n, worst
 
 
@@ -4576,16 +4644,24 @@ def workspace_refused(torch, P, x, s, g, shape, mode, dev):
 
 
 def check_mx_w4a8(torch, P, mcfg, dev):
-    """w4a8_matmul bitwise equal to its plain version on mixtral's packed
-    linears (K 4096 into N 4096, 1024, 8 and 32000; o from q_dim 4096) at
-    M 1, 4, 23, 24 and 512, by the launcher's route and each route
-    forced. Returns the cases compared."""
+    """w4a8_matmul bitwise on mixtral's packed linears (K 4096 into N
+    4096, 1024, 8 and 32000; o from q_dim 4096): ``check_w4a8_linears``.
+    Returns the cases compared."""
+    return check_w4a8_linears(
+        torch, P, [(f"mixtral {name}", K, N, False)
+                   for name, K, N, _ in mx_linear_shapes(mcfg)], dev, 42)
+
+
+def check_w4a8_linears(torch, P, shapes, dev, seed):
+    """w4a8_matmul bitwise equal to its plain version on each (name, K,
+    N, bias) of ``shapes`` at M 1, 4, 23, 24 and 512, by the launcher's
+    route and each route forced. Returns the cases compared."""
     gen = torch.Generator(device=dev)
-    gen.manual_seed(42)
+    gen.manual_seed(seed)
     ops, ref = P["w4a8_ops"], P["w4a8_matmul_ref"]
     n = 0
-    for name, K, N, _ in mx_linear_shapes(mcfg):
-        w_p, s_w, b = w4a8_weights(torch, gen, K, N, False, dev)
+    for name, K, N, bias in shapes:
+        w_p, s_w, b = w4a8_weights(torch, gen, K, N, bias, dev)
         for M in MX_W4A8_MS:
             x_q, s_x = w4a8_activations(torch, gen, M, K, dev)
             want = ref(x_q, w_p, s_x, s_w, b)
@@ -4595,7 +4671,7 @@ def check_mx_w4a8(torch, P, mcfg, dev):
             torch.cuda.synchronize()
             for r, out in zip(("launcher",) + W4A8_ROUTES, got):
                 check(torch.equal(out, want),
-                      f"w4a8_matmul mixtral {name} M={M} K={K} N={N} "
+                      f"w4a8_matmul {name} M={M} K={K} N={N} bias={bias} "
                       f"route={r} differs from its plain version")
             n += 1
         del w_p, s_w, b
@@ -4968,31 +5044,44 @@ def serve_mx(torch, P, dev, report):
     return launches
 
 
-def mx_weight_sites(mcfg):
-    """Fake-quantized weights of one student forward: q, k, v, o, the
-    router and the three banks a layer, and the untied head."""
-    return 8 * mcfg.n_layers + 1
+def weight_sites(cfg):
+    """Fake-quantized weights of one student forward: q, k, v, o and the
+    MLP's three, or the router and the three banks, a layer; and the
+    head."""
+    return (8 if cfg.is_moe else 7) * cfg.n_layers + 1
 
 
 def train_mx(torch, P, dev, report):
-    """Phase 6c: run_qat on mixtral-8x7b at full width and 2 layers,
+    """Phase 6c: ``train_cut`` on mixtral-8x7b at full width and 2
+    layers: per step 17 fake_quant_fwd and 17 _bwd (q, k, v, o, router
+    and three banks a layer, then the head) and 2 flash_attn_fwd (the
+    teacher's layers)."""
+    return train_cut(torch, P, dev, report, MX, MX_TRAIN_LAYERS,
+                     "train_mx", "phase 6c")
+
+
+def train_cut(torch, P, dev, report, arch, n_layers, key, phase):
+    """run_qat on ``arch`` at full width and ``n_layers`` layers,
     A8d-C8-W4, 2 teacher steps, MSE weight calibration, 2 steps at B 8,
-    T 128. Per step 17 fake_quant_fwd and 17 _bwd (q, k, v, o, router and
-    three banks a layer, then the head) and 2 flash_attn_fwd (the
-    teacher's layers); losses finite, every s_w moved (the banks' (8, 1,
-    d_out) and the router's included), moe_aux finite and > 0, no NaN;
-    step ms split, tokens/s, peak memory, idle share, model-FLOPs share
-    over the active experts; then one loss and backward through the
-    kernels against the plain versions."""
-    mcfg = mx_cfg(P, MX_TRAIN_LAYERS)
+    T 128: per step one fake_quant_fwd and one _bwd per weight site
+    (``weight_sites``) and one flash_attn_fwd a layer (the teacher's);
+    losses finite, every s_w moved (an MoE's (e, 1, d_out) bank scales
+    and its router's included), no NaN; an MoE's moe_aux finite and > 0;
+    a qk-norm model's q_norm and k_norm weights received finite,
+    non-zero gradients (AdamW's first moments; a bf16 weight of 1.0 does
+    not move at the QAT learning rate); step ms split, tokens/s, peak
+    memory, idle share, model-FLOPs share (an MoE's over its active
+    experts); then one loss and backward through the kernels against
+    the plain versions."""
+    mcfg = P["get_config"](arch).replace(n_layers=n_layers)
     tcfg = P["TrainConfig"](precision="A8d-C8-W4", total_steps=MX_TRAIN_STEPS,
                             ref_steps=MX_TRAIN_STEPS, batch_size=TRAIN_B,
                             seq_len=TRAIN_T)
     steps, state = [], {}
 
     def on_start(student, opt):
-        state["s_w0"] = {k: t.detach().clone() for k, t in
-                         _named_leaves(student) if k.endswith("s_w")}
+        state["w0"] = {k: t.detach().clone() for k, t in
+                       _named_leaves(student) if k.endswith("s_w")}
         state["counts"] = tuple(fn.launches for fn in train_counters(P))
 
     def on_step(step, metrics, student, opt):
@@ -5009,8 +5098,8 @@ def train_mx(torch, P, dev, report):
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     teacher, student, _ = P["train"].run_qat(
-        MX, tcfg, reduced=False, teacher_steps=2, device=dev, log_every=1,
-        n_layers=MX_TRAIN_LAYERS, split_times=True, on_start=on_start,
+        arch, tcfg, reduced=False, teacher_steps=2, device=dev, log_every=1,
+        n_layers=n_layers, split_times=True, on_start=on_start,
         on_step=on_step)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -5018,47 +5107,59 @@ def train_mx(torch, P, dev, report):
              "slstm_scan")
     launches = dict(zip(names, (fn.launches for fn in train_counters(P))))
     peak = torch.cuda.max_memory_allocated(dev)
-    n_w = mx_weight_sites(mcfg)
+    n_w = weight_sites(mcfg)
     L = mcfg.n_layers
     for s in steps:
         check(s["launches"] == [n_w, n_w, L, 0],
-              f"mixtral QAT step {s['step']}: launches "
+              f"{arch} QAT step {s['step']}: launches "
               f"{dict(zip(names, s['launches']))}, want ({n_w}, {n_w}, {L}, "
               f"0)")
         check(math.isfinite(s["loss"]),
-              f"mixtral QAT step {s['step']}: loss {s['loss']}")
-    check(len(steps) == MX_TRAIN_STEPS, f"{len(steps)} mixtral QAT steps")
+              f"{arch} QAT step {s['step']}: loss {s['loss']}")
+    check(len(steps) == MX_TRAIN_STEPS, f"{len(steps)} {arch} QAT steps")
     opt = state.pop("opt")
     named = dict(_named_leaves(student))
-    unmoved = [k for k, t0_ in state["s_w0"].items()
+    unmoved = [k for k, t0_ in state["w0"].items()
                if torch.equal(named[k], t0_)]
-    banks = [k for k in state["s_w0"] if "/moe/w" in k]
-    check(len(state["s_w0"]) == n_w and not unmoved and len(banks) == 3 * L
+    s_w = list(state["w0"])
+    banks = [k for k in s_w if "/moe/w" in k]
+    qk = {k: m for k, m in _named_leaves(opt.m)
+          if k.endswith(("q_norm/w", "k_norm/w"))}
+    check(all(bool(torch.isfinite(m).all()) and bool(m.any())
+              for m in qk.values()),
+          f"{arch}: a qk-norm weight's gradient is zero or not finite "
+          f"(AdamW first moments)")
+    check(len(s_w) == n_w and not unmoved
+          and len(banks) == (3 * L if mcfg.is_moe else 0)
+          and len(qk) == (2 * L if mcfg.qk_norm else 0)
           and all(tuple(named[k].shape) == (mcfg.n_experts, 1,
                                             named[k].shape[-1])
                   for k in banks),
-          f"mixtral: s_w that did not move: {unmoved[:5]} ({len(unmoved)} "
-          f"of {len(state['s_w0'])}; banks {banks})")
+          f"{arch}: s_w that did not move: {unmoved[:5]} "
+          f"({len(unmoved)} of {len(state['w0'])}; banks {banks}, qk-norm "
+          f"{sorted(qk)})")
     check(all(bool(torch.isfinite(t).all()) for t in named.values()),
-          "mixtral: a parameter is not finite after QAT")
-    it = P["MixtureIterator"](P["SyntheticConfig"](
-        vocab_size=mcfg.vocab_size, seq_len=TRAIN_T, batch_size=TRAIN_B),
-        start_step=1)
-    batch = P["to_device"](next(it), dev)
-    with torch.no_grad():
-        aux = float(P["models"].forward(
-            mcfg, student, P["qat"].make_ctx(tcfg.precision),
-            batch)[1]["moe_aux"])
-    check(math.isfinite(aux) and aux > 0.0, f"mixtral: moe_aux {aux}")
+          f"{arch}: a parameter is not finite after QAT")
+    aux = None
+    if mcfg.is_moe:
+        it = P["MixtureIterator"](P["SyntheticConfig"](
+            vocab_size=mcfg.vocab_size, seq_len=TRAIN_T, batch_size=TRAIN_B),
+            start_step=1)
+        batch = P["to_device"](next(it), dev)
+        with torch.no_grad():
+            aux = float(P["models"].forward(
+                mcfg, student, P["qat"].make_ctx(tcfg.precision),
+                batch)[1]["moe_aux"])
+        check(math.isfinite(aux) and aux > 0.0, f"{arch}: moe_aux {aux}")
     idle = profile_train_step(torch, P, mcfg, tcfg, teacher, student, opt,
-                              steps, dev, report, key="train_mx_profile")
+                              steps, dev, report, key=f"{key}_profile")
     del opt, state
     torch.cuda.empty_cache()
     per = {k: sum(s["ms"][k] for s in steps[1:]) / (len(steps) - 1)
            for k in ("teacher", "student", "optimizer")}
     step_ms = sum(per.values())
     flops = train_flops(mcfg, TRAIN_B, TRAIN_T)
-    trained = {"arch": MX, "layers": L, "steps": MX_TRAIN_STEPS,
+    trained = {"arch": arch, "layers": L, "steps": MX_TRAIN_STEPS,
                "batch": TRAIN_B, "seq": TRAIN_T,
                "params_total": mcfg.param_counts()["total"],
                "params_active": mcfg.param_counts()["active"],
@@ -5071,11 +5172,12 @@ def train_mx(torch, P, dev, report):
                "model_flops_per_step": flops,
                "model_flops_share": flops / (step_ms / 1e3) / BF16_PEAK_FLOPS,
                "launches_per_step": dict(zip(names, steps[-1]["launches"])),
-               "weight_sites": n_w, "launches": launches}
-    report["train_mx"] = trained
-    print("phase 6c: " + json.dumps(trained), flush=True)
+               "weight_sites": n_w, "qk_norm_leaves_with_grads": len(qk),
+               "launches": launches}
+    report[key] = trained
+    print(f"{phase}: " + json.dumps(trained), flush=True)
     grads_vs_plain(torch, P, mcfg, tcfg, teacher, student, dev, report,
-                   key="train_mx_vs_plain", phase="phase 6c")
+                   key=f"{key}_vs_plain", phase=phase)
     del teacher, student
     torch.cuda.empty_cache()
     return launches
@@ -5136,6 +5238,18 @@ def time_bank(torch, P, e, R, C, bits, dev, gen):
     del sets, lib, xp, gp, x, s, g
     torch.cuda.empty_cache()
     return out
+
+
+def bank_step(banks, L):
+    """A decode step's bank fake-quants from ``time_bank``'s two banks
+    (wg and wu shaped as the first, wd as the second): 3 L forward
+    launches."""
+    step = {k: 2 * L * banks[0][f"fwd_{k}"] + L * banks[1][f"fwd_{k}"]
+            for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    step["mode1_ms"] = 2 * L * banks[0]["mode1_fwd_ms"] + \
+        L * banks[1]["mode1_fwd_ms"]
+    step["bound_by"] = "bytes"
+    return step
 
 
 def mx_moe_split(torch, P, mcfg, dev):
@@ -5211,11 +5325,41 @@ def mx_moe_split(torch, P, mcfg, dev):
                             ("combine", combine), ("moe_fwd", whole))}
     out["moe_fwd_device_ms"] = time_ms(torch, whole, one, min_calls=10)
     ref = whole()
-    check(torch.equal(combine(), ref), "mixtral: the timed MoE parts do "
-                                       "not compose to moe_fwd")
+    check(torch.equal(combine(), ref), f"{mcfg.name}: the timed MoE parts "
+                                       f"do not compose to moe_fwd")
     del p, wq, xe, ye
     torch.cuda.empty_cache()
     return out
+
+
+def w4a8_step_times(torch, P, shapes, dev, gen):
+    """w4a8_matmul over one decode step (M 4) of the packed linears
+    ``shapes`` (name, K, N, launches a step): device ms, the plain
+    version, bf16 ``torch.matmul`` on the dequantized operands and the
+    bound, each summed over the step."""
+    w4 = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+    ref, w4a8 = P["w4a8_matmul_ref"], P["w4a8_ops"].w4a8_matmul
+
+    def w4a8_set(K, N):
+        x_q, s_x = w4a8_activations(torch, gen, SLOTS, K, dev)
+        w_p, s_w, _ = w4a8_weights(torch, gen, K, N, False, dev)
+        return x_q, w_p, s_x, s_w
+
+    for name, K, N, per in shapes:
+        base = w4a8_set(K, N)
+        sets = [base] + [w4a8_set(K, N)
+                         for _ in range(copies_for(N * K // 2) - 1)]
+        x_q, w_p, s_x, s_w = base
+        wf = (P["unpack_int4"](w_p).float().T * s_w[None]).to(torch.bfloat16)
+        xf = (x_q.float() * s_x).to(torch.bfloat16)
+        w4["ms"] += per * time_ms(torch, w4a8, sets)
+        w4["plain_ms"] += per * time_ms(torch, ref, sets[:1], min_calls=5)
+        w4["library_ms"] += per * time_ms(torch, torch.matmul, [(xf, wf)])
+        w4["bound_ms"] += per * w4a8_bound_ms(SLOTS, K, N, False)[0]
+        del sets, base, wf, xf
+    w4["bound_by"] = "bytes"
+    torch.cuda.empty_cache()
+    return w4
 
 
 def time_mx(torch, P, dev, report):
@@ -5231,36 +5375,12 @@ def time_mx(torch, P, dev, report):
     gen.manual_seed(45)
     banks = [time_bank(torch, P, *shape, 4, dev, gen) for shape in MX_BANKS]
     L = mcfg.n_layers
-    step = {k: 2 * L * banks[0][f"fwd_{k}"] + L * banks[1][f"fwd_{k}"]
-            for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
-    step["mode1_ms"] = 2 * L * banks[0]["mode1_fwd_ms"] + \
-        L * banks[1]["mode1_fwd_ms"]
-    step["bound_by"] = "bytes"
+    step = bank_step(banks, L)
     split = mx_moe_split(torch, P, mcfg, dev)
     dec = time_dense_launch(torch, P, mcfg, dev, gen, (MX_WINDOW,) * SLOTS,
                             MX_WINDOW, False)
     fl = time_flash_launch(torch, P, mcfg, dev, gen, TRAIN_B, TRAIN_T, 10)
-    w4 = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
-    ref, w4a8 = P["w4a8_matmul_ref"], P["w4a8_ops"].w4a8_matmul
-    def w4a8_set(K, N):
-        x_q, s_x = w4a8_activations(torch, gen, SLOTS, K, dev)
-        w_p, s_w, _ = w4a8_weights(torch, gen, K, N, False, dev)
-        return x_q, w_p, s_x, s_w
-
-    for name, K, N, per in mx_linear_shapes(mcfg):
-        base = w4a8_set(K, N)
-        sets = [base] + [w4a8_set(K, N)
-                         for _ in range(copies_for(N * K // 2) - 1)]
-        x_q, w_p, s_x, s_w = base
-        wf = (P["unpack_int4"](w_p).float().T * s_w[None]).to(torch.bfloat16)
-        xf = (x_q.float() * s_x).to(torch.bfloat16)
-        w4["ms"] += per * time_ms(torch, w4a8, sets)
-        w4["plain_ms"] += per * time_ms(torch, ref, sets[:1], min_calls=5)
-        w4["library_ms"] += per * time_ms(torch, torch.matmul, [(xf, wf)])
-        w4["bound_ms"] += per * w4a8_bound_ms(SLOTS, K, N, False)[0]
-        del sets, base, wf, xf
-    w4["bound_by"] = "bytes"
-    torch.cuda.empty_cache()
+    w4 = w4a8_step_times(torch, P, mx_linear_shapes(mcfg), dev, gen)
     out = {"banks": banks, "fake_quant_fwd_decode_step": step,
            "moe_decode_layer_split_ms": split,
            "decode_attn_launch": dec, "decode_attn_step": per_step(dec, L),
@@ -5283,6 +5403,572 @@ def time_mx(torch, P, dev, report):
           f" us, bound {dec['bound_ms'] * 1e3:.2f} us); flash per launch "
           f"{fl['ms'] * 1e3:.2f} us (SDPA {fl['library_ms'] * 1e3:.2f} us); "
           f"w4a8 per decode step {w4}", flush=True)
+    return out
+
+
+# --------------------------------------------------------------------------
+# moonshot-v1-16b-a3b (top 6 of 64 experts on the paged pool), qwen3-14b,
+# qwen3-32b (qk-norm) and qwen2-7b: phases 2, 3j-3l, 6d-6e and 4
+# --------------------------------------------------------------------------
+
+MS = "moonshot-v1-16b-a3b"
+Q14, Q32, Q7 = "qwen3-14b", "qwen3-32b", "qwen2-7b"
+# depth cuts (full width): moonshot's 48 layers (28.06 B parameters, 56.1
+# GB in bf16) are served whole, its QAT keeps 4 layers (2.95 B at QAT's
+# 17-21 B a parameter: 50-62 GB); qwen3-32b's 64 layers (65.5 GB in
+# bf16) and their packed planes (15.6 GB) pass the card's 80 GB at the
+# w4a8 export, so serving keeps 48 (25.0 B: 49.9 + 12.1 GB at the
+# export); qwen3-14b's QAT keeps 4 layers (2.88 B); qwen2-7b (15.2 GB) is
+# served whole
+MS_TRAIN_LAYERS = 4
+Q32_SERVE_LAYERS = 48
+Q14_TRAIN_LAYERS = 4
+MS_BANKS = ((64, 2048, 1408), (64, 1408, 2048))   # wg / wu, wd
+NEW_ATTN = (MS, Q14, Q7, Q32)    # GQA groups 1, 5, 7 and 8 at D 128
+DENSE_SERVE_LENS = (200, 200, 120, 120, 120, 48, 48, 48)
+
+
+def new_linear_shapes(P):
+    """(name, K, N, bias) of every distinct packed linear the new archs
+    serve: q, k, v, o, the MLP's three (an MoE: the router), the untied
+    head; qwen3-32b's q widens d 5120 to q_dim 8192 and o narrows it
+    back, qwen2-7b's q, k, v carry a bias (k and v at N 512)."""
+    seen, out = set(), []
+    for arch in NEW_ATTN:
+        c = P["get_config"](arch)
+        shapes = (mx_linear_shapes(c) if c.is_moe else linear_shapes(c))
+        for name, K, N, _ in shapes:
+            bias = c.qkv_bias and name in ("q", "k", "v")
+            if (K, N, bias) not in seen:
+                seen.add((K, N, bias))
+                out.append((f"{arch} {name}", K, N, bias))
+    return out
+
+
+def check_new_kernels(torch, P, dev, report):
+    """Phase 2 at this slice's shapes: w4a8_matmul bitwise on every new
+    packed linear; at D 128 and GQA groups 1 (moonshot, 16 KV heads), 5
+    (qwen3-14b), 7 (qwen2-7b) and 8 (qwen3-32b) the dense decode kernel
+    within one bf16 ulp of plain and bitwise the paged one on the same
+    K/V, each row bitwise alone, verify's queries within one ulp and each
+    bitwise paged decode, the gather bitwise (``check_decode_case``), on
+    ragged lengths and around the split and group boundaries; the gather
+    and the four-leaf COW at moonshot's pool (16 KV heads, 48 layers);
+    flash at G 1 (H 16) and G 5 (H 40, Hkv 8) at (8, 128) against plain
+    and the f64 oracle; fake-quant mode 3 bitwise on moonshot's 64-expert
+    banks at bits 4 and 8. Returns the worst error per kernel."""
+    cfgs = {a: P["get_config"](a) for a in NEW_ATTN}
+    n_w4 = check_w4a8_linears(torch, P, new_linear_shapes(P), dev, 51)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(52)
+    cases, worst = [], {}
+    for arch, c in cfgs.items():
+        G = c.n_heads // c.n_kv_heads
+        for lengths, S in ((KVQ_LENGTHS, CACHE_LEN),
+                           (split_lengths(P), max(split_lengths(P)))):
+            what = f"{arch} D{c.resolved_head_dim} G{G}"
+            errs = check_decode_case(torch, P, gen, c, dev, lengths, S,
+                                     False, what)
+            cases.append({"case": what, "lengths": list(lengths), "S": S,
+                          **errs})
+            for k, e in errs.items():
+                worst[k] = max(worst.get(k, 0.0), e)
+            torch.cuda.empty_cache()
+    ms = cfgs[MS]
+    check_gather(torch, P, ms, dev, report, report_key="ms_gather_bitwise")
+    check_copy_multi(torch, P, ms, dev, report, layers=ms.n_layers,
+                     report_key="ms_copy_multi_bitwise")
+    torch.cuda.empty_cache()
+    flash = [check_flash_case(torch, P, gen, cfgs[a], dev, TRAIN_B, TRAIN_T,
+                              0) for a in (MS, Q14)]
+    worst["flash_attn_fwd"] = max(c["max_abs_err"] for c in flash)
+    torch.cuda.empty_cache()
+    n_fq, fq_ds = check_banks(torch, P, dev, MS_BANKS, (), 53)
+    out = {"w4a8_cases": n_w4, "decode": cases, "flash": flash,
+           "fake_quant_mode3_cases": n_fq,
+           "fake_quant_mode3_ds_rel_mass_err": fq_ds}
+    report["new_kernel_cases"] = out
+    print(f"phase 2: moonshot, qwen3 and qwen2-7b shapes: w4a8_matmul "
+          f"bitwise on {n_w4} cases; at G 1, 5, 7, 8 kvq_decode_attn within "
+          f"one ulp and bitwise paged decode, verify queries bitwise paged "
+          f"decode, the gather bitwise: {cases}; the gather and the COW at "
+          f"16 KV heads x 48 layers bitwise; flash {flash}; fake-quant "
+          f"mode 3 fwd and dx bitwise on {n_fq} 64-expert bank cases (ds "
+          f"within {fq_ds:.3g} of its mass)", flush=True)
+    return worst
+
+
+class RouteCounts:
+    """While active, counts the routing of every ``blocks.moe_route``
+    call on the device (no host sync): each expert's kept (token, slot)
+    pairs, and over calls whose window holds ``window`` tokens (every
+    call when 0) the pairs routed and those dropped at capacity; and
+    counts ``moe_fwd`` calls on the host."""
+
+    def __init__(self, torch, blocks, e, dev, window=0):
+        self.torch, self.blocks, self.window = torch, blocks, window
+        self.real_route, self.real_fwd = blocks.moe_route, blocks.moe_fwd
+        self.kept = torch.zeros(e, dtype=torch.float32, device=dev)
+        self.dropped = torch.zeros((), dtype=torch.float32, device=dev)
+        self.pairs = self.calls = 0
+
+    def __enter__(self):
+        torch = self.torch
+
+        def route(logits, k, cap):
+            out = self.real_route(logits, k, cap)
+            if not self.window or logits.shape[1] == self.window:
+                idx, keep = out[0], out[3]
+                self.kept.scatter_add_(0, idx.reshape(-1),
+                                       keep.reshape(-1).to(torch.float32))
+                self.dropped += (~keep).sum().to(torch.float32)
+                self.pairs += idx.numel()
+            return out
+
+        def fwd(*args, **kw):
+            self.calls += 1
+            return self.real_fwd(*args, **kw)
+
+        self.blocks.moe_route, self.blocks.moe_fwd = route, fwd
+        return self
+
+    def __exit__(self, *exc):
+        self.blocks.moe_route = self.real_route
+        self.blocks.moe_fwd = self.real_fwd
+
+    def shares(self):
+        return {"expert_share": (self.kept / self.kept.sum()).tolist(),
+                "dropped_share": float(self.dropped) / max(self.pairs, 1),
+                "routed_pairs": self.pairs}
+
+
+def ms_served_tree(torch, P, mcfg, dev):
+    """moonshot's serving tree on the paged phase's engine: random
+    weights from a seed, scales LSQ-initialised (the banks' placeholder
+    all-ones s_w would round every 4-bit expert weight to zero), the
+    attention, router and head packed and their bf16 weights dropped, the
+    banks bf16 (fake-quantized on every forward). Returns (engine,
+    setup s)."""
+    qat, models = P["qat"], P["models"]
+    t0 = time.perf_counter()
+    params = models.init_params(mcfg, seed=0, device=dev)
+    params = qat.calibrate_weight_scales(
+        params, P["parse_policy"]("A8d-C8-W4"), method="lsq")
+    eng = paged_engine(P, mcfg, params, dev)
+    del params
+    eng.params = qat.drop_exported_weights(eng.params)
+    torch.cuda.synchronize()
+    check(all("w" in lay["moe"][b] and "w4a8" not in lay["moe"][b]
+              and "w4a8" in lay["moe"]["router"]
+              for lay in eng.params["layers"] for b in ("wg", "wu", "wd")),
+          "moonshot: the served tree's banks are packed or gone")
+    return eng, time.perf_counter() - t0
+
+
+def ms_step_logits(torch, P, mcfg, params, dev):
+    """(b) and (c): on a paged state with prefix hits, COW and
+    tail-waves behind it, one decode step through the kernels (its
+    launches counted: 48 paged decode, 144 fake-quant, no dense decode)
+    and through the plain versions from the same cache. Held to
+    LOGIT_REL_TOL on every row routed to the same experts in every
+    layer; a row routed otherwise must owe it to a near tie
+    (``route_flips``)."""
+    models, blocks = P["models"], P["blocks"]
+    eng = paged_engine(P, mcfg, params, dev)
+    for r in shared_prefix_requests(P, mcfg, 2 * SLOTS, 300, seed=13):
+        eng.submit(r)
+    for _ in range(64):          # until a full slate decodes after a COW
+        eng.step()
+        if (len(eng._slot_req) == SLOTS and not eng._tail_jobs
+                and eng.stats()["cow_copies"] > 0):
+            break
+    st = eng.stats()
+    check(len(eng._slot_req) == SLOTS and st["cow_copies"] > 0
+          and st["tail_waves"] > 0,
+          f"moonshot logit state lacks residents, COW or tail-waves: {st}")
+    eng._ensure_decode_blocks()
+    tokens = eng.state["tokens"]
+    counted = {**counted_kernels(P),
+               "fake_quant_fwd": P["fq_ops"].fake_quant_fwd}
+    for fn in counted.values():
+        fn.launches = 0
+    with RouteLog(blocks) as rk:
+        lk, _ = models.decode_step(mcfg, eng.params, eng.ctx, tokens,
+                                   models.clone_cache(eng.state["cache"]))
+    step = {n: fn.launches for n, fn in counted.items()}
+    with RouteLog(blocks) as rp:
+        lp, _ = models.decode_step(mcfg, eng.params,
+                                   replace(eng.ctx, kernel_backend="ref"),
+                                   tokens,
+                                   models.clone_cache(eng.state["cache"]))
+    for fn in counted.values():
+        fn.launches = 0
+    del eng
+    torch.cuda.empty_cache()
+    L = mcfg.n_layers
+    want = {"kvq_paged_decode_attn": L, "fake_quant_fwd": 3 * L,
+            "kvq_decode_attn": 0, "kvq_spec_verify_attn": 0,
+            "gather_dequant_paged_kv": 0, "pool_block_copy": 0}
+    check(all(step[n] == v for n, v in want.items())
+          and step["w4a8_matmul"] > 0,
+          f"moonshot: one decode step launched {step}, want {want} and "
+          f"w4a8_matmul > 0")
+    lk, lp = lk.float()[:, 0], lp.float()[:, 0]
+    check(bool(torch.isfinite(lk).all()), "moonshot logits not finite")
+    flips = route_flips(torch, rk, rp, mcfg.n_experts_active)
+    same = [r for r in range(lk.shape[0]) if r not in flips]
+    rel = {r: float(torch.linalg.vector_norm(lk[r] - lp[r])
+                    / torch.linalg.vector_norm(lp[r])) for r in range(
+                        lk.shape[0])}
+    check(all(rel[r] <= LOGIT_REL_TOL for r in same),
+          f"moonshot: paged decode logits, kernels vs plain, relative L2 "
+          f"per row {rel} > {LOGIT_REL_TOL} on rows routed alike {same}")
+    check(all(f["explained"] for f in flips.values()),
+          f"moonshot: routing differs between kernels and plain away from "
+          f"a near tie: {flips}")
+    return {"launches_one_decode_step": step, "rel_l2_per_row": rel,
+            "rows_routed_differently": {str(r): f
+                                        for r, f in flips.items()},
+            "argmax_agreement": float((lk.argmax(-1) == lp.argmax(-1))
+                                      .float().mean())}
+
+
+def serve_ms(torch, P, dev, report):
+    """Phase 3j: moonshot-v1-16b-a3b at full width and depth (48 layers,
+    64 experts top 6) on the paged pool: A8d-C8-W4, w4a8 weights
+    (``ms_served_tree``), 4 slots, blocks of 64, prefix cache on. (a) 8
+    requests sharing a 160-token prefix: prefix hits, COW and tail-waves,
+    every request finished, tokens in the vocabulary; paged decode 48
+    launches a decode step, fake-quant 3 a ``moe_fwd`` call (48 a
+    forward), one multi-leaf copy a COW, the gather and w4a8 launched,
+    no dense decode, verify, flash or scan; (b)-(c) one decode step's
+    launches and logits, kernels vs plain (``ms_step_logits``); (d) a
+    tail-wave row bitwise alone and beside a deeper row through a layer's
+    attention and MoE; (e) speculative decoding at the CLI's defaults
+    (k 4, a 24-layer draft) on 4 of (a)'s requests: every request
+    finished, the verify kernel
+    launched and paged decode not, the accept rate and the share of
+    verify-wave (token, slot) pairs dropped at capacity (one slot an
+    expert at C 5); streams are not held to (a)'s (the verify-wave's
+    capacity drops pairs decode keeps); (f) each expert's share of
+    (a)'s kept pairs, decode tok/s, TTFT, the idle share, peak memory."""
+    blocks = P["blocks"]
+    mcfg = P["get_config"](MS)
+    L = mcfg.n_layers
+    torch.cuda.reset_peak_memory_stats(dev)
+    eng, setup_s = ms_served_tree(torch, P, mcfg, dev)
+    params = eng.params
+    ops = P["kvq_ops"]
+    counted = {**counted_kernels(P),
+               "pool_block_copy_one_leaf": ops.copy_pool_blocks,
+               "flash_attn_fwd": P["fa_ops"].flash_attn_fwd,
+               "slstm_scan": P["slstm_ops"].slstm_scan,
+               "fake_quant_fwd": P["fq_ops"].fake_quant_fwd,
+               "fake_quant_bwd": P["fq_ops"].fake_quant_bwd}
+    cow_events = []
+    apply_cow = eng._apply_cow
+
+    def counted_cow(pairs):
+        cow_events.append(len(pairs))
+        return apply_cow(pairs)
+
+    eng._apply_cow = counted_cow
+    reqs = shared_prefix_requests(P, mcfg, 2 * SLOTS, 200, seed=14)
+    for r in reqs:
+        eng.submit(r)
+    with RouteCounts(torch, blocks, mcfg.n_experts, dev) as rc:
+        for fn in counted.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        stats = eng.run_until_drained()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {n: fn.launches for n, fn in counted.items()}
+    del eng._apply_cow
+    check_streams(mcfg, reqs, "moonshot paged serve")
+    check(stats["prefix_hit_blocks"] > 0 and stats["cow_copies"] > 0
+          and stats["tail_waves"] > 0,
+          f"moonshot: no prefix hit, COW or tail-wave: {stats}")
+    check(launches["kvq_paged_decode_attn"] == L * stats["decode_steps"],
+          f"moonshot: {launches['kvq_paged_decode_attn']} paged decode "
+          f"launches over {stats['decode_steps']} decode steps, want {L} "
+          f"a step")
+    check(launches["fake_quant_fwd"] == 3 * rc.calls > 0
+          and rc.calls % L == 0,
+          f"moonshot: {launches['fake_quant_fwd']} fake_quant_fwd launches "
+          f"over {rc.calls} moe_fwd calls, want 3 a call ({L} calls a "
+          f"forward)")
+    check(launches["w4a8_matmul"] > 0
+          and launches["gather_dequant_paged_kv"] > 0
+          and launches["pool_block_copy"] == len(cow_events) > 0
+          and sum(cow_events) == stats["cow_copies"],
+          f"moonshot: w4a8, gather or COW launches off: {launches}, COW "
+          f"events {cow_events}")
+    others = ("kvq_decode_attn", "kvq_spec_verify_attn",
+              "pool_block_copy_one_leaf", "flash_attn_fwd", "slstm_scan",
+              "fake_quant_bwd")
+    check(all(launches[n] == 0 for n in others),
+          f"moonshot: another kernel ran: {launches}")
+    check(stats["free_blocks"] == eng.num_blocks,
+          "moonshot: blocks leaked after the drain")
+    decode_tokens = stats["tokens_out"] - len(reqs)
+    served = {"arch": MS, "layers": L, "setup_s": setup_s,
+              "requests": len(reqs), "tokens_out": stats["tokens_out"],
+              "wall_s": wall, "tokens_per_s": stats["tokens_out"] / wall,
+              "decode_tokens_per_s": decode_tokens / stats["decode_s"],
+              "decode_step_ms": 1e3 * stats["decode_step_s"],
+              "decode_steps": stats["decode_steps"],
+              "ttft_p50_s": stats["ttft_p50_s"],
+              "ttft_p95_s": stats["ttft_p95_s"],
+              "prefill_s": stats["prefill_s"],
+              "tail_waves": stats["tail_waves"],
+              "prefix_hit_blocks": stats["prefix_hit_blocks"],
+              "cow_copies": stats["cow_copies"],
+              "cow_events": len(cow_events), "moe_fwd_calls": rc.calls,
+              "routing": rc.shares(), "launches": launches,
+              "peak_memory_bytes": torch.cuda.max_memory_allocated(dev)}
+    report["serve_ms"] = served
+    print("serve_ms " + json.dumps(served), flush=True)
+    profile_decode(torch, P, mcfg, eng, report, key="serve_ms")
+    del eng
+    torch.cuda.empty_cache()
+    served["step"] = ms_step_logits(torch, P, mcfg, params, dev)
+    print(f"phase 3j: moonshot one paged decode step: {served['step']}",
+          flush=True)
+    check_tail_rows(torch, P, mcfg, dev, params, report, ffn=True,
+                    report_key="ms_tail_row_invariant", phase="phase 3j")
+
+    tracer = P["Tracer"](capacity=1 << 16)
+    eng = paged_engine(P, mcfg, params, dev, spec=P["SpecConfig"](k=SPEC_K),
+                       trace=tracer)
+    check(eng.spec.resolved_layers(mcfg) == L // 2,
+          "moonshot spec: the default draft is not half the layers")
+    # one slate of (a)'s requests: every wave drafts 4 tokens through 24
+    # layers whose banks are fake-quantized on every forward
+    sreqs = shared_prefix_requests(P, mcfg, 2 * SLOTS, 200, seed=14)[:SLOTS]
+    with RouteCounts(torch, blocks, mcfg.n_experts, dev,
+                     window=SPEC_C) as vc:
+        stats, slaunches, swall = drive(torch, P, eng, sreqs)
+    check_streams(mcfg, sreqs, "moonshot spec")
+    check(slaunches["kvq_spec_verify_attn"] > 0
+          and slaunches["kvq_paged_decode_attn"] == 0
+          and slaunches["kvq_decode_attn"] > 0,
+          f"moonshot spec: verify must launch, paged decode not, the "
+          f"draft's dense decode must: {slaunches}")
+    check(stats["free_blocks"] == eng.num_blocks,
+          "moonshot spec: blocks leaked after the drain")
+    spec = spec_summary(stats, sreqs, swall, slaunches, tracer)
+    spec["verify_routing"] = vc.shares()
+    spec["streams_differing_from_plain"] = [
+        r.uid for r, p in zip(sreqs, reqs) if r.generated != p.generated]
+    report["serve_ms_spec"] = spec
+    print("serve_ms_spec " + json.dumps(spec), flush=True)
+    del eng, params
+    torch.cuda.empty_cache()
+    print(f"phase 3j: moonshot-v1-16b-a3b (48 layers, paged) "
+          f"{served['decode_tokens_per_s']:.2f} decode tok/s, "
+          f"{served['decode_step_ms']:.2f} ms a decode step, TTFT p50 "
+          f"{served['ttft_p50_s']:.3f} s, peak "
+          f"{served['peak_memory_bytes'] / 1e9:.1f} GB; spec accept rate "
+          f"{spec['spec_accept_rate']:.3f}, verify pairs dropped at "
+          f"capacity {spec['verify_routing']['dropped_share']:.3f}",
+          flush=True)
+    return launches, slaunches
+
+
+def dense_requests(P, cfg, uid0=0):
+    """8 requests of three lengths (DENSE_SERVE_LENS); every fourth
+    samples (temperature 0.8, top-k 8)."""
+    import numpy as np
+    rng = np.random.default_rng(21)
+    return [P["Request"](
+        uid=uid0 + i, prompt=rng.integers(0, cfg.vocab_size, n).astype(
+            np.int32), max_new_tokens=MAX_NEW,
+        temperature=0.8 if i % 4 == 3 else 0.0,
+        top_k=8 if i % 4 == 3 else 0, seed=i)
+        for i, n in enumerate(DENSE_SERVE_LENS)]
+
+
+def decode_logits_vs_plain(torch, P, cfg, eng, dev):
+    """One decode step after a padded prefill wave of the first SLOTS
+    prompts of ``dense_requests``, through the kernels and through the
+    plain versions from the same cache: (relative L2, argmax
+    agreement)."""
+    models = P["models"]
+    prompts = [r.prompt for r in dense_requests(P, cfg)[:SLOTS]]
+    L = int(math.ceil(max(len(p) for p in prompts) / 16) * 16)
+    toks = torch.zeros((SLOTS, L), dtype=torch.int32, device=dev)
+    for i, p in enumerate(prompts):
+        toks[i, :len(p)] = torch.from_numpy(p).to(dev)
+    batch = {"tokens": toks, "lengths": torch.tensor(
+        [len(p) for p in prompts], dtype=torch.int32, device=dev)}
+    logits0, cache = models.prefill(cfg, eng.params, eng.ctx, batch,
+                                    cache_budget=PAGED_TOKENS)
+    tok1 = torch.argmax(logits0[:, -1].float(), -1).to(torch.int32)[:, None]
+    lk, _ = models.decode_step(cfg, eng.params, eng.ctx, tok1,
+                               models.clone_cache(cache))
+    lp, _ = models.decode_step(cfg, eng.params,
+                               replace(eng.ctx, kernel_backend="ref"), tok1,
+                               models.clone_cache(cache))
+    check(bool(torch.isfinite(lk.float()).all()),
+          f"{cfg.name}: decode logits not finite")
+    rel, agree = logit_gap(torch, lk, lp)
+    check(rel <= LOGIT_REL_TOL,
+          f"{cfg.name}: decode logits, kernels vs plain, relative L2 {rel} "
+          f"> {LOGIT_REL_TOL}")
+    del cache
+    torch.cuda.empty_cache()
+    return rel, agree
+
+
+def serve_cut(torch, P, dev, report, arch, n_layers, key, phase,
+              paged=False):
+    """Phases 3k and 3l: ``arch`` at full width and ``n_layers`` layers
+    (random weights, scales LSQ-initialised), A8d-C8-W4, w4a8 weights
+    (the bf16 linears dropped), 4 slots, cache_len 512: one decode step's
+    logits kernels vs plain; 8 requests of three lengths on the dense
+    layout (dense decode a layer a decode step, w4a8 launched, no other
+    kernel); with ``paged``, the same requests on the paged pool (blocks
+    of 64, prefix cache off, one prefill window: a cold prefill, as the
+    dense engine's), paged decode a layer a step, and every stream equal
+    to the dense engine's. Decode tok/s, TTFT, the idle share, peak
+    memory."""
+    qat, models = P["qat"], P["models"]
+    cfg = P["get_config"](arch)
+    if n_layers:
+        cfg = cfg.replace(n_layers=n_layers)
+    L = cfg.n_layers
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = models.init_params(cfg, seed=0, device=dev)
+    params = qat.calibrate_weight_scales(
+        params, P["parse_policy"]("A8d-C8-W4"), method="lsq")
+    eng = paged_engine(P, cfg, params, dev, kv_layout="dense")
+    del params
+    eng.params = qat.drop_exported_weights(eng.params)
+    params = eng.params
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    rel, agree = decode_logits_vs_plain(torch, P, cfg, eng, dev)
+    counted = {**counted_kernels(P),
+               "fake_quant_fwd": P["fq_ops"].fake_quant_fwd,
+               "flash_attn_fwd": P["fa_ops"].flash_attn_fwd}
+    out = {"arch": arch, "layers": L, "setup_s": setup_s,
+           "decode_logits_rel_l2": rel, "decode_logits_argmax": agree}
+    streams = {}
+    for layout in ("dense", "paged") if paged else ("dense",):
+        if layout == "paged":
+            eng = paged_engine(P, cfg, params, dev, prefix_cache=False,
+                               prefill_chunk=PAGED_TOKENS)
+        reqs = dense_requests(P, cfg)
+        for r in reqs:
+            eng.submit(r)
+        for fn in counted.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        stats = eng.run_until_drained()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {n: fn.launches for n, fn in counted.items()}
+        check_streams(cfg, reqs, f"{arch} {layout} serve")
+        kern = ("kvq_paged_decode_attn" if layout == "paged"
+                else "kvq_decode_attn")
+        check(launches[kern] == L * stats["decode_steps"]
+              and launches["w4a8_matmul"] > 0
+              and all(v == 0 for n, v in launches.items()
+                      if n not in (kern, "w4a8_matmul")),
+              f"{arch} {layout}: launches {launches} over "
+              f"{stats['decode_steps']} decode steps, want {kern} {L} a "
+              f"step, w4a8_matmul > 0, nothing else")
+        streams[layout] = [r.generated for r in reqs]
+        decode_tokens = stats["tokens_out"] - len(reqs)
+        out[layout] = {
+            "requests": len(reqs), "prompt_lens": list(DENSE_SERVE_LENS),
+            "tokens_out": stats["tokens_out"], "wall_s": wall,
+            "decode_tokens_per_s": decode_tokens / stats["decode_s"],
+            "decode_step_ms": 1e3 * stats["decode_step_s"],
+            "decode_steps": stats["decode_steps"],
+            "ttft_p50_s": stats["ttft_p50_s"],
+            "ttft_p95_s": stats["ttft_p95_s"],
+            "prefill_s": stats["prefill_s"], "launches": launches,
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(dev)}
+        report[f"{key}_{layout}"] = out[layout]
+        profile_decode(torch, P, cfg, eng, report, key=f"{key}_{layout}")
+        del eng
+        torch.cuda.empty_cache()
+    if paged:
+        differ = [i for i, (a, b) in enumerate(zip(streams["dense"],
+                                                   streams["paged"]))
+                  if a != b]
+        out["paged_streams_differing"] = differ
+        check(not differ, f"{arch}: paged streams differ from dense for "
+                          f"requests {differ}")
+    report[key] = out
+    print(f"{phase}: " + json.dumps(out), flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def time_new(torch, P, dev, report):
+    """Phase 4 at this slice's shapes: fake_quant_fwd and _bwd per
+    64-expert bank in mode 3 and per moonshot decode step (144 forward
+    launches) beside the plain versions, one PyTorch call and mode 1 on
+    the same bytes; moonshot's MoE layer of a decode step by parts; the
+    paged decode launch at G 1 (moonshot, 16 KV heads) and the dense one
+    at G 8 (qwen3-32b) beside SDPA; flash at G 1 and G 5 (qwen3-14b) at
+    (8, 128) beside SDPA; w4a8_matmul per decode step of qwen3-32b (48
+    layers) beside bf16 ``torch.matmul``."""
+    ms, q32 = P["get_config"](MS), P["get_config"](Q32)
+    q14 = P["get_config"](Q14)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(55)
+    banks = [time_bank(torch, P, *shape, 4, dev, gen) for shape in MS_BANKS]
+    L = ms.n_layers
+    step = bank_step(banks, L)
+    split = mx_moe_split(torch, P, ms, dev)
+
+    def make():
+        return paged_inputs(torch, gen, ms, PAGED_BS[0], PAGED_LENGTHS, dev)
+
+    paged = time_paged_launch(torch, P, ms, "paged_decode", make(), make)
+    dense = time_dense_launch(torch, P, q32, dev, gen, KVQ_LENGTHS,
+                              CACHE_LEN, False)
+    fl1 = time_flash_launch(torch, P, ms, dev, gen, TRAIN_B, TRAIN_T, 10)
+    fl5 = time_flash_launch(torch, P, q14, dev, gen, TRAIN_B, TRAIN_T, 10)
+    w4 = w4a8_step_times(
+        torch, P, linear_shapes(q32.replace(n_layers=Q32_SERVE_LAYERS)),
+        dev, gen)
+    out = {"banks": banks, "fake_quant_fwd_decode_step": step,
+           "moe_decode_layer_split_ms": split,
+           "paged_decode_launch_g1": paged,
+           "paged_decode_step_g1": per_step(paged, L),
+           "dense_decode_launch_g8": dense,
+           "flash_launch_g1": fl1, "flash_launch_g5": fl5,
+           "flash_teacher_forward_g1": per_step(fl1, MS_TRAIN_LAYERS),
+           "flash_teacher_forward_g5": per_step(fl5, Q14_TRAIN_LAYERS),
+           "w4a8_decode_step_qwen3_32b": w4}
+    report["new_times"] = out
+    for b in banks:
+        print(f"phase 4: moonshot bank {b['shape']}: fake_quant_fwd "
+              f"{b['fwd_ms']:.4f} ms (mode 1 on the same bytes "
+              f"{b['mode1_fwd_ms']:.4f}, bound {b['fwd_bound_ms']:.4f}, "
+              f"plain {b['fwd_plain_ms']:.3f}, library "
+              f"{b['fwd_library_ms']:.3f}); fake_quant_bwd "
+              f"{b['bwd_ms']:.4f} ms (mode 1 {b['mode1_bwd_ms']:.4f}, bound "
+              f"{b['bwd_bound_ms']:.4f}, plain {b['bwd_plain_ms']:.3f}, "
+              f"library {b['bwd_library_ms']:.3f})", flush=True)
+    print(f"phase 4: moonshot decode step: fake_quant_fwd {step}; MoE layer "
+          f"by parts {split}; kvq_paged_decode_attn at G 1 per launch "
+          f"{paged['ms'] * 1e3:.2f} us (SDPA {paged['library_ms'] * 1e3:.2f}"
+          f" us, gqa {paged['library_gqa_ms'] * 1e3:.2f} us, bound "
+          f"{paged['bound_ms'] * 1e3:.2f} us); kvq_decode_attn at G 8 "
+          f"{dense['ms'] * 1e3:.2f} us (SDPA gqa "
+          f"{dense['library_ms'] * 1e3:.2f} us); flash G 1 "
+          f"{fl1['ms'] * 1e3:.2f} us (SDPA {fl1['library_ms'] * 1e3:.2f} "
+          f"us), G 5 {fl5['ms'] * 1e3:.2f} us (SDPA "
+          f"{fl5['library_ms'] * 1e3:.2f} us); w4a8 per qwen3-32b decode "
+          f"step {w4}", flush=True)
     return out
 
 
@@ -5341,6 +6027,8 @@ def main() -> int:
     rg_err = check_rg_kernels(torch, P, cfg, rcfg, dev, report)
     mx_err = check_mx_kernels(torch, P, dev, report)
     torch.cuda.empty_cache()
+    new_err = check_new_kernels(torch, P, dev, report)
+    torch.cuda.empty_cache()
     slstm_err = check_slstm(torch, P, xcfg, dev, report)
     launches, eng = serve(torch, P, cfg, dev, report)
     profile_decode(torch, P, cfg, eng, report)
@@ -5380,6 +6068,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     mx_train_launches = train_mx(torch, P, dev, report)
     torch.cuda.empty_cache()
+    ms_launches, ms_spec_launches = serve_ms(torch, P, dev, report)
+    torch.cuda.empty_cache()
+    ms_train_launches = train_cut(torch, P, dev, report, MS,
+                                  MS_TRAIN_LAYERS, "train_ms", "phase 6d")
+    torch.cuda.empty_cache()
+    q32 = serve_cut(torch, P, dev, report, Q32, Q32_SERVE_LAYERS,
+                    "serve_q32", "phase 3k", paged=True)
+    q7 = serve_cut(torch, P, dev, report, Q7, 0, "serve_q7", "phase 3l")
+    q14_train_launches = train_cut(torch, P, dev, report, Q14,
+                                   Q14_TRAIN_LAYERS, "train_q14",
+                                   "phase 6e")
+    torch.cuda.empty_cache()
     w4a8_t = time_w4a8(torch, P, cfg, dev, report)
     kvq_t = time_kvq(torch, P, cfg, dev, report)
     paged_t = time_paged_decode(torch, P, cfg, dev, report)
@@ -5391,6 +6091,7 @@ def main() -> int:
     slstm_t = time_slstm(torch, P, xcfg, dev, report)
     rg_t = time_rg(torch, P, rcfg, dev, report)
     mx_t = time_mx(torch, P, dev, report)
+    new_t = time_new(torch, P, dev, report)
     for name, t in (("kvq_paged_decode_attn", paged_t),
                     ("gather_dequant_paged_kv", gather_t),
                     ("pool_block_copy", copy_t),
@@ -5415,6 +6116,15 @@ def main() -> int:
                             f"{MX_SERVE_LAYERS} layers x (q, k, v, o, "
                             f"router) + the untied head",
                      **mx_t["w4a8_decode_step"]},
+         "moonshot_launches": ms_launches["w4a8_matmul"],
+         "moonshot_spec_launches": ms_spec_launches["w4a8_matmul"],
+         "qwen3_32b_launches": {k: q32[k]["launches"]["w4a8_matmul"]
+                                for k in ("dense", "paged")},
+         "qwen2_7b_launches": q7["dense"]["launches"]["w4a8_matmul"],
+         "qwen3_32b": {"per": f"one decode step at M={SLOTS}: "
+                              f"{Q32_SERVE_LAYERS} layers x 7 linears + "
+                              f"the untied head",
+                       **new_t["w4a8_decode_step_qwen3_32b"]},
          "per": f"one decode step at M={SLOTS}: 36 layers x 7 linears + "
                 "the tied head"},
         {"name": "kvq_decode_attn", "route": "cuda",
@@ -5422,7 +6132,15 @@ def main() -> int:
          "replaces": "src/repro/kernels/kvq_attn/kernel.py:338",
          "launches": launches["kvq_decode_attn"],
          "max_abs_err": max(kvq_err, rg_err["kvq_decode_attn"],
-                            mx_err["kvq_decode_attn"]), **kvq_t,
+                            mx_err["kvq_decode_attn"],
+                            new_err["kvq_decode_attn"]), **kvq_t,
+         "qwen3_32b_launches": q32["dense"]["launches"]["kvq_decode_attn"],
+         "qwen2_7b_launches": q7["dense"]["launches"]["kvq_decode_attn"],
+         "moonshot_spec_launches": ms_spec_launches["kvq_decode_attn"],
+         "qwen3_32b": {"per": f"one launch at B={SLOTS}, H=64, Hkv=8 (G 8), "
+                              f"D=128, S={CACHE_LEN}, lengths "
+                              f"{list(KVQ_LENGTHS)}",
+                       **new_t["dense_decode_launch_g8"]},
          "rg_launches": rg_launches["kvq_decode_attn"],
          "mx_launches": mx_launches["kvq_decode_attn"],
          "mixtral": {
@@ -5439,8 +6157,17 @@ def main() -> int:
          "source": "src/repro_torch/csrc/kvq_paged_decode_attn.cu",
          "replaces": "src/repro/kernels/kvq_attn/kernel.py:109",
          "launches": paged_launches["kvq_paged_decode_attn"],
-         "max_abs_err": max(paged_err, rg_err["kvq_paged_decode_attn"]),
+         "max_abs_err": max(paged_err, rg_err["kvq_paged_decode_attn"],
+                            new_err["kvq_paged_decode_attn"]),
          **paged_t,
+         "moonshot_launches": ms_launches["kvq_paged_decode_attn"],
+         "qwen3_32b_launches": q32["paged"]["launches"][
+             "kvq_paged_decode_attn"],
+         "moonshot": {"per": f"one launch at B={SLOTS}, H=16, Hkv=16 (G 1), "
+                             f"D=128, block 64, lengths "
+                             f"{list(PAGED_LENGTHS)} (a decode step: "
+                             f"48 launches)",
+                      **new_t["paged_decode_launch_g1"]},
          "recurrentgemma": {
              "per": "one launch at B=4, H=10, Hkv=1, D=256, 2048 tokens a "
                     "slot in blocks of 64",
@@ -5453,8 +6180,10 @@ def main() -> int:
          "source": "src/repro_torch/csrc/gather_dequant_paged_kv.cu",
          "replaces": "src/repro/kernels/kvq_attn/kernel.py:174",
          "launches": paged_launches["gather_dequant_paged_kv"],
-         "max_abs_err": max(gather_err, rg_err["gather_dequant_paged_kv"]),
+         "max_abs_err": max(gather_err, rg_err["gather_dequant_paged_kv"],
+                            new_err["gather_dequant_paged_kv"]),
          **gather_t,
+         "moonshot_launches": ms_launches["gather_dequant_paged_kv"],
          "recurrentgemma": {
              "per": "one K+V launch: 4 rows of 32 entries of 64 tokens, "
                     "Hkv=1, D=256",
@@ -5467,6 +6196,7 @@ def main() -> int:
          "replaces": "src/repro/kernels/kvq_attn/kernel.py:308",
          "launches": paged_launches["pool_block_copy"],
          "max_abs_err": copy_err, **copy_t,
+         "moonshot_launches": ms_launches["pool_block_copy"],
          "per": "one COW of one block: 1 launch cloning the k_q, v_q, s_k "
                 "and s_v leaves of 36 layers (one_leaf_ms: the 4 one-leaf "
                 "launches it replaced)"},
@@ -5474,8 +6204,10 @@ def main() -> int:
          "source": "src/repro_torch/csrc/kvq_spec_verify_attn.cu",
          "replaces": "src/repro/kernels/kvq_attn/kernel.py:255",
          "launches": spec_launches["kvq_spec_verify_attn"],
-         "max_abs_err": max(spec_err, rg_err["kvq_spec_verify_attn"]),
+         "max_abs_err": max(spec_err, rg_err["kvq_spec_verify_attn"],
+                            new_err["kvq_spec_verify_attn"]),
          **spec_t,
+         "moonshot_launches": ms_spec_launches["kvq_spec_verify_attn"],
          "recurrentgemma": {
              "per": f"one launch at B=4, C={SPEC_C}, H=10, Hkv=1, D=256, "
                     f"windows ending at 2048 tokens",
@@ -5493,6 +6225,20 @@ def main() -> int:
          "rg_launches": rg_train_launches["fake_quant_fwd"],
          "mx_launches": mx_launches["fake_quant_fwd"],
          "mx_train_launches": mx_train_launches["fake_quant_fwd"],
+         "moonshot_launches": ms_launches["fake_quant_fwd"],
+         "moonshot_train_launches": ms_train_launches["fake_quant_fwd"],
+         "qwen3_14b_train_launches": q14_train_launches["fake_quant_fwd"],
+         "moonshot": {
+             "per": "one moonshot decode step: 144 mode-3 launches, one an "
+                    "expert bank (64, 2048, 1408) or (64, 1408, 2048) at 4 "
+                    "bits",
+             **new_t["fake_quant_fwd_decode_step"],
+             "per_bank": [{k: b[k] for k in ("shape", "fwd_ms",
+                                              "fwd_plain_ms",
+                                              "fwd_library_ms",
+                                              "fwd_bound_ms",
+                                              "mode1_fwd_ms")}
+                          for b in new_t["banks"]]},
          "mixtral": {
              "per": f"one mixtral decode step: {3 * MX_SERVE_LAYERS} mode-3 "
                     f"launches, one an expert bank (8, 4096, 14336) or "
@@ -5514,6 +6260,16 @@ def main() -> int:
          "max_abs_err": fq_err, **fq_bwd_t,
          "rg_launches": rg_train_launches["fake_quant_bwd"],
          "mx_train_launches": mx_train_launches["fake_quant_bwd"],
+         "moonshot_train_launches": ms_train_launches["fake_quant_bwd"],
+         "qwen3_14b_train_launches": q14_train_launches["fake_quant_bwd"],
+         "moonshot": {
+             "per": "one mode-3 launch on a 64-expert bank at 4 bits",
+             "per_bank": [{k: b[k] for k in ("shape", "bwd_ms",
+                                              "bwd_plain_ms",
+                                              "bwd_library_ms",
+                                              "bwd_bound_ms",
+                                              "mode1_bwd_ms")}
+                          for b in new_t["banks"]]},
          "mixtral": {
              "per": "one mode-3 launch on an expert bank at 4 bits",
              "per_bank": [{k: b[k] for k in ("shape", "bwd_ms",
@@ -5530,7 +6286,16 @@ def main() -> int:
          "launches": train_launches["flash_attn_fwd"],
          "ptq_launches": ptq_launches["flash_attn_fwd"],
          "max_abs_err": max(flash_err, rg_err["flash_attn_fwd"],
-                            mx_err["flash_attn_fwd"]),
+                            mx_err["flash_attn_fwd"],
+                            new_err["flash_attn_fwd"]),
+         "moonshot_train_launches": ms_train_launches["flash_attn_fwd"],
+         "qwen3_14b_train_launches": q14_train_launches["flash_attn_fwd"],
+         "moonshot": {"per": f"one launch at B={TRAIN_B}, S={TRAIN_T}, H=16, "
+                             f"Hkv=16 (G 1), D=128, causal",
+                      **new_t["flash_launch_g1"]},
+         "qwen3_14b": {"per": f"one launch at B={TRAIN_B}, S={TRAIN_T}, "
+                              f"H=40, Hkv=8 (G 5), D=128, causal",
+                       **new_t["flash_launch_g5"]},
          **flash_t, "rg_launches": rg_train_launches["flash_attn_fwd"],
          "mx_train_launches": mx_train_launches["flash_attn_fwd"],
          "mixtral": {

@@ -14,6 +14,10 @@ _ARCH_MODULES = {
     "xlstm-125m": "xlstm_125m",
     "recurrentgemma-2b": "recurrentgemma_2b",
     "mixtral-8x7b": "mixtral_8x7b",
+    "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
+    "qwen3-14b": "qwen3_14b",
+    "qwen3-32b": "qwen3_32b",
+    "qwen2-7b": "qwen2_7b",
 }
 
 ARCH_IDS = tuple(_ARCH_MODULES)

@@ -387,7 +387,11 @@ def attach_w4a8_exports(params, policy: PrecisionPolicy):
     over the expert axis with its own GEMM and has no packed kernel, so
     the banks stay bf16 and are fake-quantized on every forward. The head
     packs at ``policy.head_bits``; when embeddings are tied it has no
-    ``w`` and exports from the transposed embedding table.
+    ``w`` and exports from the transposed embedding table. A tree whose
+    weights :func:`drop_exported_weights` took keeps its exports: a
+    linear without ``w`` is left as it is, and so is a head that carries
+    an export and no ``w`` (an untied head must not be re-exported from
+    the embedding).
     """
     if not policy.enabled:
         raise ValueError("w4a8 export needs a quantized policy "
@@ -414,7 +418,8 @@ def attach_w4a8_exports(params, policy: PrecisionPolicy):
         return tree
 
     out = walk(params)
-    if isinstance(out, dict) and "head" in out and "s_w" in out["head"]:
+    if (isinstance(out, dict) and "head" in out and "s_w" in out["head"]
+            and ("w" in out["head"] or "w4a8" not in out["head"])):
         head = dict(out["head"])
         hp = {"w": head["w"] if "w" in head else out["embed"]["w"].T,
               "s_w": head["s_w"]}

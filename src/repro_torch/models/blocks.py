@@ -206,11 +206,19 @@ def moe_fwd(cfg: ModelConfig, ctx: QuantCtx, p: Dict, x: torch.Tensor,
     same sums are index gathers. A slot of expert e takes exactly one
     token's row (or stays zero), and a token's output is the sum of at
     most k products of a bf16 gate and a bf16 expert output, exact in f32:
-    with k = 2 any order of summation gives the same bits. Each bank is
-    fake-quantized once per call, not once per chunk (the same values).
+    with k = 2 any order of summation gives the same bits. With k = 6
+    (moonshot) the order of the f32 sum matters: the reference's
+    contraction over (e, cap) agrees with the sum in top-k order (kept
+    here), in ascending (e, c) order or in four lanes on 98.5-99.5% of
+    the f32 values and no order on all, but after the cast to x's bf16
+    every order gave the reference's bits except where the f32 sums sit
+    on either side of a bf16 rounding tie
+    (``tests/test_torch_moonshot.py``). Each bank is fake-quantized once
+    per call, not once per chunk (the same values).
     The expert GEMMs run over the whole wave: on the H100 a prompt's
-    prefill gave the same bits alone and in a padded wave of 4 (the
-    chip_smoke check), so they need no row-by-row form as attention
+    prefill gave the same bits alone and in a padded wave of 4, and a
+    tail-wave row alone and beside a deeper row (chip_smoke's mixtral
+    and moonshot checks), so they need no row-by-row form as attention
     does."""
     e, k = cfg.n_experts, cfg.n_experts_active
     Bn, S, d = x.shape

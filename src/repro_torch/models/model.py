@@ -412,9 +412,14 @@ def spec_verify(cfg: ModelConfig, params: Dict, ctx: QuantCtx,
     absolute position ``start[i]``, ``n_tokens[i]`` of it real. Where a
     tail prefill attends with exact bf16 window K/V, the verify pass
     commits the window's quantized K/V first and reads them back through
-    the table (``blocks.attn_spec_verify``), so the logits at position j
-    are what ``decode_step`` gives after consuming the window through j.
-    ``hist_blocks`` bounds the table walk as in ``prefill_tail``.
+    the table (``blocks.attn_spec_verify``), so with a dense MLP the
+    logits at position j are what ``decode_step`` gives after consuming
+    the window through j. An MoE layer routes the whole window at once,
+    with the capacity of a C-token chunk (at C = 5, top 6 of 64 experts:
+    one slot an expert), so a token can be dropped that decode, routing
+    one token a step, keeps: there the verify logits need not equal
+    decode's, as in the reference. ``hist_blocks`` bounds the table walk
+    as in ``prefill_tail``.
 
     Returns (logits (n, C, V), cache) with ``length``/``position`` at
     ``start + n_tokens``; the engine re-clamps them to the accepted
