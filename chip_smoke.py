@@ -96,6 +96,19 @@ toolkit (``nvcc``). Phases, each fatal on failure (non-zero exit):
    at G 1 (H 16) and G 5 (H 40, Hkv 8) at (8, 128) against plain and the
    oracle; fake-quant mode 3 bitwise on the 64-expert banks (64, 2048,
    1408) and (64, 1408, 2048) at bits 4 and 8, ds within 1e-4;
+   at whisper-large-v3's and qwen2-vl-2b's shapes: ``w4a8_matmul``
+   bitwise on every distinct packed linear (whisper's K 1280 into N 1280,
+   5120 with a bias and back, the tied head at N 51866, a partial last
+   column tile; qwen2-vl's q, k, v with biases, k and v at N 256, the
+   MLP's 8960 and back, the head at N 151936) at M 1, 4, 23, 24 and 512
+   by each route, and the encoder's linears at M 6000; the dense and
+   paged decode, verify and gather checks at D 64, G 1 (four full
+   1500-row cross caches, ragged rows with an empty one, the split
+   boundaries) and at D 128, G 6; ``flash_attn_fwd`` without causality
+   at the encoder's (4, 1500) and the cross shape (Sq 128, Skv 1500),
+   and at Sq 1 / 128 / 1500 against Skv 1 / 65 / 1500, and causal at G
+   6 (8, 384), against plain and the oracle; fake-quant fwd and dx
+   bitwise on both archs' weights (the tied heads per row);
 3. serve: ``ServeEngine`` on ``cuda`` with qwen2.5-3b at full width
    (random weights from a seed), policy A8d-C8-W4, w4a8 weights, dense
    KV cache; 8 mixed-length requests through 4 slots, both kernels'
@@ -242,6 +255,32 @@ toolkit (``nvcc``). Phases, each fatal on failure (non-zero exit):
    and 29 ``_bwd`` a step, 4 ``flash_attn_fwd`` at G 5; every ``s_w``
    moved, the qk-norm weights' gradients finite and non-zero; kernels vs
    plain;
+3m. whisper-large-v3 at full width and depth (32 encoder and 32
+   decoder layers, random weights), A8d-C8-W4, w4a8, through ``prefill``
+   and ``decode_step`` (no engine path supplies frames): two waves of 4
+   requests (decoder prompts of 4 and 96 tokens, 1500 frames each), 32
+   new tokens, cache_len 160; a prefill launches 32 ``flash_attn_fwd``
+   (the encoder, not causal) and 513 ``w4a8_matmul``, a decode step 64
+   ``kvq_decode_attn`` (self and the frozen cross caches) and 257
+   ``w4a8_matmul``, nothing else; one step's logits kernels vs plain; a
+   prompt alone and in its wave: self and cross caches and first logits
+   bitwise; the logits move with the frames; tok/s, ms a step, idle,
+   TTFT, peak;
+6f. whisper QAT through ``make_train_step`` (B 4, T 128 over 1500
+   frames, every layer checkpointed, the encoder's included): 1025
+   ``fake_quant_fwd`` (the checkpointed layers' again in the backward),
+   513 ``_bwd`` and 96 ``flash_attn_fwd`` (the teacher's encoder, self
+   and cross) a step; every ``s_w`` moved; step split, peak, idle, the
+   model-FLOPs share with the encoder's; kernels vs plain;
+3n. qwen2-vl-2b at full width and depth: ``prefill`` and ``decode_step``
+   on 4 requests of 256 patch embeddings + 64 tokens at Qwen2-VL's
+   positions (28 ``kvq_decode_attn`` a step), logits vs plain; the
+   engine text-only on the pool with a shared prefix (hits, COW, 28
+   paged launches a step) and dense vs paged from cold prefills
+   (streams equal);
+6g. qwen2-vl QAT through ``make_train_step`` (B 8, 128 text tokens after
+   256 patches, the loss on the text): 197 / 197 / 28 launches a step,
+   every ``s_w`` moved, kernels vs plain;
 4. times: each kernel per decode step, verify-wave, tail-wave, COW,
    student step or teacher forward (CUDA events, L2 flushed by rotating
    input copies past 100 MB), its plain version, one PyTorch call
@@ -271,7 +310,10 @@ toolkit (``nvcc``). Phases, each fatal on failure (non-zero exit):
    MoE layer by parts, the paged decode launch at G 1 beside SDPA; the
    dense decode launch at qwen3-32b's G 8, flash at G 1 and G 5 beside
    SDPA, and ``w4a8_matmul`` per qwen3-32b decode step (48 layers)
-   beside bf16 ``torch.matmul``.
+   beside bf16 ``torch.matmul``; flash without causality at whisper's
+   encoder and cross shapes, the dense decode over its four cross caches
+   and flash at G 6, each beside SDPA, and ``w4a8_matmul`` per whisper
+   and per qwen2-vl decode step beside bf16 ``torch.matmul``.
 
 The line before the last is a JSON object with every kernel's numbers; the
 last line is ``{"ok": true, "device": {...}}``. Details go to
@@ -334,6 +376,7 @@ def import_port():
     from repro_torch.kernels.w4a8.ref import w4a8_matmul_ref
     from repro_torch import models
     from repro_torch.launch import steps, train
+    from repro_torch.optim import adamw_init
     from repro_torch.benchmarks import common as bench
     from repro_torch.core.analysis import rotation
     from repro_torch.core.precision import parse_policy
@@ -360,7 +403,8 @@ def import_port():
                 slstm_scan_ref=slstm_scan_ref, blocks=blocks, bench=bench,
                 rotation=rotation, parse_policy=parse_policy, rtn=rtn,
                 smoothquant=smoothquant,
-                calibration_batches=calibration_batches, tree_map=tree_map)
+                calibration_batches=calibration_batches, tree_map=tree_map,
+                adamw_init=adamw_init)
 
 
 # --------------------------------------------------------------------------
@@ -1312,9 +1356,10 @@ def time_gather(torch, P, cfg, dev, report):
             "bound_by": "bytes" if t_b >= t_o else "operations"}
 
 
-def time_copy(torch, P, cfg, dev, report):
+def time_copy(torch, P, cfg, dev, report, layers=COPY_LAYERS):
     """Per COW event: one pair cloned in the four pool leaves (two int8
-    payloads, two f32 scale leaves) of the serve phase's 36-layer pool,
+    payloads, two f32 scale leaves) of the serve phase's 36-layer pool
+    (``layers``),
     through one multi-leaf launch (the engine's call); beside it the four
     one-leaf launches it replaced, the plain version and ``x[:, dst] =
     x[:, src]`` on each leaf."""
@@ -1324,7 +1369,7 @@ def time_copy(torch, P, cfg, dev, report):
     src = torch.tensor([3], dtype=torch.int32, device=dev)
     dst = torch.tensor([20], dtype=torch.int32, device=dev)
     pairs = torch.stack([src, dst])
-    base = pool_leaves(torch, gen, cfg, nb, bs, dev)
+    base = pool_leaves(torch, gen, cfg, nb, bs, dev, layers)
     n_copies = copies_for(tensor_bytes(*base))
     sets = [(base,)] + [([x.clone() for x in base],)
                         for _ in range(n_copies - 1)]
@@ -1616,20 +1661,14 @@ def fq_ragged_shapes(cfg):
             ("x not 16-byte aligned", 100, d, 0, 8, 1)]
 
 
-def check_fake_quant(torch, P, cfg, dev, report):
+def fq_case_checks(torch, P, gen, cases, dev):
     """fake_quant_fwd and the dx of fake_quant_bwd bitwise equal to their
     plain versions, ds within FQ_DS_TOL of its sums' mass and bitwise
-    equal from one call to the next, on every weight shape of qwen2.5-3b,
-    the activation shapes of a static policy and the ragged cases; then
-    the backward's launcher refuses a workspace one element short."""
+    equal from one call to the next, at bits 4 and 8, on each (site, R,
+    C, mode, offset) of ``cases`` (``offset``: x starts that many
+    elements into its buffer). Returns (cases compared, worst ds)."""
     ops, ref = P["fq_ops"], P["fq_ref"]
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(21)
     worst_ds, n = 0.0, 0
-    cases = [(site, R, C, mode, 0) for site, R, C, mode, _, _ in
-             fq_shapes(cfg)]
-    cases += [(f"{what} ({R} x {C}, mode {mode})", R, C, mode, off)
-              for what, R, C, mode, _, off in fq_ragged_shapes(cfg)]
     for site, R, C, mode, off in cases:
         for bits in (4, 8):
             x, s, g = fq_inputs(torch, gen, R, C, mode, bits, dev)
@@ -1664,6 +1703,22 @@ def check_fake_quant(torch, P, cfg, dev, report):
             n += 1
             del x, s, g, dx, ds, ds2, dx_p, ds_p, mass
     torch.cuda.empty_cache()
+    return n, worst_ds
+
+
+def check_fake_quant(torch, P, cfg, dev, report):
+    """fake_quant_fwd and the dx of fake_quant_bwd bitwise equal to their
+    plain versions, ds within FQ_DS_TOL of its sums' mass and bitwise
+    equal from one call to the next, on every weight shape of qwen2.5-3b,
+    the activation shapes of a static policy and the ragged cases; then
+    the backward's launcher refuses a workspace one element short."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(21)
+    cases = [(site, R, C, mode, 0) for site, R, C, mode, _, _ in
+             fq_shapes(cfg)]
+    cases += [(f"{what} ({R} x {C}, mode {mode})", R, C, mode, off)
+              for what, R, C, mode, _, off in fq_ragged_shapes(cfg)]
+    n, worst_ds = fq_case_checks(torch, P, gen, cases, dev)
     check_fq_workspace(torch, P, cfg, dev)
     report["fake_quant_checked"] = n
     report["fake_quant_ds_rel_mass_err"] = worst_ds
@@ -1691,9 +1746,10 @@ def check_fq_workspace(torch, P, cfg, dev):
         workspace_refused(torch, P, x, s, g, (1, R, C), mode, dev)
 
 
-def time_fake_quant(torch, P, cfg, dev, report):
+def time_fake_quant(torch, P, cfg, dev, report, shapes=None):
     """Per student step: the forward and the backward of every weight site
-    (253 launches each), summed over the shapes' per-step counts."""
+    (253 launches each), summed over the shapes' per-step counts
+    (``shapes``: ``fq_shapes``' rows, qwen's when not given)."""
     ops, ref = P["fq_ops"], P["fq_ref"]
     gen = torch.Generator(device=dev)
     gen.manual_seed(22)
@@ -1701,7 +1757,7 @@ def time_fake_quant(torch, P, cfg, dev, report):
     bwd = dict(ms=0.0, plain_ms=0.0, library_ms=0.0)
     fwd_bytes = bwd_bytes = fwd_ops = bwd_ops = 0
     rows = []
-    for site, R, C, mode, bits, per_step in fq_shapes(cfg):
+    for site, R, C, mode, bits, per_step in shapes or fq_shapes(cfg):
         if not per_step:
             continue
         nb = R * C * 2
@@ -1794,12 +1850,13 @@ FLASH_D64_CASES = ((TRAIN_B, TRAIN_T, 0), (3, 333, 0), (2, 200, 64))
 FLASH_LONG = (TRAIN_B, 1024)   # the paper's sequence length, timed
 
 
-def flash_inputs(torch, gen, cfg, B, S, dev, D=None):
+def flash_inputs(torch, gen, cfg, B, S, dev, D=None, Skv=None):
     H, Hkv = cfg.n_heads, cfg.n_kv_heads
     D = D or cfg.resolved_head_dim
+    Skv = Skv or S
     return tuple(torch.randn(shape, generator=gen, device=dev).to(
-        torch.bfloat16) for shape in ((B, S, H, D), (B, S, Hkv, D),
-                                      (B, S, Hkv, D)))
+        torch.bfloat16) for shape in ((B, S, H, D), (B, Skv, Hkv, D),
+                                      (B, Skv, Hkv, D)))
 
 
 def check_flash(torch, P, cfg, dev, report):
@@ -1857,41 +1914,49 @@ def check_flash(torch, P, cfg, dev, report):
     return worst
 
 
-def flash_oracle(torch, q, k, v, window):
-    """Causal softmax attention in f64 with unrounded probabilities."""
+def flash_oracle(torch, q, k, v, window, causal=True):
+    """Softmax attention in f64 with unrounded probabilities, causal (and
+    windowed) or, not ``causal``, each query over every key."""
     B, S, H, D = q.shape
     g = H // k.shape[2]
     kr = k.double().repeat_interleave(g, dim=2)
     vr = v.double().repeat_interleave(g, dim=2)
     s_ = torch.einsum("bqhd,bkhd->bhqk", q.double(), kr) * D ** -0.5
     i = torch.arange(S, device=q.device)
-    mask = i[:, None] >= i[None, :]
+    j = torch.arange(k.shape[1], device=q.device)
+    mask = (i[:, None] >= j[None, :] if causal
+            else torch.ones((S, k.shape[1]), dtype=torch.bool,
+                            device=q.device))
     if window:
         mask &= i[:, None] - i[None, :] < window
     s_ = s_.masked_fill(~mask, float("-inf"))
     return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s_, -1), vr).float()
 
 
-def time_flash_launch(torch, P, cfg, dev, gen, B, S, plain_calls):
-    """One flash launch at (B, S), causal, on rotated inputs: device ms,
-    the plain version (``plain_calls`` calls on two sets), SDPA with
+def time_flash_launch(torch, P, cfg, dev, gen, B, S, plain_calls,
+                      Skv=None, causal=True):
+    """One flash launch at (B, S), causal (or, not ``causal``, S queries
+    over ``Skv`` keys, every pair), on rotated inputs: device ms, the
+    plain version (``plain_calls`` calls on two sets), SDPA with
     ``enable_gqa`` and the bound: the bytes (q, k, v read once, out
-    written once) or the causal QK^T and P.V at the bf16 tensor-core
-    rate, the larger."""
+    written once) or the QK^T and P.V of the unmasked pairs at the bf16
+    tensor-core rate, the larger."""
     import torch.nn.functional as F
     fa, ref = P["fa_ops"].flash_attn_fwd, P["flash_attn_ref"]
     H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    base = flash_inputs(torch, gen, cfg, B, S, dev)
-    sets = [base] + [flash_inputs(torch, gen, cfg, B, S, dev)
+    Skv = Skv or S
+    base = flash_inputs(torch, gen, cfg, B, S, dev, Skv=Skv)
+    sets = [base] + [flash_inputs(torch, gen, cfg, B, S, dev, Skv=Skv)
                      for _ in range(copies_for(tensor_bytes(*base)) - 1)]
-    t_k = time_ms(torch, fa, sets)
-    t_p = time_ms(torch, ref, sets[:2], min_calls=plain_calls)
+    t_k = time_ms(torch, lambda q, k, v: fa(q, k, v, causal=causal), sets)
+    t_p = time_ms(torch, lambda q, k, v: ref(q, k, v, causal=causal),
+                  sets[:2], min_calls=plain_calls)
     lib = [tuple(t.transpose(1, 2) for t in s) for s in sets]
     t_l = time_ms(torch, lambda q, k, v: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, enable_gqa=True), lib)
-    pairs = S * (S + 1) // 2                    # causal (query, key) pairs
+        q, k, v, is_causal=causal, enable_gqa=True), lib)
+    pairs = S * (S + 1) // 2 if causal else S * Skv   # (query, key) pairs
     flops = 4 * B * H * D * pairs               # QK^T and P.V
-    nbytes = 2 * (2 * B * S * H * D + 2 * B * S * Hkv * D)   # q, o, k, v
+    nbytes = 2 * (2 * B * S * H * D + 2 * B * Skv * Hkv * D)  # q, o, k, v
     t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / BF16_PEAK_FLOPS
     del sets, lib
     torch.cuda.empty_cache()
@@ -1899,7 +1964,8 @@ def time_flash_launch(torch, P, cfg, dev, gen, B, S, plain_calls):
             "bound_ms": max(t_b, t_o) * 1e3, "byte_bound_ms": t_b * 1e3,
             "operation_bound_ms": t_o * 1e3,
             "bound_by": "bytes" if t_b >= t_o else "operations",
-            "flops": flops, "bytes": nbytes, "B": B, "S": S}
+            "flops": flops, "bytes": nbytes, "B": B, "S": S, "Skv": Skv,
+            "causal": causal}
 
 
 def time_flash(torch, P, cfg, dev, report):
@@ -2045,13 +2111,17 @@ def train_full(torch, P, cfg, dev, report):
 
 
 def profile_train_step(torch, P, cfg, tcfg, teacher, student, opt, steps,
-                       dev, report, key="train_profile"):
+                       dev, report, key="train_profile", batch=None):
+    """One train step under ``torch.profiler``: the device's busy ms
+    beside the step's wall ms; returns the idle share. ``batch``: the
+    step's batch (a synthetic B 8, T 128 one when not given)."""
     from torch.profiler import ProfilerActivity, profile
     step_fn = P["steps"].make_train_step(cfg, tcfg)
-    it = P["MixtureIterator"](P["SyntheticConfig"](
-        vocab_size=cfg.vocab_size, seq_len=TRAIN_T, batch_size=TRAIN_B),
-        start_step=1 + TRAIN_STEPS)
-    batch = P["to_device"](next(it), dev)
+    if batch is None:
+        it = P["MixtureIterator"](P["SyntheticConfig"](
+            vocab_size=cfg.vocab_size, seq_len=TRAIN_T,
+            batch_size=TRAIN_B), start_step=1 + TRAIN_STEPS)
+        batch = P["to_device"](next(it), dev)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -2093,9 +2163,10 @@ def _grad_gaps(torch, ga, gb):
 
 
 def grads_vs_plain(torch, P, cfg, tcfg, teacher, student, dev, report,
-                   key="train_vs_plain", phase="phase 5"):
-    """One loss and backward on one batch and the same parameters, through
-    the kernels and through their plain versions (launches not counted).
+                   key="train_vs_plain", phase="phase 5", batch=None):
+    """One loss and backward on one batch (``batch``, or a synthetic B 8,
+    T 128 one) and the same parameters, through the kernels and through
+    their plain versions (launches not counted).
 
     Twice: the whole step (teacher forward through ``flash_attn_fwd`` or
     ``slstm_scan``, or their plain versions), and the student alone
@@ -2108,10 +2179,12 @@ def grads_vs_plain(torch, P, cfg, tcfg, teacher, student, dev, report,
     forward is bitwise and the backward differs only in the order of the
     LSQ step-size sums: ``GRAD_REL_TOL``."""
     qat, models = P["qat"], P["models"]
-    it = P["MixtureIterator"](P["SyntheticConfig"](
-        vocab_size=cfg.vocab_size, seq_len=TRAIN_T, batch_size=TRAIN_B),
-        start_step=1)
-    batch = P["to_device"](next(it), dev)
+    text = P["steps"]._text_logits
+    if batch is None:
+        it = P["MixtureIterator"](P["SyntheticConfig"](
+            vocab_size=cfg.vocab_size, seq_len=TRAIN_T, batch_size=TRAIN_B),
+            start_step=1)
+        batch = P["to_device"](next(it), dev)
     counts = [fn.launches for fn in train_counters(P)]
     lk, gk = P["steps"].make_train_step(cfg, tcfg).loss_and_grads(
         student, teacher, batch)
@@ -2121,10 +2194,10 @@ def grads_vs_plain(torch, P, cfg, tcfg, teacher, student, dev, report,
     step_gap = _grad_gaps(torch, gk, gp)
     del gk, gp
     with torch.no_grad():
-        t_k = models.forward(cfg, teacher, qat.make_ctx(
-            "A16-C16-W16", mode="off"), batch)[0]
-        t_p = models.forward(cfg, teacher, qat.make_ctx(
-            "A16-C16-W16", mode="off", kernel_backend="ref"), batch)[0]
+        t_k = text(cfg, models.forward(cfg, teacher, qat.make_ctx(
+            "A16-C16-W16", mode="off"), batch)[0])
+        t_p = text(cfg, models.forward(cfg, teacher, qat.make_ctx(
+            "A16-C16-W16", mode="off", kernel_backend="ref"), batch)[0])
         t_rel = float(torch.linalg.vector_norm((t_k - t_p).float())
                       / torch.linalg.vector_norm(t_p.float()))
         t_flips = float((t_k != t_p).float().mean())
@@ -2132,8 +2205,9 @@ def grads_vs_plain(torch, P, cfg, tcfg, teacher, student, dev, report,
     student_only = {}
     for backend in ("auto", "ref"):
         ctx = qat.make_ctx(tcfg.precision, kernel_backend=backend)
-        logits, aux = models.forward(cfg, student, ctx, batch)
-        loss = P["silq_loss"](logits, t_k, batch["labels"],
+        logits, aux = models.forward(cfg, student, ctx, batch,
+                                     remat=tcfg.remat != "none")
+        loss = P["silq_loss"](text(cfg, logits), t_k, batch["labels"],
                               mask=batch["loss_mask"])
         if cfg.is_moe:
             loss = loss + P["steps"].MOE_AUX_COEF * aux["moe_aux"]
@@ -3373,8 +3447,8 @@ def prefill_rows(torch, P, cfg, dev, params, report):
                 "cache_values_differing": differ,
                 "wave_ms": (time.perf_counter() - t0) * 1e3 / reps}
 
-    def batched(q, k, v, lengths, window=0):   # the wave's in one call
-        return blocks.blockwise_attention(q, k, v, causal=True,
+    def batched(q, k, v, lengths, window=0, causal=True):   # in one call
+        return blocks.blockwise_attention(q, k, v, causal=causal,
                                           window=window)
 
     out = {"lens": list(PREFILL_ROW_LENS)}
@@ -4003,22 +4077,24 @@ def check_decode_case(torch, P, gen, cfg, dev, lengths, S, c16, what):
             "kvq_spec_verify_attn": v_err, "gather_dequant_paged_kv": 0.0}
 
 
-def check_flash_case(torch, P, gen, cfg, dev, B, S, window):
+def check_flash_case(torch, P, gen, cfg, dev, B, S, window, Skv=None,
+                     causal=True):
     """flash_attn_fwd against its plain version and the f64 oracle, held
-    as ``check_flash`` holds it."""
+    as ``check_flash`` holds it; not ``causal``: S queries over ``Skv``
+    keys."""
     fa, ref = P["fa_ops"].flash_attn_fwd, P["flash_attn_ref"]
     rtol, atol = FLASH_TOL
-    q, k, v = flash_inputs(torch, gen, cfg, B, S, dev)
-    got = fa(q, k, v, causal=True, window=window).float()
-    want = ref(q, k, v, causal=True, window=window).float()
-    oracle = flash_oracle(torch, q, k, v, window)
+    q, k, v = flash_inputs(torch, gen, cfg, B, S, dev, Skv=Skv)
+    got = fa(q, k, v, causal=causal, window=window).float()
+    want = ref(q, k, v, causal=causal, window=window).float()
+    oracle = flash_oracle(torch, q, k, v, window, causal)
     err = (got - want).abs()
     beyond = float((err > KVQ_TOL[1] + KVQ_TOL[0] * want.abs()).float()
                    .mean())
     e_k = float((got - oracle).abs().max())
     e_p = float((want - oracle).abs().max())
-    case = {"B": B, "S": S, "window": window,
-            "D": cfg.resolved_head_dim, "H": cfg.n_heads,
+    case = {"B": B, "S": S, "Skv": Skv or S, "causal": causal,
+            "window": window, "D": cfg.resolved_head_dim, "H": cfg.n_heads,
             "Hkv": cfg.n_kv_heads, "max_abs_err": float(err.max()),
             "share_beyond_one_ulp": beyond, "kernel_vs_oracle": e_k,
             "plain_vs_oracle": e_p}
@@ -4652,17 +4728,18 @@ def check_mx_w4a8(torch, P, mcfg, dev):
                    for name, K, N, _ in mx_linear_shapes(mcfg)], dev, 42)
 
 
-def check_w4a8_linears(torch, P, shapes, dev, seed):
+def check_w4a8_linears(torch, P, shapes, dev, seed, ms=None):
     """w4a8_matmul bitwise equal to its plain version on each (name, K,
-    N, bias) of ``shapes`` at M 1, 4, 23, 24 and 512, by the launcher's
-    route and each route forced. Returns the cases compared."""
+    N, bias) of ``shapes`` at M 1, 4, 23, 24 and 512 (or ``ms``), by the
+    launcher's route and each route forced. Returns the cases
+    compared."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     ops, ref = P["w4a8_ops"], P["w4a8_matmul_ref"]
     n = 0
     for name, K, N, bias in shapes:
         w_p, s_w, b = w4a8_weights(torch, gen, K, N, bias, dev)
-        for M in MX_W4A8_MS:
+        for M in ms or MX_W4A8_MS:
             x_q, s_x = w4a8_activations(torch, gen, M, K, dev)
             want = ref(x_q, w_p, s_x, s_w, b)
             got = [ops.w4a8_matmul(x_q, w_p, s_x, s_w, b)] + [
@@ -5789,26 +5866,18 @@ def dense_requests(P, cfg, uid0=0):
         for i, n in enumerate(DENSE_SERVE_LENS)]
 
 
-def decode_logits_vs_plain(torch, P, cfg, eng, dev):
-    """One decode step after a padded prefill wave of the first SLOTS
-    prompts of ``dense_requests``, through the kernels and through the
-    plain versions from the same cache: (relative L2, argmax
-    agreement)."""
+def one_step_vs_plain(torch, P, cfg, params, ctx, batch, cache_len):
+    """One decode step after a prefill of ``batch``, through the kernels
+    and through the plain versions from the same cache: (relative L2,
+    argmax agreement)."""
     models = P["models"]
-    prompts = [r.prompt for r in dense_requests(P, cfg)[:SLOTS]]
-    L = int(math.ceil(max(len(p) for p in prompts) / 16) * 16)
-    toks = torch.zeros((SLOTS, L), dtype=torch.int32, device=dev)
-    for i, p in enumerate(prompts):
-        toks[i, :len(p)] = torch.from_numpy(p).to(dev)
-    batch = {"tokens": toks, "lengths": torch.tensor(
-        [len(p) for p in prompts], dtype=torch.int32, device=dev)}
-    logits0, cache = models.prefill(cfg, eng.params, eng.ctx, batch,
-                                    cache_budget=PAGED_TOKENS)
-    tok1 = torch.argmax(logits0[:, -1].float(), -1).to(torch.int32)[:, None]
-    lk, _ = models.decode_step(cfg, eng.params, eng.ctx, tok1,
+    logits, cache = models.prefill(cfg, params, ctx, batch,
+                                   cache_budget=cache_len)
+    tok = torch.argmax(logits[:, -1].float(), -1).to(torch.int32)[:, None]
+    lk, _ = models.decode_step(cfg, params, ctx, tok,
                                models.clone_cache(cache))
-    lp, _ = models.decode_step(cfg, eng.params,
-                               replace(eng.ctx, kernel_backend="ref"), tok1,
+    lp, _ = models.decode_step(cfg, params,
+                               replace(ctx, kernel_backend="ref"), tok,
                                models.clone_cache(cache))
     check(bool(torch.isfinite(lk.float()).all()),
           f"{cfg.name}: decode logits not finite")
@@ -5816,9 +5885,25 @@ def decode_logits_vs_plain(torch, P, cfg, eng, dev):
     check(rel <= LOGIT_REL_TOL,
           f"{cfg.name}: decode logits, kernels vs plain, relative L2 {rel} "
           f"> {LOGIT_REL_TOL}")
-    del cache
-    torch.cuda.empty_cache()
     return rel, agree
+
+
+def decode_logits_vs_plain(torch, P, cfg, eng, dev):
+    """One decode step after a padded prefill wave of the first SLOTS
+    prompts of ``dense_requests``, through the kernels and through the
+    plain versions from the same cache: (relative L2, argmax
+    agreement)."""
+    prompts = [r.prompt for r in dense_requests(P, cfg)[:SLOTS]]
+    L = int(math.ceil(max(len(p) for p in prompts) / 16) * 16)
+    toks = torch.zeros((SLOTS, L), dtype=torch.int32, device=dev)
+    for i, p in enumerate(prompts):
+        toks[i, :len(p)] = torch.from_numpy(p).to(dev)
+    batch = {"tokens": toks, "lengths": torch.tensor(
+        [len(p) for p in prompts], dtype=torch.int32, device=dev)}
+    out = one_step_vs_plain(torch, P, cfg, eng.params, eng.ctx, batch,
+                            PAGED_TOKENS)
+    torch.cuda.empty_cache()
+    return out
 
 
 def serve_cut(torch, P, dev, report, arch, n_layers, key, phase,
@@ -5973,6 +6058,589 @@ def time_new(torch, P, dev, report):
 
 
 # --------------------------------------------------------------------------
+# whisper-large-v3 (the encoder-decoder) and qwen2-vl-2b (the M-RoPE VLM)
+# --------------------------------------------------------------------------
+
+WH, VL = "whisper-large-v3", "qwen2-vl-2b"
+# both at full width and depth: whisper's 32 encoder and 32 decoder layers
+# (1.58 B parameters, 3.2 GB in bf16) and qwen2-vl's 28 (1.54 B)
+WH_PROMPTS = (4, 96)           # decoder prompts of the two waves of 4
+WH_CACHE_LEN = 160
+WH_XLENS = (1500, 0, 1, 777)   # cross-cache rows: full, empty, ragged
+WH_TRAIN_B = 4                 # x T 128 decoder tokens over 1500 frames
+VL_GRID, VL_TEXT = 16, 64      # 256 patches on a 16 x 16 grid, 64 tokens
+VL_CACHE_LEN = 384
+VL_TRAIN_S = 384               # 256 patches + T 128 text tokens, B 8
+# flash without causality: (B, Sq, Skv); the encoder, the cross-attention
+# of a QAT step, and query / key counts ragged against the 128-query and
+# 32-key tiles
+WV_FLASH_X = ((4, 1500, 1500), (4, 128, 1500)) + tuple(
+    (2, sq, skv) for sq in (1, 128, 1500) for skv in (1, 65, 1500)
+    if (sq, skv) != (1500, 1500))
+
+
+def wv_cfgs(P):
+    return P["get_config"](WH), P["get_config"](VL)
+
+
+def wv_linear_shapes(P):
+    """(name, K, N, bias) of every distinct packed linear of the two
+    archs: whisper's attention (self and cross) at d 1280, its GELU MLP
+    with biases, its tied head at N 51866 (N % 64 = 26: a partial last
+    column tile); qwen2-vl's q, k, v with biases (k and v at N 256), o,
+    its SwiGLU MLP and its tied head at N 151936."""
+    wh, vl = wv_cfgs(P)
+    d, f = wh.d_model, wh.d_ff
+    out = [("whisper q/k/v/o", d, d, False), ("whisper w1", d, f, True),
+           ("whisper w2", f, d, True),
+           ("whisper head", d, wh.vocab_size, False)]
+    d, f = vl.d_model, vl.d_ff
+    return out + [("qwen2-vl q", d, d, True), ("qwen2-vl k/v", d, vl.kv_dim,
+                                                True),
+                  ("qwen2-vl o", d, d, False), ("qwen2-vl gate/up", d, f,
+                                                False),
+                  ("qwen2-vl down", f, d, False),
+                  ("qwen2-vl head", d, vl.vocab_size, False)]
+
+
+def wv_fq_cases(P):
+    """(site, R, C, mode, offset) of the two archs' weights: per output
+    channel (mode 1), the tied heads per vocab row (mode 2)."""
+    wh, vl = wv_cfgs(P)
+    out = []
+    for c in (wh, vl):
+        d, f = c.d_model, c.d_ff
+        out += [(f"{c.name} {n}", R, C, 1, 0) for n, R, C in (
+            ("wq", d, c.q_dim), ("wk", d, c.kv_dim), ("up", d, f),
+            ("down", f, d))]
+        out.append((f"{c.name} head", c.vocab_size, d, 2, 0))
+    return out
+
+
+def check_wv_kernels(torch, P, dev, report):
+    """Phase 2 at the two archs' shapes: w4a8_matmul bitwise on every
+    new packed linear at M 1, 4, 23, 24 and 512 by each route, and the
+    encoder's linears at M 6000 (4 x 1500 frames); the split-KV checks
+    (``check_decode_case``: dense decode within one ulp, bitwise paged
+    decode, each row alone, verify, gather) at D 64, G 1 (whisper) over
+    4 full 1500-row cross caches, ragged rows with an empty one and
+    around the split boundaries, and at D 128, G 6 (qwen2-vl); flash
+    without causality at the encoder's (4, 1500) and the cross shape
+    (Sq 128, Skv 1500) and ragged Sq / Skv, and causal at G 6 (8, 384),
+    against plain and the f64 oracle; fake-quant fwd and dx bitwise on
+    the new weights. Returns the worst error per kernel."""
+    wh, vl = wv_cfgs(P)
+    shapes = wv_linear_shapes(P)
+    n_w4 = check_w4a8_linears(torch, P, shapes, dev, 61)
+    n_w4 += check_w4a8_linears(torch, P, shapes[:3], dev, 62,
+                               ms=(4 * wh.encoder_seq,))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(63)
+    split = split_lengths(P)
+    cases, worst = [], {}
+    for c, lengths, S, what in (
+            (wh, (wh.encoder_seq,) * SLOTS, wh.encoder_seq,
+             "whisper cross cache D64 G1"),
+            (wh, WH_XLENS, wh.encoder_seq, "whisper D64 G1 ragged"),
+            (wh, split, max(split), "whisper D64 G1 split boundaries"),
+            (vl, KVQ_LENGTHS, CACHE_LEN, "qwen2-vl D128 G6"),
+            (vl, split, max(split), "qwen2-vl D128 G6 split boundaries")):
+        errs = check_decode_case(torch, P, gen, c, dev, lengths, S, False,
+                                 what)
+        cases.append({"case": what, "lengths": list(lengths), "S": S,
+                      **errs})
+        for k, e in errs.items():
+            worst[k] = max(worst.get(k, 0.0), e)
+        torch.cuda.empty_cache()
+    flash = [check_flash_case(torch, P, gen, wh, dev, B, Sq, 0, Skv=Skv,
+                              causal=False) for B, Sq, Skv in WV_FLASH_X]
+    flash.append(check_flash_case(torch, P, gen, vl, dev, TRAIN_B,
+                                  VL_TRAIN_S, 0))
+    worst["flash_attn_fwd"] = max(c["max_abs_err"] for c in flash)
+    torch.cuda.empty_cache()
+    n_fq, fq_ds = fq_case_checks(torch, P, gen, wv_fq_cases(P), dev)
+    out = {"w4a8_cases": n_w4, "decode": cases, "flash": flash,
+           "fake_quant_cases": n_fq, "fake_quant_ds_rel_mass_err": fq_ds}
+    report["wv_kernel_cases"] = out
+    print(f"phase 2: whisper and qwen2-vl shapes: w4a8_matmul bitwise on "
+          f"{n_w4} cases (N 51866, M 6000 included); at D 64 G 1 and D 128 "
+          f"G 6 kvq_decode_attn within one ulp and bitwise paged decode, "
+          f"verify queries bitwise paged decode, the gather bitwise: "
+          f"{cases}; flash non-causal and at G 6: {flash}; fake-quant fwd "
+          f"and dx bitwise on {n_fq} cases (ds within {fq_ds:.3g} of its "
+          f"mass)", flush=True)
+    return worst
+
+
+def served_tree(torch, P, cfg, dev):
+    """Random weights from seed 0, scales LSQ-initialised, the w4a8
+    exports attached and the bf16 linears dropped."""
+    qat, pol = P["qat"], P["parse_policy"]("A8d-C8-W4")
+    params = P["models"].init_params(cfg, seed=0, device=dev)
+    params = qat.calibrate_weight_scales(params, pol, method="lsq")
+    params = qat.drop_exported_weights(qat.attach_w4a8_exports(params, pol))
+    torch.cuda.synchronize()
+    return params
+
+
+def generate(torch, P, cfg, params, ctx, batch, cache_len, counted):
+    """Greedy: prefill ``batch`` (cache_len rows a slot), then MAX_NEW - 1
+    decode steps. Each phase's launches counted from 0. Returns (tokens
+    (B, MAX_NEW), {"ttft_s", "decode_s", "steps", "prefill_launches",
+    "decode_launches"})."""
+    models = P["models"]
+    for fn in counted.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = models.prefill(cfg, params, ctx, batch,
+                                   cache_budget=cache_len)
+    tok = torch.argmax(logits[:, -1].float(), -1).to(torch.int32)[:, None]
+    out = [tok]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    pre = {n: fn.launches for n, fn in counted.items()}
+    for fn in counted.values():
+        fn.launches = 0
+    for _ in range(MAX_NEW - 1):
+        logits, cache = models.decode_step(cfg, params, ctx, tok, cache)
+        tok = torch.argmax(logits[:, -1].float(), -1).to(torch.int32)[:, None]
+        out.append(tok)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    toks = torch.cat(out, dim=1)
+    del cache
+    return toks, {"ttft_s": t1 - t0, "decode_s": t2 - t1,
+                  "steps": MAX_NEW - 1, "prefill_launches": pre,
+                  "decode_launches": {n: fn.launches
+                                      for n, fn in counted.items()}}
+
+
+def check_launches(got, want, what):
+    """Every counted kernel launched ``want[name]`` times (0 if absent)."""
+    bad = {n: v for n, v in got.items() if v != want.get(n, 0)}
+    check(not bad, f"{what}: launches {got}, want {want} (the others 0)")
+
+
+def decode_busy_ms(torch, P, cfg, params, ctx, batch, cache_len):
+    """Device busy ms of two decode steps after a prefill of ``batch``
+    (``torch.profiler``'s CUDA kernel records) and their wall ms."""
+    from torch.profiler import ProfilerActivity, profile
+    models = P["models"]
+    logits, cache = models.prefill(cfg, params, ctx, batch,
+                                   cache_budget=cache_len)
+    tok = torch.argmax(logits[:, -1].float(), -1).to(torch.int32)[:, None]
+    models.decode_step(cfg, params, ctx, tok, cache)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(2):
+            models.decode_step(cfg, params, ctx, tok, cache)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / 2
+    busy = sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 2e3
+    del cache
+    if not busy:
+        return {"device_busy_ms_per_step": "not measured: no device records"}
+    return {"device_busy_ms_per_step": busy, "profiled_step_ms": wall,
+            "device_idle_share": max(0.0, 1.0 - busy / wall)}
+
+
+def wh_batch(torch, cfg, B, S, seed, dev):
+    """Decoder tokens and each request's own 1500 bf16 frames."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return {"tokens": torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                                    device=dev, dtype=torch.int32),
+            "frames": torch.randn((B, cfg.encoder_seq, cfg.d_model),
+                                  generator=gen, device=dev).to(
+                                      torch.bfloat16)}
+
+
+def serve_wh(torch, P, dev, report):
+    """Phase 3m: whisper-large-v3 at full width and depth, A8d-C8-W4,
+    w4a8 weights, through ``prefill`` and ``decode_step`` (no engine path
+    supplies frames): two exact-length waves of 4 requests (decoder
+    prompts of 4 and 96 tokens, each request its own 1500 frames), 32
+    new tokens each, cache_len 160. A prefill launches 32 flash_attn_fwd
+    (the encoder) and 513 w4a8_matmul (the encoder's 32 x 6 linears, the
+    decoder's 32 x 10 and the head), a decode step 64 kvq_decode_attn
+    (32 self, 32 over the frozen cross caches) and 257 w4a8_matmul (32 x
+    8 and the head), nothing else. One decode step's logits kernels vs
+    plain; a prompt prefilled alone and in its wave: self and cross
+    caches and first logits bitwise; the logits move when only the
+    frames change. Decode tok/s, ms a step, busy ms and idle share, TTFT
+    (the encoder included), peak memory."""
+    models, qat = P["models"], P["qat"]
+    cfg = P["get_config"](WH)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = served_tree(torch, P, cfg, dev)
+    setup_s = time.perf_counter() - t0
+    ctx = qat.make_ctx("A8d-C8-W4", weights_layout="w4a8")
+    counted = {**counted_kernels(P),
+               "fake_quant_fwd": P["fq_ops"].fake_quant_fwd,
+               "flash_attn_fwd": P["fa_ops"].flash_attn_fwd}
+    Le, L = cfg.encoder_layers, cfg.n_layers
+    want_pre = {"flash_attn_fwd": Le, "w4a8_matmul": 6 * Le + 10 * L + 1}
+    waves = [wh_batch(torch, cfg, SLOTS, n, 70 + i, dev)
+             for i, n in enumerate(WH_PROMPTS)]
+    out = {"arch": WH, "encoder_layers": Le, "layers": L,
+           "params_total": cfg.param_counts()["total"], "setup_s": setup_s,
+           "waves": []}
+    for batch, n in zip(waves, WH_PROMPTS):
+        toks, st = generate(torch, P, cfg, params, ctx, batch, WH_CACHE_LEN,
+                            counted)
+        check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+              f"{WH}: a token outside the vocabulary")
+        check_launches(st["prefill_launches"], want_pre, f"{WH} prefill")
+        steps = st["steps"]
+        check_launches(st["decode_launches"],
+                       {"kvq_decode_attn": 2 * L * steps,
+                        "w4a8_matmul": (8 * L + 1) * steps},
+                       f"{WH} {steps} decode steps")
+        out["waves"].append({
+            "prompt_len": n, "requests": SLOTS, "new_tokens": MAX_NEW,
+            "ttft_s": st["ttft_s"],
+            "decode_step_ms": 1e3 * st["decode_s"] / steps,
+            "decode_tokens_per_s": SLOTS * steps / st["decode_s"],
+            "prefill_launches": st["prefill_launches"],
+            "decode_launches_per_step": {
+                k: v / steps for k, v in st["decode_launches"].items()}})
+    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated(dev)
+    for fn in counted.values():
+        fn.launches = 0
+    rel, agree = one_step_vs_plain(torch, P, cfg, params, ctx, waves[1],
+                                   WH_CACHE_LEN)
+    out.update(decode_logits_rel_l2=rel, decode_logits_argmax=agree)
+    out.update(decode_busy_ms(torch, P, cfg, params, ctx, waves[1],
+                              WH_CACHE_LEN))
+
+    # a prompt alone and in its wave of 4: caches and first logits bitwise
+    def pre(batch):
+        logits, cache = models.prefill(cfg, params, ctx, batch,
+                                       cache_budget=WH_CACHE_LEN)
+        return logits[0], cache["layers"]
+
+    la, ca = pre({k: v[:1] for k, v in waves[1].items()})
+    lw, cw = pre(waves[1])
+    differ = 0
+    for a, b in zip(ca, cw):
+        for part_a, part_b in ((a, b), (a["cross"], b["cross"])):
+            differ += sum(int((part_a[k][0] != part_b[k][0]).sum())
+                          for k in ("k_q", "v_q", "s_k", "s_v"))
+    out["alone_vs_wave"] = {"logits_bitwise": bool(torch.equal(la, lw)),
+                            "cache_values_differing": differ}
+    check(torch.equal(la, lw) and differ == 0,
+          f"{WH}: a prompt's caches or first logits differ alone and in a "
+          f"wave of 4: {out['alone_vs_wave']}")
+    del ca, cw
+    other = dict(waves[1], frames=waves[0]["frames"])
+    lo, _ = pre(other)
+    moved = float((lo.float() - lw.float()).abs().max())
+    out["frames_move_logits_max_abs"] = moved
+    check(moved > 1e-3, f"{WH}: the logits do not move with the frames "
+                        f"({moved})")
+    torch.cuda.empty_cache()
+    report["serve_wh"] = out
+    print("phase 3m: " + json.dumps(out), flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def vl_positions(torch, B, grid, n_text, dev):
+    """Qwen2-VL's position streams: the patches at t 0 and (h, w) their
+    place on a ``grid`` x ``grid`` raster, the text from max + 1 on all
+    three streams. (3, B, grid**2 + n_text)."""
+    i = torch.arange(grid * grid, device=dev)
+    text = grid + torch.arange(n_text, device=dev)
+    pos = torch.stack([torch.cat([torch.zeros_like(i), text]),
+                       torch.cat([i // grid, text]),
+                       torch.cat([i % grid, text])])
+    return pos[:, None].expand(3, B, pos.shape[1]).contiguous()
+
+
+def vl_batch(torch, cfg, B, S, seed, dev):
+    """Text tokens after ``vision_tokens`` bf16 patch embeddings, and
+    Qwen2-VL's positions."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    grid = math.isqrt(cfg.vision_tokens)
+    return {"tokens": torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                                    device=dev, dtype=torch.int32),
+            "patches": torch.randn((B, cfg.vision_tokens, cfg.d_model),
+                                   generator=gen, device=dev).to(
+                                       torch.bfloat16),
+            "positions": vl_positions(torch, B, grid, S, dev)}
+
+
+def serve_vl(torch, P, dev, report):
+    """Phase 3n: qwen2-vl-2b at full width and depth, A8d-C8-W4, w4a8
+    weights. (a) ``prefill`` and ``decode_step`` on 4 requests of 256
+    patch embeddings + 64 text tokens at Qwen2-VL's positions, 32 new
+    tokens: 197 w4a8_matmul a prefill, 28 kvq_decode_attn and 197
+    w4a8_matmul a decode step, nothing else; one step's logits kernels
+    vs plain; TTFT, tok/s, idle, peak. (b) the engine, text-only, on the
+    pool with a 160-token shared prefix: prefix hits and COW, 28 paged
+    decode launches a step; then (``serve_cut``) dense and paged from
+    cold prefills, streams equal."""
+    qat = P["qat"]
+    cfg = P["get_config"](VL)
+    L = cfg.n_layers
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = served_tree(torch, P, cfg, dev)
+    setup_s = time.perf_counter() - t0
+    ctx = qat.make_ctx("A8d-C8-W4", weights_layout="w4a8")
+    counted = {**counted_kernels(P),
+               "fake_quant_fwd": P["fq_ops"].fake_quant_fwd,
+               "flash_attn_fwd": P["fa_ops"].flash_attn_fwd}
+    batch = vl_batch(torch, cfg, SLOTS, VL_TEXT, 80, dev)
+    toks, st = generate(torch, P, cfg, params, ctx, batch, VL_CACHE_LEN,
+                        counted)
+    check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+          f"{VL}: a token outside the vocabulary")
+    steps = st["steps"]
+    check_launches(st["prefill_launches"], {"w4a8_matmul": 7 * L + 1},
+                   f"{VL} prefill")
+    check_launches(st["decode_launches"],
+                   {"kvq_decode_attn": L * steps,
+                    "w4a8_matmul": (7 * L + 1) * steps},
+                   f"{VL} {steps} decode steps")
+    out = {"arch": VL, "layers": L, "setup_s": setup_s,
+           "params_total": cfg.param_counts()["total"],
+           "requests": SLOTS, "patches": cfg.vision_tokens,
+           "text_tokens": VL_TEXT, "new_tokens": MAX_NEW,
+           "ttft_s": st["ttft_s"],
+           "decode_step_ms": 1e3 * st["decode_s"] / steps,
+           "decode_tokens_per_s": SLOTS * steps / st["decode_s"],
+           "prefill_launches": st["prefill_launches"],
+           "decode_launches_per_step": {
+               k: v / steps for k, v in st["decode_launches"].items()},
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(dev)}
+    rel, agree = one_step_vs_plain(torch, P, cfg, params, ctx, batch,
+                                   VL_CACHE_LEN)
+    out.update(decode_logits_rel_l2=rel, decode_logits_argmax=agree)
+    out.update(decode_busy_ms(torch, P, cfg, params, ctx, batch,
+                              VL_CACHE_LEN))
+    eng = paged_engine(P, cfg, params, dev)
+    reqs = shared_prefix_requests(P, cfg, 8, 300, 81)
+    stats, launches, wall = drive(torch, P, eng, reqs)
+    check_streams(cfg, reqs, f"{VL} paged shared-prefix serve")
+    check(stats["prefix_hit_tokens"] > 0 and stats["cow_copies"] > 0
+          and launches["kvq_paged_decode_attn"] == L * stats["decode_steps"]
+          and launches["kvq_decode_attn"] == 0
+          and launches["pool_block_copy"] == stats["cow_copies"]
+          and launches["gather_dequant_paged_kv"] > 0,
+          f"{VL} paged: stats {stats}, launches {launches}")
+    out["paged_shared_prefix"] = {
+        "requests": len(reqs), "tokens_out": stats["tokens_out"],
+        "wall_s": wall, "prefix_hit_tokens": stats["prefix_hit_tokens"],
+        "cow_copies": stats["cow_copies"], "tail_waves": stats["tail_waves"],
+        "decode_tokens_per_s": (stats["tokens_out"] - len(reqs))
+        / stats["decode_s"], "ttft_p50_s": stats["ttft_p50_s"],
+        "launches": launches}
+    del eng, params
+    torch.cuda.empty_cache()
+    report["serve_vl"] = out
+    print("phase 3n: " + json.dumps(out), flush=True)
+    out["engines"] = serve_cut(torch, P, dev, report, VL, 0, "serve_vl_engine",
+                               "phase 3n", paged=True)
+    return out
+
+
+def encdec_train_flops(cfg, B, T):
+    """``train_flops`` for an encoder-decoder: the decoder's T tokens
+    through self-attention, the cross-attention's q and o, the GELU MLP
+    (two matrices) and the head; the encoder's ``encoder_seq`` frames
+    through its layers and the cross-attention's k and v; attention over
+    every (query, key) pair of the encoder, the decoder and the cross
+    products."""
+    d, f, qd, kvd = cfg.d_model, cfg.d_ff, cfg.q_dim, cfg.kv_dim
+    L, Le, Te = cfg.n_layers, cfg.encoder_layers, cfg.encoder_seq
+    dec = L * (2 * d * qd + 2 * d * kvd + 2 * d * f + 2 * d * qd) \
+        + d * cfg.vocab_size
+    enc = Le * (2 * d * qd + 2 * d * kvd + 2 * d * f) + L * 2 * d * kvd
+    attn = 4 * B * qd * (L * T * T + L * T * Te + Le * Te * Te)
+    return 8 * (dec * B * T + enc * B * Te) + 4 * attn
+
+
+def train_direct(torch, P, dev, report, arch, B, T, key, phase):
+    """Phases 6f and 6g: ``make_train_step`` at full width and depth
+    (``run_qat``'s batches carry no frames or patches): random teacher
+    weights from seed 0, the student MSE-calibrated, A8d-C8-W4, 2 steps
+    at B x T (whisper: T decoder tokens over each row's 1500 frames,
+    every layer checkpointed, the encoder's included; qwen2-vl: T text
+    tokens after 256 patches, the loss on the text). Per step one
+    fake_quant_fwd and _bwd per weight site (whisper 32 x 6 + 32 x 10 +
+    1, qwen2-vl 28 x 7 + 1; whisper's checkpointed layers fake-quantize
+    their weights again in the backward: 2 x 512 + 1 forward launches)
+    and one flash_attn_fwd per teacher attention (whisper: encoder, self
+    and cross, 96; qwen2-vl 28);
+    every s_w moved, losses finite, no NaN; step split, tokens/s, peak,
+    idle share, model-FLOPs share; one loss and backward kernels vs
+    plain."""
+    qat, steps_mod = P["qat"], P["steps"]
+    cfg = P["get_config"](arch)
+    encdec = cfg.is_encdec
+    tcfg = P["TrainConfig"](precision="A8d-C8-W4", total_steps=MX_TRAIN_STEPS,
+                            ref_steps=MX_TRAIN_STEPS, batch_size=B,
+                            seq_len=T, remat="block" if encdec else "none")
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    teacher = P["models"].init_params(cfg, seed=0, device=dev)
+    student = P["train"]._trainable(qat.calibrate_weight_scales(
+        P["tree_map"](lambda t: t.detach().clone(), teacher),
+        P["parse_policy"](tcfg.precision), method="mse"))
+    opt = P["adamw_init"](student)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    it = P["MixtureIterator"](P["SyntheticConfig"](
+        vocab_size=cfg.vocab_size, seq_len=T, batch_size=B), start_step=1)
+
+    def batch_of(i):
+        b = P["to_device"](next(it), dev)
+        extra = (wh_batch if encdec else vl_batch)(torch, cfg, B, T, 90 + i,
+                                                   dev)
+        b.update({k: v for k, v in extra.items() if k != "tokens"})
+        return b
+
+    step_fn = steps_mod.make_train_step(cfg, tcfg, split_times=True)
+    w0 = {k: t.detach().clone() for k, t in _named_leaves(student)
+          if k.endswith("s_w")}
+    n_w = (6 * cfg.encoder_layers + 10 * cfg.n_layers + 1 if encdec
+           else 7 * cfg.n_layers + 1)
+    # a checkpointed layer's forward runs again in the backward, so its
+    # weights are fake-quantized twice a step (the head, outside, once)
+    n_fwd = n_w + (n_w - 1 if tcfg.remat != "none" else 0)
+    n_fa = (cfg.encoder_layers + 2 * cfg.n_layers if encdec
+            else cfg.n_layers)
+    names = ("fake_quant_fwd", "fake_quant_bwd", "flash_attn_fwd",
+             "slstm_scan")
+    steps = []
+    for i in range(MX_TRAIN_STEPS):
+        batch = batch_of(i)
+        for fn in train_counters(P):
+            fn.launches = 0
+        student, opt, metrics = step_fn(student, teacher, opt, batch, i)
+        launches = [fn.launches for fn in train_counters(P)]
+        steps.append({"step": i, "loss": float(metrics["loss"]),
+                      "ms": metrics["ms"], "launches": launches})
+        check(launches == [n_fwd, n_w, n_fa, 0],
+              f"{arch} QAT step {i}: launches {dict(zip(names, launches))}, "
+              f"want ({n_fwd}, {n_w}, {n_fa}, 0)")
+        check(math.isfinite(steps[-1]["loss"]),
+              f"{arch} QAT step {i}: loss {steps[-1]['loss']}")
+    peak = torch.cuda.max_memory_allocated(dev)
+    named = dict(_named_leaves(student))
+    unmoved = [k for k, t in w0.items() if torch.equal(named[k], t)]
+    check(len(w0) == n_w and not unmoved,
+          f"{arch}: {len(w0)} s_w (want {n_w}), unmoved {unmoved[:5]}")
+    check(all(bool(torch.isfinite(t).all()) for t in named.values()),
+          f"{arch}: a parameter is not finite after QAT")
+    idle = profile_train_step(torch, P, cfg, tcfg, teacher, student, opt,
+                              steps, dev, report, key=f"{key}_profile",
+                              batch=batch)
+    del opt
+    torch.cuda.empty_cache()
+    per = {k: sum(s["ms"][k] for s in steps[1:]) / (len(steps) - 1)
+           for k in ("teacher", "student", "optimizer")}
+    step_ms = sum(per.values())
+    S = T if encdec else T + cfg.vision_tokens
+    flops = (encdec_train_flops(cfg, B, T) if encdec
+             else train_flops(cfg, B, S))
+    out = {"arch": arch, "layers": cfg.n_layers,
+           "encoder_layers": cfg.encoder_layers, "batch": B, "seq": S,
+           "loss_tokens": B * T, "remat": tcfg.remat, "setup_s": setup_s,
+           "params_total": cfg.param_counts()["total"],
+           "losses": [s["loss"] for s in steps], "ms_per_step": step_ms,
+           "ms_split": per, "ms_first_step": sum(steps[0]["ms"].values()),
+           "tokens_per_s": B * S / (step_ms / 1e3),
+           "peak_memory_bytes": peak, "device_idle_share": idle,
+           "model_flops_per_step": flops,
+           "model_flops_share": flops / (step_ms / 1e3) / BF16_PEAK_FLOPS,
+           "launches_per_step": dict(zip(names, steps[-1]["launches"])),
+           "weight_sites": n_w}
+    report[key] = out
+    print(f"{phase}: " + json.dumps(out), flush=True)
+    grads_vs_plain(torch, P, cfg, tcfg, teacher, student, dev, report,
+                   key=f"{key}_vs_plain", phase=phase, batch=batch)
+    del teacher, student, batch
+    torch.cuda.empty_cache()
+    return dict(zip(names, [n_fwd * MX_TRAIN_STEPS, n_w * MX_TRAIN_STEPS,
+                            n_fa * MX_TRAIN_STEPS, 0]))
+
+
+def time_wv(torch, P, dev, report):
+    """Phase 4 at the two archs' shapes: flash without causality at the
+    encoder's (4, 1500, H 20, D 64) and at the cross shape (Sq 128, Skv
+    1500), beside SDPA; kvq_decode_attn over whisper's four full
+    1500-row cross caches beside SDPA; w4a8_matmul per decode step of
+    whisper (32 x 8 linears and the head at N 51866) and of qwen2-vl (28
+    x 7 and the head at N 151936) beside bf16 ``torch.matmul``; flash at
+    G 6 (8, 384) causal; at qwen2-vl's G 6 the paged decode launch, a
+    tail-wave's gathers (28 launches) and a COW over its 28-layer pool;
+    fake_quant_fwd and _bwd per student step of each arch (whisper's
+    513 weight sites, qwen2-vl's 197), beside the plain versions and
+    the library."""
+    wh, vl = wv_cfgs(P)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(65)
+    Te = wh.encoder_seq
+    enc = time_flash_launch(torch, P, wh, dev, gen, SLOTS, Te, 3,
+                            causal=False)
+    cross = time_flash_launch(torch, P, wh, dev, gen, SLOTS, TRAIN_T, 5,
+                              Skv=Te, causal=False)
+    xdec = time_dense_launch(torch, P, wh, dev, gen, (Te,) * SLOTS, Te,
+                             False)
+    d, f, L = wh.d_model, wh.d_ff, wh.n_layers
+    w4_wh = w4a8_step_times(torch, P, [
+        ("self q/k/v/o", d, d, 4 * L), ("cross q/o", d, d, 2 * L),
+        ("w1", d, f, L), ("w2", f, d, L), ("head", d, wh.vocab_size, 1)],
+        dev, gen)
+    w4_vl = w4a8_step_times(torch, P, linear_shapes(vl), dev, gen)
+    g6 = time_flash_launch(torch, P, vl, dev, gen, TRAIN_B, VL_TRAIN_S, 5)
+
+    def make():
+        return paged_inputs(torch, gen, vl, PAGED_BS[0], PAGED_LENGTHS, dev)
+
+    paged = time_paged_launch(torch, P, vl, "paged_decode", make(), make)
+    gather = time_gather(torch, P, vl, dev, {})
+    cow = time_copy(torch, P, vl, dev, {}, layers=vl.n_layers)
+    Le = wh.encoder_layers
+    fq_wh = time_fake_quant(torch, P, wh, dev, {}, shapes=[
+        ("q/k/v/o", d, d, 1, 4, 4 * Le + 8 * L), ("w1", d, f, 1, 4, Le + L),
+        ("w2", f, d, 1, 4, Le + L), ("head", wh.vocab_size, d, 2, 8, 1)])
+    fq_vl = time_fake_quant(torch, P, vl, dev, {})
+    out = {"flash_encoder_launch": enc, "flash_cross_launch": cross,
+           "flash_encoder_forward": per_step(enc, wh.encoder_layers),
+           "cross_decode_launch": xdec,
+           "cross_decode_step": per_step(xdec, L),
+           "w4a8_decode_step_whisper": w4_wh,
+           "w4a8_decode_step_qwen2_vl": w4_vl, "flash_launch_g6": g6,
+           "paged_decode_launch_g6": paged, "gather_tail_wave_vl": gather,
+           "copy_per_cow_vl": cow, "fake_quant_step_whisper": fq_wh,
+           "fake_quant_step_qwen2_vl": fq_vl}
+    report["wv_times"] = out
+    print(f"phase 4: whisper flash non-causal encoder launch "
+          f"{enc['ms'] * 1e3:.2f} us (SDPA {enc['library_ms'] * 1e3:.2f} us,"
+          f" bound {enc['bound_ms'] * 1e3:.2f} us), cross launch "
+          f"{cross['ms'] * 1e3:.2f} us (SDPA "
+          f"{cross['library_ms'] * 1e3:.2f} us); kvq_decode_attn over the "
+          f"cross caches {xdec['ms'] * 1e3:.2f} us (SDPA "
+          f"{xdec['library_ms'] * 1e3:.2f} us, bound "
+          f"{xdec['bound_ms'] * 1e3:.2f} us); w4a8 per whisper decode step "
+          f"{w4_wh}, per qwen2-vl decode step {w4_vl}; flash G 6 "
+          f"{g6['ms'] * 1e3:.2f} us (SDPA {g6['library_ms'] * 1e3:.2f} us); "
+          f"paged decode G 6 {paged['ms'] * 1e3:.2f} us; gather a tail-wave "
+          f"{gather}; COW {cow}; fake-quant a whisper step {fq_wh}, a "
+          f"qwen2-vl step {fq_vl}", flush=True)
+    return out
+
+
+# --------------------------------------------------------------------------
 
 def main() -> int:
     import torch
@@ -6029,6 +6697,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     new_err = check_new_kernels(torch, P, dev, report)
     torch.cuda.empty_cache()
+    wv_err = check_wv_kernels(torch, P, dev, report)
+    torch.cuda.empty_cache()
     slstm_err = check_slstm(torch, P, xcfg, dev, report)
     launches, eng = serve(torch, P, cfg, dev, report)
     profile_decode(torch, P, cfg, eng, report)
@@ -6080,6 +6750,13 @@ def main() -> int:
                                    Q14_TRAIN_LAYERS, "train_q14",
                                    "phase 6e")
     torch.cuda.empty_cache()
+    wh = serve_wh(torch, P, dev, report)
+    wh_train = train_direct(torch, P, dev, report, WH, WH_TRAIN_B, TRAIN_T,
+                            "train_wh", "phase 6f")
+    vl = serve_vl(torch, P, dev, report)
+    vl_train = train_direct(torch, P, dev, report, VL, TRAIN_B, TRAIN_T,
+                            "train_vl", "phase 6g")
+    torch.cuda.empty_cache()
     w4a8_t = time_w4a8(torch, P, cfg, dev, report)
     kvq_t = time_kvq(torch, P, cfg, dev, report)
     paged_t = time_paged_decode(torch, P, cfg, dev, report)
@@ -6092,6 +6769,7 @@ def main() -> int:
     rg_t = time_rg(torch, P, rcfg, dev, report)
     mx_t = time_mx(torch, P, dev, report)
     new_t = time_new(torch, P, dev, report)
+    wv_t = time_wv(torch, P, dev, report)
     for name, t in (("kvq_paged_decode_attn", paged_t),
                     ("gather_dequant_paged_kv", gather_t),
                     ("pool_block_copy", copy_t),
@@ -6105,6 +6783,18 @@ def main() -> int:
               f"library {t['library_ms']:.4f} ms", flush=True)
     report["total_s"] = time.perf_counter() - t_start
 
+    def wh_launches(name):
+        """A kernel's launches over phase 3m's two waves."""
+        return sum(w["prefill_launches"][name] + round(
+            w["decode_launches_per_step"][name] * (MAX_NEW - 1))
+            for w in wh["waves"])
+
+    def vl_launches(name):
+        """A kernel's launches in phase 3n (a): one prefill, 31 steps."""
+        return vl["prefill_launches"][name] + round(
+            vl["decode_launches_per_step"][name] * (MAX_NEW - 1))
+
+    vl_paged = vl["paged_shared_prefix"]["launches"]
     kernels = [
         {"name": "w4a8_matmul", "route": "cuda",
          "source": "src/repro_torch/csrc/w4a8_matmul.cu",
@@ -6125,6 +6815,14 @@ def main() -> int:
                               f"{Q32_SERVE_LAYERS} layers x 7 linears + "
                               f"the untied head",
                        **new_t["w4a8_decode_step_qwen3_32b"]},
+         "whisper_launches": wh_launches("w4a8_matmul"),
+         "qwen2_vl_launches": vl_launches("w4a8_matmul"),
+         "whisper": {"per": f"one whisper decode step at M={SLOTS}: 32 "
+                            f"layers x 8 linears + the tied head (N 51866)",
+                     **wv_t["w4a8_decode_step_whisper"]},
+         "qwen2_vl": {"per": f"one qwen2-vl decode step at M={SLOTS}: 28 "
+                             f"layers x 7 linears + the tied head",
+                      **wv_t["w4a8_decode_step_qwen2_vl"]},
          "per": f"one decode step at M={SLOTS}: 36 layers x 7 linears + "
                 "the tied head"},
         {"name": "kvq_decode_attn", "route": "cuda",
@@ -6133,7 +6831,15 @@ def main() -> int:
          "launches": launches["kvq_decode_attn"],
          "max_abs_err": max(kvq_err, rg_err["kvq_decode_attn"],
                             mx_err["kvq_decode_attn"],
-                            new_err["kvq_decode_attn"]), **kvq_t,
+                            new_err["kvq_decode_attn"],
+                            wv_err["kvq_decode_attn"]), **kvq_t,
+         "whisper_launches": wh_launches("kvq_decode_attn"),
+         "qwen2_vl_launches": vl_launches("kvq_decode_attn"),
+         "whisper": {"per": f"one launch over the cross caches at "
+                            f"B={SLOTS}, H=20, Hkv=20 (G 1), D=64, 1500 "
+                            f"rows each (a decode step: 32 such and 32 "
+                            f"self launches)",
+                     **wv_t["cross_decode_launch"]},
          "qwen3_32b_launches": q32["dense"]["launches"]["kvq_decode_attn"],
          "qwen2_7b_launches": q7["dense"]["launches"]["kvq_decode_attn"],
          "moonshot_spec_launches": ms_spec_launches["kvq_decode_attn"],
@@ -6158,8 +6864,14 @@ def main() -> int:
          "replaces": "src/repro/kernels/kvq_attn/kernel.py:109",
          "launches": paged_launches["kvq_paged_decode_attn"],
          "max_abs_err": max(paged_err, rg_err["kvq_paged_decode_attn"],
-                            new_err["kvq_paged_decode_attn"]),
+                            new_err["kvq_paged_decode_attn"],
+                            wv_err["kvq_paged_decode_attn"]),
          **paged_t,
+         "qwen2_vl_launches": vl_paged["kvq_paged_decode_attn"],
+         "qwen2_vl": {"per": f"one launch at B={SLOTS}, H=12, Hkv=2 (G 6), "
+                             f"D=128, block 64, lengths "
+                             f"{list(PAGED_LENGTHS)} (a decode step: 28)",
+                      **wv_t["paged_decode_launch_g6"]},
          "moonshot_launches": ms_launches["kvq_paged_decode_attn"],
          "qwen3_32b_launches": q32["paged"]["launches"][
              "kvq_paged_decode_attn"],
@@ -6181,8 +6893,14 @@ def main() -> int:
          "replaces": "src/repro/kernels/kvq_attn/kernel.py:174",
          "launches": paged_launches["gather_dequant_paged_kv"],
          "max_abs_err": max(gather_err, rg_err["gather_dequant_paged_kv"],
-                            new_err["gather_dequant_paged_kv"]),
+                            new_err["gather_dequant_paged_kv"],
+                            wv_err["gather_dequant_paged_kv"]),
          **gather_t,
+         "qwen2_vl_launches": vl_paged["gather_dequant_paged_kv"],
+         "qwen2_vl": {"per": "one qwen2-vl tail-wave: 28 launches (K and V "
+                             "of a layer in one) at n, T, bs = %s, Hkv=2"
+                             % (GATHER_SHAPE,),
+                      **wv_t["gather_tail_wave_vl"]},
          "moonshot_launches": ms_launches["gather_dequant_paged_kv"],
          "recurrentgemma": {
              "per": "one K+V launch: 4 rows of 32 entries of 64 tokens, "
@@ -6196,6 +6914,10 @@ def main() -> int:
          "replaces": "src/repro/kernels/kvq_attn/kernel.py:308",
          "launches": paged_launches["pool_block_copy"],
          "max_abs_err": copy_err, **copy_t,
+         "qwen2_vl_launches": vl_paged["pool_block_copy"],
+         "qwen2_vl": {"per": "one COW of one block over qwen2-vl's 28-layer "
+                             "pool (Hkv=2): 1 launch",
+                      **wv_t["copy_per_cow_vl"]},
          "moonshot_launches": ms_launches["pool_block_copy"],
          "per": "one COW of one block: 1 launch cloning the k_q, v_q, s_k "
                 "and s_v leaves of 36 layers (one_leaf_ms: the 4 one-leaf "
@@ -6205,7 +6927,8 @@ def main() -> int:
          "replaces": "src/repro/kernels/kvq_attn/kernel.py:255",
          "launches": spec_launches["kvq_spec_verify_attn"],
          "max_abs_err": max(spec_err, rg_err["kvq_spec_verify_attn"],
-                            new_err["kvq_spec_verify_attn"]),
+                            new_err["kvq_spec_verify_attn"],
+                            wv_err["kvq_spec_verify_attn"]),
          **spec_t,
          "moonshot_launches": ms_spec_launches["kvq_spec_verify_attn"],
          "recurrentgemma": {
@@ -6228,6 +6951,14 @@ def main() -> int:
          "moonshot_launches": ms_launches["fake_quant_fwd"],
          "moonshot_train_launches": ms_train_launches["fake_quant_fwd"],
          "qwen3_14b_train_launches": q14_train_launches["fake_quant_fwd"],
+         "whisper_train_launches": wh_train["fake_quant_fwd"],
+         "qwen2_vl_train_launches": vl_train["fake_quant_fwd"],
+         "whisper": {"per": "one whisper student forward: 513 launches (32 "
+                            "x 6 encoder and 32 x 10 decoder weights at 4 "
+                            "bits, the tied head per row at 8)",
+                     **wv_t["fake_quant_step_whisper"][0]},
+         "qwen2_vl": {"per": "one qwen2-vl student forward: 197 launches",
+                      **wv_t["fake_quant_step_qwen2_vl"][0]},
          "moonshot": {
              "per": "one moonshot decode step: 144 mode-3 launches, one an "
                     "expert bank (64, 2048, 1408) or (64, 1408, 2048) at 4 "
@@ -6262,6 +6993,12 @@ def main() -> int:
          "mx_train_launches": mx_train_launches["fake_quant_bwd"],
          "moonshot_train_launches": ms_train_launches["fake_quant_bwd"],
          "qwen3_14b_train_launches": q14_train_launches["fake_quant_bwd"],
+         "whisper_train_launches": wh_train["fake_quant_bwd"],
+         "qwen2_vl_train_launches": vl_train["fake_quant_bwd"],
+         "whisper": {"per": "one whisper student backward: 513 launches",
+                     **wv_t["fake_quant_step_whisper"][1]},
+         "qwen2_vl": {"per": "one qwen2-vl student backward: 197 launches",
+                      **wv_t["fake_quant_step_qwen2_vl"][1]},
          "moonshot": {
              "per": "one mode-3 launch on a 64-expert bank at 4 bits",
              "per_bank": [{k: b[k] for k in ("shape", "bwd_ms",
@@ -6287,7 +7024,21 @@ def main() -> int:
          "ptq_launches": ptq_launches["flash_attn_fwd"],
          "max_abs_err": max(flash_err, rg_err["flash_attn_fwd"],
                             mx_err["flash_attn_fwd"],
-                            new_err["flash_attn_fwd"]),
+                            new_err["flash_attn_fwd"],
+                            wv_err["flash_attn_fwd"]),
+         "whisper_launches": wh_launches("flash_attn_fwd"),
+         "whisper_train_launches": wh_train["flash_attn_fwd"],
+         "qwen2_vl_train_launches": vl_train["flash_attn_fwd"],
+         "whisper": {"per": f"one encoder launch at B={SLOTS}, S=1500, "
+                            f"H=20, Hkv=20, D=64, not causal (a prefill: "
+                            f"32)", **wv_t["flash_encoder_launch"]},
+         "whisper_cross": {"per": f"one cross-attention launch at "
+                                  f"B={SLOTS}, Sq={TRAIN_T}, Skv=1500, "
+                                  f"H=20, D=64, not causal",
+                           **wv_t["flash_cross_launch"]},
+         "qwen2_vl": {"per": f"one launch at B={TRAIN_B}, S={VL_TRAIN_S}, "
+                             f"H=12, Hkv=2 (G 6), D=128, causal",
+                      **wv_t["flash_launch_g6"]},
          "moonshot_train_launches": ms_train_launches["flash_attn_fwd"],
          "qwen3_14b_train_launches": q14_train_launches["flash_attn_fwd"],
          "moonshot": {"per": f"one launch at B={TRAIN_B}, S={TRAIN_T}, H=16, "

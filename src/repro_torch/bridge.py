@@ -9,7 +9,8 @@ returns the port's tree:
   checkpointer (``segments/0/0/attn/wq/w``, ``embed/w``, ...);
 * the stacked leading layer axis of ``segments/<i>/<j>/...`` is split
   into per-layer entries of ``params["layers"]`` (layer ``r * kinds + j``
-  of segment ``i``, after the layers of the segments before it);
+  of segment ``i``, after the layers of the segments before it), and an
+  encoder's ``encoder/segments/...`` into ``params["encoder"]["layers"]``;
 * bfloat16 leaves arrive as ``ml_dtypes.bfloat16`` arrays, which
   ``torch.from_numpy`` rejects, so they travel as a ``uint16`` view and
   are reinterpreted with ``.view(torch.bfloat16)``;
@@ -60,33 +61,48 @@ def _set(tree: Dict, path: List[str], value) -> None:
     tree[path[-1]] = value
 
 
-def params_from_numpy(tree, device) -> Dict:
-    flat = flatten(tree)
-    out: Dict = {}
+def _unstack(flat: List[Tuple[List[str], Any]], device) -> List[Dict]:
+    """Per-layer dicts of the ``segments/<i>/<j>/...`` leaves in ``flat``
+    ((path parts from ``segments`` on, leaf) pairs): layer ``r * kinds +
+    j`` of segment i, after the layers of the segments before it."""
     # segment i -> (repeat, kinds): layer offsets follow segment order
     seg_shape: Dict[int, Tuple[int, int]] = {}
-    for path, leaf in flat:
-        parts = path.split("/")
-        if parts[0] == "segments":
-            i, j = int(parts[1]), int(parts[2])
-            rep, kinds = seg_shape.get(i, (np.asarray(leaf).shape[0], 0))
-            seg_shape[i] = (rep, max(kinds, j + 1))
+    for parts, leaf in flat:
+        i, j = int(parts[1]), int(parts[2])
+        rep, kinds = seg_shape.get(i, (np.asarray(leaf).shape[0], 0))
+        seg_shape[i] = (rep, max(kinds, j + 1))
     offsets, n = {}, 0
     for i in sorted(seg_shape):
         offsets[i] = n
         n += seg_shape[i][0] * seg_shape[i][1]
     layers: List[Dict] = [{} for _ in range(n)]
-    for path, leaf in flat:
-        parts = path.split("/")
-        if parts[0] != "segments":
-            _set(out, parts, to_torch(leaf, device))
-            continue
+    for parts, leaf in flat:
         i, j, rest = int(parts[1]), int(parts[2]), parts[3:]
         rep, kinds = seg_shape[i]
         stacked = to_torch(leaf, device)
         for r in range(rep):
             _set(layers[offsets[i] + r * kinds + j], rest, stacked[r].clone())
-    out["layers"] = layers
+    return layers
+
+
+def params_from_numpy(tree, device) -> Dict:
+    """The port's tree of the reference's: the decoder's ``segments``
+    become ``params["layers"]``, an encoder's ``encoder/segments``
+    ``params["encoder"]["layers"]``, every other leaf stays where it
+    is."""
+    out: Dict = {}
+    decoder, encoder = [], []
+    for path, leaf in flatten(tree):
+        parts = path.split("/")
+        if parts[0] == "segments":
+            decoder.append((parts, leaf))
+        elif parts[:2] == ["encoder", "segments"]:
+            encoder.append((parts[1:], leaf))
+        else:
+            _set(out, parts, to_torch(leaf, device))
+    out["layers"] = _unstack(decoder, device)
+    if encoder:
+        out["encoder"]["layers"] = _unstack(encoder, device)
     return out
 
 
@@ -139,8 +155,9 @@ def to_numpy(t: torch.Tensor, bfloat16=None) -> np.ndarray:
 def params_to_numpy(params: Dict, bfloat16=None, period: int = 1) -> Dict:
     """The port's params in the reference's layout: ``layers`` stacked
     back into ``segments/<i>/<j>/...`` (``period``: the length of the
-    block pattern; 1 for the dense decoder's one kind), every other entry
-    as it is, leaves as numpy arrays."""
+    block pattern; 1 for the dense decoder's one kind), an encoder's into
+    ``encoder/segments/0/0/...``, every other entry as it is, leaves as
+    numpy arrays."""
     def walk(tree):
         if isinstance(tree, dict):
             return {k: walk(v) for k, v in tree.items() if k != "layers"}
@@ -148,11 +165,16 @@ def params_to_numpy(params: Dict, bfloat16=None, period: int = 1) -> Dict:
             return type(tree)(walk(v) for v in tree)
         return to_numpy(tree, bfloat16)
 
+    def segments(layers, period):
+        stacked: Dict = {}
+        for path, leaves in stacked_layers(layers, period):
+            _set(stacked, path.split("/"),
+                 np.stack([to_numpy(t, bfloat16) for t in leaves]))
+        segs = stacked["segments"]
+        return [segs[str(i)] for i in range(len(segs))]
+
     out = walk(params)
-    stacked: Dict = {}
-    for path, leaves in stacked_layers(params["layers"], period):
-        _set(stacked, path.split("/"),
-             np.stack([to_numpy(t, bfloat16) for t in leaves]))
-    segs = stacked["segments"]
-    out["segments"] = [segs[str(i)] for i in range(len(segs))]
+    out["segments"] = segments(params["layers"], period)
+    if "encoder" in params:
+        out["encoder"]["segments"] = segments(params["encoder"]["layers"], 1)
     return out

@@ -1,7 +1,6 @@
 """Architecture registry: ``--arch <id>`` lookup for full and reduced configs.
 
-The port holds the architectures it can serve; the others arrive with the
-slices that port their blocks.
+The port holds all ten of the reference's architectures.
 """
 from __future__ import annotations
 
@@ -18,6 +17,8 @@ _ARCH_MODULES = {
     "qwen3-14b": "qwen3_14b",
     "qwen3-32b": "qwen3_32b",
     "qwen2-7b": "qwen2_7b",
+    "whisper-large-v3": "whisper_large_v3",
+    "qwen2-vl-2b": "qwen2_vl_2b",
 }
 
 ARCH_IDS = tuple(_ARCH_MODULES)

@@ -1,9 +1,7 @@
 """Configuration dataclasses (copies of the reference's ``ModelConfig``
 and ``TrainConfig``).
 
-Only the model fields the ported paths read are kept; architectures
-beyond the dense and MoE GQA decoders, xLSTM and the hybrid RG-LRU /
-local attention stack arrive with later slices.
+Only the model fields the ported paths read are kept.
 """
 from __future__ import annotations
 
@@ -25,7 +23,7 @@ RECURRENT_BLOCKS = (BLOCK_RGLRU, BLOCK_MLSTM, BLOCK_SLSTM)
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                     # dense | moe | hybrid | ssm
+    family: str                     # dense | moe | hybrid | ssm | audio | vlm
     n_layers: int
     d_model: int
     n_heads: int
@@ -43,14 +41,22 @@ class ModelConfig:
     # MoE: experts of an attention layer's SwiGLU, and the top-k routed to
     n_experts: int = 0
     n_experts_active: int = 0
+    # encoder-decoder (whisper): a bidirectional encoder over precomputed
+    # frame embeddings, cross-attention in every decoder layer
+    encoder_layers: int = 0
+    encoder_seq: int = 1500
+    # VLM (qwen2-vl): multimodal rotary over a prefix of patch embeddings
+    mrope: bool = False
+    vision_tokens: int = 0
     mlstm_proj_factor: float = 2.0
     slstm_proj_factor: float = 4.0 / 3.0
     lru_width: int = 0              # RG-LRU width (0 -> d_model)
     conv1d_width: int = 4           # temporal conv width in RG-LRU block
     tie_embeddings: bool = False
     norm_eps: float = 1e-6
-    norm_type: str = "rms"
-    mlp_type: str = "swiglu"
+    norm_type: str = "rms"          # rms | ln (whisper)
+    mlp_type: str = "swiglu"        # swiglu | gelu (whisper)
+    max_position_embeddings: int = 0  # > 0: learned absolute positions
 
     @property
     def resolved_head_dim(self) -> int:
@@ -75,6 +81,10 @@ class ModelConfig:
         return tuple((pat * reps)[: self.n_layers])
 
     @property
+    def is_encdec(self) -> bool:
+        return self.encoder_layers > 0
+
+    @property
     def is_moe(self) -> bool:
         return self.n_experts > 0
 
@@ -93,7 +103,9 @@ class ModelConfig:
     def param_counts(self) -> dict:
         """Analytic parameter counts, total and active (an MoE layer's
         active count holds its ``n_experts_active`` experts and the
-        router), for the model-FLOPs share."""
+        router; an encoder-decoder's its encoder layers and each decoder
+        layer's cross-attention, counted as the reference counts them),
+        for the model-FLOPs share."""
         d = self.d_model
         qd, kvd = self.q_dim, self.kv_dim
         attn = d * qd + 2 * d * kvd + qd * d            # q, k, v, o
@@ -125,6 +137,11 @@ class ModelConfig:
                 raise ValueError(kind)
             total += t
             active += a
+        if self.encoder_layers:
+            enc = self.encoder_layers * (attn + dense_mlp)
+            xattn = self.n_layers * (d * qd + 2 * d * kvd + qd * d)
+            total += enc + xattn
+            active += enc + xattn
         emb = self.vocab_size * d
         head = 0 if self.tie_embeddings else self.vocab_size * d
         return {"total": total + emb + head, "active": active + emb + head,

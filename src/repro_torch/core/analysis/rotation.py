@@ -122,10 +122,11 @@ def _rot_out(lin: Dict, R: torch.Tensor) -> None:
 def _rotate_with(cfg: ModelConfig, params: Dict, R: torch.Tensor) -> Dict:
     """Fold norms, then rotate the residual-stream basis by ``R`` (d, d).
     Returns a new tree; tensors not rotated are shared."""
-    if cfg.norm_type != "rms" or any(k not in ATTENTION_BLOCKS
-                                     for k in cfg.layer_kinds()):
+    if cfg.norm_type != "rms" or cfg.is_encdec or any(
+            k not in ATTENTION_BLOCKS for k in cfg.layer_kinds()):
         raise NotImplementedError(
-            "residual rotation targets rms-norm attention families")
+            "residual rotation targets rms-norm attention decoders without "
+            "an encoder")
     params = tree_map(lambda x: x, params)            # fresh containers
     emb = params["embed"]
     R = R.to(emb["w"].device, torch.float32)

@@ -21,6 +21,13 @@ from repro_torch.tree import tree_leaves, tree_map
 MOE_AUX_COEF = 0.01     # weight of the MoE load-balance aux in the loss
 
 
+def _text_logits(cfg: ModelConfig, logits: torch.Tensor) -> torch.Tensor:
+    """Drop a VLM's vision-prefix positions before the loss."""
+    if cfg.family == "vlm" and cfg.vision_tokens:
+        return logits[:, cfg.vision_tokens:]
+    return logits
+
+
 def grads_of(loss: torch.Tensor, params):
     """d loss / d params as a tree mirroring ``params``; ``None`` where no
     op read the leaf (the reference's zero cotangent; see
@@ -39,7 +46,8 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
     """QAT train step, paper-faithful: teacher forward (unquantized, no
     grad), student forward with fake-quant, pure-KD loss (default), AdamW
     with LSQ scale updates (50x LR on activation scales), in place. An MoE
-    config adds ``MOE_AUX_COEF`` times the load-balance aux to the loss.
+    config adds ``MOE_AUX_COEF`` times the load-balance aux to the loss; a
+    VLM's loss skips its patch positions (``_text_logits``).
 
     ``kernel_backend="ref"`` runs the kernels' plain versions on any
     device. ``split_times`` synchronises the device between the three
@@ -61,10 +69,12 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
     def loss_and_grads(params, teacher_params, batch: Dict, mark=None):
         """The step's KD loss and its gradient tree, before clipping."""
         with torch.no_grad():
-            t_logits, _ = forward(cfg, teacher_params, tctx, batch)
+            t_logits = _text_logits(
+                cfg, forward(cfg, teacher_params, tctx, batch)[0])
         if mark:
             mark()
         logits, aux = forward(cfg, params, ctx, batch, remat=remat)
+        logits = _text_logits(cfg, logits)
         loss = silq_loss(logits, t_logits,
                          batch["labels"], kd_ratio=tcfg.kd_ratio,
                          kd_temperature=tcfg.kd_temperature,
@@ -116,7 +126,8 @@ def make_eval_loss(cfg: ModelConfig, precision: str) -> Callable:
     def eval_loss(params, batch):
         with torch.no_grad():
             logits, _ = forward(cfg, params, ctx, batch)
-            return next_token_loss(logits, batch["labels"],
+            return next_token_loss(_text_logits(cfg, logits),
+                                   batch["labels"],
                                    batch.get("loss_mask"))
 
     return eval_loss

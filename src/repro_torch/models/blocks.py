@@ -1,6 +1,6 @@
-"""Transformer blocks of the dense and MoE GQA decoders: attention with a
-quantized KV cache, the SwiGLU MLP and the GShard-style top-k MoE, with
-SiLQ quantization sites (paper Fig. 2):
+"""Transformer blocks: attention (causal self-, bidirectional and
+cross-attention) with a quantized KV cache, the SwiGLU and GELU MLPs and
+the GShard-style top-k MoE, with SiLQ quantization sites (paper Fig. 2):
 
 * every linear: input A-bits (``s_in``), weight W-bits per-out-channel (``s_w``)
 * query into QK^T: 16-bit (``s_q``)
@@ -32,7 +32,8 @@ from repro_torch.core.qat import (QuantCtx, cache_quantize, init_linear,
                                   subcol)
 from repro_torch.core.quantizer import quantize_to_int
 from repro_torch.kernels.kvq_attn.ref import gather_paged_kv, pool_blocks
-from repro_torch.models.common import (apply_rope, blockwise_attention,
+from repro_torch.models.common import (_gelu, _tanh, apply_rope,
+                                       blockwise_attention,
                                        decode_attention_intcache,
                                        head_rms_norm, rope_tables)
 from repro_torch.models.recurrent import _exp
@@ -101,21 +102,27 @@ def _spec_verify_attn(ctx: QuantCtx, q, k_pool, v_pool, s_k, s_v,
 
 
 # ==========================================================================
-# Dense MLP (SwiGLU)
+# Dense MLPs (SwiGLU; GELU with biases)
 # ==========================================================================
 
 def init_mlp(cfg: ModelConfig, gen: torch.Generator,
              dtype=torch.bfloat16) -> Dict:
-    if cfg.mlp_type != "swiglu":
-        raise NotImplementedError(f"mlp_type {cfg.mlp_type!r} is not ported")
     d, f = cfg.d_model, cfg.d_ff
-    return {"wg": init_linear(gen, d, f, dtype=dtype),
-            "wu": init_linear(gen, d, f, dtype=dtype),
-            "wd": init_linear(gen, f, d, dtype=dtype)}
+    if cfg.mlp_type == "swiglu":
+        return {"wg": init_linear(gen, d, f, dtype=dtype),
+                "wu": init_linear(gen, d, f, dtype=dtype),
+                "wd": init_linear(gen, f, d, dtype=dtype)}
+    return {"w1": init_linear(gen, d, f, bias=True, dtype=dtype),
+            "w2": init_linear(gen, f, d, bias=True, dtype=dtype)}
 
 
 def mlp_fwd(cfg: ModelConfig, ctx: QuantCtx, p: Dict, x: torch.Tensor,
             col: Optional[Dict] = None) -> torch.Tensor:
+    if "w1" in p:
+        # GELU MLP (whisper): the tanh-approximate GELU in f32
+        h = qlinear(ctx, x, p["w1"], subcol(col, "w1"))
+        h = _gelu(h.float(), _tanh).to(x.dtype)
+        return qlinear(ctx, h, p["w2"], subcol(col, "w2"))
     g = qlinear(ctx, x, p["wg"], subcol(col, "wg"))
     u = qlinear(ctx, x, p["wu"], subcol(col, "wu"))
     h = F.silu(g.float()).to(x.dtype) * u
@@ -282,7 +289,9 @@ def moe_fwd(cfg: ModelConfig, ctx: QuantCtx, p: Dict, x: torch.Tensor,
 # ==========================================================================
 
 def init_attention(cfg: ModelConfig, gen: torch.Generator,
-                   dtype=torch.bfloat16) -> Dict:
+                   dtype=torch.bfloat16, cross: bool = False) -> Dict:
+    """q, k, v, o and the query and cache quantizer scales; a
+    cross-attention (``cross``) takes no qk-norm."""
     d, qd, kvd = cfg.d_model, cfg.q_dim, cfg.kv_dim
     dev = gen.device
     one = lambda: torch.tensor(1.0, dtype=torch.float32, device=dev)  # noqa: E731
@@ -291,27 +300,32 @@ def init_attention(cfg: ModelConfig, gen: torch.Generator,
          "wv": init_linear(gen, d, kvd, bias=cfg.qkv_bias, dtype=dtype),
          "wo": init_linear(gen, qd, d, dtype=dtype),
          "s_q": one(), "s_k": one(), "s_v": one()}
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         hd = cfg.resolved_head_dim
         p["q_norm"] = {"w": torch.ones((hd,), dtype=dtype, device=dev)}
         p["k_norm"] = {"w": torch.ones((hd,), dtype=dtype, device=dev)}
     return p
 
 
-def _qkv(cfg: ModelConfig, ctx: QuantCtx, p: Dict, x: torch.Tensor, rope,
-         col: Optional[Dict] = None):
+def _qkv(cfg: ModelConfig, ctx: QuantCtx, p: Dict, xq: torch.Tensor,
+         xkv: torch.Tensor, rope, col: Optional[Dict] = None, *,
+         skip_rope: bool = False):
+    """q from ``xq`` (B, Sq, d), k and v from ``xkv`` (B, Skv, d): the
+    same tensor for self-attention, the encoder's output for
+    cross-attention (which applies no RoPE: ``skip_rope``)."""
     hd = cfg.resolved_head_dim
-    B, S = x.shape[0], x.shape[1]
-    q = qlinear(ctx, x, p["wq"], subcol(col, "wq")).reshape(
-        B, S, cfg.n_heads, hd)
-    k = qlinear(ctx, x, p["wk"], subcol(col, "wk")).reshape(
-        B, S, cfg.n_kv_heads, hd)
-    v = qlinear(ctx, x, p["wv"], subcol(col, "wv")).reshape(
-        B, S, cfg.n_kv_heads, hd)
+    B, Sq = xq.shape[0], xq.shape[1]
+    Skv = xkv.shape[1]
+    q = qlinear(ctx, xq, p["wq"], subcol(col, "wq")).reshape(
+        B, Sq, cfg.n_heads, hd)
+    k = qlinear(ctx, xkv, p["wk"], subcol(col, "wk")).reshape(
+        B, Skv, cfg.n_kv_heads, hd)
+    v = qlinear(ctx, xkv, p["wv"], subcol(col, "wv")).reshape(
+        B, Skv, cfg.n_kv_heads, hd)
     if "q_norm" in p:
         q = head_rms_norm(q, p["q_norm"]["w"], cfg.norm_eps)
         k = head_rms_norm(k, p["k_norm"]["w"], cfg.norm_eps)
-    if rope is not None:
+    if rope is not None and not skip_rope:
         cos, sin = rope
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
@@ -323,9 +337,12 @@ def _qkv(cfg: ModelConfig, ctx: QuantCtx, p: Dict, x: torch.Tensor, rope,
 
 
 def attn_fwd(cfg: ModelConfig, ctx: QuantCtx, p: Dict, x: torch.Tensor,
-             rope, col: Optional[Dict] = None, *,
-             window: int = 0) -> torch.Tensor:
-    """Causal self-attention, training / teacher / calibration path.
+             rope, col: Optional[Dict] = None, *, window: int = 0,
+             enc_out: Optional[torch.Tensor] = None,
+             causal: bool = True) -> torch.Tensor:
+    """Self-attention (``enc_out`` None; causal unless ``causal`` is
+    False, as in the encoder) or cross-attention over ``enc_out``
+    (B, Skv, d), never causal: the training / teacher / calibration path.
 
     The rule for the attention itself is written here once: a forward
     that needs no gradient (the teacher in each QAT step, calibration,
@@ -337,13 +354,16 @@ def attn_fwd(cfg: ModelConfig, ctx: QuantCtx, p: Dict, x: torch.Tensor,
     differentiates the same function in the reference.
     """
     B, S, _ = x.shape
-    q, k, v = _qkv(cfg, ctx, p, x, rope, col)
+    xkv = x if enc_out is None else enc_out
+    q, k, v = _qkv(cfg, ctx, p, x, xkv, rope, col,
+                   skip_rope=enc_out is not None)
+    causal = causal and enc_out is None
     if torch.is_grad_enabled():
-        out = blockwise_attention(q, k, v, causal=True, window=window,
+        out = blockwise_attention(q, k, v, causal=causal, window=window,
                                   q_chunk=1024, kv_chunk=1024)
     else:
         from repro_torch.kernels.flash_attn.ops import flash_attn_fwd
-        out = flash_attn_fwd(q, k, v, causal=True, window=window,
+        out = flash_attn_fwd(q, k, v, causal=causal, window=window,
                              plain=ctx.kernel_backend == "ref")
     return qlinear(ctx, out.reshape(B, S, cfg.q_dim), p["wo"],
                    subcol(col, "wo"))
@@ -392,9 +412,16 @@ def _ring_gather(val: torch.Tensor, lengths: torch.Tensor,
 def attn_prefill(cfg: ModelConfig, ctx: QuantCtx, p: Dict, x: torch.Tensor,
                  rope, *, window: int = 0, cache_len: int = 0,
                  lengths: Optional[torch.Tensor] = None,
-                 page_size: int = 0, row_lengths: Optional[list] = None):
+                 page_size: int = 0, row_lengths: Optional[list] = None,
+                 enc_out: Optional[torch.Tensor] = None):
     """Causal attention over the prompt that also emits the quantized
     dense cache for serving.
+
+    ``enc_out`` (B, Skv, d) makes it a cross-attention instead: the
+    queries attend, without a mask, over K/V projected from the encoder's
+    output, and the cache holds all ``Skv`` rows of them (a decoder
+    layer's frozen cross cache; ``cache_len`` and ``lengths`` do not
+    apply).
 
     ``window`` > 0 (a local-attention layer) attends over the last
     ``window`` positions and keeps a ring of ``min(cache_len, window)``
@@ -404,8 +431,8 @@ def attn_prefill(cfg: ModelConfig, ctx: QuantCtx, p: Dict, x: torch.Tensor,
     pad-position K/V are dropped from the cache and ``cache["length"]``
     holds the true per-row length, so one padded prefill call admits
     prompts of different lengths (causality keeps real-token outputs
-    independent of the padding). On CUDA the attention then runs row by
-    row over ``row_lengths`` (the same lengths as host ints;
+    independent of the padding). On CUDA the attention runs row by row
+    over ``row_lengths`` (host ints; the lengths when not given;
     :func:`_prefill_attention_rows`), so a row's result does not depend
     on the wave it rides in.
 
@@ -419,15 +446,25 @@ def attn_prefill(cfg: ModelConfig, ctx: QuantCtx, p: Dict, x: torch.Tensor,
     if page_size and window:
         raise ValueError("paged cache layout requires full attention "
                          "(window == 0)")
-    q, k, v = _qkv(cfg, ctx, p, x, rope)
-    if x.is_cuda and lengths is not None:
-        out = _prefill_attention_rows(
-            q, k, v, row_lengths or lengths.tolist(), window)
+    cross = enc_out is not None
+    q, k, v = _qkv(cfg, ctx, p, x, enc_out if cross else x, rope,
+                   skip_rope=cross)
+    if row_lengths is None and lengths is not None:
+        row_lengths = lengths.tolist() if x.is_cuda else None
+    if x.is_cuda and row_lengths is not None:
+        out = _prefill_attention_rows(q, k, v, row_lengths, window,
+                                      causal=not cross)
     else:
-        out = blockwise_attention(q, k, v, causal=True, window=window,
+        out = blockwise_attention(q, k, v, causal=not cross, window=window,
                                   q_chunk=1024, kv_chunk=1024)
     y = qlinear(ctx, out.reshape(B, S, cfg.q_dim), p["wo"])
     k_q, v_q, s_k, s_v = quantize_kv_for_cache(ctx, p, k, v)
+    if cross:
+        cache = {n: t.contiguous() for n, t in
+                 (("k_q", k_q), ("v_q", v_q), ("s_k", s_k), ("s_v", s_v))}
+        cache["length"] = torch.full((B,), k.shape[1], dtype=torch.int32,
+                                     device=x.device)
+        return y, cache
     if lengths is None:
         lengths = torch.full((B,), S, dtype=torch.int32, device=x.device)
     if page_size:
@@ -446,23 +483,27 @@ def attn_prefill(cfg: ModelConfig, ctx: QuantCtx, p: Dict, x: torch.Tensor,
     return y, cache
 
 
-def _prefill_attention_rows(q, k, v, lengths: list,
-                            window: int = 0) -> torch.Tensor:
-    """Causal attention of a right-padded prefill wave, each row over its
-    own ``lengths[b]`` real tokens and nothing else; pad positions stay
-    zero (causality keeps them out of every real token, and their K/V are
+def _prefill_attention_rows(q, k, v, lengths: list, window: int = 0,
+                            causal: bool = True) -> torch.Tensor:
+    """Attention of a prefill wave, each row's queries over its own
+    ``lengths[b]`` real tokens and nothing else; pad positions stay zero
+    (causality keeps them out of every real token, and their K/V are
     dropped from the cache). Batched, the wave's score and probability
     GEMMs and the softmax sums take their shapes, and so cuBLAS's kernel
     and the reductions' summation order, from the whole wave (its row
     count and padded length); row by row a prompt's cache and first-token
     logits are the same whichever prompts it is admitted with.
-    ``lengths``: host ints; ``window`` as in :func:`attn_prefill`."""
+    ``lengths``: host ints; ``window`` as in :func:`attn_prefill`. Not
+    ``causal`` (a cross-attention): each row's queries over all of its
+    keys."""
     out = torch.zeros_like(q)
     for b, n in enumerate(lengths):
         if n:
+            kv = slice(None) if not causal else slice(0, n)
             out[b, :n] = blockwise_attention(
-                q[b:b + 1, :n], k[b:b + 1, :n], v[b:b + 1, :n], causal=True,
-                window=window, q_chunk=1024, kv_chunk=1024)[0]
+                q[b:b + 1, :n], k[b:b + 1, kv], v[b:b + 1, kv],
+                causal=causal, window=window, q_chunk=1024,
+                kv_chunk=1024)[0]
     return out
 
 
@@ -542,8 +583,14 @@ def paged_layer_views(pool: Dict, B: int,
 
 def attn_decode(cfg: ModelConfig, ctx: QuantCtx, p: Dict, x1: torch.Tensor,
                 cache: Dict, positions: torch.Tensor,
-                block_tbl: Optional[torch.Tensor] = None, rope=None):
+                block_tbl: Optional[torch.Tensor] = None, rope=None,
+                cross: bool = False):
     """One-token decode step. x1: (B, 1, d). Returns (y1, cache).
+
+    ``cross``: a cross-attention over the frozen cache the prefill wrote
+    from the encoder's output: the query alone is projected (no RoPE),
+    nothing is committed, and the attention reads the cache's
+    ``length`` rows.
 
     Dense layout: writes the new K/V row of every slot into ``cache`` in
     place (ring row ``length % Sc``), advances ``cache["length"]`` and
@@ -561,9 +608,16 @@ def attn_decode(cfg: ModelConfig, ctx: QuantCtx, p: Dict, x1: torch.Tensor,
     """
     B = x1.shape[0]
     hd = cfg.resolved_head_dim
+    if cross:
+        q = qlinear(ctx, x1, p["wq"]).reshape(B, 1, cfg.n_heads, hd)
+        q = quantize_act(ctx, q, p, "s_q")
+        out = _decode_attn(ctx, q[:, 0], cache["k_q"], cache["v_q"],
+                           cache["s_k"], cache["s_v"], cache["length"])
+        y = qlinear(ctx, out.reshape(B, cfg.q_dim), p["wo"])
+        return y[:, None], cache
     if rope is None and cfg.rope_theta:
         rope = rope_tables(positions[:, None], hd, cfg.rope_theta)
-    q, k, v = _qkv(cfg, ctx, p, x1, rope)
+    q, k, v = _qkv(cfg, ctx, p, x1, x1, rope)
     k_q1, v_q1, s_k1, s_v1 = quantize_kv_for_cache(ctx, p, k, v)
     if block_tbl is not None:
         bs = cache["k_q"].shape[2]
@@ -629,7 +683,7 @@ def attn_chunk_prefill(cfg: ModelConfig, ctx: QuantCtx, p: Dict,
     from repro_torch.kernels.kvq_attn.ops import (
         commit_chunk_kv, gather_dequant_paged_kv_pair)
     n, C, _ = x.shape
-    q, k, v = _qkv(cfg, ctx, p, x, rope)
+    q, k, v = _qkv(cfg, ctx, p, x, x, rope)
     bs = cache["k_q"].shape[2]
     kh, vh = gather_dequant_paged_kv_pair(cache["k_q"], cache["s_k"],
                                           cache["v_q"], cache["s_v"], tbl)
@@ -709,7 +763,7 @@ def attn_spec_verify(cfg: ModelConfig, ctx: QuantCtx, p: Dict,
     """
     from repro_torch.kernels.kvq_attn.ops import commit_chunk_kv
     n, C, _ = x.shape
-    q, k, v = _qkv(cfg, ctx, p, x, rope)
+    q, k, v = _qkv(cfg, ctx, p, x, x, rope)
     k_q1, v_q1, s_k1, s_v1 = quantize_kv_for_cache(ctx, p, k, v)
     commit_chunk_kv(cache, k_q1, v_q1, s_k1, s_v1, tbl, offset, chunk_len)
     cache["length"][slot.long()] = (offset + chunk_len).to(torch.int32)

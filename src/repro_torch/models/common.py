@@ -1,4 +1,5 @@
-"""Shared model components: norms, rotary embeddings, chunked attention.
+"""Shared model components: norms, the GELU, rotary embeddings (standard
+and M-RoPE), chunked attention.
 
 Prefill attention is blockwise (online softmax over key chunks), so a long
 prompt never materializes an S x S score matrix. The softmax output is not
@@ -6,7 +7,7 @@ quantized (paper §3.2: it is encapsulated by the attention kernel).
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Callable, Dict, Tuple
 
 import torch
 
@@ -49,30 +50,35 @@ def _xla_cpu_row_sum(x: torch.Tensor) -> torch.Tensor:
     return s
 
 
-def _mean_sq(xf: torch.Tensor) -> torch.Tensor:
-    """Mean of squares over the last dim, keepdim, f32.
+def _row_mean(v: torch.Tensor) -> torch.Tensor:
+    """Mean over the last dim, keepdim, f32.
 
     On the CPU the row is summed in XLA:CPU's order
-    (:func:`_xla_cpu_row_sum`), so the variance is bitwise the
-    reference's run op by op at every width (``torch.mean`` sums with 4
-    accumulators of 8 lanes, which disagrees with it on about half of
+    (:func:`_xla_cpu_row_sum`), so a norm's mean and variance are bitwise
+    the reference's run op by op at every width (``torch.mean`` sums with
+    4 accumulators of 8 lanes, which disagrees with it on about half of
     random rows). torch's CUDA reduction picks its block shape, and so
     each row's summation order, from the number of rows (a verify-wave
     runs every norm at M = slots * (k + 1) rows, a decode step at M =
-    slots), which moves the last bit of the variance. There the row is
-    summed in two stages whose shapes do not depend on M:
-    ``_NORM_SPLIT`` partial sums per row over a (rows * split, d / split)
-    view, then the partials, so a row's result is the same in any batch.
+    slots), which moves the last bit of the sum. There the row is summed
+    in two stages whose shapes do not depend on M: ``_NORM_SPLIT``
+    partial sums per row over a (rows * split, d / split) view, then the
+    partials, so a row's result is the same in any batch.
     """
-    d = xf.shape[-1]
-    sq = xf * xf
-    if not xf.is_cuda:
-        return (_xla_cpu_row_sum(sq) / d)[..., None]
+    d = v.shape[-1]
+    if not v.is_cuda:
+        return (_xla_cpu_row_sum(v) / d)[..., None]
     if d % _NORM_SPLIT:
-        return torch.mean(sq, dim=-1, keepdim=True)
-    part = sq.reshape(-1, d // _NORM_SPLIT).sum(dim=-1)
+        return torch.mean(v, dim=-1, keepdim=True)
+    part = v.reshape(-1, d // _NORM_SPLIT).sum(dim=-1)
     return (part.reshape(-1, _NORM_SPLIT).sum(dim=-1) / d).reshape(
-        *xf.shape[:-1], 1)
+        *v.shape[:-1], 1)
+
+
+def _mean_sq(xf: torch.Tensor) -> torch.Tensor:
+    """Mean of squares over the last dim, keepdim, f32
+    (:func:`_row_mean`'s order)."""
+    return _row_mean(xf * xf)
 
 
 def _rsqrt(v: torch.Tensor) -> torch.Tensor:
@@ -94,8 +100,30 @@ def rms_norm(x: torch.Tensor, p: Dict, eps: float = 1e-6) -> torch.Tensor:
     return (y * p["w"].float()).to(x.dtype)
 
 
-def init_norm(d: int, device, dtype=torch.bfloat16) -> Dict:
-    return {"w": torch.ones((d,), dtype=dtype, device=device)}
+def layer_norm(x: torch.Tensor, p: Dict, eps: float = 1e-6) -> torch.Tensor:
+    """LayerNorm in the reference's op order: the mean, then ``jnp.var``
+    (the mean again, the centred values squared, their mean), then
+    ``(x - mean) * rsqrt(var + eps) * w + b``. Both means sum as
+    :func:`_row_mean` does (bitwise on the CPU); the rsqrt is
+    :func:`_rsqrt`'s (within one ulp of XLA:CPU's)."""
+    xf = x.float()
+    mu = _row_mean(xf)
+    c = xf - mu
+    var = _row_mean(c * c)
+    y = c * _rsqrt(var + eps)
+    return (y * p["w"].float() + p["b"].float()).to(x.dtype)
+
+
+def norm(x: torch.Tensor, p: Dict, kind: str, eps: float) -> torch.Tensor:
+    """``kind`` "rms" (:func:`rms_norm`) or "ln" (:func:`layer_norm`)."""
+    return rms_norm(x, p, eps) if kind == "rms" else layer_norm(x, p, eps)
+
+
+def init_norm(d: int, device, dtype=torch.bfloat16, kind: str = "rms") -> Dict:
+    p = {"w": torch.ones((d,), dtype=dtype, device=device)}
+    if kind == "ln":
+        p["b"] = torch.zeros((d,), dtype=dtype, device=device)
+    return p
 
 
 def head_rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
@@ -107,7 +135,68 @@ def head_rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------------
-# Rotary position embeddings
+# GELU (the tanh approximation, ``jax.nn.gelu``'s default) and the f32
+# transcendentals of XLA:CPU it needs on the CPU. XLA:CPU evaluates tanh
+# (and exp, log, log1p: ``recurrent.py``) with its own polynomials (Eigen's
+# and Cephes'), FMA contracted; torch's CPU functions round up to a few
+# ulps apart. So CPU tensors take the polynomials (an FMA is the f64
+# product and sum rounded to f32: the product is exact in f64), and CUDA
+# tensors torch's own functions.
+# --------------------------------------------------------------------------
+
+def _c(*vals):
+    """Constants rounded to f32, as the reference's f32 code holds them."""
+    out = tuple(float(torch.tensor(v, dtype=torch.float32)) for v in vals)
+    return out if len(out) > 1 else out[0]
+
+
+def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
+    """f32 a * b + c rounded once (b, c: f32 tensors or f32 constants)."""
+    b = b.double() if isinstance(b, torch.Tensor) else b
+    c = c.double() if isinstance(c, torch.Tensor) else c
+    return (a.double() * b + c).float()
+
+
+_TANH_NUM = _c(-2.76076847742355e-16, 2.00018790482477e-13,
+               -8.60467152213735e-11, 5.12229709037114e-08,
+               1.48572235717979e-05, 6.37261928875436e-04,
+               4.89352455891786e-03)
+_TANH_DEN = _c(1.19825839466702e-06, 1.18534705686654e-04,
+               2.26843463243900e-03, 4.89352518554385e-03)
+_TANH_CLAMP, _TANH_SMALL = _c(7.99881172180175781, 0.0004)
+
+
+def _tanh(x: torch.Tensor) -> torch.Tensor:
+    """f32 tanh; on the CPU XLA:CPU's rational approximation."""
+    if x.is_cuda:
+        return torch.tanh(x)
+    xc = torch.clamp(x, -_TANH_CLAMP, _TANH_CLAMP)
+    x2 = xc * xc
+    num = torch.full_like(x2, _TANH_NUM[0])
+    for c in _TANH_NUM[1:]:
+        num = _fma(x2, num, c)
+    num = xc * num
+    den = torch.full_like(x2, _TANH_DEN[0])
+    for c in _TANH_DEN[1:]:
+        den = _fma(x2, den, c)
+    return torch.where(torch.abs(x) < _TANH_SMALL, x, num / den)
+
+
+_SQRT_2_OVER_PI = float(torch.tensor((2 / torch.pi) ** 0.5,
+                                     dtype=torch.float32))
+
+
+def _gelu(x: torch.Tensor, tanh: Callable = torch.tanh) -> torch.Tensor:
+    """``jax.nn.gelu`` (tanh approximation) in its op order, f32; pass
+    ``tanh=_tanh`` for XLA:CPU's tanh on the CPU. (``F.gelu(approximate=
+    "tanh")`` is not bitwise with it.)"""
+    x3 = x * (x * x)
+    cdf = 0.5 * (1.0 + tanh(_SQRT_2_OVER_PI * (x + 0.044715 * x3)))
+    return x * cdf
+
+
+# --------------------------------------------------------------------------
+# Rotary position embeddings (standard and M-RoPE)
 # --------------------------------------------------------------------------
 
 def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
@@ -204,6 +293,28 @@ def rope_tables(positions: torch.Tensor, head_dim: int,
     """
     freqs = rope_freqs(head_dim, theta, positions.device)
     sin, cos = sincosf(positions.float()[..., None] * freqs)
+    return cos, sin
+
+
+def mrope_tables(positions3: torch.Tensor, head_dim: int,
+                 theta: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Multimodal rotary (Qwen2-VL): three position streams (t, h, w)
+    own interleaved thirds of the frequency spectrum, frequency i taking
+    stream i % 3, as the reference splits them (not Qwen2-VL's published
+    contiguous sections).
+
+    positions3 (3, B, S) -> cos/sin (B, S, head_dim/2). The angles are
+    the f32 products of :func:`rope_tables` and their sin and cos
+    :func:`sincosf`'s, bitwise the reference's tables.
+    """
+    half = head_dim // 2
+    freqs = rope_freqs(head_dim, theta, positions3.device)
+    ang_all = positions3.float()[..., None] * freqs          # (3, B, S, half)
+    sect = torch.arange(half, device=positions3.device) % 3
+    ang = torch.gather(ang_all.movedim(0, -1), -1,
+                       sect.view(1, 1, half, 1).expand(
+                           *ang_all.shape[1:], 1))[..., 0]
+    sin, cos = sincosf(ang)
     return cos, sin
 
 

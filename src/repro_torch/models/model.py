@@ -1,6 +1,7 @@
 """Model stack of the dense and MoE GQA decoders (the qwen2.5 family,
-mixtral), the hybrid RG-LRU and local-attention stack (recurrentgemma) and
-the xLSTM family (mLSTM and sLSTM blocks).
+mixtral, moonshot), the hybrid RG-LRU and local-attention stack
+(recurrentgemma), the xLSTM family (mLSTM and sLSTM blocks), the
+encoder-decoder (whisper) and the M-RoPE VLM backbone (qwen2-vl).
 
 The reference scans stacked layers with ``lax.scan``; here each layer is
 an entry of ``params["layers"]`` and the stack is a Python loop over them,
@@ -11,6 +12,18 @@ local) holds ``{"ln1", "attn", "ln2", "mlp"}`` (``"moe"`` in place of
 attends over the last ``cfg.local_window`` positions and serves from a
 ring of that many rows; a global one over the last ``cfg.sliding_window``
 when that is set (mixtral), with a ring of as many rows.
+
+An encoder-decoder (``cfg.is_encdec``) holds ``params["encoder"] =
+{"pos_embed", "layers", "final_norm"}``: bidirectional attention layers
+over ``batch["frames"]`` (B, encoder_seq, d), precomputed frame
+embeddings, plus learned positions; each decoder layer adds ``{"ln_x",
+"xattn"}``, a cross-attention over the encoder's output, whose K/V the
+prefill freezes into a ``"cross"`` cache beside the layer's self cache.
+Learned absolute positions (``params["pos_embed"]``) are added to the
+decoder's embeddings. A VLM (``cfg.mrope``) takes ``batch["patches"]``
+(B, vision_tokens, d) as a prefix of the sequence and ``batch
+["positions"]`` (3, B, S), the (t, h, w) streams of the multimodal
+rotary; its decode goes on with plain RoPE at the next position.
 
 Entry points:
 * ``init_params``  — random weights from a seed, made on the target device
@@ -39,7 +52,8 @@ from repro_torch.core.qat import QuantCtx, cache_dtype, qlinear, subcol
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks as B
 from repro_torch.models import recurrent as R
-from repro_torch.models.common import init_norm, rms_norm, rope_tables
+from repro_torch.models.common import (init_norm, mrope_tables, norm,
+                                       rope_tables)
 
 _PORTED_KINDS = (BLOCK_ATTN, BLOCK_LOCAL_ATTN, BLOCK_RGLRU, BLOCK_MLSTM,
                  BLOCK_SLSTM)
@@ -47,11 +61,16 @@ _PORTED_KINDS = (BLOCK_ATTN, BLOCK_LOCAL_ATTN, BLOCK_RGLRU, BLOCK_MLSTM,
 
 def _check_supported(cfg: ModelConfig) -> None:
     if (any(k not in _PORTED_KINDS for k in cfg.block_pattern)
-            or cfg.norm_type != "rms" or cfg.mlp_type != "swiglu"):
+            or cfg.norm_type not in ("rms", "ln")
+            or cfg.mlp_type not in ("swiglu", "gelu")):
         raise NotImplementedError(
-            f"{cfg.name!r}: the port runs RMS-norm SwiGLU (dense or MoE) "
-            "decoders of global, sliding-window and local attention, "
-            "RG-LRU, mLSTM and sLSTM blocks only")
+            f"{cfg.name!r}: the port runs RMS- or LayerNorm, SwiGLU or GELU "
+            "(dense or MoE) stacks of global, sliding-window and local "
+            "attention, RG-LRU, mLSTM and sLSTM blocks only")
+
+
+def _norm(cfg: ModelConfig, x: torch.Tensor, p: Dict) -> torch.Tensor:
+    return norm(x, p, cfg.norm_type, cfg.norm_eps)
 
 
 def _window(cfg: ModelConfig, kind: str) -> int:
@@ -65,18 +84,22 @@ def _attention_only(cfg: ModelConfig) -> bool:
 
 
 def _init_layer(cfg: ModelConfig, kind: str, gen: torch.Generator, dev,
-                dtype) -> Dict:
-    p = {"ln1": init_norm(cfg.d_model, dev, dtype)}
+                dtype, cross: bool = False) -> Dict:
+    nk = cfg.norm_type
+    p = {"ln1": init_norm(cfg.d_model, dev, dtype, nk)}
     if kind in ATTENTION_BLOCKS:
-        p.update(attn=B.init_attention(cfg, gen, dtype),
-                 ln2=init_norm(cfg.d_model, dev, dtype))
+        p["attn"] = B.init_attention(cfg, gen, dtype)
+        if cross:
+            p.update(ln_x=init_norm(cfg.d_model, dev, dtype, nk),
+                     xattn=B.init_attention(cfg, gen, dtype, cross=True))
+        p["ln2"] = init_norm(cfg.d_model, dev, dtype, nk)
         if cfg.is_moe:
             p["moe"] = B.init_moe(cfg, gen, dtype)
         else:
             p["mlp"] = B.init_mlp(cfg, gen, dtype)
     elif kind == BLOCK_RGLRU:
         p.update(rglru=R.init_rglru(cfg, gen, dtype),
-                 ln2=init_norm(cfg.d_model, dev, dtype),
+                 ln2=init_norm(cfg.d_model, dev, dtype, nk),
                  mlp=B.init_mlp(cfg, gen, dtype))
     elif kind == BLOCK_MLSTM:
         p["cell"] = R.init_mlstm(cfg, gen, dtype)
@@ -93,6 +116,65 @@ def _rope(cfg: ModelConfig, positions: torch.Tensor):
     return rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
 
 
+def _rope_for(cfg: ModelConfig, batch: Dict, S: int, device):
+    """The forward's and prefill's tables: M-RoPE at a VLM's ``batch
+    ["positions"]`` (3, B, S) when given, else RoPE at 0..S-1."""
+    if cfg.mrope and cfg.rope_theta and "positions" in batch:
+        return mrope_tables(batch["positions"], cfg.resolved_head_dim,
+                            cfg.rope_theta)
+    return _rope(cfg, torch.arange(S, device=device))
+
+
+def _embed(cfg: ModelConfig, params: Dict, batch: Dict) -> torch.Tensor:
+    """Token embeddings, after a VLM's patch prefix, plus learned
+    positions from ``batch.get("pos_offset", 0)`` (clamped, as the
+    reference's dynamic slice clamps, to fit the table)."""
+    x = params["embed"]["w"][batch["tokens"]]
+    if "patches" in batch:
+        x = torch.cat([batch["patches"].to(x.dtype), x], dim=1)
+    if "pos_embed" in params:
+        pos = params["pos_embed"]["w"]
+        S = x.shape[1]
+        off = min(max(int(batch.get("pos_offset", 0)), 0), pos.shape[0] - S)
+        x = x + pos[off:off + S][None]
+    return x
+
+
+def _encoder_layer(cfg: ModelConfig, ctx: QuantCtx, p: Dict,
+                   x: torch.Tensor, col: Optional[Dict]) -> torch.Tensor:
+    """One bidirectional encoder layer. Its statistics are collected
+    under ``"0attn"`` and ``"0mlp"``, the reference's keys, which do not
+    mirror the layer's params: ``merge_act_scales`` writes no encoder
+    activation scale in either package."""
+    h = _norm(cfg, x, p["ln1"])
+    x = x + B.attn_fwd(cfg, ctx, p["attn"], h, None, subcol(col, "0attn"),
+                       causal=False)
+    h = _norm(cfg, x, p["ln2"])
+    return x + B.mlp_fwd(cfg, ctx, p["mlp"], h, subcol(col, "0mlp"))
+
+
+def _encode(cfg: ModelConfig, ctx: QuantCtx, params: Dict, batch: Dict,
+            col: Optional[Dict], remat=False) -> torch.Tensor:
+    """The encoder over ``batch["frames"]`` plus its learned positions,
+    then its final norm. ``remat``: recompute each layer in the
+    backward (as the decoder's)."""
+    enc = params["encoder"]
+    h = batch["frames"].to(enc["pos_embed"]["w"].dtype)
+    h = h + enc["pos_embed"]["w"][None, :h.shape[1]]
+    cols = []
+    for p in enc["layers"]:
+        c = {} if col is not None else None
+        if remat and torch.is_grad_enabled():
+            h = torch.utils.checkpoint.checkpoint(
+                _encoder_layer, cfg, ctx, p, h, c, use_reentrant=False)
+        else:
+            h = _encoder_layer(cfg, ctx, p, h, c)
+        cols.append(c)
+    if col is not None:
+        col["encoder"] = {"layers": cols}
+    return _norm(cfg, h, enc["final_norm"])
+
+
 def init_params(cfg: ModelConfig, seed: int = 0,
                 device: Optional[Union[str, torch.device]] = None,
                 dtype=torch.bfloat16) -> Dict:
@@ -103,15 +185,17 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    embed = torch.randn((cfg.vocab_size, cfg.d_model), generator=gen,
-                        dtype=torch.float32, device=dev) * 0.02
+
+    def table(rows):
+        return (torch.randn((rows, cfg.d_model), generator=gen,
+                            dtype=torch.float32, device=dev) * 0.02).to(dtype)
+
     params: Dict = {
-        "embed": {"w": embed.to(dtype)},
-        "final_norm": init_norm(cfg.d_model, dev, dtype),
-        "layers": [_init_layer(cfg, kind, gen, dev, dtype)
+        "embed": {"w": table(cfg.vocab_size)},
+        "final_norm": init_norm(cfg.d_model, dev, dtype, cfg.norm_type),
+        "layers": [_init_layer(cfg, kind, gen, dev, dtype, cfg.is_encdec)
                    for kind in cfg.layer_kinds()],
     }
-    del embed
     if cfg.tie_embeddings:
         # the tied head still owns its quantizer scales (8-bit head site)
         params["head"] = {
@@ -122,6 +206,15 @@ def init_params(cfg: ModelConfig, seed: int = 0,
         from repro_torch.core.qat import init_linear
         params["head"] = init_linear(gen, cfg.d_model, cfg.vocab_size,
                                      dtype=dtype)
+    if cfg.max_position_embeddings:
+        params["pos_embed"] = {"w": table(cfg.max_position_embeddings)}
+    if cfg.is_encdec:
+        params["encoder"] = {
+            "pos_embed": {"w": table(cfg.encoder_seq)},
+            "layers": [_init_layer(cfg, BLOCK_ATTN, gen, dev, dtype)
+                       for _ in range(cfg.encoder_layers)],
+            "final_norm": init_norm(cfg.d_model, dev, dtype,
+                                    cfg.norm_type)}
     return params
 
 
@@ -146,7 +239,7 @@ def _ffn_tail(cfg: ModelConfig, ctx: QuantCtx, p: Dict, x: torch.Tensor,
     by the forward, prefill, decode and batched-window paths. Returns (x,
     the MoE's load-balance aux; None for a dense MLP, zero unless
     ``with_aux``)."""
-    h = rms_norm(x, p["ln2"], cfg.norm_eps)
+    h = _norm(cfg, x, p["ln2"])
     if "moe" in p:
         y, aux = B.moe_fwd(cfg, ctx, p["moe"], h, subcol(col, "moe"),
                            with_aux=with_aux)
@@ -155,13 +248,19 @@ def _ffn_tail(cfg: ModelConfig, ctx: QuantCtx, p: Dict, x: torch.Tensor,
 
 
 def _block_fwd(cfg: ModelConfig, ctx: QuantCtx, kind: str, p: Dict,
-               x: torch.Tensor, rope, col: Optional[Dict]):
+               x: torch.Tensor, rope, col: Optional[Dict],
+               enc_out: Optional[torch.Tensor] = None):
     """One layer of the training / teacher / calibration forward: (x, the
-    layer's MoE aux or None)."""
-    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    layer's MoE aux or None). A decoder layer of an encoder-decoder
+    cross-attends over ``enc_out`` after its self-attention."""
+    h = _norm(cfg, x, p["ln1"])
     if kind in ATTENTION_BLOCKS:
         x = x + B.attn_fwd(cfg, ctx, p["attn"], h, rope, subcol(col, "attn"),
                            window=_window(cfg, kind))
+        if "xattn" in p:
+            h = _norm(cfg, x, p["ln_x"])
+            x = x + B.attn_fwd(cfg, ctx, p["xattn"], h, None,
+                               subcol(col, "xattn"), enc_out=enc_out)
         return _ffn_tail(cfg, ctx, p, x, col, with_aux=True)
     if kind == BLOCK_RGLRU:
         x = x + R.rglru_fwd(cfg, ctx, p["rglru"], h, subcol(col, "rglru"))
@@ -171,13 +270,21 @@ def _block_fwd(cfg: ModelConfig, ctx: QuantCtx, kind: str, p: Dict,
 
 
 def _block_prefill(cfg: ModelConfig, ctx: QuantCtx, kind: str, p: Dict,
-                   x: torch.Tensor, rope, **attn_kw):
-    """One layer of the prefill: (x, the layer's serving cache)."""
-    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+                   x: torch.Tensor, rope, enc_out=None, **attn_kw):
+    """One layer of the prefill: (x, the layer's serving cache; a decoder
+    layer of an encoder-decoder adds its frozen ``"cross"`` cache)."""
+    h = _norm(cfg, x, p["ln1"])
     if kind in ATTENTION_BLOCKS:
         a, c = B.attn_prefill(cfg, ctx, p["attn"], h, rope,
                               window=_window(cfg, kind), **attn_kw)
-        return _ffn_tail(cfg, ctx, p, x + a)[0], c
+        x = x + a
+        if "xattn" in p:
+            h = _norm(cfg, x, p["ln_x"])
+            a, c["cross"] = B.attn_prefill(
+                cfg, ctx, p["xattn"], h, None, enc_out=enc_out,
+                row_lengths=attn_kw.get("row_lengths"))
+            x = x + a
+        return _ffn_tail(cfg, ctx, p, x)[0], c
     if kind == BLOCK_RGLRU:
         y, c = R.rglru_prefill(cfg, ctx, p["rglru"], h)
         return _ffn_tail(cfg, ctx, p, x + y)[0], c
@@ -189,14 +296,21 @@ def _block_prefill(cfg: ModelConfig, ctx: QuantCtx, kind: str, p: Dict,
 def _block_decode(cfg: ModelConfig, ctx: QuantCtx, kind: str, p: Dict,
                   x1: torch.Tensor, cache: Dict, positions: torch.Tensor,
                   block_tbl, rope) -> torch.Tensor:
-    """One layer of a decode step; the layer's cache is updated in place."""
-    h = rms_norm(x1, p["ln1"], cfg.norm_eps)
+    """One layer of a decode step; the layer's cache is updated in place
+    (a cross cache is read, never written)."""
+    h = _norm(cfg, x1, p["ln1"])
     if kind in ATTENTION_BLOCKS:
         # a local layer's ring (min(cache_len, window) rows) keeps its
         # window: attn_decode attends over the ring's min(length, Sc) rows
         a, _ = B.attn_decode(cfg, ctx, p["attn"], h, cache, positions,
                              block_tbl=block_tbl, rope=rope)
-        return _ffn_tail(cfg, ctx, p, x1 + a)[0]
+        x1 = x1 + a
+        if "xattn" in p:
+            h = _norm(cfg, x1, p["ln_x"])
+            a, _ = B.attn_decode(cfg, ctx, p["xattn"], h, cache["cross"],
+                                 positions, cross=True)
+            x1 = x1 + a
+        return _ffn_tail(cfg, ctx, p, x1)[0]
     if kind == BLOCK_RGLRU:
         y, _ = R.rglru_decode(cfg, ctx, p["rglru"], h, cache)
         return _ffn_tail(cfg, ctx, p, x1 + y)[0]
@@ -209,37 +323,41 @@ def forward(cfg: ModelConfig, params: Dict, ctx: QuantCtx, batch: Dict,
             collect_stats: bool = False,
             remat: Union[bool, str] = False):
     """Training / teacher / calibration forward over ``batch["tokens"]``
-    (B, S). Returns (logits (B, S, V), {"moe_aux", ["qstats"]}):
+    (B, S) (and an encoder-decoder's ``batch["frames"]``, a VLM's
+    ``batch["patches"]`` prefix and ``batch["positions"]``). Returns
+    (logits (B, S + vision prefix, V), {"moe_aux", ["qstats"]}):
     ``moe_aux`` is the MoE layers' load-balance aux summed over layers
     (zero without experts).
 
     ``collect_stats`` (with ``ctx.mode == "calib"``) returns each
     activation site's |x| statistic under ``aux["qstats"]``, a tree that
-    mirrors the params (``{"layers": [...], "head": ...}``).
-    ``remat`` (True or ``"block"``) recomputes each layer in the backward
+    mirrors the params (``{"layers": [...], "head": ...}``; an encoder's
+    under ``"encoder"``, keyed as the reference keys it).
+    ``remat`` (True or ``"block"``) recomputes each layer (the encoder's
+    too) in the backward
     instead of keeping its activations (``torch.utils.checkpoint``, the
     reference's ``jax.checkpoint`` around the scanned layer body).
     """
     _check_supported(cfg)
-    tokens = batch["tokens"]
-    x = params["embed"]["w"][tokens]
-    S = tokens.shape[1]
-    rope = _rope(cfg, torch.arange(S, device=x.device))
+    x = _embed(cfg, params, batch)
+    rope = _rope_for(cfg, batch, x.shape[1], x.device)
     col: Optional[Dict] = {} if collect_stats else None
+    enc_out = (_encode(cfg, ctx, params, batch, col, remat)
+               if cfg.is_encdec else None)
     layer_cols: List[Optional[Dict]] = []
     moe_aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for kind, p in zip(cfg.layer_kinds(), params["layers"]):
         c = {} if collect_stats else None
         if remat and torch.is_grad_enabled():
             x, a = torch.utils.checkpoint.checkpoint(
-                _block_fwd, cfg, ctx, kind, p, x, rope, c,
+                _block_fwd, cfg, ctx, kind, p, x, rope, c, enc_out,
                 use_reentrant=False)
         else:
-            x, a = _block_fwd(cfg, ctx, kind, p, x, rope, c)
+            x, a = _block_fwd(cfg, ctx, kind, p, x, rope, c, enc_out)
         if a is not None:
             moe_aux = moe_aux + a
         layer_cols.append(c)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    x = _norm(cfg, x, params["final_norm"])
     logits = head_logits(cfg, params, ctx, x, col)
     aux = {"moe_aux": moe_aux}
     if collect_stats:
@@ -248,6 +366,7 @@ def forward(cfg: ModelConfig, params: Dict, ctx: QuantCtx, batch: Dict,
     return logits, aux
 
 
+@torch.no_grad()
 def prefill(cfg: ModelConfig, params: Dict, ctx: QuantCtx, batch: Dict,
             cache_budget: int = 0, page_size: int = 0):
     """Forward pass that also emits the quantized serving cache.
@@ -258,30 +377,44 @@ def prefill(cfg: ModelConfig, params: Dict, ctx: QuantCtx, batch: Dict,
     cache capacity (>= prompt length). ``page_size`` > 0 emits
     block-shaped caches (B, nb, Hkv, page_size, D) for the paged engine to
     scatter into its pool. ``lengths`` and ``page_size`` need an
-    attention-only decoder: a recurrent scan would fold the padding into
-    its state. Returns (logits (B, 1, V),
+    attention-only decoder without an encoder: a recurrent scan would
+    fold the padding into its state. An encoder-decoder reads
+    ``batch["frames"]`` and each layer's cache holds the frozen
+    ``"cross"`` K/V of the encoder's output; a VLM reads ``batch
+    ["patches"]`` (a prefix counted in the position) and ``batch
+    ["positions"]``. It serves and runs without a gradient, so an
+    encoder's attention is the flash kernel on CUDA
+    (``blocks.attn_fwd``). Returns (logits (B, 1, V),
     {"layers": [per-layer cache], "position": (B,)}).
     """
     _check_supported(cfg)
-    tokens = batch["tokens"]
     lengths = batch.get("lengths")
-    if (lengths is not None or page_size) and not _attention_only(cfg):
+    if (lengths is not None or page_size) and (cfg.is_encdec or
+                                               not _attention_only(cfg)):
         raise ValueError(
             "batch['lengths'] (right-padded prefill) and page_size (paged "
             "cache) require an attention-only decoder; "
-            f"{cfg.name!r} has block pattern {cfg.block_pattern}")
-    x = params["embed"]["w"][tokens]
-    Bn, S = tokens.shape
-    rope = _rope(cfg, torch.arange(S, device=x.device))
-    # CUDA attends row by row over the true lengths: read them once
-    rows = lengths.tolist() if lengths is not None and x.is_cuda else None
+            f"{cfg.name!r} has block pattern {cfg.block_pattern}"
+            + (" and an encoder" if cfg.is_encdec else ""))
+    x = _embed(cfg, params, batch)
+    Bn, S = x.shape[0], x.shape[1]
+    rope = _rope_for(cfg, batch, S, x.device)
+    # CUDA attends row by row over the true lengths, read here once (an
+    # encoder-decoder's rows are whole)
+    rows = None
+    if x.is_cuda and lengths is not None:
+        rows = lengths.tolist()
+    elif x.is_cuda and cfg.is_encdec:
+        rows = [S] * Bn
+    enc_out = (_encode(cfg, ctx, params, batch, None) if cfg.is_encdec
+               else None)
     caches = []
     for kind, p in zip(cfg.layer_kinds(), params["layers"]):
-        x, c = _block_prefill(cfg, ctx, kind, p, x, rope,
+        x, c = _block_prefill(cfg, ctx, kind, p, x, rope, enc_out=enc_out,
                               cache_len=cache_budget or S, lengths=lengths,
                               page_size=page_size, row_lengths=rows)
         caches.append(c)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    x = _norm(cfg, x, params["final_norm"])
     if lengths is None:
         x_last = x[:, -1:]
         position = torch.full((Bn,), S, dtype=torch.int32, device=x.device)
@@ -299,19 +432,26 @@ def decode_step(cfg: ModelConfig, params: Dict, ctx: QuantCtx,
     """One decode step. tokens1 (B, 1) -> (logits (B, 1, V), cache).
 
     The cache is updated in place (each attention layer's new K/V row and
-    length, each recurrent layer's state, and ``position``) and returned. A ``block_tbl`` in the cache switches the
-    layers to the paged layout: commits and reads go through the per-slot
-    block table into the pool (see ``init_cache`` with ``num_blocks``).
+    length, each recurrent layer's state, and ``position``) and returned.
+    A ``block_tbl`` in the cache switches the layers to the paged layout:
+    commits and reads go through the per-slot block table into the pool
+    (see ``init_cache`` with ``num_blocks``). Learned positions are added
+    at ``min(position, max_position_embeddings - 1)``; a VLM decodes with
+    plain RoPE at its position (after the patch prefix), as the
+    reference does.
     """
     positions = cache["position"]
     block_tbl = cache.get("block_tbl")
     x = params["embed"]["w"][tokens1]
+    if "pos_embed" in params:
+        pe = params["pos_embed"]["w"]
+        x = x + pe[torch.clamp_max(positions.long(), pe.shape[0] - 1)][:, None]
     rope = _rope(cfg, positions[:, None])   # once per step, for every layer
     for kind, p, c in zip(cfg.layer_kinds(), params["layers"],
                           cache["layers"]):
         x = _block_decode(cfg, ctx, kind, p, x, c, positions, block_tbl,
                           rope)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    x = _norm(cfg, x, params["final_norm"])
     logits = head_logits(cfg, params, ctx, x)
     cache["position"] += 1
     return logits, cache
@@ -351,11 +491,11 @@ def _tail_stack(cfg: ModelConfig, params: Dict, ctx: QuantCtx,
     the batched-window contract cannot drift apart. Returns the
     final-norm'd x."""
     for p, c in zip(params["layers"], cache["layers"]):
-        h = rms_norm(x, p["ln1"], cfg.norm_eps)
+        h = _norm(cfg, x, p["ln1"])
         a, _ = attn_fn(cfg, ctx, p["attn"], h, rope, c, tbl, slot, offset,
                        chunk_len)
         x = _ffn_tail(cfg, ctx, p, x + a)[0]
-    return rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return _norm(cfg, x, params["final_norm"])
 
 
 def prefill_tail(cfg: ModelConfig, params: Dict, ctx: QuantCtx,
@@ -455,15 +595,18 @@ def init_cache(cfg: ModelConfig, ctx: QuantCtx, batch_size: int,
     per-layer views under ``"layers"``, and a top-level ``block_tbl``
     (batch_size, table_len) int32 mapping each slot's logical block i to
     a pool block, initialised to the ``num_blocks`` sentinel. It needs a
-    full-attention decoder.
+    full-attention decoder without cross-attention.
+
+    An encoder-decoder's attention layers also hold a ``"cross"`` cache
+    of ``cfg.encoder_seq`` rows, which the prefill fills.
     """
     _check_supported(cfg)
-    if num_blocks and (cfg.sliding_window or any(
+    if num_blocks and (cfg.is_encdec or cfg.sliding_window or any(
             k != BLOCK_ATTN for k in cfg.block_pattern)):
         raise ValueError(
             "paged KV cache requires a full-attention decoder (no sliding "
-            f"window, no recurrence); {cfg.name!r} has block pattern "
-            f"{cfg.block_pattern}")
+            f"window, no recurrence, no cross-attention); {cfg.name!r} has "
+            f"block pattern {cfg.block_pattern}")
     qdt = cache_dtype(ctx)
     position = torch.zeros((batch_size,), dtype=torch.int32, device=device)
     if num_blocks:
@@ -477,9 +620,13 @@ def init_cache(cfg: ModelConfig, ctx: QuantCtx, batch_size: int,
 
     def layer_cache(kind):
         if kind in ATTENTION_BLOCKS:
-            return B.init_attn_cache(cfg, batch_size, cache_len,
-                                     device=device,
-                                     window=_window(cfg, kind), dtype=qdt)
+            c = B.init_attn_cache(cfg, batch_size, cache_len, device=device,
+                                  window=_window(cfg, kind), dtype=qdt)
+            if cfg.is_encdec:
+                c["cross"] = B.init_attn_cache(cfg, batch_size,
+                                               cfg.encoder_seq,
+                                               device=device, dtype=qdt)
+            return c
         init = {BLOCK_RGLRU: R.init_rglru_cache,
                 BLOCK_MLSTM: R.init_mlstm_cache,
                 BLOCK_SLSTM: R.init_slstm_cache}[kind]
@@ -500,6 +647,9 @@ def clone_cache(cache: Dict) -> Dict:
         return {"pool": pool, "layers": layers,
                 "position": cache["position"].clone(),
                 "block_tbl": cache["block_tbl"].clone()}
-    return {"layers": [{k: v.clone() for k, v in c.items()}
-                       for c in cache["layers"]],
+    def clone(c):
+        return {k: clone(v) if isinstance(v, dict) else v.clone()
+                for k, v in c.items()}
+
+    return {"layers": [clone(c) for c in cache["layers"]],
             "position": cache["position"].clone()}

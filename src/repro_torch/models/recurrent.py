@@ -38,6 +38,7 @@ from repro_torch.core.qat import (QuantCtx, cache_quantize, init_linear,
                                   qlinear, quantize_act, quantize_weight_p,
                                   subcol)
 from repro_torch.core.quantizer import dequantize_int
+from repro_torch.models.common import _c, _fma, _gelu, _tanh
 
 MLSTM_CHUNK = 256
 
@@ -53,20 +54,10 @@ def _log_sigmoid(x: torch.Tensor) -> torch.Tensor:
              + torch.log1p(torch.exp(-torch.abs(nx))))
 
 
-_SQRT_2_OVER_PI = float(torch.tensor((2 / torch.pi) ** 0.5,
-                                     dtype=torch.float32))
-
-
-def _gelu(x: torch.Tensor, tanh: Callable = torch.tanh) -> torch.Tensor:
-    """``jax.nn.gelu`` (tanh approximation) in its op order, f32."""
-    x3 = x * (x * x)
-    cdf = 0.5 * (1.0 + tanh(_SQRT_2_OVER_PI * (x + 0.044715 * x3)))
-    return x * cdf
-
-
 # --------------------------------------------------------------------------
-# The reference's f32 transcendentals on the CPU. XLA:CPU evaluates exp,
-# tanh, log and log1p with its own polynomials (Eigen's and Cephes'), FMA
+# The reference's f32 transcendentals on the CPU (tanh, and the GELU that
+# uses it, are in ``models/common.py``). XLA:CPU evaluates exp, tanh, log
+# and log1p with its own polynomials (Eigen's and Cephes'), FMA
 # contracted, and its sqrt is correctly rounded; torch's CPU functions
 # round up to a few ulps apart, and in
 # the RG-LRU's gates such an ulp reaches a bf16 output now and then and is
@@ -77,19 +68,6 @@ def _gelu(x: torch.Tensor, tanh: Callable = torch.tanh) -> torch.Tensor:
 # small branch bitwise; log (log1p's branch above sqrt(2) - 1) 3.5e-4 of
 # values one ulp apart.
 # --------------------------------------------------------------------------
-
-def _c(*vals):
-    """Constants rounded to f32, as the reference's f32 code holds them."""
-    out = tuple(float(torch.tensor(v, dtype=torch.float32)) for v in vals)
-    return out if len(out) > 1 else out[0]
-
-
-def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
-    """f32 a * b + c rounded once (b, c: f32 tensors or f32 constants)."""
-    b = b.double() if isinstance(b, torch.Tensor) else b
-    c = c.double() if isinstance(c, torch.Tensor) else c
-    return (a.double() * b + c).float()
-
 
 _EXP_P = _c(1.9875691500e-4, 1.3981999507e-3, 8.3334519073e-3,
             4.1665795894e-2, 1.6666665459e-1, 5.0000001201e-1)
@@ -112,31 +90,6 @@ def _exp(x: torch.Tensor) -> torch.Tensor:
         y = _fma(y, r, c)
     y = _fma(y, z, r) + 1.0
     return (y.double() * torch.exp2(fx.double())).float()
-
-
-_TANH_NUM = _c(-2.76076847742355e-16, 2.00018790482477e-13,
-               -8.60467152213735e-11, 5.12229709037114e-08,
-               1.48572235717979e-05, 6.37261928875436e-04,
-               4.89352455891786e-03)
-_TANH_DEN = _c(1.19825839466702e-06, 1.18534705686654e-04,
-               2.26843463243900e-03, 4.89352518554385e-03)
-_TANH_CLAMP, _TANH_SMALL = _c(7.99881172180175781, 0.0004)
-
-
-def _tanh(x: torch.Tensor) -> torch.Tensor:
-    """f32 tanh; on the CPU XLA:CPU's rational approximation."""
-    if x.is_cuda:
-        return torch.tanh(x)
-    xc = torch.clamp(x, -_TANH_CLAMP, _TANH_CLAMP)
-    x2 = xc * xc
-    num = torch.full_like(x2, _TANH_NUM[0])
-    for c in _TANH_NUM[1:]:
-        num = _fma(x2, num, c)
-    num = xc * num
-    den = torch.full_like(x2, _TANH_DEN[0])
-    for c in _TANH_DEN[1:]:
-        den = _fma(x2, den, c)
-    return torch.where(torch.abs(x) < _TANH_SMALL, x, num / den)
 
 
 def _sigmoid(x: torch.Tensor) -> torch.Tensor:

@@ -159,6 +159,14 @@ class ServeEngine:
         if kv_layout not in ("dense", "paged"):
             raise ValueError(f"kv_layout must be 'dense' or 'paged', "
                              f"got {kv_layout!r}")
+        if cfg.is_encdec:
+            # an encoder-decoder's prefill needs each request's encoder
+            # input (batch["frames"]), which no request carries
+            raise ValueError(
+                f"{cfg.name!r} is an encoder-decoder: the engine serves "
+                f"decoders only (kv_layout {kv_layout!r}: no request "
+                "carries frames); serve it through models.prefill and "
+                "models.decode_step with batch['frames']")
         if admission not in ("reserve", "optimistic"):
             raise ValueError(f"admission must be 'reserve' or 'optimistic', "
                              f"got {admission!r}")

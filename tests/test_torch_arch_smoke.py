@@ -1,5 +1,7 @@
 """The reference's ``tests/test_arch_smoke.py`` on the port, over every
-architecture the port registers, and the reference cases that run on the
+architecture the port registers (all ten: an encoder-decoder's batch
+carries frames, a VLM's a patch prefix and M-RoPE positions, as the
+reference's ``_batch`` builds them), and the reference cases that run on the
 reduced qwen3-14b (``test_ptq_rotation.py``'s fixture,
 ``test_distill_qat.py::test_calibration_collect_and_merge``,
 ``test_models.py::test_calib_collector_structure_matches_layers``), its
@@ -21,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import ARCH_IDS as J_ARCH_IDS
 from repro.configs import get_config as j_get_config
 from repro.configs import get_reduced_config as j_reduced
 from repro.models import init_params as jinit
@@ -52,6 +55,26 @@ def _tokens(cfg, B, S, seed=0):
                          generator=torch.Generator().manual_seed(seed))
 
 
+def _batch(cfg, B=2, S=16, seed=0):
+    """The reference's ``_batch`` without labels: tokens, a VLM's patch
+    prefix (bf16) and (3, B, S + vision_tokens) positions, an
+    encoder-decoder's frames (bf16)."""
+    gen = torch.Generator().manual_seed(seed + 1)
+    b = {"tokens": _tokens(cfg, B, S, seed)}
+    if cfg.family == "vlm":
+        b["patches"] = torch.randn((B, cfg.vision_tokens, cfg.d_model),
+                                   generator=gen).to(torch.bfloat16)
+        b["positions"] = torch.arange(S + cfg.vision_tokens).repeat(3, B, 1)
+    if cfg.is_encdec:
+        b["frames"] = torch.randn((B, cfg.encoder_seq, cfg.d_model),
+                                  generator=gen).to(torch.bfloat16)
+    return b
+
+
+def _out_len(cfg, S):
+    return S + (cfg.vision_tokens if cfg.family == "vlm" else 0)
+
+
 @pytest.mark.parametrize("arch", ARCH_IDS)
 class TestArchSmoke:
     def test_forward_shapes_and_finite(self, arch):
@@ -59,8 +82,8 @@ class TestArchSmoke:
         params = init_params(cfg, seed=0, device="cpu")
         with torch.no_grad():
             logits, aux = forward(cfg, params, tqat.make_ctx("A8d-C8-W4"),
-                                  {"tokens": _tokens(cfg, 2, 16)})
-        assert logits.shape == (2, 16, cfg.vocab_size)
+                                  _batch(cfg, 2, 16))
+        assert logits.shape == (2, _out_len(cfg, 16), cfg.vocab_size)
         assert bool(torch.isfinite(logits.float()).all())
         assert (float(aux["moe_aux"]) > 0.0) == cfg.is_moe
 
@@ -70,9 +93,8 @@ class TestArchSmoke:
         ctx = tqat.make_ctx("A8d-C8-W4")
         B, S = 2, 16
         with torch.no_grad():
-            logits, cache = prefill(cfg, params, ctx,
-                                    {"tokens": _tokens(cfg, B, S)},
-                                    cache_budget=S + 8)
+            logits, cache = prefill(cfg, params, ctx, _batch(cfg, B, S),
+                                    cache_budget=_out_len(cfg, S) + 8)
             assert logits.shape == (B, 1, cfg.vocab_size)
             tok = torch.argmax(logits[:, -1].float(), -1).to(
                 torch.int32)[:, None]
@@ -80,7 +102,7 @@ class TestArchSmoke:
             l2, cache = decode_step(cfg, params, ctx, tok, cache)
         assert l2.shape == (B, 1, cfg.vocab_size)
         assert bool(torch.isfinite(l2.float()).all())
-        assert cache["position"].tolist() == [S + 2] * B
+        assert cache["position"].tolist() == [_out_len(cfg, S) + 2] * B
 
     def test_full_config_equals_reference(self, arch):
         """Every field of the full config equals the reference's, which
@@ -89,6 +111,29 @@ class TestArchSmoke:
         for f in dataclasses.fields(c):
             assert getattr(c, f.name) == getattr(r, f.name), f.name
         assert c.param_counts() == r.param_counts()
+
+    def test_full_config_exact_dims(self, arch):
+        """The reference's table of the assigned dimensions."""
+        cfg = get_config(arch)
+        expected = {
+            "qwen2.5-3b": (36, 2048, 16, 2, 11008, 151_936),
+            "qwen2-7b": (28, 3584, 28, 4, 18944, 152_064),
+            "qwen3-14b": (40, 5120, 40, 8, 17408, 151_936),
+            "qwen3-32b": (64, 5120, 64, 8, 25600, 151_936),
+            "whisper-large-v3": (32, 1280, 20, 20, 5120, 51_866),
+            "moonshot-v1-16b-a3b": (48, 2048, 16, 16, 1408, 163_840),
+            "mixtral-8x7b": (32, 4096, 32, 8, 14336, 32_000),
+            "recurrentgemma-2b": (26, 2560, 10, 1, 7680, 256_000),
+            "qwen2-vl-2b": (28, 1536, 12, 2, 8960, 151_936),
+            "xlstm-125m": (12, 768, 4, 4, 0, 50_304),
+        }[arch]
+        got = (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+               cfg.d_ff, cfg.vocab_size)
+        assert got == expected
+
+
+def test_all_ten_archs_registered():
+    assert len(ARCH_IDS) == 10 and sorted(ARCH_IDS) == sorted(J_ARCH_IDS)
 
 
 def test_long_context_support_flags():
