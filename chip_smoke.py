@@ -134,8 +134,25 @@ toolkit (``nvcc``). Phases, each fatal on failure (non-zero exit):
    then a tail-wave row alone against the same row beside a deeper one,
    bitwise;
 3e. optimistic admission on about 60% of the worst-case pool (spec on,
-   prefix cache off): at least one preemption, swap bytes out == in, and
-   every stream equal to reserve admission's;
+   prefix cache off, 16 new tokens a request): at least one preemption,
+   swap bytes out == in, and every stream equal to reserve admission's;
+3o. the streaming frontend on phase 3b's weights (paged, blocks of 64,
+   prefix cache on, ``sched_policy="edf"``, ``slo_shed="reject"``,
+   ``decode_block="auto"``: the probe's pick and its two chunk times),
+   through ``AsyncFrontend`` and ``ServeHTTP`` on 127.0.0.1 at an
+   ephemeral port: one warm request, then 8 SSE streams and one blocking
+   completion sharing its 160-token prefix, each equal to a batch drain of
+   the same requests on the same engine; ``/v1/metrics`` scraped mid-serve
+   and after, agreeing with ``/v1/stats``; a burst of 12 whose deadlines
+   come from the engine's TTFT predictor (exactly the 8 it predicts late
+   behind the other 4 shed, before their deadlines pass; the 4 served in
+   full); one Poisson pass of 16 arrivals, drawn up front, at half the
+   request rate the drain sustained (client TTFT from the scheduled
+   arrival, the loop's submit lag, the inbox wait, engine TTFT, tok/s,
+   goodput); the exported trace held to the client's clock (each
+   request's submit, first token and end against the step that made
+   them) and to the scheduler's latencies; launches > 0 for the paged
+   decode, gather, COW and w4a8 kernels;
 5. QAT: ``run_qat`` on qwen2.5-3b at full width and depth, A8d-C8-W4,
    2 teacher steps (autograd attention), MSE weight calibration, 4 steps
    at B 8, T 128: 253 ``fake_quant_fwd`` and 253 ``fake_quant_bwd``
@@ -234,7 +251,8 @@ toolkit (``nvcc``). Phases, each fatal on failure (non-zero exit):
    decode step's launches (48, 144, 0 dense) and logits kernels vs plain
    on rows routed alike; a tail-wave row bitwise alone and beside a
    deeper row through attention and the MoE; spec decoding at the CLI's
-   defaults (k 4, a 24-layer draft) on 4 of the requests: verify
+   defaults (k 4, a 24-layer draft) on 4 of the requests, 16 new
+   tokens each: verify
    launched, paged decode not, the accept rate and the verify-wave pairs
    dropped at capacity; expert shares, decode tok/s, TTFT, the idle
    share, peak memory;
@@ -245,8 +263,9 @@ toolkit (``nvcc``). Phases, each fatal on failure (non-zero exit):
    model-FLOPs share; kernels vs plain;
 3k. qwen3-32b at full width and 48 of 64 layers (the 64 layers and their
    packed planes pass 80 GB at the export), w4a8: one decode step's
-   logits kernels vs plain; 8 requests of three lengths on the dense
-   layout (48 ``kvq_decode_attn`` a step) and on the paged pool (48
+   logits kernels vs plain; 8 requests of three lengths, 16 new tokens
+   each, on the dense layout (48 ``kvq_decode_attn`` a step) and on the
+   paged pool (48
    ``kvq_paged_decode_attn`` a step, cold prefill, prefix cache off),
    the paged streams equal to the dense ones; tok/s, TTFT, idle, peak;
 3l. qwen2-7b at full width and depth, dense w4a8: the same (28
@@ -385,8 +404,13 @@ def import_port():
     from repro_torch.tree import tree_map
     from repro_torch.models import blocks
     from repro_torch.models.common import rms_norm
+    from repro_torch.obs import export as obs_export
+    from repro_torch.obs.metrics import parse_prometheus
     from repro_torch.obs.trace import Tracer
     from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.serve.frontend import AsyncFrontend
+    from repro_torch.serve.http import ServeHTTP
+    from repro_torch.serve.scheduler import percentile
     from repro_torch.serve.spec import SpecConfig
     return dict(get_config=get_config, get_reduced_config=get_reduced_config,
                 qat=qat, unpack_int4=unpack_int4,
@@ -404,7 +428,10 @@ def import_port():
                 rotation=rotation, parse_policy=parse_policy, rtn=rtn,
                 smoothquant=smoothquant,
                 calibration_batches=calibration_batches, tree_map=tree_map,
-                adamw_init=adamw_init)
+                adamw_init=adamw_init, obs_export=obs_export,
+                parse_prometheus=parse_prometheus,
+                AsyncFrontend=AsyncFrontend, ServeHTTP=ServeHTTP,
+                percentile=percentile)
 
 
 # --------------------------------------------------------------------------
@@ -2643,9 +2670,9 @@ def spec_summary(stats, reqs, wall, launches, tracer):
             "launches": launches}
 
 
-def check_streams(cfg, reqs, what):
+def check_streams(cfg, reqs, what, n=MAX_NEW):
     check(all(r.done for r in reqs), f"{what}: not every request finished")
-    check(all(len(r.generated) == MAX_NEW for r in reqs),
+    check(all(len(r.generated) == n for r in reqs),
           f"{what}: a request stopped short of max_new_tokens")
     check(all(0 <= t < cfg.vocab_size for r in reqs for t in r.generated),
           f"{what}: a generated token is outside the vocabulary")
@@ -2838,6 +2865,11 @@ def check_tail_rows(torch, P, cfg, dev, params, report, ffn=False,
           f"layer's FFN half)", flush=True)
 
 
+OPTIMISTIC_NEW = 16    # new tokens a request in phase 3e (its preemptions
+                       # come from prompts outgrowing a 60% pool; half of
+                       # MAX_NEW keeps them and halves the phase's time)
+
+
 def serve_optimistic(torch, P, cfg, dev, params, report):
     """The paged phase's requests, prefix cache off, under optimistic
     admission (speculative decoding at the CLI's defaults) on a pool of
@@ -2849,18 +2881,22 @@ def serve_optimistic(torch, P, cfg, dev, params, report):
     quantized where a computed one is not."""
     def run(**kw):
         reqs = shared_prefix_requests(P, cfg, 2 * SLOTS, 200, seed=14)
+        for r in reqs:
+            r.max_new_tokens = OPTIMISTIC_NEW
         tracer = P["Tracer"](capacity=1 << 16)
         eng = paged_engine(P, cfg, params, dev, prefix_cache=False,
                            max_seq_len=PAGED_TOKENS, trace=tracer, **kw)
         stats, launches, wall = drive(torch, P, eng, reqs)
-        check_streams(cfg, reqs, f"optimistic phase {kw}")
+        check_streams(cfg, reqs, f"optimistic phase {kw}",
+                      n=OPTIMISTIC_NEW)
         check(stats["free_blocks"] == eng.num_blocks,
               f"optimistic phase {kw}: blocks leaked after the drain")
         return reqs, stats, launches, wall, tracer
 
     reqs, _, _, _, _ = run()                          # reserve, plain decode
     reserve_streams = {r.uid: r.generated for r in reqs}
-    need = sorted(-(-(len(r.prompt) + MAX_NEW - 1) // 64) for r in reqs)
+    need = sorted(-(-(len(r.prompt) + OPTIMISTIC_NEW - 1) // 64)
+                  for r in reqs)
     worst = sum(need[-SLOTS:])
     nb = max(need[-1], int(0.6 * worst))
     reqs, stats, launches, wall, tracer = run(
@@ -2886,6 +2922,411 @@ def serve_optimistic(torch, P, cfg, dev, params, report):
           f"admission's", flush=True)
 
 
+# --------------------------------------------------------------------------
+# phase 3o: the streaming frontend, HTTP, SLO admission and observability
+# --------------------------------------------------------------------------
+
+FRONTEND_NEW = 8               # new tokens of a phase-3o request
+FRONTEND_STREAMS = 8           # SSE streams beside one blocking completion
+BURST_ONTIME, BURST_HOPELESS = 4, 8
+POISSON_REQUESTS = 16          # nearest-rank p95 of 16 is the 15th
+DELIVERY_TOL_S = 0.25          # a span reaches the loop after its step
+POISSON_DEADLINE_MS = 5000.0
+
+
+def frontend_body(r):
+    """The /v1/completions body of one engine Request."""
+    return {"prompt": [int(t) for t in r.prompt],
+            "max_tokens": r.max_new_tokens, "temperature": r.temperature,
+            "top_k": r.top_k, "seed": r.seed}
+
+
+async def http_request(asyncio, port, method, path, payload=None):
+    """One HTTP/1.1 exchange: (status, body bytes)."""
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    body = json.dumps(payload).encode() if payload is not None else b""
+    writer.write(b"%s %s HTTP/1.1\r\nContent-Length: %d\r\n\r\n"
+                 % (method.encode(), path.encode(), len(body)) + body)
+    await writer.drain()
+    raw = await reader.read()
+    writer.close()
+    await writer.wait_closed()
+    header, _, out = raw.partition(b"\r\n\r\n")
+    return int(header.split()[1]), out
+
+
+async def sse_completion(asyncio, port, payload):
+    """One streamed completion: its uid, tokens, span count, finish
+    reason and the client's seconds to the first token."""
+    t0 = time.perf_counter()
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    body = json.dumps(dict(payload, stream=True)).encode()
+    writer.write(b"POST /v1/completions HTTP/1.1\r\n"
+                 b"Content-Length: %d\r\n\r\n" % len(body) + body)
+    await writer.drain()
+    status = (await reader.readline()).split()
+    check(status[1] == b"200", f"phase 3o: SSE status {status}")
+    while (await reader.readline()) not in (b"\r\n", b"\n", b""):
+        pass
+    out = {"tokens": [], "spans": 0, "done": False, "ttft_s": None}
+    async for raw in reader:
+        line = raw.decode().strip()
+        if not line.startswith("data: "):
+            continue
+        if line == "data: [DONE]":
+            out["done"] = True
+            break
+        chunk = json.loads(line[len("data: "):])
+        choice = chunk["choices"][0]
+        out["uid"] = int(chunk["id"].split("-")[1])
+        if choice["token_ids"] and out["ttft_s"] is None:
+            out["ttft_s"] = time.perf_counter() - t0
+        out["tokens"] += choice["token_ids"]
+        out["spans"] += 1
+        out["reason"] = choice["finish_reason"]
+    writer.close()
+    await writer.wait_closed()
+    return out
+
+
+def serve_frontend(torch, P, cfg, dev, params, report):
+    """Phase 3o: qwen2.5-3b at full width served through the port's
+    asyncio frontend and HTTP endpoint (see the module docstring)."""
+    import asyncio
+    counted = counted_kernels(P)
+    for fn in counted.values():
+        fn.launches = 0
+    t_phase = time.perf_counter()
+    tracer = P["Tracer"](capacity=1 << 16)
+    eng = paged_engine(P, cfg, params, dev, decode_block="auto",
+                       sched_policy="edf", slo_shed="reject", trace=tracer)
+    probe = eng.decode_block_probe
+    check(probe is not None and eng.decode_block == probe["pick"]
+          in (4, 8, 16, 32), f"phase 3o: decode_block auto probe {probe}")
+    print(f"phase 3o: decode_block auto picked {probe['pick']}: a chunk "
+          f"of 1 step {1e3 * probe['t1_s']:.2f} ms, of 8 "
+          f"{1e3 * probe['t8_s']:.2f} ms ({1e3 * probe['per_step_s']:.2f} "
+          f"ms a step, {1e3 * probe['overhead_s']:.2f} ms fixed)",
+          flush=True)
+    reqs = shared_prefix_requests(P, cfg, FRONTEND_STREAMS + 2, 0, seed=21)
+    for r in reqs:
+        r.max_new_tokens = FRONTEND_NEW
+    warm, streamed, blocking = reqs[0], reqs[1:-1], reqs[-1]
+
+    # (a) HTTP: the warm request registers the shared prefix, then 8 SSE
+    # streams and one blocking completion arrive together; each finds the
+    # same 160 cached tokens whatever the arrival order, so each stream
+    # must equal a batch drain of the same requests
+    async def http_pass():
+        async with P["AsyncFrontend"](eng) as fe:
+            async with P["ServeHTTP"](fe, port=0) as srv:
+                port = srv.port
+                code, _ = await http_request(asyncio, port, "POST",
+                                             "/v1/completions",
+                                             frontend_body(warm))
+                check(code == 200, f"phase 3o: warm request HTTP {code}")
+                t0 = time.perf_counter()
+                tasks = [asyncio.create_task(sse_completion(
+                    asyncio, port, frontend_body(r))) for r in streamed]
+                tasks.append(asyncio.create_task(http_request(
+                    asyncio, port, "POST", "/v1/completions",
+                    frontend_body(blocking))))
+                for _ in range(200):       # every request reached the queue
+                    if len(fe._inbox) + len(fe._streams) >= len(tasks):
+                        break
+                    await asyncio.sleep(0.01)
+                mid = await http_request(asyncio, port, "GET", "/v1/metrics")
+                outs = await asyncio.gather(*tasks)
+                wall = time.perf_counter() - t0
+                after = await http_request(asyncio, port, "GET",
+                                           "/v1/metrics")
+                st = await http_request(asyncio, port, "GET", "/v1/stats")
+                health = await http_request(asyncio, port, "GET", "/health")
+        return outs, mid, after, st, health, wall
+
+    outs, mid, after, st, health, http_wall = asyncio.run(http_pass())
+    sse, (bcode, bbody) = outs[:-1], outs[-1]
+    check(health == (200, b'{"status": "ok"}'), f"phase 3o: /health {health}")
+    check(bcode == 200, f"phase 3o: blocking completion HTTP {bcode}")
+    bjson = json.loads(bbody)
+    check(all(o["done"] and o["reason"] == "length"
+              and len(o["tokens"]) == FRONTEND_NEW for o in sse),
+          "phase 3o: an SSE stream ended short or without [DONE]")
+    check(bjson["choices"][0]["finish_reason"] == "length" and len(
+        bjson["choices"][0]["token_ids"]) == FRONTEND_NEW,
+        f"phase 3o: blocking completion {bjson}")
+    stats_http = json.loads(st[1])
+    pm = P["parse_prometheus"](mid[1].decode())
+    pa = P["parse_prometheus"](after[1].decode())
+    check(pm["serve_pending_requests"] + pm["serve_resident_requests"] > 0,
+          f"phase 3o: the mid-serve scrape saw nothing in flight: {pm}")
+    for key, name in (("tokens_out", "serve_tokens_out_total"),
+                      ("requests_finished", "serve_requests_finished_total"),
+                      ("decode_steps", "serve_decode_steps_total"),
+                      ("prefix_hit_tokens", "serve_prefix_hit_tokens_total"),
+                      ("cow_copies", "serve_cow_copies_total"),
+                      ("free_blocks", "serve_free_blocks")):
+        check(pa[name] == stats_http[key],
+              f"phase 3o: /v1/metrics {name} {pa[name]} != /v1/stats "
+              f"{key} {stats_http[key]}")
+        check(key == "free_blocks" or pm[name] <= pa[name],
+              f"phase 3o: mid-serve {name} {pm[name]} > final {pa[name]}")
+    check(pa["serve_ttft_seconds_count"] == stats_http["requests_finished"]
+          == FRONTEND_STREAMS + 2,
+          f"phase 3o: TTFT histogram count {pa['serve_ttft_seconds_count']}")
+    check(stats_http["prefix_hit_tokens"] > 0 and stats_http["cow_copies"]
+          > 0, f"phase 3o: no prefix hit or COW: {stats_http}")
+
+    # the batch drain of the same requests (their frontend uids: the warm
+    # one got 0) on the same engine
+    eng.reset()
+    uids = [o["uid"] for o in sse] + [int(bjson["id"].split("-")[1])]
+    toks = [o["tokens"] for o in sse] + [bjson["choices"][0]["token_ids"]]
+
+    def again(r, uid):
+        return P["Request"](uid=uid, prompt=r.prompt,
+                            max_new_tokens=FRONTEND_NEW,
+                            temperature=r.temperature, top_k=r.top_k,
+                            seed=r.seed)
+
+    w = again(warm, 0)
+    eng.submit(w)
+    eng.run_until_drained()
+    drain = [again(r, u) for r, u in zip(streamed + [blocking], uids)]
+    for r in drain:
+        eng.submit(r)
+    t0 = time.perf_counter()
+    dstats = eng.run_until_drained()
+    torch.cuda.synchronize()
+    drain_wall = time.perf_counter() - t0
+    differ = [r.uid for r, t in zip(drain, toks) if r.generated != t]
+    check(not differ, f"phase 3o: HTTP streams differ from the batch drain "
+                      f"for uids {differ}")
+    check_streams(cfg, drain, "phase 3o drain", n=FRONTEND_NEW)
+    closed_rps = len(drain) / drain_wall
+
+    # (b) an over-capacity burst under EDF + reject shedding. Four on-time
+    # requests (priority 0, 120 s deadlines) queue ahead of eight in a
+    # lower class (priority 1) whose deadlines come from the engine's own
+    # TTFT predictor, its rates as the drain measured them: each is half
+    # its own prompt's predicted prefill past the four's predicted TTFT,
+    # so it would be on time at the head of the queue and is late behind
+    # the four (a rejected request's prompt never joins the backlog). The
+    # margins are far above the time between submit and the shed pass,
+    # and no deadline has passed when the pass runs: the predictor
+    # decides.
+    burst = shared_prefix_requests(P, cfg, BURST_ONTIME + BURST_HOPELESS,
+                                   100, seed=22)
+    lens = [len(r.prompt) for r in burst]
+    check(eng._pred_per_tok is not None and eng._pred_round_s is not None,
+          "phase 3o: the drain left the TTFT predictor cold")
+    ahead = sum(lens[:BURST_ONTIME])
+    base = eng._predict_ttft_s(ahead)
+    deadline_s = ([120.0] * BURST_ONTIME
+                  + [base + 0.5 * eng._pred_per_tok * n
+                     for n in lens[BURST_ONTIME:]])
+    predicted_s = ([eng._predict_ttft_s(sum(lens[:i + 1]))
+                    for i in range(BURST_ONTIME)]
+                   + [eng._predict_ttft_s(ahead + n)
+                      for n in lens[BURST_ONTIME:]])
+    alone_s = [eng._predict_ttft_s(n) for n in lens]
+    want_shed = [i for i, (p, d) in enumerate(zip(predicted_s, deadline_s))
+                 if p > d]
+    check(want_shed == list(range(BURST_ONTIME, len(burst)))
+          and all(a < d for a, d in zip(alone_s, deadline_s)),
+          f"phase 3o: burst deadlines {deadline_s} against predictions "
+          f"{predicted_s} (alone {alone_s}) do not split four on time "
+          f"from eight over capacity")
+    shed0 = eng.stats()["requests_shed"]
+
+    async def burst_pass():
+        async with P["AsyncFrontend"](eng) as fe:
+            hs = [await fe.submit(r.prompt, max_new_tokens=FRONTEND_NEW,
+                                  deadline_ms=1e3 * d,
+                                  priority=int(i >= BURST_ONTIME))
+                  for i, (r, d) in enumerate(zip(burst, deadline_s))]
+            got = [await h.tokens() for h in hs]
+            return hs, got, await fe.stats()
+
+    hs, got, bstats = asyncio.run(burst_pass())
+    shed = [i for i, h in enumerate(hs) if h.shed]
+    check(shed == want_shed and all(t == [] for t in got[BURST_ONTIME:]),
+          f"phase 3o: burst shed {shed}, the predictor's set {want_shed}")
+    shed_early_s = [h.request._deadline_t - h.finish_t for h in hs
+                    if h.shed]
+    check(all(x > 0 for x in shed_early_s),
+          f"phase 3o: a burst request was shed after its deadline had "
+          f"passed ({shed_early_s} s to spare): the clock decided, not "
+          f"the predictor")
+    check(all(len(t) == FRONTEND_NEW and all(0 <= x < cfg.vocab_size
+                                             for x in t)
+              for t in got[:BURST_ONTIME]),
+          "phase 3o: an on-time burst request was not served in full")
+    check(bstats["requests_shed"] - shed0 == BURST_HOPELESS,
+          f"phase 3o: requests_shed {bstats['requests_shed']}")
+    ontime_ttft_s = [h.request._timing.ttft for h in hs[:BURST_ONTIME]]
+
+    # (c) open loop: Poisson arrivals at half the drain's request rate,
+    # with a first-token deadline. The arrival times are drawn up front
+    # and client TTFT counts from them, so a loop the step worker holds
+    # back delays the submission (the lag is reported), not the schedule.
+    # The trace covers this pass only.
+    import numpy as np
+    eng.reset()
+    rate = 0.5 * closed_rps
+    pois = shared_prefix_requests(P, cfg, POISSON_REQUESTS, 200, seed=23)
+
+    async def poisson_pass():
+        gaps = np.random.default_rng(24).exponential(1.0 / rate, len(pois))
+        async with P["AsyncFrontend"](
+                eng, default_deadline_ms=POISSON_DEADLINE_MS) as fe:
+            t0 = time.perf_counter()
+            due = t0 + np.cumsum(gaps)
+            hs = []
+            for r, at in zip(pois, due):
+                await asyncio.sleep(max(0.0, at - time.perf_counter()))
+                hs.append(await fe.submit(
+                    r.prompt, max_new_tokens=FRONTEND_NEW,
+                    temperature=r.temperature, top_k=r.top_k, seed=r.seed))
+            got = [await h.tokens() for h in hs]
+            st = await fe.stats()
+        return due.tolist(), hs, got, st, time.perf_counter() - t0
+
+    due, hs, got, pstats, pwall = asyncio.run(poisson_pass())
+    served = [(at, h, t) for at, h, t in zip(due, hs, got) if not h.shed]
+    check(served and all(len(t) == FRONTEND_NEW for _, _, t in served),
+          "phase 3o: a Poisson request was cut short")
+    client_ttft = [h.first_token_t - at for at, h, _ in served]
+    submit_lag = [h.submit_t - at for at, h in zip(due, hs)]
+    met = sum(1 for x in client_ttft if x <= POISSON_DEADLINE_MS / 1e3)
+    trace = P["obs_export"].chrome_trace(tracer)
+    bd = P["obs_export"].step_breakdown(trace)
+    ra = P["obs_export"].request_attribution(trace)
+    cs = P["obs_export"].compile_split(trace)
+    check(ra["finished"] == len(served) and ra["reconcile_max_err"] <= 0.05,
+          f"phase 3o: trace attribution {ra}")
+
+    # the trace against the client's clock, which no span feeds: each
+    # request's engine-side submit follows the frontend's; its first token
+    # reaches the event loop after the trace records it, and it and the
+    # request's end reach the loop inside the step that made them or at
+    # most DELIVERY_TOL_S after that step ended (the engine streams the
+    # end a moment before the scheduler records ``finished``)
+    def at_s(e):
+        return tracer.t0 + e["ts"] / 1e6
+    steps = sorted((at_s(e), at_s(e) + e["dur"] / 1e6)
+                   for e in trace["traceEvents"]
+                   if e["ph"] == "X" and e["name"] == "step")
+    life = {}
+    for e in trace["traceEvents"]:
+        if e.get("cat") == "request" and e["ph"] == "n":
+            life.setdefault(e["id"], {}).setdefault(e["args"]["event"],
+                                                    at_s(e))
+
+    def step_of(t):
+        return next(((a, b) for a, b in steps if a <= t <= b), None)
+
+    inbox_wait, delivery = [], []
+    for at, h, _ in served:
+        ev = life.get(h.request.uid, {})
+        t_sub, t_first, t_fin = (ev.get("submit"), ev.get("first_token"),
+                                 ev.get("finished"))
+        check(None not in (t_sub, t_first, t_fin),
+              f"phase 3o: uid {h.request.uid} lifecycle {sorted(ev)}")
+        for what, t_eng, t_cli in (("first token", t_first,
+                                    h.first_token_t),
+                                   ("finish", t_fin, h.finish_t)):
+            st = step_of(t_eng)
+            check(st is not None and st[0] <= t_cli <= st[1] + DELIVERY_TOL_S
+                  and (what == "finish" or t_eng <= t_cli),
+                  f"phase 3o: uid {h.request.uid}'s {what} reached the "
+                  f"loop at {t_cli}, traced at {t_eng} in step {st}")
+            if what == "first token":
+                delivery.append(t_cli - st[1])
+        check(h.submit_t <= t_sub, f"phase 3o: uid {h.request.uid} was "
+                                   f"traced before the client submitted")
+        inbox_wait.append(t_sub - h.submit_t)
+    launches = {n: fn.launches for n, fn in counted.items()}
+    for name in ("kvq_paged_decode_attn", "gather_dequant_paged_kv",
+                 "pool_block_copy", "w4a8_matmul"):
+        check(launches[name] > 0, f"phase 3o: {name} never launched: "
+                                  f"{launches}")
+    check(launches["kvq_decode_attn"] == 0,
+          f"phase 3o: the dense decode kernel ran: {launches}")
+    http_ttft = [o["ttft_s"] for o in sse]
+    out = {
+        "decode_block_probe": probe,
+        "http": {"streams": len(sse), "wall_s": http_wall,
+                 "client_ttft_n": len(http_ttft),
+                 "client_ttft_p50_s": P["percentile"](http_ttft, 50),
+                 "client_ttft_p95_s": P["percentile"](http_ttft, 95),
+                 "sse_spans": [o["spans"] for o in sse],
+                 "engine_ttft_p50_s": stats_http["ttft_p50_s"],
+                 "engine_ttft_p95_s": stats_http["ttft_p95_s"],
+                 "tokens_out": stats_http["tokens_out"],
+                 "prefix_hit_tokens": stats_http["prefix_hit_tokens"],
+                 "cow_copies": stats_http["cow_copies"],
+                 "tail_waves": stats_http["tail_waves"],
+                 "metrics_ttft_p95_s": stats_http["metrics"]["ttft"][
+                     "p95_s"]},
+        "drain": {"requests": len(drain), "wall_s": drain_wall,
+                  "requests_per_s": closed_rps,
+                  "tokens_per_s": dstats["tokens_out"] / drain_wall,
+                  "ttft_p50_s": dstats["ttft_p50_s"],
+                  "decode_step_ms": 1e3 * dstats["decode_step_s"]},
+        "burst": {"requests": len(burst), "shed": len(shed),
+                  "deadline_s": deadline_s, "predicted_ttft_s": predicted_s,
+                  "predicted_alone_s": alone_s,
+                  "shed_before_deadline_min_s": min(shed_early_s),
+                  "ontime_engine_ttft_s": ontime_ttft_s,
+                  "pred_per_prompt_token_s": eng._pred_per_tok,
+                  "pred_round_s": eng._pred_round_s},
+        "poisson": {"requests": len(pois), "rate_rps": rate,
+                    "wall_s": pwall, "shed": len(pois) - len(served),
+                    "deadline_ms": POISSON_DEADLINE_MS,
+                    "client_ttft_n": len(client_ttft),
+                    "client_ttft_p50_s": P["percentile"](client_ttft, 50),
+                    "client_ttft_p95_s": P["percentile"](client_ttft, 95),
+                    "submit_lag_p50_s": P["percentile"](submit_lag, 50),
+                    "submit_lag_max_s": max(submit_lag),
+                    "inbox_wait_p50_s": P["percentile"](inbox_wait, 50),
+                    "inbox_wait_max_s": max(inbox_wait),
+                    "delivery_after_step_max_s": max(delivery),
+                    "engine_ttft_n": pstats["requests_finished"],
+                    "engine_ttft_p50_s": pstats["ttft_p50_s"],
+                    "engine_ttft_p95_s": pstats["ttft_p95_s"],
+                    "trace_ttft_p50_s": ra["ttft"]["p50_s"],
+                    "tokens_per_s": pstats["tokens_out"] / pwall,
+                    "goodput_rps": met / pwall,
+                    "slo_attainment": met / len(pois),
+                    "decode_step_ms": 1e3 * pstats["decode_step_s"]},
+        "trace": {"step_s": bd["step"]["total_s"],
+                  "breakdown_pct": {k: v["pct_of_step"]
+                                    for k, v in bd.items()},
+                  "compile_calls": sum(d["compile_calls"]
+                                       for d in cs.values()),
+                  "reconcile_max_err": ra["reconcile_max_err"]},
+        "launches": launches,
+        "phase_s": time.perf_counter() - t_phase}
+    report["serve_frontend"] = out
+    print("serve_frontend " + json.dumps(out), flush=True)
+    p = out["poisson"]
+    print(f"phase 3o: {len(sse)} SSE streams + 1 blocking completion equal "
+          f"to the batch drain; client TTFT p50 (n={len(http_ttft)}) "
+          f"{1e3 * out['http']['client_ttft_p50_s']:.0f} ms; burst shed "
+          f"{len(shed)} of {len(burst)}, the predictor's set; Poisson at "
+          f"{rate:.3f} req/s: client TTFT from the scheduled arrival "
+          f"(n={p['client_ttft_n']}) p50 "
+          f"{1e3 * p['client_ttft_p50_s']:.0f} ms p95 "
+          f"{1e3 * p['client_ttft_p95_s']:.0f} ms (engine p50 "
+          f"{1e3 * p['engine_ttft_p50_s']:.0f} ms), submissions late by "
+          f"up to {1e3 * p['submit_lag_max_s']:.0f} ms, inbox wait up to "
+          f"{1e3 * p['inbox_wait_max_s']:.0f} ms, {p['tokens_per_s']:.1f} "
+          f"tok/s, goodput {p['goodput_rps']:.3f} req/s; phase "
+          f"{out['phase_s']:.1f} s", flush=True)
+    return launches
+
+
 def profile_decode(torch, P, cfg, eng, report, key="serve"):
     """Device busy time of decode chunks, from the profiler's CUDA
     kernel records, beside the un-profiled decode step time of the serve
@@ -2901,8 +3342,9 @@ def profile_decode(torch, P, cfg, eng, report, key="serve"):
     eng.step()                          # admission + first chunk, unprofiled
     torch.cuda.synchronize()
     steps0 = eng.stats()["decode_steps"]
+    # one chunk: the profiler's records of a chunk's thousands of kernels
+    # a step take it seconds to collect, and one chunk's mean suffices
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        eng.step()
         eng.step()
         torch.cuda.synchronize()
     steps = eng.stats()["decode_steps"] - steps0
@@ -5710,6 +6152,11 @@ def ms_step_logits(torch, P, mcfg, params, dev):
                                       .float().mean())}
 
 
+CUT_NEW = 16           # new tokens a request in phases 3k and 3l, and in
+                       # moonshot's spec pass (half of MAX_NEW: the
+                       # script's time limit)
+
+
 def serve_ms(torch, P, dev, report):
     """Phase 3j: moonshot-v1-16b-a3b at full width and depth (48 layers,
     64 experts top 6) on the paged pool: A8d-C8-W4, w4a8 weights
@@ -5823,10 +6270,12 @@ def serve_ms(torch, P, dev, report):
     # one slate of (a)'s requests: every wave drafts 4 tokens through 24
     # layers whose banks are fake-quantized on every forward
     sreqs = shared_prefix_requests(P, mcfg, 2 * SLOTS, 200, seed=14)[:SLOTS]
+    for r in sreqs:
+        r.max_new_tokens = CUT_NEW
     with RouteCounts(torch, blocks, mcfg.n_experts, dev,
                      window=SPEC_C) as vc:
         stats, slaunches, swall = drive(torch, P, eng, sreqs)
-    check_streams(mcfg, sreqs, "moonshot spec")
+    check_streams(mcfg, sreqs, "moonshot spec", n=CUT_NEW)
     check(slaunches["kvq_spec_verify_attn"] > 0
           and slaunches["kvq_paged_decode_attn"] == 0
           and slaunches["kvq_decode_attn"] > 0,
@@ -5837,7 +6286,8 @@ def serve_ms(torch, P, dev, report):
     spec = spec_summary(stats, sreqs, swall, slaunches, tracer)
     spec["verify_routing"] = vc.shares()
     spec["streams_differing_from_plain"] = [
-        r.uid for r, p in zip(sreqs, reqs) if r.generated != p.generated]
+        r.uid for r, p in zip(sreqs, reqs)
+        if r.generated != p.generated[:CUT_NEW]]
     report["serve_ms_spec"] = spec
     print("serve_ms_spec " + json.dumps(spec), flush=True)
     del eng, params
@@ -5853,14 +6303,14 @@ def serve_ms(torch, P, dev, report):
     return launches, slaunches
 
 
-def dense_requests(P, cfg, uid0=0):
+def dense_requests(P, cfg, uid0=0, max_new=MAX_NEW):
     """8 requests of three lengths (DENSE_SERVE_LENS); every fourth
     samples (temperature 0.8, top-k 8)."""
     import numpy as np
     rng = np.random.default_rng(21)
     return [P["Request"](
         uid=uid0 + i, prompt=rng.integers(0, cfg.vocab_size, n).astype(
-            np.int32), max_new_tokens=MAX_NEW,
+            np.int32), max_new_tokens=max_new,
         temperature=0.8 if i % 4 == 3 else 0.0,
         top_k=8 if i % 4 == 3 else 0, seed=i)
         for i, n in enumerate(DENSE_SERVE_LENS)]
@@ -5945,7 +6395,7 @@ def serve_cut(torch, P, dev, report, arch, n_layers, key, phase,
         if layout == "paged":
             eng = paged_engine(P, cfg, params, dev, prefix_cache=False,
                                prefill_chunk=PAGED_TOKENS)
-        reqs = dense_requests(P, cfg)
+        reqs = dense_requests(P, cfg, max_new=CUT_NEW)
         for r in reqs:
             eng.submit(r)
         for fn in counted.values():
@@ -5955,7 +6405,7 @@ def serve_cut(torch, P, dev, report, arch, n_layers, key, phase,
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {n: fn.launches for n, fn in counted.items()}
-        check_streams(cfg, reqs, f"{arch} {layout} serve")
+        check_streams(cfg, reqs, f"{arch} {layout} serve", n=CUT_NEW)
         kern = ("kvq_paged_decode_attn" if layout == "paged"
                 else "kvq_decode_attn")
         check(launches[kern] == L * stats["decode_steps"]
@@ -6716,6 +7166,7 @@ def main() -> int:
     serve_self_draft(torch, P, cfg, dev, params, report)
     check_tail_rows(torch, P, cfg, dev, params, report)
     serve_optimistic(torch, P, cfg, dev, params, report)
+    fe_launches = serve_frontend(torch, P, cfg, dev, params, report)
     del params
     torch.cuda.empty_cache()
     train_launches, teacher, student = train_full(torch, P, cfg, dev, report)
@@ -6800,6 +7251,7 @@ def main() -> int:
          "source": "src/repro_torch/csrc/w4a8_matmul.cu",
          "replaces": "src/repro/kernels/w4a8/kernel.py:62",
          "launches": launches["w4a8_matmul"], "max_abs_err": w4a8_err,
+         "frontend_launches": fe_launches["w4a8_matmul"],
          **w4a8_t, "rg_launches": rg_launches["w4a8_matmul"],
          "mx_launches": mx_launches["w4a8_matmul"],
          "mixtral": {"per": f"one decode step at M={SLOTS}: "
@@ -6863,6 +7315,7 @@ def main() -> int:
          "source": "src/repro_torch/csrc/kvq_paged_decode_attn.cu",
          "replaces": "src/repro/kernels/kvq_attn/kernel.py:109",
          "launches": paged_launches["kvq_paged_decode_attn"],
+         "frontend_launches": fe_launches["kvq_paged_decode_attn"],
          "max_abs_err": max(paged_err, rg_err["kvq_paged_decode_attn"],
                             new_err["kvq_paged_decode_attn"],
                             wv_err["kvq_paged_decode_attn"]),
@@ -6892,6 +7345,7 @@ def main() -> int:
          "source": "src/repro_torch/csrc/gather_dequant_paged_kv.cu",
          "replaces": "src/repro/kernels/kvq_attn/kernel.py:174",
          "launches": paged_launches["gather_dequant_paged_kv"],
+         "frontend_launches": fe_launches["gather_dequant_paged_kv"],
          "max_abs_err": max(gather_err, rg_err["gather_dequant_paged_kv"],
                             new_err["gather_dequant_paged_kv"],
                             wv_err["gather_dequant_paged_kv"]),
@@ -6913,6 +7367,7 @@ def main() -> int:
          "source": "src/repro_torch/csrc/pool_block_copy.cu",
          "replaces": "src/repro/kernels/kvq_attn/kernel.py:308",
          "launches": paged_launches["pool_block_copy"],
+         "frontend_launches": fe_launches["pool_block_copy"],
          "max_abs_err": copy_err, **copy_t,
          "qwen2_vl_launches": vl_paged["pool_block_copy"],
          "qwen2_vl": {"per": "one COW of one block over qwen2-vl's 28-layer "

@@ -1,12 +1,26 @@
-"""Batched quantized serving entry point of the port (closed-loop batch mode).
+"""Batched quantized serving entry point of the port.
 
 Initializes a model from a seed on the target device, deploys it at the
-given precision and weight layout, submits every synthetic request up
-front, drains the engine and reports throughput, TTFT and the kernels'
-launch counts::
+given precision and weight layout and drives the ServeEngine three ways,
+as the JAX package's CLI does:
+
+* default — closed-loop batch: submit every synthetic request up front,
+  drain, report throughput, TTFT and the kernels' launch counts;
+* ``--arrival-rate R`` — open-loop: Poisson arrivals at R req/s through
+  the asyncio frontend, optionally with a first-token SLO
+  (``--deadline-ms`` + ``--shed``), reporting SLO attainment and goodput
+  alongside the engine stats;
+* ``--http-port P`` — serve: the OpenAI-style HTTP endpoint
+  (``/v1/completions`` with SSE streaming, ``/v1/stats``,
+  ``/v1/metrics``, ``/health``) until interrupted.
+
+``--trace FILE`` writes the run's Chrome/Perfetto trace and
+``--metrics`` prints the Prometheus text ``/v1/metrics`` serves::
 
     python -m repro_torch.launch.serve --full --weights w4a8
     python -m repro_torch.launch.serve --full --weights w4a8 --kv-layout paged
+    python -m repro_torch.launch.serve --device cpu --sched edf \
+        --arrival-rate 20 --deadline-ms 500 --shed reject --trace t.json
 
 The paged layout serves with speculative decoding unless ``--no-spec``
 is given (a draft of half the target's layers proposes ``--spec-k`` = 4
@@ -27,8 +41,16 @@ from repro_torch.kernels.kvq_attn import ops as kvq_ops
 from repro_torch.kernels.w4a8.ops import w4a8_matmul
 from repro_torch.models import init_params
 from repro_torch.serve.engine import Request, ServeEngine
-from repro_torch.serve.scheduler import PREEMPT_POLICIES
+from repro_torch.serve.scheduler import (POLICIES, PREEMPT_POLICIES,
+                                         SHED_MODES, percentile)
 from repro_torch.serve.spec import SpecConfig
+
+COUNTED = {"w4a8_matmul": w4a8_matmul,
+           "kvq_decode_attn": kvq_ops.kvq_decode_attn,
+           "kvq_paged_decode_attn": kvq_ops.kvq_paged_decode_attn,
+           "kvq_spec_verify_attn": kvq_ops.kvq_spec_verify_attn,
+           "gather_dequant_paged_kv": kvq_ops.gather_dequant_paged_kv,
+           "pool_block_copy": kvq_ops.copy_pool_blocks_multi}
 
 
 def build_requests(args, cfg) -> list:
@@ -48,6 +70,124 @@ def build_requests(args, cfg) -> list:
     return reqs
 
 
+def run_open_loop(args, engine, cfg):
+    """Poisson arrivals at ``--arrival-rate`` req/s through the asyncio
+    frontend; returns (engine stats + SLO metrics, wall seconds).
+
+    The arrival times are drawn up front (the cumulative exponential
+    gaps from the pass's start) and each request is submitted when the
+    event loop reaches its time, so a late loop delays the submission,
+    not the schedule. Client TTFT counts from the scheduled arrival, and
+    ``submit_lag_*`` is how late the loop submitted (the step worker
+    holding the GIL, mostly): the pass stays open-loop.
+
+    Runs the workload twice: an untimed warmup pass (the kernels' first
+    use builds and loads them, and the allocator warms up; a cold pass
+    would blame those one-time stalls on the SLO), then, after an engine
+    reset, the identical timed pass."""
+    import asyncio
+
+    from repro_torch.serve.frontend import AsyncFrontend
+
+    deadline_ms = args.deadline_ms or None
+
+    async def one_pass():
+        reqs = build_requests(args, cfg)
+        gaps = np.random.default_rng(1).exponential(1.0 / args.arrival_rate,
+                                                     len(reqs))
+        async with AsyncFrontend(engine,
+                                 default_deadline_ms=deadline_ms) as fe:
+            t0 = time.perf_counter()
+            due = t0 + np.cumsum(gaps)
+            handles = []
+            for req, at in zip(reqs, due):
+                await asyncio.sleep(max(0.0, at - time.perf_counter()))
+                handles.append(await fe.submit(
+                    req.prompt, max_new_tokens=req.max_new_tokens,
+                    temperature=req.temperature, top_k=req.top_k,
+                    seed=req.seed))
+            for h in handles:
+                await h.tokens()
+            stats = await fe.stats()
+        return list(zip(due.tolist(), handles)), stats, \
+            time.perf_counter() - t0
+
+    async def go():
+        print("warmup pass (kernel builds, allocator warm-up)...")
+        await one_pass()
+        engine.reset()
+        arrivals, stats, wall = await one_pass()
+        shed = sum(1 for _, h in arrivals if h.shed)
+        ttfts = sorted(h.first_token_t - at for at, h in arrivals
+                       if not h.shed and h.first_token_t is not None)
+        lags = sorted(h.submit_t - at for at, h in arrivals)
+        stats["arrival_rate_rps"] = args.arrival_rate
+        stats["client_ttft_n"] = len(ttfts)
+        stats["client_ttft_p50_s"] = percentile(ttfts, 50)
+        stats["client_ttft_p95_s"] = percentile(ttfts, 95)
+        stats["submit_lag_p50_s"] = percentile(lags, 50)
+        stats["submit_lag_max_s"] = lags[-1] if lags else 0.0
+        if deadline_ms is not None:
+            met = sum(1 for t in ttfts if t <= deadline_ms / 1e3)
+            stats["slo_attainment"] = met / max(len(arrivals), 1)
+            stats["goodput_rps"] = met / max(wall, 1e-9)
+            print(f"open loop @ {args.arrival_rate:.1f} req/s: "
+                  f"{met}/{len(arrivals)} met the {deadline_ms:.0f} ms "
+                  f"first-token SLO ({shed} shed), goodput "
+                  f"{stats['goodput_rps']:.2f} req/s")
+        else:
+            print(f"open loop @ {args.arrival_rate:.1f} req/s: "
+                  f"{len(arrivals)} served, {shed} shed")
+        print(f"client TTFT from the scheduled arrival (n={len(ttfts)}): "
+              f"p50 {stats['client_ttft_p50_s']:.3f} s, p95 "
+              f"{stats['client_ttft_p95_s']:.3f} s; submissions late by "
+              f"p50 {1e3 * stats['submit_lag_p50_s']:.1f} ms, max "
+              f"{1e3 * stats['submit_lag_max_s']:.1f} ms")
+        return stats, wall
+
+    return asyncio.run(go())
+
+
+def run_http(args, engine):
+    """Serve the OpenAI-style HTTP endpoint until interrupted."""
+    import asyncio
+
+    from repro_torch.serve.frontend import AsyncFrontend
+    from repro_torch.serve.http import ServeHTTP
+
+    async def go():
+        async with AsyncFrontend(
+                engine, default_deadline_ms=args.deadline_ms or None) as fe:
+            async with ServeHTTP(fe, host=args.http_host,
+                                 port=args.http_port) as srv:
+                print(f"serving on http://{args.http_host}:{srv.port} "
+                      f"(POST /v1/completions, GET /v1/stats, "
+                      f"/v1/metrics, /health; Ctrl-C to stop)", flush=True)
+                await srv.serve_forever()
+
+    try:
+        asyncio.run(go())
+    except KeyboardInterrupt:
+        print("\nshutting down")
+
+
+def write_obs(args, engine, stats=None):
+    """``--trace`` / ``--metrics`` epilogue shared by the three drive
+    modes (closed-loop drain, open-loop arrivals, HTTP serve)."""
+    if args.trace:
+        from repro_torch.obs.export import write_trace
+        write_trace(args.trace, engine.trace)
+        n_spans = sum(1 for e in engine.trace.events()
+                      if e["ph"] == "span")
+        print(f"wrote {args.trace}: {len(engine.trace)} trace records "
+              f"({n_spans} spans, {engine.trace.dropped} dropped); load "
+              f"at ui.perfetto.dev, summarize with "
+              f"repro_torch.obs.export.render_report")
+    if args.metrics:
+        print(engine.metrics.render(stats if stats is not None
+                                    else engine.stats()), end="")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="qwen2.5-3b")
@@ -61,8 +201,13 @@ def main(argv=None):
                     help="draw prompt lengths in [prompt_len/2, prompt_len]")
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--cache-len", type=int, default=128)
-    ap.add_argument("--decode-block", type=int, default=8,
-                    help="decode steps per chunk between host syncs")
+    ap.add_argument("--decode-block", default="8",
+                    help="decode steps per chunk between host syncs; "
+                         "'auto' probes decode-chunk latency at startup. "
+                         "With speculative decoding on (the paged default, "
+                         "see --no-spec) the draft + verify wave owns step "
+                         "granularity: this knob becomes spec-k + 1 and "
+                         "the probe is skipped")
     ap.add_argument("--kv-layout", default="dense",
                     choices=("dense", "paged"),
                     help="paged = block-table KV pool with free-block "
@@ -111,6 +256,29 @@ def main(argv=None):
     ap.add_argument("--no-prefix-affinity", action="store_true",
                     help="disable chain-grouped scheduling of prefix-hit "
                          "requests")
+    ap.add_argument("--sched", default="fcfs", choices=POLICIES,
+                    help="admission order: arrival, shortest-prompt, or "
+                         "earliest-deadline-first within priority class "
+                         "(pair edf with --deadline-ms / --shed)")
+    ap.add_argument("--arrival-rate", type=float, default=0.0,
+                    help="open-loop mode: Poisson arrivals at this many "
+                         "requests/s through the asyncio frontend "
+                         "(0 = closed-loop batch, the default)")
+    ap.add_argument("--deadline-ms", type=float, default=0.0,
+                    help="per-request first-token SLO in ms (open-loop / "
+                         "HTTP modes; 0 = no deadline). With --shed the "
+                         "engine rejects or downgrades requests predicted "
+                         "to miss it")
+    ap.add_argument("--shed", default="none", choices=SHED_MODES,
+                    help="SLO admission control when a queued request's "
+                         "predicted TTFT exceeds its deadline: drop it "
+                         "(reject) or clear its deadline and demote it "
+                         "behind on-time work (downgrade)")
+    ap.add_argument("--http-port", type=int, default=0,
+                    help="serve mode: bind the OpenAI-style HTTP endpoint "
+                         "(/v1/completions with SSE streaming) on this "
+                         "port and run until interrupted (0 = off)")
+    ap.add_argument("--http-host", default="127.0.0.1")
     ap.add_argument("--weights", default="bf16", choices=("bf16", "w4a8"),
                     help="serve weight layout: bf16 fake-quant matmuls, or "
                          "w4a8 packed-int4 weights x dynamic-int8 "
@@ -119,6 +287,17 @@ def main(argv=None):
     ap.add_argument("--top-k", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
+    ap.add_argument("--trace", default="",
+                    help="record a runtime trace and write it here as "
+                         "Chrome/Perfetto trace_event JSON (open at "
+                         "ui.perfetto.dev). Open-loop runs trace the timed "
+                         "pass only (the warmup's records are cleared by "
+                         "the engine reset)")
+    ap.add_argument("--metrics", action="store_true",
+                    help="print the Prometheus text /v1/metrics serves "
+                         "at the end of the run")
+    ap.add_argument("--bench-out", default="",
+                    help="write the run's stats to this JSON file")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch) if args.full else get_reduced_config(args.arch)
@@ -136,37 +315,56 @@ def main(argv=None):
             kw["spec"] = SpecConfig(k=args.spec_k,
                                     draft_layers=args.spec_draft or None,
                                     accept_mode=args.spec_accept)
+    tracer = None
+    if args.trace:
+        from repro_torch.obs.trace import Tracer
+        tracer = Tracer()
+    decode_block = (args.decode_block if args.decode_block == "auto"
+                    else int(args.decode_block))
     eng = ServeEngine(cfg, params, policy=args.policy, slots=args.slots,
                       cache_len=args.cache_len,
                       max_new_cap=max(args.max_new, 1),
-                      decode_block=args.decode_block,
-                      weights_layout=args.weights, device=args.device, **kw)
+                      decode_block=decode_block, sched_policy=args.sched,
+                      slo_shed=args.shed, weights_layout=args.weights,
+                      trace=tracer, device=args.device, **kw)
     del params
     print(f"arch={cfg.name} layers={cfg.n_layers} d_model={cfg.d_model} "
           f"policy={args.policy} weights={args.weights} "
           f"device={eng.device} slots={args.slots} "
-          f"cache_len={args.cache_len} kv_layout={args.kv_layout}")
-    reqs = build_requests(args, cfg)
-    counted = {"w4a8_matmul": w4a8_matmul,
-               "kvq_decode_attn": kvq_ops.kvq_decode_attn,
-               "kvq_paged_decode_attn": kvq_ops.kvq_paged_decode_attn,
-               "kvq_spec_verify_attn": kvq_ops.kvq_spec_verify_attn,
-               "gather_dequant_paged_kv": kvq_ops.gather_dequant_paged_kv,
-               "pool_block_copy": kvq_ops.copy_pool_blocks_multi}
-    for fn in counted.values():
+          f"cache_len={args.cache_len} kv_layout={args.kv_layout} "
+          f"sched={args.sched} shed={args.shed}")
+    if eng.decode_block_probe is not None:
+        pr = eng.decode_block_probe
+        print(f"decode_block auto: {pr['pick']} (a chunk of 1 step "
+              f"{pr['t1_s'] * 1e3:.2f} ms, of 8 {pr['t8_s'] * 1e3:.2f} ms: "
+              f"{pr['per_step_s'] * 1e3:.2f} ms a step, "
+              f"{pr['overhead_s'] * 1e3:.2f} ms fixed)")
+    if args.http_port:
+        run_http(args, eng)
+        write_obs(args, eng)
+        return None
+    for fn in COUNTED.values():
         fn.launches = 0
-    t0 = time.perf_counter()
-    for r in reqs:
-        eng.submit(r)
-    stats = eng.run_until_drained()
-    wall = time.perf_counter() - t0
+    if args.arrival_rate > 0:
+        stats, wall = run_open_loop(args, eng, cfg)
+        n_reqs = args.requests
+    else:
+        reqs = build_requests(args, cfg)
+        t0 = time.perf_counter()
+        for r in reqs:
+            eng.submit(r)
+        stats = eng.run_until_drained()
+        wall = time.perf_counter() - t0
+        n_reqs = len(reqs)
     stats["wall_s"] = wall
     stats["tokens_per_s"] = stats["tokens_out"] / wall
-    stats["decode_tokens_per_s"] = ((stats["tokens_out"] - len(reqs))
+    # every finished request's first token came from its prefill
+    stats["decode_tokens_per_s"] = ((stats["tokens_out"]
+                                     - stats["requests_finished"])
                                     / max(stats["decode_s"], 1e-12))
     stats["kernel_launches"] = {name: fn.launches
-                                for name, fn in counted.items()}
-    print(f"served {len(reqs)} requests, {stats['tokens_out']} tokens in "
+                                for name, fn in COUNTED.items()}
+    print(f"served {n_reqs} requests, {stats['tokens_out']} tokens in "
           f"{wall:.3f} s: {stats['tokens_per_s']:.1f} tok/s "
           f"(decode {stats['decode_tokens_per_s']:.1f} tok/s), "
           f"TTFT p50 {stats['ttft_p50_s'] * 1e3:.1f} ms "
@@ -187,6 +385,11 @@ def main(argv=None):
                   f"k={stats['spec_k']}, "
                   f"draft {stats['spec_draft_layers']} layers)")
     print("kernel launches: " + json.dumps(stats["kernel_launches"]))
+    write_obs(args, eng, stats)
+    if args.bench_out:
+        with open(args.bench_out, "w") as f:
+            json.dump({"args": vars(args), "stats": stats}, f, indent=2)
+        print(f"wrote {args.bench_out}")
     print(json.dumps(stats))
     return stats
 

@@ -60,14 +60,30 @@ only at admission and harvest:
   gather-dequantize kernel, and COW the pool-block copy. On CUDA tensors
   these are the hand-written kernels of ``repro_torch/csrc``, on CPU
   tensors their plain versions.
+* **Streaming + SLO-aware admission** — a request may carry an
+  ``on_tokens`` callback: freshly decoded spans drain from the harvest at
+  decode-chunk / spec-wave granularity (and at swap-out) instead of only
+  at finish. Requests may carry a first-token ``deadline_ms`` and a
+  ``priority`` class: ``sched_policy="edf"`` admits
+  earliest-deadline-first within priority, and ``slo_shed``
+  (``"reject"`` / ``"downgrade"``) drops or demotes queued requests
+  whose predicted TTFT, fitted from this engine's measured prefill and
+  decode rates, already misses their deadline. ``serve.frontend`` and
+  ``serve.http`` build the asyncio host loop and the HTTP endpoint on
+  these hooks; ``self.metrics`` holds the TTFT / TPOT / latency
+  histograms behind ``GET /v1/metrics``.
+* **decode_block="auto"** — a probe times one decode chunk of 1 and of 8
+  steps at construction and picks the chunk length (memoized per
+  process and configuration).
 
-SLO shedding, the ``decode_block="auto"`` probe and mesh serving arrive
-with later slices; their arguments raise ``NotImplementedError``.
+Mesh (tensor-parallel) serving arrives with a later slice; its argument
+raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Union
+from typing import Callable, Dict, List, Optional, Union
 
 import numpy as np
 import torch
@@ -82,11 +98,13 @@ from repro_torch.kernels.kvq_attn.ops import copy_pool_blocks_multi
 from repro_torch.models import (decode_step, init_cache, prefill,
                                 prefill_tail, spec_verify)
 from repro_torch.models.blocks import POOL_KEYS
+from repro_torch.obs.metrics import ServeMetrics
 from repro_torch.obs.trace import NULL_TRACER, Tracer
 from repro_torch.serve.block_alloc import BlockAllocator, PoolDry
 from repro_torch.serve.sampling import (TOP_K_CAP, fold_step, sample_tokens,
                                         slot_key, token_probs)
-from repro_torch.serve.scheduler import PREEMPT_POLICIES, Scheduler
+from repro_torch.serve.scheduler import (PREEMPT_POLICIES, SHED_MODES,
+                                         Scheduler)
 from repro_torch.serve.spec import (SpecConfig, accept_exact,
                                     accept_rejection, make_draft)
 
@@ -101,6 +119,49 @@ def _pow2_ceil(n: int) -> int:
     return p
 
 
+def _jsonable(x):
+    """Recursively cast numpy scalars and arrays and torch tensors to
+    native Python types. ``stats()`` is an HTTP boundary (``/v1/stats``,
+    ``/v1/metrics``): a stray ``np.int64`` deep in the dict is invisible
+    until ``json.dumps`` raises in the server."""
+    if isinstance(x, dict):
+        return {k: _jsonable(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [_jsonable(v) for v in x]
+    if isinstance(x, np.bool_):
+        return bool(x)
+    if isinstance(x, np.integer):
+        return int(x)
+    if isinstance(x, np.floating):
+        return float(x)
+    if isinstance(x, (np.ndarray, torch.Tensor)):
+        return _jsonable(x.tolist())
+    return x
+
+
+# decode_block="auto" probe results, memoized per process so scripts
+# constructing several engines of one configuration probe once
+_PROBE_CACHE: Dict[tuple, Dict] = {}
+PROBE_CANDIDATES = (4, 8, 16, 32)
+
+
+def pick_decode_block(t1: float, t8: float,
+                      candidates=PROBE_CANDIDATES) -> int:
+    """The ``decode_block="auto"`` rule, from the seconds of one decode
+    chunk of 1 step (``t1``) and of 8 steps (``t8``), each with its host
+    sync. Their difference splits a chunk into a per-step part and a
+    fixed part (dispatch and the sync after every chunk); the pick is the
+    smallest candidate whose fixed cost is at most 15% of its steps'
+    compute, since a longer chunk wastes steps on slots that finish
+    mid-chunk."""
+    per_step = max((t8 - t1) / 7.0, 1e-9)
+    overhead = max(t1 - per_step, 0.0)
+    for c in candidates:
+        if overhead <= 0.15 * c * per_step:
+            return c
+    return candidates[-1]
+
+
 @dataclass(eq=False)                    # identity equality: the ndarray
 class Request:                          # prompt field breaks value __eq__
     uid: int
@@ -110,9 +171,19 @@ class Request:                          # prompt field breaks value __eq__
     temperature: float = 0.0            # <= 0: greedy
     top_k: int = 0                      # 0: no top-k filtering
     seed: int = 0
+    # --- SLO class (scheduler policy "edf" + engine slo_shed) ---
+    deadline_ms: Optional[float] = None  # first-token SLO, from submit
+    priority: int = 0                    # lower = more urgent (EDF class)
+    # --- streaming ---
+    # called as on_tokens(req, new_tokens, done) with each freshly
+    # decoded span (decode_block / spec-wave granularity) instead of only
+    # at finish; fires from whatever thread steps the engine
+    on_tokens: Optional[Callable] = None
     generated: List[int] = field(default_factory=list)
     done: bool = False
+    shed: bool = False                  # rejected by SLO admission control
     _arrival: int = 0                   # set by the scheduler
+    _streamed: int = 0                  # tokens already sent to on_tokens
 
 
 def _clamp_lengths(cache: Dict, lens: torch.Tensor) -> None:
@@ -180,11 +251,9 @@ class ServeEngine:
         if mesh is not None:
             raise NotImplementedError("mesh (tensor-parallel) serving is not "
                                       "ported yet")
-        if slo_shed != "none":
-            raise NotImplementedError("SLO shedding is not ported yet")
-        if decode_block == "auto":
-            raise NotImplementedError("the decode_block='auto' probe is not "
-                                      "ported yet; pass an int")
+        if slo_shed not in SHED_MODES:
+            raise ValueError(f"slo_shed must be one of {SHED_MODES}, "
+                             f"got {slo_shed!r}")
         if weights_layout not in ("bf16", "w4a8"):
             raise ValueError(f"weights_layout must be 'bf16' or 'w4a8', "
                              f"got {weights_layout!r}")
@@ -210,7 +279,11 @@ class ServeEngine:
         # recurrent state is not
         self._cache_bound = (BLOCK_ATTN in cfg.block_pattern
                              and not cfg.sliding_window)
+        # observability rides on the engine from construction: the tracer
+        # (a disabled NULL_TRACER unless the caller wants a trace; spans
+        # still measure) and the pushed-histogram half of /v1/metrics
         self.trace = trace if trace is not None else NULL_TRACER
+        self.metrics = ServeMetrics()
         self.weights_layout = weights_layout
         self._w4a8_bytes = {"packed": 0, "replaced": 0}
         if weights_layout == "w4a8":
@@ -231,7 +304,8 @@ class ServeEngine:
         self.cache_len = cache_len
         self.max_new_cap = max_new_cap
         self.prefill_bucket = prefill_bucket
-        self.decode_block = int(decode_block)
+        auto_block = decode_block == "auto"
+        self.decode_block = 8 if auto_block else int(decode_block)
         self._paged = kv_layout == "paged"
         if self._paged:
             self.block_size = block_size
@@ -255,7 +329,9 @@ class ServeEngine:
         self.prefix_affinity = prefix_affinity and self.prefix_cache
         self.admission = admission
         self.preempt = preempt
-        self._decode_block_mode = "fixed"
+        self.slo_shed = slo_shed
+        self._decode_block_mode = "auto" if auto_block else "fixed"
+        self.decode_block_probe: Optional[Dict] = None
         self.spec = None
         if spec is not None:
             self.spec = spec if isinstance(spec, SpecConfig) \
@@ -276,6 +352,19 @@ class ServeEngine:
         self._sched_policy = sched_policy
         self.scheduler = Scheduler(sched_policy, trace=self.trace)
         self.reset()
+        if auto_block and self.spec is None:
+            # with spec on, the draft + verify wave owns step granularity
+            # and the probe never runs. Everything that changes a decode
+            # step's cost is in the key.
+            key = (cfg, policy, slots, kv_layout, cache_len, max_new_cap,
+                   self.block_size if self._paged else 0,
+                   self.num_blocks if self._paged else 0,
+                   self.table_len if self._paged else 0,
+                   weights_layout, str(self.device))
+            if key not in _PROBE_CACHE:
+                _PROBE_CACHE[key] = self._probe_decode_block()
+            self.decode_block_probe = _PROBE_CACHE[key]
+            self.decode_block = self.decode_block_probe["pick"]
 
     # ------------------------------------------------------------------
     # State
@@ -313,7 +402,10 @@ class ServeEngine:
         the cache (and the draft's), the block allocator, the scheduler
         and every stat.
         Requests submitted before the reset must not be resubmitted with
-        their old prefix-lookup memos: an epoch bump invalidates them."""
+        their old prefix-lookup memos: an epoch bump invalidates them.
+        The old cache is dropped before the new one is allocated, so two
+        never live at once."""
+        self.state = None
         self.state = self._blank_state()
         self._alloc_epoch = getattr(self, "_alloc_epoch", -1) + 1
         self.alloc = (BlockAllocator(self.num_blocks, self.block_size,
@@ -330,8 +422,13 @@ class ServeEngine:
         self._seq = 0
         self._max_residents = 0
         self.scheduler = Scheduler(self._sched_policy, trace=self.trace)
+        # a fresh run gets a fresh observability window: a rerun must not
+        # inherit the previous pass's spans or histogram mass
         self.trace.clear()
+        self.metrics.reset()
         self._step_idx = 0
+        self._pred_per_tok: Optional[float] = None   # fastest s/prompt-tok
+        self._pred_round_s: Optional[float] = None   # fastest decode round
         self._host = {"decode_s": 0.0, "decode_rounds": 0,
                       "prefill_s": 0.0, "prefill_calls": 0,
                       "prefill_tokens": 0, "prefill_chunks": 0,
@@ -340,6 +437,7 @@ class ServeEngine:
                       "swap_out_bytes": 0, "swap_in_bytes": 0,
                       "swap_s": 0.0}
         if self.spec is not None:
+            self._draft_cache = None
             self._draft_cache = init_cache(self.draft_cfg, self.draft_ctx,
                                            self.slots,
                                            self._draft_cache_len,
@@ -362,8 +460,12 @@ class ServeEngine:
         ``prompt`` is a 1-D array of token ids in the vocabulary;
         ``max_new_tokens`` bounds generation (the first token comes from
         prefill); ``temperature <= 0`` means greedy and ``top_k == 0``
-        disables filtering. The request is admitted on a later
-        :meth:`step`; ``req.done`` and ``req.generated`` carry the result.
+        disables filtering; ``deadline_ms`` / ``priority`` feed the ``edf``
+        scheduler policy and ``slo_shed`` admission control; ``on_tokens``
+        (if set) receives every freshly decoded span as ``on_tokens(req,
+        tokens, done)``. The request is admitted on a later :meth:`step`;
+        ``req.done`` and ``req.generated`` carry the result, or
+        ``req.shed`` if SLO admission control rejected it.
 
         Raises ValueError if the request can never be admitted on this
         engine: ``max_new_tokens`` above ``max_new_cap``, ``top_k`` above
@@ -424,6 +526,60 @@ class ServeEngine:
         self._max_residents = max(self._max_residents, n)
 
     # ------------------------------------------------------------------
+    # SLO-aware admission + streaming drain
+    # ------------------------------------------------------------------
+
+    def _predict_ttft_s(self, backlog_tokens: int) -> float:
+        """Seconds until a queued request's first token when
+        ``backlog_tokens`` prompt tokens must prefill before it (the
+        requests ahead in policy order plus its own prompt): prefill
+        seconds per prompt token times the backlog plus one decode round
+        (the one in flight when it reaches the head). 0.0 until the engine
+        has measured anything, so a cold engine never sheds blind. Rates
+        are the fastest observed per call (a min, not a mean), so the
+        first call's one-time cost (a kernel build and the allocator's
+        warm-up) is not taken for service time."""
+        if self._pred_per_tok is None:
+            return 0.0
+        return (self._pred_per_tok * backlog_tokens
+                + (self._pred_round_s or 0.0))
+
+    def _note_rate(self, attr: str, value: float) -> None:
+        """Min-track a measured rate for the TTFT predictor."""
+        cur = getattr(self, attr)
+        setattr(self, attr, value if cur is None else min(cur, value))
+
+    def _shed_overdue(self) -> None:
+        """Shed-load pass before admission (``slo_shed != "none"``):
+        requests whose predicted TTFT already exceeds their deadline are
+        rejected (``req.shed = True``, stream closed with no tokens) or
+        downgraded to best-effort, per the engine's ``slo_shed`` mode."""
+        if self.slo_shed == "none" or not self.scheduler.pending:
+            return
+        for r in self.scheduler.shed_overdue(self._predict_ttft_s,
+                                             self.slo_shed):
+            r.shed = True
+            r.done = True
+            self.trace.event("shed", uid=r.uid)
+            self._emit_stream(r, (), done=True)
+
+    def _observe_ttft(self, req) -> None:
+        tm = getattr(req, "_timing", None)
+        if tm is not None:
+            self.metrics.observe_ttft(tm.ttft)
+
+    @staticmethod
+    def _emit_stream(req, toks, done: bool) -> None:
+        """Deliver freshly decoded tokens, as Python ints, to a streaming
+        request's ``on_tokens`` callback (no-op for other requests)."""
+        if req.on_tokens is not None:
+            toks = [int(t) for t in toks]
+            req.on_tokens(req, toks, done)
+            req._streamed += len(toks)
+        elif done:
+            req._streamed = len(req.generated)
+
+    # ------------------------------------------------------------------
     # Admission
     # ------------------------------------------------------------------
 
@@ -433,6 +589,7 @@ class ServeEngine:
         return [s for s in range(self.slots) if s not in busy]
 
     def _admit(self) -> None:
+        self._shed_overdue()
         if self._paged:
             self._admit_paged()
             return
@@ -715,7 +872,7 @@ class ServeEngine:
         greedy_only = all(r.temperature <= 0.0 for r in reqs)
         wave_tokens = int(lens.sum())
         with self.trace.span("prefill_wave", rows=n, tokens=wave_tokens,
-                             paged=self._paged) as sp:
+                        paged=self._paged) as sp:
             self._admit_batch(
                 torch.from_numpy(toks).to(dev), torch.from_numpy(lens).to(dev),
                 torch.tensor(taken, dtype=torch.long, device=dev), blk_ids,
@@ -726,8 +883,12 @@ class ServeEngine:
         self._host["prefill_calls"] += 1
         self._host["prefill_tokens"] += n     # first token of each request
         self._host["prompt_tokens"] += wave_tokens
+        self._note_rate("_pred_per_tok", sp.dt / max(wave_tokens, 1))
         self.scheduler.on_admitted(reqs)
         for s, r in zip(taken, reqs):
+            # the admission wave sampled each row's first token, so TTFT
+            # lands here (admission-wave granularity)
+            self._observe_ttft(r)
             self.trace.event("first_token", uid=r.uid)
             self._slot_req[s] = r
             self._n_gen[s] = 1
@@ -822,12 +983,14 @@ class ServeEngine:
             with self.trace.span("sync"):
                 self._sync()
         self._host["prefill_s"] += sp.dt
+        self._note_rate("_pred_per_tok", sp.dt / max(int(sum(lens)), 1))
         if not done:
             return
         self._host["prefill_calls"] += 1
         self._host["prefill_tokens"] += len(done)
         self.scheduler.on_admitted(reqs)
         for j in done:
+            self._observe_ttft(j["req"])
             self.trace.event("first_token", uid=j["req"].uid)
             self._tail_jobs.remove(j)
             self._slot_req[j["slot"]] = j["req"]
@@ -1011,6 +1174,11 @@ class ServeEngine:
                        "key": row[2:4].clone(),
                        "out": row[4:].to(torch.int32)}
                 st["active"][slot] = False
+                # tokens decoded before preemption stream out now (the out
+                # row is already on the host); the stream resumes at the
+                # next harvest after restore: same tokens, same order
+                self._emit_stream(req, rec["out"][req._streamed:rec["n_gen"]],
+                                  done=False)
             rec["payload"] = payload
             rec["bytes"] = nbytes
             self.alloc.release(slot)
@@ -1116,6 +1284,11 @@ class ServeEngine:
         n_steps = min(self.decode_block, max(budget, 0))
         greedy_only = all(r.temperature <= 0.0
                           for r in self._slot_req.values())
+        self._decode_steps(n_steps, greedy_only)
+
+    def _decode_steps(self, n_steps: int, greedy_only: bool) -> None:
+        """``n_steps`` decode steps over every slot (inactive ones ride
+        along masked), with no host read of the device."""
         st = self.state
         cap = self.max_new_cap
         for _ in range(n_steps):
@@ -1163,17 +1336,37 @@ class ServeEngine:
                     # consumes: prompt + (n_gen - 1) tokens are written
                     self._written[s] = len(r.prompt) + int(n_gen[s]) - 1
             finished = [s for s in self._slot_req if not act[s]]
-            if not finished:
+            # incremental drain: streaming residents surface the tokens
+            # decoded since the last harvest (decode_block / spec-wave
+            # granularity); their rows ride the finished slots' one copy
+            streaming = [s for s, r in self._slot_req.items()
+                         if act[s] and r.on_tokens is not None
+                         and int(n_gen[s]) > r._streamed]
+            fetch = finished + streaming
+            if not fetch:
                 return
-            with self.trace.span("sync", rows=len(finished)):
-                rows = st["out"][torch.tensor(finished, device=self.device)
-                                 ].cpu().numpy()
+            with self.trace.span("sync", rows=len(fetch)):
+                all_rows = st["out"][torch.tensor(fetch, device=self.device)
+                                     ].cpu().numpy()
+            for i, s in enumerate(streaming):
+                r = self._slot_req[s]
+                self._emit_stream(r, all_rows[len(finished) + i,
+                                              r._streamed:int(n_gen[s])],
+                                  done=False)
             for i, s in enumerate(finished):
                 req = self._slot_req.pop(s)
                 self._n_gen.pop(s)
-                req.generated = rows[i, :n_gen[s]].tolist()
+                req.generated = all_rows[i, :n_gen[s]].tolist()
                 req.done = True
+                self._emit_stream(req, req.generated[req._streamed:],
+                                  done=True)
                 self.scheduler.on_finished(req)
+                tm = getattr(req, "_timing", None)
+                if tm is not None and tm.admit_t is not None \
+                        and tm.finish_t is not None:
+                    self.metrics.observe_finished(
+                        tm.latency, tm.finish_t - tm.admit_t,
+                        len(req.generated))
                 if self._paged:
                     self._release(s, req, int(n_gen[s]))
 
@@ -1450,6 +1643,7 @@ class ServeEngine:
                         self._harvest()
                 self._host["decode_s"] += sp.dt
                 self._host["decode_rounds"] += 1
+                self._note_rate("_pred_round_s", sp.dt)
 
     def _flush_partial(self) -> None:
         """Surface still-resident slots' tokens (budget-aborted drain);
@@ -1480,6 +1674,55 @@ class ServeEngine:
             chunks += 1
         self._flush_partial()
         return self.stats()
+
+    # ------------------------------------------------------------------
+    # decode_block auto-tuning
+    # ------------------------------------------------------------------
+
+    def _probe_arm(self) -> None:
+        """Arm every slot of the engine's own state for a full decode chunk
+        from an empty cache, in place: the probe allocates no second
+        cache. (A paged table is all sentinel, so its writes land in the
+        sink block.)"""
+        st = self.state
+        S, dev = self.slots, self.device
+        for layer in st["cache"]["layers"]:
+            if "length" in layer:           # attention layers
+                layer["length"].zero_()
+        st["cache"]["position"].zero_()
+        st["tokens"] = torch.zeros((S, 1), dtype=torch.int32, device=dev)
+        st["n_gen"] = torch.zeros((S,), dtype=torch.int32, device=dev)
+        st["active"] = torch.ones((S,), dtype=torch.bool, device=dev)
+        st["max_new"] = torch.full((S,), self.max_new_cap,
+                                   dtype=torch.int32, device=dev)
+
+    def _probe_decode_block(self) -> Dict:
+        """Measured decode-chunk probe (``decode_block="auto"``): one
+        greedy chunk of 1 and of 8 steps over every slot, each followed by
+        the harvest's read of (active, n_gen), timed between device syncs
+        as the min of 3 after one untimed call; :func:`pick_decode_block`
+        turns the two times into the chunk length. Runs on the engine's
+        own state, which is reset afterwards. Returns {"pick", "t1_s",
+        "t8_s", "per_step_s", "overhead_s"}."""
+        def chunk_time(c: int) -> float:
+            best = float("inf")
+            for i in range(4):            # one warm-up, then min of 3
+                self._probe_arm()
+                self._sync()
+                t0 = time.perf_counter()
+                self._decode_steps(c, True)
+                self._fetch_act_ngen()
+                self._sync()
+                if i:
+                    best = min(best, time.perf_counter() - t0)
+            return best
+
+        t1, t8 = chunk_time(1), chunk_time(8)
+        self.reset()
+        per_step = max((t8 - t1) / 7.0, 1e-9)
+        return {"pick": pick_decode_block(t1, t8), "t1_s": t1, "t8_s": t8,
+                "per_step_s": per_step,
+                "overhead_s": max(t1 - per_step, 0.0)}
 
     # ------------------------------------------------------------------
     # Stats
@@ -1518,7 +1761,7 @@ class ServeEngine:
         peak_cache_tokens/_bytes    peak occupancy in tokens / bytes
         cache_bytes                 total cache allocation
         decode_block(_mode)         chunk length and how it was chosen
-                                    ("fixed" / "spec")
+                                    ("fixed" / "auto" / "spec")
         weights_layout              serve weight layout ("bf16" / "w4a8")
         packed_weight_bytes         int4-packed weight + scale + bias bytes
                                     the w4a8 forward streams (0 under bf16)
@@ -1538,12 +1781,17 @@ class ServeEngine:
         spec_k/_draft_layers/       the SpecConfig serving (spec only)
         _accept_mode
         requests_finished           requests fully served
+        requests_shed               requests rejected by SLO shed-load
+        requests_downgraded         requests demoted to best-effort by it
         ttft_p50_s/p95_s            submit -> first-token percentiles
         latency_p50_s/p95_s         submit -> finish percentiles
         ==========================  =========================================
 
         The pool-only keys (``free_blocks`` … ``prefix_evictions``) appear
         only with ``kv_layout="paged"``, the spec keys only with ``spec``.
+        Every value is a native Python scalar or container: the dict
+        round-trips through ``json.dumps`` unchanged, which is what the
+        ``/v1/stats`` and ``/v1/metrics`` HTTP surfaces serve.
         """
         counts = torch.stack([self.state["steps"], self.state["committed"]]
                              ).cpu().tolist()
@@ -1592,4 +1840,4 @@ class ServeEngine:
         d["peak_cache_bytes"] = int(
             self._cache_bytes * d["peak_cache_tokens"] / max(cap_tokens, 1))
         d.update(self.scheduler.stats())
-        return d
+        return _jsonable(d)

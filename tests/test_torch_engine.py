@@ -204,6 +204,19 @@ def test_submit_rejects_infeasible_requests(served):
                                 dict(slo_shed="reject"), dict(mesh=object()),
                                 dict(sched_policy="sjf")])
 def test_unported_options_raise(served, kw):
+    """Of these options only ``mesh`` (tensor-parallel serving) still
+    raises. SLO shedding, the ``edf`` / ``sjf`` policies and the
+    ``decode_block="auto"`` probe, which raised until the frontend slice
+    ported them, construct and serve a request to its end
+    (``tests/test_torch_frontend.py`` holds them to the reference)."""
     _, _, tparams = served
-    with pytest.raises(NotImplementedError):
-        _port_engine(tparams, **kw)
+    if "mesh" in kw:
+        with pytest.raises(NotImplementedError):
+            _port_engine(tparams, **kw)
+        return
+    eng = _port_engine(tparams, **kw)
+    req = Request(uid=0, prompt=np.arange(1, 9, dtype=np.int32),
+                  max_new_tokens=5)
+    eng.submit(req)
+    eng.run_until_drained()
+    assert req.done and not req.shed and len(req.generated) == 5

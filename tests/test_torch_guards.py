@@ -41,7 +41,8 @@ for new in ("kernels.quant.ops", "kernels.flash_attn.ops", "core.calibration",
             "data.synthetic", "data.loader", "launch.steps", "launch.train",
             "checkpoint.checkpointer", "runtime.fault", "tree",
             "kernels.slstm_scan.ops", "kernels.slstm_scan.ref",
-            "models.recurrent", "configs.xlstm_125m"):
+            "models.recurrent", "configs.xlstm_125m", "serve.frontend",
+            "serve.http", "obs.metrics", "obs.export"):
     assert "repro_torch." + new in names, new
 import chip_smoke
 chip_smoke.import_port()

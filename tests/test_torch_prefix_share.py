@@ -5,8 +5,9 @@ allocator's prefix index (rolling-hash chain, split blocks, copy-on-write,
 LRU eviction) on the port's own copy of the allocator, and the engine's
 token parity with sharing on vs off (including COW at the split block),
 the re-issued prompt after divergent writers, multi-turn reuse of decoded
-blocks and same-chain followers of a cold wave. Preemption and the
-``decode_block="auto"`` probe belong to later slices of the port.
+blocks and same-chain followers of a cold wave. Preemption is held in
+``test_torch_preempt.py``, the ``decode_block="auto"`` probe in
+``test_torch_frontend.py``.
 
 The prefix-hit and COW counts must equal the JAX paged engine's on the
 same requests: they are decisions of the allocator and the admission
