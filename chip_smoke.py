@@ -129,6 +129,26 @@ toolkit (``nvcc``). Phases, each fatal on failure (non-zero exit):
    the CLI's defaults (k = 4, an 18-layer draft, exact mode); the verify
    kernel and the draft's dense decode kernel launch, the paged decode
    kernel does not, and every stream equals 3b's;
+3t. tensor-parallel serving at tp=2: two processes on the one card
+   (``launch.mesh.spawn_tp``, backend gloo, named: NCCL refuses two ranks
+   on one device), each building phase 3b's weights from the same seed
+   (a checksum of a few leaves against this process's). First, at the
+   shard shapes: the w4a8 kernel's int32 accumulator-out mode (by its
+   route and each forced) and its epilogue kernel bitwise equal to their
+   plain versions at wo K 1024 and wd K 5504, M in {1, 4, 8, 512}, and
+   the two together bitwise the fused kernel; the paged decode, gather,
+   verify and COW checks of phase 2 at Hkv 1, G 8. Then on the ranks:
+   3b's requests (streams equal 3b's, prefix hits, COW, tail-waves),
+   3c's spec config (streams equal, spec_accepted equal 3c's), one
+   decode step's gathered logits and the cold prefill's int8 K/V codes
+   and scales bitwise tp=1's (each rank its head half); every rank
+   launches the fused and the accumulator-out w4a8 modes, the epilogue,
+   the paged decode, gather, COW, verify and the draft's dense decode
+   kernels; per-rank pool and weight bytes at most 0.6 of tp=1's; a
+   decode step's collectives by kind (2 amax MAX and 2 int32 SUM a
+   layer, 1 SUM for the embedding, 1 all-gather of the logits; no pool
+   leaf in any); the decode step's ms beside 3b's (gloo through host
+   memory: not a speed);
 3d. self-draft: the target as its own draft; the verify-wave's logits
    against sequential decode steps' at one wave, and the accept rate;
    then a tail-wave row alone against the same row beside a deeper one,
@@ -194,7 +214,7 @@ toolkit (``nvcc``). Phases, each fatal on failure (non-zero exit):
    exact-length admission groups through 4 slots; ``w4a8_matmul``
    launches, no attention kernel and no ``slstm_scan`` does (serving runs
    the quantized per-step cell); one decode step's logits against the
-   plain versions; decode tok/s and the device's idle share;
+   plain versions; decode tok/s;
 6. QAT of xlstm-125m at full width via ``run_qat`` (2 teacher steps, 2
    steps at B 8, T 128): per step 2 ``slstm_scan`` calls (the teacher's
    sLSTM layers) and one ``fake_quant_fwd`` / ``_bwd`` per student weight
@@ -209,7 +229,7 @@ toolkit (``nvcc``). Phases, each fatal on failure (non-zero exit):
    prompts, 24 steps), kernels vs plain; 8 requests of three lengths in
    exact-length waves, two of 2030 tokens whose rings wrap while they
    decode: ``kvq_decode_attn`` 8 launches a decode step, ``w4a8_matmul``
-   launches, no other kernel; decode tok/s, TTFT, the idle share;
+   launches, no other kernel; decode tok/s, TTFT;
 6b. QAT of recurrentgemma-2b at full width and depth via ``run_qat`` (2
    teacher steps, MSE calibration, 2 steps at B 8, T 128): per step 201
    ``fake_quant_fwd`` and 201 ``_bwd`` (8 a RG-LRU layer, 7 a local
@@ -231,8 +251,7 @@ toolkit (``nvcc``). Phases, each fatal on failure (non-zero exit):
    launches, no other kernel; a prompt alone and in a wave of 4 padded to
    the same 1024 tokens (one MoE chunk) bitwise, the expert GEMMs batched
    over the wave; each expert's share of the wave's routed pairs and the
-   share dropped at capacity; decode tok/s, TTFT, the idle share, peak
-   memory;
+   share dropped at capacity; decode tok/s, TTFT, peak memory;
 6c. QAT of mixtral-8x7b at full width and 2 layers via ``run_qat`` (2
    teacher steps, MSE calibration, 2 steps at B 8, T 128): per step 17
    ``fake_quant_fwd`` and 17 ``_bwd`` (q, k, v, o, router and three banks
@@ -254,8 +273,7 @@ toolkit (``nvcc``). Phases, each fatal on failure (non-zero exit):
    defaults (k 4, a 24-layer draft) on 4 of the requests, 16 new
    tokens each: verify
    launched, paged decode not, the accept rate and the verify-wave pairs
-   dropped at capacity; expert shares, decode tok/s, TTFT, the idle
-   share, peak memory;
+   dropped at capacity; expert shares, decode tok/s, TTFT, peak memory;
 6d. QAT of moonshot at full width and 4 layers via ``run_qat``: 33
    ``fake_quant_fwd`` and 33 ``_bwd`` a step (q, k, v, o, router, three
    64-expert banks a layer, the head) and 4 ``flash_attn_fwd``; every
@@ -267,7 +285,7 @@ toolkit (``nvcc``). Phases, each fatal on failure (non-zero exit):
    each, on the dense layout (48 ``kvq_decode_attn`` a step) and on the
    paged pool (48
    ``kvq_paged_decode_attn`` a step, cold prefill, prefix cache off),
-   the paged streams equal to the dense ones; tok/s, TTFT, idle, peak;
+   the paged streams equal to the dense ones; tok/s, TTFT, peak;
 3l. qwen2-7b at full width and depth, dense w4a8: the same (28
    ``kvq_decode_attn`` a step; the untied head at N 152064, G 7);
 6e. QAT of qwen3-14b at full width and 4 layers: 29 ``fake_quant_fwd``
@@ -395,6 +413,7 @@ def import_port():
     from repro_torch.kernels.w4a8.ref import w4a8_matmul_ref
     from repro_torch import models
     from repro_torch.launch import steps, train
+    from repro_torch.launch.mesh import spawn_tp
     from repro_torch.optim import adamw_init
     from repro_torch.benchmarks import common as bench
     from repro_torch.core.analysis import rotation
@@ -431,7 +450,7 @@ def import_port():
                 adamw_init=adamw_init, obs_export=obs_export,
                 parse_prometheus=parse_prometheus,
                 AsyncFrontend=AsyncFrontend, ServeHTTP=ServeHTTP,
-                percentile=percentile)
+                percentile=percentile, spawn_tp=spawn_tp)
 
 
 # --------------------------------------------------------------------------
@@ -3327,26 +3346,44 @@ def serve_frontend(torch, P, cfg, dev, params, report):
     return launches
 
 
+# decode steps profiled (a spec engine: one wave). Only qwen2.5-3b's
+# dense and paged serve phases are profiled: the other archs' profiles
+# (nine, 12-47 s each on a slow host, PR 27) left the script to keep it
+# inside its time limit; their idle shares stand in PERF.md as measured.
+PROFILE_STEPS = 2
+
+
 def profile_decode(torch, P, cfg, eng, report, key="serve"):
-    """Device busy time of decode chunks, from the profiler's CUDA
+    """Device busy time of decode steps, from the profiler's CUDA
     kernel records, beside the un-profiled decode step time of the serve
-    phase ``key``."""
+    phase ``key``. The requests last one unprofiled chunk and one
+    profiled chunk of ``PROFILE_STEPS`` steps, so nothing is left to
+    serve after the profile (a spec engine's wave commits a varying
+    count: its drain may take a few waves more)."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
+    block = eng.decode_block
+    spec = eng.spec is not None
     rng = np.random.default_rng(5)
     reqs = [P["Request"](uid=100 + i, prompt=rng.integers(
-        0, cfg.vocab_size, 64).astype(np.int32), max_new_tokens=MAX_NEW)
+        0, cfg.vocab_size, 64).astype(np.int32),
+        max_new_tokens=1 + block + (block if spec else PROFILE_STEPS))
         for i in range(SLOTS)]
     for r in reqs:
         eng.submit(r)
     eng.step()                          # admission + first chunk, unprofiled
     torch.cuda.synchronize()
     steps0 = eng.stats()["decode_steps"]
-    # one chunk: the profiler's records of a chunk's thousands of kernels
-    # a step take it seconds to collect, and one chunk's mean suffices
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        eng.step()
-        torch.cuda.synchronize()
+    # a short chunk: the profiler's records of thousands of kernels a
+    # step take it seconds to collect, and a few steps' mean suffices
+    if not spec:
+        eng.decode_block = PROFILE_STEPS
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            eng.step()
+            torch.cuda.synchronize()
+    finally:
+        eng.decode_block = block
     steps = eng.stats()["decode_steps"] - steps0
     eng.run_until_drained()
     kernels = [e for e in prof.events()
@@ -4008,7 +4045,6 @@ def serve_xlstm(torch, P, xcfg, dev, report):
               "peak_memory_bytes": torch.cuda.max_memory_allocated(dev)}
     report["serve_xlstm"] = served
     print("serve_xlstm " + json.dumps(served), flush=True)
-    profile_decode(torch, P, xcfg, eng, report, key="serve_xlstm")
     print(f"phase 3f: xlstm-125m dense w4a8 serve, "
           f"{served['decode_tokens_per_s']:.2f} decode tok/s, "
           f"{served['decode_step_ms']:.2f} ms per decode step; one decode "
@@ -4708,7 +4744,6 @@ def serve_rg(torch, P, rcfg, dev, report):
               "peak_memory_bytes": torch.cuda.max_memory_allocated(dev)}
     report["serve_rg"] = served
     print("serve_rg " + json.dumps(served), flush=True)
-    profile_decode(torch, P, rcfg, eng, report, key="serve_rg")
     print(f"phase 3g: recurrentgemma-2b dense w4a8 serve, "
           f"{served['decode_tokens_per_s']:.2f} decode tok/s, "
           f"{served['decode_step_ms']:.2f} ms a decode step, TTFT p50 "
@@ -5462,8 +5497,8 @@ def serve_mx(torch, P, dev, report):
     wrapping while they decode: kvq_decode_attn 16 launches a decode step,
     fake_quant_fwd 48 a forward (decode step or prefill wave: 3 banks a
     layer), w4a8_matmul launches, no other kernel; (c) cold-prefill batch
-    invariance and the routing shares; decode tok/s, TTFT, idle share,
-    peak memory."""
+    invariance and the routing shares; decode tok/s, TTFT, peak
+    memory."""
     import numpy as np
     qat, models = P["qat"], P["models"]
     mcfg = mx_cfg(P)
@@ -5548,7 +5583,6 @@ def serve_mx(torch, P, dev, report):
               "peak_memory_bytes": torch.cuda.max_memory_allocated(dev)}
     report["serve_mx"] = served
     print("serve_mx " + json.dumps(served), flush=True)
-    profile_decode(torch, P, mcfg, eng, report, key="serve_mx")
     params = eng.params
     del eng
     torch.cuda.empty_cache()
@@ -6175,7 +6209,7 @@ def serve_ms(torch, P, dev, report):
     verify-wave (token, slot) pairs dropped at capacity (one slot an
     expert at C 5); streams are not held to (a)'s (the verify-wave's
     capacity drops pairs decode keeps); (f) each expert's share of
-    (a)'s kept pairs, decode tok/s, TTFT, the idle share, peak memory."""
+    (a)'s kept pairs, decode tok/s, TTFT, peak memory."""
     blocks = P["blocks"]
     mcfg = P["get_config"](MS)
     L = mcfg.n_layers
@@ -6253,7 +6287,6 @@ def serve_ms(torch, P, dev, report):
               "peak_memory_bytes": torch.cuda.max_memory_allocated(dev)}
     report["serve_ms"] = served
     print("serve_ms " + json.dumps(served), flush=True)
-    profile_decode(torch, P, mcfg, eng, report, key="serve_ms")
     del eng
     torch.cuda.empty_cache()
     served["step"] = ms_step_logits(torch, P, mcfg, params, dev)
@@ -6366,8 +6399,7 @@ def serve_cut(torch, P, dev, report, arch, n_layers, key, phase,
     kernel); with ``paged``, the same requests on the paged pool (blocks
     of 64, prefix cache off, one prefill window: a cold prefill, as the
     dense engine's), paged decode a layer a step, and every stream equal
-    to the dense engine's. Decode tok/s, TTFT, the idle share, peak
-    memory."""
+    to the dense engine's. Decode tok/s, TTFT, peak memory."""
     qat, models = P["qat"], P["models"]
     cfg = P["get_config"](arch)
     if n_layers:
@@ -6428,7 +6460,6 @@ def serve_cut(torch, P, dev, report, arch, n_layers, key, phase,
             "prefill_s": stats["prefill_s"], "launches": launches,
             "peak_memory_bytes": torch.cuda.max_memory_allocated(dev)}
         report[f"{key}_{layout}"] = out[layout]
-        profile_decode(torch, P, cfg, eng, report, key=f"{key}_{layout}")
         del eng
         torch.cuda.empty_cache()
     if paged:
@@ -7091,6 +7122,457 @@ def time_wv(torch, P, dev, report):
 
 
 # --------------------------------------------------------------------------
+# phase 3t: tensor-parallel serving, qwen2.5-3b at tp=2 on one card
+# --------------------------------------------------------------------------
+
+TP = 2
+TP_W4A8_M = (1, SLOTS, 8, PREFILL_M)
+TP_TIMEOUT_S = 420
+# phase 3t's spec pass: phase 3c's config (k 4, the 18-layer draft) on the
+# first SLOTS of its requests, 8 new tokens each. Two ranks on one card
+# over gloo pay ~1-1.7 ms a collective (tools/tp_collective_times.py),
+# ~440 a spec wave: 3c's whole workload took 99-113 s at tp=2
+TP_SPEC_NEW = 8
+# a few leaves every rank checks against the parent's (same seed, same
+# weights): (path, in the tree init_params returns)
+TP_CHECKSUM_LEAVES = ("embed/w", "layers/0/attn/wq/b", "layers/mid/ln2/w",
+                      "layers/last/attn/wo/w", "final_norm/w")
+
+
+def tp_shard_cfg(cfg, tp=TP):
+    """The config a rank's model code runs: its heads of the tp slices."""
+    return cfg.replace(n_heads=cfg.n_heads // tp,
+                       n_kv_heads=cfg.n_kv_heads // tp,
+                       head_dim=cfg.resolved_head_dim)
+
+
+def tp_row_shapes(cfg, tp=TP):
+    """(name, K, N) of the row-parallel linears at a rank's K slice."""
+    return [("o", cfg.q_dim // tp, cfg.d_model),
+            ("down", cfg.d_ff // tp, cfg.d_model)]
+
+
+def sync(torch, dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def leaf_checksums(torch, params):
+    """(int sum of the bits, f64 sum of squares) of a few leaves."""
+    out = {}
+    for path in TP_CHECKSUM_LEAVES:
+        t = params
+        for k in path.split("/"):
+            if isinstance(t, list):
+                k = {"mid": len(t) // 2, "last": len(t) - 1}.get(k, k)
+                t = t[int(k)]
+            else:
+                t = t[k]
+        bits = t.view(torch.int16) if t.element_size() == 2 else t.view(
+            torch.int32)
+        out[path] = (int(bits.long().sum()),
+                     float(t.double().square().sum()))
+    return out
+
+
+def check_w4a8_acc(torch, P, cfg, dev, report):
+    """The w4a8 kernel's accumulator-out mode and its epilogue kernel at
+    the row-parallel shard shapes (wo K 1024, wd K 5504 at tp=2) and M in
+    TP_W4A8_M: the int32 sums bitwise the plain version's by the
+    launcher's route and each route forced, the epilogue bitwise the
+    plain epilogue's with and without bias, and the two kernels together
+    bitwise the fused matmul."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(31)
+    ops = P["w4a8_ops"]
+    n = 0
+    for name, K, N in tp_row_shapes(cfg):
+        w_p, s_w, b = w4a8_weights(torch, gen, K, N, True, dev)
+        for M in TP_W4A8_M:
+            x_q, s_x = w4a8_activations(torch, gen, M, K, dev)
+            want = ops.w4a8_accumulate_ref(x_q, w_p)
+            for route in ("auto",) + W4A8_ROUTES:
+                got = ops.w4a8_accumulate(x_q, w_p, route=route)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    raise SmokeFailure(
+                        f"w4a8_accumulate {name} M={M} K={K} route={route} "
+                        f"differs from its plain version on "
+                        f"{int((got != want).sum())} sums")
+            for bias in (None, b):
+                y = ops.w4a8_epilogue(want, s_x, s_w, bias)
+                y_want = ops.w4a8_epilogue_ref(want, s_x, s_w, bias)
+                torch.cuda.synchronize()
+                check(torch.equal(y, y_want),
+                      f"w4a8_epilogue {name} M={M} bias={bias is not None} "
+                      f"differs from its plain version")
+                check(torch.equal(y, ops.w4a8_matmul(x_q, w_p, s_x, s_w,
+                                                     bias)),
+                      f"w4a8 {name} M={M}: accumulate + epilogue differ "
+                      f"from the fused kernel")
+            n += 1
+            del x_q, s_x, want
+        del w_p, s_w, b
+    report["w4a8_acc_cases"] = n
+    print(f"phase 3t: w4a8_accumulate bitwise equal to its plain version "
+          f"(launcher's route and both forced) and w4a8_epilogue to its "
+          f"plain epilogue, together bitwise the fused kernel, at "
+          f"{[(K, N) for _, K, N in tp_row_shapes(cfg)]} (K, N), M in "
+          f"{list(TP_W4A8_M)}", flush=True)
+    return 0.0
+
+
+def check_tp_kernels(torch, P, cfg, dev, report):
+    """Phase 2's checks of the paged decode, gather, verify and COW
+    kernels at one rank's heads (Hkv 1, G 8 at tp=2)."""
+    scfg = tp_shard_cfg(cfg)
+    sub = {}
+    errs = {"w4a8_accumulate": check_w4a8_acc(torch, P, cfg, dev, sub),
+            "kvq_paged_decode_attn": check_paged_decode(torch, P, scfg, dev,
+                                                        sub),
+            "gather_dequant_paged_kv": check_gather(torch, P, scfg, dev,
+                                                    sub),
+            "kvq_spec_verify_attn": check_spec_verify(torch, P, scfg, dev,
+                                                      sub)}
+    check_copy_multi(torch, P, scfg, dev, sub)
+    errs["pool_block_copy"] = 0.0
+    report["tp_kernels"] = {"shard": {"n_heads": scfg.n_heads,
+                                      "n_kv_heads": scfg.n_kv_heads},
+                            **sub}
+    return errs
+
+
+def time_w4a8_acc(torch, P, cfg, dev):
+    """Per launch at the row-parallel shard shapes and M = slots and one
+    admission wave: the accumulator-out mode, the epilogue, the fused
+    kernel on the same shape, the plain versions and the bounds."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(32)
+    ops = P["w4a8_ops"]
+    rows = []
+    for name, K, N in tp_row_shapes(cfg):
+        nb = N * K // 2 + 8 * N
+        sets = [w4a8_weights(torch, gen, K, N, False, dev)
+                for _ in range(copies_for(nb))]
+        for M in (SLOTS, PREFILL_M):
+            x_q, s_x = w4a8_activations(torch, gen, M, K, dev)
+            acc = ops.w4a8_accumulate_ref(x_q, sets[0][0])
+            acc_sets = [(x_q, w_p) for w_p, _, _ in sets]
+            epi_sets = [(acc.clone(), s_x, s_w) for _, s_w, _ in
+                        sets[:copies_for(4 * M * N)]]
+            fused = [(x_q, w_p, s_x, s_w) for w_p, s_w, _ in sets]
+            a_bytes = M * K + N * K // 2 + 4 * M * N
+            e_bytes = 4 * M * N + 4 * M + 4 * N + 2 * M * N
+            ta, to = a_bytes / HBM_BYTES_PER_S, 2 * M * N * K / INT8_OPS_PER_S
+            rows.append({
+                "linear": name, "M": M, "K": K, "N": N,
+                "accumulate_ms": time_ms(torch, ops.w4a8_accumulate,
+                                         acc_sets),
+                "accumulate_plain_ms": time_ms(
+                    torch, ops.w4a8_accumulate_ref, acc_sets[:2],
+                    min_calls=5),
+                "accumulate_bound_ms": 1e3 * max(ta, to),
+                "accumulate_bound_by": "bytes" if ta >= to else "operations",
+                "epilogue_ms": time_ms(torch, ops.w4a8_epilogue, epi_sets),
+                "epilogue_plain_ms": time_ms(torch, ops.w4a8_epilogue_ref,
+                                             epi_sets[:2], min_calls=10),
+                "epilogue_bound_ms": 1e3 * e_bytes / HBM_BYTES_PER_S,
+                "fused_ms": time_ms(torch, ops.w4a8_matmul, fused)})
+            del x_q, s_x, acc, acc_sets, epi_sets, fused
+        del sets
+        torch.cuda.empty_cache()
+    return rows
+
+
+def tp_spec_requests(P, cfg):
+    """Phase 3t's spec workload: phase 3b's first SLOTS requests (the
+    shared prefix, the shortest suffixes), ``TP_SPEC_NEW`` new tokens."""
+    reqs = shared_prefix_requests(P, cfg, 2 * SLOTS, 200, seed=14)[:SLOTS]
+    for r in reqs:
+        r.max_new_tokens = TP_SPEC_NEW
+    return reqs
+
+
+def tp_counted(P):
+    ops, w = P["kvq_ops"], P["w4a8_ops"]
+    return {"w4a8_matmul": w.w4a8_matmul,
+            "w4a8_accumulate": w.w4a8_accumulate,
+            "w4a8_epilogue": w.w4a8_epilogue,
+            "kvq_paged_decode_attn": ops.kvq_paged_decode_attn,
+            "gather_dequant_paged_kv": ops.gather_dequant_paged_kv,
+            "pool_block_copy": ops.copy_pool_blocks_multi,
+            "kvq_spec_verify_attn": ops.kvq_spec_verify_attn,
+            "kvq_decode_attn": ops.kvq_decode_attn}
+
+
+def logit_state_requests(P, cfg):
+    """The cold wave of the one-step logit and prefill checks: SLOTS
+    prompts of 32 to 64 tokens (check_paged_logits' prompts)."""
+    import numpy as np
+    rng = np.random.default_rng(12)
+    return [P["Request"](uid=i, prompt=rng.integers(
+        0, cfg.vocab_size, int(n)).astype(np.int32), max_new_tokens=MAX_NEW)
+        for i, n in enumerate(rng.integers(32, 65, SLOTS))]
+
+
+def cold_wave_state(torch, P, cfg, params, dev, mesh=None):
+    """A paged engine (prefix cache off) after one cold admission wave:
+    (one decode step's logits and the pool's K/V codes and scales of the
+    blocks the wave wrote, both on the host; the engine; the step's
+    wall ms and, on a mesh, its collectives by kind and whether a pool
+    leaf was handed to one)."""
+    models = P["models"]
+    eng = paged_engine(P, cfg, params, dev, prefix_cache=False, mesh=mesh)
+    for r in logit_state_requests(P, cfg):
+        eng.submit(r)
+    eng._admit()
+    check(len(eng._slot_req) == SLOTS, "tp logit state: a wave short")
+    eng._ensure_decode_blocks()
+    cache = models.clone_cache(eng.state["cache"])
+    comm = eng._comm
+    if comm is not None:
+        before = comm.counts()
+        comm.watch = set()
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    logits, _ = models.decode_step(eng.mcfg, eng.params, eng.ctx,
+                                   eng.state["tokens"], cache)
+    sync(torch, dev)
+    step = {"one_step_ms": 1e3 * (time.perf_counter() - t0)}
+    if comm is not None:
+        after = comm.counts()
+        pools = {v.untyped_storage().data_ptr()
+                 for v in list(cache["pool"].values())
+                 + list(eng.state["cache"]["pool"].values())}
+        step["census"] = {k: after[k] - before[k] for k in after}
+        step["pool_in_collective"] = bool(pools & comm.watch)
+        comm.watch = None
+    used = sorted({int(b) for s in eng._slot_req
+                   for b in eng.alloc.tables[s] if b < eng.num_blocks})
+    idx = torch.tensor(used, device=dev)
+    pool = {k: v[:, idx].cpu() for k, v in eng.state["cache"]["pool"].items()}
+    return logits.float().cpu(), pool, eng, step
+
+
+def tp_rank(mesh, tp_in):
+    """One rank of phase 3t: the paged serve of phase 3b's requests, the
+    spec serve of phase 3c's config, one decode step's logits and the
+    cold prefill's pool, each rank on its slice. Returns rank 0's report
+    with every rank's launch counts and checks (gathered)."""
+    import torch
+    import torch.distributed as dist
+    P = import_port()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = mesh.device
+    # (the reduced config where this phase is rehearsed on the CPU)
+    cfg = P["get_reduced_config" if tp_in.get("reduced") else
+            "get_config"]("qwen2.5-3b")
+    qat = P["qat"]
+    t0 = time.perf_counter()
+    params = P["models"].init_params(cfg, seed=0, device=dev)
+    sums = leaf_checksums(torch, params)
+    pol = P["parse_policy"]("A8d-C8-W4")
+    # the packed exports, the bf16 linears dropped (phase 3's tree); each
+    # engine below cuts its own slice of them
+    params = qat.drop_exported_weights(qat.attach_w4a8_exports(params, pol))
+    sync(torch, dev)
+    out = {"rank": mesh.rank, "setup_s": time.perf_counter() - t0,
+           "checksums_equal": sums == tp_in["checksums"]}
+    counted = tp_counted(P)
+
+    def serve(eng, reqs):
+        comm = eng._comm
+        before = comm.counts()
+        for r in reqs:
+            eng.submit(r)
+        for fn in counted.values():
+            fn.launches = 0
+        t = time.perf_counter()
+        stats = eng.run_until_drained()
+        sync(torch, dev)
+        wall = time.perf_counter() - t
+        after = comm.counts()
+        return stats, {n: fn.launches for n, fn in counted.items()}, wall, \
+            {k: after[k] - before[k] for k in after}
+
+    # (a) phase 3b's requests on the paged pool, prefix cache on
+    eng = paged_engine(P, cfg, params, dev, mesh=mesh)
+    reqs = shared_prefix_requests(P, cfg, 2 * SLOTS, 200, seed=14)
+    stats, launches, wall, coll = serve(eng, reqs)
+    out["paged"] = {
+        "streams": {r.uid: r.generated for r in reqs},
+        "done": all(r.done for r in reqs), "wall_s": wall,
+        "launches": launches, "collectives": coll,
+        "free_blocks_back": stats["free_blocks"] == eng.num_blocks,
+        **{k: stats[k] for k in (
+            "decode_step_s", "decode_steps", "tokens_out", "prefix_hit_blocks",
+            "cow_copies", "tail_waves", "per_device_pool_bytes",
+            "per_device_weight_bytes", "tp_degree", "mesh_shape")}}
+    del eng
+    # (b) phase 3c's config: spec at k 4 with the 18-layer draft
+    eng = paged_engine(P, cfg, params, dev, mesh=mesh,
+                       spec=P["SpecConfig"](k=SPEC_K))
+    reqs = tp_spec_requests(P, cfg)
+    stats, launches, wall, coll = serve(eng, reqs)
+    out["spec"] = {"streams": {r.uid: r.generated for r in reqs},
+                   "wall_s": wall, "launches": launches, "collectives": coll,
+                   **{k: stats[k] for k in ("spec_waves", "spec_accepted",
+                                            "spec_drafted",
+                                            "spec_draft_layers")}}
+    del eng
+    # (c) one decode step's gathered logits and the cold wave's pool
+    logits, pool, eng, step = cold_wave_state(torch, P, cfg, params, dev,
+                                              mesh=mesh)
+    del eng
+    hkv = tp_shard_cfg(cfg).n_kv_heads
+    heads = slice(mesh.rank * hkv, (mesh.rank + 1) * hkv)
+    step["logits_equal"] = bool(torch.equal(logits, tp_in["logits"]))
+    step["logits_finite"] = bool(torch.isfinite(logits).all())
+    step["prefill_pool_equal"] = {
+        k: bool(torch.equal(v, tp_in["pool"][k][:, :, heads]))
+        for k, v in pool.items()}
+    out["step"] = step
+    # every rank's findings, gathered on rank 0
+    mine = {k: out[k] for k in ("rank", "checksums_equal", "setup_s")}
+    mine["launches"] = {"paged": out["paged"]["launches"],
+                        "spec": out["spec"]["launches"]}
+    mine["step"] = out["step"]
+    mine["streams"] = (out["paged"]["streams"], out["spec"]["streams"])
+    ranks = [None] * dist.get_world_size()
+    dist.all_gather_object(ranks, mine)
+    out["ranks"] = [{k: v for k, v in r.items() if k != "streams"}
+                    for r in ranks]
+    out["ranks_agree"] = all(r["streams"] == ranks[0]["streams"]
+                             for r in ranks)
+    return out
+
+
+def serve_tp(torch, P, cfg, dev, params, report, plain_streams,
+             reduced=False):
+    """Phase 3t: qwen2.5-3b at full width and depth served at tp=2 by two
+    processes on the one card (``launch.mesh.spawn_tp``, backend gloo,
+    passed explicitly: NCCL refuses two ranks on one device), each rank
+    building phase 3b's weights from the same seed. Kernels at the shard
+    shapes against their plain versions first (in this process)."""
+    models = P["models"]
+    errs = (check_tp_kernels(torch, P, cfg, dev, report) if not reduced
+            else {})
+    torch.cuda.empty_cache()
+    # tp=1 references: the same seed's weights, one decode step's logits
+    # and the cold wave's pool
+    full = models.init_params(cfg, seed=0, device=dev)
+    sums = leaf_checksums(torch, full)
+    del full
+    torch.cuda.empty_cache()
+    logits, pool, eng, _ = cold_wave_state(torch, P, cfg, params, dev)
+    ref_bytes = {k: eng.stats()[k] for k in ("per_device_pool_bytes",
+                                            "per_device_weight_bytes")}
+    del eng
+    eng = paged_engine(P, cfg, params, dev, spec=P["SpecConfig"](k=SPEC_K))
+    reqs = tp_spec_requests(P, cfg)
+    for r in reqs:
+        eng.submit(r)
+    ref_spec = eng.run_until_drained()
+    ref_spec_streams = {r.uid: r.generated for r in reqs}
+    del eng
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = P["spawn_tp"](tp_rank, TP, {"checksums": sums, "logits": logits,
+                                      "pool": pool, "reduced": reduced},
+                        device=torch.device(dev).type, backend="gloo",
+                        timeout_s=TP_TIMEOUT_S)
+    spawn_s = time.perf_counter() - t0
+    paged, spec, step = out["paged"], out["spec"], out["step"]
+    for r in out["ranks"]:
+        check(r["checksums_equal"], f"tp rank {r['rank']}: its weights' "
+                                    f"checksums differ from the parent's")
+        st = r["step"]
+        check(st["logits_equal"] and st["logits_finite"],
+              f"tp rank {r['rank']}: one decode step's gathered logits are "
+              f"not bitwise tp=1's")
+        bad = [k for k, ok in st["prefill_pool_equal"].items() if not ok]
+        check(not bad, f"tp rank {r['rank']}: the cold prefill's {bad} "
+                       f"differ from tp=1's head half")
+        check(not st["pool_in_collective"],
+              f"tp rank {r['rank']}: a pool leaf was handed to a collective")
+        for phase, names in (("paged", ("w4a8_matmul", "w4a8_accumulate",
+                                        "w4a8_epilogue",
+                                        "kvq_paged_decode_attn",
+                                        "gather_dequant_paged_kv",
+                                        "pool_block_copy")),
+                             ("spec", ("kvq_spec_verify_attn",
+                                       "w4a8_accumulate", "w4a8_epilogue",
+                                       "kvq_decode_attn"))):
+            for name in names:
+                check(r["launches"][phase][name] > 0,
+                      f"tp rank {r['rank']} ({phase}): {name} never "
+                      f"launched: {r['launches'][phase]}")
+    check(out["ranks_agree"], "tp: the ranks' streams differ")
+    check(paged["done"] and paged["free_blocks_back"],
+          "tp paged: unfinished requests or leaked blocks")
+    differ = [u for u, s in paged["streams"].items()
+              if s != plain_streams[u]]
+    check(not differ, f"tp paged: streams differ from phase 3b's for "
+                      f"requests {differ}")
+    differ = [u for u, s in spec["streams"].items()
+              if s != ref_spec_streams[u]]
+    check(not differ, f"tp spec: streams differ from tp=1's (phase 3c's "
+                      f"config) for requests {differ}")
+    check(spec["spec_accepted"] == ref_spec["spec_accepted"]
+          and spec["spec_waves"] == ref_spec["spec_waves"],
+          f"tp spec: {spec['spec_accepted']} accepted in "
+          f"{spec['spec_waves']} waves, tp=1 {ref_spec['spec_accepted']} "
+          f"in {ref_spec['spec_waves']}")
+    spec_prefix = all(s == plain_streams[u][:TP_SPEC_NEW]
+                      for u, s in spec["streams"].items())
+    check(paged["prefix_hit_blocks"] > 0 and paged["cow_copies"] > 0
+          and paged["tail_waves"] > 0,
+          f"tp paged: no prefix hit, COW or tail-wave: {paged}")
+    share = {k: paged[k] / ref_bytes[k] for k in ref_bytes}
+    check(all(v <= 0.6 for v in share.values()),
+          f"tp: per-rank bytes above 0.6 of tp=1's: {share}")
+    census = step["census"]
+    n_layers = cfg.n_layers
+    check(census["all_reduce_max"] == 2 * n_layers
+          and census["all_reduce_sum"] == 2 * n_layers + 1
+          and census["all_gather"] == 1,
+          f"tp: a decode step's collectives {census}, want "
+          f"{2 * n_layers} MAX, {2 * n_layers + 1} SUM, 1 all-gather")
+    res = {"tp": TP, "backend": "gloo", "card": report.get("card"),
+           "spawn_s": spawn_s, "kernel_errs": errs,
+           "rank_setup_s": [r["setup_s"] for r in out["ranks"]],
+           "decode_step_ms": 1e3 * paged["decode_step_s"],
+           "decode_step_ms_tp1": report["serve_paged"]["decode_step_ms"],
+           "one_step_ms": step["one_step_ms"],
+           "paged_wall_s": paged["wall_s"], "spec_wall_s": spec["wall_s"],
+           "bytes_share_of_tp1": share, "census_per_decode_step": census,
+           "paged_collectives": paged["collectives"],
+           "spec_waves": spec["spec_waves"],
+           "spec_accepted": spec["spec_accepted"],
+           "spec_requests": len(spec["streams"]),
+           "spec_new_tokens": TP_SPEC_NEW,
+           "spec_streams_prefix_of_3b": spec_prefix,
+           "launches": {r["rank"]: r["launches"] for r in out["ranks"]},
+           "note": "two processes on one card over gloo (tensors through "
+                   "host memory): a check of the TP path, not a speed"}
+    report["serve_tp"] = res
+    print(f"phase 3t: qwen2.5-3b at tp={TP} (gloo, two ranks on "
+          f"{report.get('card')}): phase 3b's streams bitwise; phase 3c's "
+          f"config on {len(spec['streams'])} requests of {TP_SPEC_NEW} "
+          f"tokens: streams and spec accepted ({spec['spec_accepted']} in "
+          f"{spec['spec_waves']} waves) tp=1's; one decode step's "
+          f"logits and the cold prefill's K/V halves bitwise tp=1's; "
+          f"per-rank pool {share['per_device_pool_bytes']:.3f} and weights "
+          f"{share['per_device_weight_bytes']:.3f} of tp=1's; a decode "
+          f"step's collectives {census}; decode step "
+          f"{res['decode_step_ms']:.1f} ms (tp=1 "
+          f"{res['decode_step_ms_tp1']:.1f} ms; gloo through host memory, "
+          f"not a speed result); spawn {spawn_s:.1f} s", flush=True)
+    return res
+
+
+# --------------------------------------------------------------------------
 
 def main() -> int:
     import torch
@@ -7163,6 +7645,9 @@ def main() -> int:
     check_paged_logits(torch, P, cfg, dev, params, report)
     spec_launches = serve_spec(torch, P, cfg, dev, params, report,
                                plain_streams)
+    torch.cuda.empty_cache()
+    tp = serve_tp(torch, P, cfg, dev, params, report, plain_streams)
+    torch.cuda.empty_cache()
     serve_self_draft(torch, P, cfg, dev, params, report)
     check_tail_rows(torch, P, cfg, dev, params, report)
     serve_optimistic(torch, P, cfg, dev, params, report)
@@ -7209,6 +7694,8 @@ def main() -> int:
                             "train_vl", "phase 6g")
     torch.cuda.empty_cache()
     w4a8_t = time_w4a8(torch, P, cfg, dev, report)
+    w4a8_tp_t = time_w4a8_acc(torch, P, cfg, dev)
+    report["w4a8_tp_shard_times"] = w4a8_tp_t
     kvq_t = time_kvq(torch, P, cfg, dev, report)
     paged_t = time_paged_decode(torch, P, cfg, dev, report)
     gather_t = time_gather(torch, P, cfg, dev, report)
@@ -7275,12 +7762,27 @@ def main() -> int:
          "qwen2_vl": {"per": f"one qwen2-vl decode step at M={SLOTS}: 28 "
                              f"layers x 7 linears + the tied head",
                       **wv_t["w4a8_decode_step_qwen2_vl"]},
+         "modes": {
+             "fused": "int8 x int4 -> int32 sums -> scales (+ bias) -> "
+                      "bf16, one launch (every linear at tp=1, the "
+                      "column-parallel ones at tp=2)",
+             "accumulate_epilogue": "w4a8_accumulate_launch (int32 sums, "
+                                    "no epilogue) + w4a8_epilogue_launch: "
+                                    "the row-parallel wo and wd at tp=2, "
+                                    "the int32 sums all-reduced between"},
+         "tp2_launches": tp["launches"],
+         "tp2_max_abs_err": tp["kernel_errs"]["w4a8_accumulate"],
+         "tp2_shard_times": {"per": "one launch at a rank's K slice "
+                                    "(wo K 1024, wd K 5504; N 2048)",
+                             "card": report["card"], "rows": w4a8_tp_t},
          "per": f"one decode step at M={SLOTS}: 36 layers x 7 linears + "
                 "the tied head"},
         {"name": "kvq_decode_attn", "route": "cuda",
          "source": "src/repro_torch/csrc/kvq_decode_attn.cu",
          "replaces": "src/repro/kernels/kvq_attn/kernel.py:338",
          "launches": launches["kvq_decode_attn"],
+         "tp2_spec_draft_launches": {r: l["spec"]["kvq_decode_attn"]
+                                     for r, l in tp["launches"].items()},
          "max_abs_err": max(kvq_err, rg_err["kvq_decode_attn"],
                             mx_err["kvq_decode_attn"],
                             new_err["kvq_decode_attn"],
@@ -7315,6 +7817,9 @@ def main() -> int:
          "source": "src/repro_torch/csrc/kvq_paged_decode_attn.cu",
          "replaces": "src/repro/kernels/kvq_attn/kernel.py:109",
          "launches": paged_launches["kvq_paged_decode_attn"],
+         "tp2_launches": {r: l["paged"]["kvq_paged_decode_attn"]
+                          for r, l in tp["launches"].items()},
+         "tp2_max_abs_err": tp["kernel_errs"]["kvq_paged_decode_attn"],
          "frontend_launches": fe_launches["kvq_paged_decode_attn"],
          "max_abs_err": max(paged_err, rg_err["kvq_paged_decode_attn"],
                             new_err["kvq_paged_decode_attn"],
@@ -7345,6 +7850,9 @@ def main() -> int:
          "source": "src/repro_torch/csrc/gather_dequant_paged_kv.cu",
          "replaces": "src/repro/kernels/kvq_attn/kernel.py:174",
          "launches": paged_launches["gather_dequant_paged_kv"],
+         "tp2_launches": {r: l["paged"]["gather_dequant_paged_kv"]
+                          for r, l in tp["launches"].items()},
+         "tp2_max_abs_err": tp["kernel_errs"]["gather_dequant_paged_kv"],
          "frontend_launches": fe_launches["gather_dequant_paged_kv"],
          "max_abs_err": max(gather_err, rg_err["gather_dequant_paged_kv"],
                             new_err["gather_dequant_paged_kv"],
@@ -7367,6 +7875,9 @@ def main() -> int:
          "source": "src/repro_torch/csrc/pool_block_copy.cu",
          "replaces": "src/repro/kernels/kvq_attn/kernel.py:308",
          "launches": paged_launches["pool_block_copy"],
+         "tp2_launches": {r: l["paged"]["pool_block_copy"]
+                          for r, l in tp["launches"].items()},
+         "tp2_max_abs_err": tp["kernel_errs"]["pool_block_copy"],
          "frontend_launches": fe_launches["pool_block_copy"],
          "max_abs_err": copy_err, **copy_t,
          "qwen2_vl_launches": vl_paged["pool_block_copy"],
@@ -7381,6 +7892,9 @@ def main() -> int:
          "source": "src/repro_torch/csrc/kvq_spec_verify_attn.cu",
          "replaces": "src/repro/kernels/kvq_attn/kernel.py:255",
          "launches": spec_launches["kvq_spec_verify_attn"],
+         "tp2_launches": {r: l["spec"]["kvq_spec_verify_attn"]
+                          for r, l in tp["launches"].items()},
+         "tp2_max_abs_err": tp["kernel_errs"]["kvq_spec_verify_attn"],
          "max_abs_err": max(spec_err, rg_err["kvq_spec_verify_attn"],
                             new_err["kvq_spec_verify_attn"],
                             wv_err["kvq_spec_verify_attn"]),

@@ -58,6 +58,12 @@ class QuantCtx:
     # (what chip_smoke.py holds the kernels' serving and training paths
     # against)
     kernel_backend: str = "auto"
+    # tensor-parallel serving: this rank's ``runtime.collectives.TPComm``
+    # (None off the mesh). Row-parallel linears (``qlinear(..., row=
+    # True)``: wo, wd) then reduce their amax and int32 accumulators over
+    # it, the embedding sums its vocabulary shards and the head gathers
+    # its logits
+    tp: Any = None
 
     @property
     def off(self) -> bool:
@@ -76,7 +82,7 @@ class QuantCtx:
 def make_ctx(policy, mode: str = "train",
              act_calib_method: str = "quantile",
              weights_layout: str = "bf16",
-             kernel_backend: str = "auto") -> QuantCtx:
+             kernel_backend: str = "auto", tp=None) -> QuantCtx:
     if isinstance(policy, str):
         policy = parse_policy(policy)
     if kernel_backend not in KERNEL_BACKENDS:
@@ -85,7 +91,7 @@ def make_ctx(policy, mode: str = "train",
     return QuantCtx(policy=policy, mode=mode,
                     act_calib_method=act_calib_method,
                     weights_layout=weights_layout,
-                    kernel_backend=kernel_backend)
+                    kernel_backend=kernel_backend, tp=tp)
 
 
 # --------------------------------------------------------------------------
@@ -161,7 +167,8 @@ def quantize_weight_p(ctx: QuantCtx, p: Dict[str, Any],
 def qlinear(ctx: QuantCtx, x: torch.Tensor, p: Dict[str, Any],
             col: Optional[Dict[str, Any]] = None,
             act_bits: Optional[int] = None,
-            weight_bits: Optional[int] = None) -> torch.Tensor:
+            weight_bits: Optional[int] = None,
+            row: bool = False) -> torch.Tensor:
     """Quantized linear: fake-quant input + weight, then matmul (+ bias).
 
     ``act_bits``/``weight_bits`` override the body policy for special sites
@@ -171,7 +178,14 @@ def qlinear(ctx: QuantCtx, x: torch.Tensor, p: Dict[str, Any],
     :func:`attach_w4a8_exports`) with per-token dynamic int8 activations.
     A missing export raises: a silent bf16 fallback would defeat the
     layout (weight-HBM streaming).
+
+    ``row`` marks a row-parallel linear (the sharding rules' wo, wd, w2):
+    on a tensor-parallel mesh (``ctx.tp``) its input and packed weight
+    are this rank's K slice, and ``w4a8_linear_row`` reduces the amax
+    and the int32 accumulators over the ranks. Off the mesh it changes
+    nothing.
     """
+    row_tp = row and ctx.tp is not None and ctx.tp.size > 1
     if ctx.weights_layout == "w4a8" and ctx.mode != "calib" and not ctx.off:
         exp = p.get("w4a8")
         if exp is None:
@@ -179,7 +193,15 @@ def qlinear(ctx: QuantCtx, x: torch.Tensor, p: Dict[str, Any],
                 "weights_layout='w4a8' but this linear carries no packed "
                 "export; run qat.attach_w4a8_exports(params, policy) on the "
                 "served tree (keys present: %s)" % sorted(p.keys()))
+        if row_tp:
+            from repro_torch.kernels.w4a8.ops import w4a8_linear_row
+            return w4a8_linear_row(x, exp, ctx.tp, out_dtype=x.dtype,
+                                   plain=ctx.kernel_backend == "ref")
         return w4a8_qlinear(ctx, x, exp)
+    if row_tp:
+        raise NotImplementedError(
+            "a row-parallel linear runs under weights_layout='w4a8' only "
+            "(its int32 accumulators sum exactly; bf16 partials would not)")
     xq = quantize_act(ctx, x, p, "s_in", col, bits=act_bits)
     wq = quantize_weight_p(ctx, p, bits=weight_bits)
     y = torch.matmul(xq, wq)

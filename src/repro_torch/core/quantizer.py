@@ -79,10 +79,19 @@ def dequantize_int(q: torch.Tensor, s: torch.Tensor,
 def dynamic_quantize_to_int(x: torch.Tensor, bits: int, axis: int = -1,
                             dtype=torch.int8):
     """Per-token integer quantization; returns (q, scale)."""
-    qn, qp = qbounds(bits)
     xf = x.float()
-    s = torch.clamp_min(torch.amax(torch.abs(xf), dim=axis, keepdim=True) / qp,
-                        _EPS)
+    return quantize_by_amax(xf, torch.amax(torch.abs(xf), dim=axis,
+                                           keepdim=True), bits, dtype)
+
+
+def quantize_by_amax(xf: torch.Tensor, amax: torch.Tensor, bits: int,
+                     dtype=torch.int8):
+    """:func:`dynamic_quantize_to_int` of f32 ``xf`` from its absmax
+    ``amax`` (keepdim), which may be a whole row's while ``xf`` is a slice
+    of it (a row-parallel linear's local K after the amax all-reduce):
+    the slice's codes and the scale are then the whole row's."""
+    qn, qp = qbounds(bits)
+    s = torch.clamp_min(amax / qp, _EPS)
     q = torch.round(torch.clamp(xf / s, qn, qp)).to(dtype)
     return q, s
 

@@ -64,6 +64,14 @@
 // card (tools/mma_rate.py); wgmma with a warp-specialised pipeline is the
 // next step.
 //
+// Accumulator-out mode (the row-parallel linear of tensor-parallel
+// serving): both routes can write the exact int32 sums acc (M, N) with no
+// epilogue (w4a8_accumulate_launch). The ranks add their partial sums of
+// a K slice (an exact integer all-reduce), and w4a8_epilogue_launch
+// applies the scales to the total in the order above, once: so the
+// result is bitwise the whole-K product's. The kernels are the same code
+// with the store templated on the output type.
+//
 // Requirements (checked by the Python wrapper): K % 32 == 0, K <= MAX_K,
 // x and w 16-byte aligned, every tensor contiguous.
 
@@ -177,12 +185,23 @@ __device__ __forceinline__ Scales load_scales(const float* __restrict__ sx,
                                               const float* bias, int m, int n,
                                               int M, int N) {
   Scales r = {0.0f, 0.0f, 0.0f};
-  if (m < M && n < N) {
+  if (sx != nullptr && m < M && n < N) {
     r.sx = sx[m];
     r.sw = sw[n];
     if (bias != nullptr) r.b = bias[n];
   }
   return r;
+}
+
+// one output: bf16 through the epilogue, or the int32 sum itself
+__device__ __forceinline__ void put(__nv_bfloat16* o, int acc16,
+                                    const Scales& sc, bool has_bias) {
+  *o = scale_out(acc16, sc.sx, sc.sw, has_bias, sc.b);
+}
+
+__device__ __forceinline__ void put(int32_t* o, int acc16, const Scales&,
+                                    bool) {
+  *o = acc16 >> UNPACK_SHIFT;
 }
 
 // ------------------------------------------------------------ decode route
@@ -240,12 +259,13 @@ __device__ __forceinline__ void gv_stage(uint4 (*xs)[GV_MT][GV_ROUND],
 // a time, the next round landing while this one is summed: x rows as
 // xs[h][i][c] (half h of chunk c of row i), the packed weights of the
 // tile's columns as ws[col][c].
+// OutT: __nv_bfloat16 (y) or int32_t (acc, sx and sw null).
+template <typename OutT>
 __global__ void __launch_bounds__(GV_WARPS * 32, 3)
 w4a8_gemv_kernel(const int8_t* __restrict__ x, const uint8_t* __restrict__ w,
                  const float* __restrict__ sx, const float* __restrict__ sw,
-                 const float* __restrict__ bias,
-                 __nv_bfloat16* __restrict__ out, int M, int N, int K,
-                 int splits, int ch) {
+                 const float* __restrict__ bias, OutT* __restrict__ out,
+                 int M, int N, int K, int splits, int ch) {
   __shared__ uint4 xs[2][2][GV_MT][GV_ROUND];
   __shared__ uint4 ws[2][GV_COLS][GV_ROUND];
   __shared__ int part[GV_WARPS * 16];     // this CTA's sums, for the merge
@@ -344,8 +364,7 @@ w4a8_gemv_kernel(const int8_t* __restrict__ x, const uint8_t* __restrict__ w,
   const int mine = transpose_reduce16(v, lane);
   if (splits == 1) {
     if (om < M && on < N)
-      out[(size_t)om * N + on] =
-          scale_out(mine, sc.sx, sc.sw, bias != nullptr, sc.b);
+      put(out + (size_t)om * N + on, mine, sc, bias != nullptr);
     return;
   }
   // the cluster's merge: CTA r finishes the outputs o with o % splits == r,
@@ -357,8 +376,7 @@ w4a8_gemv_kernel(const int8_t* __restrict__ x, const uint8_t* __restrict__ w,
     int s = 0;
     for (int r = 0; r < splits; ++r)
       s += cluster.map_shared_rank(part, r)[threadIdx.x];
-    out[(size_t)om * N + on] =
-        scale_out(s, sc.sx, sc.sw, bias != nullptr, sc.b);
+    put(out + (size_t)om * N + on, s, sc, bias != nullptr);
   }
   cluster.sync();                         // no CTA leaves while read
 }
@@ -463,7 +481,26 @@ __device__ __forceinline__ void mm_step_partial(
 }
 
 // y[m, n .. n + 1] from the sums of two neighbouring columns (the C
-// fragment's pairs)
+// fragment's pairs); the sums themselves in accumulator-out mode
+__device__ __forceinline__ void mm_store(int a0, int a1, int m, int n,
+                                         const float* __restrict__ sx,
+                                         const float* __restrict__ sw,
+                                         const float* bias,
+                                         int32_t* __restrict__ out, int M,
+                                         int N) {
+  if (m >= M || n >= N) return;
+  int32_t* o = out + (size_t)m * N + n;
+  const int v0 = a0 >> UNPACK_SHIFT, v1 = a1 >> UNPACK_SHIFT;
+  if (n + 1 >= N) {
+    o[0] = v0;
+  } else if ((N & 1) == 0) {
+    *reinterpret_cast<int2*>(o) = make_int2(v0, v1);
+  } else {
+    o[0] = v0;
+    o[1] = v1;
+  }
+}
+
 __device__ __forceinline__ void mm_store(int a0, int a1, int m, int n,
                                          const float* __restrict__ sx,
                                          const float* __restrict__ sw,
@@ -492,12 +529,12 @@ __device__ __forceinline__ void mm_store(int a0, int a1, int m, int n,
 // grid (ceil(N / 128) * splits, ceil(M / 128)), clusters of (splits, 1, 1):
 // the CTAs of a cluster own one 128 x 128 tile and split its k-steps,
 // kch each; their int32 sums meet through distributed shared memory
+template <typename OutT>
 __global__ void __launch_bounds__(MM_THREADS, 2)
 w4a8_mma_kernel(const int8_t* __restrict__ x, const uint8_t* __restrict__ w,
                 const float* __restrict__ sx, const float* __restrict__ sw,
-                const float* __restrict__ bias,
-                __nv_bfloat16* __restrict__ out, int M, int N, int K,
-                int splits, int kch) {
+                const float* __restrict__ bias, OutT* __restrict__ out,
+                int M, int N, int K, int splits, int kch) {
   extern __shared__ __align__(128) uint8_t smem[];
   uint8_t* xs = smem;                               // [stage][128][64]
   uint8_t* ws = smem + MM_STAGES * MM_X_STAGE;      // [stage][128][32]
@@ -606,10 +643,10 @@ int mm_splits(int tiles, int KT) {
   return max(s, 1);
 }
 
+template <typename OutT>
 cudaError_t launch_gemv(const int8_t* x, const uint8_t* w, const float* sx,
-                        const float* sw, const float* bias,
-                        __nv_bfloat16* out, int M, int N, int K,
-                        cudaStream_t st) {
+                        const float* sw, const float* bias, OutT* out, int M,
+                        int N, int K, cudaStream_t st) {
   const int nchunks = K >> 5;
   const int tiles = (N + GV_COLS - 1) / GV_COLS;
   // split only a long K (down); k and v read no faster over more SMs (a
@@ -630,17 +667,18 @@ cudaError_t launch_gemv(const int8_t* x, const uint8_t* w, const float* sx,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = splits > 1 ? 1 : 0;
-  return cudaLaunchKernelEx(&cfg, w4a8_gemv_kernel, x, w, sx, sw, bias, out,
-                            M, N, K, splits, ch);
+  return cudaLaunchKernelEx(&cfg, w4a8_gemv_kernel<OutT>, x, w, sx, sw, bias,
+                            out, M, N, K, splits, ch);
 }
 
+template <typename OutT>
 cudaError_t launch_mma(const int8_t* x, const uint8_t* w, const float* sx,
-                       const float* sw, const float* bias, __nv_bfloat16* out,
-                       int M, int N, int K, cudaStream_t st) {
-  static bool smem_set = false;
+                       const float* sw, const float* bias, OutT* out, int M,
+                       int N, int K, cudaStream_t st) {
+  static bool smem_set = false;         // one flag per OutT
   if (!smem_set) {
     const cudaError_t e = cudaFuncSetAttribute(
-        w4a8_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        w4a8_mma_kernel<OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         MM_SMEM);
     if (e != cudaSuccess) return e;
     smem_set = true;
@@ -662,8 +700,47 @@ cudaError_t launch_mma(const int8_t* x, const uint8_t* w, const float* sx,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = splits > 1 ? 1 : 0;
-  return cudaLaunchKernelEx(&cfg, w4a8_mma_kernel, x, w, sx, sw, bias, out,
-                            M, N, K, splits, kch);
+  return cudaLaunchKernelEx(&cfg, w4a8_mma_kernel<OutT>, x, w, sx, sw, bias,
+                            out, M, N, K, splits, kch);
+}
+
+// ------------------------------------------------------- epilogue kernel
+
+constexpr int EP_THREADS = 256;
+constexpr int EP_MAX_BLOCKS = 132 * 8;
+
+// y = bf16(((f32)acc * s_x[m]) * s_w[n] (+ b[n])) over (M, N), each step
+// rounded alone: the fused routes' epilogue on an all-reduced acc
+__global__ void __launch_bounds__(EP_THREADS)
+w4a8_epilogue_kernel(const int32_t* __restrict__ acc,
+                     const float* __restrict__ sx,
+                     const float* __restrict__ sw,
+                     const float* __restrict__ bias,
+                     __nv_bfloat16* __restrict__ out, int M, int N) {
+  const size_t total = (size_t)M * N;
+  for (size_t i = (size_t)blockIdx.x * EP_THREADS + threadIdx.x; i < total;
+       i += (size_t)gridDim.x * EP_THREADS) {
+    const int m = (int)(i / N), n = (int)(i % N);
+    float y = __fmul_rn(__fmul_rn(__int2float_rn(acc[i]), sx[m]), sw[n]);
+    if (bias != nullptr) y = __fadd_rn(y, bias[n]);
+    out[i] = __float2bfloat16_rn(y);
+  }
+}
+
+template <typename OutT>
+int launch_route(const void* x, const void* w, const void* sx,
+                 const void* sw, const void* bias, OutT* out, int M, int N,
+                 int K, int route, void* stream) {
+  if (K <= 0 || K % 32 || K > MAX_K || route < 0 || route > 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (M <= 0 || N <= 0) return static_cast<int>(cudaGetLastError());
+  const bool mma = route == 2 || (route == 0 && M >= PREFILL_MIN_M);
+  const auto launch = mma ? launch_mma<OutT> : launch_gemv<OutT>;
+  return static_cast<int>(launch(
+      static_cast<const int8_t*>(x), static_cast<const uint8_t*>(w),
+      static_cast<const float*>(sx), static_cast<const float*>(sw),
+      static_cast<const float*>(bias), out, M, N, K,
+      static_cast<cudaStream_t>(stream)));
 }
 
 }  // namespace
@@ -680,14 +757,32 @@ extern "C" int w4a8_matmul_launch(const void* x, const void* w,
                                   const void* sx, const void* sw,
                                   const void* bias, void* out, int M, int N,
                                   int K, int route, void* stream) {
-  if (K <= 0 || K % 32 || K > MAX_K || route < 0 || route > 2)
-    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_route(x, w, sx, sw, bias, static_cast<__nv_bfloat16*>(out),
+                      M, N, K, route, stream);
+}
+
+// Accumulator-out mode: acc (M, N) int32 = x_q (M, K) . w (N, K)^T, exact,
+// by the route `route` picks as above; no scales.
+extern "C" int w4a8_accumulate_launch(const void* x, const void* w,
+                                      void* acc, int M, int N, int K,
+                                      int route, void* stream) {
+  return launch_route(x, w, nullptr, nullptr, nullptr,
+                      static_cast<int32_t*>(acc), M, N, K, route, stream);
+}
+
+// The epilogue alone: y (M, N) bf16 from acc (M, N) int32, s_x (M), s_w
+// (N) and bias (N) f32 or null.
+extern "C" int w4a8_epilogue_launch(const void* acc, const void* sx,
+                                    const void* sw, const void* bias,
+                                    void* out, int M, int N, void* stream) {
   if (M <= 0 || N <= 0) return static_cast<int>(cudaGetLastError());
-  const bool mma = route == 2 || (route == 0 && M >= PREFILL_MIN_M);
-  const auto launch = mma ? launch_mma : launch_gemv;
-  return static_cast<int>(launch(
-      static_cast<const int8_t*>(x), static_cast<const uint8_t*>(w),
-      static_cast<const float*>(sx), static_cast<const float*>(sw),
-      static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(out), M,
-      N, K, static_cast<cudaStream_t>(stream)));
+  const size_t total = (size_t)M * N;
+  const size_t want = (total + EP_THREADS - 1) / EP_THREADS;
+  const int blocks = (int)(want < (size_t)EP_MAX_BLOCKS ? want : EP_MAX_BLOCKS);
+  w4a8_epilogue_kernel<<<blocks, EP_THREADS, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(acc), static_cast<const float*>(sx),
+      static_cast<const float*>(sw), static_cast<const float*>(bias),
+      static_cast<__nv_bfloat16*>(out), M, N);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -41,12 +41,21 @@ def w4a8_accumulate_ref(x_q: torch.Tensor, w_packed: torch.Tensor) -> torch.Tens
     return acc
 
 
-def w4a8_matmul_ref(x_q: torch.Tensor, w_packed: torch.Tensor,
-                    s_x: torch.Tensor, s_w: torch.Tensor,
-                    bias: Optional[torch.Tensor] = None,
-                    out_dtype=torch.bfloat16) -> torch.Tensor:
-    acc = w4a8_accumulate_ref(x_q, w_packed)
+def w4a8_epilogue_ref(acc: torch.Tensor, s_x: torch.Tensor,
+                      s_w: torch.Tensor, bias: Optional[torch.Tensor] = None,
+                      out_dtype=torch.bfloat16) -> torch.Tensor:
+    """``((f32)acc * s_x) * s_w (+ b)``, each step rounded alone, cast to
+    ``out_dtype``: the kernel's epilogue (also applied on its own to an
+    all-reduced accumulator by the row-parallel linear)."""
     y = acc.float() * s_x.float().reshape(-1, 1) * s_w.float().reshape(1, -1)
     if bias is not None:
         y = y + bias.float().reshape(1, -1)
     return y.to(out_dtype)
+
+
+def w4a8_matmul_ref(x_q: torch.Tensor, w_packed: torch.Tensor,
+                    s_x: torch.Tensor, s_w: torch.Tensor,
+                    bias: Optional[torch.Tensor] = None,
+                    out_dtype=torch.bfloat16) -> torch.Tensor:
+    return w4a8_epilogue_ref(w4a8_accumulate_ref(x_q, w_packed), s_x, s_w,
+                             bias, out_dtype)

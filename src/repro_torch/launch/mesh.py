@@ -1,0 +1,192 @@
+"""The serving mesh over ``torch.distributed`` and the rank launcher.
+
+:func:`make_local_mesh` is the counterpart of the JAX package's
+``launch/mesh.py:make_local_mesh``: after
+``torch.distributed.init_process_group`` it describes this process's
+place on a ``("data", "model")`` mesh of ``world // tp`` data replicas of
+``tp`` model ranks. The serving engine takes one data replica
+(``data`` 1): every rank of the model axis holds its slice of the
+weights and of the KV pool and runs the same host loop.
+
+:func:`spawn_tp` starts ``tp`` ranks of one function and returns rank
+0's result. It uses the ``spawn`` start method (CUDA cannot fork) and a
+``file://`` rendezvous in a fresh temporary directory (no port to
+collide with other runs on the machine). The caller names the backend:
+``nccl`` where each rank has its own card, ``gloo`` on the CPU and where
+ranks share a card (NCCL refuses two ranks of a communicator on one
+device). Nothing switches backends after a failure.
+"""
+from __future__ import annotations
+
+import os
+import queue as queue_mod
+import shutil
+import tempfile
+import time
+import traceback
+from dataclasses import dataclass, field
+from datetime import timedelta
+from typing import Any, Callable, Dict, Tuple
+
+import torch
+
+BACKENDS = ("nccl", "gloo")
+
+
+@dataclass
+class Mesh:
+    """One rank's view of the ``("data", "model")`` mesh."""
+    shape: Dict[str, int]
+    rank: int                            # this process's rank on "model"
+    device: torch.device
+    group: Any = None                    # the model axis's process group
+    backend: str = "gloo"
+    axis_names: Tuple[str, ...] = field(default=("data", "model"))
+
+
+def make_local_mesh(model_parallel: int = 1, *, device=None) -> Mesh:
+    """This process's mesh over the initialised default process group:
+    ``world // model_parallel`` data replicas of ``model_parallel``
+    ranks. Raises ValueError when ``model_parallel`` does not divide the
+    world size."""
+    import torch.distributed as dist
+    n = dist.get_world_size() if dist.is_initialized() else 1
+    if model_parallel < 1 or n % model_parallel != 0:
+        raise ValueError(
+            f"model_parallel={model_parallel} must divide the world size "
+            f"({n} processes) — start a multiple of {model_parallel} "
+            "ranks or pick a TP degree that divides the world")
+    if n // model_parallel != 1:
+        raise NotImplementedError(
+            f"{n // model_parallel} data replicas: the serving mesh takes "
+            "one (data 1); data-parallel training is a later slice")
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    dev = torch.device("cpu") if device is None else torch.device(device)
+    backend = dist.get_backend() if dist.is_initialized() else "gloo"
+    return Mesh(shape={"data": n // model_parallel, "model": model_parallel},
+                rank=rank, device=dev,
+                group=dist.group.WORLD if dist.is_initialized() else None,
+                backend=backend)
+
+
+def rank_device(device: str, rank: int) -> torch.device:
+    """Rank ``rank``'s device: the CPU, or ``cuda:{rank % device_count}``
+    (ranks beyond the cards share them round-robin)."""
+    dev = torch.device(device)
+    if dev.type == "cpu":
+        return dev
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass "
+                           "device='cpu' to run the ranks on the CPU")
+    return torch.device("cuda", rank % torch.cuda.device_count())
+
+
+def check_backend(backend: str, device: str, tp: int) -> None:
+    """Refuse a backend that cannot run: NCCL off CUDA, or NCCL with two
+    ranks on one card."""
+    if backend not in BACKENDS:
+        raise ValueError(f"backend is one of {BACKENDS}, got {backend!r}")
+    dev = torch.device(device)
+    if backend == "nccl":
+        if dev.type != "cuda":
+            raise ValueError("the nccl backend needs CUDA ranks; pass "
+                             "backend='gloo' on the CPU")
+        n = torch.cuda.device_count()
+        if tp > n:
+            raise ValueError(
+                f"tp={tp} ranks on {n} CUDA device(s) would share a card, "
+                "which NCCL refuses; pass backend='gloo' (it moves the "
+                "tensors through host memory)")
+
+
+def _worker(rank: int, tp: int, fn: Callable, args: tuple, init: str,
+            backend: str, device: str, timeout_s: float, out) -> None:
+    import torch.distributed as dist
+    try:
+        dev = rank_device(device, rank)
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        else:
+            torch.set_num_threads(1)
+        dist.init_process_group(backend, init_method=init, world_size=tp,
+                                rank=rank,
+                                timeout=timedelta(seconds=timeout_s))
+        try:
+            mesh = make_local_mesh(tp, device=dev)
+            result = fn(mesh, *args)
+        finally:
+            dist.destroy_process_group()
+        out.put((rank, True, result if rank == 0 else None))
+    except Exception:                    # noqa: BLE001 - report every fault
+        out.put((rank, False, traceback.format_exc()))
+
+
+def spawn_tp(fn: Callable, tp: int, *args, device: str = "cuda",
+             backend: str = "nccl", timeout_s: float = 600.0) -> Any:
+    """Run ``fn(mesh, *args)`` on ``tp`` ranks and return rank 0's
+    result. ``fn`` and ``args`` must pickle (a module-level function);
+    every rank gets the same arguments. Raises RuntimeError with each
+    failed rank's traceback if any rank fails, and kills every rank and
+    raises TimeoutError once ``timeout_s`` has passed."""
+    import multiprocessing as mp
+    check_backend(backend, device, tp)
+    ctx = mp.get_context("spawn")
+    tmp = tempfile.mkdtemp(prefix="repro_tp_")
+    init = "file://" + os.path.join(tmp, "rendezvous")
+    out = ctx.Queue()
+    procs = [ctx.Process(target=_worker,
+                         args=(r, tp, fn, args, init, backend, device,
+                               timeout_s, out), daemon=True)
+             for r in range(tp)]
+    results: Dict[int, Tuple[bool, Any]] = {}
+    try:
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + timeout_s
+        while len(results) < tp:
+            left = deadline - time.monotonic()
+            if left <= 0:
+                raise TimeoutError(
+                    f"spawn_tp: {tp - len(results)} of {tp} ranks did not "
+                    f"finish within {timeout_s} s (ranks done: "
+                    f"{sorted(results)})")
+            try:
+                rank, ok, val = out.get(timeout=min(left, 1.0))
+            except queue_mod.Empty:
+                dead = [r for r, p in enumerate(procs)
+                        if r not in results and p.exitcode is not None]
+                if dead:
+                    # a rank that died without reporting (a crash in C)
+                    time.sleep(0.5)
+                    if out.empty():
+                        raise RuntimeError(
+                            f"spawn_tp: rank(s) {dead} exited with codes "
+                            f"{[procs[r].exitcode for r in dead]} and no "
+                            "result")
+                continue
+            results[rank] = (ok, val)
+            if not ok:
+                break
+        failed = {r: v for r, (ok, v) in results.items() if not ok}
+        if failed:
+            # give the other ranks a moment to report their own faults
+            end = time.monotonic() + 2.0
+            while time.monotonic() < end and len(results) < tp:
+                try:
+                    rank, ok, val = out.get(timeout=0.2)
+                    results[rank] = (ok, val)
+                    if not ok:
+                        failed[rank] = val
+                except queue_mod.Empty:
+                    pass
+            raise RuntimeError("spawn_tp: rank(s) failed:\n" + "\n".join(
+                f"--- rank {r} ---\n{tb}" for r, tb in sorted(failed.items())))
+        return results[0][1]
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+        for p in procs:
+            p.join(timeout=10)
+        out.close()
+        shutil.rmtree(tmp, ignore_errors=True)

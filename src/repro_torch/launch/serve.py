@@ -22,6 +22,15 @@ as the JAX package's CLI does:
     python -m repro_torch.launch.serve --device cpu --sched edf \
         --arrival-rate 20 --deadline-ms 500 --shed reject --trace t.json
 
+``--tp N`` serves on N tensor-parallel ranks (``launch.mesh.spawn_tp``;
+rank r on ``cuda:{r % device_count}``), each holding its slice of the
+weights and of the KV pool; only rank 0 prints. ``--tp-backend`` is
+``nccl`` (one card a rank) unless told ``gloo`` (the CPU, or ranks
+sharing a card, which NCCL refuses)::
+
+    python -m repro_torch.launch.serve --weights w4a8 --kv-layout paged \
+        --tp 2 --tp-backend gloo --device cpu
+
 The paged layout serves with speculative decoding unless ``--no-spec``
 is given (a draft of half the target's layers proposes ``--spec-k`` = 4
 tokens per slot and wave), as the reference's CLI does. Runs on ``cuda``
@@ -31,6 +40,7 @@ versions of the kernels on a reduced model (``--full`` off).
 from __future__ import annotations
 
 import argparse
+import builtins
 import json
 import time
 
@@ -38,7 +48,8 @@ import numpy as np
 
 from repro_torch.configs import get_config, get_reduced_config
 from repro_torch.kernels.kvq_attn import ops as kvq_ops
-from repro_torch.kernels.w4a8.ops import w4a8_matmul
+from repro_torch.kernels.w4a8.ops import (w4a8_accumulate, w4a8_epilogue,
+                                          w4a8_matmul)
 from repro_torch.models import init_params
 from repro_torch.serve.engine import Request, ServeEngine
 from repro_torch.serve.scheduler import (POLICIES, PREEMPT_POLICIES,
@@ -46,11 +57,17 @@ from repro_torch.serve.scheduler import (POLICIES, PREEMPT_POLICIES,
 from repro_torch.serve.spec import SpecConfig
 
 COUNTED = {"w4a8_matmul": w4a8_matmul,
+           "w4a8_accumulate": w4a8_accumulate,
+           "w4a8_epilogue": w4a8_epilogue,
            "kvq_decode_attn": kvq_ops.kvq_decode_attn,
            "kvq_paged_decode_attn": kvq_ops.kvq_paged_decode_attn,
            "kvq_spec_verify_attn": kvq_ops.kvq_spec_verify_attn,
            "gather_dequant_paged_kv": kvq_ops.gather_dequant_paged_kv,
            "pool_block_copy": kvq_ops.copy_pool_blocks_multi}
+
+
+def _silent(*args, **kw) -> None:
+    """``print`` on ranks other than 0."""
 
 
 def build_requests(args, cfg) -> list:
@@ -298,10 +315,40 @@ def main(argv=None):
                          "at the end of the run")
     ap.add_argument("--bench-out", default="",
                     help="write the run's stats to this JSON file")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel ranks (processes), each holding "
+                         "its slice of the weights and the KV pool "
+                         "(closed-loop mode only)")
+    ap.add_argument("--tp-backend", default="nccl",
+                    choices=("nccl", "gloo"),
+                    help="torch.distributed backend of --tp: nccl (one "
+                         "card a rank) or gloo (the CPU, or ranks sharing "
+                         "a card; through host memory)")
+    ap.add_argument("--tp-timeout", type=float, default=3600.0,
+                    help="seconds before the --tp ranks are killed")
     args = ap.parse_args(argv)
+    if args.tp > 1:
+        if args.http_port or args.arrival_rate > 0:
+            raise NotImplementedError(
+                "--tp > 1 serves the closed-loop batch only: the frontend "
+                "(--http-port, --arrival-rate) would live on rank 0 and its "
+                "submissions would have to be broadcast to the other ranks "
+                "(ROADMAP Queue 1 item 2a)")
+        from repro_torch.launch.mesh import spawn_tp
+        return spawn_tp(serve_rank, args.tp, args, device=args.device,
+                        backend=args.tp_backend, timeout_s=args.tp_timeout)
+    return serve_rank(None, args)
 
+
+def serve_rank(mesh, args):
+    """Build and drive one engine (one rank's, on a ``--tp`` mesh: only
+    rank 0 prints and writes files). Returns the run's stats."""
+    quiet = mesh is not None and mesh.rank != 0
+    print = _silent if quiet else builtins.print    # noqa: A001
+
+    device = args.device if mesh is None else mesh.device
     cfg = get_config(args.arch) if args.full else get_reduced_config(args.arch)
-    params = init_params(cfg, seed=0, device=args.device)
+    params = init_params(cfg, seed=0, device=device)
     kw = {}
     if args.kv_layout == "paged":
         kw = {"kv_layout": "paged", "block_size": args.block_size,
@@ -326,11 +373,11 @@ def main(argv=None):
                       max_new_cap=max(args.max_new, 1),
                       decode_block=decode_block, sched_policy=args.sched,
                       slo_shed=args.shed, weights_layout=args.weights,
-                      trace=tracer, device=args.device, **kw)
+                      trace=tracer, device=device, mesh=mesh, **kw)
     del params
     print(f"arch={cfg.name} layers={cfg.n_layers} d_model={cfg.d_model} "
           f"policy={args.policy} weights={args.weights} "
-          f"device={eng.device} slots={args.slots} "
+          f"device={eng.device} tp={eng.tp} slots={args.slots} "
           f"cache_len={args.cache_len} kv_layout={args.kv_layout} "
           f"sched={args.sched} shed={args.shed}")
     if eng.decode_block_probe is not None:
@@ -385,6 +432,14 @@ def main(argv=None):
                   f"k={stats['spec_k']}, "
                   f"draft {stats['spec_draft_layers']} layers)")
     print("kernel launches: " + json.dumps(stats["kernel_launches"]))
+    if eng.tp > 1:
+        stats["collectives"] = eng._comm.counts()
+        print(f"tensor parallel: tp={eng.tp} ({mesh.backend}), "
+              f"collectives {json.dumps(stats['collectives'])}, per-rank "
+              f"pool {stats['per_device_pool_bytes']} B, weights "
+              f"{stats['per_device_weight_bytes']} B")
+    if quiet:
+        return stats
     write_obs(args, eng, stats)
     if args.bench_out:
         with open(args.bench_out, "w") as f:

@@ -11,6 +11,14 @@ the GShard-style top-k MoE, with SiLQ quantization sites (paper Fig. 2):
 Caches are updated in place: the engine owns one cache per layer for its
 whole life, and a decode step writes its new K/V row into it.
 
+Tensor-parallel serving runs these functions unchanged on one rank's
+heads: the engine hands them a config with ``n_heads / tp`` query and
+``n_kv_heads / tp`` KV heads (head-major halves, so each GQA group stays
+on one rank and the group size is unchanged), the rank's column slices
+of wq/wk/wv/wg/wu and row slices of wo/wd, and caches of ``n_kv_heads /
+tp`` heads. The row-parallel linears (``qlinear(..., row=True)``) reduce
+over the ranks through ``ctx.tp``.
+
 Two cache layouts: the dense ring (``init_attn_cache``, one stripe of
 ``cache_len`` rows per slot, or of ``min(cache_len, window)`` rows for a
 sliding-window layer, whose ring eviction enforces the window) and the paged pool (``init_paged_attn_cache``,
@@ -122,11 +130,11 @@ def mlp_fwd(cfg: ModelConfig, ctx: QuantCtx, p: Dict, x: torch.Tensor,
         # GELU MLP (whisper): the tanh-approximate GELU in f32
         h = qlinear(ctx, x, p["w1"], subcol(col, "w1"))
         h = _gelu(h.float(), _tanh).to(x.dtype)
-        return qlinear(ctx, h, p["w2"], subcol(col, "w2"))
+        return qlinear(ctx, h, p["w2"], subcol(col, "w2"), row=True)
     g = qlinear(ctx, x, p["wg"], subcol(col, "wg"))
     u = qlinear(ctx, x, p["wu"], subcol(col, "wu"))
     h = F.silu(g.float()).to(x.dtype) * u
-    return qlinear(ctx, h, p["wd"], subcol(col, "wd"))
+    return qlinear(ctx, h, p["wd"], subcol(col, "wd"), row=True)
 
 
 # ==========================================================================
@@ -366,7 +374,7 @@ def attn_fwd(cfg: ModelConfig, ctx: QuantCtx, p: Dict, x: torch.Tensor,
         out = flash_attn_fwd(q, k, v, causal=causal, window=window,
                              plain=ctx.kernel_backend == "ref")
     return qlinear(ctx, out.reshape(B, S, cfg.q_dim), p["wo"],
-                   subcol(col, "wo"))
+                   subcol(col, "wo"), row=True)
 
 
 def quantize_kv_for_cache(ctx: QuantCtx, p: Dict, k: torch.Tensor,
@@ -457,7 +465,7 @@ def attn_prefill(cfg: ModelConfig, ctx: QuantCtx, p: Dict, x: torch.Tensor,
     else:
         out = blockwise_attention(q, k, v, causal=not cross, window=window,
                                   q_chunk=1024, kv_chunk=1024)
-    y = qlinear(ctx, out.reshape(B, S, cfg.q_dim), p["wo"])
+    y = qlinear(ctx, out.reshape(B, S, cfg.q_dim), p["wo"], row=True)
     k_q, v_q, s_k, s_v = quantize_kv_for_cache(ctx, p, k, v)
     if cross:
         cache = {n: t.contiguous() for n, t in
@@ -613,7 +621,7 @@ def attn_decode(cfg: ModelConfig, ctx: QuantCtx, p: Dict, x1: torch.Tensor,
         q = quantize_act(ctx, q, p, "s_q")
         out = _decode_attn(ctx, q[:, 0], cache["k_q"], cache["v_q"],
                            cache["s_k"], cache["s_v"], cache["length"])
-        y = qlinear(ctx, out.reshape(B, cfg.q_dim), p["wo"])
+        y = qlinear(ctx, out.reshape(B, cfg.q_dim), p["wo"], row=True)
         return y[:, None], cache
     if rope is None and cfg.rope_theta:
         rope = rope_tables(positions[:, None], hd, cfg.rope_theta)
@@ -635,7 +643,7 @@ def attn_decode(cfg: ModelConfig, ctx: QuantCtx, p: Dict, x1: torch.Tensor,
         out = _decode_attn_paged(ctx, q[:, 0], cache["k_q"], cache["v_q"],
                                  cache["s_k"], cache["s_v"], block_tbl,
                                  cache["length"])
-        y = qlinear(ctx, out.reshape(B, cfg.q_dim), p["wo"])
+        y = qlinear(ctx, out.reshape(B, cfg.q_dim), p["wo"], row=True)
         return y[:, None], cache
     Sc = cache["k_q"].shape[2]
     slot = torch.remainder(cache["length"], Sc).long()
@@ -648,7 +656,7 @@ def attn_decode(cfg: ModelConfig, ctx: QuantCtx, p: Dict, x1: torch.Tensor,
     out = _decode_attn(ctx, q[:, 0], cache["k_q"], cache["v_q"],
                        cache["s_k"], cache["s_v"],
                        torch.clamp_max(cache["length"], Sc))
-    y = qlinear(ctx, out.reshape(B, cfg.q_dim), p["wo"])
+    y = qlinear(ctx, out.reshape(B, cfg.q_dim), p["wo"], row=True)
     return y[:, None], cache
 
 
@@ -699,7 +707,8 @@ def attn_chunk_prefill(cfg: ModelConfig, ctx: QuantCtx, p: Dict,
             chunk_len[i:i + 1]) for i in range(n)])
     else:
         out = _window_attention(cfg, q, k, v, kh, vh, offset, chunk_len)
-    y = qlinear(ctx, out.reshape(n, C, cfg.q_dim).to(x.dtype), p["wo"])
+    y = qlinear(ctx, out.reshape(n, C, cfg.q_dim).to(x.dtype), p["wo"],
+                row=True)
     k_q1, v_q1, s_k1, s_v1 = quantize_kv_for_cache(ctx, p, k, v)
     commit_chunk_kv(cache, k_q1, v_q1, s_k1, s_v1, tbl, offset, chunk_len)
     cache["length"][slot.long()] = (offset + chunk_len).to(torch.int32)
@@ -772,5 +781,6 @@ def attn_spec_verify(cfg: ModelConfig, ctx: QuantCtx, p: Dict,
             + torch.arange(C, device=x.device)[None]).to(torch.int32)
     out = _spec_verify_attn(ctx, q, cache["k_q"], cache["v_q"],
                             cache["s_k"], cache["s_v"], tbl, lens)
-    y = qlinear(ctx, out.reshape(n, C, cfg.q_dim).to(x.dtype), p["wo"])
+    y = qlinear(ctx, out.reshape(n, C, cfg.q_dim).to(x.dtype), p["wo"],
+                row=True)
     return y, cache

@@ -125,11 +125,23 @@ def _rope_for(cfg: ModelConfig, batch: Dict, S: int, device):
     return _rope(cfg, torch.arange(S, device=device))
 
 
-def _embed(cfg: ModelConfig, params: Dict, batch: Dict) -> torch.Tensor:
+def _lookup(cfg: ModelConfig, ctx: QuantCtx, params: Dict,
+            tokens: torch.Tensor) -> torch.Tensor:
+    """The embedding rows of ``tokens``. On a tensor-parallel mesh
+    (``ctx.tp``) the table is this rank's shard and the rows are summed
+    (vocabulary shard) or gathered (d_model shard) over the ranks."""
+    w = params["embed"]["w"]
+    if ctx.tp is not None and ctx.tp.size > 1:
+        return ctx.tp.embed_lookup(w, tokens, cfg.vocab_size, cfg.d_model)
+    return w[tokens]
+
+
+def _embed(cfg: ModelConfig, ctx: QuantCtx, params: Dict,
+           batch: Dict) -> torch.Tensor:
     """Token embeddings, after a VLM's patch prefix, plus learned
     positions from ``batch.get("pos_offset", 0)`` (clamped, as the
     reference's dynamic slice clamps, to fit the table)."""
-    x = params["embed"]["w"][batch["tokens"]]
+    x = _lookup(cfg, ctx, params, batch["tokens"])
     if "patches" in batch:
         x = torch.cat([batch["patches"].to(x.dtype), x], dim=1)
     if "pos_embed" in params:
@@ -229,8 +241,12 @@ def head_logits(cfg: ModelConfig, params: Dict, ctx: QuantCtx,
             p["w4a8"] = params["head"]["w4a8"]
     else:
         p = params["head"]
-    return qlinear(ctx, x, p, subcol(col, "head"), act_bits=hb,
-                   weight_bits=hb)
+    logits = qlinear(ctx, x, p, subcol(col, "head"), act_bits=hb,
+                     weight_bits=hb)
+    if ctx.tp is not None and logits.shape[-1] < cfg.vocab_size:
+        # column-parallel on the vocabulary: the ranks' slices in order
+        logits = ctx.tp.all_gather_last(logits)
+    return logits
 
 
 def _ffn_tail(cfg: ModelConfig, ctx: QuantCtx, p: Dict, x: torch.Tensor,
@@ -339,7 +355,7 @@ def forward(cfg: ModelConfig, params: Dict, ctx: QuantCtx, batch: Dict,
     reference's ``jax.checkpoint`` around the scanned layer body).
     """
     _check_supported(cfg)
-    x = _embed(cfg, params, batch)
+    x = _embed(cfg, ctx, params, batch)
     rope = _rope_for(cfg, batch, x.shape[1], x.device)
     col: Optional[Dict] = {} if collect_stats else None
     enc_out = (_encode(cfg, ctx, params, batch, col, remat)
@@ -396,7 +412,7 @@ def prefill(cfg: ModelConfig, params: Dict, ctx: QuantCtx, batch: Dict,
             "cache) require an attention-only decoder; "
             f"{cfg.name!r} has block pattern {cfg.block_pattern}"
             + (" and an encoder" if cfg.is_encdec else ""))
-    x = _embed(cfg, params, batch)
+    x = _embed(cfg, ctx, params, batch)
     Bn, S = x.shape[0], x.shape[1]
     rope = _rope_for(cfg, batch, S, x.device)
     # CUDA attends row by row over the true lengths, read here once (an
@@ -442,7 +458,7 @@ def decode_step(cfg: ModelConfig, params: Dict, ctx: QuantCtx,
     """
     positions = cache["position"]
     block_tbl = cache.get("block_tbl")
-    x = params["embed"]["w"][tokens1]
+    x = _lookup(cfg, ctx, params, tokens1)
     if "pos_embed" in params:
         pe = params["pos_embed"]["w"]
         x = x + pe[torch.clamp_max(positions.long(), pe.shape[0] - 1)][:, None]
@@ -457,9 +473,9 @@ def decode_step(cfg: ModelConfig, params: Dict, ctx: QuantCtx,
     return logits, cache
 
 
-def _tail_prologue(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
-                   cache: Dict, slot: torch.Tensor, offset: torch.Tensor,
-                   hist_blocks: int):
+def _tail_prologue(cfg: ModelConfig, params: Dict, ctx: QuantCtx,
+                   tokens: torch.Tensor, cache: Dict, slot: torch.Tensor,
+                   offset: torch.Tensor, hist_blocks: int):
     """Entry of the batched-window path: embed one window per row at
     per-row absolute offsets, build per-position RoPE tables, and take each
     row's block table (its first ``hist_blocks`` entries when > 0)."""
@@ -469,7 +485,7 @@ def _tail_prologue(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
     C = tokens.shape[1]
     positions = offset.long()[:, None] + torch.arange(
         C, device=tokens.device)[None]                      # (n, C)
-    x = params["embed"]["w"][tokens]                        # (n, C, d)
+    x = _lookup(cfg, ctx, params, tokens)                   # (n, C, d)
     rope = None
     if cfg.rope_theta:
         rope = rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
@@ -527,8 +543,8 @@ def prefill_tail(cfg: ModelConfig, params: Dict, ctx: QuantCtx,
     Returns (logits (n, V) at each row's last real token, cache).
     """
     offset, chunk_len = start, n_tokens
-    x, rope, tbl = _tail_prologue(cfg, params, tokens, cache, slot, offset,
-                                  hist_blocks)
+    x, rope, tbl = _tail_prologue(cfg, params, ctx, tokens, cache, slot,
+                                  offset, hist_blocks)
     x = _tail_stack(cfg, params, ctx, x, rope, cache, tbl, slot, offset,
                     chunk_len, functools.partial(B.attn_chunk_prefill,
                                                  hist_rows=hist_rows))
@@ -566,8 +582,8 @@ def spec_verify(cfg: ModelConfig, params: Dict, ctx: QuantCtx,
     extent.
     """
     offset, chunk_len = start, n_tokens
-    x, rope, tbl = _tail_prologue(cfg, params, tokens, cache, slot, offset,
-                                  hist_blocks)
+    x, rope, tbl = _tail_prologue(cfg, params, ctx, tokens, cache, slot,
+                                  offset, hist_blocks)
     x = _tail_stack(cfg, params, ctx, x, rope, cache, tbl, slot, offset,
                     chunk_len, B.attn_spec_verify)
     logits = head_logits(cfg, params, ctx, x)

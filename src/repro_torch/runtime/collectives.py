@@ -1,0 +1,124 @@
+"""The collectives of tensor-parallel serving, by hand.
+
+In the JAX package GSPMD inserts these from the sharding rules; here the
+model code calls them where a sharded operand meets a replicated one:
+
+* ``all_reduce_max`` (f32): the per-token amax of a row-parallel
+  linear's input slice, so its dynamic int8 scale is the whole row's;
+* ``all_reduce_sum`` (int32): the row-parallel linear's accumulators
+  (exact integer sums, in any order);
+* ``all_gather_last``: the column-parallel head's vocabulary slices, in
+  rank order, into the whole logits;
+* ``embed_lookup``: the vocabulary-sharded embedding's masked local
+  lookup, summed exactly (each token's row lives on one rank, the other
+  ranks add zeros; the sum runs on the bit patterns as integers, so even
+  a ``-0.0`` survives);
+* ``broadcast_floats``: rank 0's host values (the engine's clock, its
+  measured rates, the probe's pick), so every rank's host loop takes the
+  same decisions.
+
+Every call counts one in :attr:`TPComm.census` by kind: a decode step of
+a dense decoder makes two MAX and two SUM all-reduces a layer (``wo``,
+``wd``), one SUM for the embedding and one all-gather for the logits.
+The census is the port's form of the reference's rule on the compiled
+decode wave (``collective_counts`` / ``pool_allgather_sites``: at least
+one all-reduce, at most two all-gathers, no KV pool leaf gathered);
+``watch`` (a set) collects the storage of every tensor handed to a
+collective, so a check can prove that no pool leaf was.
+"""
+from __future__ import annotations
+
+from collections import Counter
+from typing import List, Optional, Sequence
+
+import torch
+
+KINDS = ("all_reduce_max", "all_reduce_sum", "all_gather", "broadcast")
+
+
+class TPComm:
+    """One rank's collectives over the mesh's model axis."""
+
+    def __init__(self, mesh):
+        import torch.distributed as dist
+        self._dist = dist
+        self.group = mesh.group
+        self.size = int(mesh.shape["model"])
+        self.rank = int(mesh.rank)
+        self.census: Counter = Counter()
+        self.watch: Optional[set] = None
+
+    def __repr__(self) -> str:
+        return f"TPComm(rank={self.rank}, size={self.size})"
+
+    def _note(self, kind: str, t: torch.Tensor) -> None:
+        self.census[kind] += 1
+        if self.watch is not None:
+            self.watch.add(t.untyped_storage().data_ptr())
+
+    def counts(self) -> dict:
+        """The census by kind, with ``all_reduce`` their sum (MAX + SUM)."""
+        d = {k: int(self.census[k]) for k in KINDS}
+        d["all_reduce"] = d["all_reduce_max"] + d["all_reduce_sum"]
+        return d
+
+    def all_reduce_max(self, t: torch.Tensor) -> torch.Tensor:
+        """In place: the elementwise max over the ranks (f32)."""
+        if t.dtype != torch.float32:
+            raise TypeError(f"all_reduce_max takes f32, got {t.dtype}")
+        self._note("all_reduce_max", t)
+        self._dist.all_reduce(t, op=self._dist.ReduceOp.MAX,
+                              group=self.group)
+        return t
+
+    def all_reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """In place: the elementwise sum over the ranks (int32, exact)."""
+        if t.dtype != torch.int32:
+            raise TypeError(f"all_reduce_sum takes int32 (an exact sum), "
+                            f"got {t.dtype}")
+        self._note("all_reduce_sum", t)
+        self._dist.all_reduce(t, op=self._dist.ReduceOp.SUM,
+                              group=self.group)
+        return t
+
+    def all_gather_last(self, t: torch.Tensor) -> torch.Tensor:
+        """Every rank's ``t`` concatenated along the last dim, in rank
+        order."""
+        t = t.contiguous()
+        self._note("all_gather", t)
+        parts = [torch.empty_like(t) for _ in range(self.size)]
+        self._dist.all_gather(parts, t, group=self.group)
+        return torch.cat(parts, dim=-1)
+
+    def broadcast_floats(self, vals: Sequence[float]) -> List[float]:
+        """Rank 0's ``vals`` on every rank (f64 on the host)."""
+        t = torch.tensor(list(vals), dtype=torch.float64)
+        if self.group is not None and self._dist.get_backend(
+                self.group) == "nccl":
+            t = t.cuda()
+        self._note("broadcast", t)
+        self._dist.broadcast(t, src=0, group=self.group)
+        return t.cpu().tolist()
+
+    def embed_lookup(self, table: torch.Tensor, tokens: torch.Tensor,
+                     vocab: int, d_model: int) -> torch.Tensor:
+        """``full_table[tokens]`` from this rank's shard of the (vocab,
+        d_model) table: a vocabulary shard (``vocab / size`` rows, this
+        rank's in rank order) is looked up masked and summed exactly
+        over the ranks; a d_model shard (the rules' fallback when the
+        vocabulary does not divide) is gathered; a whole table is read
+        as it is."""
+        rows = table.shape[0]
+        if rows == vocab:
+            if table.shape[1] == d_model:
+                return table[tokens]
+            return self.all_gather_last(table[tokens])
+        lo = self.rank * rows
+        local = tokens.long() - lo
+        mine = (local >= 0) & (local < rows)
+        x = table[torch.clamp(local, 0, rows - 1)]
+        x = torch.where(mine[..., None], x, torch.zeros_like(x))
+        ints = {2: torch.int16, 4: torch.int32}[x.element_size()]
+        bits = x.contiguous().view(ints).to(torch.int32)
+        self.all_reduce_sum(bits)
+        return bits.to(ints).view(x.dtype)

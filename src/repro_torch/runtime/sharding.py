@@ -1,0 +1,329 @@
+"""Per-architecture sharding rules on the ``("data", "model")`` mesh (the
+JAX package's ``runtime/sharding.py``, rule for rule), and the helpers
+that apply them to the port's trees.
+
+A rule is a pure function of ``(cfg, mesh, path, shape)`` returning one
+entry per dim of ``shape``: ``"model"``, the batch axes (a tuple), or
+None. ``mesh`` needs only ``shape`` (a dict of axis sizes) and
+``axis_names``. Paths are ``/``-joined: the reference's stacked
+``segments/<i>/<j>/...`` leaves carry a leading layer axis that stays
+unsharded; the port's per-layer ``layers/<n>/...`` leaves have none.
+
+Parameter rules (a rule that does not divide its dim falls back to
+replication, never to an error):
+
+* column-parallel (output over "model"): wq/wk/wv, wg/wu, w1, w_in,
+  w_gate, w_ig, w_rg, w_up, w_x, r_h, w_q/w_k/w_v (mLSTM)
+* row-parallel (input over "model"): wo, wd, w2, w_out, w_down
+* embeddings: vocab over "model" when divisible, else d_model
+* MoE: expert-parallel (experts over "model") when n_experts divides the
+  axis; tensor-parallel inside experts otherwise; router replicated
+* per-channel quantizer scales follow their weight's output sharding;
+  per-tensor scales, norms and the recurrence diagonal replicate
+* w4a8 export planes (``<linear>/w4a8/{wq,s_w,b,wf}``) shard like the
+  linear they shadow: column-parallel owners split ``wq`` on d_out and
+  ``s_w``/``b``/``wf`` on the output channel; row-parallel owners split
+  ``wq`` on the packed d_in/2 axis (a divisible packed axis cuts between
+  nibble pairs) and ``wf`` on d_in, with ``s_w``/``b`` replicated
+* anything under ``segments/`` gets a leading None for the scan axis
+
+Serving rule (``serve_cache_spec``): only the quantized KV payload
+shards, over "model" on the KV-head dim, so GQA groups stay local to a
+rank; block tables, lengths, positions and the pool's block axis (the
+host allocator's global block ids) replicate.
+
+:func:`shard_params` is the port's ``jax.device_put(params,
+param_shardings(...))``: it keeps this rank's slice of every leaf.
+:func:`local_bytes` is one rank's share of a tree under its specs.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.bridge import flatten
+from repro_torch.configs.base import ModelConfig
+
+COL_PARALLEL = {"wq", "wk", "wv", "wg", "wu", "w1", "w_in", "w_gate",
+                "w_ig", "w_rg", "w_up", "w_x", "r_h", "w_q", "w_k", "w_v"}
+ROW_PARALLEL = {"wo", "wd", "w2", "w_out", "w_down"}
+MOE_KEYS = {"wg", "wu", "wd"}
+
+Spec = Tuple[Any, ...]
+
+
+def _divides(n: int, by: int) -> bool:
+    return by > 0 and n % by == 0
+
+
+def _size(mesh, axis) -> int:
+    if isinstance(axis, str):
+        return int(mesh.shape[axis])
+    n = 1
+    for a in axis:
+        n *= int(mesh.shape[a])
+    return n
+
+
+def batch_axes(mesh) -> Tuple[str, ...]:
+    return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+
+
+def _dp_entry(dp: Tuple[str, ...]):
+    """A spec entry over the batch axes: one axis by its name (as a
+    ``PartitionSpec`` normalizes a 1-tuple), several as the tuple."""
+    return dp[0] if len(dp) == 1 else dp
+
+
+def _maybe(axis: Optional[str], size: int, mesh):
+    """Use the axis only if it divides the dim."""
+    if axis is None:
+        return None
+    return axis if _divides(size, _size(mesh, axis)) else None
+
+
+def _full(spec: tuple, ndim: int) -> Spec:
+    """A spec shorter than the shape leaves its trailing dims unsharded."""
+    return tuple(spec) + (None,) * (ndim - len(spec))
+
+
+def param_spec(cfg: ModelConfig, mesh, path: str,
+               shape: Tuple[int, ...]) -> Spec:
+    """Spec of one parameter leaf, one entry per dim."""
+    shape = tuple(shape)
+    return _full(_param_rule(cfg, mesh, path, shape), len(shape))
+
+
+def _param_rule(cfg: ModelConfig, mesh, path: str,
+                shape: Tuple[int, ...]) -> tuple:
+    parts = path.split("/")
+    key = parts[-1]
+    parent = parts[-2] if len(parts) >= 2 else ""
+    in_scan = "segments" in parts
+    is_moe = len(parts) >= 3 and "moe" in parts
+    m = mesh.shape["model"]
+
+    def lead(spec: tuple) -> tuple:
+        # scan-stacked params carry a leading layer axis (replicated)
+        if in_scan and len(spec) < len(shape):
+            return (None,) * (len(shape) - len(spec)) + tuple(spec)
+        return tuple(spec)
+
+    # ---- w4a8 export planes (serve-time packed weights) -------------------
+    # before the head branch: head/w4a8/wq has parts[-2] == "w4a8"
+    if "w4a8" in parts:
+        i = parts.index("w4a8")
+        owner = parts[i - 1] if i else ""
+        col = owner in COL_PARALLEL or owner == "head"
+        row = owner in ROW_PARALLEL
+        if key == "wq":                 # packed uint8 (d_out, d_in/2)
+            if col:
+                return lead((_maybe("model", shape[-2], mesh), None))
+            if row:
+                return lead((None, _maybe("model", shape[-1], mesh)))
+            return lead((None, None))
+        if key == "wf":                 # int8 ref plane (d_in, d_out)
+            if col:
+                return lead((None, _maybe("model", shape[-1], mesh)))
+            if row:
+                return lead((_maybe("model", shape[-2], mesh), None))
+            return lead((None, None))
+        if key == "s_w":                # (1, d_out): follows output sharding
+            if col:
+                return lead((None, _maybe("model", shape[-1], mesh)))
+            return lead((None, None))
+        if key == "b":
+            return lead((_maybe("model", shape[-1], mesh),) if col
+                        else (None,))
+        return lead(())
+
+    # ---- embeddings / head ------------------------------------------------
+    if path.endswith("embed/w"):        # (V, d) or (maxpos, d)
+        if parts[-2] == "embed" and _divides(shape[0], m) \
+                and "pos_embed" not in path:
+            return ("model", None)
+        return (None, _maybe("model", shape[-1], mesh))
+    if parts[0] == "head" or parent == "head":
+        if key in ("w", "s_w"):         # (d, V) / (1, V)
+            return (None, _maybe("model", shape[-1], mesh))
+        return ()
+
+    # ---- MoE expert tensors ------------------------------------------------
+    if is_moe and parent in MOE_KEYS and key in ("w", "s_w"):
+        e = shape[1] if in_scan else shape[0]
+        base = len(shape) - 3           # dims before (E, din, dout)
+        if _divides(e, m):              # expert parallelism
+            return (None,) * base + ("model", None, None)
+        if parent in ("wg", "wu"):      # TP inside experts, column
+            return (None,) * base + (None, None, "model")
+        return (None,) * base + ((None, "model", None) if key == "w"
+                                 else (None, None, None))
+
+    # ---- quantizer scales ----------------------------------------------------
+    if key == "s_w":                    # (1, dout) [+ scan lead]
+        if parent in COL_PARALLEL and _divides(shape[-1], m):
+            return lead((None, "model"))
+        return lead((None, None))
+    if key.startswith("s_"):            # per-tensor scalars
+        return lead(())
+
+    # ---- linears ------------------------------------------------------------
+    if key == "w" and parent in COL_PARALLEL:
+        return lead((None, _maybe("model", shape[-1], mesh)))
+    if key == "w" and parent in ROW_PARALLEL:
+        return lead((_maybe("model", shape[-2], mesh), None))
+    if key == "b":
+        if parent in COL_PARALLEL:
+            return lead((_maybe("model", shape[-1], mesh),))
+        return lead((None,))
+
+    # ---- recurrent diagonals / conv ---------------------------------------
+    if key in ("lam", "conv_b"):
+        return lead((_maybe("model", shape[-1], mesh),))
+    if key == "conv_w":
+        return lead((None, _maybe("model", shape[-1], mesh)))
+
+    # ---- norms, router, gates, everything else: replicated -----------------
+    return lead(())
+
+
+def batch_spec(mesh, shape: Tuple[int, ...], name: str) -> Spec:
+    """Spec of one batch leaf: the batch over the batch axes, else the
+    sequence over "data" (long-context sequence parallelism)."""
+    shape = tuple(shape)
+    dp = batch_axes(mesh)
+    dp_size = _size(mesh, dp)
+    if name == "positions":             # (3, B, S)
+        if len(shape) >= 2 and _divides(shape[1], dp_size):
+            return _full((None, _dp_entry(dp)), len(shape))
+        return _full((), len(shape))
+    if not shape:
+        return ()
+    if _divides(shape[0], dp_size):
+        return _full((_dp_entry(dp),), len(shape))
+    if len(shape) >= 2 and _divides(shape[1], mesh.shape["data"]):
+        return _full((None, "data"), len(shape))
+    return _full((), len(shape))
+
+
+def cache_spec(cfg: ModelConfig, mesh, path: str,
+               shape: Tuple[int, ...]) -> Spec:
+    """Training-cache leaf spec. Attention caches (rep, B, Hkv, S, D):
+    batch over DP when divisible, else sequence over "data"; KV heads
+    over "model" when divisible, else the sequence, else head_dim.
+    Recurrent states: width or heads over "model"."""
+    shape = tuple(shape)
+    key = path.split("/")[-1]
+    dp = batch_axes(mesh)
+    dp_size = _size(mesh, dp)
+    m = mesh.shape["model"]
+    if key in ("length", "position"):
+        return _full((), len(shape))
+    base = 1 if "segments" in path else 0   # leading scan axis replicated
+    dims: list = [None] * len(shape)
+    if len(shape) > base and _divides(shape[base], dp_size):
+        dims[base] = _dp_entry(dp)
+        seq_sharded = False
+    else:
+        seq_sharded = True
+    if key in ("k_q", "v_q"):           # (..., B, Hkv, S, D)
+        hkv, S, D = shape[-3], shape[-2], shape[-1]
+        if _divides(hkv, m):
+            dims[-3] = "model"
+        elif _divides(S, m):
+            dims[-2] = "model"
+        elif _divides(D, m):
+            dims[-1] = "model"
+        if seq_sharded and dims[-2] is None \
+                and _divides(S, mesh.shape["data"]):
+            dims[-2] = "data"
+    elif key in ("s_k", "s_v"):         # (..., B, Hkv, S)
+        hkv, S = shape[-2], shape[-1]
+        if _divides(hkv, m):
+            dims[-2] = "model"
+        elif _divides(S, m):
+            dims[-1] = "model"
+        elif seq_sharded and _divides(S, mesh.shape["data"]):
+            dims[-1] = "data"
+    elif key in ("state_q", "conv_buf", "c"):
+        if _divides(shape[-1], m):
+            dims[-1] = "model"
+        elif len(shape) >= 3 and _divides(shape[-3], m):
+            dims[-3] = "model"
+    return tuple(dims)
+
+
+def serve_cache_spec(cfg: ModelConfig, mesh, path: str,
+                     shape: Tuple[int, ...]) -> Spec:
+    """Serve-cache leaf spec (paged pool or dense per-slot cache): the
+    KV-head dim over "model" when divisible, nothing else; the leading
+    pool axis (global block ids) never shards."""
+    shape = tuple(shape)
+    key = path.split("/")[-1]
+    m = mesh.shape["model"]
+    dims: list = [None] * len(shape)
+    if key in ("k_q", "v_q") and len(shape) >= 4:   # (..., NB|B, Hkv, S, D)
+        if _divides(shape[-3], m):
+            dims[-3] = "model"
+    elif key in ("s_k", "s_v") and len(shape) >= 3:  # (..., NB|B, Hkv, S)
+        if _divides(shape[-2], m):
+            dims[-2] = "model"
+    return tuple(dims)
+
+
+# --------------------------------------------------------------------------
+# Applying the rules to the port's trees
+# --------------------------------------------------------------------------
+
+def _slice(t: torch.Tensor, spec: Spec, tp: int, rank: int) -> torch.Tensor:
+    for dim, ax in enumerate(spec):
+        if ax == "model":
+            n = t.shape[dim] // tp
+            t = t.narrow(dim, rank * n, n)
+    return t
+
+
+def _local_numel(shape, spec: Spec, tp: int) -> int:
+    n = 1
+    for d, ax in zip(shape, spec):
+        n *= d // tp if ax == "model" else d
+    return n
+
+
+def shard_params(params, cfg: ModelConfig, mesh):
+    """This rank's slice of every leaf of ``params`` (a new tree; each
+    sharded leaf a contiguous copy, so the full leaves can be freed).
+    Dims a spec maps to "model" are cut into ``mesh.shape["model"]``
+    equal parts in rank order; batch axes are not cut (a serving mesh
+    has one data replica). Runs after ``attach_w4a8_exports``, so the
+    packed planes are cut by their owner's rule."""
+    tp, rank = int(mesh.shape["model"]), int(mesh.rank)
+
+    def walk(tree, prefix):
+        if isinstance(tree, dict):
+            return {k: walk(v, f"{prefix}{k}/") for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(walk(v, f"{prefix}{i}/")
+                              for i, v in enumerate(tree))
+        if not isinstance(tree, torch.Tensor) or tp == 1:
+            return tree
+        spec = param_spec(cfg, mesh, prefix[:-1], tuple(tree.shape))
+        if "model" not in spec:
+            return tree
+        return _slice(tree, spec, tp, rank).contiguous().clone()
+
+    return walk(params, "")
+
+
+def local_bytes(tree, specs: Dict[str, Spec], tp: int) -> int:
+    """One rank's bytes of ``tree`` (the full, unsharded leaves) under
+    ``specs`` ({path: spec}; a leaf without one is replicated): a
+    sharded leaf counts its shard, a replicated leaf its whole size. The
+    port's ``_device_local_bytes``."""
+    total = 0
+    for path, t in flatten(tree):
+        if isinstance(t, torch.Tensor):
+            spec = _full(specs.get(path, ()), t.dim())
+            total += _local_numel(t.shape, spec, tp) * t.element_size()
+    return total

@@ -76,11 +76,26 @@ only at admission and harvest:
   steps at construction and picks the chunk length (memoized per
   process and configuration).
 
-Mesh (tensor-parallel) serving arrives with a later slice; its argument
-raises ``NotImplementedError``.
+* **Tensor-parallel serving** (``mesh=``, a ``launch.mesh.Mesh`` with a
+  ``"model"`` axis of ``tp`` ranks; each rank builds its engine on the
+  same requests) — the served tree is cut by
+  ``runtime.sharding.shard_params`` after the w4a8 export: column-
+  parallel q/k/v/gate/up and the vocabulary-parallel embedding and head,
+  row-parallel o/down, whose amax and int32 accumulators are all-reduced
+  exactly (``kernels.w4a8.ops.w4a8_linear_row``). Each rank computes
+  ``n_heads / tp`` query and ``n_kv_heads / tp`` KV heads and holds the
+  pool (and the draft's cache) at ``n_kv_heads / tp`` heads, as
+  ``serve_cache_spec`` shards it. The logits are gathered whole on every
+  rank, so the sampled tokens, and the host loop that follows them, are
+  the same on every rank; rank 0's clock and measured rates are
+  broadcast once a host step, so no admission or shed decision reads a
+  rank's own clock. Streams are bitwise tp=1's. Dense attention decoders
+  only (MoE, recurrent and encoder blocks raise), with both head counts
+  divisible by ``tp``, under ``weights_layout="w4a8"``.
 """
 from __future__ import annotations
 
+import math
 import time
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Union
@@ -88,6 +103,7 @@ from typing import Callable, Dict, List, Optional, Union
 import numpy as np
 import torch
 
+from repro_torch.bridge import flatten
 from repro_torch.configs.base import (ATTENTION_BLOCKS, BLOCK_ATTN,
                                       ModelConfig)
 from repro_torch.core.precision import parse_policy
@@ -100,6 +116,8 @@ from repro_torch.models import (decode_step, init_cache, prefill,
 from repro_torch.models.blocks import POOL_KEYS
 from repro_torch.obs.metrics import ServeMetrics
 from repro_torch.obs.trace import NULL_TRACER, Tracer
+from repro_torch.runtime.collectives import TPComm
+from repro_torch.runtime.sharding import shard_params
 from repro_torch.serve.block_alloc import BlockAllocator, PoolDry
 from repro_torch.serve.sampling import (TOP_K_CAP, fold_step, sample_tokens,
                                         slot_key, token_probs)
@@ -195,6 +213,51 @@ def _clamp_lengths(cache: Dict, lens: torch.Tensor) -> None:
     cache["position"].copy_(lens)
 
 
+def _check_tp(cfg: ModelConfig, tp: int, weights_layout: str) -> None:
+    """Refuse what tensor-parallel serving does not cover: blocks other
+    than attention plus a dense MLP, head counts that ``tp`` does not
+    divide (the reference falls back to GSPMD resharding there), and the
+    bf16 layout (a row-parallel linear would sum bf16 partials, which is
+    not exact)."""
+    kinds = set(cfg.layer_kinds())
+    if cfg.is_moe or cfg.is_encdec or kinds - {BLOCK_ATTN}:
+        what = ("MoE experts (expert parallelism, TP inside experts)"
+                if cfg.is_moe else "an encoder (cross-attention caches)"
+                if cfg.is_encdec else
+                f"recurrent or local blocks {sorted(kinds - {BLOCK_ATTN})} "
+                "(the lam / conv / r_h rules)")
+        raise NotImplementedError(
+            f"tensor-parallel serving of {cfg.name!r} needs {what}, which "
+            "is not ported (ROADMAP Queue 1 item 2a); serve it at tp=1")
+    if cfg.n_heads % tp or cfg.n_kv_heads % tp:
+        raise ValueError(
+            f"tp={tp} must divide both head counts: {cfg.name!r} has "
+            f"n_heads={cfg.n_heads} and n_kv_heads={cfg.n_kv_heads} (the "
+            "port keeps each rank's heads local; it has no resharding "
+            "fallback)")
+    if weights_layout != "w4a8":
+        raise ValueError(
+            "tensor-parallel serving needs weights_layout='w4a8': its "
+            "row-parallel linears all-reduce exact int32 accumulators, "
+            f"got {weights_layout!r}")
+
+
+class _BroadcastClock:
+    """A mesh engine's clock: rank 0's ``perf_counter`` as of the last
+    host step, set by ``ServeEngine._sync_host``. An object of its own,
+    so the scheduler that reads it holds no reference to the engine (a
+    cycle would keep a deleted engine's cache and weights alive until
+    the garbage collector ran)."""
+
+    __slots__ = ("now",)
+
+    def __init__(self):
+        self.now = time.perf_counter()
+
+    def __call__(self) -> float:
+        return self.now
+
+
 def _same_device(a: torch.device, b: torch.device) -> bool:
     if a.type != b.type:
         return False
@@ -227,6 +290,19 @@ class ServeEngine:
                  weights_layout: str = "bf16",
                  trace: Optional[Tracer] = None,
                  device: Optional[Union[str, torch.device]] = None):
+        self.mesh = mesh
+        self.tp = 1
+        if mesh is not None:
+            axes = tuple(getattr(mesh, "axis_names", ()))
+            if "model" not in axes:
+                raise ValueError(
+                    "serving mesh needs a 'model' axis for tensor "
+                    f"parallelism; got axes {axes}")
+            self.tp = int(mesh.shape["model"])
+            if device is None:
+                device = mesh.device
+        if self.tp > 1:
+            _check_tp(cfg, self.tp, weights_layout)
         if kv_layout not in ("dense", "paged"):
             raise ValueError(f"kv_layout must be 'dense' or 'paged', "
                              f"got {kv_layout!r}")
@@ -248,9 +324,6 @@ class ServeEngine:
             raise ValueError("speculative decoding requires "
                              "kv_layout='paged' (the rollback path is the "
                              "paged allocator's trim)")
-        if mesh is not None:
-            raise NotImplementedError("mesh (tensor-parallel) serving is not "
-                                      "ported yet")
         if slo_shed not in SHED_MODES:
             raise ValueError(f"slo_shed must be one of {SHED_MODES}, "
                              f"got {slo_shed!r}")
@@ -270,6 +343,17 @@ class ServeEngine:
                 f"engine serves on {self.device}; build them there "
                 f"(init_params(..., device=...))")
         self.cfg = cfg
+        # the config the model code runs: on a mesh, this rank's heads
+        # (head-major halves keep each GQA group on one rank)
+        self.mcfg = cfg if self.tp == 1 else cfg.replace(
+            n_heads=cfg.n_heads // self.tp,
+            n_kv_heads=cfg.n_kv_heads // self.tp,
+            head_dim=cfg.resolved_head_dim)
+        self._comm = TPComm(mesh) if self.tp > 1 else None
+        # the clock the scheduler and the shed predictor read: on a mesh,
+        # rank 0's, broadcast once a host step (_sync_host)
+        self._clock = (_BroadcastClock() if self._comm is not None
+                       else time.perf_counter)
         # right-padded batched prefill is exact only when every block is
         # attention (causality isolates real tokens from padding);
         # recurrent scans absorb pad steps into their state, so those
@@ -298,7 +382,12 @@ class ServeEngine:
                     f"(e.g. 'A8d-C8-W4'); got {policy!r}")
             params = attach_w4a8_exports(params, pol)
             self._w4a8_bytes = w4a8_weight_bytes(params)
-        self.ctx = make_ctx(policy, weights_layout=weights_layout)
+        if self.tp > 1:
+            # this rank's slice of every leaf, packed planes included, so
+            # the draft built below slices already-sharded leaves
+            params = shard_params(params, cfg, mesh)
+        self.ctx = make_ctx(policy, weights_layout=weights_layout,
+                            tp=self._comm)
         self.params = params
         self.slots = slots
         self.cache_len = cache_len
@@ -338,10 +427,12 @@ class ServeEngine:
                 else SpecConfig(**spec)
             # the draft slices the (export-attached) target tree, so under
             # w4a8 it serves the same packed weights
-            self.draft_cfg, self.draft_params = make_draft(cfg, params,
+            self.draft_cfg, self.draft_params = make_draft(self.mcfg,
+                                                           params,
                                                            self.spec)
             self.draft_ctx = make_ctx(self.spec.draft_policy or policy,
-                                      weights_layout=weights_layout)
+                                      weights_layout=weights_layout,
+                                      tp=self._comm)
             # the draft runs up to k positions past the accepted extent
             # before rollback; its dense ring must never wrap into history
             self._draft_cache_len = self.max_seq_len + self.spec.k + 1
@@ -350,17 +441,22 @@ class ServeEngine:
             self.decode_block = self.spec.k + 1
             self._decode_block_mode = "spec"
         self._sched_policy = sched_policy
-        self.scheduler = Scheduler(sched_policy, trace=self.trace)
+        self.scheduler = Scheduler(sched_policy, trace=self.trace,
+                                   clock=self._clock)
         self.reset()
         if auto_block and self.spec is None:
             # with spec on, the draft + verify wave owns step granularity
             # and the probe never runs. Everything that changes a decode
             # step's cost is in the key.
+            # The mesh shape is in it: a tp=2 step (collectives, each
+            # rank's halved GEMMs) must not replay a tp=1 probe.
             key = (cfg, policy, slots, kv_layout, cache_len, max_new_cap,
                    self.block_size if self._paged else 0,
                    self.num_blocks if self._paged else 0,
                    self.table_len if self._paged else 0,
-                   weights_layout, str(self.device))
+                   weights_layout, str(self.device),
+                   tuple(sorted(mesh.shape.items()))
+                   if mesh is not None else None)
             if key not in _PROBE_CACHE:
                 _PROBE_CACHE[key] = self._probe_decode_block()
             self.decode_block_probe = _PROBE_CACHE[key]
@@ -374,12 +470,12 @@ class ServeEngine:
         slots, dev = self.slots, self.device
         i32 = {"dtype": torch.int32, "device": dev}
         if self._paged:
-            cache = init_cache(self.cfg, self.ctx, slots, self.cache_len,
+            cache = init_cache(self.mcfg, self.ctx, slots, self.cache_len,
                                device=dev, num_blocks=self.num_blocks,
                                page_size=self.block_size,
                                table_len=self.table_len)
         else:
-            cache = init_cache(self.cfg, self.ctx, slots, self.cache_len,
+            cache = init_cache(self.mcfg, self.ctx, slots, self.cache_len,
                                device=dev)
         return {
             "cache": cache,
@@ -421,7 +517,8 @@ class ServeEngine:
         self._admit_seq: Dict[int, int] = {}     # slot -> admission order
         self._seq = 0
         self._max_residents = 0
-        self.scheduler = Scheduler(self._sched_policy, trace=self.trace)
+        self.scheduler = Scheduler(self._sched_policy, trace=self.trace,
+                                   clock=self._clock)
         # a fresh run gets a fresh observability window: a rerun must not
         # inherit the previous pass's spans or histogram mass
         self.trace.clear()
@@ -429,6 +526,7 @@ class ServeEngine:
         self._step_idx = 0
         self._pred_per_tok: Optional[float] = None   # fastest s/prompt-tok
         self._pred_round_s: Optional[float] = None   # fastest decode round
+        self._sync_host()
         self._host = {"decode_s": 0.0, "decode_rounds": 0,
                       "prefill_s": 0.0, "prefill_calls": 0,
                       "prefill_tokens": 0, "prefill_chunks": 0,
@@ -453,6 +551,23 @@ class ServeEngine:
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    def _sync_host(self) -> None:
+        """On a mesh, once a host step: rank 0's clock and its measured
+        prefill and decode rates replace every rank's own, so the ranks'
+        host loops take the same decisions (admission, shedding) however
+        their clocks drift."""
+        if self._comm is None:
+            return
+        nan = float("nan")
+        now, per_tok, round_s = self._comm.broadcast_floats(
+            [time.perf_counter(),
+             nan if self._pred_per_tok is None else self._pred_per_tok,
+             nan if self._pred_round_s is None else self._pred_round_s]
+            if self._comm.rank == 0 else [nan, nan, nan])
+        self._clock.now = now
+        self._pred_per_tok = None if math.isnan(per_tok) else per_tok
+        self._pred_round_s = None if math.isnan(round_s) else round_s
 
     def submit(self, req: Request) -> None:
         """Enqueue one request for serving.
@@ -793,7 +908,7 @@ class ServeEngine:
         batch = {"tokens": tokens}
         if self._pad_ok:
             batch["lengths"] = lengths
-        logits, cache_n = prefill(self.cfg, self.params, self.ctx, batch,
+        logits, cache_n = prefill(self.mcfg, self.params, self.ctx, batch,
                                   cache_budget=self.cache_len,
                                   page_size=page)
         first = sample_tokens(
@@ -950,7 +1065,7 @@ class ServeEngine:
             slots_t = torch.tensor([j["slot"] for j in ready],
                                    dtype=torch.int32, device=dev)
             logits, _ = prefill_tail(
-                self.cfg, self.params, self.ctx,
+                self.mcfg, self.params, self.ctx,
                 torch.from_numpy(toks).to(dev), self.state["cache"], slots_t,
                 torch.tensor([j["c0"] for j in ready], dtype=torch.int32,
                              device=dev),
@@ -1292,7 +1407,7 @@ class ServeEngine:
         st = self.state
         cap = self.max_new_cap
         for _ in range(n_steps):
-            logits, _ = decode_step(self.cfg, self.params, self.ctx,
+            logits, _ = decode_step(self.mcfg, self.params, self.ctx,
                                     st["tokens"], st["cache"])
             # this step's keys fold in the generated-token count; an
             # all-greedy chunk draws nothing and skips them
@@ -1486,7 +1601,7 @@ class ServeEngine:
         cache = st["cache"]
         c0 = cache["position"].clone()
         window = torch.cat([st["tokens"], dtoks.to(torch.int32)], dim=1)
-        logits, _ = spec_verify(self.cfg, self.params, self.ctx, window,
+        logits, _ = spec_verify(self.mcfg, self.params, self.ctx, window,
                                 cache, torch.arange(S, dtype=torch.int32,
                                                     device=dev),
                                 c0, tail_len, hist_blocks=hist_blocks)
@@ -1623,6 +1738,7 @@ class ServeEngine:
         spec on, else one decode chunk) + harvest."""
         self._step_idx += 1
         self.trace.step = self._step_idx
+        self._sync_host()
         with self.trace.span("step"):
             with self.trace.span("admit"):
                 self._admit()
@@ -1718,6 +1834,9 @@ class ServeEngine:
             return best
 
         t1, t8 = chunk_time(1), chunk_time(8)
+        if self._comm is not None:
+            # rank 0's times, so every rank picks the same chunk length
+            t1, t8 = self._comm.broadcast_floats([t1, t8])
         self.reset()
         per_step = max((t8 - t1) / 7.0, 1e-9)
         return {"pick": pick_decode_block(t1, t8), "t1_s": t1, "t8_s": t8,
@@ -1727,6 +1846,14 @@ class ServeEngine:
     # ------------------------------------------------------------------
     # Stats
     # ------------------------------------------------------------------
+
+    def _served_weight_leaves(self) -> List[torch.Tensor]:
+        """The weight tensors this rank's serve forward streams: under
+        w4a8 the packed export planes, under bf16 the whole tree."""
+        return [t for p, t in flatten(self.params)
+                if isinstance(t, torch.Tensor) and (
+                    self.weights_layout != "w4a8"
+                    or "w4a8" in p.split("/"))]
 
     def stats(self) -> Dict:
         """Serving counters and latency stats (one host sync).
@@ -1759,7 +1886,12 @@ class ServeEngine:
         swapped_requests            preempted requests awaiting restore
         cache_tokens_capacity       stripe / pool capacity in tokens
         peak_cache_tokens/_bytes    peak occupancy in tokens / bytes
-        cache_bytes                 total cache allocation
+        cache_bytes                 total cache allocation (this rank's)
+        mesh_shape                  the mesh's axis sizes (None off a mesh)
+        tp_degree                   ranks on the "model" axis (1 off it)
+        per_device_pool_bytes       this rank's cache (pool) bytes
+        per_device_weight_bytes     this rank's served weight bytes (the
+                                    packed planes under w4a8)
         decode_block(_mode)         chunk length and how it was chosen
                                     ("fixed" / "auto" / "spec")
         weights_layout              serve weight layout ("bf16" / "w4a8")
@@ -1805,6 +1937,13 @@ class ServeEngine:
         d["max_residents"] = self._max_residents
         d["decode_block"] = self.decode_block
         d["decode_block_mode"] = self._decode_block_mode
+        d["mesh_shape"] = (dict(self.mesh.shape)
+                           if self.mesh is not None else None)
+        d["tp_degree"] = self.tp
+        d["per_device_pool_bytes"] = self._cache_bytes
+        d["per_device_weight_bytes"] = sum(
+            t.numel() * t.element_size()
+            for t in self._served_weight_leaves())
         d["weights_layout"] = self.weights_layout
         d["packed_weight_bytes"] = self._w4a8_bytes["packed"]
         d["weight_hbm_saved_bytes"] = max(

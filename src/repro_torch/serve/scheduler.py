@@ -78,10 +78,14 @@ def percentile(xs: List[float], q: float) -> float:
 class Scheduler:
     """Queue + admission policy + per-request latency bookkeeping."""
 
-    def __init__(self, policy: str = "fcfs", trace=None):
+    def __init__(self, policy: str = "fcfs", trace=None, clock=None):
         if policy not in POLICIES:
             raise ValueError(f"unknown policy {policy!r}; known: {POLICIES}")
         self.policy = policy
+        # the clock every ``now`` reads (perf_counter seconds): a
+        # tensor-parallel engine passes rank 0's, broadcast once a host
+        # step, so the ranks' admission and shed decisions agree
+        self.clock = clock if clock is not None else time.perf_counter
         # request-lifecycle event sink (a repro_torch.obs Tracer; the engine
         # passes its own so queue events land in the same trace as waves)
         self.trace = trace if trace is not None else NULL_TRACER
@@ -107,7 +111,7 @@ class Scheduler:
         """
         req._arrival = self._seq
         self._seq += 1
-        t = time.perf_counter() if now is None else now
+        t = self.clock() if now is None else now
         req._timing = RequestTiming(submit_t=t)
         dl = getattr(req, "deadline_ms", None)
         req._deadline_t = None if dl is None else t + dl / 1e3
@@ -278,7 +282,7 @@ class Scheduler:
                              f"{SHED_MODES}")
         if mode == "none" or not self._queue:
             return []
-        t = time.perf_counter() if now is None else now
+        t = self.clock() if now is None else now
         shed: List = []
         ahead = 0
         for r in self._ordered():
@@ -325,14 +329,14 @@ class Scheduler:
 
     # ---- accounting ----
     def on_admitted(self, reqs, now: Optional[float] = None) -> None:
-        t = time.perf_counter() if now is None else now
+        t = self.clock() if now is None else now
         for r in reqs:
             r._timing.admit_t = t
             self.trace.event("admitted", uid=getattr(r, "uid", None),
                              queue_delay_s=t - r._timing.submit_t)
 
     def on_finished(self, req, now: Optional[float] = None) -> None:
-        t = time.perf_counter() if now is None else now
+        t = self.clock() if now is None else now
         req._timing.finish_t = t
         # latency_s here is the scheduler-clock measurement the trace
         # report reconciles its own event-delta latency against

@@ -86,7 +86,9 @@ def make_draft(cfg: ModelConfig, params: Dict,
                spec: SpecConfig) -> Tuple[ModelConfig, Dict]:
     """The draft's (config, params): the target's first ``draft_layers``
     entries of ``params["layers"]``, with every other entry (embedding,
-    final norm, head) the target's own object."""
+    final norm, head) the target's own object. On a tensor-parallel mesh
+    the engine passes its rank's config and sharded tree, so the draft
+    is the rank's slice of the draft's layers."""
     L = spec.resolved_layers(cfg)
     if L == cfg.n_layers and spec.draft_policy is None:
         return cfg, params          # self-draft: the target itself

@@ -106,6 +106,8 @@ LAUNCHERS = [
     ("slstm_scan", "slstm_scan_launch", slstm_ops._ARGTYPES),
     ("slstm_scan", "slstm_scan_route", slstm_ops._ROUTE_ARGTYPES),
     ("w4a8_matmul", "w4a8_matmul_launch", w4a8_ops._ARGTYPES),
+    ("w4a8_matmul", "w4a8_accumulate_launch", w4a8_ops._ACC_ARGTYPES),
+    ("w4a8_matmul", "w4a8_epilogue_launch", w4a8_ops._EPI_ARGTYPES),
 ]
 
 

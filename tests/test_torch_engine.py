@@ -204,14 +204,16 @@ def test_submit_rejects_infeasible_requests(served):
                                 dict(slo_shed="reject"), dict(mesh=object()),
                                 dict(sched_policy="sjf")])
 def test_unported_options_raise(served, kw):
-    """Of these options only ``mesh`` (tensor-parallel serving) still
-    raises. SLO shedding, the ``edf`` / ``sjf`` policies and the
-    ``decode_block="auto"`` probe, which raised until the frontend slice
-    ported them, construct and serve a request to its end
-    (``tests/test_torch_frontend.py`` holds them to the reference)."""
+    """None of these options is unported any more. SLO shedding, the
+    ``edf`` / ``sjf`` policies and the ``decode_block="auto"`` probe,
+    which raised until the frontend slice ported them, construct and
+    serve a request to its end (``tests/test_torch_frontend.py`` holds
+    them to the reference). ``mesh`` (tensor-parallel serving, held in
+    ``tests/test_torch_tp_serve.py``) no longer raises NotImplementedError;
+    a mesh without a "model" axis raises the reference's ValueError."""
     _, _, tparams = served
     if "mesh" in kw:
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(ValueError, match="'model' axis"):
             _port_engine(tparams, **kw)
         return
     eng = _port_engine(tparams, **kw)

@@ -154,3 +154,156 @@ def test_route_is_checked_before_the_device():
         with pytest.raises(ValueError, match="cpu or cuda"):
             w4a8_ops.w4a8_matmul_route(*args, route=route)
     assert w4a8_matmul.launches == 0
+
+
+# --------------------------------------------------------------------------
+# the accumulator-out mode, the epilogue and the row-parallel linear
+# --------------------------------------------------------------------------
+
+# qwen2.5-3b's row-parallel linears at tp=2 (wo K 1024, wd K 5504) at the
+# decode slots and an admission wave, plus ragged shapes
+ROW_SHAPES = SHAPES + [(4, 1024, 16), (512, 5504, 8), (1, 5504, 24)]
+
+
+@pytest.mark.parametrize("mkn", ROW_SHAPES,
+                         ids=lambda t: "x".join(map(str, t)))
+def test_accumulate_equals_jax_int32_dot(mkn):
+    """``w4a8_accumulate`` (the plain version on CPU tensors: the CUDA
+    kernel's accumulator-out mode) against the JAX reference's int32
+    ``jnp.dot`` path (``repro/kernels/w4a8/ref.py``, its huge-K branch)."""
+    x_q, _, w_p, *_ = _case(*mkn, False, sum(mkn) + 5)
+    got = w4a8_ops.w4a8_accumulate(*_torch(x_q, w_p))
+    assert got.dtype == torch.int32 and got.shape == (mkn[0], mkn[2])
+    jax_acc = jnp.dot(jnp.asarray(x_q).astype(jnp.int32),
+                      unpack_int4(jnp.asarray(w_p)).T.astype(jnp.int32))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jax_acc))
+
+
+@pytest.mark.parametrize("mkn", ROW_SHAPES[:4],
+                         ids=lambda t: "x".join(map(str, t)))
+@pytest.mark.parametrize("bias", [False, True])
+def test_epilogue_of_accumulator_equals_matmul(mkn, bias):
+    """The epilogue applied to the accumulator is the fused matmul, bit
+    for bit; without a bias also the JAX reference's bits."""
+    x_q, _, w_p, s_x, s_w, b = _case(*mkn, bias, sum(mkn) + 9)
+    xt, wt, sxt, swt, bt = _torch(x_q, w_p, s_x, s_w, b)
+    got = w4a8_ops.w4a8_epilogue(w4a8_ops.w4a8_accumulate(xt, wt), sxt,
+                                 swt, bt)
+    assert torch.equal(got, w4a8_matmul(xt, wt, sxt, swt, bt))
+    if not bias:
+        jargs = [jnp.asarray(a) for a in (x_q, w_p, s_x, s_w)]
+        np.testing.assert_array_equal(got.float().numpy(),
+                                      _f32(jax_w4a8_ref(*jargs)))
+
+
+class ThreadComm:
+    """The collectives of ``runtime.collectives.TPComm`` between threads
+    of one process (one thread a rank): each call deposits the rank's
+    tensor, waits for every rank, and reduces or gathers the deposits in
+    rank order. Records the (kind, dtype) of every call."""
+
+    def __init__(self, rank, shared):
+        self.rank, self.sh = rank, shared
+        self.size = len(shared["slots"])
+
+    def _exchange(self, t, combine, kind):
+        sh = self.sh
+        sh["slots"][self.rank] = t.clone()
+        sh["barrier"].wait()
+        out = combine(list(sh["slots"]))
+        if self.rank == 0:
+            sh["calls"].append((kind, t.dtype))
+        sh["barrier"].wait()
+        return out
+
+    def all_reduce_max(self, t):
+        t.copy_(self._exchange(t, lambda ts: torch.stack(ts).amax(0),
+                               "max"))
+        return t
+
+    def all_reduce_sum(self, t):
+        t.copy_(self._exchange(t, lambda ts: torch.stack(ts).sum(0).to(
+            t.dtype), "sum"))
+        return t
+
+
+def run_ranks(tp, fn):
+    """``fn(rank, comm)`` on ``tp`` threads; returns (results, calls)."""
+    import threading
+    sh = {"slots": [None] * tp, "barrier": threading.Barrier(tp),
+          "calls": []}
+    out, errs = [None] * tp, []
+
+    def go(r):
+        try:
+            out[r] = fn(r, ThreadComm(r, sh))
+        except Exception as e:              # noqa: BLE001
+            errs.append(e)
+            sh["barrier"].abort()
+
+    ts = [threading.Thread(target=go, args=(r,)) for r in range(tp)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=60)
+    if errs:
+        raise errs[0]
+    return out, sh["calls"]
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("lead,k", [((4,), 1024), ((2, 3), 128),
+                                    ((1,), 5504)])
+def test_row_parallel_linear_bitwise_tp1(tp, bias, lead, k):
+    """``w4a8_linear_row`` on each rank's K slice (input features and the
+    packed weight's columns), the amax and the int32 accumulators reduced
+    over the ranks, equals the tp=1 ``w4a8_linear`` bitwise; the bias is
+    added once. Only an f32 MAX and an int32 SUM cross ranks: never a
+    scaled partial."""
+    rng = np.random.default_rng(k + tp)
+    n = 24
+    x = torch.from_numpy(rng.standard_normal(lead + (k,)).astype(
+        np.float32)).to(torch.bfloat16)
+    # one token of large magnitude in one rank's slice: its amax must set
+    # every rank's scale
+    x[(0,) * len(lead) + (k - 3,)] = 40.0
+    _, _, w_p, _, s_w, b = _case(1, k, n, bias, tp + 3)
+    exp = {"wq": torch.from_numpy(w_p), "s_w": torch.from_numpy(s_w[None])}
+    if bias:
+        exp["b"] = torch.from_numpy(b)
+    want = w4a8_linear(x, exp)
+    ks = k // tp
+
+    def rank_fn(r, comm):
+        sl = slice(r * ks, (r + 1) * ks)
+        loc = dict(exp, wq=exp["wq"][:, r * ks // 2:(r + 1) * ks // 2]
+                   .contiguous())
+        return w4a8_ops.w4a8_linear_row(x[..., sl].contiguous(), loc, comm,
+                                        plain=True)
+
+    got, calls = run_ranks(tp, rank_fn)
+    for y in got:
+        assert y.shape == want.shape and torch.equal(y, want)
+    assert calls == [("max", torch.float32), ("sum", torch.int32)]
+    # the outlier lies in the last rank's slice: without the MAX, rank
+    # 0's first row would quantize on a scale of its own
+    from repro_torch.core.quantizer import dynamic_quantize_to_int
+    x2 = x.reshape(-1, k)
+    assert dynamic_quantize_to_int(x2[:1, :ks], 8)[1] < \
+        dynamic_quantize_to_int(x2[:1], 8)[1]
+
+
+def test_accumulate_and_epilogue_off_cuda_raise():
+    """A tensor neither on the CPU nor on the card reaches no launcher."""
+    x = torch.zeros((2, 32), dtype=torch.int8, device="meta")
+    w = torch.zeros((4, 16), dtype=torch.uint8, device="meta")
+    with pytest.raises(ValueError, match="cuda"):
+        w4a8_ops.w4a8_accumulate(x, w)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        w4a8_ops.w4a8_epilogue(torch.zeros((2, 4), dtype=torch.int32,
+                                           device="meta"),
+                               torch.ones((2, 1), device="meta"),
+                               torch.ones((4,), device="meta"))
+    assert w4a8_ops.w4a8_accumulate.launches == 0
+    assert w4a8_ops.w4a8_epilogue.launches == 0
