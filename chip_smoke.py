@@ -398,7 +398,8 @@ def import_port():
     from repro_torch.core import qat
     from repro_torch.core.distill import silq_loss
     from repro_torch.core.quantizer import unpack_int4
-    from repro_torch.data import MixtureIterator, SyntheticConfig, to_device
+    from repro_torch.data import (MixtureIterator, ShardedLoader,
+                                  SyntheticConfig, to_device)
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attn import ops as fa_ops
     from repro_torch.kernels.flash_attn.ref import flash_attn_ref
@@ -413,14 +414,14 @@ def import_port():
     from repro_torch.kernels.w4a8.ref import w4a8_matmul_ref
     from repro_torch import models
     from repro_torch.launch import steps, train
-    from repro_torch.launch.mesh import spawn_tp
+    from repro_torch.launch.mesh import spawn, spawn_tp
     from repro_torch.optim import adamw_init
     from repro_torch.benchmarks import common as bench
     from repro_torch.core.analysis import rotation
     from repro_torch.core.precision import parse_policy
     from repro_torch.core.ptq import rtn, smoothquant
     from repro_torch.data import calibration_batches
-    from repro_torch.tree import tree_map
+    from repro_torch.tree import tree_leaves, tree_map
     from repro_torch.models import blocks
     from repro_torch.models.common import rms_norm
     from repro_torch.obs import export as obs_export
@@ -450,7 +451,9 @@ def import_port():
                 adamw_init=adamw_init, obs_export=obs_export,
                 parse_prometheus=parse_prometheus,
                 AsyncFrontend=AsyncFrontend, ServeHTTP=ServeHTTP,
-                percentile=percentile, spawn_tp=spawn_tp)
+                percentile=percentile, spawn_tp=spawn_tp, spawn=spawn,
+                ShardedLoader=ShardedLoader, tree_leaves=tree_leaves,
+                named_leaves=_named_leaves)
 
 
 # --------------------------------------------------------------------------
@@ -7573,6 +7576,366 @@ def serve_tp(torch, P, cfg, dev, params, report, plain_streams,
 
 
 # --------------------------------------------------------------------------
+# phase 5d: data-parallel QAT, qwen2.5-3b on two ranks of the one card
+# --------------------------------------------------------------------------
+
+DP = 2
+DP_LAYERS = 4
+DP_STEPS = 2
+DP_TIMEOUT_S = 420
+# the data-2 global loss against one process: the first step's within
+# 1e-5; a later step's within 1e-4, since Adam's first step is
+# lr * sign(g) and an element whose gradient sits at its rounding error
+# moves the other way on one side (1.1e-5 at step 1, call 3 of PR 29)
+DP_LOSS_RTOL, DP_LATER_LOSS_RTOL = 1e-5, 1e-4
+# per leaf, L2: 2^-7 of the leaf (its bf16 shares summed in f32 and
+# rounded once) plus 1e-6 of the whole gradient (tests/test_torch_train.py's
+# absolute term). The attention's key bias is the exception: softmax is
+# invariant to a shift of every key a query sees, so its true gradient is
+# zero and the computed one is the residue of a cancelling sum, which the
+# ranks' split moves (1.09e-2 relative, calls 1-2 of PR 29): it is held
+# to 2e-2, the bound tests/test_torch_train.py holds a port gradient to
+DP_GRAD_RTOL, DP_GRAD_ATOL_GLOBAL = 2.0 ** -7, 1e-6
+DP_KEY_BIAS_RTOL = 2e-2
+DIGEST_CHUNK = 2 ** 24         # elements a digest chunk
+
+
+def dp_cfg(P, reduced=False):
+    """Phase 5b's cut: qwen2.5-3b at full width and 4 layers (the reduced
+    config as it is where the phase is rehearsed on the CPU)."""
+    if reduced:
+        return P["get_reduced_config"]("qwen2.5-3b")
+    return P["get_config"]("qwen2.5-3b").replace(n_layers=DP_LAYERS)
+
+
+def dp_tcfg(P, comp="none"):
+    return P["TrainConfig"](precision="A8d-C8-W4", total_steps=DP_STEPS,
+                            ref_steps=DP_STEPS, batch_size=TRAIN_B,
+                            seq_len=TRAIN_T, grad_compression=comp)
+
+
+def tree_digest(torch, tensors):
+    """Per leaf, the bits summed as integers and weighted by position
+    (mod 2^64): equal trees give equal digests, and a changed element
+    changes its leaf's (two changes cancel only by chance)."""
+    out = []
+    for t in tensors:
+        if t is None:
+            out.append(None)
+            continue
+        flat = t.detach().reshape(-1)
+        bits = flat.view(torch.int16 if t.element_size() == 2 else
+                         torch.int32)
+        acc = 0
+        for lo in range(0, bits.numel(), DIGEST_CHUNK):
+            b = bits[lo:lo + DIGEST_CHUNK].long()
+            w = torch.arange(lo, lo + b.numel(), device=b.device) % 65521 + 1
+            acc += int((b * w).sum()) + int(b.sum()) * 7919
+        out.append(acc)
+    return out
+
+
+def dp_first_batch(P, cfg, dev, mesh=None):
+    """run_qat's first global batch (this rank's rows on a mesh)."""
+    tcfg = dp_tcfg(P)
+    data = P["SyntheticConfig"](vocab_size=cfg.vocab_size, seq_len=TRAIN_T,
+                                batch_size=TRAIN_B,
+                                dclm_ratio=tcfg.dclm_ratio, seed=tcfg.seed)
+    return next(P["ShardedLoader"](P["MixtureIterator"](data, start_step=1),
+                                   mesh=mesh, device=dev))
+
+
+def dp_rank(mesh, inp):
+    """One rank of phase 5d: ``run_qat`` at data 2 from the seed (no
+    teacher steps, as the one-process reference), MSE calibration. Before
+    the first step (``on_start``): the synced gradient of the first batch
+    against the one-process gradient (leaf by leaf), and the int8 sync
+    against the exact one; each step's launches, split and a digest of
+    the parameters and moments; after the run one data-parallel teacher
+    pretraining step; on rank 0 one loss and backward through the kernels
+    against the plain versions. Returns rank 0's report with every
+    rank's launches and digests."""
+    import torch
+    import torch.distributed as dist
+    P = import_port()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = mesh.device
+    cuda = dev.type == "cuda"
+    cfg, tcfg = dp_cfg(P, inp["reduced"]), dp_tcfg(P)
+    steps_mod, models = P["steps"], P["models"]
+    out = {"rank": mesh.data_rank, "steps": []}
+    state = {}
+    t_start = time.perf_counter()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    def grad_checks(student):
+        teacher = models.init_params(cfg, seed=tcfg.seed, device=dev)
+        batch = dp_first_batch(P, cfg, dev, mesh)
+        step = steps_mod.make_train_step(cfg, tcfg, mesh=mesh)
+        loss, grads = step.loss_and_grads(student, teacher, batch)
+        out["loss0"] = float(loss)
+        ref = torch.load(inp["ref_path"], mmap=True)
+        leaves = list(P["named_leaves"](grads))
+        gaps = {}                        # leaf: (|g - g_one|, |g_one|)
+        for k, g in leaves:
+            r = ref[k]
+            if g is None or r is None:
+                check(g is None and r is None,
+                      f"5d: gradient {k} only on one side")
+                continue
+            r = r.to(dev).float()
+            gaps[k] = (float(torch.linalg.vector_norm(g.float() - r)),
+                       float(torch.linalg.vector_norm(r)))
+        del ref
+        total = math.sqrt(sum(n * n for _, n in gaps.values()))
+        rel = {k: e / n for k, (e, n) in gaps.items() if n > 0}
+        out["grad_leaves"] = len(gaps)
+        out["grad_leaves_past_bound"] = [
+            (k, e, n) for k, (e, n) in gaps.items()
+            if e > (DP_KEY_BIAS_RTOL * n if k.endswith("attn/wk/b") else
+                    DP_GRAD_RTOL * n + DP_GRAD_ATOL_GLOBAL * total)]
+        out["grad_total_l2"] = total
+        bias = {k: v for k, v in rel.items() if k.endswith("attn/wk/b")}
+        out["key_bias_max_rel_l2"] = max(bias.values(), default=0.0)
+        rest = {k: v for k, v in rel.items() if k not in bias}
+        worst_key = max(rest, key=rest.get)
+        out["grad_max_rel_l2"], out["grad_worst_leaf"] = (rest[worst_key],
+                                                          worst_key)
+        wire_f32 = step.dp.wire["f32"]
+        # the int8 sync on the same local gradients
+        step8 = steps_mod.make_train_step(cfg, dp_tcfg(P, "int8"), mesh=mesh)
+        _, local = step8.local_loss_and_grads(student, teacher, batch)
+        lv = P["tree_leaves"](local)
+        amax = torch.stack([torch.max(torch.abs(g.float() * DP))
+                            if g is not None else torch.zeros((), device=dev)
+                            for g in lv])
+        dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=mesh.data_group)
+        synced = P["tree_leaves"](step8.sync(local))
+        del local, lv
+        err = step8.error_feedback()
+        num = den = 0.0
+        worst8, over_step, over_err = 0.0, [], []
+        for (k, g), q, e, a in zip(leaves, synced, err, amax.tolist()):
+            if g is None:
+                continue
+            d = (q.float() - g.float()).abs()
+            # each side's cast to bf16: half an ulp, 2^-8 relative at most
+            ulp = (torch.maximum(q.float().abs(), g.float().abs())
+                   * 2.0 ** -7 if g.dtype == torch.bfloat16 else 0.0)
+            if bool((d > a / 254.0 * (1 + 1e-6) + ulp).any()):
+                over_step.append(k)
+            if float(e.abs().max()) > a / 100.0:
+                over_err.append(k)
+            dn = float(torch.linalg.vector_norm(d))
+            gn = float(torch.linalg.vector_norm(g.float()))
+            num, den = num + dn * dn, den + gn * gn
+            if gn > 0 and dn / gn > worst8:
+                worst8 = dn / gn
+        out["int8"] = {"rel_l2": math.sqrt(num / den),
+                       "worst_leaf_rel_l2": worst8,
+                       "leaves_past_half_step": over_step,
+                       "leaves_residual_past_amax_100": over_err,
+                       "wire_bytes_int8": step8.dp.wire["int8"],
+                       "wire_bytes_f32": wire_f32}
+        del step8, synced, err, grads, teacher, step
+        if cuda:
+            torch.cuda.empty_cache()
+
+    def on_start(student, opt):
+        t0 = time.perf_counter()
+        grad_checks(student)
+        out["grad_checks_s"] = time.perf_counter() - t0
+        state["counts"] = [fn.launches for fn in train_counters(P)]
+
+    def on_step(step, metrics, student, opt):
+        counts = [fn.launches for fn in train_counters(P)]
+        digest = tree_digest(torch, P["tree_leaves"](
+            (student, opt.m, opt.v)))
+        out["steps"].append({"step": step, "loss": float(metrics["loss"]),
+                             "ms": metrics["ms"],
+                             "launches": [a - b for a, b in
+                                          zip(counts, state["counts"])],
+                             "digest": digest})
+        state["counts"] = counts
+
+    teacher, student, _ = P["train"].run_qat(
+        "qwen2.5-3b", tcfg, reduced=inp["reduced"], teacher_steps=0,
+        n_layers=None if inp["reduced"] else DP_LAYERS, mesh=mesh,
+        log_every=1, split_times=True, on_start=on_start, on_step=on_step)
+    sync(torch, dev)
+    out["run_s"] = time.perf_counter() - t_start
+    # one data-parallel teacher pretraining step (the student freed)
+    del student
+    if cuda:
+        torch.cuda.empty_cache()
+    for p in P["tree_leaves"](teacher):
+        p.requires_grad_(True)
+    opt = P["adamw_init"](teacher)
+    pre = P["train"].make_teacher_pretrain_step(cfg, mesh=mesh)
+    teacher, opt, tloss = pre(teacher, opt, dp_first_batch(P, cfg, dev,
+                                                           mesh))
+    out["teacher_step"] = {"loss": float(tloss), "digest": tree_digest(
+        torch, P["tree_leaves"]((teacher, opt.m, opt.v)))}
+    del opt, pre
+    for p in P["tree_leaves"](teacher):
+        p.requires_grad_(False)
+    if cuda:
+        out["peak_memory_bytes"] = torch.cuda.max_memory_allocated(dev)
+    mine = {k: out[k] for k in ("rank", "loss0", "grad_max_rel_l2",
+                                "grad_worst_leaf", "grad_leaves_past_bound",
+                                "grad_total_l2", "key_bias_max_rel_l2",
+                                "teacher_step")}
+    mine["steps"] = [{k: s[k] for k in ("step", "loss", "launches",
+                                        "digest")} for s in out["steps"]]
+    mine["int8_ok"] = (not out["int8"]["leaves_past_half_step"]
+                       and not out["int8"]["leaves_residual_past_amax_100"])
+    mine["peak_memory_bytes"] = out.get("peak_memory_bytes")
+    ranks = [None] * dist.get_world_size()
+    dist.all_gather_object(ranks, mine)
+    out["ranks"] = ranks
+    if mesh.data_rank == 0 and cuda:
+        report = {}
+        student = P["train"].calibrate(cfg, P["tree_map"](
+            lambda t: t.detach().clone(), teacher), tcfg,
+            P["SyntheticConfig"](vocab_size=cfg.vocab_size,
+                                 seq_len=TRAIN_T, batch_size=TRAIN_B))
+        for p in P["tree_leaves"](student):
+            p.requires_grad_(True)
+        grads_vs_plain(torch, P, cfg, tcfg, teacher, student, dev, report,
+                       key="train_dp_vs_plain", phase="phase 5d")
+        out["vs_plain"] = report["train_dp_vs_plain"]
+    dist.barrier()
+    return out
+
+
+def train_dp(torch, P, dev, report, reduced=False):
+    """Phase 5d: data-parallel QAT of qwen2.5-3b at full width and 4
+    layers on two processes of the one card over gloo (NCCL refuses two
+    ranks on one device), against this process's one-process run of the
+    same global batches from the same seed."""
+    import tempfile
+    import shutil
+    t_phase = time.perf_counter()
+    cfg, tcfg = dp_cfg(P, reduced), dp_tcfg(P)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    ref_path = str(Path(tmp) / "grads.pt")
+    one = {"losses": []}
+
+    def on_start(student, opt):
+        teacher = P["models"].init_params(cfg, seed=tcfg.seed, device=dev)
+        step = P["steps"].make_train_step(cfg, tcfg)
+        loss, grads = step.loss_and_grads(
+            student, teacher, dp_first_batch(P, cfg, dev))
+        one["loss0"] = float(loss)
+        torch.save({k: None if g is None else g.detach().cpu()
+                    for k, g in P["named_leaves"](grads)}, ref_path)
+        del grads, teacher
+
+    def on_step(step, metrics, student, opt):
+        one["losses"].append(float(metrics["loss"]))
+
+    try:
+        t0 = time.perf_counter()
+        P["train"].run_qat(
+            "qwen2.5-3b", tcfg, reduced=reduced, teacher_steps=0,
+            n_layers=None if reduced else DP_LAYERS, device=dev,
+            log_every=1, on_start=on_start, on_step=on_step)
+        sync(torch, dev)
+        one_s = time.perf_counter() - t0
+        if torch.device(dev).type == "cuda":
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        got = P["spawn"](dp_rank, DP, {"ref_path": ref_path,
+                                       "reduced": reduced},
+                         device=torch.device(dev).type, backend="gloo",
+                         timeout_s=DP_TIMEOUT_S)
+        spawn_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    ranks = got["ranks"]
+    n_w = 7 * cfg.n_layers + 1
+    for r in ranks:
+        check(len(r["steps"]) == DP_STEPS,
+              f"5d rank {r['rank']}: {len(r['steps'])} steps ran")
+        for s in r["steps"]:
+            if torch.device(dev).type == "cuda":
+                check(s["launches"] == [n_w, n_w, cfg.n_layers, 0],
+                      f"5d rank {r['rank']} step {s['step']}: launches "
+                      f"(fake_quant_fwd, fake_quant_bwd, flash_attn_fwd, "
+                      f"slstm_scan) = {s['launches']}, want ({n_w}, {n_w}, "
+                      f"{cfg.n_layers}, 0)")
+            check(math.isfinite(s["loss"]), f"5d: loss {s['loss']}")
+        check(not r["grad_leaves_past_bound"],
+              f"5d rank {r['rank']}: synced gradients "
+              f"{r['grad_leaves_past_bound']} off the one-process gradient "
+              f"past {DP_GRAD_RTOL} of the leaf + {DP_GRAD_ATOL_GLOBAL} of "
+              f"the whole {r['grad_total_l2']} (L2; the key bias "
+              f"{DP_KEY_BIAS_RTOL}): (leaf, gap, norm)")
+        check(r["int8_ok"], f"5d rank {r['rank']}: the int8 sync passed "
+                            f"half a quantization step, or its residual "
+                            f"amax / 100: {got['int8']}")
+    for i in range(DP_STEPS):
+        digests = {repr(r["steps"][i]["digest"]) for r in ranks}
+        check(len(digests) == 1, f"5d: the replicas' parameters and "
+                                 f"moments differ after step {i}")
+    check(len({repr(r["teacher_step"]["digest"]) for r in ranks}) == 1,
+          "5d: the replicas differ after the teacher pretraining step")
+    losses = [s["loss"] for s in got["steps"]]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, one["losses"])]
+    check(len(rel) == DP_STEPS and rel[0] <= DP_LOSS_RTOL
+          and max(rel) <= DP_LATER_LOSS_RTOL,
+          f"5d: global losses {losses} vs one process {one['losses']}")
+    rel0 = abs(got["loss0"] - one["loss0"]) / abs(one["loss0"])
+    check(rel0 <= DP_LOSS_RTOL, f"5d: first-batch loss {got['loss0']} vs "
+                                f"one process {one['loss0']}")
+    per = {k: sum(s["ms"][k] for s in got["steps"][1:])
+           / max(len(got["steps"]) - 1, 1)
+           for k in ("teacher", "student", "sync", "optimizer")}
+    launches = {"fake_quant_fwd": got["steps"][-1]["launches"][0],
+                "fake_quant_bwd": got["steps"][-1]["launches"][1],
+                "flash_attn_fwd": got["steps"][-1]["launches"][2]}
+    res = {"data": DP, "backend": "gloo", "card": report.get("card"),
+           "layers": cfg.n_layers, "global_batch": TRAIN_B,
+           "rows_a_rank": TRAIN_B // DP, "seq": TRAIN_T,
+           "losses": losses, "losses_one_process": one["losses"],
+           "loss_rel_err": max(rel), "loss0_rel_err": rel0,
+           "grad_max_rel_l2": max(r["grad_max_rel_l2"] for r in ranks),
+           "grad_worst_leaf": got["grad_worst_leaf"],
+           "key_bias_max_rel_l2": max(r["key_bias_max_rel_l2"]
+                                      for r in ranks),
+           "grad_leaves": got["grad_leaves"], "int8": got["int8"],
+           "ms_split": per, "ms_first_step": got["steps"][0]["ms"],
+           "launches_per_rank_step": launches,
+           "peak_memory_bytes": [r["peak_memory_bytes"] for r in ranks],
+           "teacher_step_loss": got["teacher_step"]["loss"],
+           "grad_checks_s": got["grad_checks_s"], "rank_run_s": got["run_s"],
+           "one_process_s": one_s, "spawn_s": spawn_s,
+           "phase_s": time.perf_counter() - t_phase,
+           "vs_plain": got.get("vs_plain"),
+           "note": "two processes on one card over gloo (tensors through "
+                   "host memory): a check of the data-parallel path, not a "
+                   "speed"}
+    report["train_dp"] = res
+    print(f"phase 5d: qwen2.5-3b data-parallel QAT at data={DP} "
+          f"({cfg.n_layers} layers, global B {TRAIN_B} x T {TRAIN_T}, gloo, "
+          f"two ranks on {report.get('card')}): global losses {losses} vs "
+          f"one process {one['losses']} (rel {max(rel):.2e}); synced "
+          f"gradients within {res['grad_max_rel_l2']:.2e} relative L2 of "
+          f"one process ({res['grad_worst_leaf']}); replicas bitwise after "
+          f"every step; int8 sync rel L2 {got['int8']['rel_l2']:.4f} of "
+          f"the exact one, wire bytes a rank int8 "
+          f"{got['int8']['wire_bytes_int8']} vs f32 "
+          f"{got['int8']['wire_bytes_f32']}; step ms {per} (gloo, one "
+          f"card: not a speed); launches a rank a step {launches}; peak "
+          f"{res['peak_memory_bytes']} B a rank; phase "
+          f"{res['phase_s']:.1f} s", flush=True)
+    print("phase 5d: " + json.dumps(res), flush=True)
+    return res
+
+
+# --------------------------------------------------------------------------
 
 def main() -> int:
     import torch
@@ -7663,6 +8026,8 @@ def main() -> int:
     del teacher
     torch.cuda.empty_cache()
     train_static(torch, P, cfg, dev, report)
+    torch.cuda.empty_cache()
+    dp = train_dp(torch, P, dev, report)
     torch.cuda.empty_cache()
     serve_xlstm(torch, P, xcfg, dev, report)
     xlstm_train_launches = train_xlstm(torch, P, xcfg, dev, report)
@@ -7912,6 +8277,8 @@ def main() -> int:
          "source": "src/repro_torch/csrc/fake_quant.cu",
          "replaces": "src/repro/kernels/quant/kernel.py:55",
          "launches": train_launches["fake_quant_fwd"],
+         "dp_launches_per_rank_step": dp["launches_per_rank_step"][
+             "fake_quant_fwd"],
          "ptq_launches": ptq_launches["fake_quant_fwd"],
          "max_abs_err": fq_err, **fq_fwd_t,
          "rg_launches": rg_train_launches["fake_quant_fwd"],
@@ -7957,6 +8324,8 @@ def main() -> int:
          "source": "src/repro_torch/csrc/fake_quant.cu",
          "replaces": "src/repro/kernels/quant/kernel.py:74",
          "launches": train_launches["fake_quant_bwd"],
+         "dp_launches_per_rank_step": dp["launches_per_rank_step"][
+             "fake_quant_bwd"],
          "max_abs_err": fq_err, **fq_bwd_t,
          "rg_launches": rg_train_launches["fake_quant_bwd"],
          "mx_train_launches": mx_train_launches["fake_quant_bwd"],
@@ -7990,6 +8359,8 @@ def main() -> int:
          "source": "src/repro_torch/csrc/flash_attn_fwd.cu",
          "replaces": "src/repro/kernels/flash_attn/kernel.py:74",
          "launches": train_launches["flash_attn_fwd"],
+         "dp_launches_per_rank_step": dp["launches_per_rank_step"][
+             "flash_attn_fwd"],
          "ptq_launches": ptq_launches["flash_attn_fwd"],
          "max_abs_err": max(flash_err, rg_err["flash_attn_fwd"],
                             mx_err["flash_attn_fwd"],

@@ -64,6 +64,11 @@ class QuantCtx:
     # it, the embedding sums its vocabulary shards and the head gathers
     # its logits
     tp: Any = None
+    # data-parallel training: this rank's ``runtime.collectives.DPComm``
+    # (None at data 1). An MoE layer's load-balance statistics are then
+    # summed over the data ranks, and a static activation scale's LSQ
+    # gradient is scaled for the global batch
+    dp: Any = None
 
     @property
     def off(self) -> bool:
@@ -82,7 +87,7 @@ class QuantCtx:
 def make_ctx(policy, mode: str = "train",
              act_calib_method: str = "quantile",
              weights_layout: str = "bf16",
-             kernel_backend: str = "auto", tp=None) -> QuantCtx:
+             kernel_backend: str = "auto", tp=None, dp=None) -> QuantCtx:
     if isinstance(policy, str):
         policy = parse_policy(policy)
     if kernel_backend not in KERNEL_BACKENDS:
@@ -91,7 +96,7 @@ def make_ctx(policy, mode: str = "train",
     return QuantCtx(policy=policy, mode=mode,
                     act_calib_method=act_calib_method,
                     weights_layout=weights_layout,
-                    kernel_backend=kernel_backend, tp=tp)
+                    kernel_backend=kernel_backend, tp=tp, dp=dp)
 
 
 # --------------------------------------------------------------------------
@@ -135,7 +140,8 @@ def quantize_act(ctx: QuantCtx, x: torch.Tensor, p: Dict[str, Any], site: str,
     if ctx.policy.act_dynamic:
         return dynamic_fake_quant(x, bits, axis=-1)
     return lsq_fake_quant(x, p[site], bits,
-                          plain=ctx.kernel_backend == "ref")
+                          plain=ctx.kernel_backend == "ref",
+                          replicas=ctx.dp.size if ctx.dp is not None else 1)
 
 
 def quantize_weight_p(ctx: QuantCtx, p: Dict[str, Any],

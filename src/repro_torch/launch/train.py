@@ -5,7 +5,10 @@ as the student, (3) calibrate weight step sizes (convex-MSE, Eq. 2) and,
 for static activation policies, activation step sizes (percentile over 5
 batches), (4) train end to end with the pure-KD loss, LSQ scale learning
 (50x LR on activation scales), cosine LR and AdamW, (5) checkpoint and
-resume with heartbeats (``--simulate-failure-at`` exercises it).
+resume with heartbeats (``--simulate-failure-at`` exercises it). On a
+data axis of ranks (``run_qat(mesh=...)``, started by
+``launch.mesh.spawn``) every step is the one-process step on the global
+batch.
 
     python -m repro_torch.launch.train --device cpu --steps 2 \\
         --teacher-steps 2 --batch-size 2 --seq-len 32
@@ -26,31 +29,44 @@ from repro_torch.core.distill import next_token_loss
 from repro_torch.core.precision import parse_policy
 from repro_torch.core.ptq.rtn import rtn_quantize
 from repro_torch.core.qat import make_ctx
-from repro_torch.data import (MixtureIterator, SyntheticConfig,
-                              calibration_batches, to_device)
+from repro_torch.data import (MixtureIterator, ShardedLoader,
+                              SyntheticConfig, calibration_batches)
 from repro_torch.device import resolve_device
-from repro_torch.launch.steps import grads_of, make_train_step
+from repro_torch.launch.steps import (data_comm, global_denom, grads_of,
+                                     make_train_step)
 from repro_torch.models import forward, init_params
 from repro_torch.optim import adamw_init, adamw_update, clip_by_global_norm
 from repro_torch.runtime.fault import HeartbeatFile
 from repro_torch.tree import tree_leaves, tree_map
 
 
-def make_teacher_pretrain_step(cfg, lr: float = 1e-3):
+def make_teacher_pretrain_step(cfg, lr: float = 1e-3, mesh=None):
     """Next-token training of the unquantized teacher (attention under
-    autograd: ``blockwise_attention``)."""
+    autograd: ``blockwise_attention``). On a data axis (``mesh``) each
+    rank's loss is its share of the global batch's mean and the
+    gradients are summed over the ranks in f32 before clipping, as in
+    the QAT step (``launch.steps.make_train_step``)."""
     ctx = make_ctx("A16-C16-W16", mode="off")
+    dp = data_comm(mesh)
 
     def step_fn(params, opt_state, batch):
         logits, _ = forward(cfg, params, ctx, batch)
+        denom = (global_denom(dp, batch, logits.shape[:2])
+                 if dp is not None else None)
         loss = next_token_loss(logits, batch["labels"],
-                               batch.get("loss_mask"))
+                               batch.get("loss_mask"), denom)
         del logits
         grads = grads_of(loss, params)
+        loss = loss.detach()
+        if dp is not None:
+            loss = dp.all_reduce_sum(loss.clone())
+            leaves = dp.sync_grads(tree_leaves(grads))
+            it = iter(leaves)
+            grads = tree_map(lambda _: next(it), grads)
         clip_by_global_norm(grads, 1.0)
         params, opt_state = adamw_update(params, grads, opt_state, lr=lr,
                                          weight_decay=0.0)
-        return params, opt_state, loss.detach()
+        return params, opt_state, loss
 
     return step_fn
 
@@ -62,16 +78,16 @@ def _trainable(params):
 
 
 def pretrain_teacher(cfg, data_cfg: SyntheticConfig, steps: int, seed: int,
-                     device):
+                     device, mesh=None):
     """Give the synthetic-data teacher something to teach. Returns the
     teacher with ``requires_grad`` off."""
     params = _trainable(init_params(cfg, seed=seed, device=device))
     opt = adamw_init(params)
-    step_fn = make_teacher_pretrain_step(cfg)
-    it = MixtureIterator(data_cfg)
+    step_fn = make_teacher_pretrain_step(cfg, mesh=mesh)
+    it = ShardedLoader(MixtureIterator(data_cfg), mesh=mesh, device=device)
     loss = float("nan")
     for i in range(steps):
-        params, opt, loss = step_fn(params, opt, to_device(next(it), device))
+        params, opt, loss = step_fn(params, opt, next(it))
         if i % 50 == 0:
             print(f"  teacher step {i}: ntp-loss {float(loss):.4f}",
                   flush=True)
@@ -103,7 +119,7 @@ def run_qat(arch: str, tcfg: TrainConfig, *, reduced: bool = True,
             eval_fn=None, device=None, ckpt_every: int = 100,
             n_layers: Optional[int] = None, split_times: bool = False,
             on_start: Optional[Callable] = None,
-            on_step: Optional[Callable] = None):
+            on_step: Optional[Callable] = None, mesh=None):
     """The whole flow; returns (teacher, student, eval history).
 
     ``device``: ``cuda`` unless told otherwise. ``ckpt_every``: steps
@@ -111,7 +127,23 @@ def run_qat(arch: str, tcfg: TrainConfig, *, reduced: bool = True,
     and keeps every width. ``on_start(student, opt)`` is called once
     before the first step, ``on_step(step, metrics, student, opt)`` after
     every step (``split_times`` puts the phases' ms in ``metrics["ms"]``).
+
+    ``mesh``: a ``launch.mesh.Mesh`` of data > 1 replicas (one process a
+    rank, started by ``launch.mesh.spawn``; ``device`` is then the
+    mesh's). Every rank builds the same teacher from the seed, pretrains
+    it and trains the student through the gradient sync
+    (``make_train_step(mesh=...)``), and calibrates on the full
+    calibration batches as one process does, so the replicas start and
+    stay bitwise equal. Each rank draws the same global batches and keeps
+    its rows (``ShardedLoader``). Rank 0 writes the checkpoints, which
+    hold the replicated state only, and every rank restores them: a
+    checkpoint restores at any data size (``runtime.fault.ElasticPlan``'s
+    shrink), and a restore zeroes the int8 sync's error feedback. Each
+    rank beats its own heartbeat file (``worker`` is its rank).
     """
+    if mesh is not None:
+        device = mesh.device
+        worker = int(mesh.data_rank)
     dev = resolve_device(device)
     cfg = get_reduced_config(arch) if reduced else get_config(arch)
     if n_layers:
@@ -120,10 +152,12 @@ def run_qat(arch: str, tcfg: TrainConfig, *, reduced: bool = True,
                                seq_len=tcfg.seq_len,
                                batch_size=tcfg.batch_size,
                                dclm_ratio=tcfg.dclm_ratio, seed=tcfg.seed)
-    step_fn = make_train_step(cfg, tcfg, split_times=split_times)
+    step_fn = make_train_step(cfg, tcfg, split_times=split_times, mesh=mesh)
+    writer = mesh is None or int(mesh.data_rank) == 0
 
     print(f"[qat] teacher pretrain ({teacher_steps} steps)", flush=True)
-    teacher = pretrain_teacher(cfg, data_cfg, teacher_steps, tcfg.seed, dev)
+    teacher = pretrain_teacher(cfg, data_cfg, teacher_steps, tcfg.seed, dev,
+                               mesh=mesh)
     student = tree_map(lambda t: t.detach().clone(), teacher)
     print("[qat] calibrating step sizes", flush=True)
     student = _trainable(calibrate(cfg, student, tcfg, data_cfg))
@@ -137,7 +171,9 @@ def run_qat(arch: str, tcfg: TrainConfig, *, reduced: bool = True,
         (student, opt), extra = ckpt.restore((student, opt))
         it.load_state_dict(extra["data"])
         start_step = extra["step"]
+        step_fn.reset_error_feedback()
         print(f"[qat] resumed from step {start_step}", flush=True)
+    loader = ShardedLoader(it, mesh=mesh, device=dev)
 
     hb = HeartbeatFile(heartbeat_dir, worker) if heartbeat_dir else None
     history = []
@@ -145,7 +181,7 @@ def run_qat(arch: str, tcfg: TrainConfig, *, reduced: bool = True,
         on_start(student, opt)
     for step in range(start_step, tcfg.total_steps):
         t0 = time.perf_counter()
-        batch = to_device(next(it), dev)
+        batch = next(loader)
         student, opt, metrics = step_fn(student, teacher, opt, batch, step)
         dt = time.perf_counter() - t0
         if hb:
@@ -160,10 +196,10 @@ def run_qat(arch: str, tcfg: TrainConfig, *, reduced: bool = True,
                   f"lr {metrics['lr']:.2e} ({dt:.2f}s)", flush=True)
         if eval_every and eval_fn and (step + 1) % eval_every == 0:
             history.append((step + 1, eval_fn(student)))
-        if ckpt and (step + 1) % ckpt_every == 0:
+        if ckpt and writer and (step + 1) % ckpt_every == 0:
             ckpt.save_async(step + 1, (student, opt),
-                            {"step": step + 1, "data": it.state_dict()})
-    if ckpt:
+                            {"step": step + 1, "data": loader.state_dict()})
+    if ckpt and writer:
         ckpt.wait()
     return teacher, student, history
 

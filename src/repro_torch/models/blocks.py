@@ -14,9 +14,9 @@ whole life, and a decode step writes its new K/V row into it.
 Tensor-parallel serving runs these functions unchanged on one rank's
 heads: the engine hands them a config with ``n_heads / tp`` query and
 ``n_kv_heads / tp`` KV heads (head-major halves, so each GQA group stays
-on one rank and the group size is unchanged), the rank's column slices
-of wq/wk/wv/wg/wu and row slices of wo/wd, and caches of ``n_kv_heads /
-tp`` heads. The row-parallel linears (``qlinear(..., row=True)``) reduce
+on one rank and the group size is unchanged; one whole KV head a rank
+where ``tp`` is a multiple of ``n_kv_heads``), the rank's column slices
+of wq/wk/wv/wg/wu and row slices of wo/wd, and caches of its KV heads. The row-parallel linears (``qlinear(..., row=True)``) reduce
 over the ranks through ``ctx.tp``.
 
 Two cache layouts: the dense ring (``init_attn_cache``, one stripe of
@@ -234,7 +234,11 @@ def moe_fwd(cfg: ModelConfig, ctx: QuantCtx, p: Dict, x: torch.Tensor,
     prefill gave the same bits alone and in a padded wave of 4, and a
     tail-wave row alone and beside a deeper row (chip_smoke's mixtral
     and moonshot checks), so they need no row-by-row form as attention
-    does."""
+    does.
+
+    On a data axis (``ctx.dp``) the aux is the global batch's: the
+    dispatch and the capacity are per batch row, so unchanged, and the
+    routing statistics are summed over the data ranks (forward only)."""
     e, k = cfg.n_experts, cfg.n_experts_active
     Bn, S, d = x.shape
     sc = min(MOE_CHUNK_S, S)
@@ -282,9 +286,20 @@ def moe_fwd(cfg: ModelConfig, ctx: QuantCtx, p: Dict, x: torch.Tensor,
             # sum: an f32 mean rounded to bf16
             probs = _softmax(logits)
             counts = F.one_hot(idx, e).sum(dim=2).float()
-            frac_tok = (counts.sum(dim=(0, 1)) / float(Bn * sc)).to(
-                torch.bfloat16)
-            frac_prob = probs.mean(dim=(0, 1))
+            if ctx.dp is None:
+                frac_tok = (counts.sum(dim=(0, 1)) / float(Bn * sc)).to(
+                    torch.bfloat16)
+                frac_prob = probs.mean(dim=(0, 1))
+            else:
+                # data-parallel: the global batch's statistics. The counts
+                # are integers (exact in f32, so frac_tok is the one-
+                # process value); the probability sums are summed with a
+                # local backward, as the gradient sync sums the ranks'
+                # paths through them
+                n_tok = float(Bn * sc * ctx.dp.size)
+                tot = ctx.dp.all_reduce_sum(counts.sum(dim=(0, 1)))
+                frac_tok = (tot / n_tok).to(torch.bfloat16)
+                frac_prob = ctx.dp.sum_forward(probs.sum(dim=(0, 1))) / n_tok
             auxs.append(e * torch.sum(frac_tok.float() * frac_prob))
     y = ys[0] if nchunk == 1 else torch.cat(ys, dim=1)
     aux = (torch.stack(auxs).mean() if with_aux else

@@ -1,4 +1,5 @@
-"""The collectives of tensor-parallel serving, by hand.
+"""The collectives of tensor-parallel serving and of data-parallel
+training, by hand.
 
 In the JAX package GSPMD inserts these from the sharding rules; here the
 model code calls them where a sharded operand meets a replicated one:
@@ -25,6 +26,12 @@ decode wave (``collective_counts`` / ``pool_allgather_sites``: at least
 one all-reduce, at most two all-gathers, no KV pool leaf gathered);
 ``watch`` (a set) collects the storage of every tensor handed to a
 collective, so a check can prove that no pool leaf was.
+
+:class:`DPComm` is the data axis's: where the reference's train step,
+jitted over a data axis, gets its all-reduces from GSPMD, the port's
+step sums its gradients here in f32 buckets (``sync_grads``), and the
+loss's global statistics (the mask count, an MoE layer's routing sums)
+through ``sum_forward``, whose backward stays local.
 """
 from __future__ import annotations
 
@@ -122,3 +129,93 @@ class TPComm:
         bits = x.contiguous().view(ints).to(torch.int32)
         self.all_reduce_sum(bits)
         return bits.to(ints).view(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# The data axis: data-parallel training
+# --------------------------------------------------------------------------
+
+# f32 elements of one gradient bucket (256 MiB); a leaf larger than a
+# bucket is synced alone
+GRAD_BUCKET_ELEMS = 64 * 2 ** 20
+
+
+class _SumLocalGrad(torch.autograd.Function):
+    """The sum over the data group in the forward, the identity in the
+    backward: each rank's loss holds the global statistic, and the
+    gradient sync already sums the ranks' paths through it, so an
+    all-reduce in the backward too would count it ``n`` times (what
+    ``torch.distributed.nn.functional.all_reduce`` does)."""
+
+    @staticmethod
+    def forward(ctx, t, comm):
+        out = t.detach().clone()
+        comm.all_reduce_sum(out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class DPComm:
+    """One rank's collectives over the mesh's data axis (training): f32
+    SUM all-reduces, in place, and the gradient sync. ``wire`` counts the
+    bytes a rank receives by kind (``runtime.compression.wire_bytes``)."""
+
+    def __init__(self, mesh):
+        import torch.distributed as dist
+        self._dist = dist
+        self.group = mesh.data_group
+        self.size = int(mesh.shape["data"])
+        self.rank = int(mesh.data_rank)
+        self.wire: Counter = Counter()
+
+    def __repr__(self) -> str:
+        return f"DPComm(rank={self.rank}, size={self.size})"
+
+    def all_reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """In place: the elementwise f32 sum over the data ranks (every
+        rank gets the same bits: a ring reduces each element once)."""
+        if t.dtype != torch.float32:
+            raise TypeError(f"the data axis sums f32, got {t.dtype}")
+        self._dist.all_reduce(t, op=self._dist.ReduceOp.SUM,
+                              group=self.group)
+        return t
+
+    def sum_forward(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over the data ranks, with a local backward
+        (:class:`_SumLocalGrad`)."""
+        return _SumLocalGrad.apply(t, self)
+
+    def sync_grads(self, grads: List[Optional[torch.Tensor]],
+                   bucket_elems: int = GRAD_BUCKET_ELEMS
+                   ) -> List[Optional[torch.Tensor]]:
+        """Every gradient summed over the data ranks: the leaves in
+        order, cast to f32 and packed into buckets of at most
+        ``bucket_elems`` (a larger leaf alone), one SUM all-reduce a
+        bucket, each leaf cast back to its type once. A None leaf (read
+        by no op, on every rank alike) stays None."""
+        from repro_torch.runtime.compression import wire_bytes
+        out = list(grads)
+        live = [i for i, g in enumerate(grads) if g is not None]
+        self.wire["f32"] += wire_bytes([grads[i].numel() for i in live],
+                                       self.size, "f32")
+        pos = 0
+        while pos < len(live):
+            take, n = [], 0
+            while pos < len(live) and (not take or n + grads[
+                    live[pos]].numel() <= bucket_elems):
+                take.append(live[pos])
+                n += grads[live[pos]].numel()
+                pos += 1
+            buf = torch.cat([grads[i].reshape(-1).float() for i in take])
+            self.all_reduce_sum(buf)
+            off = 0
+            for i in take:
+                k = grads[i].numel()
+                out[i] = buf[off:off + k].view(grads[i].shape).to(
+                    grads[i].dtype)
+                off += k
+            del buf
+        return out

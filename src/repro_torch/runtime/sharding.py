@@ -35,6 +35,13 @@ host allocator's global block ids) replicate.
 :func:`shard_params` is the port's ``jax.device_put(params,
 param_shardings(...))``: it keeps this rank's slice of every leaf.
 :func:`local_bytes` is one rank's share of a tree under its specs.
+Where ``tp`` is a multiple of ``n_kv_heads`` (:func:`kv_head_local`)
+both keep a whole KV head a rank instead of the spec's slice of one:
+``param_spec`` stays the reference's pure rule, whose GSPMD reshards
+what the port keeps head-local.
+
+:func:`shard_batch` cuts this data rank's rows of a training batch by
+:func:`batch_spec`.
 """
 from __future__ import annotations
 
@@ -291,14 +298,58 @@ def _local_numel(shape, spec: Spec, tp: int) -> int:
     return n
 
 
+def kv_head_local(cfg: ModelConfig, tp: int) -> bool:
+    """Whether ``tp`` ranks hold whole KV heads rather than slices of
+    them: fewer KV heads than ranks, ``tp`` a multiple of
+    ``n_kv_heads`` and ``n_heads`` divisible by ``tp``. Rank ``r`` then
+    keeps query heads ``[r Hq/tp, (r+1) Hq/tp)``, which all read KV
+    head ``r // (tp / Hkv)``, and keeps that whole KV head: every KV head
+    lives on ``tp / Hkv`` ranks."""
+    hkv = cfg.n_kv_heads
+    return (0 < hkv < tp and tp % hkv == 0 and cfg.n_heads % tp == 0)
+
+
+def _kv_head_dim(cfg: ModelConfig, path: str,
+                 shape: Tuple[int, ...]) -> Optional[int]:
+    """The KV-head (output-channel) dim of a ``wk`` / ``wv`` leaf: the
+    columns of ``w``, ``b``, ``s_w`` and the packed planes' ``s_w``,
+    ``b`` and ``wf``, the rows of the packed ``wq`` (d_out, d_in / 2);
+    None for any other leaf (``s_in`` among them)."""
+    parts = path.split("/")
+    if "w4a8" in parts:
+        i = parts.index("w4a8")
+        owner, key = (parts[i - 1] if i else ""), parts[-1]
+        dim = -2 if key == "wq" else -1
+    else:
+        owner, key = (parts[-2] if len(parts) >= 2 else ""), parts[-1]
+        dim = -1
+    if owner not in ("wk", "wv") or key not in ("w", "b", "s_w", "wq",
+                                                "wf"):
+        return None
+    if len(shape) < -dim or shape[dim] != cfg.kv_dim:
+        return None
+    return len(shape) + dim
+
+
 def shard_params(params, cfg: ModelConfig, mesh):
     """This rank's slice of every leaf of ``params`` (a new tree; each
     sharded leaf a contiguous copy, so the full leaves can be freed).
     Dims a spec maps to "model" are cut into ``mesh.shape["model"]``
     equal parts in rank order; batch axes are not cut (a serving mesh
     has one data replica). Runs after ``attach_w4a8_exports``, so the
-    packed planes are cut by their owner's rule."""
+    packed planes are cut by their owner's rule.
+
+    Where the ranks hold whole KV heads (:func:`kv_head_local`), the
+    ``wk`` / ``wv`` leaves are not cut by their spec (which would split
+    a head): each rank keeps its KV head's columns (and the packed
+    planes' rows of it) whole. Every output column of a column-parallel
+    linear depends only on the shared input and its own weights, and the
+    K/V scales are per token and head, so this rank's K and V are bitwise
+    the same columns of tp=1's."""
     tp, rank = int(mesh.shape["model"]), int(mesh.rank)
+    local_kv = kv_head_local(cfg, tp)
+    hd = cfg.resolved_head_dim
+    kv_head = rank // (tp // cfg.n_kv_heads) if local_kv else 0
 
     def walk(tree, prefix):
         if isinstance(tree, dict):
@@ -308,7 +359,13 @@ def shard_params(params, cfg: ModelConfig, mesh):
                               for i, v in enumerate(tree))
         if not isinstance(tree, torch.Tensor) or tp == 1:
             return tree
-        spec = param_spec(cfg, mesh, prefix[:-1], tuple(tree.shape))
+        path, shape = prefix[:-1], tuple(tree.shape)
+        if local_kv:
+            dim = _kv_head_dim(cfg, path, shape)
+            if dim is not None:
+                return tree.narrow(dim, kv_head * hd, hd).contiguous(
+                    ).clone()
+        spec = param_spec(cfg, mesh, path, shape)
         if "model" not in spec:
             return tree
         return _slice(tree, spec, tp, rank).contiguous().clone()
@@ -316,14 +373,58 @@ def shard_params(params, cfg: ModelConfig, mesh):
     return walk(params, "")
 
 
-def local_bytes(tree, specs: Dict[str, Spec], tp: int) -> int:
+def local_bytes(tree, specs: Dict[str, Spec], tp: int,
+                cfg: Optional[ModelConfig] = None) -> int:
     """One rank's bytes of ``tree`` (the full, unsharded leaves) under
     ``specs`` ({path: spec}; a leaf without one is replicated): a
     sharded leaf counts its shard, a replicated leaf its whole size. The
-    port's ``_device_local_bytes``."""
+    port's ``_device_local_bytes``. With ``cfg``, where the ranks hold
+    whole KV heads (:func:`kv_head_local`), a ``wk`` / ``wv`` leaf
+    counts one KV head, as :func:`shard_params` keeps it."""
+    local_kv = cfg is not None and kv_head_local(cfg, tp)
     total = 0
     for path, t in flatten(tree):
         if isinstance(t, torch.Tensor):
-            spec = _full(specs.get(path, ()), t.dim())
-            total += _local_numel(t.shape, spec, tp) * t.element_size()
+            dim = (_kv_head_dim(cfg, path, tuple(t.shape)) if local_kv
+                   else None)
+            if dim is not None:
+                n = t.numel() // t.shape[dim] * cfg.resolved_head_dim
+            else:
+                n = _local_numel(t.shape, _full(specs.get(path, ()),
+                                                t.dim()), tp)
+            total += n * t.element_size()
     return total
+
+
+def shard_batch(batch: Dict[str, Any], mesh) -> Dict[str, Any]:
+    """This data rank's rows of every leaf of a global ``batch`` (numpy
+    arrays or tensors), cut by :func:`batch_spec`: the batch dim (dim 1
+    of ``positions``) in ``mesh.shape["data"]`` equal parts in data-rank
+    order (``mesh.data_rank``). Scalars are kept whole. A batch the data
+    axis does not divide gets the reference's sequence-over-"data" spec,
+    which needs context-parallel attention: that raises
+    NotImplementedError (ROADMAP Queue 1 item 2b)."""
+    n = int(mesh.shape["data"])
+    if n == 1:
+        return dict(batch)
+    rank = int(mesh.data_rank)
+    out = {}
+    for name, v in batch.items():
+        shape = tuple(v.shape)
+        spec = batch_spec(mesh, shape, name)
+        dims = [i for i, ax in enumerate(spec) if ax is not None]
+        if not shape:
+            out[name] = v
+            continue
+        if not dims or spec[dims[0]] != _dp_entry(batch_axes(mesh)) \
+                or dims[0] != (1 if name == "positions" else 0):
+            raise NotImplementedError(
+                f"batch leaf {name!r} of shape {shape} does not split its "
+                f"batch over {n} data ranks (spec {spec}): the sequence "
+                "over 'data' needs context-parallel attention, which is "
+                "not ported (ROADMAP Queue 1 item 2b)")
+        d = dims[0]
+        rows = shape[d] // n
+        idx = (slice(None),) * d + (slice(rank * rows, (rank + 1) * rows),)
+        out[name] = v[idx]
+    return out

@@ -85,13 +85,16 @@ only at admission and harvest:
   exactly (``kernels.w4a8.ops.w4a8_linear_row``). Each rank computes
   ``n_heads / tp`` query and ``n_kv_heads / tp`` KV heads and holds the
   pool (and the draft's cache) at ``n_kv_heads / tp`` heads, as
-  ``serve_cache_spec`` shards it. The logits are gathered whole on every
+  ``serve_cache_spec`` shards it; where ``tp`` is a multiple of
+  ``n_kv_heads`` (more ranks than KV heads), each rank holds the one
+  whole KV head its query heads read (``sharding.kv_head_local``). The logits are gathered whole on every
   rank, so the sampled tokens, and the host loop that follows them, are
   the same on every rank; rank 0's clock and measured rates are
   broadcast once a host step, so no admission or shed decision reads a
   rank's own clock. Streams are bitwise tp=1's. Dense attention decoders
-  only (MoE, recurrent and encoder blocks raise), with both head counts
-  divisible by ``tp``, under ``weights_layout="w4a8"``.
+  only (MoE, recurrent and encoder blocks raise), with ``n_heads``
+  divisible by ``tp`` and ``n_kv_heads`` divisible by it or dividing
+  it, under ``weights_layout="w4a8"``.
 """
 from __future__ import annotations
 
@@ -117,7 +120,7 @@ from repro_torch.models.blocks import POOL_KEYS
 from repro_torch.obs.metrics import ServeMetrics
 from repro_torch.obs.trace import NULL_TRACER, Tracer
 from repro_torch.runtime.collectives import TPComm
-from repro_torch.runtime.sharding import shard_params
+from repro_torch.runtime.sharding import kv_head_local, shard_params
 from repro_torch.serve.block_alloc import BlockAllocator, PoolDry
 from repro_torch.serve.sampling import (TOP_K_CAP, fold_step, sample_tokens,
                                         slot_key, token_probs)
@@ -215,8 +218,9 @@ def _clamp_lengths(cache: Dict, lens: torch.Tensor) -> None:
 
 def _check_tp(cfg: ModelConfig, tp: int, weights_layout: str) -> None:
     """Refuse what tensor-parallel serving does not cover: blocks other
-    than attention plus a dense MLP, head counts that ``tp`` does not
-    divide (the reference falls back to GSPMD resharding there), and the
+    than attention plus a dense MLP, query heads that ``tp`` does not
+    divide and KV heads that it neither divides nor is a multiple of
+    (the reference falls back to GSPMD resharding there), and the
     bf16 layout (a row-parallel linear would sum bf16 partials, which is
     not exact)."""
     kinds = set(cfg.layer_kinds())
@@ -229,12 +233,13 @@ def _check_tp(cfg: ModelConfig, tp: int, weights_layout: str) -> None:
         raise NotImplementedError(
             f"tensor-parallel serving of {cfg.name!r} needs {what}, which "
             "is not ported (ROADMAP Queue 1 item 2a); serve it at tp=1")
-    if cfg.n_heads % tp or cfg.n_kv_heads % tp:
+    if cfg.n_heads % tp or (cfg.n_kv_heads % tp
+                            and not kv_head_local(cfg, tp)):
         raise ValueError(
-            f"tp={tp} must divide both head counts: {cfg.name!r} has "
-            f"n_heads={cfg.n_heads} and n_kv_heads={cfg.n_kv_heads} (the "
-            "port keeps each rank's heads local; it has no resharding "
-            "fallback)")
+            f"tp={tp} must divide n_heads and either divide n_kv_heads or "
+            f"be a multiple of it: {cfg.name!r} has n_heads={cfg.n_heads} "
+            f"and n_kv_heads={cfg.n_kv_heads} (the port keeps each rank's "
+            "heads local; it has no resharding fallback)")
     if weights_layout != "w4a8":
         raise ValueError(
             "tensor-parallel serving needs weights_layout='w4a8': its "
@@ -298,6 +303,11 @@ class ServeEngine:
                 raise ValueError(
                     "serving mesh needs a 'model' axis for tensor "
                     f"parallelism; got axes {axes}")
+            if int(mesh.shape.get("data", 1)) != 1:
+                raise NotImplementedError(
+                    f"a serving mesh takes one data replica, got "
+                    f"{mesh.shape}: serve each replica with its own "
+                    "engine on a data-1 mesh")
             self.tp = int(mesh.shape["model"])
             if device is None:
                 device = mesh.device
@@ -344,10 +354,11 @@ class ServeEngine:
                 f"(init_params(..., device=...))")
         self.cfg = cfg
         # the config the model code runs: on a mesh, this rank's heads
-        # (head-major halves keep each GQA group on one rank)
+        # (head-major halves keep each GQA group on one rank; where tp
+        # exceeds the KV heads, one whole KV head a rank)
         self.mcfg = cfg if self.tp == 1 else cfg.replace(
             n_heads=cfg.n_heads // self.tp,
-            n_kv_heads=cfg.n_kv_heads // self.tp,
+            n_kv_heads=max(cfg.n_kv_heads // self.tp, 1),
             head_dim=cfg.resolved_head_dim)
         self._comm = TPComm(mesh) if self.tp > 1 else None
         # the clock the scheduler and the shed predictor read: on a mesh,

@@ -317,15 +317,27 @@ class TestMeshErrors:
                         weights_layout="w4a8")
 
     def test_engine_refuses_heads_that_do_not_divide(self):
+        """Query heads that tp does not divide (qwen2-7b's 28 at tp=8),
+        and KV heads that tp neither divides nor is a multiple of, are
+        refused; tp a multiple of the KV heads is served
+        (``tests/test_torch_tp_serve.py``: reduced qwen2.5-3b's 2 at
+        tp=4)."""
+        from repro_torch.configs import get_config
+        mesh8 = Mesh(shape={"data": 1, "model": 8}, rank=0,
+                     device=torch.device("cpu"))
+        with pytest.raises(ValueError, match="n_heads=28"):
+            ServeEngine(get_config("qwen2-7b"), None, mesh=mesh8,
+                        weights_layout="w4a8")
         cfg = t_get_reduced_config("qwen2.5-3b")       # 4 heads on 2
-        mesh = Mesh(shape={"data": 1, "model": 4}, rank=0,
-                    device=torch.device("cpu"))
-        with pytest.raises(ValueError, match="n_kv_heads=2"):
-            ServeEngine(cfg, None, mesh=mesh, weights_layout="w4a8")
         mesh3 = Mesh(shape={"data": 1, "model": 3}, rank=0,
                      device=torch.device("cpu"))
         with pytest.raises(ValueError, match="n_heads=4"):
             ServeEngine(cfg, None, mesh=mesh3, weights_layout="w4a8")
+        mesh2 = Mesh(shape={"data": 1, "model": 2}, rank=0,
+                     device=torch.device("cpu"))
+        with pytest.raises(ValueError, match="n_kv_heads=3"):
+            ServeEngine(cfg.replace(n_heads=12, n_kv_heads=3), None,
+                        mesh=mesh2, weights_layout="w4a8")
 
     def test_engine_refuses_the_bf16_layout(self):
         mesh = Mesh(shape={"data": 1, "model": 2}, rank=0,

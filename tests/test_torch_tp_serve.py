@@ -5,7 +5,9 @@ port's tp=1 engine and the JAX package's tp=1 engine.
 The reference's ``tests/test_sharded_serve.py`` on the port: its
 ``ENG_KW``, ``PREEMPT_KW`` and ``_mixed_reqs`` on reduced qwen2.5-3b with
 ``n_kv_heads=4`` at tp 2 and 4 and with ``n_kv_heads=2`` at tp 2 (one KV
-head and its 2 query heads a rank: the grouped case). One spawn per
+head and its 2 query heads a rank: the grouped case) and at tp 4 (more
+ranks than KV heads: each rank one query head and the whole KV head it
+reads, every KV head on two ranks). One spawn per
 module-scoped fixture runs every scenario of its mesh, each spawn with a
 timeout well inside the suite's clock, so a deadlock fails one test.
 
@@ -117,6 +119,27 @@ def _step_logits(cfg, params, mesh, kw):
     return out
 
 
+def _cold_prefill_pool(cfg, params, mesh):
+    """The pool's K/V codes and scales of the blocks one cold admission
+    wave (prefix cache off) wrote, per leaf (layers, blocks, heads, ...),
+    and the engine's KV heads a rank."""
+    eng = ServeEngine(cfg, params, mesh=mesh, device="cpu",
+                      **dict(ENG_KW, prefix_cache=False))
+    for rq in _mixed_reqs(cfg):
+        eng.submit(rq)
+    eng._admit()
+    used = sorted({int(b) for s in eng._slot_req
+                   for b in eng.alloc.tables[s] if b < eng.num_blocks})
+    idx = torch.tensor(used)
+    # numpy (bf16 as its bits): a tensor in a rank's result would be
+    # shared with the parent through a process that is about to exit
+    return {"pool": {k: (v[:, idx].view(torch.int16)
+                         if v.dtype == torch.bfloat16 else v[:, idx]
+                         ).numpy().copy()
+                     for k, v in eng.state["cache"]["pool"].items()},
+            "kv_heads": eng.mcfg.n_kv_heads}
+
+
 def _cfg(kv):
     return get_reduced_config("qwen2.5-3b").replace(n_kv_heads=kv)
 
@@ -190,6 +213,9 @@ def rank_scenarios(mesh, tree, kv, which):
         mine = (got, shed, stamps)
         res["skew"] = (got, shed)
         res["skew_agree"] = len(set(map(repr, _gathered(mine)))) == 1
+    if "prefill" in which:
+        res["prefill"] = _cold_prefill_pool(cfg, params, mesh)
+        res["prefill_ranks"] = _gathered(res["prefill"]["pool"])
     if "freed" in which:
         res["freed"] = _freed_without_gc(cfg, params, mesh)
     if "probe" in which:
@@ -275,6 +301,18 @@ def gqa2():
     return base, _spawn(tree, 2, 2, ("streams", "logits"))
 
 
+@pytest.fixture(scope="module")
+def gqa4():
+    """n_kv_heads=2 at tp=4 (more ranks than KV heads: each KV head whole
+    on two ranks, one query head a rank), and its tp=1 run."""
+    _, _, tree = _jax_tree(2)
+    cfg, params = _cfg(2), bridge.params_from_numpy(tree, "cpu")
+    base = {"streams": _run(cfg, params, None, ENG_KW, _mixed_reqs(cfg)),
+            "logits": _step_logits(cfg, params, None, ENG_KW)["logits"],
+            "prefill": _cold_prefill_pool(cfg, params, None)}
+    return base, _spawn(tree, 2, 4, ("streams", "logits", "prefill"))
+
+
 class TestStreamParity:
     @pytest.mark.parametrize("mesh", ["tp2", "tp4"])
     def test_greedy_sampled(self, base4, mesh, request):
@@ -299,6 +337,32 @@ class TestStreamParity:
         assert streams == base and got["streams_agree"]
         assert st["tp_degree"] == 2
         np.testing.assert_array_equal(got["logits"]["logits"], base_logits)
+
+    def test_tp_a_multiple_of_the_kv_heads(self, gqa4):
+        """Reduced qwen2.5-3b's 2 KV heads at tp=4: greedy and sampled
+        streams, one decode step's gathered logits and the cold
+        prefill's int8 K/V codes and scales are bitwise tp=1's; each
+        rank's pool holds the one KV head its query head reads (rank r:
+        head r // 2), half of tp=1's pool."""
+        base, got = gqa4
+        streams, st = got["streams"]
+        want, st1, _ = base["streams"]
+        assert streams == want and got["streams_agree"]
+        assert len(set(want)) > 1
+        assert st["tp_degree"] == 4 and st["decode_steps"] ==             st1["decode_steps"]
+        assert st["per_device_pool_bytes"] * 2 == st1["per_device_pool_bytes"]
+        np.testing.assert_array_equal(got["logits"]["logits"],
+                                      base["logits"])
+        pool1 = base["prefill"]["pool"]
+        assert got["prefill"]["kv_heads"] == 1
+        assert len(got["prefill_ranks"]) == 4
+        for r, pool in enumerate(got["prefill_ranks"]):
+            assert pool.keys() == pool1.keys()
+            h = r // 2
+            for k, v in pool.items():
+                assert v.shape[2] == 1, k
+                np.testing.assert_array_equal(v, pool1[k][:, :, h:h + 1],
+                                              err_msg=f"rank {r} {k}")
 
     def test_prefix_hits_cow_and_tail_waves(self, base4, tp2):
         """A shared prefix at tp=2: prefix hits, the split block's COW on
@@ -399,6 +463,57 @@ def test_cli_tp_refusals():
                     "--arrival-rate", "5"])
     with pytest.raises(ValueError, match="gloo"):
         serve.main(["--tp", "2", "--device", "cpu"])
+
+
+def test_shard_params_keeps_whole_kv_heads():
+    """tp=4 over 2 KV heads: rank r keeps query head r and the whole KV
+    head r // 2 of every wk / wv leaf (the packed planes' rows of it
+    too); ``param_spec`` stays the reference's (a quarter of the KV
+    columns), and ``local_bytes`` with the config counts what
+    ``shard_params`` keeps."""
+    from repro_torch.core.precision import parse_policy
+    from repro_torch.core.qat import attach_w4a8_exports
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.runtime.sharding import (kv_head_local, local_bytes,
+                                              param_spec, shard_params)
+    cfg = _cfg(2)
+    _, _, tree = _jax_tree(2)
+    params = attach_w4a8_exports(bridge.params_from_numpy(tree, "cpu"),
+                                 parse_policy(POLICY))
+    assert kv_head_local(cfg, 4) and not kv_head_local(cfg, 2)
+    hd = cfg.resolved_head_dim
+    full = dict(bridge.flatten(params))
+    for r in range(4):
+        mesh = Mesh(shape={"data": 1, "model": 4}, rank=r,
+                    device=torch.device("cpu"))
+        local = dict(bridge.flatten(shard_params(params, cfg, mesh)))
+        h = r // 2
+        for path, t in full.items():
+            parts = path.split("/")
+            if "wk" in parts or "wv" in parts:
+                if parts[-1] == "s_in":
+                    assert torch.equal(local[path], t), path
+                    continue
+                dim = t.dim() - 2 if parts[-1] == "wq" and \
+                    "w4a8" in parts else t.dim() - 1
+                assert torch.equal(local[path], t.narrow(
+                    dim, h * hd, hd)), path
+                spec = param_spec(cfg, mesh, path, tuple(t.shape))
+                assert spec[dim] == "model", (path, spec)
+            if path.endswith("attn/wq/w"):
+                assert torch.equal(local[path], t[:, r * hd:(r + 1) * hd])
+        specs = {p: param_spec(cfg, mesh, p, tuple(t.shape))
+                 for p, t in full.items()}
+        assert local_bytes(params, specs, 4, cfg=cfg) == sum(
+            t.numel() * t.element_size() for t in local.values())
+
+
+def test_engine_refuses_data_replicas():
+    from repro_torch.launch.mesh import Mesh
+    mesh = Mesh(shape={"data": 2, "model": 2}, rank=0,
+                device=torch.device("cpu"))
+    with pytest.raises(NotImplementedError, match="one data replica"):
+        ServeEngine(_cfg(4), None, mesh=mesh, weights_layout="w4a8")
 
 
 def test_spawn_reports_a_failed_rank():

@@ -479,10 +479,27 @@ def test_train_step_matches_op_by_op_reference(setup, policy):
     assert moved == 7 + 1             # stacked over layers, and the head
 
 
-def test_train_step_refuses_int8_compression(setup):
-    cfg, tcfg, *_ = setup
-    with pytest.raises(NotImplementedError, match="data-parallel"):
-        tsteps.make_train_step(tcfg, TrainConfig(grad_compression="int8"))
+def test_int8_compression_at_data_1_is_the_uncompressed_step(setup):
+    """Without a data axis ``grad_compression`` is ignored, as the
+    reference's step ignores it: two steps at "int8" give bitwise the
+    parameters, moments and losses of two steps at "none"."""
+    cfg, tcfg, teacher, students, _, batches = setup
+    student = students["A8d-C8-W4"]
+    runs = []
+    for comp in ("none", "int8"):
+        tt = TrainConfig(precision="A8d-C8-W4", total_steps=3, ref_steps=3,
+                         batch_size=B, seq_len=S, grad_compression=comp)
+        step = tsteps.make_train_step(tcfg, tt)
+        p, tteacher = _trainable(_port(student)), _port(teacher)
+        opt = adamw_init(p)
+        losses = []
+        for i, b in enumerate(batches[:2]):
+            p, opt, m = step(p, tteacher, opt, _tbatch(b), i)
+            losses.append(float(m["loss"]))
+        runs.append((losses, tree_leaves((p, opt.m, opt.v))))
+    assert runs[0][0] == runs[1][0]
+    for a, b in zip(runs[0][1], runs[1][1]):
+        assert torch.equal(a, b)
 
 
 def test_cli_runs_two_steps_on_cpu(monkeypatch):
