@@ -128,33 +128,52 @@ toolkit (``nvcc``). Phases, each fatal on failure (non-zero exit):
 3c. spec serve: the paged phase's requests with speculative decoding at
    the CLI's defaults (k = 4, an 18-layer draft, exact mode); the verify
    kernel and the draft's dense decode kernel launch, the paged decode
-   kernel does not, and every stream equals 3b's;
-3t. tensor-parallel serving at tp=2: two processes on the one card
-   (``launch.mesh.spawn_tp``, backend gloo, named: NCCL refuses two ranks
-   on one device), each building phase 3b's weights from the same seed
-   (a checksum of a few leaves against this process's). First, at the
-   shard shapes: the w4a8 kernel's int32 accumulator-out mode (by its
-   route and each forced) and its epilogue kernel bitwise equal to their
-   plain versions at wo K 1024 and wd K 5504, M in {1, 4, 8, 512}, and
-   the two together bitwise the fused kernel; the paged decode, gather,
-   verify and COW checks of phase 2 at Hkv 1, G 8. Then on the ranks:
-   3b's requests (streams equal 3b's, prefix hits, COW, tail-waves),
-   3c's spec config (streams equal, spec_accepted equal 3c's), one
-   decode step's gathered logits and the cold prefill's int8 K/V codes
-   and scales bitwise tp=1's (each rank its head half); every rank
-   launches the fused and the accumulator-out w4a8 modes, the epilogue,
-   the paged decode, gather, COW, verify and the draft's dense decode
-   kernels; per-rank pool and weight bytes at most 0.6 of tp=1's; a
-   decode step's collectives by kind (2 amax MAX and 2 int32 SUM a
-   layer, 1 SUM for the embedding, 1 all-gather of the logits; no pool
-   leaf in any); the decode step's ms beside 3b's (gloo through host
-   memory: not a speed);
+   kernel does not, and every stream (12 new tokens) equals the start of
+   3b's;
+3t, 3u. tensor-parallel serving, ranks in processes of their own on the
+   one card (``launch.mesh.spawn_tp``, backend gloo, named: NCCL refuses
+   two ranks on one device), one spawn for the passes of one tp, whose
+   ranks take them in turn, each building the pass's weights from the
+   seed (a checksum of a few leaves against this process's) and freeing
+   them after. First, at the shard shapes: the w4a8 kernel's int32
+   accumulator-out mode (by its route and each forced) and its epilogue
+   kernel bitwise equal to their plain versions at qwen2.5-3b's wo K 1024
+   and wd K 5504 and the MoE passes' row-parallel slices, M in {1, 4, 8,
+   512}, the two together bitwise the fused kernel, and the fused kernel
+   on the column-parallel slices; the paged decode, gather, verify and
+   COW checks of phase 2 at qwen2.5-3b's rank (Hkv 1, G 8), moonshot's
+   (8 of 16 heads, G 1) and mixtral's (16 on 4 KV heads over 4096-row
+   rings, the dense decode too); fake_quant_fwd in mode 3 bitwise its
+   plain version on the local banks (moonshot's 32 of 64 experts,
+   mixtral's 4 of 8; bits 4 and 8) and timed beside its plain version,
+   the library call and the bound. Then the passes, each with its tp=1
+   reference computed here and freed first: 3t, qwen2.5-3b at tp=2 (3b's
+   requests at 8 new tokens on the pool: prefix hits, COW, tail-waves;
+   3c's spec config on 4 of them at 4 new tokens); 3u, moonshot-v1-16b-
+   a3b at 16 of 48 layers, tp=2 (expert parallelism: 32 experts a rank),
+   on the pool with a shared prefix and spec at k 4 with an 8-layer
+   draft; mixtral-8x7b at 4 of 32 layers, tp=2 (4 experts a rank), dense
+   rings of 4096, prompts of 300-1500 tokens and one that wraps its ring;
+   qwen2-7b at 2 of 28 layers, tp=8 (28 heads: the whole attention and
+   pool on every rank). Streams, counters (prefix hits, COW, tail-waves,
+   spec waves and accepts), one decode step's gathered logits (mixtral's
+   after its rings wrapped) and, on the pool, the cold wave's K/V codes
+   at the rank's heads bitwise tp=1's; every serve's kernels launched on
+   every rank; the bank fake-quants a rank a decode step tp=1's count,
+   each over E / tp experts, and their device ms; a decode step's
+   collectives by kind (per layer an amax MAX and an int32 SUM a
+   row-parallel linear, an owned-slot sum an MoE; the embedding's SUM,
+   the logits' all-gather; no pool leaf in any); pool, packed-plane and
+   expert-bank bytes a rank (the pool whole where the attention is, else
+   at most 1.1 / tp of tp=1's, the packed planes too; the banks exactly
+   1 / tp); peak memory a rank; one decode step's ms beside tp=1's (gloo
+   through host memory: not a speed);
 3d. self-draft: the target as its own draft; the verify-wave's logits
    against sequential decode steps' at one wave, and the accept rate;
    then a tail-wave row alone against the same row beside a deeper one,
    bitwise;
 3e. optimistic admission on about 60% of the worst-case pool (spec on,
-   prefix cache off, 16 new tokens a request): at least one preemption,
+   prefix cache off, 8 new tokens a request): at least one preemption,
    swap bytes out == in, and every stream equal to reserve admission's;
 3o. the streaming frontend on phase 3b's weights (paged, blocks of 64,
    prefix cache on, ``sched_policy="edf"``, ``slo_shed="reject"``,
@@ -219,9 +238,8 @@ toolkit (``nvcc``). Phases, each fatal on failure (non-zero exit):
    steps at B 8, T 128): per step 2 ``slstm_scan`` calls (the teacher's
    sLSTM layers) and one ``fake_quant_fwd`` / ``_bwd`` per student weight
    site (69: ``r_h`` once per forward, not once per step), no
-   ``flash_attn_fwd``; every ``s_w`` moved; the teacher's logits and one
-   loss and backward through the kernels against the plain versions;
-   step ms, tokens/s, peak memory, idle share;
+   ``flash_attn_fwd``; every ``s_w`` moved; step ms, tokens/s, peak
+   memory, idle share;
 3g. recurrentgemma-2b at full width and depth (26 layers: 18 RG-LRU,
    8 local attention with a 2048-token window; random weights),
    A8d-C8-W4, w4a8 weights, dense layout, 4 slots, cache_len 4096 (rings
@@ -235,7 +253,7 @@ toolkit (``nvcc``). Phases, each fatal on failure (non-zero exit):
    ``fake_quant_fwd`` and 201 ``_bwd`` (8 a RG-LRU layer, 7 a local
    layer, the tied head) and 8 ``flash_attn_fwd`` (the teacher's local
    layers); every ``s_w`` moved, no NaN; step ms split, tokens/s, peak
-   memory, idle share; one loss and backward kernels vs plain;
+   memory, idle share;
 3i. mixtral-8x7b at full width and 16 of its 32 layers (46.7 B
    parameters are ~93 GB in bf16 and the expert banks are never packed;
    random weights, bank scales LSQ-initialised), A8d-C8-W4, w4a8 weights
@@ -258,19 +276,18 @@ toolkit (``nvcc``). Phases, each fatal on failure (non-zero exit):
    a layer, the head) and 2 ``flash_attn_fwd``; every ``s_w`` moved (the
    banks' (8, 1, d_out) included), ``moe_aux`` finite and > 0, no NaN;
    step ms split, tokens/s, peak memory, idle share, the model-FLOPs
-   share over the active experts; one loss (with the aux) and backward
-   kernels vs plain;
+   share over the active experts;
 3j. moonshot-v1-16b-a3b at full width and depth (48 layers, 64 experts
    top 6; random weights, scales LSQ-initialised), A8d-C8-W4, w4a8
    weights (attention, router, head packed; banks bf16), on the paged
    pool (4 slots, blocks of 64, prefix cache on): 8 requests sharing a
-   160-token prefix (hits, COW, tail-waves): ``kvq_paged_decode_attn``
+   160-token prefix, 16 new tokens each (hits, COW, tail-waves): ``kvq_paged_decode_attn``
    48 launches a decode step, ``fake_quant_fwd`` 3 a ``moe_fwd`` call,
    a copy launch a COW, gather and w4a8 launched, no other kernel; one
    decode step's launches (48, 144, 0 dense) and logits kernels vs plain
    on rows routed alike; a tail-wave row bitwise alone and beside a
    deeper row through attention and the MoE; spec decoding at the CLI's
-   defaults (k 4, a 24-layer draft) on 4 of the requests, 16 new
+   defaults (k 4, a 24-layer draft) on 4 of the requests, 8 new
    tokens each: verify
    launched, paged decode not, the accept rate and the verify-wave pairs
    dropped at capacity; expert shares, decode tok/s, TTFT, peak memory;
@@ -278,7 +295,7 @@ toolkit (``nvcc``). Phases, each fatal on failure (non-zero exit):
    ``fake_quant_fwd`` and 33 ``_bwd`` a step (q, k, v, o, router, three
    64-expert banks a layer, the head) and 4 ``flash_attn_fwd``; every
    ``s_w`` moved, ``moe_aux`` > 0; step splits, tokens/s, peak, idle,
-   model-FLOPs share; kernels vs plain;
+   model-FLOPs share;
 3k. qwen3-32b at full width and 48 of 64 layers (the 64 layers and their
    packed planes pass 80 GB at the export), w4a8: one decode step's
    logits kernels vs plain; 8 requests of three lengths, 16 new tokens
@@ -290,8 +307,7 @@ toolkit (``nvcc``). Phases, each fatal on failure (non-zero exit):
    ``kvq_decode_attn`` a step; the untied head at N 152064, G 7);
 6e. QAT of qwen3-14b at full width and 4 layers: 29 ``fake_quant_fwd``
    and 29 ``_bwd`` a step, 4 ``flash_attn_fwd`` at G 5; every ``s_w``
-   moved, the qk-norm weights' gradients finite and non-zero; kernels vs
-   plain;
+   moved, the qk-norm weights' gradients finite and non-zero;
 3m. whisper-large-v3 at full width and depth (32 encoder and 32
    decoder layers, random weights), A8d-C8-W4, w4a8, through ``prefill``
    and ``decode_step`` (no engine path supplies frames): two waves of 4
@@ -308,7 +324,7 @@ toolkit (``nvcc``). Phases, each fatal on failure (non-zero exit):
    ``fake_quant_fwd`` (the checkpointed layers' again in the backward),
    513 ``_bwd`` and 96 ``flash_attn_fwd`` (the teacher's encoder, self
    and cross) a step; every ``s_w`` moved; step split, peak, idle, the
-   model-FLOPs share with the encoder's; kernels vs plain;
+   model-FLOPs share with the encoder's;
 3n. qwen2-vl-2b at full width and depth: ``prefill`` and ``decode_step``
    on 4 requests of 256 patch embeddings + 64 tokens at Qwen2-VL's
    positions (28 ``kvq_decode_attn`` a step), logits vs plain; the
@@ -317,7 +333,15 @@ toolkit (``nvcc``). Phases, each fatal on failure (non-zero exit):
    (streams equal);
 6g. qwen2-vl QAT through ``make_train_step`` (B 8, 128 text tokens after
    256 patches, the loss on the text): 197 / 197 / 28 launches a step,
-   every ``s_w`` moved, kernels vs plain;
+   every ``s_w`` moved. (Phases 6-6g compare no loss and backward with
+   the plain versions' for the script's time; phases 5 and 5d do. Phase
+   2 holds fake_quant_fwd and the dx of fake_quant_bwd bitwise to their
+   plain versions on every weight shape of qwen2.5-3b, whisper,
+   qwen2-vl, xlstm-125m, recurrentgemma-2b, mixtral, moonshot and
+   qwen3-14b, and in mode 3 on mixtral's and moonshot's expert banks;
+   flash at qwen2.5-3b's, recurrentgemma's, mixtral's, moonshot's,
+   qwen3-14b's, whisper's and qwen2-vl's shapes; the scan at
+   xlstm-125m's.);
 4. times: each kernel per decode step, verify-wave, tail-wave, COW,
    student step or teacher forward (CUDA events, L2 flushed by rotating
    input copies past 100 MB), its plain version, one PyTorch call
@@ -416,6 +440,7 @@ def import_port():
     from repro_torch.launch import steps, train
     from repro_torch.launch.mesh import spawn, spawn_tp
     from repro_torch.optim import adamw_init
+    from repro_torch.runtime.sharding import attn_replicated
     from repro_torch.benchmarks import common as bench
     from repro_torch.core.analysis import rotation
     from repro_torch.core.precision import parse_policy
@@ -453,7 +478,7 @@ def import_port():
                 AsyncFrontend=AsyncFrontend, ServeHTTP=ServeHTTP,
                 percentile=percentile, spawn_tp=spawn_tp, spawn=spawn,
                 ShardedLoader=ShardedLoader, tree_leaves=tree_leaves,
-                named_leaves=_named_leaves)
+                named_leaves=_named_leaves, attn_replicated=attn_replicated)
 
 
 # --------------------------------------------------------------------------
@@ -1782,6 +1807,57 @@ def check_fake_quant(torch, P, cfg, dev, report):
     return 0.0
 
 
+# the archs whose QAT phases (6-6g) compare no loss and backward with the
+# plain versions: (arch, layers built for the shapes, one of each kind)
+FQ_CUT_ARCHS = (("xlstm-125m", 12), ("recurrentgemma-2b", 3),
+                ("mixtral-8x7b", 1), ("moonshot-v1-16b-a3b", 1),
+                ("qwen3-14b", 1))
+
+
+def weight_fq_cases(torch, P, arch, layers, dev):
+    """(site, R, C, mode, offset) of every distinct weight shape the QAT
+    student of ``arch`` fake-quantizes outside the expert banks (whose
+    mode-3 checks are ``check_mx_kernels``' and ``check_new_kernels'``):
+    each linear's (d_in, d_out) weight per output channel (mode 1) and a
+    tied head's (vocab, d) table per vocab row (mode 2), read off the
+    tree ``init_params`` builds at full width and ``layers`` layers."""
+    cfg = P["get_config"](arch).replace(n_layers=layers)
+    leaves = dict(_named_leaves(P["models"].init_params(cfg, seed=0,
+                                                        device=dev)))
+    seen, out = set(), []
+    for path, t in leaves.items():
+        if (path.endswith("/w") and t.dim() == 2
+                and path[:-1] + "s_w" in leaves
+                and tuple(t.shape) not in seen):
+            seen.add(tuple(t.shape))
+            out.append((f"{arch} {path}", t.shape[0], t.shape[1], 1, 0))
+    if cfg.tie_embeddings:
+        out.append((f"{arch} tied head", cfg.vocab_size, cfg.d_model, 2, 0))
+    del leaves
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_cut_fake_quant(torch, P, dev, report):
+    """``fq_case_checks`` (fwd and dx bitwise, ds within FQ_DS_TOL) on the
+    weight shapes of the archs whose QAT phases compare no loss and
+    backward with the plain versions (``FQ_CUT_ARCHS``)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(24)
+    cases = [c for arch, layers in FQ_CUT_ARCHS
+             for c in weight_fq_cases(torch, P, arch, layers, dev)]
+    n, worst_ds = fq_case_checks(torch, P, gen, cases, dev)
+    report["fake_quant_cut_archs"] = {
+        "cases": n, "ds_rel_mass_err": worst_ds,
+        "shapes": [c[:4] for c in cases]}
+    print(f"phase 2: fake_quant_fwd and dx of fake_quant_bwd bitwise equal "
+          f"to their plain versions on {n} cases, every weight shape "
+          f"outside the expert banks of "
+          f"{[a for a, _ in FQ_CUT_ARCHS]} (bits 4 and 8; ds within "
+          f"{worst_ds:.3g} of its sums' mass)", flush=True)
+    return worst_ds
+
+
 def check_fq_workspace(torch, P, cfg, dev):
     """fake_quant_bwd's launcher refuses (cudaErrorInvalidValue, 1) a
     workspace one element shorter than ``fake_quant_bwd_workspace`` asks
@@ -2227,6 +2303,7 @@ def grads_vs_plain(torch, P, cfg, tcfg, teacher, student, dev, report,
     to ``GRAD_REL_TOL_STEP``; with the teacher's logits shared, the
     forward is bitwise and the backward differs only in the order of the
     LSQ step-size sums: ``GRAD_REL_TOL``."""
+    t_start = time.perf_counter()
     qat, models = P["qat"], P["models"]
     text = P["steps"]._text_logits
     if batch is None:
@@ -2279,7 +2356,8 @@ def grads_vs_plain(torch, P, cfg, tcfg, teacher, student, dev, report,
            "student_only_loss_equal": bool(float(ls_k) == float(ls_p)),
            "student_only_grad_max_rel_l2": fq_gap[0],
            "student_only_grad_worst_leaf": fq_gap[1],
-           "student_only_grad_leaves_bitwise": fq_gap[3]}
+           "student_only_grad_leaves_bitwise": fq_gap[3],
+           "seconds": time.perf_counter() - t_start}
     report[key] = out
     check(loss_rel <= 1e-3, f"KD loss through the kernels {float(lk)} vs "
                             f"plain {float(lp)}: relative {loss_rel}")
@@ -2700,27 +2778,35 @@ def check_streams(cfg, reqs, what, n=MAX_NEW):
           f"{what}: a generated token is outside the vocabulary")
 
 
+SPEC_NEW = 12          # new tokens a request in phase 3c (the script's
+                       # time limit)
+
+
 def serve_spec(torch, P, cfg, dev, params, report, plain_streams):
-    """The paged phase's 8 shared-prefix requests with speculative decoding
-    at the CLI's defaults (k = 4, a draft of half the layers, exact mode):
-    the verify kernel and the draft's dense decode kernel launch, the
-    paged decode kernel does not, and every stream equals the plain
-    paged phase's stream of the same request."""
+    """The paged phase's 8 shared-prefix requests, SPEC_NEW new tokens
+    each, with speculative decoding at the CLI's defaults (k = 4, a draft
+    of half the layers, exact mode): the verify kernel and the draft's
+    dense decode kernel launch, the paged decode kernel does not, and
+    every stream equals the start of the plain paged phase's stream of
+    the same request."""
     tracer = P["Tracer"](capacity=1 << 16)
     eng = paged_engine(P, cfg, params, dev, spec=P["SpecConfig"](k=SPEC_K),
                        trace=tracer)
     check(eng.spec.resolved_layers(cfg) == cfg.n_layers // 2,
           "spec: the default draft is not half the target's layers")
     reqs = shared_prefix_requests(P, cfg, 2 * SLOTS, 200, seed=14)
+    for r in reqs:
+        r.max_new_tokens = SPEC_NEW
     stats, launches, wall = drive(torch, P, eng, reqs)
-    check_streams(cfg, reqs, "spec")
+    check_streams(cfg, reqs, "spec", n=SPEC_NEW)
     for name in ("kvq_spec_verify_attn", "kvq_decode_attn", "w4a8_matmul"):
         check(launches[name] > 0, f"spec: {name} never launched: {launches}")
     check(launches["kvq_paged_decode_attn"] == 0,
           f"spec: the paged decode kernel ran: {launches}")
     check(stats["free_blocks"] == eng.num_blocks,
           "spec: blocks leaked after the drain")
-    differ = [r.uid for r in reqs if r.generated != plain_streams[r.uid]]
+    differ = [r.uid for r in reqs
+              if r.generated != plain_streams[r.uid][:SPEC_NEW]]
     served = spec_summary(stats, reqs, wall, launches, tracer)
     served["streams_differing_from_plain"] = differ
     report["serve_spec"] = served
@@ -2887,9 +2973,12 @@ def check_tail_rows(torch, P, cfg, dev, params, report, ffn=False,
           f"layer's FFN half)", flush=True)
 
 
-OPTIMISTIC_NEW = 16    # new tokens a request in phase 3e (its preemptions
-                       # come from prompts outgrowing a 60% pool; half of
-                       # MAX_NEW keeps them and halves the phase's time)
+OPTIMISTIC_NEW = 8     # new tokens a request in phase 3e (its preemptions
+                       # come from prompts outgrowing a 60% pool: a
+                       # verify-wave writes k + 1 = 5 positions ahead, so
+                       # the 184- and 190-token prompts need a 4th block
+                       # of 64 within their first 8 tokens; the script's
+                       # time limit)
 
 
 def serve_optimistic(torch, P, cfg, dev, params, report):
@@ -4077,8 +4166,7 @@ def train_xlstm(torch, P, xcfg, dev, report):
     T 128: 2 teacher steps, 2 steps. Per step slstm_scan launches once
     per sLSTM layer (the teacher forward), fake_quant_fwd / _bwd once per
     weight site (no T-fold multiplication from the sLSTM loop),
-    flash_attn_fwd never; every s_w moves; then the teacher's logits and
-    one loss and backward, kernels against the plain versions."""
+    flash_attn_fwd never; every s_w moves."""
     tcfg = P["TrainConfig"](precision="A8d-C8-W4",
                             total_steps=XLSTM_TRAIN_STEPS,
                             ref_steps=XLSTM_TRAIN_STEPS, batch_size=TRAIN_B,
@@ -4148,8 +4236,6 @@ def train_xlstm(torch, P, xcfg, dev, report):
                "weight_sites": n_w, "launches": launches}
     report["train_xlstm"] = trained
     print("phase 6: " + json.dumps(trained), flush=True)
-    grads_vs_plain(torch, P, xcfg, tcfg, teacher, student, dev, report,
-                   key="train_xlstm_vs_plain", phase="phase 6")
     return launches
 
 
@@ -4830,8 +4916,7 @@ def train_rg(torch, P, rcfg, dev, report):
     A8d-C8-W4, 2 teacher steps, MSE weight calibration, 2 steps at B 8,
     T 128. Per step one fake_quant_fwd and one _bwd per student weight
     site (201) and one flash_attn_fwd per local layer (8, the teacher's);
-    losses finite, every s_w moved, no NaN; then one loss and backward
-    through the kernels against the plain versions."""
+    losses finite, every s_w moved, no NaN."""
     tcfg = P["TrainConfig"](precision="A8d-C8-W4", total_steps=RG_TRAIN_STEPS,
                             ref_steps=RG_TRAIN_STEPS, batch_size=TRAIN_B,
                             seq_len=TRAIN_T)
@@ -4902,8 +4987,6 @@ def train_rg(torch, P, rcfg, dev, report):
                "weight_sites": n_w, "launches": launches}
     report["train_rg"] = trained
     print("phase 6b: " + json.dumps(trained), flush=True)
-    grads_vs_plain(torch, P, rcfg, tcfg, teacher, student, dev, report,
-                   key="train_rg_vs_plain", phase="phase 6b")
     del teacher, student
     torch.cuda.empty_cache()
     return launches
@@ -5627,8 +5710,7 @@ def train_cut(torch, P, dev, report, arch, n_layers, key, phase):
     non-zero gradients (AdamW's first moments; a bf16 weight of 1.0 does
     not move at the QAT learning rate); step ms split, tokens/s, peak
     memory, idle share, model-FLOPs share (an MoE's over its active
-    experts); then one loss and backward through the kernels against
-    the plain versions."""
+    experts)."""
     mcfg = P["get_config"](arch).replace(n_layers=n_layers)
     tcfg = P["TrainConfig"](precision="A8d-C8-W4", total_steps=MX_TRAIN_STEPS,
                             ref_steps=MX_TRAIN_STEPS, batch_size=TRAIN_B,
@@ -5732,8 +5814,6 @@ def train_cut(torch, P, dev, report, arch, n_layers, key, phase):
                "launches": launches}
     report[key] = trained
     print(f"{phase}: " + json.dumps(trained), flush=True)
-    grads_vs_plain(torch, P, mcfg, tcfg, teacher, student, dev, report,
-                   key=f"{key}_vs_plain", phase=phase)
     del teacher, student
     torch.cuda.empty_cache()
     return launches
@@ -6189,16 +6269,17 @@ def ms_step_logits(torch, P, mcfg, params, dev):
                                       .float().mean())}
 
 
-CUT_NEW = 16           # new tokens a request in phases 3k and 3l, and in
-                       # moonshot's spec pass (half of MAX_NEW: the
-                       # script's time limit)
+MS_SPEC_NEW = 8        # new tokens a request of phase 3j's spec serve
+CUT_NEW = 16           # new tokens a request in phases 3j, 3k and 3l (half
+                       # of MAX_NEW: the script's time limit)
 
 
 def serve_ms(torch, P, dev, report):
     """Phase 3j: moonshot-v1-16b-a3b at full width and depth (48 layers,
     64 experts top 6) on the paged pool: A8d-C8-W4, w4a8 weights
     (``ms_served_tree``), 4 slots, blocks of 64, prefix cache on. (a) 8
-    requests sharing a 160-token prefix: prefix hits, COW and tail-waves,
+    requests sharing a 160-token prefix, CUT_NEW new tokens each: prefix
+    hits, COW and tail-waves,
     every request finished, tokens in the vocabulary; paged decode 48
     launches a decode step, fake-quant 3 a ``moe_fwd`` call (48 a
     forward), one multi-leaf copy a COW, the gather and w4a8 launched,
@@ -6206,7 +6287,8 @@ def serve_ms(torch, P, dev, report):
     launches and logits, kernels vs plain (``ms_step_logits``); (d) a
     tail-wave row bitwise alone and beside a deeper row through a layer's
     attention and MoE; (e) speculative decoding at the CLI's defaults
-    (k 4, a 24-layer draft) on 4 of (a)'s requests: every request
+    (k 4, a 24-layer draft) on 4 of (a)'s requests, MS_SPEC_NEW new
+    tokens each: every request
     finished, the verify kernel
     launched and paged decode not, the accept rate and the share of
     verify-wave (token, slot) pairs dropped at capacity (one slot an
@@ -6236,6 +6318,7 @@ def serve_ms(torch, P, dev, report):
     eng._apply_cow = counted_cow
     reqs = shared_prefix_requests(P, mcfg, 2 * SLOTS, 200, seed=14)
     for r in reqs:
+        r.max_new_tokens = CUT_NEW
         eng.submit(r)
     with RouteCounts(torch, blocks, mcfg.n_experts, dev) as rc:
         for fn in counted.values():
@@ -6246,7 +6329,7 @@ def serve_ms(torch, P, dev, report):
         wall = time.perf_counter() - t0
         launches = {n: fn.launches for n, fn in counted.items()}
     del eng._apply_cow
-    check_streams(mcfg, reqs, "moonshot paged serve")
+    check_streams(mcfg, reqs, "moonshot paged serve", n=CUT_NEW)
     check(stats["prefix_hit_blocks"] > 0 and stats["cow_copies"] > 0
           and stats["tail_waves"] > 0,
           f"moonshot: no prefix hit, COW or tail-wave: {stats}")
@@ -6307,11 +6390,11 @@ def serve_ms(torch, P, dev, report):
     # layers whose banks are fake-quantized on every forward
     sreqs = shared_prefix_requests(P, mcfg, 2 * SLOTS, 200, seed=14)[:SLOTS]
     for r in sreqs:
-        r.max_new_tokens = CUT_NEW
+        r.max_new_tokens = MS_SPEC_NEW
     with RouteCounts(torch, blocks, mcfg.n_experts, dev,
                      window=SPEC_C) as vc:
         stats, slaunches, swall = drive(torch, P, eng, sreqs)
-    check_streams(mcfg, sreqs, "moonshot spec", n=CUT_NEW)
+    check_streams(mcfg, sreqs, "moonshot spec", n=MS_SPEC_NEW)
     check(slaunches["kvq_spec_verify_attn"] > 0
           and slaunches["kvq_paged_decode_attn"] == 0
           and slaunches["kvq_decode_attn"] > 0,
@@ -6323,7 +6406,7 @@ def serve_ms(torch, P, dev, report):
     spec["verify_routing"] = vc.shares()
     spec["streams_differing_from_plain"] = [
         r.uid for r, p in zip(sreqs, reqs)
-        if r.generated != p.generated[:CUT_NEW]]
+        if r.generated != p.generated[:MS_SPEC_NEW]]
     report["serve_ms_spec"] = spec
     print("serve_ms_spec " + json.dumps(spec), flush=True)
     del eng, params
@@ -6964,8 +7047,7 @@ def train_direct(torch, P, dev, report, arch, B, T, key, phase):
     and one flash_attn_fwd per teacher attention (whisper: encoder, self
     and cross, 96; qwen2-vl 28);
     every s_w moved, losses finite, no NaN; step split, tokens/s, peak,
-    idle share, model-FLOPs share; one loss and backward kernels vs
-    plain."""
+    idle share, model-FLOPs share."""
     qat, steps_mod = P["qat"], P["steps"]
     cfg = P["get_config"](arch)
     encdec = cfg.is_encdec
@@ -7049,8 +7131,6 @@ def train_direct(torch, P, dev, report, arch, B, T, key, phase):
            "weight_sites": n_w}
     report[key] = out
     print(f"{phase}: " + json.dumps(out), flush=True)
-    grads_vs_plain(torch, P, cfg, tcfg, teacher, student, dev, report,
-                   key=f"{key}_vs_plain", phase=phase, batch=batch)
     del teacher, student, batch
     torch.cuda.empty_cache()
     return dict(zip(names, [n_fwd * MX_TRAIN_STEPS, n_w * MX_TRAIN_STEPS,
@@ -7125,21 +7205,51 @@ def time_wv(torch, P, dev, report):
 
 
 # --------------------------------------------------------------------------
-# phase 3t: tensor-parallel serving, qwen2.5-3b at tp=2 on one card
+# phases 3t and 3u: tensor-parallel serving, ranks on the one card
 # --------------------------------------------------------------------------
 
 TP = 2
 TP_W4A8_M = (1, SLOTS, 8, PREFILL_M)
-TP_TIMEOUT_S = 420
-# phase 3t's spec pass: phase 3c's config (k 4, the 18-layer draft) on the
-# first SLOTS of its requests, 8 new tokens each. Two ranks on one card
-# over gloo pay ~1-1.7 ms a collective (tools/tp_collective_times.py),
-# ~440 a spec wave: 3c's whole workload took 99-113 s at tp=2
-TP_SPEC_NEW = 8
+TP_TIMEOUT_S = 600
+# the passes, (key, phase, arch, layers kept (0: all), tp, scales
+# LSQ-calibrated). The passes of one tp share one spawn: its ranks take
+# them in turn, each building the pass's whole cut tree from the seed
+# before its engine cuts a slice of it (both live while the engine is
+# built), the tree freed after the pass: moonshot at 16 layers ~18.6 GB +
+# 9.4 a rank after the export drops the packed linears' bf16 weights (its
+# banks stay bf16), mixtral at 4 ~11.6 + 5.8, qwen2-7b at 2 ~1.7 + 0.7
+# (3.3 while its bf16 linears live): ~60 GB of two moonshot ranks on the
+# card. qwen2.5-3b's tree is phase 3's (scales not calibrated).
+TP_PASSES = (("q3", "phase 3t", "qwen2.5-3b", 0, 2, False),
+             ("ms", "phase 3u", MS, 16, 2, True),
+             ("mx", "phase 3u", MX, 4, 2, True),
+             ("q7", "phase 3u", Q7, 2, 8, True))
+# qwen2.5-3b's serves: phase 3b's 8 requests, 8 new tokens each (a tp=2
+# decode step over gloo takes ~350 ms on the card), and phase 3c's config
+# (k 4, the 18-layer draft) on the first SLOTS of them, 4 new tokens
+# each. Two ranks on one card over gloo pay ~1-1.7 ms a collective
+# (tools/tp_collective_times.py), ~440 a spec wave
+TP_PAGED_NEW = 8
+TP_SPEC_NEW = 4
+TPM_NEW = 8                    # new tokens a request of the other passes
+TPM_MS_DRAFT = 8               # moonshot's spec: k 4, an 8-layer draft
+TPM_MX_LENS = (MX_WRAP_PROMPT, 1500, 700, 300)   # the first wraps in decode
+TPM_MX_WRAP_ROWS = 2           # prompts of MX_WRAP_PROMPT for the logits,
+TPM_MX_STEPS = 12              # after this many decode steps (wrapped)
+# the ranks' local banks at tp=2: moonshot's 32 of 64 experts, mixtral's
+# 4 of 8 (wg / wu, then wd)
+TPM_BANKS = ((32, 2048, 1408), (32, 1408, 2048), (4, 4096, 14336),
+             (4, 14336, 4096))
 # a few leaves every rank checks against the parent's (same seed, same
 # weights): (path, in the tree init_params returns)
-TP_CHECKSUM_LEAVES = ("embed/w", "layers/0/attn/wq/b", "layers/mid/ln2/w",
+TP_CHECKSUM_LEAVES = ("embed/w", "layers/mid/ln2/w",
                       "layers/last/attn/wo/w", "final_norm/w")
+TP_CHECKSUM_CHUNK = 2 ** 24
+# a serve's counters held to tp=1's
+TP_COUNTERS = ("decode_steps", "tokens_out", "prefix_hit_blocks",
+               "cow_copies", "tail_waves", "spec_waves", "spec_accepted")
+TP_BYTES = ("per_device_pool_bytes", "per_device_weight_bytes",
+            "per_device_bank_bytes")
 
 
 def tp_shard_cfg(cfg, tp=TP):
@@ -7160,10 +7270,12 @@ def sync(torch, dev):
         torch.cuda.synchronize()
 
 
-def leaf_checksums(torch, params):
-    """(int sum of the bits, f64 sum of squares) of a few leaves."""
+def leaf_checksums(torch, params, paths=TP_CHECKSUM_LEAVES):
+    """(int sum of the bits, f64 sum of squares) of a few leaves, in
+    chunks of TP_CHECKSUM_CHUNK elements (eight ranks of qwen2-7b on one
+    card cannot each hold an f64 copy of a 1 GB embedding)."""
     out = {}
-    for path in TP_CHECKSUM_LEAVES:
+    for path in paths:
         t = params
         for k in path.split("/"):
             if isinstance(t, list):
@@ -7171,25 +7283,33 @@ def leaf_checksums(torch, params):
                 t = t[int(k)]
             else:
                 t = t[k]
-        bits = t.view(torch.int16) if t.element_size() == 2 else t.view(
-            torch.int32)
-        out[path] = (int(bits.long().sum()),
-                     float(t.double().square().sum()))
+        flat = t.reshape(-1)
+        bits = flat.view(torch.int16) if t.element_size() == 2 else \
+            flat.view(torch.int32)
+        isum, sq = 0, 0.0
+        for lo in range(0, flat.numel(), TP_CHECKSUM_CHUNK):
+            isum += int(bits[lo:lo + TP_CHECKSUM_CHUNK].long().sum())
+            sq += float(flat[lo:lo + TP_CHECKSUM_CHUNK].double().square()
+                        .sum())
+        out[path] = (isum, sq)
     return out
 
 
-def check_w4a8_acc(torch, P, cfg, dev, report):
+def check_w4a8_acc(torch, P, cfg, dev, report, shapes=None, seed=31,
+                   phase="phase 3t"):
     """The w4a8 kernel's accumulator-out mode and its epilogue kernel at
-    the row-parallel shard shapes (wo K 1024, wd K 5504 at tp=2) and M in
-    TP_W4A8_M: the int32 sums bitwise the plain version's by the
-    launcher's route and each route forced, the epilogue bitwise the
-    plain epilogue's with and without bias, and the two kernels together
-    bitwise the fused matmul."""
+    the row-parallel shard shapes (``shapes``, (name, K, N); by default
+    ``cfg``'s wo K 1024, wd K 5504 at tp=2) and M in TP_W4A8_M: the int32
+    sums bitwise the plain version's by the launcher's route and each
+    route forced, the epilogue bitwise the plain epilogue's with and
+    without bias, and the two kernels together bitwise the fused
+    matmul."""
     gen = torch.Generator(device=dev)
-    gen.manual_seed(31)
+    gen.manual_seed(seed)
     ops = P["w4a8_ops"]
     n = 0
-    for name, K, N in tp_row_shapes(cfg):
+    shapes = shapes or tp_row_shapes(cfg)
+    for name, K, N in shapes:
         w_p, s_w, b = w4a8_weights(torch, gen, K, N, True, dev)
         for M in TP_W4A8_M:
             x_q, s_x = w4a8_activations(torch, gen, M, K, dev)
@@ -7217,17 +7337,19 @@ def check_w4a8_acc(torch, P, cfg, dev, report):
             del x_q, s_x, want
         del w_p, s_w, b
     report["w4a8_acc_cases"] = n
-    print(f"phase 3t: w4a8_accumulate bitwise equal to its plain version "
+    print(f"{phase}: w4a8_accumulate bitwise equal to its plain version "
           f"(launcher's route and both forced) and w4a8_epilogue to its "
           f"plain epilogue, together bitwise the fused kernel, at "
-          f"{[(K, N) for _, K, N in tp_row_shapes(cfg)]} (K, N), M in "
+          f"{[(K, N) for _, K, N in shapes]} (K, N), M in "
           f"{list(TP_W4A8_M)}", flush=True)
     return 0.0
 
 
 def check_tp_kernels(torch, P, cfg, dev, report):
-    """Phase 2's checks of the paged decode, gather, verify and COW
-    kernels at one rank's heads (Hkv 1, G 8 at tp=2)."""
+    """Phase 3t's kernels at qwen2.5-3b's shard shapes: the accumulator-
+    out mode and epilogue at its row-parallel K slices, and phase 2's
+    checks of the paged decode, gather, verify and COW kernels at one
+    rank's heads (Hkv 1, G 8 at tp=2)."""
     scfg = tp_shard_cfg(cfg)
     sub = {}
     errs = {"w4a8_accumulate": check_w4a8_acc(torch, P, cfg, dev, sub),
@@ -7287,15 +7409,6 @@ def time_w4a8_acc(torch, P, cfg, dev):
     return rows
 
 
-def tp_spec_requests(P, cfg):
-    """Phase 3t's spec workload: phase 3b's first SLOTS requests (the
-    shared prefix, the shortest suffixes), ``TP_SPEC_NEW`` new tokens."""
-    reqs = shared_prefix_requests(P, cfg, 2 * SLOTS, 200, seed=14)[:SLOTS]
-    for r in reqs:
-        r.max_new_tokens = TP_SPEC_NEW
-    return reqs
-
-
 def tp_counted(P):
     ops, w = P["kvq_ops"], P["w4a8_ops"]
     return {"w4a8_matmul": w.w4a8_matmul,
@@ -7305,7 +7418,8 @@ def tp_counted(P):
             "gather_dequant_paged_kv": ops.gather_dequant_paged_kv,
             "pool_block_copy": ops.copy_pool_blocks_multi,
             "kvq_spec_verify_attn": ops.kvq_spec_verify_attn,
-            "kvq_decode_attn": ops.kvq_decode_attn}
+            "kvq_decode_attn": ops.kvq_decode_attn,
+            "fake_quant_fwd": P["fq_ops"].fake_quant_fwd}
 
 
 def logit_state_requests(P, cfg):
@@ -7357,221 +7471,636 @@ def cold_wave_state(torch, P, cfg, params, dev, mesh=None):
     return logits.float().cpu(), pool, eng, step
 
 
+def tp_cfg(P, arch, layers, reduced=False):
+    """A pass's config: ``arch`` at full width, its first ``layers``
+    (all at 0); the reduced config where the harness is rehearsed on the
+    CPU."""
+    if reduced:
+        return P["get_reduced_config"](arch)
+    cfg = P["get_config"](arch)
+    return cfg.replace(n_layers=layers) if layers else cfg
+
+
+def tp_tree(torch, P, cfg, dev, calibrate):
+    """A pass's tree from the seed, scales LSQ-initialised where
+    ``calibrate`` (as phases 3i, 3j and 3l build theirs); (checksums of a
+    few leaves, the tree with its packed exports attached and their bf16
+    weights dropped)."""
+    qat = P["qat"]
+    params = P["models"].init_params(cfg, seed=0, device=dev)
+    pol = P["parse_policy"]("A8d-C8-W4")
+    if calibrate:
+        params = qat.calibrate_weight_scales(params, pol, method="lsq")
+    paths = TP_CHECKSUM_LEAVES + (
+        (("layers/0/attn/wq/b",) if cfg.qkv_bias else ())
+        + (("layers/last/moe/wd/w",) if cfg.is_moe else ()))
+    sums = leaf_checksums(torch, params, paths)
+    return sums, qat.drop_exported_weights(qat.attach_w4a8_exports(
+        params, pol))
+
+
+def tp_serves(P, key, cfg, reduced=False):
+    """A pass's serves: (name, the engine's keywords, requests, counters
+    its tp=1 run must show above 0, kernels every rank must launch).
+    qwen2.5-3b: phase 3b's requests on the pool (prefix hits, COW,
+    tail-waves), then phase 3c's spec config; moonshot: phase 3b's kind
+    of requests on the pool with spec (k 4, an 8-layer draft); mixtral:
+    4 prompts of TPM_MX_LENS on its dense rings of 4096, the first
+    wrapping in decode, the last sampled; qwen2-7b: moonshot's requests
+    on the pool without spec."""
+    import numpy as np
+    w4a8 = ("w4a8_matmul", "w4a8_accumulate", "w4a8_epilogue")
+    fq = ("fake_quant_fwd",) if cfg.is_moe else ()
+    pool = ("kvq_paged_decode_attn", "gather_dequant_paged_kv",
+            "pool_block_copy")
+    hits = ("prefix_hit_blocks", "cow_copies", "tail_waves")
+    spec = P["SpecConfig"]
+    if key == "q3":
+        paged = shared_prefix_requests(P, cfg, 2 * SLOTS, 200, seed=14)
+        for r in paged:
+            r.max_new_tokens = TP_PAGED_NEW
+        drafted = shared_prefix_requests(P, cfg, 2 * SLOTS, 200,
+                                         seed=14)[:SLOTS]
+        for r in drafted:
+            r.max_new_tokens = TP_SPEC_NEW
+        return [("paged", {}, paged, hits, w4a8 + pool),
+                ("spec", {"spec": spec(k=SPEC_K)}, drafted,
+                 ("spec_waves",), ("kvq_spec_verify_attn",
+                                   "w4a8_accumulate", "w4a8_epilogue",
+                                   "kvq_decode_attn"))]
+    if key == "mx":
+        rng = np.random.default_rng(16)
+        lens = (60, 40, 20, 10) if reduced else TPM_MX_LENS
+        reqs = [P["Request"](uid=300 + i, prompt=rng.integers(
+            0, cfg.vocab_size, n).astype(np.int32), max_new_tokens=TPM_NEW,
+            temperature=0.8 if i == 3 else 0.0, top_k=8 if i == 3 else 0,
+            seed=i) for i, n in enumerate(lens)]
+        return [("serve", {}, reqs, (), w4a8 + fq + ("kvq_decode_attn",))]
+    reqs = shared_prefix_requests(P, cfg, 2 * SLOTS, 300, seed=15)
+    for r in reqs:
+        r.max_new_tokens = TPM_NEW
+    if key == "ms":
+        kw = {"spec": spec(k=SPEC_K, draft_layers=min(TPM_MS_DRAFT,
+                                                      cfg.n_layers // 2))}
+        return [("serve", kw, reqs, () if reduced else hits
+                 + ("spec_waves",), w4a8 + fq + (
+                     "kvq_spec_verify_attn", "kvq_decode_attn",
+                     "gather_dequant_paged_kv", "pool_block_copy"))]
+    return [("serve", {}, reqs, (), w4a8 + fq + pool)]
+
+
+def tp_engine(P, key, cfg, params, dev, mesh=None, **kw):
+    if key == "mx":     # phase 3i's dense engine: rings of 4096
+        return P["ServeEngine"](cfg, params, policy="A8d-C8-W4",
+                                slots=SLOTS, cache_len=MX_CACHE_LEN,
+                                max_new_cap=MAX_NEW, decode_block=8,
+                                weights_layout="w4a8", device=dev,
+                                mesh=mesh, **kw)
+    return paged_engine(P, cfg, params, dev, mesh=mesh, **kw)
+
+
+def tp_serve(torch, P, key, cfg, params, dev, mesh, kw, reqs):
+    """One serve of a pass. Returns (streams, counters, launches,
+    collectives by kind)."""
+    eng = tp_engine(P, key, cfg, params, dev, mesh, **kw)
+    counted = tp_counted(P)
+    comm = eng._comm
+    before = comm.counts() if comm is not None else None
+    for r in reqs:
+        eng.submit(r)
+    for fn in counted.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    stats = eng.run_until_drained()
+    sync(torch, dev)
+    wall = time.perf_counter() - t0
+    launches = {n: fn.launches for n, fn in counted.items()}
+    coll = None
+    if comm is not None:
+        after = comm.counts()
+        coll = {k: after[k] - before[k] for k in after}
+    n = max(r.max_new_tokens for r in reqs)
+    check_streams(cfg, reqs, f"tp {key} serve", n=n)
+    check(stats["free_blocks"] == eng.num_blocks if "free_blocks" in stats
+          else True, f"tp {key} serve: blocks leaked after the drain")
+    counters = {k: stats[k] for k in TP_COUNTERS + TP_BYTES + (
+        "decode_step_s", "spec_drafted") if k in stats}
+    counters["wall_s"] = wall
+    del eng
+    if torch.device(dev).type == "cuda":
+        torch.cuda.empty_cache()
+    return ({r.uid: list(r.generated) for r in reqs}, counters, launches,
+            coll)
+
+
+def tp_bank_ms(torch, P, eng, dev, reps=5):
+    """The device ms of one decode step's bank fake-quants replayed alone
+    on this rank's banks (3 a layer), between CUDA events; None off the
+    card or without banks."""
+    banks = [lay["moe"][b] for lay in eng.params["layers"]
+             if "moe" in lay for b in ("wg", "wu", "wd")]
+    if not banks or torch.device(dev).type != "cuda":
+        return None
+    quant = P["qat"].quantize_weight_p
+    for p in banks:
+        quant(eng.ctx, p)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for p in banks:
+            quant(eng.ctx, p)
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return sorted(times)[len(times) // 2]
+
+
+def tp_step(torch, P, key, cfg, params, dev, mesh=None, reduced=False):
+    """One decode step's logits at a pass's state, its collectives and
+    launches: on the pool after a cold admission wave (prefix cache off;
+    also the wave's K/V codes and scales, ``cold_wave_state``), mixtral
+    after TPM_MX_WRAP_ROWS prompts of MX_WRAP_PROMPT tokens and
+    TPM_MX_STEPS decode steps (its rings wrapped). The step is taken
+    again with every launch count at 0; the bank fake-quants are timed
+    alone (``tp_bank_ms``), one rank at a time."""
+    import numpy as np
+    models = P["models"]
+    counted = tp_counted(P)
+    pool = None
+    if key != "mx":
+        logits, pool, eng, step = cold_wave_state(torch, P, cfg, params,
+                                                  dev, mesh=mesh)
+        cache, tok = eng.state["cache"], eng.state["tokens"]
+    else:
+        eng = tp_engine(P, key, cfg, params, dev, mesh)
+        rng = np.random.default_rng(8)
+        n = 60 if reduced else MX_WRAP_PROMPT
+        toks = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (TPM_MX_WRAP_ROWS, n)).astype(
+                np.int32)).to(dev)
+        logits, cache = models.prefill(eng.mcfg, eng.params, eng.ctx,
+                                       {"tokens": toks},
+                                       cache_budget=MX_CACHE_LEN)
+        tok = torch.argmax(logits[:, -1].float(), -1).to(
+            torch.int32)[:, None]
+        for _ in range(TPM_MX_STEPS):
+            logits, cache = models.decode_step(eng.mcfg, eng.params,
+                                               eng.ctx, tok, cache)
+            tok = torch.argmax(logits[:, -1].float(), -1).to(
+                torch.int32)[:, None]
+        length = int(cache["layers"][0]["length"][0])
+        check(length > cfg.sliding_window,
+              f"tp mx: the rings did not wrap ({length})")
+        comm = eng._comm
+        before = comm.counts() if comm is not None else None
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        logits, _ = models.decode_step(eng.mcfg, eng.params, eng.ctx, tok,
+                                       models.clone_cache(cache))
+        sync(torch, dev)
+        step = {"one_step_ms": 1e3 * (time.perf_counter() - t0),
+                "wrapped_length": length + 1}
+        if comm is not None:
+            after = comm.counts()
+            step["census"] = {k: after[k] - before[k] for k in after}
+        logits = logits.float().cpu()
+    for fn in counted.values():
+        fn.launches = 0
+    models.decode_step(eng.mcfg, eng.params, eng.ctx, tok,
+                       models.clone_cache(cache))
+    sync(torch, dev)
+    step["launches"] = {n: fn.launches for n, fn in counted.items()}
+    step["local_experts"] = (eng.params["layers"][0]["moe"]["wg"]["w"]
+                             .shape[0] if cfg.is_moe else 0)
+    if mesh is not None and torch.device(dev).type == "cuda":
+        # one rank at a time, so the other's work stays off the clock
+        import torch.distributed as dist
+        for r in range(int(mesh.shape["model"])):
+            dist.barrier(group=mesh.group)
+            if r == mesh.rank:
+                step["bank_fq_ms"] = tp_bank_ms(torch, P, eng, dev)
+        dist.barrier(group=mesh.group)
+    else:
+        step["bank_fq_ms"] = tp_bank_ms(torch, P, eng, dev)
+    del eng, cache
+    if torch.device(dev).type == "cuda":
+        torch.cuda.empty_cache()
+    return logits, pool, step
+
+
+def tp_run_pass(torch, P, key, cfg, params, dev, mesh=None, reduced=False):
+    """A pass's serves and decode step on ``params`` (at tp=1 without a
+    mesh): ({serve: (streams, counters, launches, collectives)}, logits,
+    pool, step)."""
+    serves = {name: tp_serve(torch, P, key, cfg, params, dev, mesh, kw, reqs)
+              for name, kw, reqs, _, _ in tp_serves(P, key, cfg, reduced)}
+    logits, pool, step = tp_step(torch, P, key, cfg, params, dev, mesh,
+                                 reduced)
+    return serves, logits, pool, step
+
+
 def tp_rank(mesh, tp_in):
-    """One rank of phase 3t: the paged serve of phase 3b's requests, the
-    spec serve of phase 3c's config, one decode step's logits and the
-    cold prefill's pool, each rank on its slice. Returns rank 0's report
-    with every rank's launch counts and checks (gathered)."""
+    """One rank of a tensor-parallel spawn: each pass in turn, its tree
+    from the seed (the ranks building in turn, each returning what its
+    allocator cached: eight qwen2-7b ranks packing their 1 GB heads at
+    once, ~10 GB a rank at the peak, pass the card), its serves and its
+    decode step at this rank's slice, the tree freed. Returns every
+    rank's findings (gathered) and rank 0's streams."""
     import torch
     import torch.distributed as dist
     P = import_port()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = mesh.device
-    # (the reduced config where this phase is rehearsed on the CPU)
-    cfg = P["get_reduced_config" if tp_in.get("reduced") else
-            "get_config"]("qwen2.5-3b")
-    qat = P["qat"]
-    t0 = time.perf_counter()
-    params = P["models"].init_params(cfg, seed=0, device=dev)
-    sums = leaf_checksums(torch, params)
-    pol = P["parse_policy"]("A8d-C8-W4")
-    # the packed exports, the bf16 linears dropped (phase 3's tree); each
-    # engine below cuts its own slice of them
-    params = qat.drop_exported_weights(qat.attach_w4a8_exports(params, pol))
-    sync(torch, dev)
-    out = {"rank": mesh.rank, "setup_s": time.perf_counter() - t0,
-           "checksums_equal": sums == tp_in["checksums"]}
-    counted = tp_counted(P)
-
-    def serve(eng, reqs):
-        comm = eng._comm
-        before = comm.counts()
-        for r in reqs:
-            eng.submit(r)
-        for fn in counted.values():
-            fn.launches = 0
-        t = time.perf_counter()
-        stats = eng.run_until_drained()
-        sync(torch, dev)
-        wall = time.perf_counter() - t
-        after = comm.counts()
-        return stats, {n: fn.launches for n, fn in counted.items()}, wall, \
-            {k: after[k] - before[k] for k in after}
-
-    # (a) phase 3b's requests on the paged pool, prefix cache on
-    eng = paged_engine(P, cfg, params, dev, mesh=mesh)
-    reqs = shared_prefix_requests(P, cfg, 2 * SLOTS, 200, seed=14)
-    stats, launches, wall, coll = serve(eng, reqs)
-    out["paged"] = {
-        "streams": {r.uid: r.generated for r in reqs},
-        "done": all(r.done for r in reqs), "wall_s": wall,
-        "launches": launches, "collectives": coll,
-        "free_blocks_back": stats["free_blocks"] == eng.num_blocks,
-        **{k: stats[k] for k in (
-            "decode_step_s", "decode_steps", "tokens_out", "prefix_hit_blocks",
-            "cow_copies", "tail_waves", "per_device_pool_bytes",
-            "per_device_weight_bytes", "tp_degree", "mesh_shape")}}
-    del eng
-    # (b) phase 3c's config: spec at k 4 with the 18-layer draft
-    eng = paged_engine(P, cfg, params, dev, mesh=mesh,
-                       spec=P["SpecConfig"](k=SPEC_K))
-    reqs = tp_spec_requests(P, cfg)
-    stats, launches, wall, coll = serve(eng, reqs)
-    out["spec"] = {"streams": {r.uid: r.generated for r in reqs},
-                   "wall_s": wall, "launches": launches, "collectives": coll,
-                   **{k: stats[k] for k in ("spec_waves", "spec_accepted",
-                                            "spec_drafted",
-                                            "spec_draft_layers")}}
-    del eng
-    # (c) one decode step's gathered logits and the cold wave's pool
-    logits, pool, eng, step = cold_wave_state(torch, P, cfg, params, dev,
-                                              mesh=mesh)
-    del eng
-    hkv = tp_shard_cfg(cfg).n_kv_heads
-    heads = slice(mesh.rank * hkv, (mesh.rank + 1) * hkv)
-    step["logits_equal"] = bool(torch.equal(logits, tp_in["logits"]))
-    step["logits_finite"] = bool(torch.isfinite(logits).all())
-    step["prefill_pool_equal"] = {
-        k: bool(torch.equal(v, tp_in["pool"][k][:, :, heads]))
-        for k, v in pool.items()}
-    out["step"] = step
-    # every rank's findings, gathered on rank 0
-    mine = {k: out[k] for k in ("rank", "checksums_equal", "setup_s")}
-    mine["launches"] = {"paged": out["paged"]["launches"],
-                        "spec": out["spec"]["launches"]}
-    mine["step"] = out["step"]
-    mine["streams"] = (out["paged"]["streams"], out["spec"]["streams"])
+    cuda = dev.type == "cuda"
+    reduced = tp_in["reduced"]
+    found, streams = {}, {}
+    for pin in tp_in["passes"]:
+        key = pin["key"]
+        cfg = tp_cfg(P, pin["arch"], pin["layers"], reduced)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        for r in range(int(mesh.shape["model"])):
+            if r == mesh.rank:
+                sums, params = tp_tree(torch, P, cfg, dev, pin["calibrate"])
+                if cuda:
+                    torch.cuda.synchronize(dev)
+                    torch.cuda.empty_cache()
+            dist.barrier(group=mesh.group)
+        mine = {"setup_s": time.perf_counter() - t0,
+                "checksums_equal": sums == pin["checksums"]}
+        serves, logits, pool, step = tp_run_pass(torch, P, key, cfg, params,
+                                                 dev, mesh, reduced)
+        del params
+        step["logits_equal"] = bool(torch.equal(logits, pin["logits"]))
+        step["logits_finite"] = bool(torch.isfinite(logits).all())
+        if pool is not None:
+            want = pin["pool"]
+            hkv = next(iter(pool.values())).shape[2]
+            lo = 0 if hkv == cfg.n_kv_heads else mesh.rank * hkv
+            step["prefill_pool_equal"] = {
+                k: bool(torch.equal(v, want[k][:, :, lo:lo + hkv]))
+                for k, v in pool.items()}
+            step["kv_heads"] = hkv
+        mine["step"] = step
+        mine["serves"] = {n: {"counters": c, "launches": l,
+                              "collectives": coll}
+                          for n, (_, c, l, coll) in serves.items()}
+        mine["peak_memory_bytes"] = (torch.cuda.max_memory_allocated(dev)
+                                     if cuda else 0)
+        found[key] = mine
+        streams[key] = {n: s for n, (s, _, _, _) in serves.items()}
+        del serves
+        if cuda:
+            torch.cuda.empty_cache()
     ranks = [None] * dist.get_world_size()
-    dist.all_gather_object(ranks, mine)
-    out["ranks"] = [{k: v for k, v in r.items() if k != "streams"}
-                    for r in ranks]
-    out["ranks_agree"] = all(r["streams"] == ranks[0]["streams"]
-                             for r in ranks)
+    dist.all_gather_object(ranks, (mesh.rank, found, streams))
+    return {"ranks": [(r, f) for r, f, _ in ranks], "streams": streams,
+            "ranks_agree": all(s == streams for _, _, s in ranks)}
+
+
+def tp_reference(torch, P, key, cfg, calibrate, dev, reduced=False):
+    """A pass at tp=1 in this process, its tree freed after: (checksums,
+    serves, logits, pool, step, peak memory)."""
+    cuda = torch.device(dev).type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    sums, params = tp_tree(torch, P, cfg, dev, calibrate)
+    serves, logits, pool, step = tp_run_pass(torch, P, key, cfg, params, dev,
+                                             None, reduced)
+    del params
+    peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
+    if cuda:
+        torch.cuda.empty_cache()
+    return dict(checksums=sums, serves=serves, logits=logits, pool=pool,
+                step=step, peak_memory_bytes=peak)
+
+
+def tp_census(P, cfg, tp):
+    """A decode step's collectives at ``tp``: per layer a MAX (the amax)
+    and an int32 SUM for each row-parallel linear (``wo`` unless every
+    rank runs the whole attention, ``wd`` of a dense MLP) and one
+    owned-slot sum for an MoE's combine; the embedding's SUM and the
+    logits' all-gather."""
+    rows = (0 if P["attn_replicated"](cfg, tp) else 1) + (
+        0 if cfg.is_moe else 1)
+    L = cfg.n_layers
+    return {"all_reduce_max": rows * L, "all_reduce_sum": rows * L + 1,
+            "all_reduce_owned": L if cfg.is_moe else 0, "all_gather": 1,
+            "all_reduce_sum_f32": 0}
+
+
+def tp_moe_row_shapes(P):
+    """(fused (name, K, N, bias), accumulate (name, K, N)) of the linears
+    whose shapes phase 3u's slices change: moonshot's and mixtral's q, k,
+    v and head at tp=2 (their wo accumulates), qwen2-7b's MLP and head at
+    tp=8 (its wd accumulates; its attention is whole, phase 2's
+    shapes)."""
+    fused, acc = [], []
+    for key, _, arch, _, tp, _ in TP_PASSES:
+        c = P["get_config"](arch)
+        if key == "q3":
+            continue
+        if key == "q7":
+            fused += [(f"{arch} gate/up tp{tp}", c.d_model, c.d_ff // tp,
+                       False),
+                      (f"{arch} head tp{tp}", c.d_model, c.vocab_size // tp,
+                       False)]
+            acc.append((f"{arch} down tp{tp}", c.d_ff // tp, c.d_model))
+            continue
+        fused += [(f"{arch} q tp{tp}", c.d_model, c.q_dim // tp, False),
+                  (f"{arch} k/v tp{tp}", c.d_model, c.kv_dim // tp, False),
+                  (f"{arch} head tp{tp}", c.d_model, c.vocab_size // tp,
+                   False)]
+        acc.append((f"{arch} o tp{tp}", c.q_dim // tp, c.d_model))
+    seen, out = set(), []
+    for f in fused:
+        if f[1:] not in seen:
+            seen.add(f[1:])
+            out.append(f)
+    return out, acc
+
+
+def time_bank_fwd(torch, P, e, R, C, bits, dev, gen):
+    """fake_quant_fwd on one bank (e, R, C) in mode 3 per launch, beside
+    its plain version, ``fake_quantize_per_channel_affine`` on the bank
+    permuted to (R, e C) (the permute outside the timed call) and the
+    bound (bytes: the bank read and written once, its scales read)."""
+    ops, ref = P["fq_ops"], P["fq_ref"]
+    qn, qp = -(2 ** (bits - 1)), 2 ** (bits - 1) - 1
+    x, s, _ = bank_inputs(torch, gen, e, R, C, bits, dev)
+    sets = [(x, s)]
+    out = {"shape": [e, R, C], "bits": bits}
+    out["ms"] = time_ms(torch, lambda x, s: ops.fake_quant_fwd(x, s, bits),
+                        sets, min_calls=20)
+    out["plain_ms"] = time_eager_ms(
+        torch, lambda x, s: ref.fake_quant_fwd_ref(x, s, bits), sets,
+        min_calls=3)
+    xp = x.permute(1, 0, 2).reshape(R, e * C).contiguous()
+    sp = s.reshape(-1).contiguous()
+    zp = torch.zeros(e * C, dtype=torch.int32, device=dev)
+    out["library_ms"] = time_eager_ms(
+        torch, lambda x, s: torch.fake_quantize_per_channel_affine(
+            x, s, zp, 1, qn, qp), [(xp, sp)], min_calls=5)
+    n = e * R * C
+    out["bound_ms"] = (4 * n + 4 * e * C) / HBM_BYTES_PER_S * 1e3
+    out["bound_by"] = "bytes"
+    del sets, x, s, xp, sp, zp
+    torch.cuda.empty_cache()
     return out
 
 
-def serve_tp(torch, P, cfg, dev, params, report, plain_streams,
-             reduced=False):
-    """Phase 3t: qwen2.5-3b at full width and depth served at tp=2 by two
-    processes on the one card (``launch.mesh.spawn_tp``, backend gloo,
-    passed explicitly: NCCL refuses two ranks on one device), each rank
-    building phase 3b's weights from the same seed. Kernels at the shard
-    shapes against their plain versions first (in this process)."""
-    models = P["models"]
-    errs = (check_tp_kernels(torch, P, cfg, dev, report) if not reduced
-            else {})
-    torch.cuda.empty_cache()
-    # tp=1 references: the same seed's weights, one decode step's logits
-    # and the cold wave's pool
-    full = models.init_params(cfg, seed=0, device=dev)
-    sums = leaf_checksums(torch, full)
-    del full
-    torch.cuda.empty_cache()
-    logits, pool, eng, _ = cold_wave_state(torch, P, cfg, params, dev)
-    ref_bytes = {k: eng.stats()[k] for k in ("per_device_pool_bytes",
-                                            "per_device_weight_bytes")}
-    del eng
-    eng = paged_engine(P, cfg, params, dev, spec=P["SpecConfig"](k=SPEC_K))
-    reqs = tp_spec_requests(P, cfg)
-    for r in reqs:
-        eng.submit(r)
-    ref_spec = eng.run_until_drained()
-    ref_spec_streams = {r.uid: r.generated for r in reqs}
-    del eng
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    out = P["spawn_tp"](tp_rank, TP, {"checksums": sums, "logits": logits,
-                                      "pool": pool, "reduced": reduced},
-                        device=torch.device(dev).type, backend="gloo",
-                        timeout_s=TP_TIMEOUT_S)
-    spawn_s = time.perf_counter() - t0
-    paged, spec, step = out["paged"], out["spec"], out["step"]
-    for r in out["ranks"]:
-        check(r["checksums_equal"], f"tp rank {r['rank']}: its weights' "
-                                    f"checksums differ from the parent's")
-        st = r["step"]
+def check_tp_moe_kernels(torch, P, dev, report):
+    """Phase 3u's kernels at the ranks' shapes, against their plain
+    versions: fake_quant_fwd in mode 3 bitwise on the local banks (bits
+    4 and 8) and timed; w4a8 fused and accumulate + epilogue bitwise on
+    the shard linears (``tp_moe_row_shapes``); at moonshot's rank (8
+    query and 8 KV heads) and mixtral's (16 on 4, its 4096-row rings) the
+    dense and paged decode, verify and the gather
+    (``check_decode_case``), and the COW over moonshot's rank pool of 16
+    layers. Returns the worst error per kernel."""
+    ops, ref = P["fq_ops"], P["fq_ref"]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(61)
+    n_fq = 0
+    for e, R, C in TPM_BANKS:
+        for bits in (4, 8):
+            x, s, _ = bank_inputs(torch, gen, e, R, C, bits, dev)
+            check(ops.scale_mode(x, s) == 3, f"bank ({e}, {R}, {C}): not "
+                                             f"mode 3")
+            got = ops.fake_quant_fwd(x, s, bits)
+            want = ref.fake_quant_fwd_ref(x, s, bits)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want),
+                  f"phase 3u: fake_quant_fwd on the local bank ({e}, {R}, "
+                  f"{C}) at {bits} bits differs from its plain version in "
+                  f"{int((got != want).sum())} elements")
+            n_fq += 1
+            del x, s, got, want
+        torch.cuda.empty_cache()
+    banks = [time_bank_fwd(torch, P, e, R, C, 4, dev, gen)
+             for e, R, C in TPM_BANKS]
+    fused, acc = tp_moe_row_shapes(P)
+    sub = {}
+    n_w4 = check_w4a8_linears(torch, P, fused, dev, 62,
+                              ms=(1, SLOTS, PREFILL_M))
+    check_w4a8_acc(torch, P, None, dev, sub, shapes=acc, seed=63,
+                   phase="phase 3u")
+    errs, cases = {}, []
+    for arch, tp, lengths, S in ((MS, 2, KVQ_LENGTHS, CACHE_LEN),
+                                 (MX, 2, MX_LENGTHS, MX_WINDOW)):
+        scfg = tp_shard_cfg(P["get_config"](arch), tp)
+        what = (f"{arch} rank of tp={tp}: H {scfg.n_heads}, Hkv "
+                f"{scfg.n_kv_heads}")
+        got = check_decode_case(torch, P, gen, scfg, dev, lengths, S, False,
+                                what)
+        cases.append({"case": what, **got})
+        for k, v in got.items():
+            errs[k] = max(errs.get(k, 0.0), v)
+        torch.cuda.empty_cache()
+    ms_rank = tp_shard_cfg(P["get_config"](MS), 2)
+    check_copy_multi(torch, P, ms_rank, dev, sub, layers=16,
+                     report_key="tpm_copy_multi_bitwise")
+    errs["pool_block_copy"] = 0.0
+    errs["w4a8_matmul"] = 0.0
+    errs["fake_quant_fwd"] = 0.0
+    report["tp_moe_kernels"] = {"fake_quant_mode3_cases": n_fq,
+                                "local_banks": banks, "w4a8_cases": n_w4,
+                                "w4a8_accumulate": [a[1:] for a in acc],
+                                "attention": cases}
+    print(f"phase 3u: fake_quant_fwd mode 3 bitwise its plain version on "
+          f"the ranks' local banks {list(TPM_BANKS)} (bits 4, 8); per "
+          f"launch " + json.dumps(banks) + f"; w4a8 bitwise on {n_w4} shard "
+          f"cases and the accumulate + epilogue at {[a[1:] for a in acc]}; "
+          f"attention at the ranks' heads {cases}", flush=True)
+    return errs
+
+
+def tp_launches(tp_res, *names, serve=None):
+    """{pass: {rank: launches}} of ``names`` (summed over the pass's
+    serves, or in ``serve`` alone)."""
+    return {key: {r: sum(l.get(n, 0) for s, l in v["launches"][r].items()
+                         if serve in (None, s) for n in names)
+                  for r in v["launches"]}
+            for key, v in tp_res["passes"].items()}
+
+
+def check_tp_pass(P, key, phase, cfg, tp, ref, out, cuda, reduced=False):
+    """A pass's findings against its tp=1 reference: streams, counters,
+    one decode step's logits and (on the pool) the cold wave's K/V codes
+    at the rank's heads bitwise; the step's collectives ``tp_census``'s,
+    no pool leaf in one; the bank fake-quants a step tp=1's count over
+    E / tp experts; every serve's kernels launched on every rank (on the
+    card); bytes a rank. Returns the pass's record."""
+    what = f"{phase} {key} (tp={tp})"
+    L = cfg.n_layers
+    for name, (want, _, _, _) in ref["serves"].items():
+        got = out["streams"][key][name]
+        differ = [u for u, s in got.items() if s != want[u]]
+        check(not differ, f"{what} {name}: streams differ from tp=1's for "
+                          f"requests {differ}")
+    serves = {n: (nz, names) for n, _, _, nz, names in
+              tp_serves(P, key, cfg, reduced)}
+    for name, (nz, _) in serves.items():
+        c1 = ref["serves"][name][1]
+        check(all(c1[k] > 0 for k in nz),
+              f"{what} {name}: none of {nz} at tp=1: {c1}")
+    want_census = tp_census(P, cfg, tp)
+    ranks = [f[key] for _, f in out["ranks"]]
+    for r, mine in zip((r for r, _ in out["ranks"]), ranks):
+        who = f"{what} rank {r}"
+        st = mine["step"]
+        check(mine["checksums_equal"], f"{who}: its weights' checksums "
+                                       f"differ from the parent's")
         check(st["logits_equal"] and st["logits_finite"],
-              f"tp rank {r['rank']}: one decode step's gathered logits are "
-              f"not bitwise tp=1's")
-        bad = [k for k, ok in st["prefill_pool_equal"].items() if not ok]
-        check(not bad, f"tp rank {r['rank']}: the cold prefill's {bad} "
-                       f"differ from tp=1's head half")
-        check(not st["pool_in_collective"],
-              f"tp rank {r['rank']}: a pool leaf was handed to a collective")
-        for phase, names in (("paged", ("w4a8_matmul", "w4a8_accumulate",
-                                        "w4a8_epilogue",
-                                        "kvq_paged_decode_attn",
-                                        "gather_dequant_paged_kv",
-                                        "pool_block_copy")),
-                             ("spec", ("kvq_spec_verify_attn",
-                                       "w4a8_accumulate", "w4a8_epilogue",
-                                       "kvq_decode_attn"))):
-            for name in names:
-                check(r["launches"][phase][name] > 0,
-                      f"tp rank {r['rank']} ({phase}): {name} never "
-                      f"launched: {r['launches'][phase]}")
-    check(out["ranks_agree"], "tp: the ranks' streams differ")
-    check(paged["done"] and paged["free_blocks_back"],
-          "tp paged: unfinished requests or leaked blocks")
-    differ = [u for u, s in paged["streams"].items()
-              if s != plain_streams[u]]
-    check(not differ, f"tp paged: streams differ from phase 3b's for "
-                      f"requests {differ}")
-    differ = [u for u, s in spec["streams"].items()
-              if s != ref_spec_streams[u]]
-    check(not differ, f"tp spec: streams differ from tp=1's (phase 3c's "
-                      f"config) for requests {differ}")
-    check(spec["spec_accepted"] == ref_spec["spec_accepted"]
-          and spec["spec_waves"] == ref_spec["spec_waves"],
-          f"tp spec: {spec['spec_accepted']} accepted in "
-          f"{spec['spec_waves']} waves, tp=1 {ref_spec['spec_accepted']} "
-          f"in {ref_spec['spec_waves']}")
-    spec_prefix = all(s == plain_streams[u][:TP_SPEC_NEW]
-                      for u, s in spec["streams"].items())
-    check(paged["prefix_hit_blocks"] > 0 and paged["cow_copies"] > 0
-          and paged["tail_waves"] > 0,
-          f"tp paged: no prefix hit, COW or tail-wave: {paged}")
-    share = {k: paged[k] / ref_bytes[k] for k in ref_bytes}
-    check(all(v <= 0.6 for v in share.values()),
-          f"tp: per-rank bytes above 0.6 of tp=1's: {share}")
-    census = step["census"]
-    n_layers = cfg.n_layers
-    check(census["all_reduce_max"] == 2 * n_layers
-          and census["all_reduce_sum"] == 2 * n_layers + 1
-          and census["all_gather"] == 1,
-          f"tp: a decode step's collectives {census}, want "
-          f"{2 * n_layers} MAX, {2 * n_layers + 1} SUM, 1 all-gather")
-    res = {"tp": TP, "backend": "gloo", "card": report.get("card"),
-           "spawn_s": spawn_s, "kernel_errs": errs,
-           "rank_setup_s": [r["setup_s"] for r in out["ranks"]],
-           "decode_step_ms": 1e3 * paged["decode_step_s"],
-           "decode_step_ms_tp1": report["serve_paged"]["decode_step_ms"],
-           "one_step_ms": step["one_step_ms"],
-           "paged_wall_s": paged["wall_s"], "spec_wall_s": spec["wall_s"],
-           "bytes_share_of_tp1": share, "census_per_decode_step": census,
-           "paged_collectives": paged["collectives"],
-           "spec_waves": spec["spec_waves"],
-           "spec_accepted": spec["spec_accepted"],
-           "spec_requests": len(spec["streams"]),
-           "spec_new_tokens": TP_SPEC_NEW,
-           "spec_streams_prefix_of_3b": spec_prefix,
-           "launches": {r["rank"]: r["launches"] for r in out["ranks"]},
-           "note": "two processes on one card over gloo (tensors through "
-                   "host memory): a check of the TP path, not a speed"}
+              f"{who}: one decode step's logits are not bitwise tp=1's")
+        bad = [k for k, ok in st.get("prefill_pool_equal", {}).items()
+               if not ok]
+        check(not bad, f"{who}: the cold wave's {bad} differ from tp=1's "
+                       f"at the rank's heads")
+        check(not st.get("pool_in_collective"),
+              f"{who}: a pool leaf was handed to a collective")
+        census = {k: st["census"][k] for k in want_census}
+        check(census == want_census, f"{who}: a decode step's collectives "
+                                     f"{census}, want {want_census}")
+        for name, s in mine["serves"].items():
+            c, c1 = s["counters"], ref["serves"][name][1]
+            for k in TP_COUNTERS:
+                check(c.get(k) == c1.get(k),
+                      f"{who} {name}: {k} {c.get(k)}, tp=1 {c1.get(k)}")
+            if cuda:
+                for n in serves[name][1]:
+                    check(s["launches"][n] > 0,
+                          f"{who} {name}: {n} never launched: "
+                          f"{s['launches']}")
+        fq, fq1 = (st["launches"]["fake_quant_fwd"],
+                   ref["step"]["launches"]["fake_quant_fwd"])
+        check(fq == fq1 == ((3 * L if cfg.is_moe else 0) if cuda else 0),
+              f"{who}: {fq} bank fake-quants a decode step, tp=1 {fq1}, "
+              f"want {3 * L if cfg.is_moe else 0}")
+        if cfg.is_moe:
+            check(st["local_experts"] * tp == cfg.n_experts,
+                  f"{who}: {st['local_experts']} local experts")
+    # bytes a rank against tp=1's: the pool whole where every rank runs
+    # the whole attention, else its heads; the packed planes at most
+    # 1.1 / tp but for a whole attention; the expert banks E / tp experts
+    first = next(iter(ref["serves"]))
+    c0, c1 = ranks[0]["serves"][first]["counters"], ref["serves"][first][1]
+    share = {k: c0[k] / c1[k] for k in TP_BYTES if c1.get(k)}
+    whole = P["attn_replicated"](cfg, tp)
+    check(share["per_device_pool_bytes"] == 1.0 if whole
+          else share["per_device_pool_bytes"] <= 1.1 / tp,
+          f"{what}: a rank's pool {share}")
+    check(share["per_device_weight_bytes"] < 1.0 if whole
+          else share["per_device_weight_bytes"] <= 1.1 / tp,
+          f"{what}: a rank's packed planes {share}")
+    if cfg.is_moe:
+        check(share["per_device_bank_bytes"] * tp == 1.0,
+              f"{what}: a rank's expert banks {share}")
+    s0 = ranks[0]["step"]
+    return {
+        "arch": cfg.name, "layers": L, "tp": tp, "backend": "gloo",
+        "streams": {n: len(s) for n, s in out["streams"][key].items()},
+        "counters_tp1": {n: s[1] for n, s in ref["serves"].items()},
+        "counters": [{n: s["counters"] for n, s in m["serves"].items()}
+                     for m in ranks],
+        "bytes_share_of_tp1": share, "census_per_decode_step": s0["census"],
+        "collectives_serve": {n: s["collectives"]
+                              for n, s in ranks[0]["serves"].items()},
+        "launches": {r: {n: s["launches"] for n, s in m["serves"].items()}
+                     for (r, _), m in zip(out["ranks"], ranks)},
+        "step_launches": {r: m["step"]["launches"]
+                          for (r, _), m in zip(out["ranks"], ranks)},
+        "bank_fq_launches_per_step": s0["launches"]["fake_quant_fwd"],
+        "local_experts": s0["local_experts"],
+        "bank_fq_ms_per_step": [m["step"]["bank_fq_ms"] for m in ranks],
+        "bank_fq_ms_per_step_tp1": ref["step"]["bank_fq_ms"],
+        "peak_memory_bytes": [m["peak_memory_bytes"] for m in ranks],
+        "peak_memory_bytes_tp1": ref["peak_memory_bytes"],
+        "rank_setup_s": [m["setup_s"] for m in ranks],
+        "one_step_ms": [m["step"].get("one_step_ms") for m in ranks],
+        "one_step_ms_tp1": ref["step"].get("one_step_ms")}
+
+
+def serve_tp(torch, P, dev, report, reduced=False):
+    """Phases 3t and 3u: tensor-parallel serving, ranks in processes of
+    their own on the one card over gloo (``launch.mesh.spawn_tp``,
+    backend passed explicitly: NCCL refuses two ranks on one device), one
+    spawn for the passes of one tp (``TP_PASSES``): qwen2.5-3b at full
+    width and depth at tp=2 (3t: phase 3b's requests on the pool, phase
+    3c's spec config); moonshot-v1-16b-a3b (16 of 48 layers, tp=2: 32 of
+    64 experts and 8 of 16 heads a rank, the pool with prefix sharing
+    and spec at k 4 with an 8-layer draft), mixtral-8x7b (4 of 32
+    layers, tp=2: 4 of 8 experts, 16 of 32 query and 4 of 8 KV heads a
+    rank, dense rings of 4096 that wrap) and qwen2-7b (2 of 28 layers,
+    tp=8, which does not divide its 28 heads: the whole attention and
+    pool on every rank, the MLP, embedding and head cut in eight), each
+    at full width (3u). Every pass's tp=1 reference runs first in this
+    process and is freed; then ``check_tp_pass``. The kernels at the
+    ranks' shapes are checked against their plain versions first."""
+    errs = {}
+    if not reduced:
+        for got in (check_tp_kernels(torch, P, P["get_config"]("qwen2.5-3b"),
+                                     dev, report),
+                    check_tp_moe_kernels(torch, P, dev, report)):
+            for k, v in got.items():
+                errs[k] = max(errs.get(k, 0.0), v)
+        torch.cuda.empty_cache()
+    cuda = torch.device(dev).type == "cuda"
+    passes = {}
+    for tp in sorted({p[4] for p in TP_PASSES}):
+        group = [p for p in TP_PASSES if p[4] == tp]
+        refs, cfgs, pins = {}, {}, []
+        t0 = time.perf_counter()
+        for key, _, arch, layers, _, calibrate in group:
+            cfgs[key] = tp_cfg(P, arch, layers, reduced)
+            refs[key] = tp_reference(torch, P, key, cfgs[key], calibrate,
+                                     dev, reduced)
+            pins.append({"key": key, "arch": arch, "layers": layers,
+                         "calibrate": calibrate,
+                         "checksums": refs[key]["checksums"],
+                         "logits": refs[key]["logits"],
+                         "pool": refs[key]["pool"]})
+        ref_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out = P["spawn_tp"](tp_rank, tp, {"passes": pins,
+                                          "reduced": reduced},
+                            device=torch.device(dev).type, backend="gloo",
+                            timeout_s=TP_TIMEOUT_S)
+        spawn_s = time.perf_counter() - t0
+        check(out["ranks_agree"], f"tp={tp}: the ranks' streams differ")
+        for key, phase, *_ in group:
+            rec = check_tp_pass(P, key, phase, cfgs[key], tp, refs[key],
+                                out, cuda, reduced)
+            rec.update(phase=phase, references_s=ref_s, spawn_s=spawn_s)
+            passes[key] = rec
+            print(f"{phase} {key} (tp={tp}, gloo, ranks on "
+                  f"{report.get('card')}): {rec['arch']} at {rec['layers']}"
+                  f" layers, streams ({rec['streams']}), counters, one "
+                  f"decode step's logits and K/V bitwise tp=1's; bytes a "
+                  f"rank {rec['bytes_share_of_tp1']} of tp=1's; a decode "
+                  f"step's collectives {rec['census_per_decode_step']}; "
+                  f"bank fake-quants a step "
+                  f"{rec['bank_fq_launches_per_step']} over "
+                  f"{rec['local_experts']} experts, "
+                  f"{rec['bank_fq_ms_per_step']} ms (tp=1 "
+                  f"{rec['bank_fq_ms_per_step_tp1']}); one step "
+                  f"{rec['one_step_ms']} ms (tp=1 {rec['one_step_ms_tp1']};"
+                  f" gloo through host memory, not a speed); peak a rank "
+                  f"{[round(b / 1e9, 2) for b in rec['peak_memory_bytes']]}"
+                  f" GB; references {ref_s:.1f} s, spawn {spawn_s:.1f} s",
+                  flush=True)
+        del refs, out
+    res = {"passes": passes, "kernel_errs": errs, "card": report.get("card"),
+           "kernels": report.get("tp_moe_kernels", {}),
+           "note": "ranks in processes of their own on one card over gloo "
+                   "(tensors through host memory): a check of the path, "
+                   "not a speed"}
     report["serve_tp"] = res
-    print(f"phase 3t: qwen2.5-3b at tp={TP} (gloo, two ranks on "
-          f"{report.get('card')}): phase 3b's streams bitwise; phase 3c's "
-          f"config on {len(spec['streams'])} requests of {TP_SPEC_NEW} "
-          f"tokens: streams and spec accepted ({spec['spec_accepted']} in "
-          f"{spec['spec_waves']} waves) tp=1's; one decode step's "
-          f"logits and the cold prefill's K/V halves bitwise tp=1's; "
-          f"per-rank pool {share['per_device_pool_bytes']:.3f} and weights "
-          f"{share['per_device_weight_bytes']:.3f} of tp=1's; a decode "
-          f"step's collectives {census}; decode step "
-          f"{res['decode_step_ms']:.1f} ms (tp=1 "
-          f"{res['decode_step_ms_tp1']:.1f} ms; gloo through host memory, "
-          f"not a speed result); spawn {spawn_s:.1f} s", flush=True)
     return res
 
 
@@ -7985,6 +8514,7 @@ def main() -> int:
     spec_err = check_spec_verify(torch, P, cfg, dev, report)
     check_norm_rows(torch, P, cfg, dev, report)
     fq_err = check_fake_quant(torch, P, cfg, dev, report)
+    check_cut_fake_quant(torch, P, dev, report)
     flash_err = check_flash(torch, P, cfg, dev, report)
     rcfg = P["get_config"](RG)
     rg_err = check_rg_kernels(torch, P, cfg, rcfg, dev, report)
@@ -8009,7 +8539,7 @@ def main() -> int:
     spec_launches = serve_spec(torch, P, cfg, dev, params, report,
                                plain_streams)
     torch.cuda.empty_cache()
-    tp = serve_tp(torch, P, cfg, dev, params, report, plain_streams)
+    tp = serve_tp(torch, P, dev, report)
     torch.cuda.empty_cache()
     serve_self_draft(torch, P, cfg, dev, params, report)
     check_tail_rows(torch, P, cfg, dev, params, report)
@@ -8135,8 +8665,9 @@ def main() -> int:
                                     "no epilogue) + w4a8_epilogue_launch: "
                                     "the row-parallel wo and wd at tp=2, "
                                     "the int32 sums all-reduced between"},
-         "tp2_launches": tp["launches"],
-         "tp2_max_abs_err": tp["kernel_errs"]["w4a8_accumulate"],
+         "tp_launches": {m: tp_launches(tp, m) for m in (
+             "w4a8_matmul", "w4a8_accumulate", "w4a8_epilogue")},
+         "tp_max_abs_err": tp["kernel_errs"]["w4a8_accumulate"],
          "tp2_shard_times": {"per": "one launch at a rank's K slice "
                                     "(wo K 1024, wd K 5504; N 2048)",
                              "card": report["card"], "rows": w4a8_tp_t},
@@ -8146,12 +8677,12 @@ def main() -> int:
          "source": "src/repro_torch/csrc/kvq_decode_attn.cu",
          "replaces": "src/repro/kernels/kvq_attn/kernel.py:338",
          "launches": launches["kvq_decode_attn"],
-         "tp2_spec_draft_launches": {r: l["spec"]["kvq_decode_attn"]
-                                     for r, l in tp["launches"].items()},
+         "tp_launches": tp_launches(tp, "kvq_decode_attn"),
          "max_abs_err": max(kvq_err, rg_err["kvq_decode_attn"],
                             mx_err["kvq_decode_attn"],
                             new_err["kvq_decode_attn"],
-                            wv_err["kvq_decode_attn"]), **kvq_t,
+                            wv_err["kvq_decode_attn"],
+                            tp["kernel_errs"]["kvq_decode_attn"]), **kvq_t,
          "whisper_launches": wh_launches("kvq_decode_attn"),
          "qwen2_vl_launches": vl_launches("kvq_decode_attn"),
          "whisper": {"per": f"one launch over the cross caches at "
@@ -8182,9 +8713,8 @@ def main() -> int:
          "source": "src/repro_torch/csrc/kvq_paged_decode_attn.cu",
          "replaces": "src/repro/kernels/kvq_attn/kernel.py:109",
          "launches": paged_launches["kvq_paged_decode_attn"],
-         "tp2_launches": {r: l["paged"]["kvq_paged_decode_attn"]
-                          for r, l in tp["launches"].items()},
-         "tp2_max_abs_err": tp["kernel_errs"]["kvq_paged_decode_attn"],
+         "tp_launches": tp_launches(tp, "kvq_paged_decode_attn"),
+         "tp_max_abs_err": tp["kernel_errs"]["kvq_paged_decode_attn"],
          "frontend_launches": fe_launches["kvq_paged_decode_attn"],
          "max_abs_err": max(paged_err, rg_err["kvq_paged_decode_attn"],
                             new_err["kvq_paged_decode_attn"],
@@ -8215,9 +8745,8 @@ def main() -> int:
          "source": "src/repro_torch/csrc/gather_dequant_paged_kv.cu",
          "replaces": "src/repro/kernels/kvq_attn/kernel.py:174",
          "launches": paged_launches["gather_dequant_paged_kv"],
-         "tp2_launches": {r: l["paged"]["gather_dequant_paged_kv"]
-                          for r, l in tp["launches"].items()},
-         "tp2_max_abs_err": tp["kernel_errs"]["gather_dequant_paged_kv"],
+         "tp_launches": tp_launches(tp, "gather_dequant_paged_kv"),
+         "tp_max_abs_err": tp["kernel_errs"]["gather_dequant_paged_kv"],
          "frontend_launches": fe_launches["gather_dequant_paged_kv"],
          "max_abs_err": max(gather_err, rg_err["gather_dequant_paged_kv"],
                             new_err["gather_dequant_paged_kv"],
@@ -8240,9 +8769,8 @@ def main() -> int:
          "source": "src/repro_torch/csrc/pool_block_copy.cu",
          "replaces": "src/repro/kernels/kvq_attn/kernel.py:308",
          "launches": paged_launches["pool_block_copy"],
-         "tp2_launches": {r: l["paged"]["pool_block_copy"]
-                          for r, l in tp["launches"].items()},
-         "tp2_max_abs_err": tp["kernel_errs"]["pool_block_copy"],
+         "tp_launches": tp_launches(tp, "pool_block_copy"),
+         "tp_max_abs_err": tp["kernel_errs"]["pool_block_copy"],
          "frontend_launches": fe_launches["pool_block_copy"],
          "max_abs_err": copy_err, **copy_t,
          "qwen2_vl_launches": vl_paged["pool_block_copy"],
@@ -8257,9 +8785,8 @@ def main() -> int:
          "source": "src/repro_torch/csrc/kvq_spec_verify_attn.cu",
          "replaces": "src/repro/kernels/kvq_attn/kernel.py:255",
          "launches": spec_launches["kvq_spec_verify_attn"],
-         "tp2_launches": {r: l["spec"]["kvq_spec_verify_attn"]
-                          for r, l in tp["launches"].items()},
-         "tp2_max_abs_err": tp["kernel_errs"]["kvq_spec_verify_attn"],
+         "tp_launches": tp_launches(tp, "kvq_spec_verify_attn"),
+         "tp_max_abs_err": tp["kernel_errs"]["kvq_spec_verify_attn"],
          "max_abs_err": max(spec_err, rg_err["kvq_spec_verify_attn"],
                             new_err["kvq_spec_verify_attn"],
                             wv_err["kvq_spec_verify_attn"]),
@@ -8281,6 +8808,19 @@ def main() -> int:
              "fake_quant_fwd"],
          "ptq_launches": ptq_launches["fake_quant_fwd"],
          "max_abs_err": fq_err, **fq_fwd_t,
+         "tp_launches": tp_launches(tp, "fake_quant_fwd"),
+         "tp_moe": {
+             "per": "one launch on a rank's local bank at tp=2 (moonshot "
+                    "32 of 64 experts, mixtral 4 of 8) at 4 bits; a decode "
+                    "step's bank fake-quants a rank",
+             "card": report["card"],
+             "local_banks": tp["kernels"]["local_banks"],
+             "per_step": {k: {"launches": v["bank_fq_launches_per_step"],
+                              "local_experts": v["local_experts"],
+                              "ms_per_rank": v["bank_fq_ms_per_step"],
+                              "ms_tp1": v["bank_fq_ms_per_step_tp1"]}
+                          for k, v in tp["passes"].items()
+                          if v["local_experts"]}},
          "rg_launches": rg_train_launches["fake_quant_fwd"],
          "mx_launches": mx_launches["fake_quant_fwd"],
          "mx_train_launches": mx_train_launches["fake_quant_fwd"],

@@ -64,6 +64,10 @@ class QuantCtx:
     # it, the embedding sums its vocabulary shards and the head gathers
     # its logits
     tp: Any = None
+    # tensor-parallel serving where tp does not divide the heads
+    # (``runtime.sharding.attn_replicated``): every rank runs the whole
+    # attention, so its wo is no row-parallel linear
+    attn_whole: bool = False
     # data-parallel training: this rank's ``runtime.collectives.DPComm``
     # (None at data 1). An MoE layer's load-balance statistics are then
     # summed over the data ranks, and a static activation scale's LSQ
@@ -87,7 +91,8 @@ class QuantCtx:
 def make_ctx(policy, mode: str = "train",
              act_calib_method: str = "quantile",
              weights_layout: str = "bf16",
-             kernel_backend: str = "auto", tp=None, dp=None) -> QuantCtx:
+             kernel_backend: str = "auto", tp=None, dp=None,
+             attn_whole: bool = False) -> QuantCtx:
     if isinstance(policy, str):
         policy = parse_policy(policy)
     if kernel_backend not in KERNEL_BACKENDS:
@@ -96,7 +101,8 @@ def make_ctx(policy, mode: str = "train",
     return QuantCtx(policy=policy, mode=mode,
                     act_calib_method=act_calib_method,
                     weights_layout=weights_layout,
-                    kernel_backend=kernel_backend, tp=tp, dp=dp)
+                    kernel_backend=kernel_backend, tp=tp, dp=dp,
+                    attn_whole=attn_whole)
 
 
 # --------------------------------------------------------------------------

@@ -27,6 +27,7 @@ rather than left to the process group's timeout.
 from __future__ import annotations
 
 import os
+import pickle
 import queue as queue_mod
 import shutil
 import tempfile
@@ -132,11 +133,13 @@ def check_backend(backend: str, device: str, world: int) -> None:
                 "tensors through host memory)")
 
 
-def _worker(rank: int, world: int, model_parallel: int, fn: Callable,
-            args: tuple, init: str, backend: str, device: str,
-            timeout_s: float, out) -> None:
+def _worker(rank: int, world: int, model_parallel: int, call: str,
+            init: str, backend: str, device: str, timeout_s: float,
+            out) -> None:
     import torch.distributed as dist
     try:
+        with open(call, "rb") as f:
+            fn, args = pickle.load(f)
         dev = rank_device(device, rank)
         if dev.type == "cuda":
             torch.cuda.set_device(dev)
@@ -176,9 +179,17 @@ def spawn(fn: Callable, world: int, *args, model_parallel: int = 1,
     ctx = mp.get_context("spawn")
     tmp = tempfile.mkdtemp(prefix="repro_mesh_")
     init = "file://" + os.path.join(tmp, "rendezvous")
+    # the function and its arguments go through a file each rank reads
+    # once it has started: a process's own arguments travel through a
+    # pipe the parent fills before it starts the next rank, so arguments
+    # larger than the pipe's buffer would start the ranks one after the
+    # other, each waiting for the last to finish its imports
+    call = os.path.join(tmp, "call.pkl")
+    with open(call, "wb") as f:
+        pickle.dump((fn, args), f, protocol=pickle.HIGHEST_PROTOCOL)
     out = ctx.Queue()
     procs = [ctx.Process(target=_worker,
-                         args=(r, world, model_parallel, fn, args, init,
+                         args=(r, world, model_parallel, call, init,
                                backend, device, timeout_s, out),
                          daemon=True)
              for r in range(world)]

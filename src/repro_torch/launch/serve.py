@@ -24,7 +24,9 @@ as the JAX package's CLI does:
 
 ``--tp N`` serves on N tensor-parallel ranks (``launch.mesh.spawn_tp``;
 rank r on ``cuda:{r % device_count}``), each holding its slice of the
-weights and of the KV pool; only rank 0 prints. ``--tp-backend`` is
+weights and of the KV pool (an MoE's experts split over the ranks, or
+every expert's d_ff where N does not divide them; the whole attention
+where N does not divide the heads); only rank 0 prints. ``--tp-backend`` is
 ``nccl`` (one card a rank) unless told ``gloo`` (the CPU, or ranks
 sharing a card, which NCCL refuses)::
 
@@ -333,7 +335,7 @@ def main(argv=None):
                 "--tp > 1 serves the closed-loop batch only: the frontend "
                 "(--http-port, --arrival-rate) would live on rank 0 and its "
                 "submissions would have to be broadcast to the other ranks "
-                "(ROADMAP Queue 1 item 2a)")
+                "(ROADMAP Queue 1 item 2a.1)")
         from repro_torch.launch.mesh import spawn_tp
         return spawn_tp(serve_rank, args.tp, args, device=args.device,
                         backend=args.tp_backend, timeout_s=args.tp_timeout)
@@ -437,7 +439,8 @@ def serve_rank(mesh, args):
         print(f"tensor parallel: tp={eng.tp} ({mesh.backend}), "
               f"collectives {json.dumps(stats['collectives'])}, per-rank "
               f"pool {stats['per_device_pool_bytes']} B, weights "
-              f"{stats['per_device_weight_bytes']} B")
+              f"{stats['per_device_weight_bytes']} B, expert banks "
+              f"{stats['per_device_bank_bytes']} B")
     if quiet:
         return stats
     write_obs(args, eng, stats)

@@ -16,8 +16,15 @@ heads: the engine hands them a config with ``n_heads / tp`` query and
 ``n_kv_heads / tp`` KV heads (head-major halves, so each GQA group stays
 on one rank and the group size is unchanged; one whole KV head a rank
 where ``tp`` is a multiple of ``n_kv_heads``), the rank's column slices
-of wq/wk/wv/wg/wu and row slices of wo/wd, and caches of its KV heads. The row-parallel linears (``qlinear(..., row=True)``) reduce
-over the ranks through ``ctx.tp``.
+of wq/wk/wv/wg/wu and row slices of wo/wd, and caches of its KV heads.
+The row-parallel linears (``qlinear(..., row=True)``) reduce over the
+ranks through ``ctx.tp``. Where ``tp`` does not divide the heads the
+engine hands them every head and whole attention linears
+(``ctx.attn_whole``: ``wo`` reduces nothing); a dense MLP whose ``d_ff``
+``tp`` does not divide is kept whole and reduces nothing either. An MoE
+layer holds ``n_experts / tp`` experts a rank (expert parallelism) or
+every expert's ``d_ff / tp`` slice (TP inside experts):
+:func:`moe_fwd`.
 
 Two cache layouts: the dense ring (``init_attn_cache``, one stripe of
 ``cache_len`` rows per slot, or of ``min(cache_len, window)`` rows for a
@@ -38,7 +45,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.qat import (QuantCtx, cache_quantize, init_linear,
                                   qlinear, quantize_act, quantize_weight_p,
                                   subcol)
-from repro_torch.core.quantizer import quantize_to_int
+from repro_torch.core.quantizer import quantize_by_amax, quantize_to_int
 from repro_torch.kernels.kvq_attn.ref import gather_paged_kv, pool_blocks
 from repro_torch.models.common import (_gelu, _tanh, apply_rope,
                                        blockwise_attention,
@@ -124,17 +131,28 @@ def init_mlp(cfg: ModelConfig, gen: torch.Generator,
             "w2": init_linear(gen, f, d, bias=True, dtype=dtype)}
 
 
+def _row_sliced(p: Dict, d_in: int) -> bool:
+    """Whether a row-parallel linear holds a slice of its ``d_in`` input
+    rows (its packed plane's K, else its weight's), or the whole linear,
+    which the sharding rules keep where ``tp`` does not divide ``d_in``."""
+    exp = p.get("w4a8")
+    k = 2 * exp["wq"].shape[-1] if exp is not None else p["w"].shape[-2]
+    return k < d_in
+
+
 def mlp_fwd(cfg: ModelConfig, ctx: QuantCtx, p: Dict, x: torch.Tensor,
             col: Optional[Dict] = None) -> torch.Tensor:
     if "w1" in p:
         # GELU MLP (whisper): the tanh-approximate GELU in f32
         h = qlinear(ctx, x, p["w1"], subcol(col, "w1"))
         h = _gelu(h.float(), _tanh).to(x.dtype)
-        return qlinear(ctx, h, p["w2"], subcol(col, "w2"), row=True)
+        return qlinear(ctx, h, p["w2"], subcol(col, "w2"),
+                       row=_row_sliced(p["w2"], cfg.d_ff))
     g = qlinear(ctx, x, p["wg"], subcol(col, "wg"))
     u = qlinear(ctx, x, p["wu"], subcol(col, "wu"))
     h = F.silu(g.float()).to(x.dtype) * u
-    return qlinear(ctx, h, p["wd"], subcol(col, "wd"), row=True)
+    return qlinear(ctx, h, p["wd"], subcol(col, "wd"),
+                   row=_row_sliced(p["wd"], cfg.d_ff))
 
 
 # ==========================================================================
@@ -167,6 +185,30 @@ def _expert_linear(ctx: QuantCtx, x: torch.Tensor, p: Dict,
     e, Bn, C, _ = x.shape
     xq = quantize_act(ctx, x, p, "s_in", col)
     return torch.bmm(xq.reshape(e, Bn * C, -1), wq).reshape(e, Bn, C, -1)
+
+
+def _expert_linear_row(ctx: QuantCtx, x: torch.Tensor, p: Dict,
+                       col: Optional[Dict],
+                       wq: torch.Tensor) -> torch.Tensor:
+    """:func:`_expert_linear` of ``wd`` split inside the experts (TP
+    inside experts): ``x`` and ``wq`` hold this rank's d_ff slice. A
+    dynamic activation scale takes the whole row's amax (all-reduced
+    MAX), so the slice's quantized values are tp=1's; the f32 partial
+    products are all-reduced (SUM) and rounded once. That sum is not
+    tp=1's bf16 GEMM's (other partial sums, rounded elsewhere): within a
+    tolerance, not bitwise."""
+    e, Bn, C, _ = x.shape
+    if ctx.policy.act_dynamic and not ctx.off and ctx.mode != "calib":
+        xf = x.float()
+        amax = torch.amax(torch.abs(xf), dim=-1, keepdim=True)
+        ctx.tp.all_reduce_max(amax)
+        q, s = quantize_by_amax(xf, amax, ctx.bits_for("s_in"))
+        xq = (q.float() * s).to(x.dtype)
+    else:   # a fixed scale (or none) quantizes the slice as the row
+        xq = quantize_act(ctx, x, p, "s_in", col)
+    part = torch.bmm(xq.reshape(e, Bn * C, -1).float(), wq.float())
+    return ctx.tp.all_reduce_sum_f32(part).to(x.dtype).reshape(
+        e, Bn, C, -1)
 
 
 def _softmax(x: torch.Tensor) -> torch.Tensor:
@@ -238,9 +280,31 @@ def moe_fwd(cfg: ModelConfig, ctx: QuantCtx, p: Dict, x: torch.Tensor,
 
     On a data axis (``ctx.dp``) the aux is the global batch's: the
     dispatch and the capacity are per batch row, so unchanged, and the
-    routing statistics are summed over the data ranks (forward only)."""
+    routing statistics are summed over the data ranks (forward only).
+
+    On a tensor-parallel mesh (``ctx.tp``) the banks are this rank's, as
+    ``runtime.sharding.shard_params`` cuts them; the router is whole, so
+    the routing, the capacity (of all ``n_experts``) and the dispatch
+    table are tp=1's on every rank. With ``n_experts / tp`` experts a
+    rank (expert parallelism: rank r holds experts ``[r E/tp, (r+1)
+    E/tp)``) a rank fake-quantizes and runs only its experts, fills the
+    (B, sc, k, d) slots of the tokens' top-k pairs its experts own (the
+    read tp=1 makes, dropped pairs too) and leaves the rest zero, and
+    ``TPComm.sum_owned`` gathers every slot from its owner bit for bit:
+    the combine then runs as at tp=1, so the output is tp=1's bits. It
+    moves B·sc·k·d bf16 values a layer, ``n_experts·cap / k`` times fewer
+    than gathering the experts' outputs (at moonshot's decode, cap 1 of
+    64 experts at top 6: 10.7x). With every expert's ``d_ff / tp`` slice
+    (TP inside experts, where ``tp`` does not divide the experts) ``wg``
+    and ``wu`` are column-parallel and ``wd`` row-parallel
+    (:func:`_expert_linear_row`): within a tolerance of tp=1."""
     e, k = cfg.n_experts, cfg.n_experts_active
     Bn, S, d = x.shape
+    tp = ctx.tp if ctx.tp is not None and ctx.tp.size > 1 else None
+    e_loc = p["wg"]["w"].shape[0]
+    lo = tp.rank * e_loc if tp is not None and e_loc < e else 0
+    inside = (tp is not None and e_loc == e
+              and p["wd"]["w"].shape[-2] < cfg.d_ff)
     sc = min(MOE_CHUNK_S, S)
     nchunk = -(-S // sc)
     pad = nchunk * sc - S
@@ -266,15 +330,27 @@ def moe_fwd(cfg: ModelConfig, ctx: QuantCtx, p: Dict, x: torch.Tensor,
         # the reference dispatches x in bf16 and casts back to x's type
         xz = torch.cat([xc, xc.new_zeros((Bn, 1, d))], dim=1).to(
             torch.bfloat16).to(x.dtype)
-        xe = xz[bidx[None, :, None], table]              # (e, B, cap, d)
+        # (this rank's experts only, under expert parallelism)
+        xe = xz[bidx[None, :, None], table[lo:lo + e_loc]]  # (e, B, cap, d)
         g = _expert_linear(ctx, xe, p["wg"], subcol(col, "wg"), wq["wg"])
         u = _expert_linear(ctx, xe, p["wu"], subcol(col, "wu"), wq["wu"])
         h = F.silu(g.float()).to(x.dtype) * u
-        ye = _expert_linear(ctx, h, p["wd"], subcol(col, "wd"),
-                            wq["wd"])                    # (e, B, cap, d)
+        down = _expert_linear_row if inside else _expert_linear
+        ye = down(ctx, h, p["wd"], subcol(col, "wd"),
+                  wq["wd"])                              # (e, B, cap, d)
         # combine: each token's k slots, gate (bf16) times output (bf16)
         # in f32, dropped pairs weighted zero
-        ysel = ye[idx, bidx[:, None, None], torch.clamp_max(pos, cap - 1)]
+        slot_pos = torch.clamp_max(pos, cap - 1)
+        if e_loc < e:
+            # expert parallelism: the slots of this rank's experts, then
+            # every slot from its owner (bitwise the whole gather)
+            mine = (idx >= lo) & (idx < lo + e_loc)
+            ysel = ye[torch.clamp(idx - lo, 0, e_loc - 1),
+                      bidx[:, None, None], slot_pos]
+            ysel = tp.sum_owned(torch.where(mine[..., None], ysel,
+                                            torch.zeros_like(ysel)))
+        else:
+            ysel = ye[idx, bidx[:, None, None], slot_pos]
         gk = torch.where(keep, gates.to(torch.bfloat16).float(),
                          torch.zeros_like(gates))
         yc = torch.sum(ysel.to(torch.bfloat16).float() * gk[..., None],
@@ -359,6 +435,15 @@ def _qkv(cfg: ModelConfig, ctx: QuantCtx, p: Dict, xq: torch.Tensor,
     return q, k, v
 
 
+def _out_proj(ctx: QuantCtx, p: Dict, out: torch.Tensor,
+              col: Optional[Dict] = None) -> torch.Tensor:
+    """The attention's output projection ``wo``: row-parallel over the
+    ranks' heads on a tensor-parallel mesh, or whole where every rank
+    runs every head (``ctx.attn_whole``)."""
+    return qlinear(ctx, out, p["wo"], subcol(col, "wo"),
+                   row=not ctx.attn_whole)
+
+
 def attn_fwd(cfg: ModelConfig, ctx: QuantCtx, p: Dict, x: torch.Tensor,
              rope, col: Optional[Dict] = None, *, window: int = 0,
              enc_out: Optional[torch.Tensor] = None,
@@ -388,8 +473,7 @@ def attn_fwd(cfg: ModelConfig, ctx: QuantCtx, p: Dict, x: torch.Tensor,
         from repro_torch.kernels.flash_attn.ops import flash_attn_fwd
         out = flash_attn_fwd(q, k, v, causal=causal, window=window,
                              plain=ctx.kernel_backend == "ref")
-    return qlinear(ctx, out.reshape(B, S, cfg.q_dim), p["wo"],
-                   subcol(col, "wo"), row=True)
+    return _out_proj(ctx, p, out.reshape(B, S, cfg.q_dim), col)
 
 
 def quantize_kv_for_cache(ctx: QuantCtx, p: Dict, k: torch.Tensor,
@@ -480,7 +564,7 @@ def attn_prefill(cfg: ModelConfig, ctx: QuantCtx, p: Dict, x: torch.Tensor,
     else:
         out = blockwise_attention(q, k, v, causal=not cross, window=window,
                                   q_chunk=1024, kv_chunk=1024)
-    y = qlinear(ctx, out.reshape(B, S, cfg.q_dim), p["wo"], row=True)
+    y = _out_proj(ctx, p, out.reshape(B, S, cfg.q_dim))
     k_q, v_q, s_k, s_v = quantize_kv_for_cache(ctx, p, k, v)
     if cross:
         cache = {n: t.contiguous() for n, t in
@@ -636,7 +720,7 @@ def attn_decode(cfg: ModelConfig, ctx: QuantCtx, p: Dict, x1: torch.Tensor,
         q = quantize_act(ctx, q, p, "s_q")
         out = _decode_attn(ctx, q[:, 0], cache["k_q"], cache["v_q"],
                            cache["s_k"], cache["s_v"], cache["length"])
-        y = qlinear(ctx, out.reshape(B, cfg.q_dim), p["wo"], row=True)
+        y = _out_proj(ctx, p, out.reshape(B, cfg.q_dim))
         return y[:, None], cache
     if rope is None and cfg.rope_theta:
         rope = rope_tables(positions[:, None], hd, cfg.rope_theta)
@@ -658,7 +742,7 @@ def attn_decode(cfg: ModelConfig, ctx: QuantCtx, p: Dict, x1: torch.Tensor,
         out = _decode_attn_paged(ctx, q[:, 0], cache["k_q"], cache["v_q"],
                                  cache["s_k"], cache["s_v"], block_tbl,
                                  cache["length"])
-        y = qlinear(ctx, out.reshape(B, cfg.q_dim), p["wo"], row=True)
+        y = _out_proj(ctx, p, out.reshape(B, cfg.q_dim))
         return y[:, None], cache
     Sc = cache["k_q"].shape[2]
     slot = torch.remainder(cache["length"], Sc).long()
@@ -671,7 +755,7 @@ def attn_decode(cfg: ModelConfig, ctx: QuantCtx, p: Dict, x1: torch.Tensor,
     out = _decode_attn(ctx, q[:, 0], cache["k_q"], cache["v_q"],
                        cache["s_k"], cache["s_v"],
                        torch.clamp_max(cache["length"], Sc))
-    y = qlinear(ctx, out.reshape(B, cfg.q_dim), p["wo"], row=True)
+    y = _out_proj(ctx, p, out.reshape(B, cfg.q_dim))
     return y[:, None], cache
 
 
@@ -722,8 +806,7 @@ def attn_chunk_prefill(cfg: ModelConfig, ctx: QuantCtx, p: Dict,
             chunk_len[i:i + 1]) for i in range(n)])
     else:
         out = _window_attention(cfg, q, k, v, kh, vh, offset, chunk_len)
-    y = qlinear(ctx, out.reshape(n, C, cfg.q_dim).to(x.dtype), p["wo"],
-                row=True)
+    y = _out_proj(ctx, p, out.reshape(n, C, cfg.q_dim).to(x.dtype))
     k_q1, v_q1, s_k1, s_v1 = quantize_kv_for_cache(ctx, p, k, v)
     commit_chunk_kv(cache, k_q1, v_q1, s_k1, s_v1, tbl, offset, chunk_len)
     cache["length"][slot.long()] = (offset + chunk_len).to(torch.int32)
@@ -796,6 +879,5 @@ def attn_spec_verify(cfg: ModelConfig, ctx: QuantCtx, p: Dict,
             + torch.arange(C, device=x.device)[None]).to(torch.int32)
     out = _spec_verify_attn(ctx, q, cache["k_q"], cache["v_q"],
                             cache["s_k"], cache["s_v"], tbl, lens)
-    y = qlinear(ctx, out.reshape(n, C, cfg.q_dim).to(x.dtype), p["wo"],
-                row=True)
+    y = _out_proj(ctx, p, out.reshape(n, C, cfg.q_dim).to(x.dtype))
     return y, cache

@@ -14,13 +14,23 @@ model code calls them where a sharded operand meets a replicated one:
   lookup, summed exactly (each token's row lives on one rank, the other
   ranks add zeros; the sum runs on the bit patterns as integers, so even
   a ``-0.0`` survives);
+* ``sum_owned``: an MoE layer's combine under expert parallelism: each
+  element (a bf16 expert output in a token's top-k slot) is filled on
+  the one rank that holds its expert and is zero elsewhere, so the sum
+  of the bit patterns as integers is the owner's bits (a ``-0.0`` and a
+  NaN survive, which an f32 sum of the slots would not guarantee);
+* ``all_reduce_sum_f32``: the f32 partials of an expert bank split
+  inside its experts (``wd`` row-parallel over d_ff), not exact;
 * ``broadcast_floats``: rank 0's host values (the engine's clock, its
   measured rates, the probe's pick), so every rank's host loop takes the
   same decisions.
 
 Every call counts one in :attr:`TPComm.census` by kind: a decode step of
 a dense decoder makes two MAX and two SUM all-reduces a layer (``wo``,
-``wd``), one SUM for the embedding and one all-gather for the logits.
+``wd``), one SUM for the embedding and one all-gather for the logits;
+an expert-parallel MoE layer one MAX and one SUM (``wo``) and one
+``all_reduce_owned`` (the combine); a layer whose attention every rank
+runs whole none for its attention.
 The census is the port's form of the reference's rule on the compiled
 decode wave (``collective_counts`` / ``pool_allgather_sites``: at least
 one all-reduce, at most two all-gathers, no KV pool leaf gathered);
@@ -40,7 +50,9 @@ from typing import List, Optional, Sequence
 
 import torch
 
-KINDS = ("all_reduce_max", "all_reduce_sum", "all_gather", "broadcast")
+KINDS = ("all_reduce_max", "all_reduce_sum", "all_reduce_sum_f32",
+         "all_reduce_owned", "all_gather", "broadcast")
+ALL_REDUCE_KINDS = tuple(k for k in KINDS if k.startswith("all_reduce"))
 
 
 class TPComm:
@@ -64,9 +76,10 @@ class TPComm:
             self.watch.add(t.untyped_storage().data_ptr())
 
     def counts(self) -> dict:
-        """The census by kind, with ``all_reduce`` their sum (MAX + SUM)."""
+        """The census by kind, with ``all_reduce`` the sum of the
+        all-reduce kinds."""
         d = {k: int(self.census[k]) for k in KINDS}
-        d["all_reduce"] = d["all_reduce_max"] + d["all_reduce_sum"]
+        d["all_reduce"] = sum(d[k] for k in ALL_REDUCE_KINDS)
         return d
 
     def all_reduce_max(self, t: torch.Tensor) -> torch.Tensor:
@@ -87,6 +100,37 @@ class TPComm:
         self._dist.all_reduce(t, op=self._dist.ReduceOp.SUM,
                               group=self.group)
         return t
+
+    def all_reduce_sum_f32(self, t: torch.Tensor) -> torch.Tensor:
+        """In place: the elementwise f32 sum over the ranks (rounded: the
+        partials of a split the int32 path cannot take)."""
+        if t.dtype != torch.float32:
+            raise TypeError(f"all_reduce_sum_f32 takes f32, got {t.dtype}")
+        self._note("all_reduce_sum_f32", t)
+        self._dist.all_reduce(t, op=self._dist.ReduceOp.SUM,
+                              group=self.group)
+        return t
+
+    def sum_owned(self, t: torch.Tensor) -> torch.Tensor:
+        """Every element from the one rank that owns it: ``t`` holds this
+        rank's elements and zero bits elsewhere, each element nonzero on
+        at most one rank. The bit patterns are summed as integers, so the
+        result is the owners' bits exactly. A 2-byte tensor of even size
+        moves as int32 words of two elements (each half has one owner,
+        so no carry crosses it: the payload's own bytes); any other moves
+        widened to int32. Gloo and NCCL both sum int32."""
+        t = t.contiguous()
+        self._note("all_reduce_owned", t)
+        ints = {1: torch.int8, 2: torch.int16, 4: torch.int32}[
+            t.element_size()]
+        pairs = ints == torch.int16 and t.numel() % 2 == 0
+        bits = (t.reshape(-1).view(torch.int32).clone() if pairs
+                else t.view(ints).to(torch.int32, copy=True))
+        self._dist.all_reduce(bits, op=self._dist.ReduceOp.SUM,
+                              group=self.group)
+        if pairs:
+            return bits.view(t.dtype).view(t.shape)
+        return bits.to(ints).view(t.dtype)
 
     def all_gather_last(self, t: torch.Tensor) -> torch.Tensor:
         """Every rank's ``t`` concatenated along the last dim, in rank

@@ -35,10 +35,18 @@ host allocator's global block ids) replicate.
 :func:`shard_params` is the port's ``jax.device_put(params,
 param_shardings(...))``: it keeps this rank's slice of every leaf.
 :func:`local_bytes` is one rank's share of a tree under its specs.
-Where ``tp`` is a multiple of ``n_kv_heads`` (:func:`kv_head_local`)
-both keep a whole KV head a rank instead of the spec's slice of one:
 ``param_spec`` stays the reference's pure rule, whose GSPMD reshards
-what the port keeps head-local.
+what the port keeps head-local; both helpers depart from it in two
+cases. Where ``tp`` is a multiple of ``n_kv_heads``
+(:func:`kv_head_local`) they keep a whole KV head a rank instead of the
+spec's slice of one. Where ``tp`` divides neither the query heads nor,
+with a multiple of it, the KV heads (:func:`attn_replicated`), they keep
+every attention linear whole (``wq`` / ``wk`` / ``wv`` / ``wo``, their
+biases, scales and packed planes): every rank runs the whole attention,
+as ``serve_cache_spec`` then keeps the whole pool on every rank. The
+expert banks follow the rule: experts over "model" when ``tp`` divides
+them (expert parallelism), else ``wg`` / ``wu`` column- and ``wd``
+row-parallel inside every expert.
 
 :func:`shard_batch` cuts this data rank's rows of a training batch by
 :func:`batch_spec`.
@@ -309,6 +317,40 @@ def kv_head_local(cfg: ModelConfig, tp: int) -> bool:
     return (0 < hkv < tp and tp % hkv == 0 and cfg.n_heads % tp == 0)
 
 
+def attn_replicated(cfg: ModelConfig, tp: int) -> bool:
+    """Whether every rank keeps and runs the whole attention: ``tp`` > 1
+    divides neither ``n_heads`` nor, as a divisor or through
+    :func:`kv_head_local`, the KV heads (e.g. qwen2-7b's 28 query heads
+    at tp=8). The reference's rules replicate those projections too
+    (``_maybe``) and its GSPMD reshards the activations around them; the
+    port computes every head on every rank and reduces nothing at
+    ``wo``, so K, V and the attention output are bitwise tp=1's."""
+    if tp <= 1:
+        return False
+    return (cfg.n_heads % tp != 0
+            or (cfg.n_kv_heads % tp != 0 and not kv_head_local(cfg, tp)))
+
+
+ATTN_LINEARS = ("wq", "wk", "wv", "wo")
+
+
+def _attn_leaf(path: str) -> bool:
+    """Whether ``path`` is a leaf of an attention linear (its weight,
+    bias, scales or packed planes): ``.../attn/<wq|wk|wv|wo>/...``."""
+    parts = path.split("/")
+    return any(a == "attn" and b in ATTN_LINEARS
+               for a, b in zip(parts, parts[1:]))
+
+
+def bank_leaf(path: str) -> bool:
+    """Whether ``path`` is an expert bank's weight or scale
+    (``.../moe/<wg|wu|wd>/<w|s_w>``), the leaves the MoE rule above
+    cuts over the experts or inside them."""
+    parts = path.split("/")
+    return (len(parts) >= 3 and parts[-3] == "moe"
+            and parts[-2] in MOE_KEYS and parts[-1] in ("w", "s_w"))
+
+
 def _kv_head_dim(cfg: ModelConfig, path: str,
                  shape: Tuple[int, ...]) -> Optional[int]:
     """The KV-head (output-channel) dim of a ``wk`` / ``wv`` leaf: the
@@ -345,9 +387,11 @@ def shard_params(params, cfg: ModelConfig, mesh):
     planes' rows of it) whole. Every output column of a column-parallel
     linear depends only on the shared input and its own weights, and the
     K/V scales are per token and head, so this rank's K and V are bitwise
-    the same columns of tp=1's."""
+    the same columns of tp=1's. Where every rank runs the whole attention
+    (:func:`attn_replicated`), its linears' leaves are kept whole."""
     tp, rank = int(mesh.shape["model"]), int(mesh.rank)
     local_kv = kv_head_local(cfg, tp)
+    whole_attn = attn_replicated(cfg, tp)
     hd = cfg.resolved_head_dim
     kv_head = rank // (tp // cfg.n_kv_heads) if local_kv else 0
 
@@ -360,6 +404,8 @@ def shard_params(params, cfg: ModelConfig, mesh):
         if not isinstance(tree, torch.Tensor) or tp == 1:
             return tree
         path, shape = prefix[:-1], tuple(tree.shape)
+        if whole_attn and _attn_leaf(path):
+            return tree
         if local_kv:
             dim = _kv_head_dim(cfg, path, shape)
             if dim is not None:
@@ -380,14 +426,19 @@ def local_bytes(tree, specs: Dict[str, Spec], tp: int,
     sharded leaf counts its shard, a replicated leaf its whole size. The
     port's ``_device_local_bytes``. With ``cfg``, where the ranks hold
     whole KV heads (:func:`kv_head_local`), a ``wk`` / ``wv`` leaf
-    counts one KV head, as :func:`shard_params` keeps it."""
+    counts one KV head, and where they run the whole attention
+    (:func:`attn_replicated`) an attention linear's leaf counts whole,
+    as :func:`shard_params` keeps them."""
     local_kv = cfg is not None and kv_head_local(cfg, tp)
+    whole_attn = cfg is not None and attn_replicated(cfg, tp)
     total = 0
     for path, t in flatten(tree):
         if isinstance(t, torch.Tensor):
             dim = (_kv_head_dim(cfg, path, tuple(t.shape)) if local_kv
                    else None)
-            if dim is not None:
+            if whole_attn and _attn_leaf(path):
+                n = t.numel()
+            elif dim is not None:
                 n = t.numel() // t.shape[dim] * cfg.resolved_head_dim
             else:
                 n = _local_numel(t.shape, _full(specs.get(path, ()),

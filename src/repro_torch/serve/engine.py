@@ -87,14 +87,21 @@ only at admission and harvest:
   pool (and the draft's cache) at ``n_kv_heads / tp`` heads, as
   ``serve_cache_spec`` shards it; where ``tp`` is a multiple of
   ``n_kv_heads`` (more ranks than KV heads), each rank holds the one
-  whole KV head its query heads read (``sharding.kv_head_local``). The logits are gathered whole on every
-  rank, so the sampled tokens, and the host loop that follows them, are
-  the same on every rank; rank 0's clock and measured rates are
-  broadcast once a host step, so no admission or shed decision reads a
-  rank's own clock. Streams are bitwise tp=1's. Dense attention decoders
-  only (MoE, recurrent and encoder blocks raise), with ``n_heads``
-  divisible by ``tp`` and ``n_kv_heads`` divisible by it or dividing
-  it, under ``weights_layout="w4a8"``.
+  whole KV head its query heads read (``sharding.kv_head_local``); where
+  ``tp`` does not divide the heads, every rank holds and runs the whole
+  attention and the whole pool (``sharding.attn_replicated``). An MoE
+  layer keeps its router whole and ``n_experts / tp`` experts a rank,
+  its combine gathering each top-k slot from its owner bit for bit
+  (expert parallelism), or, where ``tp`` does not divide the experts,
+  every expert's ``d_ff / tp`` slice (TP inside experts, within a
+  tolerance of tp=1: ``models.blocks.moe_fwd``). The logits are gathered
+  whole on every rank, so the sampled tokens, and the host loop that
+  follows them, are the same on every rank; rank 0's clock and measured
+  rates are broadcast once a host step, so no admission or shed decision
+  reads a rank's own clock. Streams are bitwise tp=1's (TP inside
+  experts apart). Attention decoders with a dense MLP or an MoE only
+  (recurrent, local-attention and encoder blocks raise), under
+  ``weights_layout="w4a8"``.
 """
 from __future__ import annotations
 
@@ -120,7 +127,8 @@ from repro_torch.models.blocks import POOL_KEYS
 from repro_torch.obs.metrics import ServeMetrics
 from repro_torch.obs.trace import NULL_TRACER, Tracer
 from repro_torch.runtime.collectives import TPComm
-from repro_torch.runtime.sharding import kv_head_local, shard_params
+from repro_torch.runtime.sharding import (attn_replicated, bank_leaf,
+                                         shard_params)
 from repro_torch.serve.block_alloc import BlockAllocator, PoolDry
 from repro_torch.serve.sampling import (TOP_K_CAP, fold_step, sample_tokens,
                                         slot_key, token_probs)
@@ -218,28 +226,34 @@ def _clamp_lengths(cache: Dict, lens: torch.Tensor) -> None:
 
 def _check_tp(cfg: ModelConfig, tp: int, weights_layout: str) -> None:
     """Refuse what tensor-parallel serving does not cover: blocks other
-    than attention plus a dense MLP, query heads that ``tp`` does not
-    divide and KV heads that it neither divides nor is a multiple of
-    (the reference falls back to GSPMD resharding there), and the
-    bf16 layout (a row-parallel linear would sum bf16 partials, which is
-    not exact)."""
+    than full or sliding-window attention with a dense MLP or an MoE
+    (recurrent, local-attention and encoder blocks: ROADMAP Queue 1 item
+    2a.3), an MoE whose experts ``tp`` does not divide with a ``d_ff``
+    it does not divide either (TP inside experts splits every expert's
+    d_ff), a dense ``d_ff`` whose packed row-parallel plane ``tp`` would
+    cut inside a nibble pair, and the bf16 layout (a row-parallel linear
+    would sum bf16 partials, which is not exact). Query heads ``tp`` does
+    not divide are served with the whole attention on every rank
+    (``runtime.sharding.attn_replicated``)."""
     kinds = set(cfg.layer_kinds())
-    if cfg.is_moe or cfg.is_encdec or kinds - {BLOCK_ATTN}:
-        what = ("MoE experts (expert parallelism, TP inside experts)"
-                if cfg.is_moe else "an encoder (cross-attention caches)"
-                if cfg.is_encdec else
-                f"recurrent or local blocks {sorted(kinds - {BLOCK_ATTN})} "
-                "(the lam / conv / r_h rules)")
+    if cfg.is_encdec or kinds - {BLOCK_ATTN}:
+        what = ("an encoder (cross-attention caches)" if cfg.is_encdec
+                else f"recurrent or local blocks "
+                     f"{sorted(kinds - {BLOCK_ATTN})} (the lam / conv / "
+                     "r_h rules)")
         raise NotImplementedError(
             f"tensor-parallel serving of {cfg.name!r} needs {what}, which "
-            "is not ported (ROADMAP Queue 1 item 2a); serve it at tp=1")
-    if cfg.n_heads % tp or (cfg.n_kv_heads % tp
-                            and not kv_head_local(cfg, tp)):
+            "is not ported (ROADMAP Queue 1 item 2a.3); serve it at tp=1")
+    if cfg.is_moe and cfg.n_experts % tp and cfg.d_ff % tp:
         raise ValueError(
-            f"tp={tp} must divide n_heads and either divide n_kv_heads or "
-            f"be a multiple of it: {cfg.name!r} has n_heads={cfg.n_heads} "
-            f"and n_kv_heads={cfg.n_kv_heads} (the port keeps each rank's "
-            "heads local; it has no resharding fallback)")
+            f"tp={tp} divides neither {cfg.name!r}'s {cfg.n_experts} "
+            f"experts nor their d_ff={cfg.d_ff}: no expert parallelism and "
+            "no TP inside the experts")
+    if not cfg.is_moe and cfg.d_ff % tp == 0 and (cfg.d_ff // 2) % tp:
+        raise ValueError(
+            f"tp={tp} divides d_ff={cfg.d_ff} but not its packed rows "
+            f"({cfg.d_ff // 2}): wd's packed plane would stay whole while "
+            "its input is cut")
     if weights_layout != "w4a8":
         raise ValueError(
             "tensor-parallel serving needs weights_layout='w4a8': its "
@@ -355,11 +369,13 @@ class ServeEngine:
         self.cfg = cfg
         # the config the model code runs: on a mesh, this rank's heads
         # (head-major halves keep each GQA group on one rank; where tp
-        # exceeds the KV heads, one whole KV head a rank)
-        self.mcfg = cfg if self.tp == 1 else cfg.replace(
-            n_heads=cfg.n_heads // self.tp,
-            n_kv_heads=max(cfg.n_kv_heads // self.tp, 1),
-            head_dim=cfg.resolved_head_dim)
+        # exceeds the KV heads, one whole KV head a rank; where tp does
+        # not divide the heads, every head: attn_replicated)
+        self._attn_whole = attn_replicated(cfg, self.tp)
+        self.mcfg = cfg if self.tp == 1 or self._attn_whole else \
+            cfg.replace(n_heads=cfg.n_heads // self.tp,
+                        n_kv_heads=max(cfg.n_kv_heads // self.tp, 1),
+                        head_dim=cfg.resolved_head_dim)
         self._comm = TPComm(mesh) if self.tp > 1 else None
         # the clock the scheduler and the shed predictor read: on a mesh,
         # rank 0's, broadcast once a host step (_sync_host)
@@ -398,7 +414,7 @@ class ServeEngine:
             # the draft built below slices already-sharded leaves
             params = shard_params(params, cfg, mesh)
         self.ctx = make_ctx(policy, weights_layout=weights_layout,
-                            tp=self._comm)
+                            tp=self._comm, attn_whole=self._attn_whole)
         self.params = params
         self.slots = slots
         self.cache_len = cache_len
@@ -443,7 +459,8 @@ class ServeEngine:
                                                            self.spec)
             self.draft_ctx = make_ctx(self.spec.draft_policy or policy,
                                       weights_layout=weights_layout,
-                                      tp=self._comm)
+                                      tp=self._comm,
+                                      attn_whole=self._attn_whole)
             # the draft runs up to k positions past the accepted extent
             # before rollback; its dense ring must never wrap into history
             self._draft_cache_len = self.max_seq_len + self.spec.k + 1
@@ -1903,6 +1920,9 @@ class ServeEngine:
         per_device_pool_bytes       this rank's cache (pool) bytes
         per_device_weight_bytes     this rank's served weight bytes (the
                                     packed planes under w4a8)
+        per_device_bank_bytes       this rank's MoE expert banks' bytes
+                                    (bf16 weights and scales, never
+                                    packed; 0 without experts)
         decode_block(_mode)         chunk length and how it was chosen
                                     ("fixed" / "auto" / "spec")
         weights_layout              serve weight layout ("bf16" / "w4a8")
@@ -1955,6 +1975,9 @@ class ServeEngine:
         d["per_device_weight_bytes"] = sum(
             t.numel() * t.element_size()
             for t in self._served_weight_leaves())
+        d["per_device_bank_bytes"] = sum(
+            t.numel() * t.element_size() for p, t in flatten(self.params)
+            if isinstance(t, torch.Tensor) and bank_leaf(p))
         d["weights_layout"] = self.weights_layout
         d["packed_weight_bytes"] = self._w4a8_bytes["packed"]
         d["weight_hbm_saved_bytes"] = max(

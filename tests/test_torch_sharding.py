@@ -310,34 +310,42 @@ class TestMeshErrors:
                                       "xlstm-125m", "whisper-large-v3",
                                       "moonshot-v1-16b-a3b"])
     def test_engine_refuses_uncovered_archs(self, arch):
-        mesh = Mesh(shape={"data": 1, "model": 2}, rank=0,
+        """Recurrent, local-attention and encoder blocks are not ported at
+        tp > 1 (Queue 1 item 2a.3). An MoE is served where tp divides its
+        experts (expert parallelism) or their d_ff (TP inside experts:
+        ``tests/test_torch_tp_moe.py``) and refused where it divides
+        neither: tp=3 on the reduced MoEs' 4 or 8 experts of d_ff 64."""
+        cfg = t_get_reduced_config(arch)
+        tp = 3 if cfg.is_moe else 2
+        mesh = Mesh(shape={"data": 1, "model": tp}, rank=0,
                     device=torch.device("cpu"))
-        with pytest.raises(NotImplementedError, match="Queue 1 item 2a"):
-            ServeEngine(t_get_reduced_config(arch), None, mesh=mesh,
-                        weights_layout="w4a8")
+        err, match = ((ValueError, "divides neither") if cfg.is_moe else
+                      (NotImplementedError, "Queue 1 item 2a.3"))
+        with pytest.raises(err, match=match):
+            ServeEngine(cfg, None, mesh=mesh, weights_layout="w4a8")
 
-    def test_engine_refuses_heads_that_do_not_divide(self):
-        """Query heads that tp does not divide (qwen2-7b's 28 at tp=8),
-        and KV heads that tp neither divides nor is a multiple of, are
-        refused; tp a multiple of the KV heads is served
-        (``tests/test_torch_tp_serve.py``: reduced qwen2.5-3b's 2 at
-        tp=4)."""
+    def test_engine_still_refuses(self):
+        """What ``_check_tp`` still refuses besides the blocks above: a
+        dense d_ff that tp divides while its packed rows (d_ff / 2) it
+        does not (wd's plane would stay whole under a cut input). Query
+        heads that tp does not divide are served now, the whole attention
+        on every rank (qwen2-7b's 28 at tp=8, reduced qwen2.5-3b's 4 at
+        tp=3, 12 heads on 3 KV heads at tp=2: ``attn_replicated``;
+        ``tests/test_torch_tp_serve.py`` serves 6 heads on 3 at tp=4)."""
         from repro_torch.configs import get_config
-        mesh8 = Mesh(shape={"data": 1, "model": 8}, rank=0,
-                     device=torch.device("cpu"))
-        with pytest.raises(ValueError, match="n_heads=28"):
-            ServeEngine(get_config("qwen2-7b"), None, mesh=mesh8,
+        from repro_torch.serve.engine import _check_tp
+        cfg = t_get_reduced_config("qwen2.5-3b")
+        mesh = Mesh(shape={"data": 1, "model": 4}, rank=0,
+                    device=torch.device("cpu"))
+        with pytest.raises(ValueError, match="packed rows"):
+            ServeEngine(cfg.replace(d_ff=132), None, mesh=mesh,
                         weights_layout="w4a8")
-        cfg = t_get_reduced_config("qwen2.5-3b")       # 4 heads on 2
-        mesh3 = Mesh(shape={"data": 1, "model": 3}, rank=0,
-                     device=torch.device("cpu"))
-        with pytest.raises(ValueError, match="n_heads=4"):
-            ServeEngine(cfg, None, mesh=mesh3, weights_layout="w4a8")
-        mesh2 = Mesh(shape={"data": 1, "model": 2}, rank=0,
-                     device=torch.device("cpu"))
-        with pytest.raises(ValueError, match="n_kv_heads=3"):
-            ServeEngine(cfg.replace(n_heads=12, n_kv_heads=3), None,
-                        mesh=mesh2, weights_layout="w4a8")
+        for c, tp in ((get_config("qwen2-7b"), 8), (cfg, 3),
+                      (cfg.replace(n_heads=12, n_kv_heads=3), 2)):
+            assert tsh.attn_replicated(c, tp)
+            _check_tp(c, tp, "w4a8")
+        assert not tsh.attn_replicated(cfg, 4)      # one KV head a rank
+        assert not tsh.attn_replicated(cfg, 1)
 
     def test_engine_refuses_the_bf16_layout(self):
         mesh = Mesh(shape={"data": 1, "model": 2}, rank=0,

@@ -30,6 +30,7 @@ import torch
 from repro_torch import bridge
 from repro_torch.configs import get_reduced_config
 from repro_torch.launch.mesh import spawn_tp
+from repro_torch.runtime.sharding import shard_params
 from repro_torch.models import clone_cache, decode_step
 from repro_torch.serve.engine import Request, ServeEngine
 from repro_torch.serve.spec import SpecConfig
@@ -140,8 +141,9 @@ def _cold_prefill_pool(cfg, params, mesh):
             "kv_heads": eng.mcfg.n_kv_heads}
 
 
-def _cfg(kv):
-    return get_reduced_config("qwen2.5-3b").replace(n_kv_heads=kv)
+def _cfg(kv, heads=4):
+    return get_reduced_config("qwen2.5-3b").replace(n_heads=heads,
+                                                    n_kv_heads=kv)
 
 
 def _freed_without_gc(cfg, params, mesh):
@@ -166,10 +168,10 @@ def _gathered(obj):
     return objs
 
 
-def rank_scenarios(mesh, tree, kv, which):
+def rank_scenarios(mesh, tree, kv, which, heads=4):
     """Every scenario of one mesh on this rank; rank 0's result is
     returned (each scenario also says whether all ranks agreed)."""
-    cfg = _cfg(kv)
+    cfg = _cfg(kv, heads)
     params = bridge.params_from_numpy(tree, "cpu")
     res = {}
     if "streams" in which:
@@ -226,9 +228,9 @@ def rank_scenarios(mesh, tree, kv, which):
     return res
 
 
-def _spawn(tree, kv, tp, which):
-    return spawn_tp(rank_scenarios, tp, tree, kv, which, device="cpu",
-                    backend="gloo", timeout_s=TIMEOUT_S)
+def _spawn(tree, kv, tp, which, heads=4):
+    return spawn_tp(rank_scenarios, tp, tree, kv, which, heads,
+                    device="cpu", backend="gloo", timeout_s=TIMEOUT_S)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -313,6 +315,28 @@ def gqa4():
     return base, _spawn(tree, 2, 4, ("streams", "logits", "prefill"))
 
 
+@pytest.fixture(scope="module")
+def odd4():
+    """6 query heads on 3 KV heads at tp=4, which divides neither: every
+    rank runs the whole attention (``sharding.attn_replicated``); the MLP,
+    embedding and head stay cut in four. Params: the port's calibrated
+    ones from a seed (bridged to the reference's layout), and the tp=1
+    run."""
+    import ml_dtypes
+    from repro_torch.core.precision import parse_policy
+    from repro_torch.core.qat import calibrate_weight_scales
+    from repro_torch.models import init_params
+    cfg = _cfg(3, 6)
+    params = calibrate_weight_scales(init_params(cfg, seed=0, device="cpu"),
+                                     parse_policy(POLICY))
+    tree = bridge.params_to_numpy(params, ml_dtypes.bfloat16)
+    params = bridge.params_from_numpy(tree, "cpu")
+    base = {"streams": _run(cfg, params, None, ENG_KW, _mixed_reqs(cfg)),
+            "logits": _step_logits(cfg, params, None, ENG_KW)["logits"],
+            "prefill": _cold_prefill_pool(cfg, params, None)}
+    return base, _spawn(tree, 3, 4, ("streams", "logits", "prefill"), 6)
+
+
 class TestStreamParity:
     @pytest.mark.parametrize("mesh", ["tp2", "tp4"])
     def test_greedy_sampled(self, base4, mesh, request):
@@ -362,6 +386,42 @@ class TestStreamParity:
             for k, v in pool.items():
                 assert v.shape[2] == 1, k
                 np.testing.assert_array_equal(v, pool1[k][:, :, h:h + 1],
+                                              err_msg=f"rank {r} {k}")
+
+    def test_heads_tp_does_not_divide(self, odd4):
+        """6 query and 3 KV heads at tp=4 (ROADMAP Queue 3 item 6, fixed):
+        greedy and sampled streams, one decode step's gathered logits and
+        the cold prefill's int8 K/V codes and scales are bitwise tp=1's;
+        every rank's pool is tp=1's whole pool (``serve_cache_spec``
+        replicates it: 4 divides no KV-head count of 3), its bytes equal
+        tp=1's; the weights a rank holds are fewer (the MLP, embedding
+        and head cut in four); a decode step reduces nothing at wo."""
+        from repro_torch.runtime.sharding import (attn_replicated,
+                                                  serve_cache_spec)
+        base, got = odd4
+        cfg = _cfg(3, 6)
+        assert attn_replicated(cfg, 4)
+        streams, st = got["streams"]
+        want, st1, _ = base["streams"]
+        assert streams == want and got["streams_agree"]
+        assert len(set(want)) > 1
+        assert st["tp_degree"] == 4 and st["decode_steps"] == \
+            st1["decode_steps"]
+        assert st["per_device_pool_bytes"] == st1["per_device_pool_bytes"]
+        assert st["per_device_weight_bytes"] < st1["per_device_weight_bytes"]
+        np.testing.assert_array_equal(got["logits"]["logits"],
+                                      base["logits"])
+        c = got["logits"]["census"]
+        assert c["all_reduce_max"] == cfg.n_layers      # wd only
+        assert c["all_reduce_sum"] == cfg.n_layers + 1  # wd, the embedding
+        pool1 = base["prefill"]["pool"]
+        assert got["prefill"]["kv_heads"] == 3
+        for r, pool in enumerate(got["prefill_ranks"]):
+            for k, v in pool.items():
+                assert serve_cache_spec(
+                    cfg, _FakeMesh4, f"layers/0/{k}", v.shape[1:]) == (
+                        None,) * (v.ndim - 1), k
+                np.testing.assert_array_equal(v, pool1[k],
                                               err_msg=f"rank {r} {k}")
 
     def test_prefix_hits_cow_and_tail_waves(self, base4, tp2):
@@ -439,6 +499,60 @@ class TestLockstep:
         tails = tp2["probe_tails"]
         assert any(t is not None and ("model", 2) in t for t in tails), \
             tails
+
+
+class _NoCollectives:
+    """A tensor-parallel comm whose every collective fails the test."""
+    size, rank = 3, 0
+
+    def __getattr__(self, name):
+        raise AssertionError(f"a whole linear called {name}")
+
+
+def test_whole_linears_reduce_nothing():
+    """At a tp the dims do not divide (3 on reduced qwen2.5-3b: d_ff 128,
+    4 heads), the sharding rules keep wd and wo whole: the MLP and, under
+    ``attn_whole``, the attention run as at tp=1 and call no collective;
+    ``local_bytes`` counts the leaves ``shard_params`` keeps."""
+    from repro_torch.core.precision import parse_policy
+    from repro_torch.core.qat import (attach_w4a8_exports,
+                                      calibrate_weight_scales, make_ctx)
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import blocks as B
+    from repro_torch.models import init_params
+    from repro_torch.runtime.sharding import (attn_replicated, local_bytes,
+                                              param_spec)
+    cfg = _cfg(2)
+    pol = parse_policy(POLICY)
+    params = attach_w4a8_exports(calibrate_weight_scales(
+        init_params(cfg, seed=0, device="cpu"), pol), pol)
+    mesh = Mesh(shape={"data": 1, "model": 3}, rank=1,
+                device=torch.device("cpu"))
+    local = shard_params(params, cfg, mesh)
+    layer = local["layers"][0]
+    assert attn_replicated(cfg, 3)
+    # local_bytes counts what shard_params keeps: the attention whole
+    specs = {p: param_spec(cfg, mesh, p, tuple(t.shape))
+             for p, t in bridge.flatten(params)}
+    assert local_bytes(params, specs, 3, cfg=cfg) == sum(
+        t.numel() * t.element_size() for _, t in bridge.flatten(local))
+    x = torch.randn((2, 5, cfg.d_model),
+                    generator=torch.Generator().manual_seed(0)).to(
+                        torch.bfloat16)
+    one = make_ctx(POLICY, weights_layout="w4a8")
+    tp3 = make_ctx(POLICY, weights_layout="w4a8", tp=_NoCollectives(),
+                   attn_whole=True)
+    lay1 = params["layers"][0]
+    assert torch.equal(B.mlp_fwd(cfg, tp3, layer["mlp"], x),
+                       B.mlp_fwd(cfg, one, lay1["mlp"], x))
+    out = x.reshape(2, 5, -1)[..., :1].expand(2, 5, cfg.q_dim).contiguous()
+    assert torch.equal(B._out_proj(tp3, layer["attn"], out),
+                       B._out_proj(one, lay1["attn"], out))
+
+
+class _FakeMesh4:
+    axis_names = ("data", "model")
+    shape = {"data": 1, "model": 4}
 
 
 def test_cli_tp2_gloo_on_cpu(capsys):
