@@ -31,7 +31,8 @@ from repro_torch.core import calibration as calib
 from repro_torch.core.precision import PrecisionPolicy, parse_policy
 from repro_torch.core.quantizer import (dynamic_fake_quant,
                                         dynamic_quantize_to_int, pack_int4,
-                                        qbounds, quantize_to_int)
+                                        qbounds, quantize_by_amax,
+                                        quantize_to_int)
 from repro_torch.kernels.quant.ops import lsq_fake_quant
 
 # Param-dict keys holding quantizer step sizes
@@ -60,9 +61,11 @@ class QuantCtx:
     kernel_backend: str = "auto"
     # tensor-parallel serving: this rank's ``runtime.collectives.TPComm``
     # (None off the mesh). Row-parallel linears (``qlinear(..., row=
-    # True)``: wo, wd) then reduce their amax and int32 accumulators over
-    # it, the embedding sums its vocabulary shards and the head gathers
-    # its logits
+    # True)``: wo, wd, w_out, w_down) then reduce their amax and int32
+    # accumulators (w4a8) or f32 partials (bf16) over it, a dynamic
+    # scale over a rank's slice of a row (``sharded=True``) takes the
+    # whole row's amax, the embedding sums its vocabulary shards and the
+    # head gathers its logits
     tp: Any = None
     # tensor-parallel serving where tp does not divide the heads
     # (``runtime.sharding.attn_replicated``): every rank runs the whole
@@ -126,13 +129,30 @@ def _stat(ctx: QuantCtx, x: torch.Tensor, bits: int) -> torch.Tensor:
     return calib.act_percentile_stat(x, bits)
 
 
+def _tp_sharded(ctx: QuantCtx, sharded: bool) -> bool:
+    return sharded and ctx.tp is not None and ctx.tp.size > 1
+
+
+def _whole_row_amax(ctx: QuantCtx, xf: torch.Tensor) -> torch.Tensor:
+    """The per-row |x| maximum of f32 ``xf``, this rank's slice of each
+    row, over the whole row: the local maximum all-reduced (MAX, exact)
+    over the tensor-parallel ranks."""
+    amax = torch.amax(torch.abs(xf), dim=-1, keepdim=True)
+    return ctx.tp.all_reduce_max(amax)
+
+
 def quantize_act(ctx: QuantCtx, x: torch.Tensor, p: Dict[str, Any], site: str,
                  col: Optional[Dict[str, Any]] = None,
-                 bits: Optional[int] = None) -> torch.Tensor:
+                 bits: Optional[int] = None,
+                 sharded: bool = False) -> torch.Tensor:
     """Quantize an activation-class site (``s_in``/``s_q``/``s_k``/``s_v``).
 
     ``p`` is the owning param dict (provides the learned scale in static
-    mode); ``col`` is the calibration collector.
+    mode); ``col`` is the calibration collector. ``sharded``: on a
+    tensor-parallel mesh ``x`` holds this rank's slice of its last dim,
+    so a dynamic (per-row) scale takes the whole row's amax and the
+    slice's values are the whole row's; a static scale quantizes
+    elementwise either way.
     """
     if ctx.off:
         return x
@@ -144,6 +164,10 @@ def quantize_act(ctx: QuantCtx, x: torch.Tensor, p: Dict[str, Any], site: str,
             col[site] = _stat(ctx, x, bits)
         return x
     if ctx.policy.act_dynamic:
+        if _tp_sharded(ctx, sharded):
+            xf = x.float()
+            q, s = quantize_by_amax(xf, _whole_row_amax(ctx, xf), bits)
+            return (q.float() * s).to(x.dtype)
         return dynamic_fake_quant(x, bits, axis=-1)
     return lsq_fake_quant(x, p[site], bits,
                           plain=ctx.kernel_backend == "ref",
@@ -191,11 +215,13 @@ def qlinear(ctx: QuantCtx, x: torch.Tensor, p: Dict[str, Any],
     A missing export raises: a silent bf16 fallback would defeat the
     layout (weight-HBM streaming).
 
-    ``row`` marks a row-parallel linear (the sharding rules' wo, wd, w2):
-    on a tensor-parallel mesh (``ctx.tp``) its input and packed weight
-    are this rank's K slice, and ``w4a8_linear_row`` reduces the amax
-    and the int32 accumulators over the ranks. Off the mesh it changes
-    nothing.
+    ``row`` marks a row-parallel linear (the sharding rules' wo, wd, w2,
+    w_out, w_down): on a tensor-parallel mesh (``ctx.tp``) its input and
+    weight are this rank's K slice. Under w4a8 ``w4a8_linear_row``
+    reduces the amax and the int32 accumulators over the ranks (bitwise
+    tp=1's); under bf16 :func:`_qlinear_row_bf16` reduces the amax and
+    sums the f32 partial products (within a tolerance of tp=1's bf16
+    GEMM, not bitwise). Off the mesh it changes nothing.
     """
     row_tp = row and ctx.tp is not None and ctx.tp.size > 1
     if ctx.weights_layout == "w4a8" and ctx.mode != "calib" and not ctx.off:
@@ -210,13 +236,28 @@ def qlinear(ctx: QuantCtx, x: torch.Tensor, p: Dict[str, Any],
             return w4a8_linear_row(x, exp, ctx.tp, out_dtype=x.dtype,
                                    plain=ctx.kernel_backend == "ref")
         return w4a8_qlinear(ctx, x, exp)
-    if row_tp:
-        raise NotImplementedError(
-            "a row-parallel linear runs under weights_layout='w4a8' only "
-            "(its int32 accumulators sum exactly; bf16 partials would not)")
-    xq = quantize_act(ctx, x, p, "s_in", col, bits=act_bits)
+    xq = quantize_act(ctx, x, p, "s_in", col, bits=act_bits, sharded=row)
     wq = quantize_weight_p(ctx, p, bits=weight_bits)
+    if row_tp:
+        return _qlinear_row_bf16(ctx, xq, wq, p)
     y = torch.matmul(xq, wq)
+    if "b" in p:
+        y = y + p["b"].to(y.dtype)
+    return y
+
+
+def _qlinear_row_bf16(ctx: QuantCtx, xq: torch.Tensor, wq: torch.Tensor,
+                      p: Dict[str, Any]) -> torch.Tensor:
+    """The row-parallel linear of the bf16 layout on a tensor-parallel
+    mesh: ``xq`` (quantized with the whole row's scale) and ``wq`` (this
+    rank's rows of the fake-quantized weight, its per-output-channel
+    scales whole) are this rank's K slice. Their f32 product is
+    all-reduced (SUM) and rounded to ``xq``'s dtype once; the bias is
+    added once, after the sum, as tp=1 adds it. tp=1's bf16 GEMM rounds
+    its own f32 sum of all K, in its own order, so this is not bitwise
+    (the tolerance is stated by ``tests/test_torch_tp_recurrent.py``)."""
+    part = torch.matmul(xq.float(), wq.float())
+    y = ctx.tp.all_reduce_sum_f32(part).to(xq.dtype)
     if "b" in p:
         y = y + p["b"].to(y.dtype)
     return y
@@ -237,15 +278,27 @@ def cache_dtype(ctx: QuantCtx):
     return torch.int8
 
 
-def cache_quantize(ctx: QuantCtx, x: torch.Tensor, axis: int = -1):
+def cache_quantize(ctx: QuantCtx, x: torch.Tensor, axis: int = -1,
+                   sharded: bool = False):
     """Quantize a tensor for cache storage; returns (stored, scale).
 
     C16 / disabled policies store bf16 with unit scales (same cache
-    structure either way, so serve code is policy-agnostic)."""
+    structure either way, so serve code is policy-agnostic).
+    ``sharded``: on a tensor-parallel mesh ``x`` holds this rank's slice
+    of each row (the last dim; a recurrent state cut over the ranks), so
+    the scale is the whole row's (an all-reduced MAX) and the codes are
+    the whole row's codes of this slice."""
     if ctx.off or ctx.policy.cache_bits >= 16:
         s_shape = x.shape[:-1] + (1,) if axis in (-1, x.ndim - 1) else x.shape
         return x.to(torch.bfloat16), torch.ones(s_shape, dtype=torch.float32,
                                                 device=x.device)
+    if _tp_sharded(ctx, sharded):
+        if axis not in (-1, x.ndim - 1):
+            raise ValueError("a sharded cache row is quantized over its "
+                             "last dim")
+        xf = x.float()
+        return quantize_by_amax(xf, _whole_row_amax(ctx, xf),
+                                ctx.policy.cache_bits)
     return dynamic_quantize_to_int(x, ctx.policy.cache_bits, axis=axis)
 
 

@@ -26,6 +26,7 @@ rather than left to the process group's timeout.
 """
 from __future__ import annotations
 
+import math
 import os
 import pickle
 import queue as queue_mod
@@ -166,14 +167,17 @@ def _worker(rank: int, world: int, model_parallel: int, call: str,
 
 def spawn(fn: Callable, world: int, *args, model_parallel: int = 1,
           device: str = "cuda", backend: str = "nccl",
-          timeout_s: float = 600.0) -> Any:
+          timeout_s: float = 600.0, deadline: bool = True) -> Any:
     """Run ``fn(mesh, *args)`` on ``world`` ranks, a mesh of ``world //
     model_parallel`` data replicas of ``model_parallel`` model ranks,
     and return rank 0's result. ``fn`` and ``args`` must pickle (a
     module-level function); every rank gets the same arguments. Raises
     RuntimeError with each failed rank's traceback and the exit code of
     every rank that died if any rank fails, and kills every rank and
-    raises TimeoutError once ``timeout_s`` has passed."""
+    raises TimeoutError once ``timeout_s`` has passed, unless
+    ``deadline`` is False (a server that runs until it is stopped).
+    ``timeout_s`` is also the process group's: a collective that waits
+    longer for a rank fails."""
     import multiprocessing as mp
     check_backend(backend, device, world)
     ctx = mp.get_context("spawn")
@@ -202,9 +206,9 @@ def spawn(fn: Callable, world: int, *args, model_parallel: int = 1,
     try:
         for p in procs:
             p.start()
-        deadline = time.monotonic() + timeout_s
+        until = time.monotonic() + timeout_s if deadline else math.inf
         while len(results) < world:
-            left = deadline - time.monotonic()
+            left = until - time.monotonic()
             if left <= 0:
                 raise TimeoutError(
                     f"spawn: {world - len(results)} of {world} ranks did "
@@ -258,8 +262,9 @@ def spawn(fn: Callable, world: int, *args, model_parallel: int = 1,
 
 
 def spawn_tp(fn: Callable, tp: int, *args, device: str = "cuda",
-             backend: str = "nccl", timeout_s: float = 600.0) -> Any:
+             backend: str = "nccl", timeout_s: float = 600.0,
+             deadline: bool = True) -> Any:
     """:func:`spawn` of ``tp`` ranks on the model axis (one data
     replica): tensor-parallel serving's launcher."""
     return spawn(fn, tp, *args, model_parallel=tp, device=device,
-                 backend=backend, timeout_s=timeout_s)
+                 backend=backend, timeout_s=timeout_s, deadline=deadline)

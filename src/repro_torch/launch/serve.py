@@ -26,12 +26,24 @@ as the JAX package's CLI does:
 rank r on ``cuda:{r % device_count}``), each holding its slice of the
 weights and of the KV pool (an MoE's experts split over the ranks, or
 every expert's d_ff where N does not divide them; the whole attention
-where N does not divide the heads); only rank 0 prints. ``--tp-backend`` is
-``nccl`` (one card a rank) unless told ``gloo`` (the CPU, or ranks
-sharing a card, which NCCL refuses)::
+where N does not divide the heads; an RG-LRU's width and an mLSTM's
+heads split over the ranks). Rank 0 takes the requests (the closed
+loop's, or the frontend's with ``--http-port`` or ``--arrival-rate``),
+prints and writes ``--trace``, ``--metrics`` and ``--bench-out``; the
+other ranks follow its engine's steps (``ServeEngine.follow``), and an
+idle frontend's heartbeats keep them inside ``--tp-timeout``. Under
+``--tp`` with ``--http-port`` the ranks serve until Ctrl-C, which they
+ignore but rank 0, which stops the others before it exits.
+``--tp-backend`` is ``nccl`` (one card a rank)
+unless told ``gloo`` (the CPU, or ranks sharing a card, which NCCL
+refuses)::
 
     python -m repro_torch.launch.serve --weights w4a8 --kv-layout paged \
         --tp 2 --tp-backend gloo --device cpu
+    python -m repro_torch.launch.serve --weights w4a8 --tp 2 \
+        --tp-backend gloo --device cpu --http-port 8000
+    python -m repro_torch.launch.serve --weights bf16 --tp 2 \
+        --tp-backend gloo --device cpu --arrival-rate 20
 
 The paged layout serves with speculative decoding unless ``--no-spec``
 is given (a draft of half the target's layers proposes ``--spec-k`` = 4
@@ -44,6 +56,7 @@ from __future__ import annotations
 import argparse
 import builtins
 import json
+import signal
 import time
 
 import numpy as np
@@ -103,19 +116,21 @@ def run_open_loop(args, engine, cfg):
     Runs the workload twice: an untimed warmup pass (the kernels' first
     use builds and loads them, and the allocator warms up; a cold pass
     would blame those one-time stalls on the SLO), then, after an engine
-    reset, the identical timed pass."""
+    reset, the identical timed pass. On a mesh this runs on rank 0 and
+    the other ranks follow (the warm-up pass's frontend leaves them
+    following, the reset reaches them, the timed pass's stops them)."""
     import asyncio
 
     from repro_torch.serve.frontend import AsyncFrontend
 
     deadline_ms = args.deadline_ms or None
 
-    async def one_pass():
+    async def one_pass(last):
         reqs = build_requests(args, cfg)
         gaps = np.random.default_rng(1).exponential(1.0 / args.arrival_rate,
                                                      len(reqs))
-        async with AsyncFrontend(engine,
-                                 default_deadline_ms=deadline_ms) as fe:
+        async with AsyncFrontend(engine, default_deadline_ms=deadline_ms,
+                                 stop_followers=last) as fe:
             t0 = time.perf_counter()
             due = t0 + np.cumsum(gaps)
             handles = []
@@ -133,9 +148,9 @@ def run_open_loop(args, engine, cfg):
 
     async def go():
         print("warmup pass (kernel builds, allocator warm-up)...")
-        await one_pass()
+        await one_pass(False)
         engine.reset()
-        arrivals, stats, wall = await one_pass()
+        arrivals, stats, wall = await one_pass(True)
         shed = sum(1 for _, h in arrivals if h.shed)
         ttfts = sorted(h.first_token_t - at for at, h in arrivals
                        if not h.shed and h.first_token_t is not None)
@@ -168,7 +183,8 @@ def run_open_loop(args, engine, cfg):
 
 
 def run_http(args, engine):
-    """Serve the OpenAI-style HTTP endpoint until interrupted."""
+    """Serve the OpenAI-style HTTP endpoint until interrupted (on a mesh,
+    on rank 0; closing its frontend stops the other ranks)."""
     import asyncio
 
     from repro_torch.serve.frontend import AsyncFrontend
@@ -319,32 +335,42 @@ def main(argv=None):
                     help="write the run's stats to this JSON file")
     ap.add_argument("--tp", type=int, default=1,
                     help="tensor-parallel ranks (processes), each holding "
-                         "its slice of the weights and the KV pool "
-                         "(closed-loop mode only)")
+                         "its slice of the weights and the KV pool; the "
+                         "frontend (--http-port, --arrival-rate) lives on "
+                         "rank 0")
     ap.add_argument("--tp-backend", default="nccl",
                     choices=("nccl", "gloo"),
                     help="torch.distributed backend of --tp: nccl (one "
                          "card a rank) or gloo (the CPU, or ranks sharing "
                          "a card; through host memory)")
     ap.add_argument("--tp-timeout", type=float, default=3600.0,
-                    help="seconds before the --tp ranks are killed")
+                    help="seconds before the --tp ranks are killed (with "
+                         "--http-port they serve until Ctrl-C), and the "
+                         "longest a rank waits for another in a "
+                         "collective")
     args = ap.parse_args(argv)
     if args.tp > 1:
-        if args.http_port or args.arrival_rate > 0:
-            raise NotImplementedError(
-                "--tp > 1 serves the closed-loop batch only: the frontend "
-                "(--http-port, --arrival-rate) would live on rank 0 and its "
-                "submissions would have to be broadcast to the other ranks "
-                "(ROADMAP Queue 1 item 2a.1)")
         from repro_torch.launch.mesh import spawn_tp
-        return spawn_tp(serve_rank, args.tp, args, device=args.device,
-                        backend=args.tp_backend, timeout_s=args.tp_timeout)
+        # serving HTTP until Ctrl-C: the ranks start with SIGINT ignored
+        # (a spawned process keeps it so) and rank 0 takes it back, so
+        # Ctrl-C stops rank 0's server, which stops the other ranks
+        old = (signal.signal(signal.SIGINT, signal.SIG_IGN)
+               if args.http_port else None)
+        try:
+            return spawn_tp(serve_rank, args.tp, args, device=args.device,
+                            backend=args.tp_backend,
+                            timeout_s=args.tp_timeout,
+                            deadline=not args.http_port)
+        finally:
+            if old is not None:
+                signal.signal(signal.SIGINT, old)
     return serve_rank(None, args)
 
 
 def serve_rank(mesh, args):
-    """Build and drive one engine (one rank's, on a ``--tp`` mesh: only
-    rank 0 prints and writes files). Returns the run's stats."""
+    """Build and drive one engine (one rank's, on a ``--tp`` mesh: rank 0
+    takes the requests, prints and writes files; the other ranks follow
+    its engine and return None). Returns the run's stats."""
     quiet = mesh is not None and mesh.rank != 0
     print = _silent if quiet else builtins.print    # noqa: A001
 
@@ -388,7 +414,12 @@ def serve_rank(mesh, args):
               f"{pr['t1_s'] * 1e3:.2f} ms, of 8 {pr['t8_s'] * 1e3:.2f} ms: "
               f"{pr['per_step_s'] * 1e3:.2f} ms a step, "
               f"{pr['overhead_s'] * 1e3:.2f} ms fixed)")
+    if quiet:
+        eng.follow()        # rank 0 takes the requests and drives
+        return None
     if args.http_port:
+        if mesh is not None:
+            signal.signal(signal.SIGINT, signal.default_int_handler)
         run_http(args, eng)
         write_obs(args, eng)
         return None

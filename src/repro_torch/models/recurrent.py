@@ -25,6 +25,28 @@ and added to gx in it, the gates and c in f32.
 
 Serving caches are updated in place by the decode functions, as the
 attention caches are.
+
+Tensor-parallel serving (``ctx.tp``; the engine hands these functions
+this rank's slice of the weights, ``runtime.sharding.shard_params``, and
+a config of this rank's widths). Every result is bitwise tp=1's slice:
+
+* RG-LRU: ``w_in``, ``w_gate``, the conv and ``lam`` hold this rank's
+  channels of the width (``lru_width / tp``), so the conv output, the
+  recurrence and its state are the rank's channels. ``w_ig`` and ``w_rg``
+  take the whole width: the rank's bf16 conv output is all-gathered in
+  rank order (exact), and their column-parallel slices give the rank's
+  gates. The state's per-row scale (the cache's and ``s_state``'s
+  dynamic one) takes the whole row's amax (an all-reduced MAX), and
+  ``w_out`` is row-parallel.
+* mLSTM: a rank holds ``n_heads / tp`` heads. ``w_up`` keeps the ``u``
+  half whole and this rank's heads of the ``z`` half; ``w_q`` / ``w_k``
+  / ``w_v`` are cut by heads and ``w_gates`` to the rank's heads of its
+  input and forget gates, so the per-head recurrence and its state are
+  local; ``s_state`` takes the whole row's amax and ``w_down`` is
+  row-parallel.
+* sLSTM: the recurrence (``w_x``, ``r_h``, the cell, its state) is whole
+  on every rank, as a whole attention is: no collective inside the
+  sequential loop. ``w_up`` is column- and ``w_down`` row-parallel.
 """
 from __future__ import annotations
 
@@ -298,12 +320,24 @@ def _causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return y.to(x.dtype)
 
 
+def _whole_width(ctx: QuantCtx, u: torch.Tensor) -> torch.Tensor:
+    """u (B, S, W / tp), this rank's channels, as the whole (B, S, W):
+    the ranks' slices gathered in rank order (the bf16 values move
+    exactly). Off a mesh, u itself."""
+    if ctx.tp is None or ctx.tp.size == 1:
+        return u
+    return ctx.tp.all_gather_last(u)
+
+
 def _rglru_coeffs(cfg: ModelConfig, ctx: QuantCtx, p: Dict, u: torch.Tensor,
                   col: Optional[Dict]):
     """The gates of the recurrence from the conv output u (B,S,W): the
-    decay a and the gated input, both f32."""
-    i = _sigmoid(qlinear(ctx, u, p["w_ig"], subcol(col, "w_ig")).float())
-    r = _sigmoid(qlinear(ctx, u, p["w_rg"], subcol(col, "w_rg")).float())
+    decay a and the gated input, both f32. On a tensor-parallel mesh u
+    and the results are this rank's channels; the gates' linears read
+    the whole width."""
+    uw = _whole_width(ctx, u)
+    i = _sigmoid(qlinear(ctx, uw, p["w_ig"], subcol(col, "w_ig")).float())
+    r = _sigmoid(qlinear(ctx, uw, p["w_rg"], subcol(col, "w_rg")).float())
     log_a = -8.0 * _softplus(p["lam"]) * r                 # (B,S,W)
     a = _exp(log_a)
     gated = _sqrt(torch.clamp_min(1.0 - a * a, 1e-12)) * i * u.float()
@@ -324,9 +358,9 @@ def _rglru_scan(cfg: ModelConfig, ctx: QuantCtx, p: Dict, x: torch.Tensor,
 
 def _rglru_out(ctx: QuantCtx, p: Dict, h: torch.Tensor, gate: torch.Tensor,
                dtype, col: Optional[Dict]) -> torch.Tensor:
-    hq = quantize_act(ctx, h.to(dtype), p, "s_state", col)
+    hq = quantize_act(ctx, h.to(dtype), p, "s_state", col, sharded=True)
     y = (hq.float() * gate).to(dtype)
-    return qlinear(ctx, y, p["w_out"], subcol(col, "w_out"))
+    return qlinear(ctx, y, p["w_out"], subcol(col, "w_out"), row=True)
 
 
 def rglru_fwd(cfg: ModelConfig, ctx: QuantCtx, p: Dict, x: torch.Tensor,
@@ -354,7 +388,8 @@ def rglru_prefill(cfg: ModelConfig, ctx: QuantCtx, p: Dict, x: torch.Tensor,
     last K - 1 pre-conv inputs."""
     gate, u, h = _rglru_scan(cfg, ctx, p, x, col)
     y = _rglru_out(ctx, p, h, gate, x.dtype, col)
-    state_q, s_state = cache_quantize(ctx, h[:, -1].to(torch.bfloat16))
+    state_q, s_state = cache_quantize(ctx, h[:, -1].to(torch.bfloat16),
+                                      sharded=True)
     K = cfg.conv1d_width
     return y, {"state_q": state_q, "s_state": s_state,
                "conv_buf": u[:, -(K - 1):].to(torch.bfloat16)}
@@ -371,9 +406,10 @@ def rglru_decode(cfg: ModelConfig, ctx: QuantCtx, p: Dict, x1: torch.Tensor,
     h_prev = dequantize_int(cache["state_q"], cache["s_state"],
                             torch.float32)                # (B,W)
     h = a[:, 0] * h_prev + gated[:, 0]
-    state_q, s_state = cache_quantize(ctx, h.to(torch.bfloat16))
+    state_q, s_state = cache_quantize(ctx, h.to(torch.bfloat16),
+                                      sharded=True)
     y = (h[:, None] * gate).to(x1.dtype)
-    y = qlinear(ctx, y, p["w_out"])
+    y = qlinear(ctx, y, p["w_out"], row=True)
     new_buf = torch.cat([cache["conv_buf"][:, 1:], u.to(torch.bfloat16)],
                         dim=1)
     cache["state_q"].copy_(state_q)
@@ -415,7 +451,9 @@ def _mlstm_qkv(cfg: ModelConfig, ctx: QuantCtx, p: Dict, x: torch.Tensor,
     H = cfg.n_heads
     B, S, _ = x.shape
     up = qlinear(ctx, x, p["w_up"], subcol(col, "w_up"))
-    u, z = up[..., :m], up[..., m:]
+    # [u | z]; on a tensor-parallel mesh u whole and z this rank's heads
+    # (m, from the rank's config, is then z's width)
+    u, z = up[..., :-m], up[..., -m:]
     q = qlinear(ctx, u, p["w_q"], subcol(col, "w_q")).reshape(B, S, H, dh)
     k = qlinear(ctx, u, p["w_k"], subcol(col, "w_k")).reshape(B, S, H, dh)
     v = qlinear(ctx, u, p["w_v"], subcol(col, "w_v")).reshape(B, S, H, dh)
@@ -442,9 +480,9 @@ def _mlstm_out(cfg: ModelConfig, ctx: QuantCtx, p: Dict, out: torch.Tensor,
     num, den = out[..., :dh], out[..., dh]
     h = num / torch.clamp_min(torch.abs(den), 1.0)[..., None]
     h = h.reshape(B, S, m).to(dtype)
-    h = quantize_act(ctx, h, p, "s_state", col)
+    h = quantize_act(ctx, h, p, "s_state", col, sharded=True)
     y = h * F.silu(z.float()).to(dtype)
-    return qlinear(ctx, y, p["w_down"], subcol(col, "w_down"))
+    return qlinear(ctx, y, p["w_down"], subcol(col, "w_down"), row=True)
 
 
 def mlstm_fwd(cfg: ModelConfig, ctx: QuantCtx, p: Dict, x: torch.Tensor,
@@ -624,7 +662,7 @@ def slstm_fwd(cfg: ModelConfig, ctx: QuantCtx, p: Dict, x: torch.Tensor,
     h = quantize_act(ctx, h, p, "s_state", col)
     u = qlinear(ctx, h, p["w_up"], subcol(col, "w_up"))
     u = _gelu(u.float()).to(x.dtype)
-    y = qlinear(ctx, u, p["w_down"], subcol(col, "w_down"))
+    y = qlinear(ctx, u, p["w_down"], subcol(col, "w_down"), row=True)
     if return_state:
         return y, (hT, cT)
     return y
@@ -657,7 +695,7 @@ def slstm_decode(cfg: ModelConfig, ctx: QuantCtx, p: Dict, x1: torch.Tensor,
     hq2 = quantize_act(ctx, h[:, None], p, "s_state")
     u = qlinear(ctx, hq2, p["w_up"])
     u = _gelu(u.float()).to(x1.dtype)
-    y = qlinear(ctx, u, p["w_down"])
+    y = qlinear(ctx, u, p["w_down"], row=True)
     hq, hs = cache_quantize(ctx, h.to(torch.bfloat16))
     cache["state_q"].copy_(hq)
     cache["s_state"].copy_(hs)

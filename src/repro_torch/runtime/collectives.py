@@ -21,9 +21,12 @@ model code calls them where a sharded operand meets a replicated one:
   NaN survive, which an f32 sum of the slots would not guarantee);
 * ``all_reduce_sum_f32``: the f32 partials of an expert bank split
   inside its experts (``wd`` row-parallel over d_ff), not exact;
-* ``broadcast_floats``: rank 0's host values (the engine's clock, its
-  measured rates, the probe's pick), so every rank's host loop takes the
-  same decisions.
+* ``broadcast_floats``: rank 0's host values (the engine's command, its
+  clock, its measured rates, the probe's pick), so every rank's host
+  loop takes the same decisions;
+* ``broadcast_submissions``: the requests submitted on rank 0 since the
+  engine's last host step (a frontend lives on rank 0), as one f64
+  tensor, so every rank enqueues the same requests.
 
 Every call counts one in :attr:`TPComm.census` by kind: a decode step of
 a dense decoder makes two MAX and two SUM all-reduces a layer (``wo``,
@@ -48,7 +51,15 @@ from __future__ import annotations
 from collections import Counter
 from typing import List, Optional, Sequence
 
+import numpy as np
 import torch
+
+# a submission's fields besides its prompt (``broadcast_submissions``):
+# the request's own, and its submit time on rank 0's clock
+SUBMISSION_KEYS = ("uid", "max_new_tokens", "eos_id", "temperature",
+                   "top_k", "seed", "deadline_ms", "priority", "submit_t")
+_INT_KEYS = ("uid", "max_new_tokens", "eos_id", "top_k", "seed",
+             "priority")
 
 KINDS = ("all_reduce_max", "all_reduce_sum", "all_reduce_sum_f32",
          "all_reduce_owned", "all_gather", "broadcast")
@@ -150,6 +161,44 @@ class TPComm:
         self._note("broadcast", t)
         self._dist.broadcast(t, src=0, group=self.group)
         return t.cpu().tolist()
+
+    def broadcast_submissions(self, subs, n: int, n_tokens: int) -> list:
+        """Rank 0's ``n`` new requests on every rank. ``subs`` (rank 0's;
+        None on the others) holds, for each request, a dict of
+        ``SUBMISSION_KEYS`` (``deadline_ms`` may be None) and its prompt,
+        ``n_tokens`` tokens in all. They move as one f64 tensor, a row of
+        the fields and the prompt's length a request and then every
+        prompt's tokens (integers below 2^53 and the f64 host values are
+        exact in it). Returns [(fields, prompt as int64 numpy)] in rank
+        0's order."""
+        width = len(SUBMISSION_KEYS) + 1
+        if self.rank == 0:
+            rows = [[float("nan") if f[k] is None else float(f[k])
+                     for k in SUBMISSION_KEYS] + [len(p)] for f, p in subs]
+            toks = [np.asarray(p, np.float64) for _, p in subs]
+            flat = np.concatenate([np.asarray(rows, np.float64).reshape(-1)]
+                                  + toks)
+            t = torch.from_numpy(flat)
+        else:
+            t = torch.empty(n * width + n_tokens, dtype=torch.float64)
+        if self.group is not None and self._dist.get_backend(
+                self.group) == "nccl":
+            t = t.cuda()
+        self._note("broadcast", t)
+        self._dist.broadcast(t, src=0, group=self.group)
+        flat = t.cpu().numpy()
+        rows = flat[:n * width].reshape(n, width)
+        out, pos = [], n * width
+        for row in rows:
+            f = dict(zip(SUBMISSION_KEYS, row.tolist()))
+            for k in _INT_KEYS:
+                f[k] = int(f[k])
+            if f["deadline_ms"] != f["deadline_ms"]:      # NaN: none
+                f["deadline_ms"] = None
+            k = int(row[-1])
+            out.append((f, flat[pos:pos + k].astype(np.int64)))
+            pos += k
+        return out
 
     def embed_lookup(self, table: torch.Tensor, tokens: torch.Tensor,
                      vocab: int, d_model: int) -> torch.Tensor:

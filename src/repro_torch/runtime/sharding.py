@@ -46,7 +46,15 @@ biases, scales and packed planes): every rank runs the whole attention,
 as ``serve_cache_spec`` then keeps the whole pool on every rank. The
 expert banks follow the rule: experts over "model" when ``tp`` divides
 them (expert parallelism), else ``wg`` / ``wu`` column- and ``wd``
-row-parallel inside every expert.
+row-parallel inside every expert. The recurrent blocks follow the rule
+(the RG-LRU's linears, ``conv_w``, ``conv_b`` and ``lam`` over its
+width) but for three linears whose outputs are concatenated blocks
+(:func:`recurrent_blocks`): the mLSTM's ``w_up`` (``[u | z]``) keeps
+``u`` whole and this rank's heads of ``z``, its ``w_gates`` (``[input |
+forget]``) this rank's heads of each, and the sLSTM's ``w_x`` and
+``r_h`` stay whole (its recurrence runs whole on every rank). A
+recurrent layer's serving state is this rank's slice (the RG-LRU's
+channels, the mLSTM's heads) or whole (the sLSTM's), never resharded.
 
 :func:`shard_batch` cuts this data rank's rows of a training batch by
 :func:`batch_spec`.
@@ -58,7 +66,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.bridge import flatten
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import BLOCK_MLSTM, BLOCK_SLSTM, ModelConfig
 
 COL_PARALLEL = {"wq", "wk", "wv", "wg", "wu", "w1", "w_in", "w_gate",
                 "w_ig", "w_rg", "w_up", "w_x", "r_h", "w_q", "w_k", "w_v"}
@@ -351,6 +359,67 @@ def bank_leaf(path: str) -> bool:
             and parts[-2] in MOE_KEYS and parts[-1] in ("w", "s_w"))
 
 
+# recurrent linears whose output is a concatenation of equal blocks, by
+# (layer kind, linear): for each block, True keeps it whole on every
+# rank, False keeps this rank's part of it in rank order
+_RECURRENT_BLOCKS = {(BLOCK_MLSTM, "w_up"): (True, False),      # [u | z]
+                     (BLOCK_MLSTM, "w_gates"): (False, False),  # [i | f]
+                     (BLOCK_SLSTM, "w_x"): (True,),
+                     (BLOCK_SLSTM, "r_h"): (True,)}
+
+
+def _layer_kind(cfg: ModelConfig, parts) -> Optional[str]:
+    if len(parts) > 2 and parts[0] == "layers" and parts[1].isdigit():
+        return cfg.layer_kinds()[int(parts[1])]
+    return None
+
+
+def recurrent_blocks(cfg: ModelConfig, path: str, shape: Tuple[int, ...]
+                     ) -> Optional[Tuple[int, Tuple[bool, ...]]]:
+    """(output dim, blocks) of a leaf of a recurrent linear whose
+    per-rank layout departs from :func:`param_spec`'s contiguous cut:
+    the mLSTM's ``w_up`` (its ``u`` block whole, ``z`` cut by heads) and
+    ``w_gates`` (both gate blocks cut by heads), the sLSTM's ``w_x`` and
+    ``r_h`` (whole). The output dim is the columns of ``w``, ``b`` and
+    ``s_w`` and of the packed planes' ``s_w`` and ``b``, the rows of the
+    packed ``wq`` (d_out, d_in / 2). None for any other leaf (``s_in``
+    among them)."""
+    parts = path.split("/")
+    if "w4a8" in parts:
+        i = parts.index("w4a8")
+        owner, key = (parts[i - 1] if i else ""), parts[-1]
+        dim = -2 if key == "wq" else -1
+    else:
+        owner, key = (parts[-2] if len(parts) >= 2 else ""), parts[-1]
+        dim = -1
+    blocks = _RECURRENT_BLOCKS.get((_layer_kind(cfg, parts), owner))
+    if blocks is None or key not in ("w", "b", "s_w", "wq") \
+            or len(shape) < -dim:
+        return None
+    return len(shape) + dim, blocks
+
+
+def _cut_blocks(t: torch.Tensor, dim: int, blocks: Tuple[bool, ...],
+                tp: int, rank: int) -> torch.Tensor:
+    """``t``'s dim ``dim`` as ``len(blocks)`` equal blocks, each kept
+    whole (True) or cut to this rank's part (False), concatenated."""
+    n = t.shape[dim] // len(blocks)
+    parts = [t.narrow(dim, b * n, n) if whole else
+             t.narrow(dim, b * n + rank * (n // tp), n // tp)
+             for b, whole in enumerate(blocks)]
+    return torch.cat(parts, dim=dim) if len(parts) > 1 else parts[0]
+
+
+def _blocks_numel(shape, dim: int, blocks: Tuple[bool, ...],
+                  tp: int) -> int:
+    n = shape[dim] // len(blocks)
+    kept = sum(n if whole else n // tp for whole in blocks)
+    total = 1
+    for d in shape:
+        total *= d
+    return total // shape[dim] * kept
+
+
 def _kv_head_dim(cfg: ModelConfig, path: str,
                  shape: Tuple[int, ...]) -> Optional[int]:
     """The KV-head (output-channel) dim of a ``wk`` / ``wv`` leaf: the
@@ -388,7 +457,9 @@ def shard_params(params, cfg: ModelConfig, mesh):
     linear depends only on the shared input and its own weights, and the
     K/V scales are per token and head, so this rank's K and V are bitwise
     the same columns of tp=1's. Where every rank runs the whole attention
-    (:func:`attn_replicated`), its linears' leaves are kept whole."""
+    (:func:`attn_replicated`), its linears' leaves are kept whole. The
+    recurrent linears of :func:`recurrent_blocks` keep their blocks whole
+    or cut by heads."""
     tp, rank = int(mesh.shape["model"]), int(mesh.rank)
     local_kv = kv_head_local(cfg, tp)
     whole_attn = attn_replicated(cfg, tp)
@@ -406,6 +477,12 @@ def shard_params(params, cfg: ModelConfig, mesh):
         path, shape = prefix[:-1], tuple(tree.shape)
         if whole_attn and _attn_leaf(path):
             return tree
+        rec = recurrent_blocks(cfg, path, shape)
+        if rec is not None:
+            if all(rec[1]):
+                return tree
+            return _cut_blocks(tree, rec[0], rec[1], tp, rank
+                               ).contiguous().clone()
         if local_kv:
             dim = _kv_head_dim(cfg, path, shape)
             if dim is not None:
@@ -428,7 +505,8 @@ def local_bytes(tree, specs: Dict[str, Spec], tp: int,
     whole KV heads (:func:`kv_head_local`), a ``wk`` / ``wv`` leaf
     counts one KV head, and where they run the whole attention
     (:func:`attn_replicated`) an attention linear's leaf counts whole,
-    as :func:`shard_params` keeps them."""
+    and a leaf of :func:`recurrent_blocks` counts its kept blocks, as
+    :func:`shard_params` keeps them."""
     local_kv = cfg is not None and kv_head_local(cfg, tp)
     whole_attn = cfg is not None and attn_replicated(cfg, tp)
     total = 0
@@ -436,8 +514,12 @@ def local_bytes(tree, specs: Dict[str, Spec], tp: int,
         if isinstance(t, torch.Tensor):
             dim = (_kv_head_dim(cfg, path, tuple(t.shape)) if local_kv
                    else None)
+            rec = (recurrent_blocks(cfg, path, tuple(t.shape))
+                   if cfg is not None else None)
             if whole_attn and _attn_leaf(path):
                 n = t.numel()
+            elif rec is not None:
+                n = _blocks_numel(tuple(t.shape), rec[0], rec[1], tp)
             elif dim is not None:
                 n = t.numel() // t.shape[dim] * cfg.resolved_head_dim
             else:

@@ -98,10 +98,25 @@ only at admission and harvest:
   whole on every rank, so the sampled tokens, and the host loop that
   follows them, are the same on every rank; rank 0's clock and measured
   rates are broadcast once a host step, so no admission or shed decision
-  reads a rank's own clock. Streams are bitwise tp=1's (TP inside
-  experts apart). Attention decoders with a dense MLP or an MoE only
-  (recurrent, local-attention and encoder blocks raise), under
-  ``weights_layout="w4a8"``.
+  reads a rank's own clock. The recurrent blocks serve at tp too
+  (``models.recurrent``: the RG-LRU's width and the mLSTM's heads cut
+  over the ranks, their states each rank's slice, the sLSTM's
+  recurrence whole on every rank; local attention as a sliding window).
+  Streams are bitwise tp=1's under ``weights_layout="w4a8"`` (TP inside
+  experts apart); under ``"bf16"`` the row-parallel linears sum f32
+  partials, within a tolerance of tp=1. An encoder-decoder is refused
+  (it is not served at tp=1 either).
+
+  Rank 0 alone takes requests and drives; the other ranks run
+  :meth:`ServeEngine.follow` until rank 0's :meth:`stop_followers` (its
+  ``run_until_drained`` ends with one). On a mesh rank 0's ``submit``
+  only queues a request, and each host step (``step``) starts with one
+  broadcast from rank 0 carrying its command (step, admit, reset, an
+  idle heartbeat or stop), its clock, its measured rates and the
+  requests submitted on it since the last step
+  (``runtime.collectives.TPComm.broadcast_submissions``), which every
+  rank then enqueues alike, stamped with rank 0's submit time; a
+  follower returns its copies of them. Only rank 0 calls ``on_tokens``.
 """
 from __future__ import annotations
 
@@ -115,7 +130,8 @@ import torch
 
 from repro_torch.bridge import flatten
 from repro_torch.configs.base import (ATTENTION_BLOCKS, BLOCK_ATTN,
-                                      ModelConfig)
+                                      BLOCK_MLSTM, BLOCK_RGLRU, BLOCK_SLSTM,
+                                      RECURRENT_BLOCKS, ModelConfig)
 from repro_torch.core.precision import parse_policy
 from repro_torch.core.qat import (attach_w4a8_exports, make_ctx,
                                   w4a8_weight_bytes)
@@ -126,7 +142,7 @@ from repro_torch.models import (decode_step, init_cache, prefill,
 from repro_torch.models.blocks import POOL_KEYS
 from repro_torch.obs.metrics import ServeMetrics
 from repro_torch.obs.trace import NULL_TRACER, Tracer
-from repro_torch.runtime.collectives import TPComm
+from repro_torch.runtime.collectives import SUBMISSION_KEYS, TPComm
 from repro_torch.runtime.sharding import (attn_replicated, bank_leaf,
                                          shard_params)
 from repro_torch.serve.block_alloc import BlockAllocator, PoolDry
@@ -225,40 +241,93 @@ def _clamp_lengths(cache: Dict, lens: torch.Tensor) -> None:
 
 
 def _check_tp(cfg: ModelConfig, tp: int, weights_layout: str) -> None:
-    """Refuse what tensor-parallel serving does not cover: blocks other
-    than full or sliding-window attention with a dense MLP or an MoE
-    (recurrent, local-attention and encoder blocks: ROADMAP Queue 1 item
-    2a.3), an MoE whose experts ``tp`` does not divide with a ``d_ff``
-    it does not divide either (TP inside experts splits every expert's
-    d_ff), a dense ``d_ff`` whose packed row-parallel plane ``tp`` would
-    cut inside a nibble pair, and the bf16 layout (a row-parallel linear
-    would sum bf16 partials, which is not exact). Query heads ``tp`` does
-    not divide are served with the whole attention on every rank
-    (``runtime.sharding.attn_replicated``)."""
-    kinds = set(cfg.layer_kinds())
-    if cfg.is_encdec or kinds - {BLOCK_ATTN}:
-        what = ("an encoder (cross-attention caches)" if cfg.is_encdec
-                else f"recurrent or local blocks "
-                     f"{sorted(kinds - {BLOCK_ATTN})} (the lam / conv / "
-                     "r_h rules)")
+    """Refuse what tensor-parallel serving does not cover: an encoder
+    (its cross caches; the engine serves no encoder-decoder, ROADMAP
+    Queue 1 item 3d), an MoE whose experts ``tp`` does not divide with a
+    ``d_ff`` it does not divide either (TP inside experts splits every
+    expert's d_ff), and a width the rules cut that ``tp`` does not
+    divide: a dense ``d_ff`` whose packed row-parallel plane ``tp`` would
+    cut inside a nibble pair (w4a8), the RG-LRU's width, the mLSTM's
+    heads and width, the sLSTM's up-projection (and, under w4a8, their
+    packed rows). Query heads ``tp`` does not divide are served with the
+    whole attention on every rank (``runtime.sharding.attn_replicated``);
+    both weight layouts are served."""
+    if cfg.is_encdec:
         raise NotImplementedError(
-            f"tensor-parallel serving of {cfg.name!r} needs {what}, which "
-            "is not ported (ROADMAP Queue 1 item 2a.3); serve it at tp=1")
+            f"tensor-parallel serving of {cfg.name!r} needs an encoder and "
+            "its cross-attention caches, which the engine does not serve "
+            "at tp=1 either (ROADMAP Queue 1 item 3d)")
     if cfg.is_moe and cfg.n_experts % tp and cfg.d_ff % tp:
         raise ValueError(
             f"tp={tp} divides neither {cfg.name!r}'s {cfg.n_experts} "
             f"experts nor their d_ff={cfg.d_ff}: no expert parallelism and "
             "no TP inside the experts")
-    if not cfg.is_moe and cfg.d_ff % tp == 0 and (cfg.d_ff // 2) % tp:
+    packed = weights_layout == "w4a8"
+    if not cfg.is_moe and cfg.d_ff and cfg.d_ff % tp == 0 and packed \
+            and (cfg.d_ff // 2) % tp:
         raise ValueError(
             f"tp={tp} divides d_ff={cfg.d_ff} but not its packed rows "
             f"({cfg.d_ff // 2}): wd's packed plane would stay whole while "
             "its input is cut")
-    if weights_layout != "w4a8":
+    kinds = set(cfg.layer_kinds())
+    d = cfg.d_model
+    # (what, its size, whether a row-parallel linear reads it as K)
+    cuts = []
+    if BLOCK_RGLRU in kinds:
+        cuts.append(("the RG-LRU's width", cfg.resolved_lru_width, True))
+    if BLOCK_MLSTM in kinds:
+        m = int(cfg.mlstm_proj_factor * d)
+        cuts += [("the mLSTM's heads", cfg.n_heads, False),
+                 ("the mLSTM's width", m, True)]
+    if BLOCK_SLSTM in kinds:
+        cuts.append(("the sLSTM's up-projection",
+                     int(cfg.slstm_proj_factor * d), True))
+    for what, n, rows in cuts:
+        rows = rows and packed
+        if n % tp or (rows and (n // 2) % tp):
+            raise ValueError(
+                f"tp={tp} does not divide {cfg.name!r}'s {what} ({n}"
+                + (f"; {n // 2} packed rows" if rows else "")
+                + "), which its rule cuts over the ranks")
+    if BLOCK_MLSTM in kinds and int(cfg.mlstm_proj_factor / tp * d) * tp \
+            != int(cfg.mlstm_proj_factor * d):
         raise ValueError(
-            "tensor-parallel serving needs weights_layout='w4a8': its "
-            "row-parallel linears all-reduce exact int32 accumulators, "
-            f"got {weights_layout!r}")
+            f"the mLSTM's width at tp={tp} is not a projection factor of "
+            f"d_model={d} a rank (_rank_config)")
+
+
+def _rank_config(cfg: ModelConfig, tp: int, attn_whole: bool) -> ModelConfig:
+    """The config the model code runs on one of ``tp`` ranks: its query
+    and KV heads (head-major halves keep each GQA group on one rank;
+    where tp exceeds the KV heads, one whole KV head a rank; where tp
+    does not divide the heads, every head: ``attn_replicated``), its
+    RG-LRU channels (``lru_width / tp``) and its mLSTM heads' width (the
+    projection factor over tp; the sLSTM's recurrence is whole)."""
+    if tp == 1:
+        return cfg
+    kw = {}
+    if not attn_whole:
+        kw.update(n_heads=cfg.n_heads // tp,
+                  n_kv_heads=max(cfg.n_kv_heads // tp, 1),
+                  head_dim=cfg.resolved_head_dim)
+    kinds = set(cfg.layer_kinds())
+    if BLOCK_RGLRU in kinds:
+        kw["lru_width"] = cfg.resolved_lru_width // tp
+    if BLOCK_MLSTM in kinds:
+        kw["mlstm_proj_factor"] = cfg.mlstm_proj_factor / tp
+    return cfg.replace(**kw)
+
+
+# a mesh's host-step commands, rank 0's, broadcast by ``_sync_host``
+_STEP, _RESET, _STOP, _ADMIT, _PING = 0, 1, 2, 3, 4
+
+
+def _submission_fields(req: "Request", submit_t: float) -> Dict:
+    """What a rank > 0 needs of one of rank 0's submissions
+    (``SUBMISSION_KEYS``) besides its prompt."""
+    d = {k: getattr(req, k) for k in SUBMISSION_KEYS if k != "submit_t"}
+    d["submit_t"] = submit_t
+    return d
 
 
 class _BroadcastClock:
@@ -368,15 +437,18 @@ class ServeEngine:
                 f"(init_params(..., device=...))")
         self.cfg = cfg
         # the config the model code runs: on a mesh, this rank's heads
-        # (head-major halves keep each GQA group on one rank; where tp
-        # exceeds the KV heads, one whole KV head a rank; where tp does
-        # not divide the heads, every head: attn_replicated)
+        # and recurrent widths (_rank_config)
         self._attn_whole = attn_replicated(cfg, self.tp)
-        self.mcfg = cfg if self.tp == 1 or self._attn_whole else \
-            cfg.replace(n_heads=cfg.n_heads // self.tp,
-                        n_kv_heads=max(cfg.n_kv_heads // self.tp, 1),
-                        head_dim=cfg.resolved_head_dim)
+        self.mcfg = _rank_config(cfg, self.tp, self._attn_whole)
         self._comm = TPComm(mesh) if self.tp > 1 else None
+        # on a mesh: rank 0's submissions since the last host step, with
+        # their submit times; a rank > 0's copies of them (follow); when
+        # the last host step reached the followers
+        self._outbox: List = []
+        self._adopted: List[Request] = []
+        self._synced_t = time.monotonic()
+        self._pred_per_tok: Optional[float] = None
+        self._pred_round_s: Optional[float] = None
         # the clock the scheduler and the shed predictor read: on a mesh,
         # rank 0's, broadcast once a host step (_sync_host)
         self._clock = (_BroadcastClock() if self._comm is not None
@@ -528,7 +600,16 @@ class ServeEngine:
         Requests submitted before the reset must not be resubmitted with
         their old prefix-lookup memos: an epoch bump invalidates them.
         The old cache is dropped before the new one is allocated, so two
-        never live at once."""
+        never live at once. On a mesh rank 0's reset reaches its
+        followers as a host step's command, inside :meth:`follow`, or
+        every rank calls it outside."""
+        if self._sync_host(_RESET) != _RESET:
+            raise RuntimeError("mesh ranks out of step: this rank reset "
+                               "while rank 0 stepped or stopped")
+        self._reset_state()
+
+    def _reset_state(self) -> None:
+        self._outbox = []
         self.state = None
         self.state = self._blank_state()
         self._alloc_epoch = getattr(self, "_alloc_epoch", -1) + 1
@@ -554,7 +635,6 @@ class ServeEngine:
         self._step_idx = 0
         self._pred_per_tok: Optional[float] = None   # fastest s/prompt-tok
         self._pred_round_s: Optional[float] = None   # fastest decode round
-        self._sync_host()
         self._host = {"decode_s": 0.0, "decode_rounds": 0,
                       "prefill_s": 0.0, "prefill_calls": 0,
                       "prefill_tokens": 0, "prefill_chunks": 0,
@@ -575,27 +655,102 @@ class ServeEngine:
         leaves = (cache["pool"].values() if self._paged else
                   [t for layer in cache["layers"] for t in layer.values()])
         self._cache_bytes = sum(t.numel() * t.element_size() for t in leaves)
+        self._state_bytes = 0 if self._paged else sum(
+            t.numel() * t.element_size()
+            for kind, layer in zip(self.cfg.layer_kinds(), cache["layers"])
+            if kind in RECURRENT_BLOCKS for t in layer.values())
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def _sync_host(self) -> None:
-        """On a mesh, once a host step: rank 0's clock and its measured
-        prefill and decode rates replace every rank's own, so the ranks'
-        host loops take the same decisions (admission, shedding) however
-        their clocks drift."""
+    def _sync_host(self, cmd: int = _STEP) -> int:
+        """On a mesh, once a host step: rank 0's command (``cmd``: a step,
+        an admission, a reset, a heartbeat or the followers' stop), its
+        clock and its measured prefill and decode rates replace every
+        rank's own, so the ranks' host loops take the same decisions
+        (admission, shedding) however their clocks drift; with a step or
+        an admission, the requests submitted on rank 0 since the last
+        step follow in a second broadcast and every rank enqueues them,
+        stamped with their submit time on rank 0's clock (a rank > 0
+        keeps its copies in ``_adopted``). Returns rank 0's command
+        (``cmd`` itself off a mesh)."""
         if self._comm is None:
-            return
+            return cmd
+        lead = self._comm.rank == 0
+        subs = self._outbox if lead and cmd in (_STEP, _ADMIT) else []
         nan = float("nan")
-        now, per_tok, round_s = self._comm.broadcast_floats(
-            [time.perf_counter(),
+        hdr = self._comm.broadcast_floats(
+            [cmd, time.perf_counter(),
              nan if self._pred_per_tok is None else self._pred_per_tok,
-             nan if self._pred_round_s is None else self._pred_round_s]
-            if self._comm.rank == 0 else [nan, nan, nan])
+             nan if self._pred_round_s is None else self._pred_round_s,
+             len(subs), sum(len(r.prompt) for r, _ in subs)]
+            if lead else [nan] * 6)
+        cmd, now, per_tok, round_s = int(hdr[0]), hdr[1], hdr[2], hdr[3]
+        self._synced_t = time.monotonic()
         self._clock.now = now
         self._pred_per_tok = None if math.isnan(per_tok) else per_tok
         self._pred_round_s = None if math.isnan(round_s) else round_s
+        if int(hdr[4]):
+            got = self._comm.broadcast_submissions(
+                [(_submission_fields(r, t), r.prompt) for r, t in subs]
+                if lead else None, int(hdr[4]), int(hdr[5]))
+            for (r, t), (fields, prompt) in zip(
+                    subs if lead else [(None, None)] * len(got), got):
+                if not lead:
+                    r = Request(prompt=prompt.astype(np.int32), **{
+                        k: fields[k] for k in SUBMISSION_KEYS
+                        if k != "submit_t"})
+                    self._adopted.append(r)
+                self.scheduler.submit(r, now=fields["submit_t"])
+            self._outbox = []
+        return cmd
+
+    def follow(self) -> List[Request]:
+        """On a rank > 0 of a mesh: take rank 0's host steps, admissions,
+        resets and heartbeats, in order, until rank 0 calls
+        :meth:`stop_followers`. Returns this rank's copies of the
+        requests rank 0 submitted meanwhile, in rank 0's order (they call
+        no ``on_tokens``)."""
+        if self._comm is None or self._comm.rank == 0:
+            raise RuntimeError("follow() runs on the ranks > 0 of a mesh")
+        self._adopted = []
+        while True:
+            cmd = self._sync_host()
+            if cmd == _STOP:
+                return self._adopted
+            if cmd == _RESET:
+                self._reset_state()
+            elif cmd == _ADMIT:
+                self._admit()
+            elif cmd == _STEP:
+                self._step_body()
+
+    def stop_followers(self) -> None:
+        """On rank 0 of a mesh: end the other ranks' :meth:`follow` (a
+        later one takes rank 0's next steps). A no-op off a mesh and on a
+        rank > 0."""
+        if self._comm is not None and self._comm.rank == 0:
+            self._sync_host(_STOP)
+
+    def heartbeat(self, idle_s: float = 0.0) -> None:
+        """On rank 0 of a mesh, if no host step has reached the followers
+        for ``idle_s`` seconds: an empty command, so that a follower
+        waiting in :meth:`follow` while rank 0 has no work (an idle
+        frontend) sees a collective before the process group's timeout.
+        A no-op off a mesh and on a rank > 0."""
+        if (self._comm is not None and self._comm.rank == 0
+                and time.monotonic() - self._synced_t >= idle_s):
+            self._sync_host(_PING)
+
+    def admit(self) -> None:
+        """Admit what the queue allows, with no decode round: the state
+        one admission wave leaves (``step`` admits, decodes and
+        harvests). On a mesh rank 0's reaches its followers."""
+        if self._sync_host(_ADMIT) != _ADMIT:
+            raise RuntimeError("mesh ranks out of step: this rank admitted "
+                               "while rank 0 did not")
+        self._admit()
 
     def submit(self, req: Request) -> None:
         """Enqueue one request for serving.
@@ -608,15 +763,23 @@ class ServeEngine:
         (if set) receives every freshly decoded span as ``on_tokens(req,
         tokens, done)``. The request is admitted on a later :meth:`step`;
         ``req.done`` and ``req.generated`` carry the result, or
-        ``req.shed`` if SLO admission control rejected it.
+        ``req.shed`` if SLO admission control rejected it. On a mesh only
+        rank 0 takes requests (the others :meth:`follow`); each is
+        enqueued at its next :meth:`step`, on every rank (module
+        docstring).
 
-        Raises ValueError if the request can never be admitted on this
+        Raises RuntimeError on a rank > 0 of a mesh, and ValueError if
+        the request can never be admitted on this
         engine: ``max_new_tokens`` above ``max_new_cap``, ``top_k`` above
         ``TOP_K_CAP``, a token outside the vocabulary, or a footprint
         (``prompt + max_new_tokens - 1``) above ``cache_len`` (dense) or
         above ``max_seq_len``, the block table or the pool (paged). The
         message names the computed need and the knob to raise.
         """
+        if self._comm is not None and self._comm.rank != 0:
+            raise RuntimeError(
+                f"on a mesh rank 0 takes every request; rank "
+                f"{self._comm.rank} runs follow()")
         if req.max_new_tokens > self.max_new_cap:
             raise ValueError(
                 f"max_new_tokens={req.max_new_tokens} exceeds this engine's "
@@ -662,7 +825,11 @@ class ServeEngine:
                 f"{len(prompt)} + max_new_tokens {req.max_new_tokens} "
                 f"- 1) but cache_len={self.cache_len}; raise cache_len or "
                 f"shorten the request")
-        self.scheduler.submit(req)
+        if self._comm is None:
+            self.scheduler.submit(req)
+        else:
+            # reaches every rank with the next host step (_sync_host)
+            self._outbox.append((req, time.perf_counter()))
 
     def _note_residency(self) -> None:
         n = len(self._slot_req) + len(self._tail_jobs)
@@ -711,11 +878,17 @@ class ServeEngine:
         if tm is not None:
             self.metrics.observe_ttft(tm.ttft)
 
-    @staticmethod
-    def _emit_stream(req, toks, done: bool) -> None:
+    def _streams_to(self, req) -> bool:
+        """Whether ``req``'s tokens go to its ``on_tokens`` from this
+        engine: rank 0's only, on a mesh."""
+        return req.on_tokens is not None and (self._comm is None
+                                              or self._comm.rank == 0)
+
+    def _emit_stream(self, req, toks, done: bool) -> None:
         """Deliver freshly decoded tokens, as Python ints, to a streaming
-        request's ``on_tokens`` callback (no-op for other requests)."""
-        if req.on_tokens is not None:
+        request's ``on_tokens`` callback (no-op for other requests, and
+        on a mesh's ranks > 0)."""
+        if self._streams_to(req):
             toks = [int(t) for t in toks]
             req.on_tokens(req, toks, done)
             req._streamed += len(toks)
@@ -1483,7 +1656,7 @@ class ServeEngine:
             # decoded since the last harvest (decode_block / spec-wave
             # granularity); their rows ride the finished slots' one copy
             streaming = [s for s, r in self._slot_req.items()
-                         if act[s] and r.on_tokens is not None
+                         if act[s] and self._streams_to(r)
                          and int(n_gen[s]) > r._streamed]
             fetch = finished + streaming
             if not fetch:
@@ -1763,10 +1936,16 @@ class ServeEngine:
     def step(self) -> None:
         """One admission + one tail-wave window of the in-progress tail or
         chunked admissions + one decode round (a draft + verify wave with
-        spec on, else one decode chunk) + harvest."""
+        spec on, else one decode chunk) + harvest. On a mesh it starts
+        with rank 0's host-step broadcast (:meth:`_sync_host`)."""
+        if self._sync_host(_STEP) != _STEP:
+            raise RuntimeError("mesh ranks out of step: this rank stepped "
+                               "while rank 0 reset or stopped")
+        self._step_body()
+
+    def _step_body(self) -> None:
         self._step_idx += 1
         self.trace.step = self._step_idx
-        self._sync_host()
         with self.trace.span("step"):
             with self.trace.span("admit"):
                 self._admit()
@@ -1789,6 +1968,12 @@ class ServeEngine:
                 self._host["decode_rounds"] += 1
                 self._note_rate("_pred_round_s", sp.dt)
 
+    def _has_work(self) -> bool:
+        """Requests queued (on a mesh, also those not yet broadcast),
+        resident, mid-prefill or swapped out."""
+        return bool(self._outbox or self.scheduler.pending
+                    or self._slot_req or self._tail_jobs or self._swapped)
+
     def _flush_partial(self) -> None:
         """Surface still-resident slots' tokens (budget-aborted drain);
         swapped-out requests surface the tokens taken at preemption."""
@@ -1809,14 +1994,14 @@ class ServeEngine:
         empty; ``max_steps`` bounds the total decode-step budget
         (chunk-granular). If the budget aborts the drain, in-flight
         requests keep their partial ``generated`` output (``done`` stays
-        False)."""
+        False). On rank 0 of a mesh it ends with :meth:`stop_followers`;
+        the other ranks :meth:`follow` it."""
         chunks = 0
-        while ((self.scheduler.pending or self._slot_req or self._tail_jobs
-                or self._swapped)
-               and chunks * self.decode_block < max_steps):
+        while self._has_work() and chunks * self.decode_block < max_steps:
             self.step()
             chunks += 1
         self._flush_partial()
+        self.stop_followers()
         return self.stats()
 
     # ------------------------------------------------------------------
@@ -1918,6 +2103,8 @@ class ServeEngine:
         mesh_shape                  the mesh's axis sizes (None off a mesh)
         tp_degree                   ranks on the "model" axis (1 off it)
         per_device_pool_bytes       this rank's cache (pool) bytes
+        per_device_state_bytes      of which recurrent layers' state
+                                    (their slice or whole: sharding)
         per_device_weight_bytes     this rank's served weight bytes (the
                                     packed planes under w4a8)
         per_device_bank_bytes       this rank's MoE expert banks' bytes
@@ -1972,6 +2159,7 @@ class ServeEngine:
                            if self.mesh is not None else None)
         d["tp_degree"] = self.tp
         d["per_device_pool_bytes"] = self._cache_bytes
+        d["per_device_state_bytes"] = self._state_bytes
         d["per_device_weight_bytes"] = sum(
             t.numel() * t.element_size()
             for t in self._served_weight_leaves())

@@ -44,6 +44,17 @@ Typical use::
 JAX package's ``docs/serving_api.md`` has the knob table, which this port
 shares.)
 
+**Tensor-parallel serving.** On a mesh the frontend lives on rank 0: its
+submissions reach the other ranks at each step (the engine's
+``_sync_host``), whose loops run ``engine.follow()``; while the engine
+is idle the pump sends a heartbeat every ``HEARTBEAT_S`` seconds
+(``engine.heartbeat``), so a follower waiting in its collective sees
+one before the process group's timeout however long no request comes;
+:meth:`aclose` ends them (``engine.stop_followers``) unless the frontend
+was made with ``stop_followers=False`` (a later frontend, or
+``run_until_drained``, which ends them, goes on driving the same
+followers).
+
 **The worker thread and the device.** CUDA's current device is per
 thread, so the step worker binds itself to the card the engine's state
 lives on before its first task: a caller's device context, or a second
@@ -66,6 +77,9 @@ import torch
 from repro_torch.serve.engine import Request
 
 _END = object()         # stream sentinel: request left the engine
+# on a mesh, the longest the idle pump leaves the followers without a host
+# step (``engine.heartbeat``): well inside any process group's timeout
+HEARTBEAT_S = 1.0
 
 
 class RequestStream:
@@ -147,14 +161,24 @@ class AsyncFrontend:
         idle_sleep_s: pump back-off while the engine is empty (an
             arrival event wakes it immediately; this only bounds the
             latency of wakeups racing a step).
+        stop_followers: on a mesh, whether :meth:`aclose` stops the
+            engine's followers (the other ranks' ``engine.follow()``).
 
     Use as an async context manager (``async with AsyncFrontend(engine)
     as fe:``) or call :meth:`start` / :meth:`aclose` explicitly.
     """
 
     def __init__(self, engine, *, default_deadline_ms: Optional[float] = None,
-                 default_priority: int = 0, idle_sleep_s: float = 0.02):
+                 default_priority: int = 0, idle_sleep_s: float = 0.02,
+                 stop_followers: bool = True):
+        comm = getattr(engine, "_comm", None)
+        if comm is not None and comm.rank != 0:
+            raise RuntimeError(
+                "on a mesh the frontend lives on rank 0; rank "
+                f"{comm.rank} runs engine.follow()")
         self.engine = engine
+        self.stop_followers = stop_followers
+        self._mesh = comm is not None
         self.default_deadline_ms = default_deadline_ms
         self.default_priority = default_priority
         self.idle_sleep_s = idle_sleep_s
@@ -204,6 +228,11 @@ class AsyncFrontend:
             self._wake.set()        # pump exits at its next iteration
             try:
                 await task
+                if self.stop_followers:
+                    # after a clean exit only: a failed step leaves the
+                    # followers inside its collectives
+                    await asyncio.get_running_loop().run_in_executor(
+                        self._executor, self.engine.stop_followers)
             finally:
                 self._executor.shutdown(wait=True)
         else:
@@ -275,8 +304,7 @@ class AsyncFrontend:
     # ---- pump ----
     def _work_pending(self) -> bool:
         eng = self.engine
-        return bool(self._inbox or eng.scheduler.pending or eng._slot_req
-                    or eng._tail_jobs or eng._swapped)
+        return bool(self._inbox or eng._has_work())
 
     def _drain_inbox(self) -> None:
         """Move arrivals into the engine queue (pump/loop thread only,
@@ -314,6 +342,10 @@ class AsyncFrontend:
                     self._wake.clear()
                     if self._closing:
                         break
+                    if self._mesh:
+                        await loop.run_in_executor(
+                            self._executor, self.engine.heartbeat,
+                            HEARTBEAT_S)
                     try:
                         await asyncio.wait_for(self._wake.wait(),
                                                self.idle_sleep_s)

@@ -146,6 +146,9 @@ class ServeHTTP:
             lifetimes).
         host / port: bind address. Port 0 picks a free port —
             ``self.port`` reports the bound one after :meth:`start`.
+
+    On a tensor-parallel mesh only rank 0 binds a port (its frontend
+    takes every request; the other ranks follow its engine steps).
     """
 
     def __init__(self, frontend: AsyncFrontend, host: str = "127.0.0.1",
@@ -156,6 +159,10 @@ class ServeHTTP:
         self._server: Optional[asyncio.AbstractServer] = None
 
     async def start(self) -> "ServeHTTP":
+        comm = getattr(self.frontend.engine, "_comm", None)
+        if comm is not None and comm.rank != 0:
+            raise RuntimeError(f"on a mesh only rank 0 serves HTTP, not "
+                               f"rank {comm.rank}")
         self._server = await asyncio.start_server(
             self._handle_conn, self.host, self.port)
         self.port = self._server.sockets[0].getsockname()[1]

@@ -310,17 +310,24 @@ class TestMeshErrors:
                                       "xlstm-125m", "whisper-large-v3",
                                       "moonshot-v1-16b-a3b"])
     def test_engine_refuses_uncovered_archs(self, arch):
-        """Recurrent, local-attention and encoder blocks are not ported at
-        tp > 1 (Queue 1 item 2a.3). An MoE is served where tp divides its
-        experts (expert parallelism) or their d_ff (TP inside experts:
-        ``tests/test_torch_tp_moe.py``) and refused where it divides
-        neither: tp=3 on the reduced MoEs' 4 or 8 experts of d_ff 64."""
+        """An encoder-decoder is refused at tp > 1 (its cross caches; the
+        engine serves none at tp=1 either: Queue 1 item 3d). An MoE is
+        served where tp divides its experts (expert parallelism) or their
+        d_ff (TP inside experts: ``tests/test_torch_tp_moe.py``) and
+        refused where it divides neither: tp=3 on the reduced MoEs' 4 or
+        8 experts of d_ff 64. The recurrent archs are served where tp
+        divides the widths their rules cut
+        (``tests/test_torch_tp_recurrent.py``) and refused where it does
+        not: tp=3 on reduced recurrentgemma's RG-LRU width 64 and on
+        reduced xLSTM's 4 mLSTM heads."""
         cfg = t_get_reduced_config(arch)
-        tp = 3 if cfg.is_moe else 2
+        tp = 2 if cfg.is_encdec else 3
         mesh = Mesh(shape={"data": 1, "model": tp}, rank=0,
                     device=torch.device("cpu"))
-        err, match = ((ValueError, "divides neither") if cfg.is_moe else
-                      (NotImplementedError, "Queue 1 item 2a.3"))
+        err, match = ((NotImplementedError, "Queue 1 item 3d")
+                      if cfg.is_encdec else
+                      (ValueError, "divides neither") if cfg.is_moe else
+                      (ValueError, "does not divide"))
         with pytest.raises(err, match=match):
             ServeEngine(cfg, None, mesh=mesh, weights_layout="w4a8")
 
@@ -348,12 +355,25 @@ class TestMeshErrors:
         assert not tsh.attn_replicated(cfg, 1)
 
     def test_engine_refuses_the_bf16_layout(self):
-        mesh = Mesh(shape={"data": 1, "model": 2}, rank=0,
-                    device=torch.device("cpu"))
-        with pytest.raises(ValueError, match="w4a8"):
-            ServeEngine(t_get_reduced_config("qwen2.5-3b"),
-                        init_params(t_get_reduced_config("qwen2.5-3b"),
-                                    device="cpu"), mesh=mesh)
+        """The bf16 layout is served at tp > 1 now (its row-parallel
+        linears sum f32 partials: ``tests/test_torch_tp_recurrent.py``),
+        and the refusals that come of packing int4 do not apply to it: a
+        dense d_ff whose packed rows tp does not divide (132 at tp=4) is
+        refused under w4a8 only; a width tp does not divide is refused
+        under either layout."""
+        from repro_torch.serve.engine import _check_tp
+        cfg = t_get_reduced_config("qwen2.5-3b")
+        _check_tp(cfg, 2, "bf16")
+        _check_tp(cfg.replace(d_ff=132), 4, "bf16")
+        with pytest.raises(ValueError, match="packed rows"):
+            _check_tp(cfg.replace(d_ff=132), 4, "w4a8")
+        rg = t_get_reduced_config("recurrentgemma-2b")
+        _check_tp(rg.replace(lru_width=36), 4, "bf16")
+        with pytest.raises(ValueError, match="packed rows"):
+            _check_tp(rg.replace(lru_width=36), 4, "w4a8")
+        for layout in ("bf16", "w4a8"):
+            with pytest.raises(ValueError, match="does not divide"):
+                _check_tp(rg, 3, layout)
 
     def test_spawn_refuses_nccl_off_cuda(self):
         from repro_torch.launch.mesh import spawn_tp

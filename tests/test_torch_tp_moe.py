@@ -49,7 +49,8 @@ from repro_torch.serve.engine import ServeEngine
 from repro_torch.serve.spec import SpecConfig
 from test_torch_tp_serve import (ENG_KW, POLICY, PREEMPT_KW, TIMEOUT_S,
                                  _cold_prefill_pool, _mixed_reqs,
-                                 _prefix_reqs, _run, _step_logits)
+                                 _prefix_reqs, _run, _step_logits,
+                                 admit_reqs)
 
 MS, MX = "moonshot-v1-16b-a3b", "mixtral-8x7b"
 SPEC = dict(k=4, draft_layers=1, accept_mode="exact")
@@ -93,9 +94,7 @@ def _wrapped_logits(cfg, params, mesh, kw, steps=MX_WRAP_STEPS):
     """A dense engine's logits after an admission wave and ``steps``
     greedy decode steps (the longer rows' rings have wrapped)."""
     eng = ServeEngine(cfg, params, mesh=mesh, device="cpu", **kw)
-    for rq in _mixed_reqs(cfg):
-        eng.submit(rq)
-    eng._admit()
+    admit_reqs(eng, _mixed_reqs(cfg))
     cache = clone_cache(eng.state["cache"])
     tok = eng.state["tokens"]
     for _ in range(steps):

@@ -86,11 +86,33 @@ def _slo_reqs(cfg):
     return reqs
 
 
+def serve_reqs(eng, reqs):
+    """Serve ``reqs`` to the end: rank 0 (or an engine off a mesh)
+    submits them and drains, which stops the followers; a rank > 0
+    follows. Returns the requests as this rank holds them (a follower's
+    copies, in rank 0's order) and the engine's stats."""
+    if eng._comm is None or eng._comm.rank == 0:
+        for rq in reqs:
+            eng.submit(rq)
+        return reqs, eng.run_until_drained()
+    return eng.follow(), eng.stats()
+
+
+def admit_reqs(eng, reqs):
+    """One admission wave of ``reqs`` (no decode round), on every rank
+    of a mesh alike: rank 0 submits and admits, the others follow."""
+    if eng._comm is None or eng._comm.rank == 0:
+        for rq in reqs:
+            eng.submit(rq)
+        eng.admit()
+        eng.stop_followers()
+    else:
+        eng.follow()
+
+
 def _run(cfg, params, mesh, kw, reqs, device="cpu"):
     eng = ServeEngine(cfg, params, mesh=mesh, device=device, **kw)
-    for rq in reqs:
-        eng.submit(rq)
-    st = eng.run_until_drained()
+    reqs, st = serve_reqs(eng, reqs)
     return [tuple(rq.generated) for rq in reqs], st, eng
 
 
@@ -98,9 +120,7 @@ def _step_logits(cfg, params, mesh, kw):
     """One decode step's logits after admitting the mixed requests, and
     the collectives of that step (census, and the storages they read)."""
     eng = ServeEngine(cfg, params, mesh=mesh, device="cpu", **kw)
-    for rq in _mixed_reqs(cfg):
-        eng.submit(rq)
-    eng._admit()
+    admit_reqs(eng, _mixed_reqs(cfg))
     cache = clone_cache(eng.state["cache"])
     comm = eng._comm
     before = comm.counts() if comm else None
@@ -126,9 +146,7 @@ def _cold_prefill_pool(cfg, params, mesh):
     and the engine's KV heads a rank."""
     eng = ServeEngine(cfg, params, mesh=mesh, device="cpu",
                       **dict(ENG_KW, prefix_cache=False))
-    for rq in _mixed_reqs(cfg):
-        eng.submit(rq)
-    eng._admit()
+    admit_reqs(eng, _mixed_reqs(cfg))
     used = sorted({int(b) for s in eng._slot_req
                    for b in eng.alloc.tables[s] if b < eng.num_blocks})
     idx = torch.tensor(used)
@@ -203,12 +221,13 @@ def rank_scenarios(mesh, tree, kv, which, heads=4):
         if mesh.rank == 1:           # a clock 1000 s ahead, running 3x
             time.perf_counter = lambda: 3.0 * real() + 1000.0
         try:
-            reqs = _slo_reqs(cfg)
-            got, st, _ = _run(cfg, params, mesh,
-                              dict(ENG_KW, sched_policy="edf",
-                                   slo_shed="reject"), reqs)
+            eng = ServeEngine(cfg, params, mesh=mesh, device="cpu",
+                              **dict(ENG_KW, sched_policy="edf",
+                                     slo_shed="reject"))
+            reqs, _ = serve_reqs(eng, _slo_reqs(cfg))
         finally:
             time.perf_counter = real
+        got = [tuple(r.generated) for r in reqs]
         shed = sorted(r.uid for r in reqs if r.shed)
         stamps = [(r._timing.submit_t, r._timing.admit_t,
                    r._timing.finish_t) for r in reqs]
@@ -568,15 +587,17 @@ def test_cli_tp2_gloo_on_cpu(capsys):
 
 
 def test_cli_tp_refusals():
+    """What ``--tp`` still refuses: NCCL (the default backend) on the
+    CPU, and an encoder-decoder, which its ranks refuse at engine build.
+    The frontend modes (``--http-port``, ``--arrival-rate``) serve at
+    ``--tp 2`` now: ``tests/test_torch_tp_frontend.py``."""
     from repro_torch.launch import serve
-    with pytest.raises(NotImplementedError, match="rank 0"):
-        serve.main(["--tp", "2", "--tp-backend", "gloo", "--device", "cpu",
-                    "--http-port", "8000"])
-    with pytest.raises(NotImplementedError, match="rank 0"):
-        serve.main(["--tp", "2", "--tp-backend", "gloo", "--device", "cpu",
-                    "--arrival-rate", "5"])
     with pytest.raises(ValueError, match="gloo"):
         serve.main(["--tp", "2", "--device", "cpu"])
+    with pytest.raises(RuntimeError, match="Queue 1 item 3d"):
+        serve.main(["--tp", "2", "--tp-backend", "gloo", "--device", "cpu",
+                    "--arch", "whisper-large-v3", "--tp-timeout",
+                    str(TIMEOUT_S)])
 
 
 def test_shard_params_keeps_whole_kv_heads():
