@@ -453,6 +453,10 @@ def import_port():
     from repro_torch.launch.mesh import spawn, spawn_tp
     from repro_torch.optim import adamw_init
     from repro_torch.runtime.sharding import attn_replicated
+    from repro_torch.runtime import sharding
+    from repro_torch.runtime.collectives import TPComm
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.optim import cosine_schedule
     from repro_torch.benchmarks import common as bench
     from repro_torch.core.analysis import rotation
     from repro_torch.core.precision import parse_policy
@@ -490,7 +494,10 @@ def import_port():
                 AsyncFrontend=AsyncFrontend, ServeHTTP=ServeHTTP,
                 percentile=percentile, spawn_tp=spawn_tp, spawn=spawn,
                 ShardedLoader=ShardedLoader, tree_leaves=tree_leaves,
-                named_leaves=_named_leaves, attn_replicated=attn_replicated)
+                named_leaves=_named_leaves, attn_replicated=attn_replicated,
+                sharding=sharding, TPComm=TPComm,
+                make_local_mesh=make_local_mesh,
+                cosine_schedule=cosine_schedule)
 
 
 # --------------------------------------------------------------------------
@@ -3833,11 +3840,38 @@ def check_slstm_gx(torch, P, xcfg, dev, report):
     return worst
 
 
+PROFILE_ATTEMPTS = 3
+
+
+def device_kernel_names(torch, dev, fn, what):
+    """Names of the kernels ``fn`` launches, from ``torch.profiler``'s
+    device records. A fill of one element runs inside each profile, so
+    a profile with no device record at all lost its records (seen once
+    on the card, in the third of four profiles of one process): it is
+    taken again, up to ``PROFILE_ATTEMPTS`` times, and the run fails
+    if none records anything. The fill's record stays in the list: the
+    callers count kernels by names that it does not carry."""
+    from torch.profiler import ProfilerActivity, profile
+    probe = torch.empty(1, device=dev)
+    for _ in range(PROFILE_ATTEMPTS):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            probe.fill_(1.0)
+            torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            return names
+    check(False, f"{what}: the profiler recorded no device event, not "
+                 f"even a fill, in {PROFILE_ATTEMPTS} attempts")
+
+
 def slstm_kernels_per_call(torch, P, xcfg, dev):
     """Kernels named ``slstm_*`` that one call launches on each route and
     carry at the QAT shape, from ``torch.profiler``'s device records: 1
     resident, T step."""
-    from torch.profiler import ProfilerActivity, profile
     scan = P["slstm_ops"].slstm_scan
     gen = torch.Generator(device=dev)
     gen.manual_seed(43)
@@ -3849,11 +3883,9 @@ def slstm_kernels_per_call(torch, P, xcfg, dev):
         key = route if carry == "f32" else f"{route}_gx"
         scan(*args, carry=carry, route=route)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            scan(*args, carry=carry, route=route)
-            torch.cuda.synchronize()
-        names = [e.name for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        names = device_kernel_names(
+            torch, dev, lambda: scan(*args, carry=carry, route=route),
+            f"slstm_scan {route} carry {carry}")
         out[key] = sum("slstm_" in n for n in names)
         check(out[key] == want,
               f"slstm_scan {route} carry {carry}: {out[key]} slstm kernels "
@@ -4307,7 +4339,6 @@ def ptq_eval_vs_plain(torch, P, cfg, teacher, student, report):
     """One eval_quality batch of the student through the kernels and
     through their plain versions (launches not counted), and the launches
     of one student forward read from the device records."""
-    from torch.profiler import ProfilerActivity, profile
     C = P["bench"]
     counts = [fn.launches for fn in ptq_counters(P)]
     pol = PTQ_POLICIES[0]
@@ -4321,11 +4352,10 @@ def ptq_eval_vs_plain(torch, P, cfg, teacher, student, report):
     with torch.no_grad():
         P["models"].forward(cfg, student, ctx, batch)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            P["models"].forward(cfg, student, ctx, batch)
-            torch.cuda.synchronize()
-    names = [e.name for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
+        names = device_kernel_names(
+            torch, teacher["embed"]["w"].device,
+            lambda: P["models"].forward(cfg, student, ctx, batch),
+            "one student forward")
     for fn, c in zip(ptq_counters(P), counts):
         fn.launches = c
     recorded = {"fq_fwd_kernel": sum("fq_fwd_kernel" in n for n in names),
@@ -9016,16 +9046,19 @@ def dp_rank(mesh, inp):
     return out
 
 
-def train_dp(torch, P, dev, report, reduced=False):
+def train_dp(torch, P, dev, report, reduced=False, ref_dir=None):
     """Phase 5d: data-parallel QAT of qwen2.5-3b at full width and 4
     layers on two processes of the one card over gloo (NCCL refuses two
     ranks on one device), against this process's one-process run of the
-    same global batches from the same seed."""
+    same global batches from the same seed. With ``ref_dir`` the
+    one-process run's first gradient, its losses and its parameters
+    after the last step stay there for phase 5t (the caller removes
+    it)."""
     import tempfile
     import shutil
     t_phase = time.perf_counter()
     cfg, tcfg = dp_cfg(P, reduced), dp_tcfg(P)
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    tmp = ref_dir or tempfile.mkdtemp(prefix="chip_smoke_dp_")
     ref_path = str(Path(tmp) / "grads.pt")
     one = {"losses": []}
 
@@ -9037,19 +9070,38 @@ def train_dp(torch, P, dev, report, reduced=False):
         one["loss0"] = float(loss)
         torch.save({k: None if g is None else g.detach().cpu()
                     for k, g in P["named_leaves"](grads)}, ref_path)
-        del grads, teacher
+        del grads
+        if ref_dir:
+            # phase 5t's witness: this step with its row-parallel linears'
+            # GEMMs as f32 products rounded once
+            with row_f32_witness(P, [teacher, student]):
+                loss, grads = step.loss_and_grads(
+                    student, teacher, dp_first_batch(P, cfg, dev))
+            one["loss0_witness"] = float(loss)
+            torch.save({k: None if g is None else g.detach().cpu()
+                        for k, g in P["named_leaves"](grads)},
+                       str(Path(tmp) / "witness.pt"))
+            del grads
+        del teacher
 
     def on_step(step, metrics, student, opt):
         one["losses"].append(float(metrics["loss"]))
 
     try:
         t0 = time.perf_counter()
-        P["train"].run_qat(
+        _, student, _ = P["train"].run_qat(
             "qwen2.5-3b", tcfg, reduced=reduced, teacher_steps=0,
             n_layers=None if reduced else DP_LAYERS, device=dev,
             log_every=1, on_start=on_start, on_step=on_step)
         sync(torch, dev)
         one_s = time.perf_counter() - t0
+        if ref_dir:
+            torch.save({"loss0": one["loss0"], "losses": one["losses"],
+                        "loss0_witness": one["loss0_witness"],
+                        "params": {k: t.detach().cpu() for k, t in
+                                   P["named_leaves"](student)}},
+                       str(Path(tmp) / "one_process.pt"))
+        del student
         if torch.device(dev).type == "cuda":
             torch.cuda.empty_cache()
         t0 = time.perf_counter()
@@ -9059,7 +9111,8 @@ def train_dp(torch, P, dev, report, reduced=False):
                          timeout_s=DP_TIMEOUT_S)
         spawn_s = time.perf_counter() - t0
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        if not ref_dir:
+            shutil.rmtree(tmp, ignore_errors=True)
     ranks = got["ranks"]
     n_w = 7 * cfg.n_layers + 1
     for r in ranks:
@@ -9142,6 +9195,534 @@ def train_dp(torch, P, dev, report, reduced=False):
 
 
 # --------------------------------------------------------------------------
+# phase 5t: tensor-parallel QAT (model > 1) on four ranks of the card
+# --------------------------------------------------------------------------
+
+TPT_RANKS = 4
+TPT_STEPS = DP_STEPS
+TPT_TIMEOUT_S = 600
+# (pass, model ranks, attention mode): data 1 x model 4 in the mode
+# attn_shard_mode_for picks (kv_rep: 2 KV heads), the same mesh with seq
+# forced, and data 2 x model 2 in "" with the data sync
+TPT_PASSES = (("kv_rep", 4, None), ("seq", 4, "seq"), ("dp2", 2, None))
+# against the one-process step of phase 5d (same config, seed, batches):
+# the loss (the ranks' f32 partials of wo / wd summed in another order
+# than cuBLAS's bf16 GEMM sums them; 0 on the CPU at the reduced width,
+# at most 1.55e-5 on an H100 80GB HBM3 at 700 W)
+TPT_LOSS_RTOL = 1e-4
+# per gradient leaf (L2): within WITNESS_MULT times the witness's
+# distance (``row_f32_witness``: one process with wo's and wd's GEMMs as
+# f32 products rounded once, what the forward's sums do) plus the CPU
+# tests' bound for the backward's own sums (the ranks' partial input
+# gradients summed in f32 where one process accumulates them in bf16:
+# tests/test_torch_tp_train.py, 2^-6 of the leaf plus 1e-6 of the whole;
+# the key bias, whose true gradient is zero, 4e-2); the whole tree the
+# same way (WITNESS_MULT times the witness's plus 2^-6; on the CPU at the
+# reduced width, B 8 x T 128: 6.8e-3 against a witness of 2.3e-3; on an
+# H100: 1.40e-2 to 1.60e-2 against the witness's 1.59e-2)
+TPT_GRAD_RTOL, TPT_KEY_BIAS_RTOL = 2.0 ** -6, 4e-2
+WITNESS_MULT = 2.0
+# the flash kernel at seq's shapes: a rank's 32 query rows at their global
+# positions over the 128 keys (TPT_ROWS rows a rank at model 4)
+TPT_ROWS = TRAIN_T // TPT_RANKS
+TPT_FLASH_WINDOW = 48
+
+
+def tpt_shard_shapes(cfg, m):
+    """(site, R, C, mode, bits, launches a rank's student step): every
+    weight shard a rank fake-quantizes at model ``m`` (wq / wk / wv / wg /
+    wu column-parallel, wo / wd row-parallel, the tied head per row of
+    this rank's vocabulary rows) over TPT layers (phase 5d's 4)."""
+    d, f, qd, kvd = cfg.d_model, cfg.d_ff, cfg.q_dim, cfg.kv_dim
+    L = DP_LAYERS
+    return [(f"wq/{m}", d, qd // m, 1, 4, L), (f"wk/{m}", d, kvd // m, 1, 4, L),
+            (f"wv/{m}", d, kvd // m, 1, 4, L), (f"wo/{m}", qd // m, d, 1, 4, L),
+            (f"wg/{m}", d, f // m, 1, 4, L), (f"wu/{m}", d, f // m, 1, 4, L),
+            (f"wd/{m}", f // m, d, 1, 4, L),
+            (f"head/{m}", cfg.vocab_size // m, d, 2, 8, 1)]
+
+
+@contextlib.contextmanager
+def row_f32_witness(P, trees):
+    """The one-process step as a witness of the row-parallel sums: while
+    it is open, ``models.blocks.qlinear`` runs each layer's ``wo`` and
+    ``wd`` of ``trees`` as the f32 product of the quantized input and
+    weight rounded once (as model ranks sum their f32 partials and round
+    once, ``core.qat._qlinear_row_bf16``), every other linear as it is.
+    Its distance from the one-process step is the yardstick of phase 5t's
+    (as ``tp_witness`` is of phase 3v's)."""
+    B, qat = P["blocks"], P["qat"]
+    rows = {id(layer[b][n]) for t in trees for layer in t["layers"]
+            for b, n in (("attn", "wo"), ("mlp", "wd"))}
+    orig = B.qlinear
+
+    def qlinear(ctx, x, p, col=None, act_bits=None, weight_bits=None,
+                row=False, shards=1):
+        if id(p) not in rows:
+            return orig(ctx, x, p, col, act_bits=act_bits,
+                        weight_bits=weight_bits, row=row, shards=shards)
+        xq = qat.quantize_act(ctx, x, p, "s_in", col, bits=act_bits)
+        wq = qat.quantize_weight_p(ctx, p, bits=weight_bits)
+        y = (xq.float() @ wq.float()).to(xq.dtype)
+        if "b" in p:
+            y = y + p["b"].to(y.dtype)
+        return y
+
+    B.qlinear = qlinear
+    try:
+        yield
+    finally:
+        B.qlinear = orig
+
+
+def flash_offset_oracle(torch, q, k, v, q_offset, window):
+    """:func:`flash_oracle` for query rows at positions ``q_offset + i``."""
+    B, S, H, D = q.shape
+    g = H // k.shape[2]
+    kr = k.double().repeat_interleave(g, dim=2)
+    vr = v.double().repeat_interleave(g, dim=2)
+    s_ = torch.einsum("bqhd,bkhd->bhqk", q.double(), kr) * D ** -0.5
+    i = q_offset + torch.arange(S, device=q.device)
+    j = torch.arange(k.shape[1], device=q.device)
+    mask = i[:, None] >= j[None, :]
+    if window:
+        mask &= i[:, None] - j[None, :] < window
+    s_ = s_.masked_fill(~mask, float("-inf"))
+    return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s_, -1), vr).float()
+
+
+def check_tp_train_kernels(torch, P, cfg, dev, report):
+    """Phase 2 at phase 5t's shapes: flash_attn_fwd at seq's shapes (a
+    rank's TPT_ROWS query rows over all 128 keys) at q_offset 0, 32, 64
+    and 96, causal and under a window, against its plain version and the
+    f64 oracle at the same offsets (as ``check_flash`` holds it); flash at
+    kv_rep's and ""'s per-rank head counts; the fake-quant kernels on
+    every weight shard of model 4 and model 2 (dx bitwise, ds within
+    FQ_DS_TOL). Returns the worst flash error."""
+    fa, ref = P["fa_ops"].flash_attn_fwd, P["flash_attn_ref"]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(41)
+    rtol, atol = FLASH_TOL
+    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    cases, worst = [], 0.0
+    for window in (0, TPT_FLASH_WINDOW):
+        for off in range(0, TRAIN_T, TPT_ROWS):
+            q = torch.randn((TRAIN_B, TPT_ROWS, H, D), generator=gen,
+                            device=dev).to(torch.bfloat16)
+            k, v = (torch.randn((TRAIN_B, TRAIN_T, Hkv, D), generator=gen,
+                                device=dev).to(torch.bfloat16)
+                    for _ in range(2))
+            got = fa(q, k, v, causal=True, window=window,
+                     q_offset=off).float()
+            want = ref(q, k, v, causal=True, window=window,
+                       q_offset=off).float()
+            oracle = flash_offset_oracle(torch, q, k, v, off, window)
+            err = (got - want).abs()
+            beyond = float((err > KVQ_TOL[1] + KVQ_TOL[0] * want.abs())
+                           .float().mean())
+            e_k = float((got - oracle).abs().max())
+            e_p = float((want - oracle).abs().max())
+            case = {"q_offset": off, "window": window, "rows": TPT_ROWS,
+                    "keys": TRAIN_T, "max_abs_err": float(err.max()),
+                    "share_beyond_one_ulp": beyond, "kernel_vs_oracle": e_k,
+                    "plain_vs_oracle": e_p}
+            check(bool(torch.isfinite(got).all())
+                  and torch.allclose(got, want, rtol=rtol, atol=atol)
+                  and beyond <= FLASH_ULP_SHARE
+                  and e_k <= FLASH_ORACLE_RATIO * e_p,
+                  f"flash_attn_fwd at q_offset {off} differs from its plain "
+                  f"version: {case}")
+            cases.append(case)
+            worst = max(worst, float(err.max()))
+            del q, k, v, got, want, oracle, err
+    heads = []
+    for m, hq in ((4, H // 4), (2, H // 2)):    # kv_rep at 4, "" at 2
+        c = check_flash_case(torch, P, gen, cfg.replace(
+            n_heads=hq, n_kv_heads=1, head_dim=D), dev, TRAIN_B, TRAIN_T, 0)
+        heads.append(dict(c, model=m))
+        worst = max(worst, c["max_abs_err"])
+    fq_cases = [(site, R, C, mode, 0) for m in (TPT_RANKS, 2)
+                for site, R, C, mode, _, _ in tpt_shard_shapes(cfg, m)]
+    n, worst_ds = fq_case_checks(torch, P, gen, fq_cases, dev)
+    report["tp_train_kernels"] = {"flash_q_offset": cases,
+                                  "flash_rank_heads": heads,
+                                  "fake_quant_shards": n,
+                                  "fake_quant_ds_rel_mass_err": worst_ds}
+    print(f"phase 2: flash_attn_fwd at q_offset {list(range(0, TRAIN_T, TPT_ROWS))}"
+          f" ({TPT_ROWS} rows over {TRAIN_T} keys, causal and window "
+          f"{TPT_FLASH_WINDOW}) and at a rank's heads (kv_rep 4, \"\" 8 over "
+          f"one KV head) within rtol {rtol} atol {atol} of its plain "
+          f"version (worst {worst:.3g}); fake_quant on {n} model-4 and "
+          f"model-2 weight shards bitwise (dx), ds within {worst_ds:.3g} of "
+          f"its mass", flush=True)
+    return worst
+
+
+def time_tp_train_kernels(torch, P, cfg, dev, report):
+    """Phase 4 at phase 5t's shapes: one flash launch at seq's last rank
+    (q_offset 96: 32 rows over 128 keys) beside its plain version and
+    SDPA with the offset causal mask as a boolean ``attn_mask`` (its
+    ``is_causal`` cannot offset), and its bound; a rank's fake-quant
+    forward and backward a student step at model 4 (29 weight shards)
+    beside their plain versions and ``fake_quantize_per_channel_affine``
+    (``time_fake_quant``)."""
+    import torch.nn.functional as F
+    fa, ref = P["fa_ops"].flash_attn_fwd, P["flash_attn_ref"]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(42)
+    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    off = TRAIN_T - TPT_ROWS
+
+    def inputs():
+        return (torch.randn((TRAIN_B, TPT_ROWS, H, D), generator=gen,
+                            device=dev).to(torch.bfloat16),
+                *(torch.randn((TRAIN_B, TRAIN_T, Hkv, D), generator=gen,
+                              device=dev).to(torch.bfloat16)
+                  for _ in range(2)))
+
+    base = inputs()
+    sets = [base] + [inputs() for _ in range(copies_for(
+        tensor_bytes(*base)) - 1)]
+    t_k = time_ms(torch, lambda q, k, v: fa(q, k, v, causal=True,
+                                            q_offset=off), sets)
+    t_p = time_ms(torch, lambda q, k, v: ref(q, k, v, causal=True,
+                                             q_offset=off), sets[:2],
+                  min_calls=10)
+    i = off + torch.arange(TPT_ROWS, device=dev)
+    mask = i[:, None] >= torch.arange(TRAIN_T, device=dev)[None, :]
+    lib = [tuple(t.transpose(1, 2) for t in st) for st in sets]
+    t_l = time_ms(torch, lambda q, k, v: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, enable_gqa=True), lib)
+    pairs = sum(off + r + 1 for r in range(TPT_ROWS))
+    flops = 4 * TRAIN_B * H * D * pairs
+    nbytes = 2 * (2 * TRAIN_B * TPT_ROWS * H * D
+                  + 2 * TRAIN_B * TRAIN_T * Hkv * D)
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / BF16_PEAK_FLOPS
+    flash = {"ms": t_k, "plain_ms": t_p, "library_ms": t_l,
+             "bound_ms": max(t_b, t_o) * 1e3,
+             "bound_by": "bytes" if t_b >= t_o else "operations",
+             "per": f"one launch at B={TRAIN_B}, {TPT_ROWS} query rows at "
+                    f"q_offset {off} over {TRAIN_T} keys, H={H}, Hkv={Hkv}, "
+                    f"D={D}, causal (phase 5t's seq pass, a rank's layer)"}
+    del sets, lib
+    torch.cuda.empty_cache()
+    fwd, bwd = time_fake_quant(torch, P, cfg, dev, {},
+                               shapes=tpt_shard_shapes(cfg, TPT_RANKS))
+    per = (f"a rank's student step at model {TPT_RANKS}: "
+           f"{7 * DP_LAYERS + 1} weight shards ({DP_LAYERS} layers x 7 + "
+           f"the head's vocabulary rows)")
+    out = {"flash_q_offset": flash, "fake_quant_fwd": dict(fwd, per=per),
+           "fake_quant_bwd": dict(bwd, per=per), "card": report.get("card")}
+    report["tp_train_times"] = out
+    print(f"phase 4: 5t shapes: flash at q_offset {off}: {t_k * 1e3:.2f} us "
+          f"(bound {flash['bound_ms'] * 1e3:.2f} us by {flash['bound_by']}), "
+          f"plain {t_p * 1e3:.1f} us, SDPA with the mask {t_l * 1e3:.2f} us; "
+          f"fake_quant a rank's step fwd {fwd['ms']:.4f} ms (bound "
+          f"{fwd['bound_ms']:.4f}), bwd {bwd['ms']:.4f} ms (bound "
+          f"{bwd['bound_ms']:.4f})", flush=True)
+    return out
+
+
+def tpt_digest(torch, tensors):
+    """A digest of a list of tensors' bits (``tree_digest`` summed)."""
+    return repr(tree_digest(torch, tensors))
+
+
+def tpt_rank(mesh, inp):
+    """One rank of phase 5t: ``run_qat`` at model > 1 from the seed (no
+    teacher steps, MSE calibration, as phase 5d's one process) in each of
+    TPT_PASSES on this spawn's four ranks. Before the first step
+    (``on_start``): the first batch's loss and gradients through a step
+    of the same mesh and mode, gathered and held (on global rank 0)
+    against the one-process gradient, with that call's collective census;
+    each step's launches, split, loss and digests (the leaves every rank
+    holds whole; this rank's whole state); after the run the parameters
+    gathered and held against the one-process run's. The calibration of
+    the whole tree is the same computation in every pass, so a rank runs
+    it once and hands each pass a copy."""
+    import torch
+    import torch.distributed as dist
+    P = import_port()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = mesh.device
+    cuda = dev.type == "cuda"
+    gr = dist.get_rank()
+    cfg, tcfg = dp_cfg(P, inp["reduced"]), dp_tcfg(P)
+    SH = P["sharding"]
+    meshes = {TPT_RANKS: mesh, 2: P["make_local_mesh"](2, device=dev)}
+    ref = torch.load(inp["ref_path"], mmap=True)
+    wit = torch.load(inp["witness_path"], mmap=True)
+    one = torch.load(inp["one_path"], mmap=True)
+    train = P["train"]
+    calibrate, memo = train.calibrate, {}
+
+    def calibrate_once(cfg_, params, tcfg_, data_cfg):
+        if "tree" not in memo:
+            memo["tree"] = P["tree_map"](lambda t: t.detach().clone(),
+                                         calibrate(cfg_, params, tcfg_,
+                                                   data_cfg))
+        return P["tree_map"](lambda t: t.clone(), memo["tree"])
+
+    train.calibrate = calibrate_once
+    out = {"passes": {}}
+    try:
+        for key, m, mode in TPT_PASSES:
+            msh = meshes[m]
+            res = {"model": m, "data": TPT_RANKS // m, "steps": []}
+            state = {}
+            if cuda:
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats(dev)
+
+            def on_start(student, opt, msh=msh, mode=mode, res=res,
+                         state=state):
+                t0 = time.perf_counter()
+                teacher = P["models"].init_params(cfg, seed=tcfg.seed,
+                                                  device=dev)
+                step = P["steps"].make_train_step(cfg, tcfg, mesh=msh,
+                                                  attn_shard_mode=mode)
+                amode = step.attn_mode
+                dims = SH.cut_dims(teacher, cfg, msh, amode)
+                state["dims"], res["mode"] = dims, amode
+                teacher = SH.shard_params(teacher, cfg, msh, amode)
+                loss, grads = step.loss_and_grads(
+                    student, teacher, dp_first_batch(P, cfg, dev, msh))
+                res["loss0"] = float(loss)
+                res["census"] = dict(step.tp.counts())
+                res["census_bytes"] = dict(step.tp.bytes)
+                grads = P["tree_map"](
+                    lambda g, p: torch.zeros_like(p) if g is None else g,
+                    grads, student)
+                whole = SH.gather_params(grads, dims, step.tp)
+                del grads, teacher
+                if gr == 0:
+                    gaps = {}               # leaf: (gap, witness gap, norm)
+                    for k, g in P["named_leaves"](whole):
+                        r, w = ref[k], wit[k]
+                        r = (torch.zeros_like(g) if r is None else
+                             r.to(dev)).float()
+                        w = (torch.zeros_like(g) if w is None else
+                             w.to(dev)).float()
+                        gaps[k] = tuple(float(torch.linalg.vector_norm(a))
+                                        for a in (g.float() - r, w - r, r))
+                    total = math.sqrt(sum(n * n for *_, n in gaps.values()))
+                    rel = {k: e / n for k, (e, _, n) in gaps.items() if n > 0}
+                    res["grad_leaves"] = len(gaps)
+                    res["grad_tree_rel_l2"] = math.sqrt(sum(
+                        e * e for e, _, _ in gaps.values())) / total
+                    res["witness_tree_rel_l2"] = math.sqrt(sum(
+                        w * w for _, w, _ in gaps.values())) / total
+                    res["grad_past_bound"] = [
+                        (k, e, w, n) for k, (e, w, n) in gaps.items()
+                        if e > WITNESS_MULT * w + (
+                            TPT_KEY_BIAS_RTOL if k.endswith("attn/wk/b")
+                            else TPT_GRAD_RTOL) * n
+                        + DP_GRAD_ATOL_GLOBAL * total]
+                    rest = {k: v for k, v in rel.items()
+                            if not k.endswith("attn/wk/b")}
+                    worst = max(rest, key=rest.get)
+                    res["grad_max_rel_l2"] = rest[worst]
+                    res["grad_worst_leaf"] = worst
+                    res["key_bias_max_rel_l2"] = max(
+                        (v for k, v in rel.items()
+                         if k.endswith("attn/wk/b")), default=0.0)
+                del whole
+                res["grad_checks_s"] = time.perf_counter() - t0
+                state["counts"] = [fn.launches for fn in train_counters(P)]
+                if cuda:
+                    torch.cuda.empty_cache()
+
+            def on_step(i, metrics, student, opt, res=res, state=state):
+                counts = [fn.launches for fn in train_counters(P)]
+                cut = {k for k, d in state["dims"].items() if d is not None}
+                named = list(P["named_leaves"](student))
+                whole = [t for k, t in named if k not in cut]
+                res["steps"].append({
+                    "loss": float(metrics["loss"]), "ms": metrics["ms"],
+                    "launches": [a - b for a, b in
+                                 zip(counts, state["counts"])],
+                    "replicated": tpt_digest(torch, whole + [
+                        t for k, t in P["named_leaves"](opt.m)
+                        if k not in cut]),
+                    "state": tpt_digest(torch, P["tree_leaves"](
+                        (student, opt.m, opt.v)))})
+                state["counts"] = counts
+
+            t0 = time.perf_counter()
+            _, student, _ = train.run_qat(
+                "qwen2.5-3b", tcfg, reduced=inp["reduced"], teacher_steps=0,
+                n_layers=None if inp["reduced"] else DP_LAYERS, mesh=msh,
+                attn_shard_mode=mode, log_every=100, split_times=True,
+                on_start=on_start, on_step=on_step)
+            sync(torch, dev)
+            res["run_s"] = time.perf_counter() - t0
+            comm = P["TPComm"](msh)
+            params = SH.gather_params(student, state["dims"], comm)
+            del student
+            if gr == 0:
+                num = den = 0.0
+                past = []
+                for k, t in P["named_leaves"](params):
+                    t = t.detach()
+                    w = one["params"][k].to(dev).float()
+                    # Adam moves an element by at most lr a step (50x on
+                    # an activation scale): a gradient at its rounding
+                    # error moves it either way; plus a bf16 ulp
+                    mult = 50.0 if k.split("/")[-1] in P["qat"].ACT_SCALE_KEYS \
+                        else 1.0
+                    lim = 2 * inp["lr_sum"] * mult
+                    d = (t.float() - w).abs()
+                    ulp = (torch.maximum(t.float().abs(), w.abs()) * 2.0 ** -7
+                           if t.dtype == torch.bfloat16 else 0.0)
+                    if bool((d > lim + ulp).any()):
+                        past.append(k)
+                    num += float(torch.linalg.vector_norm(d)) ** 2
+                    den += float(torch.linalg.vector_norm(w)) ** 2
+                res["params_past_bound"] = past
+                res["params_rel_l2"] = math.sqrt(num / den)
+            del params
+            if cuda:
+                res["peak_memory_bytes"] = torch.cuda.max_memory_allocated(dev)
+                torch.cuda.empty_cache()
+            mine = {"rank": gr, "model_rank": msh.rank,
+                    "data_rank": msh.data_rank,
+                    "steps": [{k: s_[k] for k in ("replicated", "state",
+                                                  "launches", "loss")}
+                              for s_ in res["steps"]],
+                    "peak_memory_bytes": res.get("peak_memory_bytes")}
+            ranks = [None] * dist.get_world_size()
+            dist.all_gather_object(ranks, mine)
+            res["ranks"] = ranks
+            out["passes"][key] = res
+    finally:
+        train.calibrate = calibrate
+    dist.barrier()
+    return out
+
+
+def train_tp(torch, P, dev, report, ref_dir, reduced=False):
+    """Phase 5t: tensor-parallel QAT of qwen2.5-3b at full width and 4
+    layers on four processes of the one card over gloo, in the passes of
+    TPT_PASSES, against phase 5d's one-process run (``ref_dir``: its
+    first gradient, losses and final parameters)."""
+    t_phase = time.perf_counter()
+    cfg, tcfg = dp_cfg(P, reduced), dp_tcfg(P)
+    one = torch.load(str(Path(ref_dir) / "one_process.pt"), mmap=True)
+    lr_sum = sum(float(P["cosine_schedule"](
+        i, base_lr=tcfg.scaled_lr(), total_steps=tcfg.total_steps,
+        warmup_steps=tcfg.warmup_steps, min_lr_ratio=tcfg.min_lr_ratio))
+        for i in range(TPT_STEPS))
+    got = P["spawn"](tpt_rank, TPT_RANKS, {
+        "ref_path": str(Path(ref_dir) / "grads.pt"),
+        "witness_path": str(Path(ref_dir) / "witness.pt"),
+        "one_path": str(Path(ref_dir) / "one_process.pt"),
+        "reduced": reduced, "lr_sum": lr_sum},
+        model_parallel=TPT_RANKS, device=torch.device(dev).type,
+        backend="gloo", timeout_s=TPT_TIMEOUT_S)
+    cuda = torch.device(dev).type == "cuda"
+    n_w = 7 * cfg.n_layers + 1
+    res = {"card": report.get("card"), "layers": cfg.n_layers,
+           "global_batch": TRAIN_B, "seq": TRAIN_T, "backend": "gloo",
+           "losses_one_process": one["losses"],
+           "loss0_witness": one["loss0_witness"], "passes": {},
+           "note": "four processes on one card over gloo (tensors through "
+                   "host memory): a check of the tensor-parallel path, not "
+                   "a speed"}
+    for key, m, mode in TPT_PASSES:
+        r = got["passes"][key]
+        losses = [s_["loss"] for s_ in r["steps"]]
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses, one["losses"])]
+        rel0 = abs(r["loss0"] - one["loss0"]) / abs(one["loss0"])
+        per = {k: sum(s_["ms"][k] for s_ in r["steps"][1:])
+               / max(len(r["steps"]) - 1, 1)
+               for k in ("teacher", "student", "tp", "sync", "optimizer")}
+        last = r["steps"][-1]["launches"]
+        res["passes"][key] = {
+            "mode": r["mode"], "model": m, "data": TPT_RANKS // m,
+            "losses": losses, "loss0": r["loss0"],
+            "loss_rel_err": max(rel + [rel0]),
+            "grad_tree_rel_l2": r["grad_tree_rel_l2"],
+            "witness_tree_rel_l2": r["witness_tree_rel_l2"],
+            "grad_max_rel_l2": r["grad_max_rel_l2"],
+            "grad_worst_leaf": r["grad_worst_leaf"],
+            "key_bias_max_rel_l2": r["key_bias_max_rel_l2"],
+            "grad_leaves": r["grad_leaves"],
+            "grad_leaves_past_bound": r["grad_past_bound"],
+            "params_rel_l2": r["params_rel_l2"],
+            "params_past_bound": r["params_past_bound"],
+            "ms_split": per, "ms_first_step": r["steps"][0]["ms"],
+            "census_loss_and_grads": r["census"],
+            "census_bytes": r["census_bytes"],
+            "launches_per_rank_step": {"fake_quant_fwd": last[0],
+                                       "fake_quant_bwd": last[1],
+                                       "flash_attn_fwd": last[2]},
+            "peak_memory_bytes": [rk["peak_memory_bytes"]
+                                  for rk in r["ranks"]],
+            "grad_checks_s": r["grad_checks_s"], "run_s": r["run_s"]}
+    res["phase_s"] = time.perf_counter() - t_phase
+    report["train_tp"] = res
+    for key, v in res["passes"].items():
+        print(f"phase 5t {key}: qwen2.5-3b QAT at data {v['data']} x model "
+              f"{v['model']} ({v['mode']!r}; {cfg.n_layers} layers, B "
+              f"{TRAIN_B} x T {TRAIN_T}, gloo, on {report.get('card')}): "
+              f"losses {v['losses']} vs one process {one['losses']} (rel "
+              f"{v['loss_rel_err']:.2e}); gradients {v['grad_tree_rel_l2']:.2e}"
+              f" of the tree off one process (the witness "
+              f"{v['witness_tree_rel_l2']:.2e}), worst leaf "
+              f"{v['grad_max_rel_l2']:.2e} ({v['grad_worst_leaf']}), key "
+              f"bias {v['key_bias_max_rel_l2']:.2e}; parameters within "
+              f"{v['params_rel_l2']:.2e} (tree L2); step ms "
+              f"{v['ms_split']}; census {v['census_loss_and_grads']}; "
+              f"launches a rank a step {v['launches_per_rank_step']}; peak "
+              f"{v['peak_memory_bytes']} B", flush=True)
+    print(f"phase 5t: {res['phase_s']:.1f} s; " + json.dumps(res),
+          flush=True)
+    for key, m, mode in TPT_PASSES:
+        r, v = got["passes"][key], res["passes"][key]
+        for rk in r["ranks"]:
+            check(len(rk["steps"]) == TPT_STEPS,
+                  f"5t {key} rank {rk['rank']}: {len(rk['steps'])} steps")
+            for s_ in rk["steps"]:
+                if cuda:
+                    check(s_["launches"] == [n_w, n_w, cfg.n_layers, 0],
+                          f"5t {key} rank {rk['rank']}: launches "
+                          f"(fake_quant_fwd, fake_quant_bwd, flash_attn_fwd, "
+                          f"slstm_scan) = {s_['launches']}, want ({n_w}, "
+                          f"{n_w}, {cfg.n_layers}, 0)")
+                check(math.isfinite(s_["loss"]), f"5t {key}: loss "
+                                                 f"{s_['loss']}")
+        for i in range(TPT_STEPS):
+            check(len({rk["steps"][i]["replicated"]
+                       for rk in r["ranks"]}) == 1,
+                  f"5t {key}: the leaves every rank holds whole differ "
+                  f"across the ranks after step {i}")
+            for mr in range(m):
+                check(len({rk["steps"][i]["state"] for rk in r["ranks"]
+                           if rk["model_rank"] == mr}) == 1,
+                      f"5t {key}: the data replicas of model rank {mr} "
+                      f"differ after step {i}")
+        check(v["loss_rel_err"] <= TPT_LOSS_RTOL,
+              f"5t {key}: global losses {v['losses']} (first batch "
+              f"{v['loss0']}) vs one process {one['losses']} "
+              f"({one['loss0']}) past {TPT_LOSS_RTOL}")
+        tree_bound = WITNESS_MULT * v["witness_tree_rel_l2"] + TPT_GRAD_RTOL
+        check(v["grad_tree_rel_l2"] <= tree_bound,
+              f"5t {key}: the gathered gradient {v['grad_tree_rel_l2']} of "
+              f"the tree off one process, past {tree_bound} "
+              f"({WITNESS_MULT}x the witness's + {TPT_GRAD_RTOL})")
+        check(not v["grad_leaves_past_bound"],
+              f"5t {key}: gathered gradients {v['grad_leaves_past_bound']} "
+              f"off the one-process gradient past {WITNESS_MULT}x the "
+              f"witness's gap + {TPT_GRAD_RTOL} of the leaf + "
+              f"{DP_GRAD_ATOL_GLOBAL} of the whole (the key bias "
+              f"{TPT_KEY_BIAS_RTOL}): (leaf, gap, witness gap, norm)")
+        check(not v["params_past_bound"],
+              f"5t {key}: gathered parameters {v['params_past_bound']} "
+              f"moved past 2 lr (50x on activation scales) + a bf16 ulp "
+              f"from the one-process run's")
+    return res
+
 
 def main() -> int:
     import torch
@@ -9161,6 +9742,14 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     report = {}
     t_start = time.perf_counter()
+    laps = report["phase_times_s"] = {}
+    t_lap = [t_start]
+
+    def lap(name):
+        """Seconds since the last lap, under the phases just run."""
+        now = time.perf_counter()
+        laps[name] = now - t_lap[0]
+        t_lap[0] = now
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -9177,6 +9766,7 @@ def main() -> int:
     report["build_s"] = time.perf_counter() - t0
     print(f"phase 1: built {sorted(libs)} in {report['build_s']:.1f} s",
           flush=True)
+    lap("1")
 
     cfg = P["get_config"]("qwen2.5-3b")
     xcfg = P["get_config"](XLSTM)
@@ -9193,6 +9783,7 @@ def main() -> int:
     fq_err = check_fake_quant(torch, P, cfg, dev, report)
     check_cut_fake_quant(torch, P, dev, report)
     flash_err = check_flash(torch, P, cfg, dev, report)
+    tpt_flash_err = check_tp_train_kernels(torch, P, cfg, dev, report)
     rcfg = P["get_config"](RG)
     rg_err = check_rg_kernels(torch, P, cfg, rcfg, dev, report)
     mx_err = check_mx_kernels(torch, P, dev, report)
@@ -9202,6 +9793,7 @@ def main() -> int:
     wv_err = check_wv_kernels(torch, P, dev, report)
     torch.cuda.empty_cache()
     slstm_err = check_slstm(torch, P, xcfg, dev, report)
+    lap("2")
     launches, eng = serve(torch, P, cfg, dev, report)
     profile_decode(torch, P, cfg, eng, report)
     params = eng.params                 # packed exports, bf16 linears gone
@@ -9216,41 +9808,61 @@ def main() -> int:
     spec_launches = serve_spec(torch, P, cfg, dev, params, report,
                                plain_streams)
     torch.cuda.empty_cache()
+    lap("3-3c")
     tp = serve_tp(torch, P, dev, report)
     torch.cuda.empty_cache()
+    lap("3t-3v")
     serve_self_draft(torch, P, cfg, dev, params, report)
     check_tail_rows(torch, P, cfg, dev, params, report)
     serve_optimistic(torch, P, cfg, dev, params, report)
     fe_launches = serve_frontend(torch, P, cfg, dev, params, report)
     del params
     torch.cuda.empty_cache()
+    lap("3d-3o")
     train_launches, teacher, student = train_full(torch, P, cfg, dev, report)
     torch.cuda.empty_cache()
+    lap("5")
     ptq_launches = ptq_full(torch, P, cfg, dev, teacher, student, report)
     del student
     torch.cuda.empty_cache()
+    lap("7")
     c16_decode(torch, P, cfg, dev, teacher, report)
     del teacher
     torch.cuda.empty_cache()
     train_static(torch, P, cfg, dev, report)
     torch.cuda.empty_cache()
-    dp = train_dp(torch, P, dev, report)
+    lap("3h-5b")
+    import tempfile
+    import shutil
+    ref_dir = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    try:
+        dp = train_dp(torch, P, dev, report, ref_dir=ref_dir)
+        torch.cuda.empty_cache()
+        lap("5d")
+        tpt = train_tp(torch, P, dev, report, ref_dir)
+    finally:
+        shutil.rmtree(ref_dir, ignore_errors=True)
     torch.cuda.empty_cache()
+    lap("5t")
     serve_xlstm(torch, P, xcfg, dev, report)
     xlstm_train_launches = train_xlstm(torch, P, xcfg, dev, report)
     torch.cuda.empty_cache()
+    lap("3f-6")
     rg_launches = serve_rg(torch, P, rcfg, dev, report)
     rg_train_launches = train_rg(torch, P, rcfg, dev, report)
     torch.cuda.empty_cache()
+    lap("3g-6b")
     mx_launches = serve_mx(torch, P, dev, report)
     torch.cuda.empty_cache()
     mx_train_launches = train_mx(torch, P, dev, report)
     torch.cuda.empty_cache()
+    lap("3i-6c")
     ms_launches, ms_spec_launches = serve_ms(torch, P, dev, report)
     torch.cuda.empty_cache()
     ms_train_launches = train_cut(torch, P, dev, report, MS,
                                   MS_TRAIN_LAYERS, "train_ms", "phase 6d")
     torch.cuda.empty_cache()
+    lap("3j-6d")
     q32 = serve_cut(torch, P, dev, report, Q32, Q32_SERVE_LAYERS,
                     "serve_q32", "phase 3k", paged=True)
     q7 = serve_cut(torch, P, dev, report, Q7, 0, "serve_q7", "phase 3l")
@@ -9258,6 +9870,7 @@ def main() -> int:
                                    Q14_TRAIN_LAYERS, "train_q14",
                                    "phase 6e")
     torch.cuda.empty_cache()
+    lap("3k-6e")
     wh = serve_wh(torch, P, dev, report)
     wh_train = train_direct(torch, P, dev, report, WH, WH_TRAIN_B, TRAIN_T,
                             "train_wh", "phase 6f")
@@ -9265,6 +9878,7 @@ def main() -> int:
     vl_train = train_direct(torch, P, dev, report, VL, TRAIN_B, TRAIN_T,
                             "train_vl", "phase 6g")
     torch.cuda.empty_cache()
+    lap("3m-6g")
     w4a8_t = time_w4a8(torch, P, cfg, dev, report)
     w4a8_tp_t = time_w4a8_acc(torch, P, cfg, dev)
     report["w4a8_tp_shard_times"] = w4a8_tp_t
@@ -9275,11 +9889,13 @@ def main() -> int:
     spec_t = time_spec_verify(torch, P, cfg, dev, report)
     fq_fwd_t, fq_bwd_t = time_fake_quant(torch, P, cfg, dev, report)
     flash_t = time_flash(torch, P, cfg, dev, report)
+    tpt_t = time_tp_train_kernels(torch, P, cfg, dev, report)
     slstm_t = time_slstm(torch, P, xcfg, dev, report)
     rg_t = time_rg(torch, P, rcfg, dev, report)
     mx_t = time_mx(torch, P, dev, report)
     new_t = time_new(torch, P, dev, report)
     wv_t = time_wv(torch, P, dev, report)
+    lap("4")
     for name, t in (("kvq_paged_decode_attn", paged_t),
                     ("gather_dequant_paged_kv", gather_t),
                     ("pool_block_copy", copy_t),
@@ -9292,6 +9908,8 @@ def main() -> int:
               f" ms by {t['bound_by']}), plain {t['plain_ms']:.4f} ms, "
               f"library {t['library_ms']:.4f} ms", flush=True)
     report["total_s"] = time.perf_counter() - t_start
+    print("phase times (s): " + json.dumps(
+        {k: round(v, 1) for k, v in laps.items()}), flush=True)
 
     def wh_launches(name):
         """A kernel's launches over phase 3m's two waves."""
@@ -9483,6 +10101,10 @@ def main() -> int:
          "launches": train_launches["fake_quant_fwd"],
          "dp_launches_per_rank_step": dp["launches_per_rank_step"][
              "fake_quant_fwd"],
+         "tp_train_launches_per_rank_step": {
+             k: v["launches_per_rank_step"]["fake_quant_fwd"]
+             for k, v in tpt["passes"].items()},
+         "tp_train_shards": tpt_t["fake_quant_fwd"],
          "ptq_launches": ptq_launches["fake_quant_fwd"],
          "max_abs_err": fq_err, **fq_fwd_t,
          "tp_launches": tp_launches(tp, "fake_quant_fwd"),
@@ -9543,6 +10165,10 @@ def main() -> int:
          "launches": train_launches["fake_quant_bwd"],
          "dp_launches_per_rank_step": dp["launches_per_rank_step"][
              "fake_quant_bwd"],
+         "tp_train_launches_per_rank_step": {
+             k: v["launches_per_rank_step"]["fake_quant_bwd"]
+             for k, v in tpt["passes"].items()},
+         "tp_train_shards": tpt_t["fake_quant_bwd"],
          "max_abs_err": fq_err, **fq_bwd_t,
          "rg_launches": rg_train_launches["fake_quant_bwd"],
          "mx_train_launches": mx_train_launches["fake_quant_bwd"],
@@ -9578,8 +10204,12 @@ def main() -> int:
          "launches": train_launches["flash_attn_fwd"],
          "dp_launches_per_rank_step": dp["launches_per_rank_step"][
              "flash_attn_fwd"],
+         "tp_train_launches_per_rank_step": {
+             k: v["launches_per_rank_step"]["flash_attn_fwd"]
+             for k, v in tpt["passes"].items()},
+         "q_offset": tpt_t["flash_q_offset"],
          "ptq_launches": ptq_launches["flash_attn_fwd"],
-         "max_abs_err": max(flash_err, rg_err["flash_attn_fwd"],
+         "max_abs_err": max(flash_err, tpt_flash_err, rg_err["flash_attn_fwd"],
                             mx_err["flash_attn_fwd"],
                             new_err["flash_attn_fwd"],
                             wv_err["flash_attn_fwd"]),

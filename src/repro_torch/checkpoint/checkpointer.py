@@ -19,7 +19,11 @@ package restores in the other:
 
 ``restore`` writes the loaded values into the template's own tensors (in
 place, under ``no_grad``) and returns it, so the parameters keep their
-identity, device and ``requires_grad``.
+identity, device and ``requires_grad``. A checkpoint holds whole trees:
+training at model > 1 saves the tree its ranks gather
+(``runtime.sharding.gather_train_state``) and restores into a whole
+template before each rank cuts its part (``launch.train.run_qat``), so
+a checkpoint resumes at any data and model size.
 """
 from __future__ import annotations
 

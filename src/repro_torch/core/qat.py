@@ -59,8 +59,8 @@ class QuantCtx:
     # (what chip_smoke.py holds the kernels' serving and training paths
     # against)
     kernel_backend: str = "auto"
-    # tensor-parallel serving: this rank's ``runtime.collectives.TPComm``
-    # (None off the mesh). Row-parallel linears (``qlinear(..., row=
+    # tensor-parallel serving (and training, with ``attn_mode`` below):
+    # this rank's ``runtime.collectives.TPComm`` (None off the mesh). Row-parallel linears (``qlinear(..., row=
     # True)``: wo, wd, w_out, w_down) then reduce their amax and int32
     # accumulators (w4a8) or f32 partials (bf16) over it, a dynamic
     # scale over a rank's slice of a row (``sharded=True``) takes the
@@ -76,6 +76,20 @@ class QuantCtx:
     # summed over the data ranks, and a static activation scale's LSQ
     # gradient is scaled for the global batch
     dp: Any = None
+    # tensor-parallel training (model > 1): the attention mode, "" (q and
+    # KV heads cut), "kv_rep" (q heads cut, K/V gathered whole) or "seq"
+    # (a rank's query rows; the attention's linears whole), with ``tp``
+    # the model axis's TPComm. None: no such training (serving's meaning
+    # of ``tp`` above). The model code then runs on the global config:
+    # a block's input is copied in (``TPComm.copy_in``: its backward sums
+    # the ranks' input gradients), the row-parallel linears sum their f32
+    # partials (``TPComm.reduce_out``), a dynamic scale over a rank's
+    # slice of a row takes the whole row's amax (no gradient through the
+    # MAX, as the reference's stop-gradient scale), and an LSQ scale
+    # whose tensor a rank holds part of counts the whole tensor's
+    # elements (``shards``) while its gradient is summed over the ranks
+    # after the backward (``runtime.sharding.partial_grads``)
+    attn_mode: Optional[str] = None
 
     @property
     def off(self) -> bool:
@@ -95,7 +109,8 @@ def make_ctx(policy, mode: str = "train",
              act_calib_method: str = "quantile",
              weights_layout: str = "bf16",
              kernel_backend: str = "auto", tp=None, dp=None,
-             attn_whole: bool = False) -> QuantCtx:
+             attn_whole: bool = False,
+             attn_mode: Optional[str] = None) -> QuantCtx:
     if isinstance(policy, str):
         policy = parse_policy(policy)
     if kernel_backend not in KERNEL_BACKENDS:
@@ -105,7 +120,7 @@ def make_ctx(policy, mode: str = "train",
                     act_calib_method=act_calib_method,
                     weights_layout=weights_layout,
                     kernel_backend=kernel_backend, tp=tp, dp=dp,
-                    attn_whole=attn_whole)
+                    attn_whole=attn_whole, attn_mode=attn_mode)
 
 
 # --------------------------------------------------------------------------
@@ -133,18 +148,24 @@ def _tp_sharded(ctx: QuantCtx, sharded: bool) -> bool:
     return sharded and ctx.tp is not None and ctx.tp.size > 1
 
 
+def train_tp(ctx: QuantCtx) -> bool:
+    """Whether ``ctx`` is a tensor-parallel training rank's (model > 1)."""
+    return ctx.attn_mode is not None and ctx.tp is not None \
+        and ctx.tp.size > 1
+
+
 def _whole_row_amax(ctx: QuantCtx, xf: torch.Tensor) -> torch.Tensor:
     """The per-row |x| maximum of f32 ``xf``, this rank's slice of each
     row, over the whole row: the local maximum all-reduced (MAX, exact)
-    over the tensor-parallel ranks."""
-    amax = torch.amax(torch.abs(xf), dim=-1, keepdim=True)
+    over the tensor-parallel ranks. No gradient flows through it."""
+    amax = torch.amax(torch.abs(xf.detach()), dim=-1, keepdim=True)
     return ctx.tp.all_reduce_max(amax)
 
 
 def quantize_act(ctx: QuantCtx, x: torch.Tensor, p: Dict[str, Any], site: str,
                  col: Optional[Dict[str, Any]] = None,
                  bits: Optional[int] = None,
-                 sharded: bool = False) -> torch.Tensor:
+                 sharded: bool = False, shards: int = 1) -> torch.Tensor:
     """Quantize an activation-class site (``s_in``/``s_q``/``s_k``/``s_v``).
 
     ``p`` is the owning param dict (provides the learned scale in static
@@ -152,7 +173,9 @@ def quantize_act(ctx: QuantCtx, x: torch.Tensor, p: Dict[str, Any], site: str,
     tensor-parallel mesh ``x`` holds this rank's slice of its last dim,
     so a dynamic (per-row) scale takes the whole row's amax and the
     slice's values are the whole row's; a static scale quantizes
-    elementwise either way.
+    elementwise either way. ``shards``: the model ranks that each hold
+    this much of the site's tensor (its LSQ gradient counts the whole
+    tensor's elements; ``kernels.quant.ops.grad_scale``).
     """
     if ctx.off:
         return x
@@ -165,18 +188,18 @@ def quantize_act(ctx: QuantCtx, x: torch.Tensor, p: Dict[str, Any], site: str,
         return x
     if ctx.policy.act_dynamic:
         if _tp_sharded(ctx, sharded):
-            xf = x.float()
-            q, s = quantize_by_amax(xf, _whole_row_amax(ctx, xf), bits)
-            return (q.float() * s).to(x.dtype)
+            return dynamic_fake_quant(
+                x, bits, absmax=_whole_row_amax(ctx, x.float()))
         return dynamic_fake_quant(x, bits, axis=-1)
     return lsq_fake_quant(x, p[site], bits,
                           plain=ctx.kernel_backend == "ref",
-                          replicas=ctx.dp.size if ctx.dp is not None else 1)
+                          replicas=ctx.dp.size if ctx.dp is not None else 1,
+                          shards=shards)
 
 
 def quantize_weight_p(ctx: QuantCtx, p: Dict[str, Any],
                       bits: Optional[int] = None,
-                      key: str = "w") -> torch.Tensor:
+                      key: str = "w", shards: int = 1) -> torch.Tensor:
     """Fake-quant a weight from its param dict (LSQ per-output-channel;
     an MoE expert bank ``(e, d_in, d_out)`` per output channel of each
     expert, its ``s_w`` ``(e, 1, d_out)``: one launch for the bank).
@@ -185,7 +208,9 @@ def quantize_weight_p(ctx: QuantCtx, p: Dict[str, Any],
     (vocab, d) table. It is quantized as the table itself, one scale per
     row (per vocab entry, the head's output channel), and the result is
     transposed back: no copy of the table is made, and the gradient
-    reaches ``embed.w`` in its own layout.
+    reaches ``embed.w`` in its own layout. ``shards``: a row-parallel
+    weight's model ranks, each holding that much of every output
+    channel's rows (see :func:`quantize_act`).
     """
     w = p[key]
     if ctx.off:
@@ -197,14 +222,14 @@ def quantize_weight_p(ctx: QuantCtx, p: Dict[str, Any],
     if w.dim() == 2 and not w.is_contiguous() and w.t().is_contiguous():
         return lsq_fake_quant(w.t(), p["s_w"].reshape(-1, 1), bits,
                               plain=plain).t()
-    return lsq_fake_quant(w, p["s_w"], bits, plain=plain)
+    return lsq_fake_quant(w, p["s_w"], bits, plain=plain, shards=shards)
 
 
 def qlinear(ctx: QuantCtx, x: torch.Tensor, p: Dict[str, Any],
             col: Optional[Dict[str, Any]] = None,
             act_bits: Optional[int] = None,
             weight_bits: Optional[int] = None,
-            row: bool = False) -> torch.Tensor:
+            row: bool = False, shards: int = 1) -> torch.Tensor:
     """Quantized linear: fake-quant input + weight, then matmul (+ bias).
 
     ``act_bits``/``weight_bits`` override the body policy for special sites
@@ -221,7 +246,11 @@ def qlinear(ctx: QuantCtx, x: torch.Tensor, p: Dict[str, Any],
     reduces the amax and the int32 accumulators over the ranks (bitwise
     tp=1's); under bf16 :func:`_qlinear_row_bf16` reduces the amax and
     sums the f32 partial products (within a tolerance of tp=1's bf16
-    GEMM, not bitwise). Off the mesh it changes nothing.
+    GEMM, not bitwise). Off the mesh it changes nothing. In training the
+    LSQ gradients of its input and weight scales count the whole row
+    (their sums over the ranks follow the backward). ``shards``: the
+    model ranks each holding that much of the input's rows (``seq``
+    attention's query rows).
     """
     row_tp = row and ctx.tp is not None and ctx.tp.size > 1
     if ctx.weights_layout == "w4a8" and ctx.mode != "calib" and not ctx.off:
@@ -236,8 +265,10 @@ def qlinear(ctx: QuantCtx, x: torch.Tensor, p: Dict[str, Any],
             return w4a8_linear_row(x, exp, ctx.tp, out_dtype=x.dtype,
                                    plain=ctx.kernel_backend == "ref")
         return w4a8_qlinear(ctx, x, exp)
-    xq = quantize_act(ctx, x, p, "s_in", col, bits=act_bits, sharded=row)
-    wq = quantize_weight_p(ctx, p, bits=weight_bits)
+    k_shards = ctx.tp.size if row_tp else 1
+    xq = quantize_act(ctx, x, p, "s_in", col, bits=act_bits, sharded=row,
+                      shards=shards * k_shards)
+    wq = quantize_weight_p(ctx, p, bits=weight_bits, shards=k_shards)
     if row_tp:
         return _qlinear_row_bf16(ctx, xq, wq, p)
     y = torch.matmul(xq, wq)
@@ -255,9 +286,14 @@ def _qlinear_row_bf16(ctx: QuantCtx, xq: torch.Tensor, wq: torch.Tensor,
     all-reduced (SUM) and rounded to ``xq``'s dtype once; the bias is
     added once, after the sum, as tp=1 adds it. tp=1's bf16 GEMM rounds
     its own f32 sum of all K, in its own order, so this is not bitwise
-    (the tolerance is stated by ``tests/test_torch_tp_recurrent.py``)."""
+    (the tolerance is stated by ``tests/test_torch_tp_recurrent.py``).
+    Under autograd the sum's backward hands the output's gradient to each
+    rank's partial (``TPComm.reduce_out``)."""
     part = torch.matmul(xq.float(), wq.float())
-    y = ctx.tp.all_reduce_sum_f32(part).to(xq.dtype)
+    if part.requires_grad:
+        y = ctx.tp.reduce_out(part, xq.dtype)
+    else:
+        y = ctx.tp.all_reduce_sum_f32(part).to(xq.dtype)
     if "b" in p:
         y = y + p["b"].to(y.dtype)
     return y

@@ -13,7 +13,7 @@ path is the fake-quant kernel pair.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -43,7 +43,9 @@ def _reduce_to_shape(t: torch.Tensor, shape: Tuple[int, ...]) -> torch.Tensor:
     return t.reshape(shape)
 
 
-def dynamic_fake_quant(x: torch.Tensor, bits: int, axis: int = -1) -> torch.Tensor:
+def dynamic_fake_quant(x: torch.Tensor, bits: int, axis: int = -1,
+                       absmax: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
     """Token-wise dynamic symmetric quantization (absmax over ``axis``).
 
     The scale is data-derived and carries no gradient; the round (and the
@@ -51,10 +53,14 @@ def dynamic_fake_quant(x: torch.Tensor, bits: int, axis: int = -1) -> torch.Tens
     The straight-through form is built only when x needs a gradient: its
     values are the same bits (``v + (r - v) == r`` exactly for ``|v| <=
     b_u``), and the serving path is spared its three extra ops per site.
+    ``absmax`` (keepdim, f32) replaces x's own: a whole row's, where x is
+    a tensor-parallel rank's slice of it (the slice's values are then the
+    whole row's).
     """
     qn, qp = qbounds(bits)
     xf = x.float()
-    absmax = torch.amax(torch.abs(xf), dim=axis, keepdim=True)
+    if absmax is None:
+        absmax = torch.amax(torch.abs(xf), dim=axis, keepdim=True)
     s = torch.clamp_min(absmax / qp, _EPS).detach()
     v = xf / s
     if not x.requires_grad:

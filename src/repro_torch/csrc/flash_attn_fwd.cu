@@ -7,8 +7,11 @@
 //
 //   s    = (q . k) * scale                  scale = D^-0.5 rounded to f32
 //   s    = masked ? -1e30 : s               mask: q row >= s_q, key >= s_kv,
-//                                           causal key > row, window
-//                                           row - key >= window
+//                                           causal key > pos, window
+//                                           pos - key >= window, where
+//                                           pos = q_off + row (a rank's
+//                                           query rows at their global
+//                                           positions; 0 elsewhere)
 //   online softmax over key tiles: m = max(m, max s), p = masked ? 0 :
 //   exp(s - m), l = l * exp(m_old - m) + sum p, acc = acc * exp(m_old - m)
 //   + bf16(p) . v
@@ -197,7 +200,7 @@ flash_attn_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                       const __nv_bfloat16* __restrict__ v,
                       __nv_bfloat16* __restrict__ out, int Sq, int Skv, int H,
                       int Hkv, int s_q, int s_kv, int causal, int window,
-                      float scale) {
+                      int q_off, float scale) {
   constexpr int LD = ld<D>();
   constexpr int MT = mt_of<D>();
   constexpr int BQ = bq_of<D>();
@@ -221,11 +224,12 @@ flash_attn_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   const __nv_bfloat16* vb = v + ((size_t)b * Skv * Hkv + hk) * D;
 
   // key tiles that can hold an unmasked key for some row of this CTA
-  const int q_last = min(q0 + BQ, s_q) - 1;
+  // (rows at positions q_off + row)
+  const int q_last = q_off + min(q0 + BQ, s_q) - 1;
   int k_end = s_kv;
   if (causal) k_end = min(k_end, q_last + 1);
   int k_begin = 0;
-  if (window) k_begin = max(0, q0 - window + 1) / BK * BK;
+  if (window) k_begin = max(0, q_off + q0 - window + 1) / BK * BK;
 
   // K/V tile i goes to buffer i % STAGES in commit group i (Q joins
   // group 0); the first STAGES - 1 tiles are put in flight here
@@ -268,8 +272,9 @@ flash_attn_fwd_kernel(const __nv_bfloat16* __restrict__ q,
 
     // does the mask cut this tile for some row of the CTA (else no mask
     // is evaluated)
-    const bool cut = kn > s_kv || q0 + BQ > s_q || (causal && kn - 1 > q0) ||
-                     (window && q0 + BQ - 1 - k0 >= window);
+    const bool cut = kn > s_kv || q0 + BQ > s_q ||
+                     (causal && kn - 1 > q_off + q0) ||
+                     (window && q_off + q0 + BQ - 1 - k0 >= window);
 
     // S = Q K^T: n-tile j holds keys k0 + 8 j .. + 7; each K fragment
     // feeds both m-tiles
@@ -315,9 +320,10 @@ flash_attn_fwd_kernel(const __nv_bfloat16* __restrict__ q,
           if (cut) {
             const int row = q0 + wq + 16 * mt + 8 * (e >> 1) + g;
             const int key = k0 + 8 * j + 2 * t + (e & 1);
+            const int pos = q_off + row;
             const bool ok = row < s_q && key < s_kv &&
-                            (!causal || row >= key) &&
-                            (!window || row - key < window);
+                            (!causal || pos >= key) &&
+                            (!window || pos - key < window);
             if (!ok) {
               x = NEG;
               okb[mt] &= ~(1u << (4 * j + e));
@@ -433,7 +439,7 @@ flash_attn_fwd_kernel(const __nv_bfloat16* __restrict__ q,
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* out, int B,
            int Sq, int Skv, int H, int Hkv, int s_q, int s_kv, int causal,
-           int window, float scale, cudaStream_t st) {
+           int window, int q_off, float scale, cudaStream_t st) {
   constexpr int smem = smem_bytes<D>();
   // raised once, so a call inside a stream capture sets nothing
   static bool smem_set = false;
@@ -450,37 +456,39 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
-      Sq, Skv, H, Hkv, s_q, s_kv, causal, window, scale);
+      Sq, Skv, H, Hkv, s_q, s_kv, causal, window, q_off, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // s_q / s_kv: the true lengths (<= Sq / Skv); rows past s_q are not
-// written. Requires D of 16, 64, 128 or 256, H % Hkv == 0 and 16-byte
+// written. q_off >= 0: query row r sits at position q_off + r of the
+// keys' sequence for the causal and window masks (a rank's rows under
+// sequence-parallel attention). Requires D of 16, 64, 128 or 256, H % Hkv == 0 and 16-byte
 // aligned pointers (checked by the Python wrapper). Returns
 // cudaGetLastError().
 extern "C" int flash_attn_fwd_launch(const void* q, const void* k,
                                      const void* v, void* out, int B, int Sq,
                                      int Skv, int H, int Hkv, int D, int s_q,
                                      int s_kv, int causal, int window,
-                                     float scale, void* stream) {
+                                     int q_off, float scale, void* stream) {
   if (B < 0 || Hkv < 1 || H % Hkv || s_q < 0 || s_q > Sq || s_kv < 0 ||
-      s_kv > Skv || window < 0)
+      s_kv > Skv || window < 0 || q_off < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || s_q == 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D == 128)
     return launch<128>(q, k, v, out, B, Sq, Skv, H, Hkv, s_q, s_kv, causal,
-                       window, scale, st);
+                       window, q_off, scale, st);
   if (D == 64)
     return launch<64>(q, k, v, out, B, Sq, Skv, H, Hkv, s_q, s_kv, causal,
-                      window, scale, st);
+                      window, q_off, scale, st);
   if (D == 256)
     return launch<256>(q, k, v, out, B, Sq, Skv, H, Hkv, s_q, s_kv, causal,
-                       window, scale, st);
+                       window, q_off, scale, st);
   if (D == 16)
     return launch<16>(q, k, v, out, B, Sq, Skv, H, Hkv, s_q, s_kv, causal,
-                      window, scale, st);
+                      window, q_off, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

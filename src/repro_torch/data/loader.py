@@ -30,8 +30,9 @@ def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
 
 class ShardedLoader:
     """Placed batches from ``it``, ``prefetch`` of them ahead. ``mesh``:
-    a ``launch.mesh.Mesh`` (this rank's rows of each batch, on
-    ``mesh.device``), or None for the whole batch on ``device``.
+    a ``launch.mesh.Mesh`` (this rank's data replica's rows of each
+    batch, the same on each of its model ranks, on ``mesh.device``), or
+    None for the whole batch on ``device``.
     ``state_dict`` is the iterator's state as of the last batch handed
     out, not of the ones prefetched, so a checkpoint resumes at the next
     batch to train on."""

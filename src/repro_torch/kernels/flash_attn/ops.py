@@ -17,7 +17,7 @@ from repro_torch.kernels.checks import check_aligned, check_tensor
 from repro_torch.kernels.flash_attn.ref import flash_attn_ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = (_P,) * 4 + (_I,) * 10 + (ctypes.c_float, _P)
+_ARGTYPES = (_P,) * 4 + (_I,) * 11 + (ctypes.c_float, _P)
 HEAD_DIMS = (16, 64, 128, 256)
 
 
@@ -32,8 +32,10 @@ def _fn():
 
 def flash_attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    causal: bool = True, window: int = 0,
-                   plain: bool = False) -> torch.Tensor:
-    """q (B,S,H,D); k/v (B,Skv,Hkv,D) -> (B,S,H,D).
+                   q_offset: int = 0, plain: bool = False) -> torch.Tensor:
+    """q (B,S,H,D); k/v (B,Skv,Hkv,D) -> (B,S,H,D). ``q_offset``: query
+    row r sits at key position ``q_offset + r`` for the causal and window
+    masks (a rank's query rows under sequence-parallel attention).
 
     CPU tensors, and every tensor when ``plain``, run the plain version.
     CUDA tensors launch the kernel, which takes contiguous 16-byte aligned
@@ -41,7 +43,8 @@ def flash_attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     else raises.
     """
     if q.device.type == "cpu" or plain:
-        return flash_attn_ref(q, k, v, causal=causal, window=window)
+        return flash_attn_ref(q, k, v, causal=causal, window=window,
+                              q_offset=q_offset)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attn_fwd runs on cpu or cuda, got "
                          f"{q.device}")
@@ -51,6 +54,8 @@ def flash_attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if Hkv < 1 or H % Hkv:
         raise ValueError(f"the kernel needs H % Hkv == 0; got H={H}, "
                          f"Hkv={Hkv}")
+    if q_offset < 0:
+        raise ValueError(f"q_offset must be >= 0, got {q_offset}")
     if D not in HEAD_DIMS:
         raise ValueError(f"the kernel needs D in {HEAD_DIMS}; got D={D}")
     check_tensor("q", q, torch.bfloat16, (B, S, H, D), dev)
@@ -61,7 +66,8 @@ def flash_attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty_like(q)
     err = _fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B,
                 S, Skv, H, Hkv, D, S, Skv, int(causal), int(window),
-                D ** -0.5, torch.cuda.current_stream(dev).cuda_stream)
+                int(q_offset), D ** -0.5,
+                torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"flash_attn_fwd kernel launch failed: CUDA error "
                            f"{err}")

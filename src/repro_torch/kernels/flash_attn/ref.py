@@ -16,8 +16,10 @@ _NEG = -1e30
 
 
 def flash_attn_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                   causal: bool = True, window: int = 0) -> torch.Tensor:
-    """q (B,S,H,D); k/v (B,Skv,Hkv,D) -> (B,S,H,D) in q.dtype."""
+                   causal: bool = True, window: int = 0,
+                   q_offset: int = 0) -> torch.Tensor:
+    """q (B,S,H,D); k/v (B,Skv,Hkv,D) -> (B,S,H,D) in q.dtype; query row
+    r at key position ``q_offset + r``."""
     B, S, H, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     group = H // Hkv
@@ -27,7 +29,7 @@ def flash_attn_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         v = torch.repeat_interleave(v, group, dim=2)
     qs = q.float() * D ** -0.5
     s_ = torch.einsum("bqhd,bkhd->bqhk", qs, k.float())
-    qpos = torch.arange(S, device=dev)
+    qpos = q_offset + torch.arange(S, device=dev)
     kpos = torch.arange(Skv, device=dev)
     mask = torch.ones((S, Skv), dtype=torch.bool, device=dev)
     if causal:

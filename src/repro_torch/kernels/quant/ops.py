@@ -66,14 +66,16 @@ def scale_mode(x: torch.Tensor, s: torch.Tensor) -> int:
 
 
 def grad_scale(x: torch.Tensor, s: torch.Tensor, bits: int,
-               replicas: int = 1) -> float:
+               replicas: int = 1, shards: int = 1) -> float:
     """LSQ step-size gradient scale ``1/sqrt(f32(n * qp))`` in f32, with
-    n the elements per scale (the reference's ``_lsq_bwd``). An
-    activation site of a data-parallel step sees ``1 / replicas`` of the
-    global batch: n counts the global batch's elements, as the
-    reference's step jitted over a data axis does."""
+    n the elements per scale of the global tensor (the reference's
+    ``_lsq_bwd``, jitted over the mesh). An activation site of a
+    data-parallel step sees ``1 / replicas`` of the global batch; a site
+    whose tensor a tensor-parallel rank holds ``1 / shards`` of (a
+    row-parallel linear's input or weight rows, a rank's heads or query
+    rows) sees that much of each scale's elements. n counts them all."""
     _, qp = qbounds(bits)
-    n = max(x.numel() // max(s.numel(), 1), 1) * replicas
+    n = max(x.numel() // max(s.numel(), 1), 1) * replicas * shards
     return float(np.float32(1.0) / np.sqrt(np.float32(n * qp)))
 
 
@@ -124,16 +126,20 @@ fake_quant_fwd.launches = 0
 
 
 def fake_quant_bwd(x: torch.Tensor, s: torch.Tensor, g: torch.Tensor,
-                   bits: int, plain: bool = False, replicas: int = 1):
+                   bits: int, plain: bool = False, replicas: int = 1,
+                   shards: int = 1):
     """Returns (dx, ds): the straight-through ``dx`` and the LSQ step-size
     gradient, summed to ``s.shape`` and scaled by :func:`grad_scale`
-    (``replicas``: the data ranks sharing an activation site's batch).
+    (``replicas``: the data ranks sharing an activation site's batch;
+    ``shards``: the model ranks sharing the site's tensor; the ds of a
+    shard is then this rank's part of the sum, which the step sums over
+    the model ranks).
 
     CPU tensors, and every tensor when ``plain``, run the plain version.
     CUDA tensors launch the kernel (two deterministic passes, no atomics);
     g must have x's shape, type and layout.
     """
-    gs = grad_scale(x, s, bits, replicas)
+    gs = grad_scale(x, s, bits, replicas, shards)
     if x.device.type == "cpu" or plain:
         dx, ds = fake_quant_bwd_ref(x, s, g, bits)
         return dx, (ds * gs).to(s.dtype)
@@ -166,9 +172,10 @@ class _LsqFakeQuant(torch.autograd.Function):
     gradient for s (the reference's ``jax.custom_vjp``)."""
 
     @staticmethod
-    def forward(ctx, x, s, bits, plain, replicas):
+    def forward(ctx, x, s, bits, plain, replicas, shards):
         ctx.save_for_backward(x, s)
-        ctx.bits, ctx.plain, ctx.replicas = bits, plain, replicas
+        ctx.bits, ctx.plain = bits, plain
+        ctx.replicas, ctx.shards = replicas, shards
         return fake_quant_fwd(x, s, bits, plain=plain)
 
     @staticmethod
@@ -177,17 +184,19 @@ class _LsqFakeQuant(torch.autograd.Function):
         # autograd may hand a strided gradient (an attention einsum's view
         # of q/k/v); the kernel reads x's layout, so it is copied here, in
         # the open, and only then
-        # the data axis's replicas only where there are several: the
+        # the mesh's counts only where there are several: the
         # one-process call is the wrapper's plain signature
-        kw = {"replicas": ctx.replicas} if ctx.replicas != 1 else {}
+        kw = {k: v for k, v in (("replicas", ctx.replicas),
+                                ("shards", ctx.shards)) if v != 1}
         dx, ds = fake_quant_bwd(x, s, g.contiguous(), ctx.bits,
                                 plain=ctx.plain, **kw)
-        return dx, ds, None, None, None
+        return dx, ds, None, None, None, None
 
 
 def lsq_fake_quant(x: torch.Tensor, s: torch.Tensor, bits: int,
-                   plain: bool = False, replicas: int = 1) -> torch.Tensor:
+                   plain: bool = False, replicas: int = 1,
+                   shards: int = 1) -> torch.Tensor:
     """LSQ fake quantization with its gradients; ``plain`` runs the plain
     versions on any device (what the kernels are held against);
-    ``replicas``: see :func:`grad_scale`."""
-    return _LsqFakeQuant.apply(x, s, bits, plain, replicas)
+    ``replicas`` and ``shards``: see :func:`grad_scale`."""
+    return _LsqFakeQuant.apply(x, s, bits, plain, replicas, shards)

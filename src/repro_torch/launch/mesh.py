@@ -9,8 +9,9 @@ data replicas of ``model_parallel`` model ranks, global rank ``d *
 model_parallel + m`` at data index ``d`` and model index ``m`` (the
 reference's device grid, data-major). Each axis has its process group:
 the model axis's for tensor-parallel serving (the engine takes one data
-replica), the data axis's for data-parallel training
-(``launch.steps.make_train_step(mesh=...)``).
+replica) and training, the data axis's for data-parallel training
+(``launch.steps.make_train_step(mesh=...)`` takes both: data replicas
+of model ranks).
 
 :func:`spawn` starts ``world`` ranks of one function and returns rank
 0's result; :func:`spawn_tp` is its tensor-parallel form (every rank on

@@ -1,15 +1,16 @@
 """Step functions of the QAT path: the train step (teacher forward, student
-forward and backward, on a data axis the gradient sync, AdamW with LSQ
-scale updates) and the evaluation loss.
+forward and backward, on a mesh the gradient syncs, AdamW with LSQ scale
+updates) and the evaluation loss.
 """
 from __future__ import annotations
 
 import time
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
 
-from repro_torch.configs.base import ModelConfig, TrainConfig
+from repro_torch.configs.base import ATTENTION_BLOCKS, ModelConfig, \
+    TrainConfig
 from repro_torch.core.distill import next_token_loss, silq_loss
 from repro_torch.core.precision import parse_policy
 from repro_torch.core.qat import make_ctx
@@ -42,21 +43,77 @@ def grads_of(loss: torch.Tensor, params):
     return tree_map(lambda _: next(it), params)
 
 
+def attn_shard_mode_for(cfg: ModelConfig, model_axis: int) -> str:
+    """The attention's sharding for this arch on a model axis of
+    ``model_axis`` ranks (the reference's rule): "" where the KV heads
+    divide it (heads cut, no collective in the attention), "kv_rep"
+    where only the query heads do (K/V replicated, q heads cut), "seq"
+    otherwise (the query sequence cut)."""
+    if model_axis <= 1 or cfg.n_kv_heads % model_axis == 0:
+        return ""
+    if cfg.n_heads % model_axis == 0:
+        return "kv_rep"
+    return "seq"
+
+
 def data_comm(mesh):
     """The data axis's ``DPComm`` of ``mesh``, or None at data 1 (no
-    mesh). Training at model > 1 raises: the reference's ``kv_rep`` /
-    ``seq`` attention modes (``launch/steps.py:attn_shard_mode_for``) are
-    not ported (ROADMAP Queue 1 item 2b)."""
-    if mesh is None:
-        return None
-    if int(mesh.shape.get("model", 1)) != 1:
-        raise NotImplementedError(
-            f"training on a mesh {mesh.shape}: model > 1 is not ported "
-            "(ROADMAP Queue 1 item 2b)")
-    if int(mesh.shape.get("data", 1)) == 1:
+    mesh)."""
+    if mesh is None or int(mesh.shape.get("data", 1)) == 1:
         return None
     from repro_torch.runtime.collectives import DPComm
     return DPComm(mesh)
+
+
+def model_axis(mesh) -> int:
+    return 1 if mesh is None else int(mesh.shape.get("model", 1))
+
+
+def check_model_axis(cfg: ModelConfig, m: int, attn_mode: str,
+                     seq_len: int = 0) -> None:
+    """Refuse what training at model ``m`` > 1 does not run: the
+    families whose sharded backward is not ported (each a ROADMAP Queue
+    1 item) and widths ``m`` does not divide."""
+    if m <= 1:
+        return
+    refused = (("an MoE", cfg.is_moe, "2b.5"),
+               ("a recurrent arch", any(k not in ATTENTION_BLOCKS
+                                        for k in cfg.block_pattern), "2b.6"),
+               ("an encoder-decoder", cfg.is_encdec, "2b.7"),
+               ("a VLM", cfg.family == "vlm", "2b.8"))
+    for what, hit, item in refused:
+        if hit:
+            raise NotImplementedError(
+                f"training {cfg.name!r} at model > 1: {what}'s sharded "
+                f"backward is not ported (ROADMAP Queue 1 item {item}); "
+                "the dense attention decoders train at model > 1")
+    from repro_torch.runtime.sharding import TRAIN_MODES
+    if attn_mode not in TRAIN_MODES:
+        raise ValueError(f"attn_shard_mode is one of {TRAIN_MODES}, got "
+                         f"{attn_mode!r}")
+    need = [("d_ff", cfg.d_ff), ("vocab_size", cfg.vocab_size)]
+    if attn_mode == "":
+        need += [("n_kv_heads", cfg.n_kv_heads), ("n_heads", cfg.n_heads)]
+    elif attn_mode == "kv_rep":
+        need += [("n_heads", cfg.n_heads), ("kv_dim", cfg.kv_dim)]
+    elif seq_len:
+        need += [("seq_len", seq_len)]
+    bad = [f"{k}={v}" for k, v in need if v % m]
+    if bad:
+        raise ValueError(f"training at model={m} in attention mode "
+                         f"{attn_mode!r} needs {', '.join(bad)} divisible "
+                         f"by {m}")
+
+
+def model_comm(cfg: ModelConfig, mesh, attn_mode: str, seq_len: int = 0):
+    """The model axis's ``TPComm`` of ``mesh``, or None at model 1;
+    refuses what :func:`check_model_axis` refuses."""
+    m = model_axis(mesh)
+    if m == 1:
+        return None
+    check_model_axis(cfg, m, attn_mode, seq_len)
+    from repro_torch.runtime.collectives import TPComm
+    return TPComm(mesh)
 
 
 def global_denom(dp, batch: Dict, shape) -> torch.Tensor:
@@ -75,7 +132,8 @@ def global_denom(dp, batch: Dict, shape) -> torch.Tensor:
 
 def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
                     kernel_backend: str = "auto",
-                    split_times: bool = False, mesh=None) -> Callable:
+                    split_times: bool = False, mesh=None,
+                    attn_shard_mode: Optional[str] = None) -> Callable:
     """QAT train step, paper-faithful: teacher forward (unquantized, no
     grad), student forward with fake-quant, pure-KD loss (default), AdamW
     with LSQ scale updates (50x LR on activation scales), in place. An MoE
@@ -85,18 +143,25 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
     ``kernel_backend="ref"`` runs the kernels' plain versions on any
     device. ``split_times`` synchronises the device between the phases
     and returns their host ms under ``metrics["ms"]`` (teacher, student,
-    sync, optimizer). The step's loss and gradients alone (synced on a
-    data axis) are ``train_step.loss_and_grads(params, teacher_params,
-    batch)``.
+    tp, sync, optimizer; ``tp`` the model axis's collectives, taken out
+    of the teacher's and student's phases, and its gradient sum). The
+    step's loss and gradients alone (synced on a mesh) are
+    ``train_step.loss_and_grads(params, teacher_params, batch)``.
 
-    ``mesh``: a ``launch.mesh.Mesh`` of ``data`` > 1 replicas (model 1),
-    each rank called with its rows of the global batch
-    (``runtime.sharding.shard_batch``). The step then computes the one-
-    process step on the global batch, as the reference's step jitted
-    over a data axis does: each rank's loss is its share of the global
-    mean (global denominators, ``core.distill``), an MoE aux is the
-    global batch's, and after the backward every gradient is summed over
-    the ranks in f32 buckets (``DPComm.sync_grads``), so clipping, the
+    ``mesh``: a ``launch.mesh.Mesh`` of ``data`` replicas of ``model``
+    ranks, each rank called with its data replica's rows of the global
+    batch (``runtime.sharding.shard_batch``) and, at model > 1, the
+    student, teacher and optimizer state cut by
+    ``runtime.sharding.shard_train_state`` in the attention mode
+    ``attn_shard_mode`` (the reference's argument; by default
+    :func:`attn_shard_mode_for`). The step then computes the one-process
+    step on the global batch, as the reference's step jitted over the
+    mesh does.
+
+    On the data axis each rank's loss is its share of the global mean
+    (global denominators, ``core.distill``), an MoE aux is the global
+    batch's, and after the backward every gradient is summed over the
+    data ranks in f32 buckets (``DPComm.sync_grads``), so clipping, the
     LSQ scale updates and AdamW run on the same bits on every rank and
     the replicas stay bitwise equal. ``metrics["loss"]`` is the global
     loss. With ``tcfg.grad_compression="int8"`` the sync is
@@ -105,25 +170,43 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
     feedback per rank held by the step (``train_step.error_feedback``).
     That residual is rank-local and not in the replicated checkpoint:
     ``train_step.reset_error_feedback()`` zeroes it, which a restore
-    does. Without a mesh (data 1) ``grad_compression`` is ignored, as the
+    does. Without a data axis ``grad_compression`` is ignored, as the
     reference's step ignores it.
+
+    On the model axis (``TPComm``, ``QuantCtx.attn_mode``) the model code
+    runs the rank's part of every layer (``models.blocks``) and gathers
+    the logits, so every model rank computes the whole loss; the global
+    denominators stay the data axis's. After the backward the leaves a
+    rank reads on its part only (``runtime.sharding.partial_grad``) are
+    summed over the model ranks (``TPComm.sum_grads``), before the data
+    sync; the clip's norm sums the shards' squares over the model ranks
+    (``optim.clip_by_global_norm``). The replicated leaves then hold the
+    same bits on every model rank. Refused at model > 1: the MoE,
+    recurrent, encoder-decoder and VLM families (``check_model_axis``).
     """
     if tcfg.grad_compression not in ("none", "int8"):
         raise ValueError(f"grad_compression is 'none' or 'int8', got "
                          f"{tcfg.grad_compression!r}")
+    m = model_axis(mesh)
+    mode = (attn_shard_mode if attn_shard_mode is not None
+            else attn_shard_mode_for(cfg, m))
+    tp = model_comm(cfg, mesh, mode, tcfg.seq_len)
     dp = data_comm(mesh)
     compress = dp is not None and tcfg.grad_compression == "int8"
     policy = parse_policy(tcfg.precision)
+    attn_mode = mode if tp is not None else None
     ctx = make_ctx(policy, act_calib_method=tcfg.act_calib_method,
-                   kernel_backend=kernel_backend, dp=dp)
-    tctx = make_ctx("A16-C16-W16", mode="off", kernel_backend=kernel_backend)
+                   kernel_backend=kernel_backend, dp=dp, tp=tp,
+                   attn_mode=attn_mode)
+    tctx = make_ctx("A16-C16-W16", mode="off", kernel_backend=kernel_backend,
+                    tp=tp, attn_mode=attn_mode)
     base_lr = tcfg.scaled_lr()
     remat = tcfg.remat != "none"
-    state = {"err": None}
+    state = {"err": None, "partial": None}
 
     def local_loss_and_grads(params, teacher_params, batch: Dict,
                              mark=None):
-        """This rank's loss (the global one on a data axis) and its own
+        """This rank's loss (the global one on a mesh) and its own
         gradient tree, before any sync."""
         with torch.no_grad():
             t_logits = _text_logits(
@@ -148,6 +231,27 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
             report = report + MOE_AUX_COEF * aux["moe_aux"].detach()
         del logits, t_logits
         return report, grads_of(loss, params)
+
+    def partial_mask(grads):
+        """Per leaf (in order): whether it is summed over the model
+        ranks (``runtime.sharding.partial_grad``), memoised."""
+        if state["partial"] is None:
+            from repro_torch.bridge import flatten
+            from repro_torch.runtime.sharding import partial_grad
+            state["partial"] = [partial_grad(k, mode)
+                                for k, _ in flatten(grads)]
+        return state["partial"]
+
+    def tp_sum(grads):
+        """The partial leaves summed over the model ranks."""
+        if tp is None:
+            return grads
+        leaves = tree_leaves(grads)
+        mask = partial_mask(grads)
+        summed = iter(tp.sum_grads([g for g, p in zip(leaves, mask) if p]))
+        out = [next(summed) if p else g for g, p in zip(leaves, mask)]
+        it = iter(out)
+        return tree_map(lambda _: next(it), grads)
 
     def sync(grads):
         """The gradient tree summed (exact) or averaged (int8) over the
@@ -174,27 +278,50 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
         return tree_map(lambda _: next(it), grads)
 
     def loss_and_grads(params, teacher_params, batch: Dict, mark=None):
-        """The step's KD loss and its gradient tree (on a data axis: the
-        global loss and the synced gradients), before clipping."""
+        """The step's KD loss and its gradient tree (on a mesh: the
+        global loss and the gradients summed over the model ranks where
+        partial, then synced over the data ranks), before clipping."""
         loss, grads = local_loss_and_grads(params, teacher_params, batch,
                                            mark)
         if mark:
             mark()
+        grads = tp_sum(grads)
+        if mark:
+            mark()
         return loss, sync(grads)
+
+    def sharded_mask(params):
+        """Per leaf: whether this rank holds a shard of it (a cut dim)."""
+        if state.get("cut") is None:
+            from repro_torch.bridge import flatten
+            from repro_torch.runtime.sharding import train_whole_leaf
+            state["cut"] = [not train_whole_leaf(k, mode)
+                            and _is_cut(cfg, mesh, k, v)
+                            for k, v in flatten(params)]
+        return state["cut"]
 
     def train_step(params, teacher_params, opt_state, batch: Dict, step: int):
         marks = [time.perf_counter()]
+        tp_ms = []
 
         def mark():
             if split_times:
                 if batch["tokens"].is_cuda:
                     torch.cuda.synchronize(batch["tokens"].device)
                 marks.append(time.perf_counter())
+                if tp is not None:
+                    tp_ms.append(tp.ms)
 
+        if tp is not None:
+            tp.timed, tp.ms = split_times, 0.0
         loss, grads = loss_and_grads(params, teacher_params, batch, mark)
         mark()
         if tcfg.grad_clip:
-            clip_by_global_norm(grads, tcfg.grad_clip)
+            if tp is None:
+                clip_by_global_norm(grads, tcfg.grad_clip)
+            else:
+                clip_by_global_norm(grads, tcfg.grad_clip,
+                                    sharded=sharded_mask(params), comm=tp)
         lr = cosine_schedule(step, base_lr=base_lr,
                              total_steps=tcfg.total_steps,
                              warmup_steps=tcfg.warmup_steps,
@@ -206,9 +333,19 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
         mark()
         metrics = {"loss": loss, "lr": lr}
         if split_times:
-            metrics["ms"] = {name: 1e3 * (b - a) for name, a, b in zip(
-                ("teacher", "student", "sync", "optimizer"), marks,
-                marks[1:])}
+            # marks: start, teacher, student, model-axis sum, data sync,
+            # optimizer; the model axis's collectives inside the teacher
+            # and student phases move to "tp"
+            d = [1e3 * (b - a) for a, b in zip(marks, marks[1:])]
+            c = [0.0] * 5
+            if tp is not None:
+                c = [tp_ms[0], tp_ms[1] - tp_ms[0], tp_ms[2] - tp_ms[1],
+                     0.0, 0.0]
+                tp.timed = False
+            metrics["ms"] = {"teacher": d[0] - c[0],
+                             "student": d[1] - c[1],
+                             "tp": c[0] + c[1] + d[2],
+                             "sync": d[3], "optimizer": d[4]}
         return params, opt_state, metrics
 
     def reset_error_feedback():
@@ -217,10 +354,29 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig,
     train_step.loss_and_grads = loss_and_grads
     train_step.local_loss_and_grads = local_loss_and_grads
     train_step.sync = sync
+    train_step.tp_sum = tp_sum
+    train_step.sharded_mask = sharded_mask
     train_step.reset_error_feedback = reset_error_feedback
     train_step.error_feedback = lambda: state["err"]
     train_step.dp = dp
+    train_step.tp = tp
+    train_step.attn_mode = attn_mode
     return train_step
+
+
+def _is_cut(cfg: ModelConfig, mesh, path: str, t: torch.Tensor) -> bool:
+    """Whether a training rank's leaf ``t`` is its cut of the whole leaf:
+    the rules put "model" on a dim of the whole leaf, whose size there is
+    ``m`` times this rank's (the rules cut a dim only where ``m`` divides
+    it, and :func:`check_model_axis` refuses widths it does not)."""
+    from repro_torch.runtime.sharding import param_spec
+    m = model_axis(mesh)
+    for dim in range(t.dim()):
+        whole = list(t.shape)
+        whole[dim] *= m
+        if param_spec(cfg, mesh, path, tuple(whole))[dim] == "model":
+            return True
+    return False
 
 
 def make_eval_loss(cfg: ModelConfig, precision: str) -> Callable:

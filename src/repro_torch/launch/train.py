@@ -6,9 +6,9 @@ for static activation policies, activation step sizes (percentile over 5
 batches), (4) train end to end with the pure-KD loss, LSQ scale learning
 (50x LR on activation scales), cosine LR and AdamW, (5) checkpoint and
 resume with heartbeats (``--simulate-failure-at`` exercises it). On a
-data axis of ranks (``run_qat(mesh=...)``, started by
-``launch.mesh.spawn``) every step is the one-process step on the global
-batch.
+mesh of ranks (``run_qat(mesh=...)``, started by ``launch.mesh.spawn``:
+data replicas of model ranks) every step is the one-process step on the
+global batch.
 
     python -m repro_torch.launch.train --device cpu --steps 2 \\
         --teacher-steps 2 --batch-size 2 --seq-len 32
@@ -33,7 +33,7 @@ from repro_torch.data import (MixtureIterator, ShardedLoader,
                               SyntheticConfig, calibration_batches)
 from repro_torch.device import resolve_device
 from repro_torch.launch.steps import (data_comm, global_denom, grads_of,
-                                     make_train_step)
+                                     make_train_step, model_axis)
 from repro_torch.models import forward, init_params
 from repro_torch.optim import adamw_init, adamw_update, clip_by_global_norm
 from repro_torch.runtime.fault import HeartbeatFile
@@ -119,7 +119,8 @@ def run_qat(arch: str, tcfg: TrainConfig, *, reduced: bool = True,
             eval_fn=None, device=None, ckpt_every: int = 100,
             n_layers: Optional[int] = None, split_times: bool = False,
             on_start: Optional[Callable] = None,
-            on_step: Optional[Callable] = None, mesh=None):
+            on_step: Optional[Callable] = None, mesh=None,
+            attn_shard_mode: Optional[str] = None):
     """The whole flow; returns (teacher, student, eval history).
 
     ``device``: ``cuda`` unless told otherwise. ``ckpt_every``: steps
@@ -128,22 +129,30 @@ def run_qat(arch: str, tcfg: TrainConfig, *, reduced: bool = True,
     before the first step, ``on_step(step, metrics, student, opt)`` after
     every step (``split_times`` puts the phases' ms in ``metrics["ms"]``).
 
-    ``mesh``: a ``launch.mesh.Mesh`` of data > 1 replicas (one process a
-    rank, started by ``launch.mesh.spawn``; ``device`` is then the
-    mesh's). Every rank builds the same teacher from the seed, pretrains
-    it and trains the student through the gradient sync
-    (``make_train_step(mesh=...)``), and calibrates on the full
-    calibration batches as one process does, so the replicas start and
-    stay bitwise equal. Each rank draws the same global batches and keeps
-    its rows (``ShardedLoader``). Rank 0 writes the checkpoints, which
-    hold the replicated state only, and every rank restores them: a
-    checkpoint restores at any data size (``runtime.fault.ElasticPlan``'s
-    shrink), and a restore zeroes the int8 sync's error feedback. Each
-    rank beats its own heartbeat file (``worker`` is its rank).
+    ``mesh``: a ``launch.mesh.Mesh`` of data replicas of model ranks
+    (one process a rank, started by ``launch.mesh.spawn``; ``device`` is
+    then the mesh's). Every rank builds the same teacher from the seed,
+    pretrains it (on the data axis: the model ranks of a replica repeat
+    one another's work), calibrates on the full calibration batches as
+    one process does and trains the student through the gradient syncs
+    (``make_train_step(mesh=...)``), so the replicas start and stay
+    bitwise equal. At model > 1 each rank then keeps its part of the
+    student, the teacher and the optimizer state
+    (``runtime.sharding.shard_train_state`` in ``attn_shard_mode``, by
+    default the reference's ``attn_shard_mode_for``) and frees the whole
+    trees. Each rank draws the same global batches and keeps its data
+    replica's rows (``ShardedLoader``). Global rank 0 writes the
+    checkpoints, which hold the whole state (at model > 1 gathered over
+    the model ranks: ``runtime.sharding.gather_train_state``), and every
+    rank restores them into its whole tree before it cuts its part: a
+    checkpoint restores at any data and model size
+    (``runtime.fault.ElasticPlan``'s shrink), and a restore zeroes the
+    int8 sync's error feedback. Each rank beats its own heartbeat file
+    (``worker`` is its global rank).
     """
     if mesh is not None:
         device = mesh.device
-        worker = int(mesh.data_rank)
+        worker = int(mesh.data_rank) * model_axis(mesh) + int(mesh.rank)
     dev = resolve_device(device)
     cfg = get_reduced_config(arch) if reduced else get_config(arch)
     if n_layers:
@@ -152,8 +161,11 @@ def run_qat(arch: str, tcfg: TrainConfig, *, reduced: bool = True,
                                seq_len=tcfg.seq_len,
                                batch_size=tcfg.batch_size,
                                dclm_ratio=tcfg.dclm_ratio, seed=tcfg.seed)
-    step_fn = make_train_step(cfg, tcfg, split_times=split_times, mesh=mesh)
-    writer = mesh is None or int(mesh.data_rank) == 0
+    step_fn = make_train_step(cfg, tcfg, split_times=split_times, mesh=mesh,
+                              attn_shard_mode=attn_shard_mode)
+    writer = mesh is None or (int(mesh.data_rank) == 0
+                              and int(mesh.rank) == 0)
+    tp = step_fn.tp
 
     print(f"[qat] teacher pretrain ({teacher_steps} steps)", flush=True)
     teacher = pretrain_teacher(cfg, data_cfg, teacher_steps, tcfg.seed, dev,
@@ -173,7 +185,25 @@ def run_qat(arch: str, tcfg: TrainConfig, *, reduced: bool = True,
         start_step = extra["step"]
         step_fn.reset_error_feedback()
         print(f"[qat] resumed from step {start_step}", flush=True)
+    dims = None
+    if tp is not None:
+        from repro_torch.runtime.sharding import (cut_dims, shard_params,
+                                                  shard_train_state)
+        mode = step_fn.attn_mode
+        dims = cut_dims(student, cfg, mesh, mode)
+        student, opt = shard_train_state(student, opt, cfg, mesh, mode)
+        student = _trainable(student)
+        teacher = shard_params(teacher, cfg, mesh, mode)
+        if dev.type == "cuda":
+            import torch
+            torch.cuda.empty_cache()
     loader = ShardedLoader(it, mesh=mesh, device=dev)
+
+    def whole_state():
+        if tp is None:
+            return student, opt
+        from repro_torch.runtime.sharding import gather_train_state
+        return gather_train_state(student, opt, dims, tp)
 
     hb = HeartbeatFile(heartbeat_dir, worker) if heartbeat_dir else None
     history = []
@@ -196,9 +226,15 @@ def run_qat(arch: str, tcfg: TrainConfig, *, reduced: bool = True,
                   f"lr {metrics['lr']:.2e} ({dt:.2f}s)", flush=True)
         if eval_every and eval_fn and (step + 1) % eval_every == 0:
             history.append((step + 1, eval_fn(student)))
-        if ckpt and writer and (step + 1) % ckpt_every == 0:
-            ckpt.save_async(step + 1, (student, opt),
-                            {"step": step + 1, "data": loader.state_dict()})
+        if ckpt and (step + 1) % ckpt_every == 0 and (
+                writer or (tp is not None and int(mesh.data_rank) == 0)):
+            # at model > 1 data replica 0's model ranks gather together
+            state = whole_state()
+            if writer:
+                ckpt.save_async(step + 1, state,
+                                {"step": step + 1,
+                                 "data": loader.state_dict()})
+            del state
     if ckpt and writer:
         ckpt.wait()
     return teacher, student, history

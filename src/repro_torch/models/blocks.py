@@ -26,6 +26,12 @@ layer holds ``n_experts / tp`` experts a rank (expert parallelism) or
 every expert's ``d_ff / tp`` slice (TP inside experts):
 :func:`moe_fwd`.
 
+Tensor-parallel training (``ctx.attn_mode``, model > 1) runs them on
+the global config instead: :func:`attn_fwd` cuts the attention by the
+reference's mode (:func:`_attn_fwd_tp`: heads, ``kv_rep``'s gathered
+K/V, ``seq``'s query rows), :func:`mlp_fwd` copies its input in before
+the column-parallel ``wg`` / ``wu`` and ``wd`` sums its f32 partials.
+
 Two cache layouts: the dense ring (``init_attn_cache``, one stripe of
 ``cache_len`` rows per slot, or of ``min(cache_len, window)`` rows for a
 sliding-window layer, whose ring eviction enforces the window) and the paged pool (``init_paged_attn_cache``,
@@ -44,7 +50,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.qat import (QuantCtx, cache_quantize, init_linear,
                                   qlinear, quantize_act, quantize_weight_p,
-                                  subcol)
+                                  subcol, train_tp)
 from repro_torch.core.quantizer import quantize_by_amax, quantize_to_int
 from repro_torch.kernels.kvq_attn.ref import gather_paged_kv, pool_blocks
 from repro_torch.models.common import (_gelu, _tanh, apply_rope,
@@ -142,6 +148,10 @@ def _row_sliced(p: Dict, d_in: int) -> bool:
 
 def mlp_fwd(cfg: ModelConfig, ctx: QuantCtx, p: Dict, x: torch.Tensor,
             col: Optional[Dict] = None) -> torch.Tensor:
+    if train_tp(ctx):
+        # tensor-parallel training: wg / wu (w1) column-parallel on the
+        # input copied in, wd (w2) row-parallel
+        x = ctx.tp.copy_in(x)
     if "w1" in p:
         # GELU MLP (whisper): the tanh-approximate GELU in f32
         h = qlinear(ctx, x, p["w1"], subcol(col, "w1"))
@@ -462,18 +472,126 @@ def attn_fwd(cfg: ModelConfig, ctx: QuantCtx, p: Dict, x: torch.Tensor,
     differentiates the same function in the reference.
     """
     B, S, _ = x.shape
+    if train_tp(ctx) and enc_out is None:
+        return _attn_fwd_tp(cfg, ctx, p, x, rope, col, window=window,
+                            causal=causal)
     xkv = x if enc_out is None else enc_out
     q, k, v = _qkv(cfg, ctx, p, x, xkv, rope, col,
                    skip_rope=enc_out is not None)
-    causal = causal and enc_out is None
-    if torch.is_grad_enabled():
-        out = blockwise_attention(q, k, v, causal=causal, window=window,
-                                  q_chunk=1024, kv_chunk=1024)
-    else:
-        from repro_torch.kernels.flash_attn.ops import flash_attn_fwd
-        out = flash_attn_fwd(q, k, v, causal=causal, window=window,
-                             plain=ctx.kernel_backend == "ref")
+    out = _attention(ctx, q, k, v, causal=causal and enc_out is None,
+                     window=window)
     return _out_proj(ctx, p, out.reshape(B, S, cfg.q_dim), col)
+
+
+def _attention(ctx: QuantCtx, q, k, v, *, causal: bool, window: int,
+               q_offset: int = 0, q_chunk: int = 1024) -> torch.Tensor:
+    """:func:`attn_fwd`'s rule: :func:`blockwise_attention` under
+    autograd, the flash kernel (CUDA) or its plain version without."""
+    if torch.is_grad_enabled():
+        return blockwise_attention(q, k, v, causal=causal, window=window,
+                                   q_chunk=q_chunk, kv_chunk=1024,
+                                   q_offset=q_offset)
+    from repro_torch.kernels.flash_attn.ops import flash_attn_fwd
+    return flash_attn_fwd(q, k, v, causal=causal, window=window,
+                          q_offset=q_offset,
+                          plain=ctx.kernel_backend == "ref")
+
+
+def kv_heads_for(cfg: ModelConfig, heads: range) -> list:
+    """The KV heads to hand an attention with the query heads ``heads``:
+    the distinct ones they read (``h // group``) where local query head
+    i reads local KV head ``i // (len(heads) / n)`` (the kernel's and
+    :func:`blockwise_attention`'s map), else one a query head (heads
+    that straddle groups unevenly, e.g. 6 of 12 query heads over 3 KV
+    heads)."""
+    group = cfg.n_heads // cfg.n_kv_heads
+    kv = [h // group for h in heads]
+    uniq = sorted(set(kv))
+    per = len(kv) // len(uniq)
+    even = len(kv) % len(uniq) == 0 and all(
+        uniq.index(j) == i // per for i, j in enumerate(kv))
+    return uniq if even else kv
+
+
+def _attn_fwd_tp(cfg: ModelConfig, ctx: QuantCtx, p: Dict, x: torch.Tensor,
+                 rope, col: Optional[Dict], *, window: int,
+                 causal: bool) -> torch.Tensor:
+    """Self-attention on a tensor-parallel training rank
+    (``ctx.attn_mode``; the reference's ``attn_shard_mode`` hints):
+
+    * ``""``: ``wq`` / ``wk`` / ``wv`` cut by heads (the KV heads divide
+      the model axis), local attention, ``wo`` row-parallel;
+    * ``"kv_rep"``: ``wq`` cut by heads, ``wk`` / ``wv`` column-parallel
+      as the rules cut them (a cut may fall inside a KV head); their
+      outputs are gathered whole in rank order (exact) and each rank
+      takes the KV heads its query heads read (one a query head where
+      the rank's heads straddle groups: :func:`kv_heads_for`); the
+      gather's backward sums the ranks' K/V gradients;
+    * ``"seq"``: every attention linear whole; this rank's S / m query
+      rows (at their global positions, ``q_offset``) attend over whole
+      K / V, ``wo`` runs on those rows and the rows are gathered along
+      the sequence.
+
+    The block's input is copied in, so its gradient is summed over the
+    ranks. The scales and norms a rank reads on its part only (s_q,
+    s_k, s_v, the inputs of wo, q_norm / k_norm, and in ``seq`` every
+    attention leaf) hold partial gradients the step sums afterwards."""
+    tp, mode = ctx.tp, ctx.attn_mode
+    m, r = tp.size, tp.rank
+    hd, H, Hkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+    B, S, _ = x.shape
+    x = tp.copy_in(x)
+    cos = sin = None
+    if rope is not None:
+        cos, sin = rope
+    if mode == "seq":
+        n = S // m
+        lo = r * n
+        q = qlinear(ctx, x[:, lo:lo + n], p["wq"], subcol(col, "wq"),
+                    shards=m).reshape(B, n, H, hd)
+        k = qlinear(ctx, x, p["wk"], subcol(col, "wk")).reshape(
+            B, S, Hkv, hd)
+        v = qlinear(ctx, x, p["wv"], subcol(col, "wv")).reshape(
+            B, S, Hkv, hd)
+        q_shards, kv_shards, heads = m, 1, None
+        if cos is not None:
+            q_rope = (cos[lo:lo + n], sin[lo:lo + n])
+    else:
+        lo, n = 0, S
+        hl = H // m
+        q = qlinear(ctx, x, p["wq"], subcol(col, "wq")).reshape(
+            B, S, hl, hd)
+        k = qlinear(ctx, x, p["wk"], subcol(col, "wk"))
+        v = qlinear(ctx, x, p["wv"], subcol(col, "wv"))
+        if mode == "kv_rep":
+            k = tp.gather_last(k, grad="sum")
+            v = tp.gather_last(v, grad="sum")
+            q_shards, kv_shards = m, 1
+        else:
+            q_shards, kv_shards = m, m
+        k = k.reshape(B, S, -1, hd)
+        v = v.reshape(B, S, -1, hd)
+        heads = range(r * hl, (r + 1) * hl)
+        q_rope = (cos, sin)
+    if "q_norm" in p:
+        q = head_rms_norm(q, p["q_norm"]["w"], cfg.norm_eps)
+        k = head_rms_norm(k, p["k_norm"]["w"], cfg.norm_eps)
+    if cos is not None:
+        q = apply_rope(q, *q_rope)
+        k = apply_rope(k, cos, sin)
+    q = quantize_act(ctx, q, p, "s_q", col, shards=q_shards)
+    k = quantize_act(ctx, k, p, "s_k", col, shards=kv_shards)
+    v = quantize_act(ctx, v, p, "s_v", col, shards=kv_shards)
+    if mode == "kv_rep":
+        idx = torch.tensor(kv_heads_for(cfg, heads), device=k.device)
+        k, v = k.index_select(2, idx), v.index_select(2, idx)
+    out = _attention(ctx, q, k, v, causal=causal, window=window,
+                     q_offset=lo, q_chunk=n if mode == "seq" else 1024)
+    out = out.reshape(B, n, -1)
+    if mode == "seq":
+        y = qlinear(ctx, out, p["wo"], subcol(col, "wo"), shards=m)
+        return tp.gather_seq(y)
+    return qlinear(ctx, out, p["wo"], subcol(col, "wo"), row=True)
 
 
 def quantize_kv_for_cache(ctx: QuantCtx, p: Dict, k: torch.Tensor,

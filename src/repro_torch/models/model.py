@@ -48,7 +48,8 @@ import torch.utils.checkpoint
 from repro_torch.configs.base import (ATTENTION_BLOCKS, BLOCK_ATTN,
                                       BLOCK_LOCAL_ATTN, BLOCK_MLSTM,
                                       BLOCK_RGLRU, BLOCK_SLSTM, ModelConfig)
-from repro_torch.core.qat import QuantCtx, cache_dtype, qlinear, subcol
+from repro_torch.core.qat import (QuantCtx, cache_dtype, qlinear, subcol,
+                                  train_tp)
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks as B
 from repro_torch.models import recurrent as R
@@ -241,11 +242,16 @@ def head_logits(cfg: ModelConfig, params: Dict, ctx: QuantCtx,
             p["w4a8"] = params["head"]["w4a8"]
     else:
         p = params["head"]
+    if train_tp(ctx):
+        x = ctx.tp.copy_in(x)
     logits = qlinear(ctx, x, p, subcol(col, "head"), act_bits=hb,
                      weight_bits=hb)
     if ctx.tp is not None and logits.shape[-1] < cfg.vocab_size:
         # column-parallel on the vocabulary: the ranks' slices in order
-        logits = ctx.tp.all_gather_last(logits)
+        # (in training every rank's loss reads them whole, so the
+        # gradient of its own slice is this rank's)
+        logits = (ctx.tp.gather_last(logits) if logits.requires_grad
+                  else ctx.tp.all_gather_last(logits))
     return logits
 
 

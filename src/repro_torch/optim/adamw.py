@@ -31,12 +31,31 @@ class AdamWState(NamedTuple):
     v: Any
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, sharded=None, comm=None):
     """Scale the gradient tree in place so its global L2 norm is at most
-    ``max_norm``; returns (grads, norm). ``None`` leaves count as zeros."""
-    gs = [g for g in tree_leaves(grads) if g is not None]
+    ``max_norm``; returns (grads, norm). ``None`` leaves count as zeros.
+
+    On a tensor-parallel rank ``sharded`` (bools in leaf order) marks the
+    leaves that are this rank's shards: their squares are summed over the
+    model ranks (``comm``, a ``TPComm``: one f32 all-reduce), and every
+    other leaf, whole and the same on every rank, is counted once, so
+    each rank scales by the same norm, the whole tree's."""
+    leaves = tree_leaves(grads)
+    gs = [g for g in leaves if g is not None]
     with torch.no_grad():
-        sq = sum(torch.sum(torch.square(g.float())) for g in gs)
+        if comm is None:
+            sq = sum(torch.sum(torch.square(g.float())) for g in gs)
+        else:
+            parts = [[], []]
+            for g, cut in zip(leaves, sharded):
+                if g is not None:
+                    parts[bool(cut)].append(torch.sum(torch.square(
+                        g.float())))
+            dev = gs[0].device
+            cut_sq = torch.stack(parts[1]).sum() if parts[1] else \
+                torch.zeros((), device=dev)
+            cut_sq = comm.all_reduce_sum_f32(cut_sq.reshape(1))[0]
+            sq = cut_sq + sum(parts[0])
         norm = torch.sqrt(torch.as_tensor(sq, dtype=torch.float32))
         scale = torch.clamp_max(max_norm / torch.clamp_min(norm, 1e-12), 1.0)
         for g in gs:

@@ -37,7 +37,7 @@ param_shardings(...))``: it keeps this rank's slice of every leaf.
 :func:`local_bytes` is one rank's share of a tree under its specs.
 ``param_spec`` stays the reference's pure rule, whose GSPMD reshards
 what the port keeps head-local; both helpers depart from it in two
-cases. Where ``tp`` is a multiple of ``n_kv_heads``
+cases for serving (training's layout is below). Where ``tp`` is a multiple of ``n_kv_heads``
 (:func:`kv_head_local`) they keep a whole KV head a rank instead of the
 spec's slice of one. Where ``tp`` divides neither the query heads nor,
 with a multiple of it, the KV heads (:func:`attn_replicated`), they keep
@@ -58,6 +58,17 @@ channels, the mLSTM's heads) or whole (the sLSTM's), never resharded.
 
 :func:`shard_batch` cuts this data rank's rows of a training batch by
 :func:`batch_spec`.
+
+Training at model > 1 (``shard_params(..., attn_mode=...)``,
+:func:`shard_train_state`) takes the rules as they are, the optimizer's
+moments following their parameters (the reference's ``opt_shardings``),
+with one departure: under the ``seq`` attention mode the attention's
+linears stay whole (:func:`train_whole_leaf`), where the reference's
+GSPMD would reshard its activations around cut ones. ``kv_rep`` keeps
+the rules' column cut of ``wk`` / ``wv`` even where it falls inside a KV
+head (the model code gathers their outputs). :func:`gather_params` undoes
+the cut (a checkpoint's whole tree), and :func:`partial_grad` names the
+leaves whose gradient each rank holds a part of.
 """
 from __future__ import annotations
 
@@ -442,7 +453,8 @@ def _kv_head_dim(cfg: ModelConfig, path: str,
     return len(shape) + dim
 
 
-def shard_params(params, cfg: ModelConfig, mesh):
+def shard_params(params, cfg: ModelConfig, mesh,
+                 attn_mode: Optional[str] = None):
     """This rank's slice of every leaf of ``params`` (a new tree; each
     sharded leaf a contiguous copy, so the full leaves can be freed).
     Dims a spec maps to "model" are cut into ``mesh.shape["model"]``
@@ -459,10 +471,18 @@ def shard_params(params, cfg: ModelConfig, mesh):
     the same columns of tp=1's. Where every rank runs the whole attention
     (:func:`attn_replicated`), its linears' leaves are kept whole. The
     recurrent linears of :func:`recurrent_blocks` keep their blocks whole
-    or cut by heads."""
+    or cut by heads.
+
+    ``attn_mode`` (a string) asks for the training layout of that
+    attention mode instead (:func:`train_whole_leaf`): the rules as they
+    are, but for ``seq``, whose attention linears stay whole. A training
+    tree's every part takes it: the student, the teacher and the
+    optimizer's ``m`` / ``v`` (:func:`shard_train_state`), as the
+    reference's ``opt_shardings`` follow the parameters."""
     tp, rank = int(mesh.shape["model"]), int(mesh.rank)
-    local_kv = kv_head_local(cfg, tp)
-    whole_attn = attn_replicated(cfg, tp)
+    train = attn_mode is not None
+    local_kv = kv_head_local(cfg, tp) and not train
+    whole_attn = (attn_mode == "seq") if train else attn_replicated(cfg, tp)
     hd = cfg.resolved_head_dim
     kv_head = rank // (tp // cfg.n_kv_heads) if local_kv else 0
 
@@ -494,6 +514,104 @@ def shard_params(params, cfg: ModelConfig, mesh):
         return _slice(tree, spec, tp, rank).contiguous().clone()
 
     return walk(params, "")
+
+
+# --------------------------------------------------------------------------
+# The training layout (tensor-parallel QAT at model > 1)
+# --------------------------------------------------------------------------
+
+TRAIN_MODES = ("", "kv_rep", "seq")
+
+
+def train_whole_leaf(path: str, attn_mode: str) -> bool:
+    """Whether the training layout keeps ``path`` whole where the rules
+    would cut it: under ``seq`` every rank runs the attention's linears
+    whole on its query rows (the reference's GSPMD instead reshards the
+    activations around cut linears; the port departs here, as
+    :func:`attn_replicated` does for serving)."""
+    return attn_mode == "seq" and _attn_leaf(path)
+
+
+def cut_dims(params, cfg: ModelConfig, mesh,
+             attn_mode: str) -> Dict[str, Optional[int]]:
+    """{path: the dim :func:`shard_params` cuts over "model" in the
+    training layout of ``attn_mode``, or None for a whole leaf}, from the
+    whole tree ``params`` (what :func:`gather_params` undoes)."""
+    out = {}
+    for path, t in flatten(params):
+        if not isinstance(t, torch.Tensor):
+            continue
+        spec = param_spec(cfg, mesh, path, tuple(t.shape))
+        dim = spec.index("model") if "model" in spec else None
+        out[path] = None if train_whole_leaf(path, attn_mode) else dim
+    return out
+
+
+def gather_params(tree, dims: Dict[str, Optional[int]], comm):
+    """The whole tree from this rank's shards: each cut leaf all-gathered
+    over the model ranks (``comm``, a ``TPComm``) along its dim of
+    ``dims`` (:func:`cut_dims`), in rank order; a whole leaf as it is.
+    Bitwise the tree :func:`shard_params` cut. Collective: every model
+    rank calls it."""
+    def walk(t, prefix):
+        if isinstance(t, dict):
+            return {k: walk(v, f"{prefix}{k}/") for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return type(t)(walk(v, f"{prefix}{i}/") for i, v in enumerate(t))
+        dim = dims.get(prefix[:-1]) if isinstance(t, torch.Tensor) else None
+        if dim is None:
+            return t
+        return comm.all_gather_dim(t.detach(), dim)
+    return walk(tree, "")
+
+
+def shard_train_state(student, opt, cfg: ModelConfig, mesh,
+                      attn_mode: str):
+    """(this rank's student, its optimizer state): the AdamW moments cut
+    as their parameters (``step`` whole)."""
+    return (shard_params(student, cfg, mesh, attn_mode),
+            type(opt)(opt.step, shard_params(opt.m, cfg, mesh, attn_mode),
+                      shard_params(opt.v, cfg, mesh, attn_mode)))
+
+
+def gather_train_state(student, opt, dims, comm):
+    """:func:`shard_train_state` undone (a checkpoint's whole tree)."""
+    return (gather_params(student, dims, comm),
+            type(opt)(opt.step, gather_params(opt.m, dims, comm),
+                      gather_params(opt.v, dims, comm)))
+
+
+# per-leaf keys a rank reads on its part only in every training mode
+_PARTIAL_KEYS = {"s_in", "s_q", "s_k", "s_v"}
+
+
+def partial_grad(path: str, attn_mode: str) -> bool:
+    """Whether a training rank's gradient of ``path`` is its part of a
+    sum over the model ranks (summed after the backward,
+    ``TPComm.sum_grads``): a leaf whole on every rank that each rank
+    reads on its part of a tensor only.
+
+    * every per-tensor activation scale (``s_in``: a column-parallel
+      linear's input is quantized whole but only this rank's columns
+      take its gradient, a row-parallel one's is a slice; ``s_q``,
+      ``s_k``, ``s_v``: this rank's heads or query rows, or the whole K
+      / V read for this rank's heads);
+    * the per-channel ``s_w`` of the row-parallel ``wo`` and ``wd`` (this
+      rank's rows of each channel);
+    * ``q_norm`` / ``k_norm`` (qwen3's per-head norms, on this rank's
+      heads, or the whole K read for them);
+    * under ``seq`` every attention leaf (whole, read on this rank's
+      query rows)."""
+    parts = path.split("/")
+    key = parts[-1]
+    parent = parts[-2] if len(parts) >= 2 else ""
+    if key in _PARTIAL_KEYS:
+        return True
+    if key == "s_w" and parent in ("wo", "wd"):
+        return True
+    if parent in ("q_norm", "k_norm"):
+        return True
+    return train_whole_leaf(path, attn_mode)
 
 
 def local_bytes(tree, specs: Dict[str, Spec], tp: int,
@@ -533,7 +651,9 @@ def shard_batch(batch: Dict[str, Any], mesh) -> Dict[str, Any]:
     """This data rank's rows of every leaf of a global ``batch`` (numpy
     arrays or tensors), cut by :func:`batch_spec`: the batch dim (dim 1
     of ``positions``) in ``mesh.shape["data"]`` equal parts in data-rank
-    order (``mesh.data_rank``). Scalars are kept whole. A batch the data
+    order (``mesh.data_rank``); every model rank of a data replica gets
+    the same rows (the model code reads them whole). Scalars are kept
+    whole. A batch the data
     axis does not divide gets the reference's sequence-over-"data" spec,
     which needs context-parallel attention: that raises
     NotImplementedError (ROADMAP Queue 1 item 2b)."""

@@ -685,7 +685,10 @@ def test_data_axis_refusals():
     cfg = t_reduced("qwen2.5-3b")
     mesh = Mesh(shape={"data": 2, "model": 2}, rank=0,
                 device=torch.device("cpu"))
+    # the dense decoders train at model > 1 (tests/test_torch_tp_train.py);
+    # an MoE's sharded backward is not ported
     with pytest.raises(NotImplementedError, match="model > 1"):
-        tsteps.make_train_step(cfg, _train_cfg(POLICIES[0]), mesh=mesh)
+        tsteps.make_train_step(t_reduced("mixtral-8x7b"),
+                               _train_cfg(POLICIES[0]), mesh=mesh)
     with pytest.raises(ValueError, match="grad_compression"):
         tsteps.make_train_step(cfg, _train_cfg(POLICIES[0], "fp8"))

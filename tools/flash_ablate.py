@@ -161,7 +161,7 @@ def main() -> int:
                 def call(q, k, v, fn=fn):
                     out = torch.empty_like(q)
                     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                             out.data_ptr(), B, S, S, H, Hkv, D, S, S, 1, 0,
+                             out.data_ptr(), B, S, S, H, Hkv, D, S, S, 1, 0, 0,
                              D ** -0.5,
                              torch.cuda.current_stream().cuda_stream)
                     if err:
